@@ -2,7 +2,8 @@
 """Smoke test of the PyTorch/CUDA port (wxfactory_tpu_torch) on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It builds the
-CUDA kernel from csrc/ (nvcc, sm_90a) and drives the port's main path:
+CUDA kernels from csrc/ (one nvcc per source, sm_90a, all started together)
+and drives the port's two main paths, shallow water and 3D Euler:
 
 0. environment: card name and power limit, torch/CUDA/nvcc/sympy versions,
    kernel build time and the compiler's register/spill report;
@@ -13,12 +14,27 @@ CUDA kernel from csrc/ (nvcc, sm_90a) and drives the port's main path:
 2. the same case-6 run (nel=10, s=3, TVD-RK3, dt=30 s, 20 steps, f64) on
    the GPU and on the CPU (plain version): final states agree to 1e-10 of
    each variable's max;
-3. the main path at full width: ``python -m wxfactory_tpu_torch`` on
+3. the SW main path at full width: ``python -m wxfactory_tpu_torch`` on
    Williamson case 6, nel=64, s=3, f64, TVD-RK3, dt=10 s, 360 steps, with
    exactly one kernel launch per RK stage, a finite state, mass drift below
    1e-10 and a checkpoint that reads back;
-4. time per RHS call of the kernel and of the plain version at nel=64, s=3
-   (CUDA events, median), f64 and f32.
+4. time per RHS call of the SW kernel and of the plain version at nel=64,
+   s=3 (CUDA events, median), f64 and f32;
+5. the 3D Euler operator kernel against its plain version on the card, at
+   (nel_h, nel_v, s) = (3,2,2), (12,3,2), (4,2,3), (20,20,3), (4,4,4),
+   (3,2,5), (2,2,6) on DCMIP 31 and (4,2,3) on the rotating planet of case
+   77, float64 and float32, in RHS mode, stage mode with and without x, with
+   emitted traces, and (float32) with the well-balanced offset;
+6. the same dcmip31 run (3x2x2, s=2, TVD-RK3, dt=2 s, 10 steps, f64) on the
+   GPU and on the CPU: final states agree to 1e-10 of each variable's max;
+7. the 3D main path: ``python -m wxfactory_tpu_torch`` on dcmip31 at
+   nel_h = nel_v = 20, s=3 (1,296,000 points), f64, TVD-RK3, dt=0.1 s, 200
+   steps (20 simulated seconds), then the canonical 12x12x3, s=2, dt=0.5 s,
+   150 steps; each with exactly one kernel launch per RK stage, a finite
+   state, mass drift below 1e-11 and checkpoints that read back;
+8. time per call at 20x20x3, s=3 of the 3D kernel (RHS; stage + x +
+   traces), its plain version and the halo glue (CUDA events, median), f64
+   and f32, beside the call's memory/compute bound.
 
 Each phase prints one JSON line; then the kernels line, the card's
 ``nvidia-smi`` name and power limit, and last the result line. Any failure
@@ -39,7 +55,14 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SHAPES = [(10, 3), (64, 3), (4, 2), (4, 8), (64, 7)]
+E3_SHAPES = [(3, 2, 2, 31), (12, 3, 2, 31), (4, 2, 3, 31), (20, 20, 3, 31), (4, 4, 4, 31), (3, 2, 5, 31),
+             (2, 2, 6, 31), (4, 2, 3, 77)]
+E3_MAIN = (20, 20, 3)
 WORK = ROOT / "build" / "chip_smoke"
+# Peak rates of one H100 SXM (NVIDIA's data sheet): HBM bytes/s, and FLOP/s
+# outside the tensor cores by type.
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
 
 CASE6_INI = """
 [General]
@@ -63,9 +86,53 @@ stat_freq = {save}
 output_dir = {out}
 """
 
+DCMIP31_INI = """
+[General]
+equations = euler
+[System]
+precision = float64
+[Test_case]
+case_number = 31
+[Time_integration]
+dt = {dt}
+t_end = {t_end}
+time_integrator = tvdrk3
+[Spatial_discretization]
+num_solpts = {s}
+num_elements_horizontal = {nel_h}
+num_elements_vertical = {nel_v}
+[Grid]
+grid_type = cubed_sphere
+ztop = 10000
+[Output_options]
+save_state_freq = {save}
+output_dir = {out}
+"""
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def emit_comparison(phase: int, rows, shape_keys) -> None:
+    """One line per (shape, dtype) with the worst scaled error over the
+    modes; every row goes to build/chip_smoke/phase<N>.json."""
+    WORK.mkdir(parents=True, exist_ok=True)
+    (WORK / f"phase{phase}.json").write_text(json.dumps(rows, indent=1))
+    summary = {}
+    for r in rows:
+        key = tuple(r[k] for k in shape_keys) + (r["dtype"],)
+        worst = summary.setdefault(key, {"err": 0.0, "traces_err": 0.0, "tol": r["tol"], "ok": True,
+                                         "modes": 0})
+        worst["err"] = max(worst["err"], r["err"])
+        worst["traces_err"] = max(worst["traces_err"], r.get("traces_err", 0.0))
+        worst["ok"] = worst["ok"] and r["ok"]
+        worst["modes"] += 1
+        for extra in ("base_err_bal", "base_err_plain"):
+            if extra in r:
+                worst[extra] = r[extra]
+    emit({"phase": phase, "ok": all(r["ok"] for r in rows),
+          "results": [dict(zip(shape_keys + ("dtype",), k), **v) for k, v in summary.items()]})
 
 
 def nvidia_smi() -> str:
@@ -82,13 +149,16 @@ def ptxas_summary(log: str):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"sw_operator_kernelI([df])Li(\d+)E", m.group(1))
-            current = {"kernel": f"{'f64' if k.group(1) == 'd' else 'f32'} s={k.group(2)}" if k else m.group(1)}
+            k = re.search(r"(sw_operator|euler3d_operator)_kernelI([df])Li(\d+)E", m.group(1))
+            current = {"kernel": f"{k.group(1)} {'f64' if k.group(2) == 'd' else 'f32'} s={k.group(3)}"
+                       if k else m.group(1)}
             rows.append(current)
         elif current is not None:
-            m = re.search(r"(\d+) bytes spill stores", line)
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if m:
-                current["spill_store_bytes"] = int(m.group(1))
+                current["stack_bytes"] = int(m.group(1))
+                current["spill_store_bytes"] = int(m.group(2))
+                current["spill_load_bytes"] = int(m.group(3))
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 current["registers"] = int(m.group(1))
@@ -103,16 +173,19 @@ def phase0(torch, smi):
     nvcc = subprocess.run([build.nvcc_path(), "--version"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()
     t0 = time.perf_counter()
-    build.load_library("sw_operator")
+    build.build_all(["sw_operator", "euler3d_operator"])
     seconds = time.perf_counter() - t0
-    info = build.build_info.get("sw_operator", {"seconds": 0.0, "log": ""})
     WORK.mkdir(parents=True, exist_ok=True)
-    (WORK / "ptxas.log").write_text(info["log"])
+    info = {name: build.build_info.get(name, {"seconds": 0.0, "log": ""})
+            for name in ("sw_operator", "euler3d_operator")}
+    (WORK / "ptxas.log").write_text("".join(i["log"] for i in info.values()))
     emit({
         "phase": 0, "gpu": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "nvcc": next((l for l in nvcc if "release" in l), nvcc[-1]), "sympy": sympy.__version__,
-        "python": sys.version.split()[0], "build_s": seconds, "nvcc_s": info["seconds"],
-        "built_now": bool(info["log"]), "ptxas": ptxas_summary(info["log"]),
+        "python": sys.version.split()[0], "build_s": seconds,
+        "nvcc_s": {name: i["seconds"] for name, i in info.items()},
+        "built_now": all(bool(i["log"]) for i in info.values()),
+        "ptxas": ptxas_summary("".join(i["log"] for i in info.values())),
     })
 
 
@@ -123,7 +196,7 @@ def phase1(torch):
     for nel, s in SHAPES:
         for dtype in (torch.float64, torch.float32):
             rows += compare_sw_operator(nel, s, dtype, device="cuda")
-    emit({"phase": 1, "ok": all(r["ok"] for r in rows), "results": rows})
+    emit_comparison(1, rows, ("nel", "s"))
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: {bad}")
@@ -149,9 +222,23 @@ def phase2(torch):
         raise AssertionError(f"GPU and CPU runs differ by {err} of scale")
 
 
+def reset_counts():
+    """Set every kernel wrapper's launch count to 0."""
+    from wxfactory_tpu_torch.ops import euler3d_operator as e3op
+    from wxfactory_tpu_torch.ops import sw_operator as swop
+
+    swop.launches = e3op.launches = 0
+
+
+def read_counts():
+    from wxfactory_tpu_torch.ops import euler3d_operator as e3op
+    from wxfactory_tpu_torch.ops import sw_operator as swop
+
+    return {"sw_operator": swop.launches, "euler3d_operator": e3op.launches}
+
+
 def phase3(torch):
     from wxfactory_tpu_torch import __main__ as cli
-    from wxfactory_tpu_torch.ops import sw_operator as swop
     from wxfactory_tpu_torch.output.state import load_state
 
     nsteps, nel = 360, 64
@@ -163,12 +250,12 @@ def phase3(torch):
     ini.write_text(CASE6_INI.format(dt=10, t_end=3600, nel=nel, save=nsteps, out=out_dir))
 
     log = io.StringIO()
-    swop.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(log):
         rc = cli.main([str(ini), "--device", "cuda"])
     wall = time.perf_counter() - t0
-    launches = swop.launches
+    launches = read_counts()["sw_operator"]
     text = log.getvalue()
     sys.stderr.write(text[-4000:])
     if rc != 0:
@@ -240,6 +327,147 @@ def phase4(torch, smi):
     return rows[0]
 
 
+def phase5(torch):
+    from wxfactory_tpu_torch.kernels.check import compare_euler3d_operator
+
+    rows = []
+    for nel_h, nel_v, s, case in E3_SHAPES:
+        for dtype in (torch.float64, torch.float32):
+            rows += compare_euler3d_operator(nel_h, nel_v, s, dtype, device="cuda", case=case)
+    emit_comparison(5, rows, ("nel_h", "nel_v", "s", "case"))
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"3D kernel disagrees with its plain version: {bad}")
+    main_path = [r for r in rows if (r["nel_h"], r["nel_v"], r["s"], r["dtype"]) == E3_MAIN + ("float64",)]
+    return max(r["max_abs_err"] for r in main_path)
+
+
+def phase6(torch):
+    from wxfactory_tpu_torch.config import Configuration
+    from wxfactory_tpu_torch.simulation import Simulation
+
+    text = DCMIP31_INI.format(dt=2, t_end=20, s=2, nel_h=3, nel_v=2, save=0, out=WORK / "phase6")
+    states = {}
+    for device in ("cuda", "cpu"):
+        with contextlib.redirect_stdout(io.StringIO()):
+            states[device] = Simulation(Configuration(text), device=device).run().cpu()
+    want, got = states["cpu"], states["cuda"]
+    scale = want.abs().reshape(5, -1).amax(dim=1).reshape(5, 1, 1, 1, 1, 1)
+    err = float(((got - want).abs() / scale).max())
+    emit({"phase": 6, "case": 31, "steps": 10, "nel_h": 3, "nel_v": 2, "s": 2, "dtype": "float64", "err": err,
+          "tol": 1e-10, "ok": err <= 1e-10})
+    if not err <= 1e-10:
+        raise AssertionError(f"GPU and CPU dcmip31 runs differ by {err} of scale")
+
+
+def _dcmip31_run(torch, nel_h, nel_v, s, dt, nsteps, tag):
+    """One dcmip31 run through the CLI on the card; checks launches, state,
+    mass drift and checkpoints, returns its JSON row."""
+    from wxfactory_tpu_torch import __main__ as cli
+    from wxfactory_tpu_torch.kernels.check import euler3d_setup
+    from wxfactory_tpu_torch.output import global_mass_3d
+    from wxfactory_tpu_torch.output.state import load_state
+
+    out_dir = WORK / f"phase7_{tag}"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for old in glob.glob(str(out_dir / "state_vector_*")):
+        Path(old).unlink()
+    ini = WORK / f"dcmip31_{tag}.ini"
+    ini.write_text(DCMIP31_INI.format(dt=dt, t_end=dt * nsteps, s=s, nel_h=nel_h, nel_v=nel_v, save=nsteps,
+                                      out=out_dir))
+    log = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        rc = cli.main([str(ini), "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    launches = read_counts()["euler3d_operator"]
+    text = log.getvalue()
+    sys.stderr.write(text[-2000:])
+    if rc != 0:
+        raise AssertionError(f"3D main path ({tag}) exited with {rc}")
+    if launches != 3 * nsteps:
+        raise AssertionError(f"{launches} kernel launches in {nsteps} TVD-RK3 steps, expected {3 * nsteps}")
+    run = re.search(r"Completed (\d+) steps in (\S+) s \((\S+) steps/s\)", text)
+    states = {}
+    for step in (0, nsteps):
+        files = glob.glob(str(out_dir / f"state_vector_*.{step:08d}.npy"))
+        if len(files) != 1:
+            raise AssertionError(f"checkpoint files {files}")
+        states[step], _, version = load_state(files[0])
+    q = states[nsteps]
+    shape = (5, 6, nel_v, nel_h, nel_h, s**3)
+    if q.shape != shape or not bool(torch.isfinite(torch.as_tensor(q)).all()):
+        raise AssertionError(f"checkpoint state {q.shape} not finite or misshapen")
+    _, ops, metric, _, _ = euler3d_setup(nel_h, nel_v, s, 31)
+    m0, m1 = global_mass_3d(states[0], ops, metric), global_mass_3d(q, ops, metric)
+    drift = (m1 - m0) / m0
+    if not abs(drift) < 1e-11:
+        raise AssertionError(f"mass drift {drift} over {nsteps} steps")
+    run_s = float(run.group(2))
+    return {
+        "case": 31, "nel_h": nel_h, "nel_v": nel_v, "s": s, "points": 6 * nel_v * nel_h * nel_h * s**3,
+        "dtype": "float64", "integrator": "tvdrk3", "dt": dt, "steps": int(run.group(1)),
+        "simulated_s": dt * nsteps, "setup_s": wall - run_s, "run_s": run_s,
+        "steps_per_s": float(run.group(3)), "main_wall_s": wall, "launches": launches,
+        "mass_drift": drift, "max_abs_w": float(abs(q[3] / q[0]).max()),
+        "checkpoint": Path(files[0]).name, "checkpoint_version": version,
+    }
+
+
+def phase7(torch):
+    main = _dcmip31_run(torch, *E3_MAIN, dt=0.1, nsteps=200, tag="main")
+    canonical = _dcmip31_run(torch, 12, 3, 2, dt=0.5, nsteps=150, tag="canonical")
+    emit({"phase": 7, "results": [main, canonical]})
+    return main["launches"]
+
+
+def phase8(torch, smi):
+    from wxfactory_tpu_torch.kernels.check import euler3d_inputs, euler3d_work
+    from wxfactory_tpu_torch.ops import euler3d_operator as e3op
+
+    rows = []
+    for dtype in (torch.float64, torch.float32):
+        con, topology, x, y = euler3d_inputs(*E3_MAIN, dtype, "cuda")
+        traces = e3op.edge_traces(y, con)
+        halo = e3op.halo_from_traces(traces, topology)
+        kernel = lambda: e3op.euler3d_operator(y, halo, con)
+        plain = lambda: e3op.euler3d_operator_plain(y, halo, con)
+        stage = lambda: e3op.euler3d_operator(y, halo, con, x=x, a=0.75, b=0.25, cdt=0.025, emit_traces=True)
+        glue = lambda: e3op.halo_from_traces(traces, topology)
+        for fn in (kernel, plain, stage, glue):
+            for _ in range(2):
+                fn()
+        torch.cuda.synchronize()
+        k, p = [], []
+        for fn, times in ((plain, p), (kernel, k), (kernel, k), (plain, p)):
+            times.extend(_event_times(torch, fn, n=10))
+        name = str(dtype).replace("torch.", "")
+        row = {"nel_h": E3_MAIN[0], "nel_v": E3_MAIN[1], "s": E3_MAIN[2], "dtype": name,
+               "kernel_rhs_ms": statistics.median(k), "plain_rhs_ms": statistics.median(p),
+               "kernel_stage_traces_ms": statistics.median(_event_times(torch, stage)),
+               "halo_glue_ms": statistics.median(_event_times(torch, glue)), "calls_each": len(k)}
+        for mode, kw in (("rhs", {}), ("stage_traces", dict(stage=True, use_x=True, traces=True))):
+            nbytes, ops = euler3d_work(con, **kw)
+            bound = {"bytes": nbytes / PEAK_BYTES * 1e3, "operations": ops / PEAK_FLOPS[name] * 1e3}
+            row[f"{mode}_bytes"], row[f"{mode}_ops"] = nbytes, ops
+            row[f"{mode}_bound_ms"] = max(bound.values())
+            row[f"{mode}_bound_by"] = max(bound, key=bound.get)
+        rows.append(row)
+    emit({"phase": 8, "gpu": smi, "timing": "CUDA events, median per call", "results": rows})
+    return rows[0]
+
+
+def sw_bound():
+    import torch
+
+    from wxfactory_tpu_torch.kernels.check import sw_work
+
+    nbytes, ops = sw_work(64, 3, torch.float64)
+    bound = {"bytes": nbytes / PEAK_BYTES * 1e3, "operations": ops / PEAK_FLOPS["float64"] * 1e3}
+    return max(bound.values()), max(bound, key=bound.get)
+
+
 def main() -> int:
     try:
         import torch
@@ -256,15 +484,25 @@ def main() -> int:
 
     smi = nvidia_smi()
     phase0(torch, smi)
-    max_abs_err = phase1(torch)
+    sw_err = phase1(torch)
     phase2(torch)
-    launches = phase3(torch)
-    timing = phase4(torch, smi)
-    emit({"kernels": [{
-        "name": "sw_operator", "route": "cuda", "source": "wxfactory_tpu_torch/csrc/sw_operator.cu",
-        "replaces": "wxfactory_tpu/ops/pallas_sw_gen.py:632", "launches": launches,
-        "max_abs_err": max_abs_err, "ms": timing["kernel_rhs_ms"], "plain_ms": timing["plain_rhs_ms"],
-    }]})
+    sw_launches = phase3(torch)
+    sw_timing = phase4(torch, smi)
+    e3_err = phase5(torch)
+    phase6(torch)
+    e3_launches = phase7(torch)
+    e3_timing = phase8(torch, smi)
+    sw_bound_ms, sw_bound_by = sw_bound()
+    emit({"kernels": [
+        {"name": "sw_operator", "route": "cuda", "source": "wxfactory_tpu_torch/csrc/sw_operator.cu",
+         "replaces": "wxfactory_tpu/ops/pallas_sw_gen.py:632", "launches": sw_launches,
+         "max_abs_err": sw_err, "ms": sw_timing["kernel_rhs_ms"], "plain_ms": sw_timing["plain_rhs_ms"],
+         "bound_ms": sw_bound_ms, "bound_by": sw_bound_by, "library_ms": None},
+        {"name": "euler3d_operator", "route": "cuda", "source": "wxfactory_tpu_torch/csrc/euler3d_operator.cu",
+         "replaces": "wxfactory_tpu/ops/pallas_euler3d.py:2131", "launches": e3_launches,
+         "max_abs_err": e3_err, "ms": e3_timing["kernel_rhs_ms"], "plain_ms": e3_timing["plain_rhs_ms"],
+         "bound_ms": e3_timing["rhs_bound_ms"], "bound_by": e3_timing["rhs_bound_by"], "library_ms": None},
+    ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

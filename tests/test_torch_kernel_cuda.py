@@ -1,5 +1,5 @@
-"""The port's SW operator CUDA kernel against its plain torch version, on
-the card. Needs a CUDA device and nvcc, and skips without them. On a GPU
+"""The port's CUDA kernels (SW operator, 3D Euler operator) against their
+plain torch versions, on the card. Needs a CUDA device and nvcc, and skips without them. On a GPU
 machine run it without tests/conftest.py (which configures JAX):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernel_cuda.py
@@ -10,7 +10,13 @@ record at the main path's shapes is chip_smoke.py."""
 import pytest
 import torch
 
-from wxfactory_tpu_torch.kernels.check import case6_inputs, compare_sw_operator
+from wxfactory_tpu_torch.kernels.check import (
+    case6_inputs,
+    compare_euler3d_operator,
+    compare_sw_operator,
+    euler3d_inputs,
+)
+from wxfactory_tpu_torch.ops import euler3d_operator as e3op
 from wxfactory_tpu_torch.ops import sw_operator as swop
 
 pytestmark = pytest.mark.cuda
@@ -38,3 +44,21 @@ def test_launch_counter_counts_kernel_launches_only(cuda):
     swop.sw_operator(y, halo, con, x=x, a=0.5, b=0.5, cdt=1.0, emit_traces=True)
     torch.cuda.synchronize()
     assert swop.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("nel_h,nel_v,s,case", [(3, 2, 2, 31), (4, 2, 3, 77), (2, 2, 6, 31)])
+def test_euler3d_kernel_matches_plain(cuda, nel_h, nel_v, s, case, dtype):
+    rows = compare_euler3d_operator(nel_h, nel_v, s, dtype, device="cuda", case=case)
+    assert all(r["ok"] for r in rows), rows
+
+
+def test_euler3d_launch_counter_counts_kernel_launches_only(cuda):
+    con, topology, x, y = euler3d_inputs(3, 2, 3, torch.float64, "cuda")
+    halo = e3op.halo_from_traces(e3op.edge_traces(y, con), topology)
+    before = e3op.launches
+    e3op.euler3d_operator_plain(y, halo, con)
+    assert e3op.launches == before
+    e3op.euler3d_operator(y, halo, con, x=x, a=0.5, b=0.5, cdt=1.0, emit_traces=True)
+    torch.cuda.synchronize()
+    assert e3op.launches == before + 1

@@ -1,0 +1,539 @@
+// 3D Euler DFR spatial operator on the cubed sphere, one launch per call.
+//
+// Replaces the TPU kernel wxfactory_tpu/ops/pallas_euler3d.py:2131 (km3_fused,
+// body _km3_body) in its absolute form: the RHS, optionally plus the
+// well-balanced offset bal, optionally fused with the RK stage combination
+// a*x + b*q + cdt*(RHS(q) + bal), optionally emitting the output's panel-edge
+// traces for the next stage's halo. It computes what the JAX package's
+// models/euler_cubesphere.py:90-291 (_euler3d_rhs_core) computes. The plain
+// torch version of the same function is wxfactory_tpu_torch/ops/
+// euler3d_operator.py::euler3d_operator_plain; the wrapper euler3d_operator
+// there launches this kernel.
+//
+// Layouts (C order, T = float or double; nh = nel_h, nk = nel_v):
+//   q, x, bal, out  (5, 6*nk*nh*nh, s^3)   element (panel, ez, ey, ex),
+//                                          node (kz*s + ky)*s + kx
+//   halo, traces    (5, 4, 6, nk, nh, s^2) sides (S, N, W, E), face point
+//                                          kz*s + k_along
+//   ops1d           en (s) | ep (s) | cn (s) | cp (s) | D (s, s) | HF (s, s):
+//                   1D extrapolation to x=-1/+1, boundary-correction columns,
+//                   derivative D[j][i], highest-mode filter HF[j][i]
+//   fields          (28, nk*nh*nh, s^3) one panel's metric (the same on all
+//                   six): sqrt(g), 1/sqrt(g), 1/(dz/deta), h00 h01 h02 h11 h12
+//                   h22, Gamma^a_{bc} (a*6 + [11 12 13 22 23 33]), wpres_int
+//   tch             (9, 6*nk*nh*nh, s^3) Gamma^a_{0b} (a*3 + b), or NULL when
+//                   the planet does not rotate
+//   itf_x           (4, nk, nh, nh+1, s^2) [sqrt(g), h^{1k}] at x interfaces
+//   itf_y           (4, nk, nh+1, nh, s^2) [sqrt(g), h^{2k}] at y interfaces
+//   itf_z           (4, nk+1, nh, nh, s^2) [sqrt(g), h^{3k}] at z interfaces
+//
+// Design: one thread per solution point, EB = 256 / s^3 elements per block
+// (s=6: one element of 216 threads); a block's elements share (ez, ey, ex)
+// ranges with the five blocks next to it (the panel is the fastest block
+// index), so the one-panel metric is read from device memory about once and
+// from L2 by the other five panels. The 3D operators are never formed: the
+// 1D operators act along one axis at a time, so shared memory holds the
+// element's state, logs, fluxes and face data (24 s^3 + 42 s^2 numbers an
+// element) and O(s^2) operator entries. Each element computes the Rusanov
+// flux at its own six faces from (own trace, neighbour trace) with qL/qR in
+// a fixed order (west/south/down side left); the neighbour's trace is
+// re-extrapolated (log space for rho and rho*theta) from its state in device
+// memory with the same fma sequence the neighbour uses for its own trace,
+// and both go through one call site of the flux, so both sides of an
+// interior interface get bit-identical fluxes (mass is conserved to
+// round-off). Panel-edge west/south faces take qL from the halo, east/north
+// take qR; the ground and the lid mirror the element's own trace with w odd.
+//
+// What bounds it (H100 SXM, float64, nel_h = nel_v = 20, s = 3, 48,000
+// elements, 1,296,000 points): each call must read q (51.8 MB), the one-panel
+// metric (28 fields, 48.4 MB; 9 more full-size fields on a rotating planet),
+// the interface metric (~7 MB), x in stage mode (51.8 MB) and write out
+// (51.8 MB): ~155-210 MB, 46-63 us at 3.35 TB/s. Its arithmetic is ~500
+// operations a point (counting a log, exp, sqrt or divide as one), ~0.65
+// GFLOP, ~19 us at the 34 TFLOP/s f64 vector peak: memory-bound in
+// principle. The design spends operations to save bytes (neighbour traces
+// re-extrapolated from the state, about 12 extra logs a point, instead of
+// a pass that writes traces to device memory and a second launch), and
+// keeps all intermediates in shared memory. Its known costs are the
+// neighbour-state reads (30 s^3 loads an element, mostly L1/L2 hits), f64
+// log/exp throughput, and low occupancy (53-92 KB of shared memory a block
+// in f64).
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr double kGravity = 9.80616;
+constexpr double kP0 = 100000.0;
+constexpr double kRd = 287.05;
+constexpr double kCpd = 1005.46;
+constexpr double kGamma = kCpd / (kCpd - kRd);
+constexpr int kThreads = 256;
+
+// Indices into `fields`.
+constexpr int F_SQRTG = 0, F_INVSG = 1, F_INVDZ = 2, F_H = 3, F_CHS = 9, F_WPRES = 27;
+
+__device__ __forceinline__ float fmadd(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ __forceinline__ double fmadd(double a, double b, double c) { return __fma_rn(a, b, c); }
+__device__ __forceinline__ float sqrt_rn(float v) { return __fsqrt_rn(v); }
+__device__ __forceinline__ double sqrt_rn(double v) { return __dsqrt_rn(v); }
+__device__ __forceinline__ float tlog(float v) { return logf(v); }
+__device__ __forceinline__ double tlog(double v) { return log(v); }
+__device__ __forceinline__ float texp(float v) { return expf(v); }
+__device__ __forceinline__ double texp(double v) { return exp(v); }
+
+template <typename T>
+__device__ __forceinline__ T pressure(T rho_theta) {
+  return T(kP0) * texp(T(kGamma) * tlog(T(kRd / kP0) * rho_theta));
+}
+
+// Rusanov flux at one interface point with the rho*w advection/pressure split
+// (reference pde/fluxes.py rusanov_3d_*_new; term order of the JAX package's
+// _euler3d_rhs_core). f: rho, rho*u1, rho*u2, rho*theta fluxes.
+template <typename T>
+__device__ __forceinline__ void rusanov(const T* L, const T* R, T vL, T vR, T sg, T h0, T h1, T h2,
+                                        T hd, T* f, T& wadv, T& wpres, T& pL, T& pR) {
+  const T gam = T(kGamma);
+  pL = pressure(L[4]);
+  pR = pressure(R[4]);
+  const T eig = fmax(fabs(vL) + sqrt_rn(hd * gam * pL / L[0]), fabs(vR) + sqrt_rn(hd * gam * pR / R[0]));
+  const T sl = sg * vL, sr = sg * vR, es = eig * sg;
+  f[0] = T(0.5) * (sl * L[0] + sr * R[0] - es * (R[0] - L[0]));
+  f[1] = T(0.5) * ((sl * L[1] + sg * h0 * pL) + (sr * R[1] + sg * h0 * pR) - es * (R[1] - L[1]));
+  f[2] = T(0.5) * ((sl * L[2] + sg * h1 * pL) + (sr * R[2] + sg * h1 * pR) - es * (R[2] - L[2]));
+  f[3] = T(0.5) * (sl * L[4] + sr * R[4] - es * (R[4] - L[4]));
+  wadv = T(0.5) * (sl * L[3] + sr * R[3] - es * (R[3] - L[3]));
+  wpres = T(0.5) * (sg * h2 * pL + sg * h2 * pR);
+}
+
+// The line of s nodes through face point k of a face normal to direction d:
+// node(i) = base + i * stride (x: k = kz*s+ky; y: k = kz*s+kx; z: k = ky*s+kx).
+template <int S>
+__device__ __forceinline__ void face_line(int d, int k, int& base, int& stride) {
+  if (d == 0) {
+    base = k * S;
+    stride = 1;
+  } else if (d == 1) {
+    base = (k / S) * S * S + k % S;
+    stride = S;
+  } else {
+    base = k;
+    stride = S * S;
+  }
+}
+
+// Trace of an element at one face point from its nodal values in shared
+// memory: log-space rows (rho, rho*theta) from `lg`, momenta from `st`.
+// Explicit fma in a fixed order, the same as nb_trace.
+template <typename T, int S>
+__device__ __forceinline__ void own_trace(const T* st, const T* lg, int base, int stride,
+                                          const T* coef, T* tr) {
+  constexpr int S3 = S * S * S;
+#pragma unroll
+  for (int v = 0; v < 5; ++v) {
+    const T* src = v == 0 ? lg : (v == 4 ? lg + S3 : st + v * S3);
+    T acc = T(0);
+#pragma unroll
+    for (int i = 0; i < S; ++i) acc = fmadd(src[base + i * stride], coef[i], acc);
+    tr[v] = (v == 0 || v == 4) ? texp(acc) : acc;
+  }
+}
+
+// The same trace of another element, from its state in device memory.
+template <typename T, int S>
+__device__ __forceinline__ void nb_trace(const T* q, long long nq, long long elem, int base,
+                                         int stride, const T* coef, T* tr) {
+  constexpr int S3 = S * S * S;
+#pragma unroll
+  for (int v = 0; v < 5; ++v) {
+    const T* src = q + v * nq + elem * S3 + base;
+    T acc = T(0);
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      const T val = (v == 0 || v == 4) ? tlog(src[i * stride]) : src[i * stride];
+      acc = fmadd(val, coef[i], acc);
+    }
+    tr[v] = (v == 0 || v == 4) ? texp(acc) : acc;
+  }
+}
+
+// Shared memory (in T): ops1d, then per element [q (5 s^3) | log rho, log
+// rho*theta (2 s^3) | log p (s^3) | sqrt(g)*rho (s^3) | fluxes (3 directions
+// x 5 components x s^3: rho, rho*u1, rho*u2, rho*theta, w advection) | face
+// data (7 x 6 s^2: the four fluxes, w advection, w pressure / p, log p)].
+// Every region starts on a 16-byte boundary.
+template <typename T, int S>
+struct Shape {
+  static constexpr int S2 = S * S;
+  static constexpr int S3 = S * S * S;
+  static constexpr int NF = 6 * S2;
+  static constexpr int A = 16 / sizeof(T);
+  static constexpr int pad(int n) { return (n + A - 1) / A * A; }
+  // ops1d segments at 16-byte boundaries: the kernel selects between the
+  // en and ep pointers at run time, and nvcc then loads pairs of
+  // coefficients as one 16-byte vector from either pointer.
+  static constexpr int PS = pad(S), PS2 = pad(S2);
+  static constexpr int N_OPS = 4 * PS + 2 * PS2;
+  static constexpr int OFF_LOG = pad(5 * S3);
+  static constexpr int OFF_LP = OFF_LOG + pad(2 * S3);
+  static constexpr int OFF_SG = OFF_LP + pad(S3);
+  static constexpr int OFF_F = OFF_SG + pad(S3);
+  static constexpr int OFF_FACE = OFF_F + pad(15 * S3);
+  static constexpr int PER_ELEM = OFF_FACE + pad(7 * NF);
+  static constexpr int EB = kThreads / S3 > 0 ? kThreads / S3 : 1;
+};
+
+template <typename T, int S>
+__global__ void __launch_bounds__(kThreads) euler3d_operator_kernel(
+    const T* __restrict__ q, const T* __restrict__ halo, const T* __restrict__ ops,
+    const T* __restrict__ fields, const T* __restrict__ tch, const T* __restrict__ itf_x,
+    const T* __restrict__ itf_y, const T* __restrict__ itf_z, const T* __restrict__ x,
+    const T* __restrict__ bal, T* __restrict__ out, T* __restrict__ traces, int nh, int nk, T a,
+    T b, T cdt, int stage) {
+  using Sh = Shape<T, S>;
+  constexpr int S2 = Sh::S2, S3 = Sh::S3, NF = Sh::NF;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const T* sEn = smem;
+  const T* sEp = smem + Sh::PS;
+  const T* sCn = smem + 2 * Sh::PS;
+  const T* sCp = smem + 3 * Sh::PS;
+  const T* sD = smem + 4 * Sh::PS;
+  const T* sHF = sD + Sh::PS2;
+
+  const int tid = threadIdx.x;
+  const int e_loc = tid / S3;
+  const int j = tid - e_loc * S3;
+  const int per_panel = nk * nh * nh;
+  const int p = blockIdx.x % 6;
+  const int pe = (blockIdx.x / 6) * Sh::EB + e_loc;
+  const bool valid = pe < per_panel;
+  const long long elem = (long long)p * per_panel + pe;
+  const long long nq = 6LL * per_panel * S3;        // stride between variables
+  const long long fstride = (long long)per_panel * S3;  // stride between metric fields
+
+  T* sQ = smem + Sh::N_OPS + e_loc * Sh::PER_ELEM;
+  T* sLog = sQ + Sh::OFF_LOG;
+  T* sLp = sQ + Sh::OFF_LP;
+  T* sSg = sQ + Sh::OFF_SG;
+  T* sF = sQ + Sh::OFF_F;
+  T* sFace = sQ + Sh::OFF_FACE;
+
+  for (int i = tid; i < 4 * S + 2 * S2; i += blockDim.x) {
+    const int dst = i < 4 * S ? (i / S) * Sh::PS + i % S
+                              : 4 * Sh::PS + ((i - 4 * S) / S2) * Sh::PS2 + (i - 4 * S) % S2;
+    smem[dst] = ops[i];
+  }
+
+  int kz = 0, ey = 0, ex = 0;
+  T qv[5], pres = T(0), sqrtg = T(0), hm[6];
+  const T* fld = fields + (long long)(valid ? pe : 0) * S3 + j;
+  if (valid) {
+    kz = pe / (nh * nh);
+    const int r = pe - kz * nh * nh;
+    ey = r / nh;
+    ex = r - ey * nh;
+#pragma unroll
+    for (int v = 0; v < 5; ++v) {
+      qv[v] = q[v * nq + elem * S3 + j];
+      sQ[v * S3 + j] = qv[v];
+    }
+    sqrtg = fld[F_SQRTG * fstride];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) hm[i] = fld[(F_H + i) * fstride];
+    // --- Pointwise: logs, pressure, sqrt(g)-weighted fluxes.
+    const T rho = qv[0];
+    const T u[3] = {qv[1] / rho, qv[2] / rho, qv[3] / rho};
+    sLog[j] = tlog(rho);
+    sLog[S3 + j] = tlog(qv[4]);
+    pres = pressure(qv[4]);
+    sLp[j] = tlog(pres);
+    sSg[j] = sqrtg * rho;
+    const T sgp = sqrtg * pres;
+    // h^{dk} for direction d: rows (00 01 02), (01 11 12), (02 12 22)
+    const T hrow[3][3] = {{hm[0], hm[1], hm[2]}, {hm[1], hm[3], hm[4]}, {hm[2], hm[4], hm[5]}};
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const T su = sqrtg * u[d];
+      T* fd = sF + d * 5 * S3 + j;
+      fd[0] = su * qv[0];
+      fd[S3] = su * qv[1] + sgp * hrow[d][0];
+      fd[2 * S3] = su * qv[2] + sgp * hrow[d][1];
+      fd[3 * S3] = su * qv[4];
+      fd[4 * S3] = su * qv[3];
+    }
+  }
+  __syncthreads();
+
+  // --- Interface fluxes at this element's six faces (W, E, S, N, D, U).
+  if (valid) {
+#pragma unroll 1
+    for (int fi = j; fi < NF; fi += S3) {
+      const int face = fi / S2;
+      const int k = fi - face * S2;
+      const int d = face >> 1;
+      const bool pos = face & 1;
+      int base, stride;
+      face_line<S>(d, k, base, stride);
+      T own[5], nb[5];
+      own_trace<T, S>(sQ, sLog, base, stride, pos ? sEp : sEn, own);
+
+      bool boundary;
+      int hside, along;
+      long long nb_elem;
+      switch (face) {
+        case 0: boundary = ex == 0;      hside = 2; along = ey; nb_elem = elem - 1; break;
+        case 1: boundary = ex == nh - 1; hside = 3; along = ey; nb_elem = elem + 1; break;
+        case 2: boundary = ey == 0;      hside = 0; along = ex; nb_elem = elem - nh; break;
+        case 3: boundary = ey == nh - 1; hside = 1; along = ex; nb_elem = elem + nh; break;
+        case 4: boundary = kz == 0;      hside = 0; along = 0; nb_elem = elem - nh * nh; break;
+        default: boundary = kz == nk - 1; hside = 0; along = 0; nb_elem = elem + nh * nh; break;
+      }
+      if (!boundary) {
+        // The neighbour's facing face: its positive face when ours is negative.
+        nb_trace<T, S>(q, nq, nb_elem, base, stride, pos ? sEn : sEp, nb);
+      } else if (d < 2) {
+#pragma unroll
+        for (int v = 0; v < 5; ++v)
+          nb[v] = halo[((((long long)(v * 4 + hside) * 6 + p) * nk + kz) * nh + along) * S2 + k];
+      } else {
+#pragma unroll
+        for (int v = 0; v < 5; ++v) nb[v] = own[v];  // ground / rigid lid: mirror
+      }
+      T L[5], R[5];
+#pragma unroll
+      for (int v = 0; v < 5; ++v) {
+        L[v] = pos ? own[v] : nb[v];
+        R[v] = pos ? nb[v] : own[v];
+      }
+      T vL = L[1 + d] / L[0];
+      T vR = R[1 + d] / R[0];
+      if (boundary && d == 2) {  // w is odd across the ground and the lid
+        if (pos) vR = -vR; else vL = -vL;
+      }
+
+      const T* itf;
+      long long istride, iidx;
+      if (d == 0) {
+        itf = itf_x;
+        istride = (long long)nk * nh * (nh + 1) * S2;
+        iidx = ((long long)(kz * nh + ey) * (nh + 1) + ex + pos) * S2 + k;
+      } else if (d == 1) {
+        itf = itf_y;
+        istride = (long long)nk * (nh + 1) * nh * S2;
+        iidx = ((long long)(kz * (nh + 1) + ey + pos) * nh + ex) * S2 + k;
+      } else {
+        itf = itf_z;
+        istride = (long long)(nk + 1) * nh * nh * S2;
+        iidx = ((long long)((kz + pos) * nh + ey) * nh + ex) * S2 + k;
+      }
+      const T sg = itf[iidx], h0 = itf[istride + iidx], h1 = itf[2 * istride + iidx],
+              h2 = itf[3 * istride + iidx];
+      const T hd = d == 0 ? h0 : (d == 1 ? h1 : h2);
+      T f[4], wadv, wpres, pL, pR;
+      rusanov(L, R, vL, vR, sg, h0, h1, h2, hd, f, wadv, wpres, pL, pR);
+      const T p_own = pos ? pL : pR;
+      T* fc = sFace + fi;
+      fc[0] = f[0];
+      fc[NF] = f[1];
+      fc[2 * NF] = f[2];
+      fc[3 * NF] = f[3];
+      fc[4 * NF] = wadv;
+      fc[5 * NF] = wpres / p_own;
+      fc[6 * NF] = tlog(p_own);
+    }
+  }
+  __syncthreads();
+
+  // --- Divergence + corrections, w pressure split, forcing, stage.
+  if (valid) {
+    const int jx = j % S, jy = (j / S) % S, jz = j / S2;
+    const int lx = (jz * S + jy) * S, ly = jz * S2 + jx, lz = jy * S + jx;  // line bases
+    const int kxf = jz * S + jy, kyf = jz * S + jx, kzf = jy * S + jx;    // face points
+    const T* Dx = sD + jx * S;
+    const T* Dy = sD + jy * S;
+    const T* Dz = sD + jz * S;
+
+    T div[5];
+#pragma unroll
+    for (int c = 0; c < 5; ++c) {
+      const T* fx = sF + c * S3;
+      const T* fy = sF + (5 + c) * S3;
+      const T* fz = sF + (10 + c) * S3;
+      T acc = T(0);
+#pragma unroll
+      for (int i = 0; i < S; ++i) acc = fmadd(Dx[i], fx[lx + i], acc);
+#pragma unroll
+      for (int i = 0; i < S; ++i) acc = fmadd(Dy[i], fy[ly + i * S], acc);
+#pragma unroll
+      for (int i = 0; i < S; ++i) acc = fmadd(Dz[i], fz[lz + i * S2], acc);
+      div[c] = acc;
+    }
+    const T cnx = sCn[jx], cpx = sCp[jx], cny = sCn[jy], cpy = sCp[jy], cnz = sCn[jz], cpz = sCp[jz];
+    T corr[6];
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      const T* fc = sFace + c * NF;
+      corr[c] = cnx * fc[kxf] + cpx * fc[S2 + kxf] + cny * fc[2 * S2 + kyf] + cpy * fc[3 * S2 + kyf] +
+                cnz * fc[4 * S2 + kzf] + cpz * fc[5 * S2 + kzf];
+    }
+    const T* flp = sFace + 6 * NF;
+    T dlx = T(0), dly = T(0), dlz = T(0), grav = T(0);
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      dlx = fmadd(Dx[i], sLp[lx + i], dlx);
+      dly = fmadd(Dy[i], sLp[ly + i * S], dly);
+      dlz = fmadd(Dz[i], sLp[lz + i * S2], dlz);
+      grav = fmadd(sHF[jz * S + i], sSg[lz + i * S2], grav);
+    }
+    dlx += cnx * flp[kxf] + cpx * flp[S2 + kxf];
+    dly += cny * flp[2 * S2 + kyf] + cpy * flp[3 * S2 + kyf];
+    dlz += cnz * flp[4 * S2 + kzf] + cpz * flp[5 * S2 + kzf];
+
+    const T invsg = fld[F_INVSG * fstride];
+    const T invdz = fld[F_INVDZ * fstride];
+    const T wpres_int = fld[F_WPRES * fstride];
+    const T rho = qv[0];
+    const T u[3] = {qv[1] / rho, qv[2] / rho, qv[3] / rho};
+    const T w_df = div[4] + corr[4] + (wpres_int + corr[5]) * pres +
+                   pres * (sqrtg * hm[2] * dlx + sqrtg * hm[4] * dly + sqrtg * hm[5] * dlz);
+
+    // Christoffel/Coriolis forcing: rows a = 0, 1, 2 of
+    // 2 rho Gamma^a_{0b} u^b + Gamma^a_{bc} (rho u^b u^c + h^{bc} p).
+    T force[3];
+    const T pair[6] = {rho * u[0] * u[0] + hm[0] * pres, rho * u[0] * u[1] + hm[1] * pres,
+                       rho * u[0] * u[2] + hm[2] * pres, rho * u[1] * u[1] + hm[3] * pres,
+                       rho * u[1] * u[2] + hm[4] * pres, rho * u[2] * u[2] + hm[5] * pres};
+#pragma unroll
+    for (int a_ = 0; a_ < 3; ++a_) {
+      const T* ch = fld + (F_CHS + 6 * a_) * fstride;
+      T fr = ch[0] * pair[0];
+      if (tch != nullptr) {
+        const T* tc = tch + (long long)(3 * a_) * nq + elem * S3 + j;
+        fr = T(2) * rho * (tc[0] * u[0] + tc[nq] * u[1] + tc[2 * nq] * u[2]) + fr;
+      }
+      force[a_] = fr + T(2) * ch[fstride] * pair[1] + T(2) * ch[2 * fstride] * pair[2] +
+                  ch[3 * fstride] * pair[3] + T(2) * ch[4 * fstride] * pair[4] + ch[5 * fstride] * pair[5];
+    }
+    const T gravity = invdz * T(kGravity) * invsg * grav;
+
+    T r[5];
+    r[0] = -invsg * (div[0] + corr[0]);
+    r[1] = -invsg * (div[1] + corr[1]) - force[0];
+    r[2] = -invsg * (div[2] + corr[2]) - force[1];
+    r[3] = -invsg * w_df - (force[2] + gravity);
+    r[4] = -invsg * (div[3] + corr[3]);
+#pragma unroll
+    for (int v = 0; v < 5; ++v) {
+      const long long o = v * nq + elem * S3 + j;
+      T val = r[v];
+      if (bal != nullptr) val += bal[o];
+      if (stage) {
+        val = b * qv[v] + cdt * val;
+        if (x != nullptr) val = a * x[o] + val;
+      }
+      out[o] = val;
+      sQ[v * S3 + j] = val;  // only this thread reads this slot from here on
+    }
+  }
+
+  // --- Panel-edge traces of the output state (x and y faces on an edge).
+  if (traces != nullptr) {
+    __syncthreads();
+    if (valid) {
+      for (int fi = j; fi < 4 * S2; fi += S3) {
+        const int face = fi / S2;
+        const int k = fi - face * S2;
+        bool on_edge;
+        int tside, along;
+        switch (face) {
+          case 0: on_edge = ex == 0;      tside = 2; along = ey; break;
+          case 1: on_edge = ex == nh - 1; tside = 3; along = ey; break;
+          case 2: on_edge = ey == 0;      tside = 0; along = ex; break;
+          default: on_edge = ey == nh - 1; tside = 1; along = ex; break;
+        }
+        if (!on_edge) continue;
+        int base, stride;
+        face_line<S>(face >> 1, k, base, stride);
+        const T* coef = (face & 1) ? sEp : sEn;
+#pragma unroll
+        for (int v = 0; v < 5; ++v) {
+          T acc = T(0);
+#pragma unroll
+          for (int i = 0; i < S; ++i) {
+            const T val = sQ[v * S3 + base + i * stride];
+            acc = fmadd((v == 0 || v == 4) ? tlog(val) : val, coef[i], acc);
+          }
+          traces[((((long long)(v * 4 + tside) * 6 + p) * nk + kz) * nh + along) * S2 + k] =
+              (v == 0 || v == 4) ? texp(acc) : acc;
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int S>
+cudaError_t launch(int nh, int nk, const void* q, const void* halo, const void* ops,
+                   const void* fields, const void* tch, const void* itf_x, const void* itf_y,
+                   const void* itf_z, const void* x, const void* bal, void* out, void* traces,
+                   double a, double b, double cdt, int stage, cudaStream_t stream) {
+  using Sh = Shape<T, S>;
+  const size_t smem = sizeof(T) * (Sh::N_OPS + (size_t)Sh::EB * Sh::PER_ELEM);
+  static bool configured = false;
+  if (!configured && smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(euler3d_operator_kernel<T, S>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const int per_panel = nk * nh * nh;
+  const int blocks = 6 * ((per_panel + Sh::EB - 1) / Sh::EB);
+  euler3d_operator_kernel<T, S><<<blocks, Sh::EB * Sh::S3, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(halo), static_cast<const T*>(ops),
+      static_cast<const T*>(fields), static_cast<const T*>(tch), static_cast<const T*>(itf_x),
+      static_cast<const T*>(itf_y), static_cast<const T*>(itf_z), static_cast<const T*>(x),
+      static_cast<const T*>(bal), static_cast<T*>(out), static_cast<T*>(traces), nh, nk, T(a),
+      T(b), T(cdt), stage);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(int s, int nh, int nk, const void* q, const void* halo, const void* ops,
+                     const void* fields, const void* tch, const void* itf_x, const void* itf_y,
+                     const void* itf_z, const void* x, const void* bal, void* out, void* traces,
+                     double a, double b, double cdt, int stage, cudaStream_t stream) {
+#define E3_CASE(S)                                                                              \
+  case S:                                                                                       \
+    return launch<T, S>(nh, nk, q, halo, ops, fields, tch, itf_x, itf_y, itf_z, x, bal, out,   \
+                        traces, a, b, cdt, stage, stream);
+  switch (s) {
+    E3_CASE(2) E3_CASE(3) E3_CASE(4) E3_CASE(5) E3_CASE(6)
+    default: return cudaErrorInvalidValue;
+  }
+#undef E3_CASE
+}
+
+}  // namespace
+
+// Returns the cudaError_t of the launch (0 on success). tch == NULL: no time
+// Christoffels; x == NULL: no x term; bal == NULL: no offset; traces == NULL:
+// no trace emission; stage == 0: out = RHS(q) (+ bal).
+extern "C" int euler3d_operator_launch(int is_f64, int s, int nh, int nk, const void* q,
+                                       const void* halo, const void* ops, const void* fields,
+                                       const void* tch, const void* itf_x, const void* itf_y,
+                                       const void* itf_z, const void* x, const void* bal, void* out,
+                                       void* traces, double a, double b, double cdt, int stage,
+                                       void* stream) {
+  if (nh < 2 || nk < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      is_f64 ? dispatch<double>(s, nh, nk, q, halo, ops, fields, tch, itf_x, itf_y, itf_z, x, bal,
+                                out, traces, a, b, cdt, stage, st)
+             : dispatch<float>(s, nh, nk, q, halo, ops, fields, tch, itf_x, itf_y, itf_z, x, bal,
+                               out, traces, a, b, cdt, stage, st);
+  return (int)err;
+}
+
+extern "C" const char* euler3d_operator_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -2,8 +2,8 @@
 
 Counterpart of ``wxfactory_tpu/integrators/explicit.py`` (reference
 integrators/euler1.py and tvdrk3.py) for an RHS with the fused stage API
-(``stage`` / ``traces``, the shallow-water operator): a step is one operator
-launch per RK stage. Each stage computes ``a*q0 + b*y + c*dt*RHS(y)`` and
+(``stage`` / ``traces``: the shallow-water and 3D Euler operators): a step
+is one operator launch per RK stage. Each stage computes ``a*q0 + b*y + c*dt*RHS(y)`` and
 emits its output's panel-edge traces, which the next stage — and the next
 step — consumes, so only the first step bootstraps traces. The chained
 traces ride along in a one-entry cache keyed on the identity of the last

@@ -37,6 +37,17 @@ SIGNATURES = {
         ),
         "sw_operator_error_string": (ctypes.c_char_p, [_I]),
     },
+    "euler3d_operator": {
+        "euler3d_operator_launch": (
+            _I,
+            [_I, _I, _I, _I]  # is_f64, s, nel_h, nel_v
+            # q, halo, ops1d, fields, tch, itf_x, itf_y, itf_z, x, bal, out, traces
+            + [_P] * 12
+            + [_D, _D, _D, _I]  # a, b, cdt, stage
+            + [_P],  # stream
+        ),
+        "euler3d_operator_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 
 _loaded = {}
@@ -61,30 +72,39 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library exists; returns the path."""
-    lib = library_path(name)
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) building {name}:\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent build never sees a partial file
-    build_info[name] = {"seconds": seconds, "log": proc.stdout + proc.stderr}
-    return lib
+def build_all(names) -> dict:
+    """Compile the named sources that are not built yet, one nvcc process
+    each, all started together; returns {name: library path}."""
+    libs = {name: library_path(name) for name in names}
+    running = {}
+    for name, lib in libs.items():
+        if lib.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc_path(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, time.perf_counter())
+    failures = []
+    for name, (proc, tmp, t0) in running.items():
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failures.append(f"nvcc failed ({proc.returncode}) building {name}:\n{log}")
+            continue
+        os.replace(tmp, libs[name])  # atomic: a concurrent build never sees a partial file
+        build_info[name] = {"seconds": seconds, "log": log}
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return libs
 
 
 def load_library(name: str) -> ctypes.CDLL:
     """The ctypes handle of kernel library ``name``, built on first use."""
     if name not in _loaded:
-        lib = ctypes.CDLL(str(build(name)))
+        lib = ctypes.CDLL(str(build_all([name])[name]))
         for fn, (restype, argtypes) in SIGNATURES[name].items():
             f = getattr(lib, fn)
             f.restype = restype

@@ -1,7 +1,9 @@
-"""Hold the SW operator's CUDA kernel against its plain torch version on
-the same inputs (Williamson case 6 with a seeded perturbation).
+"""Hold the port's CUDA kernels against their plain torch versions on the
+same inputs, and count the bytes and operations each call needs (for the
+memory/compute bound of ``chip_smoke.py``).
 
-Tolerances, per variable, on the error scaled as stated:
+Shallow water (``compare_sw_operator``): Williamson case 6 with a seeded
+perturbation. Tolerances, per variable, on the error scaled as stated:
 
 * float64: 5e-12, the JAX kernel test's bound (tests/test_pallas_gen.py);
 * float32: 1e-5 (sums in another order, f32 sqrt and divide).
@@ -13,17 +15,39 @@ of terms 400 to 28,000 times larger at the checked shapes, so f32 round-off
 in another summation order is that many times larger than the RHS's own
 ulp: the plain f32 RHS differs from the f64 one by 1e-3 of its max at
 nel=64, s=3. The error scaled by the RHS max is reported beside it.
+
+3D Euler (``compare_euler3d_operator``): DCMIP 31 (or 77 on a rotating
+planet) with seeded noise, 1e-3 relative on every variable plus a 0.1 m/s
+random vertical wind, so no RHS row is a near-cancelled residual.
+Tolerances, per variable:
+
+* float64: 1e-12 of each variable's max of the plain output (the JAX
+  kernel tests bound km3_fused against its pure-jnp body at 1e-12);
+* float32: 1e-5 of a stated scale, per variable the larger of the output
+  max and |cdt| (1 in RHS mode) times a term scale: the max of the flux
+  divergence for rho, rho*u1, rho*u2, rho*theta, of the gravity term for
+  rho*w (which the pressure gradient balances to ~1e-9). The f32 hydrostatic cancellation leaves the plain f32 RHS 1e2-1e4
+  times its own ulp away from the f64 one, and the kernel sums in another
+  order, so the RHS max is no scale for f32 round-off.
+
+With the well-balanced offset (f32 only) the check also holds, at the
+unperturbed base state, the kernel's RHS + bal against the f64 plain RHS:
+within 1e-2 of each variable's max and 1e3 times closer than without the
+offset (the bounds of the JAX test_balanced_offset_restores_base_state_rhs).
 """
+
+import functools
 
 import numpy as np
 import torch
 
 from ..common.constants import GRAVITY
-from ..geometry import make_cubed_sphere_2d, make_metric_2d
+from ..geometry import make_cubed_sphere_2d, make_cubed_sphere_3d, make_metric_2d, make_metric_3d
+from ..ops import euler3d_operator as e3op
 from ..ops import sw_operator as swop
 from ..ops.dfr import make_dfr_operators
 from ..parallel.topology import CubedSphereTopology
-from ..testcases import williamson_case6
+from ..testcases import dcmip_planet_params, initial_state_3d, williamson_case6
 
 TOLERANCE = {torch.float64: 5e-12, torch.float32: 1e-5}
 DT = 30.0
@@ -45,7 +69,7 @@ def case6_inputs(nel: int, s: int, dtype, device, seed: int = 0):
 
 
 def per_variable_max(a: torch.Tensor) -> torch.Tensor:
-    return a.abs().reshape(3, -1).amax(dim=1)
+    return a.abs().reshape(a.shape[0], -1).amax(dim=1)
 
 
 def flux_divergence_scale(q: torch.Tensor, con) -> torch.Tensor:
@@ -62,7 +86,7 @@ def flux_divergence_scale(q: torch.Tensor, con) -> torch.Tensor:
 
 
 def _scaled(err: torch.Tensor, scale: torch.Tensor) -> float:
-    return float((err.abs().reshape(3, -1).amax(dim=1) / scale).max())
+    return float((per_variable_max(err) / scale).max())
 
 
 def compare_sw_operator(nel: int, s: int, dtype, device="cuda", seed: int = 0):
@@ -102,5 +126,159 @@ def compare_sw_operator(nel: int, s: int, dtype, device="cuda", seed: int = 0):
             np.isfinite(row["err"]) and row["err"] <= tol
             and row.get("traces_err", 0.0) <= tol and torch.isfinite(got).all().item()
         )
+        results.append(row)
+    return results
+
+
+def sw_work(nel: int, s: int, dtype, stage: bool = False, use_x: bool = False,
+            traces: bool = False):
+    """(bytes, operations) of one SW operator call: each input read once,
+    each output written once; operations counted from the kernel's
+    algorithm (an add, multiply, divide or sqrt is one), with each face
+    extrapolated once and each interface flux computed once."""
+    n_elem, s2, item = 6 * nel * nel, s * s, torch.finfo(dtype).bits // 8
+    state = 3 * n_elem * s2
+    words = 2 * state + (state if use_x else 0)  # q, out, x
+    words += 13 * nel * nel * s2 + n_elem * s2  # one-panel metric, gridrot
+    words += 2 * 3 * nel * (nel + 1) * s + 3 * 4 * 6 * nel * s * (2 if traces else 1)  # itf, halo, traces
+    ops = n_elem * (s2 * (30 + 12 * s2 + 24 * s) + 2 * s * (12 * s2 + 40))
+    ops += n_elem * s2 * 3 * ((2 if stage else 0) + (2 if use_x else 0))
+    return words * item, ops
+
+
+def euler3d_work(con, stage: bool = False, use_x: bool = False, use_bal: bool = False,
+                 traces: bool = False):
+    """(bytes, operations) of one 3D Euler operator call: each input read
+    once, each output written once; operations counted from the algorithm
+    (an add, multiply, divide, sqrt, log or exp is one; fma two), each face
+    trace extrapolated once and each interface flux computed once."""
+    nh, nk, s = con.nel_h, con.nel_v, con.s
+    s2, s3 = s * s, s**3
+    n_elem, item = 6 * nk * nh * nh, torch.finfo(con.dtype).bits // 8
+    state = 5 * n_elem * s3
+    words = state * (2 + (1 if use_x else 0) + (1 if use_bal else 0))  # q, out, x, bal
+    words += con.fields.numel() + (con.tch.numel() if con.tch is not None else 0)
+    words += con.itf_x.numel() + con.itf_y.numel() + con.itf_z.numel()
+    words += 5 * 4 * 6 * nk * nh * s2 * (2 if traces else 1)  # halo, traces
+    per_elem = s3 * (263 + 38 * s) + 6 * s2 * (10 * s + 2) + 3 * s2 * 90
+    ops = n_elem * per_elem + state * ((2 if stage else 0) + (2 if use_x else 0) + (1 if use_bal else 0))
+    return words * item, ops
+
+
+@functools.lru_cache(maxsize=None)
+def euler3d_setup(nel_h: int, nel_v: int, s: int, case: int = 31):
+    """(geom, ops, metric, topology, q0) of a DCMIP case at one shape (host
+    float64; cached, the metric at large shapes takes tens of seconds)."""
+    scale, rotating = dcmip_planet_params(case)
+    geom = make_cubed_sphere_3d(nel_h, nel_v, s, 10000.0, planet_scaling_factor=scale,
+                                planet_is_rotating=rotating)
+    ops = make_dfr_operators(s, three_d=True)
+    topology = CubedSphereTopology(geom)
+    metric = make_metric_3d(geom, ops, topology)
+    return geom, ops, metric, topology, initial_state_3d(geom, case)
+
+
+def euler3d_inputs(nel_h: int, nel_v: int, s: int, dtype, device, case: int = 31, seed: int = 0):
+    """(con, topology, x, y): constants and two noisy states of a DCMIP case
+    (x is the stage's a-term)."""
+    geom, ops, metric, topology, q = euler3d_setup(nel_h, nel_v, s, case)
+    rng = np.random.default_rng(seed)
+
+    def noisy():
+        out = q * (1.0 + 1e-3 * rng.standard_normal(q.shape))
+        out[3] += 0.1 * q[0] * rng.standard_normal(q[0].shape)
+        return out
+
+    x, y = noisy(), noisy()
+    con = e3op.build_constants(ops, metric, nel_h, nel_v, dtype=dtype, device=device)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return con, topology, t(x), t(y)
+
+
+def euler3d_term_scale(q: torch.Tensor, con) -> torch.Tensor:
+    """Per-variable max of the RHS term that sets its size: the interior
+    flux divergence ``inv_sqrtG * div(F)`` for rho, rho*u1, rho*u2,
+    rho*theta, and the gravity term for rho*w."""
+    fld = con.fields
+    sqrtg, invsg, invdz = fld[0], fld[1], fld[2]
+    rho = q[0]
+    p = e3op.pressure(q[4])
+    bundles = []
+    for d in range(3):
+        flux = sqrtg * (q[1 + d] / rho) * q
+        hrow = [fld[3 + e3op.H_PAIRS.index(tuple(sorted((d, k))))] for k in range(3)]
+        press = torch.stack([torch.zeros_like(p)] + [sqrtg * p * h for h in hrow] + [torch.zeros_like(p)])
+        bundles.append(flux + press)
+    div = invsg * (torch.cat(bundles, dim=-1) @ con.dd)
+    gravity = invdz * GRAVITY * invsg * ((sqrtg * rho) @ con.hfk)
+    scale = per_variable_max(div)
+    scale[3] = gravity.abs().max()
+    return scale
+
+
+E3_TOLERANCE = {torch.float64: 1e-12, torch.float32: 1e-5}
+E3_DT = 0.1
+
+
+def compare_euler3d_operator(nel_h: int, nel_v: int, s: int, dtype, device="cuda", case: int = 31,
+                             seed: int = 0):
+    """Kernel against plain in every mode (and, in f32, the well-balanced
+    offset); returns one dict per mode with the scaled error ``err``, its
+    tolerance ``tol`` and ``ok``."""
+    con, topology, x, y = euler3d_inputs(nel_h, nel_v, s, dtype, device, case, seed)
+    halo = e3op.halo_from_traces(e3op.edge_traces(y, con), topology)
+    modes = {
+        "rhs": dict(),
+        "stage": dict(a=0.0, b=1.0, cdt=E3_DT),
+        "stage_x": dict(x=x, a=0.75, b=0.25, cdt=0.25 * E3_DT),
+        "stage_x_traces": dict(x=x, a=1.0 / 3.0, b=2.0 / 3.0, cdt=(2.0 / 3.0) * E3_DT, emit_traces=True),
+    }
+    base = {}
+    if dtype == torch.float32:
+        geom, ops, metric, _, q0 = euler3d_setup(nel_h, nel_v, s, case)
+        con64 = e3op.build_constants(ops, metric, nel_h, nel_v, dtype=torch.float64, device=device)
+        q064 = torch.as_tensor(q0, dtype=torch.float64, device=device)
+        truth = e3op.euler3d_operator_plain(q064, e3op.halo_from_traces(e3op.edge_traces(q064, con64), topology),
+                                            con64)
+        q0c = q064.to(dtype)
+        halo0 = e3op.halo_from_traces(e3op.edge_traces(q0c, con), topology)
+        k0 = e3op.euler3d_operator(q0c, halo0, con).double()  # the offset of the operator it corrects
+        bal = (truth - k0).to(dtype)
+        modes["rhs_bal"] = dict(bal=bal)
+        modes["stage_x_traces_bal"] = dict(modes["stage_x_traces"], bal=bal)
+        sc = per_variable_max(truth)
+        base = {
+            "base_err_bal": _scaled(e3op.euler3d_operator(q0c, halo0, con, bal=bal).double() - truth, sc),
+            "base_err_plain": _scaled(k0 - truth, sc),
+        }
+    tol = E3_TOLERANCE[dtype]
+    term = euler3d_term_scale(y, con) if dtype == torch.float32 else None
+    results = []
+    for mode, kw in modes.items():
+        got = e3op.euler3d_operator(y, halo, con, **kw)
+        want = e3op.euler3d_operator_plain(y, halo, con, **kw)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        got_tr = want_tr = None
+        if kw.get("emit_traces"):
+            (got, got_tr), (want, want_tr) = got, want
+        row = {"nel_h": nel_h, "nel_v": nel_v, "s": s, "case": case, "dtype": str(dtype).replace("torch.", ""),
+               "mode": mode, "max_abs_err": float((got - want).abs().max())}
+        row["err_of_output_max"] = _scaled(got - want, per_variable_max(want))
+        if term is None:
+            row["scale"], row["err"] = "output_max", row["err_of_output_max"]
+        else:
+            cdt = abs(kw.get("cdt", 1.0))
+            row["scale"] = "max(output_max, cdt*term)" if "cdt" in kw else "max(output_max, term)"
+            row["err"] = _scaled(got - want, torch.maximum(per_variable_max(want), cdt * term))
+        if got_tr is not None:
+            row["traces_err"] = _scaled(got_tr - want_tr, per_variable_max(want_tr))
+        row["tol"] = tol
+        ok = np.isfinite(row["err"]) and row["err"] <= tol and row.get("traces_err", 0.0) <= tol
+        ok = ok and bool(torch.isfinite(got).all().item())
+        if mode == "rhs_bal":
+            row.update(base)
+            ok = ok and base["base_err_bal"] < 1e-2 and base["base_err_bal"] < 1e-3 * base["base_err_plain"]
+        row["ok"] = bool(ok)
         results.append(row)
     return results

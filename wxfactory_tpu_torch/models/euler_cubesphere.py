@@ -1,0 +1,80 @@
+"""3D compressible Euler equations on the cubed sphere (DFR discretization).
+
+Counterpart of ``wxfactory_tpu/models/euler_cubesphere.py`` (absolute form
+and its well-balanced ``base_state`` offset): the state is
+``Q[5, 6, nk, ny, nx, s^3]`` (rho, rho*u1, rho*u2, rho*w, rho*theta) and the
+whole spatial operator is ``ops.euler3d_operator`` — the hand-written CUDA
+kernel on a GPU, its plain torch version on the CPU — composed with the
+torch halo glue.
+
+The returned object is the RHS ``q -> dq/dt`` and exposes the fused stage
+API the explicit integrators chain (the same as ``ShallowWaterRHS``):
+``stage(x, y, a, b, cdt, traces)`` returns ``a*x + b*y + cdt*RHS(y)`` and
+the output's panel-edge traces, one operator launch per RK stage;
+``traces(q)`` bootstraps the chain; ``pack``/``unpack`` are the identity.
+The JAX factory's ``advection_only`` (DCMIP 11/12) and ``extra_forcing``
+(DCMIP 21/22) run through XLA there, not through its kernel; the port's
+``initial_state_3d`` refuses those cases (ROADMAP queue 1, item 9).
+"""
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..ops.euler3d_operator import build_constants, edge_traces, euler3d_operator, halo_from_traces
+from ..parallel.topology import CubedSphereTopology
+
+
+class Euler3DRHS:
+    """The 3D Euler RHS at one discretization, dtype and device.
+
+    With ``base_state`` (a balanced state, usually the initial condition)
+    the operator adds the well-balanced offset ``bal = RHS_f64(q0) -
+    K(q0)``, K the operator in this RHS's dtype: in float32 the hydrostatic
+    balance is a ~1e-9-relative cancellation of the pressure gradient and
+    gravity, below float32 resolution; the offset restores it exactly at
+    q0 and to first order nearby. ``RHS_f64`` runs once, at setup, on the
+    same device (the kernel on a GPU, the plain version on the CPU)."""
+
+    def __init__(self, geom, ops, metric, dtype=torch.float64, device="cpu", topology=None,
+                 base_state=None):
+        self.dtype = dtype
+        self.device = torch.device(device)
+        self.topology = topology if topology is not None else CubedSphereTopology(geom)
+        self.con = build_constants(ops, metric, geom.nel_h, geom.nel_v, dtype=dtype, device=self.device)
+        self.bal = None
+        if base_state is not None:
+            con64 = build_constants(ops, metric, geom.nel_h, geom.nel_v, dtype=torch.float64, device=self.device)
+            q64 = torch.as_tensor(np.asarray(base_state), dtype=torch.float64, device=self.device)
+            rhs64 = euler3d_operator(q64, self.halo(edge_traces(q64, con64)), con64)
+            k0 = self(q64.to(dtype))
+            self.bal = (rhs64 - k0.double()).to(dtype)
+
+    def traces(self, q: torch.Tensor) -> torch.Tensor:
+        """Panel-edge traces of ``q`` (5, 4, 6, nk, nh, s^2): the chain's bootstrap."""
+        return edge_traces(q, self.con)
+
+    def halo(self, traces: torch.Tensor) -> torch.Tensor:
+        return halo_from_traces(traces, self.topology)
+
+    def __call__(self, q: torch.Tensor) -> torch.Tensor:
+        return euler3d_operator(q, self.halo(self.traces(q)), self.con, bal=self.bal)
+
+    def stage(self, x, y, a: float, b: float, cdt: float, traces: Optional[torch.Tensor] = None):
+        """One fused RK stage ``a*x + b*y + cdt*RHS(y)`` (``x`` unused when
+        ``a == 0``); ``traces`` are y's panel-edge traces (bootstrapped when
+        None). Returns (output, output traces)."""
+        if traces is None:
+            traces = self.traces(y)
+        return euler3d_operator(y, self.halo(traces), self.con, x=x, a=a, b=b, cdt=cdt, bal=self.bal,
+                                emit_traces=True)
+
+    @staticmethod
+    def pack(q: torch.Tensor) -> torch.Tensor:
+        return q
+
+    @staticmethod
+    def unpack(q: torch.Tensor) -> torch.Tensor:
+        return q
+

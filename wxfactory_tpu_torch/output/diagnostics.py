@@ -1,4 +1,5 @@
-"""Shallow-water diagnostics: vorticity, energy, enstrophy, global integrals.
+"""Diagnostics: shallow-water vorticity, energy, enstrophy, global
+integrals; the 3D Euler global mass.
 
 Capability parity with the reference's output/diagnostic.py. One deliberate
 correction: relative vorticity here is the mathematically standard
@@ -53,3 +54,13 @@ def global_integral_2d(field, ops: DFROperators, metric: Metric2D) -> float:
     sharding; reference diagnostic.py:60-65)."""
     w = np.asarray(ops.quad_weights).reshape(-1)
     return float(np.sum(np.asarray(field) * metric.sqrtG * w))
+
+
+def global_mass_3d(q, ops: DFROperators, metric) -> float:
+    """Total mass sum(sqrt(g) * w^3 * rho) of a 3D Euler state (the
+    quadrature the JAX package's tests/test_euler3d.py:78-93 conserves).
+    ``q`` is (5, 6, nk, ny, nx, s^3), numpy or a torch tensor."""
+    w = np.asarray(ops.weights)
+    wq = np.einsum("i,j,k->ijk", w, w, w).reshape(-1)
+    rho = q[0].detach().cpu().numpy() if hasattr(q, "detach") else np.asarray(q[0])
+    return float(np.sum(np.asarray(metric.sqrtG) * wq * rho))

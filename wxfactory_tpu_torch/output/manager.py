@@ -2,9 +2,10 @@
 
 Counterpart of ``wxfactory_tpu/output/manager.py`` for the outputs the
 port has: the same checkpoint files (npy + version + INI, same md5-keyed
-file names, so ``wxfactory_tpu.output.state.load_state`` reads them) and the
-shallow-water blockstats (case-2 error norms; mass, energy and enstrophy
-drift). Field output (NetCDF/FST), the solver-stats database and the
+file names, so ``wxfactory_tpu.output.state.load_state`` reads them) for
+both models, and the shallow-water blockstats (case-2 error norms; mass,
+energy and enstrophy drift). As in the JAX package, the blockstats print
+nothing for 3D Euler. Field output (NetCDF/FST), the solver-stats database and the
 runtime file are not ported yet (ROADMAP queue 1, item 15) and raise when
 configured.
 """
@@ -75,6 +76,8 @@ class OutputManager:
 
     def __blockstats__(self, q: np.ndarray, step_id: int):
         c = self.config
+        if c.equations != "shallow_water":
+            return
         from ..testcases.shallow_water import height_case2
 
         h = q[0]

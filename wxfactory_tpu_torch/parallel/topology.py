@@ -82,8 +82,10 @@ class CubedSphereTopology:
     and kept on the object."""
 
     def __init__(self, geom):
+        """geom: CubedSphere2D or CubedSphere3D (only the horizontal panel
+        structure — x1, panel rotations, delta_x — is used)."""
         self.geom = geom
-        self.nel_h = geom.num_elements
+        self.nel_h = getattr(geom, "num_elements", None) or geom.nel_h
         self.num_points = self.nel_h * geom.num_solpts
 
         # --- Derive adjacency from edge-midpoint coincidence.
@@ -163,12 +165,31 @@ class CubedSphereTopology:
             self._device_tables[key] = torch.as_tensor(self._gather_index, device=device)
         return self._device_tables[key]
 
-    def conv_coefficients(self, device, dtype) -> Tuple[torch.Tensor, ...]:
-        """(c11, c12, c21, c22), each (4, 6, npts), of the 2x2 contravariant
-        rotation."""
-        key = ("contra", torch.device(device), dtype)
+    def gather_index_3d(self, nk: int, device) -> torch.Tensor:
+        """Flat gather index over a 3D (24 * nk * nh * s^2) trace pool: the
+        neighbour row, and where the edge runs opposite, the horizontal
+        element and the horizontal face point reversed (the vertical face
+        point kz kept; the reference's flip_dim=(-3, -1))."""
+        key = ("index3d", nk, torch.device(device))
         if key not in self._device_tables:
-            conv = self._conv_contra_all
+            s = self.geom.num_solpts
+            m = self.nel_h * s * s
+            flipped = np.arange(m).reshape(self.nel_h, s, s)[::-1, :, ::-1].reshape(m)
+            rows = [
+                self._edge_src[r] * nk * m + np.arange(nk)[:, None] * m
+                + (flipped if self._flip_mask[r] else np.arange(m))[None, :]
+                for r in range(24)
+            ]
+            index = np.concatenate([r.reshape(-1) for r in rows]).astype(np.int64)
+            self._device_tables[key] = torch.as_tensor(index, device=device)
+        return self._device_tables[key]
+
+    def conv_coefficients(self, device, dtype, covariant: bool = False) -> Tuple[torch.Tensor, ...]:
+        """(c11, c12, c21, c22), each (4, 6, npts), of the 2x2 contravariant
+        (or covariant) rotation."""
+        key = ("cov" if covariant else "contra", torch.device(device), dtype)
+        if key not in self._device_tables:
+            conv = self._conv_cov_all if covariant else self._conv_contra_all
             self._device_tables[key] = tuple(
                 torch.as_tensor(np.ascontiguousarray(conv[..., i, j]), device=device, dtype=dtype)
                 for i in (0, 1)
@@ -223,3 +244,79 @@ class CubedSphereTopology:
         a2 = self.exchange_pool(self._trace_pool(itf_i_2, itf_j_2))
         b1, b2 = self.rotate_vectors(a1, a2)
         return {d: (b1[..., d, :, :], b2[..., d, :, :]) for d in range(4)}
+
+    # ------------------------------------------------------------------
+    # 3D variants: traces carry a vertical element axis (nk) and s^2 faces
+    # (kz, k_horizontal) of which only the horizontal half flips and rotates.
+
+    def _trace_pool_3d(self, itf_i: torch.Tensor, itf_j: torch.Tensor) -> torch.Tensor:
+        """All 24 outgoing boundary traces, 3D: (..., 4, 6, nk, nh, s^2) in
+        (side, panel) order with sides (S, N, W, E).
+
+        itf_i: (..., 6, nk, ny, nx, 2s^2) west|east faces (face kz*s+ky).
+        itf_j: (..., 6, nk, ny, nx, 2s^2) south|north faces (face kz*s+kx)."""
+        ss = self.geom.num_solpts ** 2
+        south = itf_j[..., :, :, 0, :, :ss]
+        north = itf_j[..., :, :, -1, :, ss:]
+        west = itf_i[..., :, :, :, 0, :ss]
+        east = itf_i[..., :, :, :, -1, ss:]
+        return torch.stack([south, north, west, east], dim=-5)
+
+    def exchange_pool_3d(self, pool: torch.Tensor) -> torch.Tensor:
+        """Exchange a 3D trace pool (..., 4, 6, nk, nh, s^2): for each
+        (side, panel), the neighbour's facing trace in local ordering, edge
+        flips applied. One index gather."""
+        lead, nk = pool.shape[:-5], pool.shape[-3]
+        flat = pool.reshape(lead + (-1,))
+        out = torch.index_select(flat, -1, self.gather_index_3d(nk, pool.device))
+        return out.reshape(pool.shape)
+
+    def rotate_vectors_3d(self, a1: torch.Tensor, a2: torch.Tensor, covariant: bool = False):
+        """2x2 panel-basis rotation of exchanged horizontal vector components
+        (..., 4, 6, nk, nh, s^2), by horizontal edge point (broadcast over
+        nk and kz)."""
+        s, nh = self.geom.num_solpts, self.nel_h
+        coef = [c.reshape(4, 6, 1, nh, 1, s)
+                for c in self.conv_coefficients(a1.device, a1.dtype, covariant)]
+        split = a1.shape[:-1] + (s, s)
+        v1, v2 = a1.reshape(split), a2.reshape(split)
+        b1 = coef[0] * v1 + coef[1] * v2
+        b2 = coef[2] * v1 + coef[3] * v2
+        return b1.reshape(a1.shape), b2.reshape(a2.shape)
+
+    def halo_scalars_3d(self, itf_i: torch.Tensor, itf_j: torch.Tensor) -> Dict[int, torch.Tensor]:
+        """{side: (..., 6, nk, nh, s^2)} halo traces of a scalar field."""
+        g = self.exchange_pool_3d(self._trace_pool_3d(itf_i, itf_j))
+        return {d: g[..., d, :, :, :, :] for d in range(4)}
+
+    def halo_state_3d(self, itf_i: torch.Tensor, itf_j: torch.Tensor, vec_rows: Tuple[int, int] = (1, 2),
+                      covariant: bool = False) -> torch.Tensor:
+        """Exchange all state rows at once: itf_i/itf_j (nv, 6, nk, ny, nx,
+        2s^2); rows ``vec_rows`` are the horizontal vector pair and get the
+        2x2 rotation, every other row passes through like a scalar. Returns
+        (nv, 4, 6, nk, nh, s^2) in (S, N, W, E) side order."""
+        return self.halo_from_pool_3d(self._trace_pool_3d(itf_i, itf_j), vec_rows, covariant)
+
+    def halo_from_pool_3d(self, pool: torch.Tensor, vec_rows: Tuple[int, int] = (1, 2),
+                          covariant: bool = False) -> torch.Tensor:
+        """``halo_state_3d`` on a prebuilt outgoing pool (nv, 4, 6, nk, nh, s^2)."""
+        a = self.exchange_pool_3d(pool)
+        r1, r2 = vec_rows
+        b1, b2 = self.rotate_vectors_3d(a[r1], a[r2], covariant)
+        rows = list(a.unbind(0))
+        rows[r1], rows[r2] = b1, b2
+        return torch.stack(rows)
+
+    def halo_vectors_3d(self, itf_i_1, itf_j_1, itf_i_2, itf_j_2, itf_i_3, itf_j_3,
+                        covariant: bool = False) -> Dict[int, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+        """3-vector halo: components 1/2 rotate with the 2x2 edge matrices,
+        component 3 (vertical) passes through unchanged. {side: (c1, c2, c3)},
+        each (..., 6, nk, nh, s^2)."""
+        pool = torch.stack([
+            self._trace_pool_3d(itf_i_1, itf_j_1),
+            self._trace_pool_3d(itf_i_2, itf_j_2),
+            self._trace_pool_3d(itf_i_3, itf_j_3),
+        ])
+        h = self.halo_from_pool_3d(pool, (0, 1), covariant)
+        return {d: (h[0][..., d, :, :, :, :], h[1][..., d, :, :, :, :], h[2][..., d, :, :, :, :])
+                for d in range(4)}

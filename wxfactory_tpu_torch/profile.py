@@ -1,0 +1,72 @@
+"""Where a run's time goes on the card: ``python -m wxfactory_tpu_torch.profile
+config.ini [--steps N] [--warmup M]``.
+
+Builds the configuration's Simulation on CUDA, takes ``--warmup`` steps, then
+``--steps`` steps under ``torch.profiler`` (CPU and CUDA activities), and
+prints one JSON line: the card, host wall time per step (unprofiled and
+profiled), device busy time per step and its share of the profiled window,
+and device time per step by kernel name (the largest first). Needs a CUDA
+device; there is no CPU mode.
+"""
+
+import argparse
+import json
+import sys
+import time
+
+
+def profile(config_path: str, steps: int = 20, warmup: int = 10, top: int = 12) -> dict:
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from .simulation import Simulation
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile needs a CUDA device")
+    sim = Simulation(config_path, device="cuda")
+    q, t = sim.initial_q, 0.0
+    step_id = 0
+
+    def run(n):
+        nonlocal q, t, step_id
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step_id += 1
+            q, t = sim.step(q, step_id, t)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n
+
+    run(warmup)
+    plain_step_s = run(steps)
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiled_step_s = run(steps)
+    kernels = {}
+    for ev in prof.key_averages():
+        # Device-side events only (kernels, copies); the CPU ops that
+        # launched them carry the same device time again.
+        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0:
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + ev.self_device_time_total / steps
+    busy_us = sum(kernels.values())
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1])[:top]
+    return {
+        "gpu": torch.cuda.get_device_name(0), "config": config_path, "steps": steps, "warmup": warmup,
+        "step_ms": plain_step_s * 1e3, "profiled_step_ms": profiled_step_s * 1e3,
+        "device_busy_us_per_step": busy_us, "device_busy_share": busy_us * 1e-6 / profiled_step_s,
+        "kernels_us_per_step": [{"name": k[:90], "us": v} for k, v in ranked],
+    }
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(prog="wxfactory_tpu_torch.profile", description=__doc__.split("\n")[0])
+    parser.add_argument("config", help="Path to the simulation configuration (INI)")
+    parser.add_argument("--steps", type=int, default=20)
+    parser.add_argument("--warmup", type=int, default=10)
+    args = parser.parse_args(argv)
+    print(json.dumps(profile(args.config, args.steps, args.warmup)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,10 +1,13 @@
 """Simulation: configuration -> geometry -> state -> integrator -> run.
 
-Counterpart of ``wxfactory_tpu/simulation.py`` for the shallow-water
-cubed-sphere branch with the explicit integrators (euler1, tvdrk3): the step
-loop with the end-time clamp, the per-step NaN/Inf guard, checkpoints and
-blockstats. The device comes from the caller; nothing moves to another
-device. Any other model, integrator or distribution raises.
+Counterpart of ``wxfactory_tpu/simulation.py`` for the cubed-sphere
+explicit path of both models: shallow water (Williamson cases 2 and 6) and
+3D Euler (DCMIP cases 31 and 77), with the explicit integrators (euler1,
+tvdrk3), the step loop with the end-time clamp, the per-step NaN/Inf guard,
+checkpoints and blockstats (shallow water only, as in the JAX package). The
+device comes from the caller; nothing moves to another device. Any other
+grid, case, integrator or distribution raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 
 import math
@@ -13,13 +16,13 @@ import time
 import torch
 
 from .config import Configuration, load_configuration
-from .geometry import make_cubed_sphere_2d, make_metric_2d
+from .geometry import make_cubed_sphere_2d, make_cubed_sphere_3d, make_metric_2d, make_metric_3d
 from .integrators import Euler1, Tvdrk3
-from .models import make_rhs_shallow_water
+from .models import Euler3DRHS, make_rhs_shallow_water
 from .ops.dfr import make_dfr_operators
 from .output import OutputManager
 from .parallel import CubedSphereTopology
-from .testcases import initial_state
+from .testcases import dcmip_planet_params, initial_state, initial_state_3d
 
 
 def resolve_device(device) -> torch.device:
@@ -40,10 +43,10 @@ class Simulation:
         self.config = c = config
         self.device = resolve_device(device)
 
-        if c.grid_type != "cubed_sphere" or c.equations != "shallow_water":
+        if c.grid_type != "cubed_sphere":
             raise NotImplementedError(
-                f"{c.grid_type}/{c.equations} is not ported yet (the port runs shallow water "
-                "on the cubed sphere; 3D Euler is ROADMAP queue 1, items 9-10)"
+                f"grid {c.grid_type!r} is not ported yet (the port runs the cubed sphere; the "
+                "Cartesian 2D models are ROADMAP queue 1, item 15)"
             )
         if getattr(c, "distribute", "auto") not in ("auto", "off"):
             raise NotImplementedError(
@@ -55,15 +58,33 @@ class Simulation:
             raise NotImplementedError("preconditioners are not ported yet (ROADMAP queue 1, item 13)")
 
         self.dtype = torch.float32 if c.precision == "float32" else torch.float64
-        self.ops = make_dfr_operators(c.num_solpts)
-        self.geom = make_cubed_sphere_2d(c.num_elements_horizontal, c.num_solpts, c.lambda0, c.phi0, c.alpha0)
-        self.metric = make_metric_2d(self.geom)
-        self.topology = CubedSphereTopology(self.geom)
-        q0 = initial_state(self.geom, c.case_number)
-        self.rhs = make_rhs_shallow_water(
-            self.geom, self.ops, self.metric, dtype=self.dtype, device=self.device,
-            topology=self.topology,
-        )
+        if c.equations == "euler":
+            self.ops = make_dfr_operators(c.num_solpts, three_d=True)
+            scale, rotating = dcmip_planet_params(c.case_number)
+            self.geom = make_cubed_sphere_3d(
+                c.num_elements_horizontal, c.num_elements_vertical, c.num_solpts, c.ztop,
+                c.lambda0, c.phi0, c.alpha0, deep=(c.depth_approx == "deep"),
+                planet_scaling_factor=scale, planet_is_rotating=rotating,
+            )
+            self.topology = CubedSphereTopology(self.geom)
+            q0 = initial_state_3d(self.geom, c.case_number)
+            self.metric = make_metric_3d(self.geom, self.ops, self.topology)
+            self.rhs = Euler3DRHS(
+                self.geom, self.ops, self.metric, dtype=self.dtype, device=self.device, topology=self.topology,
+                # float32 cannot resolve the hydrostatic balance: the
+                # well-balanced offset around the initial state absorbs it.
+                base_state=(q0 if self.dtype == torch.float32 else None),
+            )
+        else:
+            self.ops = make_dfr_operators(c.num_solpts)
+            self.geom = make_cubed_sphere_2d(c.num_elements_horizontal, c.num_solpts, c.lambda0, c.phi0, c.alpha0)
+            self.metric = make_metric_2d(self.geom)
+            self.topology = CubedSphereTopology(self.geom)
+            q0 = initial_state(self.geom, c.case_number)
+            self.rhs = make_rhs_shallow_water(
+                self.geom, self.ops, self.metric, dtype=self.dtype, device=self.device,
+                topology=self.topology,
+            )
         self.output = OutputManager(c, self.geom, self.ops, self.metric)
 
         self.starting_step = 0
