@@ -34,7 +34,29 @@ and drives the port's two main paths, shallow water and 3D Euler:
    state, mass drift below 1e-11 and checkpoints that read back;
 8. time per call at 20x20x3, s=3 of the 3D kernel (RHS; stage + x +
    traces), its plain version and the halo glue (CUDA events, median), f64
-   and f32, beside the call's memory/compute bound.
+   and f32, beside the call's memory/compute bound;
+9. the 3D kernel's tangent mode (the Jacobian action J(q).v) against its
+   plain version (torch.func.jvp of the plain operator) on the card at every
+   shape of phase 5, f64 within 1e-12 of the plain J.v's max per variable,
+   f32 within 5e-5 of the f64 plain J.v's (rows in build/chip_smoke/
+   phase9.json);
+10. the same dcmip31 EPI2+KIOPS run (4x2x2, s=2, dt=30 s, 4 steps, f64) on
+    the GPU and on the CPU: identical Krylov statistics at every step, final
+    states within 1e-10 of each variable's max;
+11. the EPI2 main path: ``python -m wxfactory_tpu_torch`` on dcmip31 with
+    epi2, kiops, tolerance 1e-7, dt=30 s, at the canonical 12x12x3, s=2 for
+    20 steps, then at 20x20x3, s=3 for 5 steps; each with one RHS-kernel
+    launch a step, one tangent-kernel launch per Jacobian action the
+    integrator asked for, no plain tangent call, a finite state, mass drift
+    below the KIOPS tolerance 1e-7 at every step (the first step's update
+    cancels ~12 orders of magnitude at the balanced initial state and moves
+    mass by a few 1e-8, as in the JAX package; tools/epi2_mass_drift.py)
+    and checkpoints (one a step) that read back; it reports steps/s, setup
+    time, the Krylov statistics and (torch.profiler, on a second build of
+    the same configuration) the tangent kernel's share of device time;
+12. time per call at 20x20x3, s=3 (CUDA events, median), f64 and f32, of the
+    tangent kernel, its plain version, the tangent glue and the RHS kernel,
+    beside the tangent call's memory/compute bound.
 
 Each phase prints one JSON line; then the kernels line, the card's
 ``nvidia-smi`` name and power limit, and last the result line. Any failure
@@ -96,7 +118,10 @@ case_number = 31
 [Time_integration]
 dt = {dt}
 t_end = {t_end}
-time_integrator = tvdrk3
+time_integrator = {integrator}
+exponential_solver = kiops
+tolerance = 1e-7
+verbose_solver = {verbose}
 [Spatial_discretization]
 num_solpts = {s}
 num_elements_horizontal = {nel_h}
@@ -149,7 +174,7 @@ def ptxas_summary(log: str):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(sw_operator|euler3d_operator)_kernelI([df])Li(\d+)E", m.group(1))
+            k = re.search(r"(sw_operator|euler3d_operator|euler3d_tangent)_kernelI([df])Li(\d+)E", m.group(1))
             current = {"kernel": f"{k.group(1)} {'f64' if k.group(2) == 'd' else 'f32'} s={k.group(3)}"
                        if k else m.group(1)}
             rows.append(current)
@@ -223,18 +248,24 @@ def phase2(torch):
 
 
 def reset_counts():
-    """Set every kernel wrapper's launch count to 0."""
+    """Set every kernel wrapper's launch count, the plain tangent's call
+    count and the Jacobian actions asked of the matvec closures to 0."""
     from wxfactory_tpu_torch.ops import euler3d_operator as e3op
     from wxfactory_tpu_torch.ops import sw_operator as swop
+    from wxfactory_tpu_torch.solvers import matvec
 
-    swop.launches = e3op.launches = 0
+    swop.launches = e3op.launches = e3op.tangent_launches = e3op.plain_tangent_calls = 0
+    matvec.jacobian_actions = 0
 
 
 def read_counts():
     from wxfactory_tpu_torch.ops import euler3d_operator as e3op
     from wxfactory_tpu_torch.ops import sw_operator as swop
+    from wxfactory_tpu_torch.solvers import matvec
 
-    return {"sw_operator": swop.launches, "euler3d_operator": e3op.launches}
+    return {"sw_operator": swop.launches, "euler3d_operator": e3op.launches,
+            "euler3d_tangent": e3op.tangent_launches, "plain_tangent_calls": e3op.plain_tangent_calls,
+            "jacobian_actions": matvec.jacobian_actions}
 
 
 def phase3(torch):
@@ -346,7 +377,8 @@ def phase6(torch):
     from wxfactory_tpu_torch.config import Configuration
     from wxfactory_tpu_torch.simulation import Simulation
 
-    text = DCMIP31_INI.format(dt=2, t_end=20, s=2, nel_h=3, nel_v=2, save=0, out=WORK / "phase6")
+    text = DCMIP31_INI.format(dt=2, t_end=20, s=2, nel_h=3, nel_v=2, save=0, out=WORK / "phase6",
+                              integrator="tvdrk3", verbose=0)
     states = {}
     for device in ("cuda", "cpu"):
         with contextlib.redirect_stdout(io.StringIO()):
@@ -374,7 +406,7 @@ def _dcmip31_run(torch, nel_h, nel_v, s, dt, nsteps, tag):
         Path(old).unlink()
     ini = WORK / f"dcmip31_{tag}.ini"
     ini.write_text(DCMIP31_INI.format(dt=dt, t_end=dt * nsteps, s=s, nel_h=nel_h, nel_v=nel_v, save=nsteps,
-                                      out=out_dir))
+                                      out=out_dir, integrator="tvdrk3", verbose=0))
     log = io.StringIO()
     reset_counts()
     t0 = time.perf_counter()
@@ -458,6 +490,179 @@ def phase8(torch, smi):
     return rows[0]
 
 
+def phase9(torch):
+    from wxfactory_tpu_torch.kernels.check import compare_euler3d_tangent
+
+    rows = []
+    for nel_h, nel_v, s, case in E3_SHAPES:
+        for dtype in (torch.float64, torch.float32):
+            rows.append(compare_euler3d_tangent(nel_h, nel_v, s, dtype, device="cuda", case=case))
+    emit_comparison(9, rows, ("nel_h", "nel_v", "s", "case"))
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"tangent kernel disagrees with its plain version: {bad}")
+    main_path = [r for r in rows if (r["nel_h"], r["nel_v"], r["s"], r["dtype"]) == E3_MAIN + ("float64",)]
+    return max(r["max_abs_err"] for r in main_path)
+
+
+KRYLOV_LINE = re.compile(r"kiops converged at iteration (\d+) \((\d+) substeps, (\d+) rejected\) "
+                         r"local error (\S+), last Krylov size (\d+)")
+
+
+def phase10(torch):
+    """The same EPI2 run on the GPU (tangent kernel) and on the CPU (plain
+    tangent): the Krylov statistics of every step and the final states."""
+    from wxfactory_tpu_torch.config import Configuration
+    from wxfactory_tpu_torch.simulation import Simulation
+
+    nsteps = 4
+    text = DCMIP31_INI.format(dt=30, t_end=30 * nsteps, s=2, nel_h=4, nel_v=2, save=0, out=WORK / "phase10",
+                              integrator="epi2", verbose=1)
+    states, stats = {}, {}
+    for device in ("cuda", "cpu"):
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            states[device] = Simulation(Configuration(text), device=device).run().cpu()
+        stats[device] = [tuple(int(m.group(i)) for i in (1, 2, 3, 5)) for m in KRYLOV_LINE.finditer(log.getvalue())]
+    want, got = states["cpu"], states["cuda"]
+    scale = want.abs().reshape(5, -1).amax(dim=1).reshape(5, 1, 1, 1, 1, 1)
+    err = float(((got - want).abs() / scale).max())
+    same = stats["cuda"] == stats["cpu"] and len(stats["cpu"]) == nsteps
+    emit({"phase": 10, "case": 31, "integrator": "epi2", "steps": nsteps, "nel_h": 4, "nel_v": 2, "s": 2,
+          "dtype": "float64", "krylov_gpu": stats["cuda"], "krylov_cpu": stats["cpu"],
+          "krylov_columns": ["iterations", "substeps", "rejected", "last_krylov_size"], "same_krylov": same,
+          "err": err, "tol": 1e-10, "ok": same and err <= 1e-10})
+    if not same:
+        raise AssertionError(f"GPU and CPU EPI2 runs differ in Krylov statistics: {stats}")
+    if not err <= 1e-10:
+        raise AssertionError(f"GPU and CPU EPI2 runs differ by {err} of scale")
+
+
+def _epi2_run(torch, nel_h, nel_v, s, nsteps, tag, profile_steps):
+    """One dcmip31 EPI2+KIOPS run through the CLI on the card; checks the
+    launch counts, state, mass drift and checkpoints, then profiles
+    ``profile_steps`` steps of a second build; returns its JSON row."""
+    from wxfactory_tpu_torch import __main__ as cli
+    from wxfactory_tpu_torch.kernels.check import euler3d_setup
+    from wxfactory_tpu_torch.output import global_mass_3d
+    from wxfactory_tpu_torch.output.state import load_state
+    from wxfactory_tpu_torch.profile import profile_simulation
+    from wxfactory_tpu_torch.simulation import Simulation
+
+    dt = 30.0
+    out_dir = WORK / f"phase11_{tag}"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for old in glob.glob(str(out_dir / "state_vector_*")):
+        Path(old).unlink()
+    ini = WORK / f"dcmip31_epi2_{tag}.ini"
+    ini.write_text(DCMIP31_INI.format(dt=dt, t_end=dt * nsteps, s=s, nel_h=nel_h, nel_v=nel_v, save=1,
+                                      out=out_dir, integrator="epi2", verbose=1))
+    log = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        rc = cli.main([str(ini), "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    text = log.getvalue()
+    sys.stderr.write(text[-3000:])
+    krylov = [tuple(int(m.group(i)) for i in (1, 2, 3, 5)) for m in KRYLOV_LINE.finditer(text)]
+    run = re.search(r"Completed (\d+) steps in (\S+) s \((\S+) steps/s\)", text)
+    if rc != 0 or run is None:
+        raise AssertionError(f"EPI2 main path ({tag}) exited with {rc}; Krylov statistics per step "
+                             f"(iterations, substeps, rejected, last size): {krylov}")
+    if counts["euler3d_operator"] != nsteps:
+        raise AssertionError(f"{counts['euler3d_operator']} RHS-kernel launches in {nsteps} EPI2 steps")
+    if counts["euler3d_tangent"] != counts["jacobian_actions"] or counts["jacobian_actions"] == 0:
+        raise AssertionError(f"tangent launches {counts['euler3d_tangent']} != Jacobian actions "
+                             f"{counts['jacobian_actions']}")
+    if counts["plain_tangent_calls"] != 0:
+        raise AssertionError(f"{counts['plain_tangent_calls']} plain tangent calls on the card")
+    if len(krylov) != nsteps or sum(k[0] for k in krylov) != counts["jacobian_actions"]:
+        raise AssertionError(f"Krylov statistics {krylov} do not account for {counts['jacobian_actions']} actions")
+    _, ops, metric, _, _ = euler3d_setup(nel_h, nel_v, s, 31)
+    masses = []
+    for step in range(nsteps + 1):
+        files = glob.glob(str(out_dir / f"state_vector_*.{step:08d}.npy"))
+        if len(files) != 1:
+            raise AssertionError(f"checkpoint files {files}")
+        q, _, version = load_state(files[0])
+        masses.append(global_mass_3d(q, ops, metric))
+    if q.shape != (5, 6, nel_v, nel_h, nel_h, s**3) or not bool(torch.isfinite(torch.as_tensor(q)).all()):
+        raise AssertionError(f"checkpoint state {q.shape} not finite or misshapen")
+    drifts = [(m - masses[0]) / masses[0] for m in masses[1:]]
+    # KIOPS forms the first step's update from a Krylov combination that
+    # cancels ~12 orders of magnitude at the balanced initial state, so
+    # round-off of the (conservative) basis leaves a mass jump of a few
+    # 1e-8 in the JAX package and the port alike (tools/epi2_mass_drift.py);
+    # later steps move mass at ~1e-11. The gate is the KIOPS tolerance.
+    drift = drifts[-1]
+    if not max(abs(d) for d in drifts) < 1e-7:
+        raise AssertionError(f"mass drift {drifts} over {nsteps} EPI2 steps")
+    with contextlib.redirect_stdout(io.StringIO()):
+        prof = profile_simulation(Simulation(str(ini), device="cuda"), steps=profile_steps, warmup=1)
+    run_s = float(run.group(2))
+    return {
+        "case": 31, "nel_h": nel_h, "nel_v": nel_v, "s": s, "points": 6 * nel_v * nel_h * nel_h * s**3,
+        "dtype": "float64", "integrator": "epi2", "exponential_solver": "kiops", "tolerance": 1e-7, "dt": dt,
+        "steps": int(run.group(1)), "simulated_s": dt * nsteps, "setup_s": wall - run_s, "run_s": run_s,
+        "steps_per_s": float(run.group(3)), "main_wall_s": wall, "rhs_launches": counts["euler3d_operator"],
+        "tangent_launches": counts["euler3d_tangent"], "jacobian_actions": counts["jacobian_actions"],
+        "plain_tangent_calls": counts["plain_tangent_calls"],
+        "krylov_iterations": sum(k[0] for k in krylov), "substeps": sum(k[1] for k in krylov),
+        "rejected": sum(k[2] for k in krylov), "last_krylov_size": krylov[-1][3],
+        "krylov_per_step": krylov, "mass_drift": drift, "mass_drift_per_step": drifts,
+        "mass_drift_after_step_1": (masses[-1] - masses[1]) / masses[1], "max_abs_w": float(abs(q[3] / q[0]).max()),
+        "profiled_steps": profile_steps, "profiled_step_ms": prof["profiled_step_ms"],
+        "device_busy_share": prof["device_busy_share"],
+        "tangent_share_of_device_time": prof["tangent_kernel_us_per_step"] / prof["device_busy_us_per_step"],
+        "profile_kernels_us_per_step": prof["kernels_us_per_step"][:6],
+        "checkpoint": Path(files[0]).name, "checkpoint_version": version,
+    }
+
+
+def phase11(torch):
+    canonical = _epi2_run(torch, 12, 3, 2, nsteps=20, tag="canonical", profile_steps=3)
+    main = _epi2_run(torch, *E3_MAIN, nsteps=5, tag="main", profile_steps=1)
+    emit({"phase": 11, "results": [canonical, main]})
+    return main["tangent_launches"]
+
+
+def phase12(torch, smi):
+    from wxfactory_tpu_torch.kernels.check import euler3d_tangent_inputs, euler3d_tangent_work, tangent_halos
+    from wxfactory_tpu_torch.ops import euler3d_operator as e3op
+
+    rows = []
+    for dtype in (torch.float64, torch.float32):
+        con, topology, q, v = euler3d_tangent_inputs(*E3_MAIN, dtype, "cuda")
+        traces = e3op.edge_traces(q, con)
+        halo_q, halo_v = tangent_halos(q, v, con, topology)
+        kernel = lambda: e3op.euler3d_tangent(q, v, halo_q, halo_v, con)
+        plain = lambda: e3op.euler3d_tangent_plain(q, v, halo_q, halo_v, con)
+        glue = lambda: e3op.halo_from_traces(e3op.edge_traces_tangent(q, v, con, traces), topology)
+        rhs = lambda: e3op.euler3d_operator(q, halo_q, con)
+        for fn in (kernel, plain, glue, rhs):
+            for _ in range(2):
+                fn()
+        torch.cuda.synchronize()
+        k, p = [], []
+        for fn, times in ((plain, p), (kernel, k), (kernel, k), (plain, p)):
+            times.extend(_event_times(torch, fn, n=10))
+        name = str(dtype).replace("torch.", "")
+        nbytes, ops = euler3d_tangent_work(con)
+        bound = {"bytes": nbytes / PEAK_BYTES * 1e3, "operations": ops / PEAK_FLOPS[name] * 1e3}
+        rows.append({
+            "nel_h": E3_MAIN[0], "nel_v": E3_MAIN[1], "s": E3_MAIN[2], "dtype": name,
+            "tangent_kernel_ms": statistics.median(k), "tangent_plain_ms": statistics.median(p),
+            "tangent_glue_ms": statistics.median(_event_times(torch, glue)),
+            "rhs_kernel_ms": statistics.median(_event_times(torch, rhs)), "calls_each": len(k),
+            "tangent_bytes": nbytes, "tangent_ops": ops, "tangent_bound_ms": max(bound.values()),
+            "tangent_bound_by": max(bound, key=bound.get),
+        })
+    emit({"phase": 12, "gpu": smi, "timing": "CUDA events, median per call", "results": rows})
+    return rows[0]
+
+
 def sw_bound():
     import torch
 
@@ -492,6 +697,10 @@ def main() -> int:
     phase6(torch)
     e3_launches = phase7(torch)
     e3_timing = phase8(torch, smi)
+    tangent_err = phase9(torch)
+    phase10(torch)
+    tangent_launches = phase11(torch)
+    tangent_timing = phase12(torch, smi)
     sw_bound_ms, sw_bound_by = sw_bound()
     emit({"kernels": [
         {"name": "sw_operator", "route": "cuda", "source": "wxfactory_tpu_torch/csrc/sw_operator.cu",
@@ -502,6 +711,11 @@ def main() -> int:
          "replaces": "wxfactory_tpu/ops/pallas_euler3d.py:2131", "launches": e3_launches,
          "max_abs_err": e3_err, "ms": e3_timing["kernel_rhs_ms"], "plain_ms": e3_timing["plain_rhs_ms"],
          "bound_ms": e3_timing["rhs_bound_ms"], "bound_by": e3_timing["rhs_bound_by"], "library_ms": None},
+        {"name": "euler3d_tangent", "route": "cuda", "source": "wxfactory_tpu_torch/csrc/euler3d_operator.cu",
+         "replaces": "wxfactory_tpu/ops/pallas_euler3d.py:2131 (tangent mode)", "launches": tangent_launches,
+         "max_abs_err": tangent_err, "ms": tangent_timing["tangent_kernel_ms"],
+         "plain_ms": tangent_timing["tangent_plain_ms"], "bound_ms": tangent_timing["tangent_bound_ms"],
+         "bound_by": tangent_timing["tangent_bound_by"], "library_ms": None},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (SW operator, 3D Euler operator) against their
-plain torch versions, on the card. Needs a CUDA device and nvcc, and skips without them. On a GPU
+"""The port's CUDA kernels (SW operator, 3D Euler operator and its tangent
+mode) against their plain torch versions, on the card. Needs a CUDA device and nvcc, and skips without them. On a GPU
 machine run it without tests/conftest.py (which configures JAX):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernel_cuda.py
@@ -13,8 +13,11 @@ import torch
 from wxfactory_tpu_torch.kernels.check import (
     case6_inputs,
     compare_euler3d_operator,
+    compare_euler3d_tangent,
     compare_sw_operator,
     euler3d_inputs,
+    euler3d_tangent_inputs,
+    tangent_halos,
 )
 from wxfactory_tpu_torch.ops import euler3d_operator as e3op
 from wxfactory_tpu_torch.ops import sw_operator as swop
@@ -62,3 +65,21 @@ def test_euler3d_launch_counter_counts_kernel_launches_only(cuda):
     e3op.euler3d_operator(y, halo, con, x=x, a=0.5, b=0.5, cdt=1.0, emit_traces=True)
     torch.cuda.synchronize()
     assert e3op.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("nel_h,nel_v,s,case", [(3, 2, 2, 31), (4, 2, 3, 77), (2, 2, 6, 31)])
+def test_euler3d_tangent_kernel_matches_plain(cuda, nel_h, nel_v, s, case, dtype):
+    row = compare_euler3d_tangent(nel_h, nel_v, s, dtype, device="cuda", case=case)
+    assert row["ok"], row
+
+
+def test_euler3d_tangent_counters_count_kernel_launches_and_plain_calls(cuda):
+    con, topology, q, v = euler3d_tangent_inputs(3, 2, 3, torch.float64, "cuda")
+    halo_q, halo_v = tangent_halos(q, v, con, topology)
+    launches, plain = e3op.tangent_launches, e3op.plain_tangent_calls
+    e3op.euler3d_tangent_plain(q, v, halo_q, halo_v, con)
+    assert (e3op.tangent_launches, e3op.plain_tangent_calls) == (launches, plain + 1)
+    e3op.euler3d_tangent(q, v, halo_q, halo_v, con)
+    torch.cuda.synchronize()
+    assert (e3op.tangent_launches, e3op.plain_tangent_calls) == (launches + 1, plain + 1)

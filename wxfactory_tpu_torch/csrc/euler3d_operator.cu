@@ -58,6 +58,38 @@
 // neighbour-state reads (30 s^3 loads an element, mostly L1/L2 hits), f64
 // log/exp throughput, and low occupancy (53-92 KB of shared memory a block
 // in f64).
+//
+// Tangent mode (euler3d_tangent_kernel, C entry euler3d_tangent_launch):
+// the Jacobian action J(q).v of the RHS above, replacing km3_fused's
+// tangent mode (pallas_euler3d.py:2131 with tangent=, body _km3_body
+// :762-777), the matvec of the exponential integrators' Krylov loop. It
+// takes the ABSOLUTE state q and the direction v with both halos; the JAX
+// mode takes the perturbation dq and the base q0 (q = q0 + dq), which is
+// the same function of (q, v): the base-state split is there for float32
+// on the TPU, and buys nothing for the float64 operator on this card. It
+// emits J.v alone (no stage, bal or traces). Every nonlinear site is
+// linearised exactly: d exp(E.log q) = tr * (E.(v/q)) for rho and
+// rho*theta at the own and the re-extrapolated neighbour traces alike,
+// dp = gamma p v_rt / q_rt, the quotient rule for the normal speed and for
+// the own-side face pressure that divides the w-pressure flux, the product
+// rule for the quadratic Christoffel terms (Coriolis, time Christoffels
+// and the filtered gravity are linear). Two non-differentiable sites take
+// the convention of jax.jvp and of torch.func.jvp of the plain version:
+// d|vn| = +dvn where vn >= 0 (zero included: a state at rest has vn = 0
+// at every z face), -dvn below; d max(aL, aR) = the larger side's
+// derivative, the mean of both at a tie. The tie is exact at the ground
+// and the lid, where both sides are the element's own trace with w odd:
+// there the two sides' derivatives are equal (|vn| and its derivative are
+// even in w), so any choice gives the same flux. The conservation
+// discipline of the RHS mode carries over: each element computes all six
+// faces, re-extrapolates the neighbour's primal and direction traces from
+// device memory in the fma order the neighbour uses, and passes qL/qR in
+// the fixed order through one call site, so the mass-flux derivative is
+// bit-identical from both sides and J.v has zero mass integral to
+// round-off. It holds 29 s^3 + 54 s^2 numbers an element in shared memory
+// (65-115 KB a block in f64) and reads q, v, the metric and both halos:
+// at 20x20x3, s=3, f64 ~212 MB, 63 us at 3.35 TB/s, bytes-bound like the
+// RHS mode.
 
 #include <cuda_runtime.h>
 
@@ -513,6 +545,434 @@ cudaError_t dispatch(int s, int nh, int nk, const void* q, const void* halo, con
 #undef E3_CASE
 }
 
+// ---------------------------------------------------------------------------
+// Tangent mode
+
+// The direction's trace at one face point from its log-tangent nodal
+// values in shared memory (v_rho/rho, v_1, v_2, v_3, v_rt/rt): the momenta
+// extrapolated linearly, rho and rho*theta as tr * (E.(v/q)), tr the
+// primal trace. The same fma order as nb_tangent_trace.
+template <typename T, int S>
+__device__ __forceinline__ void own_tangent_trace(const T* sv, int base, int stride, const T* coef,
+                                                  const T* tr, T* ttr) {
+  constexpr int S3 = S * S * S;
+#pragma unroll
+  for (int v = 0; v < 5; ++v) {
+    const T* src = sv + v * S3;
+    T acc = T(0);
+#pragma unroll
+    for (int i = 0; i < S; ++i) acc = fmadd(src[base + i * stride], coef[i], acc);
+    ttr[v] = (v == 0 || v == 4) ? tr[v] * acc : acc;
+  }
+}
+
+// The same direction trace of another element, from q and v in device memory.
+template <typename T, int S>
+__device__ __forceinline__ void nb_tangent_trace(const T* q, const T* vd, long long nq, long long elem,
+                                                 int base, int stride, const T* coef, const T* tr,
+                                                 T* ttr) {
+  constexpr int S3 = S * S * S;
+#pragma unroll
+  for (int v = 0; v < 5; ++v) {
+    const long long o = v * nq + elem * S3 + base;
+    T acc = T(0);
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      const T val = (v == 0 || v == 4) ? vd[o + i * stride] / q[o + i * stride] : vd[o + i * stride];
+      acc = fmadd(val, coef[i], acc);
+    }
+    ttr[v] = (v == 0 || v == 4) ? tr[v] * acc : acc;
+  }
+}
+
+// Directional derivative of `rusanov` at (L, R) in the direction (tL, tR),
+// vL/vR the normal speeds and tvL/tvR theirs. Returns the derivatives of
+// the four fluxes, of the w advection and w pressure fluxes, and the
+// primal w pressure flux and face pressures with their derivatives.
+template <typename T>
+__device__ __forceinline__ void rusanov_tangent(const T* L, const T* R, const T* tL, const T* tR, T vL,
+                                                T vR, T tvL, T tvR, T sg, T h0, T h1, T h2, T hd, T* tf,
+                                                T& twadv, T& wpres, T& twpres, T& pL, T& pR, T& tpL,
+                                                T& tpR) {
+  const T gam = T(kGamma);
+  pL = pressure(L[4]);
+  pR = pressure(R[4]);
+  tpL = gam * pL * tL[4] / L[4];
+  tpR = gam * pR * tR[4] / R[4];
+  const T cL = sqrt_rn(hd * gam * pL / L[0]);
+  const T cR = sqrt_rn(hd * gam * pR / R[0]);
+  const T aL = fabs(vL) + cL, aR = fabs(vR) + cR;
+  const T taL = (vL >= T(0) ? tvL : -tvL) + T(0.5) * cL * (tpL / pL - tL[0] / L[0]);
+  const T taR = (vR >= T(0) ? tvR : -tvR) + T(0.5) * cR * (tpR / pR - tR[0] / R[0]);
+  const T eig = fmax(aL, aR);
+  const T teig = aL > aR ? taL : (aL < aR ? taR : T(0.5) * (taL + taR));
+  const T sl = sg * vL, sr = sg * vR, es = eig * sg;
+  const T tsl = sg * tvL, tsr = sg * tvR, tes = teig * sg;
+  T adv[5];
+#pragma unroll
+  for (int v = 0; v < 5; ++v)
+    adv[v] = T(0.5) * ((tsl * L[v] + sl * tL[v]) + (tsr * R[v] + sr * tR[v]) -
+                       (tes * (R[v] - L[v]) + es * (tR[v] - tL[v])));
+  const T tps = T(0.5) * (tpL + tpR);
+  tf[0] = adv[0];
+  tf[1] = adv[1] + sg * h0 * tps;
+  tf[2] = adv[2] + sg * h1 * tps;
+  tf[3] = adv[4];
+  twadv = adv[3];
+  wpres = T(0.5) * (sg * h2 * pL + sg * h2 * pR);
+  twpres = sg * h2 * tps;
+}
+
+// Shared memory of the tangent mode (in T): ops1d, then per element [q
+// (5 s^3) | log-tangent v (5 s^3) | log rho, log rho*theta (2 s^3) | log p
+// (s^3) | sqrt(g)*v_rho (s^3) | direction fluxes (15 s^3) | face data
+// (9 x 6 s^2: the derivatives of the four fluxes, of the w advection, of
+// w pressure / p and of log p; then w pressure / p and log p)]. Every
+// region starts on a 16-byte boundary.
+template <typename T, int S>
+struct TangentShape {
+  using Sh = Shape<T, S>;
+  static constexpr int S2 = Sh::S2, S3 = Sh::S3, NF = Sh::NF;
+  static constexpr int PS = Sh::PS, PS2 = Sh::PS2, N_OPS = Sh::N_OPS, EB = Sh::EB;
+  static constexpr int OFF_V = Sh::pad(5 * S3);
+  static constexpr int OFF_LOG = OFF_V + Sh::pad(5 * S3);
+  static constexpr int OFF_LP = OFF_LOG + Sh::pad(2 * S3);
+  static constexpr int OFF_SG = OFF_LP + Sh::pad(S3);
+  static constexpr int OFF_F = OFF_SG + Sh::pad(S3);
+  static constexpr int OFF_FACE = OFF_F + Sh::pad(15 * S3);
+  static constexpr int PER_ELEM = OFF_FACE + Sh::pad(9 * NF);
+};
+
+template <typename T, int S>
+__global__ void __launch_bounds__(kThreads) euler3d_tangent_kernel(
+    const T* __restrict__ q, const T* __restrict__ vd, const T* __restrict__ halo,
+    const T* __restrict__ thalo, const T* __restrict__ ops, const T* __restrict__ fields,
+    const T* __restrict__ tch, const T* __restrict__ itf_x, const T* __restrict__ itf_y,
+    const T* __restrict__ itf_z, T* __restrict__ out, int nh, int nk) {
+  using Sh = TangentShape<T, S>;
+  constexpr int S2 = Sh::S2, S3 = Sh::S3, NF = Sh::NF;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const T* sEn = smem;
+  const T* sEp = smem + Sh::PS;
+  const T* sCn = smem + 2 * Sh::PS;
+  const T* sCp = smem + 3 * Sh::PS;
+  const T* sD = smem + 4 * Sh::PS;
+  const T* sHF = sD + Sh::PS2;
+
+  const int tid = threadIdx.x;
+  const int e_loc = tid / S3;
+  const int j = tid - e_loc * S3;
+  const int per_panel = nk * nh * nh;
+  const int p = blockIdx.x % 6;
+  const int pe = (blockIdx.x / 6) * Sh::EB + e_loc;
+  const bool valid = pe < per_panel;
+  const long long elem = (long long)p * per_panel + pe;
+  const long long nq = 6LL * per_panel * S3;
+  const long long fstride = (long long)per_panel * S3;
+  const T gam = T(kGamma);
+
+  T* sQ = smem + Sh::N_OPS + e_loc * Sh::PER_ELEM;
+  T* sV = sQ + Sh::OFF_V;
+  T* sLog = sQ + Sh::OFF_LOG;
+  T* sLp = sQ + Sh::OFF_LP;
+  T* sSg = sQ + Sh::OFF_SG;
+  T* sF = sQ + Sh::OFF_F;
+  T* sFace = sQ + Sh::OFF_FACE;
+
+  for (int i = tid; i < 4 * S + 2 * S2; i += blockDim.x) {
+    const int dst = i < 4 * S ? (i / S) * Sh::PS + i % S
+                              : 4 * Sh::PS + ((i - 4 * S) / S2) * Sh::PS2 + (i - 4 * S) % S2;
+    smem[dst] = ops[i];
+  }
+
+  int kz = 0, ey = 0, ex = 0;
+  T qv[5], tv[5], pres = T(0), tpres = T(0), sqrtg = T(0), hm[6];
+  const T* fld = fields + (long long)(valid ? pe : 0) * S3 + j;
+  if (valid) {
+    kz = pe / (nh * nh);
+    const int r = pe - kz * nh * nh;
+    ey = r / nh;
+    ex = r - ey * nh;
+#pragma unroll
+    for (int v = 0; v < 5; ++v) {
+      qv[v] = q[v * nq + elem * S3 + j];
+      tv[v] = vd[v * nq + elem * S3 + j];
+      sQ[v * S3 + j] = qv[v];
+    }
+    sV[j] = tv[0] / qv[0];
+    sV[S3 + j] = tv[1];
+    sV[2 * S3 + j] = tv[2];
+    sV[3 * S3 + j] = tv[3];
+    sV[4 * S3 + j] = tv[4] / qv[4];
+    sqrtg = fld[F_SQRTG * fstride];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) hm[i] = fld[(F_H + i) * fstride];
+    // --- Pointwise: logs, pressure and its derivative, the direction's
+    // sqrt(g)-weighted fluxes.
+    const T rho = qv[0];
+    const T u[3] = {qv[1] / rho, qv[2] / rho, qv[3] / rho};
+    const T tu[3] = {(tv[1] - u[0] * tv[0]) / rho, (tv[2] - u[1] * tv[0]) / rho, (tv[3] - u[2] * tv[0]) / rho};
+    sLog[j] = tlog(rho);
+    sLog[S3 + j] = tlog(qv[4]);
+    pres = pressure(qv[4]);
+    tpres = gam * pres * tv[4] / qv[4];
+    sLp[j] = tlog(pres);
+    sSg[j] = sqrtg * tv[0];
+    const T tsgp = sqrtg * tpres;
+    const T hrow[3][3] = {{hm[0], hm[1], hm[2]}, {hm[1], hm[3], hm[4]}, {hm[2], hm[4], hm[5]}};
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const T su = sqrtg * u[d], tsu = sqrtg * tu[d];
+      T* fd = sF + d * 5 * S3 + j;
+      fd[0] = tsu * qv[0] + su * tv[0];
+      fd[S3] = (tsu * qv[1] + su * tv[1]) + tsgp * hrow[d][0];
+      fd[2 * S3] = (tsu * qv[2] + su * tv[2]) + tsgp * hrow[d][1];
+      fd[3 * S3] = tsu * qv[4] + su * tv[4];
+      fd[4 * S3] = tsu * qv[3] + su * tv[3];
+    }
+  }
+  __syncthreads();
+
+  // --- Interface flux derivatives at this element's six faces (W, E, S, N, D, U).
+  if (valid) {
+#pragma unroll 1
+    for (int fi = j; fi < NF; fi += S3) {
+      const int face = fi / S2;
+      const int k = fi - face * S2;
+      const int d = face >> 1;
+      const bool pos = face & 1;
+      int base, stride;
+      face_line<S>(d, k, base, stride);
+      const T* coef = pos ? sEp : sEn;
+      T own[5], town[5], nb[5], tnb[5];
+      own_trace<T, S>(sQ, sLog, base, stride, coef, own);
+      own_tangent_trace<T, S>(sV, base, stride, coef, own, town);
+
+      bool boundary;
+      int hside, along;
+      long long nb_elem;
+      switch (face) {
+        case 0: boundary = ex == 0;      hside = 2; along = ey; nb_elem = elem - 1; break;
+        case 1: boundary = ex == nh - 1; hside = 3; along = ey; nb_elem = elem + 1; break;
+        case 2: boundary = ey == 0;      hside = 0; along = ex; nb_elem = elem - nh; break;
+        case 3: boundary = ey == nh - 1; hside = 1; along = ex; nb_elem = elem + nh; break;
+        case 4: boundary = kz == 0;      hside = 0; along = 0; nb_elem = elem - nh * nh; break;
+        default: boundary = kz == nk - 1; hside = 0; along = 0; nb_elem = elem + nh * nh; break;
+      }
+      if (!boundary) {
+        const T* nc = pos ? sEn : sEp;
+        nb_trace<T, S>(q, nq, nb_elem, base, stride, nc, nb);
+        nb_tangent_trace<T, S>(q, vd, nq, nb_elem, base, stride, nc, nb, tnb);
+      } else if (d < 2) {
+#pragma unroll
+        for (int v = 0; v < 5; ++v) {
+          const long long h = ((((long long)(v * 4 + hside) * 6 + p) * nk + kz) * nh + along) * S2 + k;
+          nb[v] = halo[h];
+          tnb[v] = thalo[h];
+        }
+      } else {
+#pragma unroll
+        for (int v = 0; v < 5; ++v) {  // ground / rigid lid: mirror
+          nb[v] = own[v];
+          tnb[v] = town[v];
+        }
+      }
+      T L[5], R[5], tL[5], tR[5];
+#pragma unroll
+      for (int v = 0; v < 5; ++v) {
+        L[v] = pos ? own[v] : nb[v];
+        R[v] = pos ? nb[v] : own[v];
+        tL[v] = pos ? town[v] : tnb[v];
+        tR[v] = pos ? tnb[v] : town[v];
+      }
+      T vL = L[1 + d] / L[0];
+      T vR = R[1 + d] / R[0];
+      T tvL = (tL[1 + d] - vL * tL[0]) / L[0];
+      T tvR = (tR[1 + d] - vR * tR[0]) / R[0];
+      if (boundary && d == 2) {  // w is odd across the ground and the lid
+        if (pos) {
+          vR = -vR;
+          tvR = -tvR;
+        } else {
+          vL = -vL;
+          tvL = -tvL;
+        }
+      }
+
+      const T* itf;
+      long long istride, iidx;
+      if (d == 0) {
+        itf = itf_x;
+        istride = (long long)nk * nh * (nh + 1) * S2;
+        iidx = ((long long)(kz * nh + ey) * (nh + 1) + ex + pos) * S2 + k;
+      } else if (d == 1) {
+        itf = itf_y;
+        istride = (long long)nk * (nh + 1) * nh * S2;
+        iidx = ((long long)(kz * (nh + 1) + ey + pos) * nh + ex) * S2 + k;
+      } else {
+        itf = itf_z;
+        istride = (long long)(nk + 1) * nh * nh * S2;
+        iidx = ((long long)((kz + pos) * nh + ey) * nh + ex) * S2 + k;
+      }
+      const T sg = itf[iidx], h0 = itf[istride + iidx], h1 = itf[2 * istride + iidx],
+              h2 = itf[3 * istride + iidx];
+      const T hd = d == 0 ? h0 : (d == 1 ? h1 : h2);
+      T tf[4], twadv, wpres, twpres, pL, pR, tpL, tpR;
+      rusanov_tangent(L, R, tL, tR, vL, vR, tvL, tvR, sg, h0, h1, h2, hd, tf, twadv, wpres, twpres, pL, pR,
+                      tpL, tpR);
+      const T p_own = pos ? pL : pR;
+      const T tp_own = pos ? tpL : tpR;
+      const T wp = wpres / p_own;
+      T* fc = sFace + fi;
+      fc[0] = tf[0];
+      fc[NF] = tf[1];
+      fc[2 * NF] = tf[2];
+      fc[3 * NF] = tf[3];
+      fc[4 * NF] = twadv;
+      fc[5 * NF] = (twpres - wp * tp_own) / p_own;
+      fc[6 * NF] = tp_own / p_own;
+      fc[7 * NF] = wp;
+      fc[8 * NF] = tlog(p_own);
+    }
+  }
+  __syncthreads();
+
+  // --- Divergence + corrections, w pressure split, forcing: their derivatives.
+  if (valid) {
+    const int jx = j % S, jy = (j / S) % S, jz = j / S2;
+    const int lx = (jz * S + jy) * S, ly = jz * S2 + jx, lz = jy * S + jx;
+    const int kxf = jz * S + jy, kyf = jz * S + jx, kzf = jy * S + jx;
+    const T* Dx = sD + jx * S;
+    const T* Dy = sD + jy * S;
+    const T* Dz = sD + jz * S;
+
+    T div[5];
+#pragma unroll
+    for (int c = 0; c < 5; ++c) {
+      const T* fx = sF + c * S3;
+      const T* fy = sF + (5 + c) * S3;
+      const T* fz = sF + (10 + c) * S3;
+      T acc = T(0);
+#pragma unroll
+      for (int i = 0; i < S; ++i) acc = fmadd(Dx[i], fx[lx + i], acc);
+#pragma unroll
+      for (int i = 0; i < S; ++i) acc = fmadd(Dy[i], fy[ly + i * S], acc);
+#pragma unroll
+      for (int i = 0; i < S; ++i) acc = fmadd(Dz[i], fz[lz + i * S2], acc);
+      div[c] = acc;
+    }
+    const T cnx = sCn[jx], cpx = sCp[jx], cny = sCn[jy], cpy = sCp[jy], cnz = sCn[jz], cpz = sCp[jz];
+    T corr[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const T* fc = sFace + c * NF;
+      corr[c] = cnx * fc[kxf] + cpx * fc[S2 + kxf] + cny * fc[2 * S2 + kyf] + cpy * fc[3 * S2 + kyf] +
+                cnz * fc[4 * S2 + kzf] + cpz * fc[5 * S2 + kzf];
+    }
+    // log p gradients (primal) and their derivatives: d log p = gamma v_rt / rt.
+    const T* flp = sFace + 8 * NF;
+    const T* tflp = sFace + 6 * NF;
+    const T* sLt = sV + 4 * S3;
+    T dlx = T(0), dly = T(0), dlz = T(0), tdlx = T(0), tdly = T(0), tdlz = T(0), grav = T(0);
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      dlx = fmadd(Dx[i], sLp[lx + i], dlx);
+      dly = fmadd(Dy[i], sLp[ly + i * S], dly);
+      dlz = fmadd(Dz[i], sLp[lz + i * S2], dlz);
+      tdlx = fmadd(Dx[i], sLt[lx + i], tdlx);
+      tdly = fmadd(Dy[i], sLt[ly + i * S], tdly);
+      tdlz = fmadd(Dz[i], sLt[lz + i * S2], tdlz);
+      grav = fmadd(sHF[jz * S + i], sSg[lz + i * S2], grav);
+    }
+    dlx += cnx * flp[kxf] + cpx * flp[S2 + kxf];
+    dly += cny * flp[2 * S2 + kyf] + cpy * flp[3 * S2 + kyf];
+    dlz += cnz * flp[4 * S2 + kzf] + cpz * flp[5 * S2 + kzf];
+    tdlx = gam * tdlx + (cnx * tflp[kxf] + cpx * tflp[S2 + kxf]);
+    tdly = gam * tdly + (cny * tflp[2 * S2 + kyf] + cpy * tflp[3 * S2 + kyf]);
+    tdlz = gam * tdlz + (cnz * tflp[4 * S2 + kzf] + cpz * tflp[5 * S2 + kzf]);
+
+    const T invsg = fld[F_INVSG * fstride];
+    const T invdz = fld[F_INVDZ * fstride];
+    const T wpres_int = fld[F_WPRES * fstride];
+    const T rho = qv[0];
+    const T u[3] = {qv[1] / rho, qv[2] / rho, qv[3] / rho};
+    const T tu[3] = {(tv[1] - u[0] * tv[0]) / rho, (tv[2] - u[1] * tv[0]) / rho, (tv[3] - u[2] * tv[0]) / rho};
+    const T sh02 = sqrtg * hm[2], sh12 = sqrtg * hm[4], sh22 = sqrtg * hm[5];
+    const T tw_df = div[4] + corr[4] + corr[5] * pres + (wpres_int + corr[7]) * tpres +
+                    tpres * (sh02 * dlx + sh12 * dly + sh22 * dlz) +
+                    pres * (sh02 * tdlx + sh12 * tdly + sh22 * tdlz);
+
+    // Christoffel/Coriolis forcing, product rule: d(rho u_b u_c) and h^{bc} dp.
+    const int B[6] = {0, 0, 0, 1, 1, 2}, C[6] = {0, 1, 2, 1, 2, 2};
+    T tpair[6];
+#pragma unroll
+    for (int i = 0; i < 6; ++i)
+      tpair[i] = (tv[0] * u[B[i]] * u[C[i]] + rho * tu[B[i]] * u[C[i]] + rho * u[B[i]] * tu[C[i]]) +
+                 hm[i] * tpres;
+    T force[3];
+#pragma unroll
+    for (int a_ = 0; a_ < 3; ++a_) {
+      const T* ch = fld + (F_CHS + 6 * a_) * fstride;
+      T fr = ch[0] * tpair[0];
+      if (tch != nullptr) {
+        const T* tc = tch + (long long)(3 * a_) * nq + elem * S3 + j;
+        const T cu = tc[0] * u[0] + tc[nq] * u[1] + tc[2 * nq] * u[2];
+        const T ctu = tc[0] * tu[0] + tc[nq] * tu[1] + tc[2 * nq] * tu[2];
+        fr = T(2) * (tv[0] * cu + rho * ctu) + fr;
+      }
+      force[a_] = fr + T(2) * ch[fstride] * tpair[1] + T(2) * ch[2 * fstride] * tpair[2] +
+                  ch[3 * fstride] * tpair[3] + T(2) * ch[4 * fstride] * tpair[4] + ch[5 * fstride] * tpair[5];
+    }
+    const T gravity = invdz * T(kGravity) * invsg * grav;
+
+    const long long o = elem * S3 + j;
+    out[o] = -invsg * (div[0] + corr[0]);
+    out[nq + o] = -invsg * (div[1] + corr[1]) - force[0];
+    out[2 * nq + o] = -invsg * (div[2] + corr[2]) - force[1];
+    out[3 * nq + o] = -invsg * tw_df - (force[2] + gravity);
+    out[4 * nq + o] = -invsg * (div[3] + corr[3]);
+  }
+}
+
+template <typename T, int S>
+cudaError_t launch_tangent(int nh, int nk, const void* q, const void* v, const void* halo, const void* thalo,
+                           const void* ops, const void* fields, const void* tch, const void* itf_x,
+                           const void* itf_y, const void* itf_z, void* out, cudaStream_t stream) {
+  using Sh = TangentShape<T, S>;
+  const size_t smem = sizeof(T) * (Sh::N_OPS + (size_t)Sh::EB * Sh::PER_ELEM);
+  static bool configured = false;
+  if (!configured && smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(euler3d_tangent_kernel<T, S>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const int per_panel = nk * nh * nh;
+  const int blocks = 6 * ((per_panel + Sh::EB - 1) / Sh::EB);
+  euler3d_tangent_kernel<T, S><<<blocks, Sh::EB * Sh::S3, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(v), static_cast<const T*>(halo),
+      static_cast<const T*>(thalo), static_cast<const T*>(ops), static_cast<const T*>(fields),
+      static_cast<const T*>(tch), static_cast<const T*>(itf_x), static_cast<const T*>(itf_y),
+      static_cast<const T*>(itf_z), static_cast<T*>(out), nh, nk);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_tangent(int s, int nh, int nk, const void* q, const void* v, const void* halo,
+                             const void* thalo, const void* ops, const void* fields, const void* tch,
+                             const void* itf_x, const void* itf_y, const void* itf_z, void* out,
+                             cudaStream_t stream) {
+#define E3T_CASE(S) \
+  case S:           \
+    return launch_tangent<T, S>(nh, nk, q, v, halo, thalo, ops, fields, tch, itf_x, itf_y, itf_z, out, stream);
+  switch (s) {
+    E3T_CASE(2) E3T_CASE(3) E3T_CASE(4) E3T_CASE(5) E3T_CASE(6)
+    default: return cudaErrorInvalidValue;
+  }
+#undef E3T_CASE
+}
+
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success). tch == NULL: no time
@@ -536,4 +996,20 @@ extern "C" int euler3d_operator_launch(int is_f64, int s, int nh, int nk, const 
 
 extern "C" const char* euler3d_operator_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// J(q).v, the tangent mode. Returns the cudaError_t of the launch (0 on
+// success); tch == NULL: no time Christoffels. The error string comes from
+// euler3d_operator_error_string.
+extern "C" int euler3d_tangent_launch(int is_f64, int s, int nh, int nk, const void* q, const void* v,
+                                      const void* halo, const void* thalo, const void* ops,
+                                      const void* fields, const void* tch, const void* itf_x,
+                                      const void* itf_y, const void* itf_z, void* out, void* stream) {
+  if (nh < 2 || nk < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = is_f64 ? dispatch_tangent<double>(s, nh, nk, q, v, halo, thalo, ops, fields, tch, itf_x,
+                                                      itf_y, itf_z, out, st)
+                           : dispatch_tangent<float>(s, nh, nk, q, v, halo, thalo, ops, fields, tch, itf_x,
+                                                     itf_y, itf_z, out, st);
+  return (int)err;
 }

@@ -46,6 +46,13 @@ SIGNATURES = {
             + [_D, _D, _D, _I]  # a, b, cdt, stage
             + [_P],  # stream
         ),
+        "euler3d_tangent_launch": (
+            _I,
+            [_I, _I, _I, _I]  # is_f64, s, nel_h, nel_v
+            # q, v, halo_q, halo_v, ops1d, fields, tch, itf_x, itf_y, itf_z, out
+            + [_P] * 11
+            + [_P],  # stream
+        ),
         "euler3d_operator_error_string": (ctypes.c_char_p, [_I]),
     },
 }

@@ -34,6 +34,25 @@ With the well-balanced offset (f32 only) the check also holds, at the
 unperturbed base state, the kernel's RHS + bal against the f64 plain RHS:
 within 1e-2 of each variable's max and 1e3 times closer than without the
 offset (the bounds of the JAX test_balanced_offset_restores_base_state_rhs).
+
+3D Euler tangent mode (``compare_euler3d_tangent``): J(q).v at q = q0 + dq,
+dq = 1e-4 q0 N(0,1), in a direction v of 1e-3 of each variable's max times
+N(0,1) (the inputs of the JAX test_tangent_kernel_matches_jvp, seeded with
+numpy), against ``torch.func.jvp`` of the plain operator on the same
+inputs:
+
+* float64: 1e-12 of each variable's max of the plain J.v (the JAX tests
+  bound the tangent kernel against jax.jvp at 1e-11);
+* float32: 5e-5 of the float64 plain J.v's max per variable, the bound of
+  the JAX test_tangent_kernel_f32_accuracy, or, where the float32 plain
+  J.v on the same inputs is itself further than that, twice its distance
+  (that test's second condition holds the kernel to 10 times its float32
+  reference's). These inputs leave rho*u2 at round-off level at the
+  equator faces of the symmetric dcmip31 state, where d|vn| = +-dvn flips
+  with the sign of vn: rounding q and v to float32 alone moves even the
+  float64 J.v by 6.4e-5 of scale at 4x2x3, and float32 arithmetic flips
+  more. The float32 plain J.v's distance, the kernel's distance from it
+  and that input-rounding distance are reported beside it.
 """
 
 import functools
@@ -178,6 +197,26 @@ def euler3d_setup(nel_h: int, nel_v: int, s: int, case: int = 31):
     return geom, ops, metric, topology, initial_state_3d(geom, case)
 
 
+def euler3d_tangent_inputs(nel_h: int, nel_v: int, s: int, dtype, device, case: int = 31, seed: int = 7):
+    """(con, topology, q, v): constants, a state q = q0 + dq with dq =
+    1e-4 q0 N(0,1), and a direction v = 1e-3 max|q0| N(0,1) per variable
+    (tests/test_pallas_euler3d.py:238-244)."""
+    geom, ops, metric, topology, q0 = euler3d_setup(nel_h, nel_v, s, case)
+    rng = np.random.default_rng(seed)
+    dq = 1e-4 * q0 * rng.standard_normal(q0.shape)
+    v = rng.standard_normal(q0.shape) * np.abs(q0).reshape(5, -1).max(axis=1).reshape(5, 1, 1, 1, 1, 1) * 1e-3
+    con = e3op.build_constants(ops, metric, nel_h, nel_v, dtype=dtype, device=device)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return con, topology, t(q0 + dq), t(v)
+
+
+def tangent_halos(q, v, con, topology):
+    """(halo_q, halo_v): the neighbour halos of q and of the direction v."""
+    traces = e3op.edge_traces(q, con)
+    return (e3op.halo_from_traces(traces, topology),
+            e3op.halo_from_traces(e3op.edge_traces_tangent(q, v, con, traces), topology))
+
+
 def euler3d_inputs(nel_h: int, nel_v: int, s: int, dtype, device, case: int = 31, seed: int = 0):
     """(con, topology, x, y): constants and two noisy states of a DCMIP case
     (x is the stage's a-term)."""
@@ -217,6 +256,7 @@ def euler3d_term_scale(q: torch.Tensor, con) -> torch.Tensor:
 
 
 E3_TOLERANCE = {torch.float64: 1e-12, torch.float32: 1e-5}
+E3_TANGENT_TOLERANCE = {torch.float64: 1e-12, torch.float32: 5e-5}
 E3_DT = 0.1
 
 
@@ -282,3 +322,55 @@ def compare_euler3d_operator(nel_h: int, nel_v: int, s: int, dtype, device="cuda
         row["ok"] = bool(ok)
         results.append(row)
     return results
+
+
+def compare_euler3d_tangent(nel_h: int, nel_v: int, s: int, dtype, device="cuda", case: int = 31, seed: int = 7):
+    """The tangent kernel against the plain tangent on the same inputs;
+    returns one row with the scaled error ``err``, its tolerance ``tol`` and
+    ``ok`` (scales in the module docstring)."""
+    con, topology, q, v = euler3d_tangent_inputs(nel_h, nel_v, s, dtype, device, case, seed)
+    halo_q, halo_v = tangent_halos(q, v, con, topology)
+    got = e3op.euler3d_tangent(q, v, halo_q, halo_v, con)
+    want = e3op.euler3d_tangent_plain(q, v, halo_q, halo_v, con)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    row = {"nel_h": nel_h, "nel_v": nel_v, "s": s, "case": case, "dtype": str(dtype).replace("torch.", ""),
+           "mode": "tangent", "max_abs_err": float((got - want).abs().max())}
+    if dtype == torch.float64:
+        row["scale"], row["err"] = "output_max", _scaled(got - want, per_variable_max(want))
+    else:
+        con64, _, q64, v64 = euler3d_tangent_inputs(nel_h, nel_v, s, torch.float64, device, case, seed)
+        f64_tangent = lambda q_, v_: e3op.euler3d_tangent_plain(q_, v_, *tangent_halos(q_, v_, con64, topology),
+                                                               con64)
+        truth = f64_tangent(q64, v64)
+        sc = per_variable_max(truth)
+        row["scale"] = "f64_plain_output_max"
+        row["err"] = _scaled(got.double() - truth, sc)
+        row["plain_err"] = _scaled(want.double() - truth, sc)
+        row["kernel_vs_plain_err"] = _scaled(got.double() - want.double(), sc)
+        # The float64 operator at the float32-rounded inputs: what rounding
+        # the inputs alone moves J.v (large where a normal speed sits at
+        # round-off level and d|vn| flips with its sign).
+        row["input_rounding_err"] = _scaled(f64_tangent(q.double(), v.double()) - truth, sc)
+    row["tol"] = E3_TANGENT_TOLERANCE[dtype]
+    limit = max(row["tol"], 2.0 * row.get("plain_err", 0.0))
+    row["ok"] = bool(np.isfinite(row["err"]) and row["err"] <= limit and torch.isfinite(got).all().item())
+    return row
+
+
+def euler3d_tangent_work(con):
+    """(bytes, operations) of one tangent-mode call, counted as
+    ``euler3d_work`` counts them: q, v and both halos read once, J.v
+    written once, the metric read once; operations of the linearised
+    algorithm (primal and derivative of each site: pointwise ~370 + 44 s a
+    point, each face's primal and direction traces once, ~170 a face point
+    for the Rusanov flux and its derivative)."""
+    nh, nk, s = con.nel_h, con.nel_v, con.s
+    s2, s3 = s * s, s**3
+    n_elem, item = 6 * nk * nh * nh, torch.finfo(con.dtype).bits // 8
+    words = 3 * 5 * n_elem * s3  # q, v, out
+    words += con.fields.numel() + (con.tch.numel() if con.tch is not None else 0)
+    words += con.itf_x.numel() + con.itf_y.numel() + con.itf_z.numel()
+    words += 2 * 5 * 4 * 6 * nk * nh * s2  # halo_q, halo_v
+    per_elem = s3 * (370 + 44 * s) + 6 * s2 * (20 * s + 4) + 3 * s2 * 170
+    return words * item, n_elem * per_elem

@@ -12,6 +12,12 @@ API the explicit integrators chain (the same as ``ShallowWaterRHS``):
 ``stage(x, y, a, b, cdt, traces)`` returns ``a*x + b*y + cdt*RHS(y)`` and
 the output's panel-edge traces, one operator launch per RK stage;
 ``traces(q)`` bootstraps the chain; ``pack``/``unpack`` are the identity.
+The exponential integrators' Jacobian action J(q).v comes in two stages,
+as the JAX package's ``jtv_prep``/``jtv_apply`` (models/
+euler_cubesphere.py:846-888 there): ``jtv_prep(q)`` once per linearisation
+point (q's traces and halo), ``jtv_apply(prep, v)`` once per Krylov
+iteration (the direction's traces and halo, then one launch of the
+kernel's tangent mode on a GPU, the plain tangent on the CPU).
 The JAX factory's ``advection_only`` (DCMIP 11/12) and ``extra_forcing``
 (DCMIP 21/22) run through XLA there, not through its kernel; the port's
 ``initial_state_3d`` refuses those cases (ROADMAP queue 1, item 9).
@@ -22,12 +28,22 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops.euler3d_operator import build_constants, edge_traces, euler3d_operator, halo_from_traces
+from ..common.device import resolve_device
+from ..ops.euler3d_operator import (
+    build_constants,
+    edge_traces,
+    edge_traces_tangent,
+    euler3d_operator,
+    euler3d_tangent,
+    halo_from_traces,
+)
 from ..parallel.topology import CubedSphereTopology
 
 
 class Euler3DRHS:
-    """The 3D Euler RHS at one discretization, dtype and device.
+    """The 3D Euler RHS at one discretization, dtype and device (the card
+    unless the caller asks for the CPU; a CUDA request without a card
+    raises).
 
     With ``base_state`` (a balanced state, usually the initial condition)
     the operator adds the well-balanced offset ``bal = RHS_f64(q0) -
@@ -37,10 +53,10 @@ class Euler3DRHS:
     q0 and to first order nearby. ``RHS_f64`` runs once, at setup, on the
     same device (the kernel on a GPU, the plain version on the CPU)."""
 
-    def __init__(self, geom, ops, metric, dtype=torch.float64, device="cpu", topology=None,
+    def __init__(self, geom, ops, metric, dtype=torch.float64, device="cuda", topology=None,
                  base_state=None):
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.topology = topology if topology is not None else CubedSphereTopology(geom)
         self.con = build_constants(ops, metric, geom.nel_h, geom.nel_v, dtype=dtype, device=self.device)
         self.bal = None
@@ -69,6 +85,23 @@ class Euler3DRHS:
             traces = self.traces(y)
         return euler3d_operator(y, self.halo(traces), self.con, x=x, a=a, b=b, cdt=cdt, bal=self.bal,
                                 emit_traces=True)
+
+    def jtv_prep(self, q: torch.Tensor):
+        """What every Jacobian action at ``q`` shares: (q, its panel-edge
+        traces, its halo)."""
+        traces = self.traces(q)
+        return q, traces, self.halo(traces)
+
+    def jtv_apply(self, prep, v: torch.Tensor) -> torch.Tensor:
+        """J(q).v for the ``prep`` of q: one tangent glue pass and one
+        launch of the tangent kernel (the plain tangent on the CPU). The
+        well-balanced offset is a constant and has no derivative."""
+        q, traces, halo_q = prep
+        halo_v = self.halo(edge_traces_tangent(q, v, self.con, traces))
+        return euler3d_tangent(q, v, halo_q, halo_v, self.con)
+
+    def jtv(self, q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        return self.jtv_apply(self.jtv_prep(q), v)
 
     @staticmethod
     def pack(q: torch.Tensor) -> torch.Tensor:

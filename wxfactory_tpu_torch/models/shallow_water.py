@@ -17,16 +17,18 @@ from typing import Optional
 
 import torch
 
+from ..common.device import resolve_device
 from ..ops.sw_operator import build_constants, edge_traces, halo_from_traces, sw_operator
 from ..parallel.topology import CubedSphereTopology
 
 
 class ShallowWaterRHS:
-    """The SW RHS at one discretization, dtype and device."""
+    """The SW RHS at one discretization, dtype and device (the card unless
+    the caller asks for the CPU; a CUDA request without a card raises)."""
 
-    def __init__(self, geom, ops, metric, dtype=torch.float64, device="cpu", topology=None):
+    def __init__(self, geom, ops, metric, dtype=torch.float64, device="cuda", topology=None):
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.topology = topology if topology is not None else CubedSphereTopology(geom)
         self.con = build_constants(ops, metric, geom.num_elements, dtype=dtype, device=self.device)
 
@@ -57,7 +59,7 @@ class ShallowWaterRHS:
         return q
 
 
-def make_rhs_shallow_water(geom, ops, metric, dtype=torch.float64, device="cpu",
+def make_rhs_shallow_water(geom, ops, metric, dtype=torch.float64, device="cuda",
                            topo=None, topology=None) -> ShallowWaterRHS:
     """Build the shallow-water RHS (absolute form, no topography).
 

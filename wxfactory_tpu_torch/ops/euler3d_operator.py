@@ -30,6 +30,15 @@ with w odd.
 ``euler3d_operator`` runs the CUDA kernel for a CUDA tensor and
 ``euler3d_operator_plain`` for a CPU tensor; there is no fallback between
 them.
+
+The operator's Jacobian action J(q).v (``km3_fused``'s tangent mode, the
+matvec of the exponential integrators' Krylov loop) has the same split:
+``euler3d_tangent`` launches the kernel's tangent mode for CUDA tensors and
+runs ``euler3d_tangent_plain`` (``torch.func.jvp`` of the plain operator)
+for CPU tensors. Its halo glue is the primal glue's derivative:
+``edge_traces_tangent`` gives the direction's panel-edge traces (linear
+extrapolation of the momenta, ``tr_q * (E.(v/q))`` for the log-space rows)
+and ``halo_from_traces``, which is linear, exchanges them.
 """
 
 import ctypes
@@ -41,8 +50,11 @@ import torch
 
 from ..common.constants import GRAVITY, HEAT_CAPACITY_RATIO, P0, RD
 
-# Kernel launches made by ``euler3d_operator`` (the plain version does not count).
+# Kernel launches made by ``euler3d_operator`` and ``euler3d_tangent``, and
+# calls of the plain tangent (a run on the card must make none).
 launches = 0
+tangent_launches = 0
+plain_tangent_calls = 0
 
 # Names of the single-panel interior fields, in the order of ``fields``
 # (the kernel relies on it): sqrt(g), 1/sqrt(g), 1/(dz/deta), the six
@@ -181,6 +193,25 @@ def edge_traces(q: torch.Tensor, con: E3Constants) -> torch.Tensor:
     return torch.stack([south, north, west, east], dim=1)
 
 
+def edge_traces_tangent(q: torch.Tensor, v: torch.Tensor, con: E3Constants,
+                        traces: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Panel-edge traces of the direction ``v`` at the state ``q``: the
+    derivative of ``edge_traces`` (the momenta extrapolated linearly, rho
+    and rho*theta as ``tr_q * (E.(v/q))``; ``traces``: q's own edge traces,
+    computed when None). The counterpart of ``_tangent_pools``
+    (pallas_euler3d.py:1950-1970)."""
+    if traces is None:
+        traces = edge_traces(q, con)
+    ss, ee = con.s**2, con.ee
+    lt = lambda sl: torch.cat([v[0:1][sl] / q[0:1][sl], v[1:4][sl], v[4:5][sl] / q[4:5][sl]])
+    south = lt(np.s_[:, :, :, 0]) @ ee[:, 2 * ss : 3 * ss]
+    north = lt(np.s_[:, :, :, -1]) @ ee[:, 3 * ss : 4 * ss]
+    west = lt(np.s_[:, :, :, :, 0]) @ ee[:, :ss]
+    east = lt(np.s_[:, :, :, :, -1]) @ ee[:, ss : 2 * ss]
+    raw = torch.stack([south, north, west, east], dim=1)
+    return torch.cat([traces[0:1] * raw[0:1], raw[1:4], traces[4:5] * raw[4:5]])
+
+
 def halo_from_traces(traces: torch.Tensor, topology) -> torch.Tensor:
     """Outgoing traces -> halos (5, 4, 6, nk, nh, s^2): for each (side,
     panel), the neighbour panel's facing trace in local edge ordering,
@@ -197,6 +228,15 @@ def pressure(rho_theta: torch.Tensor) -> torch.Tensor:
     return P0 * torch.exp(HEAT_CAPACITY_RATIO * torch.log((RD / P0) * rho_theta))
 
 
+def _abs(x: torch.Tensor) -> torch.Tensor:
+    """|x| with the forward-mode derivative +dx at x = 0 (and -0): the
+    convention of ``jax.jvp`` (torch's ``abs`` has 0 there), so the Jacobian
+    action agrees with the JAX package's wherever a normal speed is exactly
+    zero, as w is at every z face of a state at rest. The value is x.abs()'s
+    up to the sign of a zero, which is added to a positive sound speed."""
+    return torch.where(x >= 0, x, -x)
+
+
 def _rusanov(qL, qR, vL, vR, itf, d: int):
     """Rusanov flux at one family of interfaces (normal direction d) with
     the rho*w advection/pressure split (reference pde/fluxes.py
@@ -206,8 +246,8 @@ def _rusanov(qL, qR, vL, vR, itf, d: int):
     hd = itf[1 + d]
     pL, pR = pressure(qL[4]), pressure(qR[4])
     eig = torch.maximum(
-        vL.abs() + torch.sqrt(hd * HEAT_CAPACITY_RATIO * pL / qL[0]),
-        vR.abs() + torch.sqrt(hd * HEAT_CAPACITY_RATIO * pR / qR[0]),
+        _abs(vL) + torch.sqrt(hd * HEAT_CAPACITY_RATIO * pL / qL[0]),
+        _abs(vR) + torch.sqrt(hd * HEAT_CAPACITY_RATIO * pR / qR[0]),
     )
     flux_l = sg * vL * qL
     flux_r = sg * vR * qR
@@ -333,6 +373,17 @@ def euler3d_operator_plain(q, halo, con: E3Constants, x=None, a: float = 0.0, b:
 # Kernel wrapper
 
 
+def _check_tensors(con: E3Constants, tensors: dict):
+    """Shape, dtype, device and contiguity of {name: (tensor, shape)}."""
+    for name, (t, shape) in tensors.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != {shape}")
+        if t.dtype != con.dtype or t.device != con.device:
+            raise ValueError(f"{name} is {t.dtype} on {t.device}; constants are {con.dtype} on {con.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+
+
 def _check(q, halo, con: E3Constants, x, a: float, bal):
     """Shape, dtype, device and contiguity of the tensors the operator reads."""
     tensors = {"q": (q, con.state_shape), "halo": (halo, con.traces_shape)}
@@ -342,13 +393,18 @@ def _check(q, halo, con: E3Constants, x, a: float, bal):
         tensors["x"] = (x, con.state_shape)
     if bal is not None:
         tensors["bal"] = (bal, con.state_shape)
-    for name, (t, shape) in tensors.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} shape {tuple(t.shape)} != {shape}")
-        if t.dtype != con.dtype or t.device != con.device:
-            raise ValueError(f"{name} is {t.dtype} on {t.device}; constants are {con.dtype} on {con.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} is not contiguous")
+    _check_tensors(con, tensors)
+
+
+def _check_kernel_shape(con: E3Constants, name: str):
+    if con.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"{name} takes float32 or float64, not {con.dtype}")
+    if not (2 <= con.s <= 6) or con.nel_h < 2:
+        raise ValueError(f"{name} takes 2 <= s <= 6 and nel_h >= 2, not s={con.s}, nel_h={con.nel_h}")
+
+
+def _ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
 
 
 def euler3d_operator(q, halo, con: E3Constants, x=None, a: float = 0.0, b: float = 1.0,
@@ -370,10 +426,7 @@ def euler3d_operator(q, halo, con: E3Constants, x=None, a: float = 0.0, b: float
         return euler3d_operator_plain(q, halo, con, x=x, a=a, b=b, cdt=cdt, bal=bal, emit_traces=emit_traces)
     if q.device.type != "cuda":
         raise ValueError(f"euler3d_operator runs on cpu or cuda tensors, not {q.device}")
-    if con.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"euler3d_operator takes float32 or float64, not {con.dtype}")
-    if not (2 <= con.s <= 6) or con.nel_h < 2:
-        raise ValueError(f"euler3d_operator takes 2 <= s <= 6 and nel_h >= 2, not s={con.s}, nel_h={con.nel_h}")
+    _check_kernel_shape(con, "euler3d_operator")
 
     from ..kernels.build import load_library
 
@@ -381,14 +434,13 @@ def euler3d_operator(q, halo, con: E3Constants, x=None, a: float = 0.0, b: float
     use_x = cdt is not None and a != 0.0
     out = torch.empty_like(q)
     traces = torch.empty(con.traces_shape, dtype=q.dtype, device=q.device) if emit_traces else None
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.euler3d_operator_launch(
             1 if q.dtype == torch.float64 else 0, con.s, con.nel_h, con.nel_v,
-            ptr(q), ptr(halo), ptr(con.ops1d), ptr(con.fields), ptr(con.tch),
-            ptr(con.itf_x), ptr(con.itf_y), ptr(con.itf_z), ptr(x if use_x else None), ptr(bal),
-            ptr(out), ptr(traces), float(a), float(b), float(cdt if cdt is not None else 0.0),
+            _ptr(q), _ptr(halo), _ptr(con.ops1d), _ptr(con.fields), _ptr(con.tch),
+            _ptr(con.itf_x), _ptr(con.itf_y), _ptr(con.itf_z), _ptr(x if use_x else None), _ptr(bal),
+            _ptr(out), _ptr(traces), float(a), float(b), float(cdt if cdt is not None else 0.0),
             1 if cdt is not None else 0, ctypes.c_void_p(stream),
         )
     if rc != 0:
@@ -396,3 +448,54 @@ def euler3d_operator(q, halo, con: E3Constants, x=None, a: float = 0.0, b: float
         raise RuntimeError(f"euler3d_operator kernel launch failed: CUDA error {rc} ({name})")
     launches += 1
     return (out, traces) if emit_traces else out
+
+
+# ---------------------------------------------------------------------------
+# Jacobian action (tangent mode)
+
+
+def euler3d_tangent_plain(q, v, halo_q, halo_v, con: E3Constants):
+    """Plain torch version of the tangent mode: ``torch.func.jvp`` of
+    ``euler3d_operator_plain`` at (q, halo_q) in the direction (v, halo_v),
+    the chain rule through the halo glue (``halo_v`` from
+    ``edge_traces_tangent`` and ``halo_from_traces``). Counted in
+    ``plain_tangent_calls``."""
+    global plain_tangent_calls
+    plain_tangent_calls += 1
+    _, out = torch.func.jvp(lambda q_, h_: euler3d_operator_plain(q_, h_, con), (q, halo_q), (v, halo_v))
+    return out
+
+
+def euler3d_tangent(q, v, halo_q, halo_v, con: E3Constants):
+    """The Jacobian action J(q).v of the operator in RHS mode (no stage,
+    ``bal`` or traces), with ``halo_q`` q's neighbour halos and ``halo_v``
+    the direction's (both (5, 4, 6, nk, nh, s^2)).
+
+    A CPU tensor runs ``euler3d_tangent_plain``; a CUDA tensor launches the
+    kernel's tangent mode (csrc/euler3d_operator.cu) on the current stream,
+    without synchronising, or raises."""
+    global tangent_launches
+    _check_tensors(con, {"q": (q, con.state_shape), "v": (v, con.state_shape),
+                         "halo_q": (halo_q, con.traces_shape), "halo_v": (halo_v, con.traces_shape)})
+    if q.device.type == "cpu":
+        return euler3d_tangent_plain(q, v, halo_q, halo_v, con)
+    if q.device.type != "cuda":
+        raise ValueError(f"euler3d_tangent runs on cpu or cuda tensors, not {q.device}")
+    _check_kernel_shape(con, "euler3d_tangent")
+
+    from ..kernels.build import load_library
+
+    lib = load_library("euler3d_operator")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.euler3d_tangent_launch(
+            1 if q.dtype == torch.float64 else 0, con.s, con.nel_h, con.nel_v,
+            _ptr(q), _ptr(v), _ptr(halo_q), _ptr(halo_v), _ptr(con.ops1d), _ptr(con.fields), _ptr(con.tch),
+            _ptr(con.itf_x), _ptr(con.itf_y), _ptr(con.itf_z), _ptr(out), ctypes.c_void_p(stream),
+        )
+    if rc != 0:
+        name = lib.euler3d_operator_error_string(rc).decode()
+        raise RuntimeError(f"euler3d_tangent kernel launch failed: CUDA error {rc} ({name})")
+    tangent_launches += 1
+    return out

@@ -17,14 +17,20 @@ import time
 
 def profile(config_path: str, steps: int = 20, warmup: int = 10, top: int = 12) -> dict:
     import torch
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
 
     from .simulation import Simulation
 
     if not torch.cuda.is_available():
         raise RuntimeError("profile needs a CUDA device")
-    sim = Simulation(config_path, device="cuda")
+    return dict(profile_simulation(Simulation(config_path, device="cuda"), steps, warmup, top), config=config_path)
+
+
+def profile_simulation(sim, steps: int = 20, warmup: int = 10, top: int = 12) -> dict:
+    """``profile`` of a Simulation built on CUDA, from its initial state."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
     q, t = sim.initial_q, 0.0
     step_id = 0
 
@@ -38,7 +44,8 @@ def profile(config_path: str, steps: int = 20, warmup: int = 10, top: int = 12) 
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / n
 
-    run(warmup)
+    if warmup:
+        run(warmup)
     plain_step_s = run(steps)
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         profiled_step_s = run(steps)
@@ -51,10 +58,11 @@ def profile(config_path: str, steps: int = 20, warmup: int = 10, top: int = 12) 
     busy_us = sum(kernels.values())
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1])[:top]
     return {
-        "gpu": torch.cuda.get_device_name(0), "config": config_path, "steps": steps, "warmup": warmup,
+        "gpu": torch.cuda.get_device_name(0), "steps": steps, "warmup": warmup,
         "step_ms": plain_step_s * 1e3, "profiled_step_ms": profiled_step_s * 1e3,
         "device_busy_us_per_step": busy_us, "device_busy_share": busy_us * 1e-6 / profiled_step_s,
         "kernels_us_per_step": [{"name": k[:90], "us": v} for k, v in ranked],
+        "tangent_kernel_us_per_step": sum(v for k, v in kernels.items() if "euler3d_tangent_kernel" in k),
     }
 
 

@@ -1,0 +1,15 @@
+from .global_ops import global_dotprod, global_inf_norm, global_norm
+from .kiops import kiops
+from .matvec import make_fd_matvec, make_jvp_matvec, make_rat_matvec
+from .stats import PhiStats
+
+__all__ = [
+    "global_dotprod",
+    "global_inf_norm",
+    "global_norm",
+    "kiops",
+    "make_fd_matvec",
+    "make_jvp_matvec",
+    "make_rat_matvec",
+    "PhiStats",
+]
