@@ -40,12 +40,12 @@ and drives the port's two main paths, shallow water and 3D Euler:
    shape of phase 5, f64 within 1e-12 of the plain J.v's max per variable,
    f32 within 5e-5 of the f64 plain J.v's (rows in build/chip_smoke/
    phase9.json);
-10. the same dcmip31 EPI2+KIOPS run (4x2x2, s=2, dt=30 s, 4 steps, f64) on
+10. the same dcmip31 EPI2+KIOPS run (4x2x2, s=2, dt=30 s, 2 steps, f64) on
     the GPU and on the CPU: identical Krylov statistics at every step, final
     states within 1e-10 of each variable's max;
 11. the EPI2 main path: ``python -m wxfactory_tpu_torch`` on dcmip31 with
     epi2, kiops, tolerance 1e-7, dt=30 s, at the canonical 12x12x3, s=2 for
-    20 steps, then at 20x20x3, s=3 for 5 steps; each with one RHS-kernel
+    10 steps, then at 20x20x3, s=3 for 3 steps; each with one RHS-kernel
     launch a step, one tangent-kernel launch per Jacobian action the
     integrator asked for, no plain tangent call, a finite state, mass drift
     below the KIOPS tolerance 1e-7 at every step (the first step's update
@@ -56,7 +56,32 @@ and drives the port's two main paths, shallow water and 3D Euler:
     the same configuration) the tangent kernel's share of device time;
 12. time per call at 20x20x3, s=3 (CUDA events, median), f64 and f32, of the
     tangent kernel, its plain version, the tangent glue and the RHS kernel,
-    beside the tangent call's memory/compute bound.
+    beside the tangent call's memory/compute bound;
+13. the kernel's perturbation mode (RHS: rhs0 + delta; tangent: J(q0 +
+    dq).v) against its plain version on the card at every shape of phase 5,
+    f64 within 1e-12, f32 within 5e-5 of the f64 plain output or twice the
+    f32 plain output's distance (rows in build/chip_smoke/phase13.json);
+14. the same dcmip31 EPI2 runs with kiops_jit (dt=30 s, 2 steps) on the GPU
+    and the CPU: float64 at 4x2x2, s=2 with identical Krylov statistics and
+    states within 1e-10, mixed precision (the float32 perturbation
+    companion) at 4x2x4, s=4 within 2e-5 (and its distance at 4x2x2
+    reported);
+15. the mixed-precision EPI2 main path: ``python -m wxfactory_tpu_torch``
+    with epi2, kiops_jit, mixed_precision_krylov = 1, device_step_chunk = 5,
+    at the canonical 12x12x3, s=2 (20 steps) and at 20x20x3, s=3 (5 steps),
+    then both with mixed_precision_krylov = 0 (the float64 kiops_jit step;
+    10 and 5 steps);
+    each with one perturbation-tangent (mixed) or tangent (float64) launch
+    per Jacobian action, one RHS launch a step (and, mixed, the float64
+    base RHS at setup), no plain call, host syncs a step at most the Krylov
+    controls + 2, a finite state, mass drift below the KIOPS tolerance at
+    every checkpoint (every chunk's end) and checkpoints that read back; it
+    reports steps/s, setup time, the Krylov statistics, the syncs and (on a
+    second build) the device's busy share and its split by kernel class;
+16. time per call at 20x20x3, s=3 (CUDA events, median), f64 and f32, of the
+    perturbation tangent kernel, its plain version, its glue and the
+    perturbation RHS kernel beside their bounds, and of one Arnoldi
+    iteration of each kiops_jit variant (a 64-iteration cycle).
 
 Each phase prints one JSON line; then the kernels line, the card's
 ``nvidia-smi`` name and power limit, and last the result line. Any failure
@@ -174,9 +199,9 @@ def ptxas_summary(log: str):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(sw_operator|euler3d_operator|euler3d_tangent)_kernelI([df])Li(\d+)E", m.group(1))
+            k = re.search(r"(sw_operator|euler3d_operator|euler3d_tangent)_kernelI([df])Li(\d+)E(Lb([01]))?", m.group(1))
             current = {"kernel": f"{k.group(1)} {'f64' if k.group(2) == 'd' else 'f32'} s={k.group(3)}"
-                       if k else m.group(1)}
+                       + (" pert" if k.group(5) == "1" else "") if k else m.group(1)}
             rows.append(current)
         elif current is not None:
             m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -249,23 +274,28 @@ def phase2(torch):
 
 def reset_counts():
     """Set every kernel wrapper's launch count, the plain tangent's call
-    count and the Jacobian actions asked of the matvec closures to 0."""
+    count, the Jacobian actions asked of the matvec closures and the host
+    syncs to 0."""
+    from wxfactory_tpu_torch.common import device
     from wxfactory_tpu_torch.ops import euler3d_operator as e3op
     from wxfactory_tpu_torch.ops import sw_operator as swop
     from wxfactory_tpu_torch.solvers import matvec
 
     swop.launches = e3op.launches = e3op.tangent_launches = e3op.plain_tangent_calls = 0
-    matvec.jacobian_actions = 0
+    e3op.pert_launches = e3op.pert_tangent_launches = 0
+    matvec.jacobian_actions = device.host_syncs = 0
 
 
 def read_counts():
+    from wxfactory_tpu_torch.common import device
     from wxfactory_tpu_torch.ops import euler3d_operator as e3op
     from wxfactory_tpu_torch.ops import sw_operator as swop
     from wxfactory_tpu_torch.solvers import matvec
 
     return {"sw_operator": swop.launches, "euler3d_operator": e3op.launches,
-            "euler3d_tangent": e3op.tangent_launches, "plain_tangent_calls": e3op.plain_tangent_calls,
-            "jacobian_actions": matvec.jacobian_actions}
+            "euler3d_tangent": e3op.tangent_launches, "euler3d_pert": e3op.pert_launches,
+            "euler3d_pert_tangent": e3op.pert_tangent_launches, "plain_tangent_calls": e3op.plain_tangent_calls,
+            "jacobian_actions": matvec.jacobian_actions, "host_syncs": device.host_syncs}
 
 
 def phase3(torch):
@@ -515,7 +545,7 @@ def phase10(torch):
     from wxfactory_tpu_torch.config import Configuration
     from wxfactory_tpu_torch.simulation import Simulation
 
-    nsteps = 4
+    nsteps = 2
     text = DCMIP31_INI.format(dt=30, t_end=30 * nsteps, s=2, nel_h=4, nel_v=2, save=0, out=WORK / "phase10",
                               integrator="epi2", verbose=1)
     states, stats = {}, {}
@@ -616,14 +646,15 @@ def _epi2_run(torch, nel_h, nel_v, s, nsteps, tag, profile_steps):
         "profiled_steps": profile_steps, "profiled_step_ms": prof["profiled_step_ms"],
         "device_busy_share": prof["device_busy_share"],
         "tangent_share_of_device_time": prof["tangent_kernel_us_per_step"] / prof["device_busy_us_per_step"],
+        "profile_device_launches_per_step": prof["device_launches_per_step"],
         "profile_kernels_us_per_step": prof["kernels_us_per_step"][:6],
         "checkpoint": Path(files[0]).name, "checkpoint_version": version,
     }
 
 
 def phase11(torch):
-    canonical = _epi2_run(torch, 12, 3, 2, nsteps=20, tag="canonical", profile_steps=3)
-    main = _epi2_run(torch, *E3_MAIN, nsteps=5, tag="main", profile_steps=1)
+    canonical = _epi2_run(torch, 12, 3, 2, nsteps=10, tag="canonical", profile_steps=3)
+    main = _epi2_run(torch, *E3_MAIN, nsteps=3, tag="main", profile_steps=1)
     emit({"phase": 11, "results": [canonical, main]})
     return main["tangent_launches"]
 
@@ -661,6 +692,269 @@ def phase12(torch, smi):
         })
     emit({"phase": 12, "gpu": smi, "timing": "CUDA events, median per call", "results": rows})
     return rows[0]
+
+
+def phase13(torch):
+    from wxfactory_tpu_torch.kernels.check import compare_euler3d_pert
+
+    rows = []
+    for nel_h, nel_v, s, case in E3_SHAPES:
+        for dtype in (torch.float64, torch.float32):
+            rows += compare_euler3d_pert(nel_h, nel_v, s, dtype, device="cuda", case=case)
+    emit_comparison(13, rows, ("nel_h", "nel_v", "s", "case"))
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"perturbation kernel disagrees with its plain version: {bad}")
+    main_path = [r for r in rows if (r["nel_h"], r["nel_v"], r["s"], r["dtype"], r["mode"]) ==
+                 E3_MAIN + ("float32", "pert_tangent")]
+    return max(r["max_abs_err"] for r in main_path)
+
+
+KIOPS_JIT_LINE = re.compile(r"kiops_jit converged at iteration (\d+) \((\d+) substeps, (\d+) rejected\) "
+                            r"local error (\S+), last Krylov size (\d+), (\d+) controls, (\d+) masked, "
+                            r"(\d+) matvecs")
+
+
+def kiops_jit_ini(mixed: int, chunk: int, **kw) -> str:
+    return DCMIP31_INI.format(integrator="epi2", **kw).replace(
+        "exponential_solver = kiops",
+        f"exponential_solver = kiops_jit\nmixed_precision_krylov = {mixed}\ndevice_step_chunk = {chunk}")
+
+
+def phase14(torch):
+    """The same EPI2 kiops_jit runs on the GPU (kernels) and on the CPU
+    (plain versions): float64 at 4x2x2, s=2 with identical Krylov
+    statistics; mixed precision at 4x2x4, s=4, the shape at which the JAX
+    package holds its two float32 companions to 2e-5 (at 4x2x2, s=2 two
+    float32 operators part by ~2e-4 of rho*w's max after two steps, the JAX
+    package's own two as much: the distance there is reported, not gated)."""
+    from wxfactory_tpu_torch.common.device import forbid_uncounted_syncs
+    from wxfactory_tpu_torch.config import Configuration
+    from wxfactory_tpu_torch.simulation import Simulation
+
+    nsteps, results = 2, []
+    for mixed, s, tol in ((0, 2, 1e-10), (1, 4, 2e-5), (1, 2, None)):
+        text = kiops_jit_ini(mixed, 1, dt=30, t_end=30 * nsteps, s=s, nel_h=4, nel_v=2, save=0,
+                             out=WORK / "phase14", verbose=1)
+        states, stats = {}, {}
+        for device in ("cuda", "cpu"):
+            log = io.StringIO()
+            with contextlib.redirect_stdout(log):
+                sim = Simulation(Configuration(text), device=device)
+                with forbid_uncounted_syncs():
+                    states[device] = sim.run()
+            states[device] = states[device].cpu()
+            stats[device] = [tuple(int(m.group(i)) for i in (1, 2, 3, 5)) for m in
+                             KIOPS_JIT_LINE.finditer(log.getvalue())]
+        want, got = states["cpu"], states["cuda"]
+        scale = want.abs().reshape(5, -1).amax(dim=1).reshape(5, 1, 1, 1, 1, 1)
+        err = float(((got - want).abs() / scale).max())
+        same = stats["cuda"] == stats["cpu"] and len(stats["cpu"]) == nsteps
+        ok = tol is None or (err <= tol and (same or mixed))
+        results.append({"mixed_precision_krylov": mixed, "nel_h": 4, "nel_v": 2, "s": s,
+                        "krylov_gpu": stats["cuda"], "krylov_cpu": stats["cpu"], "same_krylov": same, "err": err,
+                        "tol": tol, "ok": ok})
+    emit({"phase": 14, "case": 31, "integrator": "epi2", "exponential_solver": "kiops_jit", "steps": nsteps,
+          "krylov_columns": ["iterations", "substeps", "rejected", "last_krylov_size"], "results": results,
+          "ok": all(r["ok"] for r in results)})
+    if not all(r["ok"] for r in results):
+        raise AssertionError(f"GPU and CPU kiops_jit EPI2 runs differ: {results}")
+
+
+def _kiops_jit_run(torch, nel_h, nel_v, s, nsteps, mixed, tag, profile_steps, chunk=5):
+    """One dcmip31 EPI2 kiops_jit run (chunks of ``chunk`` steps, a
+    checkpoint at each chunk's end) through ``Simulation(ini).run()``, the
+    CLI's own call, on the card, with every wait of the host for the card
+    but the counted ones raising (``forbid_uncounted_syncs``); checks the
+    launch counts, syncs, state, mass drift at every checkpoint and the
+    checkpoints, then profiles ``profile_steps`` steps of a second build
+    (none when 0); returns its JSON row."""
+    from wxfactory_tpu_torch.common.device import forbid_uncounted_syncs
+    from wxfactory_tpu_torch.kernels.check import euler3d_setup
+    from wxfactory_tpu_torch.output import global_mass_3d
+    from wxfactory_tpu_torch.output.state import load_state
+    from wxfactory_tpu_torch.profile import profile_simulation
+    from wxfactory_tpu_torch.simulation import Simulation
+
+    dt = 30.0
+    out_dir = WORK / f"phase15_{tag}"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for old in glob.glob(str(out_dir / "state_vector_*")):
+        Path(old).unlink()
+    ini = WORK / f"dcmip31_kiops_jit_{tag}.ini"
+    ini.write_text(kiops_jit_ini(mixed, chunk, dt=dt, t_end=dt * nsteps, s=s, nel_h=nel_h, nel_v=nel_v,
+                                 save=chunk, out=out_dir, verbose=1))
+    log = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        sim = Simulation(str(ini), device="cuda")
+        with forbid_uncounted_syncs():
+            sim.run()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    text = log.getvalue()
+    sys.stderr.write(text[-3000:])
+    krylov = [tuple(int(m.group(i)) for i in (1, 2, 3, 5, 6, 7, 8)) for m in KIOPS_JIT_LINE.finditer(text)]
+    run = re.search(r"Completed (\d+) steps in (\S+) s \((\S+) steps/s\)", text)
+    if run is None:
+        raise AssertionError(f"kiops_jit main path ({tag}) did not complete; Krylov statistics {krylov}")
+    if "no effect" in text or "cannot consume" in text:
+        raise AssertionError("mixed_precision_krylov was flagged as having no effect")
+    # Mixed: one float64 RHS a step plus the float64 base RHS of the
+    # companion at setup; every Krylov matvec is the perturbation tangent.
+    tangent = "euler3d_pert_tangent" if mixed else "euler3d_tangent"
+    if counts["euler3d_operator"] != nsteps + mixed:
+        raise AssertionError(f"{counts['euler3d_operator']} RHS-kernel launches in {nsteps} steps")
+    if counts[tangent] != counts["jacobian_actions"] or counts["jacobian_actions"] == 0:
+        raise AssertionError(f"{tangent} launches {counts[tangent]} != Jacobian actions {counts['jacobian_actions']}")
+    if counts["euler3d_tangent" if mixed else "euler3d_pert_tangent"] or counts["euler3d_pert"]:
+        raise AssertionError(f"launches of another mode: {counts}")
+    if counts["plain_tangent_calls"] != 0:
+        raise AssertionError(f"{counts['plain_tangent_calls']} plain tangent calls on the card")
+    controls = sum(k[4] for k in krylov)
+    if len(krylov) != nsteps or sum(k[6] for k in krylov) != counts["jacobian_actions"]:
+        raise AssertionError(f"Krylov statistics {krylov} do not account for {counts['jacobian_actions']} actions")
+    # Counted waits: the controls, a NaN guard and a checkpoint a chunk, and
+    # outside the steps the initial checkpoint and the run's final
+    # synchronize. No other wait can have happened: forbid_uncounted_syncs
+    # would have raised. The steps may wait the controls + 2 times a step.
+    step_syncs = counts["host_syncs"] - 2
+    if step_syncs > controls + 2 * nsteps:
+        raise AssertionError(f"{step_syncs} host syncs for {controls} Krylov controls in {nsteps} steps")
+    _, ops, metric, _, _ = euler3d_setup(nel_h, nel_v, s, 31)
+    masses = {}
+    for step in range(0, nsteps + 1, chunk):
+        files = glob.glob(str(out_dir / f"state_vector_*.{step:08d}.npy"))
+        if len(files) != 1:
+            raise AssertionError(f"checkpoint files {files}")
+        q, _, version = load_state(files[0])
+        masses[step] = global_mass_3d(q, ops, metric)
+    if q.shape != (5, 6, nel_v, nel_h, nel_h, s**3) or not bool(torch.isfinite(torch.as_tensor(q)).all()):
+        raise AssertionError(f"checkpoint state {q.shape} not finite or misshapen")
+    drifts = {k: (m - masses[0]) / masses[0] for k, m in masses.items() if k}
+    if not max(abs(d) for d in drifts.values()) < 1e-7:
+        raise AssertionError(f"mass drift {drifts} over {nsteps} steps")
+    run_s = float(run.group(2))
+    row = {
+        "case": 31, "nel_h": nel_h, "nel_v": nel_v, "s": s, "points": 6 * nel_v * nel_h * nel_h * s**3,
+        "dtype": "float64", "integrator": "epi2", "exponential_solver": "kiops_jit", "mixed_precision_krylov": mixed,
+        "device_step_chunk": chunk, "tolerance": 1e-7, "dt": dt, "steps": int(run.group(1)),
+        "setup_s": wall - run_s, "run_s": run_s, "steps_per_s": float(run.group(3)), "main_wall_s": wall,
+        "rhs_launches": counts["euler3d_operator"], "tangent_launches": counts[tangent],
+        "jacobian_actions": counts["jacobian_actions"], "plain_tangent_calls": counts["plain_tangent_calls"],
+        "krylov_iterations": sum(k[0] for k in krylov), "substeps": sum(k[1] for k in krylov),
+        "rejected": sum(k[2] for k in krylov), "controls": controls, "masked_iterations": sum(k[5] for k in krylov),
+        "last_krylov_size": krylov[-1][3], "krylov_per_step": [k[:3] for k in krylov],
+        "host_syncs": counts["host_syncs"], "host_syncs_per_step": step_syncs / nsteps,
+        "controls_per_step": controls / nsteps, "mass_drift_per_checkpoint": drifts,
+        "max_abs_w": float(abs(q[3] / q[0]).max()), "profiled_steps": profile_steps,
+        "checkpoint": Path(files[0]).name, "checkpoint_version": version,
+    }
+    if not profile_steps:
+        return row
+    with contextlib.redirect_stdout(io.StringIO()):
+        prof = profile_simulation(Simulation(str(ini), device="cuda"), steps=profile_steps, warmup=1)
+    iters = prof["krylov_iterations_per_step"] or 1.0
+    return dict(
+        row, profiled_step_ms=prof["profiled_step_ms"], device_busy_share=prof["device_busy_share"],
+        profile_krylov_iterations_per_step=prof["krylov_iterations_per_step"],
+        profile_us_per_iteration={k: v / iters for k, v in prof["classes_us_per_step"].items()},
+        profile_step_ms_per_iteration=prof["profiled_step_ms"] / iters,
+        profile_device_launches_per_step=prof["device_launches_per_step"],
+        profile_device_launches_per_iteration=prof["device_launches_per_step"] / iters,
+        profile_host_syncs_per_step=prof["host_syncs_per_step"],
+        profile_kernels_us_per_step=prof["kernels_us_per_step"][:6],
+    )
+
+
+def phase15(torch):
+    rows = [
+        _kiops_jit_run(torch, 12, 3, 2, nsteps=20, mixed=1, tag="canonical_mixed", profile_steps=3),
+        # Mass at every step: chunks of one, a checkpoint after each.
+        _kiops_jit_run(torch, 12, 3, 2, nsteps=20, mixed=1, tag="canonical_mixed_every_step", profile_steps=0,
+                       chunk=1),
+        _kiops_jit_run(torch, *E3_MAIN, nsteps=5, mixed=1, tag="main_mixed", profile_steps=1),
+        _kiops_jit_run(torch, 12, 3, 2, nsteps=10, mixed=0, tag="canonical_f64", profile_steps=3),
+        _kiops_jit_run(torch, *E3_MAIN, nsteps=5, mixed=0, tag="main_f64", profile_steps=1),
+    ]
+    emit({"phase": 15, "results": rows})
+    return rows[2]["tangent_launches"]
+
+
+def _arnoldi_ms(torch, matvec, vec, basis_dtype, full_ortho, m=64):
+    """Milliseconds an Arnoldi iteration over one kiops_jit cycle of ``m``
+    iterations (a small tau_end so the first control accepts), between CUDA
+    events, with its statistics; the timed call under
+    ``forbid_uncounted_syncs``."""
+    from wxfactory_tpu_torch.common.device import forbid_uncounted_syncs
+    from wxfactory_tpu_torch.solvers.kiops_jit import kiops_jit
+
+    run = lambda: kiops_jit(matvec, vec, tau_end=1e-3, tol=1e-7, m_init=m, mmin=m, mmax=m,
+                            full_ortho=full_ortho, basis_dtype=basis_dtype)
+    run()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    with forbid_uncounted_syncs():
+        _, stats = run()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (stats.krylov_steps + stats.masked_iterations), stats
+
+
+def phase16(torch, smi):
+    from wxfactory_tpu_torch.kernels.check import euler3d_pert_inputs, euler3d_pert_work, euler3d_setup, pert_halos
+    from wxfactory_tpu_torch.models import Euler3DRHS
+    from wxfactory_tpu_torch.ops import euler3d_operator as e3op
+    from wxfactory_tpu_torch.solvers.matvec import make_jvp_matvec
+
+    rows = []
+    for dtype in (torch.float64, torch.float32):
+        con, topology, pert, dq, v = euler3d_pert_inputs(*E3_MAIN, dtype, "cuda")
+        halo_dq, halo_v = pert_halos(dq, v, pert, con, topology)
+        qa, tra = pert.q0 + dq, pert.traces0 + e3op.edge_traces_delta(dq, pert, con)
+        kernel = lambda: e3op.euler3d_tangent(dq, v, halo_dq, halo_v, con, pert=pert)
+        plain = lambda: e3op.euler3d_tangent_pert_plain(dq, v, halo_dq, halo_v, con, pert)
+        glue = lambda: e3op.halo_from_traces(e3op.edge_traces_tangent(qa, v, con, tra), topology)
+        rhs = lambda: e3op.euler3d_operator(dq, halo_dq, con, pert=pert)
+        for fn in (kernel, plain, glue, rhs):
+            for _ in range(2):
+                fn()
+        torch.cuda.synchronize()
+        k, p = [], []
+        for fn, times in ((plain, p), (kernel, k), (kernel, k), (plain, p)):
+            times.extend(_event_times(torch, fn, n=5 if fn is plain else 10))
+        name = str(dtype).replace("torch.", "")
+        row = {"nel_h": E3_MAIN[0], "nel_v": E3_MAIN[1], "s": E3_MAIN[2], "dtype": name,
+               "pert_tangent_kernel_ms": statistics.median(k), "pert_tangent_plain_ms": statistics.median(p),
+               "pert_tangent_glue_ms": statistics.median(_event_times(torch, glue)),
+               "pert_rhs_kernel_ms": statistics.median(_event_times(torch, rhs)), "calls_each": len(k)}
+        for mode, tangent in (("pert_tangent", True), ("pert_rhs", False)):
+            nbytes, ops = euler3d_pert_work(con, tangent=tangent)
+            bound = {"bytes": nbytes / PEAK_BYTES * 1e3, "operations": ops / PEAK_FLOPS[name] * 1e3}
+            row[f"{mode}_bytes"], row[f"{mode}_ops"] = nbytes, ops
+            row[f"{mode}_bound_ms"] = max(bound.values())
+            row[f"{mode}_bound_by"] = max(bound, key=bound.get)
+        rows.append(row)
+
+    # One Arnoldi iteration of each kiops_jit variant on the main path's
+    # operators at the initial state (EPI2's first step, dt = 30 s).
+    geom, ops, metric, topology, q0 = euler3d_setup(*E3_MAIN, 31)
+    rhs = Euler3DRHS(geom, ops, metric, dtype=torch.float64, device="cuda", topology=topology)
+    rhs32 = Euler3DRHS(geom, ops, metric, dtype=torch.float32, device="cuda", topology=topology, perturbation_base=q0)
+    q = torch.as_tensor(q0, device="cuda")
+    rhs_q = rhs(q).reshape(-1)
+    vec = torch.stack([torch.zeros_like(rhs_q), rhs_q])
+    mv64, mv32 = make_jvp_matvec(rhs, q, 30.0), make_jvp_matvec(rhs32, q.float(), 30.0)
+    arnoldi = {}
+    for variant, (mv, bd, fo) in {"float64_iop2": (mv64, None, False),
+                                  "mixed_cgs2": (mv32, torch.float32, True)}.items():
+        ms, st = _arnoldi_ms(torch, mv, vec, bd, fo)
+        arnoldi[variant] = {"ms_per_iteration": ms, "iterations": st.krylov_steps + st.masked_iterations,
+                            "controls": st.controls}
+    emit({"phase": 16, "gpu": smi, "timing": "CUDA events, median per call; Arnoldi: one 64-iteration cycle",
+          "results": rows, "arnoldi": arnoldi})
+    return rows[1]
 
 
 def sw_bound():
@@ -701,6 +995,10 @@ def main() -> int:
     phase10(torch)
     tangent_launches = phase11(torch)
     tangent_timing = phase12(torch, smi)
+    pert_err = phase13(torch)
+    phase14(torch)
+    pert_launches = phase15(torch)
+    pert_timing = phase16(torch, smi)
     sw_bound_ms, sw_bound_by = sw_bound()
     emit({"kernels": [
         {"name": "sw_operator", "route": "cuda", "source": "wxfactory_tpu_torch/csrc/sw_operator.cu",
@@ -716,6 +1014,11 @@ def main() -> int:
          "max_abs_err": tangent_err, "ms": tangent_timing["tangent_kernel_ms"],
          "plain_ms": tangent_timing["tangent_plain_ms"], "bound_ms": tangent_timing["tangent_bound_ms"],
          "bound_by": tangent_timing["tangent_bound_by"], "library_ms": None},
+        {"name": "euler3d_pert", "route": "cuda", "source": "wxfactory_tpu_torch/csrc/euler3d_operator.cu",
+         "replaces": "wxfactory_tpu/ops/pallas_euler3d.py:2131 (perturbation mode)", "launches": pert_launches,
+         "max_abs_err": pert_err, "ms": pert_timing["pert_tangent_kernel_ms"],
+         "plain_ms": pert_timing["pert_tangent_plain_ms"], "bound_ms": pert_timing["pert_tangent_bound_ms"],
+         "bound_by": pert_timing["pert_tangent_bound_by"], "library_ms": None},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,8 +16,8 @@ on 4x2 elements, s=2, planet scale 125, not rotating, dt = 30 s, tolerance
   the same INI: the checkpoints agree to 1e-9 of scale, mass drifts by less
   than 1e-12, and the per-step Krylov summary is printed.
 * What the port does not run raises ``NotImplementedError``: EPI on shallow
-  water, and exponential solvers other than kiops; ``mixed_precision_krylov``
-  warns that it has no effect.
+  water, and pmex; ``mixed_precision_krylov`` with kiops warns that it has
+  no effect (kiops_jit: tests/test_torch_epi_kiops_jit.py).
 """
 
 import numpy as np
@@ -157,7 +157,7 @@ output_dir = {out}
         Simulation(Configuration(text), device="cpu")
 
 
-@pytest.mark.parametrize("solver", ["pmex", "kiops_jit"])
+@pytest.mark.parametrize("solver", ["pmex"])
 def test_unported_exponential_solvers_raise(tmp_path, solver):
     text = INI.format(t_end=30, steps=0, out=tmp_path).replace("exponential_solver = kiops",
                                                                f"exponential_solver = {solver}")

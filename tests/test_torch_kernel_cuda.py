@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (SW operator, 3D Euler operator and its tangent
-mode) against their plain torch versions, on the card. Needs a CUDA device and nvcc, and skips without them. On a GPU
+"""The port's CUDA kernels (SW operator, 3D Euler operator, its tangent
+mode and the perturbation form of both) against their plain torch versions, on the card. Needs a CUDA device and nvcc, and skips without them. On a GPU
 machine run it without tests/conftest.py (which configures JAX):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernel_cuda.py
@@ -13,10 +13,13 @@ import torch
 from wxfactory_tpu_torch.kernels.check import (
     case6_inputs,
     compare_euler3d_operator,
+    compare_euler3d_pert,
     compare_euler3d_tangent,
     compare_sw_operator,
     euler3d_inputs,
+    euler3d_pert_inputs,
     euler3d_tangent_inputs,
+    pert_halos,
     tangent_halos,
 )
 from wxfactory_tpu_torch.ops import euler3d_operator as e3op
@@ -83,3 +86,25 @@ def test_euler3d_tangent_counters_count_kernel_launches_and_plain_calls(cuda):
     e3op.euler3d_tangent(q, v, halo_q, halo_v, con)
     torch.cuda.synchronize()
     assert (e3op.tangent_launches, e3op.plain_tangent_calls) == (launches + 1, plain + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("nel_h,nel_v,s,case", [(3, 2, 2, 31), (4, 2, 3, 77), (2, 2, 6, 31)])
+def test_euler3d_pert_kernel_matches_plain(cuda, nel_h, nel_v, s, case, dtype):
+    rows = compare_euler3d_pert(nel_h, nel_v, s, dtype, device="cuda", case=case)
+    assert all(r["ok"] for r in rows), rows
+
+
+def test_euler3d_pert_counters_count_kernel_launches_only(cuda):
+    con, topology, pert, dq, v = euler3d_pert_inputs(3, 2, 3, torch.float64, "cuda")
+    halo_dq, halo_v = pert_halos(dq, v, pert, con, topology)
+    counts = lambda: (e3op.launches, e3op.tangent_launches, e3op.pert_launches, e3op.pert_tangent_launches,
+                      e3op.plain_tangent_calls)
+    before = counts()
+    e3op.euler3d_operator_pert_plain(dq, halo_dq, con, pert)
+    e3op.euler3d_tangent_pert_plain(dq, v, halo_dq, halo_v, con, pert)
+    assert counts() == before[:4] + (before[4] + 1,)
+    e3op.euler3d_operator(dq, halo_dq, con, pert=pert)
+    e3op.euler3d_tangent(dq, v, halo_dq, halo_v, con, pert=pert)
+    torch.cuda.synchronize()
+    assert counts() == before[:2] + (before[2] + 1, before[3] + 1, before[4] + 1)

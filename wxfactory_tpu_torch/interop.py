@@ -43,7 +43,11 @@ def euler3d_constants(ops, metric, nel_h: int, nel_v: int, device="cpu",
     return euler3d_operator.build_constants(ops, metric, nel_h, nel_v, dtype=dtype, device=device)
 
 
-def euler3d_rhs(geom, ops, metric, device="cpu", dtype=torch.float64, base_state=None) -> Euler3DRHS:
+def euler3d_rhs(geom, ops, metric, device="cpu", dtype=torch.float64, base_state=None,
+                perturbation_base=None) -> Euler3DRHS:
     """The port's 3D Euler RHS on a geometry, operators and metric built by
-    either package (``base_state``: the well-balanced offset's state)."""
-    return Euler3DRHS(geom, ops, metric, dtype=dtype, device=device, base_state=base_state)
+    either package (``base_state``: the well-balanced offset's state;
+    ``perturbation_base``: the base state q0 of the perturbation form, a
+    numpy array as the JAX factory takes it)."""
+    return Euler3DRHS(geom, ops, metric, dtype=dtype, device=device, base_state=base_state,
+                      perturbation_base=perturbation_base)

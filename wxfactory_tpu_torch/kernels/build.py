@@ -41,16 +41,16 @@ SIGNATURES = {
         "euler3d_operator_launch": (
             _I,
             [_I, _I, _I, _I]  # is_f64, s, nel_h, nel_v
-            # q, halo, ops1d, fields, tch, itf_x, itf_y, itf_z, x, bal, out, traces
-            + [_P] * 12
+            # q, halo, ops1d, fields, tch, itf_x, itf_y, itf_z, x, bal, q0, halo0, rhs0, out, traces
+            + [_P] * 15
             + [_D, _D, _D, _I]  # a, b, cdt, stage
             + [_P],  # stream
         ),
         "euler3d_tangent_launch": (
             _I,
             [_I, _I, _I, _I]  # is_f64, s, nel_h, nel_v
-            # q, v, halo_q, halo_v, ops1d, fields, tch, itf_x, itf_y, itf_z, out
-            + [_P] * 11
+            # q, v, halo_q, halo_v, ops1d, fields, tch, itf_x, itf_y, itf_z, q0, halo0, out
+            + [_P] * 13
             + [_P],  # stream
         ),
         "euler3d_operator_error_string": (ctypes.c_char_p, [_I]),

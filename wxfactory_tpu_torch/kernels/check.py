@@ -374,3 +374,98 @@ def euler3d_tangent_work(con):
     words += 2 * 5 * 4 * 6 * nk * nh * s2  # halo_q, halo_v
     per_elem = s3 * (370 + 44 * s) + 6 * s2 * (20 * s + 4) + 3 * s2 * 170
     return words * item, n_elem * per_elem
+
+
+def euler3d_pert_inputs(nel_h: int, nel_v: int, s: int, dtype, device, case: int = 31, seed: int = 7):
+    """(con, topology, pert, dq, v): the perturbation form's inputs at the
+    tangent inputs' state q0 + dq (``euler3d_tangent_inputs``): the base
+    around q0 (built in float64 on ``device``, cast to ``dtype``), dq =
+    q - q0 in ``dtype`` and the direction v."""
+    geom, ops, metric, topology, q0 = euler3d_setup(nel_h, nel_v, s, case)
+    con, _, q, v = euler3d_tangent_inputs(nel_h, nel_v, s, dtype, device, case, seed)
+    con64 = e3op.build_constants(ops, metric, nel_h, nel_v, dtype=torch.float64, device=device)
+    pert = e3op.build_pert_base(torch.as_tensor(q0), con64, topology, dtype)
+    return con, topology, pert, (q - pert.q0).contiguous(), v
+
+
+def pert_halos(dq, v, pert, con, topology):
+    """(halo_dq, halo_v): the delta halo of dq and the direction's halo at
+    q0 + dq (absolute state and traces, as ``Euler3DRHS.jtv_prep``)."""
+    dtraces = e3op.edge_traces_delta(dq, pert, con)
+    halo_v = e3op.halo_from_traces(e3op.edge_traces_tangent(pert.q0 + dq, v, con, pert.traces0 + dtraces), topology)
+    return e3op.halo_from_traces(dtraces, topology), halo_v
+
+
+def compare_euler3d_pert(nel_h: int, nel_v: int, s: int, dtype, device="cuda", case: int = 31, seed: int = 7):
+    """The perturbation mode's kernel (RHS: rhs0 + delta; tangent: J(q0 +
+    dq).v) against its plain version on the same inputs; returns one row
+    per mode.
+
+    float64: the kernel within 1e-12 of the plain output, scaled per
+    variable by the larger of the output max and the RHS term scale in RHS
+    mode (``euler3d_term_scale``, as the absolute RHS check), by the output
+    max in tangent mode. float32: the kernel against the float64 plain
+    output on the same (float64) inputs, within 5e-5 of that scale or twice
+    the float32 plain output's distance, the rule of the tangent check."""
+    con, topology, pert, dq, v = euler3d_pert_inputs(nel_h, nel_v, s, dtype, device, case, seed)
+    halo_dq, halo_v = pert_halos(dq, v, pert, con, topology)
+    rows = []
+    truth = None
+    if dtype == torch.float32:
+        con64, _, pert64, dq64, v64 = euler3d_pert_inputs(nel_h, nel_v, s, torch.float64, device, case, seed)
+        h64 = pert_halos(dq64, v64, pert64, con64, topology)
+        truth = {"rhs": e3op.euler3d_operator_pert_plain(dq64, h64[0], con64, pert64),
+                 "tangent": e3op.euler3d_tangent_pert_plain(dq64, v64, *h64, con64, pert64)}
+    for mode in ("rhs", "tangent"):
+        if mode == "rhs":
+            got = e3op.euler3d_operator(dq, halo_dq, con, pert=pert)
+            want = e3op.euler3d_operator_pert_plain(dq, halo_dq, con, pert)
+        else:
+            got = e3op.euler3d_tangent(dq, v, halo_dq, halo_v, con, pert=pert)
+            want = e3op.euler3d_tangent_pert_plain(dq, v, halo_dq, halo_v, con, pert)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        ref = want if truth is None else truth[mode]
+        scale = per_variable_max(ref)
+        if mode == "rhs":
+            scale = torch.maximum(scale, euler3d_term_scale(pert.q0 + dq, con).to(ref.dtype))
+        row = {"nel_h": nel_h, "nel_v": nel_v, "s": s, "case": case, "dtype": str(dtype).replace("torch.", ""),
+               "mode": f"pert_{mode}", "max_abs_err": float((got - want).abs().max()),
+               "scale": "max(output_max, term)" if mode == "rhs" else "output_max"}
+        row["err"] = _scaled(got.to(ref.dtype) - ref, scale)
+        if truth is None:
+            row["tol"] = E3_TOLERANCE[dtype]
+            limit = row["tol"]
+        else:
+            row["scale"] = "f64_plain_" + row["scale"]
+            row["plain_err"] = _scaled(want.double() - ref, scale)
+            row["kernel_vs_plain_err"] = _scaled(got.double() - want.double(), scale)
+            row["tol"] = E3_TANGENT_TOLERANCE[dtype]
+            limit = max(row["tol"], 2.0 * row["plain_err"])
+        row["ok"] = bool(np.isfinite(row["err"]) and row["err"] <= limit and torch.isfinite(got).all().item())
+        rows.append(row)
+    return rows
+
+
+def euler3d_pert_work(con, tangent: bool = False):
+    """(bytes, operations) of one perturbation-mode call, counted as
+    ``euler3d_work`` counts them. RHS mode reads dq, q0, rhs0, the metric,
+    the delta and base halos and writes rhs0 + delta; tangent mode reads
+    dq, q0, v, the metric and three halos (delta, base, direction) and
+    writes J.v. Operations of the expanded algorithm: each face's base and
+    perturbation traces once (and the direction's in tangent mode), the
+    pointwise deltas (~330 + 40 s a point; tangent ~430 + 44 s), ~200
+    operations a face point for the delta Rusanov flux and its face
+    corrections (tangent ~280 with the linearised flux)."""
+    nh, nk, s = con.nel_h, con.nel_v, con.s
+    s2, s3 = s * s, s**3
+    n_elem, item = 6 * nk * nh * nh, torch.finfo(con.dtype).bits // 8
+    words = 4 * 5 * n_elem * s3  # dq, q0, rhs0 or v, out
+    words += con.fields.numel() + (con.tch.numel() if con.tch is not None else 0)
+    words += con.itf_x.numel() + con.itf_y.numel() + con.itf_z.numel()
+    words += (3 if tangent else 2) * 5 * 4 * 6 * nk * nh * s2  # halos
+    if tangent:
+        per_elem = s3 * (430 + 44 * s) + 6 * s2 * 3 * (10 * s + 4) + 3 * s2 * 280
+    else:
+        per_elem = s3 * (330 + 40 * s) + 6 * s2 * 2 * (10 * s + 4) + 3 * s2 * 200
+    return words * item, n_elem * per_elem

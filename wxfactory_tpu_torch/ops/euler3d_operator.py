@@ -39,6 +39,21 @@ for CPU tensors. Its halo glue is the primal glue's derivative:
 ``edge_traces_tangent`` gives the direction's panel-edge traces (linear
 extrapolation of the momenta, ``tr_q * (E.(v/q))`` for the log-space rows)
 and ``halo_from_traces``, which is linear, exchanges them.
+
+The perturbation (base-state-split) form, ``km3_fused``'s ``pert=`` mode
+(``_km3_body`` with ``base=``, the JAX package's ``_euler3d_rhs_core_pert``):
+the state is carried as ``dq = q - q0`` around a balanced base state ``q0``
+(``E3PertBase``, built once in float64 on the state's device and cast), and
+every nonlinear site is expanded exactly around it (``expm1``/``log1p`` of
+the log-space rows and the pressure, product rules elsewhere), so the
+hydrostatic cancellation never has to survive float32 rounding.
+``euler3d_operator(dq, halo_dq, con, pert=base)`` returns ``rhs0 + delta``
+and ``euler3d_tangent(dq, v, halo_dq, halo_v, con, pert=base)`` returns
+J(q0 + dq).v; the halo glue is ``edge_traces_delta`` (the delta traces,
+``t0 * expm1(E.log1p(dq/q0))`` for the log-space rows) and, for the
+direction, ``edge_traces_tangent`` at the absolute state with the absolute
+traces ``t0 + dt``. The plain versions are ``euler3d_operator_pert_plain``
+and ``euler3d_tangent_pert_plain``.
 """
 
 import ctypes
@@ -50,10 +65,13 @@ import torch
 
 from ..common.constants import GRAVITY, HEAT_CAPACITY_RATIO, P0, RD
 
-# Kernel launches made by ``euler3d_operator`` and ``euler3d_tangent``, and
-# calls of the plain tangent (a run on the card must make none).
+# Kernel launches made by ``euler3d_operator`` and ``euler3d_tangent`` in
+# absolute and perturbation form, and calls of the plain tangents (a run on
+# the card must make none).
 launches = 0
 tangent_launches = 0
+pert_launches = 0
+pert_tangent_launches = 0
 plain_tangent_calls = 0
 
 # Names of the single-panel interior fields, in the order of ``fields``
@@ -265,12 +283,53 @@ def _faces(a: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.cat([a.narrow(dim, 0, n), a.narrow(dim, 1, n)], dim=-1)
 
 
+# The interface families: (normal direction, interface axis of a (5, ...) state-shaped array).
+_FAMILIES = ((0, -2), (1, -3), (2, -4))
+
+
+def _lr_states(itf: torch.Tensor, halo: torch.Tensor):
+    """Per-family (qL, qR) interface states from every element's face traces
+    ``itf`` (..., 6 s^2: W E S N D U) and the halos; the ground and the lid
+    mirror the element's own trace (west/south/down side left)."""
+    ss = itf.shape[-1] // 6
+    west, east = itf[..., :ss], itf[..., ss : 2 * ss]
+    south, north = itf[..., 2 * ss : 3 * ss], itf[..., 3 * ss : 4 * ss]
+    bot, top = itf[..., 4 * ss : 5 * ss], itf[..., 5 * ss :]
+    hs, hn, hw, he = halo[:, 0], halo[:, 1], halo[:, 2], halo[:, 3]
+    return (
+        (torch.cat([hw.unsqueeze(-2), east], dim=-2), torch.cat([west, he.unsqueeze(-2)], dim=-2)),
+        (torch.cat([hs.unsqueeze(-3), north], dim=-3), torch.cat([south, hn.unsqueeze(-3)], dim=-3)),
+        (torch.cat([bot[:, :, 0:1], top], dim=2), torch.cat([bot, top[:, :, -1:]], dim=2)),
+    )
+
+
+def _normal_speeds(qL: torch.Tensor, qR: torch.Tensor, d: int):
+    """(vL, vR) normal speeds of family d; w is odd across the ground (the
+    first z interface's left side) and the lid (the last one's right side)."""
+    vL, vR = qL[1 + d] / qL[0], qR[1 + d] / qR[0]
+    if d == 2:
+        vL = torch.cat([-vL[:, 0:1], vL[:, 1:]], dim=1)
+        vR = torch.cat([vR[:, :-1], -vR[:, -1:]], dim=1)
+    return vL, vR
+
+
+def _itf_metric(con: "E3Constants", d: int):
+    return (con.itf_x, con.itf_y, con.itf_z)[d]
+
+
+def _own_faces(pL: torch.Tensor, pR: torch.Tensor, dim: int):
+    """(negative-face, positive-face) values of the element's own side:
+    the right state of its negative interface, the left of its positive."""
+    n = pL.shape[dim] - 1
+    return pR.narrow(dim, 0, n), pL.narrow(dim, 1, n)
+
+
 def euler3d_operator_plain(q, halo, con: E3Constants, x=None, a: float = 0.0, b: float = 1.0,
                            cdt: Optional[float] = None, bal=None, emit_traces: bool = False):
     """Plain torch version of the operator; same arguments and results as
     ``euler3d_operator`` (written from the JAX package's
     models/euler_cubesphere.py:90-291, dense 3D operators)."""
-    ss, s3 = con.s**2, con.s**3
+    s3 = con.s**3
     fld = con.fields
     sqrtg, invsg, invdz = fld[0], fld[1], fld[2]
     h = {}
@@ -284,10 +343,6 @@ def euler3d_operator_plain(q, halo, con: E3Constants, x=None, a: float = 0.0, b:
 
     # 1. Log-space extrapolation to the six faces of every element.
     itf = _exp_rows(_log_rows(q) @ con.ee)
-    west, east = itf[..., :ss], itf[..., ss : 2 * ss]
-    south, north = itf[..., 2 * ss : 3 * ss], itf[..., 3 * ss : 4 * ss]
-    bot, top = itf[..., 4 * ss : 5 * ss], itf[..., 5 * ss :]
-    hs, hn, hw, he = halo[:, 0], halo[:, 1], halo[:, 2], halo[:, 3]
 
     # 2. Pointwise fluxes and interior derivatives.
     p = pressure(q[4])
@@ -303,27 +358,16 @@ def euler3d_operator_plain(q, halo, con: E3Constants, x=None, a: float = 0.0, b:
     dlogp = logp @ con.dd3
 
     # 3. Interface left/right states; ground and lid mirror the state, w odd.
-    qL_x = torch.cat([hw.unsqueeze(-2), east], dim=-2)
-    qR_x = torch.cat([west, he.unsqueeze(-2)], dim=-2)
-    qL_y = torch.cat([hs.unsqueeze(-3), north], dim=-3)
-    qR_y = torch.cat([south, hn.unsqueeze(-3)], dim=-3)
-    qL_z = torch.cat([bot[:, :, 0:1], top], dim=2)
-    qR_z = torch.cat([bot, top[:, :, -1:]], dim=2)
-    w_bot, w_top = bot[3] / bot[0], top[3] / top[0]
-    fam = {
-        0: _rusanov(qL_x, qR_x, qL_x[1] / qL_x[0], qR_x[1] / qR_x[0], con.itf_x, 0),
-        1: _rusanov(qL_y, qR_y, qL_y[2] / qL_y[0], qR_y[2] / qR_y[0], con.itf_y, 1),
-        2: _rusanov(qL_z, qR_z, torch.cat([-w_bot[:, 0:1], w_top], dim=1),
-                    torch.cat([w_bot, -w_top[:, -1:]], dim=1), con.itf_z, 2),
-    }
+    lr = _lr_states(itf, halo)
+    fam = {d: _rusanov(*lr[d], *_normal_speeds(*lr[d], d), _itf_metric(con, d), d) for d, _ in _FAMILIES}
 
     # 4. Boundary corrections: the element's own-side face pressures divide
     # the w-pressure flux and give the face log p.
     bund, lpf = [], []
-    for d, dim in ((0, -2), (1, -3), (2, -4)):
+    for d, dim in _FAMILIES:
         f, wadv, wpres, pL, pR = fam[d]
         n = pL.shape[dim] - 1
-        p_neg, p_pos = pR.narrow(dim, 0, n), pL.narrow(dim, 1, n)
+        p_neg, p_pos = _own_faces(pL, pR, dim)
         wp = torch.cat([wpres.narrow(dim, 0, n) / p_neg, wpres.narrow(dim, 1, n) / p_pos], dim=-1)
         bund.append(torch.cat([_faces(f, dim), _faces(wadv, dim)[None], wp[None]]))
         lpf.append(torch.cat([torch.log(p_neg), torch.log(p_pos)], dim=-1))
@@ -370,6 +414,215 @@ def euler3d_operator_plain(q, halo, con: E3Constants, x=None, a: float = 0.0, b:
 
 
 # ---------------------------------------------------------------------------
+# Perturbation form: base state, delta glue, plain version
+
+
+@dataclass(frozen=True)
+class E3PertBase:
+    """The base state of the perturbation form and what every call around
+    it shares (the counterpart of ``E3PertBase``/``build_pert_base``,
+    pallas_euler3d.py:1847-1896, and of ``_euler3d_base_intermediates``,
+    models/euler_cubesphere.py:294-354, in the model layout), computed in
+    float64 once and cast to the working dtype. The kernel reads ``q0``,
+    ``rhs0`` and ``halo0``; the glue ``traces0``; the plain version the
+    rest."""
+
+    q0: torch.Tensor  # (5, 6, nk, ny, nx, s^3) base state
+    rhs0: torch.Tensor  # its float64 RHS
+    traces0: torch.Tensor  # (5, 4, 6, nk, nh, s^2) its outward panel-edge traces
+    halo0: torch.Tensor  # its halo
+    itf0: torch.Tensor  # (5, 6, nk, ny, nx, 6 s^2) its face traces
+    u0: torch.Tensor  # (3, ...) its velocities
+    p0: torch.Tensor  # its pressure
+    dlp0: torch.Tensor  # (..., 3 s^3) its log-pressure gradient with the face corrections
+    wcorr0: torch.Tensor  # (..., s^3) the boundary correction of its w-pressure flux / p
+
+    @property
+    def tensors(self):
+        return {"q0": self.q0, "rhs0": self.rhs0, "halo0": self.halo0}
+
+
+def build_pert_base(q0: torch.Tensor, con64: E3Constants, topology, dtype) -> E3PertBase:
+    """The perturbation base around ``q0`` from float64 constants on the
+    device that will run the operator; the base RHS comes from
+    ``euler3d_operator`` (the kernel on a GPU, the plain version on the
+    CPU). All results are cast to ``dtype``."""
+    if con64.dtype != torch.float64:
+        raise ValueError("the perturbation base is built from float64 constants")
+    q0 = q0.to(device=con64.device, dtype=torch.float64).contiguous()
+    traces0 = edge_traces(q0, con64)
+    halo0 = halo_from_traces(traces0, topology)
+    rhs0 = euler3d_operator(q0, halo0, con64)
+    itf0 = _exp_rows(_log_rows(q0) @ con64.ee)
+    p0 = pressure(q0[4])
+    lr = _lr_states(itf0, halo0)
+    lpf, wpf = [], []
+    for d, dim in _FAMILIES:
+        qL, qR = lr[d]
+        sg, _, _, h2 = _itf_metric(con64, d)
+        pL, pR = pressure(qL[4]), pressure(qR[4])
+        wp = 0.5 * sg * h2 * (pL + pR)
+        p_neg, p_pos = _own_faces(pL, pR, dim)
+        w_neg, w_pos = _own_faces(wp, wp, dim)
+        lpf.append(torch.cat([torch.log(p_neg), torch.log(p_pos)], dim=-1))
+        wpf.append(torch.cat([w_neg / p_neg, w_pos / p_pos], dim=-1))
+    dlp0 = torch.log(p0) @ con64.dd3 + torch.cat(lpf, dim=-1) @ con64.ccb
+    wcorr0 = torch.cat(wpf, dim=-1) @ con64.cc
+    cast = lambda t: t.to(dtype).contiguous()
+    return E3PertBase(q0=cast(q0), rhs0=cast(rhs0), traces0=cast(traces0), halo0=cast(halo0), itf0=cast(itf0),
+                      u0=cast(q0[1:4] / q0[0]), p0=cast(p0), dlp0=cast(dlp0), wcorr0=cast(wcorr0))
+
+
+def edge_traces_delta(dq: torch.Tensor, pert: E3PertBase, con: E3Constants) -> torch.Tensor:
+    """Panel-edge traces of the perturbation ``dq`` (5, 4, 6, nk, nh, s^2):
+    the momenta extrapolated linearly, rho and rho*theta as
+    ``t0 * expm1(E.log1p(dq/q0))`` around the base traces ``t0`` (the
+    counterpart of ``_delta_pools``, pallas_euler3d.py:1898-1917)."""
+    ss, ee, q0 = con.s**2, con.ee, pert.q0
+    ld = lambda sl: torch.cat([torch.log1p(dq[0:1][sl] / q0[0:1][sl]), dq[1:4][sl],
+                               torch.log1p(dq[4:5][sl] / q0[4:5][sl])])
+    raw = torch.stack([
+        ld(np.s_[:, :, :, 0]) @ ee[:, 2 * ss : 3 * ss],
+        ld(np.s_[:, :, :, -1]) @ ee[:, 3 * ss : 4 * ss],
+        ld(np.s_[:, :, :, :, 0]) @ ee[:, :ss],
+        ld(np.s_[:, :, :, :, -1]) @ ee[:, ss : 2 * ss],
+    ], dim=1)
+    t0 = pert.traces0
+    return torch.cat([t0[0:1] * torch.expm1(raw[0:1]), raw[1:4], t0[4:5] * torch.expm1(raw[4:5])])
+
+
+def euler3d_operator_pert_plain(dq, halo, con: E3Constants, pert: E3PertBase):
+    """Plain torch version of the perturbation RHS mode: ``rhs0 +
+    [RHS(q0 + dq) - RHS(q0)]`` with the bracket expanded term by term
+    around the base (the JAX package's ``_euler3d_rhs_core_pert`` with
+    ``delta_input``, models/euler_cubesphere.py:357-623). ``halo`` is the
+    halo of ``edge_traces_delta(dq)``. The JAX package writes
+    ``log1p``/``expm1`` as compensated formulas (pallas_euler3d.py:726-736,
+    Mosaic lacks them); torch has them, which moves results by ~1 ulp of
+    the small arguments, far below every tolerance the tests state."""
+    s3 = con.s**3
+    fld = con.fields
+    sqrtg, invsg, invdz = fld[0], fld[1], fld[2]
+    h = {}
+    for i, (r, c) in enumerate(H_PAIRS):
+        h[(r, c)] = h[(c, r)] = fld[3 + i]
+    chs = fld[3 + len(H_PAIRS) : 3 + len(H_PAIRS) + 18]
+    wpres_int = fld[-1]
+    gam = HEAT_CAPACITY_RATIO
+
+    q0, u0, p0 = pert.q0, pert.u0, pert.p0
+    q = q0 + dq
+    rho, rho0 = q[0], q0[0]
+    du = (dq[1:4] - u0 * dq[0]) / rho
+
+    # 1. Delta face traces: linear for the momenta, t0 * expm1(E.log1p(d/q0)) for the log rows.
+    dlog_rho, dlog_rt = torch.log1p(dq[0] / rho0), torch.log1p(dq[4] / q0[4])
+    raw = torch.cat([dlog_rho[None], dq[1:4], dlog_rt[None]]) @ con.ee
+    itf0 = pert.itf0
+    ditf = torch.cat([itf0[0:1] * torch.expm1(raw[0:1]), raw[1:4], itf0[4:5] * torch.expm1(raw[4:5])])
+
+    # 2. Pointwise flux differences and interior derivatives of the deltas.
+    dp = p0 * torch.expm1(gam * dlog_rt)
+    p = p0 + dp
+    dlogp = torch.log1p(dp / p0)
+    bundles = []
+    for d in range(3):
+        dflux = sqrtg * (u0[d] * dq + du[d] * q)
+        dwadv = dflux[3]
+        press = torch.stack([torch.zeros_like(dp)] + [sqrtg * dp * h[(d, k)] for k in range(3)]
+                            + [torch.zeros_like(dp)])
+        bundles.append(torch.cat([dflux + press, dwadv[None]]))
+    interior = torch.cat(bundles, dim=-1) @ con.dd
+    ddlogp = dlogp @ con.dd3
+
+    # 3. Interface states: base and delta; delta Rusanov fluxes.
+    lr0, lrd = _lr_states(itf0, pert.halo0), _lr_states(ditf, halo)
+    bund, dlpf = [], []
+    for d, dim in _FAMILIES:
+        (L0, R0), (dL, dR) = lr0[d], lrd[d]
+        qL, qR = L0 + dL, R0 + dR
+        sg, h0, h1, h2 = _itf_metric(con, d)
+        hd = (h0, h1, h2)[d]
+        vL0, vR0 = _normal_speeds(L0, R0, d)
+        vL, vR = _normal_speeds(qL, qR, d)
+        dvL, dvR = vL - vL0, vR - vR0
+        pL0, pR0 = pressure(L0[4]), pressure(R0[4])
+        dpL = pL0 * torch.expm1(gam * torch.log1p(dL[4] / L0[4]))
+        dpR = pR0 * torch.expm1(gam * torch.log1p(dR[4] / R0[4]))
+        eig = torch.maximum(_abs(vL) + torch.sqrt(hd * gam * (pL0 + dpL) / qL[0]),
+                            _abs(vR) + torch.sqrt(hd * gam * (pR0 + dpR) / qR[0]))
+        eig0 = torch.maximum(_abs(vL0) + torch.sqrt(hd * gam * pL0 / L0[0]),
+                             _abs(vR0) + torch.sqrt(hd * gam * pR0 / R0[0]))
+        deig = eig - eig0
+        dfl = sg * (vL0 * dL + dvL * qL)
+        dfr = sg * (vR0 * dR + dvR * qR)
+        diss = sg * (eig * (dR - dL) + deig * (R0 - L0))
+        dwadv = 0.5 * (dfl[3] + dfr[3] - diss[3])
+        press = lambda x: torch.stack([torch.zeros_like(x), sg * h0 * x, sg * h1 * x, sg * h2 * x,
+                                       torch.zeros_like(x)])
+        df = 0.5 * ((dfl + press(dpL)) + (dfr + press(dpR)) - diss)
+        wpres0 = 0.5 * sg * h2 * (pL0 + pR0)
+        dwpres = 0.5 * sg * h2 * (dpL + dpR)
+
+        # 4. Corrections on deltas; d[wpres/p] = dwpres/p - (wpres0/p0)(dp/p).
+        p0n, p0p = _own_faces(pL0, pR0, dim)
+        dpn, dpp = _own_faces(dpL, dpR, dim)
+        w0n, w0p = _own_faces(wpres0, wpres0, dim)
+        dwn, dwp_ = _own_faces(dwpres, dwpres, dim)
+        pn, pp = p0n + dpn, p0p + dpp
+        dwp = torch.cat([dwn / pn - (w0n / p0n) * (dpn / pn), dwp_ / pp - (w0p / p0p) * (dpp / pp)], dim=-1)
+        bund.append(torch.cat([_faces(df, dim), _faces(dwadv, dim)[None], dwp[None]]))
+        dlpf.append(torch.cat([torch.log1p(dpn / p0n), torch.log1p(dpp / p0p)], dim=-1))
+    corr = torch.cat(bund, dim=-1) @ con.cc
+    ddlp = ddlogp + torch.cat(dlpf, dim=-1) @ con.ccb
+    dlp = pert.dlp0 + ddlp
+
+    # 5. The w pressure split: d[(W + c) p] = (W + c0) dp + dc p, d[p dlp] = p0 ddlp + dp dlp.
+    dw_df = interior[5] + corr[5] + (wpres_int + pert.wcorr0) * dp + corr[6] * p
+    for k in range(3):
+        sl = slice(k * s3, (k + 1) * s3)
+        dw_df = dw_df + sqrtg * h[(k, 2)] * (p0 * ddlp[..., sl] + dp * dlp[..., sl])
+    out = -invsg * (interior[:5] + corr[:5])
+    out[3] = -invsg * dw_df
+
+    # 6. Forcing deltas: the quadratic terms by the product rule with
+    # absolute second factors, the Coriolis term and gravity are linear.
+    def dprod(i, j):
+        return (dq[i] * q0[j] + q[i] * dq[j]) / rho - (q0[i] * q0[j] / rho0) * (dq[0] / rho)
+
+    def dforcing_row(a_):
+        ch = chs[6 * a_ : 6 * a_ + 6]
+        f = (ch[0] * (dprod(1, 1) + h[(0, 0)] * dp)
+             + 2.0 * ch[1] * (dprod(1, 2) + h[(0, 1)] * dp)
+             + 2.0 * ch[2] * (dprod(1, 3) + h[(0, 2)] * dp)
+             + ch[3] * (dprod(2, 2) + h[(1, 1)] * dp)
+             + 2.0 * ch[4] * (dprod(2, 3) + h[(1, 2)] * dp)
+             + ch[5] * (dprod(3, 3) + h[(2, 2)] * dp))
+        if con.tch is not None:
+            t = con.tch[3 * a_ : 3 * a_ + 3]
+            f = 2.0 * (t[0] * dq[1] + t[1] * dq[2] + t[2] * dq[3]) + f
+        return f
+
+    dgrav = invdz * GRAVITY * invsg * ((sqrtg * dq[0]) @ con.hfk)
+    out[1] -= dforcing_row(0)
+    out[2] -= dforcing_row(1)
+    out[3] -= dforcing_row(2) + dgrav
+    return pert.rhs0 + out
+
+
+def euler3d_tangent_pert_plain(dq, v, halo_dq, halo_v, con: E3Constants, pert: E3PertBase):
+    """Plain torch version of the perturbation tangent mode: J(q0 + dq).v as
+    ``torch.func.jvp`` of ``euler3d_operator_pert_plain`` at (dq, halo_dq)
+    in the direction (v, halo_v) (``halo_v`` from ``edge_traces_tangent``
+    at the absolute state and traces). Counted in ``plain_tangent_calls``."""
+    global plain_tangent_calls
+    plain_tangent_calls += 1
+    _, out = torch.func.jvp(lambda d_, h_: euler3d_operator_pert_plain(d_, h_, con, pert), (dq, halo_dq),
+                            (v, halo_v))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrapper
 
 
@@ -384,7 +637,7 @@ def _check_tensors(con: E3Constants, tensors: dict):
             raise ValueError(f"{name} is not contiguous")
 
 
-def _check(q, halo, con: E3Constants, x, a: float, bal):
+def _check(q, halo, con: E3Constants, x, a: float, bal, cdt, emit_traces: bool, pert):
     """Shape, dtype, device and contiguity of the tensors the operator reads."""
     tensors = {"q": (q, con.state_shape), "halo": (halo, con.traces_shape)}
     if a != 0.0:
@@ -393,7 +646,16 @@ def _check(q, halo, con: E3Constants, x, a: float, bal):
         tensors["x"] = (x, con.state_shape)
     if bal is not None:
         tensors["bal"] = (bal, con.state_shape)
+    if pert is not None:
+        if cdt is not None or bal is not None or emit_traces:
+            raise ValueError("the perturbation form runs in RHS mode only (no stage, bal or traces)")
+        tensors.update(_pert_tensors(con, pert))
     _check_tensors(con, tensors)
+
+
+def _pert_tensors(con: E3Constants, pert: E3PertBase) -> dict:
+    shapes = {"q0": con.state_shape, "rhs0": con.state_shape, "halo0": con.traces_shape}
+    return {name: (t, shapes[name]) for name, t in pert.tensors.items()}
 
 
 def _check_kernel_shape(con: E3Constants, name: str):
@@ -408,21 +670,27 @@ def _ptr(t) -> ctypes.c_void_p:
 
 
 def euler3d_operator(q, halo, con: E3Constants, x=None, a: float = 0.0, b: float = 1.0,
-                     cdt: Optional[float] = None, bal=None, emit_traces: bool = False):
+                     cdt: Optional[float] = None, bal=None, emit_traces: bool = False,
+                     pert: Optional[E3PertBase] = None):
     """The 3D Euler operator on ``q`` (5, 6, nk, ny, nx, s^3) with neighbour
     halos ``halo`` (5, 4, 6, nk, nh, s^2).
 
     RHS mode (``cdt is None``): returns RHS(q) (+ ``bal`` when given).
     Stage mode: returns ``a*x + b*q + cdt*(RHS(q) + bal)`` (``x`` is read
     only when ``a != 0``). With ``emit_traces`` also returns the output's
-    panel-edge traces (5, 4, 6, nk, nh, s^2).
+    panel-edge traces (5, 4, 6, nk, nh, s^2). With ``pert`` (RHS mode only)
+    ``q`` is the perturbation dq around ``pert.q0`` and ``halo`` the halo of
+    its delta traces (``edge_traces_delta``): returns RHS(q0 + dq) as
+    ``rhs0 + delta``.
 
-    A CPU tensor runs ``euler3d_operator_plain``; a CUDA tensor launches the
-    kernel (built from csrc/euler3d_operator.cu at first use) on the current
-    stream, without synchronising, or raises."""
-    global launches
-    _check(q, halo, con, x, a, bal)
+    A CPU tensor runs ``euler3d_operator_plain`` (``euler3d_operator_pert_plain``);
+    a CUDA tensor launches the kernel (built from csrc/euler3d_operator.cu at
+    first use) on the current stream, without synchronising, or raises."""
+    global launches, pert_launches
+    _check(q, halo, con, x, a, bal, cdt, emit_traces, pert)
     if q.device.type == "cpu":
+        if pert is not None:
+            return euler3d_operator_pert_plain(q, halo, con, pert)
         return euler3d_operator_plain(q, halo, con, x=x, a=a, b=b, cdt=cdt, bal=bal, emit_traces=emit_traces)
     if q.device.type != "cuda":
         raise ValueError(f"euler3d_operator runs on cpu or cuda tensors, not {q.device}")
@@ -434,19 +702,24 @@ def euler3d_operator(q, halo, con: E3Constants, x=None, a: float = 0.0, b: float
     use_x = cdt is not None and a != 0.0
     out = torch.empty_like(q)
     traces = torch.empty(con.traces_shape, dtype=q.dtype, device=q.device) if emit_traces else None
+    base = pert.tensors if pert is not None else {}
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.euler3d_operator_launch(
             1 if q.dtype == torch.float64 else 0, con.s, con.nel_h, con.nel_v,
             _ptr(q), _ptr(halo), _ptr(con.ops1d), _ptr(con.fields), _ptr(con.tch),
             _ptr(con.itf_x), _ptr(con.itf_y), _ptr(con.itf_z), _ptr(x if use_x else None), _ptr(bal),
+            _ptr(base.get("q0")), _ptr(base.get("halo0")), _ptr(base.get("rhs0")),
             _ptr(out), _ptr(traces), float(a), float(b), float(cdt if cdt is not None else 0.0),
             1 if cdt is not None else 0, ctypes.c_void_p(stream),
         )
     if rc != 0:
         name = lib.euler3d_operator_error_string(rc).decode()
         raise RuntimeError(f"euler3d_operator kernel launch failed: CUDA error {rc} ({name})")
-    launches += 1
+    if pert is not None:
+        pert_launches += 1
+    else:
+        launches += 1
     return (out, traces) if emit_traces else out
 
 
@@ -466,18 +739,26 @@ def euler3d_tangent_plain(q, v, halo_q, halo_v, con: E3Constants):
     return out
 
 
-def euler3d_tangent(q, v, halo_q, halo_v, con: E3Constants):
+def euler3d_tangent(q, v, halo_q, halo_v, con: E3Constants, pert: Optional[E3PertBase] = None):
     """The Jacobian action J(q).v of the operator in RHS mode (no stage,
     ``bal`` or traces), with ``halo_q`` q's neighbour halos and ``halo_v``
-    the direction's (both (5, 4, 6, nk, nh, s^2)).
+    the direction's (both (5, 4, 6, nk, nh, s^2)). With ``pert``, ``q`` is
+    the perturbation dq around ``pert.q0`` and ``halo_q`` its delta halo:
+    returns J(q0 + dq).v, the primal perturbation intermediates serving as
+    the linearisation coefficients.
 
-    A CPU tensor runs ``euler3d_tangent_plain``; a CUDA tensor launches the
-    kernel's tangent mode (csrc/euler3d_operator.cu) on the current stream,
-    without synchronising, or raises."""
-    global tangent_launches
-    _check_tensors(con, {"q": (q, con.state_shape), "v": (v, con.state_shape),
-                         "halo_q": (halo_q, con.traces_shape), "halo_v": (halo_v, con.traces_shape)})
+    A CPU tensor runs ``euler3d_tangent_plain`` (``euler3d_tangent_pert_plain``);
+    a CUDA tensor launches the kernel's tangent mode (csrc/euler3d_operator.cu)
+    on the current stream, without synchronising, or raises."""
+    global tangent_launches, pert_tangent_launches
+    tensors = {"q": (q, con.state_shape), "v": (v, con.state_shape),
+               "halo_q": (halo_q, con.traces_shape), "halo_v": (halo_v, con.traces_shape)}
+    if pert is not None:
+        tensors.update(_pert_tensors(con, pert))
+    _check_tensors(con, tensors)
     if q.device.type == "cpu":
+        if pert is not None:
+            return euler3d_tangent_pert_plain(q, v, halo_q, halo_v, con, pert)
         return euler3d_tangent_plain(q, v, halo_q, halo_v, con)
     if q.device.type != "cuda":
         raise ValueError(f"euler3d_tangent runs on cpu or cuda tensors, not {q.device}")
@@ -487,15 +768,20 @@ def euler3d_tangent(q, v, halo_q, halo_v, con: E3Constants):
 
     lib = load_library("euler3d_operator")
     out = torch.empty_like(q)
+    base = pert.tensors if pert is not None else {}
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.euler3d_tangent_launch(
             1 if q.dtype == torch.float64 else 0, con.s, con.nel_h, con.nel_v,
             _ptr(q), _ptr(v), _ptr(halo_q), _ptr(halo_v), _ptr(con.ops1d), _ptr(con.fields), _ptr(con.tch),
-            _ptr(con.itf_x), _ptr(con.itf_y), _ptr(con.itf_z), _ptr(out), ctypes.c_void_p(stream),
+            _ptr(con.itf_x), _ptr(con.itf_y), _ptr(con.itf_z), _ptr(base.get("q0")), _ptr(base.get("halo0")),
+            _ptr(out), ctypes.c_void_p(stream),
         )
     if rc != 0:
         name = lib.euler3d_operator_error_string(rc).decode()
         raise RuntimeError(f"euler3d_tangent kernel launch failed: CUDA error {rc} ({name})")
-    tangent_launches += 1
+    if pert is not None:
+        pert_tangent_launches += 1
+    else:
+        tangent_launches += 1
     return out

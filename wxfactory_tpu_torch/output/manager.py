@@ -16,6 +16,8 @@ import os
 
 import numpy as np
 
+from ..common.device import to_host
+
 from .diagnostics import global_integral_2d, potential_enstrophy, total_energy
 from .state import load_state, save_state
 
@@ -68,7 +70,7 @@ class OutputManager:
         stats = c.stat_freq > 0 and step_id % c.stat_freq == 0
         if not (save or stats):
             return
-        host = q.detach().cpu().numpy()
+        host = to_host(q)
         if save:
             save_state(host, c, self.state_file_name(step_id))
         if stats:

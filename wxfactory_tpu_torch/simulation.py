@@ -3,9 +3,12 @@
 Counterpart of ``wxfactory_tpu/simulation.py`` for the cubed sphere:
 shallow water (Williamson cases 2 and 6) and 3D Euler (DCMIP cases 31 and
 77) with the explicit integrators (euler1, tvdrk3), and 3D Euler with the
-exponential ones (epi2..6, epi_stiff3..6, KIOPS), the step loop with the
-end-time clamp, the per-step NaN/Inf guard, checkpoints and blockstats
-(shallow water only, as in the JAX package). The device comes from the
+exponential ones (epi2..6, epi_stiff3..6, with kiops or the device-resident
+kiops_jit, and with ``mixed_precision_krylov`` the float32 perturbation-form
+companion of the Krylov loop), the step loop with the end-time clamp, the
+NaN/Inf guard, ``device_step_chunk`` (equal steps run back to back with the
+guard and outputs at the chunk's end), checkpoints and blockstats (shallow
+water only, as in the JAX package). The device comes from the
 caller; nothing moves to another device. Any other grid, case, integrator,
 exponential solver or distribution raises ``NotImplementedError`` naming
 its ROADMAP item.
@@ -16,6 +19,7 @@ import time
 
 import torch
 
+from .common import device as _device
 from .common.device import resolve_device
 from .config import Configuration, load_configuration
 from .geometry import make_cubed_sphere_2d, make_cubed_sphere_3d, make_metric_2d, make_metric_3d
@@ -82,19 +86,42 @@ class Simulation:
         if c.starting_step > 0:
             q0 = self.output.load_state_from_file(c.starting_step, q0.shape)
             self.starting_step = c.starting_step
+        # The float32 companion of the Krylov loop (mixed_precision_krylov):
+        # the perturbation form around the initial state, whose Jacobian
+        # action is the kernel's perturbation tangent mode (the JAX package's
+        # simulation.py:140-162; 3D Euler only: shallow-water EPI is not
+        # ported, and the forcing cases are refused above).
+        self.rhs32 = None
+        if getattr(c, "mixed_precision_krylov", False) and self.dtype == torch.float64:
+            if c.equations == "euler" and c.case_number >= 13:
+                self.rhs32 = Euler3DRHS(
+                    self.geom, self.ops, self.metric, dtype=torch.float32, device=self.device,
+                    topology=self.topology, perturbation_base=q0,
+                )
+
         self.initial_q = torch.as_tensor(q0, dtype=self.dtype, device=self.device)
         self.integrator = self._create_integrator()
 
         if getattr(c, "mixed_precision_krylov", False):
-            # The port has no float32 companion RHS and no device-resident
-            # Krylov solver to consume it (ROADMAP queue 1, item 7): flag the
-            # knob as a no-op, as the JAX package does when its solver
-            # cannot consume it.
-            print(
-                f"WARNING: mixed_precision_krylov is set but {c.time_integrator} with "
-                f"exponential_solver={c.exponential_solver!r}/linear_solver={c.linear_solver!r} "
-                "cannot consume it — use kiops_jit (Epi/Srerk) or fgmres_jit (Ros2)"
+            # The companion only feeds the device-resident Krylov solver;
+            # flag the knob as a no-op otherwise (simulation.py:182-201 of
+            # the JAX package).
+            name = c.time_integrator.lower()
+            consumes = (
+                (name.startswith("epi") and c.exponential_solver == "kiops_jit")
+                or (name == "ros2" and c.linear_solver.startswith("fgmres_jit"))
             )
+            if self.rhs32 is None:
+                print(
+                    "WARNING: mixed_precision_krylov is set but no f32 companion RHS "
+                    "is available for this model/case; the knob has no effect"
+                )
+            elif not consumes:
+                print(
+                    f"WARNING: mixed_precision_krylov is set but {c.time_integrator} with "
+                    f"exponential_solver={c.exponential_solver!r}/linear_solver={c.linear_solver!r} "
+                    "cannot consume it — use kiops_jit (Epi/Srerk) or fgmres_jit (Ros2)"
+                )
 
     def _create_integrator(self):
         c = self.config
@@ -111,7 +138,8 @@ class Simulation:
                     "queue 1, item 5)"
                 )
             common = dict(tolerance=c.tolerance, exponential_solver=c.exponential_solver,
-                          krylov_size=max(c.krylov_size, 1), verbose=c.verbose_solver)
+                          krylov_size=max(c.krylov_size, 1), verbose=c.verbose_solver,
+                          rhs32=self.rhs32)
             if name.startswith("epi_stiff"):
                 return EpiStiff(self.rhs, int(name.removeprefix("epi_stiff")), **common)
             order = int(name.removeprefix("epi"))
@@ -120,20 +148,39 @@ class Simulation:
             return Epi(self.rhs, order, init_substeps=(10 if order >= 3 else 1), **common)
         raise NotImplementedError(
             f"time integrator {c.time_integrator!r} is not ported yet (the port runs euler1, tvdrk3 "
-            "and, on 3D Euler, epi/epi_stiff with kiops; Ros2 is ROADMAP queue 1, item 11)"
+            "and, on 3D Euler, epi/epi_stiff with kiops or kiops_jit; Ros2 is ROADMAP queue 1, item 11)"
         )
 
     # ------------------------------------------------------------------
+    def _check_finite(self, q, step_id: int) -> None:
+        if not _device.host_read(torch.isfinite(q).all()):
+            raise RuntimeError(f"NaN/Inf detected in state after step {step_id}")
+
     def step(self, q, step_id: int, t: float):
         """One step: dt clamp near t_end, integrator, NaN guard, outputs.
         Returns (q_new, new_time)."""
         c = self.config
         dt = min(c.dt, c.t_end - t) if c.t_end > t else c.dt
         q = self.integrator.step(q, dt)
-        if not bool(torch.isfinite(q).all()):
-            raise RuntimeError(f"NaN/Inf detected in state after step {step_id}")
+        self._check_finite(q, step_id)
         self.output.step(q, step_id, t + dt)
         return q, t + dt
+
+    def _chunk_len(self, step_id: int, t: float) -> int:
+        """How many equal-dt steps may run as one chunk from ``step_id``:
+        bounded by ``device_step_chunk``, the next step that owes a
+        checkpoint or blockstats, and the last full-dt step before the t_end
+        clamp; 1 when chunking is off (the JAX package's simulation.py:512-534)."""
+        c = self.config
+        chunk = getattr(c, "device_step_chunk", 1)
+        if chunk <= 1 or not hasattr(self.integrator, "steps_device"):
+            return 1
+        full_dt_steps = int(math.floor((c.t_end - t) / c.dt + 1e-10))
+        n = min(chunk, max(full_dt_steps, 1))
+        for f in (c.output_freq, c.save_state_freq, c.stat_freq):
+            if f > 0:
+                n = min(n, (step_id // f + 1) * f - step_id)
+        return max(n, 1)
 
     def run(self) -> torch.Tensor:
         c = self.config
@@ -145,12 +192,22 @@ class Simulation:
         t_start = time.time()
         self.output.step(q, step_id, t)  # initial output
         while t < c.t_end - 1e-10:
-            step_id += 1
-            q, t = self.step(q, step_id, t)
+            n = self._chunk_len(step_id, t)
+            if n > 1:
+                # n equal steps back to back; the NaN guard and the outputs
+                # land at the chunk's end (no configured event is skipped).
+                q = self.integrator.steps_device(q, c.dt, n)
+                step_id += n
+                t += n * c.dt
+                self._check_finite(q, step_id)
+                self.output.step(q, step_id, t)
+            else:
+                step_id += 1
+                q, t = self.step(q, step_id, t)
             if c.verbose_solver > 0 or step_id % max(1, num_steps // 10) == 0:
                 print(f"Step {step_id}/{self.starting_step + num_steps} (t = {t:.1f} s)", flush=True)
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            _device.synchronize(self.device)
         seconds = time.time() - t_start
         done = step_id - self.starting_step
         rate = done / seconds if seconds > 0 else float("inf")

@@ -23,6 +23,7 @@ import numpy as np
 import scipy.linalg
 import torch
 
+from ..common.device import host_read
 from .stats import PhiStats
 
 
@@ -112,7 +113,7 @@ def kiops(
             ilow = max(0, j - iop)
             h = V[ilow:j, :] @ V[j, :]
             V[j, :] -= h @ V[ilow:j, :]
-            hn = torch.cat([h, torch.dot(V[j, :], V[j, :])[None]]).cpu().numpy()
+            hn = np.asarray(host_read(torch.cat([h, torch.dot(V[j, :], V[j, :])[None]])))
             H[ilow:j, j - 1] = hn[:-1]
 
             nrm = math.sqrt(hn[-1])
