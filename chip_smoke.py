@@ -81,7 +81,38 @@ and drives the port's two main paths, shallow water and 3D Euler:
 16. time per call at 20x20x3, s=3 (CUDA events, median), f64 and f32, of the
     perturbation tangent kernel, its plain version, its glue and the
     perturbation RHS kernel beside their bounds, and of one Arnoldi
-    iteration of each kiops_jit variant (a 64-iteration cycle).
+    iteration of each kiops_jit variant (a 64-iteration cycle);
+17. the SW operator's perturbation mode (RHS rhs0 + delta, stages of deltas,
+    emitted delta traces), the halo kernel and the edge-trace kernel against
+    their plain versions at the shapes of phase 1 and (8,4), (32,4), (64,4),
+    f64 and f32 (rows in build/chip_smoke/phase17.json), and the whole-run
+    kernel at (32,4) and (64,4), 1-3 steps, absolute and perturbation form,
+    against the plain loop and, asked bit for bit, the chained per-stage
+    kernels;
+18. GPU against CPU: 10 float64 TVD-RK3 steps of the SW perturbation form
+    at nel=10, s=3, and packed_run at (32,4) for 2 steps (absolute and
+    perturbation), within 1e-10 of each variable's max;
+19. the SW production operating point as bench.py:449-495 drives it: case
+    6, float32, perturbation form around the initial state, at (nel, s, dt,
+    steps) = (10,3,30,200) and (64,3,10,100) chained, and (64,4,30,100) in
+    one packed_run launch beside the same steps chained; each with its
+    grid points/s, launch counts (3 operator and 3 halo launches a step and
+    one edge-trace bootstrap, no plain call; one launch a packed_run),
+    device busy share (from a torch.profiler trace) and device span share
+    (queued behind a sleep kernel, the card's launch gaps included), a
+    finite state, mass drift below float32's machine epsilon, packed_run
+    bit for bit equal to the chained kernels, and the bench's accuracy
+    gate (the f32 perturbation RHS within 5e-3 of the tendency scale of the
+    f64 truth at a 4-step drift state, the f32 absolute error beside it);
+    then a float32, s=4, nel=32 case-6 INI through ``python -m
+    wxfactory_tpu_torch`` for 50 steps with its launches counted;
+20. time per call (the card's time, calls queued behind a sleep kernel
+    between two CUDA events; and CUDA events around single calls, median),
+    f64 and f32, beside the bounds: the operator (absolute RHS) and its
+    perturbation mode (RHS; stage + x + traces) and their plain versions at
+    (64,3), (64,4) and (64,7), the halo kernel against halo_from_traces, the
+    edge-trace kernel against edge_traces, and a packed_run step against a
+    chained step at (64,4).
 
 Each phase prints one JSON line; then the kernels line, the card's
 ``nvidia-smi`` name and power limit, and last the result line. Any failure
@@ -102,6 +133,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SHAPES = [(10, 3), (64, 3), (4, 2), (4, 8), (64, 7)]
+SW_PERT_SHAPES = SHAPES + [(8, 4), (32, 4), (64, 4)]
+KERNEL_SOURCES = ["sw_operator", "euler3d_operator", "sw_run"]
 E3_SHAPES = [(3, 2, 2, 31), (12, 3, 2, 31), (4, 2, 3, 31), (20, 20, 3, 31), (4, 4, 4, 31), (3, 2, 5, 31),
              (2, 2, 6, 31), (4, 2, 3, 77)]
 E3_MAIN = (20, 20, 3)
@@ -199,7 +232,8 @@ def ptxas_summary(log: str):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(sw_operator|euler3d_operator|euler3d_tangent)_kernelI([df])Li(\d+)E(Lb([01]))?", m.group(1))
+            k = re.search(r"(sw_operator|sw_run|sw_edges|euler3d_operator|euler3d_tangent)_kernelI([df])Li(\d+)E"
+                          r"(Lb([01]))?", m.group(1))
             current = {"kernel": f"{k.group(1)} {'f64' if k.group(2) == 'd' else 'f32'} s={k.group(3)}"
                        + (" pert" if k.group(5) == "1" else "") if k else m.group(1)}
             rows.append(current)
@@ -223,11 +257,10 @@ def phase0(torch, smi):
     nvcc = subprocess.run([build.nvcc_path(), "--version"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()
     t0 = time.perf_counter()
-    build.build_all(["sw_operator", "euler3d_operator"])
+    build.build_all(KERNEL_SOURCES)
     seconds = time.perf_counter() - t0
     WORK.mkdir(parents=True, exist_ok=True)
-    info = {name: build.build_info.get(name, {"seconds": 0.0, "log": ""})
-            for name in ("sw_operator", "euler3d_operator")}
+    info = {name: build.build_info.get(name, {"seconds": 0.0, "log": ""}) for name in KERNEL_SOURCES}
     (WORK / "ptxas.log").write_text("".join(i["log"] for i in info.values()))
     emit({
         "phase": 0, "gpu": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -282,6 +315,7 @@ def reset_counts():
     from wxfactory_tpu_torch.solvers import matvec
 
     swop.launches = e3op.launches = e3op.tangent_launches = e3op.plain_tangent_calls = 0
+    swop.pert_launches = swop.edge_launches = swop.halo_launches = swop.run_launches = swop.plain_calls = 0
     e3op.pert_launches = e3op.pert_tangent_launches = 0
     matvec.jacobian_actions = device.host_syncs = 0
 
@@ -292,7 +326,9 @@ def read_counts():
     from wxfactory_tpu_torch.ops import sw_operator as swop
     from wxfactory_tpu_torch.solvers import matvec
 
-    return {"sw_operator": swop.launches, "euler3d_operator": e3op.launches,
+    return {"sw_operator": swop.launches, "sw_pert": swop.pert_launches, "sw_edges": swop.edge_launches,
+            "sw_halo": swop.halo_launches, "sw_run": swop.run_launches, "sw_plain_calls": swop.plain_calls,
+            "euler3d_operator": e3op.launches,
             "euler3d_tangent": e3op.tangent_launches, "euler3d_pert": e3op.pert_launches,
             "euler3d_pert_tangent": e3op.pert_tangent_launches, "plain_tangent_calls": e3op.plain_tangent_calls,
             "jacobian_actions": matvec.jacobian_actions, "host_syncs": device.host_syncs}
@@ -957,6 +993,350 @@ def phase16(torch, smi):
     return rows[1]
 
 
+def phase17(torch):
+    """The SW perturbation mode, halo and edge-trace kernels against their
+    plain versions; the whole-run kernel against its plain loop and the
+    chained per-stage kernels."""
+    from wxfactory_tpu_torch.kernels.check import compare_sw_edges, compare_sw_halo, compare_sw_pert, compare_sw_run
+
+    rows = []
+    for nel, s in SW_PERT_SHAPES:
+        for dtype in (torch.float64, torch.float32):
+            rows += compare_sw_pert(nel, s, dtype, device="cuda")
+            rows += compare_sw_halo(nel, s, dtype, device="cuda") + compare_sw_edges(nel, s, dtype, device="cuda")
+    runs = [compare_sw_run(nel, dtype, nsteps, pert, device="cuda")
+            for nel in (32, 64) for dtype in (torch.float64, torch.float32)
+            for pert in (False, True) for nsteps in (1, 2, 3)]
+    emit_comparison(17, rows + runs, ("nel", "s"))
+    keys = ("nel", "dtype", "mode", "nsteps", "err", "plain_err", "chain_err", "chain_max_abs_err", "bit_identical",
+            "tol", "ok")
+    emit({"phase": "17_whole_run", "ok": all(r["ok"] for r in runs),
+          "bit_identical": sum(r["bit_identical"] for r in runs), "runs": len(runs),
+          "results": [{k: r[k] for k in keys if k in r} for r in runs]})
+    bad = [r for r in rows + runs if not r["ok"]]
+    if bad:
+        raise AssertionError(f"SW kernels disagree with their plain versions: {bad}")
+    main = lambda rs, mode: max(r["max_abs_err"] for r in rs
+                                if (r["nel"], r["s"], r["dtype"]) == (64, 4, "float32") and r["mode"].startswith(mode))
+    return {"sw_pert": main(rows, "pert_"), "sw_halo": main(rows, "halo"), "sw_edges": main(rows, "edges"),
+            "sw_run": main(runs, "run_pert")}
+
+
+def phase18(torch):
+    """GPU against CPU: the SW perturbation form through Tvdrk3, and
+    packed_run, float64."""
+    from wxfactory_tpu_torch.integrators import Tvdrk3
+    from wxfactory_tpu_torch.kernels.check import sw_delta, sw_setup
+    from wxfactory_tpu_torch.models import ShallowWaterRHS
+    from wxfactory_tpu_torch.ops.sw_operator import tvdrk3_abc
+
+    def scaled(got, want):
+        scale = want.abs().reshape(3, -1).amax(dim=1).reshape(3, 1, 1, 1, 1)
+        return float(((got - want).abs() / scale).max())
+
+    results = []
+    geom, ops, metric, topology, q0 = sw_setup(10, 3)
+    states = {}
+    for device in ("cuda", "cpu"):
+        rhs = ShallowWaterRHS(geom, ops, metric, device=device, topology=topology, perturbation_base=q0)
+        integ, q = Tvdrk3(rhs), torch.as_tensor(q0, device=device)
+        for _ in range(10):
+            q = integ.step(q, 30.0)
+        states[device] = q.cpu()
+    results.append({"run": "tvdrk3_perturbation", "nel": 10, "s": 3, "steps": 10, "dt": 30.0,
+                    "err": scaled(states["cuda"], states["cpu"])})
+    geom, ops, metric, topology, q0 = sw_setup(32, 4)
+    for pert in (False, True):
+        for device in ("cuda", "cpu"):
+            rhs = ShallowWaterRHS(geom, ops, metric, device=device, topology=topology,
+                                  perturbation_base=q0 if pert else None)
+            q = torch.as_tensor(q0 + sw_delta(q0) if pert else q0, device=device)
+            states[device] = rhs.unpack(rhs.packed_run(rhs.pack(q), 2, tvdrk3_abc(30.0))).cpu()
+        results.append({"run": "packed_run_perturbation" if pert else "packed_run", "nel": 32, "s": 4, "steps": 2,
+                        "dt": 30.0, "err": scaled(states["cuda"], states["cpu"])})
+    ok = all(r["err"] <= 1e-10 for r in results)
+    emit({"phase": 18, "dtype": "float64", "tol": 1e-10, "ok": ok, "results": results})
+    if not ok:
+        raise AssertionError(f"GPU and CPU SW runs differ: {results}")
+
+
+# (nel, s, dt, steps, packed_run): bench.py:1021-1027's three SW operating points.
+PRODUCTION = [(10, 3, 30.0, 200, False), (64, 3, 10.0, 100, False), (64, 4, 30.0, 100, True)]
+GATE_REL = 5e-3  # bench.py:309
+# Mass of a float32 state conserved to float32 round-off: its machine epsilon.
+MASS_DRIFT_F32 = 2.0**-23
+
+CASE6_F32_S4_INI = CASE6_INI.replace("precision = float64", "precision = float32").replace(
+    "num_solpts = 3", "num_solpts = 4")
+
+
+def _sw_gate(torch, nel, s, topology, geom, ops, metric, q0, rhs32):
+    """bench.py:425-446: the f32 perturbation RHS against the f64 kernel
+    truth at the initial state advanced four f64 TVD-RK3 steps of dt = 150
+    (10/nel)(3/s), scaled by each variable's max tendency; the f32 absolute
+    kernel's error beside it."""
+    from wxfactory_tpu_torch.kernels.check import _scaled, per_variable_max
+    from wxfactory_tpu_torch.models import ShallowWaterRHS
+
+    rhs64 = ShallowWaterRHS(geom, ops, metric, device="cuda", topology=topology)
+    dt = 150.0 * (10.0 / nel) * (3.0 / s)
+    q = torch.as_tensor(q0, device="cuda")
+    for _ in range(4):
+        k1 = q + dt * rhs64(q)
+        k2 = 0.75 * q + 0.25 * (k1 + dt * rhs64(k1))
+        q = q / 3.0 + 2.0 / 3.0 * (k2 + dt * rhs64(k2))
+    truth = rhs64(q)
+    scale = per_variable_max(truth)
+    err = _scaled(rhs32.delta((q - rhs32.base_state.double()).float()).double() - truth, scale)
+    abs32 = ShallowWaterRHS(geom, ops, metric, dtype=torch.float32, device="cuda", topology=topology)
+    return err, _scaled(abs32(q.float()).double() - truth, scale)
+
+
+def _sw_production(torch, nel, s, dt, nsteps, packed):
+    """One SW operating point: f32 perturbation form around case 6's
+    initial state, ``nsteps`` chained TVD-RK3 steps (and, with ``packed``,
+    the same steps in one packed_run launch)."""
+    from wxfactory_tpu_torch.integrators import Tvdrk3
+    from wxfactory_tpu_torch.kernels.check import sw_setup
+    from wxfactory_tpu_torch.models import ShallowWaterRHS
+    from wxfactory_tpu_torch.ops.sw_operator import tvdrk3_abc
+    from wxfactory_tpu_torch.output.diagnostics import global_integral_2d
+    from wxfactory_tpu_torch.profile import profile_calls
+
+    geom, ops, metric, topology, q0 = sw_setup(nel, s)
+    t0 = time.perf_counter()
+    rhs = ShallowWaterRHS(geom, ops, metric, dtype=torch.float32, device="cuda", topology=topology,
+                          perturbation_base=q0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    gate, gate_abs = _sw_gate(torch, nel, s, topology, geom, ops, metric, q0, rhs)
+    if not gate < GATE_REL:
+        raise AssertionError(f"f32 perturbation RHS {gate} of the tendency scale from the f64 truth at "
+                             f"({nel},{s}), gate {GATE_REL}")
+    q_init = torch.as_tensor(q0, dtype=torch.float32, device="cuda")
+    mass = lambda q: global_integral_2d(q[0].double().cpu().numpy(), ops, metric)
+    mass0 = mass(q_init)
+    points = 6 * nel * nel * s * s
+
+    def chained():
+        integ, q = Tvdrk3(rhs), q_init
+        for _ in range(nsteps):
+            q = integ.step(q, dt)
+        return q, integ
+
+    def check_state(q, what):
+        if not bool(torch.isfinite(q).all()):
+            raise AssertionError(f"{what} at ({nel},{s}) is not finite")
+        drift = (mass(q) - mass0) / mass0
+        if not abs(drift) < MASS_DRIFT_F32:
+            raise AssertionError(f"{what} at ({nel},{s}): mass drift {drift}, limit {MASS_DRIFT_F32}")
+        return drift
+
+    def busy(fn, run_s):
+        """The card's busy share of ``fn`` from a torch.profiler trace
+        (None where the trace holds no device event), and its device span
+        share: the same calls queued behind a sleep kernel, which also
+        counts the card's gaps between dependent launches."""
+        prof = profile_calls(fn)
+        share = prof["device_busy_share"] if prof["device_ops"] > 0 else None
+        return share, _device_ms(torch, fn, 1) * 1e-3 / run_s, prof
+
+    Tvdrk3(rhs).step(q_init, dt)  # first launches (library load) outside the timed run
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    q, integ = chained()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = read_counts()
+    want = {"sw_pert": 3 * nsteps, "sw_halo": 3 * nsteps, "sw_edges": 1, "sw_operator": 0, "sw_run": 0,
+            "sw_plain_calls": 0}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"chained run at ({nel},{s}): launches {got}, expected {want}")
+    row = {"case": 6, "nel": nel, "s": s, "points": points, "dtype": "float32", "form": "perturbation",
+           "integrator": "tvdrk3", "dt": dt, "steps": nsteps, "setup_s": setup_s, "chained_s": elapsed,
+           "chained_gridpoints_per_s": points * 3 * nsteps / elapsed, "chained_steps_per_s": nsteps / elapsed,
+           "chained_launches": got, "chained_mass_drift": check_state(q, "chained state"),
+           "gate_err": gate, "gate_err_f32_absolute": gate_abs, "gate": GATE_REL}
+    row["chained_device_busy_share"], row["chained_device_span_share"], prof = busy(chained, elapsed)
+    row["chained_device_ops_per_step"] = prof["device_ops"] / nsteps
+    row["chained_kernels_us"] = prof["kernels_us"][:4]
+    launches = dict(got)
+    if packed:
+        abc = tvdrk3_abc(dt)
+        qp = rhs.pack(q_init)
+        rhs.packed_run(qp, 1, abc)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = rhs.packed_run(qp, nsteps, abc)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        counts = read_counts()
+        want = {"sw_run": 1, "sw_pert": 0, "sw_halo": 0, "sw_edges": 0, "sw_operator": 0, "sw_plain_calls": 0}
+        got = {k: counts[k] for k in want}
+        if got != want:
+            raise AssertionError(f"packed_run at ({nel},{s}): launches {got}, expected {want}")
+        launches["sw_run"] = 1
+        chain_out = integ._cache[1]
+        if not torch.equal(out, chain_out):
+            raise AssertionError(f"packed_run at ({nel},{s}) differs from the chained kernels by up to "
+                                 f"{float((out - chain_out).abs().max())}; the two are bit for bit equal")
+        share, span, _ = busy(lambda: rhs.packed_run(qp, nsteps, abc), elapsed)
+        row.update({
+            "packed_run_s": elapsed, "packed_run_gridpoints_per_s": points * 3 * nsteps / elapsed,
+            "packed_run_steps_per_s": nsteps / elapsed, "packed_run_launches": got,
+            "packed_run_mass_drift": check_state(rhs.unpack(out), "packed_run state"),
+            "packed_run_bit_identical_to_chain": True,
+            "packed_run_device_busy_share": share, "packed_run_device_span_share": span,
+        })
+    return row, launches
+
+
+def phase19(torch):
+    from wxfactory_tpu_torch import __main__ as cli
+
+    rows, totals = [], {}
+    for point in PRODUCTION:
+        row, launches = _sw_production(torch, *point)
+        rows.append(row)
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+
+    # The port's Simulation at float32, s=4 (absolute form, as the JAX
+    # Simulation runs it): operator, halo and edge-trace kernels.
+    nsteps, nel = 50, 32
+    out_dir = WORK / "phase19_sim"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for old in glob.glob(str(out_dir / "state_vector_*")):
+        Path(old).unlink()
+    ini = WORK / "case6_f32_s4_nel32.ini"
+    ini.write_text(CASE6_F32_S4_INI.format(dt=30, t_end=30 * nsteps, nel=nel, save=nsteps, out=out_dir))
+    log = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(log):
+        rc = cli.main([str(ini), "--device", "cuda"])
+    counts = read_counts()
+    text = log.getvalue()
+    want = {"sw_operator": 3 * nsteps, "sw_halo": 3 * nsteps, "sw_edges": 1, "sw_pert": 0, "sw_run": 0,
+            "sw_plain_calls": 0}
+    got = {k: counts[k] for k in want}
+    run = re.search(r"Completed (\d+) steps in (\S+) s \((\S+) steps/s\)", text)
+    drifts = [float(v) for v in re.findall(r"normalized error for mass = (\S+)", text)]
+    if rc != 0 or run is None or got != want:
+        raise AssertionError(f"f32 s=4 CLI run exited with {rc}, launches {got}, expected {want}")
+    sim = {"case": 6, "nel": nel, "s": 4, "dtype": "float32", "form": "absolute", "integrator": "tvdrk3",
+           "dt": 30.0, "steps": int(run.group(1)), "steps_per_s": float(run.group(3)), "launches": got,
+           "mass_drift": drifts[-1] if drifts else None}
+    for k in ("sw_halo", "sw_edges"):
+        totals[k] = totals.get(k, 0) + got[k]
+    emit({"phase": 19, "results": rows, "simulation": sim, "launches_total": totals})
+    return totals
+
+
+def _device_ms(torch, fn, n):
+    """The card's time a call of ``fn``: ``n`` calls queued behind a sleep
+    kernel that outlasts the host's enqueueing of them, timed by two CUDA
+    events, so the host's time between launches does not count (a single
+    call between two events measures the host for kernels this short)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(4e9 * host_s) + 2_000_000)  # cycles: twice the host time at up to 2 GHz
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def _pair_ms(torch, kernel, plain, n=10, n_plain=5):
+    """A kernel call and its plain version: the card's time a call
+    (``_device_ms``) and the median time of single calls between two CUDA
+    events, in turns (plain, kernel, kernel, plain), which includes what the
+    host adds between the events."""
+    for fn in (kernel, plain):
+        for _ in range(2):
+            fn()
+    torch.cuda.synchronize()
+    k, p = [], []
+    for fn, times, count in ((plain, p, n_plain), (kernel, k, n), (kernel, k, n), (plain, p, n_plain)):
+        times.extend(_event_times(torch, fn, n=count))
+    return {"kernel_ms": _device_ms(torch, kernel, n), "plain_ms": _device_ms(torch, plain, n_plain),
+            "kernel_event_ms": statistics.median(k), "plain_event_ms": statistics.median(p)}
+
+
+RUN_STEPS = 20
+
+
+def phase20(torch, smi):
+    from wxfactory_tpu_torch.kernels import check
+    from wxfactory_tpu_torch.ops import sw_operator as swop
+
+    def bound(work, dtype):
+        nbytes, ops = work
+        b = {"bytes": nbytes / PEAK_BYTES * 1e3, "operations": ops / PEAK_FLOPS[dtype] * 1e3}
+        return {"bytes": nbytes, "ops": ops, "bound_ms": max(b.values()), "bound_by": max(b, key=b.get)}
+
+    rows = []
+    for nel, s in ((64, 3), (64, 4), (64, 7)):
+        for dtype in (torch.float64, torch.float32):
+            name = str(dtype).replace("torch.", "")
+            con, topology, base, dq, x = check.sw_pert_inputs(nel, s, dtype, "cuda")
+            traces = swop.sw_edges(dq, con)
+            halo = swop.sw_halo(traces, topology)
+            qa = (base.q0 + dq).contiguous()
+            halo_a = swop.sw_halo(swop.sw_edges(qa, con), topology)
+            stage = dict(x=x, a=0.75, b=0.25, cdt=7.5, emit_traces=True)
+            row = {"nel": nel, "s": s, "dtype": name}
+            pairs = {
+                "rhs": (lambda: swop.sw_operator(qa, halo_a, con), lambda: swop.sw_operator_plain(qa, halo_a, con),
+                        check.sw_work(nel, s, dtype)),
+                "pert_rhs": (lambda: swop.sw_operator(dq, halo, con, base=base),
+                             lambda: swop.sw_operator_pert_plain(dq, halo, con, base),
+                             check.sw_pert_work(nel, s, dtype)),
+                "pert_stage_traces": (lambda: swop.sw_operator(dq, halo, con, base=base, **stage),
+                                      lambda: swop.sw_operator_pert_plain(dq, halo, con, base, **stage),
+                                      check.sw_pert_work(nel, s, dtype, stage=True, use_x=True, traces=True)),
+                "halo": (lambda: swop.sw_halo(traces, topology), lambda: swop.halo_from_traces(traces, topology),
+                         check.sw_halo_work(nel, s, dtype)),
+                "edges": (lambda: swop.sw_edges(dq, con), lambda: swop.edge_traces(dq, con),
+                          check.sw_edges_work(nel, s, dtype)),
+            }
+            if s == 4:
+                abc = swop.tvdrk3_abc(30.0)
+                pairs[f"run_{RUN_STEPS}_steps"] = (
+                    lambda: swop.sw_run(dq, RUN_STEPS, abc, con, topology, base=base),
+                    lambda: swop.sw_run_plain(dq, RUN_STEPS, abc, con, topology, base=base),
+                    check.sw_run_work(nel, s, dtype, RUN_STEPS, pert=True))
+
+                def chained_step():
+                    return swop.sw_chain(dq, 1, abc, con, topology, base=base, traces=traces)
+
+                for _ in range(3):
+                    chained_step()
+                row["chained_step_event_ms"] = statistics.median(_event_times(torch, chained_step, n=20))
+                row["chained_step_ms"] = _device_ms(torch, chained_step, 10)
+            for mode, (kernel, plain, work) in pairs.items():
+                slow = mode.startswith("run")
+                times = _pair_ms(torch, kernel, plain, n=5 if slow else 10, n_plain=2 if slow else 5)
+                row.update({f"{mode}_{key}": v for key, v in times.items()})
+                row.update({f"{mode}_{key}": v for key, v in bound(work, name).items()})
+            if s == 4:
+                row["run_ms_per_step"] = row[f"run_{RUN_STEPS}_steps_kernel_ms"] / RUN_STEPS
+                row["run_event_ms_per_step"] = row[f"run_{RUN_STEPS}_steps_kernel_event_ms"] / RUN_STEPS
+            rows.append(row)
+    emit({"phase": 20, "gpu": smi, "timing": "*_ms: the card's time a call (calls queued behind a sleep kernel, "
+          "CUDA events); *_event_ms: CUDA events around single calls, median", "results": rows})
+    return next(r for r in rows if (r["nel"], r["s"], r["dtype"]) == (64, 4, "float32"))
+
+
 def sw_bound():
     import torch
 
@@ -999,8 +1379,16 @@ def main() -> int:
     phase14(torch)
     pert_launches = phase15(torch)
     pert_timing = phase16(torch, smi)
+    sw_errs = phase17(torch)
+    phase18(torch)
+    sw_counts = phase19(torch)
+    swt = phase20(torch, smi)
     sw_bound_ms, sw_bound_by = sw_bound()
-    emit({"kernels": [
+    sw_entry = lambda name, mode, replaces, source="wxfactory_tpu_torch/csrc/sw_operator.cu": {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": sw_counts[name],
+        "max_abs_err": sw_errs[name], "ms": swt[f"{mode}_kernel_ms"], "plain_ms": swt[f"{mode}_plain_ms"],
+        "bound_ms": swt[f"{mode}_bound_ms"], "bound_by": swt[f"{mode}_bound_by"], "library_ms": None}
+    kernels = [
         {"name": "sw_operator", "route": "cuda", "source": "wxfactory_tpu_torch/csrc/sw_operator.cu",
          "replaces": "wxfactory_tpu/ops/pallas_sw_gen.py:632", "launches": sw_launches,
          "max_abs_err": sw_err, "ms": sw_timing["kernel_rhs_ms"], "plain_ms": sw_timing["plain_rhs_ms"],
@@ -1019,7 +1407,16 @@ def main() -> int:
          "max_abs_err": pert_err, "ms": pert_timing["pert_tangent_kernel_ms"],
          "plain_ms": pert_timing["pert_tangent_plain_ms"], "bound_ms": pert_timing["pert_tangent_bound_ms"],
          "bound_by": pert_timing["pert_tangent_bound_by"], "library_ms": None},
-    ]})
+        sw_entry("sw_pert", "pert_stage_traces", "wxfactory_tpu/ops/pallas_sw_gen.py:632 (perturbation mode)"),
+        sw_entry("sw_halo", "halo", "wxfactory_tpu/ops/pallas_sw.py:374"),
+        sw_entry("sw_edges", "edges", "wxfactory_tpu/ops/pallas_sw.py:258"),
+        sw_entry("sw_run", f"run_{RUN_STEPS}_steps", "wxfactory_tpu/ops/pallas_sw.py:1100",
+                 "wxfactory_tpu_torch/csrc/sw_run.cu"),
+    ]
+    unmeasured = [k["name"] for k in kernels if not (k["ms"] > 0 and k["plain_ms"] > 0 and k["launches"] > 0)]
+    if unmeasured:
+        raise AssertionError(f"kernels without a time, a plain time or a launch on the main path: {unmeasured}")
+    emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -58,6 +58,6 @@ def test_chained_traces_equal_fresh_bootstrap():
     rhs = interop.shallow_water_rhs(geom, ops, metric)
     integ = Tvdrk3(rhs)
     q = integ.step(interop.to_tensor(williamson_case6(geom)), 30.0)
-    cached_q, cached_traces = integ._cache
-    assert cached_q is q
+    cached_q, cached_packed, cached_traces = integ._cache
+    assert cached_q is q and cached_packed is q  # absolute form: pack is the identity
     torch.testing.assert_close(cached_traces, rhs.traces(q), rtol=1e-13, atol=0)

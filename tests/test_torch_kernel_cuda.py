@@ -1,4 +1,5 @@
-"""The port's CUDA kernels (SW operator, 3D Euler operator, its tangent
+"""The port's CUDA kernels (SW operator and its perturbation mode, the SW
+halo, edge-trace and whole-run kernels, 3D Euler operator, its tangent
 mode and the perturbation form of both) against their plain torch versions, on the card. Needs a CUDA device and nvcc, and skips without them. On a GPU
 machine run it without tests/conftest.py (which configures JAX):
 
@@ -15,11 +16,16 @@ from wxfactory_tpu_torch.kernels.check import (
     compare_euler3d_operator,
     compare_euler3d_pert,
     compare_euler3d_tangent,
+    compare_sw_edges,
+    compare_sw_halo,
     compare_sw_operator,
+    compare_sw_pert,
+    compare_sw_run,
     euler3d_inputs,
     euler3d_pert_inputs,
     euler3d_tangent_inputs,
     pert_halos,
+    sw_pert_inputs,
     tangent_halos,
 )
 from wxfactory_tpu_torch.ops import euler3d_operator as e3op
@@ -108,3 +114,39 @@ def test_euler3d_pert_counters_count_kernel_launches_only(cuda):
     e3op.euler3d_tangent(dq, v, halo_dq, halo_v, con, pert=pert)
     torch.cuda.synchronize()
     assert counts() == before[:2] + (before[2] + 1, before[3] + 1, before[4] + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("nel,s", [(4, 2), (5, 3), (8, 4), (3, 8)])
+def test_sw_pert_kernel_matches_plain(cuda, nel, s, dtype):
+    rows = compare_sw_pert(nel, s, dtype, device="cuda")
+    assert all(r["ok"] for r in rows), rows
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("nel,s", [(4, 2), (5, 3), (32, 4), (3, 8)])
+def test_sw_halo_and_edge_kernels_match_plain(cuda, nel, s, dtype):
+    rows = compare_sw_halo(nel, s, dtype, device="cuda") + compare_sw_edges(nel, s, dtype, device="cuda")
+    assert all(r["ok"] for r in rows), rows
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("pert", [False, True], ids=["absolute", "perturbation"])
+def test_sw_run_kernel_matches_plain_and_chain(cuda, pert, dtype):
+    row = compare_sw_run(32, dtype, 2, pert, device="cuda")
+    assert row["ok"], row
+
+
+def test_sw_counters_count_kernel_launches_only(cuda):
+    con, topology, base, dq, x = sw_pert_inputs(8, 4, torch.float64, "cuda")
+    counts = lambda: (swop.launches, swop.pert_launches, swop.edge_launches, swop.halo_launches,
+                      swop.run_launches)
+    before, plain = counts(), swop.plain_calls
+    swop.sw_run_plain(dq, 1, swop.tvdrk3_abc(30.0), con, topology, base=base)
+    assert counts() == before and swop.plain_calls > plain
+    plain = swop.plain_calls
+    swop.sw_chain(dq, 1, swop.tvdrk3_abc(30.0), con, topology, base=base)
+    swop.sw_run(dq, 1, swop.tvdrk3_abc(30.0), con, topology, base=base)
+    torch.cuda.synchronize()
+    assert counts() == (before[0], before[1] + 3, before[2] + 1, before[3] + 3, before[4] + 1)
+    assert swop.plain_calls == plain

@@ -5,9 +5,15 @@ integrators/euler1.py and tvdrk3.py) for an RHS with the fused stage API
 (``stage`` / ``traces``: the shallow-water and 3D Euler operators): a step
 is one operator launch per RK stage. Each stage computes ``a*q0 + b*y + c*dt*RHS(y)`` and
 emits its output's panel-edge traces, which the next stage — and the next
-step — consumes, so only the first step bootstraps traces. The chained
-traces ride along in a one-entry cache keyed on the identity of the last
-returned state.
+step — consumes, so only the first step bootstraps traces.
+
+As the JAX package's ``_PackedChain`` (integrators/explicit.py:38-100
+there), the stages run on the RHS's packed state (``rhs.pack``: the
+perturbation q - q0 in the shallow-water perturbation form, the state itself
+otherwise) and every step returns ``rhs.unpack`` of it in the model layout.
+The packed twin and its traces ride along in a one-entry cache keyed on the
+identity of the last returned state, so a run packs once, at its first step,
+and a float32 run never re-quantises the absolute state into the delta.
 """
 
 from .base import Integrator, SolverInfo
@@ -22,19 +28,22 @@ class _StageChain(Integrator):
     def __init__(self, rhs, **kwargs) -> None:
         super().__init__(**kwargs)
         self.rhs = rhs
-        self._cache = None  # (returned state, its traces)
+        self._cache = None  # (returned state, its packed twin, the twin's traces)
 
     def __step__(self, q, dt):
+        rhs = self.rhs
         if self._cache is not None and self._cache[0] is q:
-            traces = self._cache[1]
+            qp, traces = self._cache[1], self._cache[2]
         else:
-            traces = self.rhs.traces(q)
-        y = q
+            qp = rhs.pack(q)
+            traces = rhs.traces(qp)
+        y = qp
         for a, b, c in self.stages:
-            y, traces = self.rhs.stage(q, y, a, b, c * dt, traces)
-        self._cache = (y, traces)
+            y, traces = rhs.stage(qp, y, a, b, c * dt, traces)
+        out = rhs.unpack(y)
+        self._cache = (out, y, traces)
         self.solver_info = SolverInfo(total_num_it=1)
-        return y
+        return out
 
 
 class Euler1(_StageChain):

@@ -31,10 +31,12 @@ def sw_constants(ops, metric, nel: int, device="cpu", dtype=torch.float64) -> SW
     return build_constants(ops, metric, nel, dtype=dtype, device=device)
 
 
-def shallow_water_rhs(geom, ops, metric, device="cpu", dtype=torch.float64) -> ShallowWaterRHS:
+def shallow_water_rhs(geom, ops, metric, device="cpu", dtype=torch.float64,
+                      perturbation_base=None) -> ShallowWaterRHS:
     """The port's SW RHS on a geometry, operators and metric built by
-    either package."""
-    return ShallowWaterRHS(geom, ops, metric, dtype=dtype, device=device)
+    either package (``perturbation_base``: the base state q0 of the
+    perturbation form, a numpy array as the JAX factory takes it)."""
+    return ShallowWaterRHS(geom, ops, metric, dtype=dtype, device=device, perturbation_base=perturbation_base)
 
 
 def euler3d_constants(ops, metric, nel_h: int, nel_v: int, device="cpu",

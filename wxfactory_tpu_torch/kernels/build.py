@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 for Hopper (``sm_90a``) into ``build/kernels/lib<name>-<hash>.so`` at the
-root of the checkout (git-ignored); the hash of the source names the
-library, so an edited source rebuilds. A missing ``nvcc`` or a failed build
+root of the checkout (git-ignored); the hash of the source and of the
+headers in ``csrc/`` names the library, so an edited source rebuilds. A missing ``nvcc`` or a failed build
 raises: no caller falls back to plain code.
 """
 
@@ -31,11 +31,26 @@ SIGNATURES = {
         "sw_operator_launch": (
             _I,
             [_I, _I, _I]  # is_f64, s, nel
-            + [_P] * 10  # q, halo, ops, fields, gridrot, itf_x, itf_y, x, out, traces
+            # q, halo, ops, fields, gridrot, itf_x, itf_y, x, q0, u0, itf0, halo0, rhs0, out, traces
+            + [_P] * 15
             + [_D, _D, _D, _I]  # a, b, cdt, stage
             + [_P],  # stream
         ),
+        "sw_edges_launch": (_I, [_I, _I, _I] + [_P] * 3 + [_P]),  # is_f64, s, nel, q, ops, traces, stream
+        # is_f64, npts, traces, src, flip, conv, halo, stream
+        "sw_halo_launch": (_I, [_I, _I] + [_P] * 5 + [_P]),
         "sw_operator_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "sw_run": {
+        "sw_run_launch": (
+            _I,
+            [_I, _I, _I]  # is_f64, s, nel
+            # q, ops, fields, gridrot, itf_x, itf_y, q0, u0, itf0, halo0, rhs0, src, flip, conv,
+            # out, buf1, buf2, tr0, tr1, abc (9 host doubles)
+            + [_P] * 20
+            + [_I, _P],  # nsteps, stream
+        ),
+        "sw_run_error_string": (ctypes.c_char_p, [_I]),
     },
     "euler3d_operator": {
         "euler3d_operator_launch": (
@@ -75,7 +90,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

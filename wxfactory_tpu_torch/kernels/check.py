@@ -150,19 +150,68 @@ def compare_sw_operator(nel: int, s: int, dtype, device="cuda", seed: int = 0):
 
 
 def sw_work(nel: int, s: int, dtype, stage: bool = False, use_x: bool = False,
-            traces: bool = False):
+            traces: bool = False, pert: bool = False):
     """(bytes, operations) of one SW operator call: each input read once,
-    each output written once; operations counted from the kernel's
-    algorithm (an add, multiply, divide or sqrt is one), with each face
-    extrapolated once and each interface flux computed once."""
+    each output written once; the operations the function needs (an add,
+    multiply, divide or sqrt is one, a fused multiply-add two), with each
+    face extrapolated once and each interface flux computed once. The
+    extrapolation, derivative and correction matrices are Kronecker
+    products with the identity (``ops/dfr.py``), so they count by their 1D
+    factors: s terms a face point and a derivative, one correction term
+    from each of a node's four faces (the kernel's dense s^2 x s^2 products
+    do s times that). The perturbation form (``pert``) also reads the 14
+    base planes and does the delta expansion (~25 more operations a node,
+    ~50 more an interface point)."""
     n_elem, s2, item = 6 * nel * nel, s * s, torch.finfo(dtype).bits // 8
     state = 3 * n_elem * s2
     words = 2 * state + (state if use_x else 0)  # q, out, x
     words += 13 * nel * nel * s2 + n_elem * s2  # one-panel metric, gridrot
     words += 2 * 3 * nel * (nel + 1) * s + 3 * 4 * 6 * nel * s * (2 if traces else 1)  # itf, halo, traces
-    ops = n_elem * (s2 * (30 + 12 * s2 + 24 * s) + 2 * s * (12 * s2 + 40))
+    node, face = 30, 40
+    if pert:
+        words += 8 * n_elem * s2 + 3 * n_elem * 4 * s + 3 * 4 * 6 * nel * s  # q0, u0, rhs0, itf0, halo0
+        node, face = 55, 90
+    # node: pointwise + 2 derivatives x 3 variables x s fma + 4 faces x 3
+    # variables fma; interface point: 2 sides x 3 variables x s fma + flux
+    ops = n_elem * (s2 * (node + 12 * s + 24) + 2 * s * (12 * s + face))
     ops += n_elem * s2 * 3 * ((2 if stage else 0) + (2 if use_x else 0))
     return words * item, ops
+
+
+def sw_pert_work(nel: int, s: int, dtype, **kw):
+    """``sw_work`` of the perturbation form."""
+    return sw_work(nel, s, dtype, pert=True, **kw)
+
+
+def sw_edges_work(nel: int, s: int, dtype):
+    """(bytes, operations) of the panel-edge traces of a state: the edge
+    elements' nodes (4 nel - 4 elements a panel) and EE read, the traces
+    written; s fused multiply-adds (two operations each) a trace point, by
+    EE's 1D factor (the kernel's dense product does s^2)."""
+    s2, item, npts = s * s, torch.finfo(dtype).bits // 8, 3 * 24 * nel * s
+    words = 3 * 6 * (4 * nel - 4) * s2 + 4 * s * s2 + npts
+    return words * item, 2 * s * npts
+
+
+def sw_halo_work(nel: int, s: int, dtype):
+    """(bytes, operations) of the halo exchange: traces read, the four
+    rotation coefficients of each edge point read, the halo written (the
+    24-row tables are negligible); the 2x2 rotation is 6 operations an edge
+    point."""
+    npts, item = 24 * nel * s, torch.finfo(dtype).bits // 8
+    return (3 + 4 + 3) * npts * item, 6 * npts
+
+
+def sw_run_work(nel: int, s: int, dtype, nsteps: int, pert: bool = False):
+    """(bytes, operations) of ``nsteps`` whole TVD-RK3 steps in one call:
+    the input state and the constants (and base planes) read once, the
+    result written once — everything in between is the run's own — and
+    3 nsteps stages of operator work (with the x term in two of three) and
+    halo work."""
+    nbytes, _ = sw_work(nel, s, dtype, pert=pert)
+    ops = nsteps * (sum(sw_work(nel, s, dtype, stage=True, use_x=k > 0, traces=True, pert=pert)[1]
+                        for k in range(3)) + 3 * sw_halo_work(nel, s, dtype)[1])
+    return nbytes, ops
 
 
 def euler3d_work(con, stage: bool = False, use_x: bool = False, use_bal: bool = False,
@@ -469,3 +518,177 @@ def euler3d_pert_work(con, tangent: bool = False):
     else:
         per_elem = s3 * (330 + 40 * s) + 6 * s2 * 2 * (10 * s + 4) + 3 * s2 * 200
     return words * item, n_elem * per_elem
+
+
+# ---------------------------------------------------------------------------
+# Shallow water: perturbation form, halo and edge-trace kernels, whole runs
+
+SW_PERT_TOLERANCE = {torch.float64: 1e-12, torch.float32: 1e-5}
+GLUE_TOLERANCE = {torch.float64: 1e-14, torch.float32: 1e-6}
+
+
+@functools.lru_cache(maxsize=None)
+def sw_setup(nel: int, s: int):
+    """(geom, ops, metric, topology, q0) of Williamson case 6 (host float64;
+    cached)."""
+    geom = make_cubed_sphere_2d(nel, s)
+    metric = make_metric_2d(geom)
+    return geom, make_dfr_operators(s), metric, CubedSphereTopology(geom), williamson_case6(geom)
+
+
+def sw_delta(q0: np.ndarray) -> np.ndarray:
+    """The perturbation of the JAX perturbation tests, 1e-3 q0 sin(0.37 k)
+    (tests/test_pallas_gen.py:111): it moves face Mach numbers across zero
+    where the base's are near it."""
+    return 1e-3 * q0 * np.sin(np.arange(q0.size).reshape(q0.shape) * 0.37)
+
+
+def sw_pert_inputs(nel: int, s: int, dtype, device, seed: int = 0):
+    """(con, topology, base, dq, x): the case-6 perturbation base (built in
+    float64 on ``device``, cast to ``dtype``), dq = ``sw_delta(q0)`` and a
+    second perturbation x (seeded noise of 1e-3 relative), both in
+    ``dtype``."""
+    geom, ops, metric, topology, q0 = sw_setup(nel, s)
+    con = swop.build_constants(ops, metric, nel, dtype=dtype, device=device)
+    con64 = swop.build_constants(ops, metric, nel, dtype=torch.float64, device=device)
+    base = swop.build_base_planes(torch.as_tensor(q0), con64, topology, dtype)
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return con, topology, base, t(sw_delta(q0)), t(1e-3 * q0 * rng.standard_normal(q0.shape))
+
+
+def _sw_pert_modes(x):
+    return {
+        "rhs": dict(),
+        "stage": dict(a=0.0, b=1.0, cdt=DT),
+        "stage_x": dict(x=x, a=0.75, b=0.25, cdt=0.25 * DT),
+        "stage_x_traces": dict(x=x, a=1.0 / 3.0, b=2.0 / 3.0, cdt=(2.0 / 3.0) * DT, emit_traces=True),
+    }
+
+
+def compare_sw_pert(nel: int, s: int, dtype, device="cuda", seed: int = 0):
+    """The operator's perturbation mode against its plain version in every
+    mode (RHS rhs0 + delta, stages of deltas, emitted delta traces); one row
+    per mode.
+
+    float64: within 1e-12 of each variable's max of the plain output (the
+    JAX test of km_gen's perturbation mode, tests/test_pallas_gen.py:104-122).
+    float32: against the float64 plain output on the same (float64) inputs,
+    within twice the float32 plain output's distance from it, or 1e-5 of
+    scale where that is larger (the f32 bound of the absolute check)."""
+    con, topology, base, dq, x = sw_pert_inputs(nel, s, dtype, device, seed)
+    halo = swop.halo_from_traces(swop.edge_traces(dq, con), topology)
+    truth = None
+    if dtype == torch.float32:
+        con64, _, base64, dq64, x64 = sw_pert_inputs(nel, s, torch.float64, device, seed)
+        halo64 = swop.halo_from_traces(swop.edge_traces(dq64, con64), topology)
+        truth = {m: swop.sw_operator_pert_plain(dq64, halo64, con64, base64, **kw)
+                 for m, kw in _sw_pert_modes(x64).items()}
+    rows = []
+    for mode, kw in _sw_pert_modes(x).items():
+        got = swop.sw_operator(dq, halo, con, base=base, **kw)
+        want = swop.sw_operator_pert_plain(dq, halo, con, base, **kw)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        ref = want if truth is None else truth[mode]
+        got_tr = want_tr = ref_tr = None
+        if kw.get("emit_traces"):
+            (got, got_tr), (want, want_tr), (ref, ref_tr) = got, want, ref
+        row = {"nel": nel, "s": s, "dtype": str(dtype).replace("torch.", ""), "mode": f"pert_{mode}",
+               "max_abs_err": float((got - want).abs().max()), "scale": "output_max"}
+        scale = per_variable_max(ref)
+        row["err"] = _scaled(got.to(ref.dtype) - ref, scale)
+        if got_tr is not None:
+            row["traces_err"] = _scaled(got_tr.to(ref.dtype) - ref_tr, per_variable_max(ref_tr))
+        if truth is None:
+            row["tol"] = limit = limit_tr = SW_PERT_TOLERANCE[dtype]
+        else:
+            row["scale"] = "f64_plain_output_max"
+            row["plain_err"] = _scaled(want.double() - ref, scale)
+            row["tol"] = SW_PERT_TOLERANCE[dtype]
+            limit = max(row["tol"], 2.0 * row["plain_err"])
+            if got_tr is not None:
+                row["plain_traces_err"] = _scaled(want_tr.double() - ref_tr, per_variable_max(ref_tr))
+                limit_tr = max(row["tol"], 2.0 * row["plain_traces_err"])
+        ok = np.isfinite(row["err"]) and row["err"] <= limit and bool(torch.isfinite(got).all().item())
+        if got_tr is not None:
+            ok = ok and row["traces_err"] <= limit_tr
+        row["ok"] = bool(ok)
+        rows.append(row)
+    return rows
+
+
+def _glue_row(nel: int, s: int, dtype, mode: str, kernel, plain, device) -> list:
+    got, want = kernel(), plain()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    err = _scaled(got - want, per_variable_max(want))
+    tol = GLUE_TOLERANCE[dtype]
+    return [{"nel": nel, "s": s, "dtype": str(dtype).replace("torch.", ""), "mode": mode,
+             "max_abs_err": float((got - want).abs().max()), "scale": "output_max", "err": err, "tol": tol,
+             "ok": bool(np.isfinite(err) and err <= tol)}]
+
+
+def compare_sw_edges(nel: int, s: int, dtype, device="cuda", seed: int = 0):
+    """The edge-trace kernel (``sw_edges``) against ``edge_traces`` on a
+    perturbed case-6 state; one row, within 1e-14 of each variable's max in
+    float64 (the same fma chain against a matmul), 1e-6 in float32."""
+    con, _, _, y = case6_inputs(nel, s, dtype, device, seed)
+    return _glue_row(nel, s, dtype, "edges", lambda: swop.sw_edges(y, con), lambda: swop.edge_traces(y, con), device)
+
+
+def compare_sw_halo(nel: int, s: int, dtype, device="cuda", seed: int = 0):
+    """The halo kernel (``sw_halo``) against ``halo_from_traces`` on seeded
+    random traces (as the JAX test_kh_exchange_matches_xla_exchange); one
+    row, within 1e-14 of each variable's max in float64 (one fused
+    multiply-add against two roundings in the rotation), 1e-6 in float32."""
+    topology = sw_setup(nel, s)[3]
+    rng = np.random.default_rng(seed)
+    traces = torch.as_tensor(rng.standard_normal((3, 4, 6, nel, s)), dtype=dtype, device=device)
+    return _glue_row(nel, s, dtype, "halo", lambda: swop.sw_halo(traces, topology),
+                     lambda: swop.halo_from_traces(traces, topology), device)
+
+
+def compare_sw_run(nel: int, dtype, nsteps: int, pert: bool, device="cuda", dt: float = 30.0):
+    """The whole-run kernel (``sw_run``, s=4) against its plain version (the
+    loop of plain stages) and against the chained per-stage kernels, from
+    case 6 (absolute) or from ``sw_delta(q0)`` around q0 (perturbation).
+
+    float64: within 1e-12 of each variable's max of the plain result (the
+    JAX test holds kr_run to rtol 1e-13, atol 1e-10 of iterated stages).
+    float32: against the float64 plain result, within twice the float32
+    plain result's distance from it or 1e-5. Against the chain the run is
+    asked to be bit for bit equal (the same device functions and
+    coefficients); ``bit_identical`` and the largest difference are
+    reported, and the difference must stay within the same limit."""
+    s = 4
+    con, topology, base, dq, _ = sw_pert_inputs(nel, s, dtype, device)
+    geom, ops, metric, _, q0 = sw_setup(nel, s)
+    q = dq if pert else torch.as_tensor(q0, dtype=dtype, device=device)
+    base = base if pert else None
+    abc = swop.tvdrk3_abc(dt)
+    got = swop.sw_run(q, nsteps, abc, con, topology, base=base)
+    want = swop.sw_run_plain(q, nsteps, abc, con, topology, base=base)
+    chain = swop.sw_chain(q, nsteps, abc, con, topology, base=base)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    ref = want
+    row = {"nel": nel, "s": s, "dtype": str(dtype).replace("torch.", ""), "nsteps": nsteps,
+           "mode": "run_pert" if pert else "run", "dt": dt, "max_abs_err": float((got - want).abs().max()),
+           "scale": "output_max"}
+    if dtype == torch.float32:
+        con64, _, base64, dq64, _ = sw_pert_inputs(nel, s, torch.float64, device)
+        q64 = dq64 if pert else torch.as_tensor(q0, dtype=torch.float64, device=device)
+        ref = swop.sw_run_plain(q64, nsteps, abc, con64, topology, base=base64 if pert else None)
+        row["scale"] = "f64_plain_output_max"
+        row["plain_err"] = _scaled(want.double() - ref, per_variable_max(ref))
+    scale = per_variable_max(ref)
+    row["err"] = _scaled(got.to(ref.dtype) - ref, scale)
+    row["tol"] = SW_PERT_TOLERANCE[dtype]
+    limit = max(row["tol"], 2.0 * row.get("plain_err", 0.0))
+    row["bit_identical"] = bool(torch.equal(got, chain))
+    row["chain_max_abs_err"] = float((got - chain).abs().max())
+    row["chain_err"] = _scaled(got.to(ref.dtype) - chain.to(ref.dtype), scale)
+    row["ok"] = bool(np.isfinite(row["err"]) and row["err"] <= limit and row["chain_err"] <= limit
+                     and torch.isfinite(got).all().item())
+    return row

@@ -81,6 +81,34 @@ def profile_simulation(sim, steps: int = 20, warmup: int = 10, top: int = 12) ->
     }
 
 
+def profile_calls(fn, repeats: int = 1, top: int = 8) -> dict:
+    """Device busy share of ``repeats`` calls of ``fn`` (each ending with the
+    card's work enqueued) under torch.profiler: host wall time a call with a
+    final synchronize, device time a call (kernels and copies), its share of
+    the wall time, device operations a call and the largest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(repeats):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels, ops = {}, 0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0:
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + ev.self_device_time_total / repeats
+            ops += ev.count
+    busy_us = sum(kernels.values())
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1])[:top]
+    return {"wall_ms": wall * 1e3 / repeats, "device_busy_us": busy_us,
+            "device_busy_share": busy_us * 1e-6 * repeats / wall, "device_ops": ops / repeats,
+            "kernels_us": [{"name": k[:90], "us": v} for k, v in ranked]}
+
+
 def kernel_class(name: str) -> str:
     """The class of a device event by its name: the operator's kernels, the
     basis products (cuBLAS GEMM/GEMV/dot kernels) or the rest."""
