@@ -112,7 +112,38 @@ and drives the port's two main paths, shallow water and 3D Euler:
     perturbation mode (RHS; stage + x + traces) and their plain versions at
     (64,3), (64,4) and (64,7), the halo kernel against halo_from_traces, the
     edge-trace kernel against edge_traces, and a packed_run step against a
-    chained step at (64,4).
+    chained step at (64,4);
+21. the 3D kernel's perturbation stage mode (a*dx + b*dq + cdt*(rhs0 +
+    delta), a = 0 and a != 0, with the output's delta traces) against its
+    plain version at every shape of phase 5, f64 within 1e-12 of scale, f32
+    within 5e-5 of the f64 plain output or twice the f32 plain output's
+    distance, and the emitted traces against edge_traces_delta of the
+    kernel's own output (rows in build/chip_smoke/phase21.json);
+22. the 3D production explicit point as bench.py:623-685 drives it:
+    dcmip31, float32 perturbation form around the initial state through
+    Tvdrk3, at (nel_h, nel_v, s, dt, steps) = (12,3,2,0.5,150) and
+    (20,20,3,0.1,200), with exactly three perturbation stage launches a
+    step, no other operator launch and no plain call, the bench's accuracy
+    gate (the f32 perturbation RHS within 5e-3 of the f64 truth's tendency
+    scale at a 4-step drift state), a finite state and mass drift below
+    float32's epsilon; grid points/s, the trace's busy share and the
+    sleep-queued device span; the f32 form with the well-balanced offset
+    and the f64 absolute form beside it (same launch and state checks, f64
+    mass drift below 1e-11);
+23. dcmip31 Ros2 (tolerance 1e-7, gmres_restart 20) through
+    Simulation(ini).run() at the canonical 12x12x3, s=2, dt=30 s (10 steps)
+    and at 20x20x20, s=3, dt=2 s (3 steps; FGMRES without a preconditioner
+    stalls there at dt=30 s): the host fgmres, fgmres_jit float64 and
+    fgmres_jit with mixed_precision_krylov = 1, both with
+    device_step_chunk = 5 and under forbid_uncounted_syncs; tangent
+    launches (f64 and perturbation) equal to the Jacobian actions, one RHS
+    launch a step, no plain call, host syncs, state and mass at the
+    checkpoints; the mixed run against the f64 run after two steps within
+    5e-5 of each variable's max and 2e-3 on rho*w;
+24. time at 20x20x20, s=3 of the perturbation stage kernel against its
+    plain version and its bound, f64 and f32, and of an FGMRES inner
+    iteration split into basis products, tangent kernel and the rest,
+    float64 and mixed.
 
 Each phase prints one JSON line; then the kernels line, the card's
 ``nvidia-smi`` name and power limit, and last the result line. Any failure
@@ -306,8 +337,8 @@ def phase2(torch):
 
 
 def reset_counts():
-    """Set every kernel wrapper's launch count, the plain tangent's call
-    count, the Jacobian actions asked of the matvec closures and the host
+    """Set every kernel wrapper's launch count, the plain versions' call
+    counts, the Jacobian actions asked of the matvec closures and the host
     syncs to 0."""
     from wxfactory_tpu_torch.common import device
     from wxfactory_tpu_torch.ops import euler3d_operator as e3op
@@ -316,7 +347,7 @@ def reset_counts():
 
     swop.launches = e3op.launches = e3op.tangent_launches = e3op.plain_tangent_calls = 0
     swop.pert_launches = swop.edge_launches = swop.halo_launches = swop.run_launches = swop.plain_calls = 0
-    e3op.pert_launches = e3op.pert_tangent_launches = 0
+    e3op.pert_launches = e3op.pert_stage_launches = e3op.pert_tangent_launches = e3op.plain_calls = 0
     matvec.jacobian_actions = device.host_syncs = 0
 
 
@@ -330,7 +361,8 @@ def read_counts():
             "sw_halo": swop.halo_launches, "sw_run": swop.run_launches, "sw_plain_calls": swop.plain_calls,
             "euler3d_operator": e3op.launches,
             "euler3d_tangent": e3op.tangent_launches, "euler3d_pert": e3op.pert_launches,
-            "euler3d_pert_tangent": e3op.pert_tangent_launches, "plain_tangent_calls": e3op.plain_tangent_calls,
+            "euler3d_pert_stage": e3op.pert_stage_launches, "euler3d_pert_tangent": e3op.pert_tangent_launches,
+            "euler3d_plain_calls": e3op.plain_calls, "plain_tangent_calls": e3op.plain_tangent_calls,
             "jacobian_actions": matvec.jacobian_actions, "host_syncs": device.host_syncs}
 
 
@@ -1337,6 +1369,340 @@ def phase20(torch, smi):
     return next(r for r in rows if (r["nel"], r["s"], r["dtype"]) == (64, 4, "float32"))
 
 
+def phase21(torch):
+    """The perturbation mode's stage kernel (stage combination of deltas and
+    the output's delta traces) against its plain version."""
+    from wxfactory_tpu_torch.kernels.check import compare_euler3d_pert_stage
+
+    rows = []
+    for nel_h, nel_v, s, case in E3_SHAPES:
+        for dtype in (torch.float64, torch.float32):
+            rows += compare_euler3d_pert_stage(nel_h, nel_v, s, dtype, device="cuda", case=case)
+    emit_comparison(21, rows, ("nel_h", "nel_v", "s", "case"))
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"perturbation stage kernel disagrees with its plain version: {bad}")
+    main_path = [r for r in rows if (r["nel_h"], r["nel_v"], r["s"], r["dtype"]) == E3_MAIN + ("float32",)]
+    return max(r["max_abs_err"] for r in main_path)
+
+
+# (nel_h, nel_v, s, dt, steps): bench.py:623-685's canonical dcmip31 point and
+# phase 7's constant-DOF shape.
+E3_PRODUCTION = [(12, 3, 2, 0.5, 150), E3_MAIN + (0.1, 200)]
+
+
+def _e3_gate(torch, geom, ops, metric, topology, q0, rhs32, bal32):
+    """bench.py:640-656: four float64 TVD-RK3 steps of dt = 0.5 s from q0,
+    then the float32 RHS there against the float64 RHS, per variable's
+    tendency scale: the perturbation form's error and the f32 bal form's."""
+    from wxfactory_tpu_torch.kernels.check import _scaled, per_variable_max
+    from wxfactory_tpu_torch.models import Euler3DRHS
+
+    rhs64 = Euler3DRHS(geom, ops, metric, device="cuda", topology=topology)
+    q = torch.as_tensor(q0, device="cuda")
+    for _ in range(4):
+        k1 = q + 0.5 * rhs64(q)
+        k2 = 0.75 * q + 0.25 * (k1 + 0.5 * rhs64(k1))
+        q = q / 3.0 + 2.0 / 3.0 * (k2 + 0.5 * rhs64(k2))
+    truth = rhs64(q)
+    scale = per_variable_max(truth)
+    return _scaled(rhs32(q.float()).double() - truth, scale), _scaled(bal32(q.float()).double() - truth, scale)
+
+
+def _e3_production(torch, nel_h, nel_v, s, dt, nsteps):
+    """The dcmip31 explicit point at one shape: float32 perturbation form
+    around the initial state stepped by Tvdrk3 (one perturbation stage
+    launch a stage), beside the float32 form with the well-balanced offset
+    and the float64 absolute form; launches, gate, state, mass and rates."""
+    from wxfactory_tpu_torch.integrators import Tvdrk3
+    from wxfactory_tpu_torch.kernels.check import euler3d_setup
+    from wxfactory_tpu_torch.models import Euler3DRHS
+    from wxfactory_tpu_torch.output import global_mass_3d
+    from wxfactory_tpu_torch.profile import profile_calls
+
+    geom, ops, metric, topology, q0 = euler3d_setup(nel_h, nel_v, s, 31)
+    t0 = time.perf_counter()
+    pert = Euler3DRHS(geom, ops, metric, dtype=torch.float32, device="cuda", topology=topology, perturbation_base=q0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    forms = {
+        "f32_perturbation": pert,
+        "f32_bal": Euler3DRHS(geom, ops, metric, dtype=torch.float32, device="cuda", topology=topology,
+                              base_state=q0),
+        "f64_absolute": Euler3DRHS(geom, ops, metric, device="cuda", topology=topology),
+    }
+    gate, gate_bal = _e3_gate(torch, geom, ops, metric, topology, q0, pert, forms["f32_bal"])
+    if not gate < GATE_REL:
+        raise AssertionError(f"f32 perturbation RHS {gate} of the tendency scale from the f64 truth at "
+                             f"{nel_h}x{nel_v}x{s}, gate {GATE_REL}")
+    points = 6 * nel_v * nel_h * nel_h * s**3
+    mass = lambda q: global_mass_3d(q.double().cpu().numpy(), ops, metric)
+    mass0 = mass(torch.as_tensor(q0))
+    row = {"case": 31, "nel_h": nel_h, "nel_v": nel_v, "s": s, "points": points, "integrator": "tvdrk3", "dt": dt,
+           "steps": nsteps, "setup_s_perturbation": setup_s, "gate_err": gate, "gate_err_f32_bal": gate_bal,
+           "gate": GATE_REL}
+    launches = {}
+    for name, rhs in forms.items():
+        dtype = rhs.dtype
+        q_init = torch.as_tensor(q0, dtype=dtype, device="cuda")
+
+        def chained():
+            integ, q = Tvdrk3(rhs), q_init
+            for _ in range(nsteps):
+                q = integ.step(q, dt)
+            return q, integ
+
+        Tvdrk3(rhs).step(q_init, dt)  # first launches (library load) outside the timed run
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        q, integ = chained()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        counts = read_counts()
+        pert_form = name == "f32_perturbation"
+        want = {"euler3d_pert_stage": 3 * nsteps if pert_form else 0, "euler3d_pert": 0,
+                "euler3d_operator": 0 if pert_form else 3 * nsteps, "euler3d_plain_calls": 0}
+        got = {k: counts[k] for k in want}
+        if got != want:
+            raise AssertionError(f"{name} at {nel_h}x{nel_v}x{s}: launches {got}, expected {want}")
+        if not bool(torch.isfinite(q).all()):
+            raise AssertionError(f"{name} at {nel_h}x{nel_v}x{s} is not finite")
+        # The perturbation form's mass: q0 + its carried delta in float64.
+        qm = torch.as_tensor(q0, device="cuda") + integ._cache[1].double() if pert_form else q
+        drift = (mass(qm) - mass0) / mass0
+        limit = {"f32_perturbation": MASS_DRIFT_F32, "f64_absolute": 1e-11}.get(name)
+        if limit is not None and not abs(drift) < limit:
+            raise AssertionError(f"{name} at {nel_h}x{nel_v}x{s}: mass drift {drift}, limit {limit}")
+        prof = profile_calls(chained)
+        launches[name] = got
+        row.update({
+            f"{name}_s": elapsed, f"{name}_gridpoints_per_s": points * 3 * nsteps / elapsed,
+            f"{name}_steps_per_s": nsteps / elapsed, f"{name}_launches": got, f"{name}_mass_drift": drift,
+            f"{name}_device_busy_share": prof["device_busy_share"] if prof["device_ops"] > 0 else None,
+            f"{name}_device_span_share": _device_ms(torch, chained, 1) * 1e-3 / elapsed,
+            f"{name}_device_ops_per_step": prof["device_ops"] / nsteps, f"{name}_kernels_us": prof["kernels_us"][:3],
+        })
+    return row, launches["f32_perturbation"]["euler3d_pert_stage"]
+
+
+def phase22(torch):
+    rows, stage_launches = [], 0
+    for point in E3_PRODUCTION:
+        row, n = _e3_production(torch, *point)
+        rows.append(row)
+        stage_launches += n
+    emit({"phase": 22, "results": rows, "pert_stage_launches": stage_launches})
+    return stage_launches
+
+
+ROS2_LINE = re.compile(r"FGMRES\(jit\) convergence at iteration (\d+), relative residual (\S+), (\d+) cycles, "
+                       r"(\d+) masked, (\d+) matvecs")
+ROS2_CHUNK = re.compile(r"FGMRES\(jit\) chunk of (\d+): (\d+) total iterations, last relative residual (\S+), "
+                        r"(\d+) cycles, (\d+) masked, (\d+) matvecs")
+ROS2_HOST = re.compile(r"fgmres convergence at iteration (\d+) in (\S+) s, relative residual (\S+)")
+
+
+def ros2_ini(solver: str, mixed: int, chunk: int, **kw) -> str:
+    return DCMIP31_INI.format(integrator="ros2", **kw).replace(
+        "exponential_solver = kiops",
+        f"linear_solver = {solver}\nmixed_precision_krylov = {mixed}\ndevice_step_chunk = {chunk}")
+
+
+def _ros2_run(torch, nel_h, nel_v, s, dt, nsteps, solver, mixed, chunk, tag):
+    """One dcmip31 Ros2 run (tolerance 1e-7, gmres_restart at its default)
+    through ``Simulation(ini).run()``, the CLI's own call, on
+    the card; the device solver under ``forbid_uncounted_syncs``. Checks
+    launches against Jacobian actions, syncs, state and mass at the
+    checkpoints; returns its JSON row."""
+    from wxfactory_tpu_torch.common.device import forbid_uncounted_syncs
+    from wxfactory_tpu_torch.kernels.check import euler3d_setup
+    from wxfactory_tpu_torch.output import global_mass_3d
+    from wxfactory_tpu_torch.output.state import load_state
+    from wxfactory_tpu_torch.simulation import Simulation
+
+    out_dir = WORK / f"phase23_{tag}"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for old in glob.glob(str(out_dir / "state_vector_*")):
+        Path(old).unlink()
+    ini = WORK / f"dcmip31_ros2_{tag}.ini"
+    save = min(chunk, nsteps)  # a checkpoint at every chunk's end
+    ini.write_text(ros2_ini(solver, mixed, chunk, dt=dt, t_end=dt * nsteps, s=s, nel_h=nel_h, nel_v=nel_v,
+                            save=save, out=out_dir, verbose=1))
+    log = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        sim = Simulation(str(ini), device="cuda")
+        with forbid_uncounted_syncs() if solver != "fgmres" else contextlib.nullcontext():
+            sim.run()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    text = log.getvalue()
+    sys.stderr.write(text[-2000:])
+    run = re.search(r"Completed (\d+) steps in (\S+) s \((\S+) steps/s\)", text)
+    if run is None:
+        raise AssertionError(f"Ros2 run {tag} did not complete")
+    if "WARNING" in text:
+        raise AssertionError(f"Ros2 run {tag} printed a warning")
+    if solver == "fgmres":
+        lines = [(int(m.group(1)), 0, 0) for m in ROS2_HOST.finditer(text)]
+        nsolves = len(lines)
+    elif chunk > 1:
+        lines = [(int(m.group(2)), int(m.group(4)), int(m.group(5))) for m in ROS2_CHUNK.finditer(text)]
+        nsolves = sum(int(m.group(1)) for m in ROS2_CHUNK.finditer(text))
+    else:
+        lines = [(int(m.group(1)), int(m.group(3)), int(m.group(4))) for m in ROS2_LINE.finditer(text)]
+        nsolves = len(lines)
+    iterations, cycles = sum(l[0] for l in lines), sum(l[1] for l in lines)
+    if nsolves != nsteps:
+        raise AssertionError(f"Ros2 run {tag}: {nsolves} solves reported for {nsteps} steps")
+    # One float64 RHS a step (and, mixed, the companion's float64 base RHS at
+    # setup); every Jacobian action is one tangent-kernel launch.
+    tangents = counts["euler3d_tangent"] + counts["euler3d_pert_tangent"]
+    if counts["euler3d_operator"] != nsteps + mixed:
+        raise AssertionError(f"{counts['euler3d_operator']} RHS-kernel launches in {nsteps} Ros2 steps")
+    if tangents != counts["jacobian_actions"] or tangents == 0 or counts["plain_tangent_calls"]:
+        raise AssertionError(f"Ros2 run {tag}: tangent launches {tangents} against Jacobian actions "
+                             f"{counts['jacobian_actions']}, plain tangent calls {counts['plain_tangent_calls']}")
+    if bool(counts["euler3d_pert_tangent"]) != bool(mixed):
+        raise AssertionError(f"Ros2 run {tag}: perturbation tangent launches {counts['euler3d_pert_tangent']}")
+    # Counted waits of the device solver: |r0| and |b| and one read a cycle
+    # a solve, the NaN guard and a checkpoint a chunk, the initial
+    # checkpoint and the final synchronize; no other wait can have happened.
+    step_syncs = counts["host_syncs"] - 2
+    if solver != "fgmres" and step_syncs > cycles + nsteps + 2 * -(-nsteps // save):
+        raise AssertionError(f"{step_syncs} host syncs for {cycles} cycles in {nsteps} steps")
+    _, ops, metric, _, _ = euler3d_setup(nel_h, nel_v, s, 31)
+    masses = {}
+    for step in range(0, nsteps + 1, save):
+        files = glob.glob(str(out_dir / f"state_vector_*.{step:08d}.npy"))
+        if len(files) != 1:
+            raise AssertionError(f"checkpoint files {files}")
+        q, _, _ = load_state(files[0])
+        masses[step] = global_mass_3d(q, ops, metric)
+    if not bool(torch.isfinite(torch.as_tensor(q)).all()):
+        raise AssertionError(f"Ros2 run {tag}: state not finite")
+    drifts = {k: (m - masses[0]) / masses[0] for k, m in masses.items() if k}
+    if not max(abs(d) for d in drifts.values()) < 1e-7:
+        raise AssertionError(f"Ros2 run {tag}: mass drift {drifts}")
+    run_s = float(run.group(2))
+    return {
+        "case": 31, "nel_h": nel_h, "nel_v": nel_v, "s": s, "points": 6 * nel_v * nel_h * nel_h * s**3,
+        "integrator": "ros2", "linear_solver": solver, "mixed_precision_krylov": mixed, "device_step_chunk": chunk,
+        "gmres_restart": sim.integrator.gmres_restart, "tolerance": 1e-7, "dt": dt, "steps": int(run.group(1)),
+        "setup_s": wall - run_s, "run_s": run_s, "steps_per_s": float(run.group(3)),
+        "iterations": iterations, "iterations_per_step": iterations / nsteps, "cycles": cycles,
+        "masked_iterations": sum(l[2] for l in lines), "rhs_launches": counts["euler3d_operator"],
+        "tangent_launches": counts["euler3d_tangent"], "pert_tangent_launches": counts["euler3d_pert_tangent"],
+        "jacobian_actions": counts["jacobian_actions"], "host_syncs": counts["host_syncs"],
+        "host_syncs_per_step": step_syncs / nsteps, "mass_drift_per_checkpoint": drifts,
+    }
+
+
+def _ros2_gate(torch):
+    """tests/test_euler3d.py:293-318 on the card: two mixed-precision steps
+    against two float64 fgmres_jit steps at the canonical shape, 5e-5 of
+    each variable's max and 2e-3 on rho*w."""
+    from wxfactory_tpu_torch.config import Configuration
+    from wxfactory_tpu_torch.simulation import Simulation
+
+    states = {}
+    for mixed in (0, 1):
+        text = ros2_ini("fgmres_jit", mixed, 1, dt=30, t_end=60, s=2, nel_h=12, nel_v=3, save=0,
+                        out=WORK / "phase23_gate", verbose=0)
+        with contextlib.redirect_stdout(io.StringIO()):
+            states[mixed] = Simulation(Configuration(text), device="cuda").run().cpu()
+    scale = states[0].abs().reshape(5, -1).amax(dim=1)
+    err = ((states[1] - states[0]).abs().reshape(5, -1).amax(dim=1) / scale).tolist()
+    ok = max(err[i] for i in (0, 1, 2, 4)) < 5e-5 and err[3] < 2e-3
+    return {"err_per_variable": err, "limits": [5e-5, 5e-5, 5e-5, 2e-3, 5e-5], "ok": ok}
+
+
+# (nel_h, nel_v, s, dt, steps, tag): the canonical dcmip31 Ros2 point, and
+# phase 7's shape at dt = 2 s: there, at dt = 30 s, FGMRES(20) without a
+# preconditioner stalls (relative residual 1.2e-5 after 20,000 iterations;
+# 1.1e-6 after 1,200 at dt = 3 s, converged in 55 at dt = 2 s on an H100:
+# tools/ros2_fgmres_dt.py).
+ROS2_POINTS = [(12, 3, 2, 30.0, 10, "canonical"), E3_MAIN + (2.0, 3, "main")]
+
+
+def phase23(torch):
+    rows = []
+    for nel_h, nel_v, s, dt, nsteps, tag in ROS2_POINTS:
+        for solver, mixed, chunk in (("fgmres", 0, 1), ("fgmres_jit", 0, 5), ("fgmres_jit", 1, 5)):
+            rows.append(_ros2_run(torch, nel_h, nel_v, s, dt, nsteps, solver, mixed, chunk,
+                                  f"{tag}_{solver}{'_mixed' if mixed else ''}"))
+    gate = _ros2_gate(torch)
+    emit({"phase": 23, "results": rows, "mixed_vs_float64_after_2_steps": gate})
+    if not gate["ok"]:
+        raise AssertionError(f"mixed Ros2 against float64: {gate}")
+
+
+def _fgmres_cycle(torch, A, b, x0, basis_dtype, A32, restart=20):
+    """One restart cycle of fgmres_jit (tolerance 0: no iteration converges)
+    between CUDA events and under torch.profiler: milliseconds an inner
+    iteration, and the device time of an iteration by class."""
+    from wxfactory_tpu_torch.profile import profile_calls
+    from wxfactory_tpu_torch.solvers.fgmres_jit import fgmres_jit
+
+    run = lambda: fgmres_jit(A, b, x0=x0, tol=0.0, restart=restart, max_outer=1, A32=A32, basis_dtype=basis_dtype)
+    run()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    _, info = run()
+    end.record()
+    end.synchronize()
+    prof = profile_calls(run)
+    per_it = {k: v / restart for k, v in prof["classes_us"].items()}
+    return {"event_ms_per_iteration": start.elapsed_time(end) / restart, "device_us_per_iteration": per_it,
+            "device_ops_per_iteration": prof["device_ops"] / restart, "iterations": info.num_iter}
+
+
+def phase24(torch, smi):
+    """Timing at 20x20x20, s=3: the perturbation stage kernel (stage + x +
+    delta traces) against its plain version and its bound, f32 and f64;
+    an FGMRES inner iteration of Ros2 (dt = 30 s) split into basis
+    products, tangent kernel and the rest, float64 and mixed."""
+    from wxfactory_tpu_torch.kernels.check import E3_DT, euler3d_pert_inputs, euler3d_pert_work, euler3d_setup
+    from wxfactory_tpu_torch.models import Euler3DRHS
+    from wxfactory_tpu_torch.ops import euler3d_operator as e3op
+    from wxfactory_tpu_torch.solvers.matvec import companion_jacobian, make_rat_matvec
+
+    rows = []
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        con, topology, pert, dq, _ = euler3d_pert_inputs(*E3_MAIN, dtype, "cuda")
+        halo = e3op.halo_from_traces(e3op.edge_traces_delta(dq, pert, con), topology)
+        x = dq.flip(0).contiguous()
+        stage = dict(x=x, a=0.75, b=0.25, cdt=0.25 * E3_DT, emit_traces=True)
+        times = _pair_ms(torch, lambda: e3op.euler3d_operator(dq, halo, con, pert=pert, **stage),
+                         lambda: e3op.euler3d_operator_pert_plain(dq, halo, con, pert, **stage), n=10, n_plain=3)
+        nbytes, ops = euler3d_pert_work(con, stage=True, use_x=True, traces=True)
+        bound = {"bytes": nbytes / PEAK_BYTES * 1e3, "operations": ops / PEAK_FLOPS[name] * 1e3}
+        rows.append(dict({"nel_h": E3_MAIN[0], "nel_v": E3_MAIN[1], "s": E3_MAIN[2], "dtype": name,
+                          "mode": "pert_stage_x_traces", "bytes": nbytes, "ops": ops,
+                          "bound_ms": max(bound.values()), "bound_by": max(bound, key=bound.get),
+                          "pert_rhs_ms": _device_ms(torch, lambda: e3op.euler3d_operator(dq, halo, con, pert=pert),
+                                                    10)},
+                         **times))
+    geom, ops, metric, topology, q0 = euler3d_setup(*E3_MAIN, 31)
+    rhs = Euler3DRHS(geom, ops, metric, device="cuda", topology=topology)
+    rhs32 = Euler3DRHS(geom, ops, metric, dtype=torch.float32, device="cuda", topology=topology, perturbation_base=q0)
+    q = torch.as_tensor(q0, device="cuda")
+    A = make_rat_matvec(rhs, q, 30.0)
+    qv = q.reshape(-1)
+    b = A(qv) + rhs(q).reshape(-1) * 30.0
+    q32 = q.float()
+    A32 = make_rat_matvec(rhs32, q32, 30.0, jac=companion_jacobian(rhs32, q32))
+    iteration = {"float64": _fgmres_cycle(torch, A, b, qv, None, None),
+                 "mixed": _fgmres_cycle(torch, A, b, qv, torch.float32, A32)}
+    emit({"phase": 24, "gpu": smi, "timing": "*_ms: the card's time a call (calls queued behind a sleep kernel, "
+          "CUDA events); *_event_ms: CUDA events around single calls, median; fgmres: one 20-iteration cycle",
+          "results": rows, "fgmres_iteration": iteration})
+    return next(r for r in rows if r["dtype"] == "float32")
+
+
 def sw_bound():
     import torch
 
@@ -1383,6 +1749,10 @@ def main() -> int:
     phase18(torch)
     sw_counts = phase19(torch)
     swt = phase20(torch, smi)
+    stage_err = phase21(torch)
+    stage_launches = phase22(torch)
+    phase23(torch)
+    stage_timing = phase24(torch, smi)
     sw_bound_ms, sw_bound_by = sw_bound()
     sw_entry = lambda name, mode, replaces, source="wxfactory_tpu_torch/csrc/sw_operator.cu": {
         "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": sw_counts[name],
@@ -1412,6 +1782,11 @@ def main() -> int:
         sw_entry("sw_edges", "edges", "wxfactory_tpu/ops/pallas_sw.py:258"),
         sw_entry("sw_run", f"run_{RUN_STEPS}_steps", "wxfactory_tpu/ops/pallas_sw.py:1100",
                  "wxfactory_tpu_torch/csrc/sw_run.cu"),
+        {"name": "euler3d_pert_stage", "route": "cuda", "source": "wxfactory_tpu_torch/csrc/euler3d_operator.cu",
+         "replaces": "wxfactory_tpu/ops/pallas_euler3d.py:2131 (perturbation mode, stage + delta slabs)",
+         "launches": stage_launches, "max_abs_err": stage_err, "ms": stage_timing["kernel_ms"],
+         "plain_ms": stage_timing["plain_ms"], "bound_ms": stage_timing["bound_ms"],
+         "bound_by": stage_timing["bound_by"], "library_ms": None},
     ]
     unmeasured = [k["name"] for k in kernels if not (k["ms"] > 0 and k["plain_ms"] > 0 and k["launches"] > 0)]
     if unmeasured:

@@ -146,16 +146,20 @@ def test_pert_wrappers_check_inputs():
     rhs = _port(geom, ops, metric, q0)
     d = _t(dq)
     halo = rhs.halo(e3op.edge_traces_delta(d, rhs.pert, rhs.con))
-    with pytest.raises(ValueError, match="RHS mode only"):
-        e3op.euler3d_operator(d, halo, rhs.con, cdt=1.0, pert=rhs.pert)
-    with pytest.raises(ValueError, match="RHS mode only"):
-        e3op.euler3d_operator(d, halo, rhs.con, emit_traces=True, pert=rhs.pert)
+    # The stage and the delta traces run with pert (the stage mode of the
+    # perturbation form); the well-balanced offset does not.
+    y = e3op.euler3d_operator(d, halo, rhs.con, cdt=1.0, pert=rhs.pert)
+    assert y.shape == d.shape
+    _, traces = e3op.euler3d_operator(d, halo, rhs.con, emit_traces=True, pert=rhs.pert)
+    assert traces.shape == rhs.con.traces_shape
+    with pytest.raises(ValueError, match="no well-balanced offset"):
+        e3op.euler3d_operator(d, halo, rhs.con, bal=d, pert=rhs.pert)
     with pytest.raises(ValueError):
         e3op.euler3d_operator(d.float(), halo, rhs.con, pert=rhs.pert)  # dtype differs from the constants
     with pytest.raises(ValueError, match="5-variable"):
         interop.euler3d_rhs(geom, ops, metric, perturbation_base=q0[:4])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rhs.stage(d, d, 0.0, 1.0, 1.0)
+    out, out_traces = rhs.stage(d, d, 0.0, 1.0, 1.0)
+    assert out.shape == d.shape and out_traces.shape == rhs.con.traces_shape
 
 
 def test_float32_pert_tangent_accuracy():

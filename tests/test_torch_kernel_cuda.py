@@ -1,6 +1,6 @@
 """The port's CUDA kernels (SW operator and its perturbation mode, the SW
 halo, edge-trace and whole-run kernels, 3D Euler operator, its tangent
-mode and the perturbation form of both) against their plain torch versions, on the card. Needs a CUDA device and nvcc, and skips without them. On a GPU
+mode and the perturbation form of both, with its stage mode) against their plain torch versions, on the card. Needs a CUDA device and nvcc, and skips without them. On a GPU
 machine run it without tests/conftest.py (which configures JAX):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernel_cuda.py
@@ -15,6 +15,7 @@ from wxfactory_tpu_torch.kernels.check import (
     case6_inputs,
     compare_euler3d_operator,
     compare_euler3d_pert,
+    compare_euler3d_pert_stage,
     compare_euler3d_tangent,
     compare_sw_edges,
     compare_sw_halo,
@@ -114,6 +115,26 @@ def test_euler3d_pert_counters_count_kernel_launches_only(cuda):
     e3op.euler3d_tangent(dq, v, halo_dq, halo_v, con, pert=pert)
     torch.cuda.synchronize()
     assert counts() == before[:2] + (before[2] + 1, before[3] + 1, before[4] + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("nel_h,nel_v,s,case", [(3, 2, 2, 31), (4, 2, 3, 77), (2, 2, 4, 31), (2, 2, 6, 31)])
+def test_euler3d_pert_stage_kernel_matches_plain(cuda, nel_h, nel_v, s, case, dtype):
+    rows = compare_euler3d_pert_stage(nel_h, nel_v, s, dtype, device="cuda", case=case)
+    assert all(r["ok"] for r in rows), rows
+
+
+def test_euler3d_pert_stage_counter_counts_stage_launches_only(cuda):
+    con, topology, pert, dq, _ = euler3d_pert_inputs(3, 2, 3, torch.float32, "cuda")
+    halo = e3op.halo_from_traces(e3op.edge_traces_delta(dq, pert, con), topology)
+    counts = lambda: (e3op.launches, e3op.pert_launches, e3op.pert_stage_launches)
+    before = counts()
+    e3op.euler3d_operator_pert_plain(dq, halo, con, pert, cdt=0.1, emit_traces=True)
+    assert counts() == before
+    e3op.euler3d_operator(dq, halo, con, x=dq, a=0.5, b=0.5, cdt=0.1, emit_traces=True, pert=pert)
+    e3op.euler3d_operator(dq, halo, con, pert=pert)
+    torch.cuda.synchronize()
+    assert counts() == (before[0], before[1] + 1, before[2] + 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])

@@ -11,6 +11,10 @@ both cubed-sphere models on an NVIDIA GPU:
     operator (hand-written CUDA kernel, csrc/euler3d_operator.cu) ->
     Euler1/TVD-RK3 -> checkpoint
 
+and on 3D Euler the Krylov paths: EPI (KIOPS, kiops_jit) and Ros2
+(fgmres, fgmres_jit), whose Jacobian action is the same source's tangent
+kernel, optionally with a float32 perturbation-form companion.
+
 It imports ``torch`` and never ``jax`` or ``wxfactory_tpu``. The numpy/sympy
 setup code (config, quadrature, DFR operators, geometry, topology tables,
 test cases) is carried over as code.

@@ -105,13 +105,21 @@
 // speeds and the dissipation on delta jumps plus deig on the base jumps,
 // the face log pressures and w-pressure split with the base face
 // pressures, the quadratic forcing by the product rule. RHS mode writes
-// rhs0 + delta (no stage, bal or traces); tangent mode writes J(q0 + dq).v
-// with the absolute traces t0 + dt, pressures p0 + dp and log-pressure
-// gradient dlp0 + ddlp as the linearisation coefficients. It keeps the
-// real log1p/expm1 (the JAX package writes them as compensated formulas
-// because Mosaic lacks them). Shared memory grows by q0, its logs and its
-// log p: 32 s^3 + 54 s^2 numbers an element in RHS mode, 37 s^3 + 60 s^2
-// in tangent mode.
+// rhs0 + delta, optionally fused with the RK stage combination of
+// perturbations b*dq + cdt*(rhs0 + delta) (+ a*dx), which is the absolute
+// stage because every TVD-RK3 and Euler stage has a + b = 1, and
+// optionally emitting the output perturbation's delta panel-edge traces
+// t0 * expm1(E.log1p(dout/q0)) around the base traces t0 (traces0, built
+// in float64 and cast, as ops/euler3d_operator.py::edge_traces_delta has
+// them), all four sides (km3_fused's stage and delta slabs,
+// pallas_euler3d.py:1568-1645, emit W/E only; no bal); tangent mode writes
+// J(q0 + dq).v with the absolute traces t0 + dt, pressures p0 + dp and
+// log-pressure gradient dlp0 + ddlp as the linearisation coefficients. It
+// keeps the real log1p/expm1 (the JAX package writes them as compensated
+// formulas because Mosaic lacks them). Shared memory grows by q0, its logs
+// and its log p: 32 s^3 + 54 s^2 numbers an element in RHS mode, 37 s^3 +
+// 60 s^2 in tangent mode; the delta traces read q0 from there, so the
+// stage mode needs no more.
 
 #include <cuda_runtime.h>
 
@@ -370,8 +378,8 @@ __global__ void __launch_bounds__(kThreads) euler3d_operator_kernel(
     const T* __restrict__ fields, const T* __restrict__ tch, const T* __restrict__ itf_x,
     const T* __restrict__ itf_y, const T* __restrict__ itf_z, const T* __restrict__ x,
     const T* __restrict__ bal, const T* __restrict__ q0, const T* __restrict__ halo0,
-    const T* __restrict__ rhs0, T* __restrict__ out, T* __restrict__ traces, int nh, int nk, T a,
-    T b, T cdt, int stage) {
+    const T* __restrict__ rhs0, const T* __restrict__ traces0, T* __restrict__ out, T* __restrict__ traces,
+    int nh, int nk, T a, T b, T cdt, int stage) {
   using Sh = Shape<T, S, PERT>;
   constexpr int S2 = Sh::S2, S3 = Sh::S3, NF = Sh::NF;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -729,18 +737,23 @@ __global__ void __launch_bounds__(kThreads) euler3d_operator_kernel(
         val = rhs0[o] + val;
       } else {
         if (bal != nullptr) val += bal[o];
-        if (stage) {
-          val = b * qv[v] + cdt * val;
-          if (x != nullptr) val = a * x[o] + val;
-        }
+      }
+      // The stage combination; in PERT mode on the perturbations (every
+      // TVD-RK3 and Euler stage has a + b = 1, so it is the absolute one).
+      if (stage) {
+        val = b * qv[v] + cdt * val;
+        if (x != nullptr) val = a * x[o] + val;
       }
       out[o] = val;
       sQ[v * S3 + j] = val;  // only this thread reads this slot from here on
     }
   }
 
-  // --- Panel-edge traces of the output state (x and y faces on an edge).
-  if (!PERT && traces != nullptr) {
+  // --- Panel-edge traces of the output state (x and y faces on an edge);
+  // in PERT mode the output perturbation's delta traces around the base
+  // traces traces0: t0 * expm1(E.log1p(dout/q0)) for rho and rho*theta
+  // (q0 still in shared memory), the momenta linear.
+  if (traces != nullptr) {
     __syncthreads();
     if (valid) {
       for (int fi = j; fi < 4 * S2; fi += S3) {
@@ -760,14 +773,24 @@ __global__ void __launch_bounds__(kThreads) euler3d_operator_kernel(
         const T* coef = (face & 1) ? sEp : sEn;
 #pragma unroll
         for (int v = 0; v < 5; ++v) {
+          const bool lg = v == 0 || v == 4;
+          const long long t = ((((long long)(v * 4 + tside) * 6 + p) * nk + kz) * nh + along) * S2 + k;
           T acc = T(0);
 #pragma unroll
           for (int i = 0; i < S; ++i) {
-            const T val = sQ[v * S3 + base + i * stride];
-            acc = fmadd((v == 0 || v == 4) ? tlog(val) : val, coef[i], acc);
+            const int n = v * S3 + base + i * stride;
+            T val = sQ[n];
+            if (lg) {
+              if constexpr (PERT) val = tlog1p(val / sQ0[n]);
+              else val = tlog(val);
+            }
+            acc = fmadd(val, coef[i], acc);
           }
-          traces[((((long long)(v * 4 + tside) * 6 + p) * nk + kz) * nh + along) * S2 + k] =
-              (v == 0 || v == 4) ? texp(acc) : acc;
+          if (lg) {
+            if constexpr (PERT) acc = traces0[t] * texpm1(acc);
+            else acc = texp(acc);
+          }
+          traces[t] = acc;
         }
       }
     }
@@ -788,8 +811,8 @@ template <typename T, int S, bool PERT>
 cudaError_t launch(int nh, int nk, const void* q, const void* halo, const void* ops,
                    const void* fields, const void* tch, const void* itf_x, const void* itf_y,
                    const void* itf_z, const void* x, const void* bal, const void* q0, const void* halo0,
-                   const void* rhs0, void* out, void* traces, double a, double b, double cdt, int stage,
-                   cudaStream_t stream) {
+                   const void* rhs0, const void* traces0, void* out, void* traces, double a, double b,
+                   double cdt, int stage, cudaStream_t stream) {
   using Sh = Shape<T, S, PERT>;
   const size_t smem = sizeof(T) * (Sh::N_OPS + (size_t)Sh::EB * Sh::PER_ELEM);
   static bool configured = false;
@@ -802,8 +825,8 @@ cudaError_t launch(int nh, int nk, const void* q, const void* halo, const void* 
       static_cast<const T*>(fields), static_cast<const T*>(tch), static_cast<const T*>(itf_x),
       static_cast<const T*>(itf_y), static_cast<const T*>(itf_z), static_cast<const T*>(x),
       static_cast<const T*>(bal), static_cast<const T*>(q0), static_cast<const T*>(halo0),
-      static_cast<const T*>(rhs0), static_cast<T*>(out), static_cast<T*>(traces), nh, nk, T(a), T(b), T(cdt),
-      stage);
+      static_cast<const T*>(rhs0), static_cast<const T*>(traces0), static_cast<T*>(out), static_cast<T*>(traces),
+      nh, nk, T(a), T(b), T(cdt), stage);
   return cudaGetLastError();
 }
 
@@ -811,12 +834,12 @@ template <typename T, bool PERT>
 cudaError_t dispatch(int s, int nh, int nk, const void* q, const void* halo, const void* ops,
                      const void* fields, const void* tch, const void* itf_x, const void* itf_y,
                      const void* itf_z, const void* x, const void* bal, const void* q0, const void* halo0,
-                     const void* rhs0, void* out, void* traces, double a, double b, double cdt, int stage,
-                     cudaStream_t stream) {
+                     const void* rhs0, const void* traces0, void* out, void* traces, double a, double b,
+                     double cdt, int stage, cudaStream_t stream) {
 #define E3_CASE(S)                                                                                 \
   case S:                                                                                          \
     return launch<T, S, PERT>(nh, nk, q, halo, ops, fields, tch, itf_x, itf_y, itf_z, x, bal, q0,  \
-                              halo0, rhs0, out, traces, a, b, cdt, stage, stream);
+                              halo0, rhs0, traces0, out, traces, a, b, cdt, stage, stream);
   switch (s) {
     E3_CASE(2) E3_CASE(3) E3_CASE(4) E3_CASE(5) E3_CASE(6)
     default: return cudaErrorInvalidValue;
@@ -1362,30 +1385,30 @@ cudaError_t dispatch_tangent(int s, int nh, int nk, const void* q, const void* v
 // Christoffels; x == NULL: no x term; bal == NULL: no offset; traces == NULL:
 // no trace emission; stage == 0: out = RHS(q) (+ bal). q0 != NULL:
 // perturbation mode (q the perturbation, halo its delta halo, halo0 and
-// rhs0 the base's; RHS mode only: x, bal and traces must be NULL).
+// rhs0 the base's; x and out perturbations, traces the output's delta
+// traces around the base traces traces0; bal must be NULL).
 extern "C" int euler3d_operator_launch(int is_f64, int s, int nh, int nk, const void* q,
                                        const void* halo, const void* ops, const void* fields,
                                        const void* tch, const void* itf_x, const void* itf_y,
                                        const void* itf_z, const void* x, const void* bal, const void* q0,
-                                       const void* halo0, const void* rhs0, void* out, void* traces,
-                                       double a, double b, double cdt, int stage, void* stream) {
+                                       const void* halo0, const void* rhs0, const void* traces0, void* out,
+                                       void* traces, double a, double b, double cdt, int stage, void* stream) {
   if (nh < 2 || nk < 1) return (int)cudaErrorInvalidValue;
   const bool pert = q0 != nullptr;
-  if (pert && (halo0 == nullptr || rhs0 == nullptr || x != nullptr || bal != nullptr || traces != nullptr ||
-               stage != 0))
+  if (pert && (halo0 == nullptr || rhs0 == nullptr || bal != nullptr || (traces != nullptr && traces0 == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (is_f64)
     err = pert ? dispatch<double, true>(s, nh, nk, q, halo, ops, fields, tch, itf_x, itf_y, itf_z, x, bal, q0,
-                                        halo0, rhs0, out, traces, a, b, cdt, stage, st)
+                                        halo0, rhs0, traces0, out, traces, a, b, cdt, stage, st)
                : dispatch<double, false>(s, nh, nk, q, halo, ops, fields, tch, itf_x, itf_y, itf_z, x, bal, q0,
-                                         halo0, rhs0, out, traces, a, b, cdt, stage, st);
+                                         halo0, rhs0, traces0, out, traces, a, b, cdt, stage, st);
   else
     err = pert ? dispatch<float, true>(s, nh, nk, q, halo, ops, fields, tch, itf_x, itf_y, itf_z, x, bal, q0,
-                                       halo0, rhs0, out, traces, a, b, cdt, stage, st)
+                                       halo0, rhs0, traces0, out, traces, a, b, cdt, stage, st)
                : dispatch<float, false>(s, nh, nk, q, halo, ops, fields, tch, itf_x, itf_y, itf_z, x, bal, q0,
-                                        halo0, rhs0, out, traces, a, b, cdt, stage, st);
+                                        halo0, rhs0, traces0, out, traces, a, b, cdt, stage, st);
   return (int)err;
 }
 

@@ -24,7 +24,8 @@ counterpart: in eager PyTorch a chunk is the base class's loop over
 ``step``, and the Krylov-size warm start is a host integer in either form.
 
 The Jacobian action is the RHS's own (``jtv_prep``/``jtv_apply``) or
-``torch.func.jvp`` of a differentiable RHS (``solvers/matvec.py``); the
+``torch.func.jvp`` of a differentiable RHS, the float32 companion's by the
+JAX package's rule (``solvers/matvec.py``); the
 linearisation point's preparation runs once a step and serves the history
 residuals too. ``pmex`` raises ``NotImplementedError`` naming its ROADMAP
 item.
@@ -40,7 +41,7 @@ import torch
 
 from ..solvers import kiops
 from ..solvers.kiops_jit import kiops_jit
-from ..solvers.matvec import make_jvp_matvec
+from ..solvers.matvec import companion_jacobian, make_jvp_matvec
 from .base import Integrator, SolverInfo
 
 _NOT_PORTED = {
@@ -192,9 +193,12 @@ class Epi(Integrator):
                 return self.jtv(v, dt, q, rhs_q).reshape(-1)
         elif mixed:
             # The companion's J.v stays in float32 (kiops_jit hands it the
-            # float32 basis vectors); dt is cast as the JAX step casts it
+            # float32 basis vectors), chosen by the JAX package's rule
+            # (companion_jacobian); dt is cast as the JAX step casts it
             # (epi.py:212 there).
-            kry, dt32 = make_jvp_matvec(self.rhs32, q.to(torch.float32)), float(np.float32(dt))
+            q32 = q.to(torch.float32)
+            kry = make_jvp_matvec(self.rhs32, q32, jac=companion_jacobian(self.rhs32, q32))
+            dt32 = float(np.float32(dt))
 
             def matvec(v):
                 return dt32 * kry(v)

@@ -9,7 +9,7 @@ step — consumes, so only the first step bootstraps traces.
 
 As the JAX package's ``_PackedChain`` (integrators/explicit.py:38-100
 there), the stages run on the RHS's packed state (``rhs.pack``: the
-perturbation q - q0 in the shallow-water perturbation form, the state itself
+perturbation q - q0 in the shallow-water and 3D Euler perturbation forms, the state itself
 otherwise) and every step returns ``rhs.unpack`` of it in the model layout.
 The packed twin and its traces ride along in a one-entry cache keyed on the
 identity of the last returned state, so a run packs once, at its first step,

@@ -56,8 +56,8 @@ SIGNATURES = {
         "euler3d_operator_launch": (
             _I,
             [_I, _I, _I, _I]  # is_f64, s, nel_h, nel_v
-            # q, halo, ops1d, fields, tch, itf_x, itf_y, itf_z, x, bal, q0, halo0, rhs0, out, traces
-            + [_P] * 15
+            # q, halo, ops1d, fields, tch, itf_x, itf_y, itf_z, x, bal, q0, halo0, rhs0, traces0, out, traces
+            + [_P] * 16
             + [_D, _D, _D, _I]  # a, b, cdt, stage
             + [_P],  # stream
         ),

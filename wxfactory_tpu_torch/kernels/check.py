@@ -496,7 +496,71 @@ def compare_euler3d_pert(nel_h: int, nel_v: int, s: int, dtype, device="cuda", c
     return rows
 
 
-def euler3d_pert_work(con, tangent: bool = False):
+def compare_euler3d_pert_stage(nel_h: int, nel_v: int, s: int, dtype, device="cuda", case: int = 31,
+                               seed: int = 7):
+    """The perturbation mode's stage kernel (``a*dx + b*dq + cdt*(rhs0 +
+    delta)`` with the output's delta traces) against its plain version on
+    the same inputs, at a = 0 and a != 0; returns one row per mode.
+
+    float64: the output within 1e-12 of the plain output per variable,
+    scaled by the larger of its max and cdt times the RHS term scale (the
+    absolute stage check's scale), the traces within 1e-12 of the plain
+    traces' max. float32: both against the float64 plain version on the
+    float64 inputs, within 5e-5 of those scales or twice the float32 plain
+    version's distance (the rule of ``compare_euler3d_pert``). In both, the
+    kernel's emitted traces within the dtype's operator tolerance
+    (``E3_TOLERANCE``) of ``edge_traces_delta`` of its own output, the
+    bootstrap they stand in for."""
+    con, topology, pert, dq, _ = euler3d_pert_inputs(nel_h, nel_v, s, dtype, device, case, seed)
+    q0 = euler3d_setup(nel_h, nel_v, s, case)[4]
+    dx64 = 1e-4 * q0 * np.random.default_rng(seed + 1).standard_normal(q0.shape)
+    dx = torch.as_tensor(dx64, dtype=dtype, device=device)
+    halo = e3op.halo_from_traces(e3op.edge_traces_delta(dq, pert, con), topology)
+    modes = {"pert_stage": dict(a=0.0, b=1.0, cdt=E3_DT),
+             "pert_stage_x": dict(x=dx, a=0.75, b=0.25, cdt=0.25 * E3_DT)}
+    truth = {}
+    if dtype == torch.float32:
+        con64, _, pert64, dq64, _ = euler3d_pert_inputs(nel_h, nel_v, s, torch.float64, device, case, seed)
+        halo64 = e3op.halo_from_traces(e3op.edge_traces_delta(dq64, pert64, con64), topology)
+        x64 = torch.as_tensor(dx64, device=device)
+        for mode, kw in modes.items():
+            kw64 = dict(kw, x=x64) if "x" in kw else kw
+            truth[mode] = e3op.euler3d_operator_pert_plain(dq64, halo64, con64, pert64, emit_traces=True, **kw64)
+    term = euler3d_term_scale(pert.q0 + dq, con)
+    rows = []
+    for mode, kw in modes.items():
+        got, got_tr = e3op.euler3d_operator(dq, halo, con, emit_traces=True, pert=pert, **kw)
+        want, want_tr = e3op.euler3d_operator_pert_plain(dq, halo, con, pert, emit_traces=True, **kw)
+        self_tr = e3op.edge_traces_delta(got, pert, con)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        ref, ref_tr = truth.get(mode, (want, want_tr))
+        scale = torch.maximum(per_variable_max(ref), kw["cdt"] * term.to(ref.dtype))
+        tr_scale = per_variable_max(ref_tr)
+        row = {"nel_h": nel_h, "nel_v": nel_v, "s": s, "case": case, "dtype": str(dtype).replace("torch.", ""),
+               "mode": mode, "max_abs_err": float((got - want).abs().max()),
+               "scale": "max(output_max, cdt*term)", "err": _scaled(got.to(ref.dtype) - ref, scale),
+               "traces_err": _scaled(got_tr.to(ref.dtype) - ref_tr, tr_scale),
+               "traces_self_err": _scaled(got_tr - self_tr, per_variable_max(self_tr))}
+        if not truth:
+            row["tol"] = E3_TOLERANCE[dtype]
+            limit = traces_limit = row["tol"]
+        else:
+            row["scale"] = "f64_plain_" + row["scale"]
+            row["plain_err"] = _scaled(want.double() - ref, scale)
+            row["plain_traces_err"] = _scaled(want_tr.double() - ref_tr, tr_scale)
+            row["tol"] = E3_TANGENT_TOLERANCE[dtype]
+            limit = max(row["tol"], 2.0 * row["plain_err"])
+            traces_limit = max(row["tol"], 2.0 * row["plain_traces_err"])
+        ok = np.isfinite(row["err"]) and row["err"] <= limit and row["traces_err"] <= traces_limit
+        ok = ok and row["traces_self_err"] <= E3_TOLERANCE[dtype]
+        row["ok"] = bool(ok and torch.isfinite(got).all().item() and torch.isfinite(got_tr).all().item())
+        rows.append(row)
+    return rows
+
+
+def euler3d_pert_work(con, tangent: bool = False, stage: bool = False, use_x: bool = False,
+                      traces: bool = False):
     """(bytes, operations) of one perturbation-mode call, counted as
     ``euler3d_work`` counts them. RHS mode reads dq, q0, rhs0, the metric,
     the delta and base halos and writes rhs0 + delta; tangent mode reads
@@ -505,19 +569,27 @@ def euler3d_pert_work(con, tangent: bool = False):
     perturbation traces once (and the direction's in tangent mode), the
     pointwise deltas (~330 + 40 s a point; tangent ~430 + 44 s), ~200
     operations a face point for the delta Rusanov flux and its face
-    corrections (tangent ~280 with the linearised flux)."""
+    corrections (tangent ~280 with the linearised flux). Stage mode adds
+    the combination b*dq + cdt*out (and a*x: x read once) a value; the
+    delta traces read the base traces and write the output's, 14 s + 4
+    operations an edge face point and variable row (the extrapolation, and
+    for rho and rho*theta the log1p of the quotient and t0*expm1)."""
     nh, nk, s = con.nel_h, con.nel_v, con.s
     s2, s3 = s * s, s**3
     n_elem, item = 6 * nk * nh * nh, torch.finfo(con.dtype).bits // 8
-    words = 4 * 5 * n_elem * s3  # dq, q0, rhs0 or v, out
+    state, edge = 5 * n_elem * s3, 5 * 4 * 6 * nk * nh * s2
+    words = 4 * state  # dq, q0, rhs0 or v, out
     words += con.fields.numel() + (con.tch.numel() if con.tch is not None else 0)
     words += con.itf_x.numel() + con.itf_y.numel() + con.itf_z.numel()
-    words += (3 if tangent else 2) * 5 * 4 * 6 * nk * nh * s2  # halos
+    words += (3 if tangent else 2) * edge  # halos
+    words += (state if use_x else 0) + (2 * edge if traces else 0)  # x; traces0 and the traces
     if tangent:
         per_elem = s3 * (430 + 44 * s) + 6 * s2 * 3 * (10 * s + 4) + 3 * s2 * 280
     else:
         per_elem = s3 * (330 + 40 * s) + 6 * s2 * 2 * (10 * s + 4) + 3 * s2 * 200
-    return words * item, n_elem * per_elem
+    ops = n_elem * per_elem + state * ((2 if stage else 0) + (2 if use_x else 0))
+    ops += edge * (14 * s + 4) if traces else 0
+    return words * item, ops
 
 
 # ---------------------------------------------------------------------------

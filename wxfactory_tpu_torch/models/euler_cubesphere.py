@@ -10,8 +10,9 @@ torch halo glue.
 The returned object is the RHS ``q -> dq/dt`` and exposes the fused stage
 API the explicit integrators chain (the same as ``ShallowWaterRHS``):
 ``stage(x, y, a, b, cdt, traces)`` returns ``a*x + b*y + cdt*RHS(y)`` and
-the output's panel-edge traces, one operator launch per RK stage;
-``traces(q)`` bootstraps the chain; ``pack``/``unpack`` are the identity.
+the output's panel-edge traces, one operator launch per RK stage, on the
+packed states ``pack(q)``; ``traces`` bootstraps the chain; in absolute
+form ``pack``/``unpack`` are the identity.
 The exponential integrators' Jacobian action J(q).v comes in two stages,
 as the JAX package's ``jtv_prep``/``jtv_apply`` (models/
 euler_cubesphere.py:846-888 there): ``jtv_prep(q)`` once per linearisation
@@ -23,7 +24,13 @@ form, as the JAX package's ``rhs_pert``/``rhs_fast`` (models/
 euler_cubesphere.py:674-720, :827-899 there): the absolute state goes in,
 ``rhs0 + delta`` comes out, and the Jacobian action is the kernel's
 perturbation tangent mode, J(q0 + dq).v — the float32 companion of the
-mixed-precision Krylov loop.
+mixed-precision Krylov loop. There ``pack(q) = q - q0`` and ``unpack(dq) =
+q0 + dq``, and ``stage``/``traces`` work on the packed deltas (the JAX
+package's ``packed_stage_chained`` with ``pert=``, :797-822 and :889-899
+there): one launch of the kernel's perturbation stage mode a stage, which
+emits the output's delta traces — the JAX package's production float32
+explicit point (bench.py:623-685). The integrators step the absolute
+trajectory exactly, since every TVD-RK3 and Euler stage has a + b = 1.
 The JAX factory's ``advection_only`` (DCMIP 11/12) and ``extra_forcing``
 (DCMIP 21/22) run through XLA there, not through its kernel; the port's
 ``initial_state_3d`` refuses those cases (ROADMAP queue 1, item 9).
@@ -102,7 +109,10 @@ class Euler3DRHS:
         return self.pert.q0 if self.pert is not None else None
 
     def traces(self, q: torch.Tensor) -> torch.Tensor:
-        """Panel-edge traces of ``q`` (5, 4, 6, nk, nh, s^2): the chain's bootstrap."""
+        """Panel-edge traces of a packed state (5, 4, 6, nk, nh, s^2): the
+        chain's bootstrap (delta traces in perturbation form)."""
+        if self.pert is not None:
+            return edge_traces_delta(q, self.pert, self.con)
         return edge_traces(q, self.con)
 
     def halo(self, traces: torch.Tensor) -> torch.Tensor:
@@ -110,7 +120,7 @@ class Euler3DRHS:
 
     def __call__(self, q: torch.Tensor) -> torch.Tensor:
         if self.pert is not None:
-            return self.delta((q - self.pert.q0.to(q.dtype)).to(self.dtype))
+            return self.delta(self.pack(q))
         return euler3d_operator(q, self.halo(self.traces(q)), self.con, bal=self.bal)
 
     def delta(self, qprime: torch.Tensor) -> torch.Tensor:
@@ -121,17 +131,15 @@ class Euler3DRHS:
         return euler3d_operator(qprime, halo, self.con, pert=self.pert)
 
     def stage(self, x, y, a: float, b: float, cdt: float, traces: Optional[torch.Tensor] = None):
-        """One fused RK stage ``a*x + b*y + cdt*RHS(y)`` (``x`` unused when
-        ``a == 0``); ``traces`` are y's panel-edge traces (bootstrapped when
-        None). Returns (output, output traces). Absolute form only: the
-        perturbation form's stage and emitted delta traces are not ported
-        (ROADMAP queue 1)."""
-        if self.pert is not None:
-            raise NotImplementedError("the perturbation form's fused RK stage is not ported (ROADMAP queue 1)")
+        """One fused RK stage ``a*x + b*y + cdt*RHS(y)`` on packed states
+        (``x`` unused when ``a == 0``); ``traces`` are y's panel-edge traces
+        (bootstrapped when None). Returns (output, output traces): in
+        perturbation form the stage combination of deltas and the output's
+        delta traces, from one launch of the perturbation stage mode."""
         if traces is None:
             traces = self.traces(y)
         return euler3d_operator(y, self.halo(traces), self.con, x=x, a=a, b=b, cdt=cdt, bal=self.bal,
-                                emit_traces=True)
+                                emit_traces=True, pert=self.pert)
 
     def jtv_prep(self, q: torch.Tensor):
         """What every Jacobian action at ``q`` shares: (the operator's state
@@ -159,11 +167,16 @@ class Euler3DRHS:
     def jtv(self, q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         return self.jtv_apply(self.jtv_prep(q), v)
 
-    @staticmethod
-    def pack(q: torch.Tensor) -> torch.Tensor:
-        return q
+    def pack(self, q: torch.Tensor) -> torch.Tensor:
+        """The integrators' state: q itself, or q - q0 in the working dtype
+        in perturbation form (q0 in q's dtype)."""
+        if self.pert is None:
+            return q
+        return (q - self.pert.q0.to(q.dtype)).to(self.dtype).contiguous()
 
-    @staticmethod
-    def unpack(q: torch.Tensor) -> torch.Tensor:
-        return q
+    def unpack(self, qp: torch.Tensor) -> torch.Tensor:
+        """The model-layout state of a packed one: q0 + dq in perturbation form."""
+        if self.pert is None:
+            return qp
+        return self.pert.q0 + qp
 

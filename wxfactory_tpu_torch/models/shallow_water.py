@@ -107,6 +107,16 @@ class ShallowWaterRHS:
         (what the JAX package's ``rhs_pert.xla`` is)."""
         return sw_operator(q, self.halo(self.traces(q)), self.con)
 
+    def jtv_prep(self, q: torch.Tensor):
+        """The SW operator has no Jacobian action in the port: no tangent
+        kernel, and ``torch.func.jvp`` cannot pass through a kernel. An
+        integrator that asks for one (EPI, Ros2, a float32 companion) raises
+        here instead of differentiating another form of the operator."""
+        raise NotImplementedError(
+            "the shallow-water operator has no Jacobian action in the port (no tangent kernel; torch.func.jvp "
+            "cannot pass through a kernel): ROADMAP queue 1, item 5"
+        )
+
     def stage(self, x, y, a: float, b: float, cdt: float, traces: Optional[torch.Tensor] = None):
         """One fused RK stage ``a*x + b*y + cdt*RHS(y)`` on packed states
         (``x`` unused when ``a == 0``); ``traces`` are y's panel-edge traces

@@ -48,6 +48,9 @@ every nonlinear site is expanded exactly around it (``expm1``/``log1p`` of
 the log-space rows and the pressure, product rules elsewhere), so the
 hydrostatic cancellation never has to survive float32 rounding.
 ``euler3d_operator(dq, halo_dq, con, pert=base)`` returns ``rhs0 + delta``
+(in stage mode the stage combination of perturbations, with the output's
+delta traces when asked: ``km3_fused(pert=, x=, cdt=, stage_a=, stage_b=,
+emit_slabs=True)``, the TVD-RK3 chain of the float32 perturbation form)
 and ``euler3d_tangent(dq, v, halo_dq, halo_v, con, pert=base)`` returns
 J(q0 + dq).v; the halo glue is ``edge_traces_delta`` (the delta traces,
 ``t0 * expm1(E.log1p(dq/q0))`` for the log-space rows) and, for the
@@ -66,12 +69,15 @@ import torch
 from ..common.constants import GRAVITY, HEAT_CAPACITY_RATIO, P0, RD
 
 # Kernel launches made by ``euler3d_operator`` and ``euler3d_tangent`` in
-# absolute and perturbation form, and calls of the plain tangents (a run on
-# the card must make none).
+# absolute and perturbation form (the perturbation form's RHS-mode and
+# stage-mode launches apart), and calls of the plain operators and of the
+# plain tangents (a run on the card must make none).
 launches = 0
 tangent_launches = 0
 pert_launches = 0
+pert_stage_launches = 0
 pert_tangent_launches = 0
+plain_calls = 0
 plain_tangent_calls = 0
 
 # Names of the single-panel interior fields, in the order of ``fields``
@@ -328,7 +334,10 @@ def euler3d_operator_plain(q, halo, con: E3Constants, x=None, a: float = 0.0, b:
                            cdt: Optional[float] = None, bal=None, emit_traces: bool = False):
     """Plain torch version of the operator; same arguments and results as
     ``euler3d_operator`` (written from the JAX package's
-    models/euler_cubesphere.py:90-291, dense 3D operators)."""
+    models/euler_cubesphere.py:90-291, dense 3D operators). Counted in
+    ``plain_calls``."""
+    global plain_calls
+    plain_calls += 1
     s3 = con.s**3
     fld = con.fields
     sqrtg, invsg, invdz = fld[0], fld[1], fld[2]
@@ -404,13 +413,20 @@ def euler3d_operator_plain(q, halo, con: E3Constants, x=None, a: float = 0.0, b:
 
     if bal is not None:
         out = out + bal
-    if cdt is not None:
-        out = b * q + cdt * out
-        if a != 0.0:
-            out = a * x + out
+    out = _stage(out, q, x, a, b, cdt)
     if emit_traces:
         return out, edge_traces(out, con)
     return out
+
+
+def _stage(out, q, x, a: float, b: float, cdt: Optional[float]):
+    """The RK stage combination ``a*x + b*q + cdt*out`` of the plain
+    versions (``x`` read only when ``a != 0``); ``out`` itself in RHS mode
+    (``cdt is None``)."""
+    if cdt is None:
+        return out
+    out = b * q + cdt * out
+    return a * x + out if a != 0.0 else out
 
 
 # ---------------------------------------------------------------------------
@@ -424,8 +440,8 @@ class E3PertBase:
     pallas_euler3d.py:1847-1896, and of ``_euler3d_base_intermediates``,
     models/euler_cubesphere.py:294-354, in the model layout), computed in
     float64 once and cast to the working dtype. The kernel reads ``q0``,
-    ``rhs0`` and ``halo0``; the glue ``traces0``; the plain version the
-    rest."""
+    ``rhs0``, ``halo0`` and (for the delta traces it emits) ``traces0``;
+    the glue ``traces0``; the plain version the rest."""
 
     q0: torch.Tensor  # (5, 6, nk, ny, nx, s^3) base state
     rhs0: torch.Tensor  # its float64 RHS
@@ -439,7 +455,7 @@ class E3PertBase:
 
     @property
     def tensors(self):
-        return {"q0": self.q0, "rhs0": self.rhs0, "halo0": self.halo0}
+        return {"q0": self.q0, "rhs0": self.rhs0, "halo0": self.halo0, "traces0": self.traces0}
 
 
 def build_pert_base(q0: torch.Tensor, con64: E3Constants, topology, dtype) -> E3PertBase:
@@ -491,15 +507,22 @@ def edge_traces_delta(dq: torch.Tensor, pert: E3PertBase, con: E3Constants) -> t
     return torch.cat([t0[0:1] * torch.expm1(raw[0:1]), raw[1:4], t0[4:5] * torch.expm1(raw[4:5])])
 
 
-def euler3d_operator_pert_plain(dq, halo, con: E3Constants, pert: E3PertBase):
-    """Plain torch version of the perturbation RHS mode: ``rhs0 +
-    [RHS(q0 + dq) - RHS(q0)]`` with the bracket expanded term by term
-    around the base (the JAX package's ``_euler3d_rhs_core_pert`` with
-    ``delta_input``, models/euler_cubesphere.py:357-623). ``halo`` is the
-    halo of ``edge_traces_delta(dq)``. The JAX package writes
+def euler3d_operator_pert_plain(dq, halo, con: E3Constants, pert: E3PertBase, x=None, a: float = 0.0,
+                                b: float = 1.0, cdt: Optional[float] = None, emit_traces: bool = False):
+    """Plain torch version of the perturbation mode: ``rhs0 + [RHS(q0 +
+    dq) - RHS(q0)]`` with the bracket expanded term by term around the base
+    (the JAX package's ``_euler3d_rhs_core_pert`` with ``delta_input``,
+    models/euler_cubesphere.py:357-623). ``halo`` is the halo of
+    ``edge_traces_delta(dq)``. Stage mode (``cdt``) returns ``a*x + b*dq +
+    cdt*(rhs0 + delta)`` on perturbations (``_km3_body``'s epilogue,
+    pallas_euler3d.py:1568-1578); ``emit_traces`` adds the output's delta
+    traces ``edge_traces_delta(out)``. The JAX package writes
     ``log1p``/``expm1`` as compensated formulas (pallas_euler3d.py:726-736,
     Mosaic lacks them); torch has them, which moves results by ~1 ulp of
-    the small arguments, far below every tolerance the tests state."""
+    the small arguments, far below every tolerance the tests state.
+    Counted in ``plain_calls``."""
+    global plain_calls
+    plain_calls += 1
     s3 = con.s**3
     fld = con.fields
     sqrtg, invsg, invdz = fld[0], fld[1], fld[2]
@@ -607,7 +630,10 @@ def euler3d_operator_pert_plain(dq, halo, con: E3Constants, pert: E3PertBase):
     out[1] -= dforcing_row(0)
     out[2] -= dforcing_row(1)
     out[3] -= dforcing_row(2) + dgrav
-    return pert.rhs0 + out
+    out = _stage(pert.rhs0 + out, dq, x, a, b, cdt)
+    if emit_traces:
+        return out, edge_traces_delta(out, pert, con)
+    return out
 
 
 def euler3d_tangent_pert_plain(dq, v, halo_dq, halo_v, con: E3Constants, pert: E3PertBase):
@@ -647,14 +673,15 @@ def _check(q, halo, con: E3Constants, x, a: float, bal, cdt, emit_traces: bool, 
     if bal is not None:
         tensors["bal"] = (bal, con.state_shape)
     if pert is not None:
-        if cdt is not None or bal is not None or emit_traces:
-            raise ValueError("the perturbation form runs in RHS mode only (no stage, bal or traces)")
+        if bal is not None:
+            raise ValueError("the perturbation form takes no well-balanced offset bal (its base RHS is rhs0)")
         tensors.update(_pert_tensors(con, pert))
     _check_tensors(con, tensors)
 
 
 def _pert_tensors(con: E3Constants, pert: E3PertBase) -> dict:
-    shapes = {"q0": con.state_shape, "rhs0": con.state_shape, "halo0": con.traces_shape}
+    shapes = {"q0": con.state_shape, "rhs0": con.state_shape, "halo0": con.traces_shape,
+              "traces0": con.traces_shape}
     return {name: (t, shapes[name]) for name, t in pert.tensors.items()}
 
 
@@ -678,19 +705,22 @@ def euler3d_operator(q, halo, con: E3Constants, x=None, a: float = 0.0, b: float
     RHS mode (``cdt is None``): returns RHS(q) (+ ``bal`` when given).
     Stage mode: returns ``a*x + b*q + cdt*(RHS(q) + bal)`` (``x`` is read
     only when ``a != 0``). With ``emit_traces`` also returns the output's
-    panel-edge traces (5, 4, 6, nk, nh, s^2). With ``pert`` (RHS mode only)
+    panel-edge traces (5, 4, 6, nk, nh, s^2). With ``pert`` (no ``bal``)
     ``q`` is the perturbation dq around ``pert.q0`` and ``halo`` the halo of
     its delta traces (``edge_traces_delta``): returns RHS(q0 + dq) as
-    ``rhs0 + delta``.
+    ``rhs0 + delta``; in stage mode ``x`` and the output are perturbations
+    too, and the traces the output's delta traces. Perturbation launches
+    count in ``pert_stage_launches`` in stage mode, else in
+    ``pert_launches``.
 
     A CPU tensor runs ``euler3d_operator_plain`` (``euler3d_operator_pert_plain``);
     a CUDA tensor launches the kernel (built from csrc/euler3d_operator.cu at
     first use) on the current stream, without synchronising, or raises."""
-    global launches, pert_launches
+    global launches, pert_launches, pert_stage_launches
     _check(q, halo, con, x, a, bal, cdt, emit_traces, pert)
     if q.device.type == "cpu":
         if pert is not None:
-            return euler3d_operator_pert_plain(q, halo, con, pert)
+            return euler3d_operator_pert_plain(q, halo, con, pert, x=x, a=a, b=b, cdt=cdt, emit_traces=emit_traces)
         return euler3d_operator_plain(q, halo, con, x=x, a=a, b=b, cdt=cdt, bal=bal, emit_traces=emit_traces)
     if q.device.type != "cuda":
         raise ValueError(f"euler3d_operator runs on cpu or cuda tensors, not {q.device}")
@@ -709,17 +739,19 @@ def euler3d_operator(q, halo, con: E3Constants, x=None, a: float = 0.0, b: float
             1 if q.dtype == torch.float64 else 0, con.s, con.nel_h, con.nel_v,
             _ptr(q), _ptr(halo), _ptr(con.ops1d), _ptr(con.fields), _ptr(con.tch),
             _ptr(con.itf_x), _ptr(con.itf_y), _ptr(con.itf_z), _ptr(x if use_x else None), _ptr(bal),
-            _ptr(base.get("q0")), _ptr(base.get("halo0")), _ptr(base.get("rhs0")),
+            _ptr(base.get("q0")), _ptr(base.get("halo0")), _ptr(base.get("rhs0")), _ptr(base.get("traces0")),
             _ptr(out), _ptr(traces), float(a), float(b), float(cdt if cdt is not None else 0.0),
             1 if cdt is not None else 0, ctypes.c_void_p(stream),
         )
     if rc != 0:
         name = lib.euler3d_operator_error_string(rc).decode()
         raise RuntimeError(f"euler3d_operator kernel launch failed: CUDA error {rc} ({name})")
-    if pert is not None:
-        pert_launches += 1
-    else:
+    if pert is None:
         launches += 1
+    elif cdt is not None:
+        pert_stage_launches += 1
+    else:
+        pert_launches += 1
     return (out, traces) if emit_traces else out
 
 

@@ -85,7 +85,8 @@ def profile_calls(fn, repeats: int = 1, top: int = 8) -> dict:
     """Device busy share of ``repeats`` calls of ``fn`` (each ending with the
     card's work enqueued) under torch.profiler: host wall time a call with a
     final synchronize, device time a call (kernels and copies), its share of
-    the wall time, device operations a call and the largest kernels."""
+    the wall time, device operations a call, the largest kernels and the
+    device time by ``kernel_class``."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -97,16 +98,18 @@ def profile_calls(fn, repeats: int = 1, top: int = 8) -> dict:
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels, ops = {}, 0
+    kernels, ops, classes = {}, 0, {}
     for ev in prof.key_averages():
         if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0:
             kernels[ev.key] = kernels.get(ev.key, 0.0) + ev.self_device_time_total / repeats
             ops += ev.count
+    for k, v in kernels.items():
+        classes[kernel_class(k)] = classes.get(kernel_class(k), 0.0) + v
     busy_us = sum(kernels.values())
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1])[:top]
     return {"wall_ms": wall * 1e3 / repeats, "device_busy_us": busy_us,
             "device_busy_share": busy_us * 1e-6 * repeats / wall, "device_ops": ops / repeats,
-            "kernels_us": [{"name": k[:90], "us": v} for k, v in ranked]}
+            "kernels_us": [{"name": k[:90], "us": v} for k, v in ranked], "classes_us": classes}
 
 
 def kernel_class(name: str) -> str:

@@ -4,8 +4,9 @@ Counterpart of ``wxfactory_tpu/simulation.py`` for the cubed sphere:
 shallow water (Williamson cases 2 and 6) and 3D Euler (DCMIP cases 31 and
 77) with the explicit integrators (euler1, tvdrk3), and 3D Euler with the
 exponential ones (epi2..6, epi_stiff3..6, with kiops or the device-resident
-kiops_jit, and with ``mixed_precision_krylov`` the float32 perturbation-form
-companion of the Krylov loop), the step loop with the end-time clamp, the
+kiops_jit) and Ros2 (with fgmres or the device-resident fgmres_jit), with
+``mixed_precision_krylov`` the float32 perturbation-form companion of the
+device solvers' Krylov loop, the step loop with the end-time clamp, the
 NaN/Inf guard, ``device_step_chunk`` (equal steps run back to back with the
 guard and outputs at the chunk's end), checkpoints and blockstats (shallow
 water only, as in the JAX package). The device comes from the
@@ -23,7 +24,7 @@ from .common import device as _device
 from .common.device import resolve_device
 from .config import Configuration, load_configuration
 from .geometry import make_cubed_sphere_2d, make_cubed_sphere_3d, make_metric_2d, make_metric_3d
-from .integrators import Epi, EpiStiff, Euler1, Tvdrk3
+from .integrators import Epi, EpiStiff, Euler1, Ros2, Tvdrk3
 from .models import Euler3DRHS, make_rhs_shallow_water
 from .ops.dfr import make_dfr_operators
 from .output import OutputManager
@@ -89,8 +90,8 @@ class Simulation:
         # The float32 companion of the Krylov loop (mixed_precision_krylov):
         # the perturbation form around the initial state, whose Jacobian
         # action is the kernel's perturbation tangent mode (the JAX package's
-        # simulation.py:140-162; 3D Euler only: shallow-water EPI is not
-        # ported, and the forcing cases are refused above).
+        # simulation.py:140-162; 3D Euler only: shallow-water EPI and Ros2
+        # are not ported, and the forcing cases are refused above).
         self.rhs32 = None
         if getattr(c, "mixed_precision_krylov", False) and self.dtype == torch.float64:
             if c.equations == "euler" and c.case_number >= 13:
@@ -130,13 +131,16 @@ class Simulation:
             return Euler1(self.rhs, verbose=c.verbose_solver)
         if name == "tvdrk3":
             return Tvdrk3(self.rhs, verbose=c.verbose_solver)
-        if name.startswith("epi"):
+        if name.startswith("epi") or name == "ros2":
             if c.equations != "euler":
                 raise NotImplementedError(
                     f"{c.time_integrator} on shallow water is not ported yet: the SW operator has no "
                     "Jacobian-action kernel, and torch.func.jvp cannot pass through a kernel (ROADMAP "
                     "queue 1, item 5)"
                 )
+            if name == "ros2":
+                return Ros2(self.rhs, tolerance=c.tolerance, gmres_restart=c.gmres_restart,
+                            linear_solver=c.linear_solver, rhs32=self.rhs32, verbose=c.verbose_solver)
             common = dict(tolerance=c.tolerance, exponential_solver=c.exponential_solver,
                           krylov_size=max(c.krylov_size, 1), verbose=c.verbose_solver,
                           rhs32=self.rhs32)
@@ -148,7 +152,8 @@ class Simulation:
             return Epi(self.rhs, order, init_substeps=(10 if order >= 3 else 1), **common)
         raise NotImplementedError(
             f"time integrator {c.time_integrator!r} is not ported yet (the port runs euler1, tvdrk3 "
-            "and, on 3D Euler, epi/epi_stiff with kiops or kiops_jit; Ros2 is ROADMAP queue 1, item 11)"
+            "and, on 3D Euler, epi/epi_stiff with kiops or kiops_jit and ros2 with fgmres or fgmres_jit; "
+            "the others are ROADMAP queue 1, item 12)"
         )
 
     # ------------------------------------------------------------------
