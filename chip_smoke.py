@@ -143,7 +143,36 @@ and drives the port's two main paths, shallow water and 3D Euler:
 24. time at 20x20x20, s=3 of the perturbation stage kernel against its
     plain version and its bound, f64 and f32, and of an FGMRES inner
     iteration split into basis products, tangent kernel and the rest,
-    float64 and mixed.
+    float64 and mixed;
+25. the tile kernels (one tile of the tile-parallel step, the ports of
+    km_tile and km3_tile) against their plain versions, absolute and
+    perturbation form, RHS and stages with a = 0 and a != 0, float64 and
+    float32: SW at (nt, s) = (4,3), (8,4), (32,3) on a tile of a 2x2 mesh
+    and (64,4) on a whole panel; 3D at (nt, nk, s) = (2,3,2), (5,8,3),
+    (10,20,3) and the rotating planet at (2,3,3) on 2x2 meshes, (20,20,3)
+    on a whole panel (tolerances in kernels/check.py, _compare_tile);
+26. the tile-parallel TVD-RK3 step with every tile in one process, 100
+    steps: SW case 6 at nel=64, s=3, dt=10 s (float64 and float32
+    absolute, float32 perturbation) and dcmip31 at 20x20x20, s=3, dt=0.1
+    s (float64 absolute, float32 perturbation), each at N=1 and N=2;
+    exactly 3 * 6N^2 tile launches a step, no other operator, halo or
+    edge launch and no plain call; against the port's global chain on the
+    card (float64 within 1e-12 of each variable's max; float32 within
+    5e-3 of each variable's change over the run, the bench's gate), a
+    finite state and mass drift within the global chain's gates (float32
+    absolute, which has none: twice the global chain's own drift); steps/s,
+    grid points/s, device busy share and launches a step;
+27. the CLI with 6 ranks sharing the card (``python -m wxfactory_tpu_torch
+    cfg.ini --coordinator ... --num-processes 6 --process-id r``, gloo,
+    halos staged through host memory, distribute = shard_map): case 6 at
+    nel=16, s=3 and dcmip31 at 12x12x3, s=2, float64; rank 0's last
+    checkpoint within 1e-12 of a single-process run's, and the wall time
+    (host-bound by the staging);
+28. the card's time a call of the tile kernels at the tiles of phase 26
+    (SW nt = 64 and 32, s=3; 3D nt = 20 and 10, nk = 20, s=3), the stage
+    the step launches (x, traces), float64 absolute and float32 (absolute
+    and perturbation for SW, perturbation for 3D), beside the bound of
+    kernels/check.py's *_tile_work and the plain version's time.
 
 Each phase prints one JSON line; then the kernels line, the card's
 ``nvidia-smi`` name and power limit, and last the result line. Any failure
@@ -155,6 +184,7 @@ import contextlib
 import glob
 import io
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -169,6 +199,10 @@ KERNEL_SOURCES = ["sw_operator", "euler3d_operator", "sw_run"]
 E3_SHAPES = [(3, 2, 2, 31), (12, 3, 2, 31), (4, 2, 3, 31), (20, 20, 3, 31), (4, 4, 4, 31), (3, 2, 5, 31),
              (2, 2, 6, 31), (4, 2, 3, 77)]
 E3_MAIN = (20, 20, 3)
+# Tile steps of phase 26: (nel, s, dt) of case 6 and (nel_h, nel_v, s, dt) of dcmip31.
+SW_TILE_MAIN = (64, 3, 10.0)
+E3_TILE_MAIN = E3_MAIN + (0.1,)
+TILE_STEPS = 100
 WORK = ROOT / "build" / "chip_smoke"
 # Peak rates of one H100 SXM (NVIDIA's data sheet): HBM bytes/s, and FLOP/s
 # outside the tensor cores by type.
@@ -228,11 +262,11 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def emit_comparison(phase: int, rows, shape_keys) -> None:
+def emit_comparison(phase: int, rows, shape_keys, tag: str = "") -> None:
     """One line per (shape, dtype) with the worst scaled error over the
-    modes; every row goes to build/chip_smoke/phase<N>.json."""
+    modes; every row goes to build/chip_smoke/phase<N><tag>.json."""
     WORK.mkdir(parents=True, exist_ok=True)
-    (WORK / f"phase{phase}.json").write_text(json.dumps(rows, indent=1))
+    (WORK / f"phase{phase}{tag}.json").write_text(json.dumps(rows, indent=1))
     summary = {}
     for r in rows:
         key = tuple(r[k] for k in shape_keys) + (r["dtype"],)
@@ -348,6 +382,7 @@ def reset_counts():
     swop.launches = e3op.launches = e3op.tangent_launches = e3op.plain_tangent_calls = 0
     swop.pert_launches = swop.edge_launches = swop.halo_launches = swop.run_launches = swop.plain_calls = 0
     e3op.pert_launches = e3op.pert_stage_launches = e3op.pert_tangent_launches = e3op.plain_calls = 0
+    swop.tile_launches = swop.pert_tile_launches = e3op.tile_launches = e3op.pert_tile_launches = 0
     matvec.jacobian_actions = device.host_syncs = 0
 
 
@@ -363,6 +398,8 @@ def read_counts():
             "euler3d_tangent": e3op.tangent_launches, "euler3d_pert": e3op.pert_launches,
             "euler3d_pert_stage": e3op.pert_stage_launches, "euler3d_pert_tangent": e3op.pert_tangent_launches,
             "euler3d_plain_calls": e3op.plain_calls, "plain_tangent_calls": e3op.plain_tangent_calls,
+            "sw_tile": swop.tile_launches, "sw_pert_tile": swop.pert_tile_launches,
+            "euler3d_tile": e3op.tile_launches, "euler3d_pert_tile": e3op.pert_tile_launches,
             "jacobian_actions": matvec.jacobian_actions, "host_syncs": device.host_syncs}
 
 
@@ -1703,6 +1740,280 @@ def phase24(torch, smi):
     return next(r for r in rows if r["dtype"] == "float32")
 
 
+def phase25(torch):
+    """The tile kernels against their plain versions."""
+    from wxfactory_tpu_torch.kernels.check import E3_TILE_SHAPES, SW_TILE_SHAPES, compare_euler3d_tile, compare_sw_tile
+
+    sw_rows, e3_rows = [], []
+    for nt, s, n in SW_TILE_SHAPES:
+        for dtype in (torch.float64, torch.float32):
+            sw_rows += compare_sw_tile(nt, s, n, dtype, device="cuda")
+    for shape in E3_TILE_SHAPES:
+        for dtype in (torch.float64, torch.float32):
+            e3_rows += compare_euler3d_tile(*shape, dtype, device="cuda")
+    emit_comparison(25, sw_rows, ("nt", "s", "n"), "_sw")
+    emit_comparison(25, e3_rows, ("nt", "nk", "s", "case", "n"), "_euler3d")
+    bad = [r for r in sw_rows + e3_rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"tile kernel disagrees with its plain version: {bad}")
+    # The main path's tiles: N = 2 of phase 26's shapes, float64.
+    sw_main = (SW_TILE_MAIN[0] // 2, SW_TILE_MAIN[1], 2, "float64")
+    e3_main = (E3_MAIN[0] // 2, E3_MAIN[1], E3_MAIN[2], 2, "float64")
+    return {"sw_tile": max(r["max_abs_err"] for r in sw_rows if (r["nt"], r["s"], r["n"], r["dtype"]) == sw_main),
+            "euler3d_tile": max(r["max_abs_err"] for r in e3_rows
+                                if (r["nt"], r["nk"], r["s"], r["n"], r["dtype"]) == e3_main)}
+
+
+def _tile_run(torch, model, n, dtype, pert):
+    """One tile-parallel run on the card with every tile in this process:
+    TILE_STEPS steps of the tile step, its launches, state, mass and rates,
+    and the port's global chain of the same form beside it."""
+    from wxfactory_tpu_torch.integrators import Tvdrk3
+    from wxfactory_tpu_torch.kernels.check import euler3d_setup, per_variable_max, sw_setup
+    from wxfactory_tpu_torch.models import Euler3DRHS, ShallowWaterRHS
+    from wxfactory_tpu_torch.output import global_mass_3d
+    from wxfactory_tpu_torch.output.diagnostics import global_integral_2d
+    from wxfactory_tpu_torch.parallel import TileMesh
+    from wxfactory_tpu_torch.parallel.mesh import tile_view
+    from wxfactory_tpu_torch.parallel.shard_map_euler3d_fused import make_shard_map_euler3d_step_fused
+    from wxfactory_tpu_torch.parallel.shard_map_sw_fused import make_shard_map_sw_step_fused
+    from wxfactory_tpu_torch.profile import profile_calls
+
+    f64 = dtype == torch.float64
+    if model == "sw":
+        nel, s, dt = SW_TILE_MAIN
+        geom, ops, metric, topology, q0 = sw_setup(nel, s)
+        make, chain_rhs, shape = make_shard_map_sw_step_fused, ShallowWaterRHS, {"nel": nel, "s": s}
+        points, nvar, limit = 6 * nel * nel * s * s, 3, 1e-10 if f64 else MASS_DRIFT_F32
+        mass = lambda q: global_integral_2d(q[0].double().cpu().numpy(), ops, metric)
+        tile_keys, other = ("sw_tile", "sw_pert_tile"), ("sw_operator", "sw_pert", "sw_edges", "sw_halo", "sw_run")
+    else:
+        nel_h, nel_v, s, dt = E3_TILE_MAIN
+        nel = nel_h
+        geom, ops, metric, topology, q0 = euler3d_setup(nel_h, nel_v, s, 31)
+        make, chain_rhs = make_shard_map_euler3d_step_fused, Euler3DRHS
+        shape = {"nel_h": nel_h, "nel_v": nel_v, "s": s}
+        points, nvar, limit = 6 * nel_v * nel_h * nel_h * s**3, 5, 1e-11 if f64 else MASS_DRIFT_F32
+        mass = lambda q: global_mass_3d(q.double().cpu().numpy(), ops, metric)
+        tile_keys = ("euler3d_tile", "euler3d_pert_tile")
+        other = ("euler3d_operator", "euler3d_pert", "euler3d_pert_stage", "euler3d_tangent")
+    base = q0 if pert else None
+    t0 = time.perf_counter()
+    step = make(geom, ops, metric, TileMesh(n), dt, dtype=dtype, perturbation_base=base, device="cuda",
+                topology=topology)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    q_init = torch.as_tensor(q0, dtype=dtype, device="cuda")
+
+    def run():
+        q = q_init
+        for _ in range(TILE_STEPS):
+            q = step(q)
+        return q
+
+    step(q_init)  # first launches (library load) outside the timed run
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    q = run()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = read_counts()
+    want = {k: 0 for k in other + ("sw_plain_calls", "euler3d_plain_calls")}
+    want[tile_keys[1 if pert else 0]] = 3 * 6 * n * n * TILE_STEPS
+    want[tile_keys[0 if pert else 1]] = 0
+    got = {k: counts[k] for k in want}
+    name = f"{model} {'f64' if f64 else 'f32'} {'perturbation' if pert else 'absolute'} N={n}"
+    if got != want:
+        raise AssertionError(f"tile step {name}: launches {got}, expected {want}")
+    if not bool(torch.isfinite(q).all()):
+        raise AssertionError(f"tile step {name}: state not finite")
+    if pert:  # the mass of q0 + the carried perturbation, in float64
+        delta = torch.zeros(q0.shape, dtype=torch.float64, device="cuda")
+        for i, pos in enumerate(step.positions):
+            tile_view(delta, *pos, step.nt).copy_(step._cache[1][i])
+        qm = torch.as_tensor(q0, device="cuda") + delta
+    else:
+        qm = q
+    mass0 = mass(torch.as_tensor(q0) if pert else q_init)  # the run's own start (q_init is rounded to dtype)
+    drift = (mass(qm) - mass0) / mass0
+    prof = profile_calls(run)
+    integ, qc = Tvdrk3(chain_rhs(geom, ops, metric, dtype=dtype, device="cuda", topology=topology,
+                                 perturbation_base=base)), q_init
+    for _ in range(TILE_STEPS):
+        qc = integ.step(qc, dt)
+    chain_m = torch.as_tensor(q0, device="cuda") + integ._cache[1].double() if pert else qc
+    chain_drift = (mass(chain_m) - mass0) / mass0
+    if not (f64 or pert):
+        # The float32 absolute form rounds the absolute state each stage and
+        # has no mass gate of its own: the tile step may drift no more than
+        # twice the global chain does.
+        limit = max(limit, 2.0 * abs(chain_drift))
+    if not abs(drift) < limit:
+        raise AssertionError(f"tile step {name}: mass drift {drift} (global chain {chain_drift}), limit {limit}")
+    lead = (nvar,) + (1,) * (q.ndim - 1)
+    if f64:
+        err = float(((q - qc).abs() / per_variable_max(qc).reshape(lead)).max())
+        tol = 1e-12
+    else:
+        change = per_variable_max((qc.double() - q_init.double())).reshape(lead)
+        err = float(((q.double() - qc.double()).abs() / change).max())
+        tol = GATE_REL
+    if not err <= tol:
+        raise AssertionError(f"tile step {name}: {err} from the global chain, limit {tol}")
+    return dict(shape, model=model, n=n, tiles=6 * n * n, nt=nel // n, dtype=str(dtype).replace("torch.", ""),
+                form="perturbation" if pert else "absolute", dt=dt, steps=TILE_STEPS, points=points,
+                setup_s=setup_s, run_s=elapsed, steps_per_s=TILE_STEPS / elapsed,
+                gridpoints_per_s=points * 3 * TILE_STEPS / elapsed,
+                tile_launches_per_step=got[tile_keys[1 if pert else 0]] / TILE_STEPS,
+                device_busy_share=prof["device_busy_share"] if prof["device_ops"] > 0 else None,
+                device_ops_per_step=prof["device_ops"] / TILE_STEPS, kernels_us=prof["kernels_us"][:3],
+                mass_drift=drift, global_chain_mass_drift=chain_drift, mass_limit=limit,
+                err_vs_global_chain=err, tol=tol,
+                err_scale="variable max" if f64 else "variable change over the run")
+
+
+def phase26(torch):
+    """The tile-parallel step at full width, every tile in this process."""
+    rows = []
+    for model, forms in (("sw", ((torch.float64, False), (torch.float32, False), (torch.float32, True))),
+                         ("euler3d", ((torch.float64, False), (torch.float32, True)))):
+        for dtype, pert in forms:
+            for n in (1, 2):
+                rows.append(_tile_run(torch, model, n, dtype, pert))
+    emit({"phase": 26, "results": rows})
+    launches = lambda model: sum(r["tile_launches_per_step"] * r["steps"] for r in rows if r["model"] == model)
+    return {"sw_tile": int(launches("sw")), "euler3d_tile": int(launches("euler3d"))}
+
+
+CLI_RANKS = 6
+
+
+def _cli_ranks(torch, text, tag, last_step):
+    """``python -m wxfactory_tpu_torch`` with CLI_RANKS processes sharing
+    the card (gloo, host-staged halos), against one process in this one;
+    every child is killed on the way out."""
+    import socket
+
+    from wxfactory_tpu_torch.config import Configuration
+    from wxfactory_tpu_torch.output.state import load_state
+    from wxfactory_tpu_torch.simulation import Simulation
+
+    states = {}
+    for mode in ("ranks", "single"):
+        out_dir = WORK / f"phase27_{tag}_{mode}"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        for old in glob.glob(str(out_dir / "state_vector_*")):
+            Path(old).unlink()
+        ini_text = text.format(out=out_dir, dist="shard_map" if mode == "ranks" else "off")
+        if mode == "single":
+            with contextlib.redirect_stdout(io.StringIO()):
+                Simulation(Configuration(ini_text), device="cuda").run()
+        else:
+            ini = WORK / f"phase27_{tag}.ini"
+            ini.write_text(ini_text)
+            with socket.socket() as sock:
+                sock.bind(("localhost", 0))
+                port = sock.getsockname()[1]
+            env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+            procs, logs = [], []
+            t0 = time.perf_counter()
+            try:
+                for r in range(CLI_RANKS):
+                    logs.append(open(WORK / f"phase27_{tag}_rank{r}.log", "w+"))
+                    procs.append(subprocess.Popen(
+                        [sys.executable, "-m", "wxfactory_tpu_torch", str(ini), "--coordinator", f"localhost:{port}",
+                         "--num-processes", str(CLI_RANKS), "--process-id", str(r)],
+                        cwd=ROOT, env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+                codes = [p.wait(timeout=300) for p in procs]
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+                for fh in logs:
+                    fh.close()
+            wall = time.perf_counter() - t0
+            log0 = (WORK / f"phase27_{tag}_rank0.log").read_text()
+            if codes != [0] * CLI_RANKS:
+                raise AssertionError(f"{tag}: ranks exited with {codes}:\n{log0[-3000:]}")
+            run = re.search(r"Completed (\d+) steps in (\S+) s \((\S+) steps/s\)", log0)
+            backend = re.search(r"distributed: .*", log0)
+            if run is None or backend is None or "gloo" not in backend.group(0):
+                raise AssertionError(f"{tag}: rank 0's log lacks the run or the backend line:\n{log0[-3000:]}")
+        files = glob.glob(str(out_dir / f"state_vector_*.{last_step:08d}.npy"))
+        if len(files) != 1:
+            raise AssertionError(f"{tag} {mode}: checkpoint files {files}")
+        states[mode] = load_state(files[0])[0]
+    want = states["single"]
+    scale = abs(want).reshape(want.shape[0], -1).max(axis=1).reshape((-1,) + (1,) * (want.ndim - 1))
+    err = float((abs(states["ranks"] - want) / scale).max())
+    if not err <= 1e-12:
+        raise AssertionError(f"{tag}: the {CLI_RANKS}-rank checkpoint is {err} of scale from the single run's")
+    return {"case": tag, "ranks": CLI_RANKS, "steps": int(run.group(1)), "wall_s": wall,
+            "run_s": float(run.group(2)), "steps_per_s": float(run.group(3)), "backend": backend.group(0),
+            "err_vs_single_process": err, "tol": 1e-12}
+
+
+def phase27(torch):
+    """The CLI with 6 ranks on the one card."""
+    with_dist = lambda text: text.replace("precision = float64", "precision = float64\ndistribute = {dist}")
+    case6 = with_dist(CASE6_INI.format(dt=20, t_end=400, nel=16, save=20, out="{out}"))
+    dcmip31 = with_dist(DCMIP31_INI.format(dt=0.5, t_end=10, s=2, nel_h=12, nel_v=3, save=20, out="{out}",
+                                           integrator="tvdrk3", verbose=0))
+    rows = [_cli_ranks(torch, case6, "case6", 20), _cli_ranks(torch, dcmip31, "dcmip31", 20)]
+    emit({"phase": 27, "results": rows,
+          "note": "each rank is a process with its own CUDA context on the one card; gloo takes host tensors, so "
+                  "every halo exchange copies the traces to the host and back: the run is host-bound"})
+
+
+def phase28(torch, smi):
+    """The card's time a call of the tile kernels at the tiles of phase 26."""
+    from wxfactory_tpu_torch.kernels import check
+    from wxfactory_tpu_torch.ops import euler3d_operator as e3op
+    from wxfactory_tpu_torch.ops import sw_operator as swop
+
+    def bound(work, name):
+        nbytes, ops = work
+        b = {"bytes": nbytes / PEAK_BYTES * 1e3, "operations": ops / PEAK_FLOPS[name] * 1e3}
+        return {"bytes": nbytes, "ops": ops, "bound_ms": max(b.values()), "bound_by": max(b, key=b.get)}
+
+    rows = []
+    nel, s, dt = SW_TILE_MAIN
+    for n in (1, 2):
+        con64, base64, inputs64, _ = check.sw_tile_inputs(nel // n, s, n, "cuda")
+        for dtype, pert in ((torch.float64, False), (torch.float32, False), (torch.float32, True)):
+            name = str(dtype).replace("torch.", "")
+            con, base = check.cast_constants(con64, dtype), check.cast_constants(base64, dtype)
+            inp = {k: v.to(dtype) for k, v in inputs64.items()}
+            y, h, x = (inp["dq"], inp["halo_dq"], inp["dx"]) if pert else (inp["y"], inp["halo_y"], inp["x"])
+            kw = dict(x=x, a=0.75, b=0.25, cdt=0.25 * dt, emit_traces=True, base=base if pert else None)
+            times = _pair_ms(torch, lambda: swop.sw_tile_operator(y, h, con, **kw),
+                             lambda: swop.sw_tile_operator_plain(y, h, con, **kw))
+            work = check.sw_tile_work(nel // n, s, dtype, stage=True, use_x=True, traces=True, pert=pert)
+            rows.append(dict({"kernel": "sw_tile", "nt": nel // n, "s": s, "n": n, "dtype": name,
+                              "mode": ("pert_" if pert else "") + "stage_x_traces"}, **times, **bound(work, name)))
+    nel_h, nel_v, s, dt = E3_TILE_MAIN
+    for n in (1, 2):
+        con64, pert64, inputs64, _ = check.euler3d_tile_inputs(nel_h // n, nel_v, s, 31, n, "cuda")
+        for dtype, pert in ((torch.float64, False), (torch.float32, True)):
+            name = str(dtype).replace("torch.", "")
+            con, base = check.cast_constants(con64, dtype), check.cast_constants(pert64, dtype)
+            inp = {k: v.to(dtype) for k, v in inputs64.items()}
+            y, h, x = (inp["dq"], inp["halo_dq"], inp["dx"]) if pert else (inp["y"], inp["halo_y"], inp["x"])
+            kw = dict(x=x, a=0.75, b=0.25, cdt=0.25 * dt, emit_traces=True, pert=base if pert else None)
+            times = _pair_ms(torch, lambda: e3op.euler3d_tile_operator(y, h, con, **kw),
+                             lambda: e3op.euler3d_tile_operator_plain(y, h, con, **kw), n=10, n_plain=3)
+            work = check.euler3d_tile_work(con, pert=pert, stage=True, use_x=True, traces=True)
+            rows.append(dict({"kernel": "euler3d_tile", "nt": nel_h // n, "nk": nel_v, "s": s, "n": n,
+                              "dtype": name, "mode": ("pert_" if pert else "") + "stage_x_traces"},
+                             **times, **bound(work, name)))
+    emit({"phase": 28, "gpu": smi, "timing": "*_ms: the card's time a call (calls queued behind a sleep kernel, "
+          "CUDA events); *_event_ms: CUDA events around single calls, median", "results": rows})
+    main = lambda kernel, nt: next(r for r in rows if (r["kernel"], r["nt"], r["dtype"]) == (kernel, nt, "float64"))
+    return {"sw_tile": main("sw_tile", SW_TILE_MAIN[0] // 2), "euler3d_tile": main("euler3d_tile", E3_MAIN[0] // 2)}
+
+
 def sw_bound():
     import torch
 
@@ -1753,6 +2064,10 @@ def main() -> int:
     stage_launches = phase22(torch)
     phase23(torch)
     stage_timing = phase24(torch, smi)
+    tile_err = phase25(torch)
+    tile_launches = phase26(torch)
+    phase27(torch)
+    tile_timing = phase28(torch, smi)
     sw_bound_ms, sw_bound_by = sw_bound()
     sw_entry = lambda name, mode, replaces, source="wxfactory_tpu_torch/csrc/sw_operator.cu": {
         "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": sw_counts[name],
@@ -1788,6 +2103,15 @@ def main() -> int:
          "plain_ms": stage_timing["plain_ms"], "bound_ms": stage_timing["bound_ms"],
          "bound_by": stage_timing["bound_by"], "library_ms": None},
     ]
+    for name, source, replaces in (
+            ("sw_tile", "wxfactory_tpu_torch/csrc/sw_operator.cu", "wxfactory_tpu/ops/pallas_sw_gen.py:822"),
+            ("euler3d_tile", "wxfactory_tpu_torch/csrc/euler3d_operator.cu",
+             "wxfactory_tpu/ops/pallas_euler3d.py:2543")):
+        t = tile_timing[name]
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": tile_launches[name], "max_abs_err": tile_err[name], "ms": t["kernel_ms"],
+                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                        "library_ms": None})
     unmeasured = [k["name"] for k in kernels if not (k["ms"] > 0 and k["plain_ms"] > 0 and k["launches"] > 0)]
     if unmeasured:
         raise AssertionError(f"kernels without a time, a plain time or a launch on the main path: {unmeasured}")

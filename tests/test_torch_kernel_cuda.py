@@ -1,6 +1,7 @@
 """The port's CUDA kernels (SW operator and its perturbation mode, the SW
 halo, edge-trace and whole-run kernels, 3D Euler operator, its tangent
-mode and the perturbation form of both, with its stage mode) against their plain torch versions, on the card. Needs a CUDA device and nvcc, and skips without them. On a GPU
+mode and the perturbation form of both, with its stage mode, and the tile kernels of both models with the
+tile steps' launch counts) against their plain torch versions, on the card. Needs a CUDA device and nvcc, and skips without them. On a GPU
 machine run it without tests/conftest.py (which configures JAX):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernel_cuda.py
@@ -12,7 +13,13 @@ import pytest
 import torch
 
 from wxfactory_tpu_torch.kernels.check import (
+    E3_TILE_SHAPES,
+    SW_TILE_SHAPES,
     case6_inputs,
+    compare_euler3d_tile,
+    compare_sw_tile,
+    euler3d_setup,
+    sw_setup,
     compare_euler3d_operator,
     compare_euler3d_pert,
     compare_euler3d_pert_stage,
@@ -171,3 +178,44 @@ def test_sw_counters_count_kernel_launches_only(cuda):
     torch.cuda.synchronize()
     assert counts() == (before[0], before[1] + 3, before[2] + 1, before[3] + 3, before[4] + 1)
     assert swop.plain_calls == plain
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("nt,s,n", SW_TILE_SHAPES)
+def test_sw_tile_kernel_matches_plain(cuda, nt, s, n, dtype):
+    rows = compare_sw_tile(nt, s, n, dtype, device="cuda")
+    assert all(r["ok"] for r in rows), rows
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("nt,nk,s,case,n", E3_TILE_SHAPES)
+def test_euler3d_tile_kernel_matches_plain(cuda, nt, nk, s, case, n, dtype):
+    rows = compare_euler3d_tile(nt, nk, s, case, n, dtype, device="cuda")
+    assert all(r["ok"] for r in rows), rows
+
+
+@pytest.mark.parametrize("n", [1, 2])
+def test_tile_steps_count_one_launch_a_tile_and_stage(cuda, n):
+    from wxfactory_tpu_torch.parallel import TileMesh
+    from wxfactory_tpu_torch.parallel.shard_map_euler3d_fused import make_shard_map_euler3d_step_fused
+    from wxfactory_tpu_torch.parallel.shard_map_sw_fused import make_shard_map_sw_step_fused
+
+    geom, ops, metric, topology, q0 = sw_setup(8, 3)
+    step = make_shard_map_sw_step_fused(geom, ops, metric, TileMesh(n), 30.0, dtype=torch.float64, device="cuda",
+                                        topology=topology)
+    before, plain = (swop.launches, swop.tile_launches, swop.pert_tile_launches), swop.plain_calls
+    step(step(torch.as_tensor(q0, device="cuda")))
+    torch.cuda.synchronize()
+    assert (swop.launches, swop.tile_launches, swop.pert_tile_launches) == (
+        before[0], before[1] + 2 * 3 * 6 * n * n, before[2])
+    assert swop.plain_calls == plain
+
+    geom, ops, metric, topology, q0 = euler3d_setup(4, 3, 2, 31)
+    step = make_shard_map_euler3d_step_fused(geom, ops, metric, TileMesh(n), 1.0, dtype=torch.float32,
+                                             perturbation_base=q0, device="cuda", topology=topology)
+    before, plain = (e3op.launches, e3op.tile_launches, e3op.pert_tile_launches), e3op.plain_calls
+    step(step(torch.as_tensor(q0, dtype=torch.float32, device="cuda")))
+    torch.cuda.synchronize()
+    assert (e3op.launches, e3op.tile_launches, e3op.pert_tile_launches) == (
+        before[0], before[1], before[2] + 2 * 3 * 6 * n * n)
+    assert e3op.plain_calls == plain

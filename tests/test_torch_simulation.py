@@ -98,7 +98,10 @@ def test_cuda_request_without_cuda_raises(tmp_path):
     [
         ("time_integrator = tvdrk3", "time_integrator = epi3"),
         ("case_number = 6", "case_number = 5"),
-        ("distribute = off", "distribute = shard_map"),
+        # One process has no 6N^2 tile mesh: distribute = shard_map there is a
+        # configuration error (ValueError, as in the JAX package;
+        # tests/test_torch_distributed.py); the GSPMD analogue is unported.
+        ("distribute = off", "distribute = gspmd"),
     ],
     ids=["integrator", "topography-case", "distribution"],
 )

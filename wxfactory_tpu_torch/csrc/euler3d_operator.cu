@@ -10,6 +10,19 @@
 // euler3d_operator.py::euler3d_operator_plain; the wrapper euler3d_operator
 // there launches this kernel.
 //
+// Tile mode (C entry euler3d_tile_launch): the same kernel with a panel count
+// of 1 instead of 6 replaces pallas_euler3d.py::km3_tile, the per-rank kernel
+// of the tile-parallel step (parallel/shard_map_euler3d_fused.py): one nt x nt
+// tile of columns of one panel, all four horizontal edges from the halo, the
+// tile's slices of the metric and of its own panel's time Christoffels, the
+// absolute and perturbation modes, stage combination and all four sides'
+// traces (km3_tile emits W/E only). A tile edge inside a panel behaves as a
+// panel edge: its halo is the neighbour tile's emitted trace, which the
+// emission computes in the fma order of the re-extrapolation (nb_trace) the
+// whole-sphere launch does at that interface. Plain version: ops/
+// euler3d_operator.py::euler3d_tile_operator_plain; wrapper:
+// euler3d_tile_operator.
+//
 // Layouts (C order, T = float or double; nh = nel_h, nk = nel_v):
 //   q, x, bal, out  (5, 6*nk*nh*nh, s^3)   element (panel, ez, ey, ex),
 //                                          node (kz*s + ky)*s + kx
@@ -379,7 +392,7 @@ __global__ void __launch_bounds__(kThreads) euler3d_operator_kernel(
     const T* __restrict__ itf_y, const T* __restrict__ itf_z, const T* __restrict__ x,
     const T* __restrict__ bal, const T* __restrict__ q0, const T* __restrict__ halo0,
     const T* __restrict__ rhs0, const T* __restrict__ traces0, T* __restrict__ out, T* __restrict__ traces,
-    int nh, int nk, T a, T b, T cdt, int stage) {
+    int nh, int nk, int npanel, T a, T b, T cdt, int stage) {
   using Sh = Shape<T, S, PERT>;
   constexpr int S2 = Sh::S2, S3 = Sh::S3, NF = Sh::NF;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -396,12 +409,12 @@ __global__ void __launch_bounds__(kThreads) euler3d_operator_kernel(
   const int e_loc = tid / S3;
   const int j = tid - e_loc * S3;
   const int per_panel = nk * nh * nh;
-  const int p = blockIdx.x % 6;
-  const int pe = (blockIdx.x / 6) * Sh::EB + e_loc;
+  const int p = blockIdx.x % npanel;
+  const int pe = (blockIdx.x / npanel) * Sh::EB + e_loc;
   const bool valid = pe < per_panel;
   const long long elem = (long long)p * per_panel + pe;
-  const long long nq = 6LL * per_panel * S3;        // stride between variables
-  const long long fstride = (long long)per_panel * S3;  // stride between metric fields
+  const long long nq = (long long)npanel * per_panel * S3;  // stride between variables
+  const long long fstride = (long long)per_panel * S3;      // stride between metric fields
 
   T* sQ = smem + Sh::N_OPS + e_loc * Sh::PER_ELEM;
   T* sLog = sQ + Sh::OFF_LOG;
@@ -512,8 +525,8 @@ __global__ void __launch_bounds__(kThreads) euler3d_operator_kernel(
       int hside, along;
       long long nb_elem;
       face_neighbour(face, nh, nk, kz, ey, ex, elem, boundary, hside, along, nb_elem);
-      const long long h = ((((long long)(hside)*6 + p) * nk + kz) * nh + along) * S2 + k;
-      const long long hv = 4LL * 6 * nk * nh * S2;  // stride between halo variables
+      const long long h = ((((long long)(hside)*npanel + p) * nk + kz) * nh + along) * S2 + k;
+      const long long hv = 4LL * npanel * nk * nh * S2;  // stride between halo variables
       const T* coef = pos ? sEp : sEn;
       const T* ncoef = pos ? sEn : sEp;  // the neighbour's facing face: its positive face when ours is negative
       T sg, h0, h1, h2;
@@ -774,7 +787,7 @@ __global__ void __launch_bounds__(kThreads) euler3d_operator_kernel(
 #pragma unroll
         for (int v = 0; v < 5; ++v) {
           const bool lg = v == 0 || v == 4;
-          const long long t = ((((long long)(v * 4 + tside) * 6 + p) * nk + kz) * nh + along) * S2 + k;
+          const long long t = ((((long long)(v * 4 + tside) * npanel + p) * nk + kz) * nh + along) * S2 + k;
           T acc = T(0);
 #pragma unroll
           for (int i = 0; i < S; ++i) {
@@ -808,7 +821,7 @@ cudaError_t configure(Kernel kernel, size_t smem, bool& configured) {
 }
 
 template <typename T, int S, bool PERT>
-cudaError_t launch(int nh, int nk, const void* q, const void* halo, const void* ops,
+cudaError_t launch(int nh, int nk, int npanel, const void* q, const void* halo, const void* ops,
                    const void* fields, const void* tch, const void* itf_x, const void* itf_y,
                    const void* itf_z, const void* x, const void* bal, const void* q0, const void* halo0,
                    const void* rhs0, const void* traces0, void* out, void* traces, double a, double b,
@@ -819,32 +832,55 @@ cudaError_t launch(int nh, int nk, const void* q, const void* halo, const void* 
   cudaError_t err = configure(euler3d_operator_kernel<T, S, PERT>, smem, configured);
   if (err != cudaSuccess) return err;
   const int per_panel = nk * nh * nh;
-  const int blocks = 6 * ((per_panel + Sh::EB - 1) / Sh::EB);
+  const int blocks = npanel * ((per_panel + Sh::EB - 1) / Sh::EB);
   euler3d_operator_kernel<T, S, PERT><<<blocks, Sh::EB * Sh::S3, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(halo), static_cast<const T*>(ops),
       static_cast<const T*>(fields), static_cast<const T*>(tch), static_cast<const T*>(itf_x),
       static_cast<const T*>(itf_y), static_cast<const T*>(itf_z), static_cast<const T*>(x),
       static_cast<const T*>(bal), static_cast<const T*>(q0), static_cast<const T*>(halo0),
       static_cast<const T*>(rhs0), static_cast<const T*>(traces0), static_cast<T*>(out), static_cast<T*>(traces),
-      nh, nk, T(a), T(b), T(cdt), stage);
+      nh, nk, npanel, T(a), T(b), T(cdt), stage);
   return cudaGetLastError();
 }
 
 template <typename T, bool PERT>
-cudaError_t dispatch(int s, int nh, int nk, const void* q, const void* halo, const void* ops,
+cudaError_t dispatch(int s, int nh, int nk, int npanel, const void* q, const void* halo, const void* ops,
                      const void* fields, const void* tch, const void* itf_x, const void* itf_y,
                      const void* itf_z, const void* x, const void* bal, const void* q0, const void* halo0,
                      const void* rhs0, const void* traces0, void* out, void* traces, double a, double b,
                      double cdt, int stage, cudaStream_t stream) {
 #define E3_CASE(S)                                                                                 \
   case S:                                                                                          \
-    return launch<T, S, PERT>(nh, nk, q, halo, ops, fields, tch, itf_x, itf_y, itf_z, x, bal, q0,  \
+    return launch<T, S, PERT>(nh, nk, npanel, q, halo, ops, fields, tch, itf_x, itf_y, itf_z, x, bal, q0,  \
                               halo0, rhs0, traces0, out, traces, a, b, cdt, stage, stream);
   switch (s) {
     E3_CASE(2) E3_CASE(3) E3_CASE(4) E3_CASE(5) E3_CASE(6)
     default: return cudaErrorInvalidValue;
   }
 #undef E3_CASE
+}
+
+int operator_launch(int npanel, int is_f64, int s, int nh, int nk, const void* q, const void* halo,
+                    const void* ops, const void* fields, const void* tch, const void* itf_x, const void* itf_y,
+                    const void* itf_z, const void* x, const void* bal, const void* q0, const void* halo0,
+                    const void* rhs0, const void* traces0, void* out, void* traces, double a, double b, double cdt,
+                    int stage, void* stream) {
+  const bool pert = q0 != nullptr;
+  if (pert && (halo0 == nullptr || rhs0 == nullptr || bal != nullptr || (traces != nullptr && traces0 == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (is_f64)
+    err = pert ? dispatch<double, true>(s, nh, nk, npanel, q, halo, ops, fields, tch, itf_x, itf_y, itf_z, x, bal,
+                                        q0, halo0, rhs0, traces0, out, traces, a, b, cdt, stage, st)
+               : dispatch<double, false>(s, nh, nk, npanel, q, halo, ops, fields, tch, itf_x, itf_y, itf_z, x, bal,
+                                         q0, halo0, rhs0, traces0, out, traces, a, b, cdt, stage, st);
+  else
+    err = pert ? dispatch<float, true>(s, nh, nk, npanel, q, halo, ops, fields, tch, itf_x, itf_y, itf_z, x, bal,
+                                       q0, halo0, rhs0, traces0, out, traces, a, b, cdt, stage, st)
+               : dispatch<float, false>(s, nh, nk, npanel, q, halo, ops, fields, tch, itf_x, itf_y, itf_z, x, bal,
+                                        q0, halo0, rhs0, traces0, out, traces, a, b, cdt, stage, st);
+  return (int)err;
 }
 
 // ---------------------------------------------------------------------------
@@ -1394,22 +1430,26 @@ extern "C" int euler3d_operator_launch(int is_f64, int s, int nh, int nk, const 
                                        const void* halo0, const void* rhs0, const void* traces0, void* out,
                                        void* traces, double a, double b, double cdt, int stage, void* stream) {
   if (nh < 2 || nk < 1) return (int)cudaErrorInvalidValue;
-  const bool pert = q0 != nullptr;
-  if (pert && (halo0 == nullptr || rhs0 == nullptr || bal != nullptr || (traces != nullptr && traces0 == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (is_f64)
-    err = pert ? dispatch<double, true>(s, nh, nk, q, halo, ops, fields, tch, itf_x, itf_y, itf_z, x, bal, q0,
-                                        halo0, rhs0, traces0, out, traces, a, b, cdt, stage, st)
-               : dispatch<double, false>(s, nh, nk, q, halo, ops, fields, tch, itf_x, itf_y, itf_z, x, bal, q0,
-                                         halo0, rhs0, traces0, out, traces, a, b, cdt, stage, st);
-  else
-    err = pert ? dispatch<float, true>(s, nh, nk, q, halo, ops, fields, tch, itf_x, itf_y, itf_z, x, bal, q0,
-                                       halo0, rhs0, traces0, out, traces, a, b, cdt, stage, st)
-               : dispatch<float, false>(s, nh, nk, q, halo, ops, fields, tch, itf_x, itf_y, itf_z, x, bal, q0,
-                                        halo0, rhs0, traces0, out, traces, a, b, cdt, stage, st);
-  return (int)err;
+  return operator_launch(6, is_f64, s, nh, nk, q, halo, ops, fields, tch, itf_x, itf_y, itf_z, x, bal, q0, halo0,
+                         rhs0, traces0, out, traces, a, b, cdt, stage, stream);
+}
+
+// The same operator over ONE tile of nt x nt columns of nk elements (the port
+// of pallas_euler3d.py::km3_tile): the layouts above with one panel, so q, x,
+// out (5, nk*nt*nt, s^3), halo and traces (5, 4, 1, nk, nt, s^2) on all four
+// tile edges, fields (28, nk*nt*nt, s^3) the tile's slice of the one-panel
+// metric, tch (9, nk*nt*nt, s^3) the tile's slice of its own panel's time
+// Christoffels (or NULL), itf_x (4, nk, nt, nt+1, s^2), itf_y (4, nk, nt+1,
+// nt, s^2), itf_z (4, nk+1, nt, nt, s^2); the perturbation base likewise.
+extern "C" int euler3d_tile_launch(int is_f64, int s, int nt, int nk, const void* q, const void* halo,
+                                   const void* ops, const void* fields, const void* tch, const void* itf_x,
+                                   const void* itf_y, const void* itf_z, const void* x, const void* bal,
+                                   const void* q0, const void* halo0, const void* rhs0, const void* traces0,
+                                   void* out, void* traces, double a, double b, double cdt, int stage,
+                                   void* stream) {
+  if (nt < 1 || nk < 1) return (int)cudaErrorInvalidValue;
+  return operator_launch(1, is_f64, s, nt, nk, q, halo, ops, fields, tch, itf_x, itf_y, itf_z, x, bal, q0, halo0,
+                         rhs0, traces0, out, traces, a, b, cdt, stage, stream);
 }
 
 extern "C" const char* euler3d_operator_error_string(int code) {

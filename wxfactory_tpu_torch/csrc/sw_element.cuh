@@ -6,22 +6,25 @@
 // out in a fixed order, so the per-stage kernels and the whole-run kernel give
 // the same bits for the same inputs.
 //
-// Layouts (C order, T = float or double):
-//   q, x, out  (3, 6*nel*nel, s^2)   element (panel, ey, ex), node ky*s + kx
-//   halo       (3, 4, 6, nel, s)     neighbour traces, sides (S, N, W, E)
-//   traces     (3, 4, 6, nel, s)     a state's own panel-edge traces
+// Layouts (C order, T = float or double; P = npanel, 6 for the whole
+// cubed sphere, 1 for one tile of it, whose four edges all come from the halo):
+//   q, x, out  (3, P*nel*nel, s^2)   element (panel, ey, ex), node ky*s + kx
+//   halo       (3, 4, P, nel, s)     neighbour traces, sides (S, N, W, E)
+//   traces     (3, 4, P, nel, s)     a state's own panel-edge (tile-edge) traces
 //   ops        EE (s^2, 4s) | DD (2s^2, s^2) | CC (4s, s^2), faces (W, E, S, N)
-//   fields     (13, nel*nel, s^2)    one panel's metric (identical on all six)
-//   gridrot    (6*nel*nel, s^2)      panel-dependent factor of the time Christoffels
+//   fields     (13, nel*nel, s^2)    one panel's metric (identical on all six;
+//                                    a tile's slice of it for a tile)
+//   gridrot    (P*nel*nel, s^2)      panel-dependent factor of the time Christoffels
 //   itf_x      (3, nel, nel+1, s)    sqrt(g), H^11, H^21 at x1 interfaces
 //   itf_y      (3, nel+1, nel, s)    sqrt(g), H^22, H^12 at x2 interfaces
 // Perturbation form (the 14 base planes of pallas_sw_gen.build_base_planes in
 // the model layout): q0 (3, ...) and u0 = hu0/h0 (2, ...) at the nodes, itf0
-// (3, 6*nel*nel, 4s) the base state's face traces, halo0 (3, 4, 6, nel, s) its
+// (3, P*nel*nel, 4s) the base state's face traces, halo0 (3, 4, P, nel, s) its
 // halo, rhs0 (3, ...) its float64 RHS cast to T.
-// Halo tables: src (24) the neighbour's (side*6 + panel) row feeding each
-// (side*6 + panel) row, flip (24) 1 where that edge runs opposite, conv
-// (4, 24, nel*s) the 2x2 contravariant rotation c11, c12, c21, c22.
+// Halo tables (P = 6 only): src (24) the neighbour's (side*6 + panel) row
+// feeding each (side*6 + panel) row, flip (24) 1 where that edge runs
+// opposite, conv (4, 24, nel*s) the 2x2 contravariant rotation c11, c12, c21,
+// c22.
 
 #pragma once
 
@@ -160,6 +163,7 @@ struct OpArgs {
   const int* hflip;
   const T* hconv;
   int nel;
+  int npanel;  // 6: the whole cubed sphere; 1: one tile (HALO_FROM_TRACES needs 6)
   T a, b, cdt;
   int stage;  // 0: out = RHS(q)
 };
@@ -237,8 +241,9 @@ __device__ __forceinline__ void element_block(const OpArgs<T>& A, int blk, T* sm
   const int tid = threadIdx.x;
   const int e_loc = tid / S2;
   const int j = tid - e_loc * S2;
+  const int npanel = A.npanel;
   const int per_panel = nel * nel;
-  const int nelem = 6 * per_panel;
+  const int nelem = npanel * per_panel;
   const int elem = blk * Sh::EB + e_loc;
   const bool valid = e_loc < Sh::EB && elem < nelem;
   const long long nq = (long long)nelem * S2;           // stride between variables
@@ -319,8 +324,8 @@ __device__ __forceinline__ void element_block(const OpArgs<T>& A, int blk, T* sm
         case 2: at_edge = ey == 0;       nb_elem = elem - nel; nb_col = 3 * S + k; hside = 0; along = ex; break;
         default: at_edge = ey == nel - 1; nb_elem = elem + nel; nb_col = 2 * S + k; hside = 1; along = ex; break;
       }
-      const long long hidx = ((long long)(hside * 6 + p) * nel + along) * S + k;  // within one variable
-      const long long hvar = 24LL * npts;
+      const long long hidx = ((long long)(hside * npanel + p) * nel + along) * S + k;  // within one variable
+      const long long hvar = 4LL * npanel * npts;
       T own[3], nb[3];
       if (at_edge) {
         if constexpr (HALO_FROM_TRACES) {
@@ -414,7 +419,7 @@ __device__ __forceinline__ void element_block(const OpArgs<T>& A, int blk, T* sm
         if (on_edge) {
 #pragma unroll
           for (int v = 0; v < 3; ++v)
-            A.traces[v * 24LL * npts + ((long long)(tside * 6 + p) * nel + along) * S + k] =
+            A.traces[v * 4LL * npanel * npts + ((long long)(tside * npanel + p) * nel + along) * S + k] =
                 dot_col<T, S2>(sQ + v * S2, sEE, NF, fi);
         }
       }

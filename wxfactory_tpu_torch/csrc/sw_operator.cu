@@ -12,6 +12,15 @@
 // sw_operator_plain (sw_operator_pert_plain); the wrapper sw_operator there
 // launches this kernel.
 //
+// The same kernel with a panel count of 1 (C entry sw_tile_launch) replaces
+// pallas_sw_gen.py::km_tile, the per-rank kernel of the tile-parallel step
+// (parallel/shard_map_sw_fused.py): one nt x nt tile of one panel whose four
+// edges all take the halo, with the tile's own metric slice and gridrot. A
+// tile edge inside a panel then behaves as a panel edge does: the halo holds
+// the neighbour tile's emitted trace, computed in the same fma order as the
+// re-extrapolation the whole-sphere launch does there. Plain version:
+// ops/sw_operator.py::sw_tile_operator_plain; wrapper: sw_tile_operator.
+//
 // sw_edges_kernel replaces pallas_sw.py::ke_edges: the panel-edge traces
 // (3, 4, 6, nel, s) of a state, the chain's bootstrap (plain version:
 // ops/sw_operator.py::edge_traces). sw_halo_kernel replaces pallas_sw.py::
@@ -95,7 +104,7 @@ cudaError_t launch_operator(const OpArgs<T>& A, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  const int nelem = 6 * A.nel * A.nel;
+  const int nelem = A.npanel * A.nel * A.nel;
   const int blocks = (nelem + Sh::EB - 1) / Sh::EB;
   sw_operator_kernel<T, S, PERT><<<blocks, Sh::THREADS, smem, stream>>>(A);
   return cudaGetLastError();
@@ -133,7 +142,7 @@ cudaError_t dispatch_edges(int s, int nel, const void* q, const void* ops, void*
 }
 
 template <typename T>
-OpArgs<T> op_args(int nel, const void* q, const void* halo, const void* ops, const void* fields,
+OpArgs<T> op_args(int nel, int npanel, const void* q, const void* halo, const void* ops, const void* fields,
                   const void* gridrot, const void* itf_x, const void* itf_y, const void* x,
                   const void* q0, const void* u0, const void* itf0, const void* halo0, const void* rhs0,
                   void* out, void* traces, double a, double b, double cdt, int stage) {
@@ -154,11 +163,32 @@ OpArgs<T> op_args(int nel, const void* q, const void* halo, const void* ops, con
   A.halo0 = static_cast<const T*>(halo0);
   A.rhs0 = static_cast<const T*>(rhs0);
   A.nel = nel;
+  A.npanel = npanel;
   A.a = T(a);
   A.b = T(b);
   A.cdt = T(cdt);
   A.stage = stage;
   return A;
+}
+
+int operator_launch(int npanel, int is_f64, int s, int nel, const void* q, const void* halo, const void* ops,
+                    const void* fields, const void* gridrot, const void* itf_x, const void* itf_y, const void* x,
+                    const void* q0, const void* u0, const void* itf0, const void* halo0, const void* rhs0,
+                    void* out, void* traces, double a, double b, double cdt, int stage, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool pert = q0 != nullptr;
+  if (pert && (u0 == nullptr || itf0 == nullptr || halo0 == nullptr || rhs0 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      is_f64 ? dispatch_operator<double>(s, op_args<double>(nel, npanel, q, halo, ops, fields, gridrot, itf_x, itf_y,
+                                                            x, q0, u0, itf0, halo0, rhs0, out, traces, a, b, cdt,
+                                                            stage),
+                                         pert, st)
+             : dispatch_operator<float>(s, op_args<float>(nel, npanel, q, halo, ops, fields, gridrot, itf_x, itf_y,
+                                                          x, q0, u0, itf0, halo0, rhs0, out, traces, a, b, cdt,
+                                                          stage),
+                                        pert, st);
+  return (int)err;
 }
 
 }  // namespace
@@ -174,18 +204,25 @@ extern "C" int sw_operator_launch(int is_f64, int s, int nel, const void* q, con
                                   void* out, void* traces, double a, double b, double cdt, int stage,
                                   void* stream) {
   if (nel < 2) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool pert = q0 != nullptr;
-  if (pert && (u0 == nullptr || itf0 == nullptr || halo0 == nullptr || rhs0 == nullptr))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err =
-      is_f64 ? dispatch_operator<double>(s, op_args<double>(nel, q, halo, ops, fields, gridrot, itf_x, itf_y, x, q0,
-                                                            u0, itf0, halo0, rhs0, out, traces, a, b, cdt, stage),
-                                         pert, st)
-             : dispatch_operator<float>(s, op_args<float>(nel, q, halo, ops, fields, gridrot, itf_x, itf_y, x, q0,
-                                                          u0, itf0, halo0, rhs0, out, traces, a, b, cdt, stage),
-                                        pert, st);
-  return (int)err;
+  return operator_launch(6, is_f64, s, nel, q, halo, ops, fields, gridrot, itf_x, itf_y, x, q0, u0, itf0, halo0,
+                         rhs0, out, traces, a, b, cdt, stage, stream);
+}
+
+// The same operator over ONE tile of nt x nt elements (the port of
+// pallas_sw_gen.py::km_tile): the layouts above with one panel, so q, x, out
+// (3, nt*nt, s^2), halo and traces (3, 4, 1, nt, s) on all four tile edges,
+// fields (13, nt*nt, s^2) and gridrot (nt*nt, s^2) the tile's slices, itf_x
+// (3, nt, nt+1, s) and itf_y (3, nt+1, nt, s) the tile's interfaces; base
+// planes likewise.
+extern "C" int sw_tile_launch(int is_f64, int s, int nt, const void* q, const void* halo,
+                              const void* ops, const void* fields, const void* gridrot,
+                              const void* itf_x, const void* itf_y, const void* x, const void* q0,
+                              const void* u0, const void* itf0, const void* halo0, const void* rhs0,
+                              void* out, void* traces, double a, double b, double cdt, int stage,
+                              void* stream) {
+  if (nt < 1) return (int)cudaErrorInvalidValue;
+  return operator_launch(1, is_f64, s, nt, q, halo, ops, fields, gridrot, itf_x, itf_y, x, q0, u0, itf0, halo0,
+                         rhs0, out, traces, a, b, cdt, stage, stream);
 }
 
 // Panel-edge traces (3, 4, 6, nel, s) of q; ops as for sw_operator_launch

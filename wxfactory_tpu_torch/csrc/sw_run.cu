@@ -154,6 +154,7 @@ RunArgs<T> run_args(int nel, const void* q, const void* ops, const void* fields,
   A.hflip = static_cast<const int*>(flip);
   A.hconv = static_cast<const T*>(conv);
   A.nel = nel;
+  A.npanel = 6;
   R.buf[0] = static_cast<T*>(out);
   R.buf[1] = static_cast<T*>(buf1);
   R.buf[2] = static_cast<T*>(buf2);

@@ -6,6 +6,13 @@ port carries, so the port's setup functions accept them as they are. These helpe
 turn them into the port's tensors and constant structs on a given device,
 so a test can drive both packages from identical inputs. Nothing here
 imports JAX: arrays arrive as numpy (``np.asarray`` of a JAX array).
+
+The tile kernels' operands (``pallas_sw_gen.km_tile``,
+``pallas_euler3d.km3_tile``) come in the TPU's packed lane layouts; the
+``*_tile_*`` helpers invert those packings into the port's tile tensors
+(state, halos, emitted traces, base planes), given the packing's numbers
+(elements a row ``g``, and for 3D the y-slot lane offset) that the JAX
+package's ``plan``/``tile_plan`` chose.
 """
 
 import numpy as np
@@ -14,7 +21,7 @@ import torch
 from .models.euler_cubesphere import Euler3DRHS
 from .models.shallow_water import ShallowWaterRHS
 from .ops import euler3d_operator
-from .ops.sw_operator import SWConstants, build_constants
+from .ops.sw_operator import SWConstants, SWPertBase, build_constants
 
 
 def to_tensor(a, device="cpu", dtype=torch.float64) -> torch.Tensor:
@@ -53,3 +60,99 @@ def euler3d_rhs(geom, ops, metric, device="cpu", dtype=torch.float64, base_state
     numpy array as the JAX factory takes it)."""
     return Euler3DRHS(geom, ops, metric, dtype=dtype, device=device, base_state=base_state,
                       perturbation_base=perturbation_base)
+
+
+# ---------------------------------------------------------------------------
+# Tile operands of the TPU tile kernels
+
+
+def sw_tile_state(qp, nt: int, s: int, g: int, device="cpu", dtype=torch.float64) -> torch.Tensor:
+    """A packed SW tile (3 or more planes, (nt * nt/g) rows, 128 lanes; g
+    elements a row, as the tile step's ``pack_tile``) -> (V, 1, nt, nt, s^2)."""
+    qp = np.asarray(qp)
+    b = qp.reshape(qp.shape[0], nt, nt // g, 128)[..., : g * s * s]
+    return to_tensor(b.reshape(qp.shape[0], 1, nt, nt, s * s), device, dtype)
+
+
+def sw_tile_halo(hw, he, hs, hn, nt: int, s: int, device="cpu", dtype=torch.float64) -> torch.Tensor:
+    """km_tile's flat halo rows, each (1, 3, npl), -> the port's tile halo
+    (3, 4, 1, nt, s) in (S, N, W, E) order."""
+    rows = np.stack([np.asarray(h)[0, :, : nt * s] for h in (hs, hn, hw, he)], axis=1)
+    return to_tensor(rows.reshape(3, 4, 1, nt, s), device, dtype)
+
+
+def sw_tile_traces(we, ssl, nsl, nt: int, s: int, g: int, device="cpu", dtype=torch.float64) -> torch.Tensor:
+    """km_tile's emitted edge slabs (west/east, south, north) -> the tile's
+    edge traces (3, 4, 1, nt, s) in (S, N, W, E) order (the slab reading of
+    the JAX tile step's ``_traces_from_slabs``)."""
+    we, ssl, nsl = np.asarray(we), np.asarray(ssl), np.asarray(nsl)
+    npts, rpr = nt * s, nt // g
+    west = we[:, :nt, 0:s].reshape(3, npts)
+    east = we[:, :nt, s : 2 * s].reshape(3, npts)
+    south = ssl[:, :rpr, : g * s].reshape(3, npts)
+    north = nsl[:, :rpr, : g * s].reshape(3, npts)
+    return to_tensor(np.stack([south, north, west, east], axis=1).reshape(3, 4, 1, nt, s), device, dtype)
+
+
+def sw_tile_base(bp, hw0, he0, hs0, hn0, con: SWConstants, nt: int, s: int, g: int) -> SWPertBase:
+    """km_tile's 14 base planes ``bp`` (q0, u0, base traces, expanded base
+    halos, base RHS) with the base halo rows they were expanded from ->
+    the port's tile base: q0, u0 and rhs0 unpacked, the face traces
+    q0 @ EE in ``con``'s dtype, the base halo from the rows."""
+    planes = sw_tile_state(bp, nt, s, g, con.device, con.dtype)
+    q0 = planes[0:3].contiguous()
+    return SWPertBase(q0=q0, u0=planes[3:5].contiguous(), itf0=(q0 @ con.ee).contiguous(),
+                      halo0=sw_tile_halo(hw0, he0, hs0, hn0, nt, s, con.device, con.dtype),
+                      rhs0=planes[11:14].contiguous())
+
+
+def euler3d_tile_state(qp, nt: int, nk: int, s: int, g: int, device="cpu", dtype=torch.float64) -> torch.Tensor:
+    """A packed 3D tile (5, Rp, 128) (``pack_tile_jnp``) -> (5, 1, nk, nt,
+    nt, s^3) (``unpack_tile_jnp`` with the panel axis kept)."""
+    qp = np.asarray(qp)
+    rows, s3 = nt * nk * (nt // g), s**3
+    b = qp[:, :rows, : g * s3].reshape(5, nt, nk, nt, s3)
+    return to_tensor(np.moveaxis(b, 1, 2)[:, None], device, dtype)
+
+
+def euler3d_tile_halo(hwe, hs, hn, nt: int, nk: int, s: int, g: int, y_offset: int, device="cpu",
+                      dtype=torch.float64) -> torch.Tensor:
+    """km3_tile's formatted halos (``format_tile_halos``: hwe (5, nt*nk,
+    128) rows (ky, kz) with west faces at lanes [0, s^2) and east at [T -
+    s^2, T), T = 2 g s^2; hs/hn (5, nk*nt/g, 128) with element gg's faces at
+    lanes y_offset + 2 gg s^2, north ones s^2 further) -> the port's tile
+    halo (5, 4, 1, nk, nt, s^2) in (S, N, W, E) order."""
+    hwe, hs, hn = np.asarray(hwe), np.asarray(hs), np.asarray(hn)
+    ss, t = s * s, 2 * g * s * s
+    we = lambda lanes: np.swapaxes(hwe[:, : nt * nk, lanes].reshape(5, nt, nk, ss), 1, 2)
+    lanes = lambda off: np.concatenate([y_offset + 2 * gg * ss + off + np.arange(ss) for gg in range(g)])
+    sn = lambda h, off: h[:, : nk * (nt // g), lanes(off)].reshape(5, nk, nt, ss)
+    sides = [sn(hs, 0), sn(hn, ss), we(slice(0, ss)), we(slice(t - ss, t))]
+    return to_tensor(np.stack(sides, axis=1)[:, :, None], device, dtype)
+
+
+def euler3d_tile_we_traces(we, nt: int, nk: int, s: int, g: int, device="cpu", dtype=torch.float64):
+    """km3_tile's emitted west/east slabs (5, tynk_pad, 128) -> (west,
+    east) traces, each (5, nk, nt, s^2) (the JAX tile step's
+    ``we_from_slabs``)."""
+    we = np.asarray(we)
+    ss, t = s * s, 2 * g * s * s
+    rows = we[:, : nt * nk].reshape(5, nt, nk, 128)
+    side = lambda lanes: to_tensor(np.swapaxes(rows[..., lanes], 1, 2), device, dtype)
+    return side(slice(0, ss)), side(slice(t - ss, t))
+
+
+def euler3d_tile_base(q0p, rhs0p, hwe0, hs0, hn0, like: euler3d_operator.E3PertBase, nt: int, nk: int, s: int,
+                      g: int, y_offset: int) -> euler3d_operator.E3PertBase:
+    """km3_tile's perturbation base {q0, rhs0, hwe0, hs0, hn0} (packed and
+    formatted as its state and halos) -> the port's tile base: ``like`` (a
+    tile base from ``tile_pert_base`` on the same base state, for the fields
+    only the plain version reads) with q0, rhs0 and the base halo taken from
+    the JAX operands."""
+    import dataclasses
+
+    dev, dt = like.q0.device, like.q0.dtype
+    return dataclasses.replace(
+        like, q0=euler3d_tile_state(q0p, nt, nk, s, g, dev, dt), rhs0=euler3d_tile_state(rhs0p, nt, nk, s, g, dev, dt),
+        halo0=euler3d_tile_halo(hwe0, hs0, hn0, nt, nk, s, g, y_offset, dev, dt),
+    )

@@ -36,6 +36,8 @@ SIGNATURES = {
             + [_D, _D, _D, _I]  # a, b, cdt, stage
             + [_P],  # stream
         ),
+        # the same over one tile: is_f64, s, nt and the pointers of a tile
+        "sw_tile_launch": (_I, [_I, _I, _I] + [_P] * 15 + [_D, _D, _D, _I] + [_P]),
         "sw_edges_launch": (_I, [_I, _I, _I] + [_P] * 3 + [_P]),  # is_f64, s, nel, q, ops, traces, stream
         # is_f64, npts, traces, src, flip, conv, halo, stream
         "sw_halo_launch": (_I, [_I, _I] + [_P] * 5 + [_P]),
@@ -61,6 +63,8 @@ SIGNATURES = {
             + [_D, _D, _D, _I]  # a, b, cdt, stage
             + [_P],  # stream
         ),
+        # the same over one tile: is_f64, s, nt, nel_v and the pointers of a tile
+        "euler3d_tile_launch": (_I, [_I, _I, _I, _I] + [_P] * 16 + [_D, _D, _D, _I] + [_P]),
         "euler3d_tangent_launch": (
             _I,
             [_I, _I, _I, _I]  # is_f64, s, nel_h, nel_v

@@ -150,7 +150,7 @@ def compare_sw_operator(nel: int, s: int, dtype, device="cuda", seed: int = 0):
 
 
 def sw_work(nel: int, s: int, dtype, stage: bool = False, use_x: bool = False,
-            traces: bool = False, pert: bool = False):
+            traces: bool = False, pert: bool = False, npanel: int = 6):
     """(bytes, operations) of one SW operator call: each input read once,
     each output written once; the operations the function needs (an add,
     multiply, divide or sqrt is one, a fused multiply-add two), with each
@@ -161,15 +161,17 @@ def sw_work(nel: int, s: int, dtype, stage: bool = False, use_x: bool = False,
     from each of a node's four faces (the kernel's dense s^2 x s^2 products
     do s times that). The perturbation form (``pert``) also reads the 14
     base planes and does the delta expansion (~25 more operations a node,
-    ~50 more an interface point)."""
-    n_elem, s2, item = 6 * nel * nel, s * s, torch.finfo(dtype).bits // 8
+    ~50 more an interface point). ``npanel=1``: one nel x nel tile (the
+    tile kernel), which reads its own slice of the metric."""
+    n_elem, s2, item = npanel * nel * nel, s * s, torch.finfo(dtype).bits // 8
     state = 3 * n_elem * s2
     words = 2 * state + (state if use_x else 0)  # q, out, x
     words += 13 * nel * nel * s2 + n_elem * s2  # one-panel metric, gridrot
-    words += 2 * 3 * nel * (nel + 1) * s + 3 * 4 * 6 * nel * s * (2 if traces else 1)  # itf, halo, traces
+    edge = 3 * 4 * npanel * nel * s
+    words += 2 * 3 * nel * (nel + 1) * s + edge * (2 if traces else 1)  # itf, halo, traces
     node, face = 30, 40
     if pert:
-        words += 8 * n_elem * s2 + 3 * n_elem * 4 * s + 3 * 4 * 6 * nel * s  # q0, u0, rhs0, itf0, halo0
+        words += 8 * n_elem * s2 + 3 * n_elem * 4 * s + edge  # q0, u0, rhs0, itf0, halo0
         node, face = 55, 90
     # node: pointwise + 2 derivatives x 3 variables x s fma + 4 faces x 3
     # variables fma; interface point: 2 sides x 3 variables x s fma + flux
@@ -222,12 +224,12 @@ def euler3d_work(con, stage: bool = False, use_x: bool = False, use_bal: bool = 
     trace extrapolated once and each interface flux computed once."""
     nh, nk, s = con.nel_h, con.nel_v, con.s
     s2, s3 = s * s, s**3
-    n_elem, item = 6 * nk * nh * nh, torch.finfo(con.dtype).bits // 8
+    n_elem, item = con.npanel * nk * nh * nh, torch.finfo(con.dtype).bits // 8
     state = 5 * n_elem * s3
     words = state * (2 + (1 if use_x else 0) + (1 if use_bal else 0))  # q, out, x, bal
     words += con.fields.numel() + (con.tch.numel() if con.tch is not None else 0)
     words += con.itf_x.numel() + con.itf_y.numel() + con.itf_z.numel()
-    words += 5 * 4 * 6 * nk * nh * s2 * (2 if traces else 1)  # halo, traces
+    words += 5 * 4 * con.npanel * nk * nh * s2 * (2 if traces else 1)  # halo, traces
     per_elem = s3 * (263 + 38 * s) + 6 * s2 * (10 * s + 2) + 3 * s2 * 90
     ops = n_elem * per_elem + state * ((2 if stage else 0) + (2 if use_x else 0) + (1 if use_bal else 0))
     return words * item, ops
@@ -576,8 +578,8 @@ def euler3d_pert_work(con, tangent: bool = False, stage: bool = False, use_x: bo
     for rho and rho*theta the log1p of the quotient and t0*expm1)."""
     nh, nk, s = con.nel_h, con.nel_v, con.s
     s2, s3 = s * s, s**3
-    n_elem, item = 6 * nk * nh * nh, torch.finfo(con.dtype).bits // 8
-    state, edge = 5 * n_elem * s3, 5 * 4 * 6 * nk * nh * s2
+    n_elem, item = con.npanel * nk * nh * nh, torch.finfo(con.dtype).bits // 8
+    state, edge = 5 * n_elem * s3, 5 * 4 * con.npanel * nk * nh * s2
     words = 4 * state  # dq, q0, rhs0 or v, out
     words += con.fields.numel() + (con.tch.numel() if con.tch is not None else 0)
     words += con.itf_x.numel() + con.itf_y.numel() + con.itf_z.numel()
@@ -764,3 +766,192 @@ def compare_sw_run(nel: int, dtype, nsteps: int, pert: bool, device="cuda", dt: 
     row["ok"] = bool(np.isfinite(row["err"]) and row["err"] <= limit and row["chain_err"] <= limit
                      and torch.isfinite(got).all().item())
     return row
+
+
+# ---------------------------------------------------------------------------
+# Tile kernels (the tile-parallel step's per-tile launches)
+
+# (nt, s, N): tile width, solution points and the mesh whose tile is checked
+# (N = 2: a tile with two panel edges and two edges inside the panel).
+SW_TILE_SHAPES = ((4, 3, 2), (8, 4, 2), (32, 3, 2), (64, 4, 1))
+# (nt, nk, s, case, N); case 77 is the rotating planet (time Christoffels).
+E3_TILE_SHAPES = ((2, 3, 2, 31, 2), (5, 8, 3, 31, 2), (10, 20, 3, 31, 2), (20, 20, 3, 31, 1), (2, 3, 3, 77, 2))
+TILE_TOLERANCE = {torch.float64: 1e-12, torch.float32: 1e-5}
+
+
+def cast_constants(obj, dtype):
+    """A constants or base dataclass with its floating tensors cast."""
+    import dataclasses
+
+    cast = lambda v: v.to(dtype) if isinstance(v, torch.Tensor) and v.is_floating_point() else v
+    return dataclasses.replace(obj, **{f.name: cast(getattr(obj, f.name)) for f in dataclasses.fields(obj)})
+
+
+def checked_tile(n: int):
+    """The tile whose kernel is checked on a (6, n, n) mesh: panel 1's
+    north-west tile (at n = 2 its north and west sides are panel edges,
+    its south and east sides lie inside the panel)."""
+    return (1, n - 1, 0)
+
+
+def _tile_halos(states, cons, perts, mesh, exchange, nt, edges):
+    """Every tile's halo of a global state, through the tile edge traces
+    and the tile exchange (the tile step's own glue)."""
+    from ..parallel.mesh import tile_view
+
+    tiles = mesh.tiles()
+    traces = [edges(tile_view(states, *tiles[t], nt).contiguous(), cons[t], perts[t]) for t in range(mesh.ntiles)]
+    return exchange(traces)
+
+
+def sw_tile_inputs(nt: int, s: int, n: int, device, seed: int = 0):
+    """float64 inputs of the checked tile of a case-6 sphere of nel = n*nt:
+    (con, base, inputs, term): the tile's constants and perturbation base,
+    and {y, x, halo_y, dq, dx, halo_dq} (absolute states with 1e-3 relative
+    noise; the perturbation ``sw_delta`` and seeded noise), the halos from
+    the tile exchange; and the flux-divergence scale of y."""
+    from ..parallel.exchange import TileExchange
+    from ..parallel.mesh import TileMesh, tile_index, tile_view
+    from ..parallel.shard_map_sw import build_tile_tables
+
+    geom, ops, metric, topology, q0 = sw_setup(n * nt, s)
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=device)
+    y, x = (t(q0 * (1.0 + 1e-3 * rng.standard_normal(q0.shape))) for _ in range(2))
+    dq, dx = t(sw_delta(q0)), t(1e-3 * q0 * rng.standard_normal(q0.shape))
+    con = swop.build_constants(ops, metric, n * nt, device=device)
+    mesh = TileMesh(n)
+    tiles = mesh.tiles()
+    cons = [swop.tile_constants(con, ty * nt, tx * nt, nt, p) for p, ty, tx in tiles]
+    exchange = TileExchange(build_tile_tables(topology, n, s), mesh, (3, 4, 1, nt, s), (1, nt, 1, s), device=device)
+    edges = lambda q, c, _: swop.tile_edge_traces(q, c)
+    k = tile_index(*checked_tile(n), n)
+    p, ty, tx = tiles[k]
+    base64 = swop.build_base_planes(t(q0), con, topology, torch.float64)
+    view = lambda a: tile_view(a, p, ty, tx, nt).contiguous()
+    inputs = {"y": view(y), "x": view(x), "dq": view(dq), "dx": view(dx),
+              "halo_y": _tile_halos(y, cons, [None] * len(tiles), mesh, exchange, nt, edges)[k].clone(),
+              "halo_dq": _tile_halos(dq, cons, [None] * len(tiles), mesh, exchange, nt, edges)[k].clone()}
+    base = swop.tile_base(base64, ty * nt, tx * nt, nt, p, torch.float64)
+    return cons[k], base, inputs, flux_divergence_scale(inputs["y"], cons[k])
+
+
+def _tile_modes(inputs, dt, pert: bool):
+    """(name, state, halo, kwargs) of the checked modes: RHS, a stage with
+    a = 0 and one with a != 0, both with emitted traces."""
+    y, h, x = (inputs["dq"], inputs["halo_dq"], inputs["dx"]) if pert else (inputs["y"], inputs["halo_y"], inputs["x"])
+    pre = "pert_" if pert else ""
+    return [(pre + "rhs", y, h, dict()),
+            (pre + "stage_traces", y, h, dict(a=0.0, b=1.0, cdt=dt, emit_traces=True)),
+            (pre + "stage_x_traces", y, h, dict(x=x, a=0.75, b=0.25, cdt=0.25 * dt, emit_traces=True))]
+
+
+def _compare_tile(kernel, plain, con64, base64, inputs64, term, dtype, row0, dt, base_kw):
+    """Kernel against plain on one tile in every mode of ``_tile_modes``.
+    float64: within 1e-12 of the scale (per variable, the larger of the
+    output max and |cdt| (1 in RHS mode) times the RHS term scale ``term``).
+    float32: the kernel on the float32 rounding of the inputs against the
+    float64 plain output, within 1e-5 of that scale or twice the float32
+    plain output's distance from it; the traces likewise, scaled by their
+    max."""
+    con, base = cast_constants(con64, dtype), cast_constants(base64, dtype)
+    inputs = {k: v.to(dtype) for k, v in inputs64.items()}
+    tol = TILE_TOLERANCE[dtype]
+    rows = []
+    for pert in (False, True):
+        extra = {base_kw: base} if pert else {}
+        extra64 = {base_kw: base64} if pert else {}
+        for (mode, y, h, kw), (_, y64, h64, kw64) in zip(_tile_modes(inputs, dt, pert),
+                                                         _tile_modes(inputs64, dt, pert)):
+            got = kernel(y, h, con, **kw, **extra)
+            want = plain(y, h, con, **kw, **extra)
+            ref = want if dtype == torch.float64 else plain(y64, h64, con64, **kw64, **extra64)
+            if y.device.type != "cpu":
+                torch.cuda.synchronize()
+            got_tr = want_tr = ref_tr = None
+            if kw.get("emit_traces"):
+                (got, got_tr), (want, want_tr), (ref, ref_tr) = got, want, ref
+            scale = torch.maximum(per_variable_max(ref), abs(kw.get("cdt", 1.0)) * term.to(ref.dtype))
+            row = dict(row0, dtype=str(dtype).replace("torch.", ""), mode=mode,
+                       max_abs_err=float((got - want).abs().max()), scale="max(output_max, cdt*term)",
+                       err=_scaled(got.to(ref.dtype) - ref, scale), tol=tol)
+            limit = limit_tr = tol
+            if got_tr is not None:
+                row["traces_err"] = _scaled(got_tr.to(ref.dtype) - ref_tr, per_variable_max(ref_tr))
+            if dtype != torch.float64:
+                row["scale"] = "f64_plain_" + row["scale"]
+                row["plain_err"] = _scaled(want.double() - ref, scale)
+                limit = max(tol, 2.0 * row["plain_err"])
+                if got_tr is not None:
+                    row["plain_traces_err"] = _scaled(want_tr.double() - ref_tr, per_variable_max(ref_tr))
+                    limit_tr = max(tol, 2.0 * row["plain_traces_err"])
+            ok = np.isfinite(row["err"]) and row["err"] <= limit and bool(torch.isfinite(got).all().item())
+            if got_tr is not None:
+                ok = ok and row["traces_err"] <= limit_tr and bool(torch.isfinite(got_tr).all().item())
+            row["ok"] = bool(ok)
+            rows.append(row)
+    return rows
+
+
+def compare_sw_tile(nt: int, s: int, n: int, dtype, device="cuda", seed: int = 0):
+    """The SW tile kernel (``sw_tile_operator``) against its plain version
+    on the checked tile of a case-6 sphere of nel = n*nt, absolute and
+    perturbation form, RHS and stages with a = 0 and a != 0 (tolerances:
+    ``_compare_tile``); one row per mode."""
+    con64, base64, inputs64, term = sw_tile_inputs(nt, s, n, device, seed)
+    return _compare_tile(swop.sw_tile_operator, swop.sw_tile_operator_plain, con64, base64, inputs64, term, dtype,
+                         {"nt": nt, "s": s, "n": n}, DT, "base")
+
+
+def euler3d_tile_inputs(nt: int, nk: int, s: int, case: int, n: int, device, seed: int = 0):
+    """float64 inputs of the checked tile of a DCMIP sphere of nel_h = n*nt:
+    (con, pert, inputs, term): the tile's constants and perturbation base,
+    {y, x, halo_y, dq, dx, halo_dq} (``euler3d_inputs``' noisy states and
+    ``euler3d_pert_inputs``' perturbation, a second perturbation of 1e-4
+    q0 N(0,1)), the halos from the tile exchange; and the RHS term scale
+    of y."""
+    from ..parallel.exchange import TileExchange
+    from ..parallel.mesh import TileMesh, tile_index, tile_view
+    from ..parallel.shard_map_sw import build_tile_tables
+
+    nel_h = n * nt
+    con, topology, x, y = euler3d_inputs(nel_h, nk, s, torch.float64, device, case, seed)
+    _, _, pert64, dq, _ = euler3d_pert_inputs(nel_h, nk, s, torch.float64, device, case, seed)
+    q0 = euler3d_setup(nel_h, nk, s, case)[4]
+    dx = torch.as_tensor(1e-4 * q0 * np.random.default_rng(seed + 1).standard_normal(q0.shape), device=device)
+    mesh = TileMesh(n)
+    tiles = mesh.tiles()
+    cons = [e3op.tile_constants(con, ty * nt, tx * nt, nt, p) for p, ty, tx in tiles]
+    perts = [e3op.tile_pert_base(pert64, ty * nt, tx * nt, nt, p, torch.float64) for p, ty, tx in tiles]
+    exchange = TileExchange(build_tile_tables(topology, n, s), mesh, (5, 4, 1, nk, nt, s * s), (nk, nt, s, s),
+                            device=device)
+    k = tile_index(*checked_tile(n), n)
+    p, ty, tx = tiles[k]
+    view = lambda a: tile_view(a, p, ty, tx, nt).contiguous()
+    inputs = {"y": view(y), "x": view(x), "dq": view(dq), "dx": view(dx),
+              "halo_y": _tile_halos(y, cons, [None] * len(tiles), mesh, exchange, nt, e3op.tile_edge_traces)[k],
+              "halo_dq": _tile_halos(dq, cons, perts, mesh, exchange, nt, e3op.tile_edge_traces)[k]}
+    inputs = {key: v.clone() for key, v in inputs.items()}
+    return cons[k], perts[k], inputs, euler3d_term_scale(inputs["y"], cons[k])
+
+
+def compare_euler3d_tile(nt: int, nk: int, s: int, case: int, n: int, dtype, device="cuda", seed: int = 0):
+    """The 3D tile kernel (``euler3d_tile_operator``) against its plain
+    version on the checked tile of a DCMIP sphere of nel_h = n*nt,
+    absolute and perturbation form, RHS and stages with a = 0 and a != 0
+    (tolerances: ``_compare_tile``); one row per mode."""
+    con64, pert64, inputs64, term = euler3d_tile_inputs(nt, nk, s, case, n, device, seed)
+    return _compare_tile(e3op.euler3d_tile_operator, e3op.euler3d_tile_operator_plain, con64, pert64, inputs64,
+                         term, dtype, {"nt": nt, "nk": nk, "s": s, "case": case, "n": n}, E3_DT, "pert")
+
+
+def sw_tile_work(nt: int, s: int, dtype, **kw):
+    """``sw_work`` of one tile launch: the tile's own metric slice read
+    whole (no L2 sharing across the six panels' launches)."""
+    return sw_work(nt, s, dtype, npanel=1, **kw)
+
+
+def euler3d_tile_work(con, pert: bool = False, **kw):
+    """``euler3d_work`` (``euler3d_pert_work`` with ``pert``) of one tile
+    launch with tile constants."""
+    return euler3d_pert_work(con, **kw) if pert else euler3d_work(con, **kw)

@@ -31,6 +31,14 @@ with w odd.
 ``euler3d_operator_plain`` for a CPU tensor; there is no fallback between
 them.
 
+One tile of the sphere (the port of ``pallas_euler3d.km3_tile``, the
+per-rank kernel of the tile-parallel step): ``tile_constants`` slices the
+constants to an nt x nt tile of columns of one panel (state ``(5, 1, nk, nt,
+nt, s^3)``, halos and traces ``(5, 4, 1, nk, nt, s^2)``), ``tile_pert_base``
+the float64 perturbation base, and ``euler3d_tile_operator`` launches the
+same kernel with one panel whose four horizontal edges all take the halo
+(``euler3d_tile_operator_plain`` on the CPU).
+
 The operator's Jacobian action J(q).v (``km3_fused``'s tangent mode, the
 matvec of the exponential integrators' Krylov loop) has the same split:
 ``euler3d_tangent`` launches the kernel's tangent mode for CUDA tensors and
@@ -70,12 +78,15 @@ from ..common.constants import GRAVITY, HEAT_CAPACITY_RATIO, P0, RD
 
 # Kernel launches made by ``euler3d_operator`` and ``euler3d_tangent`` in
 # absolute and perturbation form (the perturbation form's RHS-mode and
-# stage-mode launches apart), and calls of the plain operators and of the
-# plain tangents (a run on the card must make none).
+# stage-mode launches apart), by ``euler3d_tile_operator`` in absolute and
+# perturbation form, and calls of the plain operators and of the plain
+# tangents (a run on the card must make none).
 launches = 0
 tangent_launches = 0
 pert_launches = 0
 pert_stage_launches = 0
+tile_launches = 0
+pert_tile_launches = 0
 pert_tangent_launches = 0
 plain_calls = 0
 plain_tangent_calls = 0
@@ -117,6 +128,10 @@ class E3Constants:
     itf_x: torch.Tensor  # (4, nk, ny, nx+1, s^2)
     itf_y: torch.Tensor  # (4, nk, ny+1, nx, s^2)
     itf_z: torch.Tensor  # (4, nk+1, ny, nx, s^2)
+    # 6: the whole cubed sphere; 1: one tile of nel_h x nel_h columns
+    # (``tile_constants``: the metric's tile slices, tch (9, 1, ...) of the
+    # tile's own panel)
+    npanel: int = 6
 
     @property
     def dtype(self) -> torch.dtype:
@@ -128,11 +143,11 @@ class E3Constants:
 
     @property
     def state_shape(self):
-        return (5, 6, self.nel_v, self.nel_h, self.nel_h, self.s**3)
+        return (5, self.npanel, self.nel_v, self.nel_h, self.nel_h, self.s**3)
 
     @property
     def traces_shape(self):
-        return (5, 4, 6, self.nel_v, self.nel_h, self.s**2)
+        return (5, 4, self.npanel, self.nel_v, self.nel_h, self.s**2)
 
 
 def _one_panel(a, scale=None) -> np.ndarray:
@@ -688,8 +703,15 @@ def _pert_tensors(con: E3Constants, pert: E3PertBase) -> dict:
 def _check_kernel_shape(con: E3Constants, name: str):
     if con.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"{name} takes float32 or float64, not {con.dtype}")
-    if not (2 <= con.s <= 6) or con.nel_h < 2:
-        raise ValueError(f"{name} takes 2 <= s <= 6 and nel_h >= 2, not s={con.s}, nel_h={con.nel_h}")
+    min_nel = 2 if con.npanel == 6 else 1
+    if not (2 <= con.s <= 6) or con.nel_h < min_nel:
+        raise ValueError(f"{name} takes 2 <= s <= 6 and nel_h >= {min_nel}, not s={con.s}, nel_h={con.nel_h}")
+
+
+def _check_npanel(con: E3Constants, npanel: int, name: str):
+    if con.npanel != npanel:
+        what = "whole-sphere" if npanel == 6 else "tile"
+        raise ValueError(f"{name} takes {what} constants (npanel={npanel}), not npanel={con.npanel}")
 
 
 def _ptr(t) -> ctypes.c_void_p:
@@ -717,14 +739,30 @@ def euler3d_operator(q, halo, con: E3Constants, x=None, a: float = 0.0, b: float
     a CUDA tensor launches the kernel (built from csrc/euler3d_operator.cu at
     first use) on the current stream, without synchronising, or raises."""
     global launches, pert_launches, pert_stage_launches
+    _check_npanel(con, 6, "euler3d_operator")
     _check(q, halo, con, x, a, bal, cdt, emit_traces, pert)
     if q.device.type == "cpu":
         if pert is not None:
             return euler3d_operator_pert_plain(q, halo, con, pert, x=x, a=a, b=b, cdt=cdt, emit_traces=emit_traces)
         return euler3d_operator_plain(q, halo, con, x=x, a=a, b=b, cdt=cdt, bal=bal, emit_traces=emit_traces)
+    out = _launch_operator("euler3d_operator_launch", q, halo, con, x, a, b, cdt, bal, emit_traces, pert)
+    if pert is None:
+        launches += 1
+    elif cdt is not None:
+        pert_stage_launches += 1
+    else:
+        pert_launches += 1
+    return out
+
+
+def _launch_operator(entry: str, q, halo, con: E3Constants, x, a: float, b: float, cdt: Optional[float], bal,
+                     emit_traces: bool, pert: Optional[E3PertBase]):
+    """One launch of the operator kernel through the C entry ``entry``
+    (``euler3d_operator_launch`` or ``euler3d_tile_launch``) on the current
+    stream."""
     if q.device.type != "cuda":
-        raise ValueError(f"euler3d_operator runs on cpu or cuda tensors, not {q.device}")
-    _check_kernel_shape(con, "euler3d_operator")
+        raise ValueError(f"{entry} runs on cpu or cuda tensors, not {q.device}")
+    _check_kernel_shape(con, entry)
 
     from ..kernels.build import load_library
 
@@ -735,7 +773,7 @@ def euler3d_operator(q, halo, con: E3Constants, x=None, a: float = 0.0, b: float
     base = pert.tensors if pert is not None else {}
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.euler3d_operator_launch(
+        rc = getattr(lib, entry)(
             1 if q.dtype == torch.float64 else 0, con.s, con.nel_h, con.nel_v,
             _ptr(q), _ptr(halo), _ptr(con.ops1d), _ptr(con.fields), _ptr(con.tch),
             _ptr(con.itf_x), _ptr(con.itf_y), _ptr(con.itf_z), _ptr(x if use_x else None), _ptr(bal),
@@ -745,14 +783,117 @@ def euler3d_operator(q, halo, con: E3Constants, x=None, a: float = 0.0, b: float
         )
     if rc != 0:
         name = lib.euler3d_operator_error_string(rc).decode()
-        raise RuntimeError(f"euler3d_operator kernel launch failed: CUDA error {rc} ({name})")
-    if pert is None:
-        launches += 1
-    elif cdt is not None:
-        pert_stage_launches += 1
-    else:
-        pert_launches += 1
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc} ({name})")
     return (out, traces) if emit_traces else out
+
+
+# ---------------------------------------------------------------------------
+# One tile of the cubed sphere (the port of pallas_euler3d.km3_tile)
+
+
+def tile_constants(con: E3Constants, ey0: int, ex0: int, nt: int, panel: int) -> E3Constants:
+    """The constants of the nt x nt tile of columns at element (ey0, ex0) of
+    ``panel`` from the whole-sphere constants ``con`` (the JAX package's
+    ``_TileMetric3DView``, parallel/shard_map_euler3d_fused.py:39-63, and
+    the tile's ``tch`` block): the one-panel metric holds on every panel, so
+    its tile slice serves every panel's tile; the time Christoffels of a
+    rotating planet depend on the panel and are sliced from the tile's own
+    panel; the interface metric keeps the tile's nt+1 interfaces each way."""
+    _check_npanel(con, 6, "tile_constants")
+    ys, xs = slice(ey0, ey0 + nt), slice(ex0, ex0 + nt)
+    c = lambda t: t.contiguous()
+    return E3Constants(
+        nel_h=nt, nel_v=con.nel_v, s=con.s, ops1d=con.ops1d, ee=con.ee, dd=con.dd, dd3=con.dd3, cc=con.cc,
+        ccb=con.ccb, hfk=con.hfk, fields=c(con.fields[:, :, ys, xs]),
+        tch=None if con.tch is None else c(con.tch[:, panel : panel + 1, :, ys, xs]),
+        itf_x=c(con.itf_x[:, :, ys, ex0 : ex0 + nt + 1]), itf_y=c(con.itf_y[:, :, ey0 : ey0 + nt + 1, xs]),
+        itf_z=c(con.itf_z[:, :, ys, xs]), npanel=1,
+    )
+
+
+def build_tile_constants(ops, metric, ey0: int, ex0: int, nt: int, panel: int, dtype=torch.float64,
+                         device="cpu") -> E3Constants:
+    """``tile_constants`` from the 3D DFR operators and the 3D metric."""
+    shape = np.asarray(metric.sqrtG).shape
+    con = build_constants(ops, metric, shape[-2], shape[-4], dtype=dtype, device=device)
+    return tile_constants(con, ey0, ex0, nt, panel)
+
+
+def tile_pert_base(base64: E3PertBase, ey0: int, ex0: int, nt: int, panel: int, dtype) -> E3PertBase:
+    """The perturbation base of one tile from the whole-sphere float64 base
+    (the JAX package's per-tile base, shard_map_euler3d_fused.py:260-306):
+    the tile's slices of every node and face field, its own outward float64
+    base traces on its four edges (around which it emits its delta traces),
+    and a base halo whose interior tile edges read the neighbour element's
+    float64 base trace and whose panel edges read the exchanged and rotated
+    float64 base halo; all cast to ``dtype``."""
+    if base64.q0.dtype != torch.float64:
+        raise ValueError("tile bases are sliced from a float64 base")
+    nel, ss = base64.q0.shape[3], base64.halo0.shape[-1]
+    ys, xs = slice(ey0, ey0 + nt), slice(ex0, ex0 + nt)
+    node = lambda t: t[:, panel : panel + 1, :, ys, xs]
+    face = lambda ey, ex, f: base64.itf0[:, panel, :, ey, ex, f * ss : (f + 1) * ss]
+    # The tile's own outward traces (S, N, W, E): its edge elements' faces.
+    own = [face(ey0, xs, 2), face(ey0 + nt - 1, xs, 3), face(ys, ex0, 0), face(ys, ex0 + nt - 1, 1)]
+    halo = [
+        base64.halo0[:, 0, panel, :, xs] if ey0 == 0 else face(ey0 - 1, xs, 3),
+        base64.halo0[:, 1, panel, :, xs] if ey0 + nt == nel else face(ey0 + nt, xs, 2),
+        base64.halo0[:, 2, panel, :, ys] if ex0 == 0 else face(ys, ex0 - 1, 1),
+        base64.halo0[:, 3, panel, :, ys] if ex0 + nt == nel else face(ys, ex0 + nt, 0),
+    ]
+    cast = lambda t: t.to(dtype).contiguous()
+    sides = lambda parts: cast(torch.stack(parts, dim=1).unsqueeze(2))  # (5, 4, 1, nk, nt, s^2)
+    return E3PertBase(
+        q0=cast(node(base64.q0)), rhs0=cast(node(base64.rhs0)), traces0=sides(own), halo0=sides(halo),
+        itf0=cast(node(base64.itf0)), u0=cast(node(base64.u0)), p0=cast(base64.p0[panel : panel + 1, :, ys, xs]),
+        dlp0=cast(base64.dlp0[panel : panel + 1, :, ys, xs]),
+        wcorr0=cast(base64.wcorr0[panel : panel + 1, :, ys, xs]),
+    )
+
+
+def tile_edge_traces(q: torch.Tensor, con: E3Constants, pert: Optional[E3PertBase] = None) -> torch.Tensor:
+    """The tile-edge traces (5, 4, 1, nk, nt, s^2) of a tile state, the tile
+    chain's bootstrap: ``edge_traces`` (absolute) or ``edge_traces_delta``
+    around the tile base."""
+    return edge_traces(q, con) if pert is None else edge_traces_delta(q, pert, con)
+
+
+def euler3d_tile_operator_plain(q, halo, con: E3Constants, x=None, a: float = 0.0, b: float = 1.0,
+                                cdt: Optional[float] = None, emit_traces: bool = False,
+                                pert: Optional[E3PertBase] = None):
+    """Plain torch version of the tile kernel: the plain operator
+    (``euler3d_operator_plain``, or ``euler3d_operator_pert_plain`` with a
+    tile base from ``tile_pert_base``) on tile constants, a tile state
+    (5, 1, nk, nt, nt, s^3) and its halo (5, 4, 1, nk, nt, s^2) on all four
+    sides."""
+    _check_npanel(con, 1, "euler3d_tile_operator_plain")
+    if pert is not None:
+        return euler3d_operator_pert_plain(q, halo, con, pert, x=x, a=a, b=b, cdt=cdt, emit_traces=emit_traces)
+    return euler3d_operator_plain(q, halo, con, x=x, a=a, b=b, cdt=cdt, emit_traces=emit_traces)
+
+
+def euler3d_tile_operator(q, halo, con: E3Constants, x=None, a: float = 0.0, b: float = 1.0,
+                          cdt: Optional[float] = None, emit_traces: bool = False,
+                          pert: Optional[E3PertBase] = None):
+    """The operator over one tile: ``euler3d_operator`` (no ``bal``) with
+    tile constants, a tile state (5, 1, nk, nt, nt, s^3), its halo (5, 4, 1,
+    nk, nt, s^2) and, with ``emit_traces``, the output's tile-edge traces on
+    all four sides. A CPU tensor runs ``euler3d_tile_operator_plain``; a CUDA
+    tensor makes one launch of the tile kernel (csrc/euler3d_operator.cu,
+    ``euler3d_tile_launch``, the port of ``pallas_euler3d.km3_tile``),
+    counted in ``tile_launches`` (absolute) or ``pert_tile_launches``
+    (perturbation form), or raises."""
+    global tile_launches, pert_tile_launches
+    _check_npanel(con, 1, "euler3d_tile_operator")
+    _check(q, halo, con, x, a, None, cdt, emit_traces, pert)
+    if q.device.type == "cpu":
+        return euler3d_tile_operator_plain(q, halo, con, x=x, a=a, b=b, cdt=cdt, emit_traces=emit_traces, pert=pert)
+    out = _launch_operator("euler3d_tile_launch", q, halo, con, x, a, b, cdt, None, emit_traces, pert)
+    if pert is None:
+        tile_launches += 1
+    else:
+        pert_tile_launches += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -783,6 +924,7 @@ def euler3d_tangent(q, v, halo_q, halo_v, con: E3Constants, pert: Optional[E3Per
     a CUDA tensor launches the kernel's tangent mode (csrc/euler3d_operator.cu)
     on the current stream, without synchronising, or raises."""
     global tangent_launches, pert_tangent_launches
+    _check_npanel(con, 6, "euler3d_tangent")
     tensors = {"q": (q, con.state_shape), "v": (v, con.state_shape),
                "halo_q": (halo_q, con.traces_shape), "halo_v": (halo_v, con.traces_shape)}
     if pert is not None:

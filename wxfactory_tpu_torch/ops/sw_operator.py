@@ -30,9 +30,16 @@ rotation of the momenta). West/south panel-edge interfaces take qL from the
 halo, east/north take qR from it. ``sw_run`` runs whole TVD-RK3 steps at
 s=4 (one launch for all of them on a GPU).
 
-Each wrapper (``sw_operator``, ``sw_edges``, ``sw_halo``, ``sw_run``) runs
-its CUDA kernel for a CUDA tensor and its plain version for a CPU tensor;
-there is no fallback between them.
+One tile of the sphere (the port of ``pallas_sw_gen.km_tile``, the per-rank
+kernel of the tile-parallel step): ``tile_constants`` slices the constants
+to an nt x nt tile of one panel (layout ``(3, 1, nt, nt, s^2)``, halos and
+traces ``(3, 4, 1, nt, s)``), ``tile_base`` the float64 perturbation base,
+and ``sw_tile_operator`` launches the same kernel with one panel whose four
+edges all take the halo.
+
+Each wrapper (``sw_operator``, ``sw_tile_operator``, ``sw_edges``,
+``sw_halo``, ``sw_run``) runs its CUDA kernel for a CUDA tensor and its
+plain version for a CPU tensor; there is no fallback between them.
 """
 
 import ctypes
@@ -45,10 +52,13 @@ import torch
 from ..common.constants import GRAVITY
 
 # Kernel launches made by the wrappers (the plain versions do not count):
-# the operator in absolute and in perturbation form, the edge-trace and halo
-# kernels and the whole-run kernel; and calls of the plain versions.
+# the operator in absolute and in perturbation form, its tile launches in
+# both forms, the edge-trace and halo kernels and the whole-run kernel; and
+# calls of the plain versions.
 launches = 0
 pert_launches = 0
+tile_launches = 0
+pert_tile_launches = 0
 edge_launches = 0
 halo_launches = 0
 run_launches = 0
@@ -74,6 +84,10 @@ class SWConstants:
     gridrot: torch.Tensor  # (6, nel, nel, s^2)
     itf_x: torch.Tensor  # (3, nel, nel+1, s): sqrt(g), H^11, H^21 at x1 interfaces
     itf_y: torch.Tensor  # (3, nel+1, nel, s): sqrt(g), H^22, H^12 at x2 interfaces
+    # 6: the whole cubed sphere (gridrot (6, nel, nel, s^2)); 1: one tile of
+    # nel x nel elements (``tile_constants``: the tile's slices of the metric,
+    # gridrot (1, nel, nel, s^2) of its own panel)
+    npanel: int = 6
 
     @property
     def ee(self) -> torch.Tensor:
@@ -219,6 +233,10 @@ def edge_traces(q: torch.Tensor, con: SWConstants) -> torch.Tensor:
     ``sw_edges``)."""
     global plain_calls
     plain_calls += 1
+    return _edge_traces(q, con)
+
+
+def _edge_traces(q: torch.Tensor, con: SWConstants) -> torch.Tensor:
     s, ee = con.s, con.ee
     south = q[:, :, 0, :, :] @ ee[:, 2 * s : 3 * s]
     north = q[:, :, -1, :, :] @ ee[:, 3 * s :]
@@ -268,6 +286,7 @@ def sw_edges(q: torch.Tensor, con: SWConstants) -> torch.Tensor:
     CPU tensor; for a CUDA tensor one launch of the edge-trace kernel
     (csrc/sw_operator.cu, the port of ``pallas_sw.ke_edges``), or raises."""
     global edge_launches
+    _check_npanel(con, 6, "sw_edges")
     state = (3, 6, con.nel, con.nel, con.s * con.s)
     if tuple(q.shape) != state or q.dtype != con.dtype or q.device != con.device:
         raise ValueError(f"q {tuple(q.shape)} {q.dtype} on {q.device}; expected {state} {con.dtype} on {con.device}")
@@ -517,9 +536,9 @@ def sw_operator_pert_plain(dq, halo, con: SWConstants, base: SWPertBase, x=None,
 def _check(q, halo, con: SWConstants, x, a: float, base: Optional[SWPertBase]):
     """Shape, dtype, device and contiguity of the tensors the operator (or,
     without ``halo``, the whole-run kernel) reads."""
-    nel, s = con.nel, con.s
-    state = (3, 6, nel, nel, s * s)
-    halo_shape = (3, 4, 6, nel, s)
+    nel, s, npanel = con.nel, con.s, con.npanel
+    state = (3, npanel, nel, nel, s * s)
+    halo_shape = (3, 4, npanel, nel, s)
     tensors = {"q": (q, state)}
     if halo is not None:
         tensors["halo"] = (halo, halo_shape)
@@ -528,7 +547,7 @@ def _check(q, halo, con: SWConstants, x, a: float, base: Optional[SWPertBase]):
             raise ValueError("stage with a != 0 needs x")
         tensors["x"] = (x, state)
     if base is not None:
-        shapes = {"q0": state, "u0": (2, 6, nel, nel, s * s), "itf0": (3, 6, nel, nel, 4 * s),
+        shapes = {"q0": state, "u0": (2, npanel, nel, nel, s * s), "itf0": (3, npanel, nel, nel, 4 * s),
                   "halo0": halo_shape, "rhs0": state}
         tensors.update({name: (t, shapes[name]) for name, t in base.tensors.items()})
     for name, (t, shape) in tensors.items():
@@ -543,8 +562,15 @@ def _check(q, halo, con: SWConstants, x, a: float, base: Optional[SWPertBase]):
 def _check_kernel_shape(con: SWConstants, name: str):
     if con.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"{name} takes float32 or float64, not {con.dtype}")
-    if not (2 <= con.s <= 8) or con.nel < 2:
-        raise ValueError(f"{name} takes 2 <= s <= 8 and nel >= 2, not s={con.s}, nel={con.nel}")
+    min_nel = 2 if con.npanel == 6 else 1
+    if not (2 <= con.s <= 8) or con.nel < min_nel:
+        raise ValueError(f"{name} takes 2 <= s <= 8 and nel >= {min_nel}, not s={con.s}, nel={con.nel}")
+
+
+def _check_npanel(con: SWConstants, npanel: int, name: str):
+    if con.npanel != npanel:
+        what = "whole-sphere" if npanel == 6 else "tile"
+        raise ValueError(f"{name} takes {what} constants (npanel={npanel}), not npanel={con.npanel}")
 
 
 def sw_operator(q, halo, con: SWConstants, x=None, a: float = 0.0, b: float = 1.0,
@@ -564,12 +590,25 @@ def sw_operator(q, halo, con: SWConstants, x=None, a: float = 0.0, b: float = 1.
     kernel (built from csrc/sw_operator.cu at first use) on the current
     stream, without synchronising, or raises."""
     global launches, pert_launches
+    _check_npanel(con, 6, "sw_operator")
     _check(q, halo, con, x, a, base)
     if q.device.type == "cpu":
         return sw_operator_plain(q, halo, con, x=x, a=a, b=b, cdt=cdt, emit_traces=emit_traces, base=base)
+    out = _launch_operator("sw_operator_launch", q, halo, con, x, a, b, cdt, emit_traces, base)
+    if base is not None:
+        pert_launches += 1
+    else:
+        launches += 1
+    return out
+
+
+def _launch_operator(entry: str, q, halo, con: SWConstants, x, a: float, b: float, cdt: Optional[float],
+                     emit_traces: bool, base: Optional[SWPertBase]):
+    """One launch of the operator kernel through the C entry ``entry``
+    (``sw_operator_launch`` or ``sw_tile_launch``) on the current stream."""
     if q.device.type != "cuda":
-        raise ValueError(f"sw_operator runs on cpu or cuda tensors, not {q.device}")
-    _check_kernel_shape(con, "sw_operator")
+        raise ValueError(f"{entry} runs on cpu or cuda tensors, not {q.device}")
+    _check_kernel_shape(con, entry)
 
     from ..kernels.build import load_library
 
@@ -577,12 +616,12 @@ def sw_operator(q, halo, con: SWConstants, x=None, a: float = 0.0, b: float = 1.
     use_x = cdt is not None and a != 0.0
     out = torch.empty_like(q)
     traces = (
-        torch.empty((3, 4, 6, con.nel, con.s), dtype=q.dtype, device=q.device)
+        torch.empty((3, 4, con.npanel, con.nel, con.s), dtype=q.dtype, device=q.device)
         if emit_traces else None
     )
     pb = base.tensors if base is not None else {}
     with torch.cuda.device(q.device):
-        rc = lib.sw_operator_launch(
+        rc = getattr(lib, entry)(
             1 if q.dtype == torch.float64 else 0, con.s, con.nel,
             _ptr(q), _ptr(halo), _ptr(con.ops), _ptr(con.fields), _ptr(con.gridrot),
             _ptr(con.itf_x), _ptr(con.itf_y), _ptr(x if use_x else None),
@@ -591,12 +630,102 @@ def sw_operator(q, halo, con: SWConstants, x=None, a: float = 0.0, b: float = 1.
             float(a), float(b), float(cdt if cdt is not None else 0.0),
             1 if cdt is not None else 0, _stream(q.device),
         )
-    _raise_on(rc, lib, "sw_operator")
-    if base is not None:
-        pert_launches += 1
-    else:
-        launches += 1
+    _raise_on(rc, lib, entry)
     return (out, traces) if emit_traces else out
+
+
+# ---------------------------------------------------------------------------
+# One tile of the cubed sphere (the port of pallas_sw_gen.km_tile)
+
+
+def tile_constants(con: SWConstants, ey0: int, ex0: int, nt: int, panel: int) -> SWConstants:
+    """The constants of the nt x nt tile at element (ey0, ex0) of ``panel``
+    from the whole-sphere constants ``con`` (the port's ``_TileMetricView``,
+    parallel/shard_map_sw_fused.py:42-68 of the JAX package): the one-panel
+    metric holds on every panel, so its tile slice serves every panel's tile;
+    gridrot is the tile's slice of its own panel; the interface metric keeps
+    the tile's nt+1 interfaces each way."""
+    _check_npanel(con, 6, "tile_constants")
+    ys, xs = slice(ey0, ey0 + nt), slice(ex0, ex0 + nt)
+    c = lambda t: t.contiguous()
+    return SWConstants(
+        nel=nt, s=con.s, ops=con.ops, fields=c(con.fields[:, ys, xs]),
+        gridrot=c(con.gridrot[panel : panel + 1, ys, xs]),
+        itf_x=c(con.itf_x[:, ys, ex0 : ex0 + nt + 1]), itf_y=c(con.itf_y[:, ey0 : ey0 + nt + 1, xs]),
+        npanel=1,
+    )
+
+
+def build_tile_constants(ops, metric, ey0: int, ex0: int, nt: int, panel: int, dtype=torch.float64,
+                         device="cpu") -> SWConstants:
+    """``tile_constants`` from the DFR operators and the 2D metric."""
+    nel = np.asarray(metric.sqrtG).shape[-2]
+    return tile_constants(build_constants(ops, metric, nel, dtype=dtype, device=device), ey0, ex0, nt, panel)
+
+
+def tile_base(base64: SWPertBase, ey0: int, ex0: int, nt: int, panel: int, dtype) -> SWPertBase:
+    """The perturbation base of one tile from the whole-sphere float64 base
+    (the JAX package's per-tile base planes, shard_map_sw_fused.py:205-260):
+    the tile's slices of q0, u0, its face traces and its RHS, and a base halo
+    whose interior tile edges read the neighbour element's float64 base trace
+    and whose panel edges read the exchanged and rotated float64 base halo;
+    all cast to ``dtype``."""
+    if base64.q0.dtype != torch.float64:
+        raise ValueError("tile bases are sliced from a float64 base")
+    nel, s = base64.q0.shape[2], base64.itf0.shape[-1] // 4
+    ys, xs = slice(ey0, ey0 + nt), slice(ex0, ex0 + nt)
+    node = lambda t: t[:, panel : panel + 1, ys, xs]
+    face = lambda ey, ex, f: base64.itf0[:, panel, ey, ex, f * s : (f + 1) * s]  # faces W, E, S, N
+    halo0 = torch.stack([
+        base64.halo0[:, 0, panel, xs] if ey0 == 0 else face(ey0 - 1, xs, 3),
+        base64.halo0[:, 1, panel, xs] if ey0 + nt == nel else face(ey0 + nt, xs, 2),
+        base64.halo0[:, 2, panel, ys] if ex0 == 0 else face(ys, ex0 - 1, 1),
+        base64.halo0[:, 3, panel, ys] if ex0 + nt == nel else face(ys, ex0 + nt, 0),
+    ], dim=1).unsqueeze(2)  # (3, 4, 1, nt, s)
+    cast = lambda t: t.to(dtype).contiguous()
+    return SWPertBase(q0=cast(node(base64.q0)), u0=cast(node(base64.u0)), itf0=cast(node(base64.itf0)),
+                      halo0=cast(halo0), rhs0=cast(node(base64.rhs0)))
+
+
+def tile_edge_traces(q: torch.Tensor, con: SWConstants) -> torch.Tensor:
+    """The tile-edge traces (3, 4, 1, nt, s) of a tile state (a delta's for a
+    delta), the tile chain's bootstrap: the edge elements extrapolated with
+    EE, as ``edge_traces`` does (not counted as a plain call: it is glue)."""
+    return _edge_traces(q, con)
+
+
+def sw_tile_operator_plain(q, halo, con: SWConstants, x=None, a: float = 0.0, b: float = 1.0,
+                           cdt: Optional[float] = None, emit_traces: bool = False,
+                           base: Optional[SWPertBase] = None):
+    """Plain torch version of the tile kernel: the plain operator
+    (``sw_operator_plain``) on tile constants (``tile_constants``), a tile
+    state (3, 1, nt, nt, s^2) and its halo (3, 4, 1, nt, s) on all four
+    sides; with ``base`` a tile base (``tile_base``)."""
+    _check_npanel(con, 1, "sw_tile_operator_plain")
+    return sw_operator_plain(q, halo, con, x=x, a=a, b=b, cdt=cdt, emit_traces=emit_traces, base=base)
+
+
+def sw_tile_operator(q, halo, con: SWConstants, x=None, a: float = 0.0, b: float = 1.0,
+                     cdt: Optional[float] = None, emit_traces: bool = False,
+                     base: Optional[SWPertBase] = None):
+    """The operator over one tile: ``sw_operator`` with tile constants, a
+    tile state (3, 1, nt, nt, s^2), its halo (3, 4, 1, nt, s) and, with
+    ``emit_traces``, the output's tile-edge traces (3, 4, 1, nt, s). A CPU
+    tensor runs ``sw_tile_operator_plain``; a CUDA tensor makes one launch of
+    the tile kernel (csrc/sw_operator.cu, ``sw_tile_launch``, the port of
+    ``pallas_sw_gen.km_tile``), counted in ``tile_launches`` (absolute) or
+    ``pert_tile_launches`` (perturbation form), or raises."""
+    global tile_launches, pert_tile_launches
+    _check_npanel(con, 1, "sw_tile_operator")
+    _check(q, halo, con, x, a, base)
+    if q.device.type == "cpu":
+        return sw_tile_operator_plain(q, halo, con, x=x, a=a, b=b, cdt=cdt, emit_traces=emit_traces, base=base)
+    out = _launch_operator("sw_tile_launch", q, halo, con, x, a, b, cdt, emit_traces, base)
+    if base is not None:
+        pert_tile_launches += 1
+    else:
+        tile_launches += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -656,6 +785,7 @@ def sw_run(q, nsteps: int, abc, con: SWConstants, topology, base: Optional[SWPer
     current stream, or raises (a grid the card cannot hold at once is an
     error, not a reason to launch stage by stage)."""
     global run_launches
+    _check_npanel(con, 6, "sw_run")
     _check(q, None, con, None, 0.0, base)
     if con.s != 4:
         raise ValueError(f"sw_run takes s = 4, not s = {con.s}")

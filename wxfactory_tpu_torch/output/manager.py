@@ -8,6 +8,12 @@ energy and enstrophy drift). As in the JAX package, the blockstats print
 nothing for 3D Euler. Field output (NetCDF/FST), the solver-stats database and the
 runtime file are not ported yet (ROADMAP queue 1, item 15) and raise when
 configured.
+
+In a run over several ranks (``mesh``: the tile step's ``TileMesh``) the
+state is gathered to rank 0, which alone writes checkpoints
+(``parallel.distributed.save_state_distributed``: the single file, or past
+256 MB a manifest and one shard a tile) and prints blockstats; a restart
+reads either form at any process count.
 """
 
 import hashlib
@@ -23,7 +29,7 @@ from .state import load_state, save_state
 
 
 class OutputManager:
-    def __init__(self, config, geom, ops, metric):
+    def __init__(self, config, geom, ops, metric, mesh=None):
         if config.output_freq > 0:
             raise NotImplementedError(
                 "field output (output_freq > 0) is not ported yet (ROADMAP queue 1, item 15)"
@@ -36,6 +42,7 @@ class OutputManager:
         self.geom = geom
         self.ops = ops
         self.metric = metric
+        self.mesh = mesh if mesh is not None and not mesh.owns_all else None
 
         self.output_dir = config.output_dir
         if config.save_state_freq > 0 or config.stat_freq > 0:
@@ -54,12 +61,14 @@ class OutputManager:
         return os.path.join(self.output_dir, f"{base}.{step_id:08d}.npy")
 
     def load_state_from_file(self, step_id: int, expected_shape) -> np.ndarray:
-        state, _, _ = load_state(self.state_file_name(step_id), parse_config=False)
+        from ..parallel.distributed import load_state_distributed, primary_print
+
+        state, _ = load_state_distributed(self.state_file_name(step_id))
         if tuple(state.shape) != tuple(expected_shape):
             raise ValueError(
                 f"Saved state for step {step_id} has shape {state.shape}, expected {expected_shape}"
             )
-        print(f"Starting simulation from step {step_id} (rather than 0)")
+        primary_print(f"Starting simulation from step {step_id} (rather than 0)")
         return state
 
     # ------------------------------------------------------------------
@@ -69,6 +78,16 @@ class OutputManager:
         save = c.save_state_freq > 0 and step_id % c.save_state_freq == 0
         stats = c.stat_freq > 0 and step_id % c.stat_freq == 0
         if not (save or stats):
+            return
+        if self.mesh is not None:
+            from ..parallel.distributed import gather_global, save_state_distributed
+
+            if save:
+                save_state_distributed(q, self.mesh, c, self.state_file_name(step_id))
+            if stats:
+                host = gather_global(q, self.mesh)  # None off the primary
+                if host is not None:
+                    self.__blockstats__(host, step_id)
             return
         host = to_host(q)
         if save:

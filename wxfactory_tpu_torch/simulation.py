@@ -13,6 +13,18 @@ water only, as in the JAX package). The device comes from the
 caller; nothing moves to another device. Any other grid, case, integrator,
 exponential solver or distribution raises ``NotImplementedError`` naming
 its ROADMAP item.
+
+``[System] distribute`` follows the JAX package's rules
+(``wxfactory_tpu/simulation.py:274-380``) over the processes of a run
+(``parallel.distributed``): with 6N^2 ranks, ``auto`` takes the
+tile-parallel TVD-RK3 step (one tile a rank, ``ShardMapTvdrk3``) for an
+explicit cubed-sphere run with N dividing nel, ``shard_map`` insists on it,
+and ``off`` runs one process. The tile step runs shallow water in the
+working precision's absolute form, 3D Euler in float32 in the perturbation
+form around the initial state, and float64 in the absolute form. Every
+other multi-rank run raises (the port has no GSPMD analogue; ROADMAP item
+14) rather than run each rank redundantly. Output, blockstats and
+checkpoints gather to rank 0.
 """
 
 import math
@@ -22,14 +34,48 @@ import torch
 
 from .common import device as _device
 from .common.device import resolve_device
+from .parallel import distributed as _dist
 from .config import Configuration, load_configuration
 from .geometry import make_cubed_sphere_2d, make_cubed_sphere_3d, make_metric_2d, make_metric_3d
 from .integrators import Epi, EpiStiff, Euler1, Ros2, Tvdrk3
 from .models import Euler3DRHS, make_rhs_shallow_water
 from .ops.dfr import make_dfr_operators
 from .output import OutputManager
-from .parallel import CubedSphereTopology
+from .parallel import CubedSphereTopology, ShardMapTvdrk3, TileMesh
+from .parallel.mesh import tile_n_for_world
 from .testcases import dcmip_planet_params, initial_state, initial_state_3d
+
+_ITEM_14 = ("ROADMAP queue 1, item 14: the port runs multi-rank only as the tile-parallel TVD-RK3 step; the GSPMD "
+            "analogue (EPI/Ros2 across ranks) is not ported")
+
+
+def plan_distribution(config, world: int):
+    """N of the tile step's (6, N, N) mesh for this run over ``world``
+    processes, or None for a single-process run; raises where the JAX
+    package's rules (simulation.py:274-380 there) give a path the port has
+    not ported, or where ``shard_map`` cannot apply."""
+    c = config
+    knob = getattr(c, "distribute", "auto")
+    if knob == "gspmd":
+        raise NotImplementedError(f"distribute='gspmd': {_ITEM_14}")
+    n = tile_n_for_world(world)
+    explicit = c.time_integrator.lower() == "tvdrk3" and c.grid_type == "cubed_sphere"
+    model_ok = c.equations == "shallow_water" or c.case_number >= 13
+    tile_ok = explicit and model_ok and n is not None and c.num_elements_horizontal % n == 0
+    if knob == "shard_map" and not tile_ok:
+        raise ValueError(
+            "distribute='shard_map' needs an explicit cubed-sphere run (tvdrk3 without forcing hooks) on 6*N^2 "
+            f"ranks with N | nel (world size {world}, nel {c.num_elements_horizontal}, "
+            f"{c.time_integrator})"
+        )
+    if world == 1:
+        return None
+    if knob == "off" or not tile_ok:
+        raise NotImplementedError(
+            f"distribute={knob!r} with {world} ranks and {c.time_integrator} would run every rank redundantly: "
+            + _ITEM_14
+        )
+    return n
 
 
 class Simulation:
@@ -44,10 +90,8 @@ class Simulation:
                 f"grid {c.grid_type!r} is not ported yet (the port runs the cubed sphere; the "
                 "Cartesian 2D models are ROADMAP queue 1, item 15)"
             )
-        if getattr(c, "distribute", "auto") not in ("auto", "off"):
-            raise NotImplementedError(
-                f"distribute={c.distribute!r}: multi-GPU runs are ROADMAP queue 1, item 14"
-            )
+        n = plan_distribution(c, _dist.world_size())
+        self.mesh = None if n is None else TileMesh(n, _dist.rank(), _dist.world_size())
         if c.filter_apply or c.expfilter_apply:
             raise NotImplementedError("modal filters are not ported yet (ROADMAP queue 1, item 12)")
         if c.preconditioner != "none":
@@ -65,7 +109,7 @@ class Simulation:
             self.topology = CubedSphereTopology(self.geom)
             q0 = initial_state_3d(self.geom, c.case_number)
             self.metric = make_metric_3d(self.geom, self.ops, self.topology)
-            self.rhs = Euler3DRHS(
+            self.rhs = None if self.mesh is not None else Euler3DRHS(
                 self.geom, self.ops, self.metric, dtype=self.dtype, device=self.device, topology=self.topology,
                 # float32 cannot resolve the hydrostatic balance: the
                 # well-balanced offset around the initial state absorbs it.
@@ -77,11 +121,11 @@ class Simulation:
             self.metric = make_metric_2d(self.geom)
             self.topology = CubedSphereTopology(self.geom)
             q0 = initial_state(self.geom, c.case_number)
-            self.rhs = make_rhs_shallow_water(
+            self.rhs = None if self.mesh is not None else make_rhs_shallow_water(
                 self.geom, self.ops, self.metric, dtype=self.dtype, device=self.device,
                 topology=self.topology,
             )
-        self.output = OutputManager(c, self.geom, self.ops, self.metric)
+        self.output = OutputManager(c, self.geom, self.ops, self.metric, mesh=self.mesh)
 
         self.starting_step = 0
         if c.starting_step > 0:
@@ -127,6 +171,8 @@ class Simulation:
     def _create_integrator(self):
         c = self.config
         name = c.time_integrator.lower()
+        if self.mesh is not None:
+            return ShardMapTvdrk3(self._tile_step_maker(), verbose=c.verbose_solver)
         if name == "euler1":
             return Euler1(self.rhs, verbose=c.verbose_solver)
         if name == "tvdrk3":
@@ -156,9 +202,36 @@ class Simulation:
             "the others are ROADMAP queue 1, item 12)"
         )
 
+    def _tile_step_maker(self):
+        """dt -> the tile step of this run (JAX package simulation.py:327-380
+        with the port's precision rules: shallow water absolute in the
+        working dtype; 3D Euler float32 in the perturbation form around the
+        initial state; float64 absolute). The kernels are built by rank 0
+        before any rank launches one."""
+        from .parallel.shard_map_euler3d_fused import make_shard_map_euler3d_step_fused
+        from .parallel.shard_map_sw_fused import make_shard_map_sw_step_fused
+
+        if self.device.type == "cuda":
+            from .kernels.build import build_all
+
+            if _dist.is_primary():
+                build_all(["euler3d_operator" if self.config.equations == "euler" else "sw_operator"])
+            _dist.barrier()
+        q0 = self.initial_q.double().cpu().numpy()
+        if self.config.equations == "euler":
+            base = q0 if self.dtype == torch.float32 else None
+            make = make_shard_map_euler3d_step_fused
+        else:
+            base, make = None, make_shard_map_sw_step_fused
+        kw = dict(dtype=self.dtype, perturbation_base=base, device=self.device, topology=self.topology)
+        return lambda dt: make(self.geom, self.ops, self.metric, self.mesh, dt, **kw)
+
     # ------------------------------------------------------------------
     def _check_finite(self, q, step_id: int) -> None:
-        if not _device.host_read(torch.isfinite(q).all()):
+        finite = _device.host_read(torch.isfinite(q).all())
+        if self.mesh is not None:
+            finite = _dist.all_true(finite)  # every rank raises together
+        if not finite:
             raise RuntimeError(f"NaN/Inf detected in state after step {step_id}")
 
     def step(self, q, step_id: int, t: float):
@@ -210,11 +283,12 @@ class Simulation:
                 step_id += 1
                 q, t = self.step(q, step_id, t)
             if c.verbose_solver > 0 or step_id % max(1, num_steps // 10) == 0:
-                print(f"Step {step_id}/{self.starting_step + num_steps} (t = {t:.1f} s)", flush=True)
+                _dist.primary_print(f"Step {step_id}/{self.starting_step + num_steps} (t = {t:.1f} s)", flush=True)
         if self.device.type == "cuda":
             _device.synchronize(self.device)
         seconds = time.time() - t_start
         done = step_id - self.starting_step
         rate = done / seconds if seconds > 0 else float("inf")
-        print(f"Completed {done} steps in {seconds!r} s ({rate!r} steps/s) on {self.device}")
+        ranks = f" x {self.mesh.world} ranks" if self.mesh is not None and self.mesh.world > 1 else ""
+        _dist.primary_print(f"Completed {done} steps in {seconds!r} s ({rate!r} steps/s) on {self.device}{ranks}")
         return q
