@@ -35,32 +35,45 @@ and drives the port's two main paths, shallow water and 3D Euler:
 8. time per call at 20x20x3, s=3 of the 3D kernel (RHS; stage + x +
    traces), its plain version and the halo glue (CUDA events, median), f64
    and f32, beside the call's memory/compute bound;
-9. the 3D kernel's tangent mode (the Jacobian action J(q).v) against its
-   plain version (torch.func.jvp of the plain operator) on the card at every
-   shape of phase 5, f64 within 1e-12 of the plain J.v's max per variable,
-   f32 within 5e-5 of the f64 plain J.v's (rows in build/chip_smoke/
-   phase9.json);
+9. the Jacobian action J(q).v from the tangent prep kernel (once per
+   linearisation point: the coefficient buffer) and the linear apply
+   kernel against its plain version (torch.func.jvp of the plain operator)
+   on the card at every shape of phase 5, f64 within 1e-12 of the plain
+   J.v's max per variable, f32 within 5e-5 of the f64 plain J.v's or twice
+   the f32 plain J.v's distance; the apply's linearity (apply(a v + b w)
+   against a apply(v) + b apply(w)) within the same tolerance; each kernel
+   against its own plain version (the f64 prep's buffer within 1e-12 of
+   each row's max, the apply on that buffer within the tangent tolerance)
+   (rows in build/chip_smoke/phase9.json);
 10. the same dcmip31 EPI2+KIOPS run (4x2x2, s=2, dt=30 s, 2 steps, f64) on
     the GPU and on the CPU: identical Krylov statistics at every step, final
     states within 1e-10 of each variable's max;
 11. the EPI2 main path: ``python -m wxfactory_tpu_torch`` on dcmip31 with
     epi2, kiops, tolerance 1e-7, dt=30 s, at the canonical 12x12x3, s=2 for
     10 steps, then at 20x20x3, s=3 for 3 steps; each with one RHS-kernel
-    launch a step, one tangent-kernel launch per Jacobian action the
-    integrator asked for, no plain tangent call, a finite state, mass drift
+    launch a step, one tangent apply launch per Jacobian action the
+    integrator asked for, one tangent prep launch a step (the
+    linearisation point), no plain call, a finite state, mass drift
     below the KIOPS tolerance 1e-7 at every step (the first step's update
     cancels ~12 orders of magnitude at the balanced initial state and moves
     mass by a few 1e-8, as in the JAX package; tools/epi2_mass_drift.py)
     and checkpoints (one a step) that read back; it reports steps/s, setup
     time, the Krylov statistics and (torch.profiler, on a second build of
-    the same configuration) the tangent kernel's share of device time;
-12. time per call at 20x20x3, s=3 (CUDA events, median), f64 and f32, of the
-    tangent kernel, its plain version, the tangent glue and the RHS kernel,
-    beside the tangent call's memory/compute bound;
+    the same configuration) the tangent kernels' share of device time;
+12. time per call at 20x20x3, s=3, in turns, f64 and f32, of the tangent
+    prep and apply kernels (the card's time, calls queued behind a sleep
+    kernel) and (CUDA events, median) their plain versions, the
+    plain tangent (torch.func.jvp), the tangent glue and the RHS kernel,
+    beside the function's memory/compute bound, the apply's own bytes floor
+    (kernels/check.py::euler3d_tangent_apply_work), the prep's bound, and
+    the kernels' registers, spills, shared memory and resident blocks an SM
+    as the runtime reports them;
 13. the kernel's perturbation mode (RHS: rhs0 + delta; tangent: J(q0 +
-    dq).v) against its plain version on the card at every shape of phase 5,
-    f64 within 1e-12, f32 within 5e-5 of the f64 plain output or twice the
-    f32 plain output's distance (rows in build/chip_smoke/phase13.json);
+    dq).v from the perturbation prep and the apply) against its plain
+    version on the card at every shape of phase 5, f64 within 1e-12, f32
+    within 5e-5 of the f64 plain output or twice the f32 plain output's
+    distance, with the linearity and kernel-by-kernel checks of phase 9
+    (rows in build/chip_smoke/phase13.json);
 14. the same dcmip31 EPI2 runs with kiops_jit (dt=30 s, 2 steps) on the GPU
     and the CPU: float64 at 4x2x2, s=2 with identical Krylov statistics and
     states within 1e-10, mixed precision (the float32 perturbation
@@ -71,17 +84,18 @@ and drives the port's two main paths, shallow water and 3D Euler:
     at the canonical 12x12x3, s=2 (20 steps) and at 20x20x3, s=3 (5 steps),
     then both with mixed_precision_krylov = 0 (the float64 kiops_jit step;
     10 and 5 steps);
-    each with one perturbation-tangent (mixed) or tangent (float64) launch
-    per Jacobian action, one RHS launch a step (and, mixed, the float64
-    base RHS at setup), no plain call, host syncs a step at most the Krylov
+    each with one tangent apply launch (on the perturbation prep's buffer
+    when mixed) per Jacobian action, one prep launch a step, one RHS launch
+    a step (and, mixed, the float64 base RHS at setup), no plain call, host
+    syncs a step at most the Krylov
     controls + 2, a finite state, mass drift below the KIOPS tolerance at
     every checkpoint (every chunk's end) and checkpoints that read back; it
     reports steps/s, setup time, the Krylov statistics, the syncs and (on a
     second build) the device's busy share and its split by kernel class;
-16. time per call at 20x20x3, s=3 (CUDA events, median), f64 and f32, of the
-    perturbation tangent kernel, its plain version, its glue and the
-    perturbation RHS kernel beside their bounds, and of one Arnoldi
-    iteration of each kiops_jit variant (a 64-iteration cycle);
+16. phase 12's timing for the perturbation form (the perturbation prep and
+    the apply on its buffer, their plain versions, the plain tangent, the
+    glue and the perturbation RHS kernel beside their bounds), and one
+    Arnoldi iteration of each kiops_jit variant (a 64-iteration cycle);
 17. the SW operator's perturbation mode (RHS rhs0 + delta, stages of deltas,
     emitted delta traces), the halo kernel and the edge-trace kernel against
     their plain versions at the shapes of phase 1 and (8,4), (32,4), (64,4),
@@ -135,9 +149,11 @@ and drives the port's two main paths, shallow water and 3D Euler:
     and at 20x20x20, s=3, dt=2 s (3 steps; FGMRES without a preconditioner
     stalls there at dt=30 s): the host fgmres, fgmres_jit float64 and
     fgmres_jit with mixed_precision_krylov = 1, both with
-    device_step_chunk = 5 and under forbid_uncounted_syncs; tangent
-    launches (f64 and perturbation) equal to the Jacobian actions, one RHS
-    launch a step, no plain call, host syncs, state and mass at the
+    device_step_chunk = 5 and under forbid_uncounted_syncs; tangent apply
+    launches (f64 and perturbation) equal to the Jacobian actions, one prep
+    launch a step for each linearisation (two when mixed: the f64 system's
+    and the companion's), one RHS launch a step, no plain call, host syncs,
+    state and mass at the
     checkpoints; the mixed run against the f64 run after two steps within
     5e-5 of each variable's max and 2e-3 on rho*w;
 24. time at 20x20x20, s=3 of the perturbation stage kernel against its
@@ -279,6 +295,8 @@ def emit_comparison(phase: int, rows, shape_keys, tag: str = "") -> None:
         for extra in ("base_err_bal", "base_err_plain"):
             if extra in r:
                 worst[extra] = r[extra]
+        if "prep_rows" in r:  # a float32 prep's worst row against the float64 prep
+            worst["prep_row_err"] = max(worst.get("prep_row_err", 0.0), max(k for k, _ in r["prep_rows"].values()))
     emit({"phase": phase, "ok": all(r["ok"] for r in rows),
           "results": [dict(zip(shape_keys + ("dtype",), k), **v) for k, v in summary.items()]})
 
@@ -297,7 +315,8 @@ def ptxas_summary(log: str):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(sw_operator|sw_run|sw_edges|euler3d_operator|euler3d_tangent)_kernelI([df])Li(\d+)E"
+            k = re.search(r"(sw_operator|sw_run|sw_edges|euler3d_operator|euler3d_tangent_prep|euler3d_tangent_apply|"
+                          r"euler3d_tangent)_kernelI([df])Li(\d+)E"
                           r"(Lb([01]))?", m.group(1))
             current = {"kernel": f"{k.group(1)} {'f64' if k.group(2) == 'd' else 'f32'} s={k.group(3)}"
                        + (" pert" if k.group(5) == "1" else "") if k else m.group(1)}
@@ -379,7 +398,7 @@ def reset_counts():
     from wxfactory_tpu_torch.ops import sw_operator as swop
     from wxfactory_tpu_torch.solvers import matvec
 
-    swop.launches = e3op.launches = e3op.tangent_launches = e3op.plain_tangent_calls = 0
+    swop.launches = e3op.launches = e3op.tangent_launches = e3op.tangent_prep_launches = e3op.plain_tangent_calls = 0
     swop.pert_launches = swop.edge_launches = swop.halo_launches = swop.run_launches = swop.plain_calls = 0
     e3op.pert_launches = e3op.pert_stage_launches = e3op.pert_tangent_launches = e3op.plain_calls = 0
     swop.tile_launches = swop.pert_tile_launches = e3op.tile_launches = e3op.pert_tile_launches = 0
@@ -395,7 +414,8 @@ def read_counts():
     return {"sw_operator": swop.launches, "sw_pert": swop.pert_launches, "sw_edges": swop.edge_launches,
             "sw_halo": swop.halo_launches, "sw_run": swop.run_launches, "sw_plain_calls": swop.plain_calls,
             "euler3d_operator": e3op.launches,
-            "euler3d_tangent": e3op.tangent_launches, "euler3d_pert": e3op.pert_launches,
+            "euler3d_tangent": e3op.tangent_launches, "euler3d_tangent_prep": e3op.tangent_prep_launches,
+            "euler3d_pert": e3op.pert_launches,
             "euler3d_pert_stage": e3op.pert_stage_launches, "euler3d_pert_tangent": e3op.pert_tangent_launches,
             "euler3d_plain_calls": e3op.plain_calls, "plain_tangent_calls": e3op.plain_tangent_calls,
             "sw_tile": swop.tile_launches, "sw_pert_tile": swop.pert_tile_launches,
@@ -635,9 +655,10 @@ def phase9(torch):
     emit_comparison(9, rows, ("nel_h", "nel_v", "s", "case"))
     bad = [r for r in rows if not r["ok"]]
     if bad:
-        raise AssertionError(f"tangent kernel disagrees with its plain version: {bad}")
+        raise AssertionError(f"tangent kernels disagree with their plain versions: {bad}")
     main_path = [r for r in rows if (r["nel_h"], r["nel_v"], r["s"], r["dtype"]) == E3_MAIN + ("float64",)]
-    return max(r["max_abs_err"] for r in main_path)
+    return {"euler3d_tangent_prep": max(r["prep_max_abs_err"] for r in main_path),
+            "euler3d_tangent_apply": max(r["apply_max_abs_err"] for r in main_path)}
 
 
 KRYLOV_LINE = re.compile(r"kiops converged at iteration (\d+) \((\d+) substeps, (\d+) rejected\) "
@@ -709,10 +730,12 @@ def _epi2_run(torch, nel_h, nel_v, s, nsteps, tag, profile_steps):
     if counts["euler3d_operator"] != nsteps:
         raise AssertionError(f"{counts['euler3d_operator']} RHS-kernel launches in {nsteps} EPI2 steps")
     if counts["euler3d_tangent"] != counts["jacobian_actions"] or counts["jacobian_actions"] == 0:
-        raise AssertionError(f"tangent launches {counts['euler3d_tangent']} != Jacobian actions "
+        raise AssertionError(f"tangent apply launches {counts['euler3d_tangent']} != Jacobian actions "
                              f"{counts['jacobian_actions']}")
-    if counts["plain_tangent_calls"] != 0:
-        raise AssertionError(f"{counts['plain_tangent_calls']} plain tangent calls on the card")
+    if counts["euler3d_tangent_prep"] != nsteps:  # one linearisation point a step
+        raise AssertionError(f"{counts['euler3d_tangent_prep']} tangent prep launches in {nsteps} EPI2 steps")
+    if counts["plain_tangent_calls"] != 0 or counts["euler3d_plain_calls"] != 0:
+        raise AssertionError(f"plain calls on the card: {counts}")
     if len(krylov) != nsteps or sum(k[0] for k in krylov) != counts["jacobian_actions"]:
         raise AssertionError(f"Krylov statistics {krylov} do not account for {counts['jacobian_actions']} actions")
     _, ops, metric, _, _ = euler3d_setup(nel_h, nel_v, s, 31)
@@ -742,8 +765,8 @@ def _epi2_run(torch, nel_h, nel_v, s, nsteps, tag, profile_steps):
         "dtype": "float64", "integrator": "epi2", "exponential_solver": "kiops", "tolerance": 1e-7, "dt": dt,
         "steps": int(run.group(1)), "simulated_s": dt * nsteps, "setup_s": wall - run_s, "run_s": run_s,
         "steps_per_s": float(run.group(3)), "main_wall_s": wall, "rhs_launches": counts["euler3d_operator"],
-        "tangent_launches": counts["euler3d_tangent"], "jacobian_actions": counts["jacobian_actions"],
-        "plain_tangent_calls": counts["plain_tangent_calls"],
+        "tangent_launches": counts["euler3d_tangent"], "tangent_prep_launches": counts["euler3d_tangent_prep"],
+        "jacobian_actions": counts["jacobian_actions"], "plain_tangent_calls": counts["plain_tangent_calls"],
         "krylov_iterations": sum(k[0] for k in krylov), "substeps": sum(k[1] for k in krylov),
         "rejected": sum(k[2] for k in krylov), "last_krylov_size": krylov[-1][3],
         "krylov_per_step": krylov, "mass_drift": drift, "mass_drift_per_step": drifts,
@@ -761,41 +784,85 @@ def phase11(torch):
     canonical = _epi2_run(torch, 12, 3, 2, nsteps=10, tag="canonical", profile_steps=3)
     main = _epi2_run(torch, *E3_MAIN, nsteps=3, tag="main", profile_steps=1)
     emit({"phase": 11, "results": [canonical, main]})
-    return main["tangent_launches"]
+    return {"euler3d_tangent_apply": main["tangent_launches"], "euler3d_tangent_prep": main["tangent_prep_launches"]}
 
 
-def phase12(torch, smi):
-    from wxfactory_tpu_torch.kernels.check import euler3d_tangent_inputs, euler3d_tangent_work, tangent_halos
+def _tangent_timing(torch, pert_form: bool):
+    """Per dtype at E3_MAIN, in turns: the prep and apply kernels (the
+    card's time a call) and their plain versions, the plain tangent
+    (torch.func.jvp), the tangent glue and the RHS kernel of the same form
+    (CUDA events around single calls, median; the apply's too, which adds
+    the host's time a call); beside the function's bound, the apply's own
+    bytes floor, the prep's bound, and the registers, spills, shared memory
+    and resident blocks of the kernels."""
+    from wxfactory_tpu_torch.kernels.check import (euler3d_pert_inputs, euler3d_pert_work, euler3d_tangent_apply_work,
+                                                   euler3d_tangent_inputs, euler3d_tangent_prep_work,
+                                                   euler3d_tangent_work, pert_halos, tangent_halos,
+                                                   tangent_kernel_resources)
     from wxfactory_tpu_torch.ops import euler3d_operator as e3op
 
     rows = []
     for dtype in (torch.float64, torch.float32):
-        con, topology, q, v = euler3d_tangent_inputs(*E3_MAIN, dtype, "cuda")
-        traces = e3op.edge_traces(q, con)
-        halo_q, halo_v = tangent_halos(q, v, con, topology)
-        kernel = lambda: e3op.euler3d_tangent(q, v, halo_q, halo_v, con)
-        plain = lambda: e3op.euler3d_tangent_plain(q, v, halo_q, halo_v, con)
-        glue = lambda: e3op.halo_from_traces(e3op.edge_traces_tangent(q, v, con, traces), topology)
-        rhs = lambda: e3op.euler3d_operator(q, halo_q, con)
-        for fn in (kernel, plain, glue, rhs):
+        if pert_form:
+            con, topology, pert, q, v = euler3d_pert_inputs(*E3_MAIN, dtype, "cuda")
+            halo_q, halo_v = pert_halos(q, v, pert, con, topology)
+            qa, traces = pert.q0 + q, pert.traces0 + e3op.edge_traces_delta(q, pert, con)
+            jvp = lambda: e3op.euler3d_tangent_pert_plain(q, v, halo_q, halo_v, con, pert)
+        else:
+            con, topology, q, v = euler3d_tangent_inputs(*E3_MAIN, dtype, "cuda")
+            pert, (halo_q, halo_v) = None, tangent_halos(q, v, con, topology)
+            qa, traces = q, e3op.edge_traces(q, con)
+            jvp = lambda: e3op.euler3d_tangent_plain(q, v, halo_q, halo_v, con)
+        coef = e3op.euler3d_tangent_prep(q, halo_q, con, pert)
+        fns = {
+            "prep": lambda: e3op.euler3d_tangent_prep(q, halo_q, con, pert),
+            "apply": lambda: e3op.euler3d_tangent_apply(v, halo_v, coef, con),
+            "prep_plain": lambda: e3op.euler3d_tangent_prep_plain(q, halo_q, con, pert),
+            "apply_plain": lambda: e3op.euler3d_tangent_apply_plain(v, halo_v, coef, con),
+            "jvp_plain": jvp,
+        }
+        glue = lambda: e3op.halo_from_traces(e3op.edge_traces_tangent(qa, v, con, traces), topology)
+        rhs = lambda: e3op.euler3d_operator(q, halo_q, con, pert=pert)
+        for fn in list(fns.values()) + [glue, rhs]:
             for _ in range(2):
                 fn()
         torch.cuda.synchronize()
-        k, p = [], []
-        for fn, times in ((plain, p), (kernel, k), (kernel, k), (plain, p)):
-            times.extend(_event_times(torch, fn, n=10))
+        # The kernels: the card's time a call, 20 calls queued behind a sleep
+        # kernel, twice each in turns; the plain versions: single calls
+        # between CUDA events, median.
+        times = {k: [] for k in fns}
+        order = list(fns)
+        for key in order + order[::-1]:
+            plain = key.endswith("plain")
+            times[key].extend(_event_times(torch, fns[key], n=5) if plain else [_device_ms(torch, fns[key], 20)])
         name = str(dtype).replace("torch.", "")
-        nbytes, ops = euler3d_tangent_work(con)
-        bound = {"bytes": nbytes / PEAK_BYTES * 1e3, "operations": ops / PEAK_FLOPS[name] * 1e3}
-        rows.append({
-            "nel_h": E3_MAIN[0], "nel_v": E3_MAIN[1], "s": E3_MAIN[2], "dtype": name,
-            "tangent_kernel_ms": statistics.median(k), "tangent_plain_ms": statistics.median(p),
-            "tangent_glue_ms": statistics.median(_event_times(torch, glue)),
-            "rhs_kernel_ms": statistics.median(_event_times(torch, rhs)), "calls_each": len(k),
-            "tangent_bytes": nbytes, "tangent_ops": ops, "tangent_bound_ms": max(bound.values()),
-            "tangent_bound_by": max(bound, key=bound.get),
-        })
-    emit({"phase": 12, "gpu": smi, "timing": "CUDA events, median per call", "results": rows})
+        row = {"nel_h": E3_MAIN[0], "nel_v": E3_MAIN[1], "s": E3_MAIN[2], "dtype": name,
+               "form": "perturbation" if pert_form else "absolute",
+               **{f"{k}_ms": statistics.median(t) for k, t in times.items()},
+               "prep_ms_turns": times["prep"], "apply_ms_turns": times["apply"],
+               "apply_event_ms": statistics.median(_event_times(torch, fns["apply"])),
+               "glue_ms": statistics.median(_event_times(torch, glue)),
+               "rhs_kernel_ms": statistics.median(_event_times(torch, rhs))}
+        work = {"function": euler3d_pert_work(con, tangent=True) if pert_form else euler3d_tangent_work(con),
+                "apply": euler3d_tangent_apply_work(con), "prep": euler3d_tangent_prep_work(con, pert_form)}
+        for key, (nbytes, ops) in work.items():
+            bound = {"bytes": nbytes / PEAK_BYTES * 1e3, "operations": ops / PEAK_FLOPS[name] * 1e3}
+            row[f"{key}_bytes"], row[f"{key}_ops"] = nbytes, ops
+            row[f"{key}_bound_ms"] = max(bound.values())
+            row[f"{key}_bound_by"] = max(bound, key=bound.get)
+        resources = tangent_kernel_resources(dtype, E3_MAIN[2])
+        row["resources"] = {"prep": resources["pert_prep" if pert_form else "prep"], "apply": resources["apply"]}
+        rows.append(row)
+        del coef, fns
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase12(torch, smi):
+    rows = _tangent_timing(torch, pert_form=False)
+    emit({"phase": 12, "gpu": smi, "timing": "kernels: the card's time a call (20 calls queued behind a sleep "
+          "kernel, CUDA events), in turns; the rest and *_event_ms: CUDA events around single calls, median",
+          "results": rows})
     return rows[0]
 
 
@@ -812,7 +879,8 @@ def phase13(torch):
         raise AssertionError(f"perturbation kernel disagrees with its plain version: {bad}")
     main_path = [r for r in rows if (r["nel_h"], r["nel_v"], r["s"], r["dtype"], r["mode"]) ==
                  E3_MAIN + ("float32", "pert_tangent")]
-    return max(r["max_abs_err"] for r in main_path)
+    return {"euler3d_pert_tangent_prep": max(r["prep_max_abs_err"] for r in main_path),
+            "euler3d_pert_tangent_apply": max(r["apply_max_abs_err"] for r in main_path)}
 
 
 KIOPS_JIT_LINE = re.compile(r"kiops_jit converged at iteration (\d+) \((\d+) substeps, (\d+) rejected\) "
@@ -913,10 +981,13 @@ def _kiops_jit_run(torch, nel_h, nel_v, s, nsteps, mixed, tag, profile_steps, ch
         raise AssertionError(f"{counts['euler3d_operator']} RHS-kernel launches in {nsteps} steps")
     if counts[tangent] != counts["jacobian_actions"] or counts["jacobian_actions"] == 0:
         raise AssertionError(f"{tangent} launches {counts[tangent]} != Jacobian actions {counts['jacobian_actions']}")
+    # One linearisation point a step: the companion's (mixed) or the float64 RHS's.
+    if counts["euler3d_tangent_prep"] != nsteps:
+        raise AssertionError(f"{counts['euler3d_tangent_prep']} tangent prep launches in {nsteps} steps")
     if counts["euler3d_tangent" if mixed else "euler3d_pert_tangent"] or counts["euler3d_pert"]:
         raise AssertionError(f"launches of another mode: {counts}")
-    if counts["plain_tangent_calls"] != 0:
-        raise AssertionError(f"{counts['plain_tangent_calls']} plain tangent calls on the card")
+    if counts["plain_tangent_calls"] != 0 or counts["euler3d_plain_calls"] != 0:
+        raise AssertionError(f"plain calls on the card: {counts}")
     controls = sum(k[4] for k in krylov)
     if len(krylov) != nsteps or sum(k[6] for k in krylov) != counts["jacobian_actions"]:
         raise AssertionError(f"Krylov statistics {krylov} do not account for {counts['jacobian_actions']} actions")
@@ -947,6 +1018,7 @@ def _kiops_jit_run(torch, nel_h, nel_v, s, nsteps, mixed, tag, profile_steps, ch
         "device_step_chunk": chunk, "tolerance": 1e-7, "dt": dt, "steps": int(run.group(1)),
         "setup_s": wall - run_s, "run_s": run_s, "steps_per_s": float(run.group(3)), "main_wall_s": wall,
         "rhs_launches": counts["euler3d_operator"], "tangent_launches": counts[tangent],
+        "tangent_prep_launches": counts["euler3d_tangent_prep"],
         "jacobian_actions": counts["jacobian_actions"], "plain_tangent_calls": counts["plain_tangent_calls"],
         "krylov_iterations": sum(k[0] for k in krylov), "substeps": sum(k[1] for k in krylov),
         "rejected": sum(k[2] for k in krylov), "controls": controls, "masked_iterations": sum(k[5] for k in krylov),
@@ -984,7 +1056,8 @@ def phase15(torch):
         _kiops_jit_run(torch, *E3_MAIN, nsteps=5, mixed=0, tag="main_f64", profile_steps=1),
     ]
     emit({"phase": 15, "results": rows})
-    return rows[2]["tangent_launches"]
+    return {"euler3d_pert_tangent_apply": rows[2]["tangent_launches"],
+            "euler3d_pert_tangent_prep": rows[2]["tangent_prep_launches"]}
 
 
 def _arnoldi_ms(torch, matvec, vec, basis_dtype, full_ortho, m=64):
@@ -1008,39 +1081,16 @@ def _arnoldi_ms(torch, matvec, vec, basis_dtype, full_ortho, m=64):
 
 
 def phase16(torch, smi):
-    from wxfactory_tpu_torch.kernels.check import euler3d_pert_inputs, euler3d_pert_work, euler3d_setup, pert_halos
+    from wxfactory_tpu_torch.kernels.check import euler3d_pert_inputs, euler3d_pert_work, euler3d_setup
     from wxfactory_tpu_torch.models import Euler3DRHS
-    from wxfactory_tpu_torch.ops import euler3d_operator as e3op
     from wxfactory_tpu_torch.solvers.matvec import make_jvp_matvec
 
-    rows = []
-    for dtype in (torch.float64, torch.float32):
-        con, topology, pert, dq, v = euler3d_pert_inputs(*E3_MAIN, dtype, "cuda")
-        halo_dq, halo_v = pert_halos(dq, v, pert, con, topology)
-        qa, tra = pert.q0 + dq, pert.traces0 + e3op.edge_traces_delta(dq, pert, con)
-        kernel = lambda: e3op.euler3d_tangent(dq, v, halo_dq, halo_v, con, pert=pert)
-        plain = lambda: e3op.euler3d_tangent_pert_plain(dq, v, halo_dq, halo_v, con, pert)
-        glue = lambda: e3op.halo_from_traces(e3op.edge_traces_tangent(qa, v, con, tra), topology)
-        rhs = lambda: e3op.euler3d_operator(dq, halo_dq, con, pert=pert)
-        for fn in (kernel, plain, glue, rhs):
-            for _ in range(2):
-                fn()
-        torch.cuda.synchronize()
-        k, p = [], []
-        for fn, times in ((plain, p), (kernel, k), (kernel, k), (plain, p)):
-            times.extend(_event_times(torch, fn, n=5 if fn is plain else 10))
-        name = str(dtype).replace("torch.", "")
-        row = {"nel_h": E3_MAIN[0], "nel_v": E3_MAIN[1], "s": E3_MAIN[2], "dtype": name,
-               "pert_tangent_kernel_ms": statistics.median(k), "pert_tangent_plain_ms": statistics.median(p),
-               "pert_tangent_glue_ms": statistics.median(_event_times(torch, glue)),
-               "pert_rhs_kernel_ms": statistics.median(_event_times(torch, rhs)), "calls_each": len(k)}
-        for mode, tangent in (("pert_tangent", True), ("pert_rhs", False)):
-            nbytes, ops = euler3d_pert_work(con, tangent=tangent)
-            bound = {"bytes": nbytes / PEAK_BYTES * 1e3, "operations": ops / PEAK_FLOPS[name] * 1e3}
-            row[f"{mode}_bytes"], row[f"{mode}_ops"] = nbytes, ops
-            row[f"{mode}_bound_ms"] = max(bound.values())
-            row[f"{mode}_bound_by"] = max(bound, key=bound.get)
-        rows.append(row)
+    rows = _tangent_timing(torch, pert_form=True)
+    for row, dtype in zip(rows, (torch.float64, torch.float32)):
+        nbytes, ops = euler3d_pert_work(euler3d_pert_inputs(*E3_MAIN, dtype, "cuda")[0])
+        bound = {"bytes": nbytes / PEAK_BYTES * 1e3, "operations": ops / PEAK_FLOPS[row["dtype"]] * 1e3}
+        row["pert_rhs_bytes"], row["pert_rhs_ops"] = nbytes, ops
+        row["pert_rhs_bound_ms"], row["pert_rhs_bound_by"] = max(bound.values()), max(bound, key=bound.get)
 
     # One Arnoldi iteration of each kiops_jit variant on the main path's
     # operators at the initial state (EPI2's first step, dt = 30 s).
@@ -1057,7 +1107,7 @@ def phase16(torch, smi):
         ms, st = _arnoldi_ms(torch, mv, vec, bd, fo)
         arnoldi[variant] = {"ms_per_iteration": ms, "iterations": st.krylov_steps + st.masked_iterations,
                             "controls": st.controls}
-    emit({"phase": 16, "gpu": smi, "timing": "CUDA events, median per call; Arnoldi: one 64-iteration cycle",
+    emit({"phase": 16, "gpu": smi, "timing": "as phase 12; Arnoldi: one 64-iteration cycle",
           "results": rows, "arnoldi": arnoldi})
     return rows[1]
 
@@ -1604,6 +1654,10 @@ def _ros2_run(torch, nel_h, nel_v, s, dt, nsteps, solver, mixed, chunk, tag):
                              f"{counts['jacobian_actions']}, plain tangent calls {counts['plain_tangent_calls']}")
     if bool(counts["euler3d_pert_tangent"]) != bool(mixed):
         raise AssertionError(f"Ros2 run {tag}: perturbation tangent launches {counts['euler3d_pert_tangent']}")
+    # Linearisation points: the float64 RHS's a step, and the companion's (mixed).
+    if counts["euler3d_tangent_prep"] != nsteps * (1 + mixed) or counts["euler3d_plain_calls"]:
+        raise AssertionError(f"Ros2 run {tag}: {counts['euler3d_tangent_prep']} tangent prep launches in {nsteps} "
+                             f"steps, plain calls {counts['euler3d_plain_calls']}")
     # Counted waits of the device solver: |r0| and |b| and one read a cycle
     # a solve, the NaN guard and a checkpoint a chunk, the initial
     # checkpoint and the final synchronize; no other wait can have happened.
@@ -1632,6 +1686,7 @@ def _ros2_run(torch, nel_h, nel_v, s, dt, nsteps, solver, mixed, chunk, tag):
         "iterations": iterations, "iterations_per_step": iterations / nsteps, "cycles": cycles,
         "masked_iterations": sum(l[2] for l in lines), "rhs_launches": counts["euler3d_operator"],
         "tangent_launches": counts["euler3d_tangent"], "pert_tangent_launches": counts["euler3d_pert_tangent"],
+        "tangent_prep_launches": counts["euler3d_tangent_prep"],
         "jacobian_actions": counts["jacobian_actions"], "host_syncs": counts["host_syncs"],
         "host_syncs_per_step": step_syncs / nsteps, "mass_drift_per_checkpoint": drifts,
     }
@@ -2052,9 +2107,9 @@ def main() -> int:
     phase10(torch)
     tangent_launches = phase11(torch)
     tangent_timing = phase12(torch, smi)
-    pert_err = phase13(torch)
+    tangent_err.update(phase13(torch))
     phase14(torch)
-    pert_launches = phase15(torch)
+    tangent_launches.update(phase15(torch))
     pert_timing = phase16(torch, smi)
     sw_errs = phase17(torch)
     phase18(torch)
@@ -2082,16 +2137,19 @@ def main() -> int:
          "replaces": "wxfactory_tpu/ops/pallas_euler3d.py:2131", "launches": e3_launches,
          "max_abs_err": e3_err, "ms": e3_timing["kernel_rhs_ms"], "plain_ms": e3_timing["plain_rhs_ms"],
          "bound_ms": e3_timing["rhs_bound_ms"], "bound_by": e3_timing["rhs_bound_by"], "library_ms": None},
-        {"name": "euler3d_tangent", "route": "cuda", "source": "wxfactory_tpu_torch/csrc/euler3d_operator.cu",
-         "replaces": "wxfactory_tpu/ops/pallas_euler3d.py:2131 (tangent mode)", "launches": tangent_launches,
-         "max_abs_err": tangent_err, "ms": tangent_timing["tangent_kernel_ms"],
-         "plain_ms": tangent_timing["tangent_plain_ms"], "bound_ms": tangent_timing["tangent_bound_ms"],
-         "bound_by": tangent_timing["tangent_bound_by"], "library_ms": None},
-        {"name": "euler3d_pert", "route": "cuda", "source": "wxfactory_tpu_torch/csrc/euler3d_operator.cu",
-         "replaces": "wxfactory_tpu/ops/pallas_euler3d.py:2131 (perturbation mode)", "launches": pert_launches,
-         "max_abs_err": pert_err, "ms": pert_timing["pert_tangent_kernel_ms"],
-         "plain_ms": pert_timing["pert_tangent_plain_ms"], "bound_ms": pert_timing["pert_tangent_bound_ms"],
-         "bound_by": pert_timing["pert_tangent_bound_by"], "library_ms": None},
+        *[{"name": f"euler3d_{form}tangent_{kernel}", "route": "cuda",
+           "source": "wxfactory_tpu_torch/csrc/euler3d_operator.cu",
+           "replaces": "wxfactory_tpu/ops/pallas_euler3d.py:2131 (tangent mode"
+                       + (", perturbation form" if form else "") + (", its linearisation)" if kernel == "prep" else ")"),
+           "launches": tangent_launches[f"euler3d_{form}tangent_{kernel}"],
+           "max_abs_err": tangent_err[f"euler3d_{form}tangent_{kernel}"], "ms": timing[f"{kernel}_ms"],
+           "plain_ms": timing[f"{kernel}_plain_ms"], "library_ms": None,
+           # The apply is held to the function's bound (J.v from q and v);
+           # its own floor, which counts the coefficients it reads, beside it.
+           **({"bound_ms": timing["prep_bound_ms"], "bound_by": timing["prep_bound_by"]} if kernel == "prep" else
+              {"bound_ms": timing["function_bound_ms"], "bound_by": timing["function_bound_by"],
+               "apply_floor_ms": timing["apply_bound_ms"]})}
+          for form, timing in (("", tangent_timing), ("pert_", pert_timing)) for kernel in ("prep", "apply")],
         sw_entry("sw_pert", "pert_stage_traces", "wxfactory_tpu/ops/pallas_sw_gen.py:632 (perturbation mode)"),
         sw_entry("sw_halo", "halo", "wxfactory_tpu/ops/pallas_sw.py:374"),
         sw_entry("sw_edges", "edges", "wxfactory_tpu/ops/pallas_sw.py:258"),

@@ -169,7 +169,7 @@ def test_tangent_wrapper_checks_inputs_and_counts_plain_calls():
     dq, v = _inputs(q0)
     rhs = interop.euler3d_rhs(geom, ops, metric)
     q, vt = interop.to_tensor(q0 + dq), interop.to_tensor(v)
-    _, _, traces, halo_q = rhs.jtv_prep(q)
+    _, _, traces, halo_q, _ = rhs.jtv_prep(q)
     halo_v = rhs.halo(e3op.edge_traces_tangent(q, vt, rhs.con, traces))
     launches, plain = e3op.tangent_launches, e3op.plain_tangent_calls
     out = e3op.euler3d_tangent(q, vt, halo_q, halo_v, rhs.con)

@@ -1,7 +1,7 @@
 """The port's CUDA kernels (SW operator and its perturbation mode, the SW
 halo, edge-trace and whole-run kernels, 3D Euler operator, its tangent
-mode and the perturbation form of both, with its stage mode, and the tile kernels of both models with the
-tile steps' launch counts) against their plain torch versions, on the card. Needs a CUDA device and nvcc, and skips without them. On a GPU
+prep and apply kernels and the perturbation form of both, with its stage mode, and the tile kernels of both
+models with the tile steps' launch counts) against their plain torch versions, on the card. Needs a CUDA device and nvcc, and skips without them. On a GPU
 machine run it without tests/conftest.py (which configures JAX):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernel_cuda.py
@@ -100,6 +100,34 @@ def test_euler3d_tangent_counters_count_kernel_launches_and_plain_calls(cuda):
     e3op.euler3d_tangent(q, v, halo_q, halo_v, con)
     torch.cuda.synchronize()
     assert (e3op.tangent_launches, e3op.plain_tangent_calls) == (launches + 1, plain + 1)
+
+
+@pytest.mark.parametrize("pert_form", [False, True], ids=["absolute", "perturbation"])
+def test_jtv_launches_one_prep_and_one_apply_per_action(cuda, pert_form):
+    """Euler3DRHS on the card: jtv_prep launches the prep once, each
+    jtv_apply the apply once and nothing plain; J.v equals the plain
+    tangent within 1e-12 of scale and the apply is linear in v."""
+    from wxfactory_tpu_torch.models import Euler3DRHS
+
+    geom, ops, metric, topology, q0 = euler3d_setup(3, 2, 3, 31)
+    rhs = Euler3DRHS(geom, ops, metric, device="cuda", topology=topology,
+                     perturbation_base=q0 if pert_form else None)
+    con, _, q, v = euler3d_tangent_inputs(3, 2, 3, torch.float64, "cuda")
+    counts = lambda: (e3op.tangent_prep_launches, e3op.tangent_launches, e3op.pert_tangent_launches,
+                      e3op.plain_calls, e3op.plain_tangent_calls)
+    before = counts()
+    prep = rhs.jtv_prep(q)
+    got = [rhs.jtv_apply(prep, x) for x in (v, 2.0 * v, v.flip(-1).contiguous())]
+    torch.cuda.synchronize()
+    applies = (0, 3) if pert_form else (3, 0)
+    assert counts() == (before[0] + 1, before[1] + applies[0], before[2] + applies[1], before[3], before[4])
+    q_in, qa, traces, halo_q, coef = prep
+    halo_v = rhs.halo(e3op.edge_traces_tangent(qa, v, con, traces))
+    want = (e3op.euler3d_tangent_pert_plain(q_in, v, halo_q, halo_v, con, rhs.pert) if pert_form
+            else e3op.euler3d_tangent_plain(q_in, v, halo_q, halo_v, con))
+    scale = want.abs().reshape(5, -1).amax(dim=1).reshape(5, 1, 1, 1, 1, 1)
+    assert float(((got[0] - want).abs() / scale).max()) < 1e-12
+    assert float(((got[1] - 2.0 * got[0]).abs() / scale).max()) < 1e-13
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])

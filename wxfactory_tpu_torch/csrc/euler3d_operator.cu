@@ -72,39 +72,69 @@
 // log/exp throughput, and low occupancy (53-92 KB of shared memory a block
 // in f64).
 //
-// Tangent mode (euler3d_tangent_kernel, C entry euler3d_tangent_launch):
-// the Jacobian action J(q).v of the RHS above, replacing km3_fused's
-// tangent mode (pallas_euler3d.py:2131 with tangent=, body _km3_body
-// :762-777), the matvec of the exponential integrators' Krylov loop. It
-// takes the ABSOLUTE state q and the direction v with both halos; the JAX
-// mode takes the perturbation dq and the base q0 (q = q0 + dq), which is
-// the same function of (q, v): the base-state split is there for float32
-// on the TPU, and buys nothing for the float64 operator on this card. It
-// emits J.v alone (no stage, bal or traces). Every nonlinear site is
-// linearised exactly: d exp(E.log q) = tr * (E.(v/q)) for rho and
-// rho*theta at the own and the re-extrapolated neighbour traces alike,
-// dp = gamma p v_rt / q_rt, the quotient rule for the normal speed and for
-// the own-side face pressure that divides the w-pressure flux, the product
-// rule for the quadratic Christoffel terms (Coriolis, time Christoffels
-// and the filtered gravity are linear). Two non-differentiable sites take
-// the convention of jax.jvp and of torch.func.jvp of the plain version:
-// d|vn| = +dvn where vn >= 0 (zero included: a state at rest has vn = 0
-// at every z face), -dvn below; d max(aL, aR) = the larger side's
-// derivative, the mean of both at a tie. The tie is exact at the ground
-// and the lid, where both sides are the element's own trace with w odd:
-// there the two sides' derivatives are equal (|vn| and its derivative are
-// even in w), so any choice gives the same flux. The conservation
-// discipline of the RHS mode carries over: each element computes all six
-// faces, re-extrapolates the neighbour's primal and direction traces from
-// device memory in the fma order the neighbour uses, and passes qL/qR in
-// the fixed order through one call site, so the mass-flux derivative is
-// bit-identical from both sides and J.v has zero mass integral to
-// round-off. It holds 29 s^3 + 54 s^2 numbers an element in shared memory
-// (65-115 KB a block in f64) and reads q, v, the metric and both halos:
-// at 20x20x3, s=3, f64 ~212 MB, 63 us at 3.35 TB/s, bytes-bound like the
-// RHS mode.
+// Tangent prep and apply (euler3d_tangent_prep_kernel and
+// euler3d_tangent_apply_kernel, C entries euler3d_tangent_prep_launch and
+// euler3d_tangent_apply_launch): the Jacobian action J(q).v of the RHS
+// above, replacing km3_fused's tangent mode (pallas_euler3d.py:2131 with
+// tangent=, pallas_call :2398, body _km3_body :762-781, primal sites
+// :945-969, :1138-1190, :1317-1380), the matvec of the exponential and
+// Rosenbrock integrators' Krylov loops, split in two kernels because q is
+// fixed for a whole Krylov solve and v changes every iteration. The prep
+// runs once per linearisation point and writes every primal quantity the
+// action needs that costs a transcendental, a square root, a division or
+// a neighbour read into a coefficient buffer (ops/euler3d_operator.py::
+// tangent_layout): per node 1/rho, 1/(rho theta), u, theta, p and the w
+// pressure split's primal factor w_pres (wpres_int + the correction of the
+// face w pressure / p + sqrt(g) h^{k2} d_k log p), element-major (each
+// element's 8 s^3 a contiguous run, staged by the apply with cp.async);
+// per interface point, once for both sides, in the interface metric's
+// families and order: the L/R primal traces with their 1/rho and
+// 1/(rho theta), sound speeds, gamma p/(rho theta), the pressure ratios,
+// the Rusanov eigenvalue and the selector weight of d max(aL, aR). The
+// apply reads v, its halo and the buffer and is linear in v: no
+// transcendental, square root or division. It takes the absolute state;
+// in PERT mode the prep forms every primal quantity as the perturbation
+// form does (t0 + dt, p0 + dp, dlp0 + ddlp, the real log1p/expm1), and the
+// apply is the same. Two non-differentiable sites take the convention of
+// jax.jvp and of torch.func.jvp of the plain version: d|vn| = +dvn where
+// vn >= 0 (zero included: a state at rest has vn = 0 at every z face),
+// -dvn below; d max(aL, aR) = the larger side's derivative, the mean of
+// both at a tie (exact at the ground and the lid, where both sides are the
+// element's own trace with w odd and their derivatives are equal). The
+// conservation discipline carries over: each element computes all six
+// faces of the apply from the one stored set of interface coefficients,
+// its own direction trace from shared memory and the neighbour's
+// re-extrapolated from v and the neighbour's 1/rho, 1/(rho theta) (from
+// shared memory when the neighbour is in the block: the same products) in
+// the fma order the neighbour uses, with (L, R) in the fixed order through
+// one call site, so the mass-flux derivative is bit-identical from both
+// sides and J.v has zero mass integral to round-off. Face work runs face
+// by face over the block's elements, so a warp takes one direction and
+// side. Tensor cores do not apply: the contractions are s x s with s <= 6,
+// far below wgmma's 64-row tiles.
 //
-// Perturbation mode (template flag PERT of both kernels; C entries with
+// What bounds them (NVIDIA H100 80GB HBM3, 700 W power limit; dcmip31 at
+// nel_h = nel_v = 20, s = 3; tools/tangent_ablation.py, 20 calls between
+// CUDA events). The one-call kernel these replace took 0.774-0.782 ms in
+// f64 and 0.391-0.394 ms in f32 PERT: its face loop (the neighbour's
+// re-extrapolated logs and exps, the divisions) 66-68 % of that, its
+// transcendentals 12-21 %, at one block (243 threads) an SM in f64 (166
+// registers). The prep does that primal work once a step: 0.329-0.333 ms
+// f64, 0.246-0.248 f32 PERT (its bytes bound 0.118 / 0.067 ms). The apply
+// must read ~481 MB in f64 (the buffer is ~31 words a node against the
+// state's 5): a floor of 0.144 ms (0.072 f32). It takes 0.471-0.482 ms f64
+// and 0.243 f32 PERT at 128 registers and 2 blocks an SM in f64 (80 and 3
+// in f32, 0.261 at 64 and 4; ApplyBlocks). The face loop is ~0.31 ms of it
+// in f64, latency-bound rather than bytes-bound: its interface coefficient
+// reads (22 rows a face point, each interface read from both sides) cost
+// ~0.16 ms and the out-of-block neighbours' reads ~0.07. More blocks an SM
+// spill (3 blocks in f64: 0.51 ms), loading the 22 coefficients up front
+// spills (0.62 ms), and staging them into shared memory with word-granular
+// cp.async costs more than the loads it replaces (0.71 ms). Each interface
+// computed once per block (the operator kernel's next redesign) is what
+// would move it toward its floor.
+//
+// Perturbation mode (template flag PERT of the operator and prep kernels; C entries with
 // q0 != NULL): km3_fused's pert= mode (pallas_euler3d.py:2131 with pert=,
 // body _km3_body with base= :919-945, :1061-1136, :1215-1240, :1290-1320,
 // :1427-1540), the float32 companion of the mixed-precision Krylov loop.
@@ -125,14 +155,12 @@
 // t0 * expm1(E.log1p(dout/q0)) around the base traces t0 (traces0, built
 // in float64 and cast, as ops/euler3d_operator.py::edge_traces_delta has
 // them), all four sides (km3_fused's stage and delta slabs,
-// pallas_euler3d.py:1568-1645, emit W/E only; no bal); tangent mode writes
-// J(q0 + dq).v with the absolute traces t0 + dt, pressures p0 + dp and
-// log-pressure gradient dlp0 + ddlp as the linearisation coefficients. It
-// keeps the real log1p/expm1 (the JAX package writes them as compensated
-// formulas because Mosaic lacks them). Shared memory grows by q0, its logs
-// and its log p: 32 s^3 + 54 s^2 numbers an element in RHS mode, 37 s^3 +
-// 60 s^2 in tangent mode; the delta traces read q0 from there, so the
-// stage mode needs no more.
+// pallas_euler3d.py:1568-1645, emit W/E only; no bal); the tangent prep
+// forms the linearisation at q0 + dq (above). It keeps the real
+// log1p/expm1 (the JAX package writes them as compensated formulas because
+// Mosaic lacks them). Shared memory grows by q0, its logs and its log p:
+// 32 s^3 + 54 s^2 numbers an element in RHS mode; the delta traces read q0
+// from there, so the stage mode needs no more.
 
 #include <cuda_runtime.h>
 
@@ -884,210 +912,148 @@ int operator_launch(int npanel, int is_f64, int s, int nh, int nk, const void* q
 }
 
 // ---------------------------------------------------------------------------
-// Tangent mode
+// Tangent prep and apply
 
-// The direction's trace at one face point from its log-tangent nodal
-// values in shared memory (v_rho/rho, v_1, v_2, v_3, v_rt/rt): the momenta
-// extrapolated linearly, rho and rho*theta as tr * (E.(v/q)), tr the
-// primal trace. The same fma order as nb_tangent_trace.
-template <typename T, int S>
-__device__ __forceinline__ void own_tangent_trace(const T* sv, int base, int stride, const T* coef,
-                                                  const T* tr, T* ttr) {
-  constexpr int S3 = S * S * S;
-#pragma unroll
-  for (int v = 0; v < 5; ++v) {
-    const T* src = sv + v * S3;
-    T acc = T(0);
-#pragma unroll
-    for (int i = 0; i < S; ++i) acc = fmadd(src[base + i * stride], coef[i], acc);
-    ttr[v] = (v == 0 || v == 4) ? tr[v] * acc : acc;
+// Rows of the tangent coefficient buffer (ops/euler3d_operator.py,
+// TANGENT_NODE_ROWS and TANGENT_FACE_ROWS).
+constexpr int KN = 8;
+constexpr int KF = 22;
+constexpr int CN_IRHO = 0, CN_IRT = 1, CN_U = 2, CN_THETA = 5, CN_P = 6, CN_WPRES = 7;
+constexpr int CF_L = 0, CF_R = 5, CF_IRHO = 10, CF_IRT = 12, CF_C = 14, CF_GP = 16, CF_RATIO = 18, CF_EIG = 20,
+              CF_WL = 21;
+
+// Offsets in the coefficient buffer (tangent_layout): node rows (6, nk, nh,
+// nh, KN, s^3), then the x, y and z interface families (KF, 6, nk, nh,
+// nh+1, s^2), (KF, 6, nk, nh+1, nh, s^2), (KF, 6, nk+1, nh, nh, s^2).
+struct TangentLayout {
+  long long fam_x, fam_z;  // entries per row (the y family has fam_x)
+  long long base_x, base_y, base_z;
+  __host__ __device__ TangentLayout(int nh, int nk, int s) {
+    const long long s2 = (long long)s * s;
+    fam_x = 6LL * nk * nh * (nh + 1) * s2;
+    fam_z = 6LL * (nk + 1) * nh * nh * s2;
+    base_x = 6LL * nk * nh * nh * KN * s2 * s;
+    base_y = base_x + KF * fam_x;
+    base_z = base_y + KF * fam_x;
   }
-}
-
-// The same direction trace of another element, from q and v in device memory.
-template <typename T, int S>
-__device__ __forceinline__ void nb_tangent_trace(const T* q, const T* vd, long long nq, long long elem,
-                                                 int base, int stride, const T* coef, const T* tr,
-                                                 T* ttr) {
-  constexpr int S3 = S * S * S;
-#pragma unroll
-  for (int v = 0; v < 5; ++v) {
-    const long long o = v * nq + elem * S3 + base;
-    T acc = T(0);
-#pragma unroll
-    for (int i = 0; i < S; ++i) {
-      const T val = (v == 0 || v == 4) ? vd[o + i * stride] / q[o + i * stride] : vd[o + i * stride];
-      acc = fmadd(val, coef[i], acc);
-    }
-    ttr[v] = (v == 0 || v == 4) ? tr[v] * acc : acc;
+  // Row stride of family d, and the entry of face point k of face (d, pos)
+  // of element (p, kz, ey, ex) in its row 0.
+  __device__ __forceinline__ long long rows(int d) const { return d == 2 ? fam_z : fam_x; }
+  __device__ __forceinline__ long long face(int d, bool pos, int k, int s2, int nh, int nk, int p, int kz, int ey,
+                                            int ex) const {
+    if (d == 0) return base_x + ((((long long)p * nk + kz) * nh + ey) * (nh + 1) + ex + pos) * s2 + k;
+    if (d == 1) return base_y + ((((long long)p * nk + kz) * (nh + 1) + ey + pos) * nh + ex) * s2 + k;
+    return base_z + ((((long long)p * (nk + 1) + kz + pos) * nh + ey) * nh + ex) * s2 + k;
   }
+};
+
+// The element (panel-local index pe) as (kz, ey, ex).
+__device__ __forceinline__ void element_position(int pe, int nh, int& kz, int& ey, int& ex) {
+  kz = pe / (nh * nh);
+  const int r = pe - kz * nh * nh;
+  ey = r / nh;
+  ex = r - ey * nh;
 }
 
-// The same direction trace in perturbation mode: the log-tangent v/(q0 + dq)
-// of the neighbour from v, dq and q0 in device memory, in the fma order of
-// the element's own (phase 1 computes v/(q0 + dq) the same way).
-template <typename T, int S>
-__device__ __forceinline__ void nb_tangent_trace_pert(const T* q0, const T* dq, const T* vd, long long nq,
-                                                      long long elem, int base, int stride, const T* coef,
-                                                      const T* tr, T* ttr) {
-  constexpr int S3 = S * S * S;
-#pragma unroll
-  for (int v = 0; v < 5; ++v) {
-    const long long o = v * nq + elem * S3 + base;
-    T acc = T(0);
-#pragma unroll
-    for (int i = 0; i < S; ++i) {
-      const long long n = o + i * stride;
-      const T val = (v == 0 || v == 4) ? vd[n] / (q0[n] + dq[n]) : vd[n];
-      acc = fmadd(val, coef[i], acc);
-    }
-    ttr[v] = (v == 0 || v == 4) ? tr[v] * acc : acc;
-  }
-}
-
-// Directional derivative of `rusanov` at (L, R) with face pressures (pL,
-// pR) in the direction (tL, tR), vL/vR the normal speeds and tvL/tvR
-// theirs. Returns the derivatives of the four fluxes, of the w advection
-// and w pressure fluxes, and of the face pressures.
-template <typename T>
-__device__ __forceinline__ void rusanov_tangent(const T* L, const T* R, const T* tL, const T* tR, T vL,
-                                                T vR, T tvL, T tvR, T pL, T pR, T sg, T h0, T h1, T h2, T hd,
-                                                T* tf, T& twadv, T& twpres, T& tpL, T& tpR) {
-  const T gam = T(kGamma);
-  tpL = gam * pL * tL[4] / L[4];
-  tpR = gam * pR * tR[4] / R[4];
-  const T cL = sqrt_rn(hd * gam * pL / L[0]);
-  const T cR = sqrt_rn(hd * gam * pR / R[0]);
-  const T aL = fabs(vL) + cL, aR = fabs(vR) + cR;
-  const T taL = (vL >= T(0) ? tvL : -tvL) + T(0.5) * cL * (tpL / pL - tL[0] / L[0]);
-  const T taR = (vR >= T(0) ? tvR : -tvR) + T(0.5) * cR * (tpR / pR - tR[0] / R[0]);
-  const T eig = fmax(aL, aR);
-  const T teig = aL > aR ? taL : (aL < aR ? taR : T(0.5) * (taL + taR));
-  const T sl = sg * vL, sr = sg * vR, es = eig * sg;
-  const T tsl = sg * tvL, tsr = sg * tvR, tes = teig * sg;
-  T adv[5];
-#pragma unroll
-  for (int v = 0; v < 5; ++v)
-    adv[v] = T(0.5) * ((tsl * L[v] + sl * tL[v]) + (tsr * R[v] + sr * tR[v]) -
-                       (tes * (R[v] - L[v]) + es * (tR[v] - tL[v])));
-  const T tps = T(0.5) * (tpL + tpR);
-  tf[0] = adv[0];
-  tf[1] = adv[1] + sg * h0 * tps;
-  tf[2] = adv[2] + sg * h1 * tps;
-  tf[3] = adv[4];
-  twadv = adv[3];
-  twpres = sg * h2 * tps;
-}
-
-// Shared memory of the tangent mode (in T): ops1d, then per element [q
-// (5 s^3) | log-tangent v (5 s^3) | log rho, log rho*theta (2 s^3) | log p
-// (s^3) | sqrt(g)*v_rho (s^3) | direction fluxes (15 s^3) | face data
-// (9 x 6 s^2: the derivatives of the four fluxes, of the w advection, of
-// w pressure / p and of log p; then w pressure / p and log p)]. In
-// perturbation mode q, the logs and log p are the perturbation's (the
-// log-tangent is taken at q0 + dq), the element adds q0 (5 s^3) and log q0
-// (2 s^3) after the logs and log p0 (s^3) after log p, and the face rows end
-// with log p0 and the perturbation's d[log p] (10 x 6 s^2; the w pressure
-// / p row holds the absolute value). Every region starts on a 16-byte
-// boundary.
-template <typename T, int S, bool PERT = false>
-struct TangentShape {
+// Shared memory of the prep (in T): ops1d, then per element [q (5 s^3) |
+// log rho, log rho*theta (2 s^3) | log p (s^3) | face rows (2 x 6 s^2: the
+// own side's w pressure / p and log p)]. In perturbation mode q, the logs
+// and log p are the perturbation's, the element adds q0 (5 s^3) and log q0
+// (2 s^3) after the logs and log p0 (s^3) after log p, and the face rows
+// are w pressure / p (absolute), log p0 and the perturbation's d log p.
+template <typename T, int S, bool PERT>
+struct PrepShape {
   using Sh = Shape<T, S>;
-  static constexpr int S2 = Sh::S2, S3 = Sh::S3, NF = Sh::NF;
-  static constexpr int PS = Sh::PS, PS2 = Sh::PS2, N_OPS = Sh::N_OPS, EB = Sh::EB;
-  static constexpr int OFF_V = Sh::pad(5 * S3);
-  static constexpr int OFF_LOG = OFF_V + Sh::pad(5 * S3);
+  static constexpr int S2 = Sh::S2, S3 = Sh::S3, NF = Sh::NF, EB = Sh::EB, N_OPS = Sh::N_OPS;
+  static constexpr int OFF_LOG = Sh::pad(5 * S3);
   static constexpr int OFF_Q0 = OFF_LOG + Sh::pad(2 * S3);
   static constexpr int OFF_LOG0 = OFF_Q0 + (PERT ? Sh::pad(5 * S3) : 0);
   static constexpr int OFF_LP = OFF_LOG0 + (PERT ? Sh::pad(2 * S3) : 0);
   static constexpr int OFF_LP0 = OFF_LP + Sh::pad(S3);
-  static constexpr int OFF_SG = OFF_LP0 + (PERT ? Sh::pad(S3) : 0);
-  static constexpr int OFF_F = OFF_SG + Sh::pad(S3);
-  static constexpr int OFF_FACE = OFF_F + Sh::pad(15 * S3);
-  static constexpr int PER_ELEM = OFF_FACE + Sh::pad((PERT ? 10 : 9) * NF);
+  static constexpr int OFF_FACE = OFF_LP0 + (PERT ? Sh::pad(S3) : 0);
+  static constexpr int PER_ELEM = OFF_FACE + Sh::pad((PERT ? 3 : 2) * NF);
+  static constexpr int SIZE = N_OPS + EB * PER_ELEM;
 };
 
+// ops1d into shared memory, each segment on a 16-byte boundary.
+template <typename T, int S>
+__device__ __forceinline__ void load_ops(const T* ops, T* smem) {
+  using Sh = Shape<T, S>;
+  for (int i = threadIdx.x; i < 4 * S + 2 * Sh::S2; i += blockDim.x) {
+    const int dst = i < 4 * S ? (i / S) * Sh::PS + i % S
+                              : 4 * Sh::PS + ((i - 4 * S) / Sh::S2) * Sh::PS2 + (i - 4 * S) % Sh::S2;
+    smem[dst] = ops[i];
+  }
+}
+
+// The linearisation at q (q0 + dq in PERT mode, q then dq and halo its delta
+// halo): every primal quantity of J(q).v that costs a transcendental, a
+// square root, a division or a neighbour read, into the coefficient buffer.
+// One thread per node, EB elements per block as the operator kernel. Each
+// element computes the primal trace at all six faces (the neighbour's
+// re-extrapolated from device memory in its own fma order, as the operator
+// kernel does), its own side's face w pressure / p and log p for w_pres, and
+// writes the interface coefficients of the faces it owns: its W, S, D faces
+// and the E, N, U faces on a panel edge, the ground or the lid, so each
+// interface point is written once. Face work runs face by face over the
+// block's elements (item = (face, element, face point)), so a warp takes
+// one direction and side.
 template <typename T, int S, bool PERT>
-__global__ void __launch_bounds__(kThreads) euler3d_tangent_kernel(
-    const T* __restrict__ q, const T* __restrict__ vd, const T* __restrict__ halo,
-    const T* __restrict__ thalo, const T* __restrict__ ops, const T* __restrict__ fields,
-    const T* __restrict__ tch, const T* __restrict__ itf_x, const T* __restrict__ itf_y,
-    const T* __restrict__ itf_z, const T* __restrict__ q0, const T* __restrict__ halo0, T* __restrict__ out,
-    int nh, int nk) {
-  using Sh = TangentShape<T, S, PERT>;
-  constexpr int S2 = Sh::S2, S3 = Sh::S3, NF = Sh::NF;
+__global__ void __launch_bounds__(kThreads) euler3d_tangent_prep_kernel(
+    const T* __restrict__ q, const T* __restrict__ halo, const T* __restrict__ ops, const T* __restrict__ fields,
+    const T* __restrict__ itf_x, const T* __restrict__ itf_y, const T* __restrict__ itf_z,
+    const T* __restrict__ q0, const T* __restrict__ halo0, T* __restrict__ coef, int nh, int nk) {
+  using Sh = PrepShape<T, S, PERT>;
+  using Ops = Shape<T, S>;
+  constexpr int S2 = Sh::S2, S3 = Sh::S3, NF = Sh::NF, EB = Sh::EB;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   const T* sEn = smem;
-  const T* sEp = smem + Sh::PS;
-  const T* sCn = smem + 2 * Sh::PS;
-  const T* sCp = smem + 3 * Sh::PS;
-  const T* sD = smem + 4 * Sh::PS;
-  const T* sHF = sD + Sh::PS2;
+  const T* sEp = smem + Ops::PS;
+  const T* sCn = smem + 2 * Ops::PS;
+  const T* sCp = smem + 3 * Ops::PS;
+  const T* sD = smem + 4 * Ops::PS;
+  const T gam = T(kGamma);
 
   const int tid = threadIdx.x;
   const int e_loc = tid / S3;
   const int j = tid - e_loc * S3;
   const int per_panel = nk * nh * nh;
   const int p = blockIdx.x % 6;
-  const int pe = (blockIdx.x / 6) * Sh::EB + e_loc;
+  const int pe0 = (blockIdx.x / 6) * EB;
+  const int pe = pe0 + e_loc;
   const bool valid = pe < per_panel;
   const long long elem = (long long)p * per_panel + pe;
   const long long nq = 6LL * per_panel * S3;
   const long long fstride = (long long)per_panel * S3;
-  const T gam = T(kGamma);
+  const TangentLayout lay(nh, nk, S);
 
   T* sQ = smem + Sh::N_OPS + e_loc * Sh::PER_ELEM;
-  T* sV = sQ + Sh::OFF_V;
   T* sLog = sQ + Sh::OFF_LOG;
   T* sQ0 = sQ + Sh::OFF_Q0;
   T* sLog0 = sQ + Sh::OFF_LOG0;
   T* sLp = sQ + Sh::OFF_LP;
   T* sLp0 = sQ + Sh::OFF_LP0;
-  T* sSg = sQ + Sh::OFF_SG;
-  T* sF = sQ + Sh::OFF_F;
-  T* sFace = sQ + Sh::OFF_FACE;
+  load_ops<T, S>(ops, smem);
 
-  for (int i = tid; i < 4 * S + 2 * S2; i += blockDim.x) {
-    const int dst = i < 4 * S ? (i / S) * Sh::PS + i % S
-                              : 4 * Sh::PS + ((i - 4 * S) / S2) * Sh::PS2 + (i - 4 * S) % S2;
-    smem[dst] = ops[i];
-  }
-
-  int kz = 0, ey = 0, ex = 0;
-  // qa: the absolute state (q0 + dq in PERT mode), u its velocity, pres its
-  // pressure (p0v + dpv in PERT mode).
-  T qa[5], tv[5], u[3], pres = T(0), p0v = T(0), dpv = T(0), tpres = T(0), sqrtg = T(0), hm[6];
-  const T* fld = fields + (long long)(valid ? pe : 0) * S3 + j;
+  // --- Pointwise: the node rows but w_pres, the logs and log p.
+  T* cn = coef + elem * (KN * S3) + j;
   if (valid) {
-    kz = pe / (nh * nh);
-    const int r = pe - kz * nh * nh;
-    ey = r / nh;
-    ex = r - ey * nh;
+    T qv[5], q0v[5], qa[5];
 #pragma unroll
     for (int v = 0; v < 5; ++v) {
-      const T qv = q[v * nq + elem * S3 + j];
-      tv[v] = vd[v * nq + elem * S3 + j];
-      sQ[v * S3 + j] = qv;
+      qv[v] = q[v * nq + elem * S3 + j];
+      sQ[v * S3 + j] = qv[v];
       if constexpr (PERT) {
-        const T q0v = q0[v * nq + elem * S3 + j];
-        sQ0[v * S3 + j] = q0v;
-        qa[v] = q0v + qv;
+        q0v[v] = q0[v * nq + elem * S3 + j];
+        sQ0[v * S3 + j] = q0v[v];
+        qa[v] = q0v[v] + qv[v];
       } else {
-        qa[v] = qv;
+        qa[v] = qv[v];
       }
     }
-    sV[j] = tv[0] / qa[0];
-    sV[S3 + j] = tv[1];
-    sV[2 * S3 + j] = tv[2];
-    sV[3 * S3 + j] = tv[3];
-    sV[4 * S3 + j] = tv[4] / qa[4];
-    sqrtg = fld[F_SQRTG * fstride];
-#pragma unroll
-    for (int i = 0; i < 6; ++i) hm[i] = fld[(F_H + i) * fstride];
-    // --- Pointwise: logs, pressure and its derivative, the direction's
-    // sqrt(g)-weighted fluxes.
     const T rho = qa[0];
+    T u[3], pres;
     if constexpr (!PERT) {
       u[0] = qa[1] / rho;
       u[1] = qa[2] / rho;
@@ -1098,174 +1064,159 @@ __global__ void __launch_bounds__(kThreads) euler3d_tangent_kernel(
       sLp[j] = tlog(pres);
     } else {
       // u = u0 + (d(rho u) - u0 d(rho)) / rho, p = p0 + p0 expm1(gamma log1p(drt/rt0)).
-      const T rho0 = sQ0[j], dr = sQ[j];
+      const T rho0 = q0v[0], dr = qv[0];
 #pragma unroll
       for (int d = 0; d < 3; ++d) {
-        const T u0 = sQ0[(1 + d) * S3 + j] / rho0;
-        u[d] = u0 + (sQ[(1 + d) * S3 + j] - u0 * dr) / rho;
+        const T u0 = q0v[1 + d] / rho0;
+        u[d] = u0 + (qv[1 + d] - u0 * dr) / rho;
       }
-      const T dlt = tlog1p(sQ[4 * S3 + j] / sQ0[4 * S3 + j]);
+      const T dlt = tlog1p(qv[4] / q0v[4]);
       sLog[j] = tlog1p(dr / rho0);
       sLog[S3 + j] = dlt;
       sLog0[j] = tlog(rho0);
-      sLog0[S3 + j] = tlog(sQ0[4 * S3 + j]);
-      p0v = pressure(sQ0[4 * S3 + j]);
-      dpv = p0v * texpm1(gam * dlt);
+      sLog0[S3 + j] = tlog(q0v[4]);
+      const T p0v = pressure(q0v[4]);
+      const T dpv = p0v * texpm1(gam * dlt);
       pres = p0v + dpv;
       sLp[j] = tlog1p(dpv / p0v);
       sLp0[j] = tlog(p0v);
     }
-    const T tu[3] = {(tv[1] - u[0] * tv[0]) / rho, (tv[2] - u[1] * tv[0]) / rho, (tv[3] - u[2] * tv[0]) / rho};
-    tpres = gam * pres * tv[4] / qa[4];
-    sSg[j] = sqrtg * tv[0];
-    const T tsgp = sqrtg * tpres;
-    const T hrow[3][3] = {{hm[0], hm[1], hm[2]}, {hm[1], hm[3], hm[4]}, {hm[2], hm[4], hm[5]}};
+    cn[CN_IRHO * S3] = T(1) / rho;
+    cn[CN_IRT * S3] = T(1) / qa[4];
 #pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      const T su = sqrtg * u[d], tsu = sqrtg * tu[d];
-      T* fd = sF + d * 5 * S3 + j;
-      fd[0] = tsu * qa[0] + su * tv[0];
-      fd[S3] = (tsu * qa[1] + su * tv[1]) + tsgp * hrow[d][0];
-      fd[2 * S3] = (tsu * qa[2] + su * tv[2]) + tsgp * hrow[d][1];
-      fd[3 * S3] = tsu * qa[4] + su * tv[4];
-      fd[4 * S3] = tsu * qa[3] + su * tv[3];
-    }
+    for (int d = 0; d < 3; ++d) cn[(CN_U + d) * S3] = u[d];
+    cn[CN_THETA * S3] = qa[4] / rho;
+    cn[CN_P * S3] = pres;
   }
   __syncthreads();
 
-  // --- Interface flux derivatives at this element's six faces (W, E, S, N, D, U).
-  if (valid) {
-#pragma unroll 1
-    for (int fi = j; fi < NF; fi += S3) {
-      const int face = fi / S2;
-      const int k = fi - face * S2;
-      const int d = face >> 1;
-      const bool pos = face & 1;
-      int base, stride;
-      face_line<S>(d, k, base, stride);
-      const T* coef = pos ? sEp : sEn;
-      const T* nc = pos ? sEn : sEp;
-      bool boundary;
-      int hside, along;
-      long long nb_elem;
-      face_neighbour(face, nh, nk, kz, ey, ex, elem, boundary, hside, along, nb_elem);
-      const long long h = ((((long long)(hside)*6 + p) * nk + kz) * nh + along) * S2 + k;
-      const long long hv = 4LL * 6 * nk * nh * S2;  // stride between halo variables
-      // own/nb: the absolute traces; own0/nb0 the base's and od/nd the
-      // perturbation's (PERT); town/tnb the direction's.
-      T own[5], town[5], nb[5], tnb[5], own0[5], nb0[5], od[5], nd[5];
-      if constexpr (!PERT) {
-        own_trace<T, S>(sQ, sLog, base, stride, coef, own);
-      } else {
-        own_trace<T, S>(sQ0, sLog0, base, stride, coef, own0);
-        own_delta_trace<T, S>(sQ, sLog, base, stride, coef, own0, od);
-#pragma unroll
-        for (int v = 0; v < 5; ++v) own[v] = own0[v] + od[v];
-      }
-      own_tangent_trace<T, S>(sV, base, stride, coef, own, town);
+  // --- Interface points: primal traces, speeds, pressures, sound speeds,
+  // the Rusanov eigenvalue and its selector; the own side's face rows.
+  const int n_items = 6 * EB * S2;
+  for (int it = tid; it < n_items; it += blockDim.x) {
+    const int face = it / (EB * S2);
+    const int r = it - face * (EB * S2);
+    const int e = r / S2;
+    const int k = r - e * S2;
+    const int pe_f = pe0 + e;
+    if (pe_f >= per_panel) continue;
+    const long long elem_f = (long long)p * per_panel + pe_f;
+    int kz, ey, ex;
+    element_position(pe_f, nh, kz, ey, ex);
+    const int d = face >> 1;
+    const bool pos = face & 1;
+    int base, stride;
+    face_line<S>(d, k, base, stride);
+    const T* cf = pos ? sEp : sEn;
+    const T* nc = pos ? sEn : sEp;  // the neighbour's facing face: its positive face when ours is negative
+    bool boundary;
+    int hside, along;
+    long long nb_elem;
+    face_neighbour(face, nh, nk, kz, ey, ex, elem_f, boundary, hside, along, nb_elem);
+    const long long h = ((((long long)(hside)*6 + p) * nk + kz) * nh + along) * S2 + k;
+    const long long hv = 4LL * 6 * nk * nh * S2;  // stride between halo variables
+    T* eQ = smem + Sh::N_OPS + e * Sh::PER_ELEM;
+    T* fc = eQ + Sh::OFF_FACE + face * S2 + k;
+    T sg, h0, h1, h2;
+    face_metric<T, S>(itf_x, itf_y, itf_z, d, pos, k, nh, nk, kz, ey, ex, sg, h0, h1, h2);
+    const T hd = d == 0 ? h0 : (d == 1 ? h1 : h2);
+    T own[5], nb[5], L[5], R[5], pL, pR;
+    if constexpr (!PERT) {
+      own_trace<T, S>(eQ, eQ + Sh::OFF_LOG, base, stride, cf, own);
       if (!boundary) {
-        if constexpr (!PERT) {
-          nb_trace<T, S>(q, nq, nb_elem, base, stride, nc, nb);
-          nb_tangent_trace<T, S>(q, vd, nq, nb_elem, base, stride, nc, nb, tnb);
-        } else {
-          nb_trace<T, S>(q0, nq, nb_elem, base, stride, nc, nb0);
-          nb_delta_trace<T, S>(q, q0, nq, nb_elem, base, stride, nc, nb0, nd);
-#pragma unroll
-          for (int v = 0; v < 5; ++v) nb[v] = nb0[v] + nd[v];
-          nb_tangent_trace_pert<T, S>(q0, q, vd, nq, nb_elem, base, stride, nc, nb, tnb);
-        }
+        nb_trace<T, S>(q, nq, nb_elem, base, stride, nc, nb);
       } else if (d < 2) {
 #pragma unroll
-        for (int v = 0; v < 5; ++v) {
-          if constexpr (PERT) {
-            nb0[v] = halo0[v * hv + h];
-            nd[v] = halo[v * hv + h];
-            nb[v] = nb0[v] + nd[v];
-          } else {
-            nb[v] = halo[v * hv + h];
-          }
-          tnb[v] = thalo[v * hv + h];
-        }
+        for (int v = 0; v < 5; ++v) nb[v] = halo[v * hv + h];
       } else {
 #pragma unroll
-        for (int v = 0; v < 5; ++v) {  // ground / rigid lid: mirror
-          nb[v] = own[v];
-          tnb[v] = town[v];
-          if constexpr (PERT) {
-            nb0[v] = own0[v];
-            nd[v] = od[v];
-          }
-        }
+        for (int v = 0; v < 5; ++v) nb[v] = own[v];  // ground / rigid lid: mirror
       }
-      T L[5], R[5], tL[5], tR[5];
 #pragma unroll
       for (int v = 0; v < 5; ++v) {
         L[v] = pos ? own[v] : nb[v];
         R[v] = pos ? nb[v] : own[v];
-        tL[v] = pos ? town[v] : tnb[v];
-        tR[v] = pos ? tnb[v] : town[v];
       }
-      T vL = L[1 + d] / L[0];
-      T vR = R[1 + d] / R[0];
-      T tvL = (tL[1 + d] - vL * tL[0]) / L[0];
-      T tvR = (tR[1 + d] - vR * tR[0]) / R[0];
-      if (boundary && d == 2) {  // w is odd across the ground and the lid
-        if (pos) {
-          vR = -vR;
-          tvR = -tvR;
-        } else {
-          vL = -vL;
-          tvL = -tvL;
+      pL = pressure(L[4]);
+      pR = pressure(R[4]);
+      const T p_own = pos ? pL : pR;
+      fc[0] = T(0.5) * (sg * h2 * pL + sg * h2 * pR) / p_own;
+      fc[NF] = tlog(p_own);
+    } else {
+      T own0[5], nb0[5], od[5], nd[5];
+      own_trace<T, S>(eQ + Sh::OFF_Q0, eQ + Sh::OFF_LOG0, base, stride, cf, own0);
+      own_delta_trace<T, S>(eQ, eQ + Sh::OFF_LOG, base, stride, cf, own0, od);
+      if (!boundary) {
+        nb_trace<T, S>(q0, nq, nb_elem, base, stride, nc, nb0);
+        nb_delta_trace<T, S>(q, q0, nq, nb_elem, base, stride, nc, nb0, nd);
+      } else if (d < 2) {
+#pragma unroll
+        for (int v = 0; v < 5; ++v) {
+          nb0[v] = halo0[v * hv + h];
+          nd[v] = halo[v * hv + h];
+        }
+      } else {
+#pragma unroll
+        for (int v = 0; v < 5; ++v) {  // ground / rigid lid: mirror
+          nb0[v] = own0[v];
+          nd[v] = od[v];
         }
       }
-
-      T sg, h0, h1, h2;
-      face_metric<T, S>(itf_x, itf_y, itf_z, d, pos, k, nh, nk, kz, ey, ex, sg, h0, h1, h2);
-      const T hd = d == 0 ? h0 : (d == 1 ? h1 : h2);
-      // Face pressures: absolute, or base + perturbation (PERT), with the
-      // own side's values for the w-pressure split and the face log p.
-      T pL, pR, wp, lp_own, dlp_own = T(0);
-      if constexpr (!PERT) {
-        pL = pressure(L[4]);
-        pR = pressure(R[4]);
-        const T p_own = pos ? pL : pR;
-        wp = T(0.5) * (sg * h2 * pL + sg * h2 * pR) / p_own;
-        lp_own = tlog(p_own);
-      } else {
-        const T L0_4 = pos ? own0[4] : nb0[4], R0_4 = pos ? nb0[4] : own0[4];
-        const T dL_4 = pos ? od[4] : nd[4], dR_4 = pos ? nd[4] : od[4];
-        const T pL0 = pressure(L0_4), pR0 = pressure(R0_4);
-        const T dpL = pL0 * texpm1(gam * tlog1p(dL_4 / L0_4));
-        const T dpR = pR0 * texpm1(gam * tlog1p(dR_4 / R0_4));
-        pL = pL0 + dpL;
-        pR = pR0 + dpR;
-        const T p0_own = pos ? pL0 : pR0, dp_own = pos ? dpL : dpR;
-        const T wpres0 = T(0.5) * sg * h2 * (pL0 + pR0), dwpres = T(0.5) * sg * h2 * (dpL + dpR);
-        const T wp0 = wpres0 / p0_own, pa = p0_own + dp_own;
-        wp = wp0 + (dwpres / pa - wp0 * (dp_own / pa));  // base + d[wpres / p]
-        lp_own = tlog(p0_own);
-        dlp_own = tlog1p(dp_own / p0_own);
+#pragma unroll
+      for (int v = 0; v < 5; ++v) {
+        own[v] = own0[v] + od[v];
+        nb[v] = nb0[v] + nd[v];
+        L[v] = pos ? own[v] : nb[v];
+        R[v] = pos ? nb[v] : own[v];
       }
-      T tf[4], twadv, twpres, tpL, tpR;
-      rusanov_tangent(L, R, tL, tR, vL, vR, tvL, tvR, pL, pR, sg, h0, h1, h2, hd, tf, twadv, twpres, tpL, tpR);
-      const T p_own = pos ? pL : pR;
-      const T tp_own = pos ? tpL : tpR;
-      T* fc = sFace + fi;
-      fc[0] = tf[0];
-      fc[NF] = tf[1];
-      fc[2 * NF] = tf[2];
-      fc[3 * NF] = tf[3];
-      fc[4 * NF] = twadv;
-      fc[5 * NF] = (twpres - wp * tp_own) / p_own;
-      fc[6 * NF] = tp_own / p_own;
-      fc[7 * NF] = wp;
-      fc[8 * NF] = lp_own;
-      if constexpr (PERT) fc[9 * NF] = dlp_own;
+      const T L0_4 = pos ? own0[4] : nb0[4], R0_4 = pos ? nb0[4] : own0[4];
+      const T dL_4 = pos ? od[4] : nd[4], dR_4 = pos ? nd[4] : od[4];
+      const T pL0 = pressure(L0_4), pR0 = pressure(R0_4);
+      const T dpL = pL0 * texpm1(gam * tlog1p(dL_4 / L0_4));
+      const T dpR = pR0 * texpm1(gam * tlog1p(dR_4 / R0_4));
+      pL = pL0 + dpL;
+      pR = pR0 + dpR;
+      const T p0_own = pos ? pL0 : pR0, dp_own = pos ? dpL : dpR;
+      const T wpres0 = T(0.5) * sg * h2 * (pL0 + pR0), dwpres = T(0.5) * sg * h2 * (dpL + dpR);
+      const T wp0 = wpres0 / p0_own, pa = p0_own + dp_own;
+      fc[0] = wp0 + (dwpres / pa - wp0 * (dp_own / pa));  // base + d[wpres / p]
+      fc[NF] = tlog(p0_own);
+      fc[2 * NF] = tlog1p(dp_own / p0_own);
+    }
+    if (!pos || boundary) {  // this element owns the interface point
+      T vL = L[1 + d] / L[0];
+      T vR = R[1 + d] / R[0];
+      if (boundary && d == 2) {  // w is odd across the ground and the lid
+        if (pos) vR = -vR; else vL = -vL;
+      }
+      const T cL = sqrt_rn(hd * gam * pL / L[0]);
+      const T cR = sqrt_rn(hd * gam * pR / R[0]);
+      const T aL = fabs(vL) + cL, aR = fabs(vR) + cR;
+      T* out = coef + lay.face(d, pos, k, S2, nh, nk, p, kz, ey, ex);
+      const long long rs = lay.rows(d);
+#pragma unroll
+      for (int v = 0; v < 5; ++v) {
+        out[(CF_L + v) * rs] = L[v];
+        out[(CF_R + v) * rs] = R[v];
+      }
+      out[CF_IRHO * rs] = T(1) / L[0];
+      out[(CF_IRHO + 1) * rs] = T(1) / R[0];
+      out[CF_IRT * rs] = T(1) / L[4];
+      out[(CF_IRT + 1) * rs] = T(1) / R[4];
+      out[CF_C * rs] = cL;
+      out[(CF_C + 1) * rs] = cR;
+      out[CF_GP * rs] = gam * pL / L[4];
+      out[(CF_GP + 1) * rs] = gam * pR / R[4];
+      out[CF_RATIO * rs] = pR / pL;
+      out[(CF_RATIO + 1) * rs] = pL / pR;
+      out[CF_EIG * rs] = fmax(aL, aR);
+      // d max(aL, aR): the larger side's derivative, the mean of both at a tie.
+      out[CF_WL * rs] = aL > aR ? T(1) : (aL < aR ? T(0) : T(0.5));
     }
   }
   __syncthreads();
 
-  // --- Divergence + corrections, w pressure split, forcing: their derivatives.
+  // --- w_pres = wpres_int + corr(w pressure / p) + sqrt(g) h^{k2} d_k log p.
   if (valid) {
     const int jx = j % S, jy = (j / S) % S, jz = j / S2;
     const int lx = (jz * S + jy) * S, ly = jz * S2 + jx, lz = jy * S + jx;
@@ -1273,32 +1224,13 @@ __global__ void __launch_bounds__(kThreads) euler3d_tangent_kernel(
     const T* Dx = sD + jx * S;
     const T* Dy = sD + jy * S;
     const T* Dz = sD + jz * S;
-
-    T div[5];
-#pragma unroll
-    for (int c = 0; c < 5; ++c) {
-      const T* fx = sF + c * S3;
-      const T* fy = sF + (5 + c) * S3;
-      const T* fz = sF + (10 + c) * S3;
-      T acc = T(0);
-#pragma unroll
-      for (int i = 0; i < S; ++i) acc = fmadd(Dx[i], fx[lx + i], acc);
-#pragma unroll
-      for (int i = 0; i < S; ++i) acc = fmadd(Dy[i], fy[ly + i * S], acc);
-#pragma unroll
-      for (int i = 0; i < S; ++i) acc = fmadd(Dz[i], fz[lz + i * S2], acc);
-      div[c] = acc;
-    }
     const T cnx = sCn[jx], cpx = sCp[jx], cny = sCn[jy], cpy = sCp[jy], cnz = sCn[jz], cpz = sCp[jz];
-    T corr[8];
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const T* fc = sFace + c * NF;
-      corr[c] = cnx * fc[kxf] + cpx * fc[S2 + kxf] + cny * fc[2 * S2 + kyf] + cpy * fc[3 * S2 + kyf] +
-                cnz * fc[4 * S2 + kzf] + cpz * fc[5 * S2 + kzf];
-    }
-    // log p gradients (primal, from log p nodes `lp` and face row `row`)
-    // and their derivatives: d log p = gamma v_rt / rt.
+    const T* sFace = sQ + Sh::OFF_FACE;
+    auto corr_of = [&](int c) {
+      const T* f = sFace + c * NF;
+      return cnx * f[kxf] + cpx * f[S2 + kxf] + cny * f[2 * S2 + kyf] + cpy * f[3 * S2 + kyf] +
+             cnz * f[4 * S2 + kzf] + cpz * f[5 * S2 + kzf];
+    };
     auto dlog_p = [&](const T* lp, int row, T& dlx, T& dly, T& dlz) {
       const T* flp = sFace + row * NF;
       dlx = T(0), dly = T(0), dlz = T(0);
@@ -1312,107 +1244,474 @@ __global__ void __launch_bounds__(kThreads) euler3d_tangent_kernel(
       dly += cny * flp[2 * S2 + kyf] + cpy * flp[3 * S2 + kyf];
       dlz += cnz * flp[4 * S2 + kzf] + cpz * flp[5 * S2 + kzf];
     };
-    const T* tflp = sFace + 6 * NF;
-    const T* sLt = sV + 4 * S3;
-    T dlx, dly, dlz, tdlx = T(0), tdly = T(0), tdlz = T(0), grav = T(0);
+    T dlx, dly, dlz;
     if constexpr (!PERT) {
-      dlog_p(sLp, 8, dlx, dly, dlz);
+      dlog_p(sLp, 1, dlx, dly, dlz);
     } else {  // the absolute gradient: the base's plus the perturbation's
       T d0x, d0y, d0z, ddx, ddy, ddz;
-      dlog_p(sLp0, 8, d0x, d0y, d0z);
-      dlog_p(sLp, 9, ddx, ddy, ddz);
+      dlog_p(sLp0, 1, d0x, d0y, d0z);
+      dlog_p(sLp, 2, ddx, ddy, ddz);
       dlx = d0x + ddx;
       dly = d0y + ddy;
       dlz = d0z + ddz;
     }
+    const T* fld = fields + (long long)pe * S3 + j;
+    const T sqrtg = fld[F_SQRTG * fstride];
+    const T sh02 = sqrtg * fld[(F_H + 2) * fstride], sh12 = sqrtg * fld[(F_H + 4) * fstride],
+            sh22 = sqrtg * fld[(F_H + 5) * fstride];
+    cn[CN_WPRES * S3] = fld[F_WPRES * fstride] + corr_of(0) + (sh02 * dlx + sh12 * dly + sh22 * dlz);
+  }
+}
+
+// Shared memory of the apply (in T): ops1d, then per element the
+// log-tangent rows (v_rho/rho, v_1, v_2, v_3, v_rt/rt) and sqrt(g) v_rho
+// (6 s^3; once the faces and gradients have read them, one direction's
+// fluxes, 5 s^3), then per element the face rows (7 x 6 s^2: the
+// derivatives of the four fluxes, of the w advection, of w pressure / p and
+// of log p). Before the pointwise phase the face region holds the block's
+// node coefficients (KN s^3 an element, packed), staged with cp.async.
+template <typename T, int S>
+struct ApplyShape {
+  using Sh = Shape<T, S>;
+  static constexpr int S2 = Sh::S2, S3 = Sh::S3, NF = Sh::NF, EB = Sh::EB;
+  static constexpr int PER_LT = Sh::pad(6 * S3);
+  static constexpr int PER_FACE = Sh::pad(7 * NF > KN * S3 ? 7 * NF : KN * S3);
+  static constexpr int OFF_LT = Sh::N_OPS;
+  static constexpr int OFF_FACE = OFF_LT + EB * PER_LT;
+  static constexpr int SIZE = OFF_FACE + EB * PER_FACE;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+// J(q).v from the coefficient buffer: linear in v, no transcendental,
+// square root or division. One thread per node, EB elements per block.
+// Each element computes the flux derivative at its six faces from the one
+// stored set of interface coefficients, its own direction trace (from the
+// log-tangent rows in shared memory) and the neighbour's, re-extrapolated
+// from v and the neighbour's 1/rho, 1/(rho theta) in device memory in the
+// fma order of the neighbour's own, with (L, R) in the fixed order through
+// one call site: the mass-flux derivative is bit-identical from both sides.
+// Resident blocks an SM the apply is compiled for: registers a thread at
+// most 64 K / (256 x this).
+template <typename T>
+struct ApplyBlocks {
+  static constexpr int value = sizeof(T) == 8 ? 2 : 3;
+};
+
+template <typename T, int S>
+__global__ void __launch_bounds__(kThreads, ApplyBlocks<T>::value) euler3d_tangent_apply_kernel(
+    const T* __restrict__ vd, const T* __restrict__ thalo, const T* __restrict__ ops,
+    const T* __restrict__ fields, const T* __restrict__ tch, const T* __restrict__ itf_x,
+    const T* __restrict__ itf_y, const T* __restrict__ itf_z, const T* __restrict__ coef, T* __restrict__ out,
+    int nh, int nk) {
+  using Sh = ApplyShape<T, S>;
+  using Ops = Shape<T, S>;
+  constexpr int S2 = Sh::S2, S3 = Sh::S3, NF = Sh::NF, EB = Sh::EB;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const T* sEn = smem;
+  const T* sEp = smem + Ops::PS;
+  const T* sCn = smem + 2 * Ops::PS;
+  const T* sCp = smem + 3 * Ops::PS;
+  const T* sD = smem + 4 * Ops::PS;
+  const T* sHF = sD + Ops::PS2;
+  const T gam = T(kGamma);
+
+  const int tid = threadIdx.x;
+  const int e_loc = tid / S3;
+  const int j = tid - e_loc * S3;
+  const int per_panel = nk * nh * nh;
+  const int p = blockIdx.x % 6;
+  const int pe0 = (blockIdx.x / 6) * EB;
+  const int pe = pe0 + e_loc;
+  const bool valid = pe < per_panel;
+  const long long elem = (long long)p * per_panel + pe;
+  const long long nq = 6LL * per_panel * S3;
+  const long long fstride = (long long)per_panel * S3;
+  const TangentLayout lay(nh, nk, S);
+
+  // --- Stage the block's node coefficients (one contiguous run) while v,
+  // ops1d and the metric load.
+  const int n_block = per_panel - pe0 < EB ? per_panel - pe0 : EB;  // elements in this block
+  {
+    constexpr int W = 16 / sizeof(T);
+    const T* src = coef + ((long long)p * per_panel + pe0) * (KN * S3);
+    T* dst = smem + Sh::OFF_FACE;
+    for (int c = tid; c < n_block * (KN * S3 / W); c += blockDim.x) cp_async16(dst + c * W, src + c * W);
+    cp_async_commit();
+  }
+  load_ops<T, S>(ops, smem);
+  T* sLT = smem + Sh::OFF_LT + e_loc * Sh::PER_LT;
+  T tv[5] = {T(0), T(0), T(0), T(0), T(0)}, sqrtg = T(0);
+  const T* fld = fields + (long long)(valid ? pe : 0) * S3 + j;
+  if (valid) {
+#pragma unroll
+    for (int v = 0; v < 5; ++v) tv[v] = vd[v * nq + elem * S3 + j];
+    sqrtg = fld[F_SQRTG * fstride];
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // --- Pointwise: node coefficients into registers, the log-tangent rows.
+  T irho = T(0), irt = T(0), u[3] = {T(0), T(0), T(0)}, theta = T(0), pres = T(0), wpres = T(0);
+  if (valid) {
+    const T* sn = smem + Sh::OFF_FACE + e_loc * (KN * S3) + j;
+    irho = sn[CN_IRHO * S3];
+    irt = sn[CN_IRT * S3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) u[d] = sn[(CN_U + d) * S3];
+    theta = sn[CN_THETA * S3];
+    pres = sn[CN_P * S3];
+    wpres = sn[CN_WPRES * S3];
+    sLT[j] = tv[0] * irho;
+    sLT[S3 + j] = tv[1];
+    sLT[2 * S3 + j] = tv[2];
+    sLT[3 * S3 + j] = tv[3];
+    sLT[4 * S3 + j] = tv[4] * irt;
+    sLT[5 * S3 + j] = sqrtg * tv[0];
+  }
+  __syncthreads();
+
+  // --- Interface flux derivatives at the six faces (W, E, S, N, D, U) of
+  // every element, face by face over the block's elements.
+  const int n_items = 6 * EB * S2;
+  for (int it = tid; it < n_items; it += blockDim.x) {
+    const int face = it / (EB * S2);
+    const int r = it - face * (EB * S2);
+    const int e = r / S2;
+    const int k = r - e * S2;
+    const int pe_f = pe0 + e;
+    if (pe_f >= per_panel) continue;
+    const long long elem_f = (long long)p * per_panel + pe_f;
+    int kz, ey, ex;
+    element_position(pe_f, nh, kz, ey, ex);
+    const int d = face >> 1;
+    const bool pos = face & 1;
+    int base, stride;
+    face_line<S>(d, k, base, stride);
+    const T* cf = pos ? sEp : sEn;
+    const T* nc = pos ? sEn : sEp;
+    bool boundary;
+    int hside, along;
+    long long nb_elem;
+    face_neighbour(face, nh, nk, kz, ey, ex, elem_f, boundary, hside, along, nb_elem);
+
+    // The interface's coefficients (row r of family d at ci[r * rs]).
+    const T* ci = coef + lay.face(d, pos, k, S2, nh, nk, p, kz, ey, ex);
+    const long long rs = lay.rows(d);
+    const int own_side = pos ? CF_L : CF_R, nb_side = pos ? CF_R : CF_L;
+
+    // Direction traces: the own side's from the log-tangent rows, the
+    // neighbour's re-extrapolated in the same fma order, from the halo, or
+    // the mirror; log-space rows times the primal trace.
+    const T* lt = smem + Sh::OFF_LT + e * Sh::PER_LT;
+    const T* cnb = coef + nb_elem * (KN * S3) + base;
+    // A neighbour in this block has its log-tangent rows in shared memory,
+    // the same products v * (1/rho) the re-extrapolation forms.
+    const long long nb_loc = nb_elem - ((long long)p * per_panel + pe0);
+    const bool nb_local = !boundary && nb_loc >= 0 && nb_loc < n_block;
+    const T* nlt = smem + Sh::OFF_LT + (nb_local ? nb_loc : 0) * Sh::PER_LT;
+    const long long h = ((((long long)(hside)*6 + p) * nk + kz) * nh + along) * S2 + k;
+    const long long hv = 4LL * 6 * nk * nh * S2;
+    T tL[5], tR[5];
+#pragma unroll
+    for (int v = 0; v < 5; ++v) {
+      const bool lg = v == 0 || v == 4;
+      T acc = T(0);
+#pragma unroll
+      for (int i = 0; i < S; ++i) acc = fmadd(lt[v * S3 + base + i * stride], cf[i], acc);
+      const T town = lg ? ci[(own_side + v) * rs] * acc : acc;
+      T tnb;
+      if (nb_local) {  // the neighbour's log-tangent rows, from shared memory
+        T nacc = T(0);
+#pragma unroll
+        for (int i = 0; i < S; ++i) nacc = fmadd(nlt[v * S3 + base + i * stride], nc[i], nacc);
+        tnb = lg ? ci[(nb_side + v) * rs] * nacc : nacc;
+      } else if (!boundary) {  // from v and its node coefficients in device memory, in the same fma order
+        const T* src = vd + v * nq + nb_elem * S3 + base;
+        T nacc = T(0);
+#pragma unroll
+        for (int i = 0; i < S; ++i) {
+          const T x = src[i * stride];
+          const T val = v == 0 ? x * cnb[CN_IRHO * S3 + i * stride] : (v == 4 ? x * cnb[CN_IRT * S3 + i * stride] : x);
+          nacc = fmadd(val, nc[i], nacc);
+        }
+        tnb = lg ? ci[(nb_side + v) * rs] * nacc : nacc;
+      } else if (d < 2) {
+        tnb = thalo[v * hv + h];
+      } else {
+        tnb = town;  // ground / rigid lid: mirror
+      }
+      tL[v] = pos ? town : tnb;
+      tR[v] = pos ? tnb : town;
+    }
+
+    // The Rusanov flux derivative with the rho*w advection/pressure split.
+    const T iL0 = ci[CF_IRHO * rs], iR0 = ci[(CF_IRHO + 1) * rs];
+    const T iL4 = ci[CF_IRT * rs], iR4 = ci[(CF_IRT + 1) * rs];
+    T vL = ci[(CF_L + 1 + d) * rs] * iL0, vR = ci[(CF_R + 1 + d) * rs] * iR0;
+    T tvL = (tL[1 + d] - vL * tL[0]) * iL0, tvR = (tR[1 + d] - vR * tR[0]) * iR0;
+    if (boundary && d == 2) {  // w is odd across the ground and the lid
+      if (pos) {
+        vR = -vR;
+        tvR = -tvR;
+      } else {
+        vL = -vL;
+        tvL = -tvL;
+      }
+    }
+    // d|vn| = +dvn at vn >= 0 (zero included), d max(aL, aR) by the weights.
+    const T lL = gam * iL4 * tL[4], lR = gam * iR4 * tR[4];  // d log p of each side
+    const T taL = (vL >= T(0) ? tvL : -tvL) + T(0.5) * ci[CF_C * rs] * (lL - iL0 * tL[0]);
+    const T taR = (vR >= T(0) ? tvR : -tvR) + T(0.5) * ci[(CF_C + 1) * rs] * (lR - iR0 * tR[0]);
+    const T wL = ci[CF_WL * rs];
+    const T teig = wL * taL + (T(1) - wL) * taR;
+    T sg, h0, h1, h2;
+    face_metric<T, S>(itf_x, itf_y, itf_z, d, pos, k, nh, nk, kz, ey, ex, sg, h0, h1, h2);
+    const T sl = sg * vL, sr = sg * vR, es = ci[CF_EIG * rs] * sg;
+    const T tsl = sg * tvL, tsr = sg * tvR, tes = teig * sg;
+    const T tps = T(0.5) * (ci[CF_GP * rs] * tL[4] + ci[(CF_GP + 1) * rs] * tR[4]);
+    T* fc = smem + Sh::OFF_FACE + e * Sh::PER_FACE + face * S2 + k;
+    // Face rows: rho, rho*u1, rho*u2, rho*theta, w advection (v = 0, 1, 2, 4, 3).
+    constexpr int ROW[5] = {0, 1, 2, 4, 3};
+#pragma unroll
+    for (int v = 0; v < 5; ++v) {
+      const T L = ci[(CF_L + v) * rs], R = ci[(CF_R + v) * rs];
+      T adv = T(0.5) * ((tsl * L + sl * tL[v]) + (tsr * R + sr * tR[v]) - (tes * (R - L) + es * (tR[v] - tL[v])));
+      if (v == 1) adv += sg * h0 * tps;
+      if (v == 2) adv += sg * h1 * tps;
+      fc[ROW[v] * NF] = adv;
+    }
+    // The own side's d[w pressure / p] = 0.5 sg h2 (p_other / p_own)(d log
+    // p_other - d log p_own), and its d log p.
+    fc[5 * NF] = pos ? T(0.5) * sg * h2 * ci[CF_RATIO * rs] * (lR - lL)
+                     : T(0.5) * sg * h2 * ci[(CF_RATIO + 1) * rs] * (lL - lR);
+    fc[6 * NF] = pos ? lL : lR;
+  }
+  __syncthreads();
+
+  // --- The log-tangent rows' part of the w pressure split and gravity,
+  // before the direction fluxes take over the log-tangent region.
+  const int jx = j % S, jy = (j / S) % S, jz = j / S2;
+  const int lx = (jz * S + jy) * S, ly = jz * S2 + jx, lz = jy * S + jx;  // line bases
+  const int kxf = jz * S + jy, kyf = jz * S + jx, kzf = jy * S + jx;    // face points
+  const T* Dx = sD + jx * S;
+  const T* Dy = sD + jy * S;
+  const T* Dz = sD + jz * S;
+  const T cnx = sCn[jx], cpx = sCp[jx], cny = sCn[jy], cpy = sCp[jy], cnz = sCn[jz], cpz = sCp[jz];
+  const T* sFace = smem + Sh::OFF_FACE + e_loc * Sh::PER_FACE;
+  T pgrad = T(0), grav = T(0);  // sqrt(g) h^{k2} d_k (d log p), the filtered sqrt(g) v_rho
+  if (valid) {
+    const T* lt4 = sLT + 4 * S3;
+    const T* sG = sLT + 5 * S3;
+    T tdlx = T(0), tdly = T(0), tdlz = T(0);
 #pragma unroll
     for (int i = 0; i < S; ++i) {
-      tdlx = fmadd(Dx[i], sLt[lx + i], tdlx);
-      tdly = fmadd(Dy[i], sLt[ly + i * S], tdly);
-      tdlz = fmadd(Dz[i], sLt[lz + i * S2], tdlz);
-      grav = fmadd(sHF[jz * S + i], sSg[lz + i * S2], grav);
+      tdlx = fmadd(Dx[i], lt4[lx + i], tdlx);
+      tdly = fmadd(Dy[i], lt4[ly + i * S], tdly);
+      tdlz = fmadd(Dz[i], lt4[lz + i * S2], tdlz);
+      grav = fmadd(sHF[jz * S + i], sG[lz + i * S2], grav);
     }
-    tdlx = gam * tdlx + (cnx * tflp[kxf] + cpx * tflp[S2 + kxf]);
-    tdly = gam * tdly + (cny * tflp[2 * S2 + kyf] + cpy * tflp[3 * S2 + kyf]);
-    tdlz = gam * tdlz + (cnz * tflp[4 * S2 + kzf] + cpz * tflp[5 * S2 + kzf]);
-
-    const T invsg = fld[F_INVSG * fstride];
-    const T invdz = fld[F_INVDZ * fstride];
-    const T wpres_int = fld[F_WPRES * fstride];
-    const T rho = qa[0];
-    const T tu[3] = {(tv[1] - u[0] * tv[0]) / rho, (tv[2] - u[1] * tv[0]) / rho, (tv[3] - u[2] * tv[0]) / rho};
-    const T sh02 = sqrtg * hm[2], sh12 = sqrtg * hm[4], sh22 = sqrtg * hm[5];
-    const T tw_df = div[4] + corr[4] + corr[5] * pres + (wpres_int + corr[7]) * tpres +
-                    tpres * (sh02 * dlx + sh12 * dly + sh22 * dlz) +
-                    pres * (sh02 * tdlx + sh12 * tdly + sh22 * tdlz);
-
-    // Christoffel/Coriolis forcing, product rule: d(rho u_b u_c) and h^{bc} dp.
-    const int B[6] = {0, 0, 0, 1, 1, 2}, C[6] = {0, 1, 2, 1, 2, 2};
-    T tpair[6];
-#pragma unroll
-    for (int i = 0; i < 6; ++i)
-      tpair[i] = (tv[0] * u[B[i]] * u[C[i]] + rho * tu[B[i]] * u[C[i]] + rho * u[B[i]] * tu[C[i]]) +
-                 hm[i] * tpres;
-    T force[3];
-#pragma unroll
-    for (int a_ = 0; a_ < 3; ++a_) {
-      const T* ch = fld + (F_CHS + 6 * a_) * fstride;
-      T fr = ch[0] * tpair[0];
-      if (tch != nullptr) {
-        const T* tc = tch + (long long)(3 * a_) * nq + elem * S3 + j;
-        const T cu = tc[0] * u[0] + tc[nq] * u[1] + tc[2 * nq] * u[2];
-        const T ctu = tc[0] * tu[0] + tc[nq] * tu[1] + tc[2 * nq] * tu[2];
-        fr = T(2) * (tv[0] * cu + rho * ctu) + fr;
-      }
-      force[a_] = fr + T(2) * ch[fstride] * tpair[1] + T(2) * ch[2 * fstride] * tpair[2] +
-                  ch[3 * fstride] * tpair[3] + T(2) * ch[4 * fstride] * tpair[4] + ch[5 * fstride] * tpair[5];
-    }
-    const T gravity = invdz * T(kGravity) * invsg * grav;
-
-    const long long o = elem * S3 + j;
-    out[o] = -invsg * (div[0] + corr[0]);
-    out[nq + o] = -invsg * (div[1] + corr[1]) - force[0];
-    out[2 * nq + o] = -invsg * (div[2] + corr[2]) - force[1];
-    out[3 * nq + o] = -invsg * tw_df - (force[2] + gravity);
-    out[4 * nq + o] = -invsg * (div[3] + corr[3]);
+    const T* flp = sFace + 6 * NF;
+    tdlx = gam * tdlx + (cnx * flp[kxf] + cpx * flp[S2 + kxf]);
+    tdly = gam * tdly + (cny * flp[2 * S2 + kyf] + cpy * flp[3 * S2 + kyf]);
+    tdlz = gam * tdlz + (cnz * flp[4 * S2 + kzf] + cpz * flp[5 * S2 + kzf]);
+    pgrad = sqrtg * fld[(F_H + 2) * fstride] * tdlx + sqrtg * fld[(F_H + 4) * fstride] * tdly +
+            sqrtg * fld[(F_H + 5) * fstride] * tdlz;
   }
+
+  // --- Divergence of the pointwise flux derivatives sqrt(g) (w_d q_c/rho +
+  // u_d v_c) (+ the pressure's), w_d = v_{1+d} - u_d v_rho, one direction
+  // at a time in the log-tangent region.
+  const T tpres = gam * pres * irt * tv[4];
+  const T tsgp = sqrtg * tpres;
+  T w[3], div[5] = {T(0), T(0), T(0), T(0), T(0)};
+#pragma unroll
+  for (int d = 0; d < 3; ++d) w[d] = tv[1 + d] - u[d] * tv[0];
+  // h^{d0}, h^{d1}: rows (00 01), (01 11), (02 12) of the field h.
+  constexpr int HD0[3] = {0, 1, 2}, HD1[3] = {1, 3, 4};
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    __syncthreads();
+    if (valid) {
+      const T phi[5] = {T(1), u[0], u[1], u[2], theta};
+      T fl[5];
+#pragma unroll
+      for (int c = 0; c < 5; ++c) fl[c] = sqrtg * (w[d] * phi[c] + u[d] * tv[c]);
+      sLT[j] = fl[0];
+      sLT[S3 + j] = fl[1] + tsgp * fld[(F_H + HD0[d]) * fstride];
+      sLT[2 * S3 + j] = fl[2] + tsgp * fld[(F_H + HD1[d]) * fstride];
+      sLT[3 * S3 + j] = fl[4];
+      sLT[4 * S3 + j] = fl[3];
+    }
+    __syncthreads();
+    if (valid) {
+      const T* Dd = d == 0 ? Dx : (d == 1 ? Dy : Dz);
+      const int line = d == 0 ? lx : (d == 1 ? ly : lz);
+      const int step = d == 0 ? 1 : (d == 1 ? S : S2);
+#pragma unroll
+      for (int c = 0; c < 5; ++c) {
+#pragma unroll
+        for (int i = 0; i < S; ++i) div[c] = fmadd(Dd[i], sLT[c * S3 + line + i * step], div[c]);
+      }
+    }
+  }
+  if (!valid) return;
+
+  // Boundary corrections of the face rows at this node.
+  T corr[6];
+#pragma unroll
+  for (int c = 0; c < 6; ++c) {
+    const T* f = sFace + c * NF;
+    corr[c] = cnx * f[kxf] + cpx * f[S2 + kxf] + cny * f[2 * S2 + kyf] + cpy * f[3 * S2 + kyf] +
+              cnz * f[4 * S2 + kzf] + cpz * f[5 * S2 + kzf];
+  }
+  const T invsg = fld[F_INVSG * fstride];
+  const T invdz = fld[F_INVDZ * fstride];
+  const T tw_df = div[4] + corr[4] + corr[5] * pres + wpres * tpres + pres * pgrad;
+
+  // Christoffel/Coriolis forcing: d(rho u_b u_c) = v_rho u_b u_c + w_b u_c +
+  // u_b w_c and h^{bc} dp; the Coriolis term is linear in the momenta.
+  const int B[6] = {0, 0, 0, 1, 1, 2}, C[6] = {0, 1, 2, 1, 2, 2};
+  T tpair[6];
+#pragma unroll
+  for (int i = 0; i < 6; ++i)
+    tpair[i] = (tv[0] * u[B[i]] * u[C[i]] + w[B[i]] * u[C[i]] + u[B[i]] * w[C[i]]) + fld[(F_H + i) * fstride] * tpres;
+  T force[3];
+#pragma unroll
+  for (int a_ = 0; a_ < 3; ++a_) {
+    const T* ch = fld + (F_CHS + 6 * a_) * fstride;
+    T fr = ch[0] * tpair[0];
+    if (tch != nullptr) {
+      const T* tc = tch + (long long)(3 * a_) * nq + elem * S3 + j;
+      fr = T(2) * (tc[0] * tv[1] + tc[nq] * tv[2] + tc[2 * nq] * tv[3]) + fr;
+    }
+    force[a_] = fr + T(2) * ch[fstride] * tpair[1] + T(2) * ch[2 * fstride] * tpair[2] + ch[3 * fstride] * tpair[3] +
+                T(2) * ch[4 * fstride] * tpair[4] + ch[5 * fstride] * tpair[5];
+  }
+  const T gravity = invdz * T(kGravity) * invsg * grav;
+
+  const long long o = elem * S3 + j;
+  out[o] = -invsg * (div[0] + corr[0]);
+  out[nq + o] = -invsg * (div[1] + corr[1]) - force[0];
+  out[2 * nq + o] = -invsg * (div[2] + corr[2]) - force[1];
+  out[3 * nq + o] = -invsg * tw_df - (force[2] + gravity);
+  out[4 * nq + o] = -invsg * (div[3] + corr[3]);
 }
 
 template <typename T, int S, bool PERT>
-cudaError_t launch_tangent(int nh, int nk, const void* q, const void* v, const void* halo, const void* thalo,
-                           const void* ops, const void* fields, const void* tch, const void* itf_x,
-                           const void* itf_y, const void* itf_z, const void* q0, const void* halo0, void* out,
-                           cudaStream_t stream) {
-  using Sh = TangentShape<T, S, PERT>;
-  const size_t smem = sizeof(T) * (Sh::N_OPS + (size_t)Sh::EB * Sh::PER_ELEM);
+cudaError_t launch_prep(int nh, int nk, const void* q, const void* halo, const void* ops, const void* fields,
+                        const void* itf_x, const void* itf_y, const void* itf_z, const void* q0, const void* halo0,
+                        void* coef, cudaStream_t stream) {
+  using Sh = PrepShape<T, S, PERT>;
+  const size_t smem = sizeof(T) * (size_t)Sh::SIZE;
   static bool configured = false;
-  cudaError_t err = configure(euler3d_tangent_kernel<T, S, PERT>, smem, configured);
+  cudaError_t err = configure(euler3d_tangent_prep_kernel<T, S, PERT>, smem, configured);
   if (err != cudaSuccess) return err;
-  const int per_panel = nk * nh * nh;
-  const int blocks = 6 * ((per_panel + Sh::EB - 1) / Sh::EB);
-  euler3d_tangent_kernel<T, S, PERT><<<blocks, Sh::EB * Sh::S3, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(v), static_cast<const T*>(halo),
-      static_cast<const T*>(thalo), static_cast<const T*>(ops), static_cast<const T*>(fields),
-      static_cast<const T*>(tch), static_cast<const T*>(itf_x), static_cast<const T*>(itf_y),
-      static_cast<const T*>(itf_z), static_cast<const T*>(q0), static_cast<const T*>(halo0),
-      static_cast<T*>(out), nh, nk);
+  const int blocks = 6 * ((nk * nh * nh + Sh::EB - 1) / Sh::EB);
+  euler3d_tangent_prep_kernel<T, S, PERT><<<blocks, Sh::EB * Sh::S3, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(halo), static_cast<const T*>(ops),
+      static_cast<const T*>(fields), static_cast<const T*>(itf_x), static_cast<const T*>(itf_y),
+      static_cast<const T*>(itf_z), static_cast<const T*>(q0), static_cast<const T*>(halo0), static_cast<T*>(coef),
+      nh, nk);
   return cudaGetLastError();
 }
 
+template <typename T, int S>
+cudaError_t launch_apply(int nh, int nk, const void* v, const void* thalo, const void* ops, const void* fields,
+                         const void* tch, const void* itf_x, const void* itf_y, const void* itf_z, const void* coef,
+                         void* out, cudaStream_t stream) {
+  using Sh = ApplyShape<T, S>;
+  const size_t smem = sizeof(T) * (size_t)Sh::SIZE;
+  static bool configured = false;
+  cudaError_t err = configure(euler3d_tangent_apply_kernel<T, S>, smem, configured);
+  if (err != cudaSuccess) return err;
+  const int blocks = 6 * ((nk * nh * nh + Sh::EB - 1) / Sh::EB);
+  euler3d_tangent_apply_kernel<T, S><<<blocks, Sh::EB * Sh::S3, smem, stream>>>(
+      static_cast<const T*>(v), static_cast<const T*>(thalo), static_cast<const T*>(ops),
+      static_cast<const T*>(fields), static_cast<const T*>(tch), static_cast<const T*>(itf_x),
+      static_cast<const T*>(itf_y), static_cast<const T*>(itf_z), static_cast<const T*>(coef), static_cast<T*>(out),
+      nh, nk);
+  return cudaGetLastError();
+}
+
+// Registers, local (spill) bytes, dynamic shared memory and resident blocks
+// an SM of one kernel instantiation, as the runtime reports them.
+template <typename Kernel>
+cudaError_t kernel_resources(Kernel kernel, int threads, size_t smem, int* info) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  bool configured = false;
+  err = configure(kernel, smem, configured);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  info[0] = attr.numRegs;
+  info[1] = (int)attr.localSizeBytes;
+  info[2] = (int)smem;
+  info[3] = blocks;
+  info[4] = threads;
+  return err;
+}
+
+template <typename T, int S>
+cudaError_t tangent_resources(int kernel, int* info) {
+  if (kernel == 2)
+    return kernel_resources(euler3d_tangent_apply_kernel<T, S>, ApplyShape<T, S>::EB * ApplyShape<T, S>::S3,
+                            sizeof(T) * (size_t)ApplyShape<T, S>::SIZE, info);
+  using P1 = PrepShape<T, S, true>;
+  using P0 = PrepShape<T, S, false>;
+  if (kernel == 1)
+    return kernel_resources(euler3d_tangent_prep_kernel<T, S, true>, P1::EB * P1::S3, sizeof(T) * (size_t)P1::SIZE,
+                            info);
+  return kernel_resources(euler3d_tangent_prep_kernel<T, S, false>, P0::EB * P0::S3, sizeof(T) * (size_t)P0::SIZE,
+                          info);
+}
+
 template <typename T, bool PERT>
-cudaError_t dispatch_tangent(int s, int nh, int nk, const void* q, const void* v, const void* halo,
-                             const void* thalo, const void* ops, const void* fields, const void* tch,
-                             const void* itf_x, const void* itf_y, const void* itf_z, const void* q0,
-                             const void* halo0, void* out, cudaStream_t stream) {
-#define E3T_CASE(S)                                                                                         \
-  case S:                                                                                                   \
-    return launch_tangent<T, S, PERT>(nh, nk, q, v, halo, thalo, ops, fields, tch, itf_x, itf_y, itf_z, q0, \
-                                      halo0, out, stream);
+cudaError_t dispatch_prep(int s, int nh, int nk, const void* q, const void* halo, const void* ops, const void* fields,
+                          const void* itf_x, const void* itf_y, const void* itf_z, const void* q0, const void* halo0,
+                          void* coef, cudaStream_t stream) {
+#define E3P_CASE(S) \
+  case S:           \
+    return launch_prep<T, S, PERT>(nh, nk, q, halo, ops, fields, itf_x, itf_y, itf_z, q0, halo0, coef, stream);
   switch (s) {
-    E3T_CASE(2) E3T_CASE(3) E3T_CASE(4) E3T_CASE(5) E3T_CASE(6)
+    E3P_CASE(2) E3P_CASE(3) E3P_CASE(4) E3P_CASE(5) E3P_CASE(6)
     default: return cudaErrorInvalidValue;
   }
-#undef E3T_CASE
+#undef E3P_CASE
+}
+
+template <typename T>
+cudaError_t dispatch_apply(int s, int nh, int nk, const void* v, const void* thalo, const void* ops,
+                           const void* fields, const void* tch, const void* itf_x, const void* itf_y,
+                           const void* itf_z, const void* coef, void* out, cudaStream_t stream) {
+#define E3A_CASE(S) \
+  case S:           \
+    return launch_apply<T, S>(nh, nk, v, thalo, ops, fields, tch, itf_x, itf_y, itf_z, coef, out, stream);
+  switch (s) {
+    E3A_CASE(2) E3A_CASE(3) E3A_CASE(4) E3A_CASE(5) E3A_CASE(6)
+    default: return cudaErrorInvalidValue;
+  }
+#undef E3A_CASE
+}
+
+template <typename T>
+cudaError_t dispatch_resources(int s, int kernel, int* info) {
+  switch (s) {
+    case 2: return tangent_resources<T, 2>(kernel, info);
+    case 3: return tangent_resources<T, 3>(kernel, info);
+    case 4: return tangent_resources<T, 4>(kernel, info);
+    case 5: return tangent_resources<T, 5>(kernel, info);
+    case 6: return tangent_resources<T, 6>(kernel, info);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -1456,29 +1755,48 @@ extern "C" const char* euler3d_operator_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// J(q).v, the tangent mode. Returns the cudaError_t of the launch (0 on
-// success); tch == NULL: no time Christoffels; q0 != NULL: perturbation
-// mode, J(q0 + q).v (halo q's delta halo, halo0 q0's). The error string
-// comes from euler3d_operator_error_string.
-extern "C" int euler3d_tangent_launch(int is_f64, int s, int nh, int nk, const void* q, const void* v,
-                                      const void* halo, const void* thalo, const void* ops,
-                                      const void* fields, const void* tch, const void* itf_x,
-                                      const void* itf_y, const void* itf_z, const void* q0, const void* halo0,
-                                      void* out, void* stream) {
+// The linearisation at q (tangent prep): the coefficient buffer ``coef``
+// (layout: ops/euler3d_operator.py::tangent_layout). q0 != NULL:
+// perturbation mode, the linearisation at q0 + q (halo q's delta halo,
+// halo0 q0's). Returns the cudaError_t of the launch (0 on success).
+extern "C" int euler3d_tangent_prep_launch(int is_f64, int s, int nh, int nk, const void* q, const void* halo,
+                                           const void* ops, const void* fields, const void* itf_x,
+                                           const void* itf_y, const void* itf_z, const void* q0, const void* halo0,
+                                           void* coef, void* stream) {
   if (nh < 2 || nk < 1) return (int)cudaErrorInvalidValue;
   const bool pert = q0 != nullptr;
   if (pert && halo0 == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (is_f64)
-    err = pert ? dispatch_tangent<double, true>(s, nh, nk, q, v, halo, thalo, ops, fields, tch, itf_x, itf_y,
-                                                itf_z, q0, halo0, out, st)
-               : dispatch_tangent<double, false>(s, nh, nk, q, v, halo, thalo, ops, fields, tch, itf_x, itf_y,
-                                                 itf_z, q0, halo0, out, st);
+    err = pert ? dispatch_prep<double, true>(s, nh, nk, q, halo, ops, fields, itf_x, itf_y, itf_z, q0, halo0, coef, st)
+               : dispatch_prep<double, false>(s, nh, nk, q, halo, ops, fields, itf_x, itf_y, itf_z, q0, halo0, coef,
+                                              st);
   else
-    err = pert ? dispatch_tangent<float, true>(s, nh, nk, q, v, halo, thalo, ops, fields, tch, itf_x, itf_y,
-                                               itf_z, q0, halo0, out, st)
-               : dispatch_tangent<float, false>(s, nh, nk, q, v, halo, thalo, ops, fields, tch, itf_x, itf_y,
-                                                itf_z, q0, halo0, out, st);
+    err = pert ? dispatch_prep<float, true>(s, nh, nk, q, halo, ops, fields, itf_x, itf_y, itf_z, q0, halo0, coef, st)
+               : dispatch_prep<float, false>(s, nh, nk, q, halo, ops, fields, itf_x, itf_y, itf_z, q0, halo0, coef, st);
   return (int)err;
+}
+
+// J.v from the coefficient buffer ``coef`` of a prep, the direction v and
+// its halo thalo (tangent apply); tch == NULL: no time Christoffels.
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int euler3d_tangent_apply_launch(int is_f64, int s, int nh, int nk, const void* v, const void* thalo,
+                                            const void* ops, const void* fields, const void* tch,
+                                            const void* itf_x, const void* itf_y, const void* itf_z,
+                                            const void* coef, void* out, void* stream) {
+  if (nh < 2 || nk < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      is_f64 ? dispatch_apply<double>(s, nh, nk, v, thalo, ops, fields, tch, itf_x, itf_y, itf_z, coef, out, st)
+             : dispatch_apply<float>(s, nh, nk, v, thalo, ops, fields, tch, itf_x, itf_y, itf_z, coef, out, st);
+  return (int)err;
+}
+
+// What the runtime reports of a tangent kernel (kernel 0: prep, 1: the
+// perturbation prep, 2: apply): info = [registers, local (spill) bytes a
+// thread, dynamic shared memory bytes a block, resident blocks an SM,
+// threads a block].
+extern "C" int euler3d_tangent_resources(int is_f64, int s, int kernel, int* info) {
+  return (int)(is_f64 ? dispatch_resources<double>(s, kernel, info) : dispatch_resources<float>(s, kernel, info));
 }

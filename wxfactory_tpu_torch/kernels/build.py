@@ -65,13 +65,22 @@ SIGNATURES = {
         ),
         # the same over one tile: is_f64, s, nt, nel_v and the pointers of a tile
         "euler3d_tile_launch": (_I, [_I, _I, _I, _I] + [_P] * 16 + [_D, _D, _D, _I] + [_P]),
-        "euler3d_tangent_launch": (
+        "euler3d_tangent_prep_launch": (
             _I,
             [_I, _I, _I, _I]  # is_f64, s, nel_h, nel_v
-            # q, v, halo_q, halo_v, ops1d, fields, tch, itf_x, itf_y, itf_z, q0, halo0, out
-            + [_P] * 13
+            # q, halo_q, ops1d, fields, itf_x, itf_y, itf_z, q0, halo0, coef
+            + [_P] * 10
             + [_P],  # stream
         ),
+        "euler3d_tangent_apply_launch": (
+            _I,
+            [_I, _I, _I, _I]  # is_f64, s, nel_h, nel_v
+            # v, halo_v, ops1d, fields, tch, itf_x, itf_y, itf_z, coef, out
+            + [_P] * 10
+            + [_P],  # stream
+        ),
+        # is_f64, s, kernel (0 prep, 1 perturbation prep, 2 apply), int[5] out
+        "euler3d_tangent_resources": (_I, [_I, _I, _I, _P]),
         "euler3d_operator_error_string": (ctypes.c_char_p, [_I]),
     },
 }

@@ -35,11 +35,19 @@ unperturbed base state, the kernel's RHS + bal against the f64 plain RHS:
 within 1e-2 of each variable's max and 1e3 times closer than without the
 offset (the bounds of the JAX test_balanced_offset_restores_base_state_rhs).
 
-3D Euler tangent mode (``compare_euler3d_tangent``): J(q).v at q = q0 + dq,
-dq = 1e-4 q0 N(0,1), in a direction v of 1e-3 of each variable's max times
-N(0,1) (the inputs of the JAX test_tangent_kernel_matches_jvp, seeded with
-numpy), against ``torch.func.jvp`` of the plain operator on the same
-inputs:
+3D Euler tangent mode (``compare_euler3d_tangent``): J(q).v from the prep
+and apply kernels at q = q0 + dq, dq = 1e-4 q0 N(0,1), in a direction v
+of 1e-3 of each variable's max times N(0,1) (the inputs of the JAX
+test_tangent_kernel_matches_jvp, seeded with numpy), against
+``torch.func.jvp`` of the plain operator on the same inputs, and the
+apply's linearity (``tangent_linearity_err``) within the same tolerance;
+each kernel also against its own plain version (``compare_tangent_kernels``:
+the apply on the prep's buffer within the tangent tolerance, the float64
+prep's buffer within the operator tolerance of each row's max, each row of
+the float32 prep's buffer within the float32 operator tolerance of the
+float64 prep's row, or twice the plain float32 prep's distance from it;
+w_pres, a sum the hydrostatic balance cancels, scaled by its interior
+term):
 
 * float64: 1e-12 of each variable's max of the plain J.v (the JAX tests
   bound the tangent kernel against jax.jvp at 1e-11);
@@ -375,22 +383,113 @@ def compare_euler3d_operator(nel_h: int, nel_v: int, s: int, dtype, device="cuda
     return results
 
 
+# The linearity check's combination a*v + b*w, w the direction rolled by
+# one node.
+TANGENT_LINEARITY = (0.7, -1.3)
+
+
+def tangent_linearity_err(q, v, halo_q, direction_halo, con, pert=None) -> float:
+    """How far the apply is from linear: apply(a v + b w) against a
+    apply(v) + b apply(w) for one prep at q (``direction_halo``: the halo of
+    a direction), scaled by each variable's max of apply(a v + b w)."""
+    a, b = TANGENT_LINEARITY
+    w = v.roll(1, dims=-1).contiguous()
+    coef = e3op.euler3d_tangent_prep(q, halo_q, con, pert)
+    apply = lambda x: e3op.euler3d_tangent_apply(x, direction_halo(x), coef, con)
+    got = apply((a * v + b * w).contiguous()).double()
+    return _scaled(got - (a * apply(v).double() + b * apply(w).double()), per_variable_max(got))
+
+
+def _prep_rows(coef, con) -> dict:
+    """{name: row} of a coefficient buffer: the node rows and each
+    family's interface rows, the selector weights left out (a
+    rounding-level tie may flip them)."""
+    node, faces = e3op._tangent_parts(coef.values, con)
+    rows = {name: node[..., r, :] for r, name in enumerate(e3op.TANGENT_NODE_ROWS)}
+    for fam, face in zip("xyz", faces):
+        rows.update({f"{fam}.{name}": face[r] for r, name in enumerate(e3op.TANGENT_FACE_ROWS) if name != "weight_L"})
+    return rows
+
+
+def compare_tangent_kernels(q, v, halo_q, halo_v, con, pert=None, ref64=None) -> dict:
+    """Each tangent kernel against its plain version on the same inputs:
+    the prep's coefficient buffer against ``euler3d_tangent_prep_plain``'s,
+    row by row scaled by the row's max (``prep_err``; the selector weights
+    apart: ``prep_weight_flips``, the share of entries that differ), and
+    the apply on the prep's buffer against ``euler3d_tangent_apply_plain``
+    on the same buffer, scaled by each variable's max (``apply_err``).
+
+    With ``ref64``, the float64 plain prep's buffer at the float64 inputs
+    (float32 checks), each row of the kernel's and of the plain float32
+    buffer against it, scaled by its row's max (w_pres by a term scale):
+    ``prep_rows`` {row: [kernel, plain]}, and ``prep_rows_over`` the rows
+    where the kernel is further than ``prep_row_limit``."""
+    coef = e3op.euler3d_tangent_prep(q, halo_q, con, pert)
+    want = e3op.euler3d_tangent_prep_plain(q, halo_q, con, pert)
+    got_jv = e3op.euler3d_tangent_apply(v, halo_v, coef, con)
+    want_jv = e3op.euler3d_tangent_apply_plain(v, halo_v, coef, con)
+    got_rows, want_rows = _prep_rows(coef, con), _prep_rows(want, con)
+    weight = e3op.TANGENT_FACE_ROWS.index("weight_L")
+    (_, gf), (_, wf) = e3op._tangent_parts(coef.values, con), e3op._tangent_parts(want.values, con)
+    flips = sum(int((g[weight] != w[weight]).sum()) for g, w in zip(gf, wf))
+    row_err = lambda g, w: float((g.double() - w).abs().max() / w.abs().max().clamp_min(1e-300))
+    out = {
+        "prep_err": max(row_err(got_rows[k], want_rows[k].double()) for k in got_rows),
+        "prep_max_abs_err": max(float((got_rows[k] - want_rows[k]).abs().max()) for k in got_rows),
+        "prep_weight_flips": flips / sum(g[weight].numel() for g in gf),
+        "apply_err": _scaled(got_jv - want_jv, per_variable_max(want_jv)),
+        "apply_max_abs_err": float((got_jv - want_jv).abs().max()),
+    }
+    if ref64 is not None:
+        ref_rows = _prep_rows(ref64, con)
+        # w_pres is a sum whose terms the hydrostatic balance cancels ~7-fold:
+        # its scale is the larger of its max and the interior term's.
+        scale = {k: r.abs().max() for k, r in ref_rows.items()}
+        scale["w_pres"] = torch.maximum(scale["w_pres"], con.fields[-1].abs().max().double())
+        err = lambda g, k: float((g.double() - ref_rows[k]).abs().max() / scale[k].clamp_min(1e-300))
+        out["prep_rows"] = {k: [err(got_rows[k], k), err(want_rows[k], k)] for k in got_rows}
+        out["prep_row_limit"] = f"max({E3_TOLERANCE[torch.float32]:g}, 2 * plain)"
+        out["prep_rows_over"] = [k for k, (kern, plain) in out["prep_rows"].items()
+                                 if not kern <= max(E3_TOLERANCE[torch.float32], 2.0 * plain)]
+    return out
+
+
+def _tangent_kernels_ok(row, dtype) -> bool:
+    """The apply within the tangent tolerance of its plain version on the
+    same buffer. The float64 prep within the operator tolerance of its
+    plain version, row by row; each row of the float32 prep within the
+    float32 operator tolerance of the float64 prep's row, or within twice
+    the plain float32 prep's distance from it (the rule of the float32 J.v
+    checks: the w_pres row is a sum the hydrostatic balance cancels)."""
+    if dtype == torch.float64:
+        prep_ok = row["prep_err"] <= E3_TOLERANCE[dtype]
+    else:
+        prep_ok = "prep_rows" in row and not row["prep_rows_over"]
+    return prep_ok and row["apply_err"] <= E3_TANGENT_TOLERANCE[dtype]
+
+
 def compare_euler3d_tangent(nel_h: int, nel_v: int, s: int, dtype, device="cuda", case: int = 31, seed: int = 7):
-    """The tangent kernel against the plain tangent on the same inputs;
-    returns one row with the scaled error ``err``, its tolerance ``tol`` and
+    """The tangent kernels (prep, then apply) against the plain tangent
+    (``torch.func.jvp`` of the plain operator) on the same inputs, and the
+    apply's linearity in v (within the same tolerance); returns one row with
+    the scaled error ``err``, ``linearity_err``, the tolerance ``tol`` and
     ``ok`` (scales in the module docstring)."""
     con, topology, q, v = euler3d_tangent_inputs(nel_h, nel_v, s, dtype, device, case, seed)
     halo_q, halo_v = tangent_halos(q, v, con, topology)
     got = e3op.euler3d_tangent(q, v, halo_q, halo_v, con)
     want = e3op.euler3d_tangent_plain(q, v, halo_q, halo_v, con)
+    traces = e3op.edge_traces(q, con)
+    direction_halo = lambda x: e3op.halo_from_traces(e3op.edge_traces_tangent(q, x, con, traces), topology)
+    linearity = tangent_linearity_err(q, v, halo_q, direction_halo, con)
     if device != "cpu":
         torch.cuda.synchronize()
-    row = {"nel_h": nel_h, "nel_v": nel_v, "s": s, "case": case, "dtype": str(dtype).replace("torch.", ""),
-           "mode": "tangent", "max_abs_err": float((got - want).abs().max())}
     if dtype == torch.float64:
-        row["scale"], row["err"] = "output_max", _scaled(got - want, per_variable_max(want))
+        row = {"scale": "output_max", "err": _scaled(got - want, per_variable_max(want)),
+               **compare_tangent_kernels(q, v, halo_q, halo_v, con)}
     else:
         con64, _, q64, v64 = euler3d_tangent_inputs(nel_h, nel_v, s, torch.float64, device, case, seed)
+        ref64 = e3op.euler3d_tangent_prep_plain(q64, tangent_halos(q64, v64, con64, topology)[0], con64)
+        row = compare_tangent_kernels(q, v, halo_q, halo_v, con, ref64=ref64)
         f64_tangent = lambda q_, v_: e3op.euler3d_tangent_plain(q_, v_, *tangent_halos(q_, v_, con64, topology),
                                                                con64)
         truth = f64_tangent(q64, v64)
@@ -403,16 +502,20 @@ def compare_euler3d_tangent(nel_h: int, nel_v: int, s: int, dtype, device="cuda"
         # the inputs alone moves J.v (large where a normal speed sits at
         # round-off level and d|vn| flips with its sign).
         row["input_rounding_err"] = _scaled(f64_tangent(q.double(), v.double()) - truth, sc)
+    row = {"nel_h": nel_h, "nel_v": nel_v, "s": s, "case": case, "dtype": str(dtype).replace("torch.", ""),
+           "mode": "tangent", "max_abs_err": float((got - want).abs().max()), "linearity_err": linearity, **row}
     row["tol"] = E3_TANGENT_TOLERANCE[dtype]
     limit = max(row["tol"], 2.0 * row.get("plain_err", 0.0))
-    row["ok"] = bool(np.isfinite(row["err"]) and row["err"] <= limit and torch.isfinite(got).all().item())
+    row["ok"] = bool(np.isfinite(row["err"]) and row["err"] <= limit and linearity <= row["tol"]
+                     and _tangent_kernels_ok(row, dtype) and torch.isfinite(got).all().item())
     return row
 
 
 def euler3d_tangent_work(con):
-    """(bytes, operations) of one tangent-mode call, counted as
-    ``euler3d_work`` counts them: q, v and both halos read once, J.v
-    written once, the metric read once; operations of the linearised
+    """(bytes, operations) of the Jacobian action J(q).v as one call (the
+    function's bound; the apply's own is ``euler3d_tangent_apply_work``),
+    counted as ``euler3d_work`` counts them: q, v and both halos read once,
+    J.v written once, the metric read once; operations of the linearised
     algorithm (primal and derivative of each site: pointwise ~370 + 44 s a
     point, each face's primal and direction traces once, ~170 a face point
     for the Rusanov flux and its derivative)."""
@@ -425,6 +528,75 @@ def euler3d_tangent_work(con):
     words += 2 * 5 * 4 * 6 * nk * nh * s2  # halo_q, halo_v
     per_elem = s3 * (370 + 44 * s) + 6 * s2 * (20 * s + 4) + 3 * s2 * 170
     return words * item, n_elem * per_elem
+
+
+def _tangent_read_words(con) -> int:
+    """Words of the metric the apply reads: every interior field but the
+    interior w-pressure term (folded into the coefficients), the time
+    Christoffels and the interface metric."""
+    words = con.fields[:-1].numel() + (con.tch.numel() if con.tch is not None else 0)
+    return words + con.itf_x.numel() + con.itf_y.numel() + con.itf_z.numel()
+
+
+def euler3d_tangent_apply_work(con):
+    """(bytes, operations) of one apply, counted as ``euler3d_work`` counts
+    them: v and its halo read once, J.v written once, the coefficient
+    buffer (``tangent_layout``) and the metric it needs read once. The
+    apply's own floor, beside the function's (``euler3d_tangent_work``):
+    the coefficients are its price for doing no transcendental, square root
+    or division. Operations of its linear algebra: ~270 + 38 s a point
+    (log-tangent rows, divergence, corrections, gradients, forcing), ~22 s
+    + 114 a face point an element (both direction traces and the flux
+    derivative; an interior interface is computed from each side)."""
+    nh, nk, s = con.nel_h, con.nel_v, con.s
+    s2, s3 = s * s, s**3
+    n_elem, item = 6 * nk * nh * nh, torch.finfo(con.dtype).bits // 8
+    words = 2 * 5 * n_elem * s3 + e3op.tangent_layout(con)["size"] + _tangent_read_words(con)
+    words += 5 * 4 * 6 * nk * nh * s2  # halo_v
+    per_elem = s3 * (270 + 38 * s) + 6 * s2 * (22 * s + 114)
+    return words * item, n_elem * per_elem
+
+
+def euler3d_tangent_prep_work(con, pert: bool = False):
+    """(bytes, operations) of one prep, counted as ``euler3d_work`` counts
+    them: q (and q0) and the halo (and the base halo) read once, the
+    coefficient buffer written once, the metric it needs (sqrt(g), h^{k2},
+    the w-pressure term, the interface metric) read once. Operations: the
+    primal pointwise work (~40 + 12 s a point, ~70 + 12 s in perturbation
+    form), each face's own and neighbour primal traces with the pressures,
+    sound speeds, eigenvalue and coefficients (~24 s + 60 a face point,
+    ~48 s + 110 in perturbation form)."""
+    nh, nk, s = con.nel_h, con.nel_v, con.s
+    s2, s3 = s * s, s**3
+    n_elem, item = 6 * nk * nh * nh, torch.finfo(con.dtype).bits // 8
+    one_panel = nk * nh * nh * s3
+    words = (2 if pert else 1) * (5 * n_elem * s3 + 5 * 4 * 6 * nk * nh * s2) + e3op.tangent_layout(con)["size"]
+    words += 5 * one_panel + con.itf_x.numel() + con.itf_y.numel() + con.itf_z.numel()
+    if pert:
+        per_elem = s3 * (70 + 12 * s) + 6 * s2 * (48 * s + 110)
+    else:
+        per_elem = s3 * (40 + 12 * s) + 6 * s2 * (24 * s + 60)
+    return words * item, n_elem * per_elem
+
+
+def tangent_kernel_resources(dtype, s: int) -> dict:
+    """{"prep", "pert_prep", "apply": {registers, local_bytes, smem_bytes,
+    blocks_per_sm, threads}}: what the runtime reports of the tangent
+    kernels at one dtype and s (on the card; builds the library)."""
+    import ctypes
+
+    from .build import load_library
+
+    lib = load_library("euler3d_operator")
+    out = {}
+    for kernel, name in enumerate(("prep", "pert_prep", "apply")):
+        info = (ctypes.c_int * 5)()
+        rc = lib.euler3d_tangent_resources(1 if dtype == torch.float64 else 0, s, kernel,
+                                           ctypes.cast(info, ctypes.c_void_p))
+        if rc != 0:
+            raise RuntimeError(f"euler3d_tangent_resources failed: CUDA error {rc}")
+        out[name] = dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm", "threads"), info))
+    return out
 
 
 def euler3d_pert_inputs(nel_h: int, nel_v: int, s: int, dtype, device, case: int = 31, seed: int = 7):
@@ -461,19 +633,23 @@ def compare_euler3d_pert(nel_h: int, nel_v: int, s: int, dtype, device="cuda", c
     con, topology, pert, dq, v = euler3d_pert_inputs(nel_h, nel_v, s, dtype, device, case, seed)
     halo_dq, halo_v = pert_halos(dq, v, pert, con, topology)
     rows = []
-    truth = None
+    truth = ref64 = None
     if dtype == torch.float32:
         con64, _, pert64, dq64, v64 = euler3d_pert_inputs(nel_h, nel_v, s, torch.float64, device, case, seed)
         h64 = pert_halos(dq64, v64, pert64, con64, topology)
         truth = {"rhs": e3op.euler3d_operator_pert_plain(dq64, h64[0], con64, pert64),
                  "tangent": e3op.euler3d_tangent_pert_plain(dq64, v64, *h64, con64, pert64)}
+        ref64 = e3op.euler3d_tangent_prep_plain(dq64, h64[0], con64, pert64)
     for mode in ("rhs", "tangent"):
+        linearity = None
         if mode == "rhs":
             got = e3op.euler3d_operator(dq, halo_dq, con, pert=pert)
             want = e3op.euler3d_operator_pert_plain(dq, halo_dq, con, pert)
         else:
             got = e3op.euler3d_tangent(dq, v, halo_dq, halo_v, con, pert=pert)
             want = e3op.euler3d_tangent_pert_plain(dq, v, halo_dq, halo_v, con, pert)
+            linearity = tangent_linearity_err(dq, v, halo_dq, lambda x: pert_halos(dq, x, pert, con, topology)[1],
+                                              con, pert)
         if device != "cpu":
             torch.cuda.synchronize()
         ref = want if truth is None else truth[mode]
@@ -493,7 +669,12 @@ def compare_euler3d_pert(nel_h: int, nel_v: int, s: int, dtype, device="cuda", c
             row["kernel_vs_plain_err"] = _scaled(got.double() - want.double(), scale)
             row["tol"] = E3_TANGENT_TOLERANCE[dtype]
             limit = max(row["tol"], 2.0 * row["plain_err"])
-        row["ok"] = bool(np.isfinite(row["err"]) and row["err"] <= limit and torch.isfinite(got).all().item())
+        ok = np.isfinite(row["err"]) and row["err"] <= limit and torch.isfinite(got).all().item()
+        if linearity is not None:
+            row["linearity_err"] = linearity
+            row.update(compare_tangent_kernels(dq, v, halo_dq, halo_v, con, pert, ref64))
+            ok = ok and linearity <= E3_TANGENT_TOLERANCE[dtype] and _tangent_kernels_ok(row, dtype)
+        row["ok"] = bool(ok)
         rows.append(row)
     return rows
 

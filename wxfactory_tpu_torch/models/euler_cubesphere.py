@@ -16,14 +16,16 @@ form ``pack``/``unpack`` are the identity.
 The exponential integrators' Jacobian action J(q).v comes in two stages,
 as the JAX package's ``jtv_prep``/``jtv_apply`` (models/
 euler_cubesphere.py:846-888 there): ``jtv_prep(q)`` once per linearisation
-point (q's traces and halo), ``jtv_apply(prep, v)`` once per Krylov
-iteration (the direction's traces and halo, then one launch of the
-kernel's tangent mode on a GPU, the plain tangent on the CPU).
+point (q's traces and halo, then one launch of the tangent prep kernel,
+which writes the linearisation's coefficients), ``jtv_apply(prep, v)`` once
+per Krylov iteration (the direction's traces and halo, then one launch of
+the linear tangent apply kernel); on the CPU the plain tangent
+(``torch.func.jvp`` of the plain operator).
 With ``perturbation_base=q0`` the RHS is the perturbation (base-state-split)
 form, as the JAX package's ``rhs_pert``/``rhs_fast`` (models/
 euler_cubesphere.py:674-720, :827-899 there): the absolute state goes in,
-``rhs0 + delta`` comes out, and the Jacobian action is the kernel's
-perturbation tangent mode, J(q0 + dq).v — the float32 companion of the
+``rhs0 + delta`` comes out, and the Jacobian action is J(q0 + dq).v from
+the perturbation form's prep and the same apply — the float32 companion of the
 mixed-precision Krylov loop. There ``pack(q) = q - q0`` and ``unpack(dq) =
 q0 + dq``, and ``stage``/``traces`` work on the packed deltas (the JAX
 package's ``packed_stage_chained`` with ``pert=``, :797-822 and :889-899
@@ -49,7 +51,10 @@ from ..ops.euler3d_operator import (
     edge_traces_delta,
     edge_traces_tangent,
     euler3d_operator,
-    euler3d_tangent,
+    euler3d_tangent_apply,
+    euler3d_tangent_pert_plain,
+    euler3d_tangent_plain,
+    euler3d_tangent_prep,
     halo_from_traces,
 )
 from ..parallel.topology import CubedSphereTopology
@@ -144,25 +149,36 @@ class Euler3DRHS:
     def jtv_prep(self, q: torch.Tensor):
         """What every Jacobian action at ``q`` shares: (the operator's state
         input, the absolute state and its panel-edge traces for the tangent
-        glue, the input's halo). In perturbation form (the JAX ``jtv_prep``,
-        models/euler_cubesphere.py:846-858 there) the input is dq =
-        q.to(dtype) - q0 in the working dtype with its delta halo, and the
-        absolute state and traces are q0 + dq and t0 + dt."""
+        glue, the input's halo, the linearisation's coefficients from one
+        launch of the tangent prep kernel; None on the CPU). In perturbation
+        form (the JAX ``jtv_prep``, models/euler_cubesphere.py:846-858 there)
+        the input is dq = q.to(dtype) - q0 in the working dtype with its delta
+        halo, and the absolute state and traces are q0 + dq and t0 + dt."""
         if self.pert is None:
-            traces = self.traces(q)
-            return q, q, traces, self.halo(traces)
-        dq = q.to(self.dtype) - self.pert.q0
-        dtraces = edge_traces_delta(dq, self.pert, self.con)
-        return dq, self.pert.q0 + dq, self.pert.traces0 + dtraces, self.halo(dtraces)
+            q_in, qa, traces = q, q, self.traces(q)
+            halo = self.halo(traces)
+        else:
+            q_in = q.to(self.dtype) - self.pert.q0
+            dtraces = edge_traces_delta(q_in, self.pert, self.con)
+            qa, traces, halo = self.pert.q0 + q_in, self.pert.traces0 + dtraces, self.halo(dtraces)
+        coef = None if q_in.device.type == "cpu" else euler3d_tangent_prep(q_in, halo, self.con, pert=self.pert)
+        return q_in, qa, traces, halo, coef
 
     def jtv_apply(self, prep, v: torch.Tensor) -> torch.Tensor:
         """J(q).v for the ``prep`` of q: one tangent glue pass and one
-        launch of the tangent kernel, in perturbation mode with a base (the
-        plain tangent on the CPU). The well-balanced offset is a constant
+        launch of the linear tangent apply kernel. On the CPU the plain
+        tangent (``torch.func.jvp`` of the plain operator): the CPU Ros2
+        test against the JAX ``Ros2`` sits closer to its bound than the
+        split's rounding allows (ROADMAP.md §3); the split's plain versions
+        run in ``euler3d_tangent``. The well-balanced offset is a constant
         and has no derivative."""
-        q_in, qa, traces, halo_q = prep
+        q_in, qa, traces, halo_q, coef = prep
         halo_v = self.halo(edge_traces_tangent(qa, v, self.con, traces))
-        return euler3d_tangent(q_in, v, halo_q, halo_v, self.con, pert=self.pert)
+        if coef is None:
+            if self.pert is not None:
+                return euler3d_tangent_pert_plain(q_in, v, halo_q, halo_v, self.con, self.pert)
+            return euler3d_tangent_plain(q_in, v, halo_q, halo_v, self.con)
+        return euler3d_tangent_apply(v, halo_v, coef, self.con)
 
     def jtv(self, q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         return self.jtv_apply(self.jtv_prep(q), v)

@@ -40,10 +40,15 @@ same kernel with one panel whose four horizontal edges all take the halo
 (``euler3d_tile_operator_plain`` on the CPU).
 
 The operator's Jacobian action J(q).v (``km3_fused``'s tangent mode, the
-matvec of the exponential integrators' Krylov loop) has the same split:
-``euler3d_tangent`` launches the kernel's tangent mode for CUDA tensors and
-runs ``euler3d_tangent_plain`` (``torch.func.jvp`` of the plain operator)
-for CPU tensors. Its halo glue is the primal glue's derivative:
+matvec of the exponential integrators' Krylov loop) comes in two kernels:
+``euler3d_tangent_prep`` once per linearisation point writes every primal
+quantity the action needs into a coefficient buffer (``tangent_layout``),
+and ``euler3d_tangent_apply`` once per direction reads it and is linear in
+the direction; ``euler3d_tangent`` is the two in one call. CPU tensors run
+their plain versions (``euler3d_tangent_prep_plain``,
+``euler3d_tangent_apply_plain``); ``euler3d_tangent_plain``
+(``torch.func.jvp`` of the plain operator) is the independent yardstick
+of both. Its halo glue is the primal glue's derivative:
 ``edge_traces_tangent`` gives the direction's panel-edge traces (linear
 extrapolation of the momenta, ``tr_q * (E.(v/q))`` for the log-space rows)
 and ``halo_from_traces``, which is linear, exchanges them.
@@ -64,7 +69,8 @@ J(q0 + dq).v; the halo glue is ``edge_traces_delta`` (the delta traces,
 ``t0 * expm1(E.log1p(dq/q0))`` for the log-space rows) and, for the
 direction, ``edge_traces_tangent`` at the absolute state with the absolute
 traces ``t0 + dt``. The plain versions are ``euler3d_operator_pert_plain``
-and ``euler3d_tangent_pert_plain``.
+and ``euler3d_tangent_pert_plain``; the prep takes ``pert=base`` and the
+apply is the same for both forms.
 """
 
 import ctypes
@@ -76,13 +82,15 @@ import torch
 
 from ..common.constants import GRAVITY, HEAT_CAPACITY_RATIO, P0, RD
 
-# Kernel launches made by ``euler3d_operator`` and ``euler3d_tangent`` in
-# absolute and perturbation form (the perturbation form's RHS-mode and
-# stage-mode launches apart), by ``euler3d_tile_operator`` in absolute and
-# perturbation form, and calls of the plain operators and of the plain
-# tangents (a run on the card must make none).
+# Kernel launches made by ``euler3d_operator`` and ``euler3d_tangent_apply``
+# in absolute and perturbation form (the perturbation form's RHS-mode and
+# stage-mode launches apart), by ``euler3d_tangent_prep`` (both forms), by
+# ``euler3d_tile_operator`` in absolute and perturbation form, and calls of
+# the plain operators (the prep's among them) and of the plain tangents and
+# applies (a run on the card must make none).
 launches = 0
 tangent_launches = 0
+tangent_prep_launches = 0
 pert_launches = 0
 pert_stage_launches = 0
 tile_launches = 0
@@ -912,50 +920,336 @@ def euler3d_tangent_plain(q, v, halo_q, halo_v, con: E3Constants):
     return out
 
 
-def euler3d_tangent(q, v, halo_q, halo_v, con: E3Constants, pert: Optional[E3PertBase] = None):
-    """The Jacobian action J(q).v of the operator in RHS mode (no stage,
-    ``bal`` or traces), with ``halo_q`` q's neighbour halos and ``halo_v``
-    the direction's (both (5, 4, 6, nk, nh, s^2)). With ``pert``, ``q`` is
-    the perturbation dq around ``pert.q0`` and ``halo_q`` its delta halo:
-    returns J(q0 + dq).v, the primal perturbation intermediates serving as
-    the linearisation coefficients.
+# The split Jacobian action: a prep once per linearisation point q, an
+# apply once per direction v. The prep writes every primal quantity of the
+# linearisation that costs a transcendental, a square root, a division or a
+# neighbour read into one coefficient buffer; the apply is linear in v and
+# uses none of them. Buffer layout (``tangent_layout``; the kernels' own):
+#
+#   node   (6, nk, nh, nh, 8, s^3)  element-major: each element's run is the
+#          8 rows TANGENT_NODE_ROWS of s^3 nodes
+#   face_x (22, 6, nk, nh, nh+1, s^2)  one entry per interface point, both
+#   face_y (22, 6, nk, nh+1, nh, s^2)  sides: rows TANGENT_FACE_ROWS; face
+#   face_z (22, 6, nk+1, nh, nh, s^2)  points ordered as the interface metric
+#
+# w_pres is the primal factor of the direction's pressure in the w equation:
+# wpres_int + the boundary correction of the face w pressure / p + sqrt(g)
+# (h^{02} d_x + h^{12} d_y + h^{22} d_z) log p (with its face corrections).
+# At the ground and the lid both sides hold the element's own trace and the
+# apply makes w odd. gp = gamma p / (rho*theta); p_ratio_L = p_R / p_L.
+TANGENT_NODE_ROWS = ("inv_rho", "inv_rho_theta", "u1", "u2", "u3", "theta", "p", "w_pres")
+TANGENT_FACE_ROWS = tuple(f"{v}_{side}" for side in "LR" for v in ("rho", "rho_u1", "rho_u2", "rho_w", "rho_theta")) + (
+    "inv_rho_L", "inv_rho_R", "inv_rho_theta_L", "inv_rho_theta_R", "c_L", "c_R", "gp_L", "gp_R",
+    "p_ratio_L", "p_ratio_R", "eig", "weight_L")
 
-    A CPU tensor runs ``euler3d_tangent_plain`` (``euler3d_tangent_pert_plain``);
-    a CUDA tensor launches the kernel's tangent mode (csrc/euler3d_operator.cu)
-    on the current stream, without synchronising, or raises."""
-    global tangent_launches, pert_tangent_launches
-    _check_npanel(con, 6, "euler3d_tangent")
-    tensors = {"q": (q, con.state_shape), "v": (v, con.state_shape),
-               "halo_q": (halo_q, con.traces_shape), "halo_v": (halo_v, con.traces_shape)}
-    if pert is not None:
-        tensors.update(_pert_tensors(con, pert))
-    _check_tensors(con, tensors)
-    if q.device.type == "cpu":
-        if pert is not None:
-            return euler3d_tangent_pert_plain(q, v, halo_q, halo_v, con, pert)
-        return euler3d_tangent_plain(q, v, halo_q, halo_v, con)
-    if q.device.type != "cuda":
-        raise ValueError(f"euler3d_tangent runs on cpu or cuda tensors, not {q.device}")
-    _check_kernel_shape(con, "euler3d_tangent")
+
+@dataclass(frozen=True)
+class TangentCoefficients:
+    """The linearisation at one state (``euler3d_tangent_prep``): the flat
+    buffer in the layout of ``tangent_layout`` and whether the
+    perturbation form built it (its applies count in
+    ``pert_tangent_launches``)."""
+
+    values: torch.Tensor
+    pert: bool
+
+
+def tangent_layout(con: E3Constants) -> dict:
+    """Shapes and offsets (in elements) of the parts of the coefficient
+    buffer, and its ``size``."""
+    nh, nk, s, kf = con.nel_h, con.nel_v, con.s, len(TANGENT_FACE_ROWS)
+    shapes = {
+        "node": (6, nk, nh, nh, len(TANGENT_NODE_ROWS), s**3),
+        "face_x": (kf, 6, nk, nh, nh + 1, s * s),
+        "face_y": (kf, 6, nk, nh + 1, nh, s * s),
+        "face_z": (kf, 6, nk + 1, nh, nh, s * s),
+    }
+    layout, offset = {}, 0
+    for name, shape in shapes.items():
+        layout[name] = (offset, shape)
+        offset += int(np.prod(shape))
+    layout["size"] = offset
+    return layout
+
+
+def _tangent_parts(values: torch.Tensor, con: E3Constants):
+    """(node (6, nk, nh, nh, 8, s^3), [face_x, face_y, face_z]) views of a
+    coefficient buffer."""
+    layout = tangent_layout(con)
+    view = lambda name: values.narrow(0, layout[name][0], int(np.prod(layout[name][1]))).view(layout[name][1])
+    return view("node"), [view("face_x"), view("face_y"), view("face_z")]
+
+
+def euler3d_tangent_prep_plain(q, halo_q, con: E3Constants, pert: Optional[E3PertBase] = None) -> TangentCoefficients:
+    """Plain torch version of the prep kernel: the coefficient buffer of
+    the linearisation at q (``halo_q`` q's halo), or with ``pert`` at q0 +
+    dq (``q`` the perturbation dq, ``halo_q`` its delta halo), where every
+    primal quantity is formed as the perturbation form forms it (traces t0
+    + dt, pressures p0 + p0 expm1(gamma log1p(d/rt0)), the log-pressure
+    gradient dlp0 + ddlp). Counted in ``plain_calls``."""
+    global plain_calls
+    plain_calls += 1
+    gam = HEAT_CAPACITY_RATIO
+    fld = con.fields
+    sqrtg = fld[0]
+    h = {}
+    for i, (r, c) in enumerate(H_PAIRS):
+        h[(r, c)] = h[(c, r)] = fld[3 + i]
+    wpres_int = fld[-1]
+
+    # Node values, the interface states (qL, qR) with their face pressures,
+    # the own side's face w pressure / p and the log-pressure gradient.
+    fam, wpf = {}, []
+    if pert is None:
+        qa, rho = q, q[0]
+        u = q[1:4] / rho
+        p = pressure(q[4])
+        lr = _lr_states(_exp_rows(_log_rows(q) @ con.ee), halo_q)
+        lpf = []
+        for d, dim in _FAMILIES:
+            qL, qR = lr[d]
+            sg, _, _, h2 = _itf_metric(con, d)
+            pL, pR = pressure(qL[4]), pressure(qR[4])
+            p_neg, p_pos = _own_faces(pL, pR, dim)
+            wp = 0.5 * (sg * h2 * pL + sg * h2 * pR)
+            w_neg, w_pos = _own_faces(wp, wp, dim)
+            wpf.append(torch.cat([w_neg / p_neg, w_pos / p_pos], dim=-1))
+            lpf.append(torch.cat([torch.log(p_neg), torch.log(p_pos)], dim=-1))
+            fam[d] = (qL, qR, pL, pR)
+        dlp = torch.log(p) @ con.dd3 + torch.cat(lpf, dim=-1) @ con.ccb
+    else:
+        q0, dq = pert.q0, q
+        qa = q0 + dq
+        rho, rho0 = qa[0], q0[0]
+        u0 = q0[1:4] / rho0
+        u = u0 + (dq[1:4] - u0 * dq[0]) / rho
+        p0 = pressure(q0[4])
+        dlog_rt = torch.log1p(dq[4] / q0[4])
+        dp = p0 * torch.expm1(gam * dlog_rt)
+        p = p0 + dp
+        raw = torch.cat([torch.log1p(dq[0:1] / rho0), dq[1:4], dlog_rt[None]]) @ con.ee
+        itf0 = pert.itf0
+        ditf = torch.cat([itf0[0:1] * torch.expm1(raw[0:1]), raw[1:4], itf0[4:5] * torch.expm1(raw[4:5])])
+        lr0, lrd = _lr_states(itf0, pert.halo0), _lr_states(ditf, halo_q)
+        dlpf = []
+        for d, dim in _FAMILIES:
+            (L0, R0), (dL, dR) = lr0[d], lrd[d]
+            sg, _, _, h2 = _itf_metric(con, d)
+            pL0, pR0 = pressure(L0[4]), pressure(R0[4])
+            dpL = pL0 * torch.expm1(gam * torch.log1p(dL[4] / L0[4]))
+            dpR = pR0 * torch.expm1(gam * torch.log1p(dR[4] / R0[4]))
+            p0n, p0p = _own_faces(pL0, pR0, dim)
+            dpn, dpp = _own_faces(dpL, dpR, dim)
+            w0 = 0.5 * sg * h2 * (pL0 + pR0)
+            dw = 0.5 * sg * h2 * (dpL + dpR)
+            w0n, w0p = _own_faces(w0, w0, dim)
+            dwn, dwp = _own_faces(dw, dw, dim)
+            pn, pp = p0n + dpn, p0p + dpp
+            wpf.append(torch.cat([w0n / p0n + (dwn / pn - (w0n / p0n) * (dpn / pn)),
+                                  w0p / p0p + (dwp / pp - (w0p / p0p) * (dpp / pp))], dim=-1))
+            dlpf.append(torch.cat([torch.log1p(dpn / p0n), torch.log1p(dpp / p0p)], dim=-1))
+            fam[d] = (L0 + dL, R0 + dR, pL0 + dpL, pR0 + dpR)
+        dlp = pert.dlp0 + (torch.log1p(dp / p0) @ con.dd3 + torch.cat(dlpf, dim=-1) @ con.ccb)
+
+    s3 = con.s**3
+    w_pres = wpres_int + torch.cat(wpf, dim=-1) @ con.cc + sqrtg * (
+        h[(0, 2)] * dlp[..., :s3] + h[(1, 2)] * dlp[..., s3 : 2 * s3] + h[(2, 2)] * dlp[..., 2 * s3 :])
+    node = torch.stack([1.0 / rho, 1.0 / qa[4], u[0], u[1], u[2], qa[4] / rho, p, w_pres], dim=-2)
+
+    faces = []
+    for d, _ in _FAMILIES:
+        qL, qR, pL, pR = fam[d]
+        hd = _itf_metric(con, d)[1 + d]
+        vL, vR = _normal_speeds(qL, qR, d)
+        cL = torch.sqrt(hd * gam * pL / qL[0])
+        cR = torch.sqrt(hd * gam * pR / qR[0])
+        aL, aR = _abs(vL) + cL, _abs(vR) + cR
+        weight_l = torch.where(aL > aR, 1.0, torch.where(aL < aR, 0.0, 0.5)).to(aL.dtype)
+        faces.append(torch.cat([qL, qR, torch.stack([
+            1.0 / qL[0], 1.0 / qR[0], 1.0 / qL[4], 1.0 / qR[4], cL, cR, gam * pL / qL[4], gam * pR / qR[4],
+            pR / pL, pL / pR, torch.maximum(aL, aR), weight_l])]))
+    return TangentCoefficients(torch.cat([node.reshape(-1)] + [f.reshape(-1) for f in faces]), pert is not None)
+
+
+def euler3d_tangent_apply_plain(v, halo_v, coef: TangentCoefficients, con: E3Constants):
+    """Plain torch version of the apply kernel: J.v from the coefficient
+    buffer ``coef``, the direction ``v`` and its halo ``halo_v``, with
+    linear arithmetic only (the direction's log-space traces as the primal
+    trace times E.(v/q), the Rusanov flux derivative with the selector
+    weights and d|vn| = +dvn at vn >= 0, the quadratic forcing by the
+    product rule). Counted in ``plain_tangent_calls``."""
+    global plain_tangent_calls
+    plain_tangent_calls += 1
+    gam = HEAT_CAPACITY_RATIO
+    fld = con.fields
+    sqrtg, invsg, invdz = fld[0], fld[1], fld[2]
+    h = {}
+    for i, (r, c) in enumerate(H_PAIRS):
+        h[(r, c)] = h[(c, r)] = fld[3 + i]
+    chs = fld[3 + len(H_PAIRS) : 3 + len(H_PAIRS) + 18]
+    s3 = con.s**3
+    node, faces = _tangent_parts(coef.values, con)
+    irho, irt, u1, u2, u3, theta, p, w_pres = node.movedim(-2, 0)
+    u = (u1, u2, u3)
+    phi = (torch.ones_like(theta), u1, u2, u3, theta)  # q_c / rho
+
+    # Direction traces: the own side's from the log-tangent nodes and the
+    # primal own-face traces, the far side's from the halo or the mirror.
+    lt = torch.stack([v[0] * irho, v[1], v[2], v[3], v[4] * irt])
+    raw = lt @ con.ee
+    own = torch.cat([torch.cat(_own_faces(f[0:5], f[5:10], dim), dim=-1) for f, (_, dim) in zip(faces, _FAMILIES)],
+                    dim=-1)
+    tlr = _lr_states(torch.cat([own[0:1] * raw[0:1], raw[1:4], own[4:5] * raw[4:5]]), halo_v)
+
+    tpres = gam * p * irt * v[4]
+    bund, lpf = [], []
+    for (d, dim), f in zip(_FAMILIES, faces):
+        tL, tR = tlr[d]
+        qL, qR = f[0:5], f[5:10]
+        iL0, iR0, iL4, iR4, cL, cR, gpL, gpR, rL, rR, eig, wL = f[10:]
+        sg, h0, h1, h2 = _itf_metric(con, d)
+        vL, vR = qL[1 + d] * iL0, qR[1 + d] * iR0
+        tvL, tvR = (tL[1 + d] - vL * tL[0]) * iL0, (tR[1 + d] - vR * tR[0]) * iR0
+        if d == 2:  # w is odd across the ground and the lid
+            flip_l = lambda a: torch.cat([-a[:, 0:1], a[:, 1:]], dim=1)
+            flip_r = lambda a: torch.cat([a[:, :-1], -a[:, -1:]], dim=1)
+            vL, tvL, vR, tvR = flip_l(vL), flip_l(tvL), flip_r(vR), flip_r(tvR)
+        taL = torch.where(vL >= 0, tvL, -tvL) + 0.5 * cL * (gam * iL4 * tL[4] - iL0 * tL[0])
+        taR = torch.where(vR >= 0, tvR, -tvR) + 0.5 * cR * (gam * iR4 * tR[4] - iR0 * tR[0])
+        teig = wL * taL + (1.0 - wL) * taR
+        sl, sr, es = sg * vL, sg * vR, eig * sg
+        tsl, tsr, tes = sg * tvL, sg * tvR, teig * sg
+        adv = 0.5 * ((tsl * qL + sl * tL) + (tsr * qR + sr * tR) - (tes * (qR - qL) + es * (tR - tL)))
+        tps = 0.5 * (gpL * tL[4] + gpR * tR[4])
+        tf = torch.stack([adv[0], adv[1] + sg * h0 * tps, adv[2] + sg * h1 * tps, adv[4], adv[3]])
+        # The own side's d[w pressure / p] and d log p (negative faces: the
+        # right side of their interface; positive: the left).
+        lL, lR = gam * iL4 * tL[4], gam * iR4 * tR[4]
+        wp_neg, wp_pos = _own_faces(0.5 * sg * h2 * rL * (lR - lL), 0.5 * sg * h2 * rR * (lL - lR), dim)
+        bund.append(torch.cat([_faces(tf, dim), torch.cat([wp_neg, wp_pos], dim=-1)[None]]))
+        lpf.append(torch.cat(_own_faces(lL, lR, dim), dim=-1))
+    corr = torch.cat(bund, dim=-1) @ con.cc
+    tdlp = gam * (lt[4] @ con.dd3) + torch.cat(lpf, dim=-1) @ con.ccb
+
+    # Pointwise flux derivatives sqrt(g) (w_d q_c / rho + u_d v_c), w_d =
+    # v_{1+d} - u_d v_rho, and the pressure's.
+    w = [v[1 + d] - u[d] * v[0] for d in range(3)]
+    bundles = []
+    for d in range(3):
+        fl = [sqrtg * (w[d] * phi[c] + u[d] * v[c]) for c in range(5)]
+        sgp = sqrtg * tpres
+        bundles.append(torch.stack([fl[0], fl[1] + sgp * h[(d, 0)], fl[2] + sgp * h[(d, 1)], fl[4], fl[3]]))
+    interior = torch.cat(bundles, dim=-1) @ con.dd
+
+    tw_df = (interior[4] + corr[4] + corr[5] * p + w_pres * tpres
+             + p * (sqrtg * h[(0, 2)] * tdlp[..., :s3] + sqrtg * h[(1, 2)] * tdlp[..., s3 : 2 * s3]
+                    + sqrtg * h[(2, 2)] * tdlp[..., 2 * s3 :]))
+
+    # Christoffel/Coriolis forcing: d(rho u_b u_c) = v_rho u_b u_c + w_b u_c
+    # + u_b w_c; the Coriolis term 2 rho Gamma^a_{0b} u^b is linear in the momenta.
+    def forcing_row(a_):
+        ch = chs[6 * a_ : 6 * a_ + 6]
+        pair = [v[0] * u[b] * u[c] + w[b] * u[c] + u[b] * w[c] + h[(b, c)] * tpres for b, c in H_PAIRS]
+        f = ch[0] * pair[0]
+        if con.tch is not None:
+            t = con.tch[3 * a_ : 3 * a_ + 3]
+            f = 2.0 * (t[0] * v[1] + t[1] * v[2] + t[2] * v[3]) + f
+        return f + 2.0 * ch[1] * pair[1] + 2.0 * ch[2] * pair[2] + ch[3] * pair[3] + 2.0 * ch[4] * pair[4] + ch[5] * pair[5]
+
+    gravity = invdz * GRAVITY * invsg * ((sqrtg * v[0]) @ con.hfk)
+    return torch.stack([
+        -invsg * (interior[0] + corr[0]),
+        -invsg * (interior[1] + corr[1]) - forcing_row(0),
+        -invsg * (interior[2] + corr[2]) - forcing_row(1),
+        -invsg * tw_df - (forcing_row(2) + gravity),
+        -invsg * (interior[3] + corr[3]),
+    ])
+
+
+def _launch_tangent(entry: str, con: E3Constants, *args):
+    """One launch of a tangent kernel through the C entry ``entry`` with the
+    leading (is_f64, s, nel_h, nel_v) and the stream added; raises on a
+    refused launch."""
+    _check_kernel_shape(con, entry)
 
     from ..kernels.build import load_library
 
     lib = load_library("euler3d_operator")
-    out = torch.empty_like(q)
-    base = pert.tensors if pert is not None else {}
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.euler3d_tangent_launch(
-            1 if q.dtype == torch.float64 else 0, con.s, con.nel_h, con.nel_v,
-            _ptr(q), _ptr(v), _ptr(halo_q), _ptr(halo_v), _ptr(con.ops1d), _ptr(con.fields), _ptr(con.tch),
-            _ptr(con.itf_x), _ptr(con.itf_y), _ptr(con.itf_z), _ptr(base.get("q0")), _ptr(base.get("halo0")),
-            _ptr(out), ctypes.c_void_p(stream),
-        )
+    with torch.cuda.device(con.device):
+        stream = torch.cuda.current_stream(con.device).cuda_stream
+        rc = getattr(lib, entry)(1 if con.dtype == torch.float64 else 0, con.s, con.nel_h, con.nel_v,
+                                 *[_ptr(a) for a in args], ctypes.c_void_p(stream))
     if rc != 0:
         name = lib.euler3d_operator_error_string(rc).decode()
-        raise RuntimeError(f"euler3d_tangent kernel launch failed: CUDA error {rc} ({name})")
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc} ({name})")
+
+
+def _check_device(t, name: str):
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda tensors, not {t.device}")
+
+
+def euler3d_tangent_prep(q, halo_q, con: E3Constants, pert: Optional[E3PertBase] = None) -> TangentCoefficients:
+    """The linearisation of the operator at ``q`` (``halo_q`` its
+    neighbour halos), once per linearisation point: the coefficient buffer
+    the apply reads. With ``pert``, ``q`` is the perturbation dq around
+    ``pert.q0`` and ``halo_q`` its delta halo: the linearisation at q0 + dq.
+
+    A CPU tensor runs ``euler3d_tangent_prep_plain``; a CUDA tensor launches
+    the prep kernel (csrc/euler3d_operator.cu) on the current stream,
+    without synchronising, counted in ``tangent_prep_launches``, or raises."""
+    global tangent_prep_launches
+    _check_npanel(con, 6, "euler3d_tangent_prep")
+    tensors = {"q": (q, con.state_shape), "halo_q": (halo_q, con.traces_shape)}
     if pert is not None:
+        tensors.update(_pert_tensors(con, pert))
+    _check_tensors(con, tensors)
+    _check_device(q, "euler3d_tangent_prep")
+    if q.device.type == "cpu":
+        return euler3d_tangent_prep_plain(q, halo_q, con, pert)
+    values = torch.empty(tangent_layout(con)["size"], dtype=q.dtype, device=q.device)
+    base = pert.tensors if pert is not None else {}
+    _launch_tangent("euler3d_tangent_prep_launch", con, q, halo_q, con.ops1d, con.fields, con.itf_x, con.itf_y,
+                    con.itf_z, base.get("q0"), base.get("halo0"), values)
+    tangent_prep_launches += 1
+    return TangentCoefficients(values, pert is not None)
+
+
+def euler3d_tangent_apply(v, halo_v, coef: TangentCoefficients, con: E3Constants):
+    """J.v from the linearisation ``coef`` (``euler3d_tangent_prep``) in the
+    direction ``v`` with its neighbour halos ``halo_v``, once per Jacobian
+    action.
+
+    A CPU tensor runs ``euler3d_tangent_apply_plain``; a CUDA tensor launches
+    the apply kernel (csrc/euler3d_operator.cu) on the current stream,
+    without synchronising, counted in ``tangent_launches`` (or
+    ``pert_tangent_launches`` for a perturbation-form linearisation), or
+    raises."""
+    global tangent_launches, pert_tangent_launches
+    _check_npanel(con, 6, "euler3d_tangent_apply")
+    _check_tensors(con, {"v": (v, con.state_shape), "halo_v": (halo_v, con.traces_shape),
+                         "coefficients": (coef.values, (tangent_layout(con)["size"],))})
+    _check_device(v, "euler3d_tangent_apply")
+    if v.device.type == "cpu":
+        return euler3d_tangent_apply_plain(v, halo_v, coef, con)
+    out = torch.empty_like(v)
+    _launch_tangent("euler3d_tangent_apply_launch", con, v, halo_v, con.ops1d, con.fields, con.tch, con.itf_x,
+                    con.itf_y, con.itf_z, coef.values, out)
+    if coef.pert:
         pert_tangent_launches += 1
     else:
         tangent_launches += 1
     return out
+
+
+def euler3d_tangent(q, v, halo_q, halo_v, con: E3Constants, pert: Optional[E3PertBase] = None):
+    """The Jacobian action J(q).v of the operator in RHS mode (no stage,
+    ``bal`` or traces) in one call: ``euler3d_tangent_prep`` at q, then
+    ``euler3d_tangent_apply`` in the direction v, with ``halo_q`` q's
+    neighbour halos and ``halo_v`` the direction's (both (5, 4, 6, nk, nh,
+    s^2)). With ``pert``, ``q`` is the perturbation dq around ``pert.q0``
+    and ``halo_q`` its delta halo: returns J(q0 + dq).v. Callers that apply
+    one linearisation to many directions call the two halves themselves
+    (``Euler3DRHS.jtv_prep``/``jtv_apply``)."""
+    _check_tensors(con, {"v": (v, con.state_shape), "halo_v": (halo_v, con.traces_shape)})
+    return euler3d_tangent_apply(v, halo_v, euler3d_tangent_prep(q, halo_q, con, pert), con)

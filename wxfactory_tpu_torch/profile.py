@@ -75,7 +75,7 @@ def profile_simulation(sim, steps: int = 20, warmup: int = 10, top: int = 12) ->
         "device_busy_us_per_step": busy_us, "device_busy_share": busy_us * 1e-6 / profiled_step_s,
         "device_launches_per_step": launches / steps,
         "kernels_us_per_step": [{"name": k[:90], "us": v} for k, v in ranked],
-        "tangent_kernel_us_per_step": sum(v for k, v in kernels.items() if "euler3d_tangent_kernel" in k),
+        "tangent_kernel_us_per_step": sum(v for k, v in kernels.items() if kernel_class(k) == "tangent_kernel"),
         "classes_us_per_step": classes, "host_syncs_per_step": syncs,
         "krylov_iterations_per_step": sum(iterations[-steps:]) / steps,
     }
@@ -113,9 +113,10 @@ def profile_calls(fn, repeats: int = 1, top: int = 8) -> dict:
 
 
 def kernel_class(name: str) -> str:
-    """The class of a device event by its name: the operator's kernels, the
-    basis products (cuBLAS GEMM/GEMV/dot kernels) or the rest."""
-    if "euler3d_tangent_kernel" in name:
+    """The class of a device event by its name: the operator's kernels (the
+    tangent prep and apply apart), the basis products (cuBLAS GEMM/GEMV/dot
+    kernels) or the rest."""
+    if "euler3d_tangent_apply_kernel" in name or "euler3d_tangent_prep_kernel" in name:
         return "tangent_kernel"
     if "euler3d_operator_kernel" in name or "sw_operator_kernel" in name:
         return "rhs_kernel"
