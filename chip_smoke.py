@@ -22,9 +22,11 @@ and drives the port's two main paths, shallow water and 3D Euler:
    s=3 (CUDA events, median), f64 and f32;
 5. the 3D Euler operator kernel against its plain version on the card, at
    (nel_h, nel_v, s) = (3,2,2), (12,3,2), (4,2,3), (20,20,3), (4,4,4),
-   (3,2,5), (2,2,6) on DCMIP 31 and (4,2,3) on the rotating planet of case
-   77, float64 and float32, in RHS mode, stage mode with and without x, with
-   emitted traces, and (float32) with the well-balanced offset;
+   (3,2,5), (2,2,6), (7,3,3) on DCMIP 31 and (4,2,3) on the rotating planet
+   of case 77, float64 and float32, in RHS mode, stage mode with and without
+   x, with emitted traces, and (float32) with the well-balanced offset; each
+   call also holds mass (the weighted integral of its rho change against
+   the plain version's);
 6. the same dcmip31 run (3x2x2, s=2, TVD-RK3, dt=2 s, 10 steps, f64) on the
    GPU and on the CPU: final states agree to 1e-10 of each variable's max;
 7. the 3D main path: ``python -m wxfactory_tpu_torch`` on dcmip31 at
@@ -33,8 +35,12 @@ and drives the port's two main paths, shallow water and 3D Euler:
    150 steps; each with exactly one kernel launch per RK stage, a finite
    state, mass drift below 1e-11 and checkpoints that read back;
 8. time per call at 20x20x3, s=3 of the 3D kernel (RHS; stage + x +
-   traces), its plain version and the halo glue (CUDA events, median), f64
-   and f32, beside the call's memory/compute bound;
+   traces: the card's time, 20 calls queued behind a sleep kernel, in
+   turns), its plain version and the halo glue (CUDA events, median), f64
+   and f32, beside the call's memory/compute bound, with the registers,
+   spills, shared memory a block and resident blocks an SM of its two
+   kernels (the interface and volume passes; absolute and perturbation
+   mode) and their launch geometry;
 9. the Jacobian action J(q).v from the tangent prep kernel (once per
    linearisation point: the coefficient buffer) and the linear apply
    kernel against its plain version (torch.func.jvp of the plain operator)
@@ -73,7 +79,8 @@ and drives the port's two main paths, shallow water and 3D Euler:
     version on the card at every shape of phase 5, f64 within 1e-12, f32
     within 5e-5 of the f64 plain output or twice the f32 plain output's
     distance, with the linearity and kernel-by-kernel checks of phase 9
-    (rows in build/chip_smoke/phase13.json);
+    and the mass check of phase 5 on the RHS (rows in
+    build/chip_smoke/phase13.json);
 14. the same dcmip31 EPI2 runs with kiops_jit (dt=30 s, 2 steps) on the GPU
     and the CPU: float64 at 4x2x2, s=2 with identical Krylov statistics and
     states within 1e-10, mixed precision (the float32 perturbation
@@ -131,8 +138,9 @@ and drives the port's two main paths, shallow water and 3D Euler:
     delta), a = 0 and a != 0, with the output's delta traces) against its
     plain version at every shape of phase 5, f64 within 1e-12 of scale, f32
     within 5e-5 of the f64 plain output or twice the f32 plain output's
-    distance, and the emitted traces against edge_traces_delta of the
-    kernel's own output (rows in build/chip_smoke/phase21.json);
+    distance, the emitted traces against edge_traces_delta of the
+    kernel's own output, and the mass check of phase 5 (rows in
+    build/chip_smoke/phase21.json);
 22. the 3D production explicit point as bench.py:623-685 drives it:
     dcmip31, float32 perturbation form around the initial state through
     Tvdrk3, at (nel_h, nel_v, s, dt, steps) = (12,3,2,0.5,150) and
@@ -165,8 +173,9 @@ and drives the port's two main paths, shallow water and 3D Euler:
     perturbation form, RHS and stages with a = 0 and a != 0, float64 and
     float32: SW at (nt, s) = (4,3), (8,4), (32,3) on a tile of a 2x2 mesh
     and (64,4) on a whole panel; 3D at (nt, nk, s) = (2,3,2), (5,8,3),
-    (10,20,3) and the rotating planet at (2,3,3) on 2x2 meshes, (20,20,3)
-    on a whole panel (tolerances in kernels/check.py, _compare_tile);
+    (10,20,3), (7,3,3) and the rotating planet at (2,3,3) on 2x2 meshes,
+    (20,20,3) on a whole panel (tolerances and, for 3D, the mass check in
+    kernels/check.py, _compare_tile);
 26. the tile-parallel TVD-RK3 step with every tile in one process, 100
     steps: SW case 6 at nel=64, s=3, dt=10 s (float64 and float32
     absolute, float32 perturbation) and dcmip31 at 20x20x20, s=3, dt=0.1
@@ -212,8 +221,10 @@ ROOT = Path(__file__).resolve().parent
 SHAPES = [(10, 3), (64, 3), (4, 2), (4, 8), (64, 7)]
 SW_PERT_SHAPES = SHAPES + [(8, 4), (32, 4), (64, 4)]
 KERNEL_SOURCES = ["sw_operator", "euler3d_operator", "sw_run"]
+# (nel_h, nel_v, s, case); at (7, 3, 3) a panel's 147 elements leave the
+# operator's volume pass (9 elements a block at s=3) a partial last block.
 E3_SHAPES = [(3, 2, 2, 31), (12, 3, 2, 31), (4, 2, 3, 31), (20, 20, 3, 31), (4, 4, 4, 31), (3, 2, 5, 31),
-             (2, 2, 6, 31), (4, 2, 3, 77)]
+             (2, 2, 6, 31), (4, 2, 3, 77), (7, 3, 3, 31)]
 E3_MAIN = (20, 20, 3)
 # Tile steps of phase 26: (nel, s, dt) of case 6 and (nel_h, nel_v, s, dt) of dcmip31.
 SW_TILE_MAIN = (64, 3, 10.0)
@@ -315,8 +326,8 @@ def ptxas_summary(log: str):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(sw_operator|sw_run|sw_edges|euler3d_operator|euler3d_tangent_prep|euler3d_tangent_apply|"
-                          r"euler3d_tangent)_kernelI([df])Li(\d+)E"
+            k = re.search(r"(sw_operator|sw_run|sw_edges|euler3d_operator|euler3d_interface|euler3d_volume|"
+                          r"euler3d_tangent_prep|euler3d_tangent_apply|euler3d_tangent)_kernelI([df])Li(\d+)E"
                           r"(Lb([01]))?", m.group(1))
             current = {"kernel": f"{k.group(1)} {'f64' if k.group(2) == 'd' else 'f32'} s={k.group(3)}"
                        + (" pert" if k.group(5) == "1" else "") if k else m.group(1)}
@@ -610,7 +621,14 @@ def phase7(torch):
 
 
 def phase8(torch, smi):
-    from wxfactory_tpu_torch.kernels.check import euler3d_inputs, euler3d_work
+    """Timing at E3_MAIN: the operator kernel's RHS and stage + x + traces
+    (the card's time a call, 20 calls queued behind a sleep kernel, in
+    turns), the plain RHS and the halo glue (CUDA events around single
+    calls, median; the kernel's too, which adds the host's time a call),
+    beside the bound; the registers, spills, shared memory a block and
+    resident blocks an SM of the operator's two kernels (absolute and
+    perturbation mode) and their launch geometry."""
+    from wxfactory_tpu_torch.kernels.check import euler3d_inputs, euler3d_work, operator_kernel_resources
     from wxfactory_tpu_torch.ops import euler3d_operator as e3op
 
     rows = []
@@ -626,14 +644,19 @@ def phase8(torch, smi):
             for _ in range(2):
                 fn()
         torch.cuda.synchronize()
-        k, p = [], []
-        for fn, times in ((plain, p), (kernel, k), (kernel, k), (plain, p)):
-            times.extend(_event_times(torch, fn, n=10))
+        times = {"rhs": [], "stage": []}
+        for key, fn in (("rhs", kernel), ("stage", stage), ("stage", stage), ("rhs", kernel)):
+            times[key].append(_device_ms(torch, fn, 20))
+        p = _event_times(torch, plain, n=10)
         name = str(dtype).replace("torch.", "")
         row = {"nel_h": E3_MAIN[0], "nel_v": E3_MAIN[1], "s": E3_MAIN[2], "dtype": name,
-               "kernel_rhs_ms": statistics.median(k), "plain_rhs_ms": statistics.median(p),
-               "kernel_stage_traces_ms": statistics.median(_event_times(torch, stage)),
-               "halo_glue_ms": statistics.median(_event_times(torch, glue)), "calls_each": len(k)}
+               "kernel_rhs_ms": statistics.median(times["rhs"]), "kernel_rhs_ms_turns": times["rhs"],
+               "kernel_stage_traces_ms": statistics.median(times["stage"]),
+               "kernel_stage_traces_ms_turns": times["stage"], "plain_rhs_ms": statistics.median(p),
+               "kernel_rhs_event_ms": statistics.median(_event_times(torch, kernel, n=10)),
+               "halo_glue_ms": statistics.median(_event_times(torch, glue)),
+               "resources": operator_kernel_resources(dtype, E3_MAIN[2]),
+               "plan": e3op.operator_plan(*E3_MAIN, 6)}
         for mode, kw in (("rhs", {}), ("stage_traces", dict(stage=True, use_x=True, traces=True))):
             nbytes, ops = euler3d_work(con, **kw)
             bound = {"bytes": nbytes / PEAK_BYTES * 1e3, "operations": ops / PEAK_FLOPS[name] * 1e3}
@@ -641,7 +664,9 @@ def phase8(torch, smi):
             row[f"{mode}_bound_ms"] = max(bound.values())
             row[f"{mode}_bound_by"] = max(bound, key=bound.get)
         rows.append(row)
-    emit({"phase": 8, "gpu": smi, "timing": "CUDA events, median per call", "results": rows})
+    emit({"phase": 8, "gpu": smi, "timing": "kernel: the card's time a call (20 calls queued behind a sleep "
+          "kernel, CUDA events), in turns; plain, glue and *_event_ms: CUDA events around single calls, median",
+          "results": rows})
     return rows[0]
 
 

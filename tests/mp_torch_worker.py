@@ -29,6 +29,7 @@ def sharded(port: str, nproc: int, rank: int, out_dir: str) -> int:
         init_distributed,
         load_state_distributed,
         save_state_distributed,
+        shutdown,
     )
 
     init_distributed(f"localhost:{port}", nproc, rank, device="cpu")
@@ -42,7 +43,7 @@ def sharded(port: str, nproc: int, rank: int, out_dir: str) -> int:
         manifest = fh.read(1) == b"{"
     state, text = load_state_distributed(path)
     ok = manifest and np.array_equal(state, full) and "euler" in text
-    torch.distributed.destroy_process_group()
+    shutdown()
     return 0 if ok else 1
 
 

@@ -64,12 +64,9 @@ def main(argv=None) -> int:
             import traceback
 
             traceback.print_exc()
+        distributed.shutdown(clean=False)
         return 1
-    finally:
-        if distributed.world_size() > 1:
-            import torch.distributed as dist
-
-            dist.destroy_process_group()
+    distributed.shutdown()
     return 0
 
 

@@ -1,4 +1,5 @@
-// 3D Euler DFR spatial operator on the cubed sphere, one launch per call.
+// 3D Euler DFR spatial operator on the cubed sphere: an interface pass and
+// a volume pass a call (below).
 //
 // Replaces the TPU kernel wxfactory_tpu/ops/pallas_euler3d.py:2131 (km3_fused,
 // body _km3_body) in its absolute form: the RHS, optionally plus the
@@ -8,11 +9,11 @@
 // models/euler_cubesphere.py:90-291 (_euler3d_rhs_core) computes. The plain
 // torch version of the same function is wxfactory_tpu_torch/ops/
 // euler3d_operator.py::euler3d_operator_plain; the wrapper euler3d_operator
-// there launches this kernel.
+// there launches these kernels.
 //
-// Tile mode (C entry euler3d_tile_launch): the same kernel with a panel count
-// of 1 instead of 6 replaces pallas_euler3d.py::km3_tile, the per-rank kernel
-// of the tile-parallel step (parallel/shard_map_euler3d_fused.py): one nt x nt
+// Tile mode (C entry euler3d_tile_launch): the same kernels with a panel
+// count of 1 instead of 6 replace pallas_euler3d.py::km3_tile, the per-rank
+// kernel of the tile-parallel step (parallel/shard_map_euler3d_fused.py): one nt x nt
 // tile of columns of one panel, all four horizontal edges from the halo, the
 // tile's slices of the metric and of its own panel's time Christoffels, the
 // absolute and perturbation modes, stage combination and all four sides'
@@ -40,38 +41,49 @@
 //   itf_y           (4, nk, nh+1, nh, s^2) [sqrt(g), h^{2k}] at y interfaces
 //   itf_z           (4, nk+1, nh, nh, s^2) [sqrt(g), h^{3k}] at z interfaces
 //
-// Design: one thread per solution point, EB = 256 / s^3 elements per block
-// (s=6: one element of 216 threads); a block's elements share (ez, ey, ex)
-// ranges with the five blocks next to it (the panel is the fastest block
-// index), so the one-panel metric is read from device memory about once and
-// from L2 by the other five panels. The 3D operators are never formed: the
-// 1D operators act along one axis at a time, so shared memory holds the
-// element's state, logs, fluxes and face data (24 s^3 + 42 s^2 numbers an
-// element) and O(s^2) operator entries. Each element computes the Rusanov
-// flux at its own six faces from (own trace, neighbour trace) with qL/qR in
-// a fixed order (west/south/down side left); the neighbour's trace is
-// re-extrapolated (log space for rho and rho*theta) from its state in device
-// memory with the same fma sequence the neighbour uses for its own trace,
-// and both go through one call site of the flux, so both sides of an
-// interior interface get bit-identical fluxes (mass is conserved to
-// round-off). Panel-edge west/south faces take qL from the halo, east/north
-// take qR; the ground and the lid mirror the element's own trace with w odd.
+// Design: two kernels a call, on the caller's stream. The interface pass
+// (euler3d_interface_kernel) takes one thread per interface point of the
+// grid, so each interface is computed once: both sides' traces (log space
+// for rho and rho*theta) re-extrapolated from the elements' states in
+// device memory in one fma sequence (nb_trace), or the halo at a panel (tile)
+// edge, or the mirror with w odd at the ground and the lid; the Rusanov flux
+// with (L, R) in the fixed west/south/lower order through one call site;
+// its rows (the four fluxes and the w advection, and each side's w
+// pressure / p and log p; ItfRows) into device memory (ItfLayout). The
+// volume pass (euler3d_volume_kernel) takes one thread per solution point,
+// EB = 256 / s^3 elements per block, the panel the fastest block index (the
+// one-panel metric is read from device memory about once and from L2 by the
+// other five panels): the pointwise fluxes, the divergence (the 1D
+// operators along one axis at a time; the 3D operators are never formed),
+// the boundary corrections from the rows of the element's six faces, the w
+// pressure split, gravity and forcing, the stage combination, the output
+// and its panel-edge traces. Both elements of an interface read the one set
+// of rows, so both sides get bit-identical fluxes (mass is conserved to
+// round-off). The rows live between the two launches in memory from a pool
+// of the library's own (rows_alloc): the C entries take no scratch buffer.
 //
-// What bounds it (H100 SXM, float64, nel_h = nel_v = 20, s = 3, 48,000
-// elements, 1,296,000 points): each call must read q (51.8 MB), the one-panel
-// metric (28 fields, 48.4 MB; 9 more full-size fields on a rotating planet),
-// the interface metric (~7 MB), x in stage mode (51.8 MB) and write out
-// (51.8 MB): ~155-210 MB, 46-63 us at 3.35 TB/s. Its arithmetic is ~500
-// operations a point (counting a log, exp, sqrt or divide as one), ~0.65
-// GFLOP, ~19 us at the 34 TFLOP/s f64 vector peak: memory-bound in
-// principle. The design spends operations to save bytes (neighbour traces
-// re-extrapolated from the state, about 12 extra logs a point, instead of
-// a pass that writes traces to device memory and a second launch), and
-// keeps all intermediates in shared memory. Its known costs are the
-// neighbour-state reads (30 s^3 loads an element, mostly L1/L2 hits), f64
-// log/exp throughput, and low occupancy (53-92 KB of shared memory a block
-// in f64).
-//
+// What bounds it (NVIDIA H100 80GB HBM3, 700.00 W power limit; float64,
+// nel_h = nel_v = 20, s = 3, 48,000 elements, 1,296,000 points): each call
+// must read q (51.8 MB), the one-panel metric (28 fields, 48.4 MB; 9 more
+// full-size fields on a rotating planet), the interface metric (~7 MB), x
+// in stage mode (51.8 MB) and write out (51.8 MB): ~155-210 MB, 46-63 us at
+// 3.35 TB/s; its ~0.65 GFLOP take ~19 us at the 34 TFLOP/s f64 vector
+// peak. The one-kernel operator this replaced (each element its six faces,
+// the neighbour's trace re-extrapolated at every face, so each interface
+// twice) took 0.323 ms for the RHS: its face loop 52-61 % of that, its
+// neighbour re-extrapolation 24-28 %, at 2 blocks (486 threads) an SM in
+// f64 and 1 in f64 PERT, set by its registers (tools/operator_ablation.py).
+// Here (tools/operator_ablation.py, in turns with that kernel) the f64 RHS
+// takes 0.292-0.293 ms against its 0.321-0.323, the f32 PERT stage + x +
+// traces 0.293 against 0.407: the volume pass about what the replaced
+// kernel took without its face loop (0.142 ms), the interface pass the
+// rest (~0.150), latency-bound on its 30 scattered loads an interface point
+// (0.209 with the halo read in their place), beside 98 MB of interface rows
+// written and read (f64; ~0.06 ms of bandwidth). Staging strips of
+// elements in shared memory for the interface pass (each node's logs once)
+// and one patch kernel that marched up a column computing each interface
+// once per block were both measured slower.
+
 // Tangent prep and apply (euler3d_tangent_prep_kernel and
 // euler3d_tangent_apply_kernel, C entries euler3d_tangent_prep_launch and
 // euler3d_tangent_apply_launch): the Jacobian action J(q).v of the RHS
@@ -130,9 +142,9 @@
 // ~0.16 ms and the out-of-block neighbours' reads ~0.07. More blocks an SM
 // spill (3 blocks in f64: 0.51 ms), loading the 22 coefficients up front
 // spills (0.62 ms), and staging them into shared memory with word-granular
-// cp.async costs more than the loads it replaces (0.71 ms). Each interface
-// computed once per block (the operator kernel's next redesign) is what
-// would move it toward its floor.
+// cp.async costs more than the loads it replaces (0.71 ms). Reading each
+// interface's coefficients once (as the operator's interface pass
+// computes each interface once) is what would move it toward its floor.
 //
 // Perturbation mode (template flag PERT of the operator and prep kernels; C entries with
 // q0 != NULL): km3_fused's pert= mode (pallas_euler3d.py:2131 with pert=,
@@ -158,9 +170,9 @@
 // pallas_euler3d.py:1568-1645, emit W/E only; no bal); the tangent prep
 // forms the linearisation at q0 + dq (above). It keeps the real
 // log1p/expm1 (the JAX package writes them as compensated formulas because
-// Mosaic lacks them). Shared memory grows by q0, its logs and its log p:
-// 32 s^3 + 54 s^2 numbers an element in RHS mode; the delta traces read q0
-// from there, so the stage mode needs no more.
+// Mosaic lacks them). The volume pass's shared memory grows by q0 and log
+// p0 (6 s^3 numbers an element), an interface point by two rows a side
+// (log p0 and w pressure0 / p0); the delta traces read q0 from there.
 
 #include <cuda_runtime.h>
 
@@ -380,57 +392,298 @@ __device__ __forceinline__ void face_metric(const T* itf_x, const T* itf_y, cons
   h2 = itf[3 * istride + iidx];
 }
 
-// Shared memory (in T): ops1d, then per element [q (5 s^3) | log rho, log
-// rho*theta (2 s^3) | log p (s^3) | sqrt(g)*rho (s^3) | fluxes (3 directions
-// x 5 components x s^3: rho, rho*u1, rho*u2, rho*theta, w advection) | face
-// data (7 x 6 s^2: the four fluxes, w advection, w pressure / p, log p)].
-// In perturbation mode q, the logs, log p, sqrt(g)*rho, the fluxes and the
-// face data are the perturbation's (log1p(dq/q0) rows, log1p(dp/p0)), and
-// the element adds q0 (5 s^3) and log q0 (2 s^3) after the logs, log p0
-// (s^3) after log p, and two face rows (log p0 and the base w pressure / p0:
-// 9 x 6 s^2). Every region starts on a 16-byte boundary.
-template <typename T, int S, bool PERT = false>
+// The 1D operators' layout in shared memory (in T), shared by the kernels
+// of this file, and the elements a block of the tangent kernels takes (EB =
+// 256 / s^3, one thread a node). Every region starts on a 16-byte boundary.
+template <typename T, int S>
 struct Shape {
   static constexpr int S2 = S * S;
   static constexpr int S3 = S * S * S;
   static constexpr int NF = 6 * S2;
   static constexpr int A = 16 / sizeof(T);
   static constexpr int pad(int n) { return (n + A - 1) / A * A; }
-  // ops1d segments at 16-byte boundaries: the kernel selects between the
+  // ops1d segments at 16-byte boundaries: the kernels select between the
   // en and ep pointers at run time, and nvcc then loads pairs of
   // coefficients as one 16-byte vector from either pointer.
   static constexpr int PS = pad(S), PS2 = pad(S2);
   static constexpr int N_OPS = 4 * PS + 2 * PS2;
-  static constexpr int OFF_LOG = pad(5 * S3);
-  static constexpr int OFF_Q0 = OFF_LOG + pad(2 * S3);
-  static constexpr int OFF_LOG0 = OFF_Q0 + (PERT ? pad(5 * S3) : 0);
-  static constexpr int OFF_LP = OFF_LOG0 + (PERT ? pad(2 * S3) : 0);
-  static constexpr int OFF_LP0 = OFF_LP + pad(S3);
-  static constexpr int OFF_SG = OFF_LP0 + (PERT ? pad(S3) : 0);
-  static constexpr int OFF_F = OFF_SG + pad(S3);
-  static constexpr int OFF_FACE = OFF_F + pad(15 * S3);
-  static constexpr int PER_ELEM = OFF_FACE + pad((PERT ? 9 : 7) * NF);
   static constexpr int EB = kThreads / S3 > 0 ? kThreads / S3 : 1;
 };
 
+// ops1d into shared memory, each segment on a 16-byte boundary.
+template <typename T, int S>
+__device__ __forceinline__ void load_ops(const T* ops, T* smem) {
+  using Sh = Shape<T, S>;
+  for (int i = threadIdx.x; i < 4 * S + 2 * Sh::S2; i += blockDim.x) {
+    const int dst = i < 4 * S ? (i / S) * Sh::PS + i % S
+                              : 4 * Sh::PS + ((i - 4 * S) / Sh::S2) * Sh::PS2 + (i - 4 * S) % Sh::S2;
+    smem[dst] = ops[i];
+  }
+}
+
+// The interface rows of one interface point, kept in device memory between
+// the two kernels of a call: the four fluxes and the w advection (or their
+// deltas), which both sides read, then each side's own (L: the
+// west/south/lower element, R: the other): w pressure / p and log p, in
+// PERT mode d[w pressure / p], d log p, log p0 and w pressure0 / p0.
+template <bool PERT>
+struct ItfRows {
+  static constexpr int SIDE = PERT ? 4 : 2;
+  static constexpr int N = 5 + 2 * SIDE;
+};
+
+// Where the rows live: three families in the interface metric's order with
+// the panel in front, x (npanel, nk, nh, nh+1, s^2), y (npanel, nk, nh+1, nh,
+// s^2) and z (npanel, nk+1, nh, nh, s^2), each family row-major (row r of
+// point i of family d at base(d) + r * count(d) + i).
+struct ItfLayout {
+  long long nx, nz;  // points of the x (and y) family and of the z family
+  __host__ __device__ ItfLayout(int npanel, int nh, int nk, int s) {
+    nx = (long long)npanel * nk * nh * (nh + 1) * s * s;
+    nz = (long long)npanel * (nk + 1) * nh * nh * s * s;
+  }
+  __host__ __device__ long long points() const { return 2 * nx + nz; }
+  __device__ __forceinline__ long long count(int d) const { return d == 2 ? nz : nx; }
+  __device__ __forceinline__ long long base(int d, int rows) const { return d * rows * nx; }
+};
+
+// Where one side of an interface point takes its trace from: the element's
+// state in device memory (re-extrapolated in nb_trace's fma order, the
+// order every trace of this file is formed in), the halo (a panel or tile
+// edge), or the other side (the ground and the lid, w odd).
+enum TraceSource { kDevice, kHalo, kMirror };
+
+// The trace of one side at face point k of a face normal to d, through the
+// extrapolation coefficients coef: tr, and in PERT mode the base trace tr0
+// and the perturbation's tr. elem: the side's element (kDevice), h: its
+// halo entry (kHalo).
 template <typename T, int S, bool PERT>
-__global__ void __launch_bounds__(kThreads) euler3d_operator_kernel(
-    const T* __restrict__ q, const T* __restrict__ halo, const T* __restrict__ ops,
-    const T* __restrict__ fields, const T* __restrict__ tch, const T* __restrict__ itf_x,
-    const T* __restrict__ itf_y, const T* __restrict__ itf_z, const T* __restrict__ x,
-    const T* __restrict__ bal, const T* __restrict__ q0, const T* __restrict__ halo0,
-    const T* __restrict__ rhs0, const T* __restrict__ traces0, T* __restrict__ out, T* __restrict__ traces,
-    int nh, int nk, int npanel, T a, T b, T cdt, int stage) {
-  using Sh = Shape<T, S, PERT>;
-  constexpr int S2 = Sh::S2, S3 = Sh::S3, NF = Sh::NF;
+__device__ __forceinline__ void side_trace(TraceSource src, const T* q, const T* q0, const T* halo, const T* halo0,
+                                           long long nq, long long elem, long long h, long long hv, int d, int k,
+                                           const T* coef, T* tr0, T* tr) {
+  int base, stride;
+  face_line<S>(d, k, base, stride);
+  if (src == kDevice) {
+    if constexpr (PERT) {
+      nb_trace<T, S>(q0, nq, elem, base, stride, coef, tr0);
+      nb_delta_trace<T, S>(q, q0, nq, elem, base, stride, coef, tr0, tr);
+    } else {
+      nb_trace<T, S>(q, nq, elem, base, stride, coef, tr);
+    }
+  } else {
+#pragma unroll
+    for (int v = 0; v < 5; ++v) {
+      tr[v] = halo[v * hv + h];
+      if constexpr (PERT) tr0[v] = halo0[v * hv + h];
+    }
+  }
+}
+
+constexpr int kItfThreads = 128;
+
+// Resident blocks an SM the two kernels are compiled for: registers a thread
+// at most 64 K / (threads a block x this).
+template <typename T, bool PERT>
+struct ItfBlocks {
+  static constexpr int value = sizeof(T) == 8 ? (PERT ? 4 : 6) : (PERT ? 4 : 6);
+};
+template <typename T, bool PERT>
+struct VolBlocks {
+  static constexpr int value = sizeof(T) == 8 ? (PERT ? 2 : 2) : (PERT ? 4 : 4);
+};
+
+// The interface pass: one thread per interface point of the whole grid (of
+// the sphere or the tile), each computed once. Both sides' traces from the
+// elements' states in device memory, from the halo or mirrored; the
+// Rusanov flux with (L, R) in the fixed west/south/lower order through one
+// call site of rusanov / rusanov_delta; its rows into `rows`, each side's
+// own rows only for a side that is an element of this grid.
+template <typename T, int S, bool PERT>
+__global__ void __launch_bounds__(kItfThreads, ItfBlocks<T, PERT>::value) euler3d_interface_kernel(
+    const T* __restrict__ q, const T* __restrict__ halo, const T* __restrict__ ops, const T* __restrict__ itf_x,
+    const T* __restrict__ itf_y, const T* __restrict__ itf_z, const T* __restrict__ q0,
+    const T* __restrict__ halo0, T* __restrict__ rows, int nh, int nk, int npanel) {
+  using Ops = Shape<T, S>;
+  constexpr int S2 = S * S, NR = ItfRows<PERT>::N, SR = ItfRows<PERT>::SIDE;
+  __shared__ __align__(16) T sOps[2 * Ops::PS];  // en | ep, each on a 16-byte boundary
+  if (threadIdx.x < 2 * S) sOps[(threadIdx.x / S) * Ops::PS + threadIdx.x % S] = ops[threadIdx.x];
+  __syncthreads();
+  const ItfLayout lay(npanel, nh, nk, S);
+  long long i = blockIdx.x * (long long)kItfThreads + threadIdx.x;
+  int d = 0;
+  if (i >= lay.nx) {
+    i -= lay.nx;
+    d = 1;
+    if (i >= lay.nx) {
+      i -= lay.nx;
+      d = 2;
+      if (i >= lay.nz) return;
+    }
+  }
+  const int per_panel = nk * nh * nh;
+  const long long nq = (long long)npanel * per_panel * S * S2;  // stride between variables
+  const long long hv = 4LL * npanel * nk * nh * S2;             // stride between halo variables
+  const int k = (int)(i % S2);
+  unsigned t = (unsigned)(i / S2);  // the interface in its family (32-bit: its divisions are cheaper)
+  const unsigned uh = nh, uk = nk;
+  int p, kz, gy, gx;  // the panel, the level (z: the interface gz), and the interface's row and column
+  TraceSource sl = kDevice, sr = kDevice;
+  long long el = 0, er = 0, hl = 0, hr = 0;
+  if (d == 0) {  // between elements gx-1 (L) and gx (R) of row gy
+    gx = (int)(t % (uh + 1));
+    t /= uh + 1;
+    gy = (int)(t % uh);
+    t /= uh;
+    kz = (int)(t % uk);
+    p = (int)(t / uk);
+    if (gx == 0) sl = kHalo;
+    if (gx == nh) sr = kHalo;
+    hl = ((((long long)2 * npanel + p) * nk + kz) * nh + gy) * S2 + k;  // W side
+    hr = ((((long long)3 * npanel + p) * nk + kz) * nh + gy) * S2 + k;  // E side
+    el = (long long)p * per_panel + (kz * nh + gy) * nh + gx - 1;
+    er = el + 1;
+  } else if (d == 1) {  // between elements gy-1 (L) and gy (R) of column gx
+    gx = (int)(t % uh);
+    t /= uh;
+    gy = (int)(t % (uh + 1));
+    t /= uh + 1;
+    kz = (int)(t % uk);
+    p = (int)(t / uk);
+    if (gy == 0) sl = kHalo;
+    if (gy == nh) sr = kHalo;
+    hl = ((((long long)0 * npanel + p) * nk + kz) * nh + gx) * S2 + k;  // S side
+    hr = ((((long long)1 * npanel + p) * nk + kz) * nh + gx) * S2 + k;  // N side
+    el = (long long)p * per_panel + (kz * nh + gy - 1) * nh + gx;
+    er = el + nh;
+  } else {  // between levels kz-1 (L) and kz (R) of column (gy, gx)
+    gx = (int)(t % uh);
+    t /= uh;
+    gy = (int)(t % uh);
+    t /= uh;
+    kz = (int)(t % (uk + 1));
+    p = (int)(t / (uk + 1));
+    if (kz == 0) sl = kMirror;
+    if (kz == nk) sr = kMirror;
+    el = (long long)p * per_panel + ((kz - 1) * nh + gy) * nh + gx;
+    er = el + nh * nh;
+  }
+  T L0[5], R0[5], L[5], R[5];  // base traces (PERT) and the traces (PERT: their perturbations)
+  if (sl != kMirror) side_trace<T, S, PERT>(sl, q, q0, halo, halo0, nq, el, hl, hv, d, k, sOps + Ops::PS, L0, L);
+  if (sr != kMirror) side_trace<T, S, PERT>(sr, q, q0, halo, halo0, nq, er, hr, hv, d, k, sOps, R0, R);
+#pragma unroll
+  for (int v = 0; v < 5; ++v) {  // ground / rigid lid: mirror
+    if (sl == kMirror) {
+      L[v] = R[v];
+      if constexpr (PERT) L0[v] = R0[v];
+    }
+    if (sr == kMirror) {
+      R[v] = L[v];
+      if constexpr (PERT) R0[v] = L0[v];
+    }
+  }
+  T sg, h0, h1, h2;
+  face_metric<T, S>(itf_x, itf_y, itf_z, d, false, k, nh, nk, kz, gy, gx, sg, h0, h1, h2);
+  const T hd = d == 0 ? h0 : (d == 1 ? h1 : h2);
+  T* row = rows + lay.base(d, NR) + i;
+  const long long rs = lay.count(d);  // stride between rows
+  T* side_l = row + 5 * rs;
+  T* side_r = row + (5 + SR) * rs;
+  if constexpr (!PERT) {
+    T vL = L[1 + d] / L[0];
+    T vR = R[1 + d] / R[0];
+    if (sl == kMirror) vL = -vL;  // w is odd across the ground and the lid
+    if (sr == kMirror) vR = -vR;
+    T f[4], wadv, wpres, pL, pR;
+    rusanov(L, R, vL, vR, sg, h0, h1, h2, hd, f, wadv, wpres, pL, pR);
+    row[0] = f[0];
+    row[rs] = f[1];
+    row[2 * rs] = f[2];
+    row[3 * rs] = f[3];
+    row[4 * rs] = wadv;
+    if (sl == kDevice) {
+      side_l[0] = wpres / pL;
+      side_l[rs] = tlog(pL);
+    }
+    if (sr == kDevice) {
+      side_r[0] = wpres / pR;
+      side_r[rs] = tlog(pR);
+    }
+  } else {
+    T v0L = L0[1 + d] / L0[0], v0R = R0[1 + d] / R0[0];
+    T vaL = (L0[1 + d] + L[1 + d]) / (L0[0] + L[0]), vaR = (R0[1 + d] + R[1 + d]) / (R0[0] + R[0]);
+    if (sl == kMirror) {  // w is odd across the ground and the lid
+      v0L = -v0L;
+      vaL = -vaL;
+    }
+    if (sr == kMirror) {
+      v0R = -v0R;
+      vaR = -vaR;
+    }
+    T df[4], dwadv, wpres0, dwpres, pL0, pR0, dpL, dpR;
+    rusanov_delta(L0, R0, L, R, v0L, v0R, vaL, vaR, sg, h0, h1, h2, hd, df, dwadv, wpres0, dwpres, pL0, pR0, dpL,
+                  dpR);
+    row[0] = df[0];
+    row[rs] = df[1];
+    row[2 * rs] = df[2];
+    row[3 * rs] = df[3];
+    row[4 * rs] = dwadv;
+    // A side's d[wpres / p], d[log p], log p0 and wpres0 / p0.
+    auto side_rows = [&](T* out, T p0_own, T dp_own) {
+      const T pa = p0_own + dp_own;
+      const T wp0 = wpres0 / p0_own;
+      out[0] = dwpres / pa - wp0 * (dp_own / pa);
+      out[rs] = tlog1p(dp_own / p0_own);
+      out[2 * rs] = tlog(p0_own);
+      out[3 * rs] = wp0;
+    };
+    if (sl == kDevice) side_rows(side_l, pL0, dpL);
+    if (sr == kDevice) side_rows(side_r, pR0, dpR);
+  }
+}
+
+// Shared memory of the volume kernel (in T): ops1d, then per element [q (5
+// s^3; the output once the divergence is formed) | log p (s^3) | sqrt(g)*rho
+// (s^3) | fluxes (3 directions x 5 components x s^3: rho, rho*u1, rho*u2,
+// rho*theta, w advection)], in perturbation mode (q, log p, sqrt(g)*rho and
+// the fluxes then the perturbation's) also [q0 (5 s^3) | log p0 (s^3)].
+// Every region starts on a 16-byte boundary.
+template <typename T, int S, bool PERT>
+struct VolShape {
+  using Sh = Shape<T, S>;
+  static constexpr int S2 = Sh::S2, S3 = Sh::S3, EB = Sh::EB;
+  static constexpr int OFF_LP = Sh::pad(5 * S3);
+  static constexpr int OFF_SG = OFF_LP + Sh::pad(S3);
+  static constexpr int OFF_F = OFF_SG + Sh::pad(S3);
+  static constexpr int OFF_Q0 = OFF_F + Sh::pad(15 * S3);
+  static constexpr int OFF_LP0 = OFF_Q0 + (PERT ? Sh::pad(5 * S3) : 0);
+  static constexpr int PER_ELEM = OFF_LP0 + (PERT ? Sh::pad(S3) : 0);
+  static constexpr int SIZE = Sh::N_OPS + EB * PER_ELEM;
+};
+
+// The volume pass: one thread per solution point, EB = 256 / s^3 elements
+// per block (the panel the fastest block index, so the one-panel metric is
+// read from device memory about once and from L2 by the other five
+// panels): the pointwise fluxes, the divergence, the boundary corrections
+// from the interface rows of the element's six faces, the w pressure split,
+// gravity and forcing, the stage combination, the output and its panel-edge
+// traces.
+template <typename T, int S, bool PERT>
+__global__ void __launch_bounds__(kThreads, VolBlocks<T, PERT>::value) euler3d_volume_kernel(
+    const T* __restrict__ q, const T* __restrict__ ops, const T* __restrict__ fields, const T* __restrict__ tch,
+    const T* __restrict__ x, const T* __restrict__ bal, const T* __restrict__ q0, const T* __restrict__ rhs0,
+    const T* __restrict__ traces0, const T* __restrict__ rows, T* __restrict__ out, T* __restrict__ traces, int nh,
+    int nk, int npanel, T a, T b, T cdt, int stage) {
+  using Sh = VolShape<T, S, PERT>;
+  using Ops = Shape<T, S>;
+  constexpr int S2 = Sh::S2, S3 = Sh::S3, NR = ItfRows<PERT>::N, SR = ItfRows<PERT>::SIDE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   const T* sEn = smem;
-  const T* sEp = smem + Sh::PS;
-  const T* sCn = smem + 2 * Sh::PS;
-  const T* sCp = smem + 3 * Sh::PS;
-  const T* sD = smem + 4 * Sh::PS;
-  const T* sHF = sD + Sh::PS2;
+  const T* sEp = smem + Ops::PS;
+  const T* sCn = smem + 2 * Ops::PS;
+  const T* sCp = smem + 3 * Ops::PS;
+  const T* sD = smem + 4 * Ops::PS;
+  const T* sHF = sD + Ops::PS2;
   const T gam = T(kGamma);
 
   const int tid = threadIdx.x;
@@ -444,32 +697,27 @@ __global__ void __launch_bounds__(kThreads) euler3d_operator_kernel(
   const long long nq = (long long)npanel * per_panel * S3;  // stride between variables
   const long long fstride = (long long)per_panel * S3;      // stride between metric fields
 
-  T* sQ = smem + Sh::N_OPS + e_loc * Sh::PER_ELEM;
-  T* sLog = sQ + Sh::OFF_LOG;
-  T* sQ0 = sQ + Sh::OFF_Q0;
-  T* sLog0 = sQ + Sh::OFF_LOG0;
+  T* sQ = smem + Ops::N_OPS + e_loc * Sh::PER_ELEM;
   T* sLp = sQ + Sh::OFF_LP;
-  T* sLp0 = sQ + Sh::OFF_LP0;
   T* sSg = sQ + Sh::OFF_SG;
   T* sF = sQ + Sh::OFF_F;
-  T* sFace = sQ + Sh::OFF_FACE;
-
-  for (int i = tid; i < 4 * S + 2 * S2; i += blockDim.x) {
-    const int dst = i < 4 * S ? (i / S) * Sh::PS + i % S
-                              : 4 * Sh::PS + ((i - 4 * S) / S2) * Sh::PS2 + (i - 4 * S) % S2;
-    smem[dst] = ops[i];
-  }
+  T* sQ0 = sQ + Sh::OFF_Q0;
+  T* sLp0 = sQ + Sh::OFF_LP0;
+  load_ops<T, S>(ops, smem);
 
   int kz = 0, ey = 0, ex = 0;
-  // qv: the state (the perturbation in PERT mode), q0v: the base; pres the
-  // absolute pressure, p0v and dpv its base and perturbation (PERT).
-  T qv[5], q0v[5], pres = T(0), p0v = T(0), dpv = T(0), sqrtg = T(0), hm[6];
+  // pres: the absolute pressure, p0v and dpv its base and perturbation
+  // (PERT); the state and the metric are read again after the barrier
+  // (from shared memory and L1) instead of held across it in registers.
+  T pres = T(0), p0v = T(0), dpv = T(0);
   const T* fld = fields + (long long)(valid ? pe : 0) * S3 + j;
   if (valid) {
     kz = pe / (nh * nh);
     const int r = pe - kz * nh * nh;
     ey = r / nh;
     ex = r - ey * nh;
+    // qv: the state (the perturbation in PERT mode), q0v: the base.
+    T qv[5], q0v[5], hm[6];
 #pragma unroll
     for (int v = 0; v < 5; ++v) {
       qv[v] = q[v * nq + elem * S3 + j];
@@ -479,17 +727,15 @@ __global__ void __launch_bounds__(kThreads) euler3d_operator_kernel(
         sQ0[v * S3 + j] = q0v[v];
       }
     }
-    sqrtg = fld[F_SQRTG * fstride];
+    const T sqrtg = fld[F_SQRTG * fstride];
 #pragma unroll
     for (int i = 0; i < 6; ++i) hm[i] = fld[(F_H + i) * fstride];
     // h^{dk} for direction d: rows (00 01 02), (01 11 12), (02 12 22)
     const T hrow[3][3] = {{hm[0], hm[1], hm[2]}, {hm[1], hm[3], hm[4]}, {hm[2], hm[4], hm[5]}};
     if constexpr (!PERT) {
-      // --- Pointwise: logs, pressure, sqrt(g)-weighted fluxes.
+      // --- Pointwise: pressure, log p, sqrt(g)-weighted fluxes.
       const T rho = qv[0];
       const T u[3] = {qv[1] / rho, qv[2] / rho, qv[3] / rho};
-      sLog[j] = tlog(rho);
-      sLog[S3 + j] = tlog(qv[4]);
       pres = pressure(qv[4]);
       sLp[j] = tlog(pres);
       sSg[j] = sqrtg * rho;
@@ -515,10 +761,6 @@ __global__ void __launch_bounds__(kThreads) euler3d_operator_kernel(
       const T du[3] = {(qv[1] - u0[0] * qv[0]) / rho, (qv[2] - u0[1] * qv[0]) / rho,
                        (qv[3] - u0[2] * qv[0]) / rho};
       const T dlt = tlog1p(qv[4] / q0v[4]);
-      sLog[j] = tlog1p(qv[0] / rho0);
-      sLog[S3 + j] = dlt;
-      sLog0[j] = tlog(rho0);
-      sLog0[S3 + j] = tlog(q0v[4]);
       p0v = pressure(q0v[4]);
       dpv = p0v * texpm1(gam * dlt);
       pres = p0v + dpv;
@@ -539,121 +781,6 @@ __global__ void __launch_bounds__(kThreads) euler3d_operator_kernel(
   }
   __syncthreads();
 
-  // --- Interface fluxes at this element's six faces (W, E, S, N, D, U).
-  if (valid) {
-#pragma unroll 1
-    for (int fi = j; fi < NF; fi += S3) {
-      const int face = fi / S2;
-      const int k = fi - face * S2;
-      const int d = face >> 1;
-      const bool pos = face & 1;
-      int base, stride;
-      face_line<S>(d, k, base, stride);
-      bool boundary;
-      int hside, along;
-      long long nb_elem;
-      face_neighbour(face, nh, nk, kz, ey, ex, elem, boundary, hside, along, nb_elem);
-      const long long h = ((((long long)(hside)*npanel + p) * nk + kz) * nh + along) * S2 + k;
-      const long long hv = 4LL * npanel * nk * nh * S2;  // stride between halo variables
-      const T* coef = pos ? sEp : sEn;
-      const T* ncoef = pos ? sEn : sEp;  // the neighbour's facing face: its positive face when ours is negative
-      T sg, h0, h1, h2;
-      face_metric<T, S>(itf_x, itf_y, itf_z, d, pos, k, nh, nk, kz, ey, ex, sg, h0, h1, h2);
-      const T hd = d == 0 ? h0 : (d == 1 ? h1 : h2);
-      T* fc = sFace + fi;
-      if constexpr (!PERT) {
-        T own[5], nb[5];
-        own_trace<T, S>(sQ, sLog, base, stride, coef, own);
-        if (!boundary) {
-          nb_trace<T, S>(q, nq, nb_elem, base, stride, ncoef, nb);
-        } else if (d < 2) {
-#pragma unroll
-          for (int v = 0; v < 5; ++v) nb[v] = halo[v * hv + h];
-        } else {
-#pragma unroll
-          for (int v = 0; v < 5; ++v) nb[v] = own[v];  // ground / rigid lid: mirror
-        }
-        T L[5], R[5];
-#pragma unroll
-        for (int v = 0; v < 5; ++v) {
-          L[v] = pos ? own[v] : nb[v];
-          R[v] = pos ? nb[v] : own[v];
-        }
-        T vL = L[1 + d] / L[0];
-        T vR = R[1 + d] / R[0];
-        if (boundary && d == 2) {  // w is odd across the ground and the lid
-          if (pos) vR = -vR; else vL = -vL;
-        }
-        T f[4], wadv, wpres, pL, pR;
-        rusanov(L, R, vL, vR, sg, h0, h1, h2, hd, f, wadv, wpres, pL, pR);
-        const T p_own = pos ? pL : pR;
-        fc[0] = f[0];
-        fc[NF] = f[1];
-        fc[2 * NF] = f[2];
-        fc[3 * NF] = f[3];
-        fc[4 * NF] = wadv;
-        fc[5 * NF] = wpres / p_own;
-        fc[6 * NF] = tlog(p_own);
-      } else {
-        T own0[5], own[5], nb0[5], nb[5];
-        own_trace<T, S>(sQ0, sLog0, base, stride, coef, own0);
-        own_delta_trace<T, S>(sQ, sLog, base, stride, coef, own0, own);
-        if (!boundary) {
-          nb_trace<T, S>(q0, nq, nb_elem, base, stride, ncoef, nb0);
-          nb_delta_trace<T, S>(q, q0, nq, nb_elem, base, stride, ncoef, nb0, nb);
-        } else if (d < 2) {
-#pragma unroll
-          for (int v = 0; v < 5; ++v) {
-            nb0[v] = halo0[v * hv + h];
-            nb[v] = halo[v * hv + h];
-          }
-        } else {
-#pragma unroll
-          for (int v = 0; v < 5; ++v) {  // ground / rigid lid: mirror
-            nb0[v] = own0[v];
-            nb[v] = own[v];
-          }
-        }
-        T L0[5], R0[5], dL[5], dR[5];
-#pragma unroll
-        for (int v = 0; v < 5; ++v) {
-          L0[v] = pos ? own0[v] : nb0[v];
-          R0[v] = pos ? nb0[v] : own0[v];
-          dL[v] = pos ? own[v] : nb[v];
-          dR[v] = pos ? nb[v] : own[v];
-        }
-        T v0L = L0[1 + d] / L0[0], v0R = R0[1 + d] / R0[0];
-        T vaL = (L0[1 + d] + dL[1 + d]) / (L0[0] + dL[0]), vaR = (R0[1 + d] + dR[1 + d]) / (R0[0] + dR[0]);
-        if (boundary && d == 2) {  // w is odd across the ground and the lid
-          if (pos) {
-            v0R = -v0R;
-            vaR = -vaR;
-          } else {
-            v0L = -v0L;
-            vaL = -vaL;
-          }
-        }
-        T df[4], dwadv, wpres0, dwpres, pL0, pR0, dpL, dpR;
-        rusanov_delta(L0, R0, dL, dR, v0L, v0R, vaL, vaR, sg, h0, h1, h2, hd, df, dwadv, wpres0, dwpres, pL0,
-                      pR0, dpL, dpR);
-        const T p0_own = pos ? pL0 : pR0;
-        const T dp_own = pos ? dpL : dpR;
-        const T pa = p0_own + dp_own;
-        const T wp0 = wpres0 / p0_own;
-        fc[0] = df[0];
-        fc[NF] = df[1];
-        fc[2 * NF] = df[2];
-        fc[3 * NF] = df[3];
-        fc[4 * NF] = dwadv;
-        fc[5 * NF] = dwpres / pa - wp0 * (dp_own / pa);  // d[wpres / p]
-        fc[6 * NF] = tlog1p(dp_own / p0_own);           // d[log p]
-        fc[7 * NF] = tlog(p0_own);
-        fc[8 * NF] = wp0;
-      }
-    }
-  }
-  __syncthreads();
-
   // --- Divergence + corrections, w pressure split, forcing, stage.
   if (valid) {
     const int jx = j % S, jy = (j / S) % S, jz = j / S2;
@@ -662,6 +789,15 @@ __global__ void __launch_bounds__(kThreads) euler3d_operator_kernel(
     const T* Dx = sD + jx * S;
     const T* Dy = sD + jy * S;
     const T* Dz = sD + jz * S;
+    T qv[5], q0v[5], hm[6];
+#pragma unroll
+    for (int v = 0; v < 5; ++v) {
+      qv[v] = sQ[v * S3 + j];
+      if constexpr (PERT) q0v[v] = sQ0[v * S3 + j];
+    }
+    const T sqrtg = fld[F_SQRTG * fstride];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) hm[i] = fld[(F_H + i) * fstride];
 
     T div[5];
 #pragma unroll
@@ -678,20 +814,38 @@ __global__ void __launch_bounds__(kThreads) euler3d_operator_kernel(
       for (int i = 0; i < S; ++i) acc = fmadd(Dz[i], fz[lz + i * S2], acc);
       div[c] = acc;
     }
+    // This node's six interface points (W, E, S, N, D, U) in the interface
+    // rows, and its side of each: R at W, S, D; L at E, N, U.
+    const ItfLayout lay(npanel, nh, nk, S);
+    const T* rx = rows;
+    const T* ry = rows + lay.base(1, NR);
+    const T* rz = rows + lay.base(2, NR);
+    const long long nx = lay.nx, nz = lay.nz;
+    // The points' indices in their families (32-bit: a family holds fewer
+    // than 2^31 points at any grid that fits the card).
+    const int iw = (((p * nk + kz) * nh + ey) * (nh + 1) + ex) * S2 + kxf, ie = iw + S2;
+    const int is = (((p * nk + kz) * (nh + 1) + ey) * nh + ex) * S2 + kyf, in = is + nh * S2;
+    const int id = (((p * (nk + 1) + kz) * nh + ey) * nh + ex) * S2 + kzf, iu = id + nh * nh * S2;
     const T cnx = sCn[jx], cpx = sCp[jx], cny = sCn[jy], cpy = sCp[jy], cnz = sCn[jz], cpz = sCp[jz];
-    // Boundary correction of face row c at this node.
+    // The boundary correction of shared row c, and of the sides' row 5 + c.
     auto corr_of = [&](int c) {
-      const T* fc = sFace + c * NF;
-      return cnx * fc[kxf] + cpx * fc[S2 + kxf] + cny * fc[2 * S2 + kyf] + cpy * fc[3 * S2 + kyf] +
-             cnz * fc[4 * S2 + kzf] + cpz * fc[5 * S2 + kzf];
+      return cnx * rx[c * nx + iw] + cpx * rx[c * nx + ie] + cny * ry[c * nx + is] + cpy * ry[c * nx + in] +
+             cnz * rz[c * nz + id] + cpz * rz[c * nz + iu];
+    };
+    auto side_corr = [&](int c) {
+      const int l = 5 + c, r = 5 + SR + c;
+      return cnx * rx[r * nx + iw] + cpx * rx[l * nx + ie] + cny * ry[r * nx + is] + cpy * ry[l * nx + in] +
+             cnz * rz[r * nz + id] + cpz * rz[l * nz + iu];
     };
     T corr[6];
 #pragma unroll
-    for (int c = 0; c < 6; ++c) corr[c] = corr_of(c);
+    for (int c = 0; c < 5; ++c) corr[c] = corr_of(c);
+    corr[5] = side_corr(0);
     // Log-pressure gradients along x, y, z (the perturbation's in PERT mode)
-    // with the face log p corrections, from log p nodes `lp` and face row `row`.
-    auto dlog_p = [&](const T* lp, int row, T& dlx, T& dly, T& dlz) {
-      const T* flp = sFace + row * NF;
+    // with the face log p corrections, from log p nodes `lp` and the sides'
+    // row 5 + c.
+    auto dlog_p = [&](const T* lp, int c, T& dlx, T& dly, T& dlz) {
+      const int l = 5 + c, r = 5 + SR + c;
       dlx = T(0), dly = T(0), dlz = T(0);
 #pragma unroll
       for (int i = 0; i < S; ++i) {
@@ -699,12 +853,12 @@ __global__ void __launch_bounds__(kThreads) euler3d_operator_kernel(
         dly = fmadd(Dy[i], lp[ly + i * S], dly);
         dlz = fmadd(Dz[i], lp[lz + i * S2], dlz);
       }
-      dlx += cnx * flp[kxf] + cpx * flp[S2 + kxf];
-      dly += cny * flp[2 * S2 + kyf] + cpy * flp[3 * S2 + kyf];
-      dlz += cnz * flp[4 * S2 + kzf] + cpz * flp[5 * S2 + kzf];
+      dlx += cnx * rx[r * nx + iw] + cpx * rx[l * nx + ie];
+      dly += cny * ry[r * nx + is] + cpy * ry[l * nx + in];
+      dlz += cnz * rz[r * nz + id] + cpz * rz[l * nz + iu];
     };
     T dlx, dly, dlz, grav = T(0);
-    dlog_p(sLp, 6, dlx, dly, dlz);
+    dlog_p(sLp, 1, dlx, dly, dlz);
 #pragma unroll
     for (int i = 0; i < S; ++i) grav = fmadd(sHF[jz * S + i], sSg[lz + i * S2], grav);
 
@@ -736,9 +890,9 @@ __global__ void __launch_bounds__(kThreads) euler3d_operator_kernel(
     } else {
       // The w pressure split: d[(W + c) p] = (W + c0) dp + dc p and
       // d[p sgh dlp] = p0 ddlp + dp (dlp0 + ddlp), c0 and dlp0 the base's.
-      const T wcorr0 = corr_of(8);
+      const T wcorr0 = side_corr(3);
       T dl0x, dl0y, dl0z;
-      dlog_p(sLp0, 7, dl0x, dl0y, dl0z);
+      dlog_p(sLp0, 2, dl0x, dl0y, dl0z);
       w_df = div[4] + corr[4] + (wpres_int + wcorr0) * dpv + corr[5] * pres +
              sh02 * (p0v * dlx + dpv * (dl0x + dlx)) + sh12 * (p0v * dly + dpv * (dl0y + dly)) +
              sh22 * (p0v * dlz + dpv * (dl0z + dlz));
@@ -793,7 +947,8 @@ __global__ void __launch_bounds__(kThreads) euler3d_operator_kernel(
   // --- Panel-edge traces of the output state (x and y faces on an edge);
   // in PERT mode the output perturbation's delta traces around the base
   // traces traces0: t0 * expm1(E.log1p(dout/q0)) for rho and rho*theta
-  // (q0 still in shared memory), the momenta linear.
+  // (q0 still in shared memory), the momenta linear; in the fma order of
+  // nb_trace / nb_delta_trace, which re-extrapolate them.
   if (traces != nullptr) {
     __syncthreads();
     if (valid) {
@@ -848,27 +1003,65 @@ cudaError_t configure(Kernel kernel, size_t smem, bool& configured) {
   return err;
 }
 
+// The interface rows of a call live between its two launches: stream-ordered
+// allocations from a memory pool of this library's own (one a device),
+// which keeps freed memory for the next call instead of returning it to the
+// system (the C entries' signatures carry no scratch buffer).
+cudaError_t rows_alloc(void** ptr, size_t bytes, cudaStream_t stream) {
+  constexpr int kMaxDevices = 64;
+  static cudaMemPool_t pools[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (pools[dev] == nullptr) {
+    cudaMemPoolProps props = {};
+    props.allocType = cudaMemAllocationTypePinned;
+    props.location.type = cudaMemLocationTypeDevice;
+    props.location.id = dev;
+    cudaMemPool_t pool;
+    err = cudaMemPoolCreate(&pool, &props);
+    if (err != cudaSuccess) return err;
+    unsigned long long keep = ~0ULL;
+    err = cudaMemPoolSetAttribute(pool, cudaMemPoolAttrReleaseThreshold, &keep);
+    if (err != cudaSuccess) return err;
+    pools[dev] = pool;
+  }
+  return cudaMallocFromPoolAsync(ptr, bytes, pools[dev], stream);
+}
+
 template <typename T, int S, bool PERT>
 cudaError_t launch(int nh, int nk, int npanel, const void* q, const void* halo, const void* ops,
                    const void* fields, const void* tch, const void* itf_x, const void* itf_y,
                    const void* itf_z, const void* x, const void* bal, const void* q0, const void* halo0,
                    const void* rhs0, const void* traces0, void* out, void* traces, double a, double b,
                    double cdt, int stage, cudaStream_t stream) {
-  using Sh = Shape<T, S, PERT>;
-  const size_t smem = sizeof(T) * (Sh::N_OPS + (size_t)Sh::EB * Sh::PER_ELEM);
+  using Sh = VolShape<T, S, PERT>;
+  const size_t smem = sizeof(T) * (size_t)Sh::SIZE;
   static bool configured = false;
-  cudaError_t err = configure(euler3d_operator_kernel<T, S, PERT>, smem, configured);
+  cudaError_t err = configure(euler3d_volume_kernel<T, S, PERT>, smem, configured);
   if (err != cudaSuccess) return err;
-  const int per_panel = nk * nh * nh;
-  const int blocks = npanel * ((per_panel + Sh::EB - 1) / Sh::EB);
-  euler3d_operator_kernel<T, S, PERT><<<blocks, Sh::EB * Sh::S3, smem, stream>>>(
+  const ItfLayout lay(npanel, nh, nk, S);
+  void* rows = nullptr;
+  err = rows_alloc(&rows, sizeof(T) * ItfRows<PERT>::N * (size_t)lay.points(), stream);
+  if (err != cudaSuccess) return err;
+  const unsigned itf_blocks = (unsigned)((lay.points() + kItfThreads - 1) / kItfThreads);
+  euler3d_interface_kernel<T, S, PERT><<<itf_blocks, kItfThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(halo), static_cast<const T*>(ops),
-      static_cast<const T*>(fields), static_cast<const T*>(tch), static_cast<const T*>(itf_x),
-      static_cast<const T*>(itf_y), static_cast<const T*>(itf_z), static_cast<const T*>(x),
-      static_cast<const T*>(bal), static_cast<const T*>(q0), static_cast<const T*>(halo0),
-      static_cast<const T*>(rhs0), static_cast<const T*>(traces0), static_cast<T*>(out), static_cast<T*>(traces),
-      nh, nk, npanel, T(a), T(b), T(cdt), stage);
-  return cudaGetLastError();
+      static_cast<const T*>(itf_x), static_cast<const T*>(itf_y), static_cast<const T*>(itf_z),
+      static_cast<const T*>(q0), static_cast<const T*>(halo0), static_cast<T*>(rows), nh, nk, npanel);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) {
+    const int blocks = npanel * ((nk * nh * nh + Sh::EB - 1) / Sh::EB);
+    euler3d_volume_kernel<T, S, PERT><<<blocks, Sh::EB * Sh::S3, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(ops), static_cast<const T*>(fields),
+        static_cast<const T*>(tch), static_cast<const T*>(x), static_cast<const T*>(bal), static_cast<const T*>(q0),
+        static_cast<const T*>(rhs0), static_cast<const T*>(traces0), static_cast<const T*>(rows),
+        static_cast<T*>(out), static_cast<T*>(traces), nh, nk, npanel, T(a), T(b), T(cdt), stage);
+    err = cudaGetLastError();
+  }
+  const cudaError_t freed = cudaFreeAsync(rows, stream);
+  return err != cudaSuccess ? err : freed;
 }
 
 template <typename T, bool PERT>
@@ -975,16 +1168,6 @@ struct PrepShape {
   static constexpr int SIZE = N_OPS + EB * PER_ELEM;
 };
 
-// ops1d into shared memory, each segment on a 16-byte boundary.
-template <typename T, int S>
-__device__ __forceinline__ void load_ops(const T* ops, T* smem) {
-  using Sh = Shape<T, S>;
-  for (int i = threadIdx.x; i < 4 * S + 2 * Sh::S2; i += blockDim.x) {
-    const int dst = i < 4 * S ? (i / S) * Sh::PS + i % S
-                              : 4 * Sh::PS + ((i - 4 * S) / Sh::S2) * Sh::PS2 + (i - 4 * S) % Sh::S2;
-    smem[dst] = ops[i];
-  }
-}
 
 // The linearisation at q (q0 + dq in PERT mode, q then dq and halo its delta
 // halo): every primal quantity of J(q).v that costs a transcendental, a
@@ -1674,6 +1857,26 @@ cudaError_t tangent_resources(int kernel, int* info) {
                           info);
 }
 
+template <typename T, int S, bool PERT>
+cudaError_t operator_resources(int kernel, int* info) {
+  if (kernel == 0)
+    return kernel_resources(euler3d_interface_kernel<T, S, PERT>, kItfThreads, 0, info);
+  using Sh = VolShape<T, S, PERT>;
+  return kernel_resources(euler3d_volume_kernel<T, S, PERT>, Sh::EB * Sh::S3, sizeof(T) * (size_t)Sh::SIZE, info);
+}
+
+template <typename T, bool PERT>
+cudaError_t dispatch_operator_resources(int s, int kernel, int* info) {
+  switch (s) {
+    case 2: return operator_resources<T, 2, PERT>(kernel, info);
+    case 3: return operator_resources<T, 3, PERT>(kernel, info);
+    case 4: return operator_resources<T, 4, PERT>(kernel, info);
+    case 5: return operator_resources<T, 5, PERT>(kernel, info);
+    case 6: return operator_resources<T, 6, PERT>(kernel, info);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T, bool PERT>
 cudaError_t dispatch_prep(int s, int nh, int nk, const void* q, const void* halo, const void* ops, const void* fields,
                           const void* itf_x, const void* itf_y, const void* itf_z, const void* q0, const void* halo0,
@@ -1776,6 +1979,18 @@ extern "C" int euler3d_tangent_prep_launch(int is_f64, int s, int nh, int nk, co
     err = pert ? dispatch_prep<float, true>(s, nh, nk, q, halo, ops, fields, itf_x, itf_y, itf_z, q0, halo0, coef, st)
                : dispatch_prep<float, false>(s, nh, nk, q, halo, ops, fields, itf_x, itf_y, itf_z, q0, halo0, coef, st);
   return (int)err;
+}
+
+// What the runtime reports of the operator's kernels (kernel 0: the
+// interface pass, 1: the volume pass; pert: their perturbation mode): info =
+// [registers, local (spill) bytes a thread, dynamic shared memory bytes a
+// block, resident blocks an SM, threads a block].
+extern "C" int euler3d_operator_resources(int is_f64, int s, int pert, int kernel, int* info) {
+  if (is_f64)
+    return (int)(pert ? dispatch_operator_resources<double, true>(s, kernel, info)
+                      : dispatch_operator_resources<double, false>(s, kernel, info));
+  return (int)(pert ? dispatch_operator_resources<float, true>(s, kernel, info)
+                    : dispatch_operator_resources<float, false>(s, kernel, info));
 }
 
 // J.v from the coefficient buffer ``coef`` of a prep, the direction v and

@@ -79,6 +79,8 @@ SIGNATURES = {
             + [_P] * 10
             + [_P],  # stream
         ),
+        # is_f64, s, pert, kernel (0 interface pass, 1 volume pass), int[5] out
+        "euler3d_operator_resources": (_I, [_I, _I, _I, _I, _P]),
         # is_f64, s, kernel (0 prep, 1 perturbation prep, 2 apply), int[5] out
         "euler3d_tangent_resources": (_I, [_I, _I, _I, _P]),
         "euler3d_operator_error_string": (ctypes.c_char_p, [_I]),

@@ -35,6 +35,14 @@ unperturbed base state, the kernel's RHS + bal against the f64 plain RHS:
 within 1e-2 of each variable's max and 1e3 times closer than without the
 offset (the bounds of the JAX test_balanced_offset_restores_base_state_rhs).
 
+Every 3D operator row also holds mass (``mass_err``): the sqrt(g)- and
+quadrature-weighted integral of the kernel's rho change (its RHS, or out -
+a*x - b*q in stage mode) over the sphere or tile, against the plain
+version's, within the operator tolerance of the change's absolute integral
+plus four units of rounding of the output's (a stage's rho change is the
+small difference of two near-equal states, which the output's rounding
+bounds).
+
 3D Euler tangent mode (``compare_euler3d_tangent``): J(q).v from the prep
 and apply kernels at q = q0 + dq, dq = 1e-4 q0 N(0,1), in a direction v
 of 1e-3 of each variable's max times N(0,1) (the inputs of the JAX
@@ -314,6 +322,34 @@ def euler3d_term_scale(q: torch.Tensor, con) -> torch.Tensor:
     return scale
 
 
+def mass_weights(ops, con) -> torch.Tensor:
+    """sqrt(g) times the quadrature weights w_i w_j w_k at every node of the
+    constants' panel (or tile), float64: the weights of the mass integral
+    (``output.global_mass_3d``)."""
+    w = torch.as_tensor(np.asarray(ops.weights), dtype=torch.float64, device=con.fields.device)
+    return con.fields[0].double() * torch.einsum("i,j,k->ijk", w, w, w).reshape(-1)
+
+
+def mass_err(got, want, wsg, dtype, x=None, y=None, a: float = 0.0, b: float = 1.0, stage: bool = False):
+    """(err, limit) of the kernel's mass change against the plain version's:
+    the weighted integrals (weights ``wsg``) of their rho change (the RHS,
+    or ``out - a*x - b*y`` in stage mode), in float64; err is their
+    difference over the plain change's absolute integral, limit the dtype's
+    operator tolerance plus four units of rounding of the plain output's
+    absolute integral over the same."""
+    def change(out):
+        c = out[0].double()
+        if stage:
+            c = c - b * y[0].double() - (a * x[0].double() if x is not None and a != 0.0 else 0.0)
+        return wsg * c
+
+    want_c = change(want)
+    scale = float(want_c.abs().sum())
+    rounding = 4.0 * torch.finfo(dtype).eps * float((wsg * want[0].double()).abs().sum())
+    err = abs(float(change(got).sum() - want_c.sum())) / scale
+    return err, E3_TOLERANCE[dtype] + rounding / scale
+
+
 E3_TOLERANCE = {torch.float64: 1e-12, torch.float32: 1e-5}
 E3_TANGENT_TOLERANCE = {torch.float64: 1e-12, torch.float32: 5e-5}
 E3_DT = 0.1
@@ -352,6 +388,7 @@ def compare_euler3d_operator(nel_h: int, nel_v: int, s: int, dtype, device="cuda
         }
     tol = E3_TOLERANCE[dtype]
     term = euler3d_term_scale(y, con) if dtype == torch.float32 else None
+    wsg = mass_weights(euler3d_setup(nel_h, nel_v, s, case)[1], con)
     results = []
     for mode, kw in modes.items():
         got = e3op.euler3d_operator(y, halo, con, **kw)
@@ -373,8 +410,10 @@ def compare_euler3d_operator(nel_h: int, nel_v: int, s: int, dtype, device="cuda
         if got_tr is not None:
             row["traces_err"] = _scaled(got_tr - want_tr, per_variable_max(want_tr))
         row["tol"] = tol
+        row["mass_err"], row["mass_tol"] = mass_err(got, want, wsg, dtype, kw.get("x"), y, kw.get("a", 0.0),
+                                                    kw.get("b", 1.0), "cdt" in kw)
         ok = np.isfinite(row["err"]) and row["err"] <= tol and row.get("traces_err", 0.0) <= tol
-        ok = ok and bool(torch.isfinite(got).all().item())
+        ok = ok and bool(torch.isfinite(got).all().item()) and row["mass_err"] <= row["mass_tol"]
         if mode == "rhs_bal":
             row.update(base)
             ok = ok and base["base_err_bal"] < 1e-2 and base["base_err_bal"] < 1e-3 * base["base_err_plain"]
@@ -599,6 +638,29 @@ def tangent_kernel_resources(dtype, s: int) -> dict:
     return out
 
 
+def operator_kernel_resources(dtype, s: int) -> dict:
+    """{"absolute", "perturbation": {"interface", "volume": {registers,
+    local_bytes, smem_bytes, blocks_per_sm, threads}}}: what the runtime
+    reports of the operator's two kernels at one dtype and s (on the card;
+    builds the library)."""
+    import ctypes
+
+    from .build import load_library
+
+    lib = load_library("euler3d_operator")
+    out = {}
+    for pert, form in enumerate(("absolute", "perturbation")):
+        out[form] = {}
+        for kernel, name in enumerate(("interface", "volume")):
+            info = (ctypes.c_int * 5)()
+            rc = lib.euler3d_operator_resources(1 if dtype == torch.float64 else 0, s, pert, kernel,
+                                                ctypes.cast(info, ctypes.c_void_p))
+            if rc != 0:
+                raise RuntimeError(f"euler3d_operator_resources failed: CUDA error {rc}")
+            out[form][name] = dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm", "threads"), info))
+    return out
+
+
 def euler3d_pert_inputs(nel_h: int, nel_v: int, s: int, dtype, device, case: int = 31, seed: int = 7):
     """(con, topology, pert, dq, v): the perturbation form's inputs at the
     tangent inputs' state q0 + dq (``euler3d_tangent_inputs``): the base
@@ -670,6 +732,10 @@ def compare_euler3d_pert(nel_h: int, nel_v: int, s: int, dtype, device="cuda", c
             row["tol"] = E3_TANGENT_TOLERANCE[dtype]
             limit = max(row["tol"], 2.0 * row["plain_err"])
         ok = np.isfinite(row["err"]) and row["err"] <= limit and torch.isfinite(got).all().item()
+        if mode == "rhs":
+            wsg = mass_weights(euler3d_setup(nel_h, nel_v, s, case)[1], con)
+            row["mass_err"], row["mass_tol"] = mass_err(got, want, wsg, dtype)
+            ok = ok and row["mass_err"] <= row["mass_tol"]
         if linearity is not None:
             row["linearity_err"] = linearity
             row.update(compare_tangent_kernels(dq, v, halo_dq, halo_v, con, pert, ref64))
@@ -710,6 +776,7 @@ def compare_euler3d_pert_stage(nel_h: int, nel_v: int, s: int, dtype, device="cu
             kw64 = dict(kw, x=x64) if "x" in kw else kw
             truth[mode] = e3op.euler3d_operator_pert_plain(dq64, halo64, con64, pert64, emit_traces=True, **kw64)
     term = euler3d_term_scale(pert.q0 + dq, con)
+    wsg = mass_weights(euler3d_setup(nel_h, nel_v, s, case)[1], con)
     rows = []
     for mode, kw in modes.items():
         got, got_tr = e3op.euler3d_operator(dq, halo, con, emit_traces=True, pert=pert, **kw)
@@ -737,6 +804,8 @@ def compare_euler3d_pert_stage(nel_h: int, nel_v: int, s: int, dtype, device="cu
             traces_limit = max(row["tol"], 2.0 * row["plain_traces_err"])
         ok = np.isfinite(row["err"]) and row["err"] <= limit and row["traces_err"] <= traces_limit
         ok = ok and row["traces_self_err"] <= E3_TOLERANCE[dtype]
+        row["mass_err"], row["mass_tol"] = mass_err(got, want, wsg, dtype, kw.get("x"), dq, kw["a"], kw["b"], True)
+        ok = ok and row["mass_err"] <= row["mass_tol"]
         row["ok"] = bool(ok and torch.isfinite(got).all().item() and torch.isfinite(got_tr).all().item())
         rows.append(row)
     return rows
@@ -955,8 +1024,11 @@ def compare_sw_run(nel: int, dtype, nsteps: int, pert: bool, device="cuda", dt: 
 # (nt, s, N): tile width, solution points and the mesh whose tile is checked
 # (N = 2: a tile with two panel edges and two edges inside the panel).
 SW_TILE_SHAPES = ((4, 3, 2), (8, 4, 2), (32, 3, 2), (64, 4, 1))
-# (nt, nk, s, case, N); case 77 is the rotating planet (time Christoffels).
-E3_TILE_SHAPES = ((2, 3, 2, 31, 2), (5, 8, 3, 31, 2), (10, 20, 3, 31, 2), (20, 20, 3, 31, 1), (2, 3, 3, 77, 2))
+# (nt, nk, s, case, N); case 77 is the rotating planet (time Christoffels);
+# at nt = 7 the tile's 147 elements leave the operator's volume pass (9
+# elements a block at s=3) a partial last block.
+E3_TILE_SHAPES = ((2, 3, 2, 31, 2), (5, 8, 3, 31, 2), (10, 20, 3, 31, 2), (20, 20, 3, 31, 1), (2, 3, 3, 77, 2),
+                  (7, 3, 3, 31, 2))
 TILE_TOLERANCE = {torch.float64: 1e-12, torch.float32: 1e-5}
 
 
@@ -1027,14 +1099,15 @@ def _tile_modes(inputs, dt, pert: bool):
             (pre + "stage_x_traces", y, h, dict(x=x, a=0.75, b=0.25, cdt=0.25 * dt, emit_traces=True))]
 
 
-def _compare_tile(kernel, plain, con64, base64, inputs64, term, dtype, row0, dt, base_kw):
+def _compare_tile(kernel, plain, con64, base64, inputs64, term, dtype, row0, dt, base_kw, wsg=None):
     """Kernel against plain on one tile in every mode of ``_tile_modes``.
     float64: within 1e-12 of the scale (per variable, the larger of the
     output max and |cdt| (1 in RHS mode) times the RHS term scale ``term``).
     float32: the kernel on the float32 rounding of the inputs against the
     float64 plain output, within 1e-5 of that scale or twice the float32
     plain output's distance from it; the traces likewise, scaled by their
-    max."""
+    max. With mass weights ``wsg`` also the mass change against the plain
+    version's (``mass_err``)."""
     con, base = cast_constants(con64, dtype), cast_constants(base64, dtype)
     inputs = {k: v.to(dtype) for k, v in inputs64.items()}
     tol = TILE_TOLERANCE[dtype]
@@ -1069,6 +1142,10 @@ def _compare_tile(kernel, plain, con64, base64, inputs64, term, dtype, row0, dt,
             ok = np.isfinite(row["err"]) and row["err"] <= limit and bool(torch.isfinite(got).all().item())
             if got_tr is not None:
                 ok = ok and row["traces_err"] <= limit_tr and bool(torch.isfinite(got_tr).all().item())
+            if wsg is not None:
+                row["mass_err"], row["mass_tol"] = mass_err(got, want, wsg, dtype, kw.get("x"), y, kw.get("a", 0.0),
+                                                            kw.get("b", 1.0), "cdt" in kw)
+                ok = ok and row["mass_err"] <= row["mass_tol"]
             row["ok"] = bool(ok)
             rows.append(row)
     return rows
@@ -1120,10 +1197,11 @@ def compare_euler3d_tile(nt: int, nk: int, s: int, case: int, n: int, dtype, dev
     """The 3D tile kernel (``euler3d_tile_operator``) against its plain
     version on the checked tile of a DCMIP sphere of nel_h = n*nt,
     absolute and perturbation form, RHS and stages with a = 0 and a != 0
-    (tolerances: ``_compare_tile``); one row per mode."""
+    (tolerances and the mass check: ``_compare_tile``); one row per mode."""
     con64, pert64, inputs64, term = euler3d_tile_inputs(nt, nk, s, case, n, device, seed)
+    wsg = mass_weights(euler3d_setup(n * nt, nk, s, case)[1], con64)
     return _compare_tile(e3op.euler3d_tile_operator, e3op.euler3d_tile_operator_plain, con64, pert64, inputs64,
-                         term, dtype, {"nt": nt, "nk": nk, "s": s, "case": case, "n": n}, E3_DT, "pert")
+                         term, dtype, {"nt": nt, "nk": nk, "s": s, "case": case, "n": n}, E3_DT, "pert", wsg)
 
 
 def sw_tile_work(nt: int, s: int, dtype, **kw):

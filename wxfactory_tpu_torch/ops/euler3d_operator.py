@@ -744,8 +744,9 @@ def euler3d_operator(q, halo, con: E3Constants, x=None, a: float = 0.0, b: float
     ``pert_launches``.
 
     A CPU tensor runs ``euler3d_operator_plain`` (``euler3d_operator_pert_plain``);
-    a CUDA tensor launches the kernel (built from csrc/euler3d_operator.cu at
-    first use) on the current stream, without synchronising, or raises."""
+    a CUDA tensor makes one launch of the operator, its interface pass and
+    volume pass (csrc/euler3d_operator.cu, built at first use), on the
+    current stream, without synchronising, or raises."""
     global launches, pert_launches, pert_stage_launches
     _check_npanel(con, 6, "euler3d_operator")
     _check(q, halo, con, x, a, bal, cdt, emit_traces, pert)
@@ -793,6 +794,80 @@ def _launch_operator(entry: str, q, halo, con: E3Constants, x, a: float, b: floa
         name = lib.euler3d_operator_error_string(rc).decode()
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc} ({name})")
     return (out, traces) if emit_traces else out
+
+
+# ---------------------------------------------------------------------------
+# The operator's plan: csrc/euler3d_operator.cu's interface pass (one thread
+# an interface point) and the interface rows the volume pass reads
+# (ItfLayout), mirrored for the CPU test of the plan and for reports.
+
+# Threads a block of the interface pass (kItfThreads).
+OPERATOR_INTERFACE_THREADS = 128
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def operator_plan(nel_h: int, nel_v: int, s: int, npanel: int = 6) -> dict:
+    """The launch geometry of the operator's two kernels: the blocks of the
+    interface pass (one thread an interface point) and of the volume pass
+    (EB = 256 / s^3 elements a block), the interface points, and the words
+    of interface rows a call keeps between them (absolute form: 9 a point;
+    perturbation form: 13)."""
+    eb = max(256 // s**3, 1)
+    points = npanel * (2 * nel_v * nel_h * (nel_h + 1) + (nel_v + 1) * nel_h * nel_h) * s * s
+    return {"interface_blocks": _ceil_div(points, OPERATOR_INTERFACE_THREADS),
+            "volume_blocks": npanel * _ceil_div(nel_v * nel_h * nel_h, eb), "points": points,
+            "rows_words": 9 * points, "rows_words_pert": 13 * points}
+
+
+def interface_point(itf, nel_h: int, nel_v: int, s: int, npanel: int = 6) -> int:
+    """The index, among every interface point's rows, of face point 0 of the
+    interface ``itf`` = (d, panel, k, ey, ex) (the interface between
+    elements ex-1 and ex for d = 0, ey-1 and ey for d = 1, levels k-1 and k
+    for d = 2): its family's offset (x, y, z) plus its place in the family,
+    as the kernels' ItfLayout has it; the volume pass reads an element's
+    faces there."""
+    d, p, k, y, x = itf
+    s2, nh, nk = s * s, nel_h, nel_v
+    nx = npanel * nk * nh * (nh + 1) * s2
+    if d == 0:
+        return (((p * nk + k) * nh + y) * (nh + 1) + x) * s2
+    if d == 1:
+        return nx + (((p * nk + k) * (nh + 1) + y) * nh + x) * s2
+    return 2 * nx + (((p * (nk + 1) + k) * nh + y) * nh + x) * s2
+
+
+def interface_of_thread(i: int, nel_h: int, nel_v: int, s: int, npanel: int = 6):
+    """(interface, face point, sides) that thread ``i`` of the interface
+    pass computes, as the kernel decodes it: ``sides`` the source of the L
+    and R traces ("device": the element's state in device memory, "halo",
+    "mirror")."""
+    s2, nh, nk = s * s, nel_h, nel_v
+    nx = npanel * nk * nh * (nh + 1) * s2
+    d = 0
+    if i >= nx:
+        i, d = i - nx, 1
+        if i >= nx:
+            i, d = i - nx, 2
+    k, t = i % s2, i // s2
+    if d == 0:
+        x, t = t % (nh + 1), t // (nh + 1)
+        y, t = t % nh, t // nh
+        kz, p = t % nk, t // nk
+        sides = ("halo" if x == 0 else "device", "halo" if x == nh else "device")
+    elif d == 1:
+        x, t = t % nh, t // nh
+        y, t = t % (nh + 1), t // (nh + 1)
+        kz, p = t % nk, t // nk
+        sides = ("halo" if y == 0 else "device", "halo" if y == nh else "device")
+    else:
+        x, t = t % nh, t // nh
+        y, t = t % nh, t // nh
+        kz, p = t % (nk + 1), t // (nk + 1)
+        sides = ("mirror" if kz == 0 else "device", "mirror" if kz == nk else "device")
+    return (d, p, kz, y, x), k, sides
 
 
 # ---------------------------------------------------------------------------
@@ -887,8 +962,9 @@ def euler3d_tile_operator(q, halo, con: E3Constants, x=None, a: float = 0.0, b: 
     tile constants, a tile state (5, 1, nk, nt, nt, s^3), its halo (5, 4, 1,
     nk, nt, s^2) and, with ``emit_traces``, the output's tile-edge traces on
     all four sides. A CPU tensor runs ``euler3d_tile_operator_plain``; a CUDA
-    tensor makes one launch of the tile kernel (csrc/euler3d_operator.cu,
-    ``euler3d_tile_launch``, the port of ``pallas_euler3d.km3_tile``),
+    tensor makes one launch of the operator over the tile (its interface
+    and volume passes; csrc/euler3d_operator.cu, ``euler3d_tile_launch``,
+    the port of ``pallas_euler3d.km3_tile``),
     counted in ``tile_launches`` (absolute) or ``pert_tile_launches``
     (perturbation form), or raises."""
     global tile_launches, pert_tile_launches

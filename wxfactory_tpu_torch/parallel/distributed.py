@@ -107,6 +107,19 @@ def barrier() -> None:
         dist.barrier(group=_host_group)
 
 
+def shutdown(clean: bool = True) -> None:
+    """Leave the process group. After a run that finished (``clean``) every
+    rank first meets the others at a barrier on the host group, so rank 0,
+    which hosts the TCP store, does not exit while another rank's gloo
+    threads still talk to it. After a failure it leaves at once: a rank that
+    failed must not wait the group's timeout on ranks that died."""
+    if not dist.is_initialized():
+        return
+    if clean:
+        barrier()
+    dist.destroy_process_group()
+
+
 def all_true(flag: bool) -> bool:
     """``flag`` and-reduced over every rank (itself in one process)."""
     if not dist.is_initialized():

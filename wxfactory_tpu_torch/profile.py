@@ -118,7 +118,7 @@ def kernel_class(name: str) -> str:
     kernels) or the rest."""
     if "euler3d_tangent_apply_kernel" in name or "euler3d_tangent_prep_kernel" in name:
         return "tangent_kernel"
-    if "euler3d_operator_kernel" in name or "sw_operator_kernel" in name:
+    if any(k in name for k in ("euler3d_interface_kernel", "euler3d_volume_kernel", "sw_operator_kernel")):
         return "rhs_kernel"
     low = name.lower()
     if any(k in low for k in ("gemm", "gemv", "dot_kernel", "splitkreduce", "cublas", "cutlass", "xmma")):
