@@ -10,7 +10,9 @@ and drives the port's two main paths, shallow water and 3D Euler:
 1. the SW operator kernel against its plain torch version on the card, at
    (nel, s) = (10,3), (64,3), (4,2), (4,8), (64,7), float64 and float32, in
    RHS mode, stage mode with and without x, and with emitted traces
-   (tolerances in wxfactory_tpu_torch/kernels/check.py);
+   (tolerances in wxfactory_tpu_torch/kernels/check.py); each call also
+   holds mass (the weighted integral of its h change against the plain
+   version's);
 2. the same case-6 run (nel=10, s=3, TVD-RK3, dt=30 s, 20 steps, f64) on
    the GPU and on the CPU (plain version): final states agree to 1e-10 of
    each variable's max;
@@ -109,7 +111,7 @@ and drives the port's two main paths, shallow water and 3D Euler:
     f64 and f32 (rows in build/chip_smoke/phase17.json), and the whole-run
     kernel at (32,4) and (64,4), 1-3 steps, absolute and perturbation form,
     against the plain loop and, asked bit for bit, the chained per-stage
-    kernels;
+    kernels; every operator call and run also holds mass (phase 1's check);
 18. GPU against CPU: 10 float64 TVD-RK3 steps of the SW perturbation form
     at nel=10, s=3, and packed_run at (32,4) for 2 steps (absolute and
     perturbation), within 1e-10 of each variable's max;
@@ -133,7 +135,10 @@ and drives the port's two main paths, shallow water and 3D Euler:
     perturbation mode (RHS; stage + x + traces) and their plain versions at
     (64,3), (64,4) and (64,7), the halo kernel against halo_from_traces, the
     edge-trace kernel against edge_traces, and a packed_run step against a
-    chained step at (64,4);
+    chained step at (64,4); with the registers, spills, shared memory a
+    block and resident blocks an SM of every SW operator instantiation
+    (s = 2..8, f64/f32, absolute/perturbation) and of the run kernel, as the
+    runtime reports them (sw_operator_resources, sw_run_resources);
 21. the 3D kernel's perturbation stage mode (a*dx + b*dq + cdt*(rhs0 +
     delta), a = 0 and a != 0, with the output's delta traces) against its
     plain version at every shape of phase 5, f64 within 1e-12 of scale, f32
@@ -174,7 +179,7 @@ and drives the port's two main paths, shallow water and 3D Euler:
     float32: SW at (nt, s) = (4,3), (8,4), (32,3) on a tile of a 2x2 mesh
     and (64,4) on a whole panel; 3D at (nt, nk, s) = (2,3,2), (5,8,3),
     (10,20,3), (7,3,3) and the rotating planet at (2,3,3) on 2x2 meshes,
-    (20,20,3) on a whole panel (tolerances and, for 3D, the mass check in
+    (20,20,3) on a whole panel (tolerances and the mass check in
     kernels/check.py, _compare_tile);
 26. the tile-parallel TVD-RK3 step with every tile in one process, 100
     steps: SW case 6 at nel=64, s=3, dt=10 s (float64 and float32
@@ -197,7 +202,9 @@ and drives the port's two main paths, shallow water and 3D Euler:
     (SW nt = 64 and 32, s=3; 3D nt = 20 and 10, nk = 20, s=3), the stage
     the step launches (x, traces), float64 absolute and float32 (absolute
     and perturbation for SW, perturbation for 3D), beside the bound of
-    kernels/check.py's *_tile_work and the plain version's time.
+    kernels/check.py's *_tile_work and the plain version's time; the SW rows
+    with the operator kernel's registers, spills, shared memory a block and
+    blocks an SM.
 
 Each phase prints one JSON line; then the kernels line, the card's
 ``nvidia-smi`` name and power limit, and last the result line. Any failure
@@ -325,7 +332,11 @@ def ptxas_summary(log: str):
     rows, current = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
+        f32_pert = m and re.search(r"sw_operator_f32_pert_kernelILi(\d+)E", m.group(1))
+        if f32_pert:
+            current = {"kernel": f"sw_operator f32 s={f32_pert.group(1)} pert"}
+            rows.append(current)
+        elif m:
             k = re.search(r"(sw_operator|sw_run|sw_edges|euler3d_operator|euler3d_interface|euler3d_volume|"
                           r"euler3d_tangent_prep|euler3d_tangent_apply|euler3d_tangent)_kernelI([df])Li(\d+)E"
                           r"(Lb([01]))?", m.group(1))
@@ -1476,8 +1487,11 @@ def phase20(torch, smi):
                 row["run_ms_per_step"] = row[f"run_{RUN_STEPS}_steps_kernel_ms"] / RUN_STEPS
                 row["run_event_ms_per_step"] = row[f"run_{RUN_STEPS}_steps_kernel_event_ms"] / RUN_STEPS
             rows.append(row)
+    resources = {f"{str(dtype).replace('torch.', '')} s={s}": check.sw_kernel_resources(dtype, s)
+                 for dtype in (torch.float64, torch.float32) for s in range(2, 9)}
     emit({"phase": 20, "gpu": smi, "timing": "*_ms: the card's time a call (calls queued behind a sleep kernel, "
-          "CUDA events); *_event_ms: CUDA events around single calls, median", "results": rows})
+          "CUDA events); *_event_ms: CUDA events around single calls, median", "results": rows,
+          "resources": resources})
     return next(r for r in rows if (r["nel"], r["s"], r["dtype"]) == (64, 4, "float32"))
 
 
@@ -2071,8 +2085,10 @@ def phase28(torch, smi):
             times = _pair_ms(torch, lambda: swop.sw_tile_operator(y, h, con, **kw),
                              lambda: swop.sw_tile_operator_plain(y, h, con, **kw))
             work = check.sw_tile_work(nel // n, s, dtype, stage=True, use_x=True, traces=True, pert=pert)
+            resources = check.sw_kernel_resources(dtype, s)["perturbation" if pert else "absolute"]
             rows.append(dict({"kernel": "sw_tile", "nt": nel // n, "s": s, "n": n, "dtype": name,
-                              "mode": ("pert_" if pert else "") + "stage_x_traces"}, **times, **bound(work, name)))
+                              "mode": ("pert_" if pert else "") + "stage_x_traces"}, **times, **bound(work, name),
+                             resources=resources))
     nel_h, nel_v, s, dt = E3_TILE_MAIN
     for n in (1, 2):
         con64, pert64, inputs64, _ = check.euler3d_tile_inputs(nel_h // n, nel_v, s, 31, n, "cuda")

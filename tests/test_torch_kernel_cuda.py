@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (SW operator and its perturbation mode, the SW
-halo, edge-trace and whole-run kernels, 3D Euler operator, its tangent
+"""The port's CUDA kernels (SW operator and its perturbation mode and their
+shared-memory use, the SW halo, edge-trace and whole-run kernels, 3D Euler operator, its tangent
 prep and apply kernels and the perturbation form of both, with its stage mode, and the tile kernels of both
 models with the tile steps' launch counts) against their plain torch versions, on the card. Needs a CUDA device and nvcc, and skips without them. On a GPU
 machine run it without tests/conftest.py (which configures JAX):
@@ -33,6 +33,7 @@ from wxfactory_tpu_torch.kernels.check import (
     euler3d_pert_inputs,
     euler3d_tangent_inputs,
     pert_halos,
+    sw_kernel_resources,
     sw_pert_inputs,
     tangent_halos,
 )
@@ -205,6 +206,18 @@ def test_sw_halo_and_edge_kernels_match_plain(cuda, nel, s, dtype):
 def test_sw_run_kernel_matches_plain_and_chain(cuda, pert, dtype):
     row = compare_sw_run(32, dtype, 2, pert, device="cuda")
     assert row["ok"], row
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_sw_kernels_hold_only_the_1d_factors_in_shared_memory(cuda, dtype):
+    # The sum-factorised element body keeps 8s + 2s^2 factor words and each
+    # element's own regions in shared memory, so every instantiation fits
+    # under 32 KB a block (the dense EE/DD/CC blocks took 119.8 KB at s=8
+    # float64) and at least two blocks stay resident an SM.
+    for s in range(2, 9):
+        for form, info in sw_kernel_resources(dtype, s).items():
+            assert info["smem_bytes"] < 32 * 1024, (s, form, info)
+            assert info["blocks_per_sm"] >= 2, (s, form, info)
 
 
 def test_sw_counters_count_kernel_launches_only(cuda):

@@ -6,6 +6,17 @@
 // out in a fixed order, so the per-stage kernels and the whole-run kernel give
 // the same bits for the same inputs.
 //
+// Sum factorisation. The operator's extrapolation, derivative and
+// correction matrices are Kronecker products with the identity
+// (ops/dfr.py), so every face point depends on the s nodes of one row or
+// column, every node's divergence on s x-terms and s y-terms, and its
+// correction on its 4 faces. The body computes exactly those terms from the
+// 1D factors (load_factors: a few hundred bytes of shared memory), in the
+// order in which the dense products of the TPU kernel meet their non-zero
+// terms; an fma with an exact zero leaves a sum as it was, so for a finite
+// state it gives the dense products' bits with s times fewer operations and,
+// for a neighbour's trace, s values a variable read instead of s^2.
+//
 // Layouts (C order, T = float or double; P = npanel, 6 for the whole
 // cubed sphere, 1 for one tile of it, whose four edges all come from the halo):
 //   q, x, out  (3, P*nel*nel, s^2)   element (panel, ey, ex), node ky*s + kx
@@ -40,14 +51,23 @@ __device__ __forceinline__ double fmadd(double a, double b, double c) { return _
 __device__ __forceinline__ float sqrt_rn(float v) { return __fsqrt_rn(v); }
 __device__ __forceinline__ double sqrt_rn(double v) { return __dsqrt_rn(v); }
 
-// Column `col` of an (n, ncol) row-major matrix applied to a length-n vector.
-// Explicit fma in a fixed order: the result does not depend on where the
-// vector lives (shared or global memory) or on the compiler's contraction.
-template <typename T, int N>
-__device__ __forceinline__ T dot_col(const T* v, const T* m, int ncol, int col) {
+// Face point k of face f (0 west, 1 east, 2 south, 3 north) of one variable
+// of an element (s^2 nodes, node ky*s + kx): the s nodes of its row (west,
+// east: row k) or column (south, north: column k) times the face's 1D
+// extrapolation weights w, ascending node index, explicit fma. The dense
+// EE column meets the same non-zero terms in the same order, and an fma with
+// an exact zero leaves a sum unchanged, so for a finite state this is the
+// dense product's value. Every trace of a state (an element's own face, its
+// neighbour's re-extrapolation, the emitted traces, trace_point) comes from
+// this one function, so both sides of an interface see the same bits, and
+// the result does not depend on where v lives (shared or global memory).
+template <typename T, int S>
+__device__ __forceinline__ T face_trace(const T* v, const T* w, int f, int k) {
+  const int base = f < 2 ? k * S : k;
+  const int stride = f < 2 ? 1 : S;
   T acc = T(0);
 #pragma unroll
-  for (int i = 0; i < N; ++i) acc = fmadd(v[i], m[i * ncol + col], acc);
+  for (int m = 0; m < S; ++m) acc = fmadd(v[base + m * stride], w[m], acc);
   return acc;
 }
 
@@ -127,18 +147,57 @@ __device__ __forceinline__ void ausm_delta(const T* L0, const T* R0, const T* dL
   F[2] += (is_x ? mho : mhd) * dpres;
 }
 
-// Shared memory (in T): EE, DD, CC, then per element [q (3 s^2) | fx, fy
-// (6 s^2) | face fluxes (3 * 4s)].
+// The 1D factors of the operator's Kronecker-structured matrices, read from
+// the dense blocks of `ops` (EE (s^2, 4s) | DD (2s^2, s^2) | CC (4s, s^2), the
+// layout the plain version reads) at one position of each factor entry:
+//   ext  (4, s)  face f's extrapolation weight of the m-th node of a row
+//                (W, E) or column (S, N): EE[row*4s + f*s], row m or m*s
+//   dx   (s, s)  d/dx at kx from node kx' of its row: DD[kx'*s^2 + kx]
+//   dy   (s, s)  d/dy at ky from node ky' of its column:
+//                DD[(s^2 + ky'*s)*s^2 + ky*s]
+//   corr (4, s)  face f's correction weight at node coordinate c (kx for
+//                W, E; ky for S, N): CC[f*s*s^2 + c] (W, E), CC[f*s*s^2 + c*s]
+// EE, DD and CC are Kronecker products with the identity (ops/dfr.py), so
+// these entries are the 1D factors (tests/test_torch_sw_element_plan.py
+// holds the premise and ops/sw_operator.py::element_plan mirrors the
+// indexing). Shared memory (in T): the factors, padded to 4 words, then per
+// element [q (3 s^2) | fx, fy (6 s^2) | face fluxes (3 * 4s)].
 template <int S>
 struct Shape {
   static constexpr int S2 = S * S;
   static constexpr int NF = 4 * S;
-  static constexpr int N_OPS = S2 * NF + 2 * S2 * S2 + NF * S2;
+  static constexpr int N_FAC = (8 * S + 2 * S2 + 3) / 4 * 4;
   static constexpr int PER_ELEM = 9 * S2 + 3 * NF;
-  static constexpr int EB = kThreads / S2 > 0 ? kThreads / S2 : 1;
-  static constexpr int THREADS = EB * S2;
-  static size_t smem_bytes(size_t item) { return item * (N_OPS + (size_t)EB * PER_ELEM); }
+  static constexpr int EB = kThreads / S2 > 0 ? kThreads / S2 : 1;  // most elements a block
+  static size_t smem_bytes(size_t item, int eb) { return item * (N_FAC + (size_t)eb * PER_ELEM); }
 };
+
+// Every thread of the block calls it; the factors are visible after the
+// caller's (or element_block's first) barrier.
+template <typename T, int S>
+__device__ __forceinline__ void load_factors(const T* ops, T* fac) {
+  constexpr int S2 = S * S, NF = 4 * S;
+  const T* ee = ops;
+  const T* dd = ee + S2 * NF;
+  const T* cc = dd + 2 * S2 * S2;
+  for (int i = threadIdx.x; i < 8 * S + 2 * S2; i += blockDim.x) {
+    T val;
+    if (i < NF) {
+      const int f = i / S, m = i - f * S;
+      val = ee[(f < 2 ? m : m * S) * NF + f * S];
+    } else if (i < NF + S2) {
+      const int kx = (i - NF) / S, m = i - NF - kx * S;
+      val = dd[m * S2 + kx];
+    } else if (i < NF + 2 * S2) {
+      const int ky = (i - NF - S2) / S, m = i - NF - S2 - ky * S;
+      val = dd[(S2 + m * S) * S2 + ky * S];
+    } else {
+      const int f = (i - NF - 2 * S2) / S, c = i - NF - 2 * S2 - f * S;
+      val = cc[f * S * S2 + (f < 2 ? c : c * S)];
+    }
+    fac[i] = val;
+  }
+}
 
 template <typename T>
 struct OpArgs {
@@ -188,69 +247,76 @@ __device__ __forceinline__ void halo_point(const T* traces, const int* src, cons
 }
 
 // Trace value t = ((v*4 + side)*6 + p)*nel*s + along*s + k of state q: its
-// edge element's face point extrapolated with EE (the same fma order as the
-// operator's emission from shared memory).
+// edge element's face point (face_trace; ext: the factors' extrapolation
+// weights).
 template <typename T, int S>
-__device__ __forceinline__ T trace_point(const T* q, const T* ee, int nel, long long t) {
-  constexpr int S2 = S * S, NF = 4 * S;
+__device__ __forceinline__ T trace_point(const T* q, const T* ext, int nel, long long t) {
+  constexpr int S2 = S * S;
   const int npts = nel * S;
   const int k = (int)(t % S);
   const int along = (int)((t / S) % nel);
   const int row = (int)((t / npts) % 24);
   const int v = (int)(t / (24LL * npts));
   const int side = row / 6, p = row - side * 6;
-  int ey, ex, col;
+  int ey, ex, f;
   switch (side) {
-    case 0: ey = 0;       ex = along;   col = 2 * S + k; break;  // south
-    case 1: ey = nel - 1; ex = along;   col = 3 * S + k; break;  // north
-    case 2: ey = along;   ex = 0;       col = k;         break;  // west
-    default: ey = along;  ex = nel - 1; col = S + k;     break;  // east
+    case 0: ey = 0;       ex = along;   f = 2; break;  // south
+    case 1: ey = nel - 1; ex = along;   f = 3; break;  // north
+    case 2: ey = along;   ex = 0;       f = 0; break;  // west
+    default: ey = along;  ex = nel - 1; f = 1; break;  // east
   }
   const long long nq = 6LL * nel * nel * S2;
   const long long elem = ((long long)p * nel + ey) * nel + ex;
-  return dot_col<T, S2>(q + v * nq + elem * S2, ee, NF, col);
+  return face_trace<T, S>(q + v * nq + elem * S2, ext + f * S, f, k);
 }
 
-// One block of EB elements of the operator, called by every thread of the
-// block (it synchronises the block). `smem` holds EE/DD/CC already (loaded
-// by the caller, visible after the caller's or this function's first
-// barrier); the per-element regions follow them.
+// One block of `eb` consecutive elements of the operator (eb <= Shape::EB;
+// thread e*s^2 + j is node j of the block's element e), called by every
+// thread of the block (it synchronises the block). `smem` holds the 1D
+// factors already (load_factors, visible after the caller's or this
+// function's first barrier); the per-element regions follow them.
 //
 // Each element computes the AUSM flux at its own four faces from (own trace,
 // neighbour trace or halo) with qL/qR in a fixed order: the neighbour's trace
-// is re-extrapolated from its state in global memory with the same fma
-// sequence that neighbour uses for its own trace, so both sides of an interior
-// interface get bit-identical fluxes (mass is conserved to round-off). West
-// and south panel-edge interfaces take qL from the halo, east and north take
-// qR from it. In the perturbation form (PERT) the state, halo, output and
-// traces carry deltas: base traces come from itf0 (the neighbour's entry for
-// the neighbour's face, so again the same bits on both sides) and halo0, and
-// every flux is the term-level delta around them; the output is rhs0 + delta
-// (or the stage combination of delta states). With HALO_FROM_TRACES,
-// `halo` holds the traces and each panel-edge face computes its halo value
-// with `halo_point`.
+// is re-extrapolated from the s nodes of its row or column in global memory
+// by face_trace, the function that neighbour uses for its own trace, so both
+// sides of an interior interface get bit-identical fluxes (mass is conserved
+// to round-off). West and south panel-edge interfaces take qL from the halo,
+// east and north take qR from it. In the perturbation form (PERT) the state,
+// halo, output and traces carry deltas: base traces come from itf0 (the
+// neighbour's entry for the neighbour's face, so again the same bits on both
+// sides) and halo0, and every flux is the term-level delta around them; the
+// output is rhs0 + delta (or the stage combination of delta states). With
+// HALO_FROM_TRACES, `halo` holds the traces and each panel-edge face computes
+// its halo value with `halo_point`.
+//
+// The divergence at node (ky, kx) sums the s x-terms of its row, then the s
+// y-terms of its column; the correction its four faces' fluxes, W, E, S, N:
+// the order in which the dense DD and CC products met their non-zero terms.
 template <typename T, int S, bool PERT, bool HALO_FROM_TRACES>
-__device__ __forceinline__ void element_block(const OpArgs<T>& A, int blk, T* smem) {
+__device__ __forceinline__ void element_block(const OpArgs<T>& A, int blk, int eb, T* smem) {
   using Sh = Shape<S>;
   constexpr int S2 = Sh::S2, NF = Sh::NF;
-  const T* sEE = smem;
-  const T* sDD = sEE + S2 * NF;
-  const T* sCC = sDD + 2 * S2 * S2;
+  const T* sExt = smem;
+  const T* sDx = sExt + NF;
+  const T* sDy = sDx + S2;
+  const T* sCorr = sDy + S2;
 
   const int nel = A.nel;
   const int tid = threadIdx.x;
   const int e_loc = tid / S2;
   const int j = tid - e_loc * S2;
+  const int ky = j / S, kx = j - ky * S;
   const int npanel = A.npanel;
   const int per_panel = nel * nel;
   const int nelem = npanel * per_panel;
-  const int elem = blk * Sh::EB + e_loc;
-  const bool valid = e_loc < Sh::EB && elem < nelem;
+  const int elem = blk * eb + e_loc;
+  const bool valid = e_loc < eb && elem < nelem;
   const long long nq = (long long)nelem * S2;           // stride between variables
   const long long fstride = (long long)per_panel * S2;  // stride between metric fields
   const long long pt = (long long)elem * S2 + j;
 
-  T* sQ = smem + Sh::N_OPS + e_loc * Sh::PER_ELEM;
+  T* sQ = smem + Sh::N_FAC + e_loc * Sh::PER_ELEM;
   T* sF = sQ + 3 * S2;
   T* sFl = sF + 6 * S2;
 
@@ -314,16 +380,17 @@ __device__ __forceinline__ void element_block(const OpArgs<T>& A, int blk, T* sm
 
     const int npts = nel * S;
     for (int fi = j; fi < NF; fi += S2) {
-      const int side = fi / S;  // EE column blocks: 0 west, 1 east, 2 south, 3 north
+      const int side = fi / S;  // faces: 0 west, 1 east, 2 south, 3 north
       const int k = fi - side * S;
       bool at_edge;
-      int nb_elem, nb_col, hside, along;
+      int nb_elem, hside, along;
       switch (side) {
-        case 0: at_edge = ex == 0;       nb_elem = elem - 1;   nb_col = S + k;     hside = 2; along = ey; break;
-        case 1: at_edge = ex == nel - 1; nb_elem = elem + 1;   nb_col = k;         hside = 3; along = ey; break;
-        case 2: at_edge = ey == 0;       nb_elem = elem - nel; nb_col = 3 * S + k; hside = 0; along = ex; break;
-        default: at_edge = ey == nel - 1; nb_elem = elem + nel; nb_col = 2 * S + k; hside = 1; along = ex; break;
+        case 0: at_edge = ex == 0;       nb_elem = elem - 1;   hside = 2; along = ey; break;
+        case 1: at_edge = ex == nel - 1; nb_elem = elem + 1;   hside = 3; along = ey; break;
+        case 2: at_edge = ey == 0;       nb_elem = elem - nel; hside = 0; along = ex; break;
+        default: at_edge = ey == nel - 1; nb_elem = elem + nel; hside = 1; along = ex; break;
       }
+      const int nb_side = side ^ 1;  // the neighbour's face on this interface
       const long long hidx = ((long long)(hside * npanel + p) * nel + along) * S + k;  // within one variable
       const long long hvar = 4LL * npanel * npts;
       T own[3], nb[3];
@@ -336,10 +403,11 @@ __device__ __forceinline__ void element_block(const OpArgs<T>& A, int blk, T* sm
         }
       } else {
 #pragma unroll
-        for (int v = 0; v < 3; ++v) nb[v] = dot_col<T, S2>(A.q + v * nq + (long long)nb_elem * S2, sEE, NF, nb_col);
+        for (int v = 0; v < 3; ++v)
+          nb[v] = face_trace<T, S>(A.q + v * nq + (long long)nb_elem * S2, sExt + nb_side * S, nb_side, k);
       }
 #pragma unroll
-      for (int v = 0; v < 3; ++v) own[v] = dot_col<T, S2>(sQ + v * S2, sEE, NF, fi);
+      for (int v = 0; v < 3; ++v) own[v] = face_trace<T, S>(sQ + v * S2, sExt + side * S, side, k);
       // West/south faces: the neighbour (or halo) is on the left.
       const bool own_right = side == 0 || side == 2;
       T L[3], R[3], F[3];
@@ -359,7 +427,7 @@ __device__ __forceinline__ void element_block(const OpArgs<T>& A, int blk, T* sm
 #pragma unroll
         for (int v = 0; v < 3; ++v) {
           own0[v] = A.itf0[v * tvar + (long long)elem * NF + fi];
-          nb0[v] = at_edge ? A.halo0[v * hvar + hidx] : A.itf0[v * tvar + (long long)nb_elem * NF + nb_col];
+          nb0[v] = at_edge ? A.halo0[v * hvar + hidx] : A.itf0[v * tvar + (long long)nb_elem * NF + nb_side * S + k];
           L0[v] = own_right ? nb0[v] : own0[v];
           R0[v] = own_right ? own0[v] : nb0[v];
         }
@@ -379,10 +447,15 @@ __device__ __forceinline__ void element_block(const OpArgs<T>& A, int blk, T* sm
 #pragma unroll
     for (int v = 0; v < 3; ++v) {
       T div = T(0);
-      for (int i = 0; i < S2; ++i) div = fmadd(sF[v * S2 + i], sDD[i * S2 + j], div);
-      for (int i = 0; i < S2; ++i) div = fmadd(sF[(3 + v) * S2 + i], sDD[(S2 + i) * S2 + j], div);
+#pragma unroll
+      for (int m = 0; m < S; ++m) div = fmadd(sF[v * S2 + ky * S + m], sDx[kx * S + m], div);
+#pragma unroll
+      for (int m = 0; m < S; ++m) div = fmadd(sF[(3 + v) * S2 + m * S + kx], sDy[ky * S + m], div);
       T corr = T(0);
-      for (int fi = 0; fi < NF; ++fi) corr = fmadd(sFl[v * NF + fi], sCC[fi * S2 + j], corr);
+      corr = fmadd(sFl[v * NF + ky], sCorr[kx], corr);                 // west
+      corr = fmadd(sFl[v * NF + S + ky], sCorr[S + kx], corr);         // east
+      corr = fmadd(sFl[v * NF + 2 * S + kx], sCorr[2 * S + ky], corr);  // south
+      corr = fmadd(sFl[v * NF + 3 * S + kx], sCorr[3 * S + ky], corr);  // north
       const T force = v == 0 ? T(0) : (v == 1 ? force1 : force2);
       r[v] = (-invsg * div - force) - invsg * corr;
       if constexpr (PERT) r[v] = r[v] + A.rhs0[v * nq + pt];
@@ -420,16 +493,30 @@ __device__ __forceinline__ void element_block(const OpArgs<T>& A, int blk, T* sm
 #pragma unroll
           for (int v = 0; v < 3; ++v)
             A.traces[v * 4LL * npanel * npts + ((long long)(tside * npanel + p) * nel + along) * S + k] =
-                dot_col<T, S2>(sQ + v * S2, sEE, NF, fi);
+                face_trace<T, S>(sQ + v * S2, sExt + side * S, side, k);
         }
       }
     }
   }
 }
 
-template <typename T, int S>
-__device__ __forceinline__ void load_ops(const T* ops, T* smem) {
-  for (int i = threadIdx.x; i < Shape<S>::N_OPS; i += blockDim.x) smem[i] = ops[i];
+// Host side: info = [registers, local (spill) bytes a thread, dynamic shared
+// memory bytes a block, resident blocks an SM, threads a block] of one kernel
+// instantiation launched with `threads` threads and `smem` bytes, as the
+// runtime reports them.
+template <typename Kernel>
+cudaError_t kernel_resources(Kernel kernel, int threads, size_t smem, int* info) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  info[0] = attr.numRegs;
+  info[1] = (int)attr.localSizeBytes;
+  info[2] = (int)smem;
+  info[3] = blocks;
+  info[4] = threads;
+  return err;
 }
 
 }  // namespace swk

@@ -31,28 +31,35 @@
 //
 // Layouts: csrc/sw_element.cuh.
 //
-// Design: one thread per solution point, EB = 256 / s^2 elements per block;
-// EE/DD/CC and each element's state, pointwise fluxes and face fluxes in
-// shared memory. In the perturbation form the base planes are read from global
-// memory per thread (the node's h0, hu0, u0, rhs0 and the faces' base traces
-// and halo), so the shared memory of a block does not grow.
+// Design: one thread per solution point, up to EB = 256 / s^2 elements per
+// block; the sum-factorised body of sw_element.cuh (only the 1D factors, 8s +
+// 2s^2 words, are shared by the block; each element keeps its state,
+// pointwise fluxes and face fluxes in shared memory: 23 KB a block at s=7
+// float64, where the dense EE/DD/CC blocks took 79.5 KB). A launch with too
+// few elements to give every SM a block (a tile: nt = 32, s = 3) takes fewer
+// elements a block (elements_per_block). In the perturbation form the base
+// planes are read from global memory per thread (the node's h0, hu0, u0,
+// rhs0 and the faces' base traces and halo), so the shared memory of a block
+// does not grow.
 //
 // What bounds it (H100 SXM, s=3, float64, per element and call): about
 // 0.7-0.9 KB of device-memory traffic (state 216 B in and 216 B out, x 216 B
 // in stage mode, gridrot 72 B; the single-panel metric, 13 fields, and the
-// neighbours' states mostly hit L2) against about 3.8 kFLOP (dense 18x9
-// divergence and 12x9 correction products, 24 face extrapolations, pointwise
-// fluxes, 12 AUSM fluxes): ~4-5 FLOP/B, under the card's f64 balance of
-// ~10 FLOP/B (34 TFLOP/s vector f64 over 3.35 TB/s), so the kernel is
-// memory-bound in principle; at nel=64 both bounds are under 10 us, so in
-// practice block-level latency (two or three barriers per block, low
-// occupancy at large s) dominates. The perturbation form reads 14 base planes
-// more (about 2.3x the state's bytes) and does about twice the face work. The
-// dense EE/DD/CC products do s times the FLOPs of their Kronecker factors;
-// using the 1D factors is later work. The halo and edge kernels move a few
-// hundred KB and are bound by their launch.
+// neighbours' rows mostly hit L2) against about 1.3 kFLOP (the s-term
+// products, pointwise fluxes, 12 AUSM fluxes): under the card's f64 balance
+// of ~10 FLOP/B (34 TFLOP/s vector f64 over 3.35 TB/s), so memory-bound in
+// principle; at nel=64 both bounds are under 10 us, and block-level latency
+// (two or three barriers a block, the face loop's dependent loads, square
+// roots and divides) sets the time: skipping the face loop takes 47 % off
+// the (64,3) float64 RHS, reading the neighbours' rows 9 %, the metric 11 %
+// (tools/sw_operator_ablation.py). The perturbation form reads 14 base
+// planes more (about 2.3x the state's bytes) and does about twice the face
+// work. The halo and edge kernels move a few hundred KB and are bound by
+// their launch.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "sw_element.cuh"
 
@@ -62,19 +69,44 @@ using swk::OpArgs;
 using swk::Shape;
 
 template <typename T, int S, bool PERT>
-__global__ void __launch_bounds__(swk::kThreads) sw_operator_kernel(OpArgs<T> A) {
+__device__ __forceinline__ void operator_body(const OpArgs<T>& A, int eb) {
   extern __shared__ unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
-  swk::load_ops<T, S>(A.ops, smem);
-  swk::element_block<T, S, PERT, false>(A, blockIdx.x, smem);
+  swk::load_factors<T, S>(A.ops, smem);
+  swk::element_block<T, S, PERT, false>(A, blockIdx.x, eb, smem);
+}
+
+template <typename T, int S, bool PERT>
+__global__ void __launch_bounds__(swk::kThreads) sw_operator_kernel(OpArgs<T> A, int eb) {
+  operator_body<T, S, PERT>(A, eb);
+}
+
+// The float32 perturbation form compiled for 4 resident blocks an SM (64
+// registers; it takes 79 at s=4 and 3 blocks uncapped, and runs 15-17 %
+// faster capped at s=4 and 7). A cap written into the other forms'
+// template (a minimum of 1 block) made the absolute forms 3-20 % slower.
+template <int S>
+__global__ void __launch_bounds__(swk::kThreads, 4) sw_operator_f32_pert_kernel(OpArgs<float> A, int eb) {
+  operator_body<float, S, true>(A, eb);
+}
+
+template <typename T, int S, bool PERT>
+auto operator_kernel() {
+  if constexpr (std::is_same<T, float>::value && PERT)
+    return sw_operator_f32_pert_kernel<S>;
+  else
+    return sw_operator_kernel<T, S, PERT>;
 }
 
 template <typename T, int S>
 __global__ void __launch_bounds__(swk::kThreads) sw_edges_kernel(const T* __restrict__ q, const T* __restrict__ ops,
                                                                  T* __restrict__ traces, int nel) {
+  __shared__ T fac[Shape<S>::N_FAC];
+  swk::load_factors<T, S>(ops, fac);
+  __syncthreads();
   const long long total = 3LL * 24 * nel * S;
   for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x; t < total; t += (long long)gridDim.x * blockDim.x)
-    traces[t] = swk::trace_point<T, S>(q, ops, nel, t);
+    traces[t] = swk::trace_point<T, S>(q, fac, nel, t);
 }
 
 template <typename T>
@@ -93,20 +125,26 @@ __global__ void __launch_bounds__(swk::kThreads) sw_halo_kernel(const T* __restr
   }
 }
 
+// Elements a block: Shape::EB, or fewer where the launch has too few
+// elements to give every SM a block (a tile launch: nt = 32, s = 3 is 37
+// blocks of 28 elements, 147 of 7).
+int elements_per_block(int nelem, int eb_max, int sms) {
+  const int eb = nelem / sms;
+  return eb < 1 ? 1 : (eb < eb_max ? eb : eb_max);
+}
+
 template <typename T, int S, bool PERT>
 cudaError_t launch_operator(const OpArgs<T>& A, cudaStream_t stream) {
   using Sh = Shape<S>;
-  const size_t smem = Sh::smem_bytes(sizeof(T));
-  static bool configured = false;
-  if (!configured && smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(sw_operator_kernel<T, S, PERT>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
   const int nelem = A.npanel * A.nel * A.nel;
-  const int blocks = (nelem + Sh::EB - 1) / Sh::EB;
-  sw_operator_kernel<T, S, PERT><<<blocks, Sh::THREADS, smem, stream>>>(A);
+  const int eb = elements_per_block(nelem, Sh::EB, sms);
+  const int blocks = (nelem + eb - 1) / eb;
+  auto kernel = operator_kernel<T, S, PERT>();
+  kernel<<<blocks, eb * Sh::S2, Sh::smem_bytes(sizeof(T), eb), stream>>>(A, eb);
   return cudaGetLastError();
 }
 
@@ -115,6 +153,27 @@ cudaError_t dispatch_operator(int s, const OpArgs<T>& A, bool pert, cudaStream_t
 #define SW_CASE(S) \
   case S:          \
     return pert ? launch_operator<T, S, true>(A, stream) : launch_operator<T, S, false>(A, stream);
+  switch (s) {
+    SW_CASE(2) SW_CASE(3) SW_CASE(4) SW_CASE(5) SW_CASE(6) SW_CASE(7) SW_CASE(8)
+    default: return cudaErrorInvalidValue;
+  }
+#undef SW_CASE
+}
+
+// What the runtime reports of the operator kernel's instantiation at its
+// largest block (Shape::EB elements).
+template <typename T, int S, bool PERT>
+cudaError_t operator_resources(int* info) {
+  using Sh = Shape<S>;
+  return swk::kernel_resources(operator_kernel<T, S, PERT>(), Sh::EB * Sh::S2, Sh::smem_bytes(sizeof(T), Sh::EB),
+                               info);
+}
+
+template <typename T>
+cudaError_t dispatch_resources(int s, bool pert, int* info) {
+#define SW_CASE(S) \
+  case S:          \
+    return pert ? operator_resources<T, S, true>(info) : operator_resources<T, S, false>(info);
   switch (s) {
     SW_CASE(2) SW_CASE(3) SW_CASE(4) SW_CASE(5) SW_CASE(6) SW_CASE(7) SW_CASE(8)
     default: return cudaErrorInvalidValue;
@@ -226,7 +285,7 @@ extern "C" int sw_tile_launch(int is_f64, int s, int nt, const void* q, const vo
 }
 
 // Panel-edge traces (3, 4, 6, nel, s) of q; ops as for sw_operator_launch
-// (only its EE block is read).
+// (the kernel reads the 1D factors from it).
 extern "C" int sw_edges_launch(int is_f64, int s, int nel, const void* q, const void* ops, void* traces,
                                void* stream) {
   if (nel < 2) return (int)cudaErrorInvalidValue;
@@ -253,6 +312,14 @@ extern "C" int sw_halo_launch(int is_f64, int npts, const void* traces, const vo
                                                            static_cast<const float*>(conv),
                                                            static_cast<float*>(halo), npts);
   return (int)cudaGetLastError();
+}
+
+// What the runtime reports of the operator kernel at (is_f64, s, pert):
+// info = [registers, local (spill) bytes a thread, dynamic shared memory
+// bytes a block, resident blocks an SM, threads a block], at its largest
+// block.
+extern "C" int sw_operator_resources(int is_f64, int s, int pert, int* info) {
+  return (int)(is_f64 ? dispatch_resources<double>(s, pert != 0, info) : dispatch_resources<float>(s, pert != 0, info));
 }
 
 extern "C" const char* sw_operator_error_string(int code) {

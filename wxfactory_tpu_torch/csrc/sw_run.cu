@@ -11,30 +11,39 @@
 // (nsteps x 3 iterations of the plain stage with its traces and halo); the
 // wrapper sw_run there launches this kernel.
 //
-// Design. Each element reads its neighbours' states to re-extrapolate their
-// traces, so a stage cannot update its input in place: the kernel keeps
-// three state buffers (the step's start x, the stage input, the stage
-// output, rotated so that the last step's result lands in `out`) and two
-// trace buffers (the stage input's traces, read by the panel-edge faces
-// through the halo exchange, and the output's, written by the edge
-// elements). A grid-wide barrier (cooperative_groups::this_grid().sync())
-// separates the stages; one more follows the bootstrap, in which the kernel
-// extrapolates the input state's traces itself. Each stage is a grid-stride
-// loop over element blocks of swk::element_block, the body of the per-stage
-// kernel sw_operator_kernel (csrc/sw_operator.cu), with the halo values
-// computed from the traces by swk::halo_point, the body of sw_halo_kernel:
-// with the same coefficients the run gives the same bits as the chain of
-// per-stage launches (edge kernel, then halo and operator kernels a stage).
-// The grid is as large as the card holds at once
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs, at most one block per
-// element block); a launch the card cannot hold returns its error and no
-// stage runs.
+// Design. Each element reads the rows of its neighbours' states that face it
+// to re-extrapolate their traces, so a stage cannot update its input in
+// place: the kernel keeps three state buffers (the step's start x, the stage
+// input, the stage output, rotated so that the last step's result lands in
+// `out`) and two trace buffers (the stage input's traces, read by the
+// panel-edge faces through the halo exchange, and the output's, written by
+// the edge elements). A grid-wide barrier (cooperative_groups::this_grid()
+// .sync()) separates the stages; one more follows the bootstrap, in which
+// the kernel extrapolates the input state's traces itself. Each stage is a
+// grid-stride loop over element blocks of swk::element_block, the
+// sum-factorised body of the per-stage kernel sw_operator_kernel
+// (csrc/sw_operator.cu), with the halo values computed from the traces by
+// swk::halo_point, the body of sw_halo_kernel: with the same coefficients
+// the run gives the same bits as the chain of per-stage launches (edge
+// kernel, then halo and operator kernels a stage). The grid is as large as
+// the card holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor x
+// SMs, at most one block per element block: 3 blocks of 256 threads an SM
+// in float32, 2 in float64 at s=4); a launch the card cannot hold returns
+// its error and no stage runs.
 //
-// What bounds it: at nel=64, s=4 each stage reads the stage input (and x),
-// writes the output and touches the metric, ~6-10 MB in float32 and twice
-// that in float64 (the base planes add ~22 MB in float32), all of which fit
-// in the H100's 50 MB L2; between stages the grid barrier (a few us) and the
-// load imbalance of the last wave of element blocks. It saves what the
+// What bounds it (H100, nel=64, s=4, 20 steps; tools/sw_operator_ablation.py):
+// each stage reads the stage input (and x), writes the output and touches
+// the metric, ~6-10 MB in float32 and twice that in float64; the base planes
+// add ~22 MB in float32 and ~44 MB in float64, which with the state buffers
+// no longer fit the 50 MB L2. A stage takes ~23 us in float32 (the face loop,
+// its square roots, divides and dependent loads, ~44 % of it), ~48 us in
+// float64 (where reading the metric and base planes from one element instead
+// cuts a third). Two choices were measured and not taken: keeping each owned
+// element's metric and base planes in shared memory across stages (at most
+// 2 % in float32; in float64 the 3.2 KB an element of 1536 element blocks on
+// 264 resident blocks does not fit), and emitting every face trace so the
+// next stage reads one value a face instead of s (at most 5 %, the whole
+// neighbour-row share, against twice the trace writes). It saves what the
 // per-stage chain pays on the host: three operator and three halo launches a
 // step.
 
@@ -68,11 +77,12 @@ __global__ void __launch_bounds__(swk::kThreads) sw_run_kernel(RunArgs<T> R) {
   const int nel = R.op.nel;
   const int nblocks = (6 * nel * nel + Sh::EB - 1) / Sh::EB;
 
-  swk::load_ops<T, S>(R.op.ops, smem);
+  swk::load_factors<T, S>(R.op.ops, smem);
+  __syncthreads();
   // Bootstrap: the input state's panel-edge traces.
   const long long ntr = 3LL * 24 * nel * S;
   for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x; t < ntr; t += (long long)gridDim.x * blockDim.x)
-    R.tr[0][t] = swk::trace_point<T, S>(R.op.q, R.op.ops, nel, t);
+    R.tr[0][t] = swk::trace_point<T, S>(R.op.q, smem, nel, t);
   grid.sync();
 
   // Buffers: the step's x in buf[ix] (the input itself at step 0), the first
@@ -95,7 +105,7 @@ __global__ void __launch_bounds__(swk::kThreads) sw_run_kernel(RunArgs<T> R) {
       A.cdt = R.cdt[k];
       A.stage = 1;
       for (int blk = blockIdx.x; blk < nblocks; blk += gridDim.x) {
-        swk::element_block<T, S, PERT, true>(A, blk, smem);
+        swk::element_block<T, S, PERT, true>(A, blk, Sh::EB, smem);
         __syncthreads();  // the next element block reuses the shared regions
       }
       grid.sync();
@@ -111,25 +121,28 @@ template <typename T, int S, bool PERT>
 cudaError_t launch_run(RunArgs<T> R, cudaStream_t stream) {
   using Sh = Shape<S>;
   auto kernel = sw_run_kernel<T, S, PERT>;
-  const size_t smem = Sh::smem_bytes(sizeof(T));
+  const size_t smem = Sh::smem_bytes(sizeof(T), Sh::EB);
   cudaError_t err;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
   int device = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, Sh::THREADS, smem)) != cudaSuccess)
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, Sh::EB * Sh::S2, smem)) != cudaSuccess)
     return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   const int nblocks = (6 * R.op.nel * R.op.nel + Sh::EB - 1) / Sh::EB;
   const int grid = per_sm * sms < nblocks ? per_sm * sms : nblocks;
   void* args[] = {&R};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(grid), dim3(Sh::THREADS), args, smem,
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(grid), dim3(Sh::EB * Sh::S2), args, smem,
                                     stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// What the runtime reports of the run kernel's instantiation (s = 4).
+template <typename T, bool PERT>
+cudaError_t run_resources(int* info) {
+  using Sh = Shape<4>;
+  return swk::kernel_resources(sw_run_kernel<T, 4, PERT>, Sh::EB * Sh::S2, Sh::smem_bytes(sizeof(T), Sh::EB), info);
 }
 
 template <typename T>
@@ -199,6 +212,13 @@ extern "C" int sw_run_launch(int is_f64, int s, int nel, const void* q, const vo
     err = pert ? launch_run<float, 4, true>(R, st) : launch_run<float, 4, false>(R, st);
   }
   return (int)err;
+}
+
+// What the runtime reports of the run kernel (s = 4) at (is_f64, pert):
+// info as for sw_operator_resources.
+extern "C" int sw_run_resources(int is_f64, int pert, int* info) {
+  if (is_f64) return (int)(pert ? run_resources<double, true>(info) : run_resources<double, false>(info));
+  return (int)(pert ? run_resources<float, true>(info) : run_resources<float, false>(info));
 }
 
 extern "C" const char* sw_run_error_string(int code) {

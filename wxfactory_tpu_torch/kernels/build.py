@@ -41,6 +41,8 @@ SIGNATURES = {
         "sw_edges_launch": (_I, [_I, _I, _I] + [_P] * 3 + [_P]),  # is_f64, s, nel, q, ops, traces, stream
         # is_f64, npts, traces, src, flip, conv, halo, stream
         "sw_halo_launch": (_I, [_I, _I] + [_P] * 5 + [_P]),
+        # is_f64, s, pert, int[5] out
+        "sw_operator_resources": (_I, [_I, _I, _I, _P]),
         "sw_operator_error_string": (ctypes.c_char_p, [_I]),
     },
     "sw_run": {
@@ -52,6 +54,7 @@ SIGNATURES = {
             + [_P] * 20
             + [_I, _P],  # nsteps, stream
         ),
+        "sw_run_resources": (_I, [_I, _I, _P]),  # is_f64, pert, int[5] out
         "sw_run_error_string": (ctypes.c_char_p, [_I]),
     },
     "euler3d_operator": {

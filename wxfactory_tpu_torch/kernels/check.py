@@ -15,6 +15,9 @@ of terms 400 to 28,000 times larger at the checked shapes, so f32 round-off
 in another summation order is that many times larger than the RHS's own
 ulp: the plain f32 RHS differs from the f64 one by 1e-3 of its max at
 nel=64, s=3. The error scaled by the RHS max is reported beside it.
+Every SW row (operator, perturbation mode, tile, whole run) also holds
+mass: ``mass_err`` below, of the h change (weights ``sw_mass_weights``),
+within the row's tolerance.
 
 3D Euler (``compare_euler3d_operator``): DCMIP 31 (or 77 on a rotating
 planet) with seeded noise, 1e-3 relative on every variable plus a 0.1 m/s
@@ -126,9 +129,11 @@ def _scaled(err: torch.Tensor, scale: torch.Tensor) -> float:
 
 def compare_sw_operator(nel: int, s: int, dtype, device="cuda", seed: int = 0):
     """Kernel against plain in every mode; returns one dict per mode with
-    the scaled error ``err``, its tolerance ``tol`` and ``ok``."""
+    the scaled error ``err``, its tolerance ``tol``, the mass check
+    (``mass_err`` of the h change, within ``tol``) and ``ok``."""
     con, topology, x, y = case6_inputs(nel, s, dtype, device, seed)
     halo = swop.halo_from_traces(swop.edge_traces(y, con), topology)
+    wsg = sw_mass_weights(make_dfr_operators(s), con)
     modes = {
         "rhs": dict(),
         "stage": dict(a=0.0, b=1.0, cdt=DT),
@@ -157,9 +162,12 @@ def compare_sw_operator(nel: int, s: int, dtype, device="cuda", seed: int = 0):
         if got_tr is not None:
             row["traces_err"] = _scaled(got_tr - want_tr, per_variable_max(want_tr))
         row["tol"] = tol
+        row["mass_err"], row["mass_tol"] = mass_err(got, want, wsg, dtype, kw.get("x"), y, kw.get("a", 0.0),
+                                                    kw.get("b", 1.0), "cdt" in kw, tol=tol)
         row["ok"] = bool(
             np.isfinite(row["err"]) and row["err"] <= tol
             and row.get("traces_err", 0.0) <= tol and torch.isfinite(got).all().item()
+            and row["mass_err"] <= row["mass_tol"]
         )
         results.append(row)
     return results
@@ -330,13 +338,22 @@ def mass_weights(ops, con) -> torch.Tensor:
     return con.fields[0].double() * torch.einsum("i,j,k->ijk", w, w, w).reshape(-1)
 
 
-def mass_err(got, want, wsg, dtype, x=None, y=None, a: float = 0.0, b: float = 1.0, stage: bool = False):
+def sw_mass_weights(ops, con) -> torch.Tensor:
+    """sqrt(g) times the quadrature weights w_i w_j at every node of the SW
+    constants' panel (or tile), float64: the weights of the h integral."""
+    w = torch.as_tensor(np.asarray(ops.weights), dtype=torch.float64, device=con.fields.device)
+    return con.fields[0].double() * torch.outer(w, w).reshape(-1)
+
+
+def mass_err(got, want, wsg, dtype, x=None, y=None, a: float = 0.0, b: float = 1.0, stage: bool = False,
+             tol=None):
     """(err, limit) of the kernel's mass change against the plain version's:
-    the weighted integrals (weights ``wsg``) of their rho change (the RHS,
-    or ``out - a*x - b*y`` in stage mode), in float64; err is their
-    difference over the plain change's absolute integral, limit the dtype's
-    operator tolerance plus four units of rounding of the plain output's
-    absolute integral over the same."""
+    the weighted integrals (weights ``wsg``) of their rho (SW: h) change
+    (the RHS, or ``out - a*x - b*y`` in stage mode), in float64; err is
+    their difference over the plain change's absolute integral, limit the
+    operator tolerance ``tol`` (default: the 3D one of the dtype) plus four
+    units of rounding of the plain output's absolute integral over the
+    same."""
     def change(out):
         c = out[0].double()
         if stage:
@@ -347,7 +364,7 @@ def mass_err(got, want, wsg, dtype, x=None, y=None, a: float = 0.0, b: float = 1
     scale = float(want_c.abs().sum())
     rounding = 4.0 * torch.finfo(dtype).eps * float((wsg * want[0].double()).abs().sum())
     err = abs(float(change(got).sum() - want_c.sum())) / scale
-    return err, E3_TOLERANCE[dtype] + rounding / scale
+    return err, (E3_TOLERANCE[dtype] if tol is None else tol) + rounding / scale
 
 
 E3_TOLERANCE = {torch.float64: 1e-12, torch.float32: 1e-5}
@@ -661,6 +678,34 @@ def operator_kernel_resources(dtype, s: int) -> dict:
     return out
 
 
+def sw_kernel_resources(dtype, s: int) -> dict:
+    """{"absolute", "perturbation": {registers, local_bytes, smem_bytes,
+    blocks_per_sm, threads}} of the SW operator kernel at one dtype and s
+    (its largest block), and at s = 4 also "run", "run_pert" of the
+    whole-run kernel: what the runtime reports (on the card; builds the
+    libraries)."""
+    import ctypes
+
+    from .build import load_library
+
+    keys = ("registers", "local_bytes", "smem_bytes", "blocks_per_sm", "threads")
+    f64 = 1 if dtype == torch.float64 else 0
+    out = {}
+    for pert, form in enumerate(("absolute", "perturbation")):
+        info = (ctypes.c_int * 5)()
+        rc = load_library("sw_operator").sw_operator_resources(f64, s, pert, ctypes.cast(info, ctypes.c_void_p))
+        if rc != 0:
+            raise RuntimeError(f"sw_operator_resources failed: CUDA error {rc}")
+        out[form] = dict(zip(keys, info))
+        if s == 4:
+            info = (ctypes.c_int * 5)()
+            rc = load_library("sw_run").sw_run_resources(f64, pert, ctypes.cast(info, ctypes.c_void_p))
+            if rc != 0:
+                raise RuntimeError(f"sw_run_resources failed: CUDA error {rc}")
+            out["run_pert" if pert else "run"] = dict(zip(keys, info))
+    return out
+
+
 def euler3d_pert_inputs(nel_h: int, nel_v: int, s: int, dtype, device, case: int = 31, seed: int = 7):
     """(con, topology, pert, dq, v): the perturbation form's inputs at the
     tangent inputs' state q0 + dq (``euler3d_tangent_inputs``): the base
@@ -899,9 +944,12 @@ def compare_sw_pert(nel: int, s: int, dtype, device="cuda", seed: int = 0):
     JAX test of km_gen's perturbation mode, tests/test_pallas_gen.py:104-122).
     float32: against the float64 plain output on the same (float64) inputs,
     within twice the float32 plain output's distance from it, or 1e-5 of
-    scale where that is larger (the f32 bound of the absolute check)."""
+    scale where that is larger (the f32 bound of the absolute check).
+    Each row also holds mass: ``mass_err`` of the h change against the
+    plain version's, within ``SW_PERT_TOLERANCE``."""
     con, topology, base, dq, x = sw_pert_inputs(nel, s, dtype, device, seed)
     halo = swop.halo_from_traces(swop.edge_traces(dq, con), topology)
+    wsg = sw_mass_weights(sw_setup(nel, s)[1], con)
     truth = None
     if dtype == torch.float32:
         con64, _, base64, dq64, x64 = sw_pert_inputs(nel, s, torch.float64, device, seed)
@@ -937,7 +985,9 @@ def compare_sw_pert(nel: int, s: int, dtype, device="cuda", seed: int = 0):
         ok = np.isfinite(row["err"]) and row["err"] <= limit and bool(torch.isfinite(got).all().item())
         if got_tr is not None:
             ok = ok and row["traces_err"] <= limit_tr
-        row["ok"] = bool(ok)
+        row["mass_err"], row["mass_tol"] = mass_err(got, want, wsg, dtype, kw.get("x"), dq, kw.get("a", 0.0),
+                                                    kw.get("b", 1.0), "cdt" in kw, tol=SW_PERT_TOLERANCE[dtype])
+        row["ok"] = bool(ok and row["mass_err"] <= row["mass_tol"])
         rows.append(row)
     return rows
 
@@ -984,7 +1034,9 @@ def compare_sw_run(nel: int, dtype, nsteps: int, pert: bool, device="cuda", dt: 
     plain result's distance from it or 1e-5. Against the chain the run is
     asked to be bit for bit equal (the same device functions and
     coefficients); ``bit_identical`` and the largest difference are
-    reported, and the difference must stay within the same limit."""
+    reported, and the difference must stay within the same limit. The run's
+    h change over all its steps also holds mass against the plain loop's
+    (``mass_err``, within ``SW_PERT_TOLERANCE``)."""
     s = 4
     con, topology, base, dq, _ = sw_pert_inputs(nel, s, dtype, device)
     geom, ops, metric, _, q0 = sw_setup(nel, s)
@@ -1013,8 +1065,10 @@ def compare_sw_run(nel: int, dtype, nsteps: int, pert: bool, device="cuda", dt: 
     row["bit_identical"] = bool(torch.equal(got, chain))
     row["chain_max_abs_err"] = float((got - chain).abs().max())
     row["chain_err"] = _scaled(got.to(ref.dtype) - chain.to(ref.dtype), scale)
+    row["mass_err"], row["mass_tol"] = mass_err(got, want, sw_mass_weights(ops, con), dtype, y=q, stage=True,
+                                                tol=SW_PERT_TOLERANCE[dtype])
     row["ok"] = bool(np.isfinite(row["err"]) and row["err"] <= limit and row["chain_err"] <= limit
-                     and torch.isfinite(got).all().item())
+                     and torch.isfinite(got).all().item() and row["mass_err"] <= row["mass_tol"])
     return row
 
 
@@ -1144,7 +1198,7 @@ def _compare_tile(kernel, plain, con64, base64, inputs64, term, dtype, row0, dt,
                 ok = ok and row["traces_err"] <= limit_tr and bool(torch.isfinite(got_tr).all().item())
             if wsg is not None:
                 row["mass_err"], row["mass_tol"] = mass_err(got, want, wsg, dtype, kw.get("x"), y, kw.get("a", 0.0),
-                                                            kw.get("b", 1.0), "cdt" in kw)
+                                                            kw.get("b", 1.0), "cdt" in kw, tol=tol)
                 ok = ok and row["mass_err"] <= row["mass_tol"]
             row["ok"] = bool(ok)
             rows.append(row)
@@ -1154,11 +1208,12 @@ def _compare_tile(kernel, plain, con64, base64, inputs64, term, dtype, row0, dt,
 def compare_sw_tile(nt: int, s: int, n: int, dtype, device="cuda", seed: int = 0):
     """The SW tile kernel (``sw_tile_operator``) against its plain version
     on the checked tile of a case-6 sphere of nel = n*nt, absolute and
-    perturbation form, RHS and stages with a = 0 and a != 0 (tolerances:
-    ``_compare_tile``); one row per mode."""
+    perturbation form, RHS and stages with a = 0 and a != 0 (tolerances
+    and the mass check of the h change: ``_compare_tile``); one row per
+    mode."""
     con64, base64, inputs64, term = sw_tile_inputs(nt, s, n, device, seed)
     return _compare_tile(swop.sw_tile_operator, swop.sw_tile_operator_plain, con64, base64, inputs64, term, dtype,
-                         {"nt": nt, "s": s, "n": n}, DT, "base")
+                         {"nt": nt, "s": s, "n": n}, DT, "base", sw_mass_weights(sw_setup(n * nt, s)[1], con64))
 
 
 def euler3d_tile_inputs(nt: int, nk: int, s: int, case: int, n: int, device, seed: int = 0):

@@ -157,6 +157,54 @@ def build_constants(ops, metric, nel: int, dtype=torch.float64, device="cpu") ->
                        itf_x=t(itf_x), itf_y=t(itf_y))
 
 
+def element_plan(s: int) -> dict:
+    """The element kernel's indexing (csrc/sw_element.cuh), mirrored in
+    numpy: which entries of the flat ``ops`` [EE | DD | CC] it reads as the
+    1D factors, and which terms each sum of ``element_block`` takes, in its
+    order. EE, DD and CC are Kronecker products with the identity, so
+    each face point, derivative and correction has s, 2s and 4 terms.
+
+    * ``factors`` (8s + 2s^2,): the ``ops`` position of each word of the
+      kernel's factor buffer (``load_factors``): ext (4, s), dx (s, s),
+      dy (s, s), corr (4, s).
+    * ``face_nodes``, ``face_factor`` (4s, s): face point fi = f*s + k
+      (faces W, E, S, N) sums node ``face_nodes[fi, m]`` times factor
+      ``face_factor[fi, m]``, m ascending (``face_trace``).
+    * ``div_terms``, ``div_factor`` (s^2, 2s): node j's divergence sums
+      [fx | fy] entry ``div_terms[j, t]`` (fy at s^2 + node) times factor
+      ``div_factor[j, t]``: its row's s x-terms, then its column's s
+      y-terms.
+    * ``corr_faces``, ``corr_factor`` (s^2, 4): node j's correction sums
+      face flux ``corr_faces[j, t]`` times factor ``corr_factor[j, t]``,
+      faces W, E, S, N."""
+    s2, nf = s * s, 4 * s
+    dd0, cc0 = s2 * nf, s2 * nf + 2 * s2 * s2
+    f, m = np.divmod(np.arange(nf), s)
+    ext = np.where(f < 2, m, m * s) * nf + f * s
+    kx, m = np.divmod(np.arange(s2), s)
+    dx = dd0 + m * s2 + kx
+    ky, m = np.divmod(np.arange(s2), s)
+    dy = dd0 + (s2 + m * s) * s2 + ky * s
+    f, c = np.divmod(np.arange(nf), s)
+    corr = cc0 + f * s * s2 + np.where(f < 2, c, c * s)
+    factors = np.concatenate([ext, dx, dy, corr])
+
+    fi = np.arange(nf)[:, None]
+    f, k = np.divmod(fi, s)
+    m = np.arange(s)[None, :]
+    face_nodes = np.where(f < 2, k * s + m, m * s + k)
+    face_factor = np.broadcast_to(f * s + m, (nf, s))
+
+    ky, kx = np.divmod(np.arange(s2), s)
+    ky, kx = ky[:, None], kx[:, None]
+    div_terms = np.concatenate([ky * s + m, s2 + m * s + kx], axis=1)
+    div_factor = np.concatenate([nf + kx * s + m, nf + s2 + ky * s + m], axis=1)
+    corr_faces = np.concatenate([ky, s + ky, 2 * s + kx, 3 * s + kx], axis=1)
+    corr_factor = nf + 2 * s2 + np.concatenate([kx, s + kx, 2 * s + ky, 3 * s + ky], axis=1)
+    return {"factors": factors, "face_nodes": face_nodes, "face_factor": np.ascontiguousarray(face_factor),
+            "div_terms": div_terms, "div_factor": div_factor, "corr_faces": corr_faces, "corr_factor": corr_factor}
+
+
 
 
 @dataclass(frozen=True)
