@@ -18,10 +18,13 @@ and drives the port's two main paths, shallow water and 3D Euler:
    each variable's max;
 3. the SW main path at full width: ``python -m wxfactory_tpu_torch`` on
    Williamson case 6, nel=64, s=3, f64, TVD-RK3, dt=10 s, 360 steps, with
-   exactly one kernel launch per RK stage, a finite state, mass drift below
-   1e-10 and a checkpoint that reads back;
-4. time per RHS call of the SW kernel and of the plain version at nel=64,
-   s=3 (CUDA events, median), f64 and f32;
+   exactly one kernel launch per RK stage (the operator's state mode, its
+   panel-edge faces reading the neighbour panels' state) and no edge-trace
+   or halo launch, a finite state, mass drift below 1e-10 and a checkpoint
+   that reads back;
+4. time per RHS call of the SW kernel's state mode (the main path's call)
+   and of the plain version at nel=64, s=3 (CUDA events, median), f64 and
+   f32, with a state-mode stage and the halo-plane RHS beside them;
 5. the 3D Euler operator kernel against its plain version on the card, at
    (nel_h, nel_v, s) = (3,2,2), (12,3,2), (4,2,3), (20,20,3), (4,4,4),
    (3,2,5), (2,2,6), (7,3,3) on DCMIP 31 and (4,2,3) on the rotating planet
@@ -119,8 +122,10 @@ and drives the port's two main paths, shallow water and 3D Euler:
     6, float32, perturbation form around the initial state, at (nel, s, dt,
     steps) = (10,3,30,200) and (64,3,10,100) chained, and (64,4,30,100) in
     one packed_run launch beside the same steps chained; each with its
-    grid points/s, launch counts (3 operator and 3 halo launches a step and
-    one edge-trace bootstrap, no plain call; one launch a packed_run),
+    grid points/s, launch counts (3 state-mode operator launches a step, no
+    halo or edge-trace launch and no plain call; one launch a packed_run;
+    the edge-trace, halo and operator launches that build the perturbation
+    base at setup counted apart),
     device busy share (from a torch.profiler trace) and device span share
     (queued behind a sleep kernel, the card's launch gaps included), a
     finite state, mass drift below float32's machine epsilon, packed_run
@@ -133,12 +138,19 @@ and drives the port's two main paths, shallow water and 3D Euler:
     between two CUDA events; and CUDA events around single calls, median),
     f64 and f32, beside the bounds: the operator (absolute RHS) and its
     perturbation mode (RHS; stage + x + traces) and their plain versions at
-    (64,3), (64,4) and (64,7), the halo kernel against halo_from_traces, the
+    (64,3), (64,4) and (64,7), the state mode (halo=None; absolute RHS and
+    perturbation stage + x) against its plain version and, in turns on the
+    card, against the three launches it replaces (edge-trace, halo and
+    operator kernels), the halo kernel against halo_from_traces, the
     edge-trace kernel against edge_traces, and a packed_run step against a
-    chained step at (64,4); with the registers, spills, shared memory a
+    chained step at (64,4); the state mode held bit for bit against those
+    three launches (kernels/check.py::compare_sw_state_halo: absolute and
+    perturbation, RHS and stages, with mass) at (64,3), (64,4), (64,7) and
+    (4,2), (3,5), (2,6), (4,8); with the registers, spills, shared memory a
     block and resident blocks an SM of every SW operator instantiation
-    (s = 2..8, f64/f32, absolute/perturbation) and of the run kernel, as the
-    runtime reports them (sw_operator_resources, sw_run_resources);
+    (s = 2..8, f64/f32, absolute/perturbation, halo plane and state mode)
+    and of the run kernel, as the runtime reports them
+    (sw_operator_resources, sw_operator_state_resources, sw_run_resources);
 21. the 3D kernel's perturbation stage mode (a*dx + b*dq + cdt*(rhs0 +
     delta), a = 0 and a != 0, with the output's delta traces) against its
     plain version at every shape of phase 5, f64 within 1e-12 of scale, f32
@@ -422,6 +434,7 @@ def reset_counts():
 
     swop.launches = e3op.launches = e3op.tangent_launches = e3op.tangent_prep_launches = e3op.plain_tangent_calls = 0
     swop.pert_launches = swop.edge_launches = swop.halo_launches = swop.run_launches = swop.plain_calls = 0
+    swop.state_launches = 0
     e3op.pert_launches = e3op.pert_stage_launches = e3op.pert_tangent_launches = e3op.plain_calls = 0
     swop.tile_launches = swop.pert_tile_launches = e3op.tile_launches = e3op.pert_tile_launches = 0
     matvec.jacobian_actions = device.host_syncs = 0
@@ -435,6 +448,7 @@ def read_counts():
 
     return {"sw_operator": swop.launches, "sw_pert": swop.pert_launches, "sw_edges": swop.edge_launches,
             "sw_halo": swop.halo_launches, "sw_run": swop.run_launches, "sw_plain_calls": swop.plain_calls,
+            "sw_state": swop.state_launches,
             "euler3d_operator": e3op.launches,
             "euler3d_tangent": e3op.tangent_launches, "euler3d_tangent_prep": e3op.tangent_prep_launches,
             "euler3d_pert": e3op.pert_launches,
@@ -463,13 +477,17 @@ def phase3(torch):
     with contextlib.redirect_stdout(log):
         rc = cli.main([str(ini), "--device", "cuda"])
     wall = time.perf_counter() - t0
-    launches = read_counts()["sw_operator"]
+    counts = read_counts()
+    launches = counts["sw_operator"]
     text = log.getvalue()
     sys.stderr.write(text[-4000:])
     if rc != 0:
         raise AssertionError(f"main path exited with {rc}")
-    if launches != 3 * nsteps:
-        raise AssertionError(f"{launches} kernel launches in {nsteps} TVD-RK3 steps, expected {3 * nsteps}")
+    want = {"sw_operator": 3 * nsteps, "sw_state": 3 * nsteps, "sw_halo": 0, "sw_edges": 0, "sw_pert": 0,
+            "sw_plain_calls": 0}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"launches {got} in {nsteps} TVD-RK3 steps, expected {want}")
     drifts = [float(v) for v in re.findall(r"normalized error for mass = (\S+)", text)]
     if len(drifts) != 2 or not abs(drifts[-1]) < 1e-10:
         raise AssertionError(f"blockstats mass drift {drifts}")
@@ -484,7 +502,7 @@ def phase3(torch):
     emit({
         "phase": 3, "case": 6, "nel": nel, "s": 3, "points": 6 * nel * nel * 9, "dtype": "float64",
         "integrator": "tvdrk3", "dt": 10.0, "steps": int(run.group(1)), "run_s": float(run.group(2)),
-        "steps_per_s": float(run.group(3)), "main_wall_s": wall, "launches": launches,
+        "steps_per_s": float(run.group(3)), "main_wall_s": wall, "launches": launches, "counts": got,
         "mass_drift": drifts[-1], "energy_drift": energy[-1], "checkpoint": Path(files[0]).name,
         "checkpoint_version": version,
     })
@@ -508,16 +526,19 @@ def phase4(torch, smi):
     from wxfactory_tpu_torch.kernels.check import case6_inputs
     from wxfactory_tpu_torch.ops import sw_operator as swop
 
+    # The main path's calls: the state mode (halo=None), RHS and stage; the
+    # halo-plane RHS, which the main path no longer runs, beside them.
     rows = []
     for dtype in (torch.float64, torch.float32):
         con, topology, x, y = case6_inputs(64, 3, dtype, "cuda")
         traces = swop.edge_traces(y, con)
         halo = swop.halo_from_traces(traces, topology)
-        kernel = lambda: swop.sw_operator(y, halo, con)
-        plain = lambda: swop.sw_operator_plain(y, halo, con)
-        stage = lambda: swop.sw_operator(y, halo, con, x=x, a=0.75, b=0.25, cdt=2.5, emit_traces=True)
+        kernel = lambda: swop.sw_operator(y, None, con, topology=topology)
+        plain = lambda: swop.sw_operator_plain(y, None, con, topology=topology)
+        stage = lambda: swop.sw_operator(y, None, con, x=x, a=0.75, b=0.25, cdt=2.5, topology=topology)
+        plane = lambda: swop.sw_operator(y, halo, con)
         glue = lambda: swop.halo_from_traces(traces, topology)
-        for fn in (kernel, plain, stage, glue):
+        for fn in (kernel, plain, stage, plane, glue):
             for _ in range(3):
                 fn()
         torch.cuda.synchronize()
@@ -527,12 +548,13 @@ def phase4(torch, smi):
         rows.append({
             "nel": 64, "s": 3, "dtype": str(dtype).replace("torch.", ""),
             "kernel_rhs_ms": statistics.median(k), "plain_rhs_ms": statistics.median(p),
-            "kernel_stage_traces_ms": statistics.median(_event_times(torch, stage)),
+            "kernel_stage_x_ms": statistics.median(_event_times(torch, stage)),
+            "plane_rhs_ms": statistics.median(_event_times(torch, plane)),
             "halo_glue_ms": statistics.median(_event_times(torch, glue)),
             "calls_each": len(k),
         })
-    emit({"phase": 4, "gpu": smi, "timing": "CUDA events, median per call", "results": rows})
-    return rows[0]
+    emit({"phase": 4, "gpu": smi, "timing": "CUDA events, median per call; kernel_*: the state mode "
+          "(halo=None), plane_rhs_ms: the operator fed a halo plane", "results": rows})
 
 
 def phase5(torch):
@@ -1259,11 +1281,19 @@ def _sw_production(torch, nel, s, dt, nsteps, packed):
     from wxfactory_tpu_torch.profile import profile_calls
 
     geom, ops, metric, topology, q0 = sw_setup(nel, s)
+    reset_counts()
     t0 = time.perf_counter()
     rhs = ShallowWaterRHS(geom, ops, metric, dtype=torch.float32, device="cuda", topology=topology,
                           perturbation_base=q0)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    # The perturbation base: the edge-trace and halo kernels once, and the
+    # float64 base RHS (the operator fed that halo).
+    counts = read_counts()
+    setup_want = {"sw_edges": 1, "sw_halo": 1, "sw_operator": 1, "sw_state": 0, "sw_pert": 0, "sw_plain_calls": 0}
+    setup_launches = {k: counts[k] for k in setup_want}
+    if setup_launches != setup_want:
+        raise AssertionError(f"setup at ({nel},{s}): launches {setup_launches}, expected {setup_want}")
     gate, gate_abs = _sw_gate(torch, nel, s, topology, geom, ops, metric, q0, rhs)
     if not gate < GATE_REL:
         raise AssertionError(f"f32 perturbation RHS {gate} of the tendency scale from the f64 truth at "
@@ -1304,20 +1334,21 @@ def _sw_production(torch, nel, s, dt, nsteps, packed):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     counts = read_counts()
-    want = {"sw_pert": 3 * nsteps, "sw_halo": 3 * nsteps, "sw_edges": 1, "sw_operator": 0, "sw_run": 0,
-            "sw_plain_calls": 0}
+    want = {"sw_pert": 3 * nsteps, "sw_state": 3 * nsteps, "sw_halo": 0, "sw_edges": 0, "sw_operator": 0,
+            "sw_run": 0, "sw_plain_calls": 0}
     got = {k: counts[k] for k in want}
     if got != want:
         raise AssertionError(f"chained run at ({nel},{s}): launches {got}, expected {want}")
     row = {"case": 6, "nel": nel, "s": s, "points": points, "dtype": "float32", "form": "perturbation",
            "integrator": "tvdrk3", "dt": dt, "steps": nsteps, "setup_s": setup_s, "chained_s": elapsed,
            "chained_gridpoints_per_s": points * 3 * nsteps / elapsed, "chained_steps_per_s": nsteps / elapsed,
-           "chained_launches": got, "chained_mass_drift": check_state(q, "chained state"),
+           "setup_launches": setup_launches, "chained_launches": got,
+           "chained_mass_drift": check_state(q, "chained state"),
            "gate_err": gate, "gate_err_f32_absolute": gate_abs, "gate": GATE_REL}
     row["chained_device_busy_share"], row["chained_device_span_share"], prof = busy(chained, elapsed)
     row["chained_device_ops_per_step"] = prof["device_ops"] / nsteps
     row["chained_kernels_us"] = prof["kernels_us"][:4]
-    launches = dict(got)
+    launches = dict(got, sw_halo=setup_launches["sw_halo"], sw_edges=setup_launches["sw_edges"])
     if packed:
         abc = tvdrk3_abc(dt)
         qp = rhs.pack(q_init)
@@ -1352,6 +1383,8 @@ def _sw_production(torch, nel, s, dt, nsteps, packed):
 def phase19(torch):
     from wxfactory_tpu_torch import __main__ as cli
 
+    # totals: the chained runs' launches, and the edge-trace and halo launches
+    # of their setup (the perturbation base), which no step makes
     rows, totals = [], {}
     for point in PRODUCTION:
         row, launches = _sw_production(torch, *point)
@@ -1360,7 +1393,7 @@ def phase19(torch):
             totals[k] = totals.get(k, 0) + v
 
     # The port's Simulation at float32, s=4 (absolute form, as the JAX
-    # Simulation runs it): operator, halo and edge-trace kernels.
+    # Simulation runs it): the operator's state mode alone.
     nsteps, nel = 50, 32
     out_dir = WORK / "phase19_sim"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -1374,8 +1407,8 @@ def phase19(torch):
         rc = cli.main([str(ini), "--device", "cuda"])
     counts = read_counts()
     text = log.getvalue()
-    want = {"sw_operator": 3 * nsteps, "sw_halo": 3 * nsteps, "sw_edges": 1, "sw_pert": 0, "sw_run": 0,
-            "sw_plain_calls": 0}
+    want = {"sw_operator": 3 * nsteps, "sw_state": 3 * nsteps, "sw_halo": 0, "sw_edges": 0, "sw_pert": 0,
+            "sw_run": 0, "sw_plain_calls": 0}
     got = {k: counts[k] for k in want}
     run = re.search(r"Completed (\d+) steps in (\S+) s \((\S+) steps/s\)", text)
     drifts = [float(v) for v in re.findall(r"normalized error for mass = (\S+)", text)]
@@ -1384,7 +1417,7 @@ def phase19(torch):
     sim = {"case": 6, "nel": nel, "s": 4, "dtype": "float32", "form": "absolute", "integrator": "tvdrk3",
            "dt": 30.0, "steps": int(run.group(1)), "steps_per_s": float(run.group(3)), "launches": got,
            "mass_drift": drifts[-1] if drifts else None}
-    for k in ("sw_halo", "sw_edges"):
+    for k in ("sw_halo", "sw_edges", "sw_state"):
         totals[k] = totals.get(k, 0) + got[k]
     emit({"phase": 19, "results": rows, "simulation": sim, "launches_total": totals})
     return totals
@@ -1428,6 +1461,9 @@ def _pair_ms(torch, kernel, plain, n=10, n_plain=5):
 
 
 RUN_STEPS = 20
+# Phase 20's bit-for-bit check of the state mode: the timed shapes and the
+# other values of s.
+STATE_SHAPES = [(64, 3), (64, 4), (64, 7), (4, 2), (3, 5), (2, 6), (4, 8)]
 
 
 def phase20(torch, smi):
@@ -1439,6 +1475,14 @@ def phase20(torch, smi):
         b = {"bytes": nbytes / PEAK_BYTES * 1e3, "operations": ops / PEAK_FLOPS[dtype] * 1e3}
         return {"bytes": nbytes, "ops": ops, "bound_ms": max(b.values()), "bound_by": max(b, key=b.get)}
 
+    # The state mode bit for bit the three launches it replaces.
+    state_rows = [r for nel, s in STATE_SHAPES for dtype in (torch.float64, torch.float32)
+                  for r in check.compare_sw_state_halo(nel, s, dtype, device="cuda")]
+    emit_comparison(20, state_rows, ("nel", "s"), tag="_state")
+    bad = [r for r in state_rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"the state mode differs from the edge-trace, halo and operator kernels: {bad}")
+
     rows = []
     for nel, s in ((64, 3), (64, 4), (64, 7)):
         for dtype in (torch.float64, torch.float32):
@@ -1449,7 +1493,14 @@ def phase20(torch, smi):
             qa = (base.q0 + dq).contiguous()
             halo_a = swop.sw_halo(swop.sw_edges(qa, con), topology)
             stage = dict(x=x, a=0.75, b=0.25, cdt=7.5, emit_traces=True)
+            stage_x = dict(x=x, a=0.75, b=0.25, cdt=7.5)
             row = {"nel": nel, "s": s, "dtype": name}
+            row["state_rhs_max_abs_err"] = float((swop.sw_operator(qa, None, con, topology=topology)
+                                                  - swop.sw_operator_plain(qa, None, con, topology=topology))
+                                                 .abs().max())
+            row["state_pert_stage_x_max_abs_err"] = float(
+                (swop.sw_operator(dq, None, con, base=base, topology=topology, **stage_x)
+                 - swop.sw_operator_pert_plain(dq, None, con, base, topology=topology, **stage_x)).abs().max())
             pairs = {
                 "rhs": (lambda: swop.sw_operator(qa, halo_a, con), lambda: swop.sw_operator_plain(qa, halo_a, con),
                         check.sw_work(nel, s, dtype)),
@@ -1459,6 +1510,13 @@ def phase20(torch, smi):
                 "pert_stage_traces": (lambda: swop.sw_operator(dq, halo, con, base=base, **stage),
                                       lambda: swop.sw_operator_pert_plain(dq, halo, con, base, **stage),
                                       check.sw_pert_work(nel, s, dtype, stage=True, use_x=True, traces=True)),
+                "state_rhs": (lambda: swop.sw_operator(qa, None, con, topology=topology),
+                              lambda: swop.sw_operator_plain(qa, None, con, topology=topology),
+                              check.sw_work(nel, s, dtype, state=True)),
+                "state_pert_stage_x": (lambda: swop.sw_operator(dq, None, con, base=base, topology=topology, **stage_x),
+                                       lambda: swop.sw_operator_pert_plain(dq, None, con, base, topology=topology,
+                                                                           **stage_x),
+                                       check.sw_pert_work(nel, s, dtype, stage=True, use_x=True, state=True)),
                 "halo": (lambda: swop.sw_halo(traces, topology), lambda: swop.halo_from_traces(traces, topology),
                          check.sw_halo_work(nel, s, dtype)),
                 "edges": (lambda: swop.sw_edges(dq, con), lambda: swop.edge_traces(dq, con),
@@ -1472,7 +1530,7 @@ def phase20(torch, smi):
                     check.sw_run_work(nel, s, dtype, RUN_STEPS, pert=True))
 
                 def chained_step():
-                    return swop.sw_chain(dq, 1, abc, con, topology, base=base, traces=traces)
+                    return swop.sw_chain(dq, 1, abc, con, topology, base=base)
 
                 for _ in range(3):
                     chained_step()
@@ -1483,6 +1541,22 @@ def phase20(torch, smi):
                 times = _pair_ms(torch, kernel, plain, n=5 if slow else 10, n_plain=2 if slow else 5)
                 row.update({f"{mode}_{key}": v for key, v in times.items()})
                 row.update({f"{mode}_{key}": v for key, v in bound(work, name).items()})
+            # The state mode in turns with the three launches it replaces (the
+            # edge-trace and halo kernels, then the operator fed their halo).
+            route = {
+                "state_rhs": (lambda: swop.sw_operator(qa, None, con, topology=topology),
+                              lambda: swop.sw_operator(qa, swop.sw_halo(swop.sw_edges(qa, con), topology), con)),
+                "state_pert_stage_x": (
+                    lambda: swop.sw_operator(dq, None, con, base=base, topology=topology, **stage_x),
+                    lambda: swop.sw_operator(dq, swop.sw_halo(swop.sw_edges(dq, con), topology), con, base=base,
+                                             **stage_x)),
+            }
+            for mode, (one, three) in route.items():
+                turns = {"one": [], "three": []}
+                for key, fn in (("three", three), ("one", one), ("one", one), ("three", three)):
+                    turns[key].append(_device_ms(torch, fn, 10))
+                row[f"{mode}_in_turns_ms"] = turns["one"]
+                row[f"{mode}_three_launches_in_turns_ms"] = turns["three"]
             if s == 4:
                 row["run_ms_per_step"] = row[f"run_{RUN_STEPS}_steps_kernel_ms"] / RUN_STEPS
                 row["run_event_ms_per_step"] = row[f"run_{RUN_STEPS}_steps_kernel_event_ms"] / RUN_STEPS
@@ -1491,8 +1565,12 @@ def phase20(torch, smi):
                  for dtype in (torch.float64, torch.float32) for s in range(2, 9)}
     emit({"phase": 20, "gpu": smi, "timing": "*_ms: the card's time a call (calls queued behind a sleep kernel, "
           "CUDA events); *_event_ms: CUDA events around single calls, median", "results": rows,
-          "resources": resources})
-    return next(r for r in rows if (r["nel"], r["s"], r["dtype"]) == (64, 4, "float32"))
+          "resources": resources, "state_bit_identical": sum(r["bit_identical"] for r in state_rows),
+          "state_cases": len(state_rows)})
+    main = lambda nel, s, dtype: next(r for r in rows if (r["nel"], r["s"], r["dtype"]) == (nel, s, dtype))
+    # The main paths' shapes: phase 3's absolute RHS at (64,3) f64 and phase
+    # 19's perturbation stages at (64,4) f32.
+    return {"sw_operator": main(64, 3, "float64"), "sw_pert": main(64, 4, "float32")}
 
 
 def phase21(torch):
@@ -2110,16 +2188,6 @@ def phase28(torch, smi):
     return {"sw_tile": main("sw_tile", SW_TILE_MAIN[0] // 2), "euler3d_tile": main("euler3d_tile", E3_MAIN[0] // 2)}
 
 
-def sw_bound():
-    import torch
-
-    from wxfactory_tpu_torch.kernels.check import sw_work
-
-    nbytes, ops = sw_work(64, 3, torch.float64)
-    bound = {"bytes": nbytes / PEAK_BYTES * 1e3, "operations": ops / PEAK_FLOPS["float64"] * 1e3}
-    return max(bound.values()), max(bound, key=bound.get)
-
-
 def main() -> int:
     try:
         import torch
@@ -2139,7 +2207,7 @@ def main() -> int:
     sw_err = phase1(torch)
     phase2(torch)
     sw_launches = phase3(torch)
-    sw_timing = phase4(torch, smi)
+    phase4(torch, smi)
     e3_err = phase5(torch)
     phase6(torch)
     e3_launches = phase7(torch)
@@ -2164,16 +2232,24 @@ def main() -> int:
     tile_launches = phase26(torch)
     phase27(torch)
     tile_timing = phase28(torch, smi)
-    sw_bound_ms, sw_bound_by = sw_bound()
-    sw_entry = lambda name, mode, replaces, source="wxfactory_tpu_torch/csrc/sw_operator.cu": {
+    sw_entry = lambda name, mode, replaces, source="wxfactory_tpu_torch/csrc/sw_operator.cu", row=swt["sw_pert"]: {
         "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": sw_counts[name],
-        "max_abs_err": sw_errs[name], "ms": swt[f"{mode}_kernel_ms"], "plain_ms": swt[f"{mode}_plain_ms"],
-        "bound_ms": swt[f"{mode}_bound_ms"], "bound_by": swt[f"{mode}_bound_by"], "library_ms": None}
+        "max_abs_err": sw_errs[name], "ms": row[f"{mode}_kernel_ms"], "plain_ms": row[f"{mode}_plain_ms"],
+        "bound_ms": row[f"{mode}_bound_ms"], "bound_by": row[f"{mode}_bound_by"], "library_ms": None}
+    # The operator rows time the state mode, which every launch of the main
+    # paths runs (rows 4 and 5 folded into its panel-edge faces); the
+    # halo-plane mode's time and bound stand beside them for reference.
+    folded = "state mode: pallas_sw.py:258 ke_edges and :374 kh_exchange folded into its panel-edge faces"
+    state_entry = lambda name, launches, err, mode, plane, replaces: {
+        "name": name, "route": "cuda", "source": "wxfactory_tpu_torch/csrc/sw_operator.cu", "replaces": replaces,
+        "launches": launches, "max_abs_err": max(err, swt[name][f"{mode}_max_abs_err"]),
+        "ms": swt[name][f"{mode}_kernel_ms"], "plain_ms": swt[name][f"{mode}_plain_ms"],
+        "bound_ms": swt[name][f"{mode}_bound_ms"], "bound_by": swt[name][f"{mode}_bound_by"], "library_ms": None,
+        "plane_mode": plane, "plane_ms": swt[name][f"{plane}_kernel_ms"],
+        "plane_bound_ms": swt[name][f"{plane}_bound_ms"]}
     kernels = [
-        {"name": "sw_operator", "route": "cuda", "source": "wxfactory_tpu_torch/csrc/sw_operator.cu",
-         "replaces": "wxfactory_tpu/ops/pallas_sw_gen.py:632", "launches": sw_launches,
-         "max_abs_err": sw_err, "ms": sw_timing["kernel_rhs_ms"], "plain_ms": sw_timing["plain_rhs_ms"],
-         "bound_ms": sw_bound_ms, "bound_by": sw_bound_by, "library_ms": None},
+        state_entry("sw_operator", sw_launches, sw_err, "state_rhs", "rhs",
+                    f"wxfactory_tpu/ops/pallas_sw_gen.py:632 ({folded})"),
         {"name": "euler3d_operator", "route": "cuda", "source": "wxfactory_tpu_torch/csrc/euler3d_operator.cu",
          "replaces": "wxfactory_tpu/ops/pallas_euler3d.py:2131", "launches": e3_launches,
          "max_abs_err": e3_err, "ms": e3_timing["kernel_rhs_ms"], "plain_ms": e3_timing["plain_rhs_ms"],
@@ -2191,7 +2267,8 @@ def main() -> int:
               {"bound_ms": timing["function_bound_ms"], "bound_by": timing["function_bound_by"],
                "apply_floor_ms": timing["apply_bound_ms"]})}
           for form, timing in (("", tangent_timing), ("pert_", pert_timing)) for kernel in ("prep", "apply")],
-        sw_entry("sw_pert", "pert_stage_traces", "wxfactory_tpu/ops/pallas_sw_gen.py:632 (perturbation mode)"),
+        state_entry("sw_pert", sw_counts["sw_pert"], sw_errs["sw_pert"], "state_pert_stage_x", "pert_stage_traces",
+                    f"wxfactory_tpu/ops/pallas_sw_gen.py:632 (perturbation mode, {folded})"),
         sw_entry("sw_halo", "halo", "wxfactory_tpu/ops/pallas_sw.py:374"),
         sw_entry("sw_edges", "edges", "wxfactory_tpu/ops/pallas_sw.py:258"),
         sw_entry("sw_run", f"run_{RUN_STEPS}_steps", "wxfactory_tpu/ops/pallas_sw.py:1100",

@@ -29,6 +29,7 @@ from wxfactory_tpu_torch.kernels.check import (
     compare_sw_operator,
     compare_sw_pert,
     compare_sw_run,
+    compare_sw_state_halo,
     euler3d_inputs,
     euler3d_pert_inputs,
     euler3d_tangent_inputs,
@@ -202,6 +203,15 @@ def test_sw_halo_and_edge_kernels_match_plain(cuda, nel, s, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("nel,s", [(4, 2), (5, 3), (8, 4), (3, 5), (2, 6), (3, 7), (3, 8)])
+def test_sw_state_halo_matches_halo_kernels(cuda, nel, s, dtype):
+    # The operator's state mode (halo=None) bit for bit the operator fed
+    # sw_halo(sw_edges(q)), absolute and perturbation, RHS and stages.
+    rows = compare_sw_state_halo(nel, s, dtype, device="cuda")
+    assert all(r["ok"] for r in rows), rows
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
 @pytest.mark.parametrize("pert", [False, True], ids=["absolute", "perturbation"])
 def test_sw_run_kernel_matches_plain_and_chain(cuda, pert, dtype):
     row = compare_sw_run(32, dtype, 2, pert, device="cuda")
@@ -223,7 +233,7 @@ def test_sw_kernels_hold_only_the_1d_factors_in_shared_memory(cuda, dtype):
 def test_sw_counters_count_kernel_launches_only(cuda):
     con, topology, base, dq, x = sw_pert_inputs(8, 4, torch.float64, "cuda")
     counts = lambda: (swop.launches, swop.pert_launches, swop.edge_launches, swop.halo_launches,
-                      swop.run_launches)
+                      swop.run_launches, swop.state_launches)
     before, plain = counts(), swop.plain_calls
     swop.sw_run_plain(dq, 1, swop.tvdrk3_abc(30.0), con, topology, base=base)
     assert counts() == before and swop.plain_calls > plain
@@ -231,7 +241,8 @@ def test_sw_counters_count_kernel_launches_only(cuda):
     swop.sw_chain(dq, 1, swop.tvdrk3_abc(30.0), con, topology, base=base)
     swop.sw_run(dq, 1, swop.tvdrk3_abc(30.0), con, topology, base=base)
     torch.cuda.synchronize()
-    assert counts() == (before[0], before[1] + 3, before[2] + 1, before[3] + 3, before[4] + 1)
+    # the chain: one state-mode operator launch a stage, no edge or halo launch
+    assert counts() == (before[0], before[1] + 3, before[2], before[3], before[4] + 1, before[5] + 3)
     assert swop.plain_calls == plain
 
 

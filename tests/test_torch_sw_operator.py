@@ -138,12 +138,14 @@ def test_chained_stages_and_traces_match_jax_km_gen(jax_pipeline):
     for a, b, c in coeffs:
         yt, traces = rhs.stage(q0, yt, a, b, c * dt, traces)
     _assert_close(interop.to_numpy(yt), want)
+    assert traces is None  # each stage takes its halo from its input state
 
-    # The emitted traces feed the next halo: compare the halos both packages
-    # build from their emitted edge data (JAX: (6, 3, npl) per side).
+    # The next stage's halo is the halo of the output's own traces: compare
+    # it with the halo JAX builds from its emitted edge data (JAX: (6, 3,
+    # npl) per side).
     conv = jnp.asarray(JTopology(geom)._conv_contra_all)
     jhalo = pallas_sw_gen.halo_from_slabs(*slabs, JTopology(geom), conv, nel, s)
-    halo = interop.to_numpy(rhs.halo(traces))  # (3, 4, 6, nel, s), sides S, N, W, E
+    halo = interop.to_numpy(swop.halo_from_traces(swop.edge_traces(yt, rhs.con), rhs.topology))
     for side, jh in zip((2, 3, 0, 1), jhalo):  # JAX order: W, E, S, N
         jh = np.swapaxes(np.asarray(jh)[:, :, : nel * s], 0, 1).reshape(3, 6, nel, s)
         _assert_close(halo[:, side], jh)

@@ -36,6 +36,7 @@ from wxfactory_tpu.testcases import williamson_case6
 from wxfactory_tpu_torch import interop
 from wxfactory_tpu_torch.integrators import Tvdrk3
 from wxfactory_tpu_torch.kernels.check import sw_delta
+from wxfactory_tpu_torch.ops import sw_operator as swop
 from wxfactory_tpu_torch.output.diagnostics import global_integral_2d
 
 torch.set_num_threads(1)
@@ -100,11 +101,15 @@ def test_pert_stages_reproduce_absolute_euler_step(nel, s):
     want = q0 + dq + dt * np.asarray(j_make_rhs(geom, ops, metric, dtype=jnp.float64,
                                                 interior="xla")(jnp.asarray(q0 + dq)))
     np.testing.assert_allclose(interop.to_numpy(rhs.unpack(y1)), want, rtol=1e-10, atol=1e-7)
-    # chained (traces from the previous stage) equals unchained, and the
-    # emitted traces equal a fresh bootstrap of the output
+    # chained (the bootstrap's traces passed) equals unchained; no stage
+    # carries traces (each takes its halo from its input state), and that
+    # halo is the one of the input's own delta traces
     y1c, _ = rhs.stage(qp, qp, 0.0, 1.0, dt, rhs.traces(qp))
     torch.testing.assert_close(y1c, y1, rtol=0, atol=0)
-    torch.testing.assert_close(tr1, rhs.traces(y1), rtol=1e-13, atol=1e-9)
+    assert tr1 is None and rhs.traces(y1) is None
+    halo = swop.halo_from_traces(swop.edge_traces(qp, rhs.con), rhs.topology)
+    y1h = swop.sw_operator(qp, halo, rhs.con, x=qp, a=0.0, b=1.0, cdt=dt, base=rhs.base)
+    torch.testing.assert_close(y1h, y1, rtol=0, atol=0)
     coeffs = [(0.0, 1.0, 1.0), (0.75, 0.25, 0.25), (1.0 / 3.0, 2.0 / 3.0, 2.0 / 3.0)]
     y, tr = qp, rhs.traces(qp)
     yu = qp

@@ -94,7 +94,7 @@ def test_edge_traces_match_jax_ke_edges():
         want[:, 2, p] = we[:, p * nel : (p + 1) * nel, :S]
         want[:, 3, p] = we[:, p * nel : (p + 1) * nel, 64 - S : 64]
     rhs = interop.shallow_water_rhs(geom, ops, metric)
-    got = interop.to_numpy(rhs.traces(interop.to_tensor(q)))
+    got = interop.to_numpy(swop.sw_edges(interop.to_tensor(q), rhs.con))
     assert np.abs((got - want) / _scale(want)).max() < 1e-14
 
 

@@ -18,8 +18,15 @@ perturbation; float64 and float32), the tile launch, the edge kernel and
 the whole-run kernel, and prints one JSON line a shape: whether the two
 agree bit for bit (``torch.equal``), and each one's largest scaled
 distance from the plain torch version. Without ``--parent`` only the
-latter. ``--sms`` is the SM count the shim reports (it sets the tile
-launch's elements a block). A design can so be checked against its
+latter. The whole-sphere operator's state mode (no halo: the panel-edge
+faces read the neighbour panels' state, ``sw_operator_state_launch``) is
+called in RHS and stage modes, absolute and perturbation; a library
+without it (a parent from before it) takes the route it replaces in its
+place, the edge and halo kernels then the operator fed their halo. The
+line's ``state_equals_route`` says whether each library's state mode
+equals its own three-launch route bit for bit. ``--sms`` is the SM count
+the shim reports (it sets the tile launch's elements a block).
+A design can so be checked against its
 parent before its first chip call; the shim says nothing about speed, and
 nothing about what nvcc refuses.
 
@@ -253,6 +260,63 @@ def operator_call(lib, entry, q, halo, con, x=None, a=0.0, b=1.0, cdt=None, emit
     return (out, traces) if emit_traces else out
 
 
+def state_call(lib, q, con, topology, x=None, a=0.0, b=1.0, cdt=None, emit_traces=False, base=None,
+               nan_fill=True):
+    """One call of the state mode (``sw_operator_state_launch``): the
+    wrapper's ``sw_operator(q, None, ...)``."""
+    import torch
+
+    from wxfactory_tpu_torch.ops import sw_operator as swop
+
+    tab = swop.halo_tables(topology, q.device, q.dtype)
+    out = _alloc(q.shape, q, nan_fill)
+    traces = _alloc((3, 4, 6, con.nel, con.s), q, nan_fill) if emit_traces else None
+    pb = base.tensors if base is not None else {}
+    use_x = cdt is not None and a != 0.0
+    rc = lib.sw_operator_state_launch(
+        1 if q.dtype == torch.float64 else 0, con.s, con.nel, _ptr(q), _ptr(con.ops), _ptr(con.fields),
+        _ptr(con.gridrot), _ptr(con.itf_x), _ptr(con.itf_y), _ptr(x if use_x else None), _ptr(pb.get("q0")),
+        _ptr(pb.get("u0")), _ptr(pb.get("itf0")), _ptr(pb.get("halo0")), _ptr(pb.get("rhs0")), _ptr(tab.src),
+        _ptr(tab.flip), _ptr(tab.conv), _ptr(out), _ptr(traces), float(a), float(b),
+        float(cdt if cdt is not None else 0.0), 1 if cdt is not None else 0, _stream(q))
+    if rc != 0:
+        raise RuntimeError(f"sw_operator_state_launch returned {rc}")
+    return (out, traces) if emit_traces else out
+
+
+def halo_call(lib, traces, topology, nan_fill=True):
+    import torch
+
+    from wxfactory_tpu_torch.ops import sw_operator as swop
+
+    tab = swop.halo_tables(topology, traces.device, traces.dtype)
+    halo = _alloc(traces.shape, traces, nan_fill)
+    rc = lib.sw_halo_launch(1 if traces.dtype == torch.float64 else 0, topology.num_points, _ptr(traces),
+                            _ptr(tab.src), _ptr(tab.flip), _ptr(tab.conv), _ptr(halo), _stream(traces))
+    if rc != 0:
+        raise RuntimeError(f"sw_halo_launch returned {rc}")
+    return halo
+
+
+def route_call(lib, q, con, topology, nan_fill=True, **kw):
+    """What the state mode replaces: the edge-trace kernel, the halo kernel,
+    then the operator fed their halo (three launches)."""
+    halo = halo_call(lib, edges_call(lib, q, con, nan_fill), topology, nan_fill)
+    return operator_call(lib, "sw_operator_launch", q, halo, con, nan_fill=nan_fill, **kw)
+
+
+def has_state_mode(lib) -> bool:
+    return hasattr(lib, "sw_operator_state_launch")
+
+
+def state_or_route(lib, q, con, topology, **kw):
+    """The state mode of ``lib``, or the route it replaces where ``lib``
+    has none."""
+    if has_state_mode(lib):
+        return state_call(lib, q, con, topology, **kw)
+    return route_call(lib, q, con, topology, **kw)
+
+
 def edges_call(lib, q, con, nan_fill=True):
     import torch
 
@@ -299,6 +363,7 @@ def check_shape(libsets: dict, nel: int, s: int, run_steps: int = 2) -> dict:
     from wxfactory_tpu_torch.ops import sw_operator as swop
 
     cases = {}  # name -> (plain result, {tag: the library's result})
+    state_route = {t: True for t in libsets}
     for dtype in (torch.float64, torch.float32):
         dname = "f64" if dtype == torch.float64 else "f32"
         con, topology, x, y = check.case6_inputs(nel, s, dtype, "cpu")
@@ -317,6 +382,19 @@ def check_shape(libsets: dict, nel: int, s: int, run_steps: int = 2) -> dict:
                 swop.sw_operator_pert_plain(dq, dhalo, pcon, base, **pkw),
                 {t: operator_call(L["sw_operator"], "sw_operator_launch", dq, dhalo, pcon, base=base, **pkw)
                  for t, L in libsets.items()})
+        state_modes = {"rhs": {}, "stage": dict(a=0.0, b=1.0, cdt=check.DT),
+                       "stage_x": dict(x=x, a=0.75, b=0.25, cdt=0.25 * check.DT)}
+        for mode, kw in state_modes.items():
+            for name, sq, scon, sbase, skw in (
+                    (f"{dname}_state_{mode}", y, con, None, kw),
+                    (f"{dname}_pert_state_{mode}", dq, pcon, base, dict(kw, x=dx) if "x" in kw else kw)):
+                got = {t: state_or_route(L["sw_operator"], sq, scon, topology, base=sbase, **skw)
+                       for t, L in libsets.items()}
+                for t, L in libsets.items():
+                    if has_state_mode(L["sw_operator"]):
+                        route = route_call(L["sw_operator"], sq, scon, topology, base=sbase, **skw)
+                        state_route[t] = state_route[t] and torch.equal(got[t], route)
+                cases[name] = (swop.sw_operator_plain(sq, None, scon, base=sbase, topology=topology, **skw), got)
         cases[f"{dname}_edges"] = (swop.edge_traces(y, con),
                                    {t: edges_call(L["sw_operator"], y, con) for t, L in libsets.items()})
         # The checked tile of kernels/check.py (a 2x2 mesh of this sphere).
@@ -354,6 +432,7 @@ def check_shape(libsets: dict, nel: int, s: int, run_steps: int = 2) -> dict:
                 identical = False
                 print(f"  differs: {name}", file=sys.stderr)
     return {"nel": nel, "s": s, "cases": len(cases), "bit_identical": identical if len(libsets) == 2 else None,
+            "state_equals_route": {t: v for t, v in state_route.items() if has_state_mode(libsets[t]["sw_operator"])},
             "plain_err": plain_err}
 
 
@@ -379,7 +458,7 @@ def main(argv=None) -> int:
         nel, s = (int(v) for v in shape.split(","))
         row = check_shape(libsets, nel, s)
         print(json.dumps(row), flush=True)
-        ok = ok and row["bit_identical"] is not False
+        ok = ok and row["bit_identical"] is not False and all(row["state_equals_route"].values())
     return 0 if ok else 1
 
 

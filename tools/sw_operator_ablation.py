@@ -40,13 +40,22 @@ and 64, float64 (ablated), float32 and float32 perturbation; the whole
 run at (64,4), 20 steps and 1 step, float32 and float64 perturbation form
 (ablated). Inputs are those of kernels/check.py. Time: the card's time a
 call, calls queued behind a sleep kernel between two CUDA events
-(``chip_smoke._device_ms``), variants in turns (each once, then in
-reverse order). Prints one JSON line with the registers and spills
-(``ptxas -v``) and the runtime's registers, shared memory a block and
-resident blocks an SM of every operator instantiation (s = 2..8,
-float32/float64, absolute/perturbation) and of the run kernel, one line
-of the bitwise check, then one line per mode, and the card's name and
-power limit. An ablated kernel computes garbage: only its time is read.
+(``chip_smoke._device_ms``), variants in turns (each once, then in reverse
+order). The state mode of the whole-sphere operator (halo=None,
+``sw_operator_state_launch``) is timed in turns with the parent's route it
+replaces, the edge-trace and halo kernels and then the operator fed their
+halo, and with the parent's per-stage chain step (the halo kernel on the
+last stage's emitted traces, then the stage emitting its traces), at
+(64,3) and (64,7) float64 RHS and (64,4) float32 perturbation stage + x:
+the card's time (queued behind a sleep kernel) and the median of single
+calls between two CUDA events, which includes the host's launches; and,
+with ``--parent``, held bit for bit against that route at every shape and
+mode of the bitwise check. Prints one JSON line with the registers and
+spills (``ptxas -v``) and the runtime's registers, shared memory a block
+and resident blocks an SM of every operator instantiation (s = 2..8,
+float32/float64, absolute/perturbation) and of the run kernel, one line of
+the bitwise check, then one line per mode, and the card's name and power
+limit. An ablated kernel computes garbage: only its time is read.
 """
 
 import argparse
@@ -62,7 +71,15 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tools"))
 
-from sw_host_shim import FILES, edges_call, operator_call, run_call  # noqa: E402
+from sw_host_shim import (  # noqa: E402
+    FILES,
+    edges_call,
+    halo_call,
+    has_state_mode,
+    operator_call,
+    run_call,
+    state_or_route,
+)
 
 OUT = ROOT / "build" / "sw_operator_ablation"
 ELEMENT = "sw_element.cuh"
@@ -403,6 +420,59 @@ def run_modes(torch, nel=64):
     return modes
 
 
+def state_group(torch, libs):
+    """The state mode (one launch) against the routes it replaces, in turns:
+    rows of {"mode", "ms": {variant: [card ms]}, "event_ms": {variant:
+    [median ms of single calls]}}. Variants: ``state`` (the source's state
+    mode), ``source_route`` (the source's edge, halo and operator kernels),
+    and with a parent ``parent_route`` (the same three of the parent) and,
+    for a stage, ``parent_chain_stage`` (the parent's halo kernel on given
+    traces, then its stage emitting the output's traces: what the parent's
+    chain launched a stage)."""
+    from chip_smoke import _device_ms, _event_times
+    from wxfactory_tpu_torch.kernels import check
+
+    import statistics
+
+    rows = []
+    for nel, s, dtype, pert in ((64, 3, torch.float64, False), (64, 4, torch.float32, True),
+                                (64, 7, torch.float64, False)):
+        if pert:
+            con, topology, base, q, x = check.sw_pert_inputs(nel, s, dtype, "cuda")
+            kw = dict(x=x, a=0.75, b=0.25, cdt=7.5, base=base)
+            mode = f"({nel},{s}) {_dname(dtype)} pert_stage_x"
+        else:
+            con, topology, _, q = check.case6_inputs(nel, s, dtype, "cuda")
+            kw = {}
+            mode = f"({nel},{s}) {_dname(dtype)} rhs"
+        new = libs["as_built"]["sw_operator"]
+        variants = {"state": lambda: state_or_route(new, q, con, topology, nan_fill=False, **kw)}
+        if not has_state_mode(new):
+            raise RuntimeError("the source has no state mode")
+        variants["source_route"] = lambda: operator_call(
+            new, "sw_operator_launch", q, halo_call(new, edges_call(new, q, con, False), topology, False), con,
+            nan_fill=False, **kw)
+        if "parent" in libs:
+            old = libs["parent"]["sw_operator"]
+            variants["parent_route"] = lambda: state_or_route(old, q, con, topology, nan_fill=False, **kw)
+            if "cdt" in kw:
+                traces = edges_call(old, q, con, False)
+                variants["parent_chain_stage"] = lambda: operator_call(
+                    old, "sw_operator_launch", q, halo_call(old, traces, topology, False), con, nan_fill=False,
+                    emit_traces=True, **kw)
+        for fn in variants.values():
+            fn()
+        torch.cuda.synchronize()
+        names = list(variants)
+        ms = {n: [] for n in names}
+        event = {n: [] for n in names}
+        for n in names + names[::-1]:
+            ms[n].append(_device_ms(torch, variants[n], 20))
+            event[n].append(statistics.median(_event_times(torch, variants[n], n=20)))
+        rows.append({"mode": mode, "ms": ms, "event_ms": event})
+    return rows
+
+
 def time_modes(torch, libs, modes, slow=False):
     from chip_smoke import _device_ms
 
@@ -452,12 +522,18 @@ def bitwise(torch, libs):
             for mode, kw in modes.items():
                 same(f"{tag} {mode}", lambda L, kw=kw: operator_call(L["sw_operator"], "sw_operator_launch", y, halo,
                                                                        con, **kw))
+                if not kw.get("emit_traces"):  # the state mode (the parent: its edge, halo, operator route)
+                    same(f"{tag} state_{mode}", lambda L, kw=kw: state_or_route(L["sw_operator"], y, con, topology,
+                                                                                 **kw))
             same(f"{tag} edges", lambda L: edges_call(L["sw_operator"], y, con))
             pcon, _, base, dq, dx = check.sw_pert_inputs(nel, s, dtype, "cuda")
             dhalo = swop.halo_from_traces(swop.edge_traces(dq, pcon), topology)
             for mode, kw in check._sw_pert_modes(dx).items():
                 same(f"{tag} pert_{mode}", lambda L, kw=kw: operator_call(L["sw_operator"], "sw_operator_launch", dq,
                                                                             dhalo, pcon, base=base, **kw))
+                if not kw.get("emit_traces"):
+                    same(f"{tag} pert_state_{mode}", lambda L, kw=kw: state_or_route(
+                        L["sw_operator"], dq, pcon, topology, base=base, **kw))
     abc = swop.tvdrk3_abc(30.0)
     for nel in (32, 64):
         for dtype in (torch.float64, torch.float32):
@@ -511,6 +587,9 @@ def main(argv=None) -> int:
     if args.parent is not None and not args.no_bitwise:
         print(json.dumps({"bitwise_against_parent": bitwise(torch, libs), "gpu": smi}), flush=True)
     timing = "the card's time a call: calls queued behind a sleep kernel between two CUDA events, two turns a variant"
+    print(json.dumps({"group": "state mode", "gpu": smi, "timing": timing + "; event_ms: median of 20 single calls "
+                      "between two CUDA events (the host's launches included)", "results": state_group(torch, libs)}),
+          flush=True)
     for group, modes, slow in (("whole sphere", whole_sphere_modes(torch), False),
                                ("tile", tile_modes(torch, 32) + tile_modes(torch, 64), False),
                                ("run", run_modes(torch), True)):

@@ -4,7 +4,12 @@
 // exchange of traces. Every kernel that computes one of these functions calls
 // the same device function, with each sum and each fused multiply-add written
 // out in a fixed order, so the per-stage kernels and the whole-run kernel give
-// the same bits for the same inputs.
+// the same bits for the same inputs. A panel-edge face takes its neighbour's
+// values from one of three sources (HaloFrom): a halo plane, the neighbour
+// panels' traces (halo_point), or the neighbour panels' state itself
+// (state_halo_point: edge_trace then the halo's rotation, the composition of
+// the edge-trace and halo kernels at one point, so all three give the same
+// bits).
 //
 // Sum factorisation. The operator's extrapolation, derivative and
 // correction matrices are Kronecker products with the identity
@@ -35,7 +40,7 @@
 // Halo tables (P = 6 only): src (24) the neighbour's (side*6 + panel) row
 // feeding each (side*6 + panel) row, flip (24) 1 where that edge runs
 // opposite, conv (4, 24, nel*s) the 2x2 contravariant rotation c11, c12, c21,
-// c22.
+// c22 (ops/sw_operator.py::panel_edge_plan mirrors their use in numpy).
 
 #pragma once
 
@@ -199,10 +204,16 @@ __device__ __forceinline__ void load_factors(const T* ops, T* fac) {
   }
 }
 
+// Where a panel-edge face finds its neighbour's (h, hu1, hu2): a halo plane
+// (`halo`; the only source of a tile launch), the panel-edge traces of the
+// stage input (`halo` holds them; the whole-run kernel), or the stage input
+// `q` itself (whole sphere only).
+enum class HaloFrom { kPlane, kTraces, kState };
+
 template <typename T>
 struct OpArgs {
   const T* q;     // stage input state (the perturbation in the perturbation form)
-  const T* halo;  // its halo, or with HALO_FROM_TRACES its panel-edge traces
+  const T* halo;  // its halo plane, its panel-edge traces (kTraces), or nullptr (kState)
   const T* ops;
   const T* fields;
   const T* gridrot;
@@ -217,47 +228,59 @@ struct OpArgs {
   const T* itf0;
   const T* halo0;
   const T* rhs0;
-  // halo tables (HALO_FROM_TRACES only)
+  // halo tables (kTraces and kState only)
   const int* hsrc;
   const int* hflip;
   const T* hconv;
   int nel;
-  int npanel;  // 6: the whole cubed sphere; 1: one tile (HALO_FROM_TRACES needs 6)
+  int npanel;  // 6: the whole cubed sphere; 1: one tile (kTraces and kState need 6)
   T a, b, cdt;
   int stage;  // 0: out = RHS(q)
 };
 
-// The halo values (h, hu1, hu2) that (side, panel) row `row` = side*6 + panel
-// receives at edge point i (0 <= i < nel*s), from the outgoing traces: the
-// neighbour row's trace at i (or npts-1-i across an opposite edge), the
-// momenta rotated into the local contravariant basis (the function of
-// pallas_sw.kh_exchange / _halo_math, and of the plain halo_from_traces).
+// Edge point i (0 <= i < npts) of (side, panel) row `row` = side*6 + panel
+// receives the neighbour row src[row] at its point j: i itself, or npts-1-i
+// across an edge that runs opposite.
+__device__ __forceinline__ void halo_source(const int* src, const int* flip, int npts, int row, int i, int* r,
+                                            int* j) {
+  *r = src[row];
+  *j = flip[row] ? npts - 1 - i : i;
+}
+
+// The halo values (h, hu1, hu2) of row `row` at point i from the neighbour's
+// values a0, a1, a2 there: the momenta rotated into the local contravariant
+// basis with conv (4, 24, npts), entry ci = row*npts + i, component stride
+// cstride = 24*npts (the arithmetic of pallas_sw.kh_exchange / _halo_math and
+// of the plain halo_from_traces).
+template <typename T>
+__device__ __forceinline__ void rotate_halo(const T* conv, long long cstride, long long ci, T a0, T a1, T a2,
+                                            T* out) {
+  out[0] = a0;
+  out[1] = fmadd(conv[ci], a1, conv[cstride + ci] * a2);
+  out[2] = fmadd(conv[2 * cstride + ci], a1, conv[3 * cstride + ci] * a2);
+}
+
+// The halo values that row `row` receives at edge point i from the outgoing
+// traces (3, 24, npts).
 template <typename T>
 __device__ __forceinline__ void halo_point(const T* traces, const int* src, const int* flip, const T* conv,
                                            int npts, int row, int i, T* out) {
   const long long vstride = 24LL * npts;
-  const int r = src[row];
-  const long long at = (long long)r * npts + (flip[row] ? npts - 1 - i : i);
-  const T a1 = traces[vstride + at];
-  const T a2 = traces[2 * vstride + at];
-  const long long ci = (long long)row * npts + i;
-  out[0] = traces[at];
-  out[1] = fmadd(conv[ci], a1, conv[vstride + ci] * a2);
-  out[2] = fmadd(conv[2 * vstride + ci], a1, conv[3 * vstride + ci] * a2);
+  int r, j;
+  halo_source(src, flip, npts, row, i, &r, &j);
+  const long long at = (long long)r * npts + j;
+  rotate_halo(conv, vstride, (long long)row * npts + i, traces[at], traces[vstride + at], traces[2 * vstride + at],
+              out);
 }
 
-// Trace value t = ((v*4 + side)*6 + p)*nel*s + along*s + k of state q: its
-// edge element's face point (face_trace; ext: the factors' extrapolation
-// weights).
+// Variable v of the trace of state q at point j = along*s + k of (side, panel)
+// row `row`: its edge element's face point (face_trace; ext: the factors'
+// extrapolation weights).
 template <typename T, int S>
-__device__ __forceinline__ T trace_point(const T* q, const T* ext, int nel, long long t) {
+__device__ __forceinline__ T edge_trace(const T* q, const T* ext, int nel, int row, int j, int v) {
   constexpr int S2 = S * S;
-  const int npts = nel * S;
-  const int k = (int)(t % S);
-  const int along = (int)((t / S) % nel);
-  const int row = (int)((t / npts) % 24);
-  const int v = (int)(t / (24LL * npts));
   const int side = row / 6, p = row - side * 6;
+  const int along = j / S, k = j - along * S;
   int ey, ex, f;
   switch (side) {
     case 0: ey = 0;       ex = along;   f = 2; break;  // south
@@ -268,6 +291,26 @@ __device__ __forceinline__ T trace_point(const T* q, const T* ext, int nel, long
   const long long nq = 6LL * nel * nel * S2;
   const long long elem = ((long long)p * nel + ey) * nel + ex;
   return face_trace<T, S>(q + v * nq + elem * S2, ext + f * S, f, k);
+}
+
+// Trace value t = ((v*4 + side)*6 + p)*nel*s + along*s + k of state q.
+template <typename T, int S>
+__device__ __forceinline__ T trace_point(const T* q, const T* ext, int nel, long long t) {
+  const int npts = nel * S;
+  return edge_trace<T, S>(q, ext, nel, (int)((t / npts) % 24), (int)(t % npts), (int)(t / (24LL * npts)));
+}
+
+// The halo values that row `row` receives at edge point i, straight from the
+// neighbour panel's state q: halo_point of the traces trace_point would
+// write, without writing them.
+template <typename T, int S>
+__device__ __forceinline__ void state_halo_point(const T* q, const T* ext, const int* src, const int* flip,
+                                                 const T* conv, int nel, int row, int i, T* out) {
+  const int npts = nel * S;
+  int r, j;
+  halo_source(src, flip, npts, row, i, &r, &j);
+  rotate_halo(conv, 24LL * npts, (long long)row * npts + i, edge_trace<T, S>(q, ext, nel, r, j, 0),
+              edge_trace<T, S>(q, ext, nel, r, j, 1), edge_trace<T, S>(q, ext, nel, r, j, 2), out);
 }
 
 // One block of `eb` consecutive elements of the operator (eb <= Shape::EB;
@@ -287,13 +330,15 @@ __device__ __forceinline__ T trace_point(const T* q, const T* ext, int nel, long
 // neighbour's entry for the neighbour's face, so again the same bits on both
 // sides) and halo0, and every flux is the term-level delta around them; the
 // output is rhs0 + delta (or the stage combination of delta states). With
-// HALO_FROM_TRACES, `halo` holds the traces and each panel-edge face computes
-// its halo value with `halo_point`.
+// HaloFrom::kTraces, `halo` holds the traces and each panel-edge face computes
+// its halo value with `halo_point`; with HaloFrom::kState, with
+// `state_halo_point` from the neighbour panel's rows of `q` (the delta in the
+// perturbation form; the base halo stays the plane halo0).
 //
 // The divergence at node (ky, kx) sums the s x-terms of its row, then the s
 // y-terms of its column; the correction its four faces' fluxes, W, E, S, N:
 // the order in which the dense DD and CC products met their non-zero terms.
-template <typename T, int S, bool PERT, bool HALO_FROM_TRACES>
+template <typename T, int S, bool PERT, HaloFrom HALO>
 __device__ __forceinline__ void element_block(const OpArgs<T>& A, int blk, int eb, T* smem) {
   using Sh = Shape<S>;
   constexpr int S2 = Sh::S2, NF = Sh::NF;
@@ -395,8 +440,10 @@ __device__ __forceinline__ void element_block(const OpArgs<T>& A, int blk, int e
       const long long hvar = 4LL * npanel * npts;
       T own[3], nb[3];
       if (at_edge) {
-        if constexpr (HALO_FROM_TRACES) {
+        if constexpr (HALO == HaloFrom::kTraces) {
           halo_point(A.halo, A.hsrc, A.hflip, A.hconv, npts, hside * 6 + p, along * S + k, nb);
+        } else if constexpr (HALO == HaloFrom::kState) {
+          state_halo_point<T, S>(A.q, sExt, A.hsrc, A.hflip, A.hconv, nel, hside * 6 + p, along * S + k, nb);
         } else {
 #pragma unroll
           for (int v = 0; v < 3; ++v) nb[v] = A.halo[v * hvar + hidx];

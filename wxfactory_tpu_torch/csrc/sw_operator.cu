@@ -1,13 +1,19 @@
 // Shallow-water DFR spatial operator on the cubed sphere, one launch per call,
-// and the two small kernels of its halo glue.
+// and the two small kernels of the halo glue that its whole-sphere launch
+// folds into its panel-edge faces.
 //
 // sw_operator_kernel replaces the TPU kernels wxfactory_tpu/ops/pallas_sw_gen.py::
 // km_gen (body _panel_body, with pallas_sw._element_stage and _ausm_slots) and,
 // for s=4, pallas_sw.py::km_fused: absolute form or, with the base planes
 // (PERT), the perturbation form (_element_stage_pert, _ausm_delta_slots, the
 // float64 base RHS added last); optional RK stage combination a*x + b*q +
-// cdt*RHS(q); optional emission of the output's panel-edge traces for the next
-// stage's halo. Its body is swk::element_block (csrc/sw_element.cuh). The plain
+// cdt*RHS(q); optional emission of the output's panel-edge traces. Its body is
+// swk::element_block (csrc/sw_element.cuh). A whole-sphere call takes its
+// panel-edge neighbours either from a halo plane (C entry sw_operator_launch)
+// or, with no halo (sw_operator_state_launch), straight from the neighbour
+// panels' rows of the input state: each panel-edge face point computes what
+// the edge-trace kernel and then the halo kernel would have given it
+// (swk::state_halo_point), so one launch does the work of three. The plain
 // torch version of the same function is wxfactory_tpu_torch/ops/sw_operator.py::
 // sw_operator_plain (sw_operator_pert_plain); the wrapper sw_operator there
 // launches this kernel.
@@ -22,12 +28,14 @@
 // ops/sw_operator.py::sw_tile_operator_plain; wrapper: sw_tile_operator.
 //
 // sw_edges_kernel replaces pallas_sw.py::ke_edges: the panel-edge traces
-// (3, 4, 6, nel, s) of a state, the chain's bootstrap (plain version:
-// ops/sw_operator.py::edge_traces). sw_halo_kernel replaces pallas_sw.py::
-// kh_exchange: neighbour permutation, edge flips and the 2x2 contravariant
-// rotation of the momenta, traces in, halo out (plain version: halo_from_traces).
-// Both serve every (nel, s), and the halo is linear, so the same kernel takes
-// absolute and delta traces.
+// (3, 4, 6, nel, s) of a state (plain version: ops/sw_operator.py::
+// edge_traces). sw_halo_kernel replaces pallas_sw.py::kh_exchange: neighbour
+// permutation, edge flips and the 2x2 contravariant rotation of the momenta,
+// traces in, halo out (plain version: halo_from_traces). Both serve every
+// (nel, s), and the halo is linear, so the same kernel takes absolute and
+// delta traces. They run at setup (the perturbation base's halo) and as the
+// standalone counterparts of the state mode's panel-edge faces, which call
+// the same device functions (swk::edge_trace, swk::rotate_halo).
 //
 // Layouts: csrc/sw_element.cuh.
 //
@@ -55,7 +63,9 @@
 // (tools/sw_operator_ablation.py). The perturbation form reads 14 base
 // planes more (about 2.3x the state's bytes) and does about twice the face
 // work. The halo and edge kernels move a few hundred KB and are bound by
-// their launch.
+// their launch; the state mode's panel-edge faces read 3s words more each
+// (4 nel of nel^2 elements a panel, the neighbour rows an L2 hit as the
+// interior ones are) and write no traces.
 
 #include <cuda_runtime.h>
 
@@ -68,34 +78,36 @@ namespace {
 using swk::OpArgs;
 using swk::Shape;
 
-template <typename T, int S, bool PERT>
+using swk::HaloFrom;
+
+template <typename T, int S, bool PERT, HaloFrom HALO>
 __device__ __forceinline__ void operator_body(const OpArgs<T>& A, int eb) {
   extern __shared__ unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   swk::load_factors<T, S>(A.ops, smem);
-  swk::element_block<T, S, PERT, false>(A, blockIdx.x, eb, smem);
+  swk::element_block<T, S, PERT, HALO>(A, blockIdx.x, eb, smem);
 }
 
-template <typename T, int S, bool PERT>
+template <typename T, int S, bool PERT, HaloFrom HALO>
 __global__ void __launch_bounds__(swk::kThreads) sw_operator_kernel(OpArgs<T> A, int eb) {
-  operator_body<T, S, PERT>(A, eb);
+  operator_body<T, S, PERT, HALO>(A, eb);
 }
 
 // The float32 perturbation form compiled for 4 resident blocks an SM (64
 // registers; it takes 79 at s=4 and 3 blocks uncapped, and runs 15-17 %
 // faster capped at s=4 and 7). A cap written into the other forms'
 // template (a minimum of 1 block) made the absolute forms 3-20 % slower.
-template <int S>
+template <int S, HaloFrom HALO>
 __global__ void __launch_bounds__(swk::kThreads, 4) sw_operator_f32_pert_kernel(OpArgs<float> A, int eb) {
-  operator_body<float, S, true>(A, eb);
+  operator_body<float, S, true, HALO>(A, eb);
 }
 
-template <typename T, int S, bool PERT>
+template <typename T, int S, bool PERT, HaloFrom HALO>
 auto operator_kernel() {
   if constexpr (std::is_same<T, float>::value && PERT)
-    return sw_operator_f32_pert_kernel<S>;
+    return sw_operator_f32_pert_kernel<S, HALO>;
   else
-    return sw_operator_kernel<T, S, PERT>;
+    return sw_operator_kernel<T, S, PERT, HALO>;
 }
 
 template <typename T, int S>
@@ -133,7 +145,7 @@ int elements_per_block(int nelem, int eb_max, int sms) {
   return eb < 1 ? 1 : (eb < eb_max ? eb : eb_max);
 }
 
-template <typename T, int S, bool PERT>
+template <typename T, int S, bool PERT, HaloFrom HALO>
 cudaError_t launch_operator(const OpArgs<T>& A, cudaStream_t stream) {
   using Sh = Shape<S>;
   int device = 0, sms = 0;
@@ -143,16 +155,25 @@ cudaError_t launch_operator(const OpArgs<T>& A, cudaStream_t stream) {
   const int nelem = A.npanel * A.nel * A.nel;
   const int eb = elements_per_block(nelem, Sh::EB, sms);
   const int blocks = (nelem + eb - 1) / eb;
-  auto kernel = operator_kernel<T, S, PERT>();
+  auto kernel = operator_kernel<T, S, PERT, HALO>();
   kernel<<<blocks, eb * Sh::S2, Sh::smem_bytes(sizeof(T), eb), stream>>>(A, eb);
   return cudaGetLastError();
 }
 
+template <typename T, int S>
+cudaError_t launch_operator(const OpArgs<T>& A, bool pert, bool state, cudaStream_t stream) {
+  if (state)
+    return pert ? launch_operator<T, S, true, HaloFrom::kState>(A, stream)
+                : launch_operator<T, S, false, HaloFrom::kState>(A, stream);
+  return pert ? launch_operator<T, S, true, HaloFrom::kPlane>(A, stream)
+              : launch_operator<T, S, false, HaloFrom::kPlane>(A, stream);
+}
+
 template <typename T>
-cudaError_t dispatch_operator(int s, const OpArgs<T>& A, bool pert, cudaStream_t stream) {
+cudaError_t dispatch_operator(int s, const OpArgs<T>& A, bool pert, bool state, cudaStream_t stream) {
 #define SW_CASE(S) \
   case S:          \
-    return pert ? launch_operator<T, S, true>(A, stream) : launch_operator<T, S, false>(A, stream);
+    return launch_operator<T, S>(A, pert, state, stream);
   switch (s) {
     SW_CASE(2) SW_CASE(3) SW_CASE(4) SW_CASE(5) SW_CASE(6) SW_CASE(7) SW_CASE(8)
     default: return cudaErrorInvalidValue;
@@ -162,18 +183,27 @@ cudaError_t dispatch_operator(int s, const OpArgs<T>& A, bool pert, cudaStream_t
 
 // What the runtime reports of the operator kernel's instantiation at its
 // largest block (Shape::EB elements).
-template <typename T, int S, bool PERT>
+template <typename T, int S, bool PERT, HaloFrom HALO>
 cudaError_t operator_resources(int* info) {
   using Sh = Shape<S>;
-  return swk::kernel_resources(operator_kernel<T, S, PERT>(), Sh::EB * Sh::S2, Sh::smem_bytes(sizeof(T), Sh::EB),
-                               info);
+  return swk::kernel_resources(operator_kernel<T, S, PERT, HALO>(), Sh::EB * Sh::S2,
+                               Sh::smem_bytes(sizeof(T), Sh::EB), info);
+}
+
+template <typename T, int S>
+cudaError_t operator_resources(bool pert, bool state, int* info) {
+  if (state)
+    return pert ? operator_resources<T, S, true, HaloFrom::kState>(info)
+                : operator_resources<T, S, false, HaloFrom::kState>(info);
+  return pert ? operator_resources<T, S, true, HaloFrom::kPlane>(info)
+              : operator_resources<T, S, false, HaloFrom::kPlane>(info);
 }
 
 template <typename T>
-cudaError_t dispatch_resources(int s, bool pert, int* info) {
+cudaError_t dispatch_resources(int s, bool pert, bool state, int* info) {
 #define SW_CASE(S) \
   case S:          \
-    return pert ? operator_resources<T, S, true>(info) : operator_resources<T, S, false>(info);
+    return operator_resources<T, S>(pert, state, info);
   switch (s) {
     SW_CASE(2) SW_CASE(3) SW_CASE(4) SW_CASE(5) SW_CASE(6) SW_CASE(7) SW_CASE(8)
     default: return cudaErrorInvalidValue;
@@ -204,7 +234,8 @@ template <typename T>
 OpArgs<T> op_args(int nel, int npanel, const void* q, const void* halo, const void* ops, const void* fields,
                   const void* gridrot, const void* itf_x, const void* itf_y, const void* x,
                   const void* q0, const void* u0, const void* itf0, const void* halo0, const void* rhs0,
-                  void* out, void* traces, double a, double b, double cdt, int stage) {
+                  const void* src, const void* flip, const void* conv, void* out, void* traces, double a, double b,
+                  double cdt, int stage) {
   OpArgs<T> A{};
   A.q = static_cast<const T*>(q);
   A.halo = static_cast<const T*>(halo);
@@ -221,6 +252,9 @@ OpArgs<T> op_args(int nel, int npanel, const void* q, const void* halo, const vo
   A.itf0 = static_cast<const T*>(itf0);
   A.halo0 = static_cast<const T*>(halo0);
   A.rhs0 = static_cast<const T*>(rhs0);
+  A.hsrc = static_cast<const int*>(src);
+  A.hflip = static_cast<const int*>(flip);
+  A.hconv = static_cast<const T*>(conv);
   A.nel = nel;
   A.npanel = npanel;
   A.a = T(a);
@@ -230,23 +264,28 @@ OpArgs<T> op_args(int nel, int npanel, const void* q, const void* halo, const vo
   return A;
 }
 
+// halo == nullptr: the state mode (whole sphere; src, flip and conv given).
 int operator_launch(int npanel, int is_f64, int s, int nel, const void* q, const void* halo, const void* ops,
                     const void* fields, const void* gridrot, const void* itf_x, const void* itf_y, const void* x,
                     const void* q0, const void* u0, const void* itf0, const void* halo0, const void* rhs0,
-                    void* out, void* traces, double a, double b, double cdt, int stage, void* stream) {
+                    const void* src, const void* flip, const void* conv, void* out, void* traces, double a,
+                    double b, double cdt, int stage, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool pert = q0 != nullptr;
+  const bool state = halo == nullptr;
   if (pert && (u0 == nullptr || itf0 == nullptr || halo0 == nullptr || rhs0 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (state && (npanel != 6 || src == nullptr || flip == nullptr || conv == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaError_t err =
       is_f64 ? dispatch_operator<double>(s, op_args<double>(nel, npanel, q, halo, ops, fields, gridrot, itf_x, itf_y,
-                                                            x, q0, u0, itf0, halo0, rhs0, out, traces, a, b, cdt,
-                                                            stage),
-                                         pert, st)
+                                                            x, q0, u0, itf0, halo0, rhs0, src, flip, conv, out,
+                                                            traces, a, b, cdt, stage),
+                                         pert, state, st)
              : dispatch_operator<float>(s, op_args<float>(nel, npanel, q, halo, ops, fields, gridrot, itf_x, itf_y,
-                                                          x, q0, u0, itf0, halo0, rhs0, out, traces, a, b, cdt,
-                                                          stage),
-                                        pert, st);
+                                                          x, q0, u0, itf0, halo0, rhs0, src, flip, conv, out,
+                                                          traces, a, b, cdt, stage),
+                                        pert, state, st);
   return (int)err;
 }
 
@@ -262,9 +301,27 @@ extern "C" int sw_operator_launch(int is_f64, int s, int nel, const void* q, con
                                   const void* u0, const void* itf0, const void* halo0, const void* rhs0,
                                   void* out, void* traces, double a, double b, double cdt, int stage,
                                   void* stream) {
-  if (nel < 2) return (int)cudaErrorInvalidValue;
+  if (nel < 2 || halo == nullptr) return (int)cudaErrorInvalidValue;
   return operator_launch(6, is_f64, s, nel, q, halo, ops, fields, gridrot, itf_x, itf_y, x, q0, u0, itf0, halo0,
-                         rhs0, out, traces, a, b, cdt, stage, stream);
+                         rhs0, nullptr, nullptr, nullptr, out, traces, a, b, cdt, stage, stream);
+}
+
+// The same operator with no halo (the state mode): each panel-edge face
+// takes its neighbour's values from the neighbour panel's rows of q,
+// exchanged and rotated with the halo tables src, flip (24) int32 and conv
+// (4, 24, nel*s) of sw_halo_launch; the perturbation form reads the delta
+// neighbour from q and the base halo from halo0. One launch computes what
+// sw_edges_launch, sw_halo_launch and sw_operator_launch compute in turn,
+// bit for bit.
+extern "C" int sw_operator_state_launch(int is_f64, int s, int nel, const void* q, const void* ops,
+                                        const void* fields, const void* gridrot, const void* itf_x,
+                                        const void* itf_y, const void* x, const void* q0, const void* u0,
+                                        const void* itf0, const void* halo0, const void* rhs0, const void* src,
+                                        const void* flip, const void* conv, void* out, void* traces, double a,
+                                        double b, double cdt, int stage, void* stream) {
+  if (nel < 2) return (int)cudaErrorInvalidValue;
+  return operator_launch(6, is_f64, s, nel, q, nullptr, ops, fields, gridrot, itf_x, itf_y, x, q0, u0, itf0, halo0,
+                         rhs0, src, flip, conv, out, traces, a, b, cdt, stage, stream);
 }
 
 // The same operator over ONE tile of nt x nt elements (the port of
@@ -279,9 +336,9 @@ extern "C" int sw_tile_launch(int is_f64, int s, int nt, const void* q, const vo
                               const void* u0, const void* itf0, const void* halo0, const void* rhs0,
                               void* out, void* traces, double a, double b, double cdt, int stage,
                               void* stream) {
-  if (nt < 1) return (int)cudaErrorInvalidValue;
+  if (nt < 1 || halo == nullptr) return (int)cudaErrorInvalidValue;
   return operator_launch(1, is_f64, s, nt, q, halo, ops, fields, gridrot, itf_x, itf_y, x, q0, u0, itf0, halo0,
-                         rhs0, out, traces, a, b, cdt, stage, stream);
+                         rhs0, nullptr, nullptr, nullptr, out, traces, a, b, cdt, stage, stream);
 }
 
 // Panel-edge traces (3, 4, 6, nel, s) of q; ops as for sw_operator_launch
@@ -314,12 +371,19 @@ extern "C" int sw_halo_launch(int is_f64, int npts, const void* traces, const vo
   return (int)cudaGetLastError();
 }
 
-// What the runtime reports of the operator kernel at (is_f64, s, pert):
-// info = [registers, local (spill) bytes a thread, dynamic shared memory
-// bytes a block, resident blocks an SM, threads a block], at its largest
-// block.
+// What the runtime reports of the operator kernel at (is_f64, s, pert), halo
+// plane: info = [registers, local (spill) bytes a thread, dynamic shared
+// memory bytes a block, resident blocks an SM, threads a block], at its
+// largest block.
 extern "C" int sw_operator_resources(int is_f64, int s, int pert, int* info) {
-  return (int)(is_f64 ? dispatch_resources<double>(s, pert != 0, info) : dispatch_resources<float>(s, pert != 0, info));
+  return (int)(is_f64 ? dispatch_resources<double>(s, pert != 0, false, info)
+                      : dispatch_resources<float>(s, pert != 0, false, info));
+}
+
+// The same of the state mode's instantiation.
+extern "C" int sw_operator_state_resources(int is_f64, int s, int pert, int* info) {
+  return (int)(is_f64 ? dispatch_resources<double>(s, pert != 0, true, info)
+                      : dispatch_resources<float>(s, pert != 0, true, info));
 }
 
 extern "C" const char* sw_operator_error_string(int code) {

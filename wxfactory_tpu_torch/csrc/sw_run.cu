@@ -24,8 +24,9 @@
 // sum-factorised body of the per-stage kernel sw_operator_kernel
 // (csrc/sw_operator.cu), with the halo values computed from the traces by
 // swk::halo_point, the body of sw_halo_kernel: with the same coefficients
-// the run gives the same bits as the chain of per-stage launches (edge
-// kernel, then halo and operator kernels a stage). The grid is as large as
+// the run gives the same bits as the chain of per-stage launches (one
+// operator launch a stage, its panel-edge faces reading the neighbour
+// panels' state through swk::state_halo_point). The grid is as large as
 // the card holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor x
 // SMs, at most one block per element block: 3 blocks of 256 threads an SM
 // in float32, 2 in float64 at s=4); a launch the card cannot hold returns
@@ -105,7 +106,7 @@ __global__ void __launch_bounds__(swk::kThreads) sw_run_kernel(RunArgs<T> R) {
       A.cdt = R.cdt[k];
       A.stage = 1;
       for (int blk = blockIdx.x; blk < nblocks; blk += gridDim.x) {
-        swk::element_block<T, S, PERT, true>(A, blk, Sh::EB, smem);
+        swk::element_block<T, S, PERT, swk::HaloFrom::kTraces>(A, blk, Sh::EB, smem);
         __syncthreads();  // the next element block reuses the shared regions
       }
       grid.sync();

@@ -3,9 +3,11 @@
 Counterpart of ``wxfactory_tpu/integrators/explicit.py`` (reference
 integrators/euler1.py and tvdrk3.py) for an RHS with the fused stage API
 (``stage`` / ``traces``: the shallow-water and 3D Euler operators): a step
-is one operator launch per RK stage. Each stage computes ``a*q0 + b*y + c*dt*RHS(y)`` and
-emits its output's panel-edge traces, which the next stage — and the next
-step — consumes, so only the first step bootstraps traces.
+is one operator launch per RK stage. Each stage computes ``a*q0 + b*y + c*dt*RHS(y)``;
+a 3D Euler stage also emits its output's panel-edge traces, which the next
+stage — and the next step — consumes, so only the first step bootstraps
+traces. A shallow-water stage takes its halo from its input state, and its
+traces are None.
 
 As the JAX package's ``_PackedChain`` (integrators/explicit.py:38-100
 there), the stages run on the RHS's packed state (``rhs.pack``: the

@@ -36,13 +36,17 @@ SIGNATURES = {
             + [_D, _D, _D, _I]  # a, b, cdt, stage
             + [_P],  # stream
         ),
+        # the same with no halo (the state mode): is_f64, s, nel, then q, ops, fields,
+        # gridrot, itf_x, itf_y, x, q0, u0, itf0, halo0, rhs0, src, flip, conv, out, traces
+        "sw_operator_state_launch": (_I, [_I, _I, _I] + [_P] * 17 + [_D, _D, _D, _I] + [_P]),
         # the same over one tile: is_f64, s, nt and the pointers of a tile
         "sw_tile_launch": (_I, [_I, _I, _I] + [_P] * 15 + [_D, _D, _D, _I] + [_P]),
         "sw_edges_launch": (_I, [_I, _I, _I] + [_P] * 3 + [_P]),  # is_f64, s, nel, q, ops, traces, stream
         # is_f64, npts, traces, src, flip, conv, halo, stream
         "sw_halo_launch": (_I, [_I, _I] + [_P] * 5 + [_P]),
-        # is_f64, s, pert, int[5] out
+        # is_f64, s, pert, int[5] out (halo plane; the state mode)
         "sw_operator_resources": (_I, [_I, _I, _I, _P]),
+        "sw_operator_state_resources": (_I, [_I, _I, _I, _P]),
         "sw_operator_error_string": (ctypes.c_char_p, [_I]),
     },
     "sw_run": {

@@ -174,7 +174,7 @@ def compare_sw_operator(nel: int, s: int, dtype, device="cuda", seed: int = 0):
 
 
 def sw_work(nel: int, s: int, dtype, stage: bool = False, use_x: bool = False,
-            traces: bool = False, pert: bool = False, npanel: int = 6):
+            traces: bool = False, pert: bool = False, npanel: int = 6, state: bool = False):
     """(bytes, operations) of one SW operator call: each input read once,
     each output written once; the operations the function needs (an add,
     multiply, divide or sqrt is one, a fused multiply-add two), with each
@@ -186,13 +186,19 @@ def sw_work(nel: int, s: int, dtype, stage: bool = False, use_x: bool = False,
     do s times that). The perturbation form (``pert``) also reads the 14
     base planes and does the delta expansion (~25 more operations a node,
     ~50 more an interface point). ``npanel=1``: one nel x nel tile (the
-    tile kernel), which reads its own slice of the metric."""
+    tile kernel), which reads its own slice of the metric. ``state``: the
+    whole-sphere state mode (``halo=None``), which reads no halo: each
+    panel-edge face point takes its neighbour's 3 values from the
+    neighbour panel's nodes, which are elements of q and counted with it,
+    reads the 4 rotation coefficients of the halo tables and rotates the
+    momenta (6 operations); it writes no traces."""
     n_elem, s2, item = npanel * nel * nel, s * s, torch.finfo(dtype).bits // 8
-    state = 3 * n_elem * s2
-    words = 2 * state + (state if use_x else 0)  # q, out, x
+    nstate = 3 * n_elem * s2
+    words = 2 * nstate + (nstate if use_x else 0)  # q, out, x
     words += 13 * nel * nel * s2 + n_elem * s2  # one-panel metric, gridrot
     edge = 3 * 4 * npanel * nel * s
-    words += 2 * 3 * nel * (nel + 1) * s + edge * (2 if traces else 1)  # itf, halo, traces
+    words += 2 * 3 * nel * (nel + 1) * s  # itf
+    words += 4 * edge // 3 if state else edge * (2 if traces else 1)  # conv (four an edge point); halo, traces
     node, face = 30, 40
     if pert:
         words += 8 * n_elem * s2 + 3 * n_elem * 4 * s + edge  # q0, u0, rhs0, itf0, halo0
@@ -201,6 +207,8 @@ def sw_work(nel: int, s: int, dtype, stage: bool = False, use_x: bool = False,
     # variables fma; interface point: 2 sides x 3 variables x s fma + flux
     ops = n_elem * (s2 * (node + 12 * s + 24) + 2 * s * (12 * s + face))
     ops += n_elem * s2 * 3 * ((2 if stage else 0) + (2 if use_x else 0))
+    if state:
+        ops += 6 * edge // 3
     return words * item, ops
 
 
@@ -679,9 +687,10 @@ def operator_kernel_resources(dtype, s: int) -> dict:
 
 
 def sw_kernel_resources(dtype, s: int) -> dict:
-    """{"absolute", "perturbation": {registers, local_bytes, smem_bytes,
-    blocks_per_sm, threads}} of the SW operator kernel at one dtype and s
-    (its largest block), and at s = 4 also "run", "run_pert" of the
+    """{"absolute", "perturbation", "state_absolute", "state_perturbation":
+    {registers, local_bytes, smem_bytes, blocks_per_sm, threads}} of the SW
+    operator kernel at one dtype and s (its largest block; halo plane and
+    state mode), and at s = 4 also "run", "run_pert" of the
     whole-run kernel: what the runtime reports (on the card; builds the
     libraries)."""
     import ctypes
@@ -691,12 +700,14 @@ def sw_kernel_resources(dtype, s: int) -> dict:
     keys = ("registers", "local_bytes", "smem_bytes", "blocks_per_sm", "threads")
     f64 = 1 if dtype == torch.float64 else 0
     out = {}
+    lib = load_library("sw_operator")
     for pert, form in enumerate(("absolute", "perturbation")):
-        info = (ctypes.c_int * 5)()
-        rc = load_library("sw_operator").sw_operator_resources(f64, s, pert, ctypes.cast(info, ctypes.c_void_p))
-        if rc != 0:
-            raise RuntimeError(f"sw_operator_resources failed: CUDA error {rc}")
-        out[form] = dict(zip(keys, info))
+        for prefix, entry in (("", lib.sw_operator_resources), ("state_", lib.sw_operator_state_resources)):
+            info = (ctypes.c_int * 5)()
+            rc = entry(f64, s, pert, ctypes.cast(info, ctypes.c_void_p))
+            if rc != 0:
+                raise RuntimeError(f"{prefix}operator resources failed: CUDA error {rc}")
+            out[prefix + form] = dict(zip(keys, info))
         if s == 4:
             info = (ctypes.c_int * 5)()
             rc = load_library("sw_run").sw_run_resources(f64, pert, ctypes.cast(info, ctypes.c_void_p))
@@ -1021,6 +1032,43 @@ def compare_sw_halo(nel: int, s: int, dtype, device="cuda", seed: int = 0):
     traces = torch.as_tensor(rng.standard_normal((3, 4, 6, nel, s)), dtype=dtype, device=device)
     return _glue_row(nel, s, dtype, "halo", lambda: swop.sw_halo(traces, topology),
                      lambda: swop.halo_from_traces(traces, topology), device)
+
+
+def compare_sw_state_halo(nel: int, s: int, dtype, device="cuda", seed: int = 0):
+    """The operator's state mode (``halo=None``: each panel-edge face reads
+    the neighbour panel's state) against the same operator fed
+    ``sw_halo(sw_edges(q))`` (on the card the edge-trace, halo and operator
+    kernels, three launches), absolute and perturbation form, RHS and
+    stages with a = 0 and a != 0; one row per mode. The two are asked to be
+    bit for bit equal (``bit_identical``, ``torch.equal``: the state mode
+    calls the same device functions in the same order). Each row also
+    holds mass against the plain version (``mass_err`` of the h change,
+    within the operator's tolerance), and reports its distance from it."""
+    con, topology, x, y = case6_inputs(nel, s, dtype, device, seed)
+    pcon, _, base, dq, dx = sw_pert_inputs(nel, s, dtype, device, seed)
+    wsg = sw_mass_weights(sw_setup(nel, s)[1], con)
+    modes = {"rhs": {}, "stage": dict(a=0.0, b=1.0, cdt=DT), "stage_x": dict(a=0.75, b=0.25, cdt=0.25 * DT)}
+    rows = []
+    for form, q, c, b, xx, tol in (("", y, con, None, x, TOLERANCE[dtype]),
+                                   ("pert_", dq, pcon, base, dx, SW_PERT_TOLERANCE[dtype])):
+        for mode, kw in modes.items():
+            kw = dict(kw, x=xx) if "a" in kw and kw["a"] != 0.0 else kw
+            got = swop.sw_operator(q, None, c, base=b, topology=topology, **kw)
+            route = swop.sw_operator(q, swop.sw_halo(swop.sw_edges(q, c), topology), c, base=b, **kw)
+            plain = swop.sw_operator_plain(q, None, c, base=b, topology=topology, **kw)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            row = {"nel": nel, "s": s, "dtype": str(dtype).replace("torch.", ""), "mode": f"state_{form}{mode}",
+                   "bit_identical": bool(torch.equal(got, route)),
+                   "max_abs_err": float((got - route).abs().max()), "scale": "route_output_max",
+                   "err": _scaled(got - route, per_variable_max(route)),
+                   "plain_err": _scaled(got - plain, per_variable_max(plain)), "tol": tol}
+            row["mass_err"], row["mass_tol"] = mass_err(got, plain, wsg, dtype, kw.get("x"), q, kw.get("a", 0.0),
+                                                        kw.get("b", 1.0), "cdt" in kw, tol=tol)
+            row["ok"] = bool(row["bit_identical"] and torch.isfinite(got).all().item()
+                             and row["mass_err"] <= row["mass_tol"])
+            rows.append(row)
+    return rows
 
 
 def compare_sw_run(nel: int, dtype, nsteps: int, pert: bool, device="cuda", dt: float = 30.0):

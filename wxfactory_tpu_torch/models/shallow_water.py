@@ -4,14 +4,15 @@ Counterpart of ``wxfactory_tpu/models/shallow_water.py`` (absolute and
 perturbation forms, no topography): the state is ``Q[3, 6, ny, nx, s^2]``
 (h, h*u1, h*u2) and the whole spatial operator is ``ops.sw_operator`` — the
 hand-written CUDA kernel on a GPU, its plain torch version on the CPU —
-composed with the halo glue (``sw_edges``, ``sw_halo``: kernels on a GPU,
-plain torch on the CPU).
+with its halo taken from the state (``halo=None``): on a GPU one launch
+whose panel-edge faces read the neighbour panels' state, so an RHS call or
+an RK stage is one launch and no halo glue runs between them.
 
 The returned object is the RHS ``q -> dq/dt`` and also exposes the fused
 stage API the explicit integrators chain: ``stage(x, y, a, b, cdt, traces)``
-returns ``a*x + b*y + cdt*RHS(y)`` and the output's panel-edge traces, so
-the next stage's halo needs no separate pass (one operator launch and one
-halo launch per RK stage). ``traces(q)`` bootstraps the chain.
+returns ``a*x + b*y + cdt*RHS(y)`` and ``None`` in place of the output's
+traces, which no stage needs (``traces(q)`` is ``None`` too, with no
+launch; the 3D model's stages carry real traces through the same chain).
 
 In absolute form ``pack``/``unpack`` are the identity: the kernel works in
 the model layout. With ``perturbation_base=q0`` the RHS is the perturbation
@@ -40,8 +41,6 @@ from ..ops.sw_operator import (
     build_constants,
     halo_tables,
     run_supported,
-    sw_edges,
-    sw_halo,
     sw_operator,
     sw_run,
 )
@@ -82,13 +81,10 @@ class ShallowWaterRHS:
         """The perturbation base q0 in the working dtype (None in absolute form)."""
         return self.base.q0 if self.base is not None else None
 
-    def traces(self, q: torch.Tensor) -> torch.Tensor:
-        """Panel-edge traces of a packed state (3, 4, 6, nel, s): the
-        chain's bootstrap (delta traces in perturbation form)."""
-        return sw_edges(q, self.con)
-
-    def halo(self, traces: torch.Tensor) -> torch.Tensor:
-        return sw_halo(traces, self.topology)
+    def traces(self, q: torch.Tensor) -> None:
+        """The chain's bootstrap: none, since every stage takes its halo
+        from its input state (no launch)."""
+        return None
 
     def __call__(self, q: torch.Tensor) -> torch.Tensor:
         if self.base is not None:
@@ -100,12 +96,12 @@ class ShallowWaterRHS:
         working-dtype resolution, no absolute-state quantization)."""
         if self.base is None:
             raise ValueError("delta needs a perturbation_base")
-        return sw_operator(qprime, self.halo(self.traces(qprime)), self.con, base=self.base)
+        return sw_operator(qprime, None, self.con, base=self.base, topology=self.topology)
 
     def xla(self, q: torch.Tensor) -> torch.Tensor:
         """The absolute-form operator of this dtype on the absolute state
         (what the JAX package's ``rhs_pert.xla`` is)."""
-        return sw_operator(q, self.halo(self.traces(q)), self.con)
+        return sw_operator(q, None, self.con, topology=self.topology)
 
     def jtv_prep(self, q: torch.Tensor):
         """The SW operator has no Jacobian action in the port: no tangent
@@ -119,12 +115,10 @@ class ShallowWaterRHS:
 
     def stage(self, x, y, a: float, b: float, cdt: float, traces: Optional[torch.Tensor] = None):
         """One fused RK stage ``a*x + b*y + cdt*RHS(y)`` on packed states
-        (``x`` unused when ``a == 0``); ``traces`` are y's panel-edge traces
-        (bootstrapped when None). Returns (output, output traces)."""
-        if traces is None:
-            traces = self.traces(y)
-        return sw_operator(y, self.halo(traces), self.con, x=x, a=a, b=b, cdt=cdt, emit_traces=True,
-                           base=self.base)
+        (``x`` unused when ``a == 0``), one launch on a GPU; ``traces`` is
+        ignored (the halo comes from ``y``). Returns (output, None)."""
+        return sw_operator(y, None, self.con, x=x, a=a, b=b, cdt=cdt, base=self.base,
+                           topology=self.topology), None
 
     def pack(self, q: torch.Tensor) -> torch.Tensor:
         """The integrators' state: q itself, or q - q0 in perturbation form."""

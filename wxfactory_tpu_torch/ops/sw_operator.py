@@ -14,7 +14,7 @@ the sqrt(g)-weighted pointwise fluxes, the interior divergence, the AUSM
 Mach-splitting interface fluxes, the boundary correction and the
 Coriolis/Christoffel forcing (reference rhs_sw.py:81-238), optionally fused
 with an RK stage combination ``a*x + b*q + cdt*RHS(q)`` and the output
-state's panel-edge traces for the next stage's halo. With a perturbation
+state's panel-edge traces. With a perturbation
 base (``SWPertBase``, the 14 base planes) the state, halo, output and traces
 carry deltas around the base state q0 and the output is ``rhs0 + delta``,
 every flux expanded term by term around the base (never F(q0 + dq) -
@@ -22,13 +22,17 @@ F(q0), which float32 could not resolve).
 
 Panel-edge data travel as TRACES ``(3, 4, 6, nel, s)``: variable, side
 (S, N, W, E — the topology's side order), panel, element along the edge,
-point along the edge. ``edge_traces`` extracts them from a state (the
-bootstrap glue), the operator emits them from its output, and
-``halo_from_traces`` turns them into the neighbour halos the operator
-consumes (same layout; exchange with edge flips + 2x2 contravariant
-rotation of the momenta). West/south panel-edge interfaces take qL from the
-halo, east/north take qR from it. ``sw_run`` runs whole TVD-RK3 steps at
-s=4 (one launch for all of them on a GPU).
+point along the edge. ``edge_traces`` extracts them from a state, the
+operator can emit them from its output, and ``halo_from_traces`` turns them
+into the neighbour halos (same layout; exchange with edge flips + 2x2
+contravariant rotation of the momenta). West/south panel-edge interfaces
+take qL from the halo, east/north take qR from it. A whole-sphere call with
+``halo=None`` takes its halo from the state itself: on the card one launch
+whose panel-edge faces compute ``halo_from_traces(edge_traces(q))`` at the
+points they need (``panel_edge_plan`` mirrors that indexing in numpy), so
+an RHS or a stage is one launch; the halo glue runs on its own only at
+setup (the perturbation base's halo). ``sw_run`` runs whole TVD-RK3 steps
+at s=4 (one launch for all of them on a GPU).
 
 One tile of the sphere (the port of ``pallas_sw_gen.km_tile``, the per-rank
 kernel of the tile-parallel step): ``tile_constants`` slices the constants
@@ -52,11 +56,13 @@ import torch
 from ..common.constants import GRAVITY
 
 # Kernel launches made by the wrappers (the plain versions do not count):
-# the operator in absolute and in perturbation form, its tile launches in
-# both forms, the edge-trace and halo kernels and the whole-run kernel; and
-# calls of the plain versions.
+# the operator in absolute and in perturbation form (``state_launches``
+# counts those of them that took the halo from the state), its tile
+# launches in both forms, the edge-trace and halo kernels and the whole-run
+# kernel; and calls of the plain versions.
 launches = 0
 pert_launches = 0
+state_launches = 0
 tile_launches = 0
 pert_tile_launches = 0
 edge_launches = 0
@@ -205,6 +211,37 @@ def element_plan(s: int) -> dict:
             "div_terms": div_terms, "div_factor": div_factor, "corr_faces": corr_faces, "corr_factor": corr_factor}
 
 
+def panel_edge_plan(nel: int, s: int, topology) -> dict:
+    """The state mode's panel-edge indexing (csrc/sw_element.cuh:
+    ``halo_source``, ``edge_trace``, ``rotate_halo``), mirrored in numpy: for
+    the halo point (side, panel, along, k) of the halo layout (3, 4, 6, nel,
+    s), sides (S, N, W, E), which neighbour face point the kernel
+    extrapolates and where its rotation coefficients are. Arrays of shape
+    (4, 6, nel, s):
+
+    * ``elem``: the neighbour element, flat (panel*nel + ey)*nel + ex;
+    * ``face``: its face (0 W, 1 E, 2 S, 3 N) and ``k`` the point on it, so
+      its trace of variable v is ``face_trace`` of ``q[v, elem]`` (the
+      nodes ``element_plan(s)["face_nodes"][face*s + k]`` times the 1D
+      factors ``face_factor``);
+    * ``conv``: the flat index row*npts + i of the point's 2x2 rotation in
+      each of the four (24, npts) planes of ``HaloTables.conv``; the halo is
+      (t0, c11 t1 + c12 t2, c21 t1 + c22 t2)."""
+    npts = nel * s
+    row = np.arange(24)[:, None]  # side*6 + panel
+    i = np.arange(npts)[None, :]
+    src = np.asarray(topology._edge_src, np.int64)[row]
+    flip = np.asarray(topology._flip_mask, bool)[row]
+    j = np.where(flip, npts - 1 - i, i)
+    nside, npanel = np.divmod(src, 6)
+    along, k = np.divmod(j, s)
+    ey = np.choose(nside, [0, nel - 1, along, along])
+    ex = np.choose(nside, [along, along, 0, nel - 1])
+    face = np.broadcast_to(np.choose(nside, [2, 3, 0, 1]), j.shape)
+    shape = (4, 6, nel, s)
+    elem = (npanel * nel + ey) * nel + ex
+    return {"elem": elem.reshape(shape), "face": face.reshape(shape), "k": k.reshape(shape),
+            "conv": (row * npts + i).reshape(shape)}
 
 
 @dataclass(frozen=True)
@@ -300,6 +337,10 @@ def halo_from_traces(traces: torch.Tensor, topology) -> torch.Tensor:
     ``pallas_sw_gen.halo_from_slabs``; plain version of ``sw_halo``)."""
     global plain_calls
     plain_calls += 1
+    return _halo_from_traces(traces, topology)
+
+
+def _halo_from_traces(traces: torch.Tensor, topology) -> torch.Tensor:
     shape = traces.shape
     ex = topology.exchange_pool(traces.reshape(3, 4, 6, -1))
     b1, b2 = topology.rotate_vectors(ex[1], ex[2])
@@ -477,6 +518,15 @@ def _correction(f_x: torch.Tensor, f_y: torch.Tensor, con: SWConstants) -> torch
     return faces @ con.cc
 
 
+def _halo_of(q, halo, con: SWConstants, topology):
+    """``halo``, or with ``halo=None`` the halo of ``q``'s own panel-edge
+    traces (what the kernel's state mode computes at each panel-edge face)."""
+    if halo is not None:
+        return halo
+    _check_topology(con, topology, "the operator's state mode (halo=None)")
+    return _halo_from_traces(_edge_traces(q, con), topology)
+
+
 def _finish(rhs, q, x, a: float, b: float, cdt: Optional[float], emit_traces: bool, con: SWConstants):
     if cdt is None:
         out = rhs
@@ -491,15 +541,18 @@ def _finish(rhs, q, x, a: float, b: float, cdt: Optional[float], emit_traces: bo
 
 def sw_operator_plain(q, halo, con: SWConstants, x=None, a: float = 0.0, b: float = 1.0,
                       cdt: Optional[float] = None, emit_traces: bool = False,
-                      base: Optional[SWPertBase] = None):
+                      base: Optional[SWPertBase] = None, topology=None):
     """Plain torch version of the operator; same arguments and results as
     ``sw_operator`` (written from models/shallow_water.py:130-252 and
     pallas_sw._element_stage / _ausm_slots of the JAX package; with
-    ``base``, ``sw_operator_pert_plain``)."""
+    ``base``, ``sw_operator_pert_plain``). ``halo=None``: the halo of q's
+    own traces, ``halo_from_traces(edge_traces(q))``."""
     global plain_calls
     if base is not None:
-        return sw_operator_pert_plain(q, halo, con, base, x=x, a=a, b=b, cdt=cdt, emit_traces=emit_traces)
+        return sw_operator_pert_plain(q, halo, con, base, x=x, a=a, b=b, cdt=cdt, emit_traces=emit_traces,
+                                      topology=topology)
     plain_calls += 1
+    halo = _halo_of(q, halo, con, topology)
     half_g = 0.5 * GRAVITY
     (sqrtg, h11, h12, h22, g101, g102, g201, g202,
      c111, c112, c212, c222, invsg) = con.fields
@@ -530,9 +583,10 @@ def sw_operator_plain(q, halo, con: SWConstants, x=None, a: float = 0.0, b: floa
 
 
 def sw_operator_pert_plain(dq, halo, con: SWConstants, base: SWPertBase, x=None, a: float = 0.0,
-                           b: float = 1.0, cdt: Optional[float] = None, emit_traces: bool = False):
+                           b: float = 1.0, cdt: Optional[float] = None, emit_traces: bool = False, topology=None):
     """Plain torch version of the perturbation form: ``dq`` is the
-    perturbation around ``base.q0`` and ``halo`` the halo of its traces;
+    perturbation around ``base.q0`` and ``halo`` the halo of its traces
+    (``None``: computed here from dq's traces, the halo being linear);
     returns ``rhs0 + [RHS(q0 + dq) - RHS(q0)]`` with the bracket expanded
     term by term (``pallas_sw._element_stage_pert`` and
     ``_ausm_delta_slots``, the JAX package's ``rhs_delta_core``,
@@ -541,6 +595,7 @@ def sw_operator_pert_plain(dq, halo, con: SWConstants, base: SWPertBase, x=None,
     ``emit_traces`` the output's delta traces."""
     global plain_calls
     plain_calls += 1
+    halo = _halo_of(dq, halo, con, topology)
     half_g = 0.5 * GRAVITY
     (sqrtg, h11, h12, h22, g101, g102, g201, g202,
      c111, c112, c212, c222, invsg) = con.fields
@@ -615,6 +670,18 @@ def _check_kernel_shape(con: SWConstants, name: str):
         raise ValueError(f"{name} takes 2 <= s <= 8 and nel >= {min_nel}, not s={con.s}, nel={con.nel}")
 
 
+def _check_topology(con: SWConstants, topology, name: str):
+    """Raise unless ``topology`` is the whole sphere's at ``con``'s nel and
+    s: the kernels index its halo tables (24 nel s edge points) from the
+    constants' shape, so another grid's tables would be read out of bounds
+    or give another grid's rotations."""
+    if topology is None:
+        raise ValueError(f"{name} takes its halo from the state only with the topology")
+    if (getattr(topology, "nel_h", None), topology.num_points) != (con.nel, con.nel * con.s):
+        raise ValueError(f"{name}: the topology has nel={getattr(topology, 'nel_h', None)} and "
+                         f"{topology.num_points} edge points a panel side; the constants nel={con.nel}, s={con.s}")
+
+
 def _check_npanel(con: SWConstants, npanel: int, name: str):
     if con.npanel != npanel:
         what = "whole-sphere" if npanel == 6 else "tile"
@@ -623,9 +690,12 @@ def _check_npanel(con: SWConstants, npanel: int, name: str):
 
 def sw_operator(q, halo, con: SWConstants, x=None, a: float = 0.0, b: float = 1.0,
                 cdt: Optional[float] = None, emit_traces: bool = False,
-                base: Optional[SWPertBase] = None):
+                base: Optional[SWPertBase] = None, topology=None):
     """The SW operator on ``q`` (3, 6, nel, nel, s^2) with neighbour halos
-    ``halo`` (3, 4, 6, nel, s).
+    ``halo`` (3, 4, 6, nel, s), or with ``halo=None`` (and the
+    ``topology``) the halo of q's own panel-edge traces, taken from the
+    neighbour panels' state inside the one launch (the state mode; in the
+    perturbation form the delta halo, the base halo staying ``base.halo0``).
 
     RHS mode (``cdt is None``): returns RHS(q). Stage mode: returns
     ``a*x + b*q + cdt*RHS(q)`` (``x`` is read only when ``a != 0``). With
@@ -636,13 +706,22 @@ def sw_operator(q, halo, con: SWConstants, x=None, a: float = 0.0, b: float = 1.
 
     A CPU tensor runs ``sw_operator_plain``; a CUDA tensor launches the
     kernel (built from csrc/sw_operator.cu at first use) on the current
-    stream, without synchronising, or raises."""
-    global launches, pert_launches
+    stream, without synchronising, or raises: there is no fallback to the
+    halo kernels when the state mode fails."""
+    global launches, pert_launches, state_launches
     _check_npanel(con, 6, "sw_operator")
     _check(q, halo, con, x, a, base)
+    if halo is None:
+        _check_topology(con, topology, "sw_operator")
     if q.device.type == "cpu":
-        return sw_operator_plain(q, halo, con, x=x, a=a, b=b, cdt=cdt, emit_traces=emit_traces, base=base)
-    out = _launch_operator("sw_operator_launch", q, halo, con, x, a, b, cdt, emit_traces, base)
+        return sw_operator_plain(q, halo, con, x=x, a=a, b=b, cdt=cdt, emit_traces=emit_traces, base=base,
+                                 topology=topology)
+    if halo is None:
+        out = _launch_operator("sw_operator_state_launch", q, None, con, x, a, b, cdt, emit_traces, base,
+                               halo_tables(topology, q.device, q.dtype))
+        state_launches += 1
+    else:
+        out = _launch_operator("sw_operator_launch", q, halo, con, x, a, b, cdt, emit_traces, base)
     if base is not None:
         pert_launches += 1
     else:
@@ -651,9 +730,11 @@ def sw_operator(q, halo, con: SWConstants, x=None, a: float = 0.0, b: float = 1.
 
 
 def _launch_operator(entry: str, q, halo, con: SWConstants, x, a: float, b: float, cdt: Optional[float],
-                     emit_traces: bool, base: Optional[SWPertBase]):
+                     emit_traces: bool, base: Optional[SWPertBase], tables: Optional[HaloTables] = None):
     """One launch of the operator kernel through the C entry ``entry``
-    (``sw_operator_launch`` or ``sw_tile_launch``) on the current stream."""
+    (``sw_operator_launch`` or ``sw_tile_launch`` with a halo;
+    ``sw_operator_state_launch`` with the halo tables instead) on the
+    current stream."""
     if q.device.type != "cuda":
         raise ValueError(f"{entry} runs on cpu or cuda tensors, not {q.device}")
     _check_kernel_shape(con, entry)
@@ -668,13 +749,15 @@ def _launch_operator(entry: str, q, halo, con: SWConstants, x, a: float, b: floa
         if emit_traces else None
     )
     pb = base.tensors if base is not None else {}
+    halo_args = ((_ptr(halo),), ()) if tables is None else ((), (_ptr(tables.src), _ptr(tables.flip),
+                                                                 _ptr(tables.conv)))
     with torch.cuda.device(q.device):
         rc = getattr(lib, entry)(
             1 if q.dtype == torch.float64 else 0, con.s, con.nel,
-            _ptr(q), _ptr(halo), _ptr(con.ops), _ptr(con.fields), _ptr(con.gridrot),
+            _ptr(q), *halo_args[0], _ptr(con.ops), _ptr(con.fields), _ptr(con.gridrot),
             _ptr(con.itf_x), _ptr(con.itf_y), _ptr(x if use_x else None),
             _ptr(pb.get("q0")), _ptr(pb.get("u0")), _ptr(pb.get("itf0")), _ptr(pb.get("halo0")),
-            _ptr(pb.get("rhs0")), _ptr(out), _ptr(traces),
+            _ptr(pb.get("rhs0")), *halo_args[1], _ptr(out), _ptr(traces),
             float(a), float(b), float(cdt if cdt is not None else 0.0),
             1 if cdt is not None else 0, _stream(q.device),
         )
@@ -765,6 +848,8 @@ def sw_tile_operator(q, halo, con: SWConstants, x=None, a: float = 0.0, b: float
     ``pert_tile_launches`` (perturbation form), or raises."""
     global tile_launches, pert_tile_launches
     _check_npanel(con, 1, "sw_tile_operator")
+    if halo is None:
+        raise ValueError("sw_tile_operator takes a halo: a tile's neighbours are not in its state")
     _check(q, halo, con, x, a, base)
     if q.device.type == "cpu":
         return sw_tile_operator_plain(q, halo, con, x=x, a=a, b=b, cdt=cdt, emit_traces=emit_traces, base=base)
@@ -796,24 +881,18 @@ def run_supported(s: int, nel: int) -> bool:
 
 
 def sw_chain(q, nsteps: int, abc, con: SWConstants, topology, base: Optional[SWPertBase] = None,
-             traces=None, plain: bool = False):
+             plain: bool = False):
     """``nsteps`` TVD-RK3 steps of ``q`` as the explicit integrators chain
-    them: the panel-edge traces of ``q`` (given, or bootstrapped here), then
-    a halo and an operator stage a stage, each output's traces feeding the
-    next stage's halo. ``plain``: the plain functions; otherwise the
-    wrappers (the kernels on a GPU)."""
-    if plain:
-        edges, halo, operator = edge_traces, halo_from_traces, sw_operator_plain
-    else:
-        edges, halo, operator = sw_edges, sw_halo, sw_operator
+    them: one operator stage a stage, its halo taken from its input state
+    (``halo=None``). ``plain``: the plain operator; otherwise the wrapper
+    (one kernel launch a stage on a GPU)."""
+    operator = sw_operator_plain if plain else sw_operator
     a, b, cdt = abc
     x = q
-    traces = edges(q, con) if traces is None else traces
     for _ in range(nsteps):
         y = x
         for k in range(3):
-            y, traces = operator(y, halo(traces, topology), con, x=x, a=a[k], b=b[k], cdt=cdt[k],
-                                 emit_traces=True, base=base)
+            y = operator(y, None, con, x=x, a=a[k], b=b[k], cdt=cdt[k], base=base, topology=topology)
         x = y
     return x
 
@@ -839,6 +918,7 @@ def sw_run(q, nsteps: int, abc, con: SWConstants, topology, base: Optional[SWPer
         raise ValueError(f"sw_run takes s = 4, not s = {con.s}")
     if nsteps < 1:
         raise ValueError(f"sw_run takes nsteps >= 1, not {nsteps}")
+    _check_topology(con, topology, "sw_run")
     if q.device.type == "cpu":
         return sw_run_plain(q, nsteps, abc, con, topology, base)
     _check_kernel_shape(con, "sw_run")

@@ -15,6 +15,12 @@ environment. Two groups serve it:
 * a gloo group for host-side collectives (gathers to the primary,
   manifests, barriers, the NaN flag).
 
+The rendezvous store (a TCP store that rank 0 serves, or torchrun's agent
+store) is made here and kept past the process group, so that a run that
+finished can leave in order: every rank counts itself out on it after
+``destroy_process_group``, and rank 0, whose process serves it, waits for
+all of them before it exits (``shutdown``).
+
 Checkpoints keep the JAX package's formats: below 256 MB the primary
 gathers the state and writes the reference's single file; above, every
 rank writes its tiles as ``<path>.shard<rank>_<tile>.npy`` and the primary
@@ -25,6 +31,8 @@ either at any process count.
 import datetime
 import json
 import os
+import sys
+import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -36,8 +44,13 @@ from .mesh import TileMesh, tile_view
 
 _SMALL_STATE_BYTES = 1 << 28  # 256 MB: gather-and-single-file below this
 _TIMEOUT = datetime.timedelta(seconds=600)
+# How long rank 0 waits, after a clean run, for the other ranks to count out.
+_EXIT_DEADLINE_S = 60.0
+_EXITED_KEY = "wxfactory_tpu_torch/exited"
 
-# The process groups and the halo group's backend, set by init_distributed.
+# The rendezvous store, the host group and the halo group's backend, set by
+# init_distributed.
+_store = None
 _host_group = None
 halo_backend: Optional[str] = None
 
@@ -51,7 +64,7 @@ def init_distributed(coordinator: Optional[str] = None, num_processes: Optional[
     LOCAL_RANK). A world of one process initialises nothing. The halo
     group's backend follows ``device``: NCCL for CUDA when there are at
     least as many cards as ranks, gloo otherwise; rank 0 prints the choice."""
-    global _host_group, halo_backend
+    global _store, _host_group, halo_backend
     env = os.environ
     world = num_processes if num_processes is not None else int(env.get("WORLD_SIZE", "1"))
     rank = process_id if process_id is not None else int(env.get("RANK", "0"))
@@ -72,7 +85,11 @@ def init_distributed(coordinator: Optional[str] = None, num_processes: Optional[
         halo_backend, why = "gloo", "ranks on the CPU"
     if cuda:
         torch.cuda.set_device(local_rank % cards)
-    dist.init_process_group(halo_backend, init_method=init_method, world_size=world, rank=rank, timeout=_TIMEOUT)
+    # The store init_process_group would make from init_method, made here so
+    # that it outlives the process group (shutdown's count).
+    _store, rank, world = next(dist.rendezvous(init_method, rank, world, timeout=_TIMEOUT))
+    _store.set_timeout(_TIMEOUT)
+    dist.init_process_group(halo_backend, store=_store, world_size=world, rank=rank, timeout=_TIMEOUT)
     _host_group = dist.new_group(backend="gloo", timeout=_TIMEOUT) if halo_backend != "gloo" else dist.group.WORLD
     primary_print(f"distributed: {world} ranks, halo exchange over {halo_backend} ({why})", flush=True)
     return rank, world, local_rank
@@ -109,15 +126,38 @@ def barrier() -> None:
 
 def shutdown(clean: bool = True) -> None:
     """Leave the process group. After a run that finished (``clean``) every
-    rank first meets the others at a barrier on the host group, so rank 0,
-    which hosts the TCP store, does not exit while another rank's gloo
-    threads still talk to it. After a failure it leaves at once: a rank that
-    failed must not wait the group's timeout on ranks that died."""
+    rank first meets the others at a barrier on the host group, then
+    destroys the group, then counts itself out on the rendezvous store;
+    rank 0, whose process serves that store, returns only once every rank
+    has counted out (or after ``_EXIT_DEADLINE_S``), so no rank is still
+    tearing its group down when the store goes away. After a failure it
+    leaves at once: a rank that failed must not wait on ranks that died."""
+    global _store, _host_group
     if not dist.is_initialized():
         return
+    me, world = dist.get_rank(), dist.get_world_size()
     if clean:
         barrier()
+    _host_group = None  # no reference of ours keeps the destroyed group alive
     dist.destroy_process_group()
+    store, _store = _store, None
+    if clean and store is not None:
+        _count_out(store, me, world)
+
+
+def _count_out(store, me: int, world: int) -> None:
+    """Count this rank out on ``store``; on rank 0 wait until all ``world``
+    ranks have."""
+    count = store.add(_EXITED_KEY, 1)
+    if me != 0:
+        return
+    deadline = time.monotonic() + _EXIT_DEADLINE_S
+    while count < world and time.monotonic() < deadline:
+        time.sleep(0.01)
+        count = store.add(_EXITED_KEY, 0)
+    if count < world:
+        print(f"distributed: {world - count} of {world} ranks did not leave within {_EXIT_DEADLINE_S:.0f} s",
+              file=sys.stderr, flush=True)
 
 
 def all_true(flag: bool) -> bool:
