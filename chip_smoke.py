@@ -216,7 +216,31 @@ and drives the port's two main paths, shallow water and 3D Euler:
     and perturbation for SW, perturbation for 3D), beside the bound of
     kernels/check.py's *_tile_work and the plain version's time; the SW rows
     with the operator kernel's registers, spills, shared memory a block and
-    blocks an SM.
+    blocks an SM;
+29. the SW tangent kernel (J(q).v of the absolute operator, one launch, its
+    halos from the state) against its plain version (torch.func.jvp of the
+    plain operator) at (nel, s) = (10,3), (30,3), (64,3), (64,4), (64,7),
+    (4,2), (3,5), (2,6), (4,8), at a case-6 state and at rest (every split
+    Mach number exactly 0, the tie), f64 within 1e-12 of scale, f32 within
+    twice the f32 plain J.v's distance from the f64 one (or 1e-5); its
+    linearity in v, the mass of (J.v)_h against the plain version's, and
+    (f64, case 6) a centred difference of the operator kernel to second
+    order; the card's time a call at (10,3), (30,3), (64,3) beside the
+    bound, the plain version's and the state-mode RHS's; registers, spills,
+    shared memory and blocks an SM at s = 2..8 (rows in
+    build/chip_smoke/phase29.json);
+30. the SW exponential and Rosenbrock paths through Simulation(ini).run()
+    (the CLI's call), case 6, s=3, f64, tolerance 1e-7: (a) canonical run 1,
+    nel=10, dt=1800 s, EPI3 + pmex, the 10-substep Epi2 bootstrap and 4
+    EPI3 steps; (b) the same with kiops_jit and mixed_precision_krylov = 1
+    (the float32 perturbation-form companion, its Arnoldi J.v the absolute
+    float32 operator's); (c) (b) at nel=30, dt=900 s, 4 steps; (d) Ros2 +
+    fgmres_jit, nel=10, dt=1800 s, 2 steps; each with one state-mode
+    operator launch an RHS call, one tangent launch a Jacobian action, no
+    plain call, a finite state with 7,500 < h < 11,000, blockstats mass
+    drift below 1e-10 (mixed: the Krylov tolerance) at every step; steps/s,
+    Krylov iterations and host syncs a step; and (a) again on the CPU:
+    identical Krylov statistics, final states within 1e-9 of scale.
 
 Each phase prints one JSON line; then the kernels line, the card's
 ``nvidia-smi`` name and power limit, and last the result line. Any failure
@@ -349,7 +373,7 @@ def ptxas_summary(log: str):
             current = {"kernel": f"sw_operator f32 s={f32_pert.group(1)} pert"}
             rows.append(current)
         elif m:
-            k = re.search(r"(sw_operator|sw_run|sw_edges|euler3d_operator|euler3d_interface|euler3d_volume|"
+            k = re.search(r"(sw_operator|sw_run|sw_edges|sw_tangent|euler3d_operator|euler3d_interface|euler3d_volume|"
                           r"euler3d_tangent_prep|euler3d_tangent_apply|euler3d_tangent)_kernelI([df])Li(\d+)E"
                           r"(Lb([01]))?", m.group(1))
             current = {"kernel": f"{k.group(1)} {'f64' if k.group(2) == 'd' else 'f32'} s={k.group(3)}"
@@ -434,7 +458,7 @@ def reset_counts():
 
     swop.launches = e3op.launches = e3op.tangent_launches = e3op.tangent_prep_launches = e3op.plain_tangent_calls = 0
     swop.pert_launches = swop.edge_launches = swop.halo_launches = swop.run_launches = swop.plain_calls = 0
-    swop.state_launches = 0
+    swop.state_launches = swop.tangent_launches = swop.plain_tangent_calls = 0
     e3op.pert_launches = e3op.pert_stage_launches = e3op.pert_tangent_launches = e3op.plain_calls = 0
     swop.tile_launches = swop.pert_tile_launches = e3op.tile_launches = e3op.pert_tile_launches = 0
     matvec.jacobian_actions = device.host_syncs = 0
@@ -448,7 +472,8 @@ def read_counts():
 
     return {"sw_operator": swop.launches, "sw_pert": swop.pert_launches, "sw_edges": swop.edge_launches,
             "sw_halo": swop.halo_launches, "sw_run": swop.run_launches, "sw_plain_calls": swop.plain_calls,
-            "sw_state": swop.state_launches,
+            "sw_state": swop.state_launches, "sw_tangent": swop.tangent_launches,
+            "sw_plain_tangent_calls": swop.plain_tangent_calls,
             "euler3d_operator": e3op.launches,
             "euler3d_tangent": e3op.tangent_launches, "euler3d_tangent_prep": e3op.tangent_prep_launches,
             "euler3d_pert": e3op.pert_launches,
@@ -1423,6 +1448,15 @@ def phase19(torch):
     return totals
 
 
+def _bound(work, dtype_name):
+    """The least time (ms) of a call that moves ``work`` = (bytes,
+    operations): the larger of the bytes over the card's memory rate and the
+    operations over its peak rate for the type."""
+    nbytes, ops = work
+    b = {"bytes": nbytes / PEAK_BYTES * 1e3, "operations": ops / PEAK_FLOPS[dtype_name] * 1e3}
+    return {"bytes": nbytes, "ops": ops, "bound_ms": max(b.values()), "bound_by": max(b, key=b.get)}
+
+
 def _device_ms(torch, fn, n):
     """The card's time a call of ``fn``: ``n`` calls queued behind a sleep
     kernel that outlasts the host's enqueueing of them, timed by two CUDA
@@ -1469,11 +1503,6 @@ STATE_SHAPES = [(64, 3), (64, 4), (64, 7), (4, 2), (3, 5), (2, 6), (4, 8)]
 def phase20(torch, smi):
     from wxfactory_tpu_torch.kernels import check
     from wxfactory_tpu_torch.ops import sw_operator as swop
-
-    def bound(work, dtype):
-        nbytes, ops = work
-        b = {"bytes": nbytes / PEAK_BYTES * 1e3, "operations": ops / PEAK_FLOPS[dtype] * 1e3}
-        return {"bytes": nbytes, "ops": ops, "bound_ms": max(b.values()), "bound_by": max(b, key=b.get)}
 
     # The state mode bit for bit the three launches it replaces.
     state_rows = [r for nel, s in STATE_SHAPES for dtype in (torch.float64, torch.float32)
@@ -1540,7 +1569,7 @@ def phase20(torch, smi):
                 slow = mode.startswith("run")
                 times = _pair_ms(torch, kernel, plain, n=5 if slow else 10, n_plain=2 if slow else 5)
                 row.update({f"{mode}_{key}": v for key, v in times.items()})
-                row.update({f"{mode}_{key}": v for key, v in bound(work, name).items()})
+                row.update({f"{mode}_{key}": v for key, v in _bound(work, name).items()})
             # The state mode in turns with the three launches it replaces (the
             # edge-trace and halo kernels, then the operator fed their halo).
             route = {
@@ -2145,11 +2174,6 @@ def phase28(torch, smi):
     from wxfactory_tpu_torch.ops import euler3d_operator as e3op
     from wxfactory_tpu_torch.ops import sw_operator as swop
 
-    def bound(work, name):
-        nbytes, ops = work
-        b = {"bytes": nbytes / PEAK_BYTES * 1e3, "operations": ops / PEAK_FLOPS[name] * 1e3}
-        return {"bytes": nbytes, "ops": ops, "bound_ms": max(b.values()), "bound_by": max(b, key=b.get)}
-
     rows = []
     nel, s, dt = SW_TILE_MAIN
     for n in (1, 2):
@@ -2165,7 +2189,7 @@ def phase28(torch, smi):
             work = check.sw_tile_work(nel // n, s, dtype, stage=True, use_x=True, traces=True, pert=pert)
             resources = check.sw_kernel_resources(dtype, s)["perturbation" if pert else "absolute"]
             rows.append(dict({"kernel": "sw_tile", "nt": nel // n, "s": s, "n": n, "dtype": name,
-                              "mode": ("pert_" if pert else "") + "stage_x_traces"}, **times, **bound(work, name),
+                              "mode": ("pert_" if pert else "") + "stage_x_traces"}, **times, **_bound(work, name),
                              resources=resources))
     nel_h, nel_v, s, dt = E3_TILE_MAIN
     for n in (1, 2):
@@ -2181,11 +2205,219 @@ def phase28(torch, smi):
             work = check.euler3d_tile_work(con, pert=pert, stage=True, use_x=True, traces=True)
             rows.append(dict({"kernel": "euler3d_tile", "nt": nel_h // n, "nk": nel_v, "s": s, "n": n,
                               "dtype": name, "mode": ("pert_" if pert else "") + "stage_x_traces"},
-                             **times, **bound(work, name)))
+                             **times, **_bound(work, name)))
     emit({"phase": 28, "gpu": smi, "timing": "*_ms: the card's time a call (calls queued behind a sleep kernel, "
           "CUDA events); *_event_ms: CUDA events around single calls, median", "results": rows})
     main = lambda kernel, nt: next(r for r in rows if (r["kernel"], r["nt"], r["dtype"]) == (kernel, nt, "float64"))
     return {"sw_tile": main("sw_tile", SW_TILE_MAIN[0] // 2), "euler3d_tile": main("euler3d_tile", E3_MAIN[0] // 2)}
+
+
+# Phase 29: the tangent kernel's shapes: case 6 at the EPI paths' widths
+# (nel = 10, 30) and the operator's (64 at s = 3, 4, 7), then the other
+# values of s; and the shapes it is timed at.
+TANGENT_SHAPES = [(10, 3), (30, 3), (64, 3), (64, 4), (64, 7), (4, 2), (3, 5), (2, 6), (4, 8)]
+TANGENT_TIMED = [(10, 3), (30, 3), (64, 3)]
+
+
+def phase29(torch, smi):
+    """The SW tangent kernel (J(q).v of the absolute operator) against its
+    plain version (torch.func.jvp of the plain operator) on the card, its
+    linearity, mass and centred-difference order, its time a call beside
+    its bound and the plain version's, and its resources."""
+    from wxfactory_tpu_torch.kernels import check
+    from wxfactory_tpu_torch.ops import sw_operator as swop
+
+    rows = [r for nel, s in TANGENT_SHAPES for dtype in (torch.float64, torch.float32)
+            for r in check.compare_sw_tangent(nel, s, dtype, device="cuda")]
+    emit_comparison(29, rows, ("nel", "s"))
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"the tangent kernel disagrees with its plain version: {bad}")
+    timing = []
+    for nel, s in TANGENT_TIMED:
+        for dtype in (torch.float64, torch.float32):
+            name = str(dtype).replace("torch.", "")
+            con, topology, states, v, _ = check.sw_tangent_inputs(nel, s, dtype, "cuda")
+            q = states["case6"]
+            times = _pair_ms(torch, lambda: swop.sw_tangent(q, v, con, topology),
+                             lambda: swop.sw_tangent_plain(q, v, con, topology), n=20, n_plain=3)
+            rhs = _bound(check.sw_work(nel, s, dtype, state=True), name)
+            timing.append(dict({"nel": nel, "s": s, "dtype": name}, **times,
+                               **_bound(check.sw_tangent_work(nel, s, dtype), name),
+                               rhs_state_ms=_device_ms(torch, lambda: swop.sw_operator(q, None, con, topology=topology),
+                                                       20),
+                               rhs_state_bound_ms=rhs["bound_ms"]))
+    resources = {f"{str(dtype).replace('torch.', '')} s={s}": check.sw_tangent_resources(dtype, s)
+                 for dtype in (torch.float64, torch.float32) for s in range(2, 9)}
+    detail = [{k: r[k] for k in ("nel", "s", "dtype", "mode", "err", "limit", "linearity_err", "mass_err",
+                                 "mass_of_output", "mass_of_plain", "fd_order", "fd_err_p99", "fd_err_max")
+               if k in r} for r in rows]
+    emit({"phase": 29, "gpu": smi, "timing_note": "*_ms: the card's time a call (calls queued behind a sleep "
+          "kernel, CUDA events); *_event_ms: CUDA events around single calls, median", "timing": timing,
+          "resources": resources, "checks": detail})
+    main = [r for r in rows if (r["nel"], r["s"], r["dtype"]) == (10, 3, "float64")]
+    return {"max_abs_err": max(r["max_abs_err"] for r in main),
+            "timing": next(t for t in timing if (t["nel"], t["s"], t["dtype"]) == (10, 3, "float64"))}
+
+
+SW_EPI_INI = """
+[General]
+equations = shallow_water
+[System]
+precision = float64
+distribute = off
+[Test_case]
+case_number = 6
+[Time_integration]
+dt = {dt}
+t_end = {t_end}
+time_integrator = {integrator}
+exponential_solver = {solver}
+linear_solver = {linear_solver}
+mixed_precision_krylov = {mixed}
+tolerance = 1e-7
+verbose_solver = 1
+[Spatial_discretization]
+num_solpts = 3
+num_elements_horizontal = {nel}
+[Grid]
+grid_type = cubed_sphere
+[Output_options]
+save_state_freq = {steps}
+stat_freq = 1
+output_dir = {out}
+"""
+# Phase 30's runs: (tag, nel, dt, steps, integrator, exponential solver,
+# linear solver, mixed_precision_krylov). (a) canonical run 1
+# (tests/test_canonical_configs.py:28-39 of the JAX package), (b) its
+# production form (bench.py:539-571 there), (c) that form at Galewsky's
+# production width and step (bench.py:573-606, on case 6's state), (d) Ros2:
+# FGMRES(20) with no preconditioner converges at nel = 10, dt = 1800 s in 35
+# iterations (2 cycles; the port's CPU run).
+SW_EPI_RUNS = [("a_epi3_pmex", 10, 1800.0, 5, "epi3", "pmex", "fgmres", 0),
+               ("b_epi3_kiops_jit_mixed", 10, 1800.0, 5, "epi3", "kiops_jit", "fgmres", 1),
+               ("c_epi3_kiops_jit_mixed_nel30", 30, 900.0, 4, "epi3", "kiops_jit", "fgmres", 1),
+               ("d_ros2_fgmres_jit", 10, 1800.0, 2, "ros2", "pmex", "fgmres_jit", 0)]
+PMEX_LINE = re.compile(r"pmex converged at iteration (\d+) \((\d+) substeps, (\d+) rejected\)")
+
+
+def _sw_krylov(text):
+    """(iterations, substeps, rejected) of each step the log reports: the
+    EPI3 steps (the Epi2 bootstrap substeps print nothing) or the Ros2
+    steps (iterations only)."""
+    lines = [(int(m.group(1)), int(m.group(2)), int(m.group(3))) for m in PMEX_LINE.finditer(text)]
+    lines += [(int(m.group(1)), int(m.group(2)), int(m.group(3))) for m in KIOPS_JIT_LINE.finditer(text)]
+    lines += [(int(m.group(1)), 0, 0) for m in ROS2_LINE.finditer(text)]
+    return lines
+
+
+def _sw_epi_run(torch, tag, nel, dt, nsteps, integrator, solver, linear_solver, mixed, device="cuda"):
+    """One case-6 run through ``Simulation(ini).run()`` (the CLI's call) on
+    ``device``: launch counts (one state-mode operator launch an RHS call,
+    one tangent launch a Jacobian action, no plain call on the card), the
+    Krylov statistics, host syncs, blockstats mass drift, h bounds and the
+    final checkpoint; returns (row, final state)."""
+    import numpy as np
+
+    from wxfactory_tpu_torch.output.state import load_state
+    from wxfactory_tpu_torch.simulation import Simulation
+
+    out_dir = WORK / f"phase30_{tag}_{device}"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for old in glob.glob(str(out_dir / "state_vector_*")):
+        Path(old).unlink()
+    ini = WORK / f"case6_{tag}_{device}.ini"
+    ini.write_text(SW_EPI_INI.format(dt=dt, t_end=dt * nsteps, integrator=integrator, solver=solver,
+                                     linear_solver=linear_solver, mixed=mixed, nel=nel, steps=nsteps, out=out_dir))
+    log = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        sim = Simulation(str(ini), device=device)
+        sim.run()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    text = log.getvalue()
+    run = re.search(r"Completed (\d+) steps in (\S+) s \((\S+) steps/s\)", text)
+    krylov = _sw_krylov(text)
+    if run is None:
+        sys.stderr.write(text[-3000:])
+        raise AssertionError(f"SW {tag} run on {device} did not complete; Krylov statistics {krylov}")
+    if mixed and ("no effect" in text or "cannot consume" in text):
+        raise AssertionError("mixed_precision_krylov was flagged as having no effect")
+    epi = integrator.startswith("epi")
+    # RHS calls: EPI3's first step one at q plus one a bootstrap Epi2
+    # substep (10), then one a step; Ros2 one a step.
+    rhs_calls = (11 + (nsteps - 1)) if epi else nsteps
+    reported = nsteps - 1 if epi else nsteps
+    if len(krylov) != reported:
+        raise AssertionError(f"{len(krylov)} Krylov reports in {nsteps} steps: {krylov}")
+    if device == "cuda":
+        want = {"sw_state": rhs_calls, "sw_operator": rhs_calls + mixed, "sw_tangent": counts["jacobian_actions"],
+                "sw_pert": 0, "sw_plain_calls": 0, "sw_plain_tangent_calls": 0}
+        got = {k: counts[k] for k in want}
+        if got != want or counts["jacobian_actions"] == 0:
+            raise AssertionError(f"launches {got} in {nsteps} {integrator} steps, expected {want}")
+    drifts = [float(v) for v in re.findall(r"normalized error for mass = (\S+)", text)]
+    files = glob.glob(str(out_dir / f"state_vector_*.{nsteps:08d}.npy"))
+    if len(files) != 1:
+        raise AssertionError(f"checkpoint files {files}")
+    state, _, _ = load_state(files[0])
+    h = state[0]
+    if state.shape != (3, 6, nel, nel, 9) or not bool(np.isfinite(state).all()):
+        raise AssertionError(f"checkpoint state {state.shape} not finite or misshapen")
+    if not (7500.0 < float(h.min()) and float(h.max()) < 11000.0):
+        raise AssertionError(f"h in ({float(h.min())}, {float(h.max())}), outside (7500, 11000)")
+    # float64 Krylov: the SW gate 1e-10; the float32 companion's basis: the
+    # Krylov tolerance, as phase 15 holds the 3D mixed runs.
+    drift_tol = 1e-7 if mixed else 1e-10
+    if len(drifts) != nsteps + 1 or not max(abs(d) for d in drifts) < drift_tol:
+        raise AssertionError(f"blockstats mass drift {drifts}, limit {drift_tol}")
+    run_s = float(run.group(2))
+    row = {
+        "tag": tag, "device": device, "case": 6, "nel": nel, "s": 3, "points": 6 * nel * nel * 9, "dtype": "float64",
+        "integrator": integrator, "exponential_solver": solver if epi else None,
+        "linear_solver": None if epi else linear_solver, "mixed_precision_krylov": mixed, "tolerance": 1e-7,
+        "dt": dt, "steps": int(run.group(1)), "setup_s": wall - run_s, "run_s": run_s,
+        "steps_per_s": float(run.group(3)), "main_wall_s": wall, "rhs_calls": rhs_calls,
+        "jacobian_actions": counts["jacobian_actions"], "jacobian_actions_per_step": counts["jacobian_actions"] / nsteps,
+        "krylov_per_reported_step": krylov, "host_syncs": counts["host_syncs"],
+        "host_syncs_per_step": counts["host_syncs"] / nsteps, "mass_drift_per_step": drifts[1:],
+        "mass_drift_limit": drift_tol,
+        "h_min": float(h.min()), "h_max": float(h.max()), "checkpoint": Path(files[0]).name,
+    }
+    if device == "cuda":
+        row.update(operator_launches=counts["sw_operator"], state_launches=counts["sw_state"],
+                   tangent_launches=counts["sw_tangent"], edge_launches=counts["sw_edges"],
+                   halo_launches=counts["sw_halo"], plain_calls=counts["sw_plain_calls"],
+                   plain_tangent_calls=counts["sw_plain_tangent_calls"])
+    return row, state
+
+
+def phase30(torch):
+    """The shallow-water exponential and Rosenbrock paths end to end through
+    the CLI's call on the card, and run (a) against the port's own CPU run."""
+    import numpy as np
+
+    rows, states, launches = [], {}, None
+    for tag, nel, dt, nsteps, integrator, solver, linear_solver, mixed in SW_EPI_RUNS:
+        row, states[tag] = _sw_epi_run(torch, tag, nel, dt, nsteps, integrator, solver, linear_solver, mixed)
+        if tag.startswith("a_"):
+            launches = row["tangent_launches"]
+        rows.append(row)
+    tag, nel, dt, nsteps, integrator, solver, linear_solver, mixed = SW_EPI_RUNS[0]
+    cpu, cpu_state = _sw_epi_run(torch, tag, nel, dt, nsteps, integrator, solver, linear_solver, mixed, device="cpu")
+    scale = np.abs(cpu_state).reshape(3, -1).max(axis=1).reshape(3, 1, 1, 1, 1)
+    err = float((np.abs(states[tag] - cpu_state) / scale).max())
+    same_krylov = cpu["krylov_per_reported_step"] == rows[0]["krylov_per_reported_step"]
+    emit({"phase": 30, "results": rows, "cpu_run_a": {
+        "steps_per_s": cpu["steps_per_s"], "krylov_per_reported_step": cpu["krylov_per_reported_step"],
+        "jacobian_actions": cpu["jacobian_actions"], "gpu_vs_cpu_err": err, "tol": 1e-9,
+        "same_krylov": same_krylov}})
+    if not (err <= 1e-9 and same_krylov and cpu["jacobian_actions"] == rows[0]["jacobian_actions"]):
+        raise AssertionError(f"GPU and CPU EPI3 runs differ: {err} of scale, Krylov {rows[0]['krylov_per_reported_step']}"
+                             f" against {cpu['krylov_per_reported_step']}")
+    return launches
 
 
 def main() -> int:
@@ -2232,6 +2464,8 @@ def main() -> int:
     tile_launches = phase26(torch)
     phase27(torch)
     tile_timing = phase28(torch, smi)
+    tangent_sw = phase29(torch, smi)
+    tangent_sw_launches = phase30(torch)
     sw_entry = lambda name, mode, replaces, source="wxfactory_tpu_torch/csrc/sw_operator.cu", row=swt["sw_pert"]: {
         "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": sw_counts[name],
         "max_abs_err": sw_errs[name], "ms": row[f"{mode}_kernel_ms"], "plain_ms": row[f"{mode}_plain_ms"],
@@ -2288,6 +2522,12 @@ def main() -> int:
                         "launches": tile_launches[name], "max_abs_err": tile_err[name], "ms": t["kernel_ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                         "library_ms": None})
+    t = tangent_sw["timing"]
+    kernels.append({"name": "sw_tangent", "route": "cuda", "source": "wxfactory_tpu_torch/csrc/sw_operator.cu",
+                    "replaces": "jax.jvp of wxfactory_tpu/models/shallow_water.py:166 (no Pallas kernel)",
+                    "launches": tangent_sw_launches, "max_abs_err": tangent_sw["max_abs_err"], "ms": t["kernel_ms"],
+                    "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                    "library_ms": None})
     unmeasured = [k["name"] for k in kernels if not (k["ms"] > 0 and k["plain_ms"] > 0 and k["launches"] > 0)]
     if unmeasured:
         raise AssertionError(f"kernels without a time, a plain time or a launch on the main path: {unmeasured}")

@@ -15,9 +15,13 @@ on 4x2 elements, s=2, planet scale 125, not rotating, dt = 30 s, tolerance
 * The port's CLI on a dcmip31 ``epi2`` INI against the JAX ``Simulation`` on
   the same INI: the checkpoints agree to 1e-9 of scale, mass drifts by less
   than 1e-12, and the per-step Krylov summary is printed.
-* What the port does not run raises ``NotImplementedError``: EPI on shallow
-  water, and pmex; ``mixed_precision_krylov`` with kiops warns that it has
-  no effect (kiops_jit: tests/test_torch_epi_kiops_jit.py).
+* EPI3 on shallow water (case 6 through ``Simulation``) against the JAX
+  ``Epi`` within 1e-9 (more: tests/test_torch_sw_epi.py), and dcmip31 EPI2
+  with ``pmex`` with the JAX ``Epi``'s Krylov statistics. What the port does
+  not run raises ``NotImplementedError`` naming ROADMAP: shallow water with
+  topography, the exponential solvers of item 12; ``mixed_precision_krylov``
+  with kiops warns that it has no effect (kiops_jit:
+  tests/test_torch_epi_kiops_jit.py).
 """
 
 import numpy as np
@@ -153,16 +157,51 @@ grid_type = cubed_sphere
 [Output_options]
 output_dir = {out}
 """.format(out=tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Simulation(Configuration(text), device="cpu")
+    # EPI3 on shallow water runs now (the SW Jacobian action): the bootstrap
+    # and one EPI3 step against the JAX Epi on the same grid.
+    from wxfactory_tpu.geometry import make_cubed_sphere_2d, make_metric_2d
+    from wxfactory_tpu.models import make_rhs_shallow_water as j_make_rhs_sw
+    from wxfactory_tpu.ops.dfr import make_dfr_operators
+    from wxfactory_tpu.testcases import williamson_case6
+    from wxfactory_tpu_torch.models import make_rhs_shallow_water
+
+    sim = Simulation(Configuration(text), device="cpu")
+    assert isinstance(sim.integrator, Epi) and sim.integrator.n_prev == 1
+    got = sim.run().numpy()
+    geom = make_cubed_sphere_2d(3, 3)
+    ops, metric = make_dfr_operators(3), make_metric_2d(geom)
+    jinteg = JEpi(j_make_rhs_sw(geom, ops, metric), order=3, exponential_solver="kiops", tolerance=1e-7,
+                  init_substeps=10)
+    q = np.asarray(williamson_case6(geom))
+    for _ in range(2):
+        q = jinteg.step(q, 1800.0)
+    want = np.asarray(q)
+    scale = np.abs(want).reshape(3, -1).max(axis=1).reshape(3, 1, 1, 1, 1)
+    assert float(np.abs((got - want) / scale).max()) < 1e-9
+    # What still raises on shallow water: topography (ROADMAP item 4).
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
+        make_rhs_shallow_water(geom, ops, metric, device="cpu", topo=object())
 
 
-@pytest.mark.parametrize("solver", ["pmex"])
-def test_unported_exponential_solvers_raise(tmp_path, solver):
+@pytest.mark.parametrize("solver", ["pmex", "pmex_1s", "kiops_ne"])
+def test_unported_exponential_solvers_raise(tmp_path, solver, canonical):
     text = INI.format(t_end=30, steps=0, out=tmp_path).replace("exponential_solver = kiops",
                                                                f"exponential_solver = {solver}")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Simulation(Configuration(text), device="cpu")
+    if solver != "pmex":
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 12"):
+            Simulation(Configuration(text), device="cpu")
+        return
+    # pmex is ported: one dcmip31 EPI2 step through Simulation against the
+    # JAX Epi(pmex), with the same Krylov statistics.
+    geom, ops, topo, metric, q0 = canonical
+    jinteg = JEpi(make_rhs_euler_cubesphere(geom, ops, metric, topo), order=2, exponential_solver="pmex",
+                  tolerance=1e-7)
+    want = np.asarray(jinteg.step(np.asarray(q0), DT))
+    sim = Simulation(Configuration(text), device="cpu")
+    got, _ = sim.step(sim.initial_q, 1, 0.0)
+    assert sim.integrator.exponential_solver == "pmex"
+    assert _stats(sim.integrator) == _stats(jinteg)
+    assert _scaled_err(got.numpy(), want) < 1e-9
 
 
 def test_mixed_precision_knob_warns_it_has_no_effect(tmp_path, capsys):

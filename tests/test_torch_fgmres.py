@@ -15,8 +15,9 @@ rule (``solvers/matvec.py::companion_jacobian``).
 * The companion rule (the JAX ``Epi``/``Ros2``: integrators/epi.py:181-200,
   rosenbrock.py:104-117): ``jtv_prep``/``jtv_apply`` when the companion has
   them, else ``torch.func.jvp`` of its ``.xla``, else of itself; off the
-  CPU a companion without ``jtv_prep`` raises; the shallow-water operator,
-  which has no Jacobian action in the port, raises naming ROADMAP item 5.
+  CPU a companion without ``jtv_prep`` raises; the shallow-water companion's
+  is its own ``jtv_prep``/``jtv_apply``, the absolute float32 operator's
+  J.v.
 """
 
 import jax
@@ -206,10 +207,19 @@ def test_shallow_water_companion_raises_naming_roadmap():
     from conftest import cs2d_setup
     from wxfactory_tpu.testcases.shallow_water import williamson_case6
 
+    from wxfactory_tpu_torch.ops import sw_operator as swop
+
+    # The SW companion has a Jacobian action now (its jtv_prep/jtv_apply, the
+    # tangent kernel on a card): the rule takes it, and it is the absolute
+    # float32 operator's J.v at q32, as the JAX package's jax.jvp of the
+    # companion's .xla form is.
     geom, ops, topo, metric = cs2d_setup(3, 3)
     q0 = np.asarray(williamson_case6(geom))
     sw32 = interop.shallow_water_rhs(geom, ops, metric, dtype=torch.float32, perturbation_base=q0)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
-        matvec.companion_jacobian(sw32, torch.as_tensor(q0, dtype=torch.float32))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        matvec.make_rat_matvec(sw32, torch.as_tensor(q0, dtype=torch.float32), 30.0)
+    q32 = torch.as_tensor(q0, dtype=torch.float32)
+    v = torch.as_tensor(np.random.default_rng(2).standard_normal(q0.shape) * 1e-3 * np.abs(q0).max(),
+                        dtype=torch.float32)
+    want = swop.sw_tangent_plain(q32, v, sw32.con, sw32.topology)
+    assert torch.equal(matvec.companion_jacobian(sw32, q32)(v), want)
+    rat = matvec.make_rat_matvec(sw32, q32, 30.0)
+    assert torch.equal(rat(v.reshape(-1)), v.reshape(-1) - 15.0 * want.reshape(-1))

@@ -1,5 +1,5 @@
 """The port's CUDA kernels (SW operator and its perturbation mode and their
-shared-memory use, the SW halo, edge-trace and whole-run kernels, 3D Euler operator, its tangent
+shared-memory use, the SW halo, edge-trace, whole-run and tangent (J.v) kernels, 3D Euler operator, its tangent
 prep and apply kernels and the perturbation form of both, with its stage mode, and the tile kernels of both
 models with the tile steps' launch counts) against their plain torch versions, on the card. Needs a CUDA device and nvcc, and skips without them. On a GPU
 machine run it without tests/conftest.py (which configures JAX):
@@ -30,11 +30,14 @@ from wxfactory_tpu_torch.kernels.check import (
     compare_sw_pert,
     compare_sw_run,
     compare_sw_state_halo,
+    compare_sw_tangent,
     euler3d_inputs,
     euler3d_pert_inputs,
     euler3d_tangent_inputs,
     pert_halos,
     sw_kernel_resources,
+    sw_tangent_inputs,
+    sw_tangent_resources,
     sw_pert_inputs,
     tangent_halos,
 )
@@ -209,6 +212,23 @@ def test_sw_state_halo_matches_halo_kernels(cuda, nel, s, dtype):
     # sw_halo(sw_edges(q)), absolute and perturbation, RHS and stages.
     rows = compare_sw_state_halo(nel, s, dtype, device="cuda")
     assert all(r["ok"] for r in rows), rows
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("nel,s", [(4, 2), (5, 3), (10, 3), (3, 5), (2, 6), (3, 8)])
+def test_sw_tangent_kernel_matches_plain(cuda, nel, s, dtype):
+    # J(q).v at case 6 and at rest (the split Mach number's tie) against
+    # torch.func.jvp of the plain operator: linearity, mass, and (f64) the
+    # centred difference's second order; one launch a call, no plain call.
+    rows = compare_sw_tangent(nel, s, dtype, device="cuda")
+    assert all(r["ok"] for r in rows), rows
+    con, topology, states, v, _ = sw_tangent_inputs(nel, s, dtype, "cuda")
+    before = (swop.tangent_launches, swop.plain_tangent_calls)
+    swop.sw_tangent(states["case6"], v, con, topology)
+    torch.cuda.synchronize()
+    assert (swop.tangent_launches, swop.plain_tangent_calls) == (before[0] + 1, before[1])
+    info = sw_tangent_resources(dtype, s)
+    assert info["smem_bytes"] < 48 * 1024 and info["blocks_per_sm"] >= 1, info
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])

@@ -14,7 +14,9 @@ the reference's max:
 * mixed precision: tests/test_torch_ros2_mixed.py;
 * ``time_integrator = ros2`` through the port's ``Simulation`` on the CPU
   with ``device_step_chunk`` (the chunk runs ``steps_device``) equals the
-  single steps; ``gcrot`` and Ros2 on shallow water raise naming ROADMAP.
+  single steps; ``gcrot`` raises naming ROADMAP; Ros2 on shallow water
+  (case 6 through ``Simulation``) matches the JAX ``Ros2`` to 1e-9, and
+  shallow water with topography raises naming ROADMAP.
 """
 
 import functools
@@ -156,7 +158,28 @@ def test_unported_ros2_raises_naming_roadmap(tmp_path, what):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 12"):
             Ros2(interop.euler3d_rhs(geom, ops, metric), linear_solver="gcrot")
         return
+    # Ros2 on shallow water runs now (the SW Jacobian action): two case-6
+    # steps of the INI through Simulation against the JAX Ros2 on the same
+    # grid; topography still raises naming its item.
+    from wxfactory_tpu.geometry import make_cubed_sphere_2d, make_metric_2d
+    from wxfactory_tpu.models import make_rhs_shallow_water as j_make_rhs_sw
+    from wxfactory_tpu.ops.dfr import make_dfr_operators
+    from wxfactory_tpu.testcases import williamson_case6
+    from wxfactory_tpu_torch.models import make_rhs_shallow_water
+
     text = INI.format(equations="shallow_water", case=6, solver="fgmres_jit", out=tmp_path)
     text = text.replace("num_elements_vertical = 2\n", "").replace("ztop = 10000\n", "")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
-        Simulation(Configuration(text), device="cpu")
+    sim = Simulation(Configuration(text), device="cpu")
+    assert isinstance(sim.integrator, Ros2)
+    got = sim.run().numpy()
+    geom = make_cubed_sphere_2d(4, 2)
+    ops, metric = make_dfr_operators(2), make_metric_2d(geom)
+    jinteg = JRos2(j_make_rhs_sw(geom, ops, metric), tolerance=TOL, gmres_restart=RESTART, linear_solver="fgmres_jit")
+    q = jnp.asarray(williamson_case6(geom))
+    for _ in range(2):
+        q = jinteg.step(q, DT)
+    want = np.asarray(q)
+    scale = np.abs(want).reshape(3, -1).max(axis=1).reshape(3, 1, 1, 1, 1)
+    assert float(np.abs((got - want) / scale).max()) < 1e-9
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
+        make_rhs_shallow_water(geom, ops, metric, device="cpu", topo=object())

@@ -96,7 +96,9 @@ def test_cuda_request_without_cuda_raises(tmp_path):
 @pytest.mark.parametrize(
     "line,replacement",
     [
-        ("time_integrator = tvdrk3", "time_integrator = epi3"),
+        # EPI on shallow water runs (tests/test_torch_sw_epi.py); srerk is
+        # ROADMAP item 12.
+        ("time_integrator = tvdrk3", "time_integrator = srerk3"),
         ("case_number = 6", "case_number = 5"),
         # One process has no 6N^2 tile mesh: distribute = shard_map there is a
         # configuration error (ValueError, as in the JAX package;

@@ -24,7 +24,11 @@ called in RHS and stage modes, absolute and perturbation; a library
 without it (a parent from before it) takes the route it replaces in its
 place, the edge and halo kernels then the operator fed their halo. The
 line's ``state_equals_route`` says whether each library's state mode
-equals its own three-launch route bit for bit. ``--sms`` is the SM count
+equals its own three-launch route bit for bit. The tangent kernel
+(``sw_tangent_state_launch``, J(q).v) is held against ``sw_tangent_plain``
+at the case-6 and rest points of ``kernels/check.py::sw_tangent_inputs``
+(and, where both libraries have it, the two against each other).
+``--sms`` is the SM count
 the shim reports (it sets the tile launch's elements a block).
 A design can so be checked against its
 parent before its first chip call; the shim says nothing about speed, and
@@ -284,6 +288,24 @@ def state_call(lib, q, con, topology, x=None, a=0.0, b=1.0, cdt=None, emit_trace
     return (out, traces) if emit_traces else out
 
 
+def tangent_call(lib, q, v, con, topology, nan_fill=True):
+    """One call of the tangent kernel (``sw_tangent_state_launch``): the
+    wrapper's ``sw_tangent(q, v, ...)``."""
+    import torch
+
+    from wxfactory_tpu_torch.ops import sw_operator as swop
+
+    tab = swop.halo_tables(topology, q.device, q.dtype)
+    out = _alloc(q.shape, q, nan_fill)
+    rc = lib.sw_tangent_state_launch(
+        1 if q.dtype == torch.float64 else 0, con.s, con.nel, _ptr(q), _ptr(v), _ptr(con.ops), _ptr(con.fields),
+        _ptr(con.gridrot), _ptr(con.itf_x), _ptr(con.itf_y), _ptr(tab.src), _ptr(tab.flip), _ptr(tab.conv),
+        _ptr(out), _stream(q))
+    if rc != 0:
+        raise RuntimeError(f"sw_tangent_state_launch returned {rc}")
+    return out
+
+
 def halo_call(lib, traces, topology, nan_fill=True):
     import torch
 
@@ -395,6 +417,14 @@ def check_shape(libsets: dict, nel: int, s: int, run_steps: int = 2) -> dict:
                         route = route_call(L["sw_operator"], sq, scon, topology, base=sbase, **skw)
                         state_route[t] = state_route[t] and torch.equal(got[t], route)
                 cases[name] = (swop.sw_operator_plain(sq, None, scon, base=sbase, topology=topology, **skw), got)
+        # The Jacobian action (a library from before it has none: only the
+        # libraries with it are held against the plain tangent).
+        tcon, _, tstates, tv, _ = check.sw_tangent_inputs(nel, s, dtype, "cpu")
+        for point, tq in tstates.items():
+            got = {t: tangent_call(L["sw_operator"], tq, tv, tcon, topology) for t, L in libsets.items()
+                   if hasattr(L["sw_operator"], "sw_tangent_state_launch")}
+            if got:
+                cases[f"{dname}_tangent_{point}"] = (swop.sw_tangent_plain(tq, tv, tcon, topology), got)
         cases[f"{dname}_edges"] = (swop.edge_traces(y, con),
                                    {t: edges_call(L["sw_operator"], y, con) for t, L in libsets.items()})
         # The checked tile of kernels/check.py (a 2x2 mesh of this sphere).
@@ -433,7 +463,9 @@ def check_shape(libsets: dict, nel: int, s: int, run_steps: int = 2) -> dict:
                 print(f"  differs: {name}", file=sys.stderr)
     return {"nel": nel, "s": s, "cases": len(cases), "bit_identical": identical if len(libsets) == 2 else None,
             "state_equals_route": {t: v for t, v in state_route.items() if has_state_mode(libsets[t]["sw_operator"])},
-            "plain_err": plain_err}
+            "plain_err": plain_err,
+            "tangent_plain_err": {t: max((e for k, e in worst.items() if k.startswith(f"{t}:") and "_tangent_" in k),
+                                         default=None) for t in libsets}}
 
 
 def main(argv=None) -> int:

@@ -1,9 +1,10 @@
 // Device code shared by the shallow-water kernels (csrc/sw_operator.cu and
 // csrc/sw_run.cu): the element-block body of the DFR operator in its absolute
-// and perturbation forms, the panel-edge traces of a state and the halo
-// exchange of traces. Every kernel that computes one of these functions calls
-// the same device function, with each sum and each fused multiply-add written
-// out in a fixed order, so the per-stage kernels and the whole-run kernel give
+// and perturbation forms, the AUSM flux's tangent (the tangent kernel's), the
+// panel-edge traces of a state and the halo exchange of traces. Every kernel
+// that computes one of these functions calls the same device function, with
+// each sum and each fused multiply-add written out in a fixed order, so the
+// per-stage kernels and the whole-run kernel give
 // the same bits for the same inputs. A panel-edge face takes its neighbour's
 // values from one of three sources (HaloFrom): a halo plane, the neighbour
 // panels' traces (halo_point), or the neighbour panels' state itself
@@ -150,6 +151,56 @@ __device__ __forceinline__ void ausm_delta(const T* L0, const T* R0, const T* dL
   const T dpres = T(0.25 * kGravity) * msg * dterm;
   F[1] += (is_x ? mhd : mho) * dpres;
   F[2] += (is_x ? mho : mhd) * dpres;
+}
+
+// Directional derivative of `ausm` at (L, R) in the direction (dL, dR): the
+// flux's tangent as jax.jvp takes it of the XLA RHS (models/shallow_water.py:
+// 130-160 of the JAX package): d sqrt(x) = dx * 0.5 / sqrt(x); the guarded
+// divisions' derivative 0 where tmp == 0 (the branch jnp.where picks); the
+// split Mach terms' d max(0, M) and d min(0, M) all of dM on their side of
+// 0, none on the other, and half of it at the tie M = 0 (where jax.jvp of
+// jnp.maximum/jnp.minimum splits it, and where every interface of a state at
+// rest sits); the pressure terms by the product rule. The primal values are
+// computed as `ausm` computes them.
+template <typename T>
+__device__ __forceinline__ void ausm_tangent(const T* L, const T* R, const T* dL, const T* dR, T msg, T mhd, T mho,
+                                             bool is_x, T* dF) {
+  const T g = T(kGravity);
+  const T half_g = T(0.5 * kGravity);
+  const T hL = L[0], hR = R[0];
+  const T dhL = dL[0], dhR = dR[0];
+  const T aL = sqrt_rn(g * hL * mhd);
+  const T aR = sqrt_rn(g * hR * mhd);
+  const T daL = (g * dhL * mhd) * (T(0.5) / aL);
+  const T daR = (g * dhR * mhd) * (T(0.5) / aR);
+  const T qnL = is_x ? L[1] : L[2];
+  const T qnR = is_x ? R[1] : R[2];
+  const T dqnL = is_x ? dL[1] : dL[2];
+  const T dqnR = is_x ? dR[1] : dR[2];
+  const T tmpL = hL * aL;
+  const T tmpR = hR * aR;
+  const T mL = tmpL != T(0) ? qnL / tmpL : T(0);
+  const T mR = tmpR != T(0) ? qnR / tmpR : T(0);
+  const T dmL = tmpL != T(0) ? (dqnL - mL * (dhL * aL + hL * daL)) / tmpL : T(0);
+  const T dmR = tmpR != T(0) ? (dqnR - mR * (dhR * aR + hR * daR)) / tmpR : T(0);
+  const T big_m = T(0.25) * ((mL + T(1)) * (mL + T(1)) - (mR - T(1)) * (mR - T(1)));
+  const T dM = T(0.5) * ((mL + T(1)) * dmL - (mR - T(1)) * dmR);
+  const T P = big_m > T(0) ? big_m : T(0);
+  const T N = big_m < T(0) ? big_m : T(0);
+  const T dP = big_m > T(0) ? dM : (big_m == T(0) ? T(0.5) * dM : T(0));
+  const T dN = big_m < T(0) ? dM : (big_m == T(0) ? T(0.5) * dM : T(0));
+  const T adv_l = P * aL, adv_r = N * aR;
+  const T dadv_l = dP * aL + P * daL;
+  const T dadv_r = dN * aR + N * daR;
+#pragma unroll
+  for (int v = 0; v < 3; ++v) dF[v] = msg * ((dadv_l * L[v] + adv_l * dL[v]) + (dadv_r * R[v] + adv_r * dR[v]));
+  const T c = msg * half_g;
+  const T dpres_l = c * (dmL * (hL * hL) + (T(1) + mL) * (T(2) * hL * dhL));
+  const T dpres_r = c * ((T(1) - mR) * (T(2) * hR * dhR) - dmR * (hR * hR));
+  const T dpres_diag = T(0.5) * (mhd * dpres_l + mhd * dpres_r);
+  const T dpres_off = T(0.5) * (mho * dpres_l + mho * dpres_r);
+  dF[1] += is_x ? dpres_diag : dpres_off;
+  dF[2] += is_x ? dpres_off : dpres_diag;
 }
 
 // The 1D factors of the operator's Kronecker-structured matrices, read from

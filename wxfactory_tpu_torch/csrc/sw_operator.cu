@@ -37,6 +37,15 @@
 // standalone counterparts of the state mode's panel-edge faces, which call
 // the same device functions (swk::edge_trace, swk::rotate_halo).
 //
+// sw_tangent_kernel has no TPU counterpart: the JAX package computes the
+// Jacobian action J(q).v of its shallow-water RHS as jax.jvp of XLA
+// (integrators/epi.py:126-128 there; its float32 companion's, of the absolute
+// float32 operator, :197-200). It computes J(q).v of the absolute operator
+// in one launch, whole sphere, the halos of q and v both taken from the
+// state as the state mode takes q's (C entry sw_tangent_state_launch; plain
+// version ops/sw_operator.py::sw_tangent_plain, torch.func.jvp of the plain
+// operator; wrapper sw_tangent). Its flux tangent is swk::ausm_tangent.
+//
 // Layouts: csrc/sw_element.cuh.
 //
 // Design: one thread per solution point, up to EB = 256 / s^2 elements per
@@ -137,6 +146,191 @@ __global__ void __launch_bounds__(swk::kThreads) sw_halo_kernel(const T* __restr
   }
 }
 
+// ---------------------------------------------------------------------------
+// The Jacobian action J(q).v of the absolute operator (whole sphere, halos
+// from the state), its own body rather than a mode of element_block, so the
+// operator's instantiations keep their code. Shared memory (in T): the 1D
+// factors, then per element [q (3 s^2) | v (3 s^2) | dfx, dfy (6 s^2) |
+// face flux tangents (3 * 4s)].
+template <int S>
+struct TangentShape {
+  static constexpr int S2 = S * S;
+  static constexpr int NF = 4 * S;
+  static constexpr int N_FAC = Shape<S>::N_FAC;
+  static constexpr int PER_ELEM = 12 * S2 + 3 * NF;
+  static constexpr int EB = swk::kThreads / S2 > 0 ? swk::kThreads / S2 : 1;
+  static size_t smem_bytes(size_t item, int eb) { return item * (N_FAC + (size_t)eb * PER_ELEM); }
+};
+
+template <typename T>
+struct TangentArgs {
+  const T* q;  // the linearisation point
+  const T* v;  // the direction
+  const T* ops;
+  const T* fields;
+  const T* gridrot;
+  const T* itf_x;
+  const T* itf_y;
+  const int* hsrc;
+  const int* hflip;
+  const T* hconv;
+  T* out;
+  int nel;
+};
+
+// One thread a node, eb elements a block, as the operator: the pointwise
+// fluxes' and forcing's tangents by the product rule at each node; at each
+// of the element's faces the own traces of q and v (face_trace of the
+// element's nodes in shared memory) and the neighbour's (face_trace of its
+// nodes in global memory, the same function and fma order its own face
+// uses; at a panel edge state_halo_point, for q and for v alike, since the
+// halo is linear), ordered (L, R) as the operator orders them, into one
+// ausm_tangent call, so both sides of an interface get the same bits and
+// J.v conserves mass to round-off; then the divergence and the correction
+// in the operator's order.
+template <typename T, int S>
+__global__ void __launch_bounds__(swk::kThreads) sw_tangent_kernel(TangentArgs<T> A, int eb) {
+  using Sh = TangentShape<S>;
+  constexpr int S2 = Sh::S2, NF = Sh::NF;
+  extern __shared__ unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  swk::load_factors<T, S>(A.ops, smem);
+  const T* sExt = smem;
+  const T* sDx = sExt + NF;
+  const T* sDy = sDx + S2;
+  const T* sCorr = sDy + S2;
+
+  const int nel = A.nel;
+  const int tid = threadIdx.x;
+  const int e_loc = tid / S2;
+  const int j = tid - e_loc * S2;
+  const int ky = j / S, kx = j - ky * S;
+  const int per_panel = nel * nel;
+  const int nelem = 6 * per_panel;
+  const int elem = blockIdx.x * eb + e_loc;
+  const bool valid = e_loc < eb && elem < nelem;
+  const long long nq = (long long)nelem * S2;
+  const long long fstride = (long long)per_panel * S2;
+  const long long pt = (long long)elem * S2 + j;
+
+  T* sQ = smem + Sh::N_FAC + e_loc * Sh::PER_ELEM;
+  T* sV = sQ + 3 * S2;
+  T* sF = sV + 3 * S2;
+  T* sFl = sF + 6 * S2;
+
+  int p = 0, pe = 0, ey = 0, ex = 0;
+  if (valid) {
+    p = elem / per_panel;
+    pe = elem - p * per_panel;
+    ey = pe / nel;
+    ex = pe - ey * nel;
+#pragma unroll
+    for (int v = 0; v < 3; ++v) {
+      sQ[v * S2 + j] = A.q[v * nq + pt];
+      sV[v * S2 + j] = A.v[v * nq + pt];
+    }
+  }
+  __syncthreads();
+
+  T dforce1 = T(0), dforce2 = T(0), invsg = T(0);
+  if (valid) {
+    const T* fld = A.fields + (long long)pe * S2 + j;
+    const T sqrtg = fld[0], h11 = fld[fstride], h12 = fld[2 * fstride], h22 = fld[3 * fstride];
+    const T g101 = fld[4 * fstride], g102 = fld[5 * fstride];
+    const T g201 = fld[6 * fstride], g202 = fld[7 * fstride];
+    const T c111 = fld[8 * fstride], c112 = fld[9 * fstride];
+    const T c212 = fld[10 * fstride], c222 = fld[11 * fstride];
+    invsg = fld[12 * fstride];
+    const T half_g = T(0.5 * swk::kGravity);
+    const T rot2 = T(2) * A.gridrot[pt];
+    const T h = sQ[j], hu1 = sQ[S2 + j], hu2 = sQ[2 * S2 + j];
+    const T dh = sV[j], dhu1 = sV[S2 + j], dhu2 = sV[2 * S2 + j];
+    const T u1 = hu1 / h, u2 = hu2 / h;
+    const T du1 = (dhu1 - u1 * dh) / h;
+    const T du2 = (dhu2 - u2 * dh) / h;
+    const T dhsq = T(2) * h * dh;
+    const T d11 = dhu1 * u1 + hu1 * du1;  // d(hu1 u1)
+    const T d12 = dhu1 * u2 + hu1 * du2;  // d(hu1 u2)
+    const T d21 = dhu2 * u1 + hu2 * du1;  // d(hu2 u1)
+    const T d22 = dhu2 * u2 + hu2 * du2;  // d(hu2 u2)
+    sF[0 * S2 + j] = sqrtg * dhu1;
+    sF[1 * S2 + j] = sqrtg * (d11 + half_g * h11 * dhsq);
+    sF[2 * S2 + j] = sqrtg * (d21 + half_g * h12 * dhsq);
+    sF[3 * S2 + j] = sqrtg * dhu2;
+    sF[4 * S2 + j] = sqrtg * (d12 + half_g * h12 * dhsq);
+    sF[5 * S2 + j] = sqrtg * (d22 + half_g * h22 * dhsq);
+    dforce1 = rot2 * (g101 * dhu1 + g102 * dhu2) + c111 * d11 + T(2) * c112 * d12;
+    dforce2 = rot2 * (g201 * dhu1 + g202 * dhu2) + T(2) * c212 * d12 + c222 * d22;
+
+    for (int fi = j; fi < NF; fi += S2) {
+      const int side = fi / S;  // faces: 0 west, 1 east, 2 south, 3 north
+      const int k = fi - side * S;
+      bool at_edge;
+      int nb_elem, hside, along;
+      switch (side) {
+        case 0: at_edge = ex == 0;       nb_elem = elem - 1;   hside = 2; along = ey; break;
+        case 1: at_edge = ex == nel - 1; nb_elem = elem + 1;   hside = 3; along = ey; break;
+        case 2: at_edge = ey == 0;       nb_elem = elem - nel; hside = 0; along = ex; break;
+        default: at_edge = ey == nel - 1; nb_elem = elem + nel; hside = 1; along = ex; break;
+      }
+      const int nb_side = side ^ 1;
+      T own[3], nb[3], down[3], dnb[3];
+      if (at_edge) {
+        swk::state_halo_point<T, S>(A.q, sExt, A.hsrc, A.hflip, A.hconv, nel, hside * 6 + p, along * S + k, nb);
+        swk::state_halo_point<T, S>(A.v, sExt, A.hsrc, A.hflip, A.hconv, nel, hside * 6 + p, along * S + k, dnb);
+      } else {
+#pragma unroll
+        for (int v = 0; v < 3; ++v) {
+          const long long at = v * nq + (long long)nb_elem * S2;
+          nb[v] = swk::face_trace<T, S>(A.q + at, sExt + nb_side * S, nb_side, k);
+          dnb[v] = swk::face_trace<T, S>(A.v + at, sExt + nb_side * S, nb_side, k);
+        }
+      }
+#pragma unroll
+      for (int v = 0; v < 3; ++v) {
+        own[v] = swk::face_trace<T, S>(sQ + v * S2, sExt + side * S, side, k);
+        down[v] = swk::face_trace<T, S>(sV + v * S2, sExt + side * S, side, k);
+      }
+      const bool own_right = side == 0 || side == 2;
+      T L[3], R[3], dL[3], dR[3], dF[3];
+#pragma unroll
+      for (int v = 0; v < 3; ++v) {
+        L[v] = own_right ? nb[v] : own[v];
+        R[v] = own_right ? own[v] : nb[v];
+        dL[v] = own_right ? dnb[v] : down[v];
+        dR[v] = own_right ? down[v] : dnb[v];
+      }
+      const bool is_x = side < 2;
+      const T* itf = is_x ? A.itf_x : A.itf_y;
+      const int istride = nel * (nel + 1) * S;
+      const int iidx = is_x ? ((ey * (nel + 1) + ex + (side == 1)) * S + k)
+                            : (((ey + (side == 3)) * nel + ex) * S + k);
+      swk::ausm_tangent(L, R, dL, dR, itf[iidx], itf[istride + iidx], itf[2 * istride + iidx], is_x, dF);
+#pragma unroll
+      for (int v = 0; v < 3; ++v) sFl[v * NF + fi] = dF[v];
+    }
+  }
+  __syncthreads();
+
+  if (valid) {
+#pragma unroll
+    for (int v = 0; v < 3; ++v) {
+      T div = T(0);
+#pragma unroll
+      for (int m = 0; m < S; ++m) div = swk::fmadd(sF[v * S2 + ky * S + m], sDx[kx * S + m], div);
+#pragma unroll
+      for (int m = 0; m < S; ++m) div = swk::fmadd(sF[(3 + v) * S2 + m * S + kx], sDy[ky * S + m], div);
+      T corr = T(0);
+      corr = swk::fmadd(sFl[v * NF + ky], sCorr[kx], corr);                 // west
+      corr = swk::fmadd(sFl[v * NF + S + ky], sCorr[S + kx], corr);         // east
+      corr = swk::fmadd(sFl[v * NF + 2 * S + kx], sCorr[2 * S + ky], corr);  // south
+      corr = swk::fmadd(sFl[v * NF + 3 * S + kx], sCorr[3 * S + ky], corr);  // north
+      const T dforce = v == 0 ? T(0) : (v == 1 ? dforce1 : dforce2);
+      A.out[v * nq + pt] = (-invsg * div - dforce) - invsg * corr;
+    }
+  }
+}
+
 // Elements a block: Shape::EB, or fewer where the launch has too few
 // elements to give every SM a block (a tile launch: nt = 32, s = 3 is 37
 // blocks of 28 elements, 147 of 7).
@@ -228,6 +422,60 @@ cudaError_t dispatch_edges(int s, int nel, const void* q, const void* ops, void*
   }
 #undef SW_CASE
   return cudaGetLastError();
+}
+
+template <typename T, int S>
+cudaError_t launch_tangent(const TangentArgs<T>& A, cudaStream_t stream) {
+  using Sh = TangentShape<S>;
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const int nelem = 6 * A.nel * A.nel;
+  const int eb = elements_per_block(nelem, Sh::EB, sms);
+  const int blocks = (nelem + eb - 1) / eb;
+  sw_tangent_kernel<T, S><<<blocks, eb * Sh::S2, Sh::smem_bytes(sizeof(T), eb), stream>>>(A, eb);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_tangent(int s, int nel, const void* q, const void* v, const void* ops, const void* fields,
+                             const void* gridrot, const void* itf_x, const void* itf_y, const void* src,
+                             const void* flip, const void* conv, void* out, cudaStream_t stream) {
+  TangentArgs<T> A{};
+  A.q = static_cast<const T*>(q);
+  A.v = static_cast<const T*>(v);
+  A.ops = static_cast<const T*>(ops);
+  A.fields = static_cast<const T*>(fields);
+  A.gridrot = static_cast<const T*>(gridrot);
+  A.itf_x = static_cast<const T*>(itf_x);
+  A.itf_y = static_cast<const T*>(itf_y);
+  A.hsrc = static_cast<const int*>(src);
+  A.hflip = static_cast<const int*>(flip);
+  A.hconv = static_cast<const T*>(conv);
+  A.out = static_cast<T*>(out);
+  A.nel = nel;
+#define SW_CASE(S) \
+  case S:          \
+    return launch_tangent<T, S>(A, stream);
+  switch (s) {
+    SW_CASE(2) SW_CASE(3) SW_CASE(4) SW_CASE(5) SW_CASE(6) SW_CASE(7) SW_CASE(8)
+    default: return cudaErrorInvalidValue;
+  }
+#undef SW_CASE
+}
+
+template <typename T>
+cudaError_t tangent_resources(int s, int* info) {
+#define SW_CASE(S)                                                                                    \
+  case S:                                                                                             \
+    return swk::kernel_resources(sw_tangent_kernel<T, S>, TangentShape<S>::EB * TangentShape<S>::S2, \
+                                 TangentShape<S>::smem_bytes(sizeof(T), TangentShape<S>::EB), info);
+  switch (s) {
+    SW_CASE(2) SW_CASE(3) SW_CASE(4) SW_CASE(5) SW_CASE(6) SW_CASE(7) SW_CASE(8)
+    default: return cudaErrorInvalidValue;
+  }
+#undef SW_CASE
 }
 
 template <typename T>
@@ -369,6 +617,28 @@ extern "C" int sw_halo_launch(int is_f64, int npts, const void* traces, const vo
                                                            static_cast<const float*>(conv),
                                                            static_cast<float*>(halo), npts);
   return (int)cudaGetLastError();
+}
+
+// J(q).v of the absolute operator, whole sphere, the halos of q and v both
+// taken from the state (the halo tables src, flip, conv of the state mode):
+// q, v, out (3, 6*nel*nel, s^2); the other arguments as for
+// sw_operator_state_launch.
+extern "C" int sw_tangent_state_launch(int is_f64, int s, int nel, const void* q, const void* v, const void* ops,
+                                       const void* fields, const void* gridrot, const void* itf_x,
+                                       const void* itf_y, const void* src, const void* flip, const void* conv,
+                                       void* out, void* stream) {
+  if (nel < 2 || q == nullptr || v == nullptr || src == nullptr || flip == nullptr || conv == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(is_f64 ? dispatch_tangent<double>(s, nel, q, v, ops, fields, gridrot, itf_x, itf_y, src, flip, conv,
+                                                 out, st)
+                      : dispatch_tangent<float>(s, nel, q, v, ops, fields, gridrot, itf_x, itf_y, src, flip, conv,
+                                                out, st));
+}
+
+// The same report of the tangent kernel at (is_f64, s), at its largest block.
+extern "C" int sw_tangent_resources(int is_f64, int s, int* info) {
+  return (int)(is_f64 ? tangent_resources<double>(s, info) : tangent_resources<float>(s, info));
 }
 
 // What the runtime reports of the operator kernel at (is_f64, s, pert), halo

@@ -6,16 +6,20 @@ integrators of orders 2-6 (``Epi``) and their stiffness-resilient variants
 bootstrap of multistep history, the Krylov-size warm start and an optional
 custom Jacobian action.
 
-Two exponential solvers, one step:
+Three exponential solvers, one step:
 
-* ``kiops`` (:334-478 there): the host-orchestrated KIOPS
-  (``solvers/kiops.py``), one host sync per Krylov iteration;
+* ``pmex`` (and ``pmex_ne``, which the JAX package runs as pmex too) and
+  ``kiops`` (:334-478 there): the host-orchestrated PMEX and KIOPS
+  (``solvers/pmex.py``, ``solvers/kiops.py``), one host read per Krylov
+  iteration;
 * ``kiops_jit`` (the JAX package's ``_build_dev_step``, :140-236 there):
   the device-resident KIOPS (``solvers/kiops_jit.py``), one host sync per
   Krylov control. With a float32 companion ``rhs32`` (the perturbation-form
-  ``Euler3DRHS(perturbation_base=q0)``, ``mixed_precision_krylov``) the
-  Arnoldi matvec is the companion's Jacobian action in float32 (one launch
-  of the kernel's perturbation tangent mode on a GPU), with full CGS2
+  ``Euler3DRHS`` or ``ShallowWaterRHS(perturbation_base=q0)``,
+  ``mixed_precision_krylov``) the Arnoldi matvec is the companion's Jacobian
+  action in float32 (one launch of a tangent kernel on a GPU: the 3D
+  kernel's perturbation tangent mode, the SW tangent of the absolute float32
+  operator), with full CGS2
   orthogonalisation and a float32 basis, while the RHS, the history
   residuals, H and the controller stay float64.
 
@@ -27,8 +31,8 @@ The Jacobian action is the RHS's own (``jtv_prep``/``jtv_apply``) or
 ``torch.func.jvp`` of a differentiable RHS, the float32 companion's by the
 JAX package's rule (``solvers/matvec.py``); the
 linearisation point's preparation runs once a step and serves the history
-residuals too. ``pmex`` raises ``NotImplementedError`` naming its ROADMAP
-item.
+residuals too. The other exponential solvers of the JAX package raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 import math
@@ -39,15 +43,12 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..solvers import kiops
+from ..solvers import kiops, pmex
 from ..solvers.kiops_jit import kiops_jit
 from ..solvers.matvec import companion_jacobian, make_jvp_matvec
 from .base import Integrator, SolverInfo
 
-_NOT_PORTED = {
-    "pmex": "pmex is not ported yet: it comes with the shallow-water EPI3 slice (ROADMAP queue 1, item 5)",
-}
-_PORTED = ("kiops", "kiops_jit")
+_PORTED = ("pmex", "pmex_ne", "kiops", "kiops_jit")
 
 
 def alpha_coeff(c) -> np.ndarray:
@@ -105,8 +106,8 @@ class Epi(Integrator):
         super().__init__(**kwargs)
         if exponential_solver not in _PORTED:
             raise NotImplementedError(
-                _NOT_PORTED.get(exponential_solver, f"exponential solver {exponential_solver!r} is not ported "
-                                "(the port runs kiops and kiops_jit)")
+                f"exponential solver {exponential_solver!r} is not ported yet (the port runs pmex, pmex_ne, "
+                "kiops and kiops_jit; the others are ROADMAP queue 1, item 12)"
             )
         self.rhs = rhs
         self.rhs32 = rhs32
@@ -136,8 +137,9 @@ class Epi(Integrator):
         self._phi_offset = 2  # vec row of the first history residual
 
     def _solve_phi(self, matvec, vec, mixed: bool):
-        """phi_0 of the vec rows by the exponential solver: ``kiops`` (host
-        controls, IOP-2) or ``kiops_jit`` (device controls; with the float32
+        """phi_0 of the vec rows by the exponential solver: ``pmex`` (host
+        controls, full Gauss-Seidel projection; ``pmex_ne`` too), ``kiops``
+        (host controls, IOP-2) or ``kiops_jit`` (device controls; with the float32
         companion's matvec, ``mixed``, full CGS2 over a float32 basis, since
         an inexact operator needs a fully orthogonal basis)."""
         # The reference caps the Krylov size at 64 (epi.py:325-336): the
@@ -150,7 +152,9 @@ class Epi(Integrator):
                                     basis_dtype=torch.float32 if mixed else None, **kw)
             extra = f", {stats.controls} controls, {stats.masked_iterations} masked, {stats.matvecs} matvecs"
         else:
-            phiv, stats = kiops([1.0], matvec, vec, **kw)
+            # pmex_ne is pmex in the JAX package too (epi.py:334-341 there).
+            solver = pmex if self.exponential_solver in ("pmex", "pmex_ne") else kiops
+            phiv, stats = solver([1.0], matvec, vec, **kw)
             phiv = phiv[0]
         self.krylov_size = max(1, math.floor(0.7 * stats.last_krylov_size + 0.3 * self.krylov_size))
         if self.verbose > 0:

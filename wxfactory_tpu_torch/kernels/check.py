@@ -1121,6 +1121,154 @@ def compare_sw_run(nel: int, dtype, nsteps: int, pert: bool, device="cuda", dt: 
 
 
 # ---------------------------------------------------------------------------
+# Shallow water: the Jacobian action J(q).v (the tangent kernel)
+
+SW_TANGENT_TOLERANCE = {torch.float64: 1e-12, torch.float32: 1e-5}
+# Steps of the centred difference (q +- eps v) against the tangent; the
+# direction is 1e-3 of each variable's max, so eps = 0.01 moves q by 1e-5 of
+# it.
+SW_FD_STEPS = (0.01, 0.005)
+SW_FD_QUANTILE = 0.99
+
+
+def sw_tangent_inputs(nel: int, s: int, dtype, device, seed: int = 7):
+    """(con, topology, states, v, w): the constants; the linearisation points
+    {"case6": Williamson case 6 plus seeded noise of 1e-3 of each variable's
+    max (added, not multiplied: case 6's hu2 is 1e-16 on its symmetry lines,
+    and relative noise would leave their interfaces' split Mach number
+    within rounding of the kink at 0), "rest": case 6's h with zero
+    momentum, where every interface's split Mach number is exactly 0 (the
+    tie)}; two directions v, w of 1e-3 of each variable's max of case 6
+    times N(0,1) (numpy's seeded generator)."""
+    geom, ops, metric, topology, q0 = sw_setup(nel, s)
+    rng = np.random.default_rng(seed)
+    scale = 1e-3 * np.abs(q0).reshape(3, -1).max(axis=1).reshape(3, 1, 1, 1, 1)
+    q = q0 + scale * rng.standard_normal(q0.shape)
+    rest = np.concatenate([q0[:1], np.zeros_like(q0[1:])])
+    v = scale * rng.standard_normal(q0.shape)
+    w = scale * rng.standard_normal(q0.shape)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+    con = swop.build_constants(ops, metric, nel, dtype=dtype, device=device)
+    return con, topology, {"case6": t(q), "rest": t(rest)}, t(v), t(w)
+
+
+def sw_tangent_fd_order(q, v, con, topology, jv) -> dict:
+    """The centred difference (RHS(q + eps v) - RHS(q - eps v)) / (2 eps) of
+    the operator (``sw_operator``, the kernel on a card) against the tangent
+    ``jv`` at the steps ``SW_FD_STEPS``: the 99th percentile of the
+    pointwise distance scaled by each variable's max of ``jv`` at each step
+    and the order log2 of their ratio (2 for a correct tangent). The
+    operator has a kink wherever an interface's split Mach number crosses 0
+    (max(0, M)), and a few interfaces of a large grid cross it within +-eps
+    v, where the difference has no derivative to approach; they set the max
+    (reported beside), not the percentile."""
+    p99, worst = [], []
+    for eps in SW_FD_STEPS:
+        fd = (swop.sw_operator((q + eps * v).contiguous(), None, con, topology=topology)
+              - swop.sw_operator((q - eps * v).contiguous(), None, con, topology=topology)) / (2.0 * eps)
+        e = ((fd - jv).abs().double() / per_variable_max(jv).double().reshape(3, 1, 1, 1, 1)).reshape(-1)
+        p99.append(float(torch.quantile(e, SW_FD_QUANTILE)))
+        worst.append(float(e.max()))
+    order = float(np.log(p99[0] / p99[1]) / np.log(SW_FD_STEPS[0] / SW_FD_STEPS[1])) if p99[1] > 0 else 0.0
+    return {"fd_steps": list(SW_FD_STEPS), "fd_err_p99": p99, "fd_err_max": worst, "fd_order": order}
+
+
+def compare_sw_tangent(nel: int, s: int, dtype, device="cuda", seed: int = 7):
+    """The tangent kernel (``sw_tangent``) against its plain version
+    (``sw_tangent_plain``, torch.func.jvp of the plain operator) at the case-6
+    and rest linearisation points of ``sw_tangent_inputs``; one row each.
+
+    float64: within 1e-12 of each variable's max of the plain J.v (the JAX
+    tests' bound of the 3D tangent kernel against jax.jvp, tightened as the
+    3D port's checks are). float32: against the float64 plain J.v on the
+    same inputs, within twice the float32 plain J.v's distance from it, or
+    1e-5 of scale where that is larger. Also, within the same limit: the
+    kernel's linearity in v (``J(a v + b w)`` against ``a Jv + b Jw``); and
+    mass, the weighted integral of (J.v)_h against the plain version's
+    (``mass_err``). float64 rows also hold the kernel against a centred
+    difference of the operator kernel (``sw_tangent_fd_order``: order above
+    1.5 and a distance below 1e-8 at the smaller step), at the case-6
+    point (at rest every interface sits on the kink)."""
+    con, topology, states, v, w = sw_tangent_inputs(nel, s, dtype, device, seed)
+    wsg = sw_mass_weights(sw_setup(nel, s)[1], con)
+    tol = SW_TANGENT_TOLERANCE[dtype]
+    truth = None
+    if dtype == torch.float32:
+        con64, _, states64, v64, _ = sw_tangent_inputs(nel, s, torch.float64, device, seed)
+        truth = {k: swop.sw_tangent_plain(q, v64, con64, topology) for k, q in states64.items()}
+    rows = []
+    a, b = TANGENT_LINEARITY
+    for point, q in states.items():
+        got = swop.sw_tangent(q, v, con, topology)
+        want = swop.sw_tangent_plain(q, v, con, topology)
+        combo = swop.sw_tangent(q, (a * v + b * w).contiguous(), con, topology)
+        lin = a * got + b * swop.sw_tangent(q, w, con, topology)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        ref = want if truth is None else truth[point]
+        scale = per_variable_max(ref)
+        row = {"nel": nel, "s": s, "dtype": str(dtype).replace("torch.", ""), "mode": f"tangent_{point}",
+               "max_abs_err": float((got - want).abs().max()), "scale": "output_max",
+               "err": _scaled(got.to(ref.dtype) - ref, scale), "tol": tol,
+               "linearity_err": _scaled(combo - lin, per_variable_max(lin))}
+        limit = tol
+        if truth is not None:
+            row["scale"] = "f64_plain_output_max"
+            row["plain_err"] = _scaled(want.double() - ref, scale)
+            row["plain_to_kernel_err"] = _scaled(got - want, per_variable_max(want))
+            limit = max(tol, 2.0 * row["plain_err"])
+        row["limit"] = limit
+        row["mass_err"], row["mass_tol"] = mass_err(got, want, wsg, dtype, tol=tol)
+        mass = lambda t: float((wsg * t[0].double()).sum() / (wsg * t[0].double()).abs().sum())
+        row["mass_of_output"], row["mass_of_plain"] = mass(got), mass(want)
+        ok = (np.isfinite(row["err"]) and row["err"] <= limit and row["linearity_err"] <= limit
+              and bool(torch.isfinite(got).all().item()) and row["mass_err"] <= row["mass_tol"])
+        if dtype == torch.float64 and point == "case6":
+            row.update(sw_tangent_fd_order(q, v, con, topology, got))
+            ok = ok and row["fd_order"] > 1.5 and row["fd_err_p99"][1] < 1e-8
+        row["ok"] = bool(ok)
+        rows.append(row)
+    return rows
+
+
+def sw_tangent_work(nel: int, s: int, dtype):
+    """(bytes, operations) of one J(q).v call of the tangent kernel: q and v
+    read once each (the neighbour elements' and neighbour panels' nodes are
+    elements of q and v, counted with them), J.v written once, the
+    one-panel metric, gridrot, the interface metric and the 4 rotation
+    coefficients of each panel-edge point read once; the operations the
+    function needs (an add, multiply, divide or sqrt one, a fused
+    multiply-add two), with each face of q and of v extrapolated once and
+    each interface's flux tangent computed once: ~70 a node for the
+    pointwise fluxes' and forcing's tangents, and about 100 an interface
+    point for the AUSM flux and its tangent; derivative, extrapolation and
+    correction by the 1D factors as ``sw_work`` counts them, and the
+    rotation of q's and v's halo values (12 an edge point)."""
+    n_elem, s2, item = 6 * nel * nel, s * s, torch.finfo(dtype).bits // 8
+    nstate = 3 * n_elem * s2
+    edge_points = 4 * 6 * nel * s
+    words = 3 * nstate + 13 * nel * nel * s2 + n_elem * s2 + 2 * 3 * nel * (nel + 1) * s + 4 * edge_points
+    ops = n_elem * (s2 * (70 + 12 * s + 24) + 2 * s * (24 * s + 100)) + 12 * edge_points
+    return words * item, ops
+
+
+def sw_tangent_resources(dtype, s: int) -> dict:
+    """{registers, local_bytes, smem_bytes, blocks_per_sm, threads} of the SW
+    tangent kernel at one dtype and s (its largest block), as the runtime
+    reports them (on the card; builds the library)."""
+    import ctypes
+
+    from .build import load_library
+
+    info = (ctypes.c_int * 5)()
+    rc = load_library("sw_operator").sw_tangent_resources(1 if dtype == torch.float64 else 0, s,
+                                                          ctypes.cast(info, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"sw_tangent_resources failed: CUDA error {rc}")
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm", "threads"), info))
+
+
+# ---------------------------------------------------------------------------
 # Tile kernels (the tile-parallel step's per-tile launches)
 
 # (nt, s, N): tile width, solution points and the mesh whose tile is checked

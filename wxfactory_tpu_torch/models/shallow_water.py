@@ -14,6 +14,11 @@ returns ``a*x + b*y + cdt*RHS(y)`` and ``None`` in place of the output's
 traces, which no stage needs (``traces(q)`` is ``None`` too, with no
 launch; the 3D model's stages carry real traces through the same chain).
 
+The Jacobian action ``jtv(q, v)`` (``jtv_prep``/``jtv_apply``, which the
+exponential and Rosenbrock integrators take) is J(q).v of the absolute
+operator of the RHS's dtype: one launch of the tangent kernel on a GPU,
+``torch.func.jvp`` of the plain operator on the CPU.
+
 In absolute form ``pack``/``unpack`` are the identity: the kernel works in
 the model layout. With ``perturbation_base=q0`` the RHS is the perturbation
 (base-state-split) form of the JAX package's ``rhs_pert``/``rhs_fast``
@@ -43,6 +48,7 @@ from ..ops.sw_operator import (
     run_supported,
     sw_operator,
     sw_run,
+    sw_tangent,
 )
 from ..parallel.topology import CubedSphereTopology
 
@@ -103,15 +109,25 @@ class ShallowWaterRHS:
         (what the JAX package's ``rhs_pert.xla`` is)."""
         return sw_operator(q, None, self.con, topology=self.topology)
 
-    def jtv_prep(self, q: torch.Tensor):
-        """The SW operator has no Jacobian action in the port: no tangent
-        kernel, and ``torch.func.jvp`` cannot pass through a kernel. An
-        integrator that asks for one (EPI, Ros2, a float32 companion) raises
-        here instead of differentiating another form of the operator."""
-        raise NotImplementedError(
-            "the shallow-water operator has no Jacobian action in the port (no tangent kernel; torch.func.jvp "
-            "cannot pass through a kernel): ROADMAP queue 1, item 5"
-        )
+    def jtv_prep(self, q: torch.Tensor) -> torch.Tensor:
+        """The linearisation point of ``jtv_apply``: q itself in this RHS's
+        dtype (no launch; the tangent kernel reads q's face traces on every
+        call)."""
+        return q.to(self.dtype).contiguous()
+
+    def jtv_apply(self, prep: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """J(q).v of the ABSOLUTE operator of this RHS's dtype at the
+        absolute state ``prep`` (``jtv_prep(q)``): one launch of the tangent
+        kernel on a GPU (``ops.sw_operator.sw_tangent``), ``torch.func.jvp``
+        of the plain operator on the CPU. In perturbation form too this is
+        the absolute operator's action, the JAX package's rule for its SW
+        companion (``jax.jvp`` of ``rhs32.xla``, integrators/epi.py:197-200
+        there), not the tangent of the perturbation form."""
+        return sw_tangent(prep, v.to(self.dtype).contiguous(), self.con, self.topology)
+
+    def jtv(self, q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """J(q).v: ``jtv_apply(jtv_prep(q), v)``."""
+        return self.jtv_apply(self.jtv_prep(q), v)
 
     def stage(self, x, y, a: float, b: float, cdt: float, traces: Optional[torch.Tensor] = None):
         """One fused RK stage ``a*x + b*y + cdt*RHS(y)`` on packed states

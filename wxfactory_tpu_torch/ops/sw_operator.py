@@ -41,9 +41,16 @@ traces ``(3, 4, 1, nt, s)``), ``tile_base`` the float64 perturbation base,
 and ``sw_tile_operator`` launches the same kernel with one panel whose four
 edges all take the halo.
 
-Each wrapper (``sw_operator``, ``sw_tile_operator``, ``sw_edges``,
-``sw_halo``, ``sw_run``) runs its CUDA kernel for a CUDA tensor and its
-plain version for a CPU tensor; there is no fallback between them.
+The Jacobian action J(q).v of the absolute operator (``sw_tangent``; the
+exponential and Rosenbrock integrators' matvec) is one launch of its own
+kernel, its halos from the state; its plain version ``sw_tangent_plain`` is
+``torch.func.jvp`` of the plain operator, the JAX package's ``jax.jvp`` of
+its XLA RHS.
+
+Each wrapper (``sw_operator``, ``sw_tangent``, ``sw_tile_operator``,
+``sw_edges``, ``sw_halo``, ``sw_run``) runs its CUDA kernel for a CUDA
+tensor and its plain version for a CPU tensor; there is no fallback between
+them.
 """
 
 import ctypes
@@ -59,7 +66,8 @@ from ..common.constants import GRAVITY
 # the operator in absolute and in perturbation form (``state_launches``
 # counts those of them that took the halo from the state), its tile
 # launches in both forms, the edge-trace and halo kernels and the whole-run
-# kernel; and calls of the plain versions.
+# kernel, the tangent kernel (J(q).v); and calls of the plain versions (the
+# plain tangent's apart).
 launches = 0
 pert_launches = 0
 state_launches = 0
@@ -68,7 +76,9 @@ pert_tile_launches = 0
 edge_launches = 0
 halo_launches = 0
 run_launches = 0
+tangent_launches = 0
 plain_calls = 0
+plain_tangent_calls = 0
 
 
 @dataclass(frozen=True)
@@ -438,8 +448,12 @@ def _ausm(qL, qR, msg, mhd, mho, is_x: bool):
     mL = torch.where(tmpL != 0.0, qnL / tmpL, 0.0)
     mR = torch.where(tmpR != 0.0, qnR / tmpR, 0.0)
     big_m = 0.25 * ((mL + 1.0) ** 2 - (mR - 1.0) ** 2)
-    adv_l = torch.clamp(big_m, min=0.0) * aL
-    adv_r = torch.clamp(big_m, max=0.0) * aR
+    # max(0, M) and min(0, M) as 0.5 (M +- |M|): the same values bit for bit
+    # (M + |M| is exactly 2M or 0), and the derivative jax.jvp gives
+    # jnp.maximum/jnp.minimum at the tie M = 0 (half of dM; torch.clamp's
+    # is all of it), which every interface of a state at rest sits on.
+    adv_l = (0.5 * (big_m + big_m.abs())) * aL
+    adv_r = (0.5 * (big_m - big_m.abs())) * aR
     f = [msg * (adv_l * qL[v] + adv_r * qR[v]) for v in range(3)]
     pres_l = (1.0 + mL) * (msg * half_g) * (hL * hL)
     pres_r = (1.0 - mR) * (msg * half_g) * (hR * hR)
@@ -552,6 +566,11 @@ def sw_operator_plain(q, halo, con: SWConstants, x=None, a: float = 0.0, b: floa
         return sw_operator_pert_plain(q, halo, con, base, x=x, a=a, b=b, cdt=cdt, emit_traces=emit_traces,
                                       topology=topology)
     plain_calls += 1
+    return _finish(_rhs_plain(q, halo, con, topology), q, x, a, b, cdt, emit_traces, con)
+
+
+def _rhs_plain(q, halo, con: SWConstants, topology):
+    """The absolute-form RHS of ``sw_operator_plain``, uncounted."""
     halo = _halo_of(q, halo, con, topology)
     half_g = 0.5 * GRAVITY
     (sqrtg, h11, h12, h22, g101, g102, g201, g202,
@@ -578,8 +597,7 @@ def sw_operator_plain(q, halo, con: SWConstants, x=None, a: float = 0.0, b: floa
     qL_x, qR_x, qL_y, qR_y = _interface_states(q @ con.ee, halo, con.s)
     f_x = _ausm(qL_x, qR_x, con.itf_x[0], con.itf_x[1], con.itf_x[2], is_x=True)
     f_y = _ausm(qL_y, qR_y, con.itf_y[0], con.itf_y[1], con.itf_y[2], is_x=False)
-    rhs = df - invsg * _correction(f_x, f_y, con)
-    return _finish(rhs, q, x, a, b, cdt, emit_traces, con)
+    return df - invsg * _correction(f_x, f_y, con)
 
 
 def sw_operator_pert_plain(dq, halo, con: SWConstants, base: SWPertBase, x=None, a: float = 0.0,
@@ -763,6 +781,56 @@ def _launch_operator(entry: str, q, halo, con: SWConstants, x, a: float, b: floa
         )
     _raise_on(rc, lib, entry)
     return (out, traces) if emit_traces else out
+
+
+# ---------------------------------------------------------------------------
+# The Jacobian action J(q).v of the absolute operator
+
+
+def sw_tangent_plain(q, v, con: SWConstants, topology):
+    """Plain version of ``sw_tangent``: ``torch.func.jvp`` of the absolute
+    operator with its halo taken from the state (``sw_operator_plain(q,
+    None, ...)``; the halo is linear in the traces, so the tangent's halo is
+    ``halo_from_traces(edge_traces(v))``), the counterpart of the JAX
+    package's ``jax.jvp`` of its XLA RHS (models/shallow_water.py:166
+    there). Counted in ``plain_tangent_calls``."""
+    global plain_tangent_calls
+    plain_tangent_calls += 1
+    _check_topology(con, topology, "sw_tangent_plain")
+    return torch.func.jvp(lambda y: _rhs_plain(y, None, con, topology), (q,), (v,))[1]
+
+
+def sw_tangent(q, v, con: SWConstants, topology):
+    """J(q).v of the absolute SW operator at the state ``q`` in the direction
+    ``v`` (both (3, 6, nel, nel, s^2), the constants' dtype and device), the
+    halos of both taken from the state. A CPU tensor runs
+    ``sw_tangent_plain``; a CUDA tensor makes one launch of the tangent
+    kernel (csrc/sw_operator.cu, ``sw_tangent_state_launch``) on the current
+    stream, counted in ``tangent_launches``, or raises: no fallback to the
+    plain version."""
+    global tangent_launches
+    _check_npanel(con, 6, "sw_tangent")
+    _check(q, None, con, None, 0.0, None)
+    _check(v, None, con, None, 0.0, None)
+    _check_topology(con, topology, "sw_tangent")
+    if q.device.type == "cpu":
+        return sw_tangent_plain(q, v, con, topology)
+    _cuda_or_raise(q, "sw_tangent")
+    _check_kernel_shape(con, "sw_tangent")
+    from ..kernels.build import load_library
+
+    lib = load_library("sw_operator")
+    tab = halo_tables(topology, q.device, q.dtype)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        rc = lib.sw_tangent_state_launch(
+            1 if q.dtype == torch.float64 else 0, con.s, con.nel, _ptr(q), _ptr(v), _ptr(con.ops),
+            _ptr(con.fields), _ptr(con.gridrot), _ptr(con.itf_x), _ptr(con.itf_y), _ptr(tab.src),
+            _ptr(tab.flip), _ptr(tab.conv), _ptr(out), _stream(q.device),
+        )
+    _raise_on(rc, lib, "sw_tangent")
+    tangent_launches += 1
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,9 @@
 
 Counterpart of ``wxfactory_tpu/simulation.py`` for the cubed sphere:
 shallow water (Williamson cases 2 and 6) and 3D Euler (DCMIP cases 31 and
-77) with the explicit integrators (euler1, tvdrk3), and 3D Euler with the
-exponential ones (epi2..6, epi_stiff3..6, with kiops or the device-resident
-kiops_jit) and Ros2 (with fgmres or the device-resident fgmres_jit), with
+77) with the explicit integrators (euler1, tvdrk3), the exponential ones
+(epi2..6, epi_stiff3..6, with pmex, kiops or the device-resident kiops_jit)
+and Ros2 (with fgmres or the device-resident fgmres_jit), with
 ``mixed_precision_krylov`` the float32 perturbation-form companion of the
 device solvers' Krylov loop, the step loop with the end-time clamp, the
 NaN/Inf guard, ``device_step_chunk`` (equal steps run back to back with the
@@ -132,14 +132,21 @@ class Simulation:
             q0 = self.output.load_state_from_file(c.starting_step, q0.shape)
             self.starting_step = c.starting_step
         # The float32 companion of the Krylov loop (mixed_precision_krylov):
-        # the perturbation form around the initial state, whose Jacobian
-        # action is the kernel's perturbation tangent mode (the JAX package's
-        # simulation.py:140-162; 3D Euler only: shallow-water EPI and Ros2
-        # are not ported, and the forcing cases are refused above).
+        # the perturbation form around the initial state (the JAX package's
+        # simulation.py:140-162). Its Jacobian action is, for 3D Euler, the
+        # kernel's perturbation tangent mode (the forcing cases are refused
+        # above), for shallow water the tangent kernel of the absolute
+        # float32 operator, as the JAX package takes jax.jvp of its
+        # companion's XLA form there.
         self.rhs32 = None
         if getattr(c, "mixed_precision_krylov", False) and self.dtype == torch.float64:
             if c.equations == "euler" and c.case_number >= 13:
                 self.rhs32 = Euler3DRHS(
+                    self.geom, self.ops, self.metric, dtype=torch.float32, device=self.device,
+                    topology=self.topology, perturbation_base=q0,
+                )
+            elif c.equations == "shallow_water":
+                self.rhs32 = make_rhs_shallow_water(
                     self.geom, self.ops, self.metric, dtype=torch.float32, device=self.device,
                     topology=self.topology, perturbation_base=q0,
                 )
@@ -178,12 +185,6 @@ class Simulation:
         if name == "tvdrk3":
             return Tvdrk3(self.rhs, verbose=c.verbose_solver)
         if name.startswith("epi") or name == "ros2":
-            if c.equations != "euler":
-                raise NotImplementedError(
-                    f"{c.time_integrator} on shallow water is not ported yet: the SW operator has no "
-                    "Jacobian-action kernel, and torch.func.jvp cannot pass through a kernel (ROADMAP "
-                    "queue 1, item 5)"
-                )
             if name == "ros2":
                 return Ros2(self.rhs, tolerance=c.tolerance, gmres_restart=c.gmres_restart,
                             linear_solver=c.linear_solver, rhs32=self.rhs32, verbose=c.verbose_solver)
@@ -198,7 +199,7 @@ class Simulation:
             return Epi(self.rhs, order, init_substeps=(10 if order >= 3 else 1), **common)
         raise NotImplementedError(
             f"time integrator {c.time_integrator!r} is not ported yet (the port runs euler1, tvdrk3 "
-            "and, on 3D Euler, epi/epi_stiff with kiops or kiops_jit and ros2 with fgmres or fgmres_jit; "
+            "and epi/epi_stiff with pmex, kiops or kiops_jit and ros2 with fgmres or fgmres_jit; "
             "the others are ROADMAP queue 1, item 12)"
         )
 

@@ -4,6 +4,7 @@ from .global_ops import global_dotprod, global_inf_norm, global_norm
 from .kiops import kiops
 from .kiops_jit import KiopsJitStats, kiops_jit
 from .matvec import companion_jacobian, make_fd_matvec, make_jvp_matvec, make_rat_matvec
+from .pmex import pmex
 from .stats import PhiStats
 
 __all__ = [
@@ -21,4 +22,5 @@ __all__ = [
     "make_jvp_matvec",
     "make_rat_matvec",
     "PhiStats",
+    "pmex",
 ]

@@ -2,8 +2,8 @@
 
 Counterpart of ``wxfactory_tpu/solvers/matvec.py``. The Jacobian action is
 exact: through the RHS's own linearisation when it has one
-(``jtv_prep``/``jtv_apply``, the tangent mode of the 3D Euler kernel on a
-GPU, as the JAX package's Epi takes its fused Jacobian action,
+(``jtv_prep``/``jtv_apply``: the tangent kernels of the 3D Euler and
+shallow-water operators on a GPU, as the JAX package's Epi takes its fused Jacobian action,
 integrators/epi.py:181-195 there), otherwise ``torch.func.jvp`` of the RHS,
 which needs an RHS written in differentiable torch (a kernel launched
 through ctypes has no derivative). The float32 companion of a
@@ -40,10 +40,12 @@ def companion_jacobian(rhs32: Callable, q32: torch.Tensor) -> Callable:
     (integrators/epi.py:181-200 and integrators/rosenbrock.py:104-117
     there): the companion's own Jacobian action when it has one
     (``jtv_prep``/``jtv_apply``: the perturbation tangent kernel of the 3D
-    companion), else ``torch.func.jvp`` of its ``xla`` form when it has one
-    (the absolute operator of its dtype), else of the companion itself. A
-    kernel launched through ctypes has no derivative, so off the CPU a
-    companion without ``jtv_prep`` raises."""
+    companion; the SW companion's, the absolute float32 operator's J.v at
+    q32, which is what ``jax.jvp`` of its ``xla`` form gives there), else
+    ``torch.func.jvp`` of its ``xla`` form when it has one (the absolute
+    operator of its dtype), else of the companion itself. A kernel launched
+    through ctypes has no derivative, so off the CPU a companion without
+    ``jtv_prep`` raises."""
     if hasattr(rhs32, "jtv_prep"):
         prep = rhs32.jtv_prep(q32)
         return lambda v: rhs32.jtv_apply(prep, v)
