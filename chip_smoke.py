@@ -373,7 +373,7 @@ def ptxas_summary(log: str):
             current = {"kernel": f"sw_operator f32 s={f32_pert.group(1)} pert"}
             rows.append(current)
         elif m:
-            k = re.search(r"(sw_operator|sw_run|sw_edges|sw_tangent|euler3d_operator|euler3d_interface|euler3d_volume|"
+            k = re.search(r"(sw_operator|sw_run|sw_edges|sw_tangent_prep|sw_tangent_apply|euler3d_operator|euler3d_interface|euler3d_volume|"
                           r"euler3d_tangent_prep|euler3d_tangent_apply|euler3d_tangent)_kernelI([df])Li(\d+)E"
                           r"(Lb([01]))?", m.group(1))
             current = {"kernel": f"{k.group(1)} {'f64' if k.group(2) == 'd' else 'f32'} s={k.group(3)}"
@@ -458,10 +458,10 @@ def reset_counts():
 
     swop.launches = e3op.launches = e3op.tangent_launches = e3op.tangent_prep_launches = e3op.plain_tangent_calls = 0
     swop.pert_launches = swop.edge_launches = swop.halo_launches = swop.run_launches = swop.plain_calls = 0
-    swop.state_launches = swop.tangent_launches = swop.plain_tangent_calls = 0
+    swop.state_launches = swop.tangent_prep_launches = swop.tangent_apply_launches = swop.plain_tangent_calls = 0
     e3op.pert_launches = e3op.pert_stage_launches = e3op.pert_tangent_launches = e3op.plain_calls = 0
     swop.tile_launches = swop.pert_tile_launches = e3op.tile_launches = e3op.pert_tile_launches = 0
-    matvec.jacobian_actions = device.host_syncs = 0
+    matvec.jacobian_actions = matvec.linearisations = device.host_syncs = 0
 
 
 def read_counts():
@@ -472,7 +472,8 @@ def read_counts():
 
     return {"sw_operator": swop.launches, "sw_pert": swop.pert_launches, "sw_edges": swop.edge_launches,
             "sw_halo": swop.halo_launches, "sw_run": swop.run_launches, "sw_plain_calls": swop.plain_calls,
-            "sw_state": swop.state_launches, "sw_tangent": swop.tangent_launches,
+            "sw_state": swop.state_launches, "sw_tangent_prep": swop.tangent_prep_launches,
+            "sw_tangent_apply": swop.tangent_apply_launches,
             "sw_plain_tangent_calls": swop.plain_tangent_calls,
             "euler3d_operator": e3op.launches,
             "euler3d_tangent": e3op.tangent_launches, "euler3d_tangent_prep": e3op.tangent_prep_launches,
@@ -481,7 +482,8 @@ def read_counts():
             "euler3d_plain_calls": e3op.plain_calls, "plain_tangent_calls": e3op.plain_tangent_calls,
             "sw_tile": swop.tile_launches, "sw_pert_tile": swop.pert_tile_launches,
             "euler3d_tile": e3op.tile_launches, "euler3d_pert_tile": e3op.pert_tile_launches,
-            "jacobian_actions": matvec.jacobian_actions, "host_syncs": device.host_syncs}
+            "jacobian_actions": matvec.jacobian_actions, "linearisations": matvec.linearisations,
+            "host_syncs": device.host_syncs}
 
 
 def phase3(torch):
@@ -2212,7 +2214,7 @@ def phase28(torch, smi):
     return {"sw_tile": main("sw_tile", SW_TILE_MAIN[0] // 2), "euler3d_tile": main("euler3d_tile", E3_MAIN[0] // 2)}
 
 
-# Phase 29: the tangent kernel's shapes: case 6 at the EPI paths' widths
+# Phase 29: the tangent kernels' shapes: case 6 at the EPI paths' widths
 # (nel = 10, 30) and the operator's (64 at s = 3, 4, 7), then the other
 # values of s; and the shapes it is timed at.
 TANGENT_SHAPES = [(10, 3), (30, 3), (64, 3), (64, 4), (64, 7), (4, 2), (3, 5), (2, 6), (4, 8)]
@@ -2220,10 +2222,12 @@ TANGENT_TIMED = [(10, 3), (30, 3), (64, 3)]
 
 
 def phase29(torch, smi):
-    """The SW tangent kernel (J(q).v of the absolute operator) against its
-    plain version (torch.func.jvp of the plain operator) on the card, its
-    linearity, mass and centred-difference order, its time a call beside
-    its bound and the plain version's, and its resources."""
+    """The SW tangent kernels (J(q).v of the absolute operator: the prep once
+    per linearisation point, the linear apply once per J.v) against the
+    plain tangent (torch.func.jvp of the plain operator) and each against
+    its plain version on the card, the apply's linearity, mass and
+    centred-difference order, each one's time a call beside its bound and
+    its plain version's, and their resources."""
     from wxfactory_tpu_torch.kernels import check
     from wxfactory_tpu_torch.ops import sw_operator as swop
 
@@ -2232,31 +2236,42 @@ def phase29(torch, smi):
     emit_comparison(29, rows, ("nel", "s"))
     bad = [r for r in rows if not r["ok"]]
     if bad:
-        raise AssertionError(f"the tangent kernel disagrees with its plain version: {bad}")
+        raise AssertionError(f"the tangent kernels disagree with their plain versions: {bad}")
     timing = []
     for nel, s in TANGENT_TIMED:
         for dtype in (torch.float64, torch.float32):
             name = str(dtype).replace("torch.", "")
             con, topology, states, v, _ = check.sw_tangent_inputs(nel, s, dtype, "cuda")
             q = states["case6"]
-            times = _pair_ms(torch, lambda: swop.sw_tangent(q, v, con, topology),
-                             lambda: swop.sw_tangent_plain(q, v, con, topology), n=20, n_plain=3)
+            coef = swop.sw_tangent_prep(q, con, topology)
+            prep = _pair_ms(torch, lambda: swop.sw_tangent_prep(q, con, topology),
+                            lambda: swop.sw_tangent_prep_plain(q, con, topology), n=20, n_plain=3)
+            apply = _pair_ms(torch, lambda: swop.sw_tangent_apply(coef, v, con, topology),
+                             lambda: swop.sw_tangent_apply_plain(coef, v, con, topology), n=20, n_plain=3)
+            row = {"nel": nel, "s": s, "dtype": name}
+            for kernel, times, work in (("prep", prep, check.sw_tangent_prep_work(nel, s, dtype)),
+                                        ("apply", apply, check.sw_tangent_apply_work(nel, s, dtype))):
+                row.update({f"{kernel}_{k}": val for k, val in times.items()})
+                row.update({f"{kernel}_own_{k}": val for k, val in _bound(work, name).items()})
+            row.update({f"function_{k}": val for k, val in _bound(check.sw_tangent_work(nel, s, dtype), name).items()})
+            row["jvp_ms"] = _device_ms(torch, lambda: swop.sw_tangent_plain(q, v, con, topology), 3)
             rhs = _bound(check.sw_work(nel, s, dtype, state=True), name)
-            timing.append(dict({"nel": nel, "s": s, "dtype": name}, **times,
-                               **_bound(check.sw_tangent_work(nel, s, dtype), name),
-                               rhs_state_ms=_device_ms(torch, lambda: swop.sw_operator(q, None, con, topology=topology),
-                                                       20),
-                               rhs_state_bound_ms=rhs["bound_ms"]))
+            row["rhs_state_ms"] = _device_ms(torch, lambda: swop.sw_operator(q, None, con, topology=topology), 20)
+            row["rhs_state_bound_ms"] = rhs["bound_ms"]
+            timing.append(row)
     resources = {f"{str(dtype).replace('torch.', '')} s={s}": check.sw_tangent_resources(dtype, s)
                  for dtype in (torch.float64, torch.float32) for s in range(2, 9)}
     detail = [{k: r[k] for k in ("nel", "s", "dtype", "mode", "err", "limit", "linearity_err", "mass_err",
-                                 "mass_of_output", "mass_of_plain", "fd_order", "fd_err_p99", "fd_err_max")
+                                 "mass_of_output", "mass_of_plain", "prep_err", "apply_err", "prep_rows_over",
+                                 "fd_order", "fd_err_p99", "fd_err_max")
                if k in r} for r in rows]
-    emit({"phase": 29, "gpu": smi, "timing_note": "*_ms: the card's time a call (calls queued behind a sleep "
-          "kernel, CUDA events); *_event_ms: CUDA events around single calls, median", "timing": timing,
-          "resources": resources, "checks": detail})
+    emit({"phase": 29, "gpu": smi, "timing_note": "*_kernel_ms, *_plain_ms, jvp_ms, rhs_state_ms: the card's time "
+          "a call (calls queued behind a sleep kernel, CUDA events); *_event_ms: CUDA events around single calls, "
+          "median; prep_own/apply_own: each kernel's own bytes and operations; function: J(q).v from q and v",
+          "timing": timing, "resources": resources, "checks": detail})
     main = [r for r in rows if (r["nel"], r["s"], r["dtype"]) == (10, 3, "float64")]
-    return {"max_abs_err": max(r["max_abs_err"] for r in main),
+    return {"prep_max_abs_err": max(r["prep_max_abs_err"] for r in main),
+            "apply_max_abs_err": max(max(r["max_abs_err"], r["apply_max_abs_err"]) for r in main),
             "timing": next(t for t in timing if (t["nel"], t["s"], t["dtype"]) == (10, 3, "float64"))}
 
 
@@ -2314,7 +2329,8 @@ def _sw_krylov(text):
 def _sw_epi_run(torch, tag, nel, dt, nsteps, integrator, solver, linear_solver, mixed, device="cuda"):
     """One case-6 run through ``Simulation(ini).run()`` (the CLI's call) on
     ``device``: launch counts (one state-mode operator launch an RHS call,
-    one tangent launch a Jacobian action, no plain call on the card), the
+    one tangent apply launch a Jacobian action, one tangent prep launch a
+    linearisation point and dtype, no plain call on the card), the
     Krylov statistics, host syncs, blockstats mass drift, h bounds and the
     final checkpoint; returns (row, final state)."""
     import numpy as np
@@ -2353,10 +2369,11 @@ def _sw_epi_run(torch, tag, nel, dt, nsteps, integrator, solver, linear_solver, 
     if len(krylov) != reported:
         raise AssertionError(f"{len(krylov)} Krylov reports in {nsteps} steps: {krylov}")
     if device == "cuda":
-        want = {"sw_state": rhs_calls, "sw_operator": rhs_calls + mixed, "sw_tangent": counts["jacobian_actions"],
+        want = {"sw_state": rhs_calls, "sw_operator": rhs_calls + mixed,
+                "sw_tangent_apply": counts["jacobian_actions"], "sw_tangent_prep": counts["linearisations"],
                 "sw_pert": 0, "sw_plain_calls": 0, "sw_plain_tangent_calls": 0}
         got = {k: counts[k] for k in want}
-        if got != want or counts["jacobian_actions"] == 0:
+        if got != want or counts["jacobian_actions"] == 0 or counts["linearisations"] == 0:
             raise AssertionError(f"launches {got} in {nsteps} {integrator} steps, expected {want}")
     drifts = [float(v) for v in re.findall(r"normalized error for mass = (\S+)", text)]
     files = glob.glob(str(out_dir / f"state_vector_*.{nsteps:08d}.npy"))
@@ -2381,6 +2398,7 @@ def _sw_epi_run(torch, tag, nel, dt, nsteps, integrator, solver, linear_solver, 
         "dt": dt, "steps": int(run.group(1)), "setup_s": wall - run_s, "run_s": run_s,
         "steps_per_s": float(run.group(3)), "main_wall_s": wall, "rhs_calls": rhs_calls,
         "jacobian_actions": counts["jacobian_actions"], "jacobian_actions_per_step": counts["jacobian_actions"] / nsteps,
+        "linearisations": counts["linearisations"],
         "krylov_per_reported_step": krylov, "host_syncs": counts["host_syncs"],
         "host_syncs_per_step": counts["host_syncs"] / nsteps, "mass_drift_per_step": drifts[1:],
         "mass_drift_limit": drift_tol,
@@ -2388,7 +2406,8 @@ def _sw_epi_run(torch, tag, nel, dt, nsteps, integrator, solver, linear_solver, 
     }
     if device == "cuda":
         row.update(operator_launches=counts["sw_operator"], state_launches=counts["sw_state"],
-                   tangent_launches=counts["sw_tangent"], edge_launches=counts["sw_edges"],
+                   tangent_prep_launches=counts["sw_tangent_prep"], tangent_apply_launches=counts["sw_tangent_apply"],
+                   edge_launches=counts["sw_edges"],
                    halo_launches=counts["sw_halo"], plain_calls=counts["sw_plain_calls"],
                    plain_tangent_calls=counts["sw_plain_tangent_calls"])
     return row, state
@@ -2403,7 +2422,7 @@ def phase30(torch):
     for tag, nel, dt, nsteps, integrator, solver, linear_solver, mixed in SW_EPI_RUNS:
         row, states[tag] = _sw_epi_run(torch, tag, nel, dt, nsteps, integrator, solver, linear_solver, mixed)
         if tag.startswith("a_"):
-            launches = row["tangent_launches"]
+            launches = {"sw_tangent_prep": row["tangent_prep_launches"], "sw_tangent_apply": row["tangent_apply_launches"]}
         rows.append(row)
     tag, nel, dt, nsteps, integrator, solver, linear_solver, mixed = SW_EPI_RUNS[0]
     cpu, cpu_state = _sw_epi_run(torch, tag, nel, dt, nsteps, integrator, solver, linear_solver, mixed, device="cpu")
@@ -2523,11 +2542,20 @@ def main() -> int:
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                         "library_ms": None})
     t = tangent_sw["timing"]
-    kernels.append({"name": "sw_tangent", "route": "cuda", "source": "wxfactory_tpu_torch/csrc/sw_operator.cu",
-                    "replaces": "jax.jvp of wxfactory_tpu/models/shallow_water.py:166 (no Pallas kernel)",
-                    "launches": tangent_sw_launches, "max_abs_err": tangent_sw["max_abs_err"], "ms": t["kernel_ms"],
-                    "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                    "library_ms": None})
+    for kernel in ("prep", "apply"):
+        # The apply is held to the function's bound (J.v from q and v), the
+        # prep to its own; the apply's own floor, which counts the
+        # coefficients it reads, beside it.
+        bound = ({"bound_ms": t["prep_own_bound_ms"], "bound_by": t["prep_own_bound_by"]} if kernel == "prep" else
+                 {"bound_ms": t["function_bound_ms"], "bound_by": t["function_bound_by"],
+                  "apply_floor_ms": t["apply_own_bound_ms"]})
+        kernels.append({"name": f"sw_tangent_{kernel}", "route": "cuda",
+                        "source": "wxfactory_tpu_torch/csrc/sw_operator.cu",
+                        "replaces": "jax.jvp of wxfactory_tpu/models/shallow_water.py:166 (no Pallas kernel"
+                                    + ("; its linearisation)" if kernel == "prep" else ")"),
+                        "launches": tangent_sw_launches[f"sw_tangent_{kernel}"],
+                        "max_abs_err": tangent_sw[f"{kernel}_max_abs_err"], "ms": t[f"{kernel}_kernel_ms"],
+                        "plain_ms": t[f"{kernel}_plain_ms"], **bound, "library_ms": None})
     unmeasured = [k["name"] for k in kernels if not (k["ms"] > 0 and k["plain_ms"] > 0 and k["launches"] > 0)]
     if unmeasured:
         raise AssertionError(f"kernels without a time, a plain time or a launch on the main path: {unmeasured}")

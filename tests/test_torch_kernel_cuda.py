@@ -217,18 +217,25 @@ def test_sw_state_halo_matches_halo_kernels(cuda, nel, s, dtype):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
 @pytest.mark.parametrize("nel,s", [(4, 2), (5, 3), (10, 3), (3, 5), (2, 6), (3, 8)])
 def test_sw_tangent_kernel_matches_plain(cuda, nel, s, dtype):
-    # J(q).v at case 6 and at rest (the split Mach number's tie) against
-    # torch.func.jvp of the plain operator: linearity, mass, and (f64) the
-    # centred difference's second order; one launch a call, no plain call.
+    # J(q).v of the tangent prep and apply kernels at case 6 and at rest (the
+    # split Mach number's tie) against torch.func.jvp of the plain operator,
+    # each kernel against its plain version: linearity, mass, and (f64) the
+    # centred difference's second order; one prep launch a linearisation
+    # point, one apply launch a J.v, no plain call.
     rows = compare_sw_tangent(nel, s, dtype, device="cuda")
     assert all(r["ok"] for r in rows), rows
     con, topology, states, v, _ = sw_tangent_inputs(nel, s, dtype, "cuda")
-    before = (swop.tangent_launches, swop.plain_tangent_calls)
+    counts = lambda: (swop.tangent_prep_launches, swop.tangent_apply_launches, swop.plain_calls,
+                      swop.plain_tangent_calls)
+    before = counts()
+    coef = swop.sw_tangent_prep(states["case6"], con, topology)
+    swop.sw_tangent_apply(coef, v, con, topology)
     swop.sw_tangent(states["case6"], v, con, topology)
     torch.cuda.synchronize()
-    assert (swop.tangent_launches, swop.plain_tangent_calls) == (before[0] + 1, before[1])
+    assert counts() == (before[0] + 2, before[1] + 2, before[2], before[3])
     info = sw_tangent_resources(dtype, s)
-    assert info["smem_bytes"] < 48 * 1024 and info["blocks_per_sm"] >= 1, info
+    assert info["apply"]["smem_bytes"] < 48 * 1024 and info["apply"]["blocks_per_sm"] >= 1, info
+    assert info["prep"]["blocks_per_sm"] >= 1, info
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])

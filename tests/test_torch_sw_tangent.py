@@ -23,7 +23,7 @@ variable's max of noise, a direction of 1e-3 of each variable's max).
 * The wrapper on the CPU runs the plain tangent (counted), and the
   tangent's linearity, mass and agreement with a centred difference to
   second order hold (``compare_sw_tangent``, the card's check run on the
-  CPU, where kernel and plain version are the same function).
+  CPU, where the prep and apply wrappers run their plain versions).
 """
 
 import jax
@@ -158,9 +158,10 @@ def test_f32_companion_jtv_is_the_absolute_operators_jvp():
 
 def test_wrapper_on_cpu_runs_the_counted_plain_tangent():
     con, topology, states, v, _ = check.sw_tangent_inputs(3, 3, torch.float64, "cpu")
-    calls, launches = swop.plain_tangent_calls, swop.tangent_launches
+    counts = lambda: (swop.plain_tangent_calls, swop.tangent_prep_launches, swop.tangent_apply_launches)
+    before = counts()
     swop.sw_tangent(states["case6"], v, con, topology)
-    assert (swop.plain_tangent_calls, swop.tangent_launches) == (calls + 1, launches)
+    assert counts() == (before[0] + 1, before[1], before[2])
     with pytest.raises(ValueError, match="topology"):
         swop.sw_tangent(states["case6"], v, con, None)
 

@@ -24,10 +24,16 @@ called in RHS and stage modes, absolute and perturbation; a library
 without it (a parent from before it) takes the route it replaces in its
 place, the edge and halo kernels then the operator fed their halo. The
 line's ``state_equals_route`` says whether each library's state mode
-equals its own three-launch route bit for bit. The tangent kernel
-(``sw_tangent_state_launch``, J(q).v) is held against ``sw_tangent_plain``
+equals its own three-launch route bit for bit. The Jacobian action J(q).v
+(the prep kernel ``sw_tangent_prep_launch`` then the apply kernel
+``sw_tangent_apply_launch``; in a parent from before that split, the
+one-call ``sw_tangent_state_launch``) is held against ``sw_tangent_plain``
 at the case-6 and rest points of ``kernels/check.py::sw_tangent_inputs``
-(and, where both libraries have it, the two against each other).
+(``tangent_plain_err``, and the mass of J.v against the plain one's,
+``tangent_mass_err``); the prep and the apply each against their plain
+versions on the same buffer (``tangent_split_err``); and the two
+libraries' J.v against each other (``tangent_between``, scaled, and
+``tangent_identical``, bit for bit where both have the same design).
 ``--sms`` is the SM count
 the shim reports (it sets the tile launch's elements a block).
 A design can so be checked against its
@@ -288,9 +294,49 @@ def state_call(lib, q, con, topology, x=None, a=0.0, b=1.0, cdt=None, emit_trace
     return (out, traces) if emit_traces else out
 
 
-def tangent_call(lib, q, v, con, topology, nan_fill=True):
-    """One call of the tangent kernel (``sw_tangent_state_launch``): the
-    wrapper's ``sw_tangent(q, v, ...)``."""
+def has_tangent_pair(lib) -> bool:
+    return hasattr(lib, "sw_tangent_prep_launch")
+
+
+def tangent_prep_call(lib, q, con, topology, nan_fill=True):
+    """One call of the tangent prep kernel (``sw_tangent_prep_launch``): the
+    wrapper's ``sw_tangent_prep(q, ...)``, the coefficient buffer."""
+    import torch
+
+    from wxfactory_tpu_torch.ops import sw_operator as swop
+
+    tab = swop.halo_tables(topology, q.device, q.dtype)
+    coef = _alloc((swop.sw_tangent_layout(con)["size"],), q, nan_fill)
+    rc = lib.sw_tangent_prep_launch(
+        1 if q.dtype == torch.float64 else 0, con.s, con.nel, _ptr(q), _ptr(con.ops), _ptr(con.itf_x),
+        _ptr(con.itf_y), _ptr(tab.src), _ptr(tab.flip), _ptr(tab.conv), _ptr(coef), _stream(q))
+    if rc != 0:
+        raise RuntimeError(f"sw_tangent_prep_launch returned {rc}")
+    return coef
+
+
+def tangent_apply_call(lib, coef, v, con, topology, nan_fill=True):
+    """One call of the tangent apply kernel (``sw_tangent_apply_launch``):
+    the wrapper's ``sw_tangent_apply(coef, v, ...)``."""
+    import torch
+
+    from wxfactory_tpu_torch.ops import sw_operator as swop
+
+    tab = swop.halo_tables(topology, v.device, v.dtype)
+    out = _alloc(v.shape, v, nan_fill)
+    rc = lib.sw_tangent_apply_launch(
+        1 if v.dtype == torch.float64 else 0, con.s, con.nel, _ptr(v), _ptr(coef), _ptr(con.ops), _ptr(con.fields),
+        _ptr(con.gridrot), _ptr(con.itf_x), _ptr(con.itf_y), _ptr(tab.src), _ptr(tab.flip), _ptr(tab.conv),
+        _ptr(out), _stream(v))
+    if rc != 0:
+        raise RuntimeError(f"sw_tangent_apply_launch returned {rc}")
+    return out
+
+
+def tangent_state_call(lib, q, v, con, topology, nan_fill=True):
+    """One call of a parent's one-call tangent kernel
+    (``sw_tangent_state_launch``, the sources before the prep + apply
+    split)."""
     import torch
 
     from wxfactory_tpu_torch.ops import sw_operator as swop
@@ -304,6 +350,18 @@ def tangent_call(lib, q, v, con, topology, nan_fill=True):
     if rc != 0:
         raise RuntimeError(f"sw_tangent_state_launch returned {rc}")
     return out
+
+
+def has_tangent(lib) -> bool:
+    return has_tangent_pair(lib) or hasattr(lib, "sw_tangent_state_launch")
+
+
+def tangent_call(lib, q, v, con, topology, nan_fill=True):
+    """J(q).v of a library: its prep then its apply, or, in a library from
+    before the split, its one-call kernel."""
+    if has_tangent_pair(lib):
+        return tangent_apply_call(lib, tangent_prep_call(lib, q, con, topology, nan_fill), v, con, topology, nan_fill)
+    return tangent_state_call(lib, q, v, con, topology, nan_fill)
 
 
 def halo_call(lib, traces, topology, nan_fill=True):
@@ -386,6 +444,9 @@ def check_shape(libsets: dict, nel: int, s: int, run_steps: int = 2) -> dict:
 
     cases = {}  # name -> (plain result, {tag: the library's result})
     state_route = {t: True for t in libsets}
+    # J.v: keys "tag dtype"; "identical" stays None unless both libraries
+    # have the same design.
+    tangent = {"plain": {}, "mass": {}, "split": {}, "identical": None, "between": {}}
     for dtype in (torch.float64, torch.float32):
         dname = "f64" if dtype == torch.float64 else "f32"
         con, topology, x, y = check.case6_inputs(nel, s, dtype, "cpu")
@@ -417,14 +478,38 @@ def check_shape(libsets: dict, nel: int, s: int, run_steps: int = 2) -> dict:
                         route = route_call(L["sw_operator"], sq, scon, topology, base=sbase, **skw)
                         state_route[t] = state_route[t] and torch.equal(got[t], route)
                 cases[name] = (swop.sw_operator_plain(sq, None, scon, base=sbase, topology=topology, **skw), got)
-        # The Jacobian action (a library from before it has none: only the
-        # libraries with it are held against the plain tangent).
+        # The Jacobian action (a library from before it has none): each
+        # library's J.v against the plain tangent, the prep + apply pair
+        # against the split's plain versions on the same buffer, and the
+        # two libraries' J.v against each other (bit for bit only where both
+        # have the same design).
         tcon, _, tstates, tv, _ = check.sw_tangent_inputs(nel, s, dtype, "cpu")
         for point, tq in tstates.items():
+            want = swop.sw_tangent_plain(tq, tv, tcon, topology)
             got = {t: tangent_call(L["sw_operator"], tq, tv, tcon, topology) for t, L in libsets.items()
-                   if hasattr(L["sw_operator"], "sw_tangent_state_launch")}
-            if got:
-                cases[f"{dname}_tangent_{point}"] = (swop.sw_tangent_plain(tq, tv, tcon, topology), got)
+                   if has_tangent(L["sw_operator"])}
+            for t, jv in got.items():
+                key = f"{t} {dname}"
+                tangent["plain"][key] = max(tangent["plain"].get(key, 0.0), _scaled_err(jv, want))
+                tangent["mass"][key] = max(tangent["mass"].get(key, 0.0), abs(_mass(jv, tcon) - _mass(want, tcon)))
+            for t, L in libsets.items():
+                lib = L["sw_operator"]
+                if not has_tangent_pair(lib):
+                    continue
+                coef = tangent_prep_call(lib, tq, tcon, topology)
+                plain_coef = swop.sw_tangent_prep_plain(tq, tcon, topology)
+                rows, plain_rows = check._sw_prep_rows(coef, tcon), check._sw_prep_rows(plain_coef, tcon)
+                prep = max(float((rows[k] - plain_rows[k]).abs().max() / plain_rows[k].abs().max().clamp_min(1e-300))
+                           for k in rows)
+                apply = _scaled_err(tangent_apply_call(lib, coef, tv, tcon, topology),
+                                    swop.sw_tangent_apply_plain(coef, tv, tcon, topology))
+                split = tangent["split"].setdefault(f"{t} {dname}", {"prep": 0.0, "apply": 0.0})
+                split["prep"], split["apply"] = max(split["prep"], prep), max(split["apply"], apply)
+            if len(got) == 2:
+                (ta, a), (tb, b) = got.items()
+                if has_tangent_pair(libsets[ta]["sw_operator"]) == has_tangent_pair(libsets[tb]["sw_operator"]):
+                    tangent["identical"] = tangent["identical"] is not False and torch.equal(a, b)
+                tangent["between"][dname] = max(tangent["between"].get(dname, 0.0), _scaled_err(a, b))
         cases[f"{dname}_edges"] = (swop.edge_traces(y, con),
                                    {t: edges_call(L["sw_operator"], y, con) for t, L in libsets.items()})
         # The checked tile of kernels/check.py (a 2x2 mesh of this sphere).
@@ -464,8 +549,26 @@ def check_shape(libsets: dict, nel: int, s: int, run_steps: int = 2) -> dict:
     return {"nel": nel, "s": s, "cases": len(cases), "bit_identical": identical if len(libsets) == 2 else None,
             "state_equals_route": {t: v for t, v in state_route.items() if has_state_mode(libsets[t]["sw_operator"])},
             "plain_err": plain_err,
-            "tangent_plain_err": {t: max((e for k, e in worst.items() if k.startswith(f"{t}:") and "_tangent_" in k),
-                                         default=None) for t in libsets}}
+            "tangent_plain_err": tangent["plain"], "tangent_mass_err": tangent["mass"],
+            "tangent_split_err": tangent["split"],
+            "tangent_between": tangent["between"] if len(libsets) == 2 else None,
+            "tangent_identical": tangent["identical"]}
+
+
+def _scaled_err(got, want) -> float:
+    """The largest distance of ``got`` from ``want`` scaled by each
+    variable's max of ``want``."""
+    return float(((got - want).abs().reshape(3, -1).amax(1) / want.abs().reshape(3, -1).amax(1)).max())
+
+
+def _mass(jv, con) -> float:
+    """The weighted integral of J.v's h row over the absolute one's: the
+    mass a Jacobian action moves, relative."""
+    from wxfactory_tpu_torch.kernels import check
+
+    wsg = check.sw_mass_weights(check.sw_setup(con.nel, con.s)[1], con)
+    h = jv[0].double()
+    return float((wsg * h).sum() / (wsg * h).abs().sum())
 
 
 def main(argv=None) -> int:
@@ -490,7 +593,8 @@ def main(argv=None) -> int:
         nel, s = (int(v) for v in shape.split(","))
         row = check_shape(libsets, nel, s)
         print(json.dumps(row), flush=True)
-        ok = ok and row["bit_identical"] is not False and all(row["state_equals_route"].values())
+        ok = (ok and row["bit_identical"] is not False and row["tangent_identical"] is not False
+              and all(row["state_equals_route"].values()))
     return 0 if ok else 1
 
 

@@ -14,6 +14,7 @@ given a compile-time trip count, moved ahead of the pointwise fluxes, or
 both (scheduling only: the same bits).
 
     python tools/sw_operator_ablation.py [--source DIR] [--parent PREFIX] [--no-ablations] [--no-bitwise]
+                                         [--groups state,whole,tile,run,tangent] [--jv-per-solve N]
 
 On the machine with the card, from the root of a copy of the checkout; a
 copy without the git history needs the parent's sources written first, on
@@ -56,6 +57,16 @@ and resident blocks an SM of every operator instantiation (s = 2..8,
 float32/float64, absolute/perturbation) and of the run kernel, one line of
 the bitwise check, then one line per mode, and the card's name and power
 limit. An ablated kernel computes garbage: only its time is read.
+
+The tangent group times the Jacobian action's prep and apply kernels (and
+the apply built for 3 resident blocks an SM, ``apply_min_blocks_3``, with
+its face loop skipped, ``apply_no_face_loop``, and with its own direction
+trace in place of the neighbour's, ``apply_no_neighbour_reads``, and with
+every face point reading its family's first coefficients, ``apply_coef_l1``) in
+turns with the parent's one-call kernel at chip_smoke.py's
+TANGENT_TIMED shapes, float64 and float32, with each one's per-solve time
+(prep + N applies against N one-call launches, N = ``--jv-per-solve``);
+the resources line reports the tangent kernels of both sources.
 """
 
 import argparse
@@ -76,9 +87,13 @@ from sw_host_shim import (  # noqa: E402
     edges_call,
     halo_call,
     has_state_mode,
+    has_tangent_pair,
     operator_call,
     run_call,
     state_or_route,
+    tangent_apply_call,
+    tangent_prep_call,
+    tangent_state_call,
 )
 
 OUT = ROOT / "build" / "sw_operator_ablation"
@@ -158,7 +173,8 @@ def _eb_max(files: dict) -> dict:
     # The operator launch at its largest block whatever its element count.
     return dict(files, **{"sw_operator.cu": _sub(files["sw_operator.cu"],
                                                  r"const int eb = elements_per_block\(nelem, Sh::EB, sms\);",
-                                                 "const int eb = Sh::EB; (void)sms;", "elements-per-block choice")})
+                                                 "const int eb = Sh::EB; (void)sms;", "elements-per-block choice",
+                                                 count=1)})
 
 
 def _eb_half(files: dict) -> dict:
@@ -166,7 +182,7 @@ def _eb_half(files: dict) -> dict:
     return dict(files, **{"sw_operator.cu": _sub(files["sw_operator.cu"],
                                                  r"elements_per_block\(nelem, Sh::EB, sms\)",
                                                  "elements_per_block(nelem, Sh::EB, 2 * sms)",
-                                                 "elements-per-block choice")})
+                                                 "elements-per-block choice", count=1)})
 
 
 def _min_blocks(files: dict) -> dict:
@@ -202,8 +218,51 @@ def _face_loop_first(files: dict) -> dict:
     return dict(files, **{ELEMENT: src[:p0] + src[f0:f1] + "\n" + src[p0:f0] + src[f1:]})
 
 
+def _apply_min_blocks(files: dict) -> dict:
+    # The tangent apply kernel compiled for 3 resident blocks an SM (80
+    # registers a thread at 256 threads).
+    return dict(files, **{"sw_operator.cu": _sub(files["sw_operator.cu"],
+                                                 r"__launch_bounds__\(swk::kThreads\) sw_tangent_apply_kernel",
+                                                 "__launch_bounds__(swk::kThreads, 3) sw_tangent_apply_kernel",
+                                                 "tangent apply kernel's launch bounds")})
+
+
+def _apply_no_face_loop(files: dict) -> dict:
+    # The tangent apply's face loop skipped (no flux tangent computed).
+    return dict(files, **{"sw_operator.cu": _sub(files["sw_operator.cu"], r"it < n_items; it \+= blockDim\.x\)",
+                                                 "it < 0; it += blockDim.x)", "tangent apply's face loop")})
+
+
+def _apply_no_neighbour_reads(files: dict) -> dict:
+    # The tangent apply's neighbour direction traces (re-extrapolated from v
+    # in device memory, or the halo at a panel edge) replaced by its own.
+    src = _sub(files["sw_operator.cu"], r"    if \(at_edge\) \{\n      swk::state_halo_point<T, S>\(A\.v, ",
+               "    if (false) {\n      swk::state_halo_point<T, S>(A.v, ", "tangent apply's halo branch")
+    src = _sub(src, r"swk::face_trace<T, S>\(A\.v \+ v \* nq \+ \(long long\)nb_elem \* S2, sExt \+ nb_side \* S, "
+                    r"nb_side, k\)", "swk::face_trace<T, S>(sVe + v * S2, sExt + side * S, side, k)",
+               "tangent apply's neighbour re-extrapolation")
+    return dict(files, **{"sw_operator.cu": src})
+
+
+def _apply_coef_l1(files: dict) -> dict:
+    # Every face point of the tangent apply reads the coefficients of its
+    # family's first interface points (lines that stay in L1): what the
+    # interface coefficients' device-memory traffic costs.
+    return dict(files, **{"sw_operator.cu": _sub(files["sw_operator.cu"],
+                                                 r"const T\* src = A\.coef \+ lay\.face\(is_x\) \+ cidx;",
+                                                 "const T* src = A.coef + lay.face(is_x) + k; (void)cidx;",
+                                                 "tangent apply's coefficient read")})
+
+
+# Variants of the tangent pair, timed in the tangent group only.
+TANGENT_VARIANTS = ("apply_min_blocks_3", "apply_no_face_loop", "apply_no_neighbour_reads", "apply_coef_l1")
+
 VARIANTS = {
     "as_built": lambda f: f,
+    "apply_min_blocks_3": _apply_min_blocks,
+    "apply_no_face_loop": _apply_no_face_loop,
+    "apply_no_neighbour_reads": _apply_no_neighbour_reads,
+    "apply_coef_l1": _apply_coef_l1,
     "no_face_loop": _no_face_loop,
     "no_neighbour_reads": _no_neighbour_reads,
     "sparse_products": _sparse_products,
@@ -285,15 +344,18 @@ def _read(prefix: str) -> dict:
     return {name: ((base / name) if base.is_dir() else Path(prefix + name)).read_text() for name in FILES}
 
 
-def build_variants(source: str, parent=None, ablations: bool = True):
+def build_variants(source: str, parent=None, ablations: bool = True, only=None):
     """{name: {"sw_operator", "sw_run": ctypes library}} of the source's
-    variants (and the parent's), every nvcc process started together;
-    {name: nvcc log}; and {name: why left out}."""
+    variants (all, none with ``ablations`` False, or the names in ``only``)
+    and the parent's, every nvcc process started together; {name: nvcc
+    log}; and {name: why left out}."""
     from wxfactory_tpu_torch.kernels import build
 
     files = _read(source)
     sets, skipped = {}, {}
     variants = dict(VARIANTS) if ablations else {"as_built": VARIANTS["as_built"]}
+    if only is not None:
+        variants = {n: f for n, f in variants.items() if n == "as_built" or n in only}
     for name, edit in variants.items():
         try:
             edited = edit(files)
@@ -327,6 +389,9 @@ def build_variants(source: str, parent=None, ablations: bool = True):
         for fn, (restype, argtypes) in build.SIGNATURES[lib].items():
             if hasattr(handle, fn):
                 getattr(handle, fn).restype, getattr(handle, fn).argtypes = restype, argtypes
+        if lib == "sw_operator" and not has_tangent_pair(handle) and hasattr(handle, "sw_tangent_resources"):
+            # The one-call kernel's report (a parent from before the split): is_f64, s, int[5] out.
+            handle.sw_tangent_resources.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         libs.setdefault(name, {})[lib] = handle
     return libs, logs, skipped
 
@@ -350,6 +415,21 @@ def resources(libset):
                 vals = dict(zip(keys, info))
                 rows.append({"kernel": kernel, "dtype": "float64" if f64 else "float32",
                              "form": "perturbation" if pert else "absolute", "s": s, **vals,
+                             "threads_per_sm": vals["blocks_per_sm"] * vals["threads"]})
+        lib = libset["sw_operator"]
+        pair = has_tangent_pair(lib)
+        if not pair and not hasattr(lib, "sw_tangent_resources"):
+            continue
+        for s in range(2, 9):
+            for kernel in ((0, 1) if pair else (None,)):
+                info = (ctypes.c_int * 5)()
+                ptr = ctypes.cast(info, ctypes.c_void_p)
+                rc = lib.sw_tangent_resources(f64, s, kernel, ptr) if pair else lib.sw_tangent_resources(f64, s, ptr)
+                if rc != 0:
+                    raise RuntimeError(f"tangent resources failed: CUDA error {rc}")
+                vals = dict(zip(keys, info))
+                rows.append({"kernel": ("tangent_prep", "tangent_apply")[kernel] if pair else "tangent_one_call",
+                             "dtype": "float64" if f64 else "float32", "form": "absolute", "s": s, **vals,
                              "threads_per_sm": vals["blocks_per_sm"] * vals["threads"]})
     return rows
 
@@ -473,12 +553,67 @@ def state_group(torch, libs):
     return rows
 
 
+def tangent_group(torch, libs, n_jv: int):
+    """The tangent pair against the parent's one-call kernel, in turns, at
+    chip_smoke.py's timed tangent shapes: rows of {"mode", "ms": {variant:
+    [card ms]}, "per_solve_ms"}. Variants: ``prep`` and ``apply`` of the
+    source (and the apply of each TANGENT_VARIANTS build), and with a
+    parent ``parent_one_call`` (its J.v in one launch), or
+    ``parent_prep`` and ``parent_apply`` where the parent has the pair.
+    ``per_solve_ms``: one Krylov solve of ``n_jv`` Jacobian actions at one
+    linearisation point, prep + n_jv x apply against the parent's (the
+    medians of the turns)."""
+    import statistics
+
+    import chip_smoke
+    from chip_smoke import _device_ms
+    from wxfactory_tpu_torch.kernels import check
+
+    rows = []
+    for nel, s in chip_smoke.TANGENT_TIMED:
+        for dtype in (torch.float64, torch.float32):
+            con, topology, states, v, _ = check.sw_tangent_inputs(nel, s, dtype, "cuda")
+            q = states["case6"]
+            new = libs["as_built"]["sw_operator"]
+            coef = tangent_prep_call(new, q, con, topology, nan_fill=False)
+            variants = {"prep": lambda: tangent_prep_call(new, q, con, topology, nan_fill=False),
+                        "apply": lambda: tangent_apply_call(new, coef, v, con, topology, nan_fill=False)}
+            for name in TANGENT_VARIANTS:
+                if name in libs:
+                    lib = libs[name]["sw_operator"]
+                    variants[name] = lambda lib=lib: tangent_apply_call(lib, coef, v, con, topology, nan_fill=False)
+            if "parent" in libs:
+                old = libs["parent"]["sw_operator"]
+                if has_tangent_pair(old):
+                    old_coef = tangent_prep_call(old, q, con, topology, nan_fill=False)
+                    variants["parent_prep"] = lambda: tangent_prep_call(old, q, con, topology, nan_fill=False)
+                    variants["parent_apply"] = lambda: tangent_apply_call(old, old_coef, v, con, topology,
+                                                                          nan_fill=False)
+                else:
+                    variants["parent_one_call"] = lambda: tangent_state_call(old, q, v, con, topology, nan_fill=False)
+            for fn in variants.values():
+                fn()
+            torch.cuda.synchronize()
+            names = list(variants)
+            ms = {n: [] for n in names}
+            for n in names + names[::-1]:
+                ms[n].append(_device_ms(torch, variants[n], 20))
+            med = {n: statistics.median(t) for n, t in ms.items()}
+            per_solve = {"n_jv": n_jv, "pair": med["prep"] + n_jv * med["apply"]}
+            if "parent_one_call" in med:
+                per_solve["parent"] = n_jv * med["parent_one_call"]
+            elif "parent_prep" in med:
+                per_solve["parent"] = med["parent_prep"] + n_jv * med["parent_apply"]
+            rows.append({"mode": f"({nel},{s}) {_dname(dtype)} case6", "ms": ms, "per_solve_ms": per_solve})
+    return rows
+
+
 def time_modes(torch, libs, modes, slow=False):
     from chip_smoke import _device_ms
 
     rows = []
     for mode, ablate, call in modes:
-        names = [n for n in libs if ablate or n in ("as_built", "parent")]
+        names = [n for n in libs if (ablate and n not in TANGENT_VARIANTS) or n in ("as_built", "parent")]
         calls = {n: (lambda n=n: call(libs[n])) for n in names}
         for fn in calls.values():
             fn()
@@ -566,7 +701,13 @@ def main(argv=None) -> int:
                         "files, built and timed as it is in turns with the source's")
     parser.add_argument("--no-ablations", action="store_true", help="build and time the source as it is only")
     parser.add_argument("--no-bitwise", action="store_true", help="skip the bit-for-bit check against the parent")
+    parser.add_argument("--variants", default=None, help="comma-separated ablations to build (default: all)")
+    parser.add_argument("--groups", default="state,whole,tile,run,tangent",
+                        help="timed groups, of: state, whole, tile, run, tangent")
+    parser.add_argument("--jv-per-solve", type=int, default=48,
+                        help="Jacobian actions a linearisation point for the tangent group's per-solve time")
     args = parser.parse_args(argv)
+    groups = set(args.groups.split(","))
 
     import torch
 
@@ -577,9 +718,11 @@ def main(argv=None) -> int:
 
     smi = chip_smoke.nvidia_smi()
     t0 = time.perf_counter()
-    libs, logs, skipped = build_variants(args.source, args.parent, not args.no_ablations)
-    ptxas = {name: [r for r in chip_smoke.ptxas_summary(log) if r["kernel"].startswith(("sw_operator", "sw_run"))]
-             for name, log in logs.items() if name in ("as_built", "parent")}
+    only = set(args.variants.split(",")) if args.variants else None
+    libs, logs, skipped = build_variants(args.source, args.parent, not args.no_ablations, only)
+    ptxas = {name: [r for r in chip_smoke.ptxas_summary(log)
+                    if r["kernel"].startswith(("sw_operator", "sw_run", "sw_tangent"))]
+             for name, log in logs.items() if name in ("as_built", "parent") or name in TANGENT_VARIANTS}
     print(json.dumps({"source": args.source, "parent": args.parent, "build_s": time.perf_counter() - t0, "gpu": smi,
                       "built": list(libs), "skipped": skipped, "ptxas": ptxas,
                       "resources": {name: resources(libs[name]) for name in ("as_built", "parent") if name in libs}}),
@@ -587,14 +730,20 @@ def main(argv=None) -> int:
     if args.parent is not None and not args.no_bitwise:
         print(json.dumps({"bitwise_against_parent": bitwise(torch, libs), "gpu": smi}), flush=True)
     timing = "the card's time a call: calls queued behind a sleep kernel between two CUDA events, two turns a variant"
-    print(json.dumps({"group": "state mode", "gpu": smi, "timing": timing + "; event_ms: median of 20 single calls "
-                      "between two CUDA events (the host's launches included)", "results": state_group(torch, libs)}),
-          flush=True)
-    for group, modes, slow in (("whole sphere", whole_sphere_modes(torch), False),
-                               ("tile", tile_modes(torch, 32) + tile_modes(torch, 64), False),
-                               ("run", run_modes(torch), True)):
+    if "tangent" in groups:
+        print(json.dumps({"group": "tangent", "gpu": smi, "timing": timing,
+                          "results": tangent_group(torch, libs, args.jv_per_solve)}), flush=True)
+    if "state" in groups:
+        print(json.dumps({"group": "state mode", "gpu": smi, "timing": timing + "; event_ms: median of 20 single "
+                          "calls between two CUDA events (the host's launches included)",
+                          "results": state_group(torch, libs)}), flush=True)
+    for key, group, modes, slow in (("whole", "whole sphere", lambda: whole_sphere_modes(torch), False),
+                                    ("tile", "tile", lambda: tile_modes(torch, 32) + tile_modes(torch, 64), False),
+                                    ("run", "run", lambda: run_modes(torch), True)):
+        if key not in groups:
+            continue
         print(json.dumps({"group": group, "gpu": smi, "timing": timing,
-                          "results": time_modes(torch, libs, modes, slow)}), flush=True)
+                          "results": time_modes(torch, libs, modes(), slow)}), flush=True)
         torch.cuda.empty_cache()
     print(smi, flush=True)
     return 0

@@ -1,6 +1,7 @@
 // Device code shared by the shallow-water kernels (csrc/sw_operator.cu and
 // csrc/sw_run.cu): the element-block body of the DFR operator in its absolute
-// and perturbation forms, the AUSM flux's tangent (the tangent kernel's), the
+// and perturbation forms, the AUSM flux's tangent split into its primal
+// coefficients and their linear action (the tangent kernels'), the
 // panel-edge traces of a state and the halo exchange of traces. Every kernel
 // that computes one of these functions calls the same device function, with
 // each sum and each fused multiply-add written out in a fixed order, so the
@@ -153,37 +154,64 @@ __device__ __forceinline__ void ausm_delta(const T* L0, const T* R0, const T* dL
   F[2] += (is_x ? mho : mhd) * dpres;
 }
 
-// Directional derivative of `ausm` at (L, R) in the direction (dL, dR): the
-// flux's tangent as jax.jvp takes it of the XLA RHS (models/shallow_water.py:
-// 130-160 of the JAX package): d sqrt(x) = dx * 0.5 / sqrt(x); the guarded
-// divisions' derivative 0 where tmp == 0 (the branch jnp.where picks); the
-// split Mach terms' d max(0, M) and d min(0, M) all of dM on their side of
-// 0, none on the other, and half of it at the tie M = 0 (where jax.jvp of
-// jnp.maximum/jnp.minimum splits it, and where every interface of a state at
-// rest sits); the pressure terms by the product rule. The primal values are
-// computed as `ausm` computes them.
+// The AUSM flux's tangent split in two (the tangent prep and apply kernels
+// of csrc/sw_operator.cu). ausm_tangent_coefficients computes, once per
+// linearisation point, every primal quantity of the flux's directional
+// derivative that costs a square root, a division or a trace of q, as `ausm`
+// computes them: c = [L (3) | R (3) | aL, aR | 1/(hL aL), 1/(hR aR) (0 where
+// h a == 0, the divide guard) | mL, mR | M], the rows of ops/sw_operator.py::
+// SW_TANGENT_FACE_ROWS. ausm_tangent_apply is the derivative at those
+// coefficients in the direction (dL, dR), linear in it (no square root, no
+// division): the flux's tangent as jax.jvp takes it of the XLA RHS
+// (models/shallow_water.py:130-160 of the JAX package): d sqrt(x) = dx * 0.5
+// / sqrt(x), with 1/a = h * (1/(h a)); the guarded divisions' derivative 0
+// where h a == 0 (the branch jnp.where picks); the split Mach terms' d max(0,
+// M) and d min(0, M) all of dM on their side of 0, none on the other, and
+// half of it at the tie M = 0 (where jax.jvp of jnp.maximum/jnp.minimum
+// splits it, and where every interface of a state at rest sits); the
+// pressure terms by the product rule.
+constexpr int kTangentFaceRows = 13;
+
 template <typename T>
-__device__ __forceinline__ void ausm_tangent(const T* L, const T* R, const T* dL, const T* dR, T msg, T mhd, T mho,
-                                             bool is_x, T* dF) {
+__device__ __forceinline__ void ausm_tangent_coefficients(const T* L, const T* R, T mhd, bool is_x, T* c) {
   const T g = T(kGravity);
-  const T half_g = T(0.5 * kGravity);
   const T hL = L[0], hR = R[0];
-  const T dhL = dL[0], dhR = dR[0];
   const T aL = sqrt_rn(g * hL * mhd);
   const T aR = sqrt_rn(g * hR * mhd);
-  const T daL = (g * dhL * mhd) * (T(0.5) / aL);
-  const T daR = (g * dhR * mhd) * (T(0.5) / aR);
   const T qnL = is_x ? L[1] : L[2];
   const T qnR = is_x ? R[1] : R[2];
-  const T dqnL = is_x ? dL[1] : dL[2];
-  const T dqnR = is_x ? dR[1] : dR[2];
   const T tmpL = hL * aL;
   const T tmpR = hR * aR;
   const T mL = tmpL != T(0) ? qnL / tmpL : T(0);
   const T mR = tmpR != T(0) ? qnR / tmpR : T(0);
-  const T dmL = tmpL != T(0) ? (dqnL - mL * (dhL * aL + hL * daL)) / tmpL : T(0);
-  const T dmR = tmpR != T(0) ? (dqnR - mR * (dhR * aR + hR * daR)) / tmpR : T(0);
-  const T big_m = T(0.25) * ((mL + T(1)) * (mL + T(1)) - (mR - T(1)) * (mR - T(1)));
+#pragma unroll
+  for (int v = 0; v < 3; ++v) {
+    c[v] = L[v];
+    c[3 + v] = R[v];
+  }
+  c[6] = aL;
+  c[7] = aR;
+  c[8] = tmpL != T(0) ? T(1) / tmpL : T(0);
+  c[9] = tmpR != T(0) ? T(1) / tmpR : T(0);
+  c[10] = mL;
+  c[11] = mR;
+  c[12] = T(0.25) * ((mL + T(1)) * (mL + T(1)) - (mR - T(1)) * (mR - T(1)));
+}
+
+template <typename T>
+__device__ __forceinline__ void ausm_tangent_apply(const T* c, const T* dL, const T* dR, T msg, T mhd, T mho,
+                                                   bool is_x, T* dF) {
+  const T g = T(kGravity);
+  const T half_g = T(0.5 * kGravity);
+  const T hL = c[0], hR = c[3];
+  const T aL = c[6], aR = c[7], ihaL = c[8], ihaR = c[9], mL = c[10], mR = c[11], big_m = c[12];
+  const T dhL = dL[0], dhR = dR[0];
+  const T daL = (g * dhL * mhd) * (T(0.5) * (hL * ihaL));
+  const T daR = (g * dhR * mhd) * (T(0.5) * (hR * ihaR));
+  const T dqnL = is_x ? dL[1] : dL[2];
+  const T dqnR = is_x ? dR[1] : dR[2];
+  const T dmL = (dqnL - mL * (dhL * aL + hL * daL)) * ihaL;
+  const T dmR = (dqnR - mR * (dhR * aR + hR * daR)) * ihaR;
   const T dM = T(0.5) * ((mL + T(1)) * dmL - (mR - T(1)) * dmR);
   const T P = big_m > T(0) ? big_m : T(0);
   const T N = big_m < T(0) ? big_m : T(0);
@@ -193,10 +221,11 @@ __device__ __forceinline__ void ausm_tangent(const T* L, const T* R, const T* dL
   const T dadv_l = dP * aL + P * daL;
   const T dadv_r = dN * aR + N * daR;
 #pragma unroll
-  for (int v = 0; v < 3; ++v) dF[v] = msg * ((dadv_l * L[v] + adv_l * dL[v]) + (dadv_r * R[v] + adv_r * dR[v]));
-  const T c = msg * half_g;
-  const T dpres_l = c * (dmL * (hL * hL) + (T(1) + mL) * (T(2) * hL * dhL));
-  const T dpres_r = c * ((T(1) - mR) * (T(2) * hR * dhR) - dmR * (hR * hR));
+  for (int v = 0; v < 3; ++v)
+    dF[v] = msg * ((dadv_l * c[v] + adv_l * dL[v]) + (dadv_r * c[3 + v] + adv_r * dR[v]));
+  const T k = msg * half_g;
+  const T dpres_l = k * (dmL * (hL * hL) + (T(1) + mL) * (T(2) * hL * dhL));
+  const T dpres_r = k * ((T(1) - mR) * (T(2) * hR * dhR) - dmR * (hR * hR));
   const T dpres_diag = T(0.5) * (mhd * dpres_l + mhd * dpres_r);
   const T dpres_off = T(0.5) * (mho * dpres_l + mho * dpres_r);
   dF[1] += is_x ? dpres_diag : dpres_off;

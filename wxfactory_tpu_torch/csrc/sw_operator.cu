@@ -37,14 +37,24 @@
 // standalone counterparts of the state mode's panel-edge faces, which call
 // the same device functions (swk::edge_trace, swk::rotate_halo).
 //
-// sw_tangent_kernel has no TPU counterpart: the JAX package computes the
-// Jacobian action J(q).v of its shallow-water RHS as jax.jvp of XLA
-// (integrators/epi.py:126-128 there; its float32 companion's, of the absolute
-// float32 operator, :197-200). It computes J(q).v of the absolute operator
-// in one launch, whole sphere, the halos of q and v both taken from the
-// state as the state mode takes q's (C entry sw_tangent_state_launch; plain
-// version ops/sw_operator.py::sw_tangent_plain, torch.func.jvp of the plain
-// operator; wrapper sw_tangent). Its flux tangent is swk::ausm_tangent.
+// sw_tangent_prep_kernel and sw_tangent_apply_kernel have no TPU
+// counterpart: the JAX package computes the Jacobian action J(q).v of its
+// shallow-water RHS as jax.jvp of XLA (integrators/epi.py:126-128 there; its
+// float32 companion's, of the absolute float32 operator, :197-200). They
+// compute J(q).v of the absolute operator, whole sphere, the panel-edge
+// values of q and v both taken from the state as the state mode takes q's,
+// in two launches because q is fixed for a whole Krylov solve: the prep
+// (C entry sw_tangent_prep_launch) once per linearisation point writes every
+// primal quantity of the action that costs a square root, a division or a
+// trace of q into a coefficient buffer (per node h, u1, u2; per interface
+// point, once for both sides, the two traces and the AUSM flux's primal
+// coefficients, swk::ausm_tangent_coefficients); the apply
+// (sw_tangent_apply_launch) once per direction reads v and the buffer and is
+// linear in v (swk::ausm_tangent_apply). Plain versions: ops/sw_operator.py::
+// sw_tangent_prep_plain and sw_tangent_apply_plain (the split in torch), and
+// sw_tangent_plain (torch.func.jvp of the plain operator, the function);
+// wrappers sw_tangent_prep, sw_tangent_apply and sw_tangent (the two in one
+// call).
 //
 // Layouts: csrc/sw_element.cuh.
 //
@@ -59,7 +69,7 @@
 // rhs0 and the faces' base traces and halo), so the shared memory of a block
 // does not grow.
 //
-// What bounds it (H100 SXM, s=3, float64, per element and call): about
+// What bounds the operator (s=3, float64, per element and call): about
 // 0.7-0.9 KB of device-memory traffic (state 216 B in and 216 B out, x 216 B
 // in stage mode, gridrot 72 B; the single-panel metric, 13 fields, and the
 // neighbours' rows mostly hit L2) against about 1.3 kFLOP (the s-term
@@ -69,12 +79,30 @@
 // (two or three barriers a block, the face loop's dependent loads, square
 // roots and divides) sets the time: skipping the face loop takes 47 % off
 // the (64,3) float64 RHS, reading the neighbours' rows 9 %, the metric 11 %
-// (tools/sw_operator_ablation.py). The perturbation form reads 14 base
+// (tools/sw_operator_ablation.py on an NVIDIA H100 80GB HBM3 at its 700 W
+// power limit). The perturbation form reads 14 base
 // planes more (about 2.3x the state's bytes) and does about twice the face
 // work. The halo and edge kernels move a few hundred KB and are bound by
 // their launch; the state mode's panel-edge faces read 3s words more each
 // (4 nel of nel^2 elements a panel, the neighbour rows an L2 hit as the
 // interior ones are) and write no traces.
+//
+// What bounds the tangent pair (NVIDIA H100 80GB HBM3, 700 W power limit;
+// tools/sw_operator_ablation.py, in turns with the one-call J.v kernel the
+// pair replaced, which recomputed every face's square roots and divisions
+// and re-read q's neighbour traces on every J.v). At (64,3) float64 the
+// apply takes 0.0235-0.0241 ms (the one-call kernel 0.0353-0.0355), against
+// the function's bytes bound 0.0066 ms and its own floor 0.0113 (37.9 MB:
+// the buffer is 3 words a node and 13 an interface point, each interface
+// read from both sides); half of it is the face loop (0.0116 without it),
+// of which the neighbours' direction traces are 0.0027 and the coefficient
+// reads 0.0020: latency and issue rather than bytes. 78-80 registers and 3
+// blocks of 256 threads an SM in float64 at s <= 6 (a cap for 3 blocks
+// gains nothing). The prep, once a linearisation point, takes 0.0119-0.0125
+// ms (its own floor 0.0079). At (10,3) both are latency: 0.0050-0.0052 and
+// 0.0060-0.0063 ms, 150 blocks of 64 threads. Computing each x interface
+// inside a block once for both of its elements measured slower (0.0300 ms
+// at (64,3) float64: 94-108 registers, 2 blocks an SM).
 
 #include <cuda_runtime.h>
 
@@ -148,24 +176,26 @@ __global__ void __launch_bounds__(swk::kThreads) sw_halo_kernel(const T* __restr
 
 // ---------------------------------------------------------------------------
 // The Jacobian action J(q).v of the absolute operator (whole sphere, halos
-// from the state), its own body rather than a mode of element_block, so the
-// operator's instantiations keep their code. Shared memory (in T): the 1D
-// factors, then per element [q (3 s^2) | v (3 s^2) | dfx, dfy (6 s^2) |
-// face flux tangents (3 * 4s)].
-template <int S>
-struct TangentShape {
-  static constexpr int S2 = S * S;
-  static constexpr int NF = 4 * S;
-  static constexpr int N_FAC = Shape<S>::N_FAC;
-  static constexpr int PER_ELEM = 12 * S2 + 3 * NF;
-  static constexpr int EB = swk::kThreads / S2 > 0 ? swk::kThreads / S2 : 1;
-  static size_t smem_bytes(size_t item, int eb) { return item * (N_FAC + (size_t)eb * PER_ELEM); }
-};
-
+// from the state), split in two kernels because q is fixed for a whole
+// Krylov solve and v changes every iteration: the prep once per
+// linearisation point writes the coefficient buffer, the apply once per
+// direction reads it and is linear in v. Their own bodies rather than modes
+// of element_block, so the operator's instantiations keep their code.
+//
+// The coefficient buffer (ops/sw_operator.py::sw_tangent_layout), rows in
+// the order of SW_TANGENT_NODE_ROWS and SW_TANGENT_FACE_ROWS there:
+//   node    (3, 6*nel*nel, s^2)        h, u1 = hu1/h, u2 = hu2/h
+//   face_x  (13, 6, nel, nel+1, s)     per x1 interface point of each panel
+//   face_y  (13, 6, nel+1, nel, s)     per x2 interface point of each panel
+// An interface is m = 0..nel along its row (x) or column (y) of a panel, as
+// in the interface metric (itf_x, itf_y, with a panel index in front): L is
+// element m-1's east (north) face, R element m's west (south) face, and the
+// panel-edge interfaces m = 0 (L) and m = nel (R) take the halo.
 template <typename T>
 struct TangentArgs {
-  const T* q;  // the linearisation point
-  const T* v;  // the direction
+  const T* q;     // prep: the linearisation point
+  const T* v;     // apply: the direction
+  const T* coef;  // apply: the prep's buffer
   const T* ops;
   const T* fields;
   const T* gridrot;
@@ -174,23 +204,121 @@ struct TangentArgs {
   const int* hsrc;
   const int* hflip;
   const T* hconv;
-  T* out;
+  T* out;  // prep: the buffer; apply: J.v
   int nel;
 };
 
-// One thread a node, eb elements a block, as the operator: the pointwise
-// fluxes' and forcing's tangents by the product rule at each node; at each
-// of the element's faces the own traces of q and v (face_trace of the
-// element's nodes in shared memory) and the neighbour's (face_trace of its
-// nodes in global memory, the same function and fma order its own face
-// uses; at a panel edge state_halo_point, for q and for v alike, since the
-// halo is linear), ordered (L, R) as the operator orders them, into one
-// ausm_tangent call, so both sides of an interface get the same bits and
-// J.v conserves mass to round-off; then the divergence and the correction
-// in the operator's order.
+// Offsets of the buffer's parts, in T: a node row is nq long, a face row of
+// either family nx.
+struct TangentLayout {
+  long long nq, nx;
+  __host__ __device__ TangentLayout(int nel, int s)
+      : nq(6LL * nel * nel * s * s), nx(6LL * nel * (nel + 1) * s) {}
+  __host__ __device__ long long face(bool is_x) const { return 3 * nq + (is_x ? 0 : swk::kTangentFaceRows * nx); }
+  __host__ __device__ long long size() const { return 3 * nq + 2 * swk::kTangentFaceRows * nx; }
+};
+
+// One thread an item: a node (its three node rows) or an interface point
+// (both traces of q, then ausm_tangent_coefficients). Each trace of q is
+// face_trace of its element's nodes in global memory, the function and fma
+// order the operator uses for an element's own face and for its neighbour's
+// re-extrapolation; a panel-edge interface takes its halo value from
+// state_halo_point, as the operator's state mode does.
 template <typename T, int S>
-__global__ void __launch_bounds__(swk::kThreads) sw_tangent_kernel(TangentArgs<T> A, int eb) {
-  using Sh = TangentShape<S>;
+__global__ void __launch_bounds__(swk::kThreads) sw_tangent_prep_kernel(TangentArgs<T> A) {
+  constexpr int S2 = S * S;
+  __shared__ T fac[Shape<S>::N_FAC];
+  swk::load_factors<T, S>(A.ops, fac);
+  __syncthreads();
+  const int nel = A.nel;
+  const TangentLayout lay(nel, S);
+  const long long nq = lay.nq, nx = lay.nx;
+  const long long total = nq + 2 * nx;
+  for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x; t < total;
+       t += (long long)gridDim.x * blockDim.x) {
+    if (t < nq) {
+      const T h = A.q[t], hu1 = A.q[nq + t], hu2 = A.q[2 * nq + t];
+      A.out[t] = h;
+      A.out[nq + t] = hu1 / h;
+      A.out[2 * nq + t] = hu2 / h;
+      continue;
+    }
+    const bool is_x = t < nq + nx;
+    const long long i = is_x ? t - nq : t - nq - nx;
+    const int k = (int)(i % S);
+    long long r = i / S;
+    int p, m, along, iidx;
+    // Elements left and right of the interface, their faces, and the halo
+    // rows of the panel-edge interfaces.
+    long long el_l, el_r;
+    int f_l, f_r, hrow_l, hrow_r;
+    if (is_x) {
+      m = (int)(r % (nel + 1));
+      r /= nel + 1;
+      along = (int)(r % nel);  // ey
+      p = (int)(r / nel);
+      const long long row0 = ((long long)p * nel + along) * nel;
+      el_l = row0 + m - 1;
+      el_r = row0 + m;
+      f_l = 1;
+      f_r = 0;
+      hrow_l = 2 * 6 + p;  // west
+      hrow_r = 3 * 6 + p;  // east
+      iidx = (along * (nel + 1) + m) * S + k;
+    } else {
+      along = (int)(r % nel);  // ex
+      r /= nel;
+      m = (int)(r % (nel + 1));
+      p = (int)(r / (nel + 1));
+      el_l = ((long long)p * nel + m - 1) * nel + along;
+      el_r = ((long long)p * nel + m) * nel + along;
+      f_l = 3;
+      f_r = 2;
+      hrow_l = 0 * 6 + p;  // south
+      hrow_r = 1 * 6 + p;  // north
+      iidx = (m * nel + along) * S + k;
+    }
+    T L[3], R[3], c[swk::kTangentFaceRows];
+    if (m == 0) {
+      swk::state_halo_point<T, S>(A.q, fac, A.hsrc, A.hflip, A.hconv, nel, hrow_l, along * S + k, L);
+    } else {
+#pragma unroll
+      for (int v = 0; v < 3; ++v) L[v] = swk::face_trace<T, S>(A.q + v * nq + el_l * S2, fac + f_l * S, f_l, k);
+    }
+    if (m == nel) {
+      swk::state_halo_point<T, S>(A.q, fac, A.hsrc, A.hflip, A.hconv, nel, hrow_r, along * S + k, R);
+    } else {
+#pragma unroll
+      for (int v = 0; v < 3; ++v) R[v] = swk::face_trace<T, S>(A.q + v * nq + el_r * S2, fac + f_r * S, f_r, k);
+    }
+    const T* itf = is_x ? A.itf_x : A.itf_y;
+    const int istride = nel * (nel + 1) * S;
+    swk::ausm_tangent_coefficients(L, R, itf[istride + iidx], is_x, c);
+    T* dst = A.out + lay.face(is_x) + i;
+#pragma unroll
+    for (int row = 0; row < swk::kTangentFaceRows; ++row) dst[row * nx] = c[row];
+  }
+}
+
+// Up to Shape::EB elements a block as the operator, one thread a node, the
+// block rounded up to whole warps. The pointwise fluxes' and forcing's
+// tangents at each node from the node rows by the product rule (h du =
+// dhu - u dh: d(hu_a u_b) = dhu_a u_b + u_a (dhu_b - u_b dh)); then the
+// block's face points, face by face over its elements, so every thread of
+// the block, the warp's padding included, takes at most ceil(4 eb s /
+// threads) of them: the direction's own trace (face_trace of its nodes in
+// shared memory) and the neighbour's (face_trace of its nodes in global
+// memory, the same function and fma order its own face uses; at a panel edge
+// state_halo_point of v, the halo being linear), ordered (L, R) as the
+// operator orders them, into one ausm_tangent_apply call on the interface's
+// stored coefficients, so both sides of an interface get the same bits and
+// J.v conserves mass to round-off; then the divergence and the correction in
+// the operator's order. Shared memory (in T) as the operator's: the 1D
+// factors, then per element [v (3 s^2) | dfx, dfy (6 s^2) | face flux
+// tangents (3 * 4s)].
+template <typename T, int S>
+__global__ void __launch_bounds__(swk::kThreads) sw_tangent_apply_kernel(TangentArgs<T> A, int eb) {
+  using Sh = Shape<S>;
   constexpr int S2 = Sh::S2, NF = Sh::NF;
   extern __shared__ unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
@@ -201,40 +329,30 @@ __global__ void __launch_bounds__(swk::kThreads) sw_tangent_kernel(TangentArgs<T
   const T* sCorr = sDy + S2;
 
   const int nel = A.nel;
+  const TangentLayout lay(nel, S);
   const int tid = threadIdx.x;
   const int e_loc = tid / S2;
   const int j = tid - e_loc * S2;
   const int ky = j / S, kx = j - ky * S;
   const int per_panel = nel * nel;
   const int nelem = 6 * per_panel;
-  const int elem = blockIdx.x * eb + e_loc;
+  const int elem0 = blockIdx.x * eb;
+  const int elem = elem0 + e_loc;
   const bool valid = e_loc < eb && elem < nelem;
-  const long long nq = (long long)nelem * S2;
+  const long long nq = lay.nq;
   const long long fstride = (long long)per_panel * S2;
   const long long pt = (long long)elem * S2 + j;
-
-  T* sQ = smem + Sh::N_FAC + e_loc * Sh::PER_ELEM;
-  T* sV = sQ + 3 * S2;
+  T* sV = smem + Sh::N_FAC + e_loc * Sh::PER_ELEM;  // dereferenced only where valid
   T* sF = sV + 3 * S2;
-  T* sFl = sF + 6 * S2;
-
-  int p = 0, pe = 0, ey = 0, ex = 0;
-  if (valid) {
-    p = elem / per_panel;
-    pe = elem - p * per_panel;
-    ey = pe / nel;
-    ex = pe - ey * nel;
-#pragma unroll
-    for (int v = 0; v < 3; ++v) {
-      sQ[v * S2 + j] = A.q[v * nq + pt];
-      sV[v * S2 + j] = A.v[v * nq + pt];
-    }
-  }
-  __syncthreads();
 
   T dforce1 = T(0), dforce2 = T(0), invsg = T(0);
   if (valid) {
-    const T* fld = A.fields + (long long)pe * S2 + j;
+    const T dh = A.v[pt], dhu1 = A.v[nq + pt], dhu2 = A.v[2 * nq + pt];
+    sV[j] = dh;
+    sV[S2 + j] = dhu1;
+    sV[2 * S2 + j] = dhu2;
+    const T h = A.coef[pt], u1 = A.coef[nq + pt], u2 = A.coef[2 * nq + pt];
+    const T* fld = A.fields + (long long)(elem % per_panel) * S2 + j;
     const T sqrtg = fld[0], h11 = fld[fstride], h12 = fld[2 * fstride], h22 = fld[3 * fstride];
     const T g101 = fld[4 * fstride], g102 = fld[5 * fstride];
     const T g201 = fld[6 * fstride], g202 = fld[7 * fstride];
@@ -243,16 +361,12 @@ __global__ void __launch_bounds__(swk::kThreads) sw_tangent_kernel(TangentArgs<T
     invsg = fld[12 * fstride];
     const T half_g = T(0.5 * swk::kGravity);
     const T rot2 = T(2) * A.gridrot[pt];
-    const T h = sQ[j], hu1 = sQ[S2 + j], hu2 = sQ[2 * S2 + j];
-    const T dh = sV[j], dhu1 = sV[S2 + j], dhu2 = sV[2 * S2 + j];
-    const T u1 = hu1 / h, u2 = hu2 / h;
-    const T du1 = (dhu1 - u1 * dh) / h;
-    const T du2 = (dhu2 - u2 * dh) / h;
+    const T w1 = dhu1 - u1 * dh, w2 = dhu2 - u2 * dh;  // h du1, h du2
     const T dhsq = T(2) * h * dh;
-    const T d11 = dhu1 * u1 + hu1 * du1;  // d(hu1 u1)
-    const T d12 = dhu1 * u2 + hu1 * du2;  // d(hu1 u2)
-    const T d21 = dhu2 * u1 + hu2 * du1;  // d(hu2 u1)
-    const T d22 = dhu2 * u2 + hu2 * du2;  // d(hu2 u2)
+    const T d11 = dhu1 * u1 + u1 * w1;  // d(hu1 u1)
+    const T d12 = dhu1 * u2 + u1 * w2;  // d(hu1 u2)
+    const T d21 = dhu2 * u1 + u2 * w1;  // d(hu2 u1)
+    const T d22 = dhu2 * u2 + u2 * w2;  // d(hu2 u2)
     sF[0 * S2 + j] = sqrtg * dhu1;
     sF[1 * S2 + j] = sqrtg * (d11 + half_g * h11 * dhsq);
     sF[2 * S2 + j] = sqrtg * (d21 + half_g * h12 * dhsq);
@@ -261,58 +375,66 @@ __global__ void __launch_bounds__(swk::kThreads) sw_tangent_kernel(TangentArgs<T
     sF[5 * S2 + j] = sqrtg * (d22 + half_g * h22 * dhsq);
     dforce1 = rot2 * (g101 * dhu1 + g102 * dhu2) + c111 * d11 + T(2) * c112 * d12;
     dforce2 = rot2 * (g201 * dhu1 + g202 * dhu2) + T(2) * c212 * d12 + c222 * d22;
+  }
+  __syncthreads();
 
-    for (int fi = j; fi < NF; fi += S2) {
-      const int side = fi / S;  // faces: 0 west, 1 east, 2 south, 3 north
-      const int k = fi - side * S;
-      bool at_edge;
-      int nb_elem, hside, along;
-      switch (side) {
-        case 0: at_edge = ex == 0;       nb_elem = elem - 1;   hside = 2; along = ey; break;
-        case 1: at_edge = ex == nel - 1; nb_elem = elem + 1;   hside = 3; along = ey; break;
-        case 2: at_edge = ey == 0;       nb_elem = elem - nel; hside = 0; along = ex; break;
-        default: at_edge = ey == nel - 1; nb_elem = elem + nel; hside = 1; along = ex; break;
-      }
-      const int nb_side = side ^ 1;
-      T own[3], nb[3], down[3], dnb[3];
-      if (at_edge) {
-        swk::state_halo_point<T, S>(A.q, sExt, A.hsrc, A.hflip, A.hconv, nel, hside * 6 + p, along * S + k, nb);
-        swk::state_halo_point<T, S>(A.v, sExt, A.hsrc, A.hflip, A.hconv, nel, hside * 6 + p, along * S + k, dnb);
-      } else {
-#pragma unroll
-        for (int v = 0; v < 3; ++v) {
-          const long long at = v * nq + (long long)nb_elem * S2;
-          nb[v] = swk::face_trace<T, S>(A.q + at, sExt + nb_side * S, nb_side, k);
-          dnb[v] = swk::face_trace<T, S>(A.v + at, sExt + nb_side * S, nb_side, k);
-        }
-      }
-#pragma unroll
-      for (int v = 0; v < 3; ++v) {
-        own[v] = swk::face_trace<T, S>(sQ + v * S2, sExt + side * S, side, k);
-        down[v] = swk::face_trace<T, S>(sV + v * S2, sExt + side * S, side, k);
-      }
-      const bool own_right = side == 0 || side == 2;
-      T L[3], R[3], dL[3], dR[3], dF[3];
-#pragma unroll
-      for (int v = 0; v < 3; ++v) {
-        L[v] = own_right ? nb[v] : own[v];
-        R[v] = own_right ? own[v] : nb[v];
-        dL[v] = own_right ? dnb[v] : down[v];
-        dR[v] = own_right ? down[v] : dnb[v];
-      }
-      const bool is_x = side < 2;
-      const T* itf = is_x ? A.itf_x : A.itf_y;
-      const int istride = nel * (nel + 1) * S;
-      const int iidx = is_x ? ((ey * (nel + 1) + ex + (side == 1)) * S + k)
-                            : (((ey + (side == 3)) * nel + ex) * S + k);
-      swk::ausm_tangent(L, R, dL, dR, itf[iidx], itf[istride + iidx], itf[2 * istride + iidx], is_x, dF);
-#pragma unroll
-      for (int v = 0; v < 3; ++v) sFl[v * NF + fi] = dF[v];
+  const int istride = nel * (nel + 1) * S;
+  const int n_items = 4 * eb * S;
+  for (int it = tid; it < n_items; it += blockDim.x) {
+    const int side = it / (eb * S);  // faces: 0 west, 1 east, 2 south, 3 north
+    const int r = it - side * (eb * S);
+    const int e = r / S;
+    const int k = r - e * S;
+    const int el = elem0 + e;
+    if (el >= nelem) continue;
+    const int p = el / per_panel;
+    const int pe = el - p * per_panel;
+    const int ey = pe / nel;
+    const int ex = pe - ey * nel;
+    bool at_edge;
+    int nb_elem, hside, along;
+    switch (side) {
+      case 0: at_edge = ex == 0;       nb_elem = el - 1;   hside = 2; along = ey; break;
+      case 1: at_edge = ex == nel - 1; nb_elem = el + 1;   hside = 3; along = ey; break;
+      case 2: at_edge = ey == 0;       nb_elem = el - nel; hside = 0; along = ex; break;
+      default: at_edge = ey == nel - 1; nb_elem = el + nel; hside = 1; along = ex; break;
     }
+    const int nb_side = side ^ 1;
+    T* sVe = smem + Sh::N_FAC + e * Sh::PER_ELEM;
+    T down[3], dnb[3];
+    if (at_edge) {
+      swk::state_halo_point<T, S>(A.v, sExt, A.hsrc, A.hflip, A.hconv, nel, hside * 6 + p, along * S + k, dnb);
+    } else {
+#pragma unroll
+      for (int v = 0; v < 3; ++v)
+        dnb[v] = swk::face_trace<T, S>(A.v + v * nq + (long long)nb_elem * S2, sExt + nb_side * S, nb_side, k);
+    }
+#pragma unroll
+    for (int v = 0; v < 3; ++v) down[v] = swk::face_trace<T, S>(sVe + v * S2, sExt + side * S, side, k);
+    const bool own_right = side == 0 || side == 2;
+    T dL[3], dR[3], dF[3], c[swk::kTangentFaceRows];
+#pragma unroll
+    for (int v = 0; v < 3; ++v) {
+      dL[v] = own_right ? dnb[v] : down[v];
+      dR[v] = own_right ? down[v] : dnb[v];
+    }
+    const bool is_x = side < 2;
+    const int iidx = is_x ? ((ey * (nel + 1) + ex + (side == 1)) * S + k) : (((ey + (side == 3)) * nel + ex) * S + k);
+    const long long cidx = is_x ? ((long long)p * nel * (nel + 1) * S + iidx)
+                                : ((long long)p * (nel + 1) * nel * S + iidx);
+    const T* src = A.coef + lay.face(is_x) + cidx;
+#pragma unroll
+    for (int row = 0; row < swk::kTangentFaceRows; ++row) c[row] = src[row * lay.nx];
+    const T* itf = is_x ? A.itf_x : A.itf_y;
+    swk::ausm_tangent_apply(c, dL, dR, itf[iidx], itf[istride + iidx], itf[2 * istride + iidx], is_x, dF);
+    T* sFl = sVe + 9 * S2;
+#pragma unroll
+    for (int v = 0; v < 3; ++v) sFl[v * NF + side * S + k] = dF[v];
   }
   __syncthreads();
 
   if (valid) {
+    const T* sFl = sF + 6 * S2;
 #pragma unroll
     for (int v = 0; v < 3; ++v) {
       T div = T(0);
@@ -424,9 +546,22 @@ cudaError_t dispatch_edges(int s, int nel, const void* q, const void* ops, void*
   return cudaGetLastError();
 }
 
+// Threads a block of the apply: eb elements of s^2 nodes, rounded up to
+// whole warps.
+inline int apply_threads(int eb, int s2) { return (eb * s2 + 31) / 32 * 32; }
+
 template <typename T, int S>
-cudaError_t launch_tangent(const TangentArgs<T>& A, cudaStream_t stream) {
-  using Sh = TangentShape<S>;
+cudaError_t launch_tangent_prep(const TangentArgs<T>& A, cudaStream_t stream) {
+  const TangentLayout lay(A.nel, S);
+  const long long total = lay.nq + 2 * lay.nx;
+  const int blocks = (int)((total + swk::kThreads - 1) / swk::kThreads);
+  sw_tangent_prep_kernel<T, S><<<blocks, swk::kThreads, 0, stream>>>(A);
+  return cudaGetLastError();
+}
+
+template <typename T, int S>
+cudaError_t launch_tangent_apply(const TangentArgs<T>& A, cudaStream_t stream) {
+  using Sh = Shape<S>;
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
@@ -434,17 +569,30 @@ cudaError_t launch_tangent(const TangentArgs<T>& A, cudaStream_t stream) {
   const int nelem = 6 * A.nel * A.nel;
   const int eb = elements_per_block(nelem, Sh::EB, sms);
   const int blocks = (nelem + eb - 1) / eb;
-  sw_tangent_kernel<T, S><<<blocks, eb * Sh::S2, Sh::smem_bytes(sizeof(T), eb), stream>>>(A, eb);
+  sw_tangent_apply_kernel<T, S><<<blocks, apply_threads(eb, Sh::S2), Sh::smem_bytes(sizeof(T), eb), stream>>>(A, eb);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_tangent(int s, int nel, const void* q, const void* v, const void* ops, const void* fields,
-                             const void* gridrot, const void* itf_x, const void* itf_y, const void* src,
-                             const void* flip, const void* conv, void* out, cudaStream_t stream) {
+cudaError_t dispatch_tangent(bool apply, int s, const TangentArgs<T>& A, cudaStream_t stream) {
+#define SW_CASE(S) \
+  case S:          \
+    return apply ? launch_tangent_apply<T, S>(A, stream) : launch_tangent_prep<T, S>(A, stream);
+  switch (s) {
+    SW_CASE(2) SW_CASE(3) SW_CASE(4) SW_CASE(5) SW_CASE(6) SW_CASE(7) SW_CASE(8)
+    default: return cudaErrorInvalidValue;
+  }
+#undef SW_CASE
+}
+
+template <typename T>
+TangentArgs<T> tangent_args(int nel, const void* q, const void* v, const void* coef, const void* ops,
+                            const void* fields, const void* gridrot, const void* itf_x, const void* itf_y,
+                            const void* src, const void* flip, const void* conv, void* out) {
   TangentArgs<T> A{};
   A.q = static_cast<const T*>(q);
   A.v = static_cast<const T*>(v);
+  A.coef = static_cast<const T*>(coef);
   A.ops = static_cast<const T*>(ops);
   A.fields = static_cast<const T*>(fields);
   A.gridrot = static_cast<const T*>(gridrot);
@@ -455,22 +603,38 @@ cudaError_t dispatch_tangent(int s, int nel, const void* q, const void* v, const
   A.hconv = static_cast<const T*>(conv);
   A.out = static_cast<T*>(out);
   A.nel = nel;
-#define SW_CASE(S) \
-  case S:          \
-    return launch_tangent<T, S>(A, stream);
-  switch (s) {
-    SW_CASE(2) SW_CASE(3) SW_CASE(4) SW_CASE(5) SW_CASE(6) SW_CASE(7) SW_CASE(8)
-    default: return cudaErrorInvalidValue;
-  }
-#undef SW_CASE
+  return A;
+}
+
+int tangent_launch(bool apply, int is_f64, int s, int nel, const void* q, const void* v, const void* coef,
+                   const void* ops, const void* fields, const void* gridrot, const void* itf_x, const void* itf_y,
+                   const void* src, const void* flip, const void* conv, void* out, void* stream) {
+  if (nel < 2 || src == nullptr || flip == nullptr || conv == nullptr || out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_f64)
+    return (int)dispatch_tangent<double>(apply, s, tangent_args<double>(nel, q, v, coef, ops, fields, gridrot, itf_x,
+                                                                        itf_y, src, flip, conv, out), st);
+  return (int)dispatch_tangent<float>(apply, s, tangent_args<float>(nel, q, v, coef, ops, fields, gridrot, itf_x,
+                                                                    itf_y, src, flip, conv, out), st);
+}
+
+// What the runtime reports of the prep (kernel 0: blocks of kThreads, its
+// factors in static shared memory, not counted) or the apply (kernel 1: at
+// its largest block).
+template <typename T, int S>
+cudaError_t tangent_resources(int kernel, int* info) {
+  using Sh = Shape<S>;
+  if (kernel == 0) return swk::kernel_resources(sw_tangent_prep_kernel<T, S>, swk::kThreads, 0, info);
+  return swk::kernel_resources(sw_tangent_apply_kernel<T, S>, apply_threads(Sh::EB, Sh::S2),
+                               Sh::smem_bytes(sizeof(T), Sh::EB), info);
 }
 
 template <typename T>
-cudaError_t tangent_resources(int s, int* info) {
-#define SW_CASE(S)                                                                                    \
-  case S:                                                                                             \
-    return swk::kernel_resources(sw_tangent_kernel<T, S>, TangentShape<S>::EB * TangentShape<S>::S2, \
-                                 TangentShape<S>::smem_bytes(sizeof(T), TangentShape<S>::EB), info);
+cudaError_t dispatch_tangent_resources(int s, int kernel, int* info) {
+#define SW_CASE(S) \
+  case S:          \
+    return tangent_resources<T, S>(kernel, info);
   switch (s) {
     SW_CASE(2) SW_CASE(3) SW_CASE(4) SW_CASE(5) SW_CASE(6) SW_CASE(7) SW_CASE(8)
     default: return cudaErrorInvalidValue;
@@ -619,26 +783,36 @@ extern "C" int sw_halo_launch(int is_f64, int npts, const void* traces, const vo
   return (int)cudaGetLastError();
 }
 
-// J(q).v of the absolute operator, whole sphere, the halos of q and v both
-// taken from the state (the halo tables src, flip, conv of the state mode):
-// q, v, out (3, 6*nel*nel, s^2); the other arguments as for
-// sw_operator_state_launch.
-extern "C" int sw_tangent_state_launch(int is_f64, int s, int nel, const void* q, const void* v, const void* ops,
+// The linearisation of the absolute operator at q (3, 6*nel*nel, s^2),
+// whole sphere, its panel-edge values taken from the state (the halo tables
+// src, flip, conv of the state mode): the coefficient buffer `coef` of
+// ops/sw_operator.py::sw_tangent_layout (3 node rows, 13 rows an interface
+// point). ops, itf_x, itf_y as for sw_operator_state_launch.
+extern "C" int sw_tangent_prep_launch(int is_f64, int s, int nel, const void* q, const void* ops, const void* itf_x,
+                                      const void* itf_y, const void* src, const void* flip, const void* conv,
+                                      void* coef, void* stream) {
+  if (q == nullptr) return (int)cudaErrorInvalidValue;
+  return tangent_launch(false, is_f64, s, nel, q, nullptr, nullptr, ops, nullptr, nullptr, itf_x, itf_y, src, flip,
+                        conv, coef, stream);
+}
+
+// J(q).v from the linearisation `coef` (sw_tangent_prep_launch) in the
+// direction v (3, 6*nel*nel, s^2), v's panel-edge values from v itself; out
+// as v; the other arguments as for sw_operator_state_launch.
+extern "C" int sw_tangent_apply_launch(int is_f64, int s, int nel, const void* v, const void* coef, const void* ops,
                                        const void* fields, const void* gridrot, const void* itf_x,
                                        const void* itf_y, const void* src, const void* flip, const void* conv,
                                        void* out, void* stream) {
-  if (nel < 2 || q == nullptr || v == nullptr || src == nullptr || flip == nullptr || conv == nullptr)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(is_f64 ? dispatch_tangent<double>(s, nel, q, v, ops, fields, gridrot, itf_x, itf_y, src, flip, conv,
-                                                 out, st)
-                      : dispatch_tangent<float>(s, nel, q, v, ops, fields, gridrot, itf_x, itf_y, src, flip, conv,
-                                                out, st));
+  if (v == nullptr || coef == nullptr) return (int)cudaErrorInvalidValue;
+  return tangent_launch(true, is_f64, s, nel, nullptr, v, coef, ops, fields, gridrot, itf_x, itf_y, src, flip, conv,
+                        out, stream);
 }
 
-// The same report of the tangent kernel at (is_f64, s), at its largest block.
-extern "C" int sw_tangent_resources(int is_f64, int s, int* info) {
-  return (int)(is_f64 ? tangent_resources<double>(s, info) : tangent_resources<float>(s, info));
+// The same report as sw_operator_resources of the tangent prep (kernel 0)
+// or apply (kernel 1) at (is_f64, s).
+extern "C" int sw_tangent_resources(int is_f64, int s, int kernel, int* info) {
+  return (int)(is_f64 ? dispatch_tangent_resources<double>(s, kernel, info)
+                      : dispatch_tangent_resources<float>(s, kernel, info));
 }
 
 // What the runtime reports of the operator kernel at (is_f64, s, pert), halo

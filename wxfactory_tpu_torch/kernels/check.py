@@ -1173,36 +1173,87 @@ def sw_tangent_fd_order(q, v, con, topology, jv) -> dict:
     return {"fd_steps": list(SW_FD_STEPS), "fd_err_p99": p99, "fd_err_max": worst, "fd_order": order}
 
 
-def compare_sw_tangent(nel: int, s: int, dtype, device="cuda", seed: int = 7):
-    """The tangent kernel (``sw_tangent``) against its plain version
-    (``sw_tangent_plain``, torch.func.jvp of the plain operator) at the case-6
-    and rest linearisation points of ``sw_tangent_inputs``; one row each.
+def _sw_prep_rows(coef, con) -> dict:
+    """{row name: values} of an SW coefficient buffer (``sw_tangent_layout``;
+    face rows per family)."""
+    node, face_x, face_y = swop._tangent_parts(coef, con)
+    rows = {name: node[r] for r, name in enumerate(swop.SW_TANGENT_NODE_ROWS)}
+    for fam, face in (("x", face_x), ("y", face_y)):
+        rows.update({f"{fam}.{name}": face[r] for r, name in enumerate(swop.SW_TANGENT_FACE_ROWS)})
+    return rows
 
-    float64: within 1e-12 of each variable's max of the plain J.v (the JAX
-    tests' bound of the 3D tangent kernel against jax.jvp, tightened as the
-    3D port's checks are). float32: against the float64 plain J.v on the
-    same inputs, within twice the float32 plain J.v's distance from it, or
-    1e-5 of scale where that is larger. Also, within the same limit: the
-    kernel's linearity in v (``J(a v + b w)`` against ``a Jv + b Jw``); and
-    mass, the weighted integral of (J.v)_h against the plain version's
-    (``mass_err``). float64 rows also hold the kernel against a centred
-    difference of the operator kernel (``sw_tangent_fd_order``: order above
-    1.5 and a distance below 1e-8 at the smaller step), at the case-6
-    point (at rest every interface sits on the kink)."""
+
+def compare_sw_tangent_kernels(q, v, coef, con, topology, ref64=None) -> dict:
+    """Each SW tangent kernel against its plain version on the same inputs:
+    the prep's buffer ``coef`` against ``sw_tangent_prep_plain``'s, row by
+    row scaled by the row's max (``prep_err``), and the apply on ``coef``
+    against ``sw_tangent_apply_plain`` on the same buffer, scaled by each
+    variable's max (``apply_err``). With ``ref64``, the float64 plain prep's
+    buffer at the float64 inputs (float32 checks): each row of the kernel's
+    and of the plain float32 buffer against it, scaled by its row's max
+    (``prep_rows`` {row: [kernel, plain]}), and ``prep_rows_over`` the rows
+    where the kernel is further than the float32 tangent tolerance or twice
+    the plain buffer."""
+    want = swop.sw_tangent_prep_plain(q, con, topology)
+    got_jv = swop.sw_tangent_apply(coef, v, con, topology)
+    want_jv = swop.sw_tangent_apply_plain(coef, v, con, topology)
+    got_rows, want_rows = _sw_prep_rows(coef, con), _sw_prep_rows(want, con)
+    row_err = lambda g, w: float((g.double() - w).abs().max() / w.abs().max().clamp_min(1e-300))
+    out = {
+        "prep_err": max(row_err(got_rows[k], want_rows[k].double()) for k in got_rows),
+        "prep_max_abs_err": max(float((got_rows[k] - want_rows[k]).abs().max()) for k in got_rows),
+        "apply_err": _scaled(got_jv - want_jv, per_variable_max(want_jv).clamp_min(1e-300)),
+        "apply_max_abs_err": float((got_jv - want_jv).abs().max()),
+    }
+    if ref64 is not None:
+        ref_rows = _sw_prep_rows(ref64, con)
+        err = lambda g, k: float((g.double() - ref_rows[k]).abs().max() / ref_rows[k].abs().max().clamp_min(1e-300))
+        limit = SW_TANGENT_TOLERANCE[torch.float32]
+        out["prep_rows"] = {k: [err(got_rows[k], k), err(want_rows[k], k)] for k in got_rows}
+        out["prep_row_limit"] = f"max({limit:g}, 2 * plain)"
+        out["prep_rows_over"] = [k for k, (kern, plain) in out["prep_rows"].items()
+                                 if not kern <= max(limit, 2.0 * plain)]
+    return out
+
+
+def compare_sw_tangent(nel: int, s: int, dtype, device="cuda", seed: int = 7):
+    """The tangent kernels (``sw_tangent_prep``, then ``sw_tangent_apply``)
+    against the plain tangent (``sw_tangent_plain``, torch.func.jvp of the
+    plain operator) at the case-6 and rest linearisation points of
+    ``sw_tangent_inputs``, and each kernel against its plain version
+    (``compare_sw_tangent_kernels``); one row each point.
+
+    float64: J.v within 1e-12 of each variable's max of the plain J.v (the
+    JAX tests' bound of the 3D tangent kernel against jax.jvp, tightened as
+    the 3D port's checks are); the prep's rows and the apply within the
+    same of their plain versions. float32: J.v against the float64 plain
+    J.v on the same inputs, within twice the float32 plain J.v's distance
+    from it, or 1e-5 of scale where that is larger; the prep's rows against
+    the float64 plain prep's by the same rule, the apply within 1e-5 of its
+    plain version on the same buffer. Also, within the J.v's limit: the
+    apply's linearity in v (``J(a v + b w)`` against ``a Jv + b Jw`` on one
+    buffer); and mass, the weighted integral of (J.v)_h against the plain
+    version's (``mass_err``). float64 rows also hold the kernels against a
+    centred difference of the operator kernel (``sw_tangent_fd_order``:
+    order above 1.5 and a distance below 1e-8 at the smaller step), at the
+    case-6 point (at rest every interface sits on the kink)."""
     con, topology, states, v, w = sw_tangent_inputs(nel, s, dtype, device, seed)
     wsg = sw_mass_weights(sw_setup(nel, s)[1], con)
     tol = SW_TANGENT_TOLERANCE[dtype]
-    truth = None
+    truth = ref64 = None
     if dtype == torch.float32:
         con64, _, states64, v64, _ = sw_tangent_inputs(nel, s, torch.float64, device, seed)
         truth = {k: swop.sw_tangent_plain(q, v64, con64, topology) for k, q in states64.items()}
+        ref64 = {k: swop.sw_tangent_prep_plain(q, con64, topology) for k, q in states64.items()}
     rows = []
     a, b = TANGENT_LINEARITY
     for point, q in states.items():
-        got = swop.sw_tangent(q, v, con, topology)
+        coef = swop.sw_tangent_prep(q, con, topology)
+        got = swop.sw_tangent_apply(coef, v, con, topology)
         want = swop.sw_tangent_plain(q, v, con, topology)
-        combo = swop.sw_tangent(q, (a * v + b * w).contiguous(), con, topology)
-        lin = a * got + b * swop.sw_tangent(q, w, con, topology)
+        combo = swop.sw_tangent_apply(coef, (a * v + b * w).contiguous(), con, topology)
+        lin = a * got + b * swop.sw_tangent_apply(coef, w, con, topology)
+        split = compare_sw_tangent_kernels(q, v, coef, con, topology, None if ref64 is None else ref64[point])
         if device != "cpu":
             torch.cuda.synchronize()
         ref = want if truth is None else truth[point]
@@ -1210,7 +1261,7 @@ def compare_sw_tangent(nel: int, s: int, dtype, device="cuda", seed: int = 7):
         row = {"nel": nel, "s": s, "dtype": str(dtype).replace("torch.", ""), "mode": f"tangent_{point}",
                "max_abs_err": float((got - want).abs().max()), "scale": "output_max",
                "err": _scaled(got.to(ref.dtype) - ref, scale), "tol": tol,
-               "linearity_err": _scaled(combo - lin, per_variable_max(lin))}
+               "linearity_err": _scaled(combo - lin, per_variable_max(lin)), **split}
         limit = tol
         if truth is not None:
             row["scale"] = "f64_plain_output_max"
@@ -1221,8 +1272,10 @@ def compare_sw_tangent(nel: int, s: int, dtype, device="cuda", seed: int = 7):
         row["mass_err"], row["mass_tol"] = mass_err(got, want, wsg, dtype, tol=tol)
         mass = lambda t: float((wsg * t[0].double()).sum() / (wsg * t[0].double()).abs().sum())
         row["mass_of_output"], row["mass_of_plain"] = mass(got), mass(want)
+        prep_ok = row["prep_err"] <= tol if truth is None else not row["prep_rows_over"]
         ok = (np.isfinite(row["err"]) and row["err"] <= limit and row["linearity_err"] <= limit
-              and bool(torch.isfinite(got).all().item()) and row["mass_err"] <= row["mass_tol"])
+              and bool(torch.isfinite(got).all().item()) and row["mass_err"] <= row["mass_tol"]
+              and prep_ok and row["apply_err"] <= tol)
         if dtype == torch.float64 and point == "case6":
             row.update(sw_tangent_fd_order(q, v, con, topology, got))
             ok = ok and row["fd_order"] > 1.5 and row["fd_err_p99"][1] < 1e-8
@@ -1232,8 +1285,10 @@ def compare_sw_tangent(nel: int, s: int, dtype, device="cuda", seed: int = 7):
 
 
 def sw_tangent_work(nel: int, s: int, dtype):
-    """(bytes, operations) of one J(q).v call of the tangent kernel: q and v
-    read once each (the neighbour elements' and neighbour panels' nodes are
+    """(bytes, operations) of the Jacobian action J(q).v as one call (the
+    function's bound; the prep's and the apply's own are
+    ``sw_tangent_prep_work`` and ``sw_tangent_apply_work``): q and v read
+    once each (the neighbour elements' and neighbour panels' nodes are
     elements of q and v, counted with them), J.v written once, the
     one-panel metric, gridrot, the interface metric and the 4 rotation
     coefficients of each panel-edge point read once; the operations the
@@ -1252,20 +1307,65 @@ def sw_tangent_work(nel: int, s: int, dtype):
     return words * item, ops
 
 
+def _sw_tangent_buffer_words(nel: int, s: int) -> int:
+    """Words of the SW coefficient buffer (``sw_tangent_layout``)."""
+    return 3 * 6 * nel * nel * s * s + 2 * len(swop.SW_TANGENT_FACE_ROWS) * 6 * nel * (nel + 1) * s
+
+
+def sw_tangent_prep_work(nel: int, s: int, dtype):
+    """(bytes, operations) of one prep: q read once, the coefficient buffer
+    written once, the interface metric's H row (the sound speeds' factor)
+    and the 4 rotation coefficients of each panel-edge point read once.
+    Operations: 2 divisions a node; an interface point's two traces (2 x 3
+    variables x s fused multiply-adds), the rotation of its halo value at
+    a panel edge (6), and the primal AUSM coefficients (~25: two square
+    roots, four divisions, the split Mach number)."""
+    n_elem, s2, item = 6 * nel * nel, s * s, torch.finfo(dtype).bits // 8
+    n_itf = 2 * 6 * nel * (nel + 1) * s
+    edge_points = 4 * 6 * nel * s
+    words = 3 * n_elem * s2 + _sw_tangent_buffer_words(nel, s) + 2 * nel * (nel + 1) * s + 4 * edge_points
+    return words * item, n_elem * s2 * 2 + n_itf * (12 * s + 25) + 6 * edge_points
+
+
+def sw_tangent_apply_work(nel: int, s: int, dtype):
+    """(bytes, operations) of one apply, counted as ``sw_tangent_work``
+    counts them: v read once, J.v written once, the coefficient buffer, the
+    one-panel metric, gridrot, the interface metric and the rotation
+    coefficients read once. The apply's own floor, beside the function's:
+    the buffer (3 words a node, 13 an interface point) is its price for
+    doing no square root or division and reading no q. Operations of its
+    linear algebra: ~50 a node for the pointwise tangents, the derivative
+    and correction as ``sw_work`` counts them, and at each of an element's
+    4s face points (an interior interface from each side) the two direction
+    traces (2 x 3 variables x s fused multiply-adds) and ~60 for the flux
+    tangent; the rotation of v's halo values (6 an edge point)."""
+    n_elem, s2, item = 6 * nel * nel, s * s, torch.finfo(dtype).bits // 8
+    nstate = 3 * n_elem * s2
+    edge_points = 4 * 6 * nel * s
+    words = 2 * nstate + _sw_tangent_buffer_words(nel, s) + 13 * nel * nel * s2 + n_elem * s2
+    words += 2 * 3 * nel * (nel + 1) * s + 4 * edge_points
+    ops = n_elem * (s2 * (50 + 12 * s + 24) + 4 * s * (12 * s + 60)) + 6 * edge_points
+    return words * item, ops
+
+
 def sw_tangent_resources(dtype, s: int) -> dict:
-    """{registers, local_bytes, smem_bytes, blocks_per_sm, threads} of the SW
-    tangent kernel at one dtype and s (its largest block), as the runtime
-    reports them (on the card; builds the library)."""
+    """{"prep", "apply": {registers, local_bytes, smem_bytes, blocks_per_sm,
+    threads}} of the SW tangent kernels at one dtype and s (the apply at its
+    largest block; the prep's static shared memory is not counted), as the
+    runtime reports them (on the card; builds the library)."""
     import ctypes
 
     from .build import load_library
 
-    info = (ctypes.c_int * 5)()
-    rc = load_library("sw_operator").sw_tangent_resources(1 if dtype == torch.float64 else 0, s,
-                                                          ctypes.cast(info, ctypes.c_void_p))
-    if rc != 0:
-        raise RuntimeError(f"sw_tangent_resources failed: CUDA error {rc}")
-    return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm", "threads"), info))
+    lib = load_library("sw_operator")
+    out = {}
+    for kernel, name in enumerate(("prep", "apply")):
+        info = (ctypes.c_int * 5)()
+        rc = lib.sw_tangent_resources(1 if dtype == torch.float64 else 0, s, kernel, ctypes.cast(info, ctypes.c_void_p))
+        if rc != 0:
+            raise RuntimeError(f"sw_tangent_resources failed: CUDA error {rc}")
+        out[name] = dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm", "threads"), info))
+    return out
 
 
 # ---------------------------------------------------------------------------

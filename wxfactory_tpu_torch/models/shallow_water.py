@@ -16,7 +16,8 @@ launch; the 3D model's stages carry real traces through the same chain).
 
 The Jacobian action ``jtv(q, v)`` (``jtv_prep``/``jtv_apply``, which the
 exponential and Rosenbrock integrators take) is J(q).v of the absolute
-operator of the RHS's dtype: one launch of the tangent kernel on a GPU,
+operator of the RHS's dtype: on a GPU one launch of the tangent prep kernel
+a linearisation point and one of the linear apply kernel a J.v;
 ``torch.func.jvp`` of the plain operator on the CPU.
 
 In absolute form ``pack``/``unpack`` are the identity: the kernel works in
@@ -49,6 +50,8 @@ from ..ops.sw_operator import (
     sw_operator,
     sw_run,
     sw_tangent,
+    sw_tangent_apply,
+    sw_tangent_prep,
 )
 from ..parallel.topology import CubedSphereTopology
 
@@ -110,20 +113,32 @@ class ShallowWaterRHS:
         return sw_operator(q, None, self.con, topology=self.topology)
 
     def jtv_prep(self, q: torch.Tensor) -> torch.Tensor:
-        """The linearisation point of ``jtv_apply``: q itself in this RHS's
-        dtype (no launch; the tangent kernel reads q's face traces on every
-        call)."""
-        return q.to(self.dtype).contiguous()
+        """The linearisation of ``jtv_apply`` at the absolute state q, in this
+        RHS's dtype: on a GPU the coefficient buffer of one launch of the
+        tangent prep kernel (``ops.sw_operator.sw_tangent_prep``), once per
+        linearisation point; on the CPU q itself (no launch)."""
+        q = q.to(self.dtype).contiguous()
+        if q.device.type == "cpu":
+            return q
+        return sw_tangent_prep(q, self.con, self.topology)
 
     def jtv_apply(self, prep: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-        """J(q).v of the ABSOLUTE operator of this RHS's dtype at the
-        absolute state ``prep`` (``jtv_prep(q)``): one launch of the tangent
-        kernel on a GPU (``ops.sw_operator.sw_tangent``), ``torch.func.jvp``
-        of the plain operator on the CPU. In perturbation form too this is
-        the absolute operator's action, the JAX package's rule for its SW
+        """J(q).v of the ABSOLUTE operator of this RHS's dtype for the
+        ``prep`` of the absolute state q (``jtv_prep(q)``): one launch of the
+        linear tangent apply kernel on a GPU (``ops.sw_operator.
+        sw_tangent_apply``); on the CPU ``torch.func.jvp`` of the plain
+        operator (``sw_tangent``, which runs ``sw_tangent_plain`` for a CPU
+        tensor: the CPU integrators' tests sit near their bounds and move
+        with J.v's rounding, so the CPU keeps the function's own derivative;
+        the split's plain versions are held in
+        tests/test_torch_sw_tangent_split.py). In perturbation form too this
+        is the absolute operator's action, the JAX package's rule for its SW
         companion (``jax.jvp`` of ``rhs32.xla``, integrators/epi.py:197-200
         there), not the tangent of the perturbation form."""
-        return sw_tangent(prep, v.to(self.dtype).contiguous(), self.con, self.topology)
+        v = v.to(self.dtype).contiguous()
+        if v.device.type == "cpu":
+            return sw_tangent(prep, v, self.con, self.topology)
+        return sw_tangent_apply(prep, v, self.con, self.topology)
 
     def jtv(self, q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         """J(q).v: ``jtv_apply(jtv_prep(q), v)``."""

@@ -41,14 +41,18 @@ traces ``(3, 4, 1, nt, s)``), ``tile_base`` the float64 perturbation base,
 and ``sw_tile_operator`` launches the same kernel with one panel whose four
 edges all take the halo.
 
-The Jacobian action J(q).v of the absolute operator (``sw_tangent``; the
-exponential and Rosenbrock integrators' matvec) is one launch of its own
-kernel, its halos from the state; its plain version ``sw_tangent_plain`` is
-``torch.func.jvp`` of the plain operator, the JAX package's ``jax.jvp`` of
-its XLA RHS.
+The Jacobian action J(q).v of the absolute operator (the exponential and
+Rosenbrock integrators' matvec), its halos from the state, is split in two
+kernels: ``sw_tangent_prep`` once per linearisation point writes the
+coefficient buffer (``sw_tangent_layout``), ``sw_tangent_apply`` once per
+direction is linear in v; ``sw_tangent`` is the two in one call. Their
+plain versions ``sw_tangent_prep_plain`` and ``sw_tangent_apply_plain`` are
+the split in torch; ``sw_tangent_plain`` is ``torch.func.jvp`` of the plain
+operator, the JAX package's ``jax.jvp`` of its XLA RHS, which the CPU path
+runs.
 
-Each wrapper (``sw_operator``, ``sw_tangent``, ``sw_tile_operator``,
-``sw_edges``, ``sw_halo``, ``sw_run``) runs its CUDA kernel for a CUDA
+Each wrapper (``sw_operator``, ``sw_tangent_prep``, ``sw_tangent_apply``,
+``sw_tile_operator``, ``sw_edges``, ``sw_halo``, ``sw_run``) runs its CUDA kernel for a CUDA
 tensor and its plain version for a CPU tensor; there is no fallback between
 them.
 """
@@ -66,8 +70,9 @@ from ..common.constants import GRAVITY
 # the operator in absolute and in perturbation form (``state_launches``
 # counts those of them that took the halo from the state), its tile
 # launches in both forms, the edge-trace and halo kernels and the whole-run
-# kernel, the tangent kernel (J(q).v); and calls of the plain versions (the
-# plain tangent's apart).
+# kernel, the tangent prep (once per linearisation point) and apply (once
+# per J(q).v) kernels; and calls of the plain versions (the plain tangent's
+# and the plain apply's apart).
 launches = 0
 pert_launches = 0
 state_launches = 0
@@ -76,7 +81,8 @@ pert_tile_launches = 0
 edge_launches = 0
 halo_launches = 0
 run_launches = 0
-tangent_launches = 0
+tangent_prep_launches = 0
+tangent_apply_launches = 0
 plain_calls = 0
 plain_tangent_calls = 0
 
@@ -800,37 +806,252 @@ def sw_tangent_plain(q, v, con: SWConstants, topology):
     return torch.func.jvp(lambda y: _rhs_plain(y, None, con, topology), (q,), (v,))[1]
 
 
+# The split Jacobian action: a prep once per linearisation point q, an
+# apply once per direction v. The prep writes every primal quantity of the
+# linearisation that costs a square root, a division or a trace of q into
+# one coefficient buffer; the apply is linear in v and uses none of them.
+# Buffer layout (``sw_tangent_layout``; the kernels' own):
+#
+#   node   (3, 6, nel, nel, s^2)     rows SW_TANGENT_NODE_ROWS at each node
+#   face_x (13, 6, nel, nel+1, s)    rows SW_TANGENT_FACE_ROWS at each x1
+#   face_y (13, 6, nel+1, nel, s)    (x2) interface point of each panel, once
+#                                    for both sides, in the interface
+#                                    metric's order with a panel index
+#
+# An interface m = 0..nel of a panel's element row (column) has element
+# m-1's east (north) face on its left and element m's west (south) face on
+# its right; m = 0 takes its left values from the halo, m = nel its right.
+# inv_ha = 1 / (h a), 0 where h a == 0 (the divide guard of the Mach
+# numbers); M the split Mach number, whose sign gives the tie weight.
+SW_TANGENT_NODE_ROWS = ("h", "u1", "u2")
+SW_TANGENT_FACE_ROWS = ("h_L", "hu1_L", "hu2_L", "h_R", "hu1_R", "hu2_R", "a_L", "a_R", "inv_ha_L", "inv_ha_R",
+                        "m_L", "m_R", "M")
+
+
+def _tangent_size(con: SWConstants) -> int:
+    """Elements of the coefficient buffer (``sw_tangent_layout``'s ``size``),
+    without building the layout: the wrappers check it every call."""
+    nel, s = con.nel, con.s
+    return 6 * nel * (len(SW_TANGENT_NODE_ROWS) * nel * s * s + 2 * len(SW_TANGENT_FACE_ROWS) * (nel + 1) * s)
+
+
+def sw_tangent_layout(con: SWConstants) -> dict:
+    """Shapes and offsets (in elements) of the parts of the coefficient
+    buffer, and its ``size``."""
+    nel, s, kf = con.nel, con.s, len(SW_TANGENT_FACE_ROWS)
+    shapes = {
+        "node": (len(SW_TANGENT_NODE_ROWS), 6, nel, nel, s * s),
+        "face_x": (kf, 6, nel, nel + 1, s),
+        "face_y": (kf, 6, nel + 1, nel, s),
+    }
+    layout, offset = {}, 0
+    for name, shape in shapes.items():
+        layout[name] = (offset, shape)
+        offset += int(np.prod(shape))
+    layout["size"] = offset
+    return layout
+
+
+def sw_tangent_face_index(nel: int, s: int, side: int, panel: int, ey: int, ex: int, k: int):
+    """Where the apply kernel reads the coefficients of point ``k`` of face
+    ``side`` (0 W, 1 E, 2 S, 3 N) of element (panel, ey, ex), mirrored in
+    numpy: (family "face_x" or "face_y", flat index within one row of it)."""
+    if side < 2:
+        return "face_x", ((panel * nel + ey) * (nel + 1) + ex + (side == 1)) * s + k
+    return "face_y", ((panel * (nel + 1) + ey + (side == 3)) * nel + ex) * s + k
+
+
+def _tangent_parts(coef: torch.Tensor, con: SWConstants):
+    """(node, face_x, face_y) views of a coefficient buffer."""
+    layout = sw_tangent_layout(con)
+    view = lambda name: coef.narrow(0, layout[name][0], int(np.prod(layout[name][1]))).view(layout[name][1])
+    return view("node"), view("face_x"), view("face_y")
+
+
+def _ausm_tangent_coefficients(qL, qR, mhd, is_x: bool):
+    """The rows SW_TANGENT_FACE_ROWS at a set of interfaces: the primal
+    values of ``_ausm`` that its tangent needs (the kernel's
+    ``swk::ausm_tangent_coefficients``)."""
+    hL, hR = qL[0], qR[0]
+    aL = torch.sqrt(GRAVITY * hL * mhd)
+    aR = torch.sqrt(GRAVITY * hR * mhd)
+    n = 1 if is_x else 2
+    tmpL, tmpR = hL * aL, hR * aR
+    mL = torch.where(tmpL != 0.0, qL[n] / tmpL, 0.0)
+    mR = torch.where(tmpR != 0.0, qR[n] / tmpR, 0.0)
+    big_m = 0.25 * ((mL + 1.0) * (mL + 1.0) - (mR - 1.0) * (mR - 1.0))
+    return torch.stack([qL[0], qL[1], qL[2], qR[0], qR[1], qR[2], aL, aR,
+                        torch.where(tmpL != 0.0, 1.0 / tmpL, 0.0), torch.where(tmpR != 0.0, 1.0 / tmpR, 0.0),
+                        mL, mR, big_m])
+
+
+def _ausm_tangent_apply(c, dL, dR, msg, mhd, mho, is_x: bool):
+    """The AUSM flux's tangent from its coefficients ``c`` (rows
+    SW_TANGENT_FACE_ROWS) in the direction (dL, dR), linear in it (the
+    kernel's ``swk::ausm_tangent_apply``): jax.jvp's rules, half of dM to
+    each split term at the tie M = 0."""
+    half_g = 0.5 * GRAVITY
+    hL, hR, aL, aR, ihaL, ihaR, mL, mR, big_m = c[0], c[3], c[6], c[7], c[8], c[9], c[10], c[11], c[12]
+    dhL, dhR = dL[0], dR[0]
+    daL = (GRAVITY * dhL * mhd) * (0.5 * (hL * ihaL))
+    daR = (GRAVITY * dhR * mhd) * (0.5 * (hR * ihaR))
+    n = 1 if is_x else 2
+    dmL = (dL[n] - mL * (dhL * aL + hL * daL)) * ihaL
+    dmR = (dR[n] - mR * (dhR * aR + hR * daR)) * ihaR
+    dM = 0.5 * ((mL + 1.0) * dmL - (mR - 1.0) * dmR)
+    zero = torch.zeros_like(dM)
+    P, N = torch.clamp(big_m, min=0.0), torch.clamp(big_m, max=0.0)
+    dP = torch.where(big_m > 0.0, dM, torch.where(big_m == 0.0, 0.5 * dM, zero))
+    dN = torch.where(big_m < 0.0, dM, torch.where(big_m == 0.0, 0.5 * dM, zero))
+    adv_l, adv_r = P * aL, N * aR
+    dadv_l = dP * aL + P * daL
+    dadv_r = dN * aR + N * daR
+    f = [msg * ((dadv_l * c[v] + adv_l * dL[v]) + (dadv_r * c[3 + v] + adv_r * dR[v])) for v in range(3)]
+    k = msg * half_g
+    dpres_l = k * (dmL * (hL * hL) + (1.0 + mL) * (2.0 * hL * dhL))
+    dpres_r = k * ((1.0 - mR) * (2.0 * hR * dhR) - dmR * (hR * hR))
+    diag = 0.5 * (mhd * dpres_l + mhd * dpres_r)
+    off = 0.5 * (mho * dpres_l + mho * dpres_r)
+    if is_x:
+        f[1], f[2] = f[1] + diag, f[2] + off
+    else:
+        f[1], f[2] = f[1] + off, f[2] + diag
+    return torch.stack(f)
+
+
+def sw_tangent_prep_plain(q, con: SWConstants, topology) -> torch.Tensor:
+    """Plain torch version of the prep kernel: the coefficient buffer
+    (``sw_tangent_layout``) of the linearisation at q, its panel-edge values
+    the halo of q's own traces. Counted in ``plain_calls``."""
+    global plain_calls
+    plain_calls += 1
+    _check_topology(con, topology, "sw_tangent_prep_plain")
+    node = torch.stack([q[0], q[1] / q[0], q[2] / q[0]])
+    qL_x, qR_x, qL_y, qR_y = _interface_states(q @ con.ee, _halo_of(q, None, con, topology), con.s)
+    face_x = _ausm_tangent_coefficients(qL_x, qR_x, con.itf_x[1], is_x=True)
+    face_y = _ausm_tangent_coefficients(qL_y, qR_y, con.itf_y[1], is_x=False)
+    return torch.cat([node.reshape(-1), face_x.reshape(-1), face_y.reshape(-1)])
+
+
+def sw_tangent_apply_plain(coef, v, con: SWConstants, topology):
+    """Plain torch version of the apply kernel: J.v from the coefficient
+    buffer ``coef`` and the direction ``v`` (its halo that of its own
+    traces), with linear arithmetic only: the pointwise fluxes' and
+    forcing's tangents by the product rule with h du = dhu - u dh, the AUSM
+    flux's tangent from the interface coefficients. Counted in
+    ``plain_tangent_calls``."""
+    global plain_tangent_calls
+    plain_tangent_calls += 1
+    _check_topology(con, topology, "sw_tangent_apply_plain")
+    half_g = 0.5 * GRAVITY
+    (sqrtg, h11, h12, h22, g101, g102, g201, g202,
+     c111, c112, c212, c222, invsg) = con.fields
+    node, face_x, face_y = _tangent_parts(coef, con)
+    h, u1, u2 = node
+    dh, dhu1, dhu2 = v[0], v[1], v[2]
+    w1, w2 = dhu1 - u1 * dh, dhu2 - u2 * dh  # h du1, h du2
+    dhsq = 2.0 * h * dh
+    d11 = dhu1 * u1 + u1 * w1
+    d12 = dhu1 * u2 + u1 * w2
+    d21 = dhu2 * u1 + u2 * w1
+    d22 = dhu2 * u2 + u2 * w2
+    fx = torch.stack([sqrtg * dhu1,
+                      sqrtg * (d11 + half_g * h11 * dhsq),
+                      sqrtg * (d21 + half_g * h12 * dhsq)])
+    fy = torch.stack([sqrtg * dhu2,
+                      sqrtg * (d12 + half_g * h12 * dhsq),
+                      sqrtg * (d22 + half_g * h22 * dhsq)])
+    div = torch.cat([fx, fy], dim=-1) @ con.dd
+    rot2 = 2.0 * con.gridrot
+    dforce_1 = rot2 * (g101 * dhu1 + g102 * dhu2) + c111 * d11 + 2.0 * c112 * d12
+    dforce_2 = rot2 * (g201 * dhu1 + g202 * dhu2) + 2.0 * c212 * d12 + c222 * d22
+    df = torch.stack([-invsg * div[0], -invsg * div[1] - dforce_1, -invsg * div[2] - dforce_2])
+    dL_x, dR_x, dL_y, dR_y = _interface_states(v @ con.ee, _halo_of(v, None, con, topology), con.s)
+    f_x = _ausm_tangent_apply(face_x, dL_x, dR_x, con.itf_x[0], con.itf_x[1], con.itf_x[2], is_x=True)
+    f_y = _ausm_tangent_apply(face_y, dL_y, dR_y, con.itf_y[0], con.itf_y[1], con.itf_y[2], is_x=False)
+    return df - invsg * _correction(f_x, f_y, con)
+
+
+def _check_tangent(con: SWConstants, topology, name: str, **tensors):
+    """The whole-sphere constants and topology, and the state-shaped
+    tensors (or the coefficient buffer, ``coef``) of a tangent call."""
+    _check_npanel(con, 6, name)
+    _check_topology(con, topology, name)
+    state = (3, 6, con.nel, con.nel, con.s * con.s)
+    for key, t in tensors.items():
+        shape = (_tangent_size(con),) if key == "coef" else state
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {key} shape {tuple(t.shape)} != {shape}")
+        if t.dtype != con.dtype or t.device != con.device:
+            raise ValueError(f"{name}: {key} is {t.dtype} on {t.device}; constants are {con.dtype} on {con.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} is not contiguous")
+
+
+def _launch_tangent(entry: str, con: SWConstants, topology, *tensors):
+    """One launch of a tangent kernel through the C entry ``entry``: the
+    leading (is_f64, s, nel), ``tensors`` as pointers, the halo tables and
+    the stream appended where the entry takes them; raises on a refused
+    launch."""
+    _check_kernel_shape(con, entry)
+    from ..kernels.build import load_library
+
+    lib = load_library("sw_operator")
+    tab = halo_tables(topology, con.device, con.dtype)
+    *args, out = tensors
+    with torch.cuda.device(con.device):
+        rc = getattr(lib, entry)(1 if con.dtype == torch.float64 else 0, con.s, con.nel, *[_ptr(a) for a in args],
+                                 _ptr(tab.src), _ptr(tab.flip), _ptr(tab.conv), _ptr(out), _stream(con.device))
+    _raise_on(rc, lib, entry)
+
+
+def sw_tangent_prep(q, con: SWConstants, topology) -> torch.Tensor:
+    """The linearisation of the absolute operator at ``q`` (3, 6, nel, nel,
+    s^2), once per linearisation point: the coefficient buffer
+    (``sw_tangent_layout``) the apply reads. A CPU tensor runs
+    ``sw_tangent_prep_plain``; a CUDA tensor makes one launch of the prep
+    kernel (csrc/sw_operator.cu, ``sw_tangent_prep_launch``) on the current
+    stream, counted in ``tangent_prep_launches``, or raises."""
+    global tangent_prep_launches
+    _check_tangent(con, topology, "sw_tangent_prep", q=q)
+    if q.device.type == "cpu":
+        return sw_tangent_prep_plain(q, con, topology)
+    _cuda_or_raise(q, "sw_tangent_prep")
+    coef = torch.empty(_tangent_size(con), dtype=q.dtype, device=q.device)
+    _launch_tangent("sw_tangent_prep_launch", con, topology, q, con.ops, con.itf_x, con.itf_y, coef)
+    tangent_prep_launches += 1
+    return coef
+
+
+def sw_tangent_apply(coef, v, con: SWConstants, topology) -> torch.Tensor:
+    """J(q).v from the linearisation ``coef`` (``sw_tangent_prep(q)``) in
+    the direction ``v``, once per Jacobian action. A CPU tensor runs
+    ``sw_tangent_apply_plain``; a CUDA tensor makes one launch of the apply
+    kernel (csrc/sw_operator.cu, ``sw_tangent_apply_launch``) on the
+    current stream, counted in ``tangent_apply_launches``, or raises."""
+    global tangent_apply_launches
+    _check_tangent(con, topology, "sw_tangent_apply", coef=coef, v=v)
+    if v.device.type == "cpu":
+        return sw_tangent_apply_plain(coef, v, con, topology)
+    _cuda_or_raise(v, "sw_tangent_apply")
+    out = torch.empty_like(v)
+    _launch_tangent("sw_tangent_apply_launch", con, topology, v, coef, con.ops, con.fields, con.gridrot, con.itf_x,
+                    con.itf_y, out)
+    tangent_apply_launches += 1
+    return out
+
+
 def sw_tangent(q, v, con: SWConstants, topology):
     """J(q).v of the absolute SW operator at the state ``q`` in the direction
     ``v`` (both (3, 6, nel, nel, s^2), the constants' dtype and device), the
     halos of both taken from the state. A CPU tensor runs
-    ``sw_tangent_plain``; a CUDA tensor makes one launch of the tangent
-    kernel (csrc/sw_operator.cu, ``sw_tangent_state_launch``) on the current
-    stream, counted in ``tangent_launches``, or raises: no fallback to the
-    plain version."""
-    global tangent_launches
-    _check_npanel(con, 6, "sw_tangent")
-    _check(q, None, con, None, 0.0, None)
-    _check(v, None, con, None, 0.0, None)
-    _check_topology(con, topology, "sw_tangent")
+    ``sw_tangent_plain``; a CUDA tensor launches the prep kernel, then the
+    apply kernel (``sw_tangent_prep``, ``sw_tangent_apply``), or raises: no
+    fallback to the plain version."""
+    _check_tangent(con, topology, "sw_tangent", q=q, v=v)
     if q.device.type == "cpu":
         return sw_tangent_plain(q, v, con, topology)
-    _cuda_or_raise(q, "sw_tangent")
-    _check_kernel_shape(con, "sw_tangent")
-    from ..kernels.build import load_library
-
-    lib = load_library("sw_operator")
-    tab = halo_tables(topology, q.device, q.dtype)
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        rc = lib.sw_tangent_state_launch(
-            1 if q.dtype == torch.float64 else 0, con.s, con.nel, _ptr(q), _ptr(v), _ptr(con.ops),
-            _ptr(con.fields), _ptr(con.gridrot), _ptr(con.itf_x), _ptr(con.itf_y), _ptr(tab.src),
-            _ptr(tab.flip), _ptr(tab.conv), _ptr(out), _stream(q.device),
-        )
-    _raise_on(rc, lib, "sw_tangent")
-    tangent_launches += 1
-    return out
+    return sw_tangent_apply(sw_tangent_prep(q, con, topology), v, con, topology)
 
 
 # ---------------------------------------------------------------------------

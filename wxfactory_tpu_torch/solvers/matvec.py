@@ -13,8 +13,9 @@ per closure. The finite-difference form is kept as a parity and debug
 mode.
 
 Every closure counts the Jacobian actions it is asked for in
-``jacobian_actions``, so a run can hold the tangent kernel's launches
-against them.
+``jacobian_actions``, and every linearisation point prepared through an
+RHS's ``jtv_prep`` in ``linearisations``, so a run can hold the tangent
+kernels' launches against them.
 """
 
 from typing import Callable, Optional
@@ -22,15 +23,25 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-# Jacobian actions asked of every closure made here.
+# Jacobian actions asked of every closure made here, and the linearisation
+# points (``jtv_prep`` calls) their Jacobian actions were prepared at.
 jacobian_actions = 0
+linearisations = 0
+
+
+def _prepared(rhs, q) -> Callable:
+    """``v -> J(q).v`` through ``rhs.jtv_prep(q)`` once and
+    ``rhs.jtv_apply`` a call; counts the preparation."""
+    global linearisations
+    linearisations += 1
+    prep = rhs.jtv_prep(q)
+    return lambda v: rhs.jtv_apply(prep, v)
 
 
 def jacobian(rhs: Callable, q: torch.Tensor) -> Callable:
     """``v -> J(q).v`` (state-shaped in and out), uncounted."""
     if hasattr(rhs, "jtv_prep"):
-        prep = rhs.jtv_prep(q)
-        return lambda v: rhs.jtv_apply(prep, v)
+        return _prepared(rhs, q)
     return lambda v: torch.func.jvp(rhs, (q,), (v,))[1]
 
 
@@ -47,8 +58,7 @@ def companion_jacobian(rhs32: Callable, q32: torch.Tensor) -> Callable:
     through ctypes has no derivative, so off the CPU a companion without
     ``jtv_prep`` raises."""
     if hasattr(rhs32, "jtv_prep"):
-        prep = rhs32.jtv_prep(q32)
-        return lambda v: rhs32.jtv_apply(prep, v)
+        return _prepared(rhs32, q32)
     if q32.device.type != "cpu":
         raise NotImplementedError(
             f"the float32 companion has no Jacobian-action kernel (jtv_prep), and torch.func.jvp cannot pass "
