@@ -35,9 +35,9 @@ and drives the port's two main paths, shallow water and 3D Euler:
 6. the same dcmip31 run (3x2x2, s=2, TVD-RK3, dt=2 s, 10 steps, f64) on the
    GPU and on the CPU: final states agree to 1e-10 of each variable's max;
 7. the 3D main path: ``python -m wxfactory_tpu_torch`` on dcmip31 at
-   nel_h = nel_v = 20, s=3 (1,296,000 points), f64, TVD-RK3, dt=0.1 s, 200
-   steps (20 simulated seconds), then the canonical 12x12x3, s=2, dt=0.5 s,
-   150 steps; each with exactly one kernel launch per RK stage, a finite
+   nel_h = nel_v = 20, s=3 (1,296,000 points), f64, TVD-RK3, dt=0.1 s, 100
+   steps (10 simulated seconds), then the canonical 12x12x3, s=2, dt=0.5 s,
+   75 steps; each with exactly one kernel launch per RK stage, a finite
    state, mass drift below 1e-11 and checkpoints that read back;
 8. time per call at 20x20x3, s=3 of the 3D kernel (RHS; stage + x +
    traces: the card's time, 20 calls queued behind a sleep kernel, in
@@ -61,7 +61,7 @@ and drives the port's two main paths, shallow water and 3D Euler:
     states within 1e-10 of each variable's max;
 11. the EPI2 main path: ``python -m wxfactory_tpu_torch`` on dcmip31 with
     epi2, kiops, tolerance 1e-7, dt=30 s, at the canonical 12x12x3, s=2 for
-    10 steps, then at 20x20x3, s=3 for 3 steps; each with one RHS-kernel
+    5 steps, then at 20x20x3, s=3 for 3 steps; each with one RHS-kernel
     launch a step, one tangent apply launch per Jacobian action the
     integrator asked for, one tangent prep launch a step (the
     linearisation point), no plain call, a finite state, mass drift
@@ -93,9 +93,10 @@ and drives the port's two main paths, shallow water and 3D Euler:
     reported);
 15. the mixed-precision EPI2 main path: ``python -m wxfactory_tpu_torch``
     with epi2, kiops_jit, mixed_precision_krylov = 1, device_step_chunk = 5,
-    at the canonical 12x12x3, s=2 (20 steps) and at 20x20x3, s=3 (5 steps),
+    at the canonical 12x12x3, s=2 (10 steps) and at 20x20x3, s=3 (5 steps),
     then both with mixed_precision_krylov = 0 (the float64 kiops_jit step;
-    10 and 5 steps);
+    5 and 5 steps; the profile on a second build at the canonical shapes and
+    the mixed main one);
     each with one tangent apply launch (on the perturbation prep's buffer
     when mixed) per Jacobian action, one prep launch a step, one RHS launch
     a step (and, mixed, the float64 base RHS at setup), no plain call, host
@@ -160,8 +161,8 @@ and drives the port's two main paths, shallow water and 3D Euler:
     build/chip_smoke/phase21.json);
 22. the 3D production explicit point as bench.py:623-685 drives it:
     dcmip31, float32 perturbation form around the initial state through
-    Tvdrk3, at (nel_h, nel_v, s, dt, steps) = (12,3,2,0.5,150) and
-    (20,20,3,0.1,200), with exactly three perturbation stage launches a
+    Tvdrk3, at (nel_h, nel_v, s, dt, steps) = (12,3,2,0.5,75) and
+    (20,20,3,0.1,100), with exactly three perturbation stage launches a
     step, no other operator launch and no plain call, the bench's accuracy
     gate (the f32 perturbation RHS within 5e-3 of the f64 truth's tendency
     scale at a 4-step drift state), a finite state and mass drift below
@@ -170,7 +171,7 @@ and drives the port's two main paths, shallow water and 3D Euler:
     and the f64 absolute form beside it (same launch and state checks, f64
     mass drift below 1e-11);
 23. dcmip31 Ros2 (tolerance 1e-7, gmres_restart 20) through
-    Simulation(ini).run() at the canonical 12x12x3, s=2, dt=30 s (10 steps)
+    Simulation(ini).run() at the canonical 12x12x3, s=2, dt=30 s (5 steps)
     and at 20x20x20, s=3, dt=2 s (3 steps; FGMRES without a preconditioner
     stalls there at dt=30 s): the host fgmres, fgmres_jit float64 and
     fgmres_jit with mixed_precision_krylov = 1, both with
@@ -193,7 +194,7 @@ and drives the port's two main paths, shallow water and 3D Euler:
     (10,20,3), (7,3,3) and the rotating planet at (2,3,3) on 2x2 meshes,
     (20,20,3) on a whole panel (tolerances and the mass check in
     kernels/check.py, _compare_tile);
-26. the tile-parallel TVD-RK3 step with every tile in one process, 100
+26. the tile-parallel TVD-RK3 step with every tile in one process, 40
     steps: SW case 6 at nel=64, s=3, dt=10 s (float64 and float32
     absolute, float32 perturbation) and dcmip31 at 20x20x20, s=3, dt=0.1
     s (float64 absolute, float32 perturbation), each at N=1 and N=2;
@@ -240,7 +241,43 @@ and drives the port's two main paths, shallow water and 3D Euler:
     plain call, a finite state with 7,500 < h < 11,000, blockstats mass
     drift below 1e-10 (mixed: the Krylov tolerance) at every step; steps/s,
     Krylov iterations and host syncs a step; and (a) again on the CPU:
-    identical Krylov statistics, final states within 1e-9 of scale.
+    identical Krylov statistics, final states within 1e-9 of scale;
+31. the kernels with bottom topography (Williamson case 5) against their
+    plain versions at the shapes of phase 1, f64 and f32: the state mode's
+    RHS, stage and stage with x (with mass; its null topography planes bit
+    for bit the kernel without topography, all-zero planes bit for bit the
+    null ones) and the tangent prep and apply (phase 29's checks on case 5
+    and on case 5 at rest); the tangent pair at s = 1 (the fv-mg levels) at
+    (nel, 1) = (4,1), (10,1), (20,1), (64,1), (128,1); the card's time a
+    call with and without topography at (10,3) and (64,3), and of the s = 1
+    pair at (20,1) and (128,1), beside the bounds (rows in
+    build/chip_smoke/phase31_*.json);
+32. the SW cases through Simulation(ini).run(), float64, tolerance 1e-7:
+    case 5 at nel=10, s=3, EPI3 + pmex, dt=1800 s (5 steps) and at nel=64,
+    s=3, TVD-RK3, dt=10 s (30 steps); Galewsky (case 8) at nel=30, s=3,
+    dt=900 s, EPI3 + kiops_jit mixed (4 steps) and at (64,7), TVD-RK3, dt=10
+    s (10 steps; its setup includes the balance quadrature); cases 0, 2, 9
+    and 10 for 3 TVD-RK3 steps at nel=10, dt=300 s; each with one
+    state-mode launch an RHS call or stage (with topography for 5 and 10),
+    one tangent apply a Jacobian action and one prep a linearisation point
+    (with topography for case 5), no plain call, a finite checkpoint and
+    blockstats mass drift below 1e-10 (the mixed companion: 1e-7); case 1
+    stops at step 1 at the NaN guard (h = 0 off the bell), as the JAX
+    package's does; the case-5 EPI3 run against the same run on the CPU:
+    identical Krylov statistics, within 1e-9 of scale;
+33. the preconditioned solves on the card: the case-5 rational system
+    (nel=10, s=3, dt=3600 s) by FGMRES(100) alone, with 2-level p-mg
+    (kiops smoother, pseudo_cfl 720) and with 3-level fv-mg (its FV levels
+    on the s = 1 tangent pair), gated as the JAX package's
+    tests/test_framework.py:316-317 (p-mg: 4x fewer iterations, residual
+    within 1.05 of the plain one; fv-mg: no more iterations than plain);
+    lu and ilu at nel=4, s=2 (fewer iterations than plain); Ros2 + p-mg
+    through Simulation on case 5 (nel=10, dt=1800 s, 2 steps; kiops
+    smoother) and on dcmip31 at 20x20x20, s=3, dt=30 s (1 step; erk3
+    smoother, pseudo_cfl 5), each beside the same run without a
+    preconditioner (the host FGMRES with p-mg, the device FGMRES without,
+    as linear_solver = auto takes them): FGMRES iterations a step, steps/s,
+    the levels' prep and apply launches, no plain call.
 
 Each phase prints one JSON line; then the kernels line, the card's
 ``nvidia-smi`` name and power limit, and last the result line. Any failure
@@ -272,7 +309,7 @@ E3_MAIN = (20, 20, 3)
 # Tile steps of phase 26: (nel, s, dt) of case 6 and (nel_h, nel_v, s, dt) of dcmip31.
 SW_TILE_MAIN = (64, 3, 10.0)
 E3_TILE_MAIN = E3_MAIN + (0.1,)
-TILE_STEPS = 100
+TILE_STEPS = 40
 WORK = ROOT / "build" / "chip_smoke"
 # Peak rates of one H100 SXM (NVIDIA's data sheet): HBM bytes/s, and FLOP/s
 # outside the tensor cores by type.
@@ -459,6 +496,8 @@ def reset_counts():
     swop.launches = e3op.launches = e3op.tangent_launches = e3op.tangent_prep_launches = e3op.plain_tangent_calls = 0
     swop.pert_launches = swop.edge_launches = swop.halo_launches = swop.run_launches = swop.plain_calls = 0
     swop.state_launches = swop.tangent_prep_launches = swop.tangent_apply_launches = swop.plain_tangent_calls = 0
+    swop.topo_launches = swop.topo_tangent_prep_launches = swop.topo_tangent_apply_launches = 0
+    swop.s1_tangent_prep_launches = swop.s1_tangent_apply_launches = 0
     e3op.pert_launches = e3op.pert_stage_launches = e3op.pert_tangent_launches = e3op.plain_calls = 0
     swop.tile_launches = swop.pert_tile_launches = e3op.tile_launches = e3op.pert_tile_launches = 0
     matvec.jacobian_actions = matvec.linearisations = device.host_syncs = 0
@@ -475,6 +514,9 @@ def read_counts():
             "sw_state": swop.state_launches, "sw_tangent_prep": swop.tangent_prep_launches,
             "sw_tangent_apply": swop.tangent_apply_launches,
             "sw_plain_tangent_calls": swop.plain_tangent_calls,
+            "sw_operator_topo": swop.topo_launches, "sw_tangent_prep_topo": swop.topo_tangent_prep_launches,
+            "sw_tangent_apply_topo": swop.topo_tangent_apply_launches,
+            "sw_tangent_prep_s1": swop.s1_tangent_prep_launches, "sw_tangent_apply_s1": swop.s1_tangent_apply_launches,
             "euler3d_operator": e3op.launches,
             "euler3d_tangent": e3op.tangent_launches, "euler3d_tangent_prep": e3op.tangent_prep_launches,
             "euler3d_pert": e3op.pert_launches,
@@ -674,8 +716,8 @@ def _dcmip31_run(torch, nel_h, nel_v, s, dt, nsteps, tag):
 
 
 def phase7(torch):
-    main = _dcmip31_run(torch, *E3_MAIN, dt=0.1, nsteps=200, tag="main")
-    canonical = _dcmip31_run(torch, 12, 3, 2, dt=0.5, nsteps=150, tag="canonical")
+    main = _dcmip31_run(torch, *E3_MAIN, dt=0.1, nsteps=100, tag="main")
+    canonical = _dcmip31_run(torch, 12, 3, 2, dt=0.5, nsteps=75, tag="canonical")
     emit({"phase": 7, "results": [main, canonical]})
     return main["launches"]
 
@@ -866,7 +908,7 @@ def _epi2_run(torch, nel_h, nel_v, s, nsteps, tag, profile_steps):
 
 
 def phase11(torch):
-    canonical = _epi2_run(torch, 12, 3, 2, nsteps=10, tag="canonical", profile_steps=3)
+    canonical = _epi2_run(torch, 12, 3, 2, nsteps=5, tag="canonical", profile_steps=3)
     main = _epi2_run(torch, *E3_MAIN, nsteps=3, tag="main", profile_steps=1)
     emit({"phase": 11, "results": [canonical, main]})
     return {"euler3d_tangent_apply": main["tangent_launches"], "euler3d_tangent_prep": main["tangent_prep_launches"]}
@@ -1132,13 +1174,13 @@ def _kiops_jit_run(torch, nel_h, nel_v, s, nsteps, mixed, tag, profile_steps, ch
 
 def phase15(torch):
     rows = [
-        _kiops_jit_run(torch, 12, 3, 2, nsteps=20, mixed=1, tag="canonical_mixed", profile_steps=3),
+        _kiops_jit_run(torch, 12, 3, 2, nsteps=10, mixed=1, tag="canonical_mixed", profile_steps=3),
         # Mass at every step: chunks of one, a checkpoint after each.
-        _kiops_jit_run(torch, 12, 3, 2, nsteps=20, mixed=1, tag="canonical_mixed_every_step", profile_steps=0,
+        _kiops_jit_run(torch, 12, 3, 2, nsteps=10, mixed=1, tag="canonical_mixed_every_step", profile_steps=0,
                        chunk=1),
         _kiops_jit_run(torch, *E3_MAIN, nsteps=5, mixed=1, tag="main_mixed", profile_steps=1),
-        _kiops_jit_run(torch, 12, 3, 2, nsteps=10, mixed=0, tag="canonical_f64", profile_steps=3),
-        _kiops_jit_run(torch, *E3_MAIN, nsteps=5, mixed=0, tag="main_f64", profile_steps=1),
+        _kiops_jit_run(torch, 12, 3, 2, nsteps=5, mixed=0, tag="canonical_f64", profile_steps=3),
+        _kiops_jit_run(torch, *E3_MAIN, nsteps=5, mixed=0, tag="main_f64", profile_steps=0),
     ]
     emit({"phase": 15, "results": rows})
     return {"euler3d_pert_tangent_apply": rows[2]["tangent_launches"],
@@ -1623,7 +1665,7 @@ def phase21(torch):
 
 # (nel_h, nel_v, s, dt, steps): bench.py:623-685's canonical dcmip31 point and
 # phase 7's constant-DOF shape.
-E3_PRODUCTION = [(12, 3, 2, 0.5, 150), E3_MAIN + (0.1, 200)]
+E3_PRODUCTION = [(12, 3, 2, 0.5, 75), E3_MAIN + (0.1, 100)]
 
 
 def _e3_gate(torch, geom, ops, metric, topology, q0, rhs32, bal32):
@@ -1864,7 +1906,7 @@ def _ros2_gate(torch):
 # preconditioner stalls (relative residual 1.2e-5 after 20,000 iterations;
 # 1.1e-6 after 1,200 at dt = 3 s, converged in 55 at dt = 2 s on an H100:
 # tools/ros2_fgmres_dt.py).
-ROS2_POINTS = [(12, 3, 2, 30.0, 10, "canonical"), E3_MAIN + (2.0, 3, "main")]
+ROS2_POINTS = [(12, 3, 2, 30.0, 5, "canonical"), E3_MAIN + (2.0, 3, "main")]
 
 
 def phase23(torch):
@@ -2282,7 +2324,7 @@ equations = shallow_water
 precision = float64
 distribute = off
 [Test_case]
-case_number = 6
+case_number = {case}
 [Time_integration]
 dt = {dt}
 t_end = {t_end}
@@ -2293,13 +2335,13 @@ mixed_precision_krylov = {mixed}
 tolerance = 1e-7
 verbose_solver = 1
 [Spatial_discretization]
-num_solpts = 3
+num_solpts = {s}
 num_elements_horizontal = {nel}
 [Grid]
 grid_type = cubed_sphere
 [Output_options]
 save_state_freq = {steps}
-stat_freq = 1
+stat_freq = {stat}
 output_dir = {out}
 """
 # Phase 30's runs: (tag, nel, dt, steps, integrator, exponential solver,
@@ -2326,30 +2368,38 @@ def _sw_krylov(text):
     return lines
 
 
-def _sw_epi_run(torch, tag, nel, dt, nsteps, integrator, solver, linear_solver, mixed, device="cuda"):
-    """One case-6 run through ``Simulation(ini).run()`` (the CLI's call) on
-    ``device``: launch counts (one state-mode operator launch an RHS call,
-    one tangent apply launch a Jacobian action, one tangent prep launch a
-    linearisation point and dtype, no plain call on the card), the
-    Krylov statistics, host syncs, blockstats mass drift, h bounds and the
-    final checkpoint; returns (row, final state)."""
+def _sw_run(torch, tag, nel, dt, nsteps, integrator, solver, linear_solver, mixed, device="cuda", case=6, s=3):
+    """One shallow-water run through ``Simulation(ini).run()`` (the CLI's
+    call) on ``device``: launch counts on the card (one state-mode operator
+    launch an RHS call or RK stage, with topography for cases 5 and 10; one
+    tangent apply launch a Jacobian action and one prep launch a
+    linearisation point and dtype, with topography for case 5; no plain
+    call), the Krylov statistics, host syncs, the final checkpoint (finite;
+    case 6: 7,500 < h < 11,000), blockstats mass drift below 1e-10 (the
+    Krylov tolerance with the mixed companion; the drift of the states' h
+    integral for cases 0 and 1, which print no blockstats, as in the JAX
+    package); returns (row, final state)."""
     import numpy as np
 
+    from wxfactory_tpu_torch.output import global_integral_2d
     from wxfactory_tpu_torch.output.state import load_state
     from wxfactory_tpu_torch.simulation import Simulation
 
-    out_dir = WORK / f"phase30_{tag}_{device}"
+    out_dir = WORK / f"sw_{tag}_{device}"
     out_dir.mkdir(parents=True, exist_ok=True)
     for old in glob.glob(str(out_dir / "state_vector_*")):
         Path(old).unlink()
-    ini = WORK / f"case6_{tag}_{device}.ini"
-    ini.write_text(SW_EPI_INI.format(dt=dt, t_end=dt * nsteps, integrator=integrator, solver=solver,
-                                     linear_solver=linear_solver, mixed=mixed, nel=nel, steps=nsteps, out=out_dir))
+    big = nel * s >= 192
+    ini = WORK / f"sw_{tag}_{device}.ini"
+    ini.write_text(SW_EPI_INI.format(case=case, dt=dt, t_end=dt * nsteps, integrator=integrator, solver=solver,
+                                     linear_solver=linear_solver, mixed=mixed, s=s, nel=nel, steps=nsteps,
+                                     stat=nsteps if big else 1, out=out_dir))
     log = io.StringIO()
     reset_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(log):
         sim = Simulation(str(ini), device=device)
+        setup = time.perf_counter() - t0
         sim.run()
     wall = time.perf_counter() - t0
     counts = read_counts()
@@ -2361,41 +2411,49 @@ def _sw_epi_run(torch, tag, nel, dt, nsteps, integrator, solver, linear_solver, 
         raise AssertionError(f"SW {tag} run on {device} did not complete; Krylov statistics {krylov}")
     if mixed and ("no effect" in text or "cannot consume" in text):
         raise AssertionError("mixed_precision_krylov was flagged as having no effect")
-    epi = integrator.startswith("epi")
+    topo = case in (5, 10)
+    epi, explicit = integrator.startswith("epi"), integrator == "tvdrk3"
     # RHS calls: EPI3's first step one at q plus one a bootstrap Epi2
-    # substep (10), then one a step; Ros2 one a step.
-    rhs_calls = (11 + (nsteps - 1)) if epi else nsteps
-    reported = nsteps - 1 if epi else nsteps
+    # substep (10), then one a step; Ros2 one a step; TVD-RK3 three stages.
+    rhs_calls = (11 + (nsteps - 1)) if epi else 3 * nsteps if explicit else nsteps
+    reported = nsteps - 1 if epi else 0 if explicit else nsteps
     if len(krylov) != reported:
         raise AssertionError(f"{len(krylov)} Krylov reports in {nsteps} steps: {krylov}")
     if device == "cuda":
         want = {"sw_state": rhs_calls, "sw_operator": rhs_calls + mixed,
                 "sw_tangent_apply": counts["jacobian_actions"], "sw_tangent_prep": counts["linearisations"],
+                "sw_operator_topo": rhs_calls if topo else 0,
+                "sw_tangent_apply_topo": counts["jacobian_actions"] if topo else 0,
+                "sw_tangent_prep_topo": counts["linearisations"] if topo else 0,
                 "sw_pert": 0, "sw_plain_calls": 0, "sw_plain_tangent_calls": 0}
         got = {k: counts[k] for k in want}
-        if got != want or counts["jacobian_actions"] == 0 or counts["linearisations"] == 0:
-            raise AssertionError(f"launches {got} in {nsteps} {integrator} steps, expected {want}")
+        if got != want or (not explicit and (counts["jacobian_actions"] == 0 or counts["linearisations"] == 0)):
+            raise AssertionError(f"{tag}: launches {got} in {nsteps} {integrator} steps, expected {want}")
     drifts = [float(v) for v in re.findall(r"normalized error for mass = (\S+)", text)]
     files = glob.glob(str(out_dir / f"state_vector_*.{nsteps:08d}.npy"))
     if len(files) != 1:
-        raise AssertionError(f"checkpoint files {files}")
+        raise AssertionError(f"{tag}: checkpoint files {files}")
     state, _, _ = load_state(files[0])
     h = state[0]
-    if state.shape != (3, 6, nel, nel, 9) or not bool(np.isfinite(state).all()):
-        raise AssertionError(f"checkpoint state {state.shape} not finite or misshapen")
-    if not (7500.0 < float(h.min()) and float(h.max()) < 11000.0):
+    if state.shape != (3, 6, nel, nel, s * s) or not bool(np.isfinite(state).all()):
+        raise AssertionError(f"{tag}: checkpoint state {state.shape} not finite or misshapen")
+    if case == 6 and not (7500.0 < float(h.min()) and float(h.max()) < 11000.0):
         raise AssertionError(f"h in ({float(h.min())}, {float(h.max())}), outside (7500, 11000)")
+    if case < 2:
+        mass = lambda hh: global_integral_2d(hh, sim.ops, sim.metric)
+        m0 = mass(sim.initial_q[0].double().cpu().numpy())
+        drifts = [0.0, (mass(h) - m0) / m0]
     # float64 Krylov: the SW gate 1e-10; the float32 companion's basis: the
     # Krylov tolerance, as phase 15 holds the 3D mixed runs.
     drift_tol = 1e-7 if mixed else 1e-10
-    if len(drifts) != nsteps + 1 or not max(abs(d) for d in drifts) < drift_tol:
-        raise AssertionError(f"blockstats mass drift {drifts}, limit {drift_tol}")
+    if len(drifts) != (2 if big or case < 2 else nsteps + 1) or not max(abs(d) for d in drifts) < drift_tol:
+        raise AssertionError(f"{tag}: blockstats mass drift {drifts}, limit {drift_tol}")
     run_s = float(run.group(2))
     row = {
-        "tag": tag, "device": device, "case": 6, "nel": nel, "s": 3, "points": 6 * nel * nel * 9, "dtype": "float64",
-        "integrator": integrator, "exponential_solver": solver if epi else None,
-        "linear_solver": None if epi else linear_solver, "mixed_precision_krylov": mixed, "tolerance": 1e-7,
-        "dt": dt, "steps": int(run.group(1)), "setup_s": wall - run_s, "run_s": run_s,
+        "tag": tag, "device": device, "case": case, "nel": nel, "s": s, "points": 6 * nel * nel * s * s,
+        "dtype": "float64", "integrator": integrator, "exponential_solver": solver if epi else None,
+        "linear_solver": linear_solver if integrator == "ros2" else None, "mixed_precision_krylov": mixed,
+        "tolerance": 1e-7, "dt": dt, "steps": int(run.group(1)), "setup_s": setup, "run_s": run_s,
         "steps_per_s": float(run.group(3)), "main_wall_s": wall, "rhs_calls": rhs_calls,
         "jacobian_actions": counts["jacobian_actions"], "jacobian_actions_per_step": counts["jacobian_actions"] / nsteps,
         "linearisations": counts["linearisations"],
@@ -2407,9 +2465,10 @@ def _sw_epi_run(torch, tag, nel, dt, nsteps, integrator, solver, linear_solver, 
     if device == "cuda":
         row.update(operator_launches=counts["sw_operator"], state_launches=counts["sw_state"],
                    tangent_prep_launches=counts["sw_tangent_prep"], tangent_apply_launches=counts["sw_tangent_apply"],
-                   edge_launches=counts["sw_edges"],
-                   halo_launches=counts["sw_halo"], plain_calls=counts["sw_plain_calls"],
-                   plain_tangent_calls=counts["sw_plain_tangent_calls"])
+                   edge_launches=counts["sw_edges"], halo_launches=counts["sw_halo"],
+                   plain_calls=counts["sw_plain_calls"], plain_tangent_calls=counts["sw_plain_tangent_calls"],
+                   topo_launches={k: counts[k] for k in ("sw_operator_topo", "sw_tangent_prep_topo",
+                                                         "sw_tangent_apply_topo")})
     return row, state
 
 
@@ -2420,12 +2479,12 @@ def phase30(torch):
 
     rows, states, launches = [], {}, None
     for tag, nel, dt, nsteps, integrator, solver, linear_solver, mixed in SW_EPI_RUNS:
-        row, states[tag] = _sw_epi_run(torch, tag, nel, dt, nsteps, integrator, solver, linear_solver, mixed)
+        row, states[tag] = _sw_run(torch, tag, nel, dt, nsteps, integrator, solver, linear_solver, mixed)
         if tag.startswith("a_"):
             launches = {"sw_tangent_prep": row["tangent_prep_launches"], "sw_tangent_apply": row["tangent_apply_launches"]}
         rows.append(row)
     tag, nel, dt, nsteps, integrator, solver, linear_solver, mixed = SW_EPI_RUNS[0]
-    cpu, cpu_state = _sw_epi_run(torch, tag, nel, dt, nsteps, integrator, solver, linear_solver, mixed, device="cpu")
+    cpu, cpu_state = _sw_run(torch, tag, nel, dt, nsteps, integrator, solver, linear_solver, mixed, device="cpu")
     scale = np.abs(cpu_state).reshape(3, -1).max(axis=1).reshape(3, 1, 1, 1, 1)
     err = float((np.abs(states[tag] - cpu_state) / scale).max())
     same_krylov = cpu["krylov_per_reported_step"] == rows[0]["krylov_per_reported_step"]
@@ -2436,6 +2495,342 @@ def phase30(torch):
     if not (err <= 1e-9 and same_krylov and cpu["jacobian_actions"] == rows[0]["jacobian_actions"]):
         raise AssertionError(f"GPU and CPU EPI3 runs differ: {err} of scale, Krylov {rows[0]['krylov_per_reported_step']}"
                              f" against {cpu['krylov_per_reported_step']}")
+    return launches
+
+
+# Phase 31: the kernels with bottom topography (Williamson case 5) and the
+# tangent pair at s = 1 (the fv-mg levels: nel 10 and 64 at s = 3 coarsen to
+# FV grids of 20 and 10, 128 and 64 elements a panel edge).
+TOPO_TIMED = [(10, 3), (64, 3)]
+S1_SHAPES = [(4, 1), (10, 1), (20, 1), (64, 1), (128, 1)]
+S1_TIMED = [(20, 1), (128, 1)]
+
+
+def phase31(torch, smi):
+    """The state mode with topography (RHS, stages) and the tangent pair with
+    topography against their plain versions at SHAPES, float64 and float32
+    (with mass; null planes bit for bit the kernels without topography,
+    all-zero planes bit for bit null ones), the tangent pair at s = 1 at the
+    fv-mg level shapes, and the card's time a call with and without
+    topography beside the bounds."""
+    from wxfactory_tpu_torch.kernels import check
+    from wxfactory_tpu_torch.ops import sw_operator as swop
+
+    dtypes = (torch.float64, torch.float32)
+    op_rows = [r for nel, s in SHAPES for dtype in dtypes for r in check.compare_sw_topo_operator(nel, s, dtype, "cuda")]
+    emit_comparison(31, op_rows, ("nel", "s"), tag="_topo_operator")
+    tan_rows = [r for nel, s in SHAPES for dtype in dtypes
+                for r in check.compare_sw_tangent(nel, s, dtype, device="cuda", case=5)]
+    emit_comparison(31, tan_rows, ("nel", "s"), tag="_topo_tangent")
+    s1_rows = [r for nel, s in S1_SHAPES for dtype in dtypes for r in check.compare_sw_tangent(nel, s, dtype, "cuda")]
+    emit_comparison(31, s1_rows, ("nel", "s"), tag="_s1_tangent")
+    bad = [r for r in op_rows + tan_rows + s1_rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"the topography or s = 1 kernels disagree with their plain versions: {bad}")
+
+    timing = []
+    for nel, s in TOPO_TIMED + S1_TIMED:
+        for dtype in dtypes:
+            name = str(dtype).replace("torch.", "")
+            row = {"nel": nel, "s": s, "dtype": name}
+            if s >= 2:
+                con, topology, topo, _, y, _ = check.sw_topo_inputs(nel, s, dtype, "cuda")
+                rhs = _pair_ms(torch, lambda: swop.sw_operator(y, None, con, topology=topology, topo=topo),
+                               lambda: swop.sw_operator_plain(y, None, con, topology=topology, topo=topo), n=20,
+                               n_plain=3)
+                row.update({f"rhs_topo_{k}": v for k, v in rhs.items()})
+                row.update({f"rhs_topo_{k}": v for k, v in _bound(check.sw_work(nel, s, dtype, state=True, topo=True),
+                                                                   name).items()})
+                row["rhs_ms"] = _device_ms(torch, lambda: swop.sw_operator(y, None, con, topology=topology), 20)
+                row["rhs_bound_ms"] = _bound(check.sw_work(nel, s, dtype, state=True), name)["bound_ms"]
+                tcon, _, states, v, _, ttopo = check.sw_topo_tangent_inputs(nel, s, dtype, "cuda")
+                q = states["case5"]
+            else:
+                tcon, topology, states, v, _ = check.sw_tangent_inputs(nel, s, dtype, "cuda")
+                q, ttopo = states["case6"], None
+            coef = swop.sw_tangent_prep(q, tcon, topology, ttopo)
+            tag = "_topo" if ttopo is not None else ""
+            prep = _pair_ms(torch, lambda: swop.sw_tangent_prep(q, tcon, topology, ttopo),
+                            lambda: swop.sw_tangent_prep_plain(q, tcon, topology, ttopo), n=20, n_plain=3)
+            apply = _pair_ms(torch, lambda: swop.sw_tangent_apply(coef, v, tcon, topology, ttopo),
+                             lambda: swop.sw_tangent_apply_plain(coef, v, tcon, topology, ttopo), n=20, n_plain=3)
+            topo_on = ttopo is not None
+            for kernel, times, work in (
+                    ("prep", prep, check.sw_tangent_prep_work(nel, s, dtype, topo=topo_on)),
+                    ("apply", apply, check.sw_tangent_apply_work(nel, s, dtype, topo=topo_on))):
+                row.update({f"{kernel}{tag}_{k}": val for k, val in times.items()})
+                row.update({f"{kernel}{tag}_own_{k}": val for k, val in _bound(work, name).items()})
+            row.update({f"function{tag}_{k}": val
+                        for k, val in _bound(check.sw_tangent_work(nel, s, dtype, topo=topo_on), name).items()})
+            if topo_on:
+                # the same pair without topography, on the same q and v
+                coef0 = swop.sw_tangent_prep(q, tcon, topology)
+                row["prep_ms"] = _device_ms(torch, lambda: swop.sw_tangent_prep(q, tcon, topology), 20)
+                row["apply_ms"] = _device_ms(torch, lambda: swop.sw_tangent_apply(coef0, v, tcon, topology), 20)
+            timing.append(row)
+    resources = {f"{str(dtype).replace('torch.', '')} s={s}": {
+        "tangent": check.sw_tangent_resources(dtype, s),
+        **({"state_topo": check.sw_kernel_resources(dtype, s)["state_topo"]} if s >= 2 else {})}
+        for dtype in dtypes for s in range(1, 9)}
+    emit({"phase": 31, "gpu": smi, "timing_note": "*_kernel_ms, rhs_ms, prep_ms, apply_ms: the card's time a call "
+          "(calls queued behind a sleep kernel, CUDA events); *_event_ms: CUDA events around single calls, median; "
+          "*_topo: with case-5 topography; rhs_ms, prep_ms, apply_ms: the same call without topography; function: "
+          "J(q).v from q and v", "timing": timing, "resources": resources})
+    pick = lambda rows, nel, s: [r for r in rows if (r["nel"], r["s"], r["dtype"]) == (nel, s, "float64")]
+    tmain = pick(tan_rows, 10, 3)
+    return {"sw_operator_topo": max(r["max_abs_err"] for r in pick(op_rows, 10, 3)),
+            "sw_tangent_prep_topo": max(r["prep_max_abs_err"] for r in tmain),
+            "sw_tangent_apply_topo": max(max(r["max_abs_err"], r["apply_max_abs_err"]) for r in tmain),
+            "sw_tangent_prep_s1": max(r["prep_max_abs_err"] for r in pick(s1_rows, 20, 1)),
+            "sw_tangent_apply_s1": max(max(r["max_abs_err"], r["apply_max_abs_err"]) for r in pick(s1_rows, 20, 1)),
+            "timing": timing}
+
+
+# Phase 32's runs: (tag, nel, dt, steps, integrator, exponential solver,
+# linear solver, mixed_precision_krylov, case, s). Case 5 at its canonical shape (reference
+# config/case5.ini: nel = 10, s = 3) with EPI3 + pmex and at nel = 64 with
+# TVD-RK3; Galewsky at the JAX package's EPI3 production point
+# (bench.py:573-606: nel = 30, s = 3, dt = 900 s, kiops_jit mixed) and at
+# (64, 7) with TVD-RK3, whose setup includes the balance quadrature; the
+# other cases a few TVD-RK3 steps at nel = 10.
+SW_CASE_RUNS = [("case5_epi3_pmex", 10, 1800.0, 5, "epi3", "pmex", "fgmres", 0, 5, 3),
+                ("case5_tvdrk3_64", 64, 10.0, 30, "tvdrk3", "pmex", "fgmres", 0, 5, 3),
+                ("galewsky_epi3_kiops_jit_mixed", 30, 900.0, 4, "epi3", "kiops_jit", "fgmres", 1, 8, 3),
+                ("galewsky_tvdrk3_64_7", 64, 10.0, 10, "tvdrk3", "pmex", "fgmres", 0, 8, 7),
+                ("case0", 10, 300.0, 3, "tvdrk3", "pmex", "fgmres", 0, 0, 3),
+                ("case2", 10, 300.0, 3, "tvdrk3", "pmex", "fgmres", 0, 2, 3),
+                ("case9", 10, 300.0, 3, "tvdrk3", "pmex", "fgmres", 0, 9, 3),
+                ("case10", 10, 300.0, 3, "tvdrk3", "pmex", "fgmres", 0, 10, 3)]
+
+
+def phase32(torch):
+    """Every shallow-water case the port adds through the CLI's call on the
+    card, case 1 stopping at its NaN guard as the JAX package's does, and the
+    case-5 EPI3 run against the port's own CPU run."""
+    import numpy as np
+
+    from wxfactory_tpu_torch.simulation import Simulation
+
+    rows, states, launches = [], {}, {}
+    for run in SW_CASE_RUNS:
+        reset_counts()
+        row, states[run[0]] = _sw_run(torch, *run[:8], case=run[8], s=run[9])
+        emit({"phase": 32, "run": run[0], "steps_per_s": row["steps_per_s"], "setup_s": row["setup_s"],
+              "mass_drift": row["mass_drift_per_step"][-1]})
+        for k, n in row["topo_launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        rows.append(row)
+    # Case 1: the bell leaves h = 0 outside it, where the operator divides 0
+    # by 0; the JAX package's Simulation stops at step 1 with the same error.
+    text = SW_EPI_INI.format(case=1, dt=300.0, t_end=900.0, integrator="tvdrk3", solver="pmex", linear_solver="fgmres",
+                             mixed=0, s=3, nel=10, steps=3, stat=1, out=WORK / "phase32_case1")
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            Simulation(_config(text), device="cuda").run()
+        case1 = "ran"
+    except RuntimeError as err:
+        case1 = str(err)
+    if case1 != "NaN/Inf detected in state after step 1":
+        raise AssertionError(f"case 1: {case1}")
+    run = SW_CASE_RUNS[0]
+    cpu, cpu_state = _sw_run(torch, *run[:8], device="cpu", case=run[8], s=run[9])
+    scale = np.abs(cpu_state).reshape(3, -1).max(axis=1).reshape(3, 1, 1, 1, 1)
+    err = float((np.abs(states[SW_CASE_RUNS[0][0]] - cpu_state) / scale).max())
+    same_krylov = cpu["krylov_per_reported_step"] == rows[0]["krylov_per_reported_step"]
+    emit({"phase": 32, "results": rows, "case1": case1, "cpu_case5_epi3": {
+        "steps_per_s": cpu["steps_per_s"], "krylov_per_reported_step": cpu["krylov_per_reported_step"],
+        "gpu_vs_cpu_err": err, "tol": 1e-9, "same_krylov": same_krylov}})
+    if not (err <= 1e-9 and same_krylov):
+        raise AssertionError(f"GPU and CPU case-5 EPI3 runs differ: {err} of scale, Krylov "
+                             f"{rows[0]['krylov_per_reported_step']} against {cpu['krylov_per_reported_step']}")
+    return launches
+
+
+def _config(text):
+    from wxfactory_tpu_torch.config import Configuration
+
+    return Configuration(text)
+
+
+def _fgmres_solve(torch, A, b, restart, maxiter, pre=None):
+    """One host FGMRES solve timed on the host (a final synchronize), with
+    the Jacobian actions and host syncs it took."""
+    from wxfactory_tpu_torch.common import device
+    from wxfactory_tpu_torch.solvers import fgmres, matvec
+
+    torch.cuda.synchronize()
+    jv, syncs = matvec.jacobian_actions, device.host_syncs
+    t0 = time.perf_counter()
+    x, r, nb, it, flag, _ = fgmres(A, b, tol=1e-7, restart=restart, maxiter=maxiter, preconditioner=pre)
+    torch.cuda.synchronize()
+    return {"iterations": it, "relative_residual": r / nb, "residual": r, "flag": flag,
+            "seconds": time.perf_counter() - t0, "system_jacobian_actions": matvec.jacobian_actions - jv,
+            "host_syncs": device.host_syncs - syncs}
+
+
+def _levels(mg):
+    return [{"s": lv.num_solpts, "nel": lv.rhs.con.nel, "preps": lv.preps, "applies": lv.applies} for lv in mg.levels]
+
+
+PMG_CASE5 = dict(kind="p-mg", num_levels=2, num_pre_smoothe=1, num_post_smoothe=1, pseudo_cfl=720.0, smoother="kiops")
+FVMG_CASE5 = dict(PMG_CASE5, kind="fv-mg", num_levels=3)
+
+# The preconditioners of phase 33's Ros2 runs (without one: the same
+# Simulation with its preconditioner removed). dcmip31 takes the erk3
+# smoother: the kiops smoother's Arnoldi stops at its first vector there
+# (its happy-breakdown test is absolute, at its tolerance 1e-2) and returns
+# a zero correction, on which FGMRES breaks down (the JAX package's
+# smoother alike, ROADMAP.md section 3).
+ROS2_PRE_SW = """
+[Preconditioning]
+preconditioner = {pre}
+num_mg_levels = 2
+mg_smoother = kiops
+pseudo_cfl = 720
+"""
+ROS2_PRE_E3 = """
+[Preconditioning]
+preconditioner = {pre}
+num_mg_levels = 2
+mg_smoother = erk3
+pseudo_cfl = 5
+"""
+FGMRES_LINE = re.compile(r"fgmres (convergence|stagnation) at iteration (\d+)")
+FGMRES_JIT_LINE = re.compile(r"FGMRES\(jit\) (convergence|stagnation) at iteration (\d+)")
+
+
+def _ros2_pre_pair(torch, tag, text, nsteps):
+    """A Ros2 run through ``Simulation(ini).run()`` with the INI's p-mg
+    preconditioner (the host FGMRES, which ``auto`` takes with one), then
+    the same run on the same Simulation with no preconditioner (``auto``:
+    the device FGMRES): FGMRES iterations a step, steps/s, the levels' prep
+    and apply launches, no plain call."""
+    from wxfactory_tpu_torch.simulation import Simulation
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        sim = Simulation(_config(text), device="cuda")
+    setup = time.perf_counter() - t0
+    pc = sim.integrator.preconditioner
+    rows = []
+    for pre in ("p-mg", "none"):
+        if pre == "none":
+            sim.integrator.preconditioner = None
+        log = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            sim.run()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        out = log.getvalue()
+        run = re.search(r"Completed (\d+) steps in (\S+) s \((\S+) steps/s\)", out)
+        if run is None:
+            sys.stderr.write(out[-3000:])
+            raise AssertionError(f"Ros2 {tag} with {pre} did not complete")
+        found = (FGMRES_LINE if pre == "p-mg" else FGMRES_JIT_LINE).findall(out)
+        row = {"tag": tag, "preconditioner": pre, "setup_s": setup, "steps": int(run.group(1)),
+               "steps_per_s": float(run.group(3)), "run_s": float(run.group(2)), "wall_s": wall,
+               "fgmres_iterations_per_step": [int(i) for _, i in found], "solver": [k for k, _ in found],
+               "jacobian_actions": counts["jacobian_actions"], "linearisations": counts["linearisations"],
+               "host_syncs_per_step": counts["host_syncs"] / nsteps,
+               "launches": {k: counts[k] for k in ("sw_tangent_prep", "sw_tangent_apply", "sw_tangent_prep_topo",
+                                                   "sw_tangent_apply_topo", "euler3d_tangent_prep",
+                                                   "euler3d_tangent", "sw_plain_calls", "sw_plain_tangent_calls",
+                                                   "euler3d_plain_calls", "plain_tangent_calls")}}
+        if pre == "p-mg":
+            row["levels"] = [{"s": lv.num_solpts, "preps": lv.preps, "applies": lv.applies} for lv in pc.levels]
+        if len(found) != nsteps:
+            raise AssertionError(f"Ros2 {tag} with {pre}: {len(found)} solver reports in {nsteps} steps")
+        plain = sum(row["launches"][k] for k in ("sw_plain_calls", "sw_plain_tangent_calls", "euler3d_plain_calls",
+                                                 "plain_tangent_calls"))
+        if plain:
+            raise AssertionError(f"Ros2 {tag} with {pre} ran plain versions: {row['launches']}")
+        rows.append(row)
+    return rows
+
+
+def phase33(torch):
+    """The preconditioned solves on the card: the case-5 rational system by
+    FGMRES(100) alone and with 2-level p-mg (kiops smoother) against the
+    JAX package's gate (tests/test_framework.py:316-317), and with 3-level
+    fv-mg (the s = 1 tangent pair on its FV levels); Ros2 with p-mg through
+    Simulation on case 5 and on dcmip31 at 20x20x20, s = 3, dt = 30 s, each
+    beside the run without a preconditioner; lu and ilu at nel = 4, s = 2."""
+    from wxfactory_tpu_torch.kernels.check import sw_topo_setup
+    from wxfactory_tpu_torch.models import ShallowWaterRHS
+    from wxfactory_tpu_torch.precondition import Factorization, Multigrid
+    from wxfactory_tpu_torch.solvers import make_rat_matvec
+
+    def system(nel, s, dt=3600.0):
+        geom, ops, metric, topology, q0, topo = sw_topo_setup(nel, s)
+        rhs = ShallowWaterRHS(geom, ops, metric, device="cuda", topology=topology, topo=topo)
+        q = torch.as_tensor(q0, device="cuda")
+        return geom, q, make_rat_matvec(rhs, q, dt), (rhs(q) * dt).reshape(-1), rhs
+
+    result = {}
+    launches = {}
+    geom, q, A, b, rhs = system(10, 3)
+    reset_counts()
+    result["plain"] = _fgmres_solve(torch, A, b, 100, 3)
+    for name, kw in (("p-mg", PMG_CASE5), ("fv-mg", FVMG_CASE5)):
+        reset_counts()
+        t0 = time.perf_counter()
+        mg = Multigrid.for_geometry(geom, device="cuda", **kw)
+        setup = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mg.prepare(3600.0, q)
+        torch.cuda.synchronize()
+        prepare = time.perf_counter() - t0
+        row = _fgmres_solve(torch, A, b, 100, 3, mg)
+        counts = read_counts()
+        row.update(setup_s=setup, prepare_s=prepare, levels=_levels(mg),
+                   launches={k: counts[k] for k in ("sw_tangent_prep", "sw_tangent_apply", "sw_tangent_prep_topo",
+                                                    "sw_tangent_apply_topo", "sw_tangent_prep_s1",
+                                                    "sw_tangent_apply_s1", "sw_plain_calls",
+                                                    "sw_plain_tangent_calls")})
+        if row["launches"]["sw_plain_calls"] or row["launches"]["sw_plain_tangent_calls"]:
+            raise AssertionError(f"{name} ran plain versions: {row['launches']}")
+        if name == "fv-mg":
+            launches = {k: counts[k] for k in ("sw_tangent_prep_s1", "sw_tangent_apply_s1")}
+        result[name] = row
+        emit({"phase": 33, "solve": name, **row})
+    plain, pmg, fvmg = result["plain"], result["p-mg"], result["fv-mg"]
+    gate = {"pmg_4x": pmg["iterations"] * 4 <= plain["iterations"],
+            "pmg_residual": pmg["residual"] <= 1.05 * plain["residual"],
+            "fvmg_iterations": fvmg["iterations"] <= plain["iterations"],
+            "fvmg_residual": fvmg["residual"] <= 1.05 * plain["residual"],
+            "fvmg_on_s1_kernels": launches.get("sw_tangent_apply_s1", 0) > 0}
+    result["gate"] = gate
+
+    # lu and ilu at nel = 4, s = 2 (their dense Jacobian: 1,152 columns).
+    _, q4, A4, b4, rhs4 = system(4, 2)
+    reset_counts()
+    result["plain_4_2"] = _fgmres_solve(torch, A4, b4, 30, 3)
+    for kind in ("lu", "ilu"):
+        f = Factorization(rhs4, kind)
+        t0 = time.perf_counter()
+        f.prepare(3600.0, q4)
+        prepare = time.perf_counter() - t0
+        row = _fgmres_solve(torch, A4, b4, 30, 3, f)
+        row["prepare_s"] = prepare
+        result[kind] = row
+        emit({"phase": 33, "solve": kind, **row})
+        gate[f"{kind}_converged"] = row["flag"] == 0 and row["iterations"] < result["plain_4_2"]["iterations"]
+
+    ros2 = []
+    sw = SW_EPI_INI.format(case=5, dt=1800.0, t_end=3600.0, integrator="ros2", solver="pmex", linear_solver="auto",
+                           mixed=0, s=3, nel=10, steps=0, stat=0, out=WORK / "phase33_sw")
+    e3 = DCMIP31_INI.format(dt=30, t_end=30, integrator="ros2", verbose=1, s=3, nel_h=20, nel_v=20, save=0,
+                            out=WORK / "phase33_e3")
+    for tag, text, extra, nsteps in (("sw_case5", sw, ROS2_PRE_SW, 2), ("dcmip31_20x20x20", e3, ROS2_PRE_E3, 1)):
+        for row in _ros2_pre_pair(torch, tag, text + extra.format(pre="p-mg"), nsteps):
+            ros2.append(row)
+            emit({"phase": 33, "ros2": tag, **row})
+    result["ros2"] = ros2
+    emit({"phase": 33, **result})
+    if not all(gate.values()):
+        raise AssertionError(f"phase 33 gates failed: {gate}")
     return launches
 
 
@@ -2454,37 +2849,48 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
 
     smi = nvidia_smi()
-    phase0(torch, smi)
-    sw_err = phase1(torch)
-    phase2(torch)
-    sw_launches = phase3(torch)
-    phase4(torch, smi)
-    e3_err = phase5(torch)
-    phase6(torch)
-    e3_launches = phase7(torch)
-    e3_timing = phase8(torch, smi)
-    tangent_err = phase9(torch)
-    phase10(torch)
-    tangent_launches = phase11(torch)
-    tangent_timing = phase12(torch, smi)
-    tangent_err.update(phase13(torch))
-    phase14(torch)
-    tangent_launches.update(phase15(torch))
-    pert_timing = phase16(torch, smi)
-    sw_errs = phase17(torch)
-    phase18(torch)
-    sw_counts = phase19(torch)
-    swt = phase20(torch, smi)
-    stage_err = phase21(torch)
-    stage_launches = phase22(torch)
-    phase23(torch)
-    stage_timing = phase24(torch, smi)
-    tile_err = phase25(torch)
-    tile_launches = phase26(torch)
-    phase27(torch)
-    tile_timing = phase28(torch, smi)
-    tangent_sw = phase29(torch, smi)
-    tangent_sw_launches = phase30(torch)
+    seconds = {}
+
+    def timed(number, phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        seconds[number] = round(time.perf_counter() - t0, 1)
+        return out
+
+    timed(0, phase0, torch, smi)
+    sw_err = timed(1, phase1, torch)
+    timed(2, phase2, torch)
+    sw_launches = timed(3, phase3, torch)
+    timed(4, phase4, torch, smi)
+    e3_err = timed(5, phase5, torch)
+    timed(6, phase6, torch)
+    e3_launches = timed(7, phase7, torch)
+    e3_timing = timed(8, phase8, torch, smi)
+    tangent_err = timed(9, phase9, torch)
+    timed(10, phase10, torch)
+    tangent_launches = timed(11, phase11, torch)
+    tangent_timing = timed(12, phase12, torch, smi)
+    tangent_err.update(timed(13, phase13, torch))
+    timed(14, phase14, torch)
+    tangent_launches.update(timed(15, phase15, torch))
+    pert_timing = timed(16, phase16, torch, smi)
+    sw_errs = timed(17, phase17, torch)
+    timed(18, phase18, torch)
+    sw_counts = timed(19, phase19, torch)
+    swt = timed(20, phase20, torch, smi)
+    stage_err = timed(21, phase21, torch)
+    stage_launches = timed(22, phase22, torch)
+    timed(23, phase23, torch)
+    stage_timing = timed(24, phase24, torch, smi)
+    tile_err = timed(25, phase25, torch)
+    tile_launches = timed(26, phase26, torch)
+    timed(27, phase27, torch)
+    tile_timing = timed(28, phase28, torch, smi)
+    tangent_sw = timed(29, phase29, torch, smi)
+    tangent_sw_launches = timed(30, phase30, torch)
+    topo = timed(31, phase31, torch, smi)
+    topo_launches = timed(32, phase32, torch)
+    s1_launches = timed(33, phase33, torch)
     sw_entry = lambda name, mode, replaces, source="wxfactory_tpu_torch/csrc/sw_operator.cu", row=swt["sw_pert"]: {
         "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": sw_counts[name],
         "max_abs_err": sw_errs[name], "ms": row[f"{mode}_kernel_ms"], "plain_ms": row[f"{mode}_plain_ms"],
@@ -2556,9 +2962,36 @@ def main() -> int:
                         "launches": tangent_sw_launches[f"sw_tangent_{kernel}"],
                         "max_abs_err": tangent_sw[f"{kernel}_max_abs_err"], "ms": t[f"{kernel}_kernel_ms"],
                         "plain_ms": t[f"{kernel}_plain_ms"], **bound, "library_ms": None})
+    # The kernels with topography (timed at (64,3) float64 on case 5) and the
+    # tangent pair at s = 1 (timed at (20,1), the first FV level of nel = 10).
+    trow = lambda nel, s: next(t for t in topo["timing"] if (t["nel"], t["s"], t["dtype"]) == (nel, s, "float64"))
+    t64, t1 = trow(64, 3), trow(20, 1)
+    kernels.append({"name": "sw_operator_topo", "route": "cuda", "source": "wxfactory_tpu_torch/csrc/sw_operator.cu",
+                    "replaces": "wxfactory_tpu/ops/pallas_sw_gen.py:632 (state mode with the bottom topography of "
+                                "wxfactory_tpu/models/shallow_water.py:166-249)",
+                    "launches": topo_launches["sw_operator_topo"], "max_abs_err": topo["sw_operator_topo"],
+                    "ms": t64["rhs_topo_kernel_ms"], "plain_ms": t64["rhs_topo_plain_ms"],
+                    "bound_ms": t64["rhs_topo_bound_ms"], "bound_by": t64["rhs_topo_bound_by"], "library_ms": None,
+                    "ms_without_topography": t64["rhs_ms"]})
+    for form, row, counts, tag in (("topo", t64, topo_launches, "_topo"), ("s1", t1, s1_launches, "")):
+        for kernel in ("prep", "apply"):
+            bound = ({"bound_ms": row[f"{kernel}{tag}_own_bound_ms"], "bound_by": row[f"{kernel}{tag}_own_bound_by"]}
+                     if kernel == "prep" else
+                     {"bound_ms": row[f"function{tag}_bound_ms"], "bound_by": row[f"function{tag}_bound_by"],
+                      "apply_floor_ms": row[f"{kernel}{tag}_own_bound_ms"]})
+            what = "with bottom topography" if form == "topo" else "at s = 1, the fv-mg FV levels"
+            kernels.append({"name": f"sw_tangent_{kernel}_{form}", "route": "cuda",
+                            "source": "wxfactory_tpu_torch/csrc/sw_operator.cu",
+                            "replaces": f"jax.jvp of wxfactory_tpu/models/shallow_water.py:166 ({what}; no Pallas "
+                                        "kernel" + ("; its linearisation)" if kernel == "prep" else ")"),
+                            "launches": counts[f"sw_tangent_{kernel}_{form}"],
+                            "max_abs_err": topo[f"sw_tangent_{kernel}_{form}"],
+                            "ms": row[f"{kernel}{tag}_kernel_ms"], "plain_ms": row[f"{kernel}{tag}_plain_ms"], **bound,
+                            "library_ms": None})
     unmeasured = [k["name"] for k in kernels if not (k["ms"] > 0 and k["plain_ms"] > 0 and k["launches"] > 0)]
     if unmeasured:
         raise AssertionError(f"kernels without a time, a plain time or a launch on the main path: {unmeasured}")
+    emit({"phase_seconds": seconds})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

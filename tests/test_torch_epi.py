@@ -178,9 +178,10 @@ output_dir = {out}
     want = np.asarray(q)
     scale = np.abs(want).reshape(3, -1).max(axis=1).reshape(3, 1, 1, 1, 1)
     assert float(np.abs((got - want) / scale).max()) < 1e-9
-    # What still raises on shallow water: topography (ROADMAP item 4).
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
-        make_rhs_shallow_water(geom, ops, metric, device="cpu", topo=object())
+    # What still raises on shallow water: topography in the perturbation
+    # form, the mixed companion's (ROADMAP item 17).
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 17"):
+        make_rhs_shallow_water(geom, ops, metric, device="cpu", topo=object(), perturbation_base=want)
 
 
 @pytest.mark.parametrize("solver", ["pmex", "pmex_1s", "kiops_ne"])

@@ -1,5 +1,7 @@
 """The port's CUDA kernels (SW operator and its perturbation mode and their
-shared-memory use, the SW halo, edge-trace, whole-run and tangent (J.v) kernels, 3D Euler operator, its tangent
+shared-memory use, the SW halo, edge-trace, whole-run and tangent (J.v) kernels, the SW state mode and tangent
+pair with bottom topography, the SW tangent pair at s = 1 and the multigrid levels that launch it, 3D Euler
+operator, its tangent
 prep and apply kernels and the perturbation form of both, with its stage mode, and the tile kernels of both
 models with the tile steps' launch counts) against their plain torch versions, on the card. Needs a CUDA device and nvcc, and skips without them. On a GPU
 machine run it without tests/conftest.py (which configures JAX):
@@ -31,6 +33,7 @@ from wxfactory_tpu_torch.kernels.check import (
     compare_sw_run,
     compare_sw_state_halo,
     compare_sw_tangent,
+    compare_sw_topo_operator,
     euler3d_inputs,
     euler3d_pert_inputs,
     euler3d_tangent_inputs,
@@ -312,3 +315,58 @@ def test_tile_steps_count_one_launch_a_tile_and_stage(cuda, n):
     assert (e3op.launches, e3op.tile_launches, e3op.pert_tile_launches) == (
         before[0], before[1], before[2] + 2 * 3 * 6 * n * n)
     assert e3op.plain_calls == plain
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("nel,s", [(4, 2), (5, 3), (3, 5), (3, 8)])
+def test_sw_topography_kernels_match_plain(cuda, nel, s, dtype):
+    # The state mode with case-5 topography (RHS, stages) against its plain
+    # version with mass, its null planes bit for bit the kernel without
+    # topography and its all-zero planes bit for bit the null ones; the
+    # tangent pair with topography against the plain tangent (compare_sw_tangent
+    # case 5), counted in topo_launches and topo_tangent_*_launches.
+    counts = lambda: (swop.topo_launches, swop.topo_tangent_prep_launches, swop.topo_tangent_apply_launches)
+    before = counts()
+    rows = compare_sw_topo_operator(nel, s, dtype, device="cuda")
+    assert all(r["ok"] for r in rows), rows
+    rows = compare_sw_tangent(nel, s, dtype, device="cuda", case=5)
+    assert all(r["ok"] for r in rows), rows
+    assert all(after > b for after, b in zip(counts(), before))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("nel", [4, 8, 20])
+def test_sw_tangent_kernels_at_s1_match_plain(cuda, nel, dtype):
+    # The pure finite-volume levels of fv-mg: the tangent pair at s = 1.
+    before = (swop.s1_tangent_prep_launches, swop.s1_tangent_apply_launches)
+    rows = compare_sw_tangent(nel, 1, dtype, device="cuda")
+    assert all(r["ok"] for r in rows), rows
+    assert swop.s1_tangent_prep_launches > before[0] and swop.s1_tangent_apply_launches > before[1]
+
+
+def test_fvmg_levels_run_on_the_tangent_kernels(cuda):
+    # A V-cycle of fv-mg (three levels: DG(3), FV at nel 8 and 4) on the card
+    # against the same V-cycle on the CPU; every level's A.v is one apply
+    # launch, its prepare one prep launch, and nothing runs a plain version.
+    from wxfactory_tpu_torch.geometry import make_cubed_sphere_2d
+    from wxfactory_tpu_torch.precondition import Multigrid
+
+    # case 6 with seeded noise: on its symmetry lines hu2 is zero to rounding,
+    # where the split Mach number's kink lets two correct J.v differ
+    _, _, states, _, _ = sw_tangent_inputs(4, 3, torch.float64, "cpu")
+    kw = dict(kind="fv-mg", num_levels=3, pseudo_cfl=20.0, smoother="erk3")
+    q = states["case6"]
+    v = torch.randn(q.numel(), dtype=torch.float64, generator=torch.Generator().manual_seed(0))
+    out = {}
+    for device in ("cpu", "cuda"):
+        mg = Multigrid.for_geometry(make_cubed_sphere_2d(4, 3), device=device, **kw)
+        before = (swop.tangent_prep_launches, swop.tangent_apply_launches, swop.plain_calls, swop.plain_tangent_calls)
+        mg.prepare(1800.0, q.to(device))
+        out[device] = mg(v.to(device)).cpu()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert [lv.num_solpts for lv in mg.levels] == [3, 1, 1]
+            applies = sum(lv.applies for lv in mg.levels)
+            assert (swop.tangent_prep_launches - before[0], swop.tangent_apply_launches - before[1]) == (3, applies)
+            assert (swop.plain_calls, swop.plain_tangent_calls) == before[2:]
+    assert float((out["cuda"] - out["cpu"]).abs().max() / out["cpu"].abs().max()) < 1e-10

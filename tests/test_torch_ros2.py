@@ -160,7 +160,7 @@ def test_unported_ros2_raises_naming_roadmap(tmp_path, what):
         return
     # Ros2 on shallow water runs now (the SW Jacobian action): two case-6
     # steps of the INI through Simulation against the JAX Ros2 on the same
-    # grid; topography still raises naming its item.
+    # grid; topography in the perturbation form still raises naming its item.
     from wxfactory_tpu.geometry import make_cubed_sphere_2d, make_metric_2d
     from wxfactory_tpu.models import make_rhs_shallow_water as j_make_rhs_sw
     from wxfactory_tpu.ops.dfr import make_dfr_operators
@@ -181,5 +181,5 @@ def test_unported_ros2_raises_naming_roadmap(tmp_path, what):
     want = np.asarray(q)
     scale = np.abs(want).reshape(3, -1).max(axis=1).reshape(3, 1, 1, 1, 1)
     assert float(np.abs((got - want) / scale).max()) < 1e-9
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
-        make_rhs_shallow_water(geom, ops, metric, device="cpu", topo=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 17"):
+        make_rhs_shallow_water(geom, ops, metric, device="cpu", topo=object(), perturbation_base=np.asarray(q))

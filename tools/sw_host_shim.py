@@ -34,6 +34,12 @@ at the case-6 and rest points of ``kernels/check.py::sw_tangent_inputs``
 versions on the same buffer (``tangent_split_err``); and the two
 libraries' J.v against each other (``tangent_between``, scaled, and
 ``tangent_identical``, bit for bit where both have the same design).
+``A source with bottom topography (``sw_operator_state_topo_launch`` and the
+tangent pair's ``*_topo_launch``) is also held, on Williamson case 5,
+against the plain versions with topography, and bit for bit with null
+planes against its entries without topography and with all-zero planes
+against null ones (``check_topo_shape``); a shape with s = 1 checks only
+the tangent pair there (the fv-mg levels).
 ``--sms`` is the SM count
 the shim reports (it sets the tile launch's elements a block).
 A design can so be checked against its
@@ -352,6 +358,101 @@ def tangent_state_call(lib, q, v, con, topology, nan_fill=True):
     return out
 
 
+def has_topo(lib) -> bool:
+    return hasattr(lib, "sw_operator_state_topo_launch")
+
+
+def topo_state_call(lib, q, con, topology, topo, x=None, a=0.0, b=1.0, cdt=None, nan_fill=True):
+    """One call of the state mode with bottom topography
+    (``sw_operator_state_topo_launch``; ``topo=None`` its null planes): the
+    wrapper's ``sw_operator(q, None, ..., topo=topo)``."""
+    import torch
+
+    from wxfactory_tpu_torch.ops import sw_operator as swop
+
+    tab = swop.halo_tables(topology, q.device, q.dtype)
+    out = _alloc(q.shape, q, nan_fill)
+    use_x = cdt is not None and a != 0.0
+    planes = (topo.hsurf, topo.hsurf_x, topo.hsurf_y, topo.force) if topo is not None else (None,) * 4
+    rc = lib.sw_operator_state_topo_launch(
+        1 if q.dtype == torch.float64 else 0, con.s, con.nel, _ptr(q), _ptr(con.ops), _ptr(con.fields),
+        _ptr(con.gridrot), _ptr(con.itf_x), _ptr(con.itf_y), _ptr(x if use_x else None), _ptr(tab.src),
+        _ptr(tab.flip), _ptr(tab.conv), *[_ptr(t) for t in planes], _ptr(out), float(a), float(b),
+        float(cdt if cdt is not None else 0.0), 1 if cdt is not None else 0, _stream(q))
+    if rc != 0:
+        raise RuntimeError(f"sw_operator_state_topo_launch returned {rc}")
+    return out
+
+
+def topo_tangent_call(lib, q, v, con, topology, topo, nan_fill=True):
+    """(coef, J.v) of the tangent pair with bottom topography
+    (``sw_tangent_prep_topo_launch``, ``sw_tangent_apply_topo_launch``)."""
+    import torch
+
+    from wxfactory_tpu_torch.ops import sw_operator as swop
+
+    tab = swop.halo_tables(topology, q.device, q.dtype)
+    f64 = 1 if q.dtype == torch.float64 else 0
+    coef = _alloc((swop.sw_tangent_layout(con)["size"],), q, nan_fill)
+    rc = lib.sw_tangent_prep_topo_launch(
+        f64, con.s, con.nel, _ptr(q), _ptr(con.ops), _ptr(con.itf_x), _ptr(con.itf_y), _ptr(tab.src),
+        _ptr(tab.flip), _ptr(tab.conv), _ptr(topo.hsurf), _ptr(topo.hsurf_x), _ptr(topo.hsurf_y), _ptr(coef),
+        _stream(q))
+    if rc != 0:
+        raise RuntimeError(f"sw_tangent_prep_topo_launch returned {rc}")
+    out = _alloc(v.shape, v, nan_fill)
+    rc = lib.sw_tangent_apply_topo_launch(
+        f64, con.s, con.nel, _ptr(v), _ptr(coef), _ptr(con.ops), _ptr(con.fields), _ptr(con.gridrot),
+        _ptr(con.itf_x), _ptr(con.itf_y), _ptr(tab.src), _ptr(tab.flip), _ptr(tab.conv), _ptr(topo.force),
+        _ptr(out), _stream(v))
+    if rc != 0:
+        raise RuntimeError(f"sw_tangent_apply_topo_launch returned {rc}")
+    return coef, out
+
+
+def check_topo_shape(lib, nel: int, s: int) -> dict:
+    """A library with topography entries at (nel, s) on Williamson case 5
+    (``kernels/check.py::sw_topo_inputs``): the state mode with topography
+    (RHS, stage, stage with x) and the tangent pair with topography against
+    their plain versions (scaled by each variable's max); and bit for bit
+    (``torch.equal``) the topography entry with null planes against the
+    entry without, and with all-zero planes against null ones. At s = 1
+    only the tangent pair (the fv-mg levels' case-6 state)."""
+    import torch
+
+    from wxfactory_tpu_torch.kernels import check
+    from wxfactory_tpu_torch.ops import sw_operator as swop
+
+    out = {"nel": nel, "s": s, "topo_plain_err": {}, "topo_bits": True, "tangent_s1_err": {}}
+    for dtype in (torch.float64, torch.float32):
+        dname = "f64" if dtype == torch.float64 else "f32"
+        if s == 1:
+            con, topology, states, v, _ = check.sw_tangent_inputs(nel, s, dtype, "cpu")
+            for point, q in states.items():
+                jv = tangent_apply_call(lib, tangent_prep_call(lib, q, con, topology), v, con, topology)
+                want = swop.sw_tangent_plain(q, v, con, topology)
+                out["tangent_s1_err"][f"{dname} {point}"] = _scaled_err(jv, want)
+            continue
+        con, topology, topo, x, y, zero = check.sw_topo_inputs(nel, s, dtype, "cpu")
+        for mode, kw in {"rhs": {}, "stage": dict(a=0.0, b=1.0, cdt=check.DT),
+                         "stage_x": dict(x=x, a=0.75, b=0.25, cdt=0.25 * check.DT)}.items():
+            got = topo_state_call(lib, y, con, topology, topo, **kw)
+            want = swop.sw_operator_plain(y, None, con, topology=topology, topo=topo, **kw)
+            out["topo_plain_err"][f"{dname} {mode}"] = _scaled_err(got, want)
+            null = topo_state_call(lib, y, con, topology, None, **kw)
+            zeros = topo_state_call(lib, y, con, topology, zero, **kw)
+            plain_entry = state_call(lib, y, con, topology, **kw)
+            out["topo_bits"] = out["topo_bits"] and torch.equal(null, plain_entry) and torch.equal(zeros, null)
+        tcon, _, tstates, tv, _, ttopo = check.sw_topo_tangent_inputs(nel, s, dtype, "cpu")
+        for point, tq in tstates.items():
+            coef, jv = topo_tangent_call(lib, tq, tv, tcon, topology, ttopo)
+            out["topo_plain_err"][f"{dname} jv {point}"] = _scaled_err(
+                jv, swop.sw_tangent_plain(tq, tv, tcon, topology, ttopo))
+            out["topo_plain_err"][f"{dname} apply {point}"] = _scaled_err(
+                jv, swop.sw_tangent_apply_plain(coef, tv, tcon, topology, ttopo))
+    return out
+
+
 def has_tangent(lib) -> bool:
     return has_tangent_pair(lib) or hasattr(lib, "sw_tangent_state_launch")
 
@@ -591,10 +692,16 @@ def main(argv=None) -> int:
     ok = True
     for shape in args.shapes.split(":"):
         nel, s = (int(v) for v in shape.split(","))
-        row = check_shape(libsets, nel, s)
-        print(json.dumps(row), flush=True)
-        ok = (ok and row["bit_identical"] is not False and row["tangent_identical"] is not False
-              and all(row["state_equals_route"].values()))
+        if s >= 2:
+            row = check_shape(libsets, nel, s)
+            print(json.dumps(row), flush=True)
+            ok = (ok and row["bit_identical"] is not False and row["tangent_identical"] is not False
+                  and all(row["state_equals_route"].values()))
+        lib = libsets["source"]["sw_operator"]
+        if has_topo(lib):
+            row = check_topo_shape(lib, nel, s)
+            print(json.dumps(row), flush=True)
+            ok = ok and row["topo_bits"]
     return 0 if ok else 1
 
 

@@ -4,9 +4,9 @@ import contextlib
 
 import torch
 
-# Waits of the host for the device made through ``host_read``, ``to_host``
-# and ``synchronize`` (the Krylov controls, the NaN guard, checkpoints, the
-# end of a run).
+# Waits of the host for the device made through ``host_read``, ``to_host``,
+# ``from_host`` and ``synchronize`` (the Krylov controls, the NaN guard,
+# checkpoints, the end of a run, a host preconditioner's solve).
 host_syncs = 0
 _forbidding = False
 
@@ -56,6 +56,14 @@ def to_host(t: torch.Tensor):
     """``t`` as a numpy array on the host, counted in ``host_syncs``."""
     with _counted_wait():
         return t.detach().cpu().numpy()
+
+
+def from_host(a, like: torch.Tensor) -> torch.Tensor:
+    """The host array ``a`` as a tensor of ``like``'s dtype on its device
+    (a copy from pageable host memory, which waits for the card), counted
+    in ``host_syncs``."""
+    with _counted_wait():
+        return torch.as_tensor(a, dtype=like.dtype, device=like.device)
 
 
 def synchronize(dev: torch.device) -> None:

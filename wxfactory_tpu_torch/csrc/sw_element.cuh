@@ -13,6 +13,16 @@
 // the edge-trace and halo kernels at one point, so all three give the same
 // bits).
 //
+// Bottom topography (the absolute state mode and the tangent kernels, TOPO):
+// the faces extrapolate h + hsurf (face_trace_sum: each node's sum, then the
+// same fma order as face_trace, wherever the nodes live), the panel-edge face
+// the neighbour's h + hsurf through the same src/flip tables as its q (h is a
+// scalar: no rotation); both sides of an interface then subtract that
+// interface's hsurf_itf in the same order before the flux, so they see the
+// same face h; the forcing rows add g(H^11 dz1 + H^12 dz2) h and g(H^21 dz1 +
+// H^22 dz2) h from planes made once at setup. With all-zero planes every
+// value is the TOPO = false value bit for bit (x + 0 = x, fma(0, h, f) = f).
+//
 // Sum factorisation. The operator's extrapolation, derivative and
 // correction matrices are Kronecker products with the identity
 // (ops/dfr.py), so every face point depends on the s nodes of one row or
@@ -35,6 +45,9 @@
 //   gridrot    (P*nel*nel, s^2)      panel-dependent factor of the time Christoffels
 //   itf_x      (3, nel, nel+1, s)    sqrt(g), H^11, H^21 at x1 interfaces
 //   itf_y      (3, nel+1, nel, s)    sqrt(g), H^22, H^12 at x2 interfaces
+// Topography (TOPO): hsurf (P*nel*nel, s^2) at the nodes, hsurf_x (P, nel,
+// nel+1, s) and hsurf_y (P, nel+1, nel, s) at the interfaces, force (2,
+// P*nel*nel, s^2) the two forcing coefficients g(H^1b dz_b), g(H^2b dz_b).
 // Perturbation form (the 14 base planes of pallas_sw_gen.build_base_planes in
 // the model layout): q0 (3, ...) and u0 = hu0/h0 (2, ...) at the nodes, itf0
 // (3, P*nel*nel, 4s) the base state's face traces, halo0 (3, 4, P, nel, s) its
@@ -75,6 +88,17 @@ __device__ __forceinline__ T face_trace(const T* v, const T* w, int f, int k) {
   T acc = T(0);
 #pragma unroll
   for (int m = 0; m < S; ++m) acc = fmadd(v[base + m * stride], w[m], acc);
+  return acc;
+}
+
+// face_trace of h + hsurf: each node's sum, then face_trace's fma order.
+template <typename T, int S>
+__device__ __forceinline__ T face_trace_sum(const T* v, const T* hs, const T* w, int f, int k) {
+  const int base = f < 2 ? k * S : k;
+  const int stride = f < 2 ? 1 : S;
+  T acc = T(0);
+#pragma unroll
+  for (int m = 0; m < S; ++m) acc = fmadd(v[base + m * stride] + hs[base + m * stride], w[m], acc);
   return acc;
 }
 
@@ -312,6 +336,11 @@ struct OpArgs {
   const int* hsrc;
   const int* hflip;
   const T* hconv;
+  // bottom topography (TOPO only)
+  const T* hsurf;
+  const T* hsurf_x;
+  const T* hsurf_y;
+  const T* topo_force;
   int nel;
   int npanel;  // 6: the whole cubed sphere; 1: one tile (kTraces and kState need 6)
   T a, b, cdt;
@@ -355,9 +384,10 @@ __device__ __forceinline__ void halo_point(const T* traces, const int* src, cons
 
 // Variable v of the trace of state q at point j = along*s + k of (side, panel)
 // row `row`: its edge element's face point (face_trace; ext: the factors'
-// extrapolation weights).
-template <typename T, int S>
-__device__ __forceinline__ T edge_trace(const T* q, const T* ext, int nel, int row, int j, int v) {
+// extrapolation weights). TOPO: h's trace is that of h + hsurf.
+template <typename T, int S, bool TOPO = false>
+__device__ __forceinline__ T edge_trace(const T* q, const T* ext, int nel, int row, int j, int v,
+                                        const T* hsurf = nullptr) {
   constexpr int S2 = S * S;
   const int side = row / 6, p = row - side * 6;
   const int along = j / S, k = j - along * S;
@@ -370,6 +400,9 @@ __device__ __forceinline__ T edge_trace(const T* q, const T* ext, int nel, int r
   }
   const long long nq = 6LL * nel * nel * S2;
   const long long elem = ((long long)p * nel + ey) * nel + ex;
+  if constexpr (TOPO) {
+    if (v == 0) return face_trace_sum<T, S>(q + elem * S2, hsurf + elem * S2, ext + f * S, f, k);
+  }
   return face_trace<T, S>(q + v * nq + elem * S2, ext + f * S, f, k);
 }
 
@@ -382,14 +415,15 @@ __device__ __forceinline__ T trace_point(const T* q, const T* ext, int nel, long
 
 // The halo values that row `row` receives at edge point i, straight from the
 // neighbour panel's state q: halo_point of the traces trace_point would
-// write, without writing them.
-template <typename T, int S>
+// write, without writing them. TOPO: the neighbour's h + hsurf.
+template <typename T, int S, bool TOPO = false>
 __device__ __forceinline__ void state_halo_point(const T* q, const T* ext, const int* src, const int* flip,
-                                                 const T* conv, int nel, int row, int i, T* out) {
+                                                 const T* conv, int nel, int row, int i, T* out,
+                                                 const T* hsurf = nullptr) {
   const int npts = nel * S;
   int r, j;
   halo_source(src, flip, npts, row, i, &r, &j);
-  rotate_halo(conv, 24LL * npts, (long long)row * npts + i, edge_trace<T, S>(q, ext, nel, r, j, 0),
+  rotate_halo(conv, 24LL * npts, (long long)row * npts + i, edge_trace<T, S, TOPO>(q, ext, nel, r, j, 0, hsurf),
               edge_trace<T, S>(q, ext, nel, r, j, 1), edge_trace<T, S>(q, ext, nel, r, j, 2), out);
 }
 
@@ -418,8 +452,10 @@ __device__ __forceinline__ void state_halo_point(const T* q, const T* ext, const
 // The divergence at node (ky, kx) sums the s x-terms of its row, then the s
 // y-terms of its column; the correction its four faces' fluxes, W, E, S, N:
 // the order in which the dense DD and CC products met their non-zero terms.
-template <typename T, int S, bool PERT, HaloFrom HALO>
+// TOPO (absolute state mode only): the topography of the header comment.
+template <typename T, int S, bool PERT, HaloFrom HALO, bool TOPO = false>
 __device__ __forceinline__ void element_block(const OpArgs<T>& A, int blk, int eb, T* smem) {
+  static_assert(!TOPO || (!PERT && HALO == HaloFrom::kState), "topography runs in the absolute state mode");
   using Sh = Shape<S>;
   constexpr int S2 = Sh::S2, NF = Sh::NF;
   const T* sExt = smem;
@@ -501,6 +537,10 @@ __device__ __forceinline__ void element_block(const OpArgs<T>& A, int blk, int e
       sF[5 * S2 + j] = sqrtg * (hu2 * u2 + half_g * h22 * hsq);
       force1 = rot2 * (g101 * hu1 + g102 * hu2) + c111 * hu1 * u1 + T(2) * c112 * hu1 * u2;
       force2 = rot2 * (g201 * hu1 + g202 * hu2) + T(2) * c212 * hu1 * u2 + c222 * hu2 * u2;
+      if constexpr (TOPO) {
+        force1 = fmadd(A.topo_force[pt], h, force1);
+        force2 = fmadd(A.topo_force[nq + pt], h, force2);
+      }
     }
 
     const int npts = nel * S;
@@ -523,7 +563,8 @@ __device__ __forceinline__ void element_block(const OpArgs<T>& A, int blk, int e
         if constexpr (HALO == HaloFrom::kTraces) {
           halo_point(A.halo, A.hsrc, A.hflip, A.hconv, npts, hside * 6 + p, along * S + k, nb);
         } else if constexpr (HALO == HaloFrom::kState) {
-          state_halo_point<T, S>(A.q, sExt, A.hsrc, A.hflip, A.hconv, nel, hside * 6 + p, along * S + k, nb);
+          state_halo_point<T, S, TOPO>(A.q, sExt, A.hsrc, A.hflip, A.hconv, nel, hside * 6 + p, along * S + k, nb,
+                                       A.hsurf);
         } else {
 #pragma unroll
           for (int v = 0; v < 3; ++v) nb[v] = A.halo[v * hvar + hidx];
@@ -532,9 +573,14 @@ __device__ __forceinline__ void element_block(const OpArgs<T>& A, int blk, int e
 #pragma unroll
         for (int v = 0; v < 3; ++v)
           nb[v] = face_trace<T, S>(A.q + v * nq + (long long)nb_elem * S2, sExt + nb_side * S, nb_side, k);
+        if constexpr (TOPO)
+          nb[0] = face_trace_sum<T, S>(A.q + (long long)nb_elem * S2, A.hsurf + (long long)nb_elem * S2,
+                                       sExt + nb_side * S, nb_side, k);
       }
 #pragma unroll
       for (int v = 0; v < 3; ++v) own[v] = face_trace<T, S>(sQ + v * S2, sExt + side * S, side, k);
+      if constexpr (TOPO)
+        own[0] = face_trace_sum<T, S>(sQ, A.hsurf + (long long)elem * S2, sExt + side * S, side, k);
       // West/south faces: the neighbour (or halo) is on the left.
       const bool own_right = side == 0 || side == 2;
       T L[3], R[3], F[3];
@@ -548,6 +594,11 @@ __device__ __forceinline__ void element_block(const OpArgs<T>& A, int blk, int e
       const int istride = nel * (nel + 1) * S;
       const int iidx = is_x ? ((ey * (nel + 1) + ex + (side == 1)) * S + k)
                             : (((ey + (side == 3)) * nel + ex) * S + k);
+      if constexpr (TOPO) {
+        const T hs = (is_x ? A.hsurf_x : A.hsurf_y)[(long long)p * istride + iidx];
+        L[0] = L[0] - hs;
+        R[0] = R[0] - hs;
+      }
       if constexpr (PERT) {
         const long long tvar = (long long)nelem * NF;
         T own0[3], nb0[3], L0[3], R0[3];

@@ -56,6 +56,22 @@
 // wrappers sw_tangent_prep, sw_tangent_apply and sw_tangent (the two in one
 // call).
 //
+// Bottom topography (Williamson cases 5 and 10): the state mode's absolute
+// form (C entry sw_operator_state_topo_launch, sw_operator_topo_kernel) and
+// the tangent pair (sw_tangent_prep_topo_launch, sw_tangent_apply_topo_launch)
+// take four more planes (csrc/sw_element.cuh: hsurf at the nodes and at the
+// interfaces, the two forcing coefficients). Each is the same body with its
+// TOPO branch compiled in, a kernel of its own, so the kernels without
+// topography keep their code; a topo entry given null planes launches those.
+// The prep extrapolates h + hsurf and subtracts the interface's hsurf before
+// the flux coefficients (hsurf does not enter dh, so the buffer's layout
+// stays); the apply adds each forcing coefficient times dh, two more words a
+// node. Plain versions: ops/sw_operator.py, the same functions with ``topo``.
+//
+// The tangent pair also runs at s = 1 (the pure finite-volume levels of the
+// fv-mg preconditioner: no derivative, the face traces the node value, only
+// the interface fluxes).
+//
 // Layouts: csrc/sw_element.cuh.
 //
 // Design: one thread per solution point, up to EB = 256 / s^2 elements per
@@ -117,12 +133,12 @@ using swk::Shape;
 
 using swk::HaloFrom;
 
-template <typename T, int S, bool PERT, HaloFrom HALO>
+template <typename T, int S, bool PERT, HaloFrom HALO, bool TOPO = false>
 __device__ __forceinline__ void operator_body(const OpArgs<T>& A, int eb) {
   extern __shared__ unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   swk::load_factors<T, S>(A.ops, smem);
-  swk::element_block<T, S, PERT, HALO>(A, blockIdx.x, eb, smem);
+  swk::element_block<T, S, PERT, HALO, TOPO>(A, blockIdx.x, eb, smem);
 }
 
 template <typename T, int S, bool PERT, HaloFrom HALO>
@@ -139,9 +155,17 @@ __global__ void __launch_bounds__(swk::kThreads, 4) sw_operator_f32_pert_kernel(
   operator_body<float, S, true, HALO>(A, eb);
 }
 
-template <typename T, int S, bool PERT, HaloFrom HALO>
+// The absolute state mode with bottom topography.
+template <typename T, int S>
+__global__ void __launch_bounds__(swk::kThreads) sw_operator_topo_kernel(OpArgs<T> A, int eb) {
+  operator_body<T, S, false, HaloFrom::kState, true>(A, eb);
+}
+
+template <typename T, int S, bool PERT, HaloFrom HALO, bool TOPO = false>
 auto operator_kernel() {
-  if constexpr (std::is_same<T, float>::value && PERT)
+  if constexpr (TOPO)
+    return sw_operator_topo_kernel<T, S>;
+  else if constexpr (std::is_same<T, float>::value && PERT)
     return sw_operator_f32_pert_kernel<S, HALO>;
   else
     return sw_operator_kernel<T, S, PERT, HALO>;
@@ -208,6 +232,20 @@ struct TangentArgs {
   int nel;
 };
 
+// Bottom topography of the tangent kernels with topography: the prep's
+// hsurf, hsurf_x, hsurf_y, the apply's force; a kernel parameter of those
+// kernels only. Four more pointers in TangentArgs cost the apply without
+// topography 17 registers and a block an SM (95 against 78 at s = 3 f64:
+// 0.0270 against 0.0238 ms at (64,3), NVIDIA H100 80GB HBM3, 700 W;
+// tools/sw_operator_ablation.py --source, in turns with the kernel before).
+template <typename T>
+struct TangentTopo {
+  const T* hsurf;
+  const T* hsurf_x;
+  const T* hsurf_y;
+  const T* force;
+};
+
 // Offsets of the buffer's parts, in T: a node row is nq long, a face row of
 // either family nx.
 struct TangentLayout {
@@ -223,9 +261,10 @@ struct TangentLayout {
 // face_trace of its element's nodes in global memory, the function and fma
 // order the operator uses for an element's own face and for its neighbour's
 // re-extrapolation; a panel-edge interface takes its halo value from
-// state_halo_point, as the operator's state mode does.
-template <typename T, int S>
-__global__ void __launch_bounds__(swk::kThreads) sw_tangent_prep_kernel(TangentArgs<T> A) {
+// state_halo_point, as the operator's state mode does. TOPO: h's traces are
+// those of h + hsurf, less the interface's hsurf on both sides.
+template <typename T, int S, bool TOPO>
+__device__ __forceinline__ void tangent_prep_body(const TangentArgs<T>& A, const TangentTopo<T>& P) {
   constexpr int S2 = S * S;
   __shared__ T fac[Shape<S>::N_FAC];
   swk::load_factors<T, S>(A.ops, fac);
@@ -280,16 +319,24 @@ __global__ void __launch_bounds__(swk::kThreads) sw_tangent_prep_kernel(TangentA
     }
     T L[3], R[3], c[swk::kTangentFaceRows];
     if (m == 0) {
-      swk::state_halo_point<T, S>(A.q, fac, A.hsrc, A.hflip, A.hconv, nel, hrow_l, along * S + k, L);
+      swk::state_halo_point<T, S, TOPO>(A.q, fac, A.hsrc, A.hflip, A.hconv, nel, hrow_l, along * S + k, L, P.hsurf);
     } else {
 #pragma unroll
       for (int v = 0; v < 3; ++v) L[v] = swk::face_trace<T, S>(A.q + v * nq + el_l * S2, fac + f_l * S, f_l, k);
+      if constexpr (TOPO) L[0] = swk::face_trace_sum<T, S>(A.q + el_l * S2, P.hsurf + el_l * S2, fac + f_l * S, f_l, k);
     }
     if (m == nel) {
-      swk::state_halo_point<T, S>(A.q, fac, A.hsrc, A.hflip, A.hconv, nel, hrow_r, along * S + k, R);
+      swk::state_halo_point<T, S, TOPO>(A.q, fac, A.hsrc, A.hflip, A.hconv, nel, hrow_r, along * S + k, R, P.hsurf);
     } else {
 #pragma unroll
       for (int v = 0; v < 3; ++v) R[v] = swk::face_trace<T, S>(A.q + v * nq + el_r * S2, fac + f_r * S, f_r, k);
+      if constexpr (TOPO) R[0] = swk::face_trace_sum<T, S>(A.q + el_r * S2, P.hsurf + el_r * S2, fac + f_r * S, f_r, k);
+    }
+    if constexpr (TOPO) {
+      // i is the interface point's flat index in hsurf_x (6, nel, nel+1, s) or hsurf_y (6, nel+1, nel, s).
+      const T hs = (is_x ? P.hsurf_x : P.hsurf_y)[i];
+      L[0] = L[0] - hs;
+      R[0] = R[0] - hs;
     }
     const T* itf = is_x ? A.itf_x : A.itf_y;
     const int istride = nel * (nel + 1) * S;
@@ -298,6 +345,16 @@ __global__ void __launch_bounds__(swk::kThreads) sw_tangent_prep_kernel(TangentA
 #pragma unroll
     for (int row = 0; row < swk::kTangentFaceRows; ++row) dst[row * nx] = c[row];
   }
+}
+
+template <typename T, int S>
+__global__ void __launch_bounds__(swk::kThreads) sw_tangent_prep_kernel(TangentArgs<T> A) {
+  tangent_prep_body<T, S, false>(A, TangentTopo<T>{});
+}
+
+template <typename T, int S>
+__global__ void __launch_bounds__(swk::kThreads) sw_tangent_prep_topo_kernel(TangentArgs<T> A, TangentTopo<T> P) {
+  tangent_prep_body<T, S, true>(A, P);
 }
 
 // Up to Shape::EB elements a block as the operator, one thread a node, the
@@ -315,9 +372,9 @@ __global__ void __launch_bounds__(swk::kThreads) sw_tangent_prep_kernel(TangentA
 // J.v conserves mass to round-off; then the divergence and the correction in
 // the operator's order. Shared memory (in T) as the operator's: the 1D
 // factors, then per element [v (3 s^2) | dfx, dfy (6 s^2) | face flux
-// tangents (3 * 4s)].
-template <typename T, int S>
-__global__ void __launch_bounds__(swk::kThreads) sw_tangent_apply_kernel(TangentArgs<T> A, int eb) {
+// tangents (3 * 4s)]. TOPO: the forcing rows add force * dh.
+template <typename T, int S, bool TOPO>
+__device__ __forceinline__ void tangent_apply_body(const TangentArgs<T>& A, const TangentTopo<T>& P, int eb) {
   using Sh = Shape<S>;
   constexpr int S2 = Sh::S2, NF = Sh::NF;
   extern __shared__ unsigned char smem_raw[];
@@ -375,6 +432,10 @@ __global__ void __launch_bounds__(swk::kThreads) sw_tangent_apply_kernel(Tangent
     sF[5 * S2 + j] = sqrtg * (d22 + half_g * h22 * dhsq);
     dforce1 = rot2 * (g101 * dhu1 + g102 * dhu2) + c111 * d11 + T(2) * c112 * d12;
     dforce2 = rot2 * (g201 * dhu1 + g202 * dhu2) + T(2) * c212 * d12 + c222 * d22;
+    if constexpr (TOPO) {
+      dforce1 = swk::fmadd(P.force[pt], dh, dforce1);
+      dforce2 = swk::fmadd(P.force[nq + pt], dh, dforce2);
+    }
   }
   __syncthreads();
 
@@ -453,6 +514,17 @@ __global__ void __launch_bounds__(swk::kThreads) sw_tangent_apply_kernel(Tangent
   }
 }
 
+template <typename T, int S>
+__global__ void __launch_bounds__(swk::kThreads) sw_tangent_apply_kernel(TangentArgs<T> A, int eb) {
+  tangent_apply_body<T, S, false>(A, TangentTopo<T>{}, eb);
+}
+
+template <typename T, int S>
+__global__ void __launch_bounds__(swk::kThreads) sw_tangent_apply_topo_kernel(TangentArgs<T> A, TangentTopo<T> P,
+                                                                                    int eb) {
+  tangent_apply_body<T, S, true>(A, P, eb);
+}
+
 // Elements a block: Shape::EB, or fewer where the launch has too few
 // elements to give every SM a block (a tile launch: nt = 32, s = 3 is 37
 // blocks of 28 elements, 147 of 7).
@@ -461,7 +533,7 @@ int elements_per_block(int nelem, int eb_max, int sms) {
   return eb < 1 ? 1 : (eb < eb_max ? eb : eb_max);
 }
 
-template <typename T, int S, bool PERT, HaloFrom HALO>
+template <typename T, int S, bool PERT, HaloFrom HALO, bool TOPO = false>
 cudaError_t launch_operator(const OpArgs<T>& A, cudaStream_t stream) {
   using Sh = Shape<S>;
   int device = 0, sms = 0;
@@ -471,13 +543,14 @@ cudaError_t launch_operator(const OpArgs<T>& A, cudaStream_t stream) {
   const int nelem = A.npanel * A.nel * A.nel;
   const int eb = elements_per_block(nelem, Sh::EB, sms);
   const int blocks = (nelem + eb - 1) / eb;
-  auto kernel = operator_kernel<T, S, PERT, HALO>();
+  auto kernel = operator_kernel<T, S, PERT, HALO, TOPO>();
   kernel<<<blocks, eb * Sh::S2, Sh::smem_bytes(sizeof(T), eb), stream>>>(A, eb);
   return cudaGetLastError();
 }
 
 template <typename T, int S>
-cudaError_t launch_operator(const OpArgs<T>& A, bool pert, bool state, cudaStream_t stream) {
+cudaError_t launch_operator(const OpArgs<T>& A, bool pert, bool state, bool topo, cudaStream_t stream) {
+  if (topo) return launch_operator<T, S, false, HaloFrom::kState, true>(A, stream);
   if (state)
     return pert ? launch_operator<T, S, true, HaloFrom::kState>(A, stream)
                 : launch_operator<T, S, false, HaloFrom::kState>(A, stream);
@@ -486,10 +559,10 @@ cudaError_t launch_operator(const OpArgs<T>& A, bool pert, bool state, cudaStrea
 }
 
 template <typename T>
-cudaError_t dispatch_operator(int s, const OpArgs<T>& A, bool pert, bool state, cudaStream_t stream) {
+cudaError_t dispatch_operator(int s, const OpArgs<T>& A, bool pert, bool state, bool topo, cudaStream_t stream) {
 #define SW_CASE(S) \
   case S:          \
-    return launch_operator<T, S>(A, pert, state, stream);
+    return launch_operator<T, S>(A, pert, state, topo, stream);
   switch (s) {
     SW_CASE(2) SW_CASE(3) SW_CASE(4) SW_CASE(5) SW_CASE(6) SW_CASE(7) SW_CASE(8)
     default: return cudaErrorInvalidValue;
@@ -499,15 +572,16 @@ cudaError_t dispatch_operator(int s, const OpArgs<T>& A, bool pert, bool state, 
 
 // What the runtime reports of the operator kernel's instantiation at its
 // largest block (Shape::EB elements).
-template <typename T, int S, bool PERT, HaloFrom HALO>
+template <typename T, int S, bool PERT, HaloFrom HALO, bool TOPO = false>
 cudaError_t operator_resources(int* info) {
   using Sh = Shape<S>;
-  return swk::kernel_resources(operator_kernel<T, S, PERT, HALO>(), Sh::EB * Sh::S2,
+  return swk::kernel_resources(operator_kernel<T, S, PERT, HALO, TOPO>(), Sh::EB * Sh::S2,
                                Sh::smem_bytes(sizeof(T), Sh::EB), info);
 }
 
 template <typename T, int S>
-cudaError_t operator_resources(bool pert, bool state, int* info) {
+cudaError_t operator_resources(bool pert, bool state, bool topo, int* info) {
+  if (topo) return operator_resources<T, S, false, HaloFrom::kState, true>(info);
   if (state)
     return pert ? operator_resources<T, S, true, HaloFrom::kState>(info)
                 : operator_resources<T, S, false, HaloFrom::kState>(info);
@@ -516,10 +590,10 @@ cudaError_t operator_resources(bool pert, bool state, int* info) {
 }
 
 template <typename T>
-cudaError_t dispatch_resources(int s, bool pert, bool state, int* info) {
+cudaError_t dispatch_resources(int s, bool pert, bool state, bool topo, int* info) {
 #define SW_CASE(S) \
   case S:          \
-    return operator_resources<T, S>(pert, state, info);
+    return operator_resources<T, S>(pert, state, topo, info);
   switch (s) {
     SW_CASE(2) SW_CASE(3) SW_CASE(4) SW_CASE(5) SW_CASE(6) SW_CASE(7) SW_CASE(8)
     default: return cudaErrorInvalidValue;
@@ -551,16 +625,19 @@ cudaError_t dispatch_edges(int s, int nel, const void* q, const void* ops, void*
 inline int apply_threads(int eb, int s2) { return (eb * s2 + 31) / 32 * 32; }
 
 template <typename T, int S>
-cudaError_t launch_tangent_prep(const TangentArgs<T>& A, cudaStream_t stream) {
+cudaError_t launch_tangent_prep(const TangentArgs<T>& A, const TangentTopo<T>& P, cudaStream_t stream) {
   const TangentLayout lay(A.nel, S);
   const long long total = lay.nq + 2 * lay.nx;
   const int blocks = (int)((total + swk::kThreads - 1) / swk::kThreads);
-  sw_tangent_prep_kernel<T, S><<<blocks, swk::kThreads, 0, stream>>>(A);
+  if (P.hsurf != nullptr)
+    sw_tangent_prep_topo_kernel<T, S><<<blocks, swk::kThreads, 0, stream>>>(A, P);
+  else
+    sw_tangent_prep_kernel<T, S><<<blocks, swk::kThreads, 0, stream>>>(A);
   return cudaGetLastError();
 }
 
 template <typename T, int S>
-cudaError_t launch_tangent_apply(const TangentArgs<T>& A, cudaStream_t stream) {
+cudaError_t launch_tangent_apply(const TangentArgs<T>& A, const TangentTopo<T>& P, cudaStream_t stream) {
   using Sh = Shape<S>;
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -569,17 +646,23 @@ cudaError_t launch_tangent_apply(const TangentArgs<T>& A, cudaStream_t stream) {
   const int nelem = 6 * A.nel * A.nel;
   const int eb = elements_per_block(nelem, Sh::EB, sms);
   const int blocks = (nelem + eb - 1) / eb;
-  sw_tangent_apply_kernel<T, S><<<blocks, apply_threads(eb, Sh::S2), Sh::smem_bytes(sizeof(T), eb), stream>>>(A, eb);
+  const int threads = apply_threads(eb, Sh::S2);
+  const size_t smem = Sh::smem_bytes(sizeof(T), eb);
+  if (P.force != nullptr)
+    sw_tangent_apply_topo_kernel<T, S><<<blocks, threads, smem, stream>>>(A, P, eb);
+  else
+    sw_tangent_apply_kernel<T, S><<<blocks, threads, smem, stream>>>(A, eb);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_tangent(bool apply, int s, const TangentArgs<T>& A, cudaStream_t stream) {
+cudaError_t dispatch_tangent(bool apply, int s, const TangentArgs<T>& A, const TangentTopo<T>& P,
+                             cudaStream_t stream) {
 #define SW_CASE(S) \
   case S:          \
-    return apply ? launch_tangent_apply<T, S>(A, stream) : launch_tangent_prep<T, S>(A, stream);
+    return apply ? launch_tangent_apply<T, S>(A, P, stream) : launch_tangent_prep<T, S>(A, P, stream);
   switch (s) {
-    SW_CASE(2) SW_CASE(3) SW_CASE(4) SW_CASE(5) SW_CASE(6) SW_CASE(7) SW_CASE(8)
+    SW_CASE(1) SW_CASE(2) SW_CASE(3) SW_CASE(4) SW_CASE(5) SW_CASE(6) SW_CASE(7) SW_CASE(8)
     default: return cudaErrorInvalidValue;
   }
 #undef SW_CASE
@@ -606,18 +689,31 @@ TangentArgs<T> tangent_args(int nel, const void* q, const void* v, const void* c
   return A;
 }
 
+template <typename T>
+TangentTopo<T> tangent_topo(const void* const* topo) {
+  return TangentTopo<T>{static_cast<const T*>(topo[0]), static_cast<const T*>(topo[1]),
+                        static_cast<const T*>(topo[2]), static_cast<const T*>(topo[3])};
+}
+
+// topo: {hsurf, hsurf_x, hsurf_y, force}; all null, or the prep's first
+// three and the apply's last (the kernels with topography).
 int tangent_launch(bool apply, int is_f64, int s, int nel, const void* q, const void* v, const void* coef,
                    const void* ops, const void* fields, const void* gridrot, const void* itf_x, const void* itf_y,
-                   const void* src, const void* flip, const void* conv, void* out, void* stream) {
+                   const void* src, const void* flip, const void* conv, const void* const* topo, void* out,
+                   void* stream) {
   if (nel < 2 || src == nullptr || flip == nullptr || conv == nullptr || out == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_f64)
     return (int)dispatch_tangent<double>(apply, s, tangent_args<double>(nel, q, v, coef, ops, fields, gridrot, itf_x,
-                                                                        itf_y, src, flip, conv, out), st);
+                                                                        itf_y, src, flip, conv, out),
+                                         tangent_topo<double>(topo), st);
   return (int)dispatch_tangent<float>(apply, s, tangent_args<float>(nel, q, v, coef, ops, fields, gridrot, itf_x,
-                                                                    itf_y, src, flip, conv, out), st);
+                                                                    itf_y, src, flip, conv, out),
+                                      tangent_topo<float>(topo), st);
 }
+
+const void* const kNoTopo[4] = {nullptr, nullptr, nullptr, nullptr};
 
 // What the runtime reports of the prep (kernel 0: blocks of kThreads, its
 // factors in static shared memory, not counted) or the apply (kernel 1: at
@@ -626,6 +722,10 @@ template <typename T, int S>
 cudaError_t tangent_resources(int kernel, int* info) {
   using Sh = Shape<S>;
   if (kernel == 0) return swk::kernel_resources(sw_tangent_prep_kernel<T, S>, swk::kThreads, 0, info);
+  if (kernel == 2) return swk::kernel_resources(sw_tangent_prep_topo_kernel<T, S>, swk::kThreads, 0, info);
+  if (kernel == 3)
+    return swk::kernel_resources(sw_tangent_apply_topo_kernel<T, S>, apply_threads(Sh::EB, Sh::S2),
+                                 Sh::smem_bytes(sizeof(T), Sh::EB), info);
   return swk::kernel_resources(sw_tangent_apply_kernel<T, S>, apply_threads(Sh::EB, Sh::S2),
                                Sh::smem_bytes(sizeof(T), Sh::EB), info);
 }
@@ -636,7 +736,7 @@ cudaError_t dispatch_tangent_resources(int s, int kernel, int* info) {
   case S:          \
     return tangent_resources<T, S>(kernel, info);
   switch (s) {
-    SW_CASE(2) SW_CASE(3) SW_CASE(4) SW_CASE(5) SW_CASE(6) SW_CASE(7) SW_CASE(8)
+    SW_CASE(1) SW_CASE(2) SW_CASE(3) SW_CASE(4) SW_CASE(5) SW_CASE(6) SW_CASE(7) SW_CASE(8)
     default: return cudaErrorInvalidValue;
   }
 #undef SW_CASE
@@ -646,8 +746,8 @@ template <typename T>
 OpArgs<T> op_args(int nel, int npanel, const void* q, const void* halo, const void* ops, const void* fields,
                   const void* gridrot, const void* itf_x, const void* itf_y, const void* x,
                   const void* q0, const void* u0, const void* itf0, const void* halo0, const void* rhs0,
-                  const void* src, const void* flip, const void* conv, void* out, void* traces, double a, double b,
-                  double cdt, int stage) {
+                  const void* src, const void* flip, const void* conv, const void* const* topo, void* out,
+                  void* traces, double a, double b, double cdt, int stage) {
   OpArgs<T> A{};
   A.q = static_cast<const T*>(q);
   A.halo = static_cast<const T*>(halo);
@@ -667,6 +767,10 @@ OpArgs<T> op_args(int nel, int npanel, const void* q, const void* halo, const vo
   A.hsrc = static_cast<const int*>(src);
   A.hflip = static_cast<const int*>(flip);
   A.hconv = static_cast<const T*>(conv);
+  A.hsurf = static_cast<const T*>(topo[0]);
+  A.hsurf_x = static_cast<const T*>(topo[1]);
+  A.hsurf_y = static_cast<const T*>(topo[2]);
+  A.topo_force = static_cast<const T*>(topo[3]);
   A.nel = nel;
   A.npanel = npanel;
   A.a = T(a);
@@ -677,27 +781,33 @@ OpArgs<T> op_args(int nel, int npanel, const void* q, const void* halo, const vo
 }
 
 // halo == nullptr: the state mode (whole sphere; src, flip and conv given).
+// topo: {hsurf, hsurf_x, hsurf_y, force}, all null or all given (the
+// absolute state mode, no traces).
 int operator_launch(int npanel, int is_f64, int s, int nel, const void* q, const void* halo, const void* ops,
                     const void* fields, const void* gridrot, const void* itf_x, const void* itf_y, const void* x,
                     const void* q0, const void* u0, const void* itf0, const void* halo0, const void* rhs0,
-                    const void* src, const void* flip, const void* conv, void* out, void* traces, double a,
-                    double b, double cdt, int stage, void* stream) {
+                    const void* src, const void* flip, const void* conv, const void* const* topo, void* out,
+                    void* traces, double a, double b, double cdt, int stage, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool pert = q0 != nullptr;
   const bool state = halo == nullptr;
+  const bool with_topo = topo[0] != nullptr;
   if (pert && (u0 == nullptr || itf0 == nullptr || halo0 == nullptr || rhs0 == nullptr))
     return (int)cudaErrorInvalidValue;
   if (state && (npanel != 6 || src == nullptr || flip == nullptr || conv == nullptr))
     return (int)cudaErrorInvalidValue;
+  if (with_topo && (pert || !state || traces != nullptr || topo[1] == nullptr || topo[2] == nullptr ||
+                    topo[3] == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err =
       is_f64 ? dispatch_operator<double>(s, op_args<double>(nel, npanel, q, halo, ops, fields, gridrot, itf_x, itf_y,
-                                                            x, q0, u0, itf0, halo0, rhs0, src, flip, conv, out,
+                                                            x, q0, u0, itf0, halo0, rhs0, src, flip, conv, topo, out,
                                                             traces, a, b, cdt, stage),
-                                         pert, state, st)
+                                         pert, state, with_topo, st)
              : dispatch_operator<float>(s, op_args<float>(nel, npanel, q, halo, ops, fields, gridrot, itf_x, itf_y,
-                                                          x, q0, u0, itf0, halo0, rhs0, src, flip, conv, out,
+                                                          x, q0, u0, itf0, halo0, rhs0, src, flip, conv, topo, out,
                                                           traces, a, b, cdt, stage),
-                                        pert, state, st);
+                                        pert, state, with_topo, st);
   return (int)err;
 }
 
@@ -715,7 +825,7 @@ extern "C" int sw_operator_launch(int is_f64, int s, int nel, const void* q, con
                                   void* stream) {
   if (nel < 2 || halo == nullptr) return (int)cudaErrorInvalidValue;
   return operator_launch(6, is_f64, s, nel, q, halo, ops, fields, gridrot, itf_x, itf_y, x, q0, u0, itf0, halo0,
-                         rhs0, nullptr, nullptr, nullptr, out, traces, a, b, cdt, stage, stream);
+                         rhs0, nullptr, nullptr, nullptr, kNoTopo, out, traces, a, b, cdt, stage, stream);
 }
 
 // The same operator with no halo (the state mode): each panel-edge face
@@ -733,7 +843,26 @@ extern "C" int sw_operator_state_launch(int is_f64, int s, int nel, const void* 
                                         double b, double cdt, int stage, void* stream) {
   if (nel < 2) return (int)cudaErrorInvalidValue;
   return operator_launch(6, is_f64, s, nel, q, nullptr, ops, fields, gridrot, itf_x, itf_y, x, q0, u0, itf0, halo0,
-                         rhs0, src, flip, conv, out, traces, a, b, cdt, stage, stream);
+                         rhs0, src, flip, conv, kNoTopo, out, traces, a, b, cdt, stage, stream);
+}
+
+// The absolute state mode with bottom topography: hsurf (6*nel*nel, s^2),
+// hsurf_x (6, nel, nel+1, s), hsurf_y (6, nel+1, nel, s), force (2,
+// 6*nel*nel, s^2) (csrc/sw_element.cuh); the other arguments as for
+// sw_operator_state_launch, without base planes and traces. All four
+// planes null: sw_operator_state_launch's absolute launch.
+extern "C" int sw_operator_state_topo_launch(int is_f64, int s, int nel, const void* q, const void* ops,
+                                             const void* fields, const void* gridrot, const void* itf_x,
+                                             const void* itf_y, const void* x, const void* src, const void* flip,
+                                             const void* conv, const void* hsurf, const void* hsurf_x,
+                                             const void* hsurf_y, const void* force, void* out, double a, double b,
+                                             double cdt, int stage, void* stream) {
+  if (nel < 2) return (int)cudaErrorInvalidValue;
+  const void* topo[4] = {hsurf, hsurf_x, hsurf_y, force};
+  if (hsurf == nullptr && (hsurf_x != nullptr || hsurf_y != nullptr || force != nullptr))
+    return (int)cudaErrorInvalidValue;
+  return operator_launch(6, is_f64, s, nel, q, nullptr, ops, fields, gridrot, itf_x, itf_y, x, nullptr, nullptr,
+                         nullptr, nullptr, nullptr, src, flip, conv, topo, out, nullptr, a, b, cdt, stage, stream);
 }
 
 // The same operator over ONE tile of nt x nt elements (the port of
@@ -750,7 +879,7 @@ extern "C" int sw_tile_launch(int is_f64, int s, int nt, const void* q, const vo
                               void* stream) {
   if (nt < 1 || halo == nullptr) return (int)cudaErrorInvalidValue;
   return operator_launch(1, is_f64, s, nt, q, halo, ops, fields, gridrot, itf_x, itf_y, x, q0, u0, itf0, halo0,
-                         rhs0, nullptr, nullptr, nullptr, out, traces, a, b, cdt, stage, stream);
+                         rhs0, nullptr, nullptr, nullptr, kNoTopo, out, traces, a, b, cdt, stage, stream);
 }
 
 // Panel-edge traces (3, 4, 6, nel, s) of q; ops as for sw_operator_launch
@@ -793,7 +922,20 @@ extern "C" int sw_tangent_prep_launch(int is_f64, int s, int nel, const void* q,
                                       void* coef, void* stream) {
   if (q == nullptr) return (int)cudaErrorInvalidValue;
   return tangent_launch(false, is_f64, s, nel, q, nullptr, nullptr, ops, nullptr, nullptr, itf_x, itf_y, src, flip,
-                        conv, coef, stream);
+                        conv, kNoTopo, coef, stream);
+}
+
+// The prep with bottom topography (hsurf, hsurf_x, hsurf_y as for
+// sw_operator_state_topo_launch; all three null: sw_tangent_prep_launch).
+extern "C" int sw_tangent_prep_topo_launch(int is_f64, int s, int nel, const void* q, const void* ops,
+                                           const void* itf_x, const void* itf_y, const void* src, const void* flip,
+                                           const void* conv, const void* hsurf, const void* hsurf_x,
+                                           const void* hsurf_y, void* coef, void* stream) {
+  if (q == nullptr || (hsurf == nullptr) != (hsurf_x == nullptr) || (hsurf == nullptr) != (hsurf_y == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const void* topo[4] = {hsurf, hsurf_x, hsurf_y, nullptr};
+  return tangent_launch(false, is_f64, s, nel, q, nullptr, nullptr, ops, nullptr, nullptr, itf_x, itf_y, src, flip,
+                        conv, topo, coef, stream);
 }
 
 // J(q).v from the linearisation `coef` (sw_tangent_prep_launch) in the
@@ -805,11 +947,23 @@ extern "C" int sw_tangent_apply_launch(int is_f64, int s, int nel, const void* v
                                        void* out, void* stream) {
   if (v == nullptr || coef == nullptr) return (int)cudaErrorInvalidValue;
   return tangent_launch(true, is_f64, s, nel, nullptr, v, coef, ops, fields, gridrot, itf_x, itf_y, src, flip, conv,
-                        out, stream);
+                        kNoTopo, out, stream);
+}
+
+// The apply with bottom topography: force (2, 6*nel*nel, s^2) as for
+// sw_operator_state_topo_launch (null: sw_tangent_apply_launch).
+extern "C" int sw_tangent_apply_topo_launch(int is_f64, int s, int nel, const void* v, const void* coef,
+                                            const void* ops, const void* fields, const void* gridrot,
+                                            const void* itf_x, const void* itf_y, const void* src, const void* flip,
+                                            const void* conv, const void* force, void* out, void* stream) {
+  if (v == nullptr || coef == nullptr) return (int)cudaErrorInvalidValue;
+  const void* topo[4] = {nullptr, nullptr, nullptr, force};
+  return tangent_launch(true, is_f64, s, nel, nullptr, v, coef, ops, fields, gridrot, itf_x, itf_y, src, flip, conv,
+                        topo, out, stream);
 }
 
 // The same report as sw_operator_resources of the tangent prep (kernel 0)
-// or apply (kernel 1) at (is_f64, s).
+// or apply (kernel 1) at (is_f64, s), and of their topography kernels (2, 3).
 extern "C" int sw_tangent_resources(int is_f64, int s, int kernel, int* info) {
   return (int)(is_f64 ? dispatch_tangent_resources<double>(s, kernel, info)
                       : dispatch_tangent_resources<float>(s, kernel, info));
@@ -820,14 +974,20 @@ extern "C" int sw_tangent_resources(int is_f64, int s, int kernel, int* info) {
 // memory bytes a block, resident blocks an SM, threads a block], at its
 // largest block.
 extern "C" int sw_operator_resources(int is_f64, int s, int pert, int* info) {
-  return (int)(is_f64 ? dispatch_resources<double>(s, pert != 0, false, info)
-                      : dispatch_resources<float>(s, pert != 0, false, info));
+  return (int)(is_f64 ? dispatch_resources<double>(s, pert != 0, false, false, info)
+                      : dispatch_resources<float>(s, pert != 0, false, false, info));
 }
 
 // The same of the state mode's instantiation.
 extern "C" int sw_operator_state_resources(int is_f64, int s, int pert, int* info) {
-  return (int)(is_f64 ? dispatch_resources<double>(s, pert != 0, true, info)
-                      : dispatch_resources<float>(s, pert != 0, true, info));
+  return (int)(is_f64 ? dispatch_resources<double>(s, pert != 0, true, false, info)
+                      : dispatch_resources<float>(s, pert != 0, true, false, info));
+}
+
+// The same of the state mode with bottom topography.
+extern "C" int sw_operator_topo_resources(int is_f64, int s, int* info) {
+  return (int)(is_f64 ? dispatch_resources<double>(s, false, true, true, info)
+                      : dispatch_resources<float>(s, false, true, true, info));
 }
 
 extern "C" const char* sw_operator_error_string(int code) {

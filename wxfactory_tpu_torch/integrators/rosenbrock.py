@@ -12,8 +12,8 @@ point's preparation once a step). Two solvers:
 
 * ``fgmres``: the host-orchestrated 1-sync FGMRES (``solvers/fgmres.py``,
   one host read an iteration);
-* ``fgmres_jit`` / ``fgmres_jit_1s`` (and ``auto``, the port refusing
-  preconditioners): the device-resident FGMRES (``solvers/fgmres_jit.py``,
+* ``fgmres_jit`` / ``fgmres_jit_1s`` (and ``auto`` without a
+  preconditioner): the device-resident FGMRES (``solvers/fgmres_jit.py``,
   one host read a restart cycle). With a float32 companion ``rhs32``
   (``mixed_precision_krylov``) its inner Arnoldi runs the companion's
   rational matvec ``v - float32(dt/2) J32.v`` on a float32 basis, J32 by the
@@ -23,8 +23,15 @@ point's preparation once a step). Two solvers:
 
 ``steps_device(q, dt, n)`` runs n device-solver steps back to back (no host
 read between them beyond the cycles' own) and sums their statistics, as
-the JAX package's one ``lax.scan`` does. ``gcrot`` raises
-``NotImplementedError`` naming its ROADMAP item, as does a preconditioner.
+the JAX package's one ``lax.scan`` does (the preconditioner prepared at
+each step's state). ``gcrot`` raises ``NotImplementedError`` naming its
+ROADMAP item.
+
+With a preconditioner (``precondition/``: lu, ilu, p-mg, fv-mg; prepared at
+q once a step by ``Integrator.step``) the JAX package's rule holds
+(integrators/rosenbrock.py:156-159 and :214-216 there): ``auto`` takes the
+host ``fgmres``, whose budget is then 400 // restart cycles, and an
+explicit ``fgmres_jit`` takes the preconditioner into its flexible form.
 """
 
 from time import time
@@ -52,15 +59,14 @@ class Ros2(Integrator):
     ) -> None:
         """``linear_solver``: "fgmres" (host), "fgmres_jit" or
         "fgmres_jit_1s" (device-resident; the latter with the one-product
-        norm estimate), "auto" (fgmres_jit). ``rhs32``: the float32
-        companion of the device solver's inner Arnoldi."""
+        norm estimate), "auto" (fgmres_jit, or fgmres with a
+        preconditioner). ``rhs32``: the float32 companion of the device
+        solver's inner Arnoldi."""
         super().__init__(**kwargs)
         if linear_solver == "gcrot":
             raise NotImplementedError("the gcrot linear solver is not ported yet (ROADMAP queue 1, item 12)")
         if linear_solver not in _SOLVERS:
             raise ValueError(f"unknown linear_solver {linear_solver!r} (one of {', '.join(_SOLVERS)}, gcrot)")
-        if self.preconditioner is not None:
-            raise NotImplementedError("preconditioners are not ported yet (ROADMAP queue 1, item 13)")
         self.rhs = rhs
         self.rhs32 = rhs32
         self.tol = tolerance
@@ -68,7 +74,8 @@ class Ros2(Integrator):
         self.linear_solver = linear_solver
 
     def _use_jit_solver(self) -> bool:
-        return self.linear_solver != "fgmres"
+        return self.linear_solver in ("fgmres_jit", "fgmres_jit_1s") or (
+            self.linear_solver == "auto" and self.preconditioner is None)
 
     def _solve_device(self, q, dt: float):
         """One step by the device-resident FGMRES: the new state and the
@@ -82,7 +89,7 @@ class Ros2(Integrator):
         qv = q.reshape(-1)
         b = A(qv) + self.rhs(q).reshape(-1) * dt
         x, info = fgmres_jit(A, b, x0=qv, tol=self.tol, restart=self.gmres_restart,
-                             max_outer=max(1, 20000 // self.gmres_restart),
+                             max_outer=max(1, 20000 // self.gmres_restart), preconditioner=self.preconditioner,
                              one_sync=self.linear_solver == "fgmres_jit_1s", A32=A32, basis_dtype=basis_dtype)
         return x.reshape(q.shape), info
 
@@ -105,6 +112,8 @@ class Ros2(Integrator):
         t0 = time()
         infos = []
         for _ in range(nsteps):
+            if self.preconditioner is not None:
+                self.preconditioner.prepare(dt, q)
             q, info = self._solve_device(q, dt)
             infos.append(info)
         self.latest_time = time() - t0
@@ -130,10 +139,11 @@ class Ros2(Integrator):
         A = make_rat_matvec(self.rhs, q, dt)
         q_flat = q.reshape(-1)
         b = A(q_flat) + self.rhs(q).reshape(-1) * dt
+        maxiter = (400 if self.preconditioner is not None else 20000) // self.gmres_restart
         t0 = time()
         q_new, norm_r, norm_b, num_iter, flag, residuals = fgmres(
-            A, b, x0=q_flat, tol=self.tol, restart=self.gmres_restart, maxiter=20000 // self.gmres_restart,
-            verbose=self.verbose,
+            A, b, x0=q_flat, tol=self.tol, restart=self.gmres_restart, maxiter=maxiter,
+            preconditioner=self.preconditioner, verbose=self.verbose,
         )
         t1 = time()
         self.solver_info = SolverInfo(total_num_it=num_iter, converged=(flag == 0), residuals=residuals)

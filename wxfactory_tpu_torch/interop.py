@@ -19,9 +19,9 @@ import numpy as np
 import torch
 
 from .models.euler_cubesphere import Euler3DRHS
-from .models.shallow_water import ShallowWaterRHS
+from .models.shallow_water import ShallowWaterRHS, Topography
 from .ops import euler3d_operator
-from .ops.sw_operator import SWConstants, SWPertBase, build_constants
+from .ops.sw_operator import SWConstants, SWPertBase, SWTopography, build_constants, build_topography
 
 
 def to_tensor(a, device="cpu", dtype=torch.float64) -> torch.Tensor:
@@ -38,12 +38,27 @@ def sw_constants(ops, metric, nel: int, device="cpu", dtype=torch.float64) -> SW
     return build_constants(ops, metric, nel, dtype=dtype, device=device)
 
 
+def sw_topography_fields(topo) -> Topography:
+    """The port's host ``Topography`` of either package's (numpy copies of
+    its five fields)."""
+    return Topography(**{k: np.asarray(getattr(topo, k), np.float64)
+                         for k in ("hsurf", "hsurf_itf_x1", "hsurf_itf_x2", "dzdx1", "dzdx2")})
+
+
+def sw_topography(topo, metric, device="cpu", dtype=torch.float64) -> SWTopography:
+    """The SW operator's topography planes from either package's
+    ``Topography`` (numpy arrays) and a 2D metric."""
+    return build_topography(sw_topography_fields(topo), metric, dtype=dtype, device=device)
+
+
 def shallow_water_rhs(geom, ops, metric, device="cpu", dtype=torch.float64,
-                      perturbation_base=None) -> ShallowWaterRHS:
+                      perturbation_base=None, topo=None) -> ShallowWaterRHS:
     """The port's SW RHS on a geometry, operators and metric built by
     either package (``perturbation_base``: the base state q0 of the
-    perturbation form, a numpy array as the JAX factory takes it)."""
-    return ShallowWaterRHS(geom, ops, metric, dtype=dtype, device=device, perturbation_base=perturbation_base)
+    perturbation form, a numpy array as the JAX factory takes it; ``topo``:
+    either package's ``Topography``)."""
+    return ShallowWaterRHS(geom, ops, metric, dtype=dtype, device=device, perturbation_base=perturbation_base,
+                           topo=None if topo is None else sw_topography_fields(topo))
 
 
 def euler3d_constants(ops, metric, nel_h: int, nel_v: int, device="cpu",

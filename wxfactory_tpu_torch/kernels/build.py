@@ -45,13 +45,22 @@ SIGNATURES = {
         "sw_tangent_prep_launch": (_I, [_I, _I, _I] + [_P] * 8 + [_P]),
         # J(q).v: is_f64, s, nel, then v, coef, ops, fields, gridrot, itf_x, itf_y, src, flip, conv, out
         "sw_tangent_apply_launch": (_I, [_I, _I, _I] + [_P] * 11 + [_P]),
+        # with bottom topography: is_f64, s, nel, then q, ops, fields, gridrot, itf_x, itf_y, x, src, flip,
+        # conv, hsurf, hsurf_x, hsurf_y, force, out; a, b, cdt, stage; stream
+        "sw_operator_state_topo_launch": (_I, [_I, _I, _I] + [_P] * 15 + [_D, _D, _D, _I] + [_P]),
+        # the prep's: is_f64, s, nel, then q, ops, itf_x, itf_y, src, flip, conv, hsurf, hsurf_x, hsurf_y, coef
+        "sw_tangent_prep_topo_launch": (_I, [_I, _I, _I] + [_P] * 11 + [_P]),
+        # the apply's: is_f64, s, nel, then v, coef, ops, fields, gridrot, itf_x, itf_y, src, flip, conv, force, out
+        "sw_tangent_apply_topo_launch": (_I, [_I, _I, _I] + [_P] * 12 + [_P]),
+        "sw_operator_topo_resources": (_I, [_I, _I, _P]),  # is_f64, s, int[5] out
         "sw_edges_launch": (_I, [_I, _I, _I] + [_P] * 3 + [_P]),  # is_f64, s, nel, q, ops, traces, stream
         # is_f64, npts, traces, src, flip, conv, halo, stream
         "sw_halo_launch": (_I, [_I, _I] + [_P] * 5 + [_P]),
         # is_f64, s, pert, int[5] out (halo plane; the state mode)
         "sw_operator_resources": (_I, [_I, _I, _I, _P]),
         "sw_operator_state_resources": (_I, [_I, _I, _I, _P]),
-        "sw_tangent_resources": (_I, [_I, _I, _I, _P]),  # is_f64, s, kernel (0 prep, 1 apply), int[5] out
+        # is_f64, s, kernel (0 prep, 1 apply; 2, 3 theirs with topography), int[5] out
+        "sw_tangent_resources": (_I, [_I, _I, _I, _P]),
         "sw_operator_error_string": (ctypes.c_char_p, [_I]),
     },
     "sw_run": {

@@ -1,7 +1,8 @@
 """Shallow-water equations on the rotated cubed sphere (DFR discretization).
 
-Counterpart of ``wxfactory_tpu/models/shallow_water.py`` (absolute and
-perturbation forms, no topography): the state is ``Q[3, 6, ny, nx, s^2]``
+Counterpart of ``wxfactory_tpu/models/shallow_water.py`` (absolute form
+with or without bottom topography, perturbation form without): the state
+is ``Q[3, 6, ny, nx, s^2]``
 (h, h*u1, h*u2) and the whole spatial operator is ``ops.sw_operator`` — the
 hand-written CUDA kernel on a GPU, its plain torch version on the CPU —
 with its halo taken from the state (``halo=None``): on a GPU one launch
@@ -34,8 +35,17 @@ trajectory exactly, since every TVD-RK3 and Euler stage has a + b = 1.
 At s=4 with nel a multiple of 32 (the JAX package's ``run_supported``) the
 RHS also exposes ``packed_run(qp, nsteps, abc)``: ``nsteps`` whole TVD-RK3
 steps of a packed state in one launch of the whole-run kernel on a GPU.
+
+With ``topo`` (a ``Topography``: Williamson cases 5 and 10) the RHS, its
+stages and its Jacobian action carry the bottom topography (the JAX
+package's models/shallow_water.py:166-249: h + hsurf at the faces, each
+interface's hsurf taken from both sides before the flux, the forcing's
+g h H^ab dz_b), on a GPU through the operator's and the tangent pair's
+kernels with topography. The perturbation form and ``packed_run`` refuse
+it (ROADMAP queue 1, item 17), never running without its source terms.
 """
 
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
@@ -45,6 +55,7 @@ from ..common.device import resolve_device
 from ..ops.sw_operator import (
     build_base_planes,
     build_constants,
+    build_topography,
     halo_tables,
     run_supported,
     sw_operator,
@@ -55,6 +66,20 @@ from ..ops.sw_operator import (
 )
 from ..parallel.topology import CubedSphereTopology
 
+_ITEM_17 = "ROADMAP queue 1, item 17"
+
+
+@dataclass(frozen=True)
+class Topography:
+    """Bottom topography fields, host float64 numpy (the JAX package's
+    ``models.shallow_water.Topography``, reference init/initialize.py Topo)."""
+
+    hsurf: np.ndarray  # (6, ny, nx, s^2)
+    hsurf_itf_x1: np.ndarray  # (6, ny, nx+1, s) at x1 interfaces
+    hsurf_itf_x2: np.ndarray  # (6, ny+1, nx, s) at x2 interfaces
+    dzdx1: np.ndarray  # (6, ny, nx, s^2)
+    dzdx2: np.ndarray
+
 
 class ShallowWaterRHS:
     """The SW RHS at one discretization, dtype and device (the card unless
@@ -63,10 +88,14 @@ class ShallowWaterRHS:
     With ``perturbation_base`` (a balanced state q0, usually the initial
     condition) the RHS runs in perturbation form around it; its base planes
     (q0, hu0/h0, q0's face traces and halo, the float64 base RHS) are built
-    once in float64 on the same device and cast to ``dtype``."""
+    once in float64 on the same device and cast to ``dtype``.
+
+    With ``topo`` (a ``Topography``) the absolute form carries the bottom
+    topography: its device planes (``ops.sw_operator.SWTopography``) are
+    built once in float64 and cast to ``dtype``."""
 
     def __init__(self, geom, ops, metric, dtype=torch.float64, device="cuda", topology=None,
-                 perturbation_base=None):
+                 perturbation_base=None, topo=None):
         self.dtype = dtype
         self.device = resolve_device(device)
         self.topology = topology if topology is not None else CubedSphereTopology(geom)
@@ -74,6 +103,11 @@ class ShallowWaterRHS:
         # The halo's device tables are made here, not inside a step.
         if self.device.type == "cuda":
             halo_tables(self.topology, self.con.device, dtype)
+        self.topo = None
+        if topo is not None:
+            if perturbation_base is not None:
+                raise NotImplementedError(f"the SW perturbation form with topography is not ported yet ({_ITEM_17})")
+            self.topo = build_topography(topo, metric, dtype=dtype, device=self.device)
         self.base = None
         if perturbation_base is not None:
             con64 = build_constants(ops, metric, geom.num_elements, dtype=torch.float64, device=self.device)
@@ -110,7 +144,7 @@ class ShallowWaterRHS:
     def xla(self, q: torch.Tensor) -> torch.Tensor:
         """The absolute-form operator of this dtype on the absolute state
         (what the JAX package's ``rhs_pert.xla`` is)."""
-        return sw_operator(q, None, self.con, topology=self.topology)
+        return sw_operator(q, None, self.con, topology=self.topology, topo=self.topo)
 
     def jtv_prep(self, q: torch.Tensor) -> torch.Tensor:
         """The linearisation of ``jtv_apply`` at the absolute state q, in this
@@ -120,7 +154,7 @@ class ShallowWaterRHS:
         q = q.to(self.dtype).contiguous()
         if q.device.type == "cpu":
             return q
-        return sw_tangent_prep(q, self.con, self.topology)
+        return sw_tangent_prep(q, self.con, self.topology, self.topo)
 
     def jtv_apply(self, prep: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         """J(q).v of the ABSOLUTE operator of this RHS's dtype for the
@@ -137,8 +171,8 @@ class ShallowWaterRHS:
         there), not the tangent of the perturbation form."""
         v = v.to(self.dtype).contiguous()
         if v.device.type == "cpu":
-            return sw_tangent(prep, v, self.con, self.topology)
-        return sw_tangent_apply(prep, v, self.con, self.topology)
+            return sw_tangent(prep, v, self.con, self.topology, self.topo)
+        return sw_tangent_apply(prep, v, self.con, self.topology, self.topo)
 
     def jtv(self, q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         """J(q).v: ``jtv_apply(jtv_prep(q), v)``."""
@@ -149,7 +183,7 @@ class ShallowWaterRHS:
         (``x`` unused when ``a == 0``), one launch on a GPU; ``traces`` is
         ignored (the halo comes from ``y``). Returns (output, None)."""
         return sw_operator(y, None, self.con, x=x, a=a, b=b, cdt=cdt, base=self.base,
-                           topology=self.topology), None
+                           topology=self.topology, topo=self.topo), None
 
     def pack(self, q: torch.Tensor) -> torch.Tensor:
         """The integrators' state: q itself, or q - q0 in perturbation form."""
@@ -166,21 +200,17 @@ class ShallowWaterRHS:
     def _packed_run(self, qp: torch.Tensor, nsteps: int, abc) -> torch.Tensor:
         """``nsteps`` whole TVD-RK3 steps of the packed state ``qp`` with the
         per-stage rows ``abc`` (``ops.sw_operator.tvdrk3_abc``): one launch
-        of the whole-run kernel on a GPU, the plain stages on the CPU."""
+        of the whole-run kernel on a GPU, the plain stages on the CPU; with
+        topography it raises (the whole-run kernel has no topography)."""
+        if self.topo is not None:
+            raise NotImplementedError(f"packed_run with topography is not ported yet ({_ITEM_17})")
         return sw_run(qp, nsteps, abc, self.con, self.topology, base=self.base)
 
 
 def make_rhs_shallow_water(geom, ops, metric, dtype=torch.float64, device="cuda",
                            topo=None, topology=None, perturbation_base=None) -> ShallowWaterRHS:
-    """Build the shallow-water RHS (absolute form, or with
-    ``perturbation_base`` the perturbation form; no topography).
-
-    ``topo`` (bottom topography) waits for ROADMAP queue 1, item 4; a
-    topography case raises instead of running without its source terms (the
-    JAX package's fast paths need ``topo is None`` too)."""
-    if topo is not None:
-        raise NotImplementedError(
-            "shallow water with topography is not ported yet (ROADMAP queue 1, item 4)"
-        )
+    """Build the shallow-water RHS: the absolute form, with ``topo`` (a
+    ``Topography``) its bottom topography, or with ``perturbation_base`` the
+    perturbation form (which refuses topography, ROADMAP queue 1, item 17)."""
     return ShallowWaterRHS(geom, ops, metric, dtype=dtype, device=device, topology=topology,
-                           perturbation_base=perturbation_base)
+                           perturbation_base=perturbation_base, topo=topo)

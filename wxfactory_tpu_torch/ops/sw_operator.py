@@ -51,6 +51,18 @@ the split in torch; ``sw_tangent_plain`` is ``torch.func.jvp`` of the plain
 operator, the JAX package's ``jax.jvp`` of its XLA RHS, which the CPU path
 runs.
 
+Bottom topography (``SWTopography``, from ``build_topography``): the
+absolute form takes it in its state mode (RHS and stages) and in the
+tangent pair, on the card through their kernels with topography. The faces
+extrapolate h + hsurf, the panel-edge faces the neighbour's h + hsurf, both
+sides of an interface subtract its hsurf before the flux, and the forcing
+gains g h (H^a1 dz1 + H^a2 dz2) (models/shallow_water.py:166-249 of the JAX
+package). The perturbation form, the halo-plane mode, trace emission, the
+tile kernel and the whole-run kernel refuse it.
+
+The tangent pair also runs at s = 1 (the pure finite-volume levels of the
+fv-mg preconditioner); the operator needs s >= 2.
+
 Each wrapper (``sw_operator``, ``sw_tangent_prep``, ``sw_tangent_apply``,
 ``sw_tile_operator``, ``sw_edges``, ``sw_halo``, ``sw_run``) runs its CUDA kernel for a CUDA
 tensor and its plain version for a CPU tensor; there is no fallback between
@@ -68,7 +80,10 @@ from ..common.constants import GRAVITY
 
 # Kernel launches made by the wrappers (the plain versions do not count):
 # the operator in absolute and in perturbation form (``state_launches``
-# counts those of them that took the halo from the state), its tile
+# counts those of them that took the halo from the state, ``topo_launches``
+# those with topography; ``topo_tangent_*_launches`` the tangent pair's with
+# topography and ``s1_tangent_*_launches`` its launches at s = 1, counted in
+# the prep and apply counts too), its tile
 # launches in both forms, the edge-trace and halo kernels and the whole-run
 # kernel, the tangent prep (once per linearisation point) and apply (once
 # per J(q).v) kernels; and calls of the plain versions (the plain tangent's
@@ -83,6 +98,11 @@ halo_launches = 0
 run_launches = 0
 tangent_prep_launches = 0
 tangent_apply_launches = 0
+topo_launches = 0
+topo_tangent_prep_launches = 0
+topo_tangent_apply_launches = 0
+s1_tangent_prep_launches = 0
+s1_tangent_apply_launches = 0
 plain_calls = 0
 plain_tangent_calls = 0
 
@@ -177,6 +197,58 @@ def build_constants(ops, metric, nel: int, dtype=torch.float64, device="cpu") ->
     t = lambda a: torch.as_tensor(np.array(a, dtype=np.float64, order="C"), dtype=dtype, device=device)
     return SWConstants(nel=nel, s=s, ops=t(flat), fields=t(fields), gridrot=t(gridrot),
                        itf_x=t(itf_x), itf_y=t(itf_y))
+
+
+@dataclass(frozen=True)
+class SWTopography:
+    """Device planes of the bottom topography at one (nel, s, dtype,
+    device), built once in float64 (``build_topography``) and cast: it
+    varies from panel to panel, so unlike the metric it keeps a panel
+    index."""
+
+    hsurf: torch.Tensor  # (6, nel, nel, s^2) at the nodes
+    hsurf_x: torch.Tensor  # (6, nel, nel+1, s) at the x1 interfaces
+    hsurf_y: torch.Tensor  # (6, nel+1, nel, s) at the x2 interfaces
+    # (2, 6, nel, nel, s^2): g (H^11 dz1 + H^12 dz2), g (H^21 dz1 + H^22 dz2),
+    # the forcing's coefficients of h
+    force: torch.Tensor
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.hsurf.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.hsurf.device
+
+
+def build_topography(topo, metric, dtype=torch.float64, device="cpu") -> SWTopography:
+    """The device planes of a ``Topography`` (host float64 numpy: hsurf,
+    hsurf_itf_x1, hsurf_itf_x2, dzdx1, dzdx2) on the 2D metric, the forcing
+    coefficients formed in float64 and everything cast once to ``dtype``."""
+    dz1, dz2 = np.asarray(topo.dzdx1, np.float64), np.asarray(topo.dzdx2, np.float64)
+    h = lambda n: np.asarray(getattr(metric, n), np.float64)
+    force = np.stack([GRAVITY * (h("H_contra_11") * dz1 + h("H_contra_12") * dz2),
+                      GRAVITY * (h("H_contra_21") * dz1 + h("H_contra_22") * dz2)])
+    t = lambda a: torch.as_tensor(np.array(a, dtype=np.float64, order="C"), dtype=dtype, device=device)
+    return SWTopography(hsurf=t(topo.hsurf), hsurf_x=t(topo.hsurf_itf_x1), hsurf_y=t(topo.hsurf_itf_x2),
+                        force=t(force))
+
+
+def _with_hsurf(q: torch.Tensor, topo: Optional[SWTopography]) -> torch.Tensor:
+    """(h + hsurf, hu1, hu2): what the faces extrapolate (q without topography)."""
+    return q if topo is None else torch.cat([(q[0] + topo.hsurf)[None], q[1:]])
+
+
+def _without_hsurf(states, topo: Optional[SWTopography]):
+    """(qL_x, qR_x, qL_y, qR_y) with each interface's hsurf taken from h on
+    both sides (``_interface_states`` of the h + hsurf traces)."""
+    if topo is None:
+        return states
+    qL_x, qR_x, qL_y, qR_y = states
+    less = lambda a, hs: torch.cat([(a[0] - hs)[None], a[1:]])
+    return (less(qL_x, topo.hsurf_x), less(qR_x, topo.hsurf_x), less(qL_y, topo.hsurf_y),
+            less(qR_y, topo.hsurf_y))
 
 
 def element_plan(s: int) -> dict:
@@ -561,23 +633,39 @@ def _finish(rhs, q, x, a: float, b: float, cdt: Optional[float], emit_traces: bo
 
 def sw_operator_plain(q, halo, con: SWConstants, x=None, a: float = 0.0, b: float = 1.0,
                       cdt: Optional[float] = None, emit_traces: bool = False,
-                      base: Optional[SWPertBase] = None, topology=None):
+                      base: Optional[SWPertBase] = None, topology=None, topo: Optional[SWTopography] = None):
     """Plain torch version of the operator; same arguments and results as
     ``sw_operator`` (written from models/shallow_water.py:130-252 and
     pallas_sw._element_stage / _ausm_slots of the JAX package; with
     ``base``, ``sw_operator_pert_plain``). ``halo=None``: the halo of q's
-    own traces, ``halo_from_traces(edge_traces(q))``."""
+    own traces, ``halo_from_traces(edge_traces(q))``; with ``topo`` those
+    of h + hsurf."""
     global plain_calls
+    _check_topo_form(topo, halo, base, emit_traces, "sw_operator_plain")
     if base is not None:
         return sw_operator_pert_plain(q, halo, con, base, x=x, a=a, b=b, cdt=cdt, emit_traces=emit_traces,
                                       topology=topology)
     plain_calls += 1
-    return _finish(_rhs_plain(q, halo, con, topology), q, x, a, b, cdt, emit_traces, con)
+    return _finish(_rhs_plain(q, halo, con, topology, topo), q, x, a, b, cdt, emit_traces, con)
 
 
-def _rhs_plain(q, halo, con: SWConstants, topology):
+def _check_topo_form(topo, halo, base, emit_traces: bool, name: str):
+    """Topography runs in the absolute form with the halo from the state
+    and no trace emission; raise for any other form rather than run without
+    its source terms."""
+    if topo is None:
+        return
+    if base is not None:
+        raise NotImplementedError(f"{name}: the perturbation form with topography is not ported yet "
+                                  "(ROADMAP queue 1, item 17)")
+    if halo is not None or emit_traces:
+        raise ValueError(f"{name}: topography takes its halo from the state (halo=None) and emits no traces")
+
+
+def _rhs_plain(q, halo, con: SWConstants, topology, topo: Optional[SWTopography] = None):
     """The absolute-form RHS of ``sw_operator_plain``, uncounted."""
-    halo = _halo_of(q, halo, con, topology)
+    hq = _with_hsurf(q, topo)
+    halo = _halo_of(hq, halo, con, topology)
     half_g = 0.5 * GRAVITY
     (sqrtg, h11, h12, h22, g101, g102, g201, g202,
      c111, c112, c212, c222, invsg) = con.fields
@@ -597,10 +685,13 @@ def _rhs_plain(q, halo, con: SWConstants, topology):
     rot2 = 2.0 * con.gridrot
     forcing_1 = rot2 * (g101 * hu1 + g102 * hu2) + c111 * hu1 * u1 + 2.0 * c112 * hu1 * u2
     forcing_2 = rot2 * (g201 * hu1 + g202 * hu2) + 2.0 * c212 * hu1 * u2 + c222 * hu2 * u2
+    if topo is not None:
+        forcing_1 = forcing_1 + topo.force[0] * h
+        forcing_2 = forcing_2 + topo.force[1] * h
     df = torch.stack([-invsg * div[0], -invsg * div[1] - forcing_1, -invsg * div[2] - forcing_2])
 
     # Interface fluxes at the nel+1 interfaces per element row / column.
-    qL_x, qR_x, qL_y, qR_y = _interface_states(q @ con.ee, halo, con.s)
+    qL_x, qR_x, qL_y, qR_y = _without_hsurf(_interface_states(hq @ con.ee, halo, con.s), topo)
     f_x = _ausm(qL_x, qR_x, con.itf_x[0], con.itf_x[1], con.itf_x[2], is_x=True)
     f_y = _ausm(qL_y, qR_y, con.itf_y[0], con.itf_y[1], con.itf_y[2], is_x=False)
     return df - invsg * _correction(f_x, f_y, con)
@@ -686,12 +777,29 @@ def _check(q, halo, con: SWConstants, x, a: float, base: Optional[SWPertBase]):
             raise ValueError(f"{name} is not contiguous")
 
 
-def _check_kernel_shape(con: SWConstants, name: str):
+def _check_kernel_shape(con: SWConstants, name: str, min_s: int = 2):
+    """The kernels' instantiations: s from ``min_s`` (1 for the tangent
+    pair, 2 for the operator) to 8, nel >= 2 on the whole sphere."""
     if con.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"{name} takes float32 or float64, not {con.dtype}")
     min_nel = 2 if con.npanel == 6 else 1
-    if not (2 <= con.s <= 8) or con.nel < min_nel:
-        raise ValueError(f"{name} takes 2 <= s <= 8 and nel >= {min_nel}, not s={con.s}, nel={con.nel}")
+    if not (min_s <= con.s <= 8) or con.nel < min_nel:
+        raise ValueError(f"{name} takes {min_s} <= s <= 8 and nel >= {min_nel}, not s={con.s}, nel={con.nel}")
+
+
+def _check_topo(topo: Optional[SWTopography], con: SWConstants, name: str):
+    """The topography planes' shapes, dtype and device against the
+    whole-sphere constants."""
+    if topo is None:
+        return
+    nel, s = con.nel, con.s
+    shapes = {"hsurf": (6, nel, nel, s * s), "hsurf_x": (6, nel, nel + 1, s), "hsurf_y": (6, nel + 1, nel, s),
+              "force": (2, 6, nel, nel, s * s)}
+    for key, shape in shapes.items():
+        t = getattr(topo, key)
+        if tuple(t.shape) != shape or t.dtype != con.dtype or t.device != con.device or not t.is_contiguous():
+            raise ValueError(f"{name}: topography {key} {tuple(t.shape)} {t.dtype} on {t.device}; expected "
+                             f"{shape} {con.dtype} on {con.device}, contiguous")
 
 
 def _check_topology(con: SWConstants, topology, name: str):
@@ -714,7 +822,7 @@ def _check_npanel(con: SWConstants, npanel: int, name: str):
 
 def sw_operator(q, halo, con: SWConstants, x=None, a: float = 0.0, b: float = 1.0,
                 cdt: Optional[float] = None, emit_traces: bool = False,
-                base: Optional[SWPertBase] = None, topology=None):
+                base: Optional[SWPertBase] = None, topology=None, topo: Optional[SWTopography] = None):
     """The SW operator on ``q`` (3, 6, nel, nel, s^2) with neighbour halos
     ``halo`` (3, 4, 6, nel, s), or with ``halo=None`` (and the
     ``topology``) the halo of q's own panel-edge traces, taken from the
@@ -731,16 +839,27 @@ def sw_operator(q, halo, con: SWConstants, x=None, a: float = 0.0, b: float = 1.
     A CPU tensor runs ``sw_operator_plain``; a CUDA tensor launches the
     kernel (built from csrc/sw_operator.cu at first use) on the current
     stream, without synchronising, or raises: there is no fallback to the
-    halo kernels when the state mode fails."""
-    global launches, pert_launches, state_launches
+    halo kernels when the state mode fails.
+
+    ``topo`` (``SWTopography``): the bottom topography, in the absolute
+    state mode only (RHS and stages; one launch of the state mode's
+    topography kernel, counted in ``topo_launches`` too); any other form
+    raises."""
+    global launches, pert_launches, state_launches, topo_launches
     _check_npanel(con, 6, "sw_operator")
     _check(q, halo, con, x, a, base)
+    _check_topo_form(topo, halo, base, emit_traces, "sw_operator")
+    _check_topo(topo, con, "sw_operator")
     if halo is None:
         _check_topology(con, topology, "sw_operator")
     if q.device.type == "cpu":
         return sw_operator_plain(q, halo, con, x=x, a=a, b=b, cdt=cdt, emit_traces=emit_traces, base=base,
-                                 topology=topology)
-    if halo is None:
+                                 topology=topology, topo=topo)
+    if topo is not None:
+        out = _launch_operator_topo(q, con, x, a, b, cdt, halo_tables(topology, q.device, q.dtype), topo)
+        state_launches += 1
+        topo_launches += 1
+    elif halo is None:
         out = _launch_operator("sw_operator_state_launch", q, None, con, x, a, b, cdt, emit_traces, base,
                                halo_tables(topology, q.device, q.dtype))
         state_launches += 1
@@ -789,11 +908,38 @@ def _launch_operator(entry: str, q, halo, con: SWConstants, x, a: float, b: floa
     return (out, traces) if emit_traces else out
 
 
+def _launch_operator_topo(q, con: SWConstants, x, a: float, b: float, cdt: Optional[float], tables: HaloTables,
+                          topo: Optional[SWTopography]):
+    """One launch of the absolute state mode through the C entry
+    ``sw_operator_state_topo_launch`` (``topo=None``: null planes, which
+    launch the kernel without topography)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"sw_operator_state_topo_launch runs on cuda tensors, not {q.device}")
+    _check_kernel_shape(con, "sw_operator_state_topo_launch")
+    from ..kernels.build import load_library
+
+    lib = load_library("sw_operator")
+    use_x = cdt is not None and a != 0.0
+    out = torch.empty_like(q)
+    planes = (topo.hsurf, topo.hsurf_x, topo.hsurf_y, topo.force) if topo is not None else (None,) * 4
+    with torch.cuda.device(q.device):
+        rc = lib.sw_operator_state_topo_launch(
+            1 if q.dtype == torch.float64 else 0, con.s, con.nel,
+            _ptr(q), _ptr(con.ops), _ptr(con.fields), _ptr(con.gridrot), _ptr(con.itf_x), _ptr(con.itf_y),
+            _ptr(x if use_x else None), _ptr(tables.src), _ptr(tables.flip), _ptr(tables.conv),
+            *[_ptr(t) for t in planes], _ptr(out),
+            float(a), float(b), float(cdt if cdt is not None else 0.0), 1 if cdt is not None else 0,
+            _stream(q.device),
+        )
+    _raise_on(rc, lib, "sw_operator_state_topo_launch")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # The Jacobian action J(q).v of the absolute operator
 
 
-def sw_tangent_plain(q, v, con: SWConstants, topology):
+def sw_tangent_plain(q, v, con: SWConstants, topology, topo: Optional[SWTopography] = None):
     """Plain version of ``sw_tangent``: ``torch.func.jvp`` of the absolute
     operator with its halo taken from the state (``sw_operator_plain(q,
     None, ...)``; the halo is linear in the traces, so the tangent's halo is
@@ -803,7 +949,7 @@ def sw_tangent_plain(q, v, con: SWConstants, topology):
     global plain_tangent_calls
     plain_tangent_calls += 1
     _check_topology(con, topology, "sw_tangent_plain")
-    return torch.func.jvp(lambda y: _rhs_plain(y, None, con, topology), (q,), (v,))[1]
+    return torch.func.jvp(lambda y: _rhs_plain(y, None, con, topology, topo), (q,), (v,))[1]
 
 
 # The split Jacobian action: a prep once per linearisation point q, an
@@ -919,26 +1065,31 @@ def _ausm_tangent_apply(c, dL, dR, msg, mhd, mho, is_x: bool):
     return torch.stack(f)
 
 
-def sw_tangent_prep_plain(q, con: SWConstants, topology) -> torch.Tensor:
+def sw_tangent_prep_plain(q, con: SWConstants, topology, topo: Optional[SWTopography] = None) -> torch.Tensor:
     """Plain torch version of the prep kernel: the coefficient buffer
     (``sw_tangent_layout``) of the linearisation at q, its panel-edge values
-    the halo of q's own traces. Counted in ``plain_calls``."""
+    the halo of q's own traces (with ``topo``: the traces of h + hsurf, each
+    interface's hsurf then taken from both sides). Counted in
+    ``plain_calls``."""
     global plain_calls
     plain_calls += 1
     _check_topology(con, topology, "sw_tangent_prep_plain")
     node = torch.stack([q[0], q[1] / q[0], q[2] / q[0]])
-    qL_x, qR_x, qL_y, qR_y = _interface_states(q @ con.ee, _halo_of(q, None, con, topology), con.s)
+    hq = _with_hsurf(q, topo)
+    qL_x, qR_x, qL_y, qR_y = _without_hsurf(
+        _interface_states(hq @ con.ee, _halo_of(hq, None, con, topology), con.s), topo)
     face_x = _ausm_tangent_coefficients(qL_x, qR_x, con.itf_x[1], is_x=True)
     face_y = _ausm_tangent_coefficients(qL_y, qR_y, con.itf_y[1], is_x=False)
     return torch.cat([node.reshape(-1), face_x.reshape(-1), face_y.reshape(-1)])
 
 
-def sw_tangent_apply_plain(coef, v, con: SWConstants, topology):
+def sw_tangent_apply_plain(coef, v, con: SWConstants, topology, topo: Optional[SWTopography] = None):
     """Plain torch version of the apply kernel: J.v from the coefficient
     buffer ``coef`` and the direction ``v`` (its halo that of its own
     traces), with linear arithmetic only: the pointwise fluxes' and
     forcing's tangents by the product rule with h du = dhu - u dh, the AUSM
-    flux's tangent from the interface coefficients. Counted in
+    flux's tangent from the interface coefficients; with ``topo`` the
+    forcing rows' force * dh (hsurf does not enter dh). Counted in
     ``plain_tangent_calls``."""
     global plain_tangent_calls
     plain_tangent_calls += 1
@@ -965,6 +1116,9 @@ def sw_tangent_apply_plain(coef, v, con: SWConstants, topology):
     rot2 = 2.0 * con.gridrot
     dforce_1 = rot2 * (g101 * dhu1 + g102 * dhu2) + c111 * d11 + 2.0 * c112 * d12
     dforce_2 = rot2 * (g201 * dhu1 + g202 * dhu2) + 2.0 * c212 * d12 + c222 * d22
+    if topo is not None:
+        dforce_1 = dforce_1 + topo.force[0] * dh
+        dforce_2 = dforce_2 + topo.force[1] * dh
     df = torch.stack([-invsg * div[0], -invsg * div[1] - dforce_1, -invsg * div[2] - dforce_2])
     dL_x, dR_x, dL_y, dR_y = _interface_states(v @ con.ee, _halo_of(v, None, con, topology), con.s)
     f_x = _ausm_tangent_apply(face_x, dL_x, dR_x, con.itf_x[0], con.itf_x[1], con.itf_x[2], is_x=True)
@@ -988,12 +1142,13 @@ def _check_tangent(con: SWConstants, topology, name: str, **tensors):
             raise ValueError(f"{name}: {key} is not contiguous")
 
 
-def _launch_tangent(entry: str, con: SWConstants, topology, *tensors):
+def _launch_tangent(entry: str, con: SWConstants, topology, *tensors, topo_planes=()):
     """One launch of a tangent kernel through the C entry ``entry``: the
-    leading (is_f64, s, nel), ``tensors`` as pointers, the halo tables and
+    leading (is_f64, s, nel), ``tensors`` as pointers, the halo tables, the
+    topography planes (``topo_planes``, for a ``*_topo_launch`` entry) and
     the stream appended where the entry takes them; raises on a refused
     launch."""
-    _check_kernel_shape(con, entry)
+    _check_kernel_shape(con, entry, min_s=1)
     from ..kernels.build import load_library
 
     lib = load_library("sw_operator")
@@ -1001,57 +1156,79 @@ def _launch_tangent(entry: str, con: SWConstants, topology, *tensors):
     *args, out = tensors
     with torch.cuda.device(con.device):
         rc = getattr(lib, entry)(1 if con.dtype == torch.float64 else 0, con.s, con.nel, *[_ptr(a) for a in args],
-                                 _ptr(tab.src), _ptr(tab.flip), _ptr(tab.conv), _ptr(out), _stream(con.device))
+                                 _ptr(tab.src), _ptr(tab.flip), _ptr(tab.conv), *[_ptr(t) for t in topo_planes],
+                                 _ptr(out), _stream(con.device))
     _raise_on(rc, lib, entry)
 
 
-def sw_tangent_prep(q, con: SWConstants, topology) -> torch.Tensor:
+def sw_tangent_prep(q, con: SWConstants, topology, topo: Optional[SWTopography] = None) -> torch.Tensor:
     """The linearisation of the absolute operator at ``q`` (3, 6, nel, nel,
     s^2), once per linearisation point: the coefficient buffer
     (``sw_tangent_layout``) the apply reads. A CPU tensor runs
     ``sw_tangent_prep_plain``; a CUDA tensor makes one launch of the prep
     kernel (csrc/sw_operator.cu, ``sw_tangent_prep_launch``) on the current
-    stream, counted in ``tangent_prep_launches``, or raises."""
-    global tangent_prep_launches
+    stream, counted in ``tangent_prep_launches``, or raises. With ``topo``
+    the prep kernel with topography (``sw_tangent_prep_topo_launch``, also
+    counted in ``topo_tangent_prep_launches``); at s = 1 also counted in
+    ``s1_tangent_prep_launches``."""
+    global tangent_prep_launches, topo_tangent_prep_launches, s1_tangent_prep_launches
     _check_tangent(con, topology, "sw_tangent_prep", q=q)
+    _check_topo(topo, con, "sw_tangent_prep")
     if q.device.type == "cpu":
-        return sw_tangent_prep_plain(q, con, topology)
+        return sw_tangent_prep_plain(q, con, topology, topo)
     _cuda_or_raise(q, "sw_tangent_prep")
     coef = torch.empty(_tangent_size(con), dtype=q.dtype, device=q.device)
-    _launch_tangent("sw_tangent_prep_launch", con, topology, q, con.ops, con.itf_x, con.itf_y, coef)
+    if topo is None:
+        _launch_tangent("sw_tangent_prep_launch", con, topology, q, con.ops, con.itf_x, con.itf_y, coef)
+    else:
+        _launch_tangent("sw_tangent_prep_topo_launch", con, topology, q, con.ops, con.itf_x, con.itf_y, coef,
+                        topo_planes=(topo.hsurf, topo.hsurf_x, topo.hsurf_y))
+        topo_tangent_prep_launches += 1
     tangent_prep_launches += 1
+    s1_tangent_prep_launches += con.s == 1
     return coef
 
 
-def sw_tangent_apply(coef, v, con: SWConstants, topology) -> torch.Tensor:
+def sw_tangent_apply(coef, v, con: SWConstants, topology, topo: Optional[SWTopography] = None) -> torch.Tensor:
     """J(q).v from the linearisation ``coef`` (``sw_tangent_prep(q)``) in
     the direction ``v``, once per Jacobian action. A CPU tensor runs
     ``sw_tangent_apply_plain``; a CUDA tensor makes one launch of the apply
     kernel (csrc/sw_operator.cu, ``sw_tangent_apply_launch``) on the
-    current stream, counted in ``tangent_apply_launches``, or raises."""
-    global tangent_apply_launches
+    current stream, counted in ``tangent_apply_launches``, or raises. With
+    ``topo`` the apply kernel with topography
+    (``sw_tangent_apply_topo_launch``, also counted in
+    ``topo_tangent_apply_launches``); at s = 1 also counted in
+    ``s1_tangent_apply_launches``."""
+    global tangent_apply_launches, topo_tangent_apply_launches, s1_tangent_apply_launches
     _check_tangent(con, topology, "sw_tangent_apply", coef=coef, v=v)
+    _check_topo(topo, con, "sw_tangent_apply")
     if v.device.type == "cpu":
-        return sw_tangent_apply_plain(coef, v, con, topology)
+        return sw_tangent_apply_plain(coef, v, con, topology, topo)
     _cuda_or_raise(v, "sw_tangent_apply")
     out = torch.empty_like(v)
-    _launch_tangent("sw_tangent_apply_launch", con, topology, v, coef, con.ops, con.fields, con.gridrot, con.itf_x,
-                    con.itf_y, out)
+    args = (v, coef, con.ops, con.fields, con.gridrot, con.itf_x, con.itf_y, out)
+    if topo is None:
+        _launch_tangent("sw_tangent_apply_launch", con, topology, *args)
+    else:
+        _launch_tangent("sw_tangent_apply_topo_launch", con, topology, *args, topo_planes=(topo.force,))
+        topo_tangent_apply_launches += 1
     tangent_apply_launches += 1
+    s1_tangent_apply_launches += con.s == 1
     return out
 
 
-def sw_tangent(q, v, con: SWConstants, topology):
+def sw_tangent(q, v, con: SWConstants, topology, topo: Optional[SWTopography] = None):
     """J(q).v of the absolute SW operator at the state ``q`` in the direction
     ``v`` (both (3, 6, nel, nel, s^2), the constants' dtype and device), the
     halos of both taken from the state. A CPU tensor runs
     ``sw_tangent_plain``; a CUDA tensor launches the prep kernel, then the
     apply kernel (``sw_tangent_prep``, ``sw_tangent_apply``), or raises: no
-    fallback to the plain version."""
+    fallback to the plain version. ``topo``: with bottom topography."""
     _check_tangent(con, topology, "sw_tangent", q=q, v=v)
+    _check_topo(topo, con, "sw_tangent")
     if q.device.type == "cpu":
-        return sw_tangent_plain(q, v, con, topology)
-    return sw_tangent_apply(sw_tangent_prep(q, con, topology), v, con, topology)
+        return sw_tangent_plain(q, v, con, topology, topo)
+    return sw_tangent_apply(sw_tangent_prep(q, con, topology, topo), v, con, topology, topo)
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,7 @@
 Counterpart of ``wxfactory_tpu/output/manager.py`` for the outputs the
 port has: the same checkpoint files (npy + version + INI, same md5-keyed
 file names, so ``wxfactory_tpu.output.state.load_state`` reads them) for
-both models, and the shallow-water blockstats (case-2 error norms; mass,
+both models, and the shallow-water blockstats (case-1 and case-2 error norms; mass,
 energy and enstrophy drift). As in the JAX package, the blockstats print
 nothing for 3D Euler. Field output (NetCDF/FST), the solver-stats database and the
 runtime file are not ported yet (ROADMAP queue 1, item 15) and raise when
@@ -29,7 +29,7 @@ from .state import load_state, save_state
 
 
 class OutputManager:
-    def __init__(self, config, geom, ops, metric, mesh=None):
+    def __init__(self, config, geom, ops, metric, mesh=None, topo=None):
         if config.output_freq > 0:
             raise NotImplementedError(
                 "field output (output_freq > 0) is not ported yet (ROADMAP queue 1, item 15)"
@@ -42,6 +42,7 @@ class OutputManager:
         self.geom = geom
         self.ops = ops
         self.metric = metric
+        self.topo = topo  # the bottom topography (Topography) of the energy's potential term
         self.mesh = mesh if mesh is not None and not mesh.owns_all else None
 
         self.output_dir = config.output_dir
@@ -99,7 +100,7 @@ class OutputManager:
         c = self.config
         if c.equations != "shallow_water":
             return
-        from ..testcases.shallow_water import height_case2
+        from ..testcases.shallow_water import height_case1, height_case2
 
         h = q[0]
         u1 = q[1] / h
@@ -108,8 +109,8 @@ class OutputManager:
         print("=" * 96)
         print(f"Blockstats for timestep {step_id}")
 
-        if c.case_number == 2:
-            h_anal = height_case2(self.geom)
+        if c.case_number in (1, 2):
+            h_anal = height_case1(self.geom, step_id * c.dt) if c.case_number == 1 else height_case2(self.geom)
             a_err = global_integral_2d(np.abs(h - h_anal), self.ops, self.metric)
             i_anal = global_integral_2d(np.abs(h_anal), self.ops, self.metric)
             a_err2 = global_integral_2d((h - h_anal) ** 2, self.ops, self.metric)
@@ -120,7 +121,7 @@ class OutputManager:
             print(f"l1 = {l1} \t l2 = {l2} \t linf = {linf}")
 
         if c.case_number >= 2:
-            energy = total_energy(h, u1, u2, self.metric)
+            energy = total_energy(h, u1, u2, self.metric, self.topo)
             enstrophy = potential_enstrophy(h, u1, u2, self.metric, self.ops)
             integrals = np.array(
                 [

@@ -1,10 +1,12 @@
 """Simulation: configuration -> geometry -> state -> integrator -> run.
 
 Counterpart of ``wxfactory_tpu/simulation.py`` for the cubed sphere:
-shallow water (Williamson cases 2 and 6) and 3D Euler (DCMIP cases 31 and
-77) with the explicit integrators (euler1, tvdrk3), the exponential ones
-(epi2..6, epi_stiff3..6, with pmex, kiops or the device-resident kiops_jit)
-and Ros2 (with fgmres or the device-resident fgmres_jit), with
+shallow water (every case of the JAX package: 0, 1, 2, 5, 6, 8, 9 and 10,
+cases 5 and 10 with their bottom topography) and 3D Euler (DCMIP cases 31
+and 77) with the explicit integrators (euler1, tvdrk3), the exponential
+ones (epi2..6, epi_stiff3..6, with pmex, kiops or the device-resident
+kiops_jit) and Ros2 (with fgmres or the device-resident fgmres_jit; with a
+preconditioner, lu, ilu, p-mg or fv-mg, ``_create_preconditioner``), with
 ``mixed_precision_krylov`` the float32 perturbation-form companion of the
 device solvers' Krylov loop, the step loop with the end-time clamp, the
 NaN/Inf guard, ``device_step_chunk`` (equal steps run back to back with the
@@ -44,6 +46,8 @@ from .output import OutputManager
 from .parallel import CubedSphereTopology, ShardMapTvdrk3, TileMesh
 from .parallel.mesh import tile_n_for_world
 from .testcases import dcmip_planet_params, initial_state, initial_state_3d
+
+_ITEM_17 = "ROADMAP queue 1, item 17"
 
 _ITEM_14 = ("ROADMAP queue 1, item 14: the port runs multi-rank only as the tile-parallel TVD-RK3 step; the GSPMD "
             "analogue (EPI/Ros2 across ranks) is not ported")
@@ -94,10 +98,9 @@ class Simulation:
         self.mesh = None if n is None else TileMesh(n, _dist.rank(), _dist.world_size())
         if c.filter_apply or c.expfilter_apply:
             raise NotImplementedError("modal filters are not ported yet (ROADMAP queue 1, item 12)")
-        if c.preconditioner != "none":
-            raise NotImplementedError("preconditioners are not ported yet (ROADMAP queue 1, item 13)")
 
         self.dtype = torch.float32 if c.precision == "float32" else torch.float64
+        self.topo = None
         if c.equations == "euler":
             self.ops = make_dfr_operators(c.num_solpts, three_d=True)
             scale, rotating = dcmip_planet_params(c.case_number)
@@ -120,12 +123,14 @@ class Simulation:
             self.geom = make_cubed_sphere_2d(c.num_elements_horizontal, c.num_solpts, c.lambda0, c.phi0, c.alpha0)
             self.metric = make_metric_2d(self.geom)
             self.topology = CubedSphereTopology(self.geom)
-            q0 = initial_state(self.geom, c.case_number)
+            q0, self.topo = initial_state(self.geom, self.ops, c.case_number, c.matsuno_wave_type, c.matsuno_amp)
+            if self.topo is not None and self.mesh is not None:
+                raise NotImplementedError(f"the tile step with topography is not ported yet ({_ITEM_17})")
             self.rhs = None if self.mesh is not None else make_rhs_shallow_water(
                 self.geom, self.ops, self.metric, dtype=self.dtype, device=self.device,
-                topology=self.topology,
+                topology=self.topology, topo=self.topo,
             )
-        self.output = OutputManager(c, self.geom, self.ops, self.metric, mesh=self.mesh)
+        self.output = OutputManager(c, self.geom, self.ops, self.metric, mesh=self.mesh, topo=self.topo)
 
         self.starting_step = 0
         if c.starting_step > 0:
@@ -146,6 +151,10 @@ class Simulation:
                     topology=self.topology, perturbation_base=q0,
                 )
             elif c.equations == "shallow_water":
+                if self.topo is not None:
+                    raise NotImplementedError(
+                        f"mixed_precision_krylov with topography (the float32 perturbation-form companion) is not "
+                        f"ported yet ({_ITEM_17})")
                 self.rhs32 = make_rhs_shallow_water(
                     self.geom, self.ops, self.metric, dtype=torch.float32, device=self.device,
                     topology=self.topology, perturbation_base=q0,
@@ -175,22 +184,56 @@ class Simulation:
                     "cannot consume it — use kiops_jit (Epi/Srerk) or fgmres_jit (Ros2)"
                 )
 
+    def _create_preconditioner(self):
+        """lu/ilu: ``Factorization`` (practical for small problems); p-mg and
+        fv-mg: ``Multigrid.for_geometry`` on the cubed sphere (the JAX
+        package's simulation.py:383-410); ``fv`` raises its ValueError."""
+        c = self.config
+        if c.preconditioner == "none":
+            return None
+        if self.mesh is not None:
+            raise NotImplementedError(f"a preconditioner across ranks: {_ITEM_14}")
+        if c.preconditioner in ("lu", "ilu"):
+            from .precondition import Factorization
+
+            return Factorization(self.rhs, c.preconditioner)
+        if c.preconditioner in ("p-mg", "fv-mg"):
+            from .precondition import Multigrid
+
+            return Multigrid.for_geometry(
+                self.geom,
+                kind=c.preconditioner,
+                num_levels=c.num_mg_levels,
+                num_pre_smoothe=c.num_pre_smoothe,
+                num_post_smoothe=c.num_post_smoothe,
+                pseudo_cfl=c.pseudo_cfl,
+                smoother=c.mg_smoother,
+                solve_coarsest=c.mg_solve_coarsest,
+                spectral_radii=c.exp_smoothe_spectral_radii,
+                device=self.device,
+            )
+        raise ValueError(
+            f"Preconditioner '{c.preconditioner}' is not available for this configuration "
+            "(the reference gates all preconditioning off; here none/lu/ilu work everywhere "
+            "and p-mg/fv-mg on every model family)"
+        )
+
     def _create_integrator(self):
         c = self.config
         name = c.time_integrator.lower()
         if self.mesh is not None:
             return ShardMapTvdrk3(self._tile_step_maker(), verbose=c.verbose_solver)
+        pre = dict(verbose=c.verbose_solver, preconditioner=self._create_preconditioner())
         if name == "euler1":
-            return Euler1(self.rhs, verbose=c.verbose_solver)
+            return Euler1(self.rhs, **pre)
         if name == "tvdrk3":
-            return Tvdrk3(self.rhs, verbose=c.verbose_solver)
+            return Tvdrk3(self.rhs, **pre)
         if name.startswith("epi") or name == "ros2":
             if name == "ros2":
                 return Ros2(self.rhs, tolerance=c.tolerance, gmres_restart=c.gmres_restart,
-                            linear_solver=c.linear_solver, rhs32=self.rhs32, verbose=c.verbose_solver)
+                            linear_solver=c.linear_solver, rhs32=self.rhs32, **pre)
             common = dict(tolerance=c.tolerance, exponential_solver=c.exponential_solver,
-                          krylov_size=max(c.krylov_size, 1), verbose=c.verbose_solver,
-                          rhs32=self.rhs32)
+                          krylov_size=max(c.krylov_size, 1), rhs32=self.rhs32, **pre)
             if name.startswith("epi_stiff"):
                 return EpiStiff(self.rhs, int(name.removeprefix("epi_stiff")), **common)
             order = int(name.removeprefix("epi"))

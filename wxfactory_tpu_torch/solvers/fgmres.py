@@ -5,10 +5,11 @@ the low-synchronisation inverse-compact-WY Gram-Schmidt with lagged
 normalisation (Swirydowicz, Langou, Ananthan, Yang & Thomas 2020): one
 batched Gram product per Krylov iteration.
 
-Counterpart of ``wxfactory_tpu/solvers/fgmres.py``, line for line without
-a preconditioner (the port refuses them: ROADMAP queue 1, item 13; ``Z``
-keeps the flexible form's preconditioned vectors, copies of ``V``'s rows)
-and without the unused ``hegedus`` start. The Krylov basis ``V`` and the
+Counterpart of ``wxfactory_tpu/solvers/fgmres.py``, line for line, with
+the flexible form's preconditioner (``Z`` holds the preconditioned vectors
+M(V), ``precondition/``'s ``Factorization`` or ``Multigrid`` or any
+callable on a flat tensor of the basis's device) and without the unused
+``hegedus`` start. The Krylov basis ``V`` and the
 preconditioned vectors ``Z`` live on the state's device, where the operator,
 the Gram product and the vector updates run; the small algebra (R, T, K,
 H, the Givens rotations, g and the triangular solve) is float64 numpy on
@@ -87,16 +88,19 @@ def fgmres(
     tol: float = 1e-5,
     restart: int = 20,
     maxiter: Optional[int] = None,
+    preconditioner: Optional[Callable] = None,
     verbose: int = 0,
 ) -> Tuple[torch.Tensor, float, float, int, int, List[Tuple[float, float, float]]]:
     """Solve Ax = b for a flat float64 ``b`` on its device (``A`` maps such
-    a tensor to one). Returns (x, |r|, |b|, num_iter, flag,
+    a tensor to one; so does ``preconditioner``, the flexible form's M,
+    applied to each basis vector). Returns (x, |r|, |b|, num_iter, flag,
     residual_history); flag: 0 converged, -1 not converged / stagnated."""
     b = torch.as_tensor(b).reshape(-1).to(torch.float64)
     n, dev = b.numel(), b.device
     t_start = time()
     niter = 0
 
+    precond = preconditioner if preconditioner is not None else (lambda v: v)
     if maxiter is None:
         maxiter = n * 10
 
@@ -122,7 +126,7 @@ def fgmres(
         givens: List[np.ndarray] = []
 
         V[0, :] = r / norm_r
-        Z[0, :] = V[0, :]
+        Z[0, :] = precond(V[0, :])
         V[1, :] = A(Z[0, :])
         v_norm = _low_sync_orthonormalize(V, R, T, K, 2)
 
@@ -132,7 +136,7 @@ def fgmres(
         inner = -1
         for inner in range(restart):
             niter += 1
-            Z[inner + 1, :] = V[inner + 1]
+            Z[inner + 1, :] = precond(V[inner + 1])
             V[inner + 2, :] = A(Z[inner + 1, :] / v_norm) * v_norm
             v_norm = _low_sync_orthonormalize(V, R, T, K, inner + 3)
             H[inner, : inner + 2] = R[: inner + 2, inner + 1]

@@ -26,7 +26,10 @@ clamped at zero), the Givens rotations as device scalars (applied to a new
 column as their accumulated product, one small matrix-vector product,
 where the JAX loop applies them one by one: the same to rounding), the
 back-substitution on the rotated H masked to the cycle's completed columns
-with identity padding, and ``A32`` with ``basis_dtype``: the inner Arnoldi
+with identity padding, the flexible form's ``preconditioner`` (Z = M(V),
+z = M(v_j) before each operator application; M runs on the basis's
+device and its result is stored in the basis dtype), and ``A32`` with
+``basis_dtype``: the inner Arnoldi
 runs the cheap operator on a ``basis_dtype`` basis (float32) while every
 outer residual ``r = b - A(x)`` and the solution update stay in b's dtype
 with the exact operator (restarted iterative refinement). The basis
@@ -66,6 +69,7 @@ def fgmres_jit(
     tol: float = 1e-5,
     restart: int = 20,
     max_outer: int = 20,
+    preconditioner: Optional[Callable] = None,
     one_sync: bool = False,
     A32: Optional[Callable] = None,
     basis_dtype=None,
@@ -73,7 +77,9 @@ def fgmres_jit(
     """Solve A x = b. Returns (x, FgmresJitInfo), x of b's shape and dtype
     on b's device. ``A32`` + ``basis_dtype=torch.float32``: the mixed
     precision restart cycles of the module docstring (``basis_dtype``
-    defaults to float32 when ``A32`` is given, as in the JAX package)."""
+    defaults to float32 when ``A32`` is given, as in the JAX package).
+    ``preconditioner``: the flexible form's M on a flat tensor (identity
+    when None)."""
     b = torch.as_tensor(b)
     dtype, dev = b.dtype, b.device
     if basis_dtype is None:
@@ -114,7 +120,7 @@ def fgmres_jit(
         done, jdone = false, niter.new_zeros(())
         for j in range(R):
             active = ~done
-            z = V[j]
+            z = V[j] if preconditioner is None else preconditioner(V[j]).to(bd)
             w = A_in(z)
             rows = V[: j + 1]
             if one_sync:
