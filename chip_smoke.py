@@ -93,9 +93,9 @@ and drives the port's two main paths, shallow water and 3D Euler:
     reported);
 15. the mixed-precision EPI2 main path: ``python -m wxfactory_tpu_torch``
     with epi2, kiops_jit, mixed_precision_krylov = 1, device_step_chunk = 5,
-    at the canonical 12x12x3, s=2 (10 steps) and at 20x20x3, s=3 (5 steps),
-    then both with mixed_precision_krylov = 0 (the float64 kiops_jit step;
-    5 and 5 steps; the profile on a second build at the canonical shapes and
+    at the canonical 12x12x3, s=2 (10 steps) and at 20x20x20, s=3 (5 steps),
+    then with mixed_precision_krylov = 0 (the float64 kiops_jit step) at
+    12x12x3, s=2 and 20x20x10, s=3 (5 and 5 steps; the profile on a second build at the canonical shapes and
     the mixed main one);
     each with one tangent apply launch (on the perturbation prep's buffer
     when mixed) per Jacobian action, one prep launch a step, one RHS launch
@@ -172,8 +172,9 @@ and drives the port's two main paths, shallow water and 3D Euler:
     mass drift below 1e-11);
 23. dcmip31 Ros2 (tolerance 1e-7, gmres_restart 20) through
     Simulation(ini).run() at the canonical 12x12x3, s=2, dt=30 s (5 steps)
-    and at 20x20x20, s=3, dt=2 s (3 steps; FGMRES without a preconditioner
-    stalls there at dt=30 s): the host fgmres, fgmres_jit float64 and
+    and at 20x20x10, s=3, dt=2 s (3 steps; FGMRES without a
+    preconditioner stalls there at dt=30 s): the host fgmres,
+    fgmres_jit float64 and
     fgmres_jit with mixed_precision_krylov = 1, both with
     device_step_chunk = 5 and under forbid_uncounted_syncs; tangent apply
     launches (f64 and perturbation) equal to the Jacobian actions, one prep
@@ -273,11 +274,44 @@ and drives the port's two main paths, shallow water and 3D Euler:
     within 1.05 of the plain one; fv-mg: no more iterations than plain);
     lu and ilu at nel=4, s=2 (fewer iterations than plain); Ros2 + p-mg
     through Simulation on case 5 (nel=10, dt=1800 s, 2 steps; kiops
-    smoother) and on dcmip31 at 20x20x20, s=3, dt=30 s (1 step; erk3
+    smoother) and on dcmip31 at 20x20x5, s=3, dt=30 s (1 step; erk3
     smoother, pseudo_cfl 5), each beside the same run without a
     preconditioner (the host FGMRES with p-mg, the device FGMRES without,
     as linear_solver = auto takes them): FGMRES iterations a step, steps/s,
-    the levels' prep and apply launches, no plain call.
+    the levels' prep and apply launches, no plain call;
+34. DCMIP 20, 21 and 22 over terrain: the terrain instantiations of the 3D
+    kernels (every panel's metric; the Rayleigh sponge of 21/22 in the
+    volume pass and the apply) against their plain versions at (nel_h,
+    nel_v, s) = (4,3,3), (3,2,2), (20,20,3), float64 and float32: DCMIP 21
+    absolute with its sponge (RHS, stages, traces, the well-balanced offset
+    in f32; the tangent prep and apply against the plain tangent), DCMIP 20
+    absolute and in the perturbation form (RHS, tangent, stage + delta
+    traces); f64 within 1e-12 of scale, f32 by the rules of phases 5, 9,
+    13 and 21 (the f32 J.v against the f64 J.v that takes the side the
+    f32 prep took at each near-tie of the Rusanov speeds, at every
+    element: kernels/check.py::_side_truths); every operator call holding
+    mass; the sponge acting on the momenta only (rho and rho*theta of the
+    RHS and J.v bit for bit those without it, the momentum rows'
+    difference the plain sponge term); DCMIP 31's constants copied to
+    every panel through the terrain kernels bit for bit the kernels
+    without terrain, in every mode; the
+    card's time a call at (20,20,3) of each terrain kernel in turns with
+    the same call without terrain (DCMIP 31), the plain versions' and the
+    bounds (six panels' metric and the sponge's planes counted) and the
+    terrain kernels' resources; DCMIP 20 and 21 at 4x3x3 on the card and
+    the CPU within 1e-10 (and DCMIP 20's max |w|, the terrain error, of
+    each); and the paths through Simulation(ini).run() (the CLI's call,
+    INIs under build/chip_smoke/): (a) DCMIP 21 TVD-RK3 f64 at 20x20x20, s
+    = 3, ztop = 30 km, dt = 0.1 s; (b) DCMIP 21 EPI2 + host KIOPS, dt = 2
+    s; (c) DCMIP 20 EPI2 + kiops_jit mixed (the float32 perturbation
+    companion on the per-panel metric), 20x20x20, ztop = 12 km, dt = 30 s;
+    (d) DCMIP 22 TVD-RK3 at 20x10x3, dt = 0.1 s; (e) DCMIP 20's tile step
+    at N = 1 (every tile in this process), float64 bit for bit the global
+    chain on the terrain kernels and float32 perturbation within the
+    bench's gate of its global chain (the terrain perturbation stage
+    kernel); each with only terrain launches (or tile launches) and no
+    plain call, a finite state, mass drift below 1e-11 (f32: its epsilon),
+    max |w| and steps/s.
 
 Each phase prints one JSON line; then the kernels line, the card's
 ``nvidia-smi`` name and power limit, and last the result line. Any failure
@@ -300,12 +334,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SHAPES = [(10, 3), (64, 3), (4, 2), (4, 8), (64, 7)]
 SW_PERT_SHAPES = SHAPES + [(8, 4), (32, 4), (64, 4)]
-KERNEL_SOURCES = ["sw_operator", "euler3d_operator", "sw_run"]
+KERNEL_SOURCES = ["sw_operator", "euler3d_operator", "sw_run", "euler3d_terrain"]
 # (nel_h, nel_v, s, case); at (7, 3, 3) a panel's 147 elements leave the
 # operator's volume pass (9 elements a block at s=3) a partial last block.
 E3_SHAPES = [(3, 2, 2, 31), (12, 3, 2, 31), (4, 2, 3, 31), (20, 20, 3, 31), (4, 4, 4, 31), (3, 2, 5, 31),
              (2, 2, 6, 31), (4, 2, 3, 77), (7, 3, 3, 31)]
 E3_MAIN = (20, 20, 3)
+# The full-width float64 Krylov paths of phases 15 and 23 at half
+# E3_MAIN's depth (10 levels), toward half the script's time limit: most of
+# such a run's time is the setup's 3D metric. The mixed EPI2 main path of
+# phase 15 runs at E3_MAIN.
+E3_KRYLOV_MAIN = (20, 10, 3)
 # Tile steps of phase 26: (nel, s, dt) of case 6 and (nel_h, nel_v, s, dt) of dcmip31.
 SW_TILE_MAIN = (64, 3, 10.0)
 E3_TILE_MAIN = E3_MAIN + (0.1,)
@@ -410,11 +449,18 @@ def ptxas_summary(log: str):
             current = {"kernel": f"sw_operator f32 s={f32_pert.group(1)} pert"}
             rows.append(current)
         elif m:
-            k = re.search(r"(sw_operator|sw_run|sw_edges|sw_tangent_prep|sw_tangent_apply|euler3d_operator|euler3d_interface|euler3d_volume|"
-                          r"euler3d_tangent_prep|euler3d_tangent_apply|euler3d_tangent)_kernelI([df])Li(\d+)E"
-                          r"(Lb([01]))?", m.group(1))
+            k = re.search(r"(sw_operator|sw_run|sw_edges|sw_tangent_prep|sw_tangent_apply|euler3d_operator|"
+                          r"euler3d_interface|euler3d_volume|euler3d_tangent_prep|euler3d_tangent_apply|"
+                          r"euler3d_tangent)_kernelI([df])Li(\d+)E(Lb([01])E)?(Lb([01])E)?", m.group(1))
+            # The flags: PERT then TERRAIN (the 3D passes and prep; a source
+            # without terrain has PERT only), TERRAIN alone (the 3D apply),
+            # PERT alone (the others).
+            flags = [f for f in (k.group(5), k.group(7)) if f is not None] if k else []
+            pert = flags[:1] == ["1"] and not (k.group(1) == "euler3d_tangent_apply")
+            terrain = (flags[1:] == ["1"] or (k is not None and k.group(1) == "euler3d_tangent_apply"
+                                              and flags[:1] == ["1"]))
             current = {"kernel": f"{k.group(1)} {'f64' if k.group(2) == 'd' else 'f32'} s={k.group(3)}"
-                       + (" pert" if k.group(5) == "1" else "") if k else m.group(1)}
+                       + (" pert" if pert else "") + (" terrain" if terrain else "") if k else m.group(1)}
             rows.append(current)
         elif current is not None:
             m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -500,6 +546,8 @@ def reset_counts():
     swop.s1_tangent_prep_launches = swop.s1_tangent_apply_launches = 0
     e3op.pert_launches = e3op.pert_stage_launches = e3op.pert_tangent_launches = e3op.plain_calls = 0
     swop.tile_launches = swop.pert_tile_launches = e3op.tile_launches = e3op.pert_tile_launches = 0
+    e3op.terrain_launches = e3op.terrain_pert_launches = 0
+    e3op.terrain_tangent_prep_launches = e3op.terrain_tangent_apply_launches = 0
     matvec.jacobian_actions = matvec.linearisations = device.host_syncs = 0
 
 
@@ -524,6 +572,9 @@ def read_counts():
             "euler3d_plain_calls": e3op.plain_calls, "plain_tangent_calls": e3op.plain_tangent_calls,
             "sw_tile": swop.tile_launches, "sw_pert_tile": swop.pert_tile_launches,
             "euler3d_tile": e3op.tile_launches, "euler3d_pert_tile": e3op.pert_tile_launches,
+            "euler3d_terrain": e3op.terrain_launches, "euler3d_terrain_pert": e3op.terrain_pert_launches,
+            "euler3d_terrain_tangent_prep": e3op.terrain_tangent_prep_launches,
+            "euler3d_terrain_tangent_apply": e3op.terrain_tangent_apply_launches,
             "jacobian_actions": matvec.jacobian_actions, "linearisations": matvec.linearisations,
             "host_syncs": device.host_syncs}
 
@@ -1180,7 +1231,7 @@ def phase15(torch):
                        chunk=1),
         _kiops_jit_run(torch, *E3_MAIN, nsteps=5, mixed=1, tag="main_mixed", profile_steps=1),
         _kiops_jit_run(torch, 12, 3, 2, nsteps=5, mixed=0, tag="canonical_f64", profile_steps=3),
-        _kiops_jit_run(torch, *E3_MAIN, nsteps=5, mixed=0, tag="main_f64", profile_steps=0),
+        _kiops_jit_run(torch, *E3_KRYLOV_MAIN, nsteps=5, mixed=0, tag="main_f64", profile_steps=0),
     ]
     emit({"phase": 15, "results": rows})
     return {"euler3d_pert_tangent_apply": rows[2]["tangent_launches"],
@@ -1906,7 +1957,7 @@ def _ros2_gate(torch):
 # preconditioner stalls (relative residual 1.2e-5 after 20,000 iterations;
 # 1.1e-6 after 1,200 at dt = 3 s, converged in 55 at dt = 2 s on an H100:
 # tools/ros2_fgmres_dt.py).
-ROS2_POINTS = [(12, 3, 2, 30.0, 5, "canonical"), E3_MAIN + (2.0, 3, "main")]
+ROS2_POINTS = [(12, 3, 2, 30.0, 5, "canonical"), E3_KRYLOV_MAIN + (2.0, 3, "main")]
 
 
 def phase23(torch):
@@ -2755,7 +2806,7 @@ def phase33(torch):
     FGMRES(100) alone and with 2-level p-mg (kiops smoother) against the
     JAX package's gate (tests/test_framework.py:316-317), and with 3-level
     fv-mg (the s = 1 tangent pair on its FV levels); Ros2 with p-mg through
-    Simulation on case 5 and on dcmip31 at 20x20x20, s = 3, dt = 30 s, each
+    Simulation on case 5 and on dcmip31 at 20x20x5, s = 3, dt = 30 s, each
     beside the run without a preconditioner; lu and ilu at nel = 4, s = 2."""
     from wxfactory_tpu_torch.kernels.check import sw_topo_setup
     from wxfactory_tpu_torch.models import ShallowWaterRHS
@@ -2821,9 +2872,10 @@ def phase33(torch):
     ros2 = []
     sw = SW_EPI_INI.format(case=5, dt=1800.0, t_end=3600.0, integrator="ros2", solver="pmex", linear_solver="auto",
                            mixed=0, s=3, nel=10, steps=0, stat=0, out=WORK / "phase33_sw")
-    e3 = DCMIP31_INI.format(dt=30, t_end=30, integrator="ros2", verbose=1, s=3, nel_h=20, nel_v=20, save=0,
+    # dcmip31 at 20x20x5: 5 levels keep the script within its time limit.
+    e3 = DCMIP31_INI.format(dt=30, t_end=30, integrator="ros2", verbose=1, s=3, nel_h=20, nel_v=5, save=0,
                             out=WORK / "phase33_e3")
-    for tag, text, extra, nsteps in (("sw_case5", sw, ROS2_PRE_SW, 2), ("dcmip31_20x20x20", e3, ROS2_PRE_E3, 1)):
+    for tag, text, extra, nsteps in (("sw_case5", sw, ROS2_PRE_SW, 2), ("dcmip31_20x20x5", e3, ROS2_PRE_E3, 1)):
         for row in _ros2_pre_pair(torch, tag, text + extra.format(pre="p-mg"), nsteps):
             ros2.append(row)
             emit({"phase": 33, "ros2": tag, **row})
@@ -2832,6 +2884,405 @@ def phase33(torch):
     if not all(gate.values()):
         raise AssertionError(f"phase 33 gates failed: {gate}")
     return launches
+
+
+# Phase 34: the terrain kernels' shapes (nel_h, nel_v, s) and the DCMIP 20,
+# 21 and 22 paths.
+TERRAIN_SHAPES = [(4, 3, 3), (3, 2, 2), (20, 20, 3)]
+TERRAIN_MAIN = (20, 20, 3)
+TERRAIN_INI = """
+[General]
+equations = euler
+[System]
+precision = float64
+[Test_case]
+case_number = {case}
+[Time_integration]
+dt = {dt}
+t_end = {t_end}
+time_integrator = {integrator}
+exponential_solver = {solver}
+mixed_precision_krylov = {mixed}
+device_step_chunk = {chunk}
+tolerance = 1e-7
+verbose_solver = 1
+[Spatial_discretization]
+num_solpts = {s}
+num_elements_horizontal = {nel_h}
+num_elements_vertical = {nel_v}
+[Grid]
+grid_type = cubed_sphere
+ztop = {ztop}
+[Output_options]
+save_state_freq = 0
+output_dir = {out}
+"""
+# (tag, case, nel_h, nel_v, s, dt, steps, integrator, exponential solver, mixed, chunk): paths (a)-(d).
+TERRAIN_RUNS = [("a_dcmip21_tvdrk3", 21, 20, 20, 3, 0.1, 60, "tvdrk3", "kiops", 0, 1),
+                ("b_dcmip21_epi2_kiops", 21, 20, 20, 3, 2.0, 3, "epi2", "kiops", 0, 1),
+                ("c_dcmip20_epi2_kiops_jit_mixed", 20, 20, 20, 3, 30.0, 5, "epi2", "kiops_jit", 1, 5),
+                ("d_dcmip22_tvdrk3", 22, 20, 10, 3, 0.1, 60, "tvdrk3", "kiops", 0, 1)]
+TERRAIN_TILE = (20, 0.1, 20)  # DCMIP 20 at TERRAIN_MAIN: (case, dt, steps) of the tile step, path (e)
+TERRAIN_MASS_DRIFT = 1e-11
+# The counters a terrain path may move; every other operator counter and the plain calls must stay 0.
+TERRAIN_COUNTERS = ("euler3d_terrain", "euler3d_terrain_pert", "euler3d_terrain_tangent_prep",
+                    "euler3d_terrain_tangent_apply")
+E3_OTHER_COUNTERS = ("euler3d_operator", "euler3d_tangent", "euler3d_tangent_prep", "euler3d_pert",
+                     "euler3d_pert_stage", "euler3d_pert_tangent", "euler3d_plain_calls", "plain_tangent_calls",
+                     "euler3d_tile", "euler3d_pert_tile")
+
+
+def _terrain_ini(tag, case, nel_h, nel_v, s, dt, nsteps, integrator, solver, mixed, chunk):
+    from wxfactory_tpu_torch.kernels.check import DCMIP_ZTOP
+
+    ini = WORK / f"dcmip{case}_{tag}.ini"
+    ini.write_text(TERRAIN_INI.format(case=case, dt=dt, t_end=dt * nsteps, integrator=integrator, solver=solver,
+                                      mixed=mixed, chunk=chunk, s=s, nel_h=nel_h, nel_v=nel_v,
+                                      ztop=DCMIP_ZTOP[case], out=WORK / f"phase34_{tag}"))
+    return ini
+
+
+def _terrain_run(torch, tag, case, nel_h, nel_v, s, dt, nsteps, integrator, solver, mixed, chunk):
+    """One DCMIP 20/21/22 run through ``Simulation(ini).run()`` (the CLI's
+    call) on the card, the INI written under build/: its launches (terrain
+    instantiations only, no plain call: one operator launch a TVD-RK3
+    stage; an EPI2 step one RHS, one prep and one apply a Jacobian action;
+    the mixed companion's float64 base RHS at setup), a finite state, mass
+    drift, max |w| and steps/s."""
+    from wxfactory_tpu_torch.common.device import forbid_uncounted_syncs
+    from wxfactory_tpu_torch.output import global_mass_3d
+    from wxfactory_tpu_torch.simulation import Simulation
+
+    ini = _terrain_ini(tag, case, nel_h, nel_v, s, dt, nsteps, integrator, solver, mixed, chunk)
+    log = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        sim = Simulation(str(ini), device="cuda")
+        setup = time.perf_counter() - t0
+        with forbid_uncounted_syncs() if solver == "kiops_jit" else contextlib.nullcontext():
+            q = sim.run()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    text = log.getvalue()
+    run = re.search(r"Completed (\d+) steps in (\S+) s \((\S+) steps/s\)", text)
+    if run is None:
+        sys.stderr.write(text[-3000:])
+        raise AssertionError(f"terrain path {tag} did not complete")
+    if "no effect" in text or "cannot consume" in text:
+        raise AssertionError(f"terrain path {tag}: mixed_precision_krylov flagged as having no effect")
+    want = {k: 0 for k in E3_OTHER_COUNTERS + TERRAIN_COUNTERS}
+    actions = counts["jacobian_actions"]
+    if integrator == "tvdrk3":
+        want["euler3d_terrain"] = 3 * nsteps
+    else:
+        want.update(euler3d_terrain=nsteps + mixed, euler3d_terrain_tangent_prep=nsteps,
+                    euler3d_terrain_tangent_apply=actions)
+        if actions == 0:
+            raise AssertionError(f"terrain path {tag}: no Jacobian action")
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"terrain path {tag}: launches {got}, expected {want}")
+    q0 = sim.initial_q
+    finite = bool(torch.isfinite(q).all())
+    m0 = global_mass_3d(q0.cpu().numpy(), sim.ops, sim.metric)
+    drift = (global_mass_3d(q.cpu().numpy(), sim.ops, sim.metric) - m0) / m0
+    krylov = [tuple(int(x) for x in m) for m in re.findall(r"converged at iteration (\d+) \((\d+) substeps", text)]
+    row = {"tag": tag, "case": case, "nel_h": nel_h, "nel_v": nel_v, "s": s, "ztop": sim.geom.ztop, "dt": dt,
+           "integrator": integrator, "exponential_solver": solver if integrator != "tvdrk3" else None,
+           "mixed_precision_krylov": mixed, "steps": int(run.group(1)), "setup_s": setup, "run_s": float(run.group(2)),
+           "steps_per_s": float(run.group(3)), "wall_s": wall, "launches": got, "jacobian_actions": actions,
+           "krylov_per_step": krylov, "host_syncs": counts["host_syncs"], "finite": finite, "mass_drift": drift,
+           "mass_limit": TERRAIN_MASS_DRIFT, "max_abs_w": float((q[3] / q[0]).abs().max()),
+           "max_abs_w_initial": float((q0[3] / q0[0]).abs().max()),
+           "max_abs_rho_w_change": float((q[3] - q0[3]).abs().max())}
+    row["ok"] = finite and abs(drift) <= TERRAIN_MASS_DRIFT
+    emit({"phase": 34, "path": row})
+    if not row["ok"]:
+        raise AssertionError(f"terrain path {tag}: finite {finite}, mass drift {drift}")
+    return row
+
+
+def _terrain_tile(torch):
+    """Path (e): the tile-parallel TVD-RK3 step of DCMIP 20 at N = 1, every
+    tile in this process (each tile on its own panel's slice of the
+    per-panel metric): float64 absolute against the global chain on the
+    terrain kernels, bit for bit; float32 perturbation form (the production
+    explicit point) against its global chain, whose stages are the terrain
+    perturbation kernel, within the bench's gate; launches, mass, steps/s."""
+    from wxfactory_tpu_torch.integrators import Tvdrk3
+    from wxfactory_tpu_torch.kernels.check import euler3d_setup, per_variable_max
+    from wxfactory_tpu_torch.models import Euler3DRHS
+    from wxfactory_tpu_torch.output import global_mass_3d
+    from wxfactory_tpu_torch.parallel import TileMesh
+    from wxfactory_tpu_torch.parallel.shard_map_euler3d_fused import make_shard_map_euler3d_step_fused
+
+    case, dt, nsteps = TERRAIN_TILE
+    geom, ops, metric, topology, q0 = euler3d_setup(*TERRAIN_MAIN, case)
+    mass = lambda q: global_mass_3d(q.double().cpu().numpy(), ops, metric)
+    rows, chain_launches = [], 0
+    for dtype, pert in ((torch.float64, False), (torch.float32, True)):
+        base = q0 if pert else None
+        step = make_shard_map_euler3d_step_fused(geom, ops, metric, TileMesh(1), dt, dtype=dtype,
+                                                 perturbation_base=base, device="cuda", topology=topology)
+        q_init = torch.as_tensor(q0, dtype=dtype, device="cuda")
+        step(q_init)  # the library's first launches outside the counted run
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        q = q_init
+        for _ in range(nsteps):
+            q = step(q)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        counts = read_counts()
+        tile_key = "euler3d_pert_tile" if pert else "euler3d_tile"
+        want = {k: 0 for k in E3_OTHER_COUNTERS + TERRAIN_COUNTERS}
+        want[tile_key] = 3 * 6 * nsteps
+        got = {k: counts[k] for k in want}
+        if got != want:
+            raise AssertionError(f"terrain tile step ({dtype}): launches {got}, expected {want}")
+        rhs = Euler3DRHS(geom, ops, metric, dtype=dtype, device="cuda", topology=topology, perturbation_base=base)
+        integ = Tvdrk3(rhs)
+        reset_counts()
+        qc = q_init
+        for _ in range(nsteps):
+            qc = integ.step(qc, dt)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        chain_key = "euler3d_terrain_pert" if pert else "euler3d_terrain"
+        if counts[chain_key] != 3 * nsteps or counts["euler3d_pert_stage"] or counts["euler3d_operator"]:
+            raise AssertionError(f"terrain global chain ({dtype}): launches {counts}")
+        if pert:
+            chain_launches = counts[chain_key]
+        m0 = mass(torch.as_tensor(q0))
+        drift = (mass(q) - m0) / m0
+        f64 = dtype == torch.float64
+        if f64:
+            identical = bool(torch.equal(q, qc))
+            err = float(((q - qc).abs() / per_variable_max(qc).reshape(5, 1, 1, 1, 1, 1)).max())
+            ok = identical
+        else:
+            change = per_variable_max(qc.double() - q_init.double()).reshape(5, 1, 1, 1, 1, 1)
+            err = float(((q.double() - qc.double()).abs() / change).max())
+            identical = bool(torch.equal(q, qc))
+            ok = err <= GATE_REL
+        limit = TERRAIN_MASS_DRIFT if f64 else MASS_DRIFT_F32
+        row = {"tag": "e_dcmip20_tile_n1", "case": case, "nel_h": TERRAIN_MAIN[0], "nel_v": TERRAIN_MAIN[1],
+               "s": TERRAIN_MAIN[2], "dtype": str(dtype).replace("torch.", ""),
+               "form": "perturbation" if pert else "absolute", "dt": dt, "steps": nsteps, "run_s": elapsed,
+               "steps_per_s": nsteps / elapsed, "tile_launches": got[tile_key],
+               "global_chain_launches": counts[chain_key], "identical_to_global_chain": identical,
+               "err_vs_global_chain": err, "tol": 0.0 if f64 else GATE_REL, "finite": bool(torch.isfinite(q).all()),
+               "mass_drift": drift, "mass_limit": limit, "max_abs_w": float((q[3] / q[0]).abs().max())}
+        row["ok"] = ok and row["finite"] and abs(drift) <= limit
+        emit({"phase": 34, "path": row})
+        if not row["ok"]:
+            raise AssertionError(f"terrain tile step ({dtype}) failed: {row}")
+        rows.append(row)
+        del step, rhs, integ
+        torch.cuda.empty_cache()
+    return rows, chain_launches
+
+
+def _terrain_cpu_pair(torch):
+    """DCMIP 20 and 21 at 4x3x3 (TVD-RK3, dt = 0.5 s, 10 steps) on the card
+    and on the CPU (the plain versions): final states within 1e-10 of each
+    variable's max, and each one's max |w| (DCMIP 20's: the terrain
+    error of a state that should stay at rest)."""
+    from wxfactory_tpu_torch.simulation import Simulation
+
+    rows = []
+    for case in (20, 21):
+        ini = _terrain_ini(f"cpu_pair_{case}", case, 4, 3, 3, 0.5, 10, "tvdrk3", "kiops", 0, 1)
+        states = {}
+        for device in ("cuda", "cpu"):
+            with contextlib.redirect_stdout(io.StringIO()):
+                states[device] = Simulation(str(ini), device=device).run().cpu()
+        want, got = states["cpu"], states["cuda"]
+        scale = want.abs().reshape(5, -1).amax(dim=1).reshape(5, 1, 1, 1, 1, 1)
+        err = float(((got - want).abs() / scale).max())
+        w = {d: float((q[3] / q[0]).abs().max()) for d, q in states.items()}
+        rows.append({"case": case, "nel_h": 4, "nel_v": 3, "s": 3, "dt": 0.5, "steps": 10, "err": err, "tol": 1e-10,
+                     "max_abs_w_gpu": w["cuda"], "max_abs_w_cpu": w["cpu"], "ok": err <= 1e-10})
+    emit({"phase": 34, "gpu_vs_cpu": rows})
+    if not all(r["ok"] for r in rows):
+        raise AssertionError(f"GPU and CPU terrain runs differ: {rows}")
+    return rows
+
+
+def _terrain_timing(torch, smi):
+    """The card's time a call at TERRAIN_MAIN of the terrain instantiations
+    (f64: DCMIP 21 with its sponge, absolute RHS, stage + x + traces, prep
+    and apply; f32: DCMIP 20's perturbation form, RHS, stage + traces, prep
+    and apply), each in turns with the same call of the kernels without
+    terrain on DCMIP 31 at the same shape (20 calls queued behind a sleep
+    kernel), the plain versions (CUDA events, median), the bounds
+    (kernels/check.py, six panels' metric and the sponge's planes counted)
+    and the terrain kernels' resources."""
+    from wxfactory_tpu_torch.kernels.check import (euler3d_inputs, euler3d_pert_inputs, euler3d_pert_work,
+                                                   euler3d_tangent_apply_work, euler3d_tangent_inputs,
+                                                   euler3d_tangent_prep_work, euler3d_tangent_work, euler3d_work,
+                                                   pert_halos, tangent_halos, terrain_kernel_resources)
+    from wxfactory_tpu_torch.ops import euler3d_operator as e3op
+
+    rows = []
+    for dtype, case in ((torch.float64, 21), (torch.float32, 20)):
+        name = str(dtype).replace("torch.", "")
+        fns, bounds = {}, {}
+        for tag, c in (("terrain", case), ("flat", 31)):
+            if dtype == torch.float64:
+                con, topology, x, y = euler3d_inputs(*TERRAIN_MAIN, dtype, "cuda", c)
+                halo = e3op.halo_from_traces(e3op.edge_traces(y, con), topology)
+                _, _, q, v = euler3d_tangent_inputs(*TERRAIN_MAIN, dtype, "cuda", c)
+                halo_q, halo_v = tangent_halos(q, v, con, topology)
+                coef = e3op.euler3d_tangent_prep(q, halo_q, con)
+                calls = {
+                    "rhs": (lambda y=y, h=halo, c_=con: e3op.euler3d_operator(y, h, c_),
+                            lambda y=y, h=halo, c_=con: e3op.euler3d_operator_plain(y, h, c_), euler3d_work(con)),
+                    "stage_x_traces": (
+                        lambda y=y, h=halo, c_=con, x=x: e3op.euler3d_operator(y, h, c_, x=x, a=0.75, b=0.25,
+                                                                              cdt=0.025, emit_traces=True),
+                        lambda y=y, h=halo, c_=con, x=x: e3op.euler3d_operator_plain(y, h, c_, x=x, a=0.75, b=0.25,
+                                                                                    cdt=0.025, emit_traces=True),
+                        euler3d_work(con, stage=True, use_x=True, traces=True)),
+                    "prep": (lambda q=q, h=halo_q, c_=con: e3op.euler3d_tangent_prep(q, h, c_),
+                             lambda q=q, h=halo_q, c_=con: e3op.euler3d_tangent_prep_plain(q, h, c_),
+                             euler3d_tangent_prep_work(con)),
+                    "apply": (lambda v=v, h=halo_v, k=coef, c_=con: e3op.euler3d_tangent_apply(v, h, k, c_),
+                              lambda v=v, h=halo_v, k=coef, c_=con: e3op.euler3d_tangent_apply_plain(v, h, k, c_),
+                              euler3d_tangent_work(con)),
+                }
+                floor = euler3d_tangent_apply_work(con)
+            else:
+                con, topology, pert, dq, v = euler3d_pert_inputs(*TERRAIN_MAIN, dtype, "cuda", c)
+                halo_dq, halo_v = pert_halos(dq, v, pert, con, topology)
+                coef = e3op.euler3d_tangent_prep(dq, halo_dq, con, pert)
+                calls = {
+                    "rhs": (lambda d=dq, h=halo_dq, c_=con, b=pert: e3op.euler3d_operator(d, h, c_, pert=b),
+                            lambda d=dq, h=halo_dq, c_=con, b=pert: e3op.euler3d_operator_pert_plain(d, h, c_, b),
+                            euler3d_pert_work(con)),
+                    "stage_traces": (
+                        lambda d=dq, h=halo_dq, c_=con, b=pert: e3op.euler3d_operator(d, h, c_, b=1.0, cdt=0.1,
+                                                                                     emit_traces=True, pert=b),
+                        lambda d=dq, h=halo_dq, c_=con, b=pert: e3op.euler3d_operator_pert_plain(
+                            d, h, c_, b, b=1.0, cdt=0.1, emit_traces=True),
+                        euler3d_pert_work(con, stage=True, traces=True)),
+                    "prep": (lambda d=dq, h=halo_dq, c_=con, b=pert: e3op.euler3d_tangent_prep(d, h, c_, b),
+                             lambda d=dq, h=halo_dq, c_=con, b=pert: e3op.euler3d_tangent_prep_plain(d, h, c_, b),
+                             euler3d_tangent_prep_work(con, pert=True)),
+                    "apply": (lambda v=v, h=halo_v, k=coef, c_=con: e3op.euler3d_tangent_apply(v, h, k, c_),
+                              lambda v=v, h=halo_v, k=coef, c_=con: e3op.euler3d_tangent_apply_plain(v, h, k, c_),
+                              euler3d_pert_work(con, tangent=True)),
+                }
+                floor = euler3d_tangent_apply_work(con)
+            fns[tag] = calls
+            bounds[tag] = {mode: _bound(work, name) for mode, (_, _, work) in calls.items()}
+            bounds[tag]["apply_floor"] = _bound(floor, name)
+        row = {"nel_h": TERRAIN_MAIN[0], "nel_v": TERRAIN_MAIN[1], "s": TERRAIN_MAIN[2], "dtype": name,
+               "case": case, "form": "absolute" if dtype == torch.float64 else "perturbation",
+               "flat_case": 31}
+        for mode in fns["terrain"]:
+            terrain, flat = fns["terrain"][mode][0], fns["flat"][mode][0]
+            for fn in (terrain, flat):
+                fn()
+            t_times, f_times = [], []
+            for fn, times in ((flat, f_times), (terrain, t_times), (terrain, t_times), (flat, f_times)):
+                times.append(_device_ms(torch, fn, 20))
+            row[f"{mode}_ms"] = statistics.median(t_times)
+            row[f"{mode}_ms_turns"] = t_times
+            row[f"{mode}_flat_ms"] = statistics.median(f_times)
+            row[f"{mode}_flat_ms_turns"] = f_times
+            row[f"{mode}_plain_ms"] = statistics.median(_event_times(torch, fns["terrain"][mode][1], n=3))
+            b = bounds["terrain"][mode]
+            row[f"{mode}_bytes"], row[f"{mode}_ops"] = b["bytes"], b["ops"]
+            row[f"{mode}_bound_ms"], row[f"{mode}_bound_by"] = b["bound_ms"], b["bound_by"]
+            row[f"{mode}_flat_bound_ms"] = bounds["flat"][mode]["bound_ms"]
+        row["apply_floor_ms"] = bounds["terrain"]["apply_floor"]["bound_ms"]
+        row["apply_floor_bytes"] = bounds["terrain"]["apply_floor"]["bytes"]
+        row["resources"] = terrain_kernel_resources(dtype, TERRAIN_MAIN[2])
+        rows.append(row)
+        del fns
+        torch.cuda.empty_cache()
+    emit({"phase": 34, "gpu": smi, "timing": "the card's time a call (20 calls queued behind a sleep kernel, CUDA "
+          "events), terrain and flat (DCMIP 31, the kernels without terrain) in turns; plain: CUDA events around "
+          "single calls, median", "results": rows})
+    return rows
+
+
+def phase34(torch, smi):
+    """DCMIP 20, 21 and 22 over terrain: the terrain instantiations of the
+    3D operator (interface and volume passes), the tangent prep and the
+    apply against their plain versions at TERRAIN_SHAPES, float64 and
+    float32 (DCMIP 21 absolute with its sponge; DCMIP 20 absolute and in
+    the perturbation form; every operator call holding mass), the terrain
+    kernels on flat constants bit for bit the kernels without terrain, their
+    times at TERRAIN_MAIN beside those kernels', and paths (a)-(e)."""
+    from wxfactory_tpu_torch.kernels.check import (compare_euler3d_operator, compare_euler3d_pert,
+                                                   compare_euler3d_pert_stage, compare_euler3d_tangent,
+                                                   compare_sponge_rows, compare_terrain_flat)
+
+    rows = []
+    for nel_h, nel_v, s in TERRAIN_SHAPES:
+        for dtype in (torch.float64, torch.float32):
+            rows += compare_euler3d_operator(nel_h, nel_v, s, dtype, device="cuda", case=21)
+            rows += compare_euler3d_operator(nel_h, nel_v, s, dtype, device="cuda", case=20)
+            rows.append(compare_euler3d_tangent(nel_h, nel_v, s, dtype, device="cuda", case=21))
+            rows += compare_euler3d_pert(nel_h, nel_v, s, dtype, device="cuda", case=20)
+            rows += compare_euler3d_pert_stage(nel_h, nel_v, s, dtype, device="cuda", case=20)
+            rows.append(compare_terrain_flat(nel_h, nel_v, s, dtype, device="cuda"))
+            rows.append(compare_sponge_rows(nel_h, nel_v, s, dtype, device="cuda"))
+    emit_comparison(34, rows, ("nel_h", "nel_v", "s", "case"))
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"terrain kernels disagree with their plain versions: {bad}")
+    # The kernels line's errors: at TERRAIN_MAIN, from the rows of the dtype
+    # each entry is timed in (float64: DCMIP 21; float32: DCMIP 20's
+    # perturbation form), each beside the max |value| of what it measures
+    # (for a prep, of the coefficient row where the error is largest).
+    def err(dtype, key, scale_key, keep):
+        at_main = [r for r in rows if (r["nel_h"], r["nel_v"], r["s"]) == TERRAIN_MAIN and r["dtype"] == dtype
+                   and keep(r)]
+        worst = max(at_main, key=lambda r: r[key])
+        out = {"max_abs_err": worst[key], "err_scale": worst[scale_key], "err_dtype": dtype}
+        if key == "prep_max_abs_err":
+            out["err_row"] = worst["prep_max_abs_row"]
+        return out
+
+    absolute = ("rhs", "stage", "stage_x", "stage_x_traces")
+    tangent21 = lambda r: r["case"] == 21 and r["mode"] == "tangent"
+    pert_tangent = lambda r: r["mode"] == "pert_tangent"
+    errors = {
+        "euler3d_operator_terrain": err("float64", "max_abs_err", "output_max",
+                                        lambda r: r["case"] == 21 and r["mode"] in absolute),
+        "euler3d_pert_stage_terrain": err("float32", "max_abs_err", "output_max",
+                                          lambda r: r["mode"].startswith("pert_stage")),
+        "euler3d_tangent_prep_terrain": err("float64", "prep_max_abs_err", "prep_max_abs_row_max", tangent21),
+        "euler3d_tangent_apply_terrain": err("float64", "apply_max_abs_err", "apply_output_max", tangent21),
+        "euler3d_pert_tangent_prep_terrain": err("float32", "prep_max_abs_err", "prep_max_abs_row_max", pert_tangent),
+        "euler3d_pert_tangent_apply_terrain": err("float32", "apply_max_abs_err", "apply_output_max", pert_tangent),
+    }
+    timing = _terrain_timing(torch, smi)
+    pair = _terrain_cpu_pair(torch)
+    paths = [_terrain_run(torch, *run) for run in TERRAIN_RUNS]
+    tile, chain_launches = _terrain_tile(torch)
+    by_tag = {r["tag"]: r for r in paths}
+    launches = {
+        "euler3d_operator_terrain": sum(r["launches"]["euler3d_terrain"] for r in paths),
+        "euler3d_pert_stage_terrain": chain_launches,
+        "euler3d_tangent_prep_terrain": by_tag["b_dcmip21_epi2_kiops"]["launches"]["euler3d_terrain_tangent_prep"],
+        "euler3d_tangent_apply_terrain": by_tag["b_dcmip21_epi2_kiops"]["launches"]["euler3d_terrain_tangent_apply"],
+        "euler3d_pert_tangent_prep_terrain":
+            by_tag["c_dcmip20_epi2_kiops_jit_mixed"]["launches"]["euler3d_terrain_tangent_prep"],
+        "euler3d_pert_tangent_apply_terrain":
+            by_tag["c_dcmip20_epi2_kiops_jit_mixed"]["launches"]["euler3d_terrain_tangent_apply"],
+    }
+    w20 = {"tile_f64": tile[0]["max_abs_w"], "epi2_kiops_jit_mixed": by_tag["c_dcmip20_epi2_kiops_jit_mixed"][
+        "max_abs_w"], "gpu_4x3x3": pair[0]["max_abs_w_gpu"], "cpu_4x3x3": pair[0]["max_abs_w_cpu"]}
+    emit({"phase": 34, "dcmip20_max_abs_w": w20,
+          "steps_per_s": {r["tag"] + (f"_{r['dtype']}" if "dtype" in r else ""): r["steps_per_s"]
+                          for r in paths + tile}})
+    return {"errors": errors, "launches": launches, "timing": timing}
 
 
 def main() -> int:
@@ -2891,6 +3342,7 @@ def main() -> int:
     topo = timed(31, phase31, torch, smi)
     topo_launches = timed(32, phase32, torch)
     s1_launches = timed(33, phase33, torch)
+    terrain = timed(34, phase34, torch, smi)
     sw_entry = lambda name, mode, replaces, source="wxfactory_tpu_torch/csrc/sw_operator.cu", row=swt["sw_pert"]: {
         "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": sw_counts[name],
         "max_abs_err": sw_errs[name], "ms": row[f"{mode}_kernel_ms"], "plain_ms": row[f"{mode}_plain_ms"],
@@ -2988,6 +3440,30 @@ def main() -> int:
                             "max_abs_err": topo[f"sw_tangent_{kernel}_{form}"],
                             "ms": row[f"{kernel}{tag}_kernel_ms"], "plain_ms": row[f"{kernel}{tag}_plain_ms"], **bound,
                             "library_ms": None})
+    # The terrain instantiations (DCMIP 20, 21, 22): the float64 rows timed on
+    # DCMIP 21 with its sponge, the float32 ones on DCMIP 20's perturbation
+    # form, at TERRAIN_MAIN; beside each the same call of the kernels without
+    # terrain (DCMIP 31) in turns.
+    f64_row, f32_row = terrain["timing"]
+    for name, row, mode, what in (
+            ("euler3d_operator_terrain", f64_row, "rhs", "RHS/stage on every panel's metric, with the Rayleigh sponge"),
+            ("euler3d_pert_stage_terrain", f32_row, "stage_traces", "perturbation stage + delta slabs on every "
+                                                                   "panel's metric"),
+            ("euler3d_tangent_prep_terrain", f64_row, "prep", "tangent mode on every panel's metric, its "
+                                                             "linearisation"),
+            ("euler3d_tangent_apply_terrain", f64_row, "apply", "tangent mode on every panel's metric, with the "
+                                                               "sponge's tangent"),
+            ("euler3d_pert_tangent_prep_terrain", f32_row, "prep", "tangent mode, perturbation form, on every "
+                                                                  "panel's metric, its linearisation"),
+            ("euler3d_pert_tangent_apply_terrain", f32_row, "apply", "tangent mode, perturbation form, on every "
+                                                                    "panel's metric")):
+        kernels.append({"name": name, "route": "cuda", "source": "wxfactory_tpu_torch/csrc/euler3d_operator.cu",
+                        "replaces": f"wxfactory_tpu/ops/pallas_euler3d.py:2131 ({what})",
+                        "launches": terrain["launches"][name], **terrain["errors"][name],
+                        "ms": row[f"{mode}_ms"], "plain_ms": row[f"{mode}_plain_ms"],
+                        "bound_ms": row[f"{mode}_bound_ms"], "bound_by": row[f"{mode}_bound_by"],
+                        "library_ms": None, "ms_without_terrain": row[f"{mode}_flat_ms"],
+                        **({"apply_floor_ms": row["apply_floor_ms"]} if mode == "apply" else {})})
     unmeasured = [k["name"] for k in kernels if not (k["ms"] > 0 and k["plain_ms"] > 0 and k["launches"] > 0)]
     if unmeasured:
         raise AssertionError(f"kernels without a time, a plain time or a launch on the main path: {unmeasured}")

@@ -2,7 +2,8 @@
 shared-memory use, the SW halo, edge-trace, whole-run and tangent (J.v) kernels, the SW state mode and tangent
 pair with bottom topography, the SW tangent pair at s = 1 and the multigrid levels that launch it, 3D Euler
 operator, its tangent
-prep and apply kernels and the perturbation form of both, with its stage mode, and the tile kernels of both
+prep and apply kernels and the perturbation form of both, with its stage mode, their terrain instantiations
+(DCMIP 20, 21, 22: every panel's metric, the Rayleigh sponge), and the tile kernels of both
 models with the tile steps' launch counts) against their plain torch versions, on the card. Needs a CUDA device and nvcc, and skips without them. On a GPU
 machine run it without tests/conftest.py (which configures JAX):
 
@@ -26,6 +27,8 @@ from wxfactory_tpu_torch.kernels.check import (
     compare_euler3d_pert,
     compare_euler3d_pert_stage,
     compare_euler3d_tangent,
+    compare_sponge_rows,
+    compare_terrain_flat,
     compare_sw_edges,
     compare_sw_halo,
     compare_sw_operator,
@@ -370,3 +373,41 @@ def test_fvmg_levels_run_on_the_tangent_kernels(cuda):
             assert (swop.tangent_prep_launches - before[0], swop.tangent_apply_launches - before[1]) == (3, applies)
             assert (swop.plain_calls, swop.plain_tangent_calls) == before[2:]
     assert float((out["cuda"] - out["cpu"]).abs().max() / out["cpu"].abs().max()) < 1e-10
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("nel_h,nel_v,s", [(3, 2, 2), (4, 3, 3)])
+def test_euler3d_terrain_kernels_match_plain(cuda, nel_h, nel_v, s, dtype):
+    """The terrain instantiations: DCMIP 21 (with its sponge) and 20 in
+    absolute form, the tangent pair on 21, 20's perturbation form."""
+    rows = compare_euler3d_operator(nel_h, nel_v, s, dtype, device="cuda", case=21)
+    rows += compare_euler3d_operator(nel_h, nel_v, s, dtype, device="cuda", case=20)
+    rows.append(compare_euler3d_tangent(nel_h, nel_v, s, dtype, device="cuda", case=21))
+    rows += compare_euler3d_pert(nel_h, nel_v, s, dtype, device="cuda", case=20)
+    rows += compare_euler3d_pert_stage(nel_h, nel_v, s, dtype, device="cuda", case=20)
+    rows.append(compare_sponge_rows(nel_h, nel_v, s, dtype, device="cuda"))
+    bad = [r for r in rows if not r["ok"]]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("nel_h,nel_v,s", [(3, 2, 2), (2, 2, 6)])
+def test_euler3d_terrain_kernels_on_flat_constants_equal_flat_kernels(cuda, nel_h, nel_v, s, dtype):
+    row = compare_terrain_flat(nel_h, nel_v, s, dtype, device="cuda")
+    assert row["ok"], row["identical"]
+
+
+def test_euler3d_terrain_counters_count_terrain_launches_only(cuda):
+    from wxfactory_tpu_torch.kernels.check import euler3d_constants
+
+    con = euler3d_constants(3, 2, 2, 21, torch.float64, "cuda")
+    _, topology, x, y = euler3d_inputs(3, 2, 2, torch.float64, "cuda", case=21)
+    halo = e3op.halo_from_traces(e3op.edge_traces(y, con), topology)
+    before = (e3op.launches, e3op.terrain_launches, e3op.terrain_tangent_prep_launches,
+              e3op.terrain_tangent_apply_launches, e3op.tangent_launches, e3op.tangent_prep_launches)
+    e3op.euler3d_operator(y, halo, con)
+    coef = e3op.euler3d_tangent_prep(y, halo, con)
+    e3op.euler3d_tangent_apply(x, halo, coef, con)
+    after = (e3op.launches, e3op.terrain_launches, e3op.terrain_tangent_prep_launches,
+             e3op.terrain_tangent_apply_launches, e3op.tangent_launches, e3op.tangent_prep_launches)
+    assert [a - b for a, b in zip(after, before)] == [0, 1, 1, 1, 0, 0]

@@ -63,7 +63,7 @@ def _no_face_loop(src: str) -> str:
     # The operator's interface work: the one-kernel operator's per-face
     # loop, or the interface pass of the two-kernel operator (not launched).
     src, n_old = re.subn(r"fi < NF; fi \+= S3", "fi < 0; fi += S3", src)
-    src, n_new = re.subn(r"(\n\s*)(euler3d_interface_kernel<T, S, PERT><<<)", r"\1if (false) \2", src)
+    src, n_new = re.subn(r"(\n\s*)(euler3d_interface_kernel<T, S, PERT(, false)?><<<)", r"\1if (false) \2", src)
     if n_old + n_new == 0:
         raise ValueError("no operator face loop found in the source")
     return src
@@ -227,6 +227,7 @@ def launcher(torch, lib, entry, con, q, halo, x=None, a=0.0, b=1.0, cdt=None, tr
         if rc != 0:
             raise RuntimeError(f"{entry} failed: CUDA error {rc}")
 
+    call.outputs = (out,) if tr is None else (out, tr)  # what the last call wrote
     return call
 
 
@@ -282,9 +283,21 @@ def time_modes(torch, libs, modes, entry):
         times = {n: [] for n in names}
         for n in names + names[::-1]:
             times[n].append(_device_ms(torch, calls[n], 20))
-        rows.append({"mode": mode, "ms": {n: sorted(t) for n, t in times.items()}})
+        row = {"mode": mode, "ms": {n: sorted(t) for n, t in times.items()}}
+        if "parent" in calls:  # the last calls of each on the same inputs, bit for bit
+            torch.cuda.synchronize()
+            row["identical_to_parent"] = all(torch.equal(a, b) for a, b in zip(calls["as_built"].outputs,
+                                                                                calls["parent"].outputs))
+        rows.append(row)
         del calls
     return rows
+
+
+def bitwise_summary(rows) -> dict:
+    """How many calls of the source equal the parent's bit for bit."""
+    checked = [r for r in rows if "identical_to_parent" in r]
+    return {"cases": len(checked), "identical": sum(r["identical_to_parent"] for r in checked),
+            "differ": [r["mode"] for r in checked if not r["identical_to_parent"]]}
 
 
 def main(argv=None) -> int:
@@ -319,16 +332,21 @@ def main(argv=None) -> int:
                       "skipped": skipped, "ptxas": ptxas,
                       "resources": {name: resources(lib) for name, lib in libs.items()
                                     if name in ("as_built", "parent") or name.startswith("blocks_")}}), flush=True)
+    everything = []
     for shape in args.shapes.split(":"):
         nel_h, nel_v, s = (int(x) for x in shape.split(","))
         rows = time_modes(torch, libs, whole_sphere_modes(torch, nel_h, nel_v, s), "euler3d_operator_launch")
+        everything += [dict(r, mode=f"{shape} {r['mode']}") for r in rows]
         print(json.dumps({"nel_h": nel_h, "nel_v": nel_v, "s": s, "gpu": smi,
                           "timing": "the card's time a call: 20 calls queued behind a sleep kernel between two CUDA "
                                     "events, two turns a variant", "results": rows}), flush=True)
         torch.cuda.empty_cache()
     for nt in (int(x) for x in args.tiles.split(",") if x):
         rows = time_modes(torch, libs, tile_modes(torch, nt), "euler3d_tile_launch")
+        everything += rows
         print(json.dumps({"tile_nt": nt, "nel_v": 20, "s": 3, "gpu": smi, "results": rows}), flush=True)
+    if args.parent is not None:
+        print(json.dumps({"bitwise_against_parent": bitwise_summary(everything), "gpu": smi}), flush=True)
     print(smi, flush=True)
     return 0
 

@@ -12,9 +12,11 @@ address; with ``--blocks``, the apply compiled for other occupancy targets)
 are throwaway copies of the source (text substitutions, not switches in
 the kernel), each built with nvcc (sm_90a, ``-Xptxas -v``) into
 build/ablation/ and called through ctypes on the current CUDA stream.
-``--parent`` builds another version of the source as it is and times it in
+``--parent`` builds another version of the source as it is, times it in
 turns with the others (``git show REV:wxfactory_tpu_torch/csrc/
-euler3d_operator.cu > build/parent.cu`` on a machine with the history).
+euler3d_operator.cu > build/parent.cu`` on a machine with the history) and
+holds the source's prep and apply outputs against the parent's on the same
+inputs bit for bit (``torch.equal``; the line ``bitwise_against_parent``).
 The script knows the two interfaces the source has had: the one-call
 tangent kernel (C entry ``euler3d_tangent_launch``) and the prep + apply
 pair (``euler3d_tangent_prep_launch``, ``euler3d_tangent_apply_launch``);
@@ -177,6 +179,7 @@ def calls(torch, lib, con, inputs, pert):
         fns["tangent"] = lambda: checked(one(*head, ptr(q), ptr(v), ptr(halo_q), ptr(halo_v), ptr(con.ops1d),
                                              ptr(con.fields), ptr(con.tch), ptr(con.itf_x), ptr(con.itf_y),
                                              ptr(con.itf_z), ptr(q0), ptr(halo0), ptr(out), stream()))
+        fns["tangent"].result = out
     prep, apply = _entry(lib, "euler3d_tangent_prep_launch"), _entry(lib, "euler3d_tangent_apply_launch")
     if prep is not None and apply is not None:
         coef = torch.empty(e3op.tangent_layout(con)["size"], dtype=q.dtype, device=q.device)
@@ -186,6 +189,7 @@ def calls(torch, lib, con, inputs, pert):
         fns["apply"] = lambda: checked(apply(*head, ptr(v), ptr(halo_v), ptr(con.ops1d), ptr(con.fields),
                                              ptr(con.tch), ptr(con.itf_x), ptr(con.itf_y), ptr(con.itf_z), ptr(coef),
                                              ptr(out), stream()))
+        fns["prep"].result, fns["apply"].result = coef, out  # what the last calls wrote
     if not fns:
         raise RuntimeError("the library exports no tangent entry this script knows")
     return fns
@@ -246,10 +250,11 @@ def main(argv=None) -> int:
     smi = chip_smoke.nvidia_smi()
     t0 = time.perf_counter()
     libs, logs = build_variants(Path(args.source), blocks, args.parent)
+    shown = [name for name in libs if name.startswith(("as_", "apply_")) or name == "parent"]
     print(json.dumps({"source": args.source, "build_s": time.perf_counter() - t0, "gpu": smi,
-                      "ptxas": chip_smoke.ptxas_summary(logs["as_built"]),
-                      "resources": {name: resources(lib) for name, lib in libs.items() if name.startswith(("as_", "apply_"))}}),
-          flush=True)
+                      "ptxas": {name: chip_smoke.ptxas_summary(logs[name]) for name in shown},
+                      "resources": {name: resources(libs[name]) for name in shown}}), flush=True)
+    checked = []
     for shape in args.shapes.split(":"):
         nel_h, nel_v, s = (int(x) for x in shape.split(","))
         rows = []
@@ -263,19 +268,30 @@ def main(argv=None) -> int:
                 pert, inputs = None, (q, v) + tangent_halos(q, v, con, topology)
             # Ablations only for the two forms of rows 8b and 8c.
             ablate = (dtype == torch.float64) != pert_form
-            names = list(libs) if ablate else ["as_built"]
+            names = list(libs) if ablate else ["as_built"] + (["parent"] if "parent" in libs else [])
             launchers = {name: calls(torch, libs[name], con, inputs, pert) for name in names}
             times = {name: {k: [] for k in launchers[name]} for name in names}
             for name in names + names[::-1]:
                 for kernel, fn in launchers[name].items():
                     times[name][kernel].append(mean_ms(torch, fn))
-            rows.append({"dtype": str(dtype).replace("torch.", ""), "form": "perturbation" if pert_form else "absolute",
-                         "ms": {name: {k: sorted(t) for k, t in kt.items()} for name, kt in times.items()}})
+            row = {"dtype": str(dtype).replace("torch.", ""), "form": "perturbation" if pert_form else "absolute",
+                   "ms": {name: {k: sorted(t) for k, t in kt.items()} for name, kt in times.items()}}
+            if "parent" in launchers:  # each one's last prep and apply, on its own buffer, bit for bit
+                torch.cuda.synchronize()
+                row["identical_to_parent"] = {k: bool(torch.equal(fn.result, launchers["parent"][k].result))
+                                              for k, fn in launchers["as_built"].items() if k in launchers["parent"]}
+                for k, same in row["identical_to_parent"].items():
+                    checked.append((f"{shape} {row['dtype']} {row['form']} {k}", same))
+            rows.append(row)
             del launchers, inputs
             torch.cuda.empty_cache()
         print(json.dumps({"nel_h": nel_h, "nel_v": nel_v, "s": s, "gpu": smi,
                           "timing": "CUDA events around 20 calls, mean a call, two turns a variant",
                           "results": rows}), flush=True)
+    if args.parent is not None:
+        print(json.dumps({"bitwise_against_parent": {"cases": len(checked), "identical": sum(c for _, c in checked),
+                                                     "differ": [k for k, c in checked if not c]}, "gpu": smi}),
+              flush=True)
     print(smi, flush=True)
     return 0
 

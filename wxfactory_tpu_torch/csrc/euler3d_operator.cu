@@ -146,6 +146,23 @@
 // interface's coefficients once (as the operator's interface pass
 // computes each interface once) is what would move it toward its floor.
 //
+// Terrain (DCMIP 20, 21, 22; C entries euler3d_operator_terrain_launch,
+// euler3d_tangent_prep_terrain_launch, euler3d_tangent_apply_terrain_launch
+// of the terrain library, this source built with -DE3_TERRAIN_LIBRARY):
+// with bottom topography the metric differs from panel to panel, so these
+// read every panel's interior fields (28, 6*nk*nh*nh, s^3) and interface
+// metric (4, 6, ... per family) at the element's own panel. Each kernel of
+// this file takes a compile-time flag TERRAIN (its last template argument;
+// TERRAIN = false: one panel's metric, no sponge). The Rayleigh sponge
+// of DCMIP 21/22 (the JAX package's extra_forcing, testcases/dcmip.py:
+// 321-324 there) rides in a parameter of the volume pass and the apply that
+// only their terrain instantiations read: sponge (4, 6*nk*nh*nh, s^3) = [mask | mask *
+// u_ref of u1, u2, u3], NULL for none; the momentum forcing gains mask
+// q[1+i] - q[0] (mask u_ref_i) (absolute mode; the perturbation mode takes
+// no sponge), the apply its tangent mask v[1+i] - v[0] (mask u_ref_i), which
+// needs no prep. A tile reads one panel, so the tile launch takes its own
+// panel's slice of a per-panel metric in the one-panel layout.
+//
 // Perturbation mode (template flag PERT of the operator and prep kernels; C entries with
 // q0 != NULL): km3_fused's pert= mode (pallas_euler3d.py:2131 with pert=,
 // body _km3_body with base= :919-945, :1061-1136, :1215-1240, :1290-1320,
@@ -366,10 +383,12 @@ __device__ __forceinline__ void face_neighbour(int face, int nh, int nk, int kz,
 }
 
 // The interface metric [sqrt(g), h^{d0}, h^{d1}, h^{d2}] at face point k of
-// face `face` of element (kz, ey, ex).
-template <typename T, int S>
+// face `face` of element (kz, ey, ex). TERRAIN: every panel's metric, panel
+// p of npanel (each family (4, npanel, ...)); else one panel's.
+template <typename T, int S, bool TERRAIN>
 __device__ __forceinline__ void face_metric(const T* itf_x, const T* itf_y, const T* itf_z, int d, bool pos, int k,
-                                            int nh, int nk, int kz, int ey, int ex, T& sg, T& h0, T& h1, T& h2) {
+                                            int nh, int nk, int kz, int ey, int ex, T& sg, T& h0, T& h1, T& h2,
+                                            int p, int npanel) {
   constexpr int S2 = S * S;
   const T* itf;
   long long istride, iidx;
@@ -385,6 +404,10 @@ __device__ __forceinline__ void face_metric(const T* itf_x, const T* itf_y, cons
     itf = itf_z;
     istride = (long long)(nk + 1) * nh * nh * S2;
     iidx = ((long long)((kz + pos) * nh + ey) * nh + ex) * S2 + k;
+  }
+  if constexpr (TERRAIN) {  // the panel's block of each row
+    iidx += p * istride;
+    istride *= npanel;
   }
   sg = itf[iidx];
   h0 = itf[istride + iidx];
@@ -498,7 +521,7 @@ struct VolBlocks {
 // Rusanov flux with (L, R) in the fixed west/south/lower order through one
 // call site of rusanov / rusanov_delta; its rows into `rows`, each side's
 // own rows only for a side that is an element of this grid.
-template <typename T, int S, bool PERT>
+template <typename T, int S, bool PERT, bool TERRAIN>
 __global__ void __launch_bounds__(kItfThreads, ItfBlocks<T, PERT>::value) euler3d_interface_kernel(
     const T* __restrict__ q, const T* __restrict__ halo, const T* __restrict__ ops, const T* __restrict__ itf_x,
     const T* __restrict__ itf_y, const T* __restrict__ itf_z, const T* __restrict__ q0,
@@ -582,7 +605,7 @@ __global__ void __launch_bounds__(kItfThreads, ItfBlocks<T, PERT>::value) euler3
     }
   }
   T sg, h0, h1, h2;
-  face_metric<T, S>(itf_x, itf_y, itf_z, d, false, k, nh, nk, kz, gy, gx, sg, h0, h1, h2);
+  face_metric<T, S, TERRAIN>(itf_x, itf_y, itf_z, d, false, k, nh, nk, kz, gy, gx, sg, h0, h1, h2, p, npanel);
   const T hd = d == 0 ? h0 : (d == 1 ? h1 : h2);
   T* row = rows + lay.base(d, NR) + i;
   const long long rs = lay.count(d);  // stride between rows
@@ -667,12 +690,15 @@ struct VolShape {
 // from the interface rows of the element's six faces, the w pressure split,
 // gravity and forcing, the stage combination, the output and its panel-edge
 // traces.
-template <typename T, int S, bool PERT>
+// TERRAIN: every panel's metric (fields (28, npanel*nk*nh*nh, s^3)) and,
+// in the absolute form, the Rayleigh sponge when `sponge` is not NULL (the
+// kernels without terrain never read it).
+template <typename T, int S, bool PERT, bool TERRAIN>
 __global__ void __launch_bounds__(kThreads, VolBlocks<T, PERT>::value) euler3d_volume_kernel(
     const T* __restrict__ q, const T* __restrict__ ops, const T* __restrict__ fields, const T* __restrict__ tch,
     const T* __restrict__ x, const T* __restrict__ bal, const T* __restrict__ q0, const T* __restrict__ rhs0,
     const T* __restrict__ traces0, const T* __restrict__ rows, T* __restrict__ out, T* __restrict__ traces, int nh,
-    int nk, int npanel, T a, T b, T cdt, int stage) {
+    int nk, int npanel, T a, T b, T cdt, int stage, const T* __restrict__ sponge) {
   using Sh = VolShape<T, S, PERT>;
   using Ops = Shape<T, S>;
   constexpr int S2 = Sh::S2, S3 = Sh::S3, NR = ItfRows<PERT>::N, SR = ItfRows<PERT>::SIDE;
@@ -695,7 +721,8 @@ __global__ void __launch_bounds__(kThreads, VolBlocks<T, PERT>::value) euler3d_v
   const bool valid = pe < per_panel;
   const long long elem = (long long)p * per_panel + pe;
   const long long nq = (long long)npanel * per_panel * S3;  // stride between variables
-  const long long fstride = (long long)per_panel * S3;      // stride between metric fields
+  // stride between metric fields
+  const long long fstride = TERRAIN ? nq : (long long)per_panel * S3;
 
   T* sQ = smem + Ops::N_OPS + e_loc * Sh::PER_ELEM;
   T* sLp = sQ + Sh::OFF_LP;
@@ -710,7 +737,7 @@ __global__ void __launch_bounds__(kThreads, VolBlocks<T, PERT>::value) euler3d_v
   // (PERT); the state and the metric are read again after the barrier
   // (from shared memory and L1) instead of held across it in registers.
   T pres = T(0), p0v = T(0), dpv = T(0);
-  const T* fld = fields + (long long)(valid ? pe : 0) * S3 + j;
+  const T* fld = fields + (long long)(valid ? (TERRAIN ? elem : pe) : 0) * S3 + j;
   if (valid) {
     kz = pe / (nh * nh);
     const int r = pe - kz * nh * nh;
@@ -917,12 +944,21 @@ __global__ void __launch_bounds__(kThreads, VolBlocks<T, PERT>::value) euler3d_v
       }
     }
     const T gravity = invdz * T(kGravity) * invsg * grav;
+    T force_w = force[2] + gravity;
+    if constexpr (TERRAIN && !PERT) {
+      if (sponge != nullptr) {  // Rayleigh sponge: mask q[1+i] - q[0] (mask u_ref_i)
+        const T* sp = sponge + elem * S3 + j;
+        force[0] = force[0] + (sp[0] * qv[1] - qv[0] * sp[nq]);
+        force[1] = force[1] + (sp[0] * qv[2] - qv[0] * sp[2 * nq]);
+        force_w = force_w + (sp[0] * qv[3] - qv[0] * sp[3 * nq]);
+      }
+    }
 
     T r[5];
     r[0] = -invsg * (div[0] + corr[0]);
     r[1] = -invsg * (div[1] + corr[1]) - force[0];
     r[2] = -invsg * (div[2] + corr[2]) - force[1];
-    r[3] = -invsg * w_df - (force[2] + gravity);
+    r[3] = -invsg * w_df - force_w;
     r[4] = -invsg * (div[3] + corr[3]);
 #pragma unroll
     for (int v = 0; v < 5; ++v) {
@@ -1030,50 +1066,51 @@ cudaError_t rows_alloc(void** ptr, size_t bytes, cudaStream_t stream) {
   return cudaMallocFromPoolAsync(ptr, bytes, pools[dev], stream);
 }
 
-template <typename T, int S, bool PERT>
+template <typename T, int S, bool PERT, bool TERRAIN>
 cudaError_t launch(int nh, int nk, int npanel, const void* q, const void* halo, const void* ops,
                    const void* fields, const void* tch, const void* itf_x, const void* itf_y,
                    const void* itf_z, const void* x, const void* bal, const void* q0, const void* halo0,
                    const void* rhs0, const void* traces0, void* out, void* traces, double a, double b,
-                   double cdt, int stage, cudaStream_t stream) {
+                   double cdt, int stage, const void* sponge, cudaStream_t stream) {
   using Sh = VolShape<T, S, PERT>;
   const size_t smem = sizeof(T) * (size_t)Sh::SIZE;
   static bool configured = false;
-  cudaError_t err = configure(euler3d_volume_kernel<T, S, PERT>, smem, configured);
+  cudaError_t err = configure(euler3d_volume_kernel<T, S, PERT, TERRAIN>, smem, configured);
   if (err != cudaSuccess) return err;
   const ItfLayout lay(npanel, nh, nk, S);
   void* rows = nullptr;
   err = rows_alloc(&rows, sizeof(T) * ItfRows<PERT>::N * (size_t)lay.points(), stream);
   if (err != cudaSuccess) return err;
   const unsigned itf_blocks = (unsigned)((lay.points() + kItfThreads - 1) / kItfThreads);
-  euler3d_interface_kernel<T, S, PERT><<<itf_blocks, kItfThreads, 0, stream>>>(
+  euler3d_interface_kernel<T, S, PERT, TERRAIN><<<itf_blocks, kItfThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(halo), static_cast<const T*>(ops),
       static_cast<const T*>(itf_x), static_cast<const T*>(itf_y), static_cast<const T*>(itf_z),
       static_cast<const T*>(q0), static_cast<const T*>(halo0), static_cast<T*>(rows), nh, nk, npanel);
   err = cudaGetLastError();
   if (err == cudaSuccess) {
     const int blocks = npanel * ((nk * nh * nh + Sh::EB - 1) / Sh::EB);
-    euler3d_volume_kernel<T, S, PERT><<<blocks, Sh::EB * Sh::S3, smem, stream>>>(
+    euler3d_volume_kernel<T, S, PERT, TERRAIN><<<blocks, Sh::EB * Sh::S3, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(ops), static_cast<const T*>(fields),
         static_cast<const T*>(tch), static_cast<const T*>(x), static_cast<const T*>(bal), static_cast<const T*>(q0),
         static_cast<const T*>(rhs0), static_cast<const T*>(traces0), static_cast<const T*>(rows),
-        static_cast<T*>(out), static_cast<T*>(traces), nh, nk, npanel, T(a), T(b), T(cdt), stage);
+        static_cast<T*>(out), static_cast<T*>(traces), nh, nk, npanel, T(a), T(b), T(cdt), stage,
+        static_cast<const T*>(sponge));
     err = cudaGetLastError();
   }
   const cudaError_t freed = cudaFreeAsync(rows, stream);
   return err != cudaSuccess ? err : freed;
 }
 
-template <typename T, bool PERT>
+template <typename T, bool PERT, bool TERRAIN>
 cudaError_t dispatch(int s, int nh, int nk, int npanel, const void* q, const void* halo, const void* ops,
                      const void* fields, const void* tch, const void* itf_x, const void* itf_y,
                      const void* itf_z, const void* x, const void* bal, const void* q0, const void* halo0,
                      const void* rhs0, const void* traces0, void* out, void* traces, double a, double b,
-                     double cdt, int stage, cudaStream_t stream) {
-#define E3_CASE(S)                                                                                 \
-  case S:                                                                                          \
-    return launch<T, S, PERT>(nh, nk, npanel, q, halo, ops, fields, tch, itf_x, itf_y, itf_z, x, bal, q0,  \
-                              halo0, rhs0, traces0, out, traces, a, b, cdt, stage, stream);
+                     double cdt, int stage, const void* sponge, cudaStream_t stream) {
+#define E3_CASE(S)                                                                                         \
+  case S:                                                                                                  \
+    return launch<T, S, PERT, TERRAIN>(nh, nk, npanel, q, halo, ops, fields, tch, itf_x, itf_y, itf_z, x, bal, q0, \
+                                       halo0, rhs0, traces0, out, traces, a, b, cdt, stage, sponge, stream);
   switch (s) {
     E3_CASE(2) E3_CASE(3) E3_CASE(4) E3_CASE(5) E3_CASE(6)
     default: return cudaErrorInvalidValue;
@@ -1081,26 +1118,32 @@ cudaError_t dispatch(int s, int nh, int nk, int npanel, const void* q, const voi
 #undef E3_CASE
 }
 
+template <bool TERRAIN>
 int operator_launch(int npanel, int is_f64, int s, int nh, int nk, const void* q, const void* halo,
                     const void* ops, const void* fields, const void* tch, const void* itf_x, const void* itf_y,
                     const void* itf_z, const void* x, const void* bal, const void* q0, const void* halo0,
                     const void* rhs0, const void* traces0, void* out, void* traces, double a, double b, double cdt,
-                    int stage, void* stream) {
+                    int stage, const void* sponge, void* stream) {
   const bool pert = q0 != nullptr;
   if (pert && (halo0 == nullptr || rhs0 == nullptr || bal != nullptr || (traces != nullptr && traces0 == nullptr)))
     return (int)cudaErrorInvalidValue;
+  if (pert && sponge != nullptr) return (int)cudaErrorInvalidValue;  // the perturbation form has no sponge
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (is_f64)
-    err = pert ? dispatch<double, true>(s, nh, nk, npanel, q, halo, ops, fields, tch, itf_x, itf_y, itf_z, x, bal,
-                                        q0, halo0, rhs0, traces0, out, traces, a, b, cdt, stage, st)
-               : dispatch<double, false>(s, nh, nk, npanel, q, halo, ops, fields, tch, itf_x, itf_y, itf_z, x, bal,
-                                         q0, halo0, rhs0, traces0, out, traces, a, b, cdt, stage, st);
+    err = pert ? dispatch<double, true, TERRAIN>(s, nh, nk, npanel, q, halo, ops, fields, tch, itf_x, itf_y, itf_z,
+                                                 x, bal, q0, halo0, rhs0, traces0, out, traces, a, b, cdt, stage,
+                                                 sponge, st)
+               : dispatch<double, false, TERRAIN>(s, nh, nk, npanel, q, halo, ops, fields, tch, itf_x, itf_y, itf_z,
+                                                  x, bal, q0, halo0, rhs0, traces0, out, traces, a, b, cdt, stage,
+                                                  sponge, st);
   else
-    err = pert ? dispatch<float, true>(s, nh, nk, npanel, q, halo, ops, fields, tch, itf_x, itf_y, itf_z, x, bal,
-                                       q0, halo0, rhs0, traces0, out, traces, a, b, cdt, stage, st)
-               : dispatch<float, false>(s, nh, nk, npanel, q, halo, ops, fields, tch, itf_x, itf_y, itf_z, x, bal,
-                                        q0, halo0, rhs0, traces0, out, traces, a, b, cdt, stage, st);
+    err = pert ? dispatch<float, true, TERRAIN>(s, nh, nk, npanel, q, halo, ops, fields, tch, itf_x, itf_y, itf_z, x,
+                                                bal, q0, halo0, rhs0, traces0, out, traces, a, b, cdt, stage, sponge,
+                                                st)
+               : dispatch<float, false, TERRAIN>(s, nh, nk, npanel, q, halo, ops, fields, tch, itf_x, itf_y, itf_z,
+                                                 x, bal, q0, halo0, rhs0, traces0, out, traces, a, b, cdt, stage,
+                                                 sponge, st);
   return (int)err;
 }
 
@@ -1181,7 +1224,7 @@ struct PrepShape {
 // interface point is written once. Face work runs face by face over the
 // block's elements (item = (face, element, face point)), so a warp takes
 // one direction and side.
-template <typename T, int S, bool PERT>
+template <typename T, int S, bool PERT, bool TERRAIN>
 __global__ void __launch_bounds__(kThreads) euler3d_tangent_prep_kernel(
     const T* __restrict__ q, const T* __restrict__ halo, const T* __restrict__ ops, const T* __restrict__ fields,
     const T* __restrict__ itf_x, const T* __restrict__ itf_y, const T* __restrict__ itf_z,
@@ -1208,7 +1251,7 @@ __global__ void __launch_bounds__(kThreads) euler3d_tangent_prep_kernel(
   const bool valid = pe < per_panel;
   const long long elem = (long long)p * per_panel + pe;
   const long long nq = 6LL * per_panel * S3;
-  const long long fstride = (long long)per_panel * S3;
+  const long long fstride = TERRAIN ? nq : (long long)per_panel * S3;
   const TangentLayout lay(nh, nk, S);
 
   T* sQ = smem + Sh::N_OPS + e_loc * Sh::PER_ELEM;
@@ -1301,7 +1344,7 @@ __global__ void __launch_bounds__(kThreads) euler3d_tangent_prep_kernel(
     T* eQ = smem + Sh::N_OPS + e * Sh::PER_ELEM;
     T* fc = eQ + Sh::OFF_FACE + face * S2 + k;
     T sg, h0, h1, h2;
-    face_metric<T, S>(itf_x, itf_y, itf_z, d, pos, k, nh, nk, kz, ey, ex, sg, h0, h1, h2);
+    face_metric<T, S, TERRAIN>(itf_x, itf_y, itf_z, d, pos, k, nh, nk, kz, ey, ex, sg, h0, h1, h2, p, 6);
     const T hd = d == 0 ? h0 : (d == 1 ? h1 : h2);
     T own[5], nb[5], L[5], R[5], pL, pR;
     if constexpr (!PERT) {
@@ -1438,7 +1481,7 @@ __global__ void __launch_bounds__(kThreads) euler3d_tangent_prep_kernel(
       dly = d0y + ddy;
       dlz = d0z + ddz;
     }
-    const T* fld = fields + (long long)pe * S3 + j;
+    const T* fld = fields + (long long)(TERRAIN ? elem : pe) * S3 + j;
     const T sqrtg = fld[F_SQRTG * fstride];
     const T sh02 = sqrtg * fld[(F_H + 2) * fstride], sh12 = sqrtg * fld[(F_H + 4) * fstride],
             sh22 = sqrtg * fld[(F_H + 5) * fstride];
@@ -1486,12 +1529,15 @@ struct ApplyBlocks {
   static constexpr int value = sizeof(T) == 8 ? 2 : 3;
 };
 
-template <typename T, int S>
+// TERRAIN: every panel's metric, and the sponge's tangent mask v[1+i] -
+// v[0] (mask u_ref_i) when `sponge` is not NULL (the kernels without
+// terrain never read it).
+template <typename T, int S, bool TERRAIN>
 __global__ void __launch_bounds__(kThreads, ApplyBlocks<T>::value) euler3d_tangent_apply_kernel(
     const T* __restrict__ vd, const T* __restrict__ thalo, const T* __restrict__ ops,
     const T* __restrict__ fields, const T* __restrict__ tch, const T* __restrict__ itf_x,
     const T* __restrict__ itf_y, const T* __restrict__ itf_z, const T* __restrict__ coef, T* __restrict__ out,
-    int nh, int nk) {
+    int nh, int nk, const T* __restrict__ sponge) {
   using Sh = ApplyShape<T, S>;
   using Ops = Shape<T, S>;
   constexpr int S2 = Sh::S2, S3 = Sh::S3, NF = Sh::NF, EB = Sh::EB;
@@ -1515,7 +1561,7 @@ __global__ void __launch_bounds__(kThreads, ApplyBlocks<T>::value) euler3d_tange
   const bool valid = pe < per_panel;
   const long long elem = (long long)p * per_panel + pe;
   const long long nq = 6LL * per_panel * S3;
-  const long long fstride = (long long)per_panel * S3;
+  const long long fstride = TERRAIN ? nq : (long long)per_panel * S3;
   const TangentLayout lay(nh, nk, S);
 
   // --- Stage the block's node coefficients (one contiguous run) while v,
@@ -1531,7 +1577,7 @@ __global__ void __launch_bounds__(kThreads, ApplyBlocks<T>::value) euler3d_tange
   load_ops<T, S>(ops, smem);
   T* sLT = smem + Sh::OFF_LT + e_loc * Sh::PER_LT;
   T tv[5] = {T(0), T(0), T(0), T(0), T(0)}, sqrtg = T(0);
-  const T* fld = fields + (long long)(valid ? pe : 0) * S3 + j;
+  const T* fld = fields + (long long)(valid ? (TERRAIN ? elem : pe) : 0) * S3 + j;
   if (valid) {
 #pragma unroll
     for (int v = 0; v < 5; ++v) tv[v] = vd[v * nq + elem * S3 + j];
@@ -1655,7 +1701,7 @@ __global__ void __launch_bounds__(kThreads, ApplyBlocks<T>::value) euler3d_tange
     const T wL = ci[CF_WL * rs];
     const T teig = wL * taL + (T(1) - wL) * taR;
     T sg, h0, h1, h2;
-    face_metric<T, S>(itf_x, itf_y, itf_z, d, pos, k, nh, nk, kz, ey, ex, sg, h0, h1, h2);
+    face_metric<T, S, TERRAIN>(itf_x, itf_y, itf_z, d, pos, k, nh, nk, kz, ey, ex, sg, h0, h1, h2, p, 6);
     const T sl = sg * vL, sr = sg * vR, es = ci[CF_EIG * rs] * sg;
     const T tsl = sg * tvL, tsr = sg * tvR, tes = teig * sg;
     const T tps = T(0.5) * (ci[CF_GP * rs] * tL[4] + ci[(CF_GP + 1) * rs] * tR[4]);
@@ -1778,26 +1824,35 @@ __global__ void __launch_bounds__(kThreads, ApplyBlocks<T>::value) euler3d_tange
                 T(2) * ch[4 * fstride] * tpair[4] + ch[5 * fstride] * tpair[5];
   }
   const T gravity = invdz * T(kGravity) * invsg * grav;
+  T force_w = force[2] + gravity;
+  if constexpr (TERRAIN) {
+    if (sponge != nullptr) {  // the Rayleigh sponge's tangent: mask v[1+i] - v[0] (mask u_ref_i)
+      const T* sp = sponge + elem * S3 + j;
+      force[0] = force[0] + (sp[0] * tv[1] - tv[0] * sp[nq]);
+      force[1] = force[1] + (sp[0] * tv[2] - tv[0] * sp[2 * nq]);
+      force_w = force_w + (sp[0] * tv[3] - tv[0] * sp[3 * nq]);
+    }
+  }
 
   const long long o = elem * S3 + j;
   out[o] = -invsg * (div[0] + corr[0]);
   out[nq + o] = -invsg * (div[1] + corr[1]) - force[0];
   out[2 * nq + o] = -invsg * (div[2] + corr[2]) - force[1];
-  out[3 * nq + o] = -invsg * tw_df - (force[2] + gravity);
+  out[3 * nq + o] = -invsg * tw_df - force_w;
   out[4 * nq + o] = -invsg * (div[3] + corr[3]);
 }
 
-template <typename T, int S, bool PERT>
+template <typename T, int S, bool PERT, bool TERRAIN>
 cudaError_t launch_prep(int nh, int nk, const void* q, const void* halo, const void* ops, const void* fields,
                         const void* itf_x, const void* itf_y, const void* itf_z, const void* q0, const void* halo0,
                         void* coef, cudaStream_t stream) {
   using Sh = PrepShape<T, S, PERT>;
   const size_t smem = sizeof(T) * (size_t)Sh::SIZE;
   static bool configured = false;
-  cudaError_t err = configure(euler3d_tangent_prep_kernel<T, S, PERT>, smem, configured);
+  cudaError_t err = configure(euler3d_tangent_prep_kernel<T, S, PERT, TERRAIN>, smem, configured);
   if (err != cudaSuccess) return err;
   const int blocks = 6 * ((nk * nh * nh + Sh::EB - 1) / Sh::EB);
-  euler3d_tangent_prep_kernel<T, S, PERT><<<blocks, Sh::EB * Sh::S3, smem, stream>>>(
+  euler3d_tangent_prep_kernel<T, S, PERT, TERRAIN><<<blocks, Sh::EB * Sh::S3, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(halo), static_cast<const T*>(ops),
       static_cast<const T*>(fields), static_cast<const T*>(itf_x), static_cast<const T*>(itf_y),
       static_cast<const T*>(itf_z), static_cast<const T*>(q0), static_cast<const T*>(halo0), static_cast<T*>(coef),
@@ -1805,21 +1860,21 @@ cudaError_t launch_prep(int nh, int nk, const void* q, const void* halo, const v
   return cudaGetLastError();
 }
 
-template <typename T, int S>
+template <typename T, int S, bool TERRAIN>
 cudaError_t launch_apply(int nh, int nk, const void* v, const void* thalo, const void* ops, const void* fields,
                          const void* tch, const void* itf_x, const void* itf_y, const void* itf_z, const void* coef,
-                         void* out, cudaStream_t stream) {
+                         void* out, const void* sponge, cudaStream_t stream) {
   using Sh = ApplyShape<T, S>;
   const size_t smem = sizeof(T) * (size_t)Sh::SIZE;
   static bool configured = false;
-  cudaError_t err = configure(euler3d_tangent_apply_kernel<T, S>, smem, configured);
+  cudaError_t err = configure(euler3d_tangent_apply_kernel<T, S, TERRAIN>, smem, configured);
   if (err != cudaSuccess) return err;
   const int blocks = 6 * ((nk * nh * nh + Sh::EB - 1) / Sh::EB);
-  euler3d_tangent_apply_kernel<T, S><<<blocks, Sh::EB * Sh::S3, smem, stream>>>(
+  euler3d_tangent_apply_kernel<T, S, TERRAIN><<<blocks, Sh::EB * Sh::S3, smem, stream>>>(
       static_cast<const T*>(v), static_cast<const T*>(thalo), static_cast<const T*>(ops),
       static_cast<const T*>(fields), static_cast<const T*>(tch), static_cast<const T*>(itf_x),
       static_cast<const T*>(itf_y), static_cast<const T*>(itf_z), static_cast<const T*>(coef), static_cast<T*>(out),
-      nh, nk);
+      nh, nk, static_cast<const T*>(sponge));
   return cudaGetLastError();
 }
 
@@ -1846,23 +1901,55 @@ cudaError_t kernel_resources(Kernel kernel, int threads, size_t smem, int* info)
 template <typename T, int S>
 cudaError_t tangent_resources(int kernel, int* info) {
   if (kernel == 2)
-    return kernel_resources(euler3d_tangent_apply_kernel<T, S>, ApplyShape<T, S>::EB * ApplyShape<T, S>::S3,
+    return kernel_resources(euler3d_tangent_apply_kernel<T, S, false>, ApplyShape<T, S>::EB * ApplyShape<T, S>::S3,
                             sizeof(T) * (size_t)ApplyShape<T, S>::SIZE, info);
   using P1 = PrepShape<T, S, true>;
   using P0 = PrepShape<T, S, false>;
   if (kernel == 1)
-    return kernel_resources(euler3d_tangent_prep_kernel<T, S, true>, P1::EB * P1::S3, sizeof(T) * (size_t)P1::SIZE,
+    return kernel_resources(euler3d_tangent_prep_kernel<T, S, true, false>, P1::EB * P1::S3, sizeof(T) * (size_t)P1::SIZE,
                             info);
-  return kernel_resources(euler3d_tangent_prep_kernel<T, S, false>, P0::EB * P0::S3, sizeof(T) * (size_t)P0::SIZE,
+  return kernel_resources(euler3d_tangent_prep_kernel<T, S, false, false>, P0::EB * P0::S3, sizeof(T) * (size_t)P0::SIZE,
                           info);
 }
 
 template <typename T, int S, bool PERT>
 cudaError_t operator_resources(int kernel, int* info) {
   if (kernel == 0)
-    return kernel_resources(euler3d_interface_kernel<T, S, PERT>, kItfThreads, 0, info);
+    return kernel_resources(euler3d_interface_kernel<T, S, PERT, false>, kItfThreads, 0, info);
   using Sh = VolShape<T, S, PERT>;
-  return kernel_resources(euler3d_volume_kernel<T, S, PERT>, Sh::EB * Sh::S3, sizeof(T) * (size_t)Sh::SIZE, info);
+  return kernel_resources(euler3d_volume_kernel<T, S, PERT, false>, Sh::EB * Sh::S3, sizeof(T) * (size_t)Sh::SIZE, info);
+}
+
+// The terrain kernels' resources: 0 the interface pass, 1 the volume pass,
+// 2 and 3 theirs in perturbation mode, 4 the prep, 5 the perturbation
+// prep, 6 the apply.
+template <typename T, int S>
+cudaError_t terrain_resources(int kernel, int* info) {
+  using V0 = VolShape<T, S, false>;
+  using V1 = VolShape<T, S, true>;
+  using P0 = PrepShape<T, S, false>;
+  using P1 = PrepShape<T, S, true>;
+  using A = ApplyShape<T, S>;
+  switch (kernel) {
+    case 0: return kernel_resources(euler3d_interface_kernel<T, S, false, true>, kItfThreads, 0, info);
+    case 1:
+      return kernel_resources(euler3d_volume_kernel<T, S, false, true>, V0::EB * V0::S3,
+                              sizeof(T) * (size_t)V0::SIZE, info);
+    case 2: return kernel_resources(euler3d_interface_kernel<T, S, true, true>, kItfThreads, 0, info);
+    case 3:
+      return kernel_resources(euler3d_volume_kernel<T, S, true, true>, V1::EB * V1::S3,
+                              sizeof(T) * (size_t)V1::SIZE, info);
+    case 4:
+      return kernel_resources(euler3d_tangent_prep_kernel<T, S, false, true>, P0::EB * P0::S3,
+                              sizeof(T) * (size_t)P0::SIZE, info);
+    case 5:
+      return kernel_resources(euler3d_tangent_prep_kernel<T, S, true, true>, P1::EB * P1::S3,
+                              sizeof(T) * (size_t)P1::SIZE, info);
+    case 6:
+      return kernel_resources(euler3d_tangent_apply_kernel<T, S, true>, A::EB * A::S3, sizeof(T) * (size_t)A::SIZE,
+                              info);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T, bool PERT>
@@ -1877,13 +1964,14 @@ cudaError_t dispatch_operator_resources(int s, int kernel, int* info) {
   }
 }
 
-template <typename T, bool PERT>
+template <typename T, bool PERT, bool TERRAIN>
 cudaError_t dispatch_prep(int s, int nh, int nk, const void* q, const void* halo, const void* ops, const void* fields,
                           const void* itf_x, const void* itf_y, const void* itf_z, const void* q0, const void* halo0,
                           void* coef, cudaStream_t stream) {
-#define E3P_CASE(S) \
-  case S:           \
-    return launch_prep<T, S, PERT>(nh, nk, q, halo, ops, fields, itf_x, itf_y, itf_z, q0, halo0, coef, stream);
+#define E3P_CASE(S)                                                                                             \
+  case S:                                                                                                       \
+    return launch_prep<T, S, PERT, TERRAIN>(nh, nk, q, halo, ops, fields, itf_x, itf_y, itf_z, q0, halo0, coef, \
+                                            stream);
   switch (s) {
     E3P_CASE(2) E3P_CASE(3) E3P_CASE(4) E3P_CASE(5) E3P_CASE(6)
     default: return cudaErrorInvalidValue;
@@ -1891,18 +1979,41 @@ cudaError_t dispatch_prep(int s, int nh, int nk, const void* q, const void* halo
 #undef E3P_CASE
 }
 
-template <typename T>
+template <typename T, bool TERRAIN>
 cudaError_t dispatch_apply(int s, int nh, int nk, const void* v, const void* thalo, const void* ops,
                            const void* fields, const void* tch, const void* itf_x, const void* itf_y,
-                           const void* itf_z, const void* coef, void* out, cudaStream_t stream) {
-#define E3A_CASE(S) \
-  case S:           \
-    return launch_apply<T, S>(nh, nk, v, thalo, ops, fields, tch, itf_x, itf_y, itf_z, coef, out, stream);
+                           const void* itf_z, const void* coef, void* out, const void* sponge, cudaStream_t stream) {
+#define E3A_CASE(S)                                                                                             \
+  case S:                                                                                                       \
+    return launch_apply<T, S, TERRAIN>(nh, nk, v, thalo, ops, fields, tch, itf_x, itf_y, itf_z, coef, out, sponge, \
+                                       stream);
   switch (s) {
     E3A_CASE(2) E3A_CASE(3) E3A_CASE(4) E3A_CASE(5) E3A_CASE(6)
     default: return cudaErrorInvalidValue;
   }
 #undef E3A_CASE
+}
+
+template <bool TERRAIN>
+int prep_launch(int is_f64, int s, int nh, int nk, const void* q, const void* halo, const void* ops,
+                const void* fields, const void* itf_x, const void* itf_y, const void* itf_z, const void* q0,
+                const void* halo0, void* coef, void* stream) {
+  if (nh < 2 || nk < 1) return (int)cudaErrorInvalidValue;
+  const bool pert = q0 != nullptr;
+  if (pert && halo0 == nullptr) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (is_f64)
+    err = pert ? dispatch_prep<double, true, TERRAIN>(s, nh, nk, q, halo, ops, fields, itf_x, itf_y, itf_z, q0, halo0,
+                                                      coef, st)
+               : dispatch_prep<double, false, TERRAIN>(s, nh, nk, q, halo, ops, fields, itf_x, itf_y, itf_z, q0,
+                                                       halo0, coef, st);
+  else
+    err = pert ? dispatch_prep<float, true, TERRAIN>(s, nh, nk, q, halo, ops, fields, itf_x, itf_y, itf_z, q0, halo0,
+                                                     coef, st)
+               : dispatch_prep<float, false, TERRAIN>(s, nh, nk, q, halo, ops, fields, itf_x, itf_y, itf_z, q0,
+                                                      halo0, coef, st);
+  return (int)err;
 }
 
 template <typename T>
@@ -1917,7 +2028,30 @@ cudaError_t dispatch_resources(int s, int kernel, int* info) {
   }
 }
 
+template <typename T>
+cudaError_t dispatch_terrain_resources(int s, int kernel, int* info) {
+  switch (s) {
+    case 2: return terrain_resources<T, 2>(kernel, info);
+    case 3: return terrain_resources<T, 3>(kernel, info);
+    case 4: return terrain_resources<T, 4>(kernel, info);
+    case 5: return terrain_resources<T, 5>(kernel, info);
+    case 6: return terrain_resources<T, 6>(kernel, info);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
+
+extern "C" const char* euler3d_operator_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// The library without terrain (built from this source as it is) and the
+// terrain library (built with -DE3_TERRAIN_LIBRARY, ops/euler3d_operator.py
+// loads it as "euler3d_terrain"): each compiles only the kernels its entries
+// launch, so the two build in parallel and neither unit holds the other's
+// kernels.
+#ifndef E3_TERRAIN_LIBRARY
 
 // Returns the cudaError_t of the launch (0 on success). tch == NULL: no time
 // Christoffels; x == NULL: no x term; bal == NULL: no offset; traces == NULL:
@@ -1932,17 +2066,19 @@ extern "C" int euler3d_operator_launch(int is_f64, int s, int nh, int nk, const 
                                        const void* halo0, const void* rhs0, const void* traces0, void* out,
                                        void* traces, double a, double b, double cdt, int stage, void* stream) {
   if (nh < 2 || nk < 1) return (int)cudaErrorInvalidValue;
-  return operator_launch(6, is_f64, s, nh, nk, q, halo, ops, fields, tch, itf_x, itf_y, itf_z, x, bal, q0, halo0,
-                         rhs0, traces0, out, traces, a, b, cdt, stage, stream);
+  return operator_launch<false>(6, is_f64, s, nh, nk, q, halo, ops, fields, tch, itf_x, itf_y, itf_z, x, bal, q0,
+                                halo0, rhs0, traces0, out, traces, a, b, cdt, stage, nullptr, stream);
 }
 
 // The same operator over ONE tile of nt x nt columns of nk elements (the port
 // of pallas_euler3d.py::km3_tile): the layouts above with one panel, so q, x,
 // out (5, nk*nt*nt, s^3), halo and traces (5, 4, 1, nk, nt, s^2) on all four
 // tile edges, fields (28, nk*nt*nt, s^3) the tile's slice of the one-panel
-// metric, tch (9, nk*nt*nt, s^3) the tile's slice of its own panel's time
-// Christoffels (or NULL), itf_x (4, nk, nt, nt+1, s^2), itf_y (4, nk, nt+1,
-// nt, s^2), itf_z (4, nk+1, nt, nt, s^2); the perturbation base likewise.
+// metric (with topography: of its own panel's, ops/euler3d_operator.py::
+// tile_constants), tch (9, nk*nt*nt, s^3) the tile's slice of its own
+// panel's time Christoffels (or NULL), itf_x (4, nk, nt, nt+1, s^2), itf_y
+// (4, nk, nt+1, nt, s^2), itf_z (4, nk+1, nt, nt, s^2); the perturbation
+// base likewise.
 extern "C" int euler3d_tile_launch(int is_f64, int s, int nt, int nk, const void* q, const void* halo,
                                    const void* ops, const void* fields, const void* tch, const void* itf_x,
                                    const void* itf_y, const void* itf_z, const void* x, const void* bal,
@@ -1950,12 +2086,8 @@ extern "C" int euler3d_tile_launch(int is_f64, int s, int nt, int nk, const void
                                    void* out, void* traces, double a, double b, double cdt, int stage,
                                    void* stream) {
   if (nt < 1 || nk < 1) return (int)cudaErrorInvalidValue;
-  return operator_launch(1, is_f64, s, nt, nk, q, halo, ops, fields, tch, itf_x, itf_y, itf_z, x, bal, q0, halo0,
-                         rhs0, traces0, out, traces, a, b, cdt, stage, stream);
-}
-
-extern "C" const char* euler3d_operator_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return operator_launch<false>(1, is_f64, s, nt, nk, q, halo, ops, fields, tch, itf_x, itf_y, itf_z, x, bal, q0,
+                                halo0, rhs0, traces0, out, traces, a, b, cdt, stage, nullptr, stream);
 }
 
 // The linearisation at q (tangent prep): the coefficient buffer ``coef``
@@ -1966,19 +2098,7 @@ extern "C" int euler3d_tangent_prep_launch(int is_f64, int s, int nh, int nk, co
                                            const void* ops, const void* fields, const void* itf_x,
                                            const void* itf_y, const void* itf_z, const void* q0, const void* halo0,
                                            void* coef, void* stream) {
-  if (nh < 2 || nk < 1) return (int)cudaErrorInvalidValue;
-  const bool pert = q0 != nullptr;
-  if (pert && halo0 == nullptr) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (is_f64)
-    err = pert ? dispatch_prep<double, true>(s, nh, nk, q, halo, ops, fields, itf_x, itf_y, itf_z, q0, halo0, coef, st)
-               : dispatch_prep<double, false>(s, nh, nk, q, halo, ops, fields, itf_x, itf_y, itf_z, q0, halo0, coef,
-                                              st);
-  else
-    err = pert ? dispatch_prep<float, true>(s, nh, nk, q, halo, ops, fields, itf_x, itf_y, itf_z, q0, halo0, coef, st)
-               : dispatch_prep<float, false>(s, nh, nk, q, halo, ops, fields, itf_x, itf_y, itf_z, q0, halo0, coef, st);
-  return (int)err;
+  return prep_launch<false>(is_f64, s, nh, nk, q, halo, ops, fields, itf_x, itf_y, itf_z, q0, halo0, coef, stream);
 }
 
 // What the runtime reports of the operator's kernels (kernel 0: the
@@ -2003,8 +2123,10 @@ extern "C" int euler3d_tangent_apply_launch(int is_f64, int s, int nh, int nk, c
   if (nh < 2 || nk < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_f64 ? dispatch_apply<double>(s, nh, nk, v, thalo, ops, fields, tch, itf_x, itf_y, itf_z, coef, out, st)
-             : dispatch_apply<float>(s, nh, nk, v, thalo, ops, fields, tch, itf_x, itf_y, itf_z, coef, out, st);
+      is_f64 ? dispatch_apply<double, false>(s, nh, nk, v, thalo, ops, fields, tch, itf_x, itf_y, itf_z, coef, out,
+                                             nullptr, st)
+             : dispatch_apply<float, false>(s, nh, nk, v, thalo, ops, fields, tch, itf_x, itf_y, itf_z, coef, out,
+                                            nullptr, st);
   return (int)err;
 }
 
@@ -2015,3 +2137,62 @@ extern "C" int euler3d_tangent_apply_launch(int is_f64, int s, int nh, int nk, c
 extern "C" int euler3d_tangent_resources(int is_f64, int s, int kernel, int* info) {
   return (int)(is_f64 ? dispatch_resources<double>(s, kernel, info) : dispatch_resources<float>(s, kernel, info));
 }
+
+#else  // E3_TERRAIN_LIBRARY
+
+// The operator (euler3d_operator_launch's arguments and layouts) on a
+// geometry with topography (DCMIP 20, 21, 22): fields (28,
+// 6*nk*nh*nh, s^3) and itf_x (4, 6, nk, nh, nh+1, s^2), itf_y (4, 6, nk,
+// nh+1, nh, s^2), itf_z (4, 6, nk+1, nh, nh, s^2) every panel's metric;
+// sponge (4, 6*nk*nh*nh, s^3): the Rayleigh sponge's mask and mask * u_ref
+// of u1, u2, u3 (NULL: none; the perturbation mode takes none).
+extern "C" int euler3d_operator_terrain_launch(int is_f64, int s, int nh, int nk, const void* q, const void* halo,
+                                               const void* ops, const void* fields, const void* tch,
+                                               const void* itf_x, const void* itf_y, const void* itf_z,
+                                               const void* x, const void* bal, const void* q0, const void* halo0,
+                                               const void* rhs0, const void* traces0, void* out, void* traces,
+                                               double a, double b, double cdt, int stage, const void* sponge,
+                                               void* stream) {
+  if (nh < 2 || nk < 1) return (int)cudaErrorInvalidValue;
+  return operator_launch<true>(6, is_f64, s, nh, nk, q, halo, ops, fields, tch, itf_x, itf_y, itf_z, x, bal, q0,
+                               halo0, rhs0, traces0, out, traces, a, b, cdt, stage, sponge, stream);
+}
+
+// The same on every panel's metric (a geometry with topography; the
+// layouts of euler3d_operator_terrain_launch).
+extern "C" int euler3d_tangent_prep_terrain_launch(int is_f64, int s, int nh, int nk, const void* q,
+                                                   const void* halo, const void* ops, const void* fields,
+                                                   const void* itf_x, const void* itf_y, const void* itf_z,
+                                                   const void* q0, const void* halo0, void* coef, void* stream) {
+  return prep_launch<true>(is_f64, s, nh, nk, q, halo, ops, fields, itf_x, itf_y, itf_z, q0, halo0, coef, stream);
+}
+
+// The same on every panel's metric (a geometry with topography), with the
+// Rayleigh sponge's tangent (sponge as in euler3d_operator_terrain_launch;
+// NULL: none).
+extern "C" int euler3d_tangent_apply_terrain_launch(int is_f64, int s, int nh, int nk, const void* v,
+                                                    const void* thalo, const void* ops, const void* fields,
+                                                    const void* tch, const void* itf_x, const void* itf_y,
+                                                    const void* itf_z, const void* coef, void* out,
+                                                    const void* sponge, void* stream) {
+  if (nh < 2 || nk < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      is_f64 ? dispatch_apply<double, true>(s, nh, nk, v, thalo, ops, fields, tch, itf_x, itf_y, itf_z, coef, out,
+                                            sponge, st)
+             : dispatch_apply<float, true>(s, nh, nk, v, thalo, ops, fields, tch, itf_x, itf_y, itf_z, coef, out,
+                                           sponge, st);
+  return (int)err;
+}
+
+// What the runtime reports of a terrain kernel (kernel 0: the interface
+// pass, 1: the volume pass, 2 and 3: theirs in perturbation mode, 4: the
+// prep, 5: the perturbation prep, 6: the apply): info = [registers, local
+// (spill) bytes a thread, dynamic shared memory bytes a block, resident
+// blocks an SM, threads a block].
+extern "C" int euler3d_terrain_resources(int is_f64, int s, int kernel, int* info) {
+  return (int)(is_f64 ? dispatch_terrain_resources<double>(s, kernel, info)
+                      : dispatch_terrain_resources<float>(s, kernel, info));
+}
+
+#endif  // E3_TERRAIN_LIBRARY

@@ -18,7 +18,7 @@ package's ``plan``/``tile_plan`` chose.
 import numpy as np
 import torch
 
-from .models.euler_cubesphere import Euler3DRHS
+from .models.euler_cubesphere import Euler3DRHS, RayleighDamping
 from .models.shallow_water import ShallowWaterRHS, Topography
 from .ops import euler3d_operator
 from .ops.sw_operator import SWConstants, SWPertBase, SWTopography, build_constants, build_topography
@@ -61,20 +61,37 @@ def shallow_water_rhs(geom, ops, metric, device="cpu", dtype=torch.float64,
                            topo=None if topo is None else sw_topography_fields(topo))
 
 
-def euler3d_constants(ops, metric, nel_h: int, nel_v: int, device="cpu",
-                      dtype=torch.float64) -> euler3d_operator.E3Constants:
-    """The 3D Euler operator's constants from 3D DFR operators and a 3D metric."""
-    return euler3d_operator.build_constants(ops, metric, nel_h, nel_v, dtype=dtype, device=device)
+def rayleigh_damping(extra_forcing) -> RayleighDamping:
+    """The port's ``RayleighDamping`` of the JAX package's DCMIP 21/22
+    damping, a closure ``extra_forcing(rho, u1, u2, w)`` over its planes
+    (``wxfactory_tpu/testcases/dcmip.py::make_schar_damping``: ``mask_j``,
+    ``u1ref_j``, ``u2ref_j``, ``u3ref_j``), read from the closure's cells."""
+    cells = dict(zip(extra_forcing.__code__.co_freevars, (c.cell_contents for c in extra_forcing.__closure__)))
+    plane = lambda name: np.asarray(cells[name], np.float64)
+    return RayleighDamping(mask=plane("mask_j"), u1ref=plane("u1ref_j"), u2ref=plane("u2ref_j"),
+                           u3ref=plane("u3ref_j"))
+
+
+def euler3d_constants(ops, metric, nel_h: int, nel_v: int, device="cpu", dtype=torch.float64,
+                      geom=None, damping=None) -> euler3d_operator.E3Constants:
+    """The 3D Euler operator's constants from 3D DFR operators and a 3D
+    metric; with ``geom`` (a geometry with topography) every panel's metric,
+    with ``damping`` (a ``RayleighDamping``) the Rayleigh sponge."""
+    panel_metric = geom is not None and euler3d_operator.has_topography(geom)
+    return euler3d_operator.build_constants(ops, metric, nel_h, nel_v, dtype=dtype, device=device,
+                                            panel_metric=panel_metric, damping=damping)
 
 
 def euler3d_rhs(geom, ops, metric, device="cpu", dtype=torch.float64, base_state=None,
-                perturbation_base=None) -> Euler3DRHS:
+                perturbation_base=None, damping=None) -> Euler3DRHS:
     """The port's 3D Euler RHS on a geometry, operators and metric built by
-    either package (``base_state``: the well-balanced offset's state;
-    ``perturbation_base``: the base state q0 of the perturbation form, a
-    numpy array as the JAX factory takes it)."""
+    either package, terrain included (``base_state``: the well-balanced
+    offset's state; ``perturbation_base``: the base state q0 of the
+    perturbation form, a numpy array as the JAX factory takes it;
+    ``damping``: the Rayleigh sponge of DCMIP 21/22, a ``RayleighDamping``;
+    ``rayleigh_damping`` reads the JAX package's)."""
     return Euler3DRHS(geom, ops, metric, dtype=dtype, device=device, base_state=base_state,
-                      perturbation_base=perturbation_base)
+                      perturbation_base=perturbation_base, damping=damping)
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 for Hopper (``sm_90a``) into ``build/kernels/lib<name>-<hash>.so`` at the
-root of the checkout (git-ignored); the hash of the source and of the
-headers in ``csrc/`` names the library, so an edited source rebuilds. A missing ``nvcc`` or a failed build
+root of the checkout (git-ignored); the hash of the source, of the headers
+in ``csrc/`` and of the flags names the library, so an edited source
+rebuilds. A library of ``LIBRARY_SOURCES`` is another library's source built
+with flags of its own (the 3D terrain kernels: ``euler3d_terrain``). A missing ``nvcc`` or a failed build
 raises: no caller falls back to plain code.
 """
 
@@ -106,7 +108,25 @@ SIGNATURES = {
         "euler3d_tangent_resources": (_I, [_I, _I, _I, _P]),
         "euler3d_operator_error_string": (ctypes.c_char_p, [_I]),
     },
+    # The 3D kernels on a per-panel metric (terrain): euler3d_operator.cu
+    # built with -DE3_TERRAIN_LIBRARY (LIBRARY_SOURCES).
+    "euler3d_terrain": {
+        # euler3d_operator_launch's arguments, then the sponge (or NULL), then the stream
+        "euler3d_operator_terrain_launch": (_I, [_I, _I, _I, _I] + [_P] * 16 + [_D, _D, _D, _I] + [_P, _P]),
+        # euler3d_tangent_prep_launch's arguments
+        "euler3d_tangent_prep_terrain_launch": (_I, [_I, _I, _I, _I] + [_P] * 10 + [_P]),
+        # euler3d_tangent_apply_launch's arguments, then the sponge (or NULL), then the stream
+        "euler3d_tangent_apply_terrain_launch": (_I, [_I, _I, _I, _I] + [_P] * 11 + [_P]),
+        # is_f64, s, kernel (0 interface, 1 volume, 2 and 3 theirs in perturbation mode, 4 prep,
+        # 5 perturbation prep, 6 apply), int[5] out
+        "euler3d_terrain_resources": (_I, [_I, _I, _I, _P]),
+        "euler3d_operator_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
+
+# A library built from another library's source with extra nvcc flags: name
+# -> (source name in csrc/, flags).
+LIBRARY_SOURCES = {"euler3d_terrain": ("euler3d_operator", ["-DE3_TERRAIN_LIBRARY"])}
 
 _loaded = {}
 # name -> {"seconds": build time, "log": nvcc output} of builds made by this process
@@ -124,10 +144,17 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): cannot build the CUDA kernels")
 
 
+def _source(name: str):
+    """(source file, extra nvcc flags) of library ``name``."""
+    base, flags = LIBRARY_SOURCES.get(name, (name, []))
+    return CSRC / f"{base}.cu", flags
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+    src, flags = _source(name)
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode()).hexdigest()[:12]
+    options = " ".join(ARCH_FLAGS + NVCC_FLAGS + flags).encode()
+    digest = hashlib.sha256(src.read_bytes() + headers + options).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -142,7 +169,8 @@ def build_all(names) -> dict:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc_path(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        src, flags = _source(name)
+        cmd = [nvcc_path(), *ARCH_FLAGS, *NVCC_FLAGS, *flags, "-o", tmp, str(src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running[name] = (proc, tmp, time.perf_counter())
     failures = []

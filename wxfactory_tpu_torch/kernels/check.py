@@ -268,25 +268,60 @@ def euler3d_work(con, stage: bool = False, use_x: bool = False, use_bal: bool = 
     n_elem, item = con.npanel * nk * nh * nh, torch.finfo(con.dtype).bits // 8
     state = 5 * n_elem * s3
     words = state * (2 + (1 if use_x else 0) + (1 if use_bal else 0))  # q, out, x, bal
-    words += con.fields.numel() + (con.tch.numel() if con.tch is not None else 0)
-    words += con.itf_x.numel() + con.itf_y.numel() + con.itf_z.numel()
+    words += _metric_words(con)
     words += 5 * 4 * con.npanel * nk * nh * s2 * (2 if traces else 1)  # halo, traces
     per_elem = s3 * (263 + 38 * s) + 6 * s2 * (10 * s + 2) + 3 * s2 * 90
     ops = n_elem * per_elem + state * ((2 if stage else 0) + (2 if use_x else 0) + (1 if use_bal else 0))
+    ops += _sponge_ops(con)
     return words * item, ops
 
 
+def _metric_words(con) -> int:
+    """Words of the metric a call of the operator reads: the interior fields
+    (one panel's, or all six on a per-panel metric), the time Christoffels,
+    the interface metric and the Rayleigh sponge's planes."""
+    words = con.fields.numel() + (con.tch.numel() if con.tch is not None else 0)
+    words += con.itf_x.numel() + con.itf_y.numel() + con.itf_z.numel()
+    return words + (con.sponge.numel() if con.sponge is not None else 0)
+
+
+def _sponge_ops(con) -> int:
+    """Operations of the Rayleigh sponge (3 rows of mask q - q0 (mask u_ref)
+    added: 4 a node and row)."""
+    return 0 if con.sponge is None else 12 * (con.sponge.numel() // 4)
+
+
+# The model top of each DCMIP case (m): DCMIP 20 and 21/22's specifications;
+# 10 km for the others.
+DCMIP_ZTOP = {20: 12000.0, 21: 30000.0, 22: 30000.0}
+
+
 @functools.lru_cache(maxsize=None)
-def euler3d_setup(nel_h: int, nel_v: int, s: int, case: int = 31):
-    """(geom, ops, metric, topology, q0) of a DCMIP case at one shape (host
-    float64; cached, the metric at large shapes takes tens of seconds)."""
+def euler3d_case(nel_h: int, nel_v: int, s: int, case: int = 31):
+    """(geom, ops, metric, topology, q0, damping) of a DCMIP case at one
+    shape (host float64; the terrain cases on their geometry with
+    topography, 21/22 with their Rayleigh damping; cached, the metric at
+    large shapes takes tens of seconds)."""
     scale, rotating = dcmip_planet_params(case)
-    geom = make_cubed_sphere_3d(nel_h, nel_v, s, 10000.0, planet_scaling_factor=scale,
+    geom = make_cubed_sphere_3d(nel_h, nel_v, s, DCMIP_ZTOP.get(case, 10000.0), planet_scaling_factor=scale,
                                 planet_is_rotating=rotating)
     ops = make_dfr_operators(s, three_d=True)
     topology = CubedSphereTopology(geom)
-    metric = make_metric_3d(geom, ops, topology)
-    return geom, ops, metric, topology, initial_state_3d(geom, case)
+    q0, geom, metric, damping = initial_state_3d(geom, case, lambda g: make_metric_3d(g, ops, topology))
+    return geom, ops, metric, topology, q0, damping
+
+
+def euler3d_setup(nel_h: int, nel_v: int, s: int, case: int = 31):
+    """(geom, ops, metric, topology, q0) of ``euler3d_case``."""
+    return euler3d_case(nel_h, nel_v, s, case)[:5]
+
+
+def euler3d_constants(nel_h: int, nel_v: int, s: int, case: int, dtype, device):
+    """The operator's constants of a DCMIP case: every panel's metric on a
+    geometry with topography, and the Rayleigh sponge of 21/22."""
+    geom, ops, metric, _, _, damping = euler3d_case(nel_h, nel_v, s, case)
+    return e3op.build_constants(ops, metric, nel_h, nel_v, dtype=dtype, device=device,
+                                panel_metric=e3op.has_topography(geom), damping=damping)
 
 
 def euler3d_tangent_inputs(nel_h: int, nel_v: int, s: int, dtype, device, case: int = 31, seed: int = 7):
@@ -297,7 +332,7 @@ def euler3d_tangent_inputs(nel_h: int, nel_v: int, s: int, dtype, device, case: 
     rng = np.random.default_rng(seed)
     dq = 1e-4 * q0 * rng.standard_normal(q0.shape)
     v = rng.standard_normal(q0.shape) * np.abs(q0).reshape(5, -1).max(axis=1).reshape(5, 1, 1, 1, 1, 1) * 1e-3
-    con = e3op.build_constants(ops, metric, nel_h, nel_v, dtype=dtype, device=device)
+    con = euler3d_constants(nel_h, nel_v, s, case, dtype, device)
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
     return con, topology, t(q0 + dq), t(v)
 
@@ -321,7 +356,7 @@ def euler3d_inputs(nel_h: int, nel_v: int, s: int, dtype, device, case: int = 31
         return out
 
     x, y = noisy(), noisy()
-    con = e3op.build_constants(ops, metric, nel_h, nel_v, dtype=dtype, device=device)
+    con = euler3d_constants(nel_h, nel_v, s, case, dtype, device)
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
     return con, topology, t(x), t(y)
 
@@ -405,7 +440,7 @@ def compare_euler3d_operator(nel_h: int, nel_v: int, s: int, dtype, device="cuda
     base = {}
     if dtype == torch.float32:
         geom, ops, metric, _, q0 = euler3d_setup(nel_h, nel_v, s, case)
-        con64 = e3op.build_constants(ops, metric, nel_h, nel_v, dtype=torch.float64, device=device)
+        con64 = euler3d_constants(nel_h, nel_v, s, case, torch.float64, device)
         q064 = torch.as_tensor(q0, dtype=torch.float64, device=device)
         truth = e3op.euler3d_operator_plain(q064, e3op.halo_from_traces(e3op.edge_traces(q064, con64), topology),
                                             con64)
@@ -433,7 +468,7 @@ def compare_euler3d_operator(nel_h: int, nel_v: int, s: int, dtype, device="cuda
         if kw.get("emit_traces"):
             (got, got_tr), (want, want_tr) = got, want
         row = {"nel_h": nel_h, "nel_v": nel_v, "s": s, "case": case, "dtype": str(dtype).replace("torch.", ""),
-               "mode": mode, "max_abs_err": float((got - want).abs().max())}
+               "mode": mode, "max_abs_err": float((got - want).abs().max()), "output_max": float(want.abs().max())}
         row["err_of_output_max"] = _scaled(got - want, per_variable_max(want))
         if term is None:
             row["scale"], row["err"] = "output_max", row["err_of_output_max"]
@@ -442,7 +477,15 @@ def compare_euler3d_operator(nel_h: int, nel_v: int, s: int, dtype, device="cuda
             row["scale"] = "max(output_max, cdt*term)" if "cdt" in kw else "max(output_max, term)"
             row["err"] = _scaled(got - want, torch.maximum(per_variable_max(want), cdt * term))
         if got_tr is not None:
-            row["traces_err"] = _scaled(got_tr - want_tr, per_variable_max(want_tr))
+            tr_scale = per_variable_max(want_tr)
+            if term is not None and con.panel_metric:
+                # The traces of the output on its own scale: DCMIP 20's
+                # winds are 0, so its momentum traces are cdt times RHS
+                # contributions, whose float32 round-off the term scale
+                # sets (as it does the output's).
+                tr_scale = torch.maximum(tr_scale, abs(kw.get("cdt", 1.0)) * term)
+                row["traces_scale"] = "max(traces_max, cdt*term)"
+            row["traces_err"] = _scaled(got_tr - want_tr, tr_scale)
         row["tol"] = tol
         row["mass_err"], row["mass_tol"] = mass_err(got, want, wsg, dtype, kw.get("x"), y, kw.get("a", 0.0),
                                                     kw.get("b", 1.0), "cdt" in kw)
@@ -506,12 +549,17 @@ def compare_tangent_kernels(q, v, halo_q, halo_v, con, pert=None, ref64=None) ->
     (_, gf), (_, wf) = e3op._tangent_parts(coef.values, con), e3op._tangent_parts(want.values, con)
     flips = sum(int((g[weight] != w[weight]).sum()) for g, w in zip(gf, wf))
     row_err = lambda g, w: float((g.double() - w).abs().max() / w.abs().max().clamp_min(1e-300))
+    diffs = {k: float((got_rows[k] - want_rows[k]).abs().max()) for k in got_rows}
+    worst = max(diffs, key=diffs.get)
     out = {
         "prep_err": max(row_err(got_rows[k], want_rows[k].double()) for k in got_rows),
-        "prep_max_abs_err": max(float((got_rows[k] - want_rows[k]).abs().max()) for k in got_rows),
+        "prep_max_abs_err": diffs[worst],
+        "prep_max_abs_row": worst,  # the row of prep_max_abs_err, and its max |value|
+        "prep_max_abs_row_max": float(want_rows[worst].abs().max()),
         "prep_weight_flips": flips / sum(g[weight].numel() for g in gf),
         "apply_err": _scaled(got_jv - want_jv, per_variable_max(want_jv)),
         "apply_max_abs_err": float((got_jv - want_jv).abs().max()),
+        "apply_output_max": float(want_jv.abs().max()),
     }
     if ref64 is not None:
         ref_rows = _prep_rows(ref64, con)
@@ -541,6 +589,38 @@ def _tangent_kernels_ok(row, dtype) -> bool:
     return prep_ok and row["apply_err"] <= E3_TANGENT_TOLERANCE[dtype]
 
 
+def _same_side(ref64, coef, con) -> e3op.TangentCoefficients:
+    """The float64 prep's buffer ``ref64`` with the selector weights of the
+    buffer ``coef``. Where the Rusanov speeds aL = |vL| + cL and aR = |vR| +
+    cR lie within rounding of each other (at rest, the two sides' sound
+    speeds), float32 may order them either way, and d max(aL, aR) takes the
+    larger side's derivative: the float64 apply on this buffer takes the
+    side ``coef`` took (either one-sided derivative is the function's), so
+    a float32 J.v is held to it at every element."""
+    values = ref64.values.clone()
+    weight = e3op.TANGENT_FACE_ROWS.index("weight_L")
+    for f64, f32 in zip(e3op._tangent_parts(values, con)[1], e3op._tangent_parts(coef.values, con)[1]):
+        f64[weight] = f32[weight].to(f64.dtype)
+    return e3op.TangentCoefficients(values, ref64.pert)
+
+
+def _side_truths(row, q, halo_q, con, pert, ref64, v64, halo_v64, con64):
+    """The truths of the float32 J.v rows on terrain (``panel_metric``):
+    the float64 apply on ``ref64`` (the float64 plain prep) with the
+    selector weights of the kernel's prep and of the plain float32 prep at
+    ``q`` (``_same_side``), [kernel's, plain's]. ``side_flips`` [kernel,
+    plain]: the interface points where that prep took another side than
+    float64's, of ``interface_points``."""
+    preps = (e3op.euler3d_tangent_prep(q, halo_q, con, pert), e3op.euler3d_tangent_prep_plain(q, halo_q, con, pert))
+    weight = e3op.TANGENT_FACE_ROWS.index("weight_L")
+    ref_faces = e3op._tangent_parts(ref64.values, con64)[1]
+    flips = lambda c: sum(int((f[weight].double() != r[weight]).sum())
+                          for f, r in zip(e3op._tangent_parts(c.values, con64)[1], ref_faces))
+    row["side_flips"] = [flips(c) for c in preps]
+    row["interface_points"] = sum(r[weight].numel() for r in ref_faces)
+    return [e3op.euler3d_tangent_apply_plain(v64, halo_v64, _same_side(ref64, c, con64), con64) for c in preps]
+
+
 def compare_euler3d_tangent(nel_h: int, nel_v: int, s: int, dtype, device="cuda", case: int = 31, seed: int = 7):
     """The tangent kernels (prep, then apply) against the plain tangent
     (``torch.func.jvp`` of the plain operator) on the same inputs, and the
@@ -568,8 +648,12 @@ def compare_euler3d_tangent(nel_h: int, nel_v: int, s: int, dtype, device="cuda"
         truth = f64_tangent(q64, v64)
         sc = per_variable_max(truth)
         row["scale"] = "f64_plain_output_max"
-        row["err"] = _scaled(got.double() - truth, sc)
-        row["plain_err"] = _scaled(want.double() - truth, sc)
+        truth_got = truth_want = truth
+        if con.panel_metric:
+            truth_got, truth_want = _side_truths(row, q, halo_q, con, None, ref64, v64,
+                                                 tangent_halos(q64, v64, con64, topology)[1], con64)
+        row["err"] = _scaled(got.double() - truth_got, sc)
+        row["plain_err"] = _scaled(want.double() - truth_want, sc)
         row["kernel_vs_plain_err"] = _scaled(got.double() - want.double(), sc)
         # The float64 operator at the float32-rounded inputs: what rounding
         # the inputs alone moves J.v (large where a normal speed sits at
@@ -596,19 +680,17 @@ def euler3d_tangent_work(con):
     s2, s3 = s * s, s**3
     n_elem, item = 6 * nk * nh * nh, torch.finfo(con.dtype).bits // 8
     words = 3 * 5 * n_elem * s3  # q, v, out
-    words += con.fields.numel() + (con.tch.numel() if con.tch is not None else 0)
-    words += con.itf_x.numel() + con.itf_y.numel() + con.itf_z.numel()
+    words += _metric_words(con)
     words += 2 * 5 * 4 * 6 * nk * nh * s2  # halo_q, halo_v
     per_elem = s3 * (370 + 44 * s) + 6 * s2 * (20 * s + 4) + 3 * s2 * 170
-    return words * item, n_elem * per_elem
+    return words * item, n_elem * per_elem + _sponge_ops(con)
 
 
 def _tangent_read_words(con) -> int:
     """Words of the metric the apply reads: every interior field but the
     interior w-pressure term (folded into the coefficients), the time
-    Christoffels and the interface metric."""
-    words = con.fields[:-1].numel() + (con.tch.numel() if con.tch is not None else 0)
-    return words + con.itf_x.numel() + con.itf_y.numel() + con.itf_z.numel()
+    Christoffels, the interface metric and the Rayleigh sponge's planes."""
+    return _metric_words(con) - con.fields[-1].numel()
 
 
 def euler3d_tangent_apply_work(con):
@@ -627,7 +709,7 @@ def euler3d_tangent_apply_work(con):
     words = 2 * 5 * n_elem * s3 + e3op.tangent_layout(con)["size"] + _tangent_read_words(con)
     words += 5 * 4 * 6 * nk * nh * s2  # halo_v
     per_elem = s3 * (270 + 38 * s) + 6 * s2 * (22 * s + 114)
-    return words * item, n_elem * per_elem
+    return words * item, n_elem * per_elem + _sponge_ops(con)
 
 
 def euler3d_tangent_prep_work(con, pert: bool = False):
@@ -642,9 +724,9 @@ def euler3d_tangent_prep_work(con, pert: bool = False):
     nh, nk, s = con.nel_h, con.nel_v, con.s
     s2, s3 = s * s, s**3
     n_elem, item = 6 * nk * nh * nh, torch.finfo(con.dtype).bits // 8
-    one_panel = nk * nh * nh * s3
+    metric_panels = 6 if con.panel_metric else 1
     words = (2 if pert else 1) * (5 * n_elem * s3 + 5 * 4 * 6 * nk * nh * s2) + e3op.tangent_layout(con)["size"]
-    words += 5 * one_panel + con.itf_x.numel() + con.itf_y.numel() + con.itf_z.numel()
+    words += 5 * metric_panels * nk * nh * nh * s3 + con.itf_x.numel() + con.itf_y.numel() + con.itf_z.numel()
     if pert:
         per_elem = s3 * (70 + 12 * s) + 6 * s2 * (48 * s + 110)
     else:
@@ -695,6 +777,96 @@ def operator_kernel_resources(dtype, s: int) -> dict:
     return out
 
 
+def terrain_kernel_resources(dtype, s: int) -> dict:
+    """{"interface", "volume", "pert_interface", "pert_volume", "prep",
+    "pert_prep", "apply": {registers, local_bytes, smem_bytes,
+    blocks_per_sm, threads}}: what the runtime reports of the terrain
+    instantiations (per-panel metric; the volume pass and apply with the
+    sponge's parameter) at one dtype and s (on the card; builds the
+    library)."""
+    import ctypes
+
+    from .build import load_library
+
+    lib = load_library("euler3d_terrain")
+    keys = ("registers", "local_bytes", "smem_bytes", "blocks_per_sm", "threads")
+    out = {}
+    names = ("interface", "volume", "pert_interface", "pert_volume", "prep", "pert_prep", "apply")
+    for kernel, name in enumerate(names):
+        info = (ctypes.c_int * 5)()
+        rc = lib.euler3d_terrain_resources(1 if dtype == torch.float64 else 0, s, kernel,
+                                           ctypes.cast(info, ctypes.c_void_p))
+        if rc != 0:
+            raise RuntimeError(f"terrain kernel resources ({name}) failed: CUDA error {rc}")
+        out[name] = dict(zip(keys, info))
+    return out
+
+
+def compare_terrain_flat(nel_h: int, nel_v: int, s: int, dtype, device="cuda", seed: int = 0):
+    """The terrain instantiations on flat constants: DCMIP 31's one-panel
+    constants copied to every panel (``e3op.expand_panels``) through the
+    terrain kernels against the same constants through the kernels without
+    terrain, asked bit for bit (``torch.equal``) in every mode: the RHS,
+    stage + x + traces, the perturbation RHS and stage + traces, the prep
+    (absolute and perturbation) and the apply. Returns one row."""
+    con, topology, x, y = euler3d_inputs(nel_h, nel_v, s, dtype, device, 31, seed)
+    cx = e3op.expand_panels(con)
+    halo = e3op.halo_from_traces(e3op.edge_traces(y, con), topology)
+    _, _, pert, dq, v = euler3d_pert_inputs(nel_h, nel_v, s, dtype, device, 31, seed)
+    halo_dq, halo_v = pert_halos(dq, v, pert, con, topology)
+    calls = {
+        "rhs": lambda c: (e3op.euler3d_operator(y, halo, c),),
+        "stage_x_traces": lambda c: e3op.euler3d_operator(y, halo, c, x=x, a=0.75, b=0.25, cdt=0.25 * E3_DT,
+                                                          emit_traces=True),
+        "pert_rhs": lambda c: (e3op.euler3d_operator(dq, halo_dq, c, pert=pert),),
+        "pert_stage_traces": lambda c: e3op.euler3d_operator(dq, halo_dq, c, b=1.0, cdt=E3_DT, emit_traces=True,
+                                                             pert=pert),
+        "prep": lambda c: (e3op.euler3d_tangent_prep(y, halo, c).values,),
+        "pert_prep": lambda c: (e3op.euler3d_tangent_prep(dq, halo_dq, c, pert).values,),
+        "apply": lambda c: (e3op.euler3d_tangent_apply(v, halo_v, e3op.euler3d_tangent_prep(dq, halo_dq, con, pert),
+                                                       c),),
+    }
+    identical = {mode: all(torch.equal(a, b) for a, b in zip(call(con), call(cx))) for mode, call in calls.items()}
+    return {"nel_h": nel_h, "nel_v": nel_v, "s": s, "case": 31, "dtype": str(dtype).replace("torch.", ""),
+            "mode": "terrain_on_flat_constants", "identical": identical, "err": 0.0 if all(identical.values()) else
+            float("inf"), "tol": 0.0, "max_abs_err": 0.0, "ok": all(identical.values())}
+
+
+def compare_sponge_rows(nel_h: int, nel_v: int, s: int, dtype, device="cuda", seed: int = 0):
+    """The Rayleigh sponge acts on the momenta only: on DCMIP 21's noisy
+    state, the terrain kernels' RHS and J.v with the sponge against the same
+    calls without it (``sponge=None``): rho and rho*theta bit for bit, and
+    the difference of the momentum rows against the plain sponge term ``mask
+    q[1+i] - q[0] (mask u_ref_i)`` (of v for J.v) within the dtype's
+    operator tolerance of the larger of that term's and the rows' max (the
+    difference of two outputs carries their rounding). Returns one row."""
+    import dataclasses
+
+    con, topology, x, y = euler3d_inputs(nel_h, nel_v, s, dtype, device, 21, seed)
+    bare = dataclasses.replace(con, sponge=None)
+    halo = e3op.halo_from_traces(e3op.edge_traces(y, con), topology)
+    coef = e3op.euler3d_tangent_prep(y, halo, con)
+    v = (x - y).contiguous()
+    calls = {"rhs": (lambda c: e3op.euler3d_operator(y, halo, c), y),
+             "apply": (lambda c: e3op.euler3d_tangent_apply(v, halo, coef, c), v)}
+    row = {"nel_h": nel_h, "nel_v": nel_v, "s": s, "case": 21, "dtype": str(dtype).replace("torch.", ""),
+           "mode": "sponge_rows", "tol": E3_TOLERANCE[dtype], "max_abs_err": 0.0}
+    ok = True
+    for mode, (call, q) in calls.items():
+        with_sponge, without = call(con), call(bare)
+        sp = con.sponge.double()
+        term = sp[0] * q[1:4].double() - q[0].double() * sp[1:4]
+        diff = without[1:4].double() - with_sponge[1:4].double()  # the RHS subtracts the sponge's forcing
+        row[f"{mode}_other_rows_identical"] = bool(torch.equal(with_sponge[0], without[0])
+                                                   and torch.equal(with_sponge[4], without[4]))
+        scale = torch.maximum(term.abs().max(), with_sponge[1:4].double().abs().max())
+        row[f"{mode}_err"] = float((diff - term).abs().max() / scale)
+        ok = ok and row[f"{mode}_other_rows_identical"] and row[f"{mode}_err"] <= row["tol"]
+    row["err"] = max(row["rhs_err"], row["apply_err"])
+    row["ok"] = bool(ok)
+    return row
+
+
 def sw_kernel_resources(dtype, s: int) -> dict:
     """{"absolute", "perturbation", "state_absolute", "state_perturbation",
     "state_topo": {registers, local_bytes, smem_bytes, blocks_per_sm,
@@ -739,7 +911,7 @@ def euler3d_pert_inputs(nel_h: int, nel_v: int, s: int, dtype, device, case: int
     q - q0 in ``dtype`` and the direction v."""
     geom, ops, metric, topology, q0 = euler3d_setup(nel_h, nel_v, s, case)
     con, _, q, v = euler3d_tangent_inputs(nel_h, nel_v, s, dtype, device, case, seed)
-    con64 = e3op.build_constants(ops, metric, nel_h, nel_v, dtype=torch.float64, device=device)
+    con64 = euler3d_constants(nel_h, nel_v, s, case, torch.float64, device)
     pert = e3op.build_pert_base(torch.as_tensor(q0), con64, topology, dtype)
     return con, topology, pert, (q - pert.q0).contiguous(), v
 
@@ -791,14 +963,18 @@ def compare_euler3d_pert(nel_h: int, nel_v: int, s: int, dtype, device="cuda", c
             scale = torch.maximum(scale, euler3d_term_scale(pert.q0 + dq, con).to(ref.dtype))
         row = {"nel_h": nel_h, "nel_v": nel_v, "s": s, "case": case, "dtype": str(dtype).replace("torch.", ""),
                "mode": f"pert_{mode}", "max_abs_err": float((got - want).abs().max()),
+               "output_max": float(want.abs().max()),
                "scale": "max(output_max, term)" if mode == "rhs" else "output_max"}
-        row["err"] = _scaled(got.to(ref.dtype) - ref, scale)
+        ref_got = ref_want = ref
+        if truth is not None and mode == "tangent" and con.panel_metric:
+            ref_got, ref_want = _side_truths(row, dq, halo_dq, con, pert, ref64, v64, h64[1], con64)
+        row["err"] = _scaled(got.to(ref.dtype) - ref_got, scale)
         if truth is None:
             row["tol"] = E3_TOLERANCE[dtype]
             limit = row["tol"]
         else:
             row["scale"] = "f64_plain_" + row["scale"]
-            row["plain_err"] = _scaled(want.double() - ref, scale)
+            row["plain_err"] = _scaled(want.double() - ref_want, scale)
             row["kernel_vs_plain_err"] = _scaled(got.double() - want.double(), scale)
             row["tol"] = E3_TANGENT_TOLERANCE[dtype]
             limit = max(row["tol"], 2.0 * row["plain_err"])
@@ -859,7 +1035,7 @@ def compare_euler3d_pert_stage(nel_h: int, nel_v: int, s: int, dtype, device="cu
         scale = torch.maximum(per_variable_max(ref), kw["cdt"] * term.to(ref.dtype))
         tr_scale = per_variable_max(ref_tr)
         row = {"nel_h": nel_h, "nel_v": nel_v, "s": s, "case": case, "dtype": str(dtype).replace("torch.", ""),
-               "mode": mode, "max_abs_err": float((got - want).abs().max()),
+               "mode": mode, "max_abs_err": float((got - want).abs().max()), "output_max": float(want.abs().max()),
                "scale": "max(output_max, cdt*term)", "err": _scaled(got.to(ref.dtype) - ref, scale),
                "traces_err": _scaled(got_tr.to(ref.dtype) - ref_tr, tr_scale),
                "traces_self_err": _scaled(got_tr - self_tr, per_variable_max(self_tr))}
@@ -902,8 +1078,7 @@ def euler3d_pert_work(con, tangent: bool = False, stage: bool = False, use_x: bo
     n_elem, item = con.npanel * nk * nh * nh, torch.finfo(con.dtype).bits // 8
     state, edge = 5 * n_elem * s3, 5 * 4 * con.npanel * nk * nh * s2
     words = 4 * state  # dq, q0, rhs0 or v, out
-    words += con.fields.numel() + (con.tch.numel() if con.tch is not None else 0)
-    words += con.itf_x.numel() + con.itf_y.numel() + con.itf_z.numel()
+    words += _metric_words(con)
     words += (3 if tangent else 2) * edge  # halos
     words += (state if use_x else 0) + (2 * edge if traces else 0)  # x; traces0 and the traces
     if tangent:

@@ -33,11 +33,18 @@ there): one launch of the kernel's perturbation stage mode a stage, which
 emits the output's delta traces — the JAX package's production float32
 explicit point (bench.py:623-685). The integrators step the absolute
 trajectory exactly, since every TVD-RK3 and Euler stage has a + b = 1.
-The JAX factory's ``advection_only`` (DCMIP 11/12) and ``extra_forcing``
-(DCMIP 21/22) run through XLA there, not through its kernel; the port's
-``initial_state_3d`` refuses those cases (ROADMAP queue 1, item 9).
+On a geometry with bottom topography (DCMIP 20, 21, 22) the constants keep
+every panel's metric and the operator, prep and apply launch their terrain
+instantiations; ``damping`` (DCMIP 21/22, ``RayleighDamping``) adds the
+Rayleigh sponge the JAX factory takes as ``extra_forcing`` (there through
+XLA only, not through its kernel) to the momentum forcing, in the RHS and
+in the Jacobian action; the perturbation form refuses it, as the JAX one
+does. The JAX factory's ``advection_only`` (DCMIP 11/12) runs through XLA
+there; the port's ``initial_state_3d`` refuses those cases (ROADMAP queue
+1, item 9).
 """
 
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
@@ -56,8 +63,22 @@ from ..ops.euler3d_operator import (
     euler3d_tangent_plain,
     euler3d_tangent_prep,
     halo_from_traces,
+    has_topography,
 )
 from ..parallel.topology import CubedSphereTopology
+
+
+@dataclass(frozen=True)
+class RayleighDamping:
+    """The Rayleigh sponge of DCMIP 21/22 (``testcases.make_schar_damping``),
+    host float64 planes (6, nk, ny, nx, s^3): the mask (1/s) and the
+    reference contravariant winds. Its momentum forcing is ``rho mask (u_i
+    - u_ref_i)`` (the JAX package's ``extra_forcing``)."""
+
+    mask: np.ndarray
+    u1ref: np.ndarray
+    u2ref: np.ndarray
+    u3ref: np.ndarray
 
 
 class Euler3DRHS:
@@ -78,14 +99,23 @@ class Euler3DRHS:
     the absolute state and return ``rhs0 + delta``; ``delta(qprime)`` takes
     the perturbation itself; the base (``pert``: q0, the float64 base RHS,
     q0's halo and traces) is built once in float64 on the same device
-    (``base_state`` is then ignored, as in the JAX package)."""
+    (``base_state`` is then ignored, as in the JAX package).
+
+    A geometry with topography keeps every panel's metric (the terrain
+    kernels); ``damping`` (a ``RayleighDamping`` on such a geometry) adds
+    the Rayleigh sponge, and is refused with ``perturbation_base``."""
 
     def __init__(self, geom, ops, metric, dtype=torch.float64, device="cuda", topology=None,
-                 base_state=None, perturbation_base=None):
+                 base_state=None, perturbation_base=None, damping: Optional[RayleighDamping] = None):
         self.dtype = dtype
         self.device = resolve_device(device)
         self.topology = topology if topology is not None else CubedSphereTopology(geom)
-        self.con = build_constants(ops, metric, geom.nel_h, geom.nel_v, dtype=dtype, device=self.device)
+        if damping is not None and perturbation_base is not None:
+            raise ValueError("perturbation_base takes no Rayleigh damping (the JAX perturbation form refuses "
+                             "extra_forcing, models/euler_cubesphere.py:679 there)")
+        panel_metric = has_topography(geom)
+        self.con = build_constants(ops, metric, geom.nel_h, geom.nel_v, dtype=dtype, device=self.device,
+                                   panel_metric=panel_metric, damping=damping)
         # The halo exchange's device tables are made here, not at the first
         # call: a copy from the host inside a step would wait for the card.
         # They are keyed by the tensors' own device ("cuda:0", not "cuda").
@@ -97,7 +127,8 @@ class Euler3DRHS:
         if base is None:
             return
         q64 = torch.as_tensor(np.asarray(base), dtype=torch.float64, device=self.device)
-        con64 = build_constants(ops, metric, geom.nel_h, geom.nel_v, dtype=torch.float64, device=self.device)
+        con64 = build_constants(ops, metric, geom.nel_h, geom.nel_v, dtype=torch.float64, device=self.device,
+                                panel_metric=panel_metric, damping=damping)
         if perturbation_base is not None:
             if q64.shape != self.con.state_shape:
                 raise ValueError("perturbation_base supports the plain 5-variable system "

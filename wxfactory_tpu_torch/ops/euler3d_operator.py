@@ -53,6 +53,24 @@ of both. Its halo glue is the primal glue's derivative:
 extrapolation of the momenta, ``tr_q * (E.(v/q))`` for the log-space rows)
 and ``halo_from_traces``, which is linear, exchanges them.
 
+Terrain (DCMIP 20, 21, 22): with bottom topography the metric differs from
+panel to panel, so the constants keep all six panels' interior and
+interface metric (``E3Constants.panel_metric``; ``build_constants(...,
+panel_metric=True)``, chosen from the geometry's ``zbot``:
+``has_topography``), and DCMIP 21/22 add the Rayleigh sponge as four planes
+on the constants (``sponge``: the mask and mask * u_ref of each
+contravariant wind; the momentum forcing ``mask q[1+i] - q[0] (mask
+u_ref_i)``, the JAX package's ``rho mask (u_i - u_ref_i)``,
+testcases/dcmip.py:321-324 there, linear in q). Such constants launch the
+kernels' terrain instantiations (C entries ``*_terrain_launch``, counted in
+``terrain_launches``, ``terrain_pert_launches``,
+``terrain_tangent_prep_launches`` and ``terrain_tangent_apply_launches``);
+the plain versions take both through broadcasting and the forcing rows.
+The perturbation form refuses a sponge, as the JAX one refuses
+``extra_forcing`` (models/euler_cubesphere.py:679 there). A tile of the
+sphere reads one panel, so ``tile_constants`` hands it its own panel's
+slice in the one-panel layout, and the tile launch needs no terrain code.
+
 The perturbation (base-state-split) form, ``km3_fused``'s ``pert=`` mode
 (``_km3_body`` with ``base=``, the JAX package's ``_euler3d_rhs_core_pert``):
 the state is carried as ``dq = q - q0`` around a balanced base state ``q0``
@@ -74,6 +92,7 @@ apply is the same for both forms.
 """
 
 import ctypes
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
@@ -87,7 +106,10 @@ from ..common.constants import GRAVITY, HEAT_CAPACITY_RATIO, P0, RD
 # stage-mode launches apart), by ``euler3d_tangent_prep`` (both forms), by
 # ``euler3d_tile_operator`` in absolute and perturbation form, and calls of
 # the plain operators (the prep's among them) and of the plain tangents and
-# applies (a run on the card must make none).
+# applies (a run on the card must make none). Constants with a per-panel
+# metric (terrain) launch the terrain instantiations instead, counted
+# apart: the operator in absolute form (RHS and stage) and in perturbation
+# form, the prep (both forms) and the apply (both forms).
 launches = 0
 tangent_launches = 0
 tangent_prep_launches = 0
@@ -98,6 +120,10 @@ pert_tile_launches = 0
 pert_tangent_launches = 0
 plain_calls = 0
 plain_tangent_calls = 0
+terrain_launches = 0
+terrain_pert_launches = 0
+terrain_tangent_prep_launches = 0
+terrain_tangent_apply_launches = 0
 
 # Names of the single-panel interior fields, in the order of ``fields``
 # (the kernel relies on it): sqrt(g), 1/sqrt(g), 1/(dz/deta), the six
@@ -114,8 +140,13 @@ class E3Constants:
     The metric at solution points and interfaces is the same on all six
     panels of the equiangular cubed sphere without topography (to the
     rounding of the numerical metric build), so one panel's copy is kept.
-    The time Christoffels of a rotating planet depend on the panel and are
-    kept whole (``tch``); on a non-rotating planet they vanish (None)."""
+    With topography it differs from panel to panel and all six are kept
+    (``panel_metric``: ``fields`` (N_FIELDS, 6, nk, ny, nx, s^3) and each
+    interface family with a panel axis after its row axis). The time
+    Christoffels of a rotating planet depend on the panel and are kept
+    whole (``tch``); on a non-rotating planet they vanish (None). The
+    Rayleigh sponge of DCMIP 21/22 (``sponge``, per-panel metric only)
+    is (4, 6, nk, ny, nx, s^3): the mask and mask * u_ref of u1, u2, u3."""
 
     nel_h: int
     nel_v: int
@@ -130,9 +161,10 @@ class E3Constants:
     cc: torch.Tensor  # (6s^2, s^3) faces -> correction sum
     ccb: torch.Tensor  # (6s^2, 3s^3) faces -> per-direction correction
     hfk: torch.Tensor  # (s^3, s^3) kill the highest vertical mode
-    fields: torch.Tensor  # (N_FIELDS, nk, ny, nx, s^3) single panel
+    fields: torch.Tensor  # (N_FIELDS, nk, ny, nx, s^3) single panel; (N_FIELDS, 6, ...) per panel
     tch: Optional[torch.Tensor]  # (9, 6, nk, ny, nx, s^3) Gamma^a_{0b}, or None
-    # Interface metric [sqrt(g), h^{d0}, h^{d1}, h^{d2}] of direction d:
+    # Interface metric [sqrt(g), h^{d0}, h^{d1}, h^{d2}] of direction d
+    # (per panel: (4, 6, ...)):
     itf_x: torch.Tensor  # (4, nk, ny, nx+1, s^2)
     itf_y: torch.Tensor  # (4, nk, ny+1, nx, s^2)
     itf_z: torch.Tensor  # (4, nk+1, ny, nx, s^2)
@@ -140,6 +172,8 @@ class E3Constants:
     # (``tile_constants``: the metric's tile slices, tch (9, 1, ...) of the
     # tile's own panel)
     npanel: int = 6
+    panel_metric: bool = False
+    sponge: Optional[torch.Tensor] = None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -164,13 +198,25 @@ def _one_panel(a, scale=None) -> np.ndarray:
     a = np.asarray(a, np.float64)
     tol = 1e-10 * max(np.abs(a).max() if scale is None else scale, 1e-300)
     if np.abs(a - a[:1]).max() > tol:
-        raise ValueError("metric field differs across panels (topography is not supported by the operator)")
+        raise ValueError("metric field differs across panels: a geometry with topography takes panel_metric=True")
     return a[0]
 
 
-def build_constants(ops, metric, nel_h: int, nel_v: int, dtype=torch.float64, device="cpu") -> E3Constants:
+def has_topography(geom) -> bool:
+    """Whether a 3D geometry has bottom topography (any non-zero ``zbot``):
+    its operator then needs every panel's metric (``panel_metric``)."""
+    return bool(np.any(np.asarray(geom.zbot) != 0.0))
+
+
+def build_constants(ops, metric, nel_h: int, nel_v: int, dtype=torch.float64, device="cpu",
+                    panel_metric: bool = False, damping=None) -> E3Constants:
     """Operator constants from the 3D DFR operators (``three_d=True``) and
-    the 3D metric (host float64 numpy, cast once to ``dtype`` on ``device``)."""
+    the 3D metric (host float64 numpy, cast once to ``dtype`` on ``device``).
+    ``panel_metric`` keeps all six panels' metric (a geometry with
+    topography, ``has_topography``); else the six must agree and one is
+    kept. ``damping`` (DCMIP 21/22, with ``panel_metric``): the Rayleigh
+    sponge's host planes ``mask``, ``u1ref``, ``u2ref``, ``u3ref``
+    (``models.euler_cubesphere.RayleighDamping``)."""
     s = ops.num_solpts
     f64 = lambda a: np.asarray(a, np.float64)
     ops1d = np.concatenate([
@@ -187,22 +233,30 @@ def build_constants(ops, metric, nel_h: int, nel_v: int, dtype=torch.float64, de
     sg, hc, ch = f64(metric.sqrtG), f64(metric.h_contra), f64(metric.christoffel)
     wpres = sum((sg * hc[d, 2]) @ m for d, m in enumerate((dx, dy, dz)))
     ch_scale = np.abs(ch[:, 3:]).max()
+    panel = (lambda a, scale=None: f64(a)) if panel_metric else _one_panel
     fields = np.stack(
-        [_one_panel(metric.sqrtG), _one_panel(metric.inv_sqrtG), _one_panel(metric.inv_dzdeta)]
-        + [_one_panel(hc[a, b]) for a, b in H_PAIRS]
-        + [_one_panel(ch[a, 3 + j], scale=ch_scale) for a in range(3) for j in range(6)]
-        + [_one_panel(wpres)]
+        [panel(metric.sqrtG), panel(metric.inv_sqrtG), panel(metric.inv_dzdeta)]
+        + [panel(hc[a, b]) for a, b in H_PAIRS]
+        + [panel(ch[a, 3 + j], scale=ch_scale) for a in range(3) for j in range(6)]
+        + [panel(wpres)]
     )
     tch = ch[:, :3].reshape((9,) + sg.shape)
     tch = None if not np.any(tch) else tch
 
     def itf(sqrt_g, h_row):
         scale = np.abs(f64(h_row)).max()
-        return np.stack([_one_panel(sqrt_g)] + [_one_panel(h_row[k], scale=scale) for k in range(3)])
+        return np.stack([panel(sqrt_g)] + [panel(h_row[k], scale=scale) for k in range(3)])
 
     itf_x = itf(metric.sqrtG_itf_i, f64(metric.h_contra_itf_i)[0])
     itf_y = itf(metric.sqrtG_itf_j, f64(metric.h_contra_itf_j)[1])
     itf_z = itf(metric.sqrtG_itf_k, f64(metric.h_contra_itf_k)[2])
+
+    sponge = None
+    if damping is not None:
+        if not panel_metric:
+            raise ValueError("the Rayleigh sponge runs in the terrain kernels: build it with panel_metric=True")
+        mask = f64(damping.mask)
+        sponge = np.stack([mask] + [mask * f64(u) for u in (damping.u1ref, damping.u2ref, damping.u3ref)])
 
     t = lambda a: torch.as_tensor(np.array(a, dtype=np.float64, order="C"), dtype=dtype, device=device)
     return E3Constants(
@@ -211,8 +265,20 @@ def build_constants(ops, metric, nel_h: int, nel_v: int, dtype=torch.float64, de
         dd=t(np.concatenate([dx, dy, dz], axis=0)), dd3=t(np.concatenate([dx, dy, dz], axis=1)),
         cc=t(np.concatenate([cx, cy, cz], axis=0)), ccb=t(ccb), hfk=t(ops.highfilter_k),
         fields=t(fields), tch=None if tch is None else t(tch),
-        itf_x=t(itf_x), itf_y=t(itf_y), itf_z=t(itf_z),
+        itf_x=t(itf_x), itf_y=t(itf_y), itf_z=t(itf_z), panel_metric=panel_metric,
+        sponge=None if sponge is None else t(sponge),
     )
+
+
+def expand_panels(con: E3Constants) -> E3Constants:
+    """One-panel constants in the per-panel layout, every panel a copy of
+    the one: the terrain kernels on them compute what the kernels without
+    terrain compute on ``con`` (checked bit for bit)."""
+    if con.panel_metric or con.npanel != 6:
+        raise ValueError("expand_panels takes whole-sphere constants with one panel's metric")
+    rep = lambda t, axis: torch.stack([t] * 6, dim=axis).contiguous()
+    return dataclasses.replace(con, fields=rep(con.fields, 1), itf_x=rep(con.itf_x, 1), itf_y=rep(con.itf_y, 1),
+                               itf_z=rep(con.itf_z, 1), panel_metric=True)
 
 
 # ---------------------------------------------------------------------------
@@ -430,9 +496,7 @@ def euler3d_operator_plain(q, halo, con: E3Constants, x=None, a: float = 0.0, b:
                 + ch[5] * (rho * u[2] * u[2] + h[(2, 2)] * p))
 
     gravity = invdz * GRAVITY * invsg * ((sqrtg * rho) @ con.hfk)
-    out[1] -= forcing_row(0)
-    out[2] -= forcing_row(1)
-    out[3] -= forcing_row(2) + gravity
+    out[1:4] -= _with_sponge([forcing_row(0), forcing_row(1), forcing_row(2) + gravity], q, con)
 
     if bal is not None:
         out = out + bal
@@ -440,6 +504,16 @@ def euler3d_operator_plain(q, halo, con: E3Constants, x=None, a: float = 0.0, b:
     if emit_traces:
         return out, edge_traces(out, con)
     return out
+
+
+def _with_sponge(rows, q, con: E3Constants) -> torch.Tensor:
+    """The momentum forcing rows (rho*u1, rho*u2, rho*w) plus the Rayleigh
+    sponge ``mask q[1+i] - q[0] (mask u_ref_i)`` where the constants have
+    one (linear in q, so the tangent's is the same in the direction)."""
+    if con.sponge is not None:
+        sp = con.sponge
+        rows = [r + (sp[0] * q[1 + i] - q[0] * sp[1 + i]) for i, r in enumerate(rows)]
+    return torch.stack(rows)
 
 
 def _stage(out, q, x, a: float, b: float, cdt: Optional[float]):
@@ -512,6 +586,12 @@ def build_pert_base(q0: torch.Tensor, con64: E3Constants, topology, dtype) -> E3
                       u0=cast(q0[1:4] / q0[0]), p0=cast(p0), dlp0=cast(dlp0), wcorr0=cast(wcorr0))
 
 
+def _refuse_pert_sponge(con: E3Constants):
+    if con.sponge is not None:
+        raise ValueError("the perturbation form takes no Rayleigh sponge (the JAX package's refuses extra_forcing, "
+                         "models/euler_cubesphere.py:679 there)")
+
+
 def edge_traces_delta(dq: torch.Tensor, pert: E3PertBase, con: E3Constants) -> torch.Tensor:
     """Panel-edge traces of the perturbation ``dq`` (5, 4, 6, nk, nh, s^2):
     the momenta extrapolated linearly, rho and rho*theta as
@@ -545,6 +625,7 @@ def euler3d_operator_pert_plain(dq, halo, con: E3Constants, pert: E3PertBase, x=
     the small arguments, far below every tolerance the tests state.
     Counted in ``plain_calls``."""
     global plain_calls
+    _refuse_pert_sponge(con)
     plain_calls += 1
     s3 = con.s**3
     fld = con.fields
@@ -698,6 +779,7 @@ def _check(q, halo, con: E3Constants, x, a: float, bal, cdt, emit_traces: bool, 
     if pert is not None:
         if bal is not None:
             raise ValueError("the perturbation form takes no well-balanced offset bal (its base RHS is rhs0)")
+        _refuse_pert_sponge(con)
         tensors.update(_pert_tensors(con, pert))
     _check_tensors(con, tensors)
 
@@ -746,14 +828,25 @@ def euler3d_operator(q, halo, con: E3Constants, x=None, a: float = 0.0, b: float
     A CPU tensor runs ``euler3d_operator_plain`` (``euler3d_operator_pert_plain``);
     a CUDA tensor makes one launch of the operator, its interface pass and
     volume pass (csrc/euler3d_operator.cu, built at first use), on the
-    current stream, without synchronising, or raises."""
-    global launches, pert_launches, pert_stage_launches
+    current stream, without synchronising, or raises. Constants with a
+    per-panel metric launch the terrain instantiation (with the sponge
+    when they have one), counted in ``terrain_launches`` or, in
+    perturbation form, ``terrain_pert_launches``."""
+    global launches, pert_launches, pert_stage_launches, terrain_launches, terrain_pert_launches
     _check_npanel(con, 6, "euler3d_operator")
     _check(q, halo, con, x, a, bal, cdt, emit_traces, pert)
     if q.device.type == "cpu":
         if pert is not None:
             return euler3d_operator_pert_plain(q, halo, con, pert, x=x, a=a, b=b, cdt=cdt, emit_traces=emit_traces)
         return euler3d_operator_plain(q, halo, con, x=x, a=a, b=b, cdt=cdt, bal=bal, emit_traces=emit_traces)
+    if con.panel_metric:
+        out = _launch_operator("euler3d_operator_terrain_launch", q, halo, con, x, a, b, cdt, bal, emit_traces, pert,
+                               terrain=True)
+        if pert is None:
+            terrain_launches += 1
+        else:
+            terrain_pert_launches += 1
+        return out
     out = _launch_operator("euler3d_operator_launch", q, halo, con, x, a, b, cdt, bal, emit_traces, pert)
     if pert is None:
         launches += 1
@@ -765,17 +858,18 @@ def euler3d_operator(q, halo, con: E3Constants, x=None, a: float = 0.0, b: float
 
 
 def _launch_operator(entry: str, q, halo, con: E3Constants, x, a: float, b: float, cdt: Optional[float], bal,
-                     emit_traces: bool, pert: Optional[E3PertBase]):
+                     emit_traces: bool, pert: Optional[E3PertBase], terrain: bool = False):
     """One launch of the operator kernel through the C entry ``entry``
-    (``euler3d_operator_launch`` or ``euler3d_tile_launch``) on the current
-    stream."""
+    (``euler3d_operator_launch`` or ``euler3d_tile_launch``; with
+    ``terrain``, ``euler3d_operator_terrain_launch``, which also takes the
+    sponge) on the current stream."""
     if q.device.type != "cuda":
         raise ValueError(f"{entry} runs on cpu or cuda tensors, not {q.device}")
     _check_kernel_shape(con, entry)
 
     from ..kernels.build import load_library
 
-    lib = load_library("euler3d_operator")
+    lib = load_library("euler3d_terrain" if terrain else "euler3d_operator")
     use_x = cdt is not None and a != 0.0
     out = torch.empty_like(q)
     traces = torch.empty(con.traces_shape, dtype=q.dtype, device=q.device) if emit_traces else None
@@ -788,7 +882,7 @@ def _launch_operator(entry: str, q, halo, con: E3Constants, x, a: float, b: floa
             _ptr(con.itf_x), _ptr(con.itf_y), _ptr(con.itf_z), _ptr(x if use_x else None), _ptr(bal),
             _ptr(base.get("q0")), _ptr(base.get("halo0")), _ptr(base.get("rhs0")), _ptr(base.get("traces0")),
             _ptr(out), _ptr(traces), float(a), float(b), float(cdt if cdt is not None else 0.0),
-            1 if cdt is not None else 0, ctypes.c_void_p(stream),
+            1 if cdt is not None else 0, *((_ptr(con.sponge),) if terrain else ()), ctypes.c_void_p(stream),
         )
     if rc != 0:
         name = lib.euler3d_operator_error_string(rc).decode()
@@ -879,18 +973,26 @@ def tile_constants(con: E3Constants, ey0: int, ex0: int, nt: int, panel: int) ->
     ``panel`` from the whole-sphere constants ``con`` (the JAX package's
     ``_TileMetric3DView``, parallel/shard_map_euler3d_fused.py:39-63, and
     the tile's ``tch`` block): the one-panel metric holds on every panel, so
-    its tile slice serves every panel's tile; the time Christoffels of a
-    rotating planet depend on the panel and are sliced from the tile's own
-    panel; the interface metric keeps the tile's nt+1 interfaces each way."""
+    its tile slice serves every panel's tile; a per-panel metric (terrain)
+    gives each tile its own panel's slice, in the one-panel layout (so the
+    tile launch reads it as it reads a one-panel metric); the time
+    Christoffels of a rotating planet depend on the panel and are sliced
+    from the tile's own panel; the interface metric keeps the tile's nt+1
+    interfaces each way. The sponge has no tile step (ROADMAP queue 1,
+    item 14)."""
     _check_npanel(con, 6, "tile_constants")
+    if con.sponge is not None:
+        raise NotImplementedError("the tile step with the Rayleigh sponge (DCMIP 21/22) is not ported "
+                                  "(ROADMAP queue 1, item 14)")
     ys, xs = slice(ey0, ey0 + nt), slice(ex0, ex0 + nt)
     c = lambda t: t.contiguous()
+    own = (lambda t: t[:, panel]) if con.panel_metric else (lambda t: t)
     return E3Constants(
         nel_h=nt, nel_v=con.nel_v, s=con.s, ops1d=con.ops1d, ee=con.ee, dd=con.dd, dd3=con.dd3, cc=con.cc,
-        ccb=con.ccb, hfk=con.hfk, fields=c(con.fields[:, :, ys, xs]),
+        ccb=con.ccb, hfk=con.hfk, fields=c(own(con.fields)[:, :, ys, xs]),
         tch=None if con.tch is None else c(con.tch[:, panel : panel + 1, :, ys, xs]),
-        itf_x=c(con.itf_x[:, :, ys, ex0 : ex0 + nt + 1]), itf_y=c(con.itf_y[:, :, ey0 : ey0 + nt + 1, xs]),
-        itf_z=c(con.itf_z[:, :, ys, xs]), npanel=1,
+        itf_x=c(own(con.itf_x)[:, :, ys, ex0 : ex0 + nt + 1]), itf_y=c(own(con.itf_y)[:, :, ey0 : ey0 + nt + 1, xs]),
+        itf_z=c(own(con.itf_z)[:, :, ys, xs]), npanel=1,
     )
 
 
@@ -1233,11 +1335,12 @@ def euler3d_tangent_apply_plain(v, halo_v, coef: TangentCoefficients, con: E3Con
         return f + 2.0 * ch[1] * pair[1] + 2.0 * ch[2] * pair[2] + ch[3] * pair[3] + 2.0 * ch[4] * pair[4] + ch[5] * pair[5]
 
     gravity = invdz * GRAVITY * invsg * ((sqrtg * v[0]) @ con.hfk)
+    force = _with_sponge([forcing_row(0), forcing_row(1), forcing_row(2) + gravity], v, con)
     return torch.stack([
         -invsg * (interior[0] + corr[0]),
-        -invsg * (interior[1] + corr[1]) - forcing_row(0),
-        -invsg * (interior[2] + corr[2]) - forcing_row(1),
-        -invsg * tw_df - (forcing_row(2) + gravity),
+        -invsg * (interior[1] + corr[1]) - force[0],
+        -invsg * (interior[2] + corr[2]) - force[1],
+        -invsg * tw_df - force[2],
         -invsg * (interior[3] + corr[3]),
     ])
 
@@ -1250,7 +1353,7 @@ def _launch_tangent(entry: str, con: E3Constants, *args):
 
     from ..kernels.build import load_library
 
-    lib = load_library("euler3d_operator")
+    lib = load_library("euler3d_terrain" if "terrain" in entry else "euler3d_operator")
     with torch.cuda.device(con.device):
         stream = torch.cuda.current_stream(con.device).cuda_stream
         rc = getattr(lib, entry)(1 if con.dtype == torch.float64 else 0, con.s, con.nel_h, con.nel_v,
@@ -1273,8 +1376,10 @@ def euler3d_tangent_prep(q, halo_q, con: E3Constants, pert: Optional[E3PertBase]
 
     A CPU tensor runs ``euler3d_tangent_prep_plain``; a CUDA tensor launches
     the prep kernel (csrc/euler3d_operator.cu) on the current stream,
-    without synchronising, counted in ``tangent_prep_launches``, or raises."""
-    global tangent_prep_launches
+    without synchronising, counted in ``tangent_prep_launches`` (its
+    terrain instantiation, on a per-panel metric, in
+    ``terrain_tangent_prep_launches``), or raises."""
+    global tangent_prep_launches, terrain_tangent_prep_launches
     _check_npanel(con, 6, "euler3d_tangent_prep")
     tensors = {"q": (q, con.state_shape), "halo_q": (halo_q, con.traces_shape)}
     if pert is not None:
@@ -1285,9 +1390,13 @@ def euler3d_tangent_prep(q, halo_q, con: E3Constants, pert: Optional[E3PertBase]
         return euler3d_tangent_prep_plain(q, halo_q, con, pert)
     values = torch.empty(tangent_layout(con)["size"], dtype=q.dtype, device=q.device)
     base = pert.tensors if pert is not None else {}
-    _launch_tangent("euler3d_tangent_prep_launch", con, q, halo_q, con.ops1d, con.fields, con.itf_x, con.itf_y,
-                    con.itf_z, base.get("q0"), base.get("halo0"), values)
-    tangent_prep_launches += 1
+    entry = "euler3d_tangent_prep_terrain_launch" if con.panel_metric else "euler3d_tangent_prep_launch"
+    _launch_tangent(entry, con, q, halo_q, con.ops1d, con.fields, con.itf_x, con.itf_y, con.itf_z, base.get("q0"),
+                    base.get("halo0"), values)
+    if con.panel_metric:
+        terrain_tangent_prep_launches += 1
+    else:
+        tangent_prep_launches += 1
     return TangentCoefficients(values, pert is not None)
 
 
@@ -1299,9 +1408,11 @@ def euler3d_tangent_apply(v, halo_v, coef: TangentCoefficients, con: E3Constants
     A CPU tensor runs ``euler3d_tangent_apply_plain``; a CUDA tensor launches
     the apply kernel (csrc/euler3d_operator.cu) on the current stream,
     without synchronising, counted in ``tangent_launches`` (or
-    ``pert_tangent_launches`` for a perturbation-form linearisation), or
-    raises."""
-    global tangent_launches, pert_tangent_launches
+    ``pert_tangent_launches`` for a perturbation-form linearisation; on a
+    per-panel metric its terrain instantiation, with the sponge's tangent
+    where the constants have one, in ``terrain_tangent_apply_launches``),
+    or raises."""
+    global tangent_launches, pert_tangent_launches, terrain_tangent_apply_launches
     _check_npanel(con, 6, "euler3d_tangent_apply")
     _check_tensors(con, {"v": (v, con.state_shape), "halo_v": (halo_v, con.traces_shape),
                          "coefficients": (coef.values, (tangent_layout(con)["size"],))})
@@ -1309,6 +1420,11 @@ def euler3d_tangent_apply(v, halo_v, coef: TangentCoefficients, con: E3Constants
     if v.device.type == "cpu":
         return euler3d_tangent_apply_plain(v, halo_v, coef, con)
     out = torch.empty_like(v)
+    if con.panel_metric:
+        _launch_tangent("euler3d_tangent_apply_terrain_launch", con, v, halo_v, con.ops1d, con.fields, con.tch,
+                        con.itf_x, con.itf_y, con.itf_z, coef.values, out, con.sponge)
+        terrain_tangent_apply_launches += 1
+        return out
     _launch_tangent("euler3d_tangent_apply_launch", con, v, halo_v, con.ops1d, con.fields, con.tch, con.itf_x,
                     con.itf_y, con.itf_z, coef.values, out)
     if coef.pert:

@@ -23,6 +23,7 @@ from ..ops.euler3d_operator import (
     build_constants,
     build_pert_base,
     euler3d_tile_operator,
+    has_topography,
     tile_constants,
     tile_edge_traces,
     tile_pert_base,
@@ -48,14 +49,16 @@ def make_shard_map_euler3d_step_fused(geom, ops, metric, mesh: TileMesh, dt: flo
         raise ValueError(f"nel_h={nel_h} not divisible by mesh N={n}")
     nt = nel_h // n
     topology = topology if topology is not None else CubedSphereTopology(geom)
-    con = build_constants(ops, metric, nel_h, nk, dtype=dtype, device=device)
+    panel_metric = has_topography(geom)  # each tile then takes its own panel's metric
+    con = build_constants(ops, metric, nel_h, nk, dtype=dtype, device=device, panel_metric=panel_metric)
     tiles = mesh.tiles()
     owned = [tiles[t] for t in mesh.owned()]
     cons = [tile_constants(con, ty * nt, tx * nt, nt, p) for p, ty, tx in owned]
     del con
     perts = [None] * len(owned)
     if perturbation_base is not None:
-        con64 = build_constants(ops, metric, nel_h, nk, dtype=torch.float64, device=device)
+        con64 = build_constants(ops, metric, nel_h, nk, dtype=torch.float64, device=device,
+                                panel_metric=panel_metric)
         q64 = torch.as_tensor(np.asarray(perturbation_base), dtype=torch.float64, device=device)
         base64 = build_pert_base(q64, con64, topology, torch.float64)
         perts = [tile_pert_base(base64, ty * nt, tx * nt, nt, p, dtype) for p, ty, tx in owned]

@@ -2,8 +2,9 @@
 
 Counterpart of ``wxfactory_tpu/simulation.py`` for the cubed sphere:
 shallow water (every case of the JAX package: 0, 1, 2, 5, 6, 8, 9 and 10,
-cases 5 and 10 with their bottom topography) and 3D Euler (DCMIP cases 31
-and 77) with the explicit integrators (euler1, tvdrk3), the exponential
+cases 5 and 10 with their bottom topography) and 3D Euler (DCMIP cases 20,
+21, 22, 31 and 77; 20-22 over terrain, 21 and 22 under their Rayleigh
+sponge) with the explicit integrators (euler1, tvdrk3), the exponential
 ones (epi2..6, epi_stiff3..6, with pmex, kiops or the device-resident
 kiops_jit) and Ros2 (with fgmres or the device-resident fgmres_jit; with a
 preconditioner, lu, ilu, p-mg or fv-mg, ``_create_preconditioner``), with
@@ -49,6 +50,9 @@ from .testcases import dcmip_planet_params, initial_state, initial_state_3d
 
 _ITEM_17 = "ROADMAP queue 1, item 17"
 
+# The 3D cases with the Rayleigh sponge (extra_forcing in the JAX package).
+SPONGE_CASES = (21, 22)
+
 _ITEM_14 = ("ROADMAP queue 1, item 14: the port runs multi-rank only as the tile-parallel TVD-RK3 step; the GSPMD "
             "analogue (EPI/Ros2 across ranks) is not ported")
 
@@ -63,6 +67,10 @@ def plan_distribution(config, world: int):
     if knob == "gspmd":
         raise NotImplementedError(f"distribute='gspmd': {_ITEM_14}")
     n = tile_n_for_world(world)
+    if c.equations == "euler" and c.case_number in SPONGE_CASES and (world > 1 or knob == "shard_map"):
+        raise NotImplementedError(
+            f"the tile step of DCMIP {c.case_number} (its Rayleigh sponge; the JAX package's tile step has no "
+            f"forcing hook either): {_ITEM_14}")
     explicit = c.time_integrator.lower() == "tvdrk3" and c.grid_type == "cubed_sphere"
     model_ok = c.equations == "shallow_water" or c.case_number >= 13
     tile_ok = explicit and model_ok and n is not None and c.num_elements_horizontal % n == 0
@@ -101,6 +109,7 @@ class Simulation:
 
         self.dtype = torch.float32 if c.precision == "float32" else torch.float64
         self.topo = None
+        self.damping = None
         if c.equations == "euler":
             self.ops = make_dfr_operators(c.num_solpts, three_d=True)
             scale, rotating = dcmip_planet_params(c.case_number)
@@ -110,13 +119,15 @@ class Simulation:
                 planet_scaling_factor=scale, planet_is_rotating=rotating,
             )
             self.topology = CubedSphereTopology(self.geom)
-            q0 = initial_state_3d(self.geom, c.case_number)
-            self.metric = make_metric_3d(self.geom, self.ops, self.topology)
+            # DCMIP 20-22 replace the geometry by the one with their
+            # topography; the metric is built once, on the final geometry.
+            q0, self.geom, self.metric, self.damping = initial_state_3d(
+                self.geom, c.case_number, lambda g: make_metric_3d(g, self.ops, self.topology))
             self.rhs = None if self.mesh is not None else Euler3DRHS(
                 self.geom, self.ops, self.metric, dtype=self.dtype, device=self.device, topology=self.topology,
                 # float32 cannot resolve the hydrostatic balance: the
                 # well-balanced offset around the initial state absorbs it.
-                base_state=(q0 if self.dtype == torch.float32 else None),
+                base_state=(q0 if self.dtype == torch.float32 else None), damping=self.damping,
             )
         else:
             self.ops = make_dfr_operators(c.num_solpts)
@@ -139,13 +150,13 @@ class Simulation:
         # The float32 companion of the Krylov loop (mixed_precision_krylov):
         # the perturbation form around the initial state (the JAX package's
         # simulation.py:140-162). Its Jacobian action is, for 3D Euler, the
-        # kernel's perturbation tangent mode (the forcing cases are refused
-        # above), for shallow water the tangent kernel of the absolute
-        # float32 operator, as the JAX package takes jax.jvp of its
-        # companion's XLA form there.
+        # kernel's perturbation tangent mode (none for the sponge cases 21
+        # and 22: the JAX perturbation form refuses extra_forcing), for
+        # shallow water the tangent kernel of the absolute float32 operator,
+        # as the JAX package takes jax.jvp of its companion's XLA form there.
         self.rhs32 = None
         if getattr(c, "mixed_precision_krylov", False) and self.dtype == torch.float64:
-            if c.equations == "euler" and c.case_number >= 13:
+            if c.equations == "euler" and c.case_number >= 13 and self.damping is None:
                 self.rhs32 = Euler3DRHS(
                     self.geom, self.ops, self.metric, dtype=torch.float32, device=self.device,
                     topology=self.topology, perturbation_base=q0,

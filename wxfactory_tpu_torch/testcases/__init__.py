@@ -1,10 +1,20 @@
 """Initial states of the cases the port runs: every shallow-water case of
 the JAX package (Williamson 0, 1, 2, 5, 6, Galewsky 8, Matsuno 9, unsteady
 zonal 10; ``initial_state`` returns the state and, for 5 and 10, the bottom
-topography) and DCMIP 31 and 77 (3D Euler, ``initial_state_3d``). Every
-other 3D case raises ``NotImplementedError`` naming its ROADMAP item."""
+topography) and DCMIP 20, 21, 22, 31 and 77 (3D Euler,
+``initial_state_3d``; 20-22 with their terrain, 21 and 22 with their
+Rayleigh sponge). DCMIP 11 and 12 raise ``NotImplementedError`` naming
+their ROADMAP item."""
 
-from .dcmip import acoustic_wave, dcmip_gravity_wave, dcmip_planet_params, initial_state_3d
+from .dcmip import (
+    acoustic_wave,
+    dcmip_gravity_wave,
+    dcmip_planet_params,
+    dcmip_schar_waves,
+    dcmip_steady_state_mountain,
+    initial_state_3d,
+    make_schar_damping,
+)
 from .matsuno import case_matsuno, eval_field
 from .shallow_water import (
     Topography,
@@ -31,12 +41,15 @@ __all__ = [
     "circular_vortex",
     "dcmip_gravity_wave",
     "dcmip_planet_params",
+    "dcmip_schar_waves",
+    "dcmip_steady_state_mountain",
     "eval_field",
     "height_case1",
     "height_case2",
     "height_vortex",
     "initial_state",
     "initial_state_3d",
+    "make_schar_damping",
     "solid_body_rotation",
     "williamson_case1",
     "williamson_case2",

@@ -2,20 +2,26 @@
 numpy, float64).
 
 Counterpart of ``wxfactory_tpu/testcases/dcmip.py`` (reference
-init/dcmip.py) for the cases the port runs, same code: 31 (non-hydrostatic
-gravity wave on a reduced planet) and 77 (acoustic wave). Each returns the
-global state ``Q[5, 6, nk, ny, nx, s^3]`` (rho, rho*u1, rho*u2, rho*w,
-rho*theta). The reduced-planet configuration is the geometry's
+init/dcmip.py) for the cases the port runs, same code: 20 (steady state at
+rest over a mountain range), 21 and 22 (Schar mountain waves without and
+with shear, under a Rayleigh sponge), 31 (non-hydrostatic gravity wave on a
+reduced planet) and 77 (acoustic wave). Each builds the global state
+``Q[5, 6, nk, ny, nx, s^3]`` (rho, rho*u1, rho*u2, rho*w, rho*theta). The
+reduced-planet configuration is the geometry's
 (``make_cubed_sphere_3d(planet_scaling_factor=..., planet_is_rotating=...)``,
-``dcmip_planet_params``).
+``dcmip_planet_params``); the terrain cases return the geometry with their
+topography applied, and 21/22 their sponge as host planes
+(``RayleighDamping``), not as a closure.
 """
 
 import math
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 
 from ..common.constants import CPD, GRAVITY, P0, RD
+from ..geometry.cubed_sphere_3d import apply_topography
+from ..models.euler_cubesphere import RayleighDamping
 
 
 def dcmip_planet_params(case_number: int) -> Tuple[float, bool]:
@@ -83,6 +89,113 @@ def dcmip_gravity_wave(geom) -> np.ndarray:
     return _assemble(rho, u1, u2, w, theta)
 
 
+def dcmip_steady_state_mountain(geom):
+    """DCMIP case 20: steady state at rest over a Schar-profile mountain
+    range (reference init/dcmip.py:447-550). Returns (Q, geom_with_topo) —
+    build the metric from the returned geometry.
+
+    Geometry: normal planet, non-rotating, ztop = 12000 in the DCMIP spec.
+    """
+    T0 = 300.0
+    gamma = 0.0065  # lapse rate (K/m)
+    lambdam = 1.5 * math.pi
+    phim = 0.0
+    h0 = 2000.0
+    Rm = 0.75 * math.pi
+    zetam = math.pi / 16.0
+    exponent = GRAVITY / (RD * gamma)
+
+    def zbot_fn(lon, lat):
+        r = np.arccos(
+            np.clip(math.sin(phim) * np.sin(lat) + math.cos(phim) * np.cos(lat) * np.cos(lon - lambdam), -1, 1)
+        )
+        z = 0.5 * h0 * (1.0 + np.cos(math.pi * r / Rm)) * np.cos(math.pi * r / zetam) ** 2
+        return np.where(r < Rm, z, 0.0)
+
+    geom = apply_topography(geom, zbot_fn)
+
+    z = geom.height
+    p = P0 * (1.0 - gamma / T0 * z) ** exponent
+    t = T0 - gamma * z
+    rho = p / (RD * t)
+    theta = t * (P0 / p) ** (RD / CPD)
+    zero = np.zeros_like(rho)
+    u1, u2 = geom.wind2contra_2d(zero, zero)
+    return _assemble(rho, u1, u2, zero, theta), geom
+
+
+def _schar_topography(geom):
+    """Schar-type mountain for cases 21/22 (reference init/dcmip.py:576-594)."""
+    lambdam = 0.25 * math.pi
+    phim = 0.0
+    h0 = 250.0
+    Dm = 5000.0
+    Dxi = 4000.0
+
+    def zbot_fn(lon, lat):
+        r = geom.earth_radius * np.arccos(
+            np.clip(math.sin(phim) * np.sin(lat) + math.cos(phim) * np.cos(lat) * np.cos(lon - lambdam), -1, 1)
+        )
+        return h0 * np.exp(-(r**2) / Dm**2) * np.cos(math.pi * r / Dxi) ** 2
+
+    return apply_topography(geom, zbot_fn)
+
+
+def dcmip_schar_waves(geom, metric_builder: Callable, shear: bool = False):
+    """DCMIP cases 21 (no shear) / 22 (shear): mountain waves over a
+    Schar-type mountain on a small planet (reference init/dcmip.py:551-676).
+
+    ``metric_builder(geom)`` builds the 3D metric for the terrain geometry
+    (needed for the 3D wind conversion). Returns (Q, geom, metric).
+    Geometry must use planet_scaling_factor=500, non-rotating; ztop=30000.
+    """
+    T0 = 300.0
+    Ueq = 20.0
+    Peq = 100000.0
+    Cs = 2.5e-4 if shear else 0.0
+
+    geom = _schar_topography(geom)
+    metric = metric_builder(geom)
+
+    lat = geom.lat
+    z = geom.height
+    T = T0 * (1.0 - Cs * Ueq**2 / GRAVITY * np.sin(lat) ** 2)
+    p = Peq * np.exp(-(Ueq**2) / (2.0 * RD * T0) * np.sin(lat) ** 2 - GRAVITY * z / (RD * T))
+    u = Ueq * np.cos(lat) * np.sqrt(2.0 * T0 / T * Cs * z + T / T0)
+    v = np.zeros_like(u)
+    w = np.zeros_like(u)
+
+    u1, u2, u3 = geom.wind2contra_3d(u, v, w, metric)
+    rho = p / (RD * T)
+    theta = T * (P0 / p) ** (RD / CPD)
+    # The reference stores the contravariant u3 in the w slot for these
+    # cases (initialize_euler + dcmip.py:665-676 there).
+    return _assemble(rho, u1, u2, u3, theta), geom, metric
+
+
+def make_schar_damping(geom, metric, shear: bool) -> RayleighDamping:
+    """Rayleigh damping toward the case 21/22 reference wind above Zh
+    (reference init/dcmip.py:676-761): the sponge's mask (1/s) and the
+    reference contravariant winds, host float64 planes. The JAX package
+    returns them inside a closure ``extra_forcing(rho, u1, u2, w) = rho *
+    mask * (u - u_ref)``; the operator here takes the planes
+    (``models.euler_cubesphere.Euler3DRHS(damping=...)``)."""
+    T0 = 300.0
+    Ueq = 20.0
+    Zh = 20000.0
+    tau0 = 25.0
+    Cs = 2.5e-4 if shear else 0.0
+
+    lat = geom.lat
+    z = geom.height
+    mask = np.where(z > Zh, np.sin(0.5 * math.pi * (z - Zh) / (geom.ztop - Zh)) ** 2, 0.0) / tau0
+
+    Tref = T0 * (1.0 - Cs * Ueq**2 / GRAVITY * np.sin(lat) ** 2)
+    uref = Ueq * np.cos(lat) * np.sqrt(2.0 * T0 / Tref * Cs * z + Tref / T0)
+    u1ref, u2ref, u3ref = geom.wind2contra_3d(uref, np.zeros_like(uref), np.zeros_like(uref), metric)
+    return RayleighDamping(mask=mask, u1ref=u1ref, u2ref=u2ref, u3ref=u3ref)
+
+
 def acoustic_wave(geom) -> np.ndarray:
     """Case 77: acoustic wave in an isothermal atmosphere at rest
     (reference init/dcmip.py:889-966). ztop = 10000, normal planet."""
@@ -110,24 +223,35 @@ def acoustic_wave(geom) -> np.ndarray:
     return _assemble(rho, u1, u2, zero, theta)
 
 
-def initial_state_3d(geom, case_number: int) -> np.ndarray:
-    """Initial 3D Euler state of a DCMIP case the port runs (31, 77).
+def initial_state_3d(geom, case_number: int, metric_builder: Optional[Callable] = None):
+    """Initial 3D Euler state of a DCMIP case the port runs (20, 21, 22, 31,
+    77): ``(Q, geom, metric, damping)``. ``geom`` is the geometry the case
+    runs on (20, 21 and 22 apply their topography to the one given),
+    ``metric`` ``metric_builder(geom)`` on it (None without a builder; 21
+    and 22 need one, for their 3D wind conversion), ``damping`` the
+    Rayleigh sponge of 21 and 22 (``RayleighDamping``, else None).
 
-    The other cases of the JAX package raise: 11 and 12 are advection-only
-    with prescribed winds, 20 has topography (panel-dependent metric), 21
-    and 22 have topography and Rayleigh-damping forcing."""
-    if case_number == 31:
-        return dcmip_gravity_wave(geom)
-    if case_number == 77:
-        return acoustic_wave(geom)
-    reasons = {
-        11: "advection-only transport with prescribed winds and tracers (ROADMAP queue 1, item 9)",
-        12: "advection-only transport with prescribed winds and tracers (ROADMAP queue 1, item 9)",
-        20: "topography: the operator's one-panel metric does not hold (ROADMAP queue 1, item 9)",
-        21: "topography and Rayleigh-damping forcing (ROADMAP queue 1, item 9)",
-        22: "topography and Rayleigh-damping forcing (ROADMAP queue 1, item 9)",
-    }
-    raise NotImplementedError(
-        f"3D Euler case {case_number} is not ported yet: "
-        + reasons.get(case_number, "unknown case (the port runs DCMIP 31 and 77)")
-    )
+    Cases 11 and 12 (advection-only transport with prescribed winds and
+    tracers) raise, naming their ROADMAP item."""
+    if case_number == 20:
+        q, geom = dcmip_steady_state_mountain(geom)
+    elif case_number in (21, 22):
+        if metric_builder is None:
+            raise ValueError(f"DCMIP case {case_number} needs a metric_builder (its 3D wind conversion)")
+        shear = case_number == 22
+        q, geom, metric = dcmip_schar_waves(geom, metric_builder, shear=shear)
+        return q, geom, metric, make_schar_damping(geom, metric, shear)
+    elif case_number == 31:
+        q = dcmip_gravity_wave(geom)
+    elif case_number == 77:
+        q = acoustic_wave(geom)
+    else:
+        reasons = {
+            11: "advection-only transport with prescribed winds and tracers (ROADMAP queue 1, item 9)",
+            12: "advection-only transport with prescribed winds and tracers (ROADMAP queue 1, item 9)",
+        }
+        raise NotImplementedError(
+            f"3D Euler case {case_number} is not ported yet: "
+            + reasons.get(case_number, "unknown case (the port runs DCMIP 20, 21, 22, 31 and 77)")
+        )
+    return q, geom, (None if metric_builder is None else metric_builder(geom)), None
