@@ -59,7 +59,7 @@ and drives the port's two main paths, shallow water and 3D Euler:
 10. the same dcmip31 EPI2+KIOPS run (4x2x2, s=2, dt=30 s, 2 steps, f64) on
     the GPU and on the CPU: identical Krylov statistics at every step, final
     states within 1e-10 of each variable's max;
-11. the EPI2 main path: ``python -m wxfactory_tpu_torch`` on dcmip31 with
+11. the EPI2 main path: ``Simulation(ini).run()`` on dcmip31 with
     epi2, kiops, tolerance 1e-7, dt=30 s, at the canonical 12x12x3, s=2 for
     5 steps, then at 20x20x3, s=3 for 3 steps; each with one RHS-kernel
     launch a step, one tangent apply launch per Jacobian action the
@@ -69,8 +69,9 @@ and drives the port's two main paths, shallow water and 3D Euler:
     cancels ~12 orders of magnitude at the balanced initial state and moves
     mass by a few 1e-8, as in the JAX package; tools/epi2_mass_drift.py)
     and checkpoints (one a step) that read back; it reports steps/s, setup
-    time, the Krylov statistics and (torch.profiler, on a second build of
-    the same configuration) the tangent kernels' share of device time;
+    time, the Krylov statistics and (torch.profiler, on the same
+    Simulation from its initial state) the tangent kernels' share of device
+    time;
 12. time per call at 20x20x3, s=3, in turns, f64 and f32, of the tangent
     prep and apply kernels (the card's time, calls queued behind a sleep
     kernel) and (CUDA events, median) their plain versions, the
@@ -274,7 +275,7 @@ and drives the port's two main paths, shallow water and 3D Euler:
     within 1.05 of the plain one; fv-mg: no more iterations than plain);
     lu and ilu at nel=4, s=2 (fewer iterations than plain); Ros2 + p-mg
     through Simulation on case 5 (nel=10, dt=1800 s, 2 steps; kiops
-    smoother) and on dcmip31 at 20x20x5, s=3, dt=30 s (1 step; erk3
+    smoother) and on dcmip31 at 20x20x3, s=3, dt=30 s (1 step; erk3
     smoother, pseudo_cfl 5), each beside the same run without a
     preconditioner (the host FGMRES with p-mg, the device FGMRES without,
     as linear_solver = auto takes them): FGMRES iterations a step, steps/s,
@@ -302,16 +303,38 @@ and drives the port's two main paths, shallow water and 3D Euler:
     the CPU within 1e-10 (and DCMIP 20's max |w|, the terrain error, of
     each); and the paths through Simulation(ini).run() (the CLI's call,
     INIs under build/chip_smoke/): (a) DCMIP 21 TVD-RK3 f64 at 20x20x20, s
-    = 3, ztop = 30 km, dt = 0.1 s; (b) DCMIP 21 EPI2 + host KIOPS, dt = 2
-    s; (c) DCMIP 20 EPI2 + kiops_jit mixed (the float32 perturbation
-    companion on the per-panel metric), 20x20x20, ztop = 12 km, dt = 30 s;
+    = 3, ztop = 30 km, dt = 0.1 s; (b) DCMIP 21 EPI2 + host KIOPS at
+    20x10x3 (10 levels keep the script within its time limit), dt = 2 s;
+    (c) DCMIP 20 EPI2 + kiops_jit mixed (the float32 perturbation
+    companion on the per-panel metric), 20x10x3, ztop = 12 km, dt = 30 s;
     (d) DCMIP 22 TVD-RK3 at 20x10x3, dt = 0.1 s; (e) DCMIP 20's tile step
     at N = 1 (every tile in this process), float64 bit for bit the global
     chain on the terrain kernels and float32 perturbation within the
     bench's gate of its global chain (the terrain perturbation stage
     kernel); each with only terrain launches (or tile launches) and no
     plain call, a finite state, mass drift below 1e-11 (f32: its epsilon),
-    max |w| and steps/s.
+    max |w| and steps/s;
+35. Williamson 5 and 10's float32 perturbation form with topography and
+    the output layer: (a) the perturbation form's state mode with case-5
+    topography (its own kernel, sw_operator_pert_topo_kernel) against its
+    plain version at (10,3), (64,3), (4,2), (64,7), f64 within 1e-12 and
+    f32 by phase 17's rule (the RHS on its term scale), RHS, stage and
+    stage + x, each call holding mass; its card time at (64,3) (RHS and
+    stage + x, f32 and f64) in turns with the perturbation kernel without
+    topography, the plain version's, the bound and both kernels'
+    resources; (b) through Simulation(ini).run(): case 5 EPI3 + kiops_jit
+    mixed at nel = 10 (dt = 1800 s, 5 steps) and nel = 30 (dt = 900 s, 4
+    steps), case 10 at nel = 10, case 5 Ros2 + fgmres_jit mixed (2 steps),
+    each on topography launches only (the absolute state mode with
+    topography, the float32 tangent pair with topography; the companion's
+    float64 base RHS on the absolute kernel at setup) and no plain call,
+    and case 5 at (4,3) on the card against the CPU within 2e-5; (c) the
+    float32 perturbation TVD-RK3 chain of case 5 at (64,3), 30 steps, one
+    launch of the new kernel a stage, within bench.py's 5e-3 gate; (d) the
+    CLI with every output knob (NetCDF fields, solver statistics, RHS
+    timing samples, the runtime file) on case 5 EPI3 at nel = 10, its
+    steps/s beside the same run without output, and dcmip31 TVD-RK3 at
+    12x12x3, s = 2 with field output; every file read back with scipy.
 
 Each phase prints one JSON line; then the kernels line, the card's
 ``nvidia-smi`` name and power limit, and last the result line. Any failure
@@ -444,12 +467,14 @@ def ptxas_summary(log: str):
     rows, current = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
-        f32_pert = m and re.search(r"sw_operator_f32_pert_kernelILi(\d+)E", m.group(1))
+        f32_pert = m and re.search(r"sw_operator_f32_pert(_topo)?_kernelILi(\d+)E", m.group(1))
         if f32_pert:
-            current = {"kernel": f"sw_operator f32 s={f32_pert.group(1)} pert"}
+            name = "sw_operator_pert_topo f32 s={}" if f32_pert.group(1) else "sw_operator f32 s={} pert"
+            current = {"kernel": name.format(f32_pert.group(2))}
             rows.append(current)
         elif m:
-            k = re.search(r"(sw_operator|sw_run|sw_edges|sw_tangent_prep|sw_tangent_apply|euler3d_operator|"
+            k = re.search(r"(sw_operator_pert_topo|sw_operator_topo|sw_tangent_prep_topo|sw_tangent_apply_topo|"
+                          r"sw_operator|sw_run|sw_edges|sw_tangent_prep|sw_tangent_apply|euler3d_operator|"
                           r"euler3d_interface|euler3d_volume|euler3d_tangent_prep|euler3d_tangent_apply|"
                           r"euler3d_tangent)_kernelI([df])Li(\d+)E(Lb([01])E)?(Lb([01])E)?", m.group(1))
             # The flags: PERT then TERRAIN (the 3D passes and prep; a source
@@ -543,6 +568,7 @@ def reset_counts():
     swop.pert_launches = swop.edge_launches = swop.halo_launches = swop.run_launches = swop.plain_calls = 0
     swop.state_launches = swop.tangent_prep_launches = swop.tangent_apply_launches = swop.plain_tangent_calls = 0
     swop.topo_launches = swop.topo_tangent_prep_launches = swop.topo_tangent_apply_launches = 0
+    swop.pert_topo_launches = 0
     swop.s1_tangent_prep_launches = swop.s1_tangent_apply_launches = 0
     e3op.pert_launches = e3op.pert_stage_launches = e3op.pert_tangent_launches = e3op.plain_calls = 0
     swop.tile_launches = swop.pert_tile_launches = e3op.tile_launches = e3op.pert_tile_launches = 0
@@ -562,7 +588,8 @@ def read_counts():
             "sw_state": swop.state_launches, "sw_tangent_prep": swop.tangent_prep_launches,
             "sw_tangent_apply": swop.tangent_apply_launches,
             "sw_plain_tangent_calls": swop.plain_tangent_calls,
-            "sw_operator_topo": swop.topo_launches, "sw_tangent_prep_topo": swop.topo_tangent_prep_launches,
+            "sw_operator_topo": swop.topo_launches, "sw_pert_topo": swop.pert_topo_launches,
+            "sw_tangent_prep_topo": swop.topo_tangent_prep_launches,
             "sw_tangent_apply_topo": swop.topo_tangent_apply_launches,
             "sw_tangent_prep_s1": swop.s1_tangent_prep_launches, "sw_tangent_apply_s1": swop.s1_tangent_apply_launches,
             "euler3d_operator": e3op.launches,
@@ -873,11 +900,10 @@ def phase10(torch):
 
 
 def _epi2_run(torch, nel_h, nel_v, s, nsteps, tag, profile_steps):
-    """One dcmip31 EPI2+KIOPS run through the CLI on the card; checks the
-    launch counts, state, mass drift and checkpoints, then profiles
-    ``profile_steps`` steps of a second build; returns its JSON row."""
-    from wxfactory_tpu_torch import __main__ as cli
-    from wxfactory_tpu_torch.kernels.check import euler3d_setup
+    """One dcmip31 EPI2+KIOPS run through ``Simulation(ini).run()``, the
+    CLI's own call, on the card; checks the launch counts, state, mass drift
+    and checkpoints, then profiles ``profile_steps`` steps of the same
+    Simulation from its initial state; returns its JSON row."""
     from wxfactory_tpu_torch.output import global_mass_3d
     from wxfactory_tpu_torch.output.state import load_state
     from wxfactory_tpu_torch.profile import profile_simulation
@@ -895,15 +921,16 @@ def _epi2_run(torch, nel_h, nel_v, s, nsteps, tag, profile_steps):
     reset_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(log):
-        rc = cli.main([str(ini), "--device", "cuda"])
+        sim = Simulation(str(ini), device="cuda")
+        sim.run()
     wall = time.perf_counter() - t0
     counts = read_counts()
     text = log.getvalue()
     sys.stderr.write(text[-3000:])
     krylov = [tuple(int(m.group(i)) for i in (1, 2, 3, 5)) for m in KRYLOV_LINE.finditer(text)]
     run = re.search(r"Completed (\d+) steps in (\S+) s \((\S+) steps/s\)", text)
-    if rc != 0 or run is None:
-        raise AssertionError(f"EPI2 main path ({tag}) exited with {rc}; Krylov statistics per step "
+    if run is None:
+        raise AssertionError(f"EPI2 main path ({tag}) did not complete; Krylov statistics per step "
                              f"(iterations, substeps, rejected, last size): {krylov}")
     if counts["euler3d_operator"] != nsteps:
         raise AssertionError(f"{counts['euler3d_operator']} RHS-kernel launches in {nsteps} EPI2 steps")
@@ -916,7 +943,7 @@ def _epi2_run(torch, nel_h, nel_v, s, nsteps, tag, profile_steps):
         raise AssertionError(f"plain calls on the card: {counts}")
     if len(krylov) != nsteps or sum(k[0] for k in krylov) != counts["jacobian_actions"]:
         raise AssertionError(f"Krylov statistics {krylov} do not account for {counts['jacobian_actions']} actions")
-    _, ops, metric, _, _ = euler3d_setup(nel_h, nel_v, s, 31)
+    ops, metric = sim.ops, sim.metric
     masses = []
     for step in range(nsteps + 1):
         files = glob.glob(str(out_dir / f"state_vector_*.{step:08d}.npy"))
@@ -936,7 +963,7 @@ def _epi2_run(torch, nel_h, nel_v, s, nsteps, tag, profile_steps):
     if not max(abs(d) for d in drifts) < 1e-7:
         raise AssertionError(f"mass drift {drifts} over {nsteps} EPI2 steps")
     with contextlib.redirect_stdout(io.StringIO()):
-        prof = profile_simulation(Simulation(str(ini), device="cuda"), steps=profile_steps, warmup=1)
+        prof = profile_simulation(sim, steps=profile_steps, warmup=1)
     run_s = float(run.group(2))
     return {
         "case": 31, "nel_h": nel_h, "nel_v": nel_v, "s": s, "points": 6 * nel_v * nel_h * nel_h * s**3,
@@ -1118,10 +1145,9 @@ def _kiops_jit_run(torch, nel_h, nel_v, s, nsteps, mixed, tag, profile_steps, ch
     CLI's own call, on the card, with every wait of the host for the card
     but the counted ones raising (``forbid_uncounted_syncs``); checks the
     launch counts, syncs, state, mass drift at every checkpoint and the
-    checkpoints, then profiles ``profile_steps`` steps of a second build
-    (none when 0); returns its JSON row."""
+    checkpoints, then profiles ``profile_steps`` steps of the same
+    Simulation from its initial state (none when 0); returns its JSON row."""
     from wxfactory_tpu_torch.common.device import forbid_uncounted_syncs
-    from wxfactory_tpu_torch.kernels.check import euler3d_setup
     from wxfactory_tpu_torch.output import global_mass_3d
     from wxfactory_tpu_torch.output.state import load_state
     from wxfactory_tpu_torch.profile import profile_simulation
@@ -1176,7 +1202,7 @@ def _kiops_jit_run(torch, nel_h, nel_v, s, nsteps, mixed, tag, profile_steps, ch
     step_syncs = counts["host_syncs"] - 2
     if step_syncs > controls + 2 * nsteps:
         raise AssertionError(f"{step_syncs} host syncs for {controls} Krylov controls in {nsteps} steps")
-    _, ops, metric, _, _ = euler3d_setup(nel_h, nel_v, s, 31)
+    ops, metric = sim.ops, sim.metric
     masses = {}
     for step in range(0, nsteps + 1, chunk):
         files = glob.glob(str(out_dir / f"state_vector_*.{step:08d}.npy"))
@@ -1208,8 +1234,10 @@ def _kiops_jit_run(torch, nel_h, nel_v, s, nsteps, mixed, tag, profile_steps, ch
     }
     if not profile_steps:
         return row
+    # The run's own Simulation, from its initial state again (EPI2 carries
+    # nothing from step to step).
     with contextlib.redirect_stdout(io.StringIO()):
-        prof = profile_simulation(Simulation(str(ini), device="cuda"), steps=profile_steps, warmup=1)
+        prof = profile_simulation(sim, steps=profile_steps, warmup=1)
     iters = prof["krylov_iterations_per_step"] or 1.0
     return dict(
         row, profiled_step_ms=prof["profiled_step_ms"], device_busy_share=prof["device_busy_share"],
@@ -1844,7 +1872,6 @@ def _ros2_run(torch, nel_h, nel_v, s, dt, nsteps, solver, mixed, chunk, tag):
     launches against Jacobian actions, syncs, state and mass at the
     checkpoints; returns its JSON row."""
     from wxfactory_tpu_torch.common.device import forbid_uncounted_syncs
-    from wxfactory_tpu_torch.kernels.check import euler3d_setup
     from wxfactory_tpu_torch.output import global_mass_3d
     from wxfactory_tpu_torch.output.state import load_state
     from wxfactory_tpu_torch.simulation import Simulation
@@ -1905,7 +1932,7 @@ def _ros2_run(torch, nel_h, nel_v, s, dt, nsteps, solver, mixed, chunk, tag):
     step_syncs = counts["host_syncs"] - 2
     if solver != "fgmres" and step_syncs > cycles + nsteps + 2 * -(-nsteps // save):
         raise AssertionError(f"{step_syncs} host syncs for {cycles} cycles in {nsteps} steps")
-    _, ops, metric, _, _ = euler3d_setup(nel_h, nel_v, s, 31)
+    ops, metric = sim.ops, sim.metric
     masses = {}
     for step in range(0, nsteps + 1, save):
         files = glob.glob(str(out_dir / f"state_vector_*.{step:08d}.npy"))
@@ -2471,9 +2498,11 @@ def _sw_run(torch, tag, nel, dt, nsteps, integrator, solver, linear_solver, mixe
     if len(krylov) != reported:
         raise AssertionError(f"{len(krylov)} Krylov reports in {nsteps} steps: {krylov}")
     if device == "cuda":
-        want = {"sw_state": rhs_calls, "sw_operator": rhs_calls + mixed,
+        # With the mixed companion its float64 base RHS at setup: the
+        # halo-plane launch, or with topography the state mode's.
+        want = {"sw_state": rhs_calls + (mixed if topo else 0), "sw_operator": rhs_calls + mixed,
                 "sw_tangent_apply": counts["jacobian_actions"], "sw_tangent_prep": counts["linearisations"],
-                "sw_operator_topo": rhs_calls if topo else 0,
+                "sw_operator_topo": rhs_calls + mixed if topo else 0, "sw_pert_topo": 0,
                 "sw_tangent_apply_topo": counts["jacobian_actions"] if topo else 0,
                 "sw_tangent_prep_topo": counts["linearisations"] if topo else 0,
                 "sw_pert": 0, "sw_plain_calls": 0, "sw_plain_tangent_calls": 0}
@@ -2519,7 +2548,8 @@ def _sw_run(torch, tag, nel, dt, nsteps, integrator, solver, linear_solver, mixe
                    edge_launches=counts["sw_edges"], halo_launches=counts["sw_halo"],
                    plain_calls=counts["sw_plain_calls"], plain_tangent_calls=counts["sw_plain_tangent_calls"],
                    topo_launches={k: counts[k] for k in ("sw_operator_topo", "sw_tangent_prep_topo",
-                                                         "sw_tangent_apply_topo")})
+                                                         "sw_tangent_apply_topo")},
+                   pert_topo_launches=counts["sw_pert_topo"])
     return row, state
 
 
@@ -2806,7 +2836,7 @@ def phase33(torch):
     FGMRES(100) alone and with 2-level p-mg (kiops smoother) against the
     JAX package's gate (tests/test_framework.py:316-317), and with 3-level
     fv-mg (the s = 1 tangent pair on its FV levels); Ros2 with p-mg through
-    Simulation on case 5 and on dcmip31 at 20x20x5, s = 3, dt = 30 s, each
+    Simulation on case 5 and on dcmip31 at 20x20x3, s = 3, dt = 30 s, each
     beside the run without a preconditioner; lu and ilu at nel = 4, s = 2."""
     from wxfactory_tpu_torch.kernels.check import sw_topo_setup
     from wxfactory_tpu_torch.models import ShallowWaterRHS
@@ -2872,10 +2902,10 @@ def phase33(torch):
     ros2 = []
     sw = SW_EPI_INI.format(case=5, dt=1800.0, t_end=3600.0, integrator="ros2", solver="pmex", linear_solver="auto",
                            mixed=0, s=3, nel=10, steps=0, stat=0, out=WORK / "phase33_sw")
-    # dcmip31 at 20x20x5: 5 levels keep the script within its time limit.
-    e3 = DCMIP31_INI.format(dt=30, t_end=30, integrator="ros2", verbose=1, s=3, nel_h=20, nel_v=5, save=0,
+    # dcmip31 at 20x20x3: 3 levels keep the script within its time limit.
+    e3 = DCMIP31_INI.format(dt=30, t_end=30, integrator="ros2", verbose=1, s=3, nel_h=20, nel_v=3, save=0,
                             out=WORK / "phase33_e3")
-    for tag, text, extra, nsteps in (("sw_case5", sw, ROS2_PRE_SW, 2), ("dcmip31_20x20x5", e3, ROS2_PRE_E3, 1)):
+    for tag, text, extra, nsteps in (("sw_case5", sw, ROS2_PRE_SW, 2), ("dcmip31_20x20x3", e3, ROS2_PRE_E3, 1)):
         for row in _ros2_pre_pair(torch, tag, text + extra.format(pre="p-mg"), nsteps):
             ros2.append(row)
             emit({"phase": 33, "ros2": tag, **row})
@@ -2919,8 +2949,8 @@ output_dir = {out}
 """
 # (tag, case, nel_h, nel_v, s, dt, steps, integrator, exponential solver, mixed, chunk): paths (a)-(d).
 TERRAIN_RUNS = [("a_dcmip21_tvdrk3", 21, 20, 20, 3, 0.1, 60, "tvdrk3", "kiops", 0, 1),
-                ("b_dcmip21_epi2_kiops", 21, 20, 20, 3, 2.0, 3, "epi2", "kiops", 0, 1),
-                ("c_dcmip20_epi2_kiops_jit_mixed", 20, 20, 20, 3, 30.0, 5, "epi2", "kiops_jit", 1, 5),
+                ("b_dcmip21_epi2_kiops", 21, 20, 10, 3, 2.0, 3, "epi2", "kiops", 0, 1),
+                ("c_dcmip20_epi2_kiops_jit_mixed", 20, 20, 10, 3, 30.0, 5, "epi2", "kiops_jit", 1, 5),
                 ("d_dcmip22_tvdrk3", 22, 20, 10, 3, 0.1, 60, "tvdrk3", "kiops", 0, 1)]
 TERRAIN_TILE = (20, 0.1, 20)  # DCMIP 20 at TERRAIN_MAIN: (case, dt, steps) of the tile step, path (e)
 TERRAIN_MASS_DRIFT = 1e-11
@@ -3285,6 +3315,296 @@ def phase34(torch, smi):
     return {"errors": errors, "launches": launches, "timing": timing}
 
 
+# Phase 35: the perturbation form with bottom topography (the float32
+# companion and production point of Williamson cases 5 and 10) and the
+# output layer. The kernel's shapes, its timed shape, the Simulation runs
+# (tag, nel, dt, steps, integrator, exponential solver, linear solver,
+# mixed_precision_krylov, case): the case-5 EPI3 + kiops_jit mixed runs at
+# the reference's shape (config/case5.ini: nel = 10, s = 3) and at the JAX
+# package's EPI3 production width (bench.py:573-606: nel = 30, dt = 900 s),
+# case 10 at nel = 10, and Ros2 + fgmres_jit mixed.
+PERT_TOPO_SHAPES = [(10, 3), (64, 3), (4, 2), (64, 7)]
+PERT_TOPO_TIMED = (64, 3)
+SW_TOPO_MIXED_RUNS = [("a_case5_epi3_kiops_jit_mixed", 10, 1800.0, 5, "epi3", "kiops_jit", "fgmres", 1, 5),
+                      ("b_case5_epi3_kiops_jit_mixed_nel30", 30, 900.0, 4, "epi3", "kiops_jit", "fgmres", 1, 5),
+                      ("c_case10_epi3_kiops_jit_mixed", 10, 1800.0, 5, "epi3", "kiops_jit", "fgmres", 1, 10),
+                      ("d_case5_ros2_fgmres_jit_mixed", 10, 1800.0, 2, "ros2", "pmex", "fgmres_jit", 1, 5)]
+# (c): the float32 perturbation TVD-RK3 chain of case 5 (nel, s, dt, steps).
+SW_TOPO_CHAIN = (64, 3, 10.0, 30)
+OUTPUT_KNOBS = "output_freq = 1\nstore_solver_stats = 1\nrhs_timing_freq = 2\nstore_total_time = 1\nbase_output_file = case5\n"
+RHS_STAGES = ["full_rhs(fused)", "extrapolation", "interior_derivative", "halo_exchange"]
+
+
+def _pert_topo_timing(torch, smi):
+    """The card's time a call of the perturbation kernel with topography at
+    PERT_TOPO_TIMED (RHS and stage + x, float32 and float64), in turns
+    with the perturbation kernel without topography on case 6's base, the
+    plain version's, the bound of kernels/check.py, and the kernels'
+    resources."""
+    from wxfactory_tpu_torch.kernels import check
+    from wxfactory_tpu_torch.ops import sw_operator as swop
+
+    nel, s = PERT_TOPO_TIMED
+    rows = []
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).replace("torch.", "")
+        con, topology, base, topo, dq, x = check.sw_pert_topo_inputs(nel, s, dtype, "cuda")
+        fcon, _, fbase, fdq, fx = check.sw_pert_inputs(nel, s, dtype, "cuda")
+        row = {"nel": nel, "s": s, "dtype": name}
+        for mode, kw, fkw in (("rhs", {}, {}),
+                              ("stage_x", dict(x=x, a=0.75, b=0.25, cdt=7.5), dict(x=fx, a=0.75, b=0.25, cdt=7.5))):
+            kernel = lambda: swop.sw_operator(dq, None, con, base=base, topology=topology, topo=topo, **kw)
+            flat = lambda: swop.sw_operator(fdq, None, fcon, base=fbase, topology=topology, **fkw)
+            plain = lambda: swop.sw_operator_pert_plain(dq, None, con, base, topology=topology, topo=topo, **kw)
+            for fn in (kernel, flat):
+                fn()
+            torch.cuda.synchronize()
+            turns = {"kernel": [], "flat": []}
+            for which in ("flat", "kernel", "kernel", "flat"):
+                turns[which].append(_device_ms(torch, kernel if which == "kernel" else flat, 20))
+            row[f"{mode}_kernel_ms"] = statistics.median(turns["kernel"])
+            row[f"{mode}_kernel_turns_ms"] = turns["kernel"]
+            row[f"{mode}_flat_ms"] = statistics.median(turns["flat"])
+            row[f"{mode}_flat_turns_ms"] = turns["flat"]
+            row[f"{mode}_plain_ms"] = _device_ms(torch, plain, 3)
+            work = check.sw_work(nel, s, dtype, stage=mode != "rhs", use_x=mode != "rhs", pert=True, state=True,
+                                 topo=True)
+            row.update({f"{mode}_{k}": v for k, v in _bound(work, name).items()})
+            row[f"{mode}_flat_bound_ms"] = _bound(check.sw_work(nel, s, dtype, stage=mode != "rhs",
+                                                                use_x=mode != "rhs", pert=True, state=True),
+                                                  name)["bound_ms"]
+        rows.append(row)
+    resources = {f"{str(dtype).replace('torch.', '')} s={s}": {
+        k: v for k, v in check.sw_kernel_resources(dtype, s).items() if k in ("state_perturbation", "state_pert_topo")}
+        for dtype in (torch.float32, torch.float64) for s in sorted({s for _, s in PERT_TOPO_SHAPES})}
+    return {"gpu": smi, "timing_note": "*_kernel_ms, *_flat_ms: the card's time a call (20 calls queued behind a "
+            "sleep kernel, CUDA events), median of two turns each in the order flat, kernel, kernel, flat; flat: "
+            "the perturbation kernel without topography on case 6's base; *_plain_ms: the plain version, 3 calls",
+            "timing": rows, "resources": resources}
+
+
+def _sw_topo_chain(torch):
+    """(c): the float32 perturbation TVD-RK3 chain of case 5 at
+    SW_TOPO_CHAIN: its setup's launches (the base's edge and halo kernels
+    and the float64 base RHS on the absolute kernel with topography), one
+    perturbation launch with topography a stage and nothing else, mass, and
+    bench.py:425-446's gate (the f32 perturbation RHS against the f64
+    truth at the state four f64 TVD-RK3 steps of dt = 150 (10/nel)(3/s) on,
+    scaled by each variable's tendency max), beside the f32 absolute
+    kernel's error."""
+    from wxfactory_tpu_torch.integrators import Tvdrk3
+    from wxfactory_tpu_torch.kernels.check import _scaled, per_variable_max, sw_topo_setup
+    from wxfactory_tpu_torch.models import ShallowWaterRHS
+    from wxfactory_tpu_torch.output.diagnostics import global_integral_2d
+
+    nel, s, dt, nsteps = SW_TOPO_CHAIN
+    geom, ops, metric, topology, q0, topo = sw_topo_setup(nel, s)
+    reset_counts()
+    t0 = time.perf_counter()
+    rhs = ShallowWaterRHS(geom, ops, metric, dtype=torch.float32, device="cuda", topology=topology,
+                          perturbation_base=q0, topo=topo)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    counts = read_counts()
+    setup_want = {"sw_edges": 1, "sw_halo": 1, "sw_operator": 1, "sw_operator_topo": 1, "sw_state": 1,
+                  "sw_pert": 0, "sw_pert_topo": 0, "sw_plain_calls": 0}
+    setup_launches = {k: counts[k] for k in setup_want}
+    if setup_launches != setup_want:
+        raise AssertionError(f"case-5 perturbation base: launches {setup_launches}, expected {setup_want}")
+    rhs64 = ShallowWaterRHS(geom, ops, metric, device="cuda", topology=topology, topo=topo)
+    gdt = 150.0 * (10.0 / nel) * (3.0 / s)
+    q = torch.as_tensor(q0, device="cuda")
+    for _ in range(4):
+        k1 = q + gdt * rhs64(q)
+        k2 = 0.75 * q + 0.25 * (k1 + gdt * rhs64(k1))
+        q = q / 3.0 + 2.0 / 3.0 * (k2 + gdt * rhs64(k2))
+    truth = rhs64(q)
+    scale = per_variable_max(truth)
+    gate = _scaled(rhs.delta((q - rhs.base_state.double()).float()).double() - truth, scale)
+    abs32 = ShallowWaterRHS(geom, ops, metric, dtype=torch.float32, device="cuda", topology=topology, topo=topo)
+    gate_abs = _scaled(abs32(q.float()).double() - truth, scale)
+    if not gate < GATE_REL:
+        raise AssertionError(f"case-5 f32 perturbation RHS {gate} of the tendency scale from the f64 truth, gate "
+                             f"{GATE_REL}")
+    q_init = torch.as_tensor(q0, dtype=torch.float32, device="cuda")
+    Tvdrk3(rhs).step(q_init, dt)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    integ, qs = Tvdrk3(rhs), q_init
+    for _ in range(nsteps):
+        qs = integ.step(qs, dt)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = read_counts()
+    want = {"sw_pert": 3 * nsteps, "sw_pert_topo": 3 * nsteps, "sw_state": 3 * nsteps, "sw_operator": 0,
+            "sw_operator_topo": 0, "sw_halo": 0, "sw_edges": 0, "sw_plain_calls": 0}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"case-5 f32 perturbation chain: launches {got}, expected {want}")
+    mass = lambda t: global_integral_2d(t[0].double().cpu().numpy(), ops, metric)
+    drift = (mass(qs) - mass(q_init)) / mass(q_init)
+    if not (bool(torch.isfinite(qs).all()) and abs(drift) < MASS_DRIFT_F32):
+        raise AssertionError(f"case-5 f32 perturbation chain: finite {bool(torch.isfinite(qs).all())}, mass "
+                             f"drift {drift}")
+    points = 6 * nel * nel * s * s
+    return {"case": 5, "nel": nel, "s": s, "points": points, "dtype": "float32", "form": "perturbation",
+            "integrator": "tvdrk3", "dt": dt, "steps": nsteps, "setup_s": setup_s, "chained_s": elapsed,
+            "chained_gridpoints_per_s": points * 3 * nsteps / elapsed, "chained_steps_per_s": nsteps / elapsed,
+            "setup_launches": setup_launches, "chained_launches": got, "mass_drift": drift,
+            "gate_err": gate, "gate_err_f32_absolute": gate_abs, "gate": GATE_REL}
+
+
+def _output_run(torch, tag, text, nsteps):
+    """One run through the CLI (``python -m wxfactory_tpu_torch``'s main) of
+    an INI; returns (exit code, its stdout, seconds, steps/s, counts)."""
+    from wxfactory_tpu_torch import __main__ as cli
+
+    ini = WORK / f"phase35_{tag}.ini"
+    ini.write_text(text)
+    log = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        rc = cli.main([str(ini), "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    out = log.getvalue()
+    run = re.search(r"Completed (\d+) steps in (\S+) s \((\S+) steps/s\)", out)
+    if rc != 0 or run is None or int(run.group(1)) != nsteps:
+        sys.stderr.write(out[-3000:])
+        raise AssertionError(f"phase 35 {tag}: the CLI exited with {rc}")
+    return out, wall, float(run.group(3)), read_counts()
+
+
+def _fresh(path):
+    if path.exists():
+        for old in path.iterdir():
+            old.unlink()
+    path.mkdir(parents=True, exist_ok=True)
+    return path
+
+
+def _outputs(torch):
+    """(d): the output layer through the CLI: case 5 EPI3 + pmex at nel = 10
+    with every output knob on and again with none (steps/s of both), then
+    dcmip31 TVD-RK3 at 12x12x3, s = 2, with field output; each file read
+    back (scipy): the number of writes, the last write's h (rho) against the
+    final checkpoint's h + hsurf (rho), the solver-stats rows and RHS timing
+    stages, the runtime line."""
+    import sqlite3
+
+    import numpy as np
+    from scipy.io import netcdf_file
+
+    from wxfactory_tpu_torch.kernels.check import sw_topo_setup
+    from wxfactory_tpu_torch.output.netcdf import _to_single_block_3d
+    from wxfactory_tpu_torch.output.state import load_state
+
+    nsteps, nel, s = 4, 10, 3
+    rows = {}
+    for tag, knobs in (("sw_outputs", OUTPUT_KNOBS), ("sw_no_outputs", "")):
+        out_dir = _fresh(WORK / f"phase35_{tag}")
+        text = SW_EPI_INI.format(case=5, dt=1800.0, t_end=1800.0 * nsteps, integrator="epi3", solver="pmex",
+                                 linear_solver="fgmres", mixed=0, s=s, nel=nel, steps=nsteps, stat=0,
+                                 out=out_dir) + knobs
+        log, wall, rate, counts = _output_run(torch, tag, text, nsteps)
+        if counts["sw_plain_calls"] or counts["sw_plain_tangent_calls"] or counts["sw_pert"]:
+            raise AssertionError(f"phase 35 {tag}: plain calls or perturbation launches {counts}")
+        rows[tag] = {"steps_per_s": rate, "wall_s": wall, "host_syncs": counts["host_syncs"],
+                     "operator_topo_launches": counts["sw_operator_topo"]}
+        if not knobs:
+            continue
+        state, _, _ = load_state(glob.glob(str(out_dir / f"state_vector_*.{nsteps:08d}.npy"))[0])
+        geom, _, _, _, _, topo = sw_topo_setup(nel, s)
+        with netcdf_file(str(out_dir / "case5.nc"), "r", mmap=False) as f:
+            h = np.array(f.variables["h"][:])
+            times = np.array(f.variables["time"][:])
+            fields = sorted(f.variables)
+        want_h = geom.to_single_block(state[0] + topo.hsurf)
+        h_err = float(np.abs(h[-1] - want_h).max() / np.abs(want_h).max())
+        db = sqlite3.connect(str(out_dir / "solver_stats.db"))
+        results = db.execute("SELECT step_id, num_iterations FROM results_data").fetchall()
+        timing = db.execute("SELECT step_id, stage, elapsed FROM rhs_timing").fetchall()
+        db.close()
+        runtime = (out_dir / "runtime_epi3.txt").read_text().split()
+        ok = (h.shape[0] == nsteps + 1 and h_err <= 1e-12 and list(times) == [1800.0 * k for k in range(nsteps + 1)]
+              and [r[0] for r in results] == list(range(2, nsteps + 1))
+              and [(r[0], r[1]) for r in timing] == [(k, st) for k in range(2, nsteps + 1, 2) for st in RHS_STAGES]
+              and all(r[2] > 0 for r in timing) and runtime[:4] == ["pmex", str(nel), "epi3", "5"])
+        rows[tag].update(writes=int(h.shape[0]), fields=fields, h_err=h_err, results_rows=len(results),
+                         iterations=[r[1] for r in results], rhs_timing_s={st: [r[2] for r in timing if r[1] == st]
+                                                                            for st in RHS_STAGES},
+                         runtime_line=" ".join(runtime), ok=ok)
+        if not ok:
+            raise AssertionError(f"phase 35 case-5 outputs: {rows[tag]}")
+
+    e3_steps, e3_freq = 10, 5
+    out_dir = _fresh(WORK / "phase35_dcmip31")
+    text = DCMIP31_INI.format(dt=0.5, t_end=0.5 * e3_steps, integrator="tvdrk3", verbose=0, s=2, nel_h=12,
+                              nel_v=3, save=e3_steps, out=out_dir) + f"output_freq = {e3_freq}\nbase_output_file = e3\n"
+    log, wall, rate, counts = _output_run(torch, "dcmip31", text, e3_steps)
+    state, _, _ = load_state(glob.glob(str(out_dir / f"state_vector_*.{e3_steps:08d}.npy"))[0])
+    with netcdf_file(str(out_dir / "e3.nc"), "r", mmap=False) as f:
+        rho = np.array(f.variables["rho"][:])
+        fields = sorted(f.variables)
+    want = _to_single_block_3d(state[0], 3, 12, 2)
+    rho_err = float(np.abs(rho[-1] - want).max() / np.abs(want).max())
+    row = {"steps_per_s": rate, "wall_s": wall, "writes": int(rho.shape[0]), "fields": fields, "rho_err": rho_err,
+           "operator_launches": counts["euler3d_operator"]}
+    if not (rho.shape[0] == e3_steps // e3_freq + 1 and rho_err <= 1e-12 and counts["euler3d_plain_calls"] == 0):
+        raise AssertionError(f"phase 35 dcmip31 outputs: {row}")
+    rows["dcmip31_outputs"] = row
+    return rows
+
+
+def phase35(torch, smi):
+    """The perturbation form's state mode with topography against its plain
+    version at PERT_TOPO_SHAPES (f64, f32; RHS, stage, stage + x; mass),
+    its card time beside the kernel without topography, (b) the mixed
+    companion of cases 5 and 10 through Simulation(ini).run() and the card
+    against the CPU at (4, 3), (c) case 5's float32 chain, (d) the output
+    layer through the CLI."""
+    import numpy as np
+
+    from wxfactory_tpu_torch.kernels import check
+
+    rows = [r for nel, s in PERT_TOPO_SHAPES for dtype in (torch.float64, torch.float32)
+            for r in check.compare_sw_pert_topo(nel, s, dtype, "cuda")]
+    emit_comparison(35, rows, ("nel", "s"), tag="_pert_topo")
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"the perturbation kernel with topography disagrees with its plain version: {bad}")
+    timing = _pert_topo_timing(torch, smi)
+    emit({"phase": 35, **timing, "zero_equals_flat": all(r["zero_equals_flat"] for r in rows)})
+
+    runs, totals = [], {}
+    for run in SW_TOPO_MIXED_RUNS:
+        row, _ = _sw_run(torch, *run[:8], case=run[8])
+        if row["topo_launches"]["sw_tangent_apply_topo"] == 0 or row["pert_topo_launches"]:
+            raise AssertionError(f"{run[0]}: launches {row['topo_launches']}, perturbation {row['pert_topo_launches']}")
+        runs.append(row)
+        for k, n in row["topo_launches"].items():
+            totals[k] = totals.get(k, 0) + n
+    pair = ("e_case5_epi3_kiops_jit_mixed_4x3", 4, 1800.0, 2, "epi3", "kiops_jit", "fgmres", 1)
+    card, card_state = _sw_run(torch, *pair, case=5)
+    cpu, cpu_state = _sw_run(torch, *pair, device="cpu", case=5)
+    scale = np.abs(cpu_state).reshape(3, -1).max(axis=1).reshape(3, 1, 1, 1, 1)
+    err = float((np.abs(card_state - cpu_state) / scale).max())
+    emit({"phase": 35, "results": runs, "card_vs_cpu_4x3": {"err": err, "tol": 2e-5,
+                                                           "card_steps_per_s": card["steps_per_s"],
+                                                           "cpu_steps_per_s": cpu["steps_per_s"]}})
+    if not err <= 2e-5:
+        raise AssertionError(f"case-5 mixed EPI3 on the card and the CPU differ by {err} of scale")
+
+    chain = _sw_topo_chain(torch)
+    outputs = _outputs(torch)
+    emit({"phase": 35, "chain": chain, "outputs": outputs})
+    nel, s = PERT_TOPO_TIMED
+    main = [r for r in rows if (r["nel"], r["s"], r["dtype"]) == (nel, s, "float32")]
+    return {"timing": timing, "launches": chain["chained_launches"]["sw_pert_topo"], "topo_launches": totals,
+            "max_abs_err": max(r["max_abs_err"] for r in main)}
+
+
 def main() -> int:
     try:
         import torch
@@ -3343,6 +3663,7 @@ def main() -> int:
     topo_launches = timed(32, phase32, torch)
     s1_launches = timed(33, phase33, torch)
     terrain = timed(34, phase34, torch, smi)
+    pert_topo = timed(35, phase35, torch, smi)
     sw_entry = lambda name, mode, replaces, source="wxfactory_tpu_torch/csrc/sw_operator.cu", row=swt["sw_pert"]: {
         "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": sw_counts[name],
         "max_abs_err": sw_errs[name], "ms": row[f"{mode}_kernel_ms"], "plain_ms": row[f"{mode}_plain_ms"],
@@ -3464,6 +3785,20 @@ def main() -> int:
                         "bound_ms": row[f"{mode}_bound_ms"], "bound_by": row[f"{mode}_bound_by"],
                         "library_ms": None, "ms_without_terrain": row[f"{mode}_flat_ms"],
                         **({"apply_floor_ms": row["apply_floor_ms"]} if mode == "apply" else {})})
+    # The perturbation form's state mode with topography (Williamson 5 and
+    # 10's float32 companion and production point), timed at
+    # PERT_TOPO_TIMED in float32 (stage + x: the chain's call; its RHS beside
+    # it) in turns with the perturbation kernel without topography.
+    ptrow = next(t for t in pert_topo["timing"]["timing"] if t["dtype"] == "float32")
+    kernels.append({"name": "sw_pert_topo", "route": "cuda", "source": "wxfactory_tpu_torch/csrc/sw_operator.cu",
+                    "replaces": "wxfactory_tpu/ops/pallas_sw_gen.py:632 (perturbation mode with the bottom "
+                                "topography of wxfactory_tpu/models/shallow_water.py:254-443, which the JAX "
+                                "package runs in XLA)",
+                    "launches": pert_topo["launches"], "max_abs_err": pert_topo["max_abs_err"],
+                    "ms": ptrow["stage_x_kernel_ms"], "plain_ms": ptrow["stage_x_plain_ms"],
+                    "bound_ms": ptrow["stage_x_bound_ms"], "bound_by": ptrow["stage_x_bound_by"], "library_ms": None,
+                    "ms_without_topography": ptrow["stage_x_flat_ms"], "rhs_ms": ptrow["rhs_kernel_ms"],
+                    "rhs_bound_ms": ptrow["rhs_bound_ms"]})
     unmeasured = [k["name"] for k in kernels if not (k["ms"] > 0 and k["plain_ms"] > 0 and k["launches"] > 0)]
     if unmeasured:
         raise AssertionError(f"kernels without a time, a plain time or a launch on the main path: {unmeasured}")

@@ -178,10 +178,18 @@ output_dir = {out}
     want = np.asarray(q)
     scale = np.abs(want).reshape(3, -1).max(axis=1).reshape(3, 1, 1, 1, 1)
     assert float(np.abs((got - want) / scale).max()) < 1e-9
-    # What still raises on shallow water: topography in the perturbation
-    # form, the mixed companion's (ROADMAP item 17).
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 17"):
-        make_rhs_shallow_water(geom, ops, metric, device="cpu", topo=object(), perturbation_base=want)
+    # The perturbation form with topography (the mixed companion of cases 5
+    # and 10) builds on shallow water too: at its base its RHS is the
+    # absolute RHS with topography.
+    from wxfactory_tpu.testcases import williamson_case5
+
+    q5, topo = williamson_case5(geom, ops)
+    q5 = torch.as_tensor(np.asarray(q5))
+    pert = make_rhs_shallow_water(geom, ops, metric, device="cpu", topo=interop.sw_topography_fields(topo),
+                                  perturbation_base=q5.numpy())
+    absolute = interop.shallow_water_rhs(geom, ops, metric, topo=topo)(q5)
+    assert pert.base.topography
+    torch.testing.assert_close(pert(q5), absolute, rtol=0, atol=1e-12 * float(absolute.abs().max()))
 
 
 @pytest.mark.parametrize("solver", ["pmex", "pmex_1s", "kiops_ne"])

@@ -106,3 +106,29 @@ def test_unported_cases_raise():
     for case in (11, 12):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             initial_state_3d(g, case)
+
+
+def test_christoffel_system_is_the_reference_loop_bit_for_bit():
+    """The spatial Christoffel solve's matrices, assembled from the plan of
+    the reference loop's terms, against the loop itself (metric3d.py:938-996
+    of the reference): every bit, signed zeros included."""
+    from wxfactory_tpu_torch.geometry.metric3d import _christoffel_system
+
+    rng = np.random.default_rng(5)
+    n = 64
+    sg = rng.random(n) + 0.5
+    h = rng.standard_normal((n, 3, 3))
+    h = h + h.transpose(0, 2, 1)
+    h[:8] = 0.0
+    h[8:16] = -0.0
+    lhs = np.zeros((n, 3, 3, 3, 3, 3, 3))
+    for a in range(3):
+        for b in range(3):
+            for c in range(3):
+                for d in range(3):
+                    lhs[:, a, b, c, d, c, d] += sg * h[:, a, b]
+                    lhs[:, a, b, c, a, d, c] -= sg * h[:, d, b]
+                    lhs[:, a, b, c, b, c, d] -= sg * h[:, a, d]
+    got = _christoffel_system(sg[:, None] * h.reshape(n, 9))
+    assert got.shape == (n, 27, 27)
+    assert np.array_equal(got.view(np.int64), lhs.reshape(n, 27, 27).view(np.int64))

@@ -1,6 +1,6 @@
 """The port's CUDA kernels (SW operator and its perturbation mode and their
 shared-memory use, the SW halo, edge-trace, whole-run and tangent (J.v) kernels, the SW state mode and tangent
-pair with bottom topography, the SW tangent pair at s = 1 and the multigrid levels that launch it, 3D Euler
+pair with bottom topography, the SW perturbation form with bottom topography, the SW tangent pair at s = 1 and the multigrid levels that launch it, 3D Euler
 operator, its tangent
 prep and apply kernels and the perturbation form of both, with its stage mode, their terrain instantiations
 (DCMIP 20, 21, 22: every panel's metric, the Rayleigh sponge), and the tile kernels of both
@@ -33,6 +33,7 @@ from wxfactory_tpu_torch.kernels.check import (
     compare_sw_halo,
     compare_sw_operator,
     compare_sw_pert,
+    compare_sw_pert_topo,
     compare_sw_run,
     compare_sw_state_halo,
     compare_sw_tangent,
@@ -45,6 +46,7 @@ from wxfactory_tpu_torch.kernels.check import (
     sw_tangent_inputs,
     sw_tangent_resources,
     sw_pert_inputs,
+    sw_pert_topo_inputs,
     tangent_halos,
 )
 from wxfactory_tpu_torch.ops import euler3d_operator as e3op
@@ -335,6 +337,32 @@ def test_sw_topography_kernels_match_plain(cuda, nel, s, dtype):
     rows = compare_sw_tangent(nel, s, dtype, device="cuda", case=5)
     assert all(r["ok"] for r in rows), rows
     assert all(after > b for after, b in zip(counts(), before))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("nel,s", [(4, 2), (5, 3), (3, 5), (3, 8)])
+def test_sw_pert_topography_kernel_matches_plain(cuda, nel, s, dtype):
+    # The perturbation form's state mode with case-5 topography (RHS, stage,
+    # stage + x) against its plain version with mass; a launch counts in
+    # pert_topo_launches, pert_launches and state_launches, and not in
+    # topo_launches (the absolute kernel with topography, which builds the
+    # base's float64 RHS).
+    rows = compare_sw_pert_topo(nel, s, dtype, device="cuda")
+    assert all(r["ok"] for r in rows), rows
+    con, topology, base, topo, dq, _ = sw_pert_topo_inputs(nel, s, dtype, "cuda")
+    counts = lambda: (swop.pert_topo_launches, swop.pert_launches, swop.state_launches, swop.topo_launches)
+    before = counts()
+    swop.sw_operator(dq, None, con, base=base, topology=topology, topo=topo)
+    assert [a - b for a, b in zip(counts(), before)] == [1, 1, 1, 0]
+
+
+def test_sw_pert_topography_refuses_a_mismatched_base(cuda):
+    con, topology, base, topo, dq, x = sw_pert_topo_inputs(4, 3, torch.float32, "cuda")
+    with pytest.raises(ValueError, match="with topography"):
+        swop.sw_operator(dq, None, con, base=base, topology=topology)
+    halo = swop.sw_halo(swop.sw_edges(dq, con), topology)
+    with pytest.raises(ValueError, match="halo"):
+        swop.sw_operator(dq, halo, con, base=base, topology=topology, topo=topo)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])

@@ -160,7 +160,8 @@ def test_unported_ros2_raises_naming_roadmap(tmp_path, what):
         return
     # Ros2 on shallow water runs now (the SW Jacobian action): two case-6
     # steps of the INI through Simulation against the JAX Ros2 on the same
-    # grid; topography in the perturbation form still raises naming its item.
+    # grid; and the perturbation form with topography (the mixed companion
+    # of cases 5 and 10) builds: at its base its RHS is the absolute one.
     from wxfactory_tpu.geometry import make_cubed_sphere_2d, make_metric_2d
     from wxfactory_tpu.models import make_rhs_shallow_water as j_make_rhs_sw
     from wxfactory_tpu.ops.dfr import make_dfr_operators
@@ -181,5 +182,12 @@ def test_unported_ros2_raises_naming_roadmap(tmp_path, what):
     want = np.asarray(q)
     scale = np.abs(want).reshape(3, -1).max(axis=1).reshape(3, 1, 1, 1, 1)
     assert float(np.abs((got - want) / scale).max()) < 1e-9
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 17"):
-        make_rhs_shallow_water(geom, ops, metric, device="cpu", topo=object(), perturbation_base=np.asarray(q))
+    from wxfactory_tpu.testcases import williamson_case5
+
+    q5, topo = williamson_case5(geom, ops)
+    q5 = torch.as_tensor(np.asarray(q5))
+    pert = make_rhs_shallow_water(geom, ops, metric, device="cpu", topo=interop.sw_topography_fields(topo),
+                                  perturbation_base=q5.numpy())
+    absolute = interop.shallow_water_rhs(geom, ops, metric, topo=topo)(q5)
+    assert pert.base.topography
+    torch.testing.assert_close(pert(q5), absolute, rtol=0, atol=1e-12 * float(absolute.abs().max()))

@@ -99,17 +99,14 @@ def test_cuda_request_without_cuda_raises(tmp_path):
         # EPI on shallow water runs (tests/test_torch_sw_epi.py); srerk is
         # ROADMAP item 12.
         ("time_integrator = tvdrk3", "time_integrator = srerk3"),
-        # Case 5 runs (tests/test_torch_sw_topography.py); its float32
-        # perturbation-form companion does not carry topography (item 17).
-        ("case_number = 6\n[Time_integration]\ndt = 30\nt_end = 150\ntime_integrator = tvdrk3",
-         "case_number = 5\n[Time_integration]\ndt = 30\nt_end = 150\ntime_integrator = epi3\n"
-         "exponential_solver = kiops_jit\nmixed_precision_krylov = 1"),
+        # The modal filters are ROADMAP item 12.
+        ("[Spatial_discretization]\n", "[Spatial_discretization]\nfilter_apply = 1\n"),
         # One process has no 6N^2 tile mesh: distribute = shard_map there is a
         # configuration error (ValueError, as in the JAX package;
         # tests/test_torch_distributed.py); the GSPMD analogue is unported.
         ("distribute = off", "distribute = gspmd"),
     ],
-    ids=["integrator", "topography-case", "distribution"],
+    ids=["integrator", "filter", "distribution"],
 )
 def test_unported_configurations_raise(tmp_path, line, replacement):
     cfg = Configuration(INI.format(out=tmp_path).replace(line, replacement))

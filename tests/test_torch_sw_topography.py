@@ -17,9 +17,11 @@ tests/test_torch_kernel_cuda.py and chip_smoke.py phase 31).
   the JAX ``Simulation`` on the same INI: the same Krylov statistics,
   states within 1e-9 of each variable's max, blockstats mass drift below
   1e-12, and the energy diagnostic with the topography's potential term.
-* Every form that does not carry topography refuses it: the perturbation
-  form, the float32 mixed companion, ``packed_run``, the tile step, and
-  the operator's halo-plane mode and trace emission.
+* The perturbation form and the float32 mixed companion carry it (their
+  parity with the JAX package: tests/test_torch_sw_pert_topography.py);
+  every form that does not refuses it: ``packed_run``, the tile step (the
+  JAX package has neither with topography), and the operator's halo-plane
+  mode and trace emission.
 """
 
 import contextlib
@@ -157,32 +159,57 @@ def _case5_rhs(**kw):
     return geom, ops, metric, q0, topo, kw
 
 
-def test_perturbation_form_refuses_topography():
+def test_perturbation_form_carries_topography():
+    """The perturbation form around case 5's state with its topography:
+    its RHS at the base is the base's absolute RHS with topography, a delta
+    step equals the absolute stage with topography to rounding, and a base
+    built without topography refuses the planes (and one built with them
+    refuses a call without)."""
     geom, ops, metric, q0, topo, _ = _case5_rhs()
-    with pytest.raises(NotImplementedError, match="item 17"):
-        make_rhs_shallow_water(geom, ops, metric, device="cpu", topo=topo, perturbation_base=q0)
+    rhs = make_rhs_shallow_water(geom, ops, metric, device="cpu", topo=topo, perturbation_base=q0)
+    absolute = make_rhs_shallow_water(geom, ops, metric, device="cpu", topo=topo)
+    q = torch.as_tensor(q0)
+    torch.testing.assert_close(rhs(q), absolute(q), rtol=0, atol=1e-12 * float(absolute(q).abs().max()))
     con, topology, planes, x, y, _ = check.sw_topo_inputs(NEL, S, torch.float64, "cpu")
-    base = swop.build_base_planes(y, con, topology, torch.float64)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        swop.sw_operator(y - base.q0, None, con, base=base, topology=topology, topo=planes)
+    base = swop.build_base_planes(q, con, topology, torch.float64, topo=planes)
+    got = swop.sw_operator(y - base.q0, None, con, b=1.0, cdt=300.0, base=base, topology=topology, topo=planes)
+    want = swop.sw_operator(y, None, con, b=1.0, cdt=300.0, topology=topology, topo=planes)
+    assert _scaled((got + base.q0).numpy(), want.numpy()) < 1e-12
+    flat = swop.build_base_planes(q, con, topology, torch.float64)
+    with pytest.raises(ValueError, match="without topography"):
+        swop.sw_operator(y - flat.q0, None, con, base=flat, topology=topology, topo=planes)
+    with pytest.raises(ValueError, match="with topography"):
+        swop.sw_operator(y - base.q0, None, con, base=base, topology=topology)
     with pytest.raises(ValueError, match="halo"):
         swop.sw_operator(y, swop.halo_from_traces(swop.edge_traces(y, con), topology), con, topo=planes)
     with pytest.raises(ValueError, match="traces"):
         swop.sw_operator(y, None, con, x=x, a=0.5, b=0.5, cdt=1.0, emit_traces=True, topology=topology, topo=planes)
 
 
-def test_mixed_companion_refuses_topography(tmp_path):
+def test_mixed_companion_carries_topography(tmp_path, capsys):
+    """Case 5 with ``mixed_precision_krylov``: the float32 perturbation-form
+    companion around the initial state with the case's topography, its base
+    RHS the float64 operator's with topography, its J.v the absolute float32
+    operator's with topography (the JAX rule), and no warning."""
     text = INI.format(case=5, dt=1800.0, t_end=1800.0, integrator="epi3", out=tmp_path)
     text = text.replace("exponential_solver = pmex", "exponential_solver = kiops_jit\nmixed_precision_krylov = 1")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        Simulation(Configuration(text), device="cpu")
+    sim = Simulation(Configuration(text), device="cpu")
+    assert "no effect" not in capsys.readouterr().out
+    rhs32 = sim.rhs32
+    assert rhs32.dtype == torch.float32 and rhs32.base.topography and rhs32.topo.dtype == torch.float32
+    q = sim.initial_q
+    torch.testing.assert_close(rhs32.base.rhs0, sim.rhs(q).float(), rtol=0, atol=0)
+    v = 1e-3 * q * torch.sin(torch.arange(q.numel(), dtype=q.dtype).reshape(q.shape))
+    want = sim.rhs.jtv(q, v)
+    got = rhs32.jtv(q.float(), v.float()).double()
+    assert _scaled(got.numpy(), want.numpy()) < 1e-4
 
 
 def test_packed_run_refuses_topography():
     geom, ops, metric = j_geom(32, 4), j_ops(4), j_metric(j_geom(32, 4))
     q0, topo = j_case5(geom, ops)
     rhs = interop.shallow_water_rhs(geom, ops, metric, topo=topo)
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(NotImplementedError, match="neither has the JAX package"):
         rhs.packed_run(torch.as_tensor(q0), 1, swop.tvdrk3_abc(10.0))
 
 
@@ -192,5 +219,5 @@ def test_tile_step_refuses_topography(tmp_path, monkeypatch):
     monkeypatch.setattr(simulation._dist, "world_size", lambda: 6)
     monkeypatch.setattr(simulation._dist, "rank", lambda: 0)
     text = INI.format(case=5, dt=300.0, t_end=300.0, integrator="tvdrk3", out=tmp_path)
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(NotImplementedError, match="the JAX package has none either"):
         Simulation(Configuration(text.replace("distribute = off", "distribute = shard_map")), device="cpu")

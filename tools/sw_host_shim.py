@@ -38,7 +38,13 @@ libraries' J.v against each other (``tangent_between``, scaled, and
 tangent pair's ``*_topo_launch``) is also held, on Williamson case 5,
 against the plain versions with topography, and bit for bit with null
 planes against its entries without topography and with all-zero planes
-against null ones (``check_topo_shape``); a shape with s = 1 checks only
+against null ones (``check_topo_shape``); with ``--parent`` its topography
+entries bit for bit against the parent's (``topo_identical``); a source
+with the perturbation form's entry with topography
+(``sw_operator_state_pert_topo_launch``) also against its plain version
+around case 5's base with topography, and with all-zero forcing planes on
+a base without topography bit for bit against the perturbation entry
+without (``pert_topo_bits``). A shape with s = 1 checks only
 the tangent pair there (the fv-mg levels).
 ``--sms`` is the SM count
 the shim reports (it sets the tile launch's elements a block).
@@ -384,6 +390,34 @@ def topo_state_call(lib, q, con, topology, topo, x=None, a=0.0, b=1.0, cdt=None,
     return out
 
 
+def has_pert_topo(lib) -> bool:
+    return hasattr(lib, "sw_operator_state_pert_topo_launch")
+
+
+def pert_topo_state_call(lib, dq, con, topology, base, force, x=None, a=0.0, b=1.0, cdt=None, nan_fill=True):
+    """One call of the perturbation form's state mode with bottom topography
+    (``sw_operator_state_pert_topo_launch``): the wrapper's
+    ``sw_operator(dq, None, ..., base=base, topo=topo)`` with ``force`` =
+    ``topo.force``."""
+    import torch
+
+    from wxfactory_tpu_torch.ops import sw_operator as swop
+
+    tab = swop.halo_tables(topology, dq.device, dq.dtype)
+    out = _alloc(dq.shape, dq, nan_fill)
+    pb = base.tensors
+    use_x = cdt is not None and a != 0.0
+    rc = lib.sw_operator_state_pert_topo_launch(
+        1 if dq.dtype == torch.float64 else 0, con.s, con.nel, _ptr(dq), _ptr(con.ops), _ptr(con.fields),
+        _ptr(con.gridrot), _ptr(con.itf_x), _ptr(con.itf_y), _ptr(x if use_x else None), _ptr(pb["q0"]),
+        _ptr(pb["u0"]), _ptr(pb["itf0"]), _ptr(pb["halo0"]), _ptr(pb["rhs0"]), _ptr(tab.src), _ptr(tab.flip),
+        _ptr(tab.conv), _ptr(force), _ptr(out), float(a), float(b), float(cdt if cdt is not None else 0.0),
+        1 if cdt is not None else 0, _stream(dq))
+    if rc != 0:
+        raise RuntimeError(f"sw_operator_state_pert_topo_launch returned {rc}")
+    return out
+
+
 def topo_tangent_call(lib, q, v, con, topology, topo, nan_fill=True):
     """(coef, J.v) of the tangent pair with bottom topography
     (``sw_tangent_prep_topo_launch``, ``sw_tangent_apply_topo_launch``)."""
@@ -410,20 +444,31 @@ def topo_tangent_call(lib, q, v, con, topology, topo, nan_fill=True):
     return coef, out
 
 
-def check_topo_shape(lib, nel: int, s: int) -> dict:
+def check_topo_shape(lib, nel: int, s: int, parent=None) -> dict:
     """A library with topography entries at (nel, s) on Williamson case 5
     (``kernels/check.py::sw_topo_inputs``): the state mode with topography
     (RHS, stage, stage with x) and the tangent pair with topography against
     their plain versions (scaled by each variable's max); and bit for bit
     (``torch.equal``) the topography entry with null planes against the
     entry without, and with all-zero planes against null ones. At s = 1
-    only the tangent pair (the fv-mg levels' case-6 state)."""
+    only the tangent pair (the fv-mg levels' case-6 state). With a
+    ``parent`` library that has the topography entries, theirs bit for bit
+    against the parent's (``topo_identical``); with the perturbation
+    form's entry with topography, that entry against its plain version
+    (keys "pert ...") and, with zero forcing planes on a base without
+    topography, bit for bit against the perturbation entry without
+    (``pert_topo_bits``)."""
     import torch
 
     from wxfactory_tpu_torch.kernels import check
     from wxfactory_tpu_torch.ops import sw_operator as swop
 
     out = {"nel": nel, "s": s, "topo_plain_err": {}, "topo_bits": True, "tangent_s1_err": {}}
+    both = parent is not None and has_topo(parent)
+    if both:
+        out["topo_identical"] = True
+    if has_pert_topo(lib) and s >= 2:
+        out["pert_topo_bits"] = True
     for dtype in (torch.float64, torch.float32):
         dname = "f64" if dtype == torch.float64 else "f32"
         if s == 1:
@@ -443,9 +488,26 @@ def check_topo_shape(lib, nel: int, s: int) -> dict:
             zeros = topo_state_call(lib, y, con, topology, zero, **kw)
             plain_entry = state_call(lib, y, con, topology, **kw)
             out["topo_bits"] = out["topo_bits"] and torch.equal(null, plain_entry) and torch.equal(zeros, null)
+            if both:
+                out["topo_identical"] = out["topo_identical"] and torch.equal(
+                    got, topo_state_call(parent, y, con, topology, topo, **kw))
+        if has_pert_topo(lib):
+            pcon, _, base, ptopo, dq, dx = check.sw_pert_topo_inputs(nel, s, dtype, "cpu")
+            fcon, _, fbase, fdq, _ = check.sw_pert_inputs(nel, s, dtype, "cpu")
+            for mode, kw in {"rhs": {}, "stage": dict(a=0.0, b=1.0, cdt=check.DT),
+                             "stage_x": dict(x=dx, a=0.75, b=0.25, cdt=0.25 * check.DT)}.items():
+                got = pert_topo_state_call(lib, dq, pcon, topology, base, ptopo.force, **kw)
+                want = swop.sw_operator_pert_plain(dq, None, pcon, base, topology=topology, topo=ptopo, **kw)
+                out["topo_plain_err"][f"{dname} pert {mode}"] = _scaled_err(got, want)
+                zeros = pert_topo_state_call(lib, fdq, fcon, topology, fbase, torch.zeros_like(ptopo.force), **kw)
+                out["pert_topo_bits"] = out["pert_topo_bits"] and torch.equal(
+                    zeros, state_call(lib, fdq, fcon, topology, base=fbase, **kw))
         tcon, _, tstates, tv, _, ttopo = check.sw_topo_tangent_inputs(nel, s, dtype, "cpu")
         for point, tq in tstates.items():
             coef, jv = topo_tangent_call(lib, tq, tv, tcon, topology, ttopo)
+            if both:
+                pcoef, pjv = topo_tangent_call(parent, tq, tv, tcon, topology, ttopo)
+                out["topo_identical"] = out["topo_identical"] and torch.equal(coef, pcoef) and torch.equal(jv, pjv)
             out["topo_plain_err"][f"{dname} jv {point}"] = _scaled_err(
                 jv, swop.sw_tangent_plain(tq, tv, tcon, topology, ttopo))
             out["topo_plain_err"][f"{dname} apply {point}"] = _scaled_err(
@@ -699,9 +761,10 @@ def main(argv=None) -> int:
                   and all(row["state_equals_route"].values()))
         lib = libsets["source"]["sw_operator"]
         if has_topo(lib):
-            row = check_topo_shape(lib, nel, s)
+            row = check_topo_shape(lib, nel, s, libsets["parent"]["sw_operator"] if args.parent else None)
             print(json.dumps(row), flush=True)
-            ok = ok and row["topo_bits"]
+            ok = (ok and row["topo_bits"] and row.get("topo_identical") is not False
+                  and row.get("pert_topo_bits") is not False)
     return 0 if ok else 1
 
 

@@ -14,7 +14,7 @@ given a compile-time trip count, moved ahead of the pointwise fluxes, or
 both (scheduling only: the same bits).
 
     python tools/sw_operator_ablation.py [--source DIR] [--parent PREFIX] [--no-ablations] [--no-bitwise]
-                                         [--groups state,whole,tile,run,tangent] [--jv-per-solve N]
+                                         [--groups state,whole,tile,run,tangent,topo] [--jv-per-solve N]
 
 On the machine with the card, from the root of a copy of the checkout; a
 copy without the git history needs the parent's sources written first, on
@@ -67,6 +67,18 @@ turns with the parent's one-call kernel at chip_smoke.py's
 TANGENT_TIMED shapes, float64 and float32, with each one's per-solve time
 (prep + N applies against N one-call launches, N = ``--jv-per-solve``);
 the resources line reports the tangent kernels of both sources.
+
+The topo group times, at (64,3) float64 and float32, the kernels with
+bottom topography (Williamson case 5): the absolute state mode's RHS and
+the tangent prep and apply, in turns with the parent's where it has them,
+and the perturbation form's state mode with topography (RHS and stage +
+x) in turns with the perturbation state mode without it on case 6's base
+(both sources) and, where built, with the variant whose float64
+instantiation is compiled for 4 resident blocks an SM as the float32 one is
+(``pert_topo_min_blocks_4``). With a parent that has the topography entries the bitwise
+check also holds them (the absolute state mode in RHS, stage and stage +
+x, and the tangent pair) at every shape of chip_smoke.py's phase 1, and
+the resources line reports every topography instantiation.
 """
 
 import argparse
@@ -86,14 +98,20 @@ from sw_host_shim import (  # noqa: E402
     FILES,
     edges_call,
     halo_call,
+    has_pert_topo,
     has_state_mode,
     has_tangent_pair,
+    has_topo,
     operator_call,
+    pert_topo_state_call,
     run_call,
+    state_call,
     state_or_route,
     tangent_apply_call,
     tangent_prep_call,
     tangent_state_call,
+    topo_state_call,
+    topo_tangent_call,
 )
 
 OUT = ROOT / "build" / "sw_operator_ablation"
@@ -195,6 +213,15 @@ def _min_blocks(files: dict) -> dict:
     return dict(files, **out)
 
 
+def _pert_topo_min_blocks(files: dict) -> dict:
+    # The float64 perturbation kernel with topography compiled for 4
+    # resident blocks an SM, as its float32 instantiation is.
+    return dict(files, **{"sw_operator.cu": _sub(
+        files["sw_operator.cu"], r"__launch_bounds__\(swk::kThreads\) sw_operator_pert_topo_kernel",
+        "__launch_bounds__(swk::kThreads, 4) sw_operator_pert_topo_kernel", "perturbation topography kernel's "
+        "launch bounds", count=1)})
+
+
 def _face_loop_unrolled(files: dict) -> dict:
     # The face-flux loop with its compile-time trip count (one pass for
     # s >= 4, two for s = 2, 3), so its loads can be scheduled with the
@@ -270,6 +297,7 @@ VARIANTS = {
     "eb_max": _eb_max,
     "eb_half": _eb_half,
     "min_blocks_4": _min_blocks,
+    "pert_topo_min_blocks_4": _pert_topo_min_blocks,
     "face_loop_unrolled": _face_loop_unrolled,
     "face_loop_first": _face_loop_first,
     "face_loop_first_unrolled": lambda f: _face_loop_unrolled(_face_loop_first(f)),
@@ -417,18 +445,33 @@ def resources(libset):
                              "form": "perturbation" if pert else "absolute", "s": s, **vals,
                              "threads_per_sm": vals["blocks_per_sm"] * vals["threads"]})
         lib = libset["sw_operator"]
+        for kernel, entry in (("operator_topo", "sw_operator_topo_resources"),
+                              ("operator_pert_topo", "sw_operator_pert_topo_resources")):
+            if not hasattr(lib, entry):
+                continue
+            getattr(lib, entry).argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            for s in range(2, 9):
+                info = (ctypes.c_int * 5)()
+                rc = getattr(lib, entry)(f64, s, ctypes.cast(info, ctypes.c_void_p))
+                if rc != 0:
+                    raise RuntimeError(f"{kernel} resources failed: CUDA error {rc}")
+                vals = dict(zip(keys, info))
+                rows.append({"kernel": kernel, "dtype": "float64" if f64 else "float32",
+                             "form": "perturbation" if kernel == "operator_pert_topo" else "absolute", "s": s,
+                             **vals, "threads_per_sm": vals["blocks_per_sm"] * vals["threads"]})
         pair = has_tangent_pair(lib)
         if not pair and not hasattr(lib, "sw_tangent_resources"):
             continue
         for s in range(2, 9):
-            for kernel in ((0, 1) if pair else (None,)):
+            for kernel in (((0, 1, 2, 3) if has_topo(lib) else (0, 1)) if pair else (None,)):
                 info = (ctypes.c_int * 5)()
                 ptr = ctypes.cast(info, ctypes.c_void_p)
                 rc = lib.sw_tangent_resources(f64, s, kernel, ptr) if pair else lib.sw_tangent_resources(f64, s, ptr)
                 if rc != 0:
                     raise RuntimeError(f"tangent resources failed: CUDA error {rc}")
                 vals = dict(zip(keys, info))
-                rows.append({"kernel": ("tangent_prep", "tangent_apply")[kernel] if pair else "tangent_one_call",
+                rows.append({"kernel": ("tangent_prep", "tangent_apply", "tangent_prep_topo",
+                                        "tangent_apply_topo")[kernel] if pair else "tangent_one_call",
                              "dtype": "float64" if f64 else "float32", "form": "absolute", "s": s, **vals,
                              "threads_per_sm": vals["blocks_per_sm"] * vals["threads"]})
     return rows
@@ -550,6 +593,61 @@ def state_group(torch, libs):
             ms[n].append(_device_ms(torch, variants[n], 20))
             event[n].append(statistics.median(_event_times(torch, variants[n], n=20)))
         rows.append({"mode": mode, "ms": ms, "event_ms": event})
+    return rows
+
+
+def topo_group(torch, libs):
+    """The kernels with bottom topography at (64,3), float64 and float32, in
+    turns: rows of {"mode", "ms": {variant: [card ms]}}. Variants: ``source``
+    and, where the parent has the entry, ``parent`` (the absolute state
+    mode's RHS, the tangent prep and apply, on case 5); for the perturbation
+    form with topography, ``pert_topo`` (the source's, on case 5's base)
+    beside ``pert`` and ``parent_pert`` (the perturbation state mode without
+    topography on case 6's base)."""
+    from chip_smoke import _device_ms
+    from wxfactory_tpu_torch.kernels import check
+
+    new = libs["as_built"]["sw_operator"]
+    old = libs["parent"]["sw_operator"] if "parent" in libs else None
+    rows = []
+    nel, s = 64, 3
+    for dtype in (torch.float64, torch.float32):
+        tag = f"({nel},{s}) {_dname(dtype)}"
+        con, topology, topo, _, y, _ = check.sw_topo_inputs(nel, s, dtype, "cuda")
+        tcon, _, states, v, _, ttopo = check.sw_topo_tangent_inputs(nel, s, dtype, "cuda")
+        q = states["case5"]
+        groups = {f"{tag} topo_rhs": {lib_name: (lambda L=L: topo_state_call(L, y, con, topology, topo,
+                                                                              nan_fill=False))
+                                      for lib_name, L in (("source", new), ("parent", old))
+                                      if L is not None and has_topo(L)}}
+        groups[f"{tag} topo_tangent_prep_apply"] = {
+            lib_name: (lambda L=L: topo_tangent_call(L, q, v, tcon, topology, ttopo, nan_fill=False))
+            for lib_name, L in (("source", new), ("parent", old)) if L is not None and has_topo(L)}
+        pcon, _, base, topo_p, dq, dx = check.sw_pert_topo_inputs(nel, s, dtype, "cuda")
+        fcon, _, fbase, fdq, fx = check.sw_pert_inputs(nel, s, dtype, "cuda")
+        for mode, kw, fkw in (("rhs", {}, {}), ("stage_x", dict(x=dx, a=0.75, b=0.25, cdt=7.5),
+                                                 dict(x=fx, a=0.75, b=0.25, cdt=7.5))):
+            variants = {"pert": lambda kw=fkw: state_call(new, fdq, fcon, topology, base=fbase, nan_fill=False, **kw)}
+            if has_pert_topo(new):
+                variants["pert_topo"] = lambda kw=kw: pert_topo_state_call(new, dq, pcon, topology, base, topo_p.force,
+                                                                            nan_fill=False, **kw)
+            if "pert_topo_min_blocks_4" in libs:
+                capped = libs["pert_topo_min_blocks_4"]["sw_operator"]
+                variants["pert_topo_min_blocks_4"] = lambda kw=kw: pert_topo_state_call(
+                    capped, dq, pcon, topology, base, topo_p.force, nan_fill=False, **kw)
+            if old is not None:
+                variants["parent_pert"] = lambda kw=fkw: state_call(old, fdq, fcon, topology, base=fbase,
+                                                                     nan_fill=False, **kw)
+            groups[f"{tag} pert_state_{mode}"] = variants
+        for mode, variants in groups.items():
+            for fn in variants.values():
+                fn()
+            torch.cuda.synchronize()
+            names = list(variants)
+            ms = {n: [] for n in names}
+            for n in names + names[::-1]:
+                ms[n].append(_device_ms(torch, variants[n], 20))
+            rows.append({"mode": mode, "ms": ms})
     return rows
 
 
@@ -679,6 +777,19 @@ def bitwise(torch, libs):
                 for nsteps in (1, 2, 3) + ((chip_smoke.RUN_STEPS,) if nel == 64 else ()):
                     same(f"run ({nel},4) {_dname(dtype)} {'pert ' if pert else ''}{nsteps}",
                          lambda L, q=q, b=b, n=nsteps: run_call(L["sw_run"], q, n, abc, con, topology, b))
+    if has_topo(new["sw_operator"]) and has_topo(old["sw_operator"]):
+        for nel, s in chip_smoke.SHAPES:
+            for dtype in (torch.float64, torch.float32):
+                tag = f"({nel},{s}) {_dname(dtype)}"
+                con, topology, topo, x, y, _ = check.sw_topo_inputs(nel, s, dtype, "cuda")
+                for mode, kw in {"rhs": {}, "stage": dict(a=0.0, b=1.0, cdt=check.DT),
+                                 "stage_x": dict(x=x, a=0.75, b=0.25, cdt=0.25 * check.DT)}.items():
+                    same(f"{tag} topo_state_{mode}", lambda L, kw=kw: topo_state_call(
+                        L["sw_operator"], y, con, topology, topo, **kw))
+                tcon, _, states, v, _, ttopo = check.sw_topo_tangent_inputs(nel, s, dtype, "cuda")
+                for point, q in states.items():
+                    same(f"{tag} topo_tangent {point}", lambda L, q=q: topo_tangent_call(
+                        L["sw_operator"], q, v, tcon, topology, ttopo))
     for nt, s, n in check.SW_TILE_SHAPES:
         con64, base64, inputs64, _ = check.sw_tile_inputs(nt, s, n, "cuda")
         for dtype in (torch.float64, torch.float32):
@@ -702,8 +813,8 @@ def main(argv=None) -> int:
     parser.add_argument("--no-ablations", action="store_true", help="build and time the source as it is only")
     parser.add_argument("--no-bitwise", action="store_true", help="skip the bit-for-bit check against the parent")
     parser.add_argument("--variants", default=None, help="comma-separated ablations to build (default: all)")
-    parser.add_argument("--groups", default="state,whole,tile,run,tangent",
-                        help="timed groups, of: state, whole, tile, run, tangent")
+    parser.add_argument("--groups", default="state,whole,tile,run,tangent,topo",
+                        help="timed groups, of: state, whole, tile, run, tangent, topo")
     parser.add_argument("--jv-per-solve", type=int, default=48,
                         help="Jacobian actions a linearisation point for the tangent group's per-solve time")
     args = parser.parse_args(argv)
@@ -722,7 +833,8 @@ def main(argv=None) -> int:
     libs, logs, skipped = build_variants(args.source, args.parent, not args.no_ablations, only)
     ptxas = {name: [r for r in chip_smoke.ptxas_summary(log)
                     if r["kernel"].startswith(("sw_operator", "sw_run", "sw_tangent"))]
-             for name, log in logs.items() if name in ("as_built", "parent") or name in TANGENT_VARIANTS}
+             for name, log in logs.items()
+             if name in ("as_built", "parent", "pert_topo_min_blocks_4") or name in TANGENT_VARIANTS}
     print(json.dumps({"source": args.source, "parent": args.parent, "build_s": time.perf_counter() - t0, "gpu": smi,
                       "built": list(libs), "skipped": skipped, "ptxas": ptxas,
                       "resources": {name: resources(libs[name]) for name in ("as_built", "parent") if name in libs}}),
@@ -733,6 +845,9 @@ def main(argv=None) -> int:
     if "tangent" in groups:
         print(json.dumps({"group": "tangent", "gpu": smi, "timing": timing,
                           "results": tangent_group(torch, libs, args.jv_per_solve)}), flush=True)
+    if "topo" in groups:
+        print(json.dumps({"group": "topography", "gpu": smi, "timing": timing, "results": topo_group(torch, libs)}),
+              flush=True)
     if "state" in groups:
         print(json.dumps({"group": "state mode", "gpu": smi, "timing": timing + "; event_ms: median of 20 single "
                           "calls between two CUDA events (the host's launches included)",

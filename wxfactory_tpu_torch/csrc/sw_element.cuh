@@ -22,6 +22,13 @@
 // same face h; the forcing rows add g(H^11 dz1 + H^12 dz2) h and g(H^21 dz1 +
 // H^22 dz2) h from planes made once at setup. With all-zero planes every
 // value is the TOPO = false value bit for bit (x + 0 = x, fma(0, h, f) = f).
+// The perturbation form with topography (PERT and TOPO, state mode): the
+// topography rides the base (the base traces itf0 and halo0 are those of h0
+// + hsurf with each interface's hsurf already taken away, made once in
+// float64 at setup), the delta traces and halo are those of dh alone, and
+// the forcing rows add the delta g(H^a1 dz1 + H^a2 dz2) dh in the same sum
+// (the JAX package's rhs_delta_core with topography,
+// models/shallow_water.py:346-421 there); it reads the forcing planes only.
 //
 // Sum factorisation. The operator's extrapolation, derivative and
 // correction matrices are Kronecker products with the identity
@@ -452,10 +459,14 @@ __device__ __forceinline__ void state_halo_point(const T* q, const T* ext, const
 // The divergence at node (ky, kx) sums the s x-terms of its row, then the s
 // y-terms of its column; the correction its four faces' fluxes, W, E, S, N:
 // the order in which the dense DD and CC products met their non-zero terms.
-// TOPO (absolute state mode only): the topography of the header comment.
+// TOPO (state mode only): the topography of the header comment; with PERT
+// only its forcing delta, the rest riding the base planes.
 template <typename T, int S, bool PERT, HaloFrom HALO, bool TOPO = false>
 __device__ __forceinline__ void element_block(const OpArgs<T>& A, int blk, int eb, T* smem) {
-  static_assert(!TOPO || (!PERT && HALO == HaloFrom::kState), "topography runs in the absolute state mode");
+  static_assert(!TOPO || HALO == HaloFrom::kState, "topography runs in the state mode");
+  // h + hsurf at the faces: the absolute form with topography only (a
+  // perturbation's traces are those of dh).
+  constexpr bool TOPO_TRACES = TOPO && !PERT;
   using Sh = Shape<S>;
   constexpr int S2 = Sh::S2, NF = Sh::NF;
   const T* sExt = smem;
@@ -526,6 +537,10 @@ __device__ __forceinline__ void element_block(const OpArgs<T>& A, int blk, int e
       sF[5 * S2 + j] = sqrtg * (d22 + half_g * h22 * hph0 * dh);
       force1 = rot2 * (g101 * dhu1 + g102 * dhu2) + c111 * d11 + T(2) * c112 * d12;
       force2 = rot2 * (g201 * dhu1 + g202 * dhu2) + T(2) * c212 * d12 + c222 * d22;
+      if constexpr (TOPO) {
+        force1 = fmadd(A.topo_force[pt], dh, force1);
+        force2 = fmadd(A.topo_force[nq + pt], dh, force2);
+      }
     } else {
       const T h = sQ[j], hu1 = sQ[S2 + j], hu2 = sQ[2 * S2 + j];
       const T u1 = hu1 / h, u2 = hu2 / h, hsq = h * h;
@@ -563,8 +578,8 @@ __device__ __forceinline__ void element_block(const OpArgs<T>& A, int blk, int e
         if constexpr (HALO == HaloFrom::kTraces) {
           halo_point(A.halo, A.hsrc, A.hflip, A.hconv, npts, hside * 6 + p, along * S + k, nb);
         } else if constexpr (HALO == HaloFrom::kState) {
-          state_halo_point<T, S, TOPO>(A.q, sExt, A.hsrc, A.hflip, A.hconv, nel, hside * 6 + p, along * S + k, nb,
-                                       A.hsurf);
+          state_halo_point<T, S, TOPO_TRACES>(A.q, sExt, A.hsrc, A.hflip, A.hconv, nel, hside * 6 + p,
+                                              along * S + k, nb, A.hsurf);
         } else {
 #pragma unroll
           for (int v = 0; v < 3; ++v) nb[v] = A.halo[v * hvar + hidx];
@@ -573,13 +588,13 @@ __device__ __forceinline__ void element_block(const OpArgs<T>& A, int blk, int e
 #pragma unroll
         for (int v = 0; v < 3; ++v)
           nb[v] = face_trace<T, S>(A.q + v * nq + (long long)nb_elem * S2, sExt + nb_side * S, nb_side, k);
-        if constexpr (TOPO)
+        if constexpr (TOPO_TRACES)
           nb[0] = face_trace_sum<T, S>(A.q + (long long)nb_elem * S2, A.hsurf + (long long)nb_elem * S2,
                                        sExt + nb_side * S, nb_side, k);
       }
 #pragma unroll
       for (int v = 0; v < 3; ++v) own[v] = face_trace<T, S>(sQ + v * S2, sExt + side * S, side, k);
-      if constexpr (TOPO)
+      if constexpr (TOPO_TRACES)
         own[0] = face_trace_sum<T, S>(sQ, A.hsurf + (long long)elem * S2, sExt + side * S, side, k);
       // West/south faces: the neighbour (or halo) is on the left.
       const bool own_right = side == 0 || side == 2;
@@ -594,7 +609,7 @@ __device__ __forceinline__ void element_block(const OpArgs<T>& A, int blk, int e
       const int istride = nel * (nel + 1) * S;
       const int iidx = is_x ? ((ey * (nel + 1) + ex + (side == 1)) * S + k)
                             : (((ey + (side == 3)) * nel + ex) * S + k);
-      if constexpr (TOPO) {
+      if constexpr (TOPO_TRACES) {
         const T hs = (is_x ? A.hsurf_x : A.hsurf_y)[(long long)p * istride + iidx];
         L[0] = L[0] - hs;
         R[0] = R[0] - hs;

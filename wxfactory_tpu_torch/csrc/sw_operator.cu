@@ -57,7 +57,11 @@
 // call).
 //
 // Bottom topography (Williamson cases 5 and 10): the state mode's absolute
-// form (C entry sw_operator_state_topo_launch, sw_operator_topo_kernel) and
+// form (C entry sw_operator_state_topo_launch, sw_operator_topo_kernel), its
+// perturbation form (sw_operator_state_pert_topo_launch,
+// sw_operator_pert_topo_kernel and, float32, sw_operator_f32_pert_topo_kernel:
+// the base planes carry the topography's traces, the kernel reads the two
+// forcing coefficients) and
 // the tangent pair (sw_tangent_prep_topo_launch, sw_tangent_apply_topo_launch)
 // take four more planes (csrc/sw_element.cuh: hsurf at the nodes and at the
 // interfaces, the two forcing coefficients). Each is the same body with its
@@ -161,9 +165,32 @@ __global__ void __launch_bounds__(swk::kThreads) sw_operator_topo_kernel(OpArgs<
   operator_body<T, S, false, HaloFrom::kState, true>(A, eb);
 }
 
+// The perturbation form's state mode with bottom topography (the float32
+// companion and the float32 production point of Williamson cases 5 and 10):
+// the PERT body with the forcing delta of the topography, kernels of their
+// own so that neither the perturbation kernels without topography nor the
+// absolute topography kernel change. Float32 is capped at 4 resident blocks
+// an SM as the perturbation form without topography is: uncapped it takes
+// 74 registers at s=3 and 3 blocks, and runs 24-26 % slower than the kernel
+// without topography at (64,3); capped, 64 registers and no spill, 2-3 %
+// (tools/sw_operator_ablation.py, NVIDIA H100 80GB HBM3 at 700 W).
+template <typename T, int S>
+__global__ void __launch_bounds__(swk::kThreads) sw_operator_pert_topo_kernel(OpArgs<T> A, int eb) {
+  operator_body<T, S, true, HaloFrom::kState, true>(A, eb);
+}
+
+template <int S>
+__global__ void __launch_bounds__(swk::kThreads, 4) sw_operator_f32_pert_topo_kernel(OpArgs<float> A, int eb) {
+  operator_body<float, S, true, HaloFrom::kState, true>(A, eb);
+}
+
 template <typename T, int S, bool PERT, HaloFrom HALO, bool TOPO = false>
 auto operator_kernel() {
-  if constexpr (TOPO)
+  if constexpr (TOPO && PERT && std::is_same<T, float>::value)
+    return sw_operator_f32_pert_topo_kernel<S>;
+  else if constexpr (TOPO && PERT)
+    return sw_operator_pert_topo_kernel<T, S>;
+  else if constexpr (TOPO)
     return sw_operator_topo_kernel<T, S>;
   else if constexpr (std::is_same<T, float>::value && PERT)
     return sw_operator_f32_pert_kernel<S, HALO>;
@@ -550,7 +577,9 @@ cudaError_t launch_operator(const OpArgs<T>& A, cudaStream_t stream) {
 
 template <typename T, int S>
 cudaError_t launch_operator(const OpArgs<T>& A, bool pert, bool state, bool topo, cudaStream_t stream) {
-  if (topo) return launch_operator<T, S, false, HaloFrom::kState, true>(A, stream);
+  if (topo)
+    return pert ? launch_operator<T, S, true, HaloFrom::kState, true>(A, stream)
+                : launch_operator<T, S, false, HaloFrom::kState, true>(A, stream);
   if (state)
     return pert ? launch_operator<T, S, true, HaloFrom::kState>(A, stream)
                 : launch_operator<T, S, false, HaloFrom::kState>(A, stream);
@@ -581,7 +610,9 @@ cudaError_t operator_resources(int* info) {
 
 template <typename T, int S>
 cudaError_t operator_resources(bool pert, bool state, bool topo, int* info) {
-  if (topo) return operator_resources<T, S, false, HaloFrom::kState, true>(info);
+  if (topo)
+    return pert ? operator_resources<T, S, true, HaloFrom::kState, true>(info)
+                : operator_resources<T, S, false, HaloFrom::kState, true>(info);
   if (state)
     return pert ? operator_resources<T, S, true, HaloFrom::kState>(info)
                 : operator_resources<T, S, false, HaloFrom::kState>(info);
@@ -781,8 +812,9 @@ OpArgs<T> op_args(int nel, int npanel, const void* q, const void* halo, const vo
 }
 
 // halo == nullptr: the state mode (whole sphere; src, flip and conv given).
-// topo: {hsurf, hsurf_x, hsurf_y, force}, all null or all given (the
-// absolute state mode, no traces).
+// topo: {hsurf, hsurf_x, hsurf_y, force}, all null, all given (the absolute
+// state mode) or, in the perturbation form, force alone (its state mode);
+// no traces with topography.
 int operator_launch(int npanel, int is_f64, int s, int nel, const void* q, const void* halo, const void* ops,
                     const void* fields, const void* gridrot, const void* itf_x, const void* itf_y, const void* x,
                     const void* q0, const void* u0, const void* itf0, const void* halo0, const void* rhs0,
@@ -791,13 +823,14 @@ int operator_launch(int npanel, int is_f64, int s, int nel, const void* q, const
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool pert = q0 != nullptr;
   const bool state = halo == nullptr;
-  const bool with_topo = topo[0] != nullptr;
+  const bool with_topo = topo[0] != nullptr || topo[3] != nullptr;
   if (pert && (u0 == nullptr || itf0 == nullptr || halo0 == nullptr || rhs0 == nullptr))
     return (int)cudaErrorInvalidValue;
   if (state && (npanel != 6 || src == nullptr || flip == nullptr || conv == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (with_topo && (pert || !state || traces != nullptr || topo[1] == nullptr || topo[2] == nullptr ||
-                    topo[3] == nullptr))
+  if (with_topo && (!state || traces != nullptr || topo[3] == nullptr ||
+                    (pert ? topo[0] != nullptr || topo[1] != nullptr || topo[2] != nullptr
+                          : topo[0] == nullptr || topo[1] == nullptr || topo[2] == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaError_t err =
       is_f64 ? dispatch_operator<double>(s, op_args<double>(nel, npanel, q, halo, ops, fields, gridrot, itf_x, itf_y,
@@ -863,6 +896,24 @@ extern "C" int sw_operator_state_topo_launch(int is_f64, int s, int nel, const v
     return (int)cudaErrorInvalidValue;
   return operator_launch(6, is_f64, s, nel, q, nullptr, ops, fields, gridrot, itf_x, itf_y, x, nullptr, nullptr,
                          nullptr, nullptr, nullptr, src, flip, conv, topo, out, nullptr, a, b, cdt, stage, stream);
+}
+
+// The perturbation form's state mode with bottom topography: the arguments
+// of sw_operator_state_launch's perturbation form (q, x, out deltas; base
+// planes q0, u0, itf0, halo0, rhs0 whose traces and halo are those of h0 +
+// hsurf less each interface's hsurf), without traces, and force (2,
+// 6*nel*nel, s^2) the two forcing coefficients of sw_operator_state_topo_launch.
+extern "C" int sw_operator_state_pert_topo_launch(int is_f64, int s, int nel, const void* q, const void* ops,
+                                                  const void* fields, const void* gridrot, const void* itf_x,
+                                                  const void* itf_y, const void* x, const void* q0, const void* u0,
+                                                  const void* itf0, const void* halo0, const void* rhs0,
+                                                  const void* src, const void* flip, const void* conv,
+                                                  const void* force, void* out, double a, double b, double cdt,
+                                                  int stage, void* stream) {
+  if (nel < 2 || q0 == nullptr || force == nullptr) return (int)cudaErrorInvalidValue;
+  const void* topo[4] = {nullptr, nullptr, nullptr, force};
+  return operator_launch(6, is_f64, s, nel, q, nullptr, ops, fields, gridrot, itf_x, itf_y, x, q0, u0, itf0, halo0,
+                         rhs0, src, flip, conv, topo, out, nullptr, a, b, cdt, stage, stream);
 }
 
 // The same operator over ONE tile of nt x nt elements (the port of
@@ -988,6 +1039,12 @@ extern "C" int sw_operator_state_resources(int is_f64, int s, int pert, int* inf
 extern "C" int sw_operator_topo_resources(int is_f64, int s, int* info) {
   return (int)(is_f64 ? dispatch_resources<double>(s, false, true, true, info)
                       : dispatch_resources<float>(s, false, true, true, info));
+}
+
+// The same of the perturbation form's state mode with bottom topography.
+extern "C" int sw_operator_pert_topo_resources(int is_f64, int s, int* info) {
+  return (int)(is_f64 ? dispatch_resources<double>(s, true, true, true, info)
+                      : dispatch_resources<float>(s, true, true, true, info));
 }
 
 extern "C" const char* sw_operator_error_string(int code) {

@@ -4,7 +4,9 @@ Same code as ``wxfactory_tpu/geometry/metric3d.py`` (reference
 geometry/metric3d.py, Metric3DTopo), with two differences that do not change
 a result: the panel-edge halo of the height derivatives goes through the
 port's torch topology on CPU float64 tensors, and the per-point Christoffel
-solve runs in chunks of points to bound host memory at large grids.
+system is assembled from a plan of the reference loop's terms
+(``_christoffel_plan``) and solved in chunks of points on a pool of
+threads, to bound host memory and time at large grids.
 
 Metric tensors and sqrt(g) are computed from the gnomonic coordinates and the
 NUMERICAL derivatives of the height field (so topography is handled
@@ -19,6 +21,8 @@ Layouts match geometry/cubed_sphere_3d.py: interior (6, nk, ny, nx, s^3),
 interfaces per-interface (6, ..., s^2).
 """
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
@@ -32,8 +36,58 @@ from .cubed_sphere_3d import CubedSphere3D
 EAST, NORTH, SOUTH, WEST = 3, 1, 0, 2  # = parallel.topology constants
 
 # Points per batched 27x27 Christoffel solve (the system matrices take
-# 5.8 KB a point: 1.3 M points would otherwise need ~8 GB at once).
-_SOLVE_CHUNK = 1 << 16
+# 5.8 KB a point: 1.3 M points would otherwise need ~8 GB at once). The
+# chunks are independent and numpy releases the GIL in both the assembly
+# and the solve, so they run on a pool of threads; each point's system is
+# built and solved as in one pass, bit for bit.
+_SOLVE_CHUNK = 1 << 12
+_SOLVE_THREADS = 8
+
+
+def _christoffel_plan():
+    """The system of the spatial Christoffel solve as a plan: for each
+    number k of terms, the flat (row, column) entries of the 27x27 matrix
+    that sum k terms, and each term's sign and index into sqrt(g) h^ij
+    (flattened to 9), in the order of the loop below, which is the
+    reference's (metric3d.py:938-996):
+
+        for a, b, c, d: lhs[a,b,c, d,c,d] += sg h[a,b]
+                        lhs[a,b,c, a,d,c] -= sg h[d,b]
+                        lhs[a,b,c, b,c,d] -= sg h[a,d]
+    """
+    terms = {}
+    for a in range(3):
+        for b in range(3):
+            for c in range(3):
+                row = 9 * a + 3 * b + c
+                for d in range(3):
+                    for col, sign, ij in ((9 * d + 3 * c + d, 1.0, 3 * a + b),
+                                          (9 * a + 3 * d + c, -1.0, 3 * d + b),
+                                          (9 * b + 3 * c + d, -1.0, 3 * a + d)):
+                        terms.setdefault(27 * row + col, []).append((sign, ij))
+    plan = []
+    for k in sorted({len(t) for t in terms.values()}):
+        entries = [e for e, t in terms.items() if len(t) == k]
+        signs = np.array([[sign for sign, _ in terms[e]] for e in entries])
+        index = np.array([[ij for _, ij in terms[e]] for e in entries])
+        plan.append((np.array(entries), signs, index))
+    return plan
+
+
+_CHRISTOFFEL_PLAN = _christoffel_plan()
+
+
+def _christoffel_system(sgh: np.ndarray) -> np.ndarray:
+    """(n, 27, 27) matrices of the plan from sqrt(g) h^ij (n, 9). Each entry
+    adds its terms to 0 in the loop's order (x - p is x + (-p) in IEEE
+    arithmetic), so it is bit for bit the loop's accumulation."""
+    lhs = np.zeros((sgh.shape[0], 27 * 27))
+    for entries, signs, index in _CHRISTOFFEL_PLAN:
+        acc = np.zeros((sgh.shape[0], len(entries)))
+        for t in range(signs.shape[1]):
+            acc += signs[:, t] * sgh[:, index[:, t]]
+        lhs[:, entries] = acc
+    return lhs.reshape(-1, 27, 27)
 
 
 @dataclass(frozen=True)
@@ -284,18 +338,16 @@ def make_metric_3d(geom: CubedSphere3D, ops: DFROperators, topology=None) -> Met
     h_flat = np.moveaxis(h_contra, (0, 1), (-2, -1)).reshape(npts, 3, 3)
 
     gamma = np.empty((npts, 27))
-    for p0 in range(0, npts, _SOLVE_CHUNK):
+
+    def solve_chunk(p0):
         sl = slice(p0, min(p0 + _SOLVE_CHUNK, npts))
-        sg_c, h_c = sg_flat[sl], h_flat[sl]
-        lhs = np.zeros((sg_c.shape[0], 3, 3, 3, 3, 3, 3))
-        for a in range(3):
-            for b in range(3):
-                for c in range(3):
-                    for d in range(3):
-                        lhs[:, a, b, c, d, c, d] += sg_c * h_c[:, a, b]
-                        lhs[:, a, b, c, a, d, c] -= sg_c * h_c[:, d, b]
-                        lhs[:, a, b, c, b, c, d] -= sg_c * h_c[:, a, d]
-        gamma[sl] = np.linalg.solve(lhs.reshape(-1, 27, 27), rhs_flat[sl, :, None])[..., 0]
+        lhs = _christoffel_system(sg_flat[sl, None] * h_flat[sl].reshape(-1, 9))
+        gamma[sl] = np.linalg.solve(lhs, rhs_flat[sl, :, None])[..., 0]
+
+    starts = range(0, npts, _SOLVE_CHUNK)
+    workers = min(_SOLVE_THREADS, len(os.sched_getaffinity(0)), len(starts))
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        list(pool.map(solve_chunk, starts))
     gamma = gamma.reshape(npts, 3, 3, 3)
     gamma = np.moveaxis(gamma, 0, -1).reshape((3, 3, 3) + grid_shape)
 

@@ -54,7 +54,12 @@ SIGNATURES = {
         "sw_tangent_prep_topo_launch": (_I, [_I, _I, _I] + [_P] * 11 + [_P]),
         # the apply's: is_f64, s, nel, then v, coef, ops, fields, gridrot, itf_x, itf_y, src, flip, conv, force, out
         "sw_tangent_apply_topo_launch": (_I, [_I, _I, _I] + [_P] * 12 + [_P]),
+        # the perturbation form's state mode with bottom topography: is_f64, s, nel, then q, ops, fields,
+        # gridrot, itf_x, itf_y, x, q0, u0, itf0, halo0, rhs0, src, flip, conv, force, out; a, b, cdt, stage;
+        # stream
+        "sw_operator_state_pert_topo_launch": (_I, [_I, _I, _I] + [_P] * 17 + [_D, _D, _D, _I] + [_P]),
         "sw_operator_topo_resources": (_I, [_I, _I, _P]),  # is_f64, s, int[5] out
+        "sw_operator_pert_topo_resources": (_I, [_I, _I, _P]),  # is_f64, s, int[5] out
         "sw_edges_launch": (_I, [_I, _I, _I] + [_P] * 3 + [_P]),  # is_f64, s, nel, q, ops, traces, stream
         # is_f64, npts, traces, src, flip, conv, halo, stream
         "sw_halo_launch": (_I, [_I, _I] + [_P] * 5 + [_P]),

@@ -196,7 +196,10 @@ def sw_work(nel: int, s: int, dtype, stage: bool = False, use_x: bool = False,
     interfaces and the two forcing coefficients (3 words a node, 1 an
     interface point), adds hsurf to each h node of a face trace (s adds a
     face point of each side), subtracts it at each interface point from
-    both sides (2) and adds two forcing products a node (4)."""
+    both sides (2) and adds two forcing products a node (4); in the
+    perturbation form (``pert`` and ``topo``) the base planes carry the
+    rest, so it reads the two forcing coefficients (2 words a node) and
+    adds their two products with dh (4 operations a node)."""
     n_elem, s2, item = npanel * nel * nel, s * s, torch.finfo(dtype).bits // 8
     nstate = 3 * n_elem * s2
     words = 2 * nstate + (nstate if use_x else 0)  # q, out, x
@@ -214,7 +217,10 @@ def sw_work(nel: int, s: int, dtype, stage: bool = False, use_x: bool = False,
     ops += n_elem * s2 * 3 * ((2 if stage else 0) + (2 if use_x else 0))
     if state:
         ops += 6 * edge // 3
-    if topo:
+    if topo and pert:
+        words += 2 * n_elem * s2
+        ops += 4 * n_elem * s2
+    elif topo:
         n_itf = 2 * 6 * nel * (nel + 1) * s
         words += 3 * n_elem * s2 + n_itf
         ops += 4 * n_elem * s2 + n_itf * (2 * s + 2)
@@ -869,9 +875,10 @@ def compare_sponge_rows(nel_h: int, nel_v: int, s: int, dtype, device="cuda", se
 
 def sw_kernel_resources(dtype, s: int) -> dict:
     """{"absolute", "perturbation", "state_absolute", "state_perturbation",
-    "state_topo": {registers, local_bytes, smem_bytes, blocks_per_sm,
-    threads}} of the SW operator kernel at one dtype and s (its largest
-    block; halo plane and state mode, and the state mode with topography),
+    "state_topo", "state_pert_topo": {registers, local_bytes, smem_bytes,
+    blocks_per_sm, threads}} of the SW operator kernel at one dtype and s
+    (its largest block; halo plane and state mode, and the state mode with
+    topography in absolute and perturbation form),
     and at s = 4 also "run", "run_pert" of the
     whole-run kernel: what the runtime reports (on the card; builds the
     libraries)."""
@@ -896,11 +903,13 @@ def sw_kernel_resources(dtype, s: int) -> dict:
             if rc != 0:
                 raise RuntimeError(f"sw_run_resources failed: CUDA error {rc}")
             out["run_pert" if pert else "run"] = dict(zip(keys, info))
-    info = (ctypes.c_int * 5)()
-    rc = lib.sw_operator_topo_resources(f64, s, ctypes.cast(info, ctypes.c_void_p))
-    if rc != 0:
-        raise RuntimeError(f"state_topo operator resources failed: CUDA error {rc}")
-    out["state_topo"] = dict(zip(keys, info))
+    for name, entry in (("state_topo", lib.sw_operator_topo_resources),
+                        ("state_pert_topo", lib.sw_operator_pert_topo_resources)):
+        info = (ctypes.c_int * 5)()
+        rc = entry(f64, s, ctypes.cast(info, ctypes.c_void_p))
+        if rc != 0:
+            raise RuntimeError(f"{name} operator resources failed: CUDA error {rc}")
+        out[name] = dict(zip(keys, info))
     return out
 
 
@@ -1387,6 +1396,85 @@ def compare_sw_topo_operator(nel: int, s: int, dtype, device="cuda", seed: int =
             row["zero_equals_null"] = bool(torch.equal(zeros, null))
             ok = ok and row["null_equals_plain"] and row["zero_equals_null"]
         row["ok"] = bool(ok)
+        rows.append(row)
+    return rows
+
+
+def sw_pert_topo_inputs(nel: int, s: int, dtype, device, seed: int = 0):
+    """(con, topology, base, topo, dq, x): the perturbation base around
+    Williamson case 5's state with its topography (built in float64 on
+    ``device``, cast to ``dtype``), the topography planes in ``dtype``,
+    dq = ``sw_delta(q0)`` and a second perturbation x (seeded noise of 1e-3
+    relative), both in ``dtype``."""
+    geom, ops, metric, topology, q0, topo = sw_topo_setup(nel, s)
+    con = swop.build_constants(ops, metric, nel, dtype=dtype, device=device)
+    con64 = swop.build_constants(ops, metric, nel, dtype=torch.float64, device=device)
+    topo64 = swop.build_topography(topo, metric, dtype=torch.float64, device=device)
+    base = swop.build_base_planes(torch.as_tensor(q0), con64, topology, dtype, topo=topo64)
+    planes = topo64 if dtype == torch.float64 else swop.build_topography(topo, metric, dtype=dtype, device=device)
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return con, topology, base, planes, t(sw_delta(q0)), t(1e-3 * q0 * rng.standard_normal(q0.shape))
+
+
+def compare_sw_pert_topo(nel: int, s: int, dtype, device="cuda", seed: int = 0):
+    """The perturbation form's state mode with case-5 topography (RHS rhs0 +
+    delta, stage, stage with x) against its plain version; one row per mode.
+
+    float64: within ``SW_PERT_TOLERANCE`` of each variable's scale.
+    float32: against the float64 plain output on the same (float64)
+    inputs, within twice the float32 plain output's distance from it, or
+    ``SW_PERT_TOLERANCE`` where that is larger (``compare_sw_pert``). The
+    scale is each variable's max of that output in the stage modes and, in
+    RHS mode, its term scale (the flux divergence of q0 + dq,
+    ``flux_divergence_scale``): case 5's flow over the mountain is
+    balanced, so its RHS is a residual of terms far larger than itself.
+    Each row also holds mass (``mass_err``). On the card it also reports,
+    bit for bit (``zero_equals_flat``), the kernel with all-zero forcing
+    planes on a base without topography against the perturbation kernel
+    without topography (reported, not gated: the two kernels are compiled
+    apart)."""
+    con, topology, base, topo, dq, x = sw_pert_topo_inputs(nel, s, dtype, device, seed)
+    con64, _, base64, topo64, dq64, x64 = sw_pert_topo_inputs(nel, s, torch.float64, device, seed)
+    wsg = sw_mass_weights(sw_setup(nel, s)[1], con)
+    modes = {"rhs": dict(), "stage": dict(a=0.0, b=1.0, cdt=DT), "stage_x": dict(x=x, a=0.75, b=0.25, cdt=0.25 * DT)}
+    truth = None
+    if dtype == torch.float32:
+        truth = {m: swop.sw_operator_pert_plain(dq64, None, con64, base64, topology=topology, topo=topo64,
+                                                **(dict(kw, x=x64) if "x" in kw else kw))
+                 for m, kw in modes.items()}
+    term = flux_divergence_scale(base64.q0 + dq64, con64)
+    tol = SW_PERT_TOLERANCE[dtype]
+    rows = []
+    for mode, kw in modes.items():
+        got = swop.sw_operator(dq, None, con, base=base, topology=topology, topo=topo, **kw)
+        want = swop.sw_operator_pert_plain(dq, None, con, base, topology=topology, topo=topo, **kw)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        ref = want if truth is None else truth[mode]
+        scale = term if mode == "rhs" else per_variable_max(ref)
+        row = {"nel": nel, "s": s, "dtype": str(dtype).replace("torch.", ""), "mode": f"pert_topo_{mode}",
+               "max_abs_err": float((got - want).abs().max()),
+               "scale": "flux_divergence_max" if mode == "rhs" else "output_max",
+               "err": _scaled(got.to(ref.dtype) - ref, scale), "tol": tol}
+        limit = tol
+        if truth is not None:
+            row["scale"] = "f64_plain_" + row["scale"]
+            row["plain_err"] = _scaled(want.double() - ref, scale)
+            limit = max(tol, 2.0 * row["plain_err"])
+        row["mass_err"], row["mass_tol"] = mass_err(got, want, wsg, dtype, kw.get("x"), dq, kw.get("a", 0.0),
+                                                    kw.get("b", 1.0), "cdt" in kw, tol=tol)
+        row["ok"] = bool(np.isfinite(row["err"]) and row["err"] <= limit and torch.isfinite(got).all().item()
+                         and row["mass_err"] <= row["mass_tol"])
+        if device != "cpu":
+            flat_con, _, flat_base, flat_dq, _ = sw_pert_inputs(nel, s, dtype, device, seed)
+            tables = swop.halo_tables(topology, dq.device, dq.dtype)
+            flat_kw = {k: v for k, v in kw.items() if k != "x"}
+            zero = swop._launch_operator("sw_operator_state_pert_topo_launch", flat_dq, None, flat_con, x,
+                                         kw.get("a", 0.0), kw.get("b", 1.0), kw.get("cdt"), False, flat_base,
+                                         tables, force=torch.zeros_like(topo.force))
+            flat = swop.sw_operator(flat_dq, None, flat_con, x=x, base=flat_base, topology=topology, **flat_kw)
+            row["zero_equals_flat"] = bool(torch.equal(zero, flat))
         rows.append(row)
     return rows
 

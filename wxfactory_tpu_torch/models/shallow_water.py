@@ -1,7 +1,7 @@
 """Shallow-water equations on the rotated cubed sphere (DFR discretization).
 
-Counterpart of ``wxfactory_tpu/models/shallow_water.py`` (absolute form
-with or without bottom topography, perturbation form without): the state
+Counterpart of ``wxfactory_tpu/models/shallow_water.py`` (absolute and
+perturbation forms, each with or without bottom topography): the state
 is ``Q[3, 6, ny, nx, s^2]``
 (h, h*u1, h*u2) and the whole spatial operator is ``ops.sw_operator`` — the
 hand-written CUDA kernel on a GPU, its plain torch version on the CPU —
@@ -41,8 +41,14 @@ stages and its Jacobian action carry the bottom topography (the JAX
 package's models/shallow_water.py:166-249: h + hsurf at the faces, each
 interface's hsurf taken from both sides before the flux, the forcing's
 g h H^ab dz_b), on a GPU through the operator's and the tangent pair's
-kernels with topography. The perturbation form and ``packed_run`` refuse
-it (ROADMAP queue 1, item 17), never running without its source terms.
+kernels with topography. In perturbation form the topography rides the
+float64 base (its traces those of h0 + hsurf less each interface's hsurf,
+its RHS the absolute one with topography; models/shallow_water.py:254-299
+there) and the deltas' forcing gains g dh H^ab dz_b, on a GPU through the
+perturbation kernel with topography; the Jacobian action stays the
+absolute operator's with topography (the JAX companion's rule).
+``packed_run`` refuses it: the whole-run kernel has no topography, and the
+JAX package has no such path either.
 """
 
 from dataclasses import dataclass
@@ -66,7 +72,9 @@ from ..ops.sw_operator import (
 )
 from ..parallel.topology import CubedSphereTopology
 
-_ITEM_17 = "ROADMAP queue 1, item 17"
+_NO_PACKED_TOPO = ("packed_run with topography: the whole-run kernel has none, and neither has the JAX package "
+                   "(its kr_run path takes no topography, models/shallow_water.py:441 and :482 there; ROADMAP "
+                   "queue 1, item 14)")
 
 
 @dataclass(frozen=True)
@@ -90,9 +98,10 @@ class ShallowWaterRHS:
     (q0, hu0/h0, q0's face traces and halo, the float64 base RHS) are built
     once in float64 on the same device and cast to ``dtype``.
 
-    With ``topo`` (a ``Topography``) the absolute form carries the bottom
+    With ``topo`` (a ``Topography``) both forms carry the bottom
     topography: its device planes (``ops.sw_operator.SWTopography``) are
-    built once in float64 and cast to ``dtype``."""
+    built once in float64 and cast to ``dtype``; in perturbation form the
+    base is built with the float64 planes."""
 
     def __init__(self, geom, ops, metric, dtype=torch.float64, device="cuda", topology=None,
                  perturbation_base=None, topo=None):
@@ -105,8 +114,6 @@ class ShallowWaterRHS:
             halo_tables(self.topology, self.con.device, dtype)
         self.topo = None
         if topo is not None:
-            if perturbation_base is not None:
-                raise NotImplementedError(f"the SW perturbation form with topography is not ported yet ({_ITEM_17})")
             self.topo = build_topography(topo, metric, dtype=dtype, device=self.device)
         self.base = None
         if perturbation_base is not None:
@@ -115,7 +122,11 @@ class ShallowWaterRHS:
             state = (3, 6, self.con.nel, self.con.nel, self.con.s**2)
             if tuple(q64.shape) != state:
                 raise ValueError(f"perturbation_base has shape {tuple(q64.shape)}, not {state}")
-            self.base = build_base_planes(q64, con64, self.topology, dtype)
+            topo64 = None
+            if topo is not None:
+                topo64 = (self.topo if dtype == torch.float64 else
+                          build_topography(topo, metric, dtype=torch.float64, device=self.device))
+            self.base = build_base_planes(q64, con64, self.topology, dtype, topo=topo64)
         if run_supported(self.con.s, self.con.nel):
             self.packed_run = self._packed_run
 
@@ -139,7 +150,7 @@ class ShallowWaterRHS:
         working-dtype resolution, no absolute-state quantization)."""
         if self.base is None:
             raise ValueError("delta needs a perturbation_base")
-        return sw_operator(qprime, None, self.con, base=self.base, topology=self.topology)
+        return sw_operator(qprime, None, self.con, base=self.base, topology=self.topology, topo=self.topo)
 
     def xla(self, q: torch.Tensor) -> torch.Tensor:
         """The absolute-form operator of this dtype on the absolute state
@@ -203,14 +214,14 @@ class ShallowWaterRHS:
         of the whole-run kernel on a GPU, the plain stages on the CPU; with
         topography it raises (the whole-run kernel has no topography)."""
         if self.topo is not None:
-            raise NotImplementedError(f"packed_run with topography is not ported yet ({_ITEM_17})")
+            raise NotImplementedError(_NO_PACKED_TOPO)
         return sw_run(qp, nsteps, abc, self.con, self.topology, base=self.base)
 
 
 def make_rhs_shallow_water(geom, ops, metric, dtype=torch.float64, device="cuda",
                            topo=None, topology=None, perturbation_base=None) -> ShallowWaterRHS:
-    """Build the shallow-water RHS: the absolute form, with ``topo`` (a
-    ``Topography``) its bottom topography, or with ``perturbation_base`` the
-    perturbation form (which refuses topography, ROADMAP queue 1, item 17)."""
+    """Build the shallow-water RHS: the absolute form or, with
+    ``perturbation_base``, the perturbation form, either with ``topo`` (a
+    ``Topography``) carrying its bottom topography."""
     return ShallowWaterRHS(geom, ops, metric, dtype=dtype, device=device, topology=topology,
                            perturbation_base=perturbation_base, topo=topo)

@@ -57,8 +57,15 @@ tangent pair, on the card through their kernels with topography. The faces
 extrapolate h + hsurf, the panel-edge faces the neighbour's h + hsurf, both
 sides of an interface subtract its hsurf before the flux, and the forcing
 gains g h (H^a1 dz1 + H^a2 dz2) (models/shallow_water.py:166-249 of the JAX
-package). The perturbation form, the halo-plane mode, trace emission, the
-tile kernel and the whole-run kernel refuse it.
+package). The perturbation form takes it in its state mode (RHS and
+stages; on the card the perturbation kernel with topography): its base
+traces and halo are those of h0 + hsurf with each interface's hsurf taken
+away, made once in float64 with the base (``build_base_planes(...,
+topo=)``), the deltas' are those of dh alone, and the forcing gains the
+delta g dh (H^a1 dz1 + H^a2 dz2) (models/shallow_water.py:254-421 there).
+The halo-plane mode, trace emission, the tile kernel and the whole-run
+kernel refuse it; the JAX package has no tile step and no whole-run
+kernel with topography either.
 
 The tangent pair also runs at s = 1 (the pure finite-volume levels of the
 fv-mg preconditioner); the operator needs s >= 2.
@@ -81,7 +88,8 @@ from ..common.constants import GRAVITY
 # Kernel launches made by the wrappers (the plain versions do not count):
 # the operator in absolute and in perturbation form (``state_launches``
 # counts those of them that took the halo from the state, ``topo_launches``
-# those with topography; ``topo_tangent_*_launches`` the tangent pair's with
+# the absolute ones with topography, ``pert_topo_launches`` the
+# perturbation ones with topography; ``topo_tangent_*_launches`` the tangent pair's with
 # topography and ``s1_tangent_*_launches`` its launches at s = 1, counted in
 # the prep and apply counts too), its tile
 # launches in both forms, the edge-trace and halo kernels and the whole-run
@@ -99,6 +107,7 @@ run_launches = 0
 tangent_prep_launches = 0
 tangent_apply_launches = 0
 topo_launches = 0
+pert_topo_launches = 0
 topo_tangent_prep_launches = 0
 topo_tangent_apply_launches = 0
 s1_tangent_prep_launches = 0
@@ -373,27 +382,58 @@ class SWPertBase:
     itf0: torch.Tensor  # (3, 6, nel, nel, 4s) its face traces [W | E | S | N]
     halo0: torch.Tensor  # (3, 4, 6, nel, s) its halo
     rhs0: torch.Tensor  # (3, 6, nel, nel, s^2) its float64 RHS
+    # Built with bottom topography: itf0 and halo0 are the traces of h0 +
+    # hsurf less each interface's hsurf, rhs0 the RHS with topography; every
+    # call around it takes the same topography's planes.
+    topography: bool = False
 
     @property
     def tensors(self):
         return {"q0": self.q0, "u0": self.u0, "itf0": self.itf0, "halo0": self.halo0, "rhs0": self.rhs0}
 
 
-def build_base_planes(q0: torch.Tensor, con64: SWConstants, topology, dtype) -> SWPertBase:
+def build_base_planes(q0: torch.Tensor, con64: SWConstants, topology, dtype,
+                      topo: Optional[SWTopography] = None) -> SWPertBase:
     """The perturbation base around ``q0`` from float64 constants on the
     device that will run the operator (the counterpart of
     ``pallas_sw_gen.build_base_planes``): traces and halos come from the
     runtime's own trace and halo functions, the base RHS from
     ``sw_operator`` (kernels on a GPU, plain versions on the CPU), all in
-    float64; the results are cast to ``dtype``."""
+    float64; the results are cast to ``dtype``.
+
+    With ``topo`` (float64 planes on the same device) the traces and halo
+    are those of h0 + hsurf, each interface's hsurf then taken from both
+    sides' h in float64, and the base RHS is the absolute operator's with
+    topography (the JAX package's models/shallow_water.py:254-299)."""
     if con64.dtype != torch.float64:
         raise ValueError("the perturbation base is built from float64 constants")
+    _check_topo(topo, con64, "build_base_planes")
     q0 = q0.to(device=con64.device, dtype=torch.float64).contiguous()
-    halo0 = sw_halo(sw_edges(q0, con64), topology)
-    rhs0 = sw_operator(q0, halo0, con64)
+    hq0 = _with_hsurf(q0, topo)
+    halo0 = sw_halo(sw_edges(hq0, con64), topology)
+    itf0 = hq0 @ con64.ee
+    if topo is None:
+        rhs0 = sw_operator(q0, halo0, con64)
+    else:
+        rhs0 = sw_operator(q0, None, con64, topology=topology, topo=topo)
+        itf0, halo0 = _less_interface_hsurf(itf0, halo0, topo)
     cast = lambda t: t.to(dtype).contiguous()
-    return SWPertBase(q0=cast(q0), u0=cast(q0[1:3] / q0[0]), itf0=cast(q0 @ con64.ee), halo0=cast(halo0),
-                      rhs0=cast(rhs0))
+    return SWPertBase(q0=cast(q0), u0=cast(q0[1:3] / q0[0]), itf0=cast(itf0), halo0=cast(halo0),
+                      rhs0=cast(rhs0), topography=topo is not None)
+
+
+def _less_interface_hsurf(itf: torch.Tensor, halo: torch.Tensor, topo: SWTopography):
+    """Face traces (3, 6, nel, nel, 4s) [W | E | S | N] and halo (3, 4, 6,
+    nel, s) (S, N, W, E) with the hsurf of each face's interface taken from
+    h: what ``_without_hsurf`` does to the interface states, on the planes
+    the kernel reads."""
+    hx, hy = topo.hsurf_x, topo.hsurf_y
+    face_hs = torch.cat([hx[:, :, :-1], hx[:, :, 1:], hy[:, :-1], hy[:, 1:]], dim=-1)
+    edge_hs = torch.stack([hy[:, 0], hy[:, -1], hx[:, :, 0], hx[:, :, -1]])
+    itf, halo = itf.clone(), halo.clone()
+    itf[0] -= face_hs
+    halo[0] -= edge_hs
+    return itf, halo
 
 
 # ---------------------------------------------------------------------------
@@ -644,20 +684,20 @@ def sw_operator_plain(q, halo, con: SWConstants, x=None, a: float = 0.0, b: floa
     _check_topo_form(topo, halo, base, emit_traces, "sw_operator_plain")
     if base is not None:
         return sw_operator_pert_plain(q, halo, con, base, x=x, a=a, b=b, cdt=cdt, emit_traces=emit_traces,
-                                      topology=topology)
+                                      topology=topology, topo=topo)
     plain_calls += 1
     return _finish(_rhs_plain(q, halo, con, topology, topo), q, x, a, b, cdt, emit_traces, con)
 
 
 def _check_topo_form(topo, halo, base, emit_traces: bool, name: str):
-    """Topography runs in the absolute form with the halo from the state
-    and no trace emission; raise for any other form rather than run without
-    its source terms."""
+    """Topography runs with the halo from the state and no trace emission,
+    and a perturbation base built with topography runs with its planes;
+    raise for any other form rather than run without its source terms."""
+    if base is not None and base.topography != (topo is not None):
+        raise ValueError(f"{name}: a perturbation base built {'with' if base.topography else 'without'} "
+                         f"topography takes {'its' if base.topography else 'no'} topography planes")
     if topo is None:
         return
-    if base is not None:
-        raise NotImplementedError(f"{name}: the perturbation form with topography is not ported yet "
-                                  "(ROADMAP queue 1, item 17)")
     if halo is not None or emit_traces:
         raise ValueError(f"{name}: topography takes its halo from the state (halo=None) and emits no traces")
 
@@ -698,7 +738,8 @@ def _rhs_plain(q, halo, con: SWConstants, topology, topo: Optional[SWTopography]
 
 
 def sw_operator_pert_plain(dq, halo, con: SWConstants, base: SWPertBase, x=None, a: float = 0.0,
-                           b: float = 1.0, cdt: Optional[float] = None, emit_traces: bool = False, topology=None):
+                           b: float = 1.0, cdt: Optional[float] = None, emit_traces: bool = False, topology=None,
+                           topo: Optional[SWTopography] = None):
     """Plain torch version of the perturbation form: ``dq`` is the
     perturbation around ``base.q0`` and ``halo`` the halo of its traces
     (``None``: computed here from dq's traces, the halo being linear);
@@ -707,8 +748,11 @@ def sw_operator_pert_plain(dq, halo, con: SWConstants, base: SWPertBase, x=None,
     ``_ausm_delta_slots``, the JAX package's ``rhs_delta_core``,
     models/shallow_water.py:346-421), or the stage combination of delta
     states (which is the absolute one whenever a + b = 1), and with
-    ``emit_traces`` the output's delta traces."""
+    ``emit_traces`` the output's delta traces. With ``topo`` (a base built
+    with it) the forcing gains g dh (H^a1 dz1 + H^a2 dz2), the rest of the
+    topography riding the base (models/shallow_water.py:355-421 there)."""
     global plain_calls
+    _check_topo_form(topo, halo, base, emit_traces, "sw_operator_pert_plain")
     plain_calls += 1
     halo = _halo_of(dq, halo, con, topology)
     half_g = 0.5 * GRAVITY
@@ -737,6 +781,9 @@ def sw_operator_pert_plain(dq, halo, con: SWConstants, base: SWPertBase, x=None,
     rot2 = 2.0 * con.gridrot
     forcing_1 = rot2 * (g101 * dhu1 + g102 * dhu2) + c111 * d11 + 2.0 * c112 * d12
     forcing_2 = rot2 * (g201 * dhu1 + g202 * dhu2) + 2.0 * c212 * d12 + c222 * d22
+    if topo is not None:
+        forcing_1 = forcing_1 + topo.force[0] * dh
+        forcing_2 = forcing_2 + topo.force[1] * dh
     df = torch.stack([-invsg * div[0], -invsg * div[1] - forcing_1, -invsg * div[2] - forcing_2])
 
     dL_x, dR_x, dL_y, dR_y = _interface_states(dq @ con.ee, halo, con.s)
@@ -841,11 +888,13 @@ def sw_operator(q, halo, con: SWConstants, x=None, a: float = 0.0, b: float = 1.
     stream, without synchronising, or raises: there is no fallback to the
     halo kernels when the state mode fails.
 
-    ``topo`` (``SWTopography``): the bottom topography, in the absolute
-    state mode only (RHS and stages; one launch of the state mode's
-    topography kernel, counted in ``topo_launches`` too); any other form
+    ``topo`` (``SWTopography``): the bottom topography, in the state mode
+    only (RHS and stages; one launch of the state mode's topography kernel,
+    counted in ``topo_launches`` too; with ``base``, which must have been
+    built with the same topography, of the perturbation kernel with
+    topography, counted in ``pert_topo_launches``); any other form
     raises."""
-    global launches, pert_launches, state_launches, topo_launches
+    global launches, pert_launches, state_launches, topo_launches, pert_topo_launches
     _check_npanel(con, 6, "sw_operator")
     _check(q, halo, con, x, a, base)
     _check_topo_form(topo, halo, base, emit_traces, "sw_operator")
@@ -855,7 +904,12 @@ def sw_operator(q, halo, con: SWConstants, x=None, a: float = 0.0, b: float = 1.
     if q.device.type == "cpu":
         return sw_operator_plain(q, halo, con, x=x, a=a, b=b, cdt=cdt, emit_traces=emit_traces, base=base,
                                  topology=topology, topo=topo)
-    if topo is not None:
+    if topo is not None and base is not None:
+        out = _launch_operator("sw_operator_state_pert_topo_launch", q, None, con, x, a, b, cdt, False, base,
+                               halo_tables(topology, q.device, q.dtype), force=topo.force)
+        state_launches += 1
+        pert_topo_launches += 1
+    elif topo is not None:
         out = _launch_operator_topo(q, con, x, a, b, cdt, halo_tables(topology, q.device, q.dtype), topo)
         state_launches += 1
         topo_launches += 1
@@ -873,11 +927,13 @@ def sw_operator(q, halo, con: SWConstants, x=None, a: float = 0.0, b: float = 1.
 
 
 def _launch_operator(entry: str, q, halo, con: SWConstants, x, a: float, b: float, cdt: Optional[float],
-                     emit_traces: bool, base: Optional[SWPertBase], tables: Optional[HaloTables] = None):
+                     emit_traces: bool, base: Optional[SWPertBase], tables: Optional[HaloTables] = None,
+                     force: Optional[torch.Tensor] = None):
     """One launch of the operator kernel through the C entry ``entry``
     (``sw_operator_launch`` or ``sw_tile_launch`` with a halo;
-    ``sw_operator_state_launch`` with the halo tables instead) on the
-    current stream."""
+    ``sw_operator_state_launch`` with the halo tables instead;
+    ``sw_operator_state_pert_topo_launch`` with them and the topography's
+    forcing coefficients ``force``, and no traces) on the current stream."""
     if q.device.type != "cuda":
         raise ValueError(f"{entry} runs on cpu or cuda tensors, not {q.device}")
     _check_kernel_shape(con, entry)
@@ -894,13 +950,14 @@ def _launch_operator(entry: str, q, halo, con: SWConstants, x, a: float, b: floa
     pb = base.tensors if base is not None else {}
     halo_args = ((_ptr(halo),), ()) if tables is None else ((), (_ptr(tables.src), _ptr(tables.flip),
                                                                  _ptr(tables.conv)))
+    tail = (_ptr(force), _ptr(out)) if force is not None else (_ptr(out), _ptr(traces))
     with torch.cuda.device(q.device):
         rc = getattr(lib, entry)(
             1 if q.dtype == torch.float64 else 0, con.s, con.nel,
             _ptr(q), *halo_args[0], _ptr(con.ops), _ptr(con.fields), _ptr(con.gridrot),
             _ptr(con.itf_x), _ptr(con.itf_y), _ptr(x if use_x else None),
             _ptr(pb.get("q0")), _ptr(pb.get("u0")), _ptr(pb.get("itf0")), _ptr(pb.get("halo0")),
-            _ptr(pb.get("rhs0")), *halo_args[1], _ptr(out), _ptr(traces),
+            _ptr(pb.get("rhs0")), *halo_args[1], *tail,
             float(a), float(b), float(cdt if cdt is not None else 0.0),
             1 if cdt is not None else 0, _stream(q.device),
         )

@@ -2,8 +2,10 @@
 config.ini [--steps N] [--warmup M]``.
 
 Builds the configuration's Simulation on CUDA, takes ``--warmup`` steps, then
-``--steps`` steps under ``torch.profiler`` (CPU and CUDA activities), and
-prints one JSON line: the card, host wall time per step (unprofiled and
+``--steps`` steps under ``torch.profiler`` (the CUDA activity only: every
+number below is read from the device's events, and recording the host's
+operators as well took 2-4 times as long on an H100's host), and prints one
+JSON line: the card, host wall time per step (unprofiled and
 profiled), device busy time per step and its share of the profiled window,
 device operations (kernels and copies) per step, and device time per step by
 kernel name (the largest first). Needs a CUDA
@@ -55,7 +57,7 @@ def profile_simulation(sim, steps: int = 20, warmup: int = 10, top: int = 12) ->
     syncs = device.host_syncs
     plain_step_s = run(steps)
     syncs = (device.host_syncs - syncs) / steps
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
         profiled_step_s = run(steps)
     kernels, launches = {}, 0
     for ev in prof.key_averages():
@@ -92,7 +94,7 @@ def profile_calls(fn, repeats: int = 1, top: int = 8) -> dict:
     from torch.profiler import profile as torch_profile
 
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(repeats):
             fn()

@@ -11,8 +11,10 @@ preconditioner, lu, ilu, p-mg or fv-mg, ``_create_preconditioner``), with
 ``mixed_precision_krylov`` the float32 perturbation-form companion of the
 device solvers' Krylov loop, the step loop with the end-time clamp, the
 NaN/Inf guard, ``device_step_chunk`` (equal steps run back to back with the
-guard and outputs at the chunk's end), checkpoints and blockstats (shallow
-water only, as in the JAX package). The device comes from the
+guard and outputs at the chunk's end), the outputs (NetCDF fields,
+checkpoints, blockstats for shallow water only as in the JAX package, the
+solver-stats database with sampled RHS stage times, the runtime file;
+``output/manager.py``). The device comes from the
 caller; nothing moves to another device. Any other grid, case, integrator,
 exponential solver or distribution raises ``NotImplementedError`` naming
 its ROADMAP item.
@@ -47,8 +49,6 @@ from .output import OutputManager
 from .parallel import CubedSphereTopology, ShardMapTvdrk3, TileMesh
 from .parallel.mesh import tile_n_for_world
 from .testcases import dcmip_planet_params, initial_state, initial_state_3d
-
-_ITEM_17 = "ROADMAP queue 1, item 17"
 
 # The 3D cases with the Rayleigh sponge (extra_forcing in the JAX package).
 SPONGE_CASES = (21, 22)
@@ -136,7 +136,9 @@ class Simulation:
             self.topology = CubedSphereTopology(self.geom)
             q0, self.topo = initial_state(self.geom, self.ops, c.case_number, c.matsuno_wave_type, c.matsuno_amp)
             if self.topo is not None and self.mesh is not None:
-                raise NotImplementedError(f"the tile step with topography is not ported yet ({_ITEM_17})")
+                raise NotImplementedError(
+                    "the tile step with topography: the JAX package has none either (its _build_shard_maker "
+                    f"returns None with topography, simulation.py:334 there); {_ITEM_14}")
             self.rhs = None if self.mesh is not None else make_rhs_shallow_water(
                 self.geom, self.ops, self.metric, dtype=self.dtype, device=self.device,
                 topology=self.topology, topo=self.topo,
@@ -149,11 +151,13 @@ class Simulation:
             self.starting_step = c.starting_step
         # The float32 companion of the Krylov loop (mixed_precision_krylov):
         # the perturbation form around the initial state (the JAX package's
-        # simulation.py:140-162). Its Jacobian action is, for 3D Euler, the
-        # kernel's perturbation tangent mode (none for the sponge cases 21
-        # and 22: the JAX perturbation form refuses extra_forcing), for
-        # shallow water the tangent kernel of the absolute float32 operator,
-        # as the JAX package takes jax.jvp of its companion's XLA form there.
+        # simulation.py:140-162), with the bottom topography of cases 5 and
+        # 10. Its Jacobian action is, for 3D Euler, the kernel's
+        # perturbation tangent mode (none for the sponge cases 21 and 22:
+        # the JAX perturbation form refuses extra_forcing), for shallow
+        # water the tangent kernel of the absolute float32 operator (with
+        # topography), as the JAX package takes jax.jvp of its companion's
+        # XLA form there.
         self.rhs32 = None
         if getattr(c, "mixed_precision_krylov", False) and self.dtype == torch.float64:
             if c.equations == "euler" and c.case_number >= 13 and self.damping is None:
@@ -162,17 +166,14 @@ class Simulation:
                     topology=self.topology, perturbation_base=q0,
                 )
             elif c.equations == "shallow_water":
-                if self.topo is not None:
-                    raise NotImplementedError(
-                        f"mixed_precision_krylov with topography (the float32 perturbation-form companion) is not "
-                        f"ported yet ({_ITEM_17})")
                 self.rhs32 = make_rhs_shallow_water(
                     self.geom, self.ops, self.metric, dtype=torch.float32, device=self.device,
-                    topology=self.topology, perturbation_base=q0,
+                    topology=self.topology, perturbation_base=q0, topo=self.topo,
                 )
 
         self.initial_q = torch.as_tensor(q0, dtype=self.dtype, device=self.device)
         self.integrator = self._create_integrator()
+        self._rhs_probes = None  # built at the first rhs_timing sample
 
         if getattr(c, "mixed_precision_krylov", False):
             # The companion only feeds the device-resident Krylov solver;
@@ -290,27 +291,53 @@ class Simulation:
             raise RuntimeError(f"NaN/Inf detected in state after step {step_id}")
 
     def step(self, q, step_id: int, t: float):
-        """One step: dt clamp near t_end, integrator, NaN guard, outputs.
-        Returns (q_new, new_time)."""
+        """One step: dt clamp near t_end, integrator, NaN guard, outputs,
+        solver statistics and RHS timing samples. Returns (q_new, new_time)."""
         c = self.config
         dt = min(c.dt, c.t_end - t) if c.t_end > t else c.dt
+        t0 = time.time()
         q = self.integrator.step(q, dt)
         self._check_finite(q, step_id)
+        # The NaN guard waits for the card: the solve time is the step's own.
+        solve_time = time.time() - t0
         self.output.step(q, step_id, t + dt)
+        self.output.store_solver_stats(step_id, self.integrator.solver_info, solve_time)
+        self._maybe_sample_rhs_timing(q, step_id)
         return q, t + dt
+
+    def _maybe_sample_rhs_timing(self, q, step_id: int) -> None:
+        """Every ``rhs_timing_freq`` steps with ``store_solver_stats``: the
+        per-stage RHS times (``output/rhs_timing.py``) at the state ``q``
+        into the solver-stats database (the JAX package's
+        simulation.py:496-507). A tile-step run has no whole-sphere RHS to
+        time and samples none."""
+        c = self.config
+        if not (c.rhs_timing_freq > 0 and c.store_solver_stats and step_id % c.rhs_timing_freq == 0):
+            return
+        if self.rhs is None:
+            return
+        from .output.rhs_timing import make_stage_probes, sample
+
+        if self._rhs_probes is None:
+            self._rhs_probes = make_stage_probes(self.geom, self.ops, self.topology, self.rhs, q, c.equations)
+        self.output.store_rhs_timing(step_id, sample(self._rhs_probes, q.device))
 
     def _chunk_len(self, step_id: int, t: float) -> int:
         """How many equal-dt steps may run as one chunk from ``step_id``:
-        bounded by ``device_step_chunk``, the next step that owes a
-        checkpoint or blockstats, and the last full-dt step before the t_end
-        clamp; 1 when chunking is off (the JAX package's simulation.py:512-534)."""
+        bounded by ``device_step_chunk``, the next step that owes a field
+        write, a checkpoint, blockstats or an RHS timing sample, and the
+        last full-dt step before the t_end clamp; 1 when chunking is off
+        (the JAX package's simulation.py:512-534)."""
         c = self.config
         chunk = getattr(c, "device_step_chunk", 1)
         if chunk <= 1 or not hasattr(self.integrator, "steps_device"):
             return 1
         full_dt_steps = int(math.floor((c.t_end - t) / c.dt + 1e-10))
         n = min(chunk, max(full_dt_steps, 1))
-        for f in (c.output_freq, c.save_state_freq, c.stat_freq):
+        freqs = [c.output_freq, c.save_state_freq, c.stat_freq]
+        if c.store_solver_stats and c.rhs_timing_freq > 0:
+            freqs.append(c.rhs_timing_freq)
+        for f in freqs:
             if f > 0:
                 n = min(n, (step_id // f + 1) * f - step_id)
         return max(n, 1)
@@ -327,13 +354,19 @@ class Simulation:
         while t < c.t_end - 1e-10:
             n = self._chunk_len(step_id, t)
             if n > 1:
-                # n equal steps back to back; the NaN guard and the outputs
-                # land at the chunk's end (no configured event is skipped).
+                # n equal steps back to back; the NaN guard, the outputs,
+                # the solver statistics and the timing samples land at the
+                # chunk's end (no configured event is skipped), so no host
+                # read falls inside a chunk.
+                t0 = time.time()
                 q = self.integrator.steps_device(q, c.dt, n)
                 step_id += n
                 t += n * c.dt
                 self._check_finite(q, step_id)
+                solve_time = time.time() - t0
                 self.output.step(q, step_id, t)
+                self.output.store_solver_stats(step_id, self.integrator.solver_info, solve_time)
+                self._maybe_sample_rhs_timing(q, step_id)
             else:
                 step_id += 1
                 q, t = self.step(q, step_id, t)
@@ -342,6 +375,7 @@ class Simulation:
         if self.device.type == "cuda":
             _device.synchronize(self.device)
         seconds = time.time() - t_start
+        self.output.finalize(total_time=seconds)
         done = step_id - self.starting_step
         rate = done / seconds if seconds > 0 else float("inf")
         ranks = f" x {self.mesh.world} ranks" if self.mesh is not None and self.mesh.world > 1 else ""

@@ -141,10 +141,13 @@ def case_galewsky(geom, num_quad: int = 512) -> np.ndarray:
     # Evaluated in chunks over the flattened grid: the dense (npts, 512)
     # quad tensor is ~5 GB of f64 per intermediate at galewsky's canonical
     # 1.2M-point grid (nel=64, s=7) and was thrashing host memory.
+    # The integral depends on the latitude alone, and the cube's panels and
+    # their mirror lines repeat latitudes (~4.6 points a latitude on the
+    # unrotated grid), so it is evaluated once a distinct value.
     nodes, weights = np.polynomial.legendre.leggauss(num_quad)
     lo = -0.5 * math.pi
     half_len = 0.5 * (lat - lo)  # (6, ny, nx, s^2)
-    hl_flat = half_len.reshape(-1)
+    hl_flat, where = np.unique(half_len, return_inverse=True)
     integral = np.empty_like(hl_flat)
     chunk = 1 << 16
     for i in range(0, hl_flat.size, chunk):
@@ -153,7 +156,7 @@ def case_galewsky(geom, num_quad: int = 512) -> np.ndarray:
         du = _galewsky_u(x)
         integrand = (2.0 * a * O * np.sin(x) + du * np.tan(x)) * du
         integral[i : i + chunk] = integrand @ weights
-    integral = integral.reshape(half_len.shape) * half_len
+    integral = integral[where.reshape(half_len.shape)] * half_len
 
     h = h0 - integral / GRAVITY
     # Perturbation that triggers the instability. The reference evaluates
