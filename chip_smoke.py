@@ -334,7 +334,24 @@ and drives the port's two main paths, shallow water and 3D Euler:
     CLI with every output knob (NetCDF fields, solver statistics, RHS
     timing samples, the runtime file) on case 5 EPI3 at nel = 10, its
     steps/s beside the same run without output, and dcmip31 TVD-RK3 at
-    12x12x3, s = 2 with field output; every file read back with scipy.
+    12x12x3, s = 2 with field output; every file read back with scipy;
+36. the integrators and solvers of ROADMAP item 12 through
+    Simulation(ini).run(), float64, tolerance 1e-7, every integrator step
+    inside forbid_uncounted_syncs (each host wait a counted read): (a) case
+    6 at nel = 10, s = 3, dt = 1800 s, 2 steps: EPI3 with every exponential
+    solver of the schema the port gained (pmex_1s, pmex_ne1s, the cwy/icwy
+    low-synchronization variants, dcgs2, exode), SRERK3 + kiops and SRERK6
+    + pmex; (b) SRERK3 + kiops and EPI3 + icwy_1s at nel = 30, dt = 900 s;
+    (c) at nel = 10, dt = 1800 s: backward Euler, Crank-Nicolson, BDF2 (2
+    steps), SDIRK, RosExp2 and Ros2 + gcrot; (d) dcmip31 at 12x12x3, s = 2,
+    dt = 30 s, 2 steps: SRERK3 + pmex, EPI2 + icwy_1s, Crank-Nicolson and
+    EPI2 + icwy_1s with the exponential modal filter; each with no plain
+    call, one tangent apply launch a Jacobian action and one prep a
+    linearisation, only state-mode operator launches (shallow water), a
+    finite state, mass drift below 1e-10 (3D: the Krylov tolerance),
+    steps/s, host syncs a step and the iterations a step; the nel = 10
+    paths again on the CPU (the plain operator, the tangent kernels' plain
+    pair): the same iterations a step, within 1e-9 of scale.
 
 Each phase prints one JSON line; then the kernels line, the card's
 ``nvidia-smi`` name and power limit, and last the result line. Any failure
@@ -3605,6 +3622,212 @@ def phase35(torch, smi):
             "max_abs_err": max(r["max_abs_err"] for r in main)}
 
 
+# Phase 36: the integrators and solvers of ROADMAP item 12 through
+# Simulation(ini).run(), on the ported operator and tangent kernels only.
+# The exponential solvers of the schema that the port gained (kiops_nest is
+# no schema name: tests/test_torch_lowsync.py holds it).
+NEW_EXP_SOLVERS = ["pmex_1s", "pmex_ne1s", "cwy_1s", "cwy_ne", "cwy_ne1s", "icwy_1s", "icwy_ne", "icwy_ne1s",
+                   "icwy_neiop", "dcgs2", "exode"]
+# (tag, model, shape, dt, steps, time_integrator, exponential_solver,
+# linear_solver, expfilter). Shallow water: case 6, s = 3, shape = nel; 3D:
+# dcmip31, s = 2, shape = (nel_h, nel_v). The implicit paths run at dt =
+# 1800 s, where the JAX package's Newton converges in 3-8 iterations a solve
+# on case 6 at nel = 2 and the port's at nel = 10 in 3-7 (tests/
+# test_torch_implicit.py; the port's CPU run at nel = 10).
+ITEM12_RUNS = (
+    [(f"a_epi3_{n}", "sw", 10, 1800.0, 2, "epi3", n, "fgmres", False) for n in NEW_EXP_SOLVERS]
+    + [("a_srerk3_kiops", "sw", 10, 1800.0, 2, "srerk3", "kiops", "fgmres", False),
+       ("a_srerk6_pmex", "sw", 10, 1800.0, 2, "srerk6", "pmex", "fgmres", False),
+       ("b_srerk3_kiops_nel30", "sw", 30, 900.0, 2, "srerk3", "kiops", "fgmres", False),
+       ("b_epi3_icwy_1s_nel30", "sw", 30, 900.0, 2, "epi3", "icwy_1s", "fgmres", False),
+       ("c_backward_euler", "sw", 10, 1800.0, 1, "backward_euler", "pmex", "fgmres", False),
+       ("c_crank_nicolson", "sw", 10, 1800.0, 1, "crank_nicolson", "pmex", "fgmres", False),
+       ("c_bdf2", "sw", 10, 1800.0, 2, "bdf2", "pmex", "fgmres", False),
+       ("c_sdirk", "sw", 10, 1800.0, 1, "sdirk", "pmex", "fgmres", False),
+       ("c_rosexp2", "sw", 10, 1800.0, 1, "rosexp2", "pmex", "fgmres", False),
+       ("c_ros2_gcrot", "sw", 10, 1800.0, 1, "ros2", "pmex", "gcrot", False),
+       ("d_srerk3_pmex", "e3", (12, 3), 30.0, 2, "srerk3", "pmex", "fgmres", False),
+       ("d_epi2_icwy_1s", "e3", (12, 3), 30.0, 2, "epi2", "icwy_1s", "fgmres", False),
+       ("d_crank_nicolson", "e3", (12, 3), 30.0, 2, "crank_nicolson", "pmex", "fgmres", False),
+       ("d_epi2_icwy_1s_expfilter", "e3", (12, 3), 30.0, 2, "epi2", "icwy_1s", "fgmres", True)])
+ITEM12_INI = """
+[General]
+equations = {equations}
+[System]
+precision = float64
+distribute = off
+[Test_case]
+case_number = {case}
+[Time_integration]
+dt = {dt}
+t_end = {t_end}
+time_integrator = {integrator}
+exponential_solver = {solver}
+linear_solver = {linear_solver}
+tolerance = 1e-7
+[Spatial_discretization]
+num_solpts = {s}
+num_elements_horizontal = {nel_h}
+{vertical}{filters}
+[Grid]
+grid_type = cubed_sphere
+ztop = 10000
+[Output_options]
+save_state_freq = 0
+stat_freq = 0
+output_dir = {out}
+"""
+ITEM12_FILTER = "expfilter_apply = 1\nexpfilter_order = 16\nexpfilter_cutoff = 0.5\nexpfilter_strength = 0.1\n"
+
+
+def _item12_run(torch, run, device="cuda"):
+    """One path of phase 36 through ``Simulation(ini).run()`` on ``device``:
+    every step of the integrator inside ``forbid_uncounted_syncs`` on the
+    card (each host wait a counted read), its solver statistics a step, and
+    on the card the launch gates: no plain call, one tangent apply a
+    Jacobian action and one prep a linearisation, operator launches only in
+    the state mode (shallow water); then a finite state and the mass drift.
+    Returns (row, final state as numpy)."""
+    import numpy as np
+
+    from wxfactory_tpu_torch.common.device import forbid_uncounted_syncs
+    from wxfactory_tpu_torch.output import global_integral_2d, global_mass_3d
+    from wxfactory_tpu_torch.simulation import Simulation
+
+    # EXODE's step-size warm start lives in its module: start each path as
+    # a fresh process does.
+    sys.modules["wxfactory_tpu_torch.solvers.exode"]._state["first_step"] = None
+    tag, model, shape, dt, nsteps, integrator, solver, linear_solver, expfilter = run
+    sw = model == "sw"
+    nel_h, nel_v = (shape, None) if sw else shape
+    s = 3 if sw else 2
+    out_dir = WORK / f"item12_{tag}_{device}"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    ini = WORK / f"item12_{tag}_{device}.ini"
+    ini.write_text(ITEM12_INI.format(
+        equations="shallow_water" if sw else "euler", case=6 if sw else 31, dt=dt, t_end=dt * nsteps,
+        integrator=integrator, solver=solver, linear_solver=linear_solver, s=s, nel_h=nel_h,
+        vertical="" if sw else f"num_elements_vertical = {nel_v}\n", filters=ITEM12_FILTER if expfilter else "",
+        out=out_dir))
+    log = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        sim = Simulation(str(ini), device=device)
+        if device == "cpu" and sw:
+            # The CPU's Jacobian action: the tangent kernels' plain pair
+            # (prep once a linearisation, apply an action; ~1/20 of the
+            # model's torch.func.jvp), the plain versions of what the card
+            # launches.
+            from wxfactory_tpu_torch.kernels.check import PlainPairShallowWater
+
+            sim.rhs.__class__ = PlainPairShallowWater
+        setup = time.perf_counter() - t0
+        integ, per_step = sim.integrator, []
+        plain_step = integ.step
+
+        def step(q, step_dt):
+            with forbid_uncounted_syncs():
+                q = plain_step(q, step_dt)
+            info = integ.solver_info or integ.init_method.solver_info  # an EPI bootstrap step: its Epi2's
+            per_step.append((info.total_num_it, info.num_substeps, info.num_rejected))
+            return q
+
+        integ.step = step
+        q = sim.run()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    text = log.getvalue()
+    done = re.search(r"Completed (\d+) steps in (\S+) s \((\S+) steps/s\)", text)
+    if done is None or int(done.group(1)) != nsteps:
+        sys.stderr.write(text[-3000:])
+        raise AssertionError(f"phase 36 {tag} on {device} did not complete {nsteps} steps")
+    if "WARNING" in text:
+        raise AssertionError(f"phase 36 {tag}: {text[text.index('WARNING'):][:300]}")
+    state = q.cpu().numpy()
+    q0 = sim.initial_q.cpu().numpy()
+    if sw:
+        mass = lambda x: global_integral_2d(x[0], sim.ops, sim.metric)
+    else:
+        mass = lambda x: global_mass_3d(x, sim.ops, sim.metric)
+    drift = (mass(state) - mass(q0)) / mass(q0)
+    # Float64 and conservative: 1e-10 on shallow water (phase 30's gate);
+    # 3D: the KIOPS tolerance, as phase 11 (the first step's update cancels
+    # ~12 orders at the balanced initial state).
+    drift_tol = 1e-10 if sw else 1e-7
+    if not (bool(np.isfinite(state).all()) and abs(drift) < drift_tol):
+        raise AssertionError(f"phase 36 {tag} on {device}: finite {bool(np.isfinite(state).all())}, "
+                             f"mass drift {drift} (limit {drift_tol})")
+    if sw and not (7500.0 < float(state[0].min()) and float(state[0].max()) < 11000.0):
+        raise AssertionError(f"phase 36 {tag}: h in ({float(state[0].min())}, {float(state[0].max())})")
+    row = {"tag": tag, "device": device, "model": "case 6" if sw else "dcmip31", "nel_h": nel_h, "nel_v": nel_v,
+           "s": s, "dt": dt, "steps": nsteps, "time_integrator": integrator, "exponential_solver": solver,
+           "linear_solver": linear_solver, "expfilter": expfilter, "setup_s": setup, "run_s": float(done.group(2)),
+           "steps_per_s": float(done.group(3)), "wall_s": wall, "iterations_per_step": per_step,
+           "host_syncs": counts["host_syncs"], "host_syncs_per_step": counts["host_syncs"] / nsteps,
+           "jacobian_actions": counts["jacobian_actions"], "linearisations": counts["linearisations"],
+           "mass_drift": drift, "mass_drift_limit": drift_tol, "finite": True}
+    if device != "cuda":
+        return row, state
+    if sw:
+        launches = {k: counts[k] for k in ("sw_operator", "sw_state", "sw_tangent_prep", "sw_tangent_apply",
+                                           "sw_plain_calls", "sw_plain_tangent_calls", "sw_pert", "sw_edges",
+                                           "sw_halo")}
+        want = dict(launches, sw_state=launches["sw_operator"], sw_tangent_apply=counts["jacobian_actions"],
+                    sw_tangent_prep=counts["linearisations"], sw_plain_calls=0, sw_plain_tangent_calls=0,
+                    sw_pert=0, sw_edges=0, sw_halo=0)
+        operator = launches["sw_operator"]
+    else:
+        launches = {k: counts[k] for k in ("euler3d_operator", "euler3d_tangent", "euler3d_tangent_prep",
+                                           "euler3d_plain_calls", "plain_tangent_calls", "euler3d_pert",
+                                           "euler3d_pert_tangent")}
+        want = dict(launches, euler3d_tangent=counts["jacobian_actions"],
+                    euler3d_tangent_prep=counts["linearisations"], euler3d_plain_calls=0, plain_tangent_calls=0,
+                    euler3d_pert=0, euler3d_pert_tangent=0)
+        operator = launches["euler3d_operator"]
+    if launches != want or operator == 0 or counts["jacobian_actions"] == 0 or counts["linearisations"] == 0:
+        raise AssertionError(f"phase 36 {tag}: launches {launches}, expected {want} (Jacobian actions "
+                             f"{counts['jacobian_actions']}, linearisations {counts['linearisations']})")
+    row["launches"] = launches
+    return row, state
+
+
+def phase36(torch):
+    """The paths of ROADMAP item 12 on the card: every exponential solver
+    the port gained through EPI3, SRERK 3 and 6, the implicit, hybrid and
+    GCROT paths on case 6, and SRERK, a low-synchronization EPI2, Crank-
+    Nicolson and the exponential filter on dcmip31; then the nel = 10 paths
+    on the CPU, within 1e-9 of scale with the same iterations a step."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    rows, states = [], {}
+    for run in ITEM12_RUNS:
+        row, states[run[0]] = _item12_run(torch, run)
+        rows.append(row)
+    gpu_s = time.perf_counter() - t0
+    cpu = {r[0]: _item12_run(torch, r, device="cpu") for r in ITEM12_RUNS if r[1] == "sw" and r[2] == 10}
+    cpu_s = time.perf_counter() - t0 - gpu_s
+    comparisons = []
+    for row in rows:
+        if row["tag"] not in cpu:
+            continue
+        crow, cstate = cpu[row["tag"]]
+        nvar = cstate.shape[0]
+        scale = np.abs(cstate).reshape(nvar, -1).max(axis=1).reshape((nvar,) + (1,) * (cstate.ndim - 1))
+        err = float((np.abs(states[row["tag"]] - cstate) / scale).max())
+        same = crow["iterations_per_step"] == row["iterations_per_step"]
+        row["cpu"] = {"steps_per_s": crow["steps_per_s"], "iterations_per_step": crow["iterations_per_step"],
+                      "jacobian_actions": crow["jacobian_actions"], "gpu_vs_cpu_err": err, "tol": 1e-9,
+                      "same_iterations": same}
+        comparisons.append((row["tag"], err, same, crow["jacobian_actions"] == row["jacobian_actions"]))
+    emit({"phase": 36, "results": rows, "gpu_s": gpu_s, "cpu_s": cpu_s})
+    bad = [c for c in comparisons if not (c[1] <= 1e-9 and c[2] and c[3])]
+    if bad:
+        raise AssertionError(f"phase 36: the card and the CPU differ (tag, err, same iterations, same Jacobian "
+                             f"actions): {bad}")
+
+
 def main() -> int:
     try:
         import torch
@@ -3664,6 +3887,7 @@ def main() -> int:
     s1_launches = timed(33, phase33, torch)
     terrain = timed(34, phase34, torch, smi)
     pert_topo = timed(35, phase35, torch, smi)
+    timed(36, phase36, torch)
     sw_entry = lambda name, mode, replaces, source="wxfactory_tpu_torch/csrc/sw_operator.cu", row=swt["sw_pert"]: {
         "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": sw_counts[name],
         "max_abs_err": sw_errs[name], "ms": row[f"{mode}_kernel_ms"], "plain_ms": row[f"{mode}_plain_ms"],

@@ -17,9 +17,9 @@ on 4x2 elements, s=2, planet scale 125, not rotating, dt = 30 s, tolerance
   than 1e-12, and the per-step Krylov summary is printed.
 * EPI3 on shallow water (case 6 through ``Simulation``) against the JAX
   ``Epi`` within 1e-9 (more: tests/test_torch_sw_epi.py), and dcmip31 EPI2
-  with ``pmex`` with the JAX ``Epi``'s Krylov statistics. What the port does
-  not run raises ``NotImplementedError`` naming ROADMAP: shallow water with
-  topography, the exponential solvers of item 12; ``mixed_precision_krylov``
+  with ``pmex`` and ``pmex_1s`` with the JAX ``Epi``'s Krylov statistics;
+  ``kiops_ne`` raises the JAX package's ``ValueError`` at the step;
+  ``mixed_precision_krylov``
   with kiops warns that it has no effect (kiops_jit:
   tests/test_torch_epi_kiops_jit.py).
 """
@@ -196,19 +196,24 @@ output_dir = {out}
 def test_unported_exponential_solvers_raise(tmp_path, solver, canonical):
     text = INI.format(t_end=30, steps=0, out=tmp_path).replace("exponential_solver = kiops",
                                                                f"exponential_solver = {solver}")
-    if solver != "pmex":
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 12"):
-            Simulation(Configuration(text), device="cpu")
+    if solver == "kiops_ne":
+        # The schema lists it and neither package's solvers export it: the
+        # Simulation constructs, and the step raises the JAX package's
+        # ValueError (integrators/epi.py:350-351 there).
+        sim = Simulation(Configuration(text), device="cpu")
+        with pytest.raises(ValueError, match="Unrecognized exponential solver kiops_ne"):
+            sim.step(sim.initial_q, 1, 0.0)
         return
-    # pmex is ported: one dcmip31 EPI2 step through Simulation against the
-    # JAX Epi(pmex), with the same Krylov statistics.
+    # pmex and pmex_1s (pmex in both packages) are ported: one dcmip31 EPI2
+    # step through Simulation against the JAX Epi, with the same Krylov
+    # statistics.
     geom, ops, topo, metric, q0 = canonical
-    jinteg = JEpi(make_rhs_euler_cubesphere(geom, ops, metric, topo), order=2, exponential_solver="pmex",
+    jinteg = JEpi(make_rhs_euler_cubesphere(geom, ops, metric, topo), order=2, exponential_solver=solver,
                   tolerance=1e-7)
     want = np.asarray(jinteg.step(np.asarray(q0), DT))
     sim = Simulation(Configuration(text), device="cpu")
     got, _ = sim.step(sim.initial_q, 1, 0.0)
-    assert sim.integrator.exponential_solver == "pmex"
+    assert sim.integrator.exponential_solver == solver
     assert _stats(sim.integrator) == _stats(jinteg)
     assert _scaled_err(got.numpy(), want) < 1e-9
 

@@ -14,7 +14,7 @@ the reference's max:
 * mixed precision: tests/test_torch_ros2_mixed.py;
 * ``time_integrator = ros2`` through the port's ``Simulation`` on the CPU
   with ``device_step_chunk`` (the chunk runs ``steps_device``) equals the
-  single steps; ``gcrot`` raises naming ROADMAP; Ros2 on shallow water
+  single steps; one ``gcrot`` step matches the JAX ``Ros2(gcrot)``; Ros2 on shallow water
   (case 6 through ``Simulation``) matches the JAX ``Ros2`` to 1e-9, and
   shallow water with topography raises naming ROADMAP.
 """
@@ -154,9 +154,13 @@ def test_ros2_ini_through_simulation(tmp_path, capsys):
 @pytest.mark.parametrize("what", ["gcrot", "shallow_water"])
 def test_unported_ros2_raises_naming_roadmap(tmp_path, what):
     if what == "gcrot":
-        geom, ops, topo, metric, q0 = _setup()
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 12"):
-            Ros2(interop.euler3d_rhs(geom, ops, metric), linear_solver="gcrot")
+        # gcrot is ported: one dcmip31 step with the JAX Ros2(gcrot)'s
+        # matvec count, every Jacobian action one plain tangent here.
+        want, jiters = _jax_run("gcrot", nsteps=1)
+        states, iters, actions, plain = _port_run("gcrot", nsteps=1)
+        assert iters == jiters
+        assert _scaled(states[0], want[0]).max() < 1e-10
+        assert actions == plain > iters[0]
         return
     # Ros2 on shallow water runs now (the SW Jacobian action): two case-6
     # steps of the INI through Simulation against the JAX Ros2 on the same

@@ -94,21 +94,27 @@ def test_cuda_request_without_cuda_raises(tmp_path):
 
 
 @pytest.mark.parametrize(
-    "line,replacement",
+    "line,replacement,raises",
     [
-        # EPI on shallow water runs (tests/test_torch_sw_epi.py); srerk is
-        # ROADMAP item 12.
-        ("time_integrator = tvdrk3", "time_integrator = srerk3"),
-        # The modal filters are ROADMAP item 12.
-        ("[Spatial_discretization]\n", "[Spatial_discretization]\nfilter_apply = 1\n"),
+        # Every integrator of the JAX package's Simulation runs
+        # (tests/test_torch_srerk.py, test_torch_implicit.py); imex2 needs a
+        # partitioned RHS that neither package's models provide, and raises
+        # the JAX package's ValueError.
+        ("time_integrator = tvdrk3", "time_integrator = imex2", ValueError),
+        # filter_apply has no effect in the JAX package either (its
+        # make_apply_filters reads expfilter_apply only): no filter, no error.
+        ("[Spatial_discretization]\n", "[Spatial_discretization]\nfilter_apply = 1\n", None),
         # One process has no 6N^2 tile mesh: distribute = shard_map there is a
         # configuration error (ValueError, as in the JAX package;
         # tests/test_torch_distributed.py); the GSPMD analogue is unported.
-        ("distribute = off", "distribute = gspmd"),
+        ("distribute = off", "distribute = gspmd", NotImplementedError),
     ],
     ids=["integrator", "filter", "distribution"],
 )
-def test_unported_configurations_raise(tmp_path, line, replacement):
+def test_unported_configurations_raise(tmp_path, line, replacement, raises):
     cfg = Configuration(INI.format(out=tmp_path).replace(line, replacement))
-    with pytest.raises(NotImplementedError):
+    if raises is None:
+        assert Simulation(cfg, device="cpu").apply_filters is None
+        return
+    with pytest.raises(raises):
         Simulation(cfg, device="cpu")

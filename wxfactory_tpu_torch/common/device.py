@@ -2,6 +2,7 @@
 
 import contextlib
 
+import numpy as np
 import torch
 
 # Waits of the host for the device made through ``host_read``, ``to_host``,
@@ -64,6 +65,18 @@ def from_host(a, like: torch.Tensor) -> torch.Tensor:
     in ``host_syncs``."""
     with _counted_wait():
         return torch.as_tensor(a, dtype=like.dtype, device=like.device)
+
+
+def to_device(a, like: torch.Tensor) -> torch.Tensor:
+    """The host array ``a`` as a float64 tensor on ``like``'s device,
+    without a wait: on a CUDA device the copy goes through pinned host
+    memory and is queued on the current stream (the caching host
+    allocator keeps the pinned block until the copy has run), so it
+    passes ``forbid_uncounted_syncs``; on the CPU a plain conversion."""
+    t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float64))
+    if like.device.type != "cuda":
+        return t.to(like.device)
+    return t.pin_memory().to(like.device, non_blocking=True)
 
 
 def synchronize(dev: torch.device) -> None:

@@ -6,12 +6,21 @@ integrators of orders 2-6 (``Epi``) and their stiffness-resilient variants
 bootstrap of multistep history, the Krylov-size warm start and an optional
 custom Jacobian action.
 
-Three exponential solvers, one step:
+The exponential solvers of a step:
 
-* ``pmex`` (and ``pmex_ne``, which the JAX package runs as pmex too) and
-  ``kiops`` (:334-478 there): the host-orchestrated PMEX and KIOPS
-  (``solvers/pmex.py``, ``solvers/kiops.py``), one host read per Krylov
-  iteration;
+* ``pmex`` (and ``pmex_ne``, which the JAX package runs as pmex too),
+  ``kiops`` and every other phi solver the ``solvers`` package exports (the
+  low-synchronization family of ``solvers/lowsync.py``: ``pmex_1s``,
+  ``pmex_ne1s``, ``cwy_*``, ``icwy_*``, ``dcgs2``, ``kiops_nest``), by the
+  JAX package's rule (:338-353 there): the host-orchestrated solvers, one
+  host read per Krylov iteration (``dcgs2``: two);
+* ``exode`` (``solvers/exode.py``): the phi combination by an adaptive
+  explicit Runge-Kutta pair, its method and controller read from the
+  integrator's ``exode_method`` / ``exode_controller`` attributes with the
+  JAX package's defaults (nothing sets them from the configuration there
+  either); any other name raises the JAX package's ``ValueError`` at the
+  step (``kiops_ne`` too, which the schema lists and neither package's
+  ``solvers`` exports);
 * ``kiops_jit`` (the JAX package's ``_build_dev_step``, :140-236 there):
   the device-resident KIOPS (``solvers/kiops_jit.py``), one host sync per
   Krylov control. With a float32 companion ``rhs32`` (the perturbation-form
@@ -31,8 +40,7 @@ The Jacobian action is the RHS's own (``jtv_prep``/``jtv_apply``) or
 ``torch.func.jvp`` of a differentiable RHS, the float32 companion's by the
 JAX package's rule (``solvers/matvec.py``); the
 linearisation point's preparation runs once a step and serves the history
-residuals too. The other exponential solvers of the JAX package raise
-``NotImplementedError`` naming their ROADMAP item.
+residuals too.
 """
 
 import math
@@ -43,12 +51,12 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .. import solvers as _solvers
 from ..solvers import kiops, pmex
+from ..solvers.exode import exode
 from ..solvers.kiops_jit import kiops_jit
 from ..solvers.matvec import companion_jacobian, make_jvp_matvec
 from .base import Integrator, SolverInfo
-
-_PORTED = ("pmex", "pmex_ne", "kiops", "kiops_jit")
 
 
 def alpha_coeff(c) -> np.ndarray:
@@ -104,11 +112,6 @@ class Epi(Integrator):
         companion RHS of the mixed-precision device step (used with
         ``kiops_jit`` only)."""
         super().__init__(**kwargs)
-        if exponential_solver not in _PORTED:
-            raise NotImplementedError(
-                f"exponential solver {exponential_solver!r} is not ported yet (the port runs pmex, pmex_ne, "
-                "kiops and kiops_jit; the others are ROADMAP queue 1, item 12)"
-            )
         self.rhs = rhs
         self.rhs32 = rhs32
         self.jtv = jtv
@@ -137,23 +140,36 @@ class Epi(Integrator):
         self._phi_offset = 2  # vec row of the first history residual
 
     def _solve_phi(self, matvec, vec, mixed: bool):
-        """phi_0 of the vec rows by the exponential solver: ``pmex`` (host
-        controls, full Gauss-Seidel projection; ``pmex_ne`` too), ``kiops``
-        (host controls, IOP-2) or ``kiops_jit`` (device controls; with the float32
-        companion's matvec, ``mixed``, full CGS2 over a float32 basis, since
-        an inexact operator needs a fully orthogonal basis)."""
+        """phi_0 of the vec rows by the exponential solver: ``kiops_jit``
+        (device controls; with the float32 companion's matvec, ``mixed``,
+        full CGS2 over a float32 basis, since an inexact operator needs a
+        fully orthogonal basis), ``exode``, or a host solver by the JAX
+        package's rule."""
         # The reference caps the Krylov size at 64 (epi.py:325-336): the
         # incomplete (IOP-2) orthogonalization silently degrades for large m,
         # so tau-substepping with modest m is both faster and stable.
         kw = dict(tol=self.tol, m_init=self.krylov_size, mmin=self.mmin, mmax=self.mmax)
         extra = ""
-        if self.exponential_solver == "kiops_jit":
+        name = self.exponential_solver
+        if name == "kiops_jit":
             phiv, stats = kiops_jit(matvec, vec, tau_end=1.0, full_ortho=mixed,
                                     basis_dtype=torch.float32 if mixed else None, **kw)
             extra = f", {stats.controls} controls, {stats.masked_iterations} masked, {stats.matvecs} matvecs"
+        elif name == "exode":
+            phiv, stats = exode(1.0, matvec, vec, method=getattr(self, "exode_method", "BS3(2)"),
+                                controller=getattr(self, "exode_controller", ""), atol=self.tol)
+            self.solver_info = SolverInfo(total_num_it=stats.krylov_steps)
+            return phiv[0]
         else:
             # pmex_ne is pmex in the JAX package too (epi.py:334-341 there).
-            solver = pmex if self.exponential_solver in ("pmex", "pmex_ne") else kiops
+            if name in ("pmex", "pmex_ne"):
+                solver = pmex
+            elif name == "kiops":
+                solver = kiops
+            elif hasattr(_solvers, name):
+                solver = getattr(_solvers, name)
+            else:
+                raise ValueError(f"Unrecognized exponential solver {self.exponential_solver}")
             phiv, stats = solver([1.0], matvec, vec, **kw)
             phiv = phiv[0]
         self.krylov_size = max(1, math.floor(0.7 * stats.last_krylov_size + 0.3 * self.krylov_size))

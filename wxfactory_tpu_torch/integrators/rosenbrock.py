@@ -24,8 +24,11 @@ point's preparation once a step). Two solvers:
 ``steps_device(q, dt, n)`` runs n device-solver steps back to back (no host
 read between them beyond the cycles' own) and sums their statistics, as
 the JAX package's one ``lax.scan`` does (the preconditioner prepared at
-each step's state). ``gcrot`` raises ``NotImplementedError`` naming its
-ROADMAP item.
+each step's state).
+
+``gcrot`` (``solvers/gcrot.py``, the recycled-subspace GCROT(m,k) with m =
+``gmres_restart``) takes the host path in place of ``fgmres``, with the
+same budget and preconditioner (:218-231 there).
 
 With a preconditioner (``precondition/``: lu, ilu, p-mg, fv-mg; prepared at
 q once a step by ``Integrator.step``) the JAX package's rule holds
@@ -41,10 +44,11 @@ import torch
 
 from ..solvers.fgmres import fgmres
 from ..solvers.fgmres_jit import FgmresJitInfo, fgmres_jit
+from ..solvers.gcrot import gcrot
 from ..solvers.matvec import companion_jacobian, make_rat_matvec
 from .base import Integrator, SolverInfo
 
-_SOLVERS = ("auto", "fgmres", "fgmres_jit", "fgmres_jit_1s")
+_SOLVERS = ("auto", "fgmres", "fgmres_jit", "fgmres_jit_1s", "gcrot")
 
 
 class Ros2(Integrator):
@@ -57,16 +61,14 @@ class Ros2(Integrator):
         rhs32: Optional[Callable] = None,
         **kwargs,
     ) -> None:
-        """``linear_solver``: "fgmres" (host), "fgmres_jit" or
+        """``linear_solver``: "fgmres" or "gcrot" (host), "fgmres_jit" or
         "fgmres_jit_1s" (device-resident; the latter with the one-product
         norm estimate), "auto" (fgmres_jit, or fgmres with a
         preconditioner). ``rhs32``: the float32 companion of the device
         solver's inner Arnoldi."""
         super().__init__(**kwargs)
-        if linear_solver == "gcrot":
-            raise NotImplementedError("the gcrot linear solver is not ported yet (ROADMAP queue 1, item 12)")
         if linear_solver not in _SOLVERS:
-            raise ValueError(f"unknown linear_solver {linear_solver!r} (one of {', '.join(_SOLVERS)}, gcrot)")
+            raise ValueError(f"unknown linear_solver {linear_solver!r} (one of {', '.join(_SOLVERS)})")
         self.rhs = rhs
         self.rhs32 = rhs32
         self.tol = tolerance
@@ -140,8 +142,9 @@ class Ros2(Integrator):
         q_flat = q.reshape(-1)
         b = A(q_flat) + self.rhs(q).reshape(-1) * dt
         maxiter = (400 if self.preconditioner is not None else 20000) // self.gmres_restart
+        solve = gcrot if self.linear_solver == "gcrot" else fgmres
         t0 = time()
-        q_new, norm_r, norm_b, num_iter, flag, residuals = fgmres(
+        q_new, norm_r, norm_b, num_iter, flag, residuals = solve(
             A, b, x0=q_flat, tol=self.tol, restart=self.gmres_restart, maxiter=maxiter,
             preconditioner=self.preconditioner, verbose=self.verbose,
         )
@@ -150,6 +153,6 @@ class Ros2(Integrator):
         self.failure_flag = flag
         if self.verbose > 0:
             kind = "convergence" if flag == 0 else "stagnation"
-            print(f"fgmres {kind} at iteration {num_iter} in {t1-t0:4.3f} s, "
+            print(f"{solve.__name__} {kind} at iteration {num_iter} in {t1-t0:4.3f} s, "
                   f"relative residual {norm_r/norm_b:.2e}", flush=True)
         return q_new.reshape(q.shape)

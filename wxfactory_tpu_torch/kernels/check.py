@@ -81,6 +81,7 @@ import torch
 
 from ..common.constants import GRAVITY
 from ..geometry import make_cubed_sphere_2d, make_cubed_sphere_3d, make_metric_2d, make_metric_3d
+from ..models import Euler3DRHS, ShallowWaterRHS
 from ..ops import euler3d_operator as e3op
 from ..ops import sw_operator as swop
 from ..ops.dfr import make_dfr_operators
@@ -1995,3 +1996,48 @@ def euler3d_tile_work(con, pert: bool = False, **kw):
     """``euler3d_work`` (``euler3d_pert_work`` with ``pert``) of one tile
     launch with tile constants."""
     return euler3d_pert_work(con, **kw) if pert else euler3d_work(con, **kw)
+
+
+# ---------------------------------------------------------------------------
+# RHSs whose CPU Jacobian action is the tangent kernels' plain pair
+
+
+class PlainPairShallowWater(ShallowWaterRHS):
+    """An absolute-form ``ShallowWaterRHS`` whose Jacobian action runs the
+    split the card runs, with the kernels' plain versions on every device:
+    ``jtv_prep`` the prep's (``ops.sw_operator.sw_tangent_prep_plain``, the
+    coefficient buffer, once per linearisation point), ``jtv_apply`` the
+    apply's (``sw_tangent_apply_plain``, once per action). On the CPU an
+    action costs ~1/20 of the model's ``torch.func.jvp`` of the plain
+    operator and agrees with it within 1e-12 of scale
+    (tests/test_torch_sw_tangent_split.py), so the integrator parity tests
+    can afford full solves."""
+
+    def jtv_prep(self, q: torch.Tensor) -> torch.Tensor:
+        if self.base is not None:
+            raise ValueError("PlainPairShallowWater is the absolute form")
+        return swop.sw_tangent_prep_plain(q.to(self.dtype).contiguous(), self.con, self.topology, self.topo)
+
+    def jtv_apply(self, prep: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        return swop.sw_tangent_apply_plain(prep, v.to(self.dtype).contiguous(), self.con, self.topology, self.topo)
+
+
+class PlainPairEuler3D(Euler3DRHS):
+    """An absolute-form ``Euler3DRHS`` whose Jacobian action runs the split
+    the card runs with the kernels' plain versions: ``jtv_prep`` adds the
+    prep's plain coefficient buffer (``ops.euler3d_operator.
+    euler3d_tangent_prep_plain``) to the model's prep, ``jtv_apply`` the
+    tangent glue and the apply's plain version (``euler3d_tangent_apply_plain``);
+    ~1/18 of the model's CPU ``torch.func.jvp`` at 2x2x2, s = 2, within
+    1e-12 of it (tests/test_torch_euler3d_tangent_split.py)."""
+
+    def jtv_prep(self, q: torch.Tensor):
+        if self.pert is not None:
+            raise ValueError("PlainPairEuler3D is the absolute form")
+        q_in, qa, traces, halo, _ = super().jtv_prep(q)
+        return q_in, qa, traces, halo, e3op.euler3d_tangent_prep_plain(q_in, halo, self.con)
+
+    def jtv_apply(self, prep, v: torch.Tensor) -> torch.Tensor:
+        _, qa, traces, _, coef = prep
+        halo_v = self.halo(e3op.edge_traces_tangent(qa, v, self.con, traces))
+        return e3op.euler3d_tangent_apply_plain(v, halo_v, coef, self.con)

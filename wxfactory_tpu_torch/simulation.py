@@ -4,20 +4,26 @@ Counterpart of ``wxfactory_tpu/simulation.py`` for the cubed sphere:
 shallow water (every case of the JAX package: 0, 1, 2, 5, 6, 8, 9 and 10,
 cases 5 and 10 with their bottom topography) and 3D Euler (DCMIP cases 20,
 21, 22, 31 and 77; 20-22 over terrain, 21 and 22 under their Rayleigh
-sponge) with the explicit integrators (euler1, tvdrk3), the exponential
-ones (epi2..6, epi_stiff3..6, with pmex, kiops or the device-resident
-kiops_jit) and Ros2 (with fgmres or the device-resident fgmres_jit; with a
-preconditioner, lu, ilu, p-mg or fv-mg, ``_create_preconditioner``), with
-``mixed_precision_krylov`` the float32 perturbation-form companion of the
-device solvers' Krylov loop, the step loop with the end-time clamp, the
-NaN/Inf guard, ``device_step_chunk`` (equal steps run back to back with the
-guard and outputs at the chunk's end), the outputs (NetCDF fields,
-checkpoints, blockstats for shallow water only as in the JAX package, the
-solver-stats database with sampled RHS stage times, the runtime file;
-``output/manager.py``). The device comes from the
-caller; nothing moves to another device. Any other grid, case, integrator,
-exponential solver or distribution raises ``NotImplementedError`` naming
-its ROADMAP item.
+sponge) with every integrator of the JAX package's ``Simulation``
+(``_create_integrator``, its simulation.py:414-472): the explicit ones
+(euler1, tvdrk3), the exponential ones (epi2..6, epi_stiff3..6 and
+srerk3..6, with pmex, kiops, the low-synchronization solvers, exode or the
+device-resident kiops_jit), Ros2 (with fgmres, gcrot or the device-resident
+fgmres_jit; with a preconditioner, lu, ilu, p-mg or fv-mg,
+``_create_preconditioner``), the implicit ones (backward_euler,
+crank_nicolson, bdf2, sdirk) and rosexp2; imex2, partrosexp2 and strang_*
+need a partitioned RHS and raise the JAX package's ``ValueError``. With
+``mixed_precision_krylov`` the float32 perturbation-form companion feeds the
+device solvers' Krylov loop. The step loop has the end-time clamp, the
+post-step exponential modal filter (``expfilter_apply``; ``ops/filters.py``),
+the NaN/Inf guard, ``device_step_chunk`` (equal steps run back to back with
+the guard and outputs at the chunk's end; never with a filter), the outputs
+(NetCDF fields, checkpoints, blockstats for shallow water only as in the JAX
+package, the solver-stats database with sampled RHS stage times, the
+runtime file; ``output/manager.py``). The device comes from the caller;
+nothing moves to another device. The Cartesian grid (ROADMAP queue 1, item
+15), DCMIP 11 and 12 (item 9) and the distributions the port has not ported
+(item 14) raise ``NotImplementedError`` naming their item.
 
 ``[System] distribute`` follows the JAX package's rules
 (``wxfactory_tpu/simulation.py:274-380``) over the processes of a run
@@ -42,9 +48,11 @@ from .common.device import resolve_device
 from .parallel import distributed as _dist
 from .config import Configuration, load_configuration
 from .geometry import make_cubed_sphere_2d, make_cubed_sphere_3d, make_metric_2d, make_metric_3d
-from .integrators import Epi, EpiStiff, Euler1, Ros2, Tvdrk3
+from .integrators import (BackwardEuler, Bdf2, CrankNicolson, Epi, EpiStiff, Euler1, Ros2, RosExp2, SdirkLstable,
+                          Srerk, Tvdrk3)
 from .models import Euler3DRHS, make_rhs_shallow_water
 from .ops.dfr import make_dfr_operators
+from .ops.filters import make_apply_filters
 from .output import OutputManager
 from .parallel import CubedSphereTopology, ShardMapTvdrk3, TileMesh
 from .parallel.mesh import tile_n_for_world
@@ -104,8 +112,6 @@ class Simulation:
             )
         n = plan_distribution(c, _dist.world_size())
         self.mesh = None if n is None else TileMesh(n, _dist.rank(), _dist.world_size())
-        if c.filter_apply or c.expfilter_apply:
-            raise NotImplementedError("modal filters are not ported yet (ROADMAP queue 1, item 12)")
 
         self.dtype = torch.float32 if c.precision == "float32" else torch.float64
         self.topo = None
@@ -173,6 +179,7 @@ class Simulation:
 
         self.initial_q = torch.as_tensor(q0, dtype=self.dtype, device=self.device)
         self.integrator = self._create_integrator()
+        self.apply_filters = make_apply_filters(c, self.metric, device=self.device, dtype=self.dtype)
         self._rhs_probes = None  # built at the first rhs_timing sample
 
         if getattr(c, "mixed_precision_krylov", False):
@@ -240,23 +247,42 @@ class Simulation:
             return Euler1(self.rhs, **pre)
         if name == "tvdrk3":
             return Tvdrk3(self.rhs, **pre)
-        if name.startswith("epi") or name == "ros2":
-            if name == "ros2":
-                return Ros2(self.rhs, tolerance=c.tolerance, gmres_restart=c.gmres_restart,
-                            linear_solver=c.linear_solver, rhs32=self.rhs32, **pre)
-            common = dict(tolerance=c.tolerance, exponential_solver=c.exponential_solver,
-                          krylov_size=max(c.krylov_size, 1), rhs32=self.rhs32, **pre)
-            if name.startswith("epi_stiff"):
-                return EpiStiff(self.rhs, int(name.removeprefix("epi_stiff")), **common)
+        exponential = dict(tolerance=c.tolerance, exponential_solver=c.exponential_solver,
+                           krylov_size=max(c.krylov_size, 1), **pre)
+        if name.startswith("epi_stiff"):
+            return EpiStiff(self.rhs, int(name.removeprefix("epi_stiff")), rhs32=self.rhs32, **exponential)
+        if name.startswith("srerk"):
+            return Srerk(self.rhs, int(name.removeprefix("srerk")), **exponential)
+        if name.startswith("epi"):
             order = int(name.removeprefix("epi"))
             # Reference simulation.py:345 bootstraps multistep EPI with 10
             # Epi2 substeps for the first step(s).
-            return Epi(self.rhs, order, init_substeps=(10 if order >= 3 else 1), **common)
-        raise NotImplementedError(
-            f"time integrator {c.time_integrator!r} is not ported yet (the port runs euler1, tvdrk3 "
-            "and epi/epi_stiff with pmex, kiops or kiops_jit and ros2 with fgmres or fgmres_jit; "
-            "the others are ROADMAP queue 1, item 12)"
-        )
+            return Epi(self.rhs, order, init_substeps=(10 if order >= 3 else 1), rhs32=self.rhs32, **exponential)
+        if name == "ros2":
+            return Ros2(self.rhs, tolerance=c.tolerance, gmres_restart=c.gmres_restart,
+                        linear_solver=c.linear_solver, rhs32=self.rhs32, **pre)
+        if name == "rosexp2":
+            # One RHS for the full and the implicit part, as the JAX package
+            # builds it: the two share one linearisation.
+            return RosExp2(self.rhs, self.rhs, tolerance=c.tolerance, restart=c.gmres_restart, **pre)
+        if name == "sdirk":
+            return SdirkLstable(self.rhs, tolerance=c.tolerance, **pre)
+        if name in ("imex2", "partrosexp2") or name.startswith("strang_"):
+            # These need a stiff/nonstiff RHS split, which neither package's
+            # models provide (the JAX package raises the same error); the
+            # integrators themselves (integrators/hybrid.py, splitting.py)
+            # take user-provided splits.
+            raise ValueError(
+                f"Integrator {name} requires a partitioned (implicit/explicit) RHS, "
+                "which is not available for the built-in models"
+            )
+        if name == "crank_nicolson":
+            return CrankNicolson(self.rhs, tolerance=c.tolerance, **pre)
+        if name == "bdf2":
+            return Bdf2(self.rhs, tolerance=c.tolerance, **pre)
+        if name == "backward_euler":
+            return BackwardEuler(self.rhs, tolerance=c.tolerance, **pre)
+        raise ValueError(f"Unrecognized time integrator: {c.time_integrator}")
 
     def _tile_step_maker(self):
         """dt -> the tile step of this run (JAX package simulation.py:327-380
@@ -297,6 +323,8 @@ class Simulation:
         dt = min(c.dt, c.t_end - t) if c.t_end > t else c.dt
         t0 = time.time()
         q = self.integrator.step(q, dt)
+        if self.apply_filters is not None:
+            q = self.apply_filters(q, dt)
         self._check_finite(q, step_id)
         # The NaN guard waits for the card: the solve time is the step's own.
         solve_time = time.time() - t0
@@ -330,7 +358,7 @@ class Simulation:
         (the JAX package's simulation.py:512-534)."""
         c = self.config
         chunk = getattr(c, "device_step_chunk", 1)
-        if chunk <= 1 or not hasattr(self.integrator, "steps_device"):
+        if chunk <= 1 or self.apply_filters is not None or not hasattr(self.integrator, "steps_device"):
             return 1
         full_dt_steps = int(math.floor((c.t_end - t) / c.dt + 1e-10))
         n = min(chunk, max(full_dt_steps, 1))

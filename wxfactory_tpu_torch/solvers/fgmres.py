@@ -15,7 +15,10 @@ the Gram product and the vector updates run; the small algebra (R, T, K,
 H, the Givens rotations, g and the triangular solve) is float64 numpy on
 the host. The one batched Gram product of an iteration is its one host
 read (``common.device.to_host``), as the port's host ``kiops`` reads its
-projections; a restart reads |r| and the stagnation test in one more.
+projections; a restart reads |r| and the stagnation test in one more. The
+small vectors go back through pinned memory without a wait
+(``common.device.to_device``), so a solve runs inside
+``forbid_uncounted_syncs``.
 """
 
 import math
@@ -26,7 +29,7 @@ import numpy as np
 import scipy.linalg
 import torch
 
-from ..common.device import host_read, to_host
+from ..common.device import host_read, to_device, to_host
 
 
 def _givens(a: float, b: float) -> Tuple[float, float, float]:
@@ -70,7 +73,7 @@ def _low_sync_orthonormalize(V: torch.Tensor, R, T, K, j: int) -> float:
         K[: j - 1, j - 2] = (R[: j - 1, j - 1] - R[: j - 1, 1 : j - 1] @ corr) / norm
         # V[j-2] -= V[:j-2].T @ prev and V[j-1] -= V[:j-2].T @ R[:j-2, j-1]
         # in one product (neither update reads the other's row).
-        coef = torch.as_tensor(np.stack([prev, R[: j - 2, j - 1]]), dtype=V.dtype, device=V.device)
+        coef = to_device(np.stack([prev, R[: j - 2, j - 1]]), V)
         V[j - 2 : j, :] -= coef @ V[: j - 2, :]
     else:
         K[: j - 1, j - 2] = R[: j - 1, j - 1] / norm
@@ -164,7 +167,7 @@ def fgmres(
 
         # Solve the small triangular system and update the iterate.
         y = scipy.linalg.solve_triangular(H[: inner + 1, : inner + 1].T, g[: inner + 1])
-        update = torch.as_tensor(y, device=dev) @ Z[: inner + 1, :]
+        update = to_device(y, b) @ Z[: inner + 1, :]
         x = x + update
         r = b - A(x)
         # |r| and the stagnation test (max |update/x| over x != 0) in one read.

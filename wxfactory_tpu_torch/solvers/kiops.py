@@ -13,7 +13,11 @@ the projections and the updates run there; ``H``, the controller and the
 small ``(m+1) x (m+1)`` matrix exponential (scipy) stay on the host in
 float64. Each Arnoldi iteration brings its IOP-2 projections and the new
 vector's squared norm to the host in one transfer (the ``nrm < tol`` test
-needs them): one host sync an iteration.
+needs them): one host sync an iteration, plus one for the input's scale and
+one for each restart's norm, all counted (``common.device.host_read``); the
+small vectors go back through pinned memory without a wait
+(``common.device.to_device``), so a solve runs inside
+``forbid_uncounted_syncs``.
 """
 
 import math
@@ -23,7 +27,7 @@ import numpy as np
 import scipy.linalg
 import torch
 
-from ..common.device import host_read
+from ..common.device import host_read, to_device
 from .stats import PhiStats
 
 
@@ -70,7 +74,7 @@ def kiops(
     w[0, :] = u[0, :]
 
     # Scale the phi-coefficient rows to unit order of magnitude.
-    norm_u = float(u[1:, :].abs().sum(dim=1).max())
+    norm_u = float(host_read(u[1:, :].abs().sum(dim=1).max()))
     if ppo > 1 and norm_u > 0:
         ex = math.ceil(math.log2(norm_u))
         nu, mu = 2.0**-ex, 2.0**ex
@@ -98,8 +102,8 @@ def kiops(
             # (Re)start the Krylov space from the current solution.
             V[0, :n] = w[l, :]
             head = [(tau_now ** (p - k + 1)) / math.factorial(p - k + 1) * mu for k in range(p - 1)] + [mu]
-            V[0, n:] = torch.tensor(head, dtype=torch.float64, device=dev)
-            beta = math.sqrt(float(torch.dot(V[0, :n], V[0, :n]) + torch.dot(V[0, n:], V[0, n:])))
+            V[0, n:] = to_device(head, V)
+            beta = math.sqrt(float(host_read(torch.dot(V[0, :n], V[0, :n]) + torch.dot(V[0, n:], V[0, n:]))))
             V[0, :] /= beta
 
         # --- Incomplete orthogonalization (IOP) Arnoldi
@@ -108,7 +112,7 @@ def kiops(
             # Augmented matrix-vector product
             V[j, :n] = A(V[j - 1, :n]) + V[j - 1, n : n + p] @ u_flip
             V[j, n : n + p - 1] = V[j - 1, n + 1 : n + p]
-            V[j, n + p - 1] = 0.0
+            V[j, n + p - 1 :].zero_()
 
             ilow = max(0, j - iop)
             h = V[ilow:j, :] @ V[j, :]
@@ -212,10 +216,10 @@ def kiops(
                 for k in range(blown):
                     tau_phantom = tau_out[l + k] - tau_now
                     F2 = scipy.linalg.expm(sgn * tau_phantom * H[:j, :j])
-                    w[l + k, :] = beta * (torch.as_tensor(F2[:j, 0], device=dev) @ V[:j, :n])
+                    w[l + k, :] = beta * (to_device(F2[:j, 0], V) @ V[:j, :n])
                 l += blown
 
-            w[l, :] = beta * (torch.as_tensor(F[:j, 0], device=dev) @ V[:j, :n])
+            w[l, :] = beta * (to_device(F[:j, 0], V) @ V[:j, :n])
             tau_now += tau
             j = 0
             ireject = 0

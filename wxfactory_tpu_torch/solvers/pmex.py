@@ -9,7 +9,9 @@ solvers/pmex.py). The augmented Krylov basis ``V`` lives on the state's
 device as one ``(mmax+1, n+p)`` float64 tensor, and the matvec, the batched
 Gram block ``V[:j+1] @ V[j-1:j+1].T`` and the projection run there; the
 Gram block comes to the host in one transfer an iteration (the projection
-coefficients and the norm estimate need it), where the Gauss-Seidel
+coefficients and the norm estimate need it; the coefficients go back
+through pinned memory without a wait, ``common.device.to_device``, so the
+loop runs inside ``forbid_uncounted_syncs``), where the Gauss-Seidel
 matrices ``M``, ``N``, ``Minv``, the triangular solve, the small matrix
 exponential (scipy) and the controller stay in float64. Where the estimate
 cancels, the explicit norm costs a second read.
@@ -22,7 +24,7 @@ import numpy as np
 import scipy.linalg
 import torch
 
-from ..common.device import host_read, to_host
+from ..common.device import host_read, to_device, to_host
 from .stats import PhiStats
 
 
@@ -95,7 +97,7 @@ def pmex(
             H[:, :] = 0.0
             V[0, :n] = w[l, :]
             head = [(tau_now ** (p - k + 1)) / math.factorial(p - k + 1) * mu for k in range(p - 1)] + [mu]
-            V[0, n:] = torch.tensor(head, dtype=torch.float64, device=dev)
+            V[0, n:] = to_device(head, V)
             beta = math.sqrt(float(host_read(torch.dot(V[0, :n], V[0, :n]) + torch.dot(V[0, n:], V[0, n:]))))
             V[0, :] /= beta
 
@@ -104,7 +106,7 @@ def pmex(
             # Augmented matrix-vector product
             V[j, :n] = A(V[j - 1, :n]) + V[j - 1, n : n + p] @ u_flip
             V[j, n : n + p - 1] = V[j - 1, n + 1 : n + p]
-            V[j, n + p - 1] = 0.0
+            V[j, n + p - 1 :].zero_()
 
             # One batched Gram product gives both the projection coefficients
             # and the data for the norm estimate: one host read an iteration.
@@ -117,7 +119,7 @@ def pmex(
                 Minv[j - 1, : j - 1] = -gram[: j - 1, 0].T @ Minv[: j - 1, : j - 1]
             rhs_vec = (np.eye(j) + N[:j, :j] @ Minv[:j, :j]) @ gram[:j, 1]
             sol = scipy.linalg.solve_triangular(M[:j, :j], rhs_vec, lower=True, unit_diagonal=True)
-            V[j, :] -= torch.as_tensor(sol, device=dev) @ V[:j, :]
+            V[j, :] -= to_device(sol, V) @ V[:j, :]
 
             # Norm estimate from the Gram data (long-double accumulation),
             # falling back to an explicit norm when cancellation is severe.
@@ -197,10 +199,10 @@ def pmex(
                 for k in range(blown):
                     tau_phantom = tau_out[l + k] - tau_now
                     F2 = scipy.linalg.expm(sgn * tau_phantom * H[:j, :j])
-                    w[l + k, :] = beta * (torch.as_tensor(F2[:j, 0], device=dev) @ V[:j, :n])
+                    w[l + k, :] = beta * (to_device(F2[:j, 0], V) @ V[:j, :n])
                 l += blown
 
-            w[l, :] = beta * (torch.as_tensor(F[:j, 0], device=dev) @ V[:j, :n])
+            w[l, :] = beta * (to_device(F[:j, 0], V) @ V[:j, :n])
             tau_now += tau
             j = 0
             ireject = 0
