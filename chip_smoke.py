@@ -278,7 +278,8 @@ and drives the port's two main paths, shallow water and 3D Euler:
     smoother) and on dcmip31 at 20x20x3, s=3, dt=30 s (1 step; erk3
     smoother, pseudo_cfl 5), each beside the same run without a
     preconditioner (the host FGMRES with p-mg, the device FGMRES without,
-    as linear_solver = auto takes them): FGMRES iterations a step, steps/s,
+    as linear_solver = auto takes them; on dcmip31, where it stagnates,
+    with a budget of 2,000 FGMRES iterations): FGMRES iterations a step, steps/s,
     the levels' prep and apply launches, no plain call;
 34. DCMIP 20, 21 and 22 over terrain: the terrain instantiations of the 3D
     kernels (every panel's metric; the Rayleigh sponge of 21/22 in the
@@ -351,7 +352,31 @@ and drives the port's two main paths, shallow water and 3D Euler:
     finite state, mass drift below 1e-10 (3D: the Krylov tolerance),
     steps/s, host syncs a step and the iterations a step; the nel = 10
     paths again on the CPU (the plain operator, the tangent kernels' plain
-    pair): the same iterations a step, within 1e-9 of scale.
+    pair): the same iterations a step, within 1e-9 of scale;
+37. DCMIP 11 and 12 (tracer advection under prescribed winds): (a) the
+    advection kernel (csrc/euler3d_advection.cu) against its plain version
+    at (nel_h, nel_v, s) = (3,2,2), (4,3,3), (2,2,4), (2,1,5), (2,2,6),
+    (7,3,3), 1 and 4 tracers, f64 and f32, and at the main path's width on
+    the run's own state: RHS (rows 0-4 exactly 0), stage, stage + x and
+    stage + x + traces, f64 within 1e-12 of each row's flux-divergence
+    scale, f32 within 1e-5 of it or twice the plain f32 output's distance
+    from the f64 one, each tracer's mass against the plain version's and
+    the RHS's own mass integral zero to round-off; (b) DCMIP 11 through
+    Simulation(ini).run() at 30x30x20, s = 3 (DCMIP 2012 test 1-1's ~1
+    degree grid, 60 levels), ztop = 12 km, TVD-RK3, dt = 18.75 s (the
+    explicit limit the JAX package's wind overwrite sets: ADVECTION_DT), 10
+    steps; (c) DCMIP 12 with TVD-RK3 and Euler1 at 20x20x10, s = 3, dt =
+    0.5859375 s, 10 steps; each with one advection launch a stage, no
+    plain call, no five-variable 3D launch, every integrator step and wind
+    overwrite inside forbid_uncounted_syncs, each tracer's mass drift
+    below 1e-12, rho and rho*theta within 32 ulps of their initial values,
+    the momenta rho * the numpy winds at t + dt after every step within
+    1e-13, steps/s and host syncs a step; (d) both cases at 4x3x3, s = 3,
+    10 TVD-RK3 steps on the card and on the CPU (the plain version) within
+    1e-12 of scale; the card's time a call at 30x30x20 of the kernel (RHS;
+    stage + x + traces) and its plain version, f64 and f32, beside the
+    bound, with the kernel's registers, spills, shared memory and blocks an
+    SM.
 
 Each phase prints one JSON line; then the kernels line, the card's
 ``nvidia-smi`` name and power limit, and last the result line. Any failure
@@ -374,7 +399,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SHAPES = [(10, 3), (64, 3), (4, 2), (4, 8), (64, 7)]
 SW_PERT_SHAPES = SHAPES + [(8, 4), (32, 4), (64, 4)]
-KERNEL_SOURCES = ["sw_operator", "euler3d_operator", "sw_run", "euler3d_terrain"]
+KERNEL_SOURCES = ["sw_operator", "euler3d_operator", "sw_run", "euler3d_terrain", "euler3d_advection"]
 # (nel_h, nel_v, s, case); at (7, 3, 3) a panel's 147 elements leave the
 # operator's volume pass (9 elements a block at s=3) a partial last block.
 E3_SHAPES = [(3, 2, 2, 31), (12, 3, 2, 31), (4, 2, 3, 31), (20, 20, 3, 31), (4, 4, 4, 31), (3, 2, 5, 31),
@@ -485,7 +510,13 @@ def ptxas_summary(log: str):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         f32_pert = m and re.search(r"sw_operator_f32_pert(_topo)?_kernelILi(\d+)E", m.group(1))
-        if f32_pert:
+        adv = m and re.search(r"(euler3d_advection_interface|euler3d_advection_volume)_kernelI([df])Li(\d+)ELi(\d+)E",
+                              m.group(1))
+        if adv:
+            current = {"kernel": f"{adv.group(1)} {'f64' if adv.group(2) == 'd' else 'f32'} s={adv.group(3)} "
+                                 f"nt={adv.group(4)}"}
+            rows.append(current)
+        elif f32_pert:
             name = "sw_operator_pert_topo f32 s={}" if f32_pert.group(1) else "sw_operator f32 s={} pert"
             current = {"kernel": name.format(f32_pert.group(2))}
             rows.append(current)
@@ -591,6 +622,7 @@ def reset_counts():
     swop.tile_launches = swop.pert_tile_launches = e3op.tile_launches = e3op.pert_tile_launches = 0
     e3op.terrain_launches = e3op.terrain_pert_launches = 0
     e3op.terrain_tangent_prep_launches = e3op.terrain_tangent_apply_launches = 0
+    e3op.advection_launches = 0
     matvec.jacobian_actions = matvec.linearisations = device.host_syncs = 0
 
 
@@ -619,6 +651,7 @@ def read_counts():
             "euler3d_terrain": e3op.terrain_launches, "euler3d_terrain_pert": e3op.terrain_pert_launches,
             "euler3d_terrain_tangent_prep": e3op.terrain_tangent_prep_launches,
             "euler3d_terrain_tangent_apply": e3op.terrain_tangent_apply_launches,
+            "euler3d_advection": e3op.advection_launches,
             "jacobian_actions": matvec.jacobian_actions, "linearisations": matvec.linearisations,
             "host_syncs": device.host_syncs}
 
@@ -2786,6 +2819,8 @@ num_mg_levels = 2
 mg_smoother = kiops
 pseudo_cfl = 720
 """
+# FGMRES iterations of phase 33's unpreconditioned dcmip31 step.
+ROS2_E3_BUDGET = 2000
 ROS2_PRE_E3 = """
 [Preconditioning]
 preconditioner = {pre}
@@ -2797,12 +2832,13 @@ FGMRES_LINE = re.compile(r"fgmres (convergence|stagnation) at iteration (\d+)")
 FGMRES_JIT_LINE = re.compile(r"FGMRES\(jit\) (convergence|stagnation) at iteration (\d+)")
 
 
-def _ros2_pre_pair(torch, tag, text, nsteps):
+def _ros2_pre_pair(torch, tag, text, nsteps, budget=None):
     """A Ros2 run through ``Simulation(ini).run()`` with the INI's p-mg
     preconditioner (the host FGMRES, which ``auto`` takes with one), then
     the same run on the same Simulation with no preconditioner (``auto``:
-    the device FGMRES): FGMRES iterations a step, steps/s, the levels' prep
-    and apply launches, no plain call."""
+    the device FGMRES, with at most ``budget`` iterations a step when
+    given): FGMRES iterations a step, steps/s, the levels' prep and apply
+    launches, no plain call."""
     from wxfactory_tpu_torch.simulation import Simulation
 
     t0 = time.perf_counter()
@@ -2814,6 +2850,8 @@ def _ros2_pre_pair(torch, tag, text, nsteps):
     for pre in ("p-mg", "none"):
         if pre == "none":
             sim.integrator.preconditioner = None
+            if budget is not None:
+                sim.integrator.max_iterations = budget
         log = io.StringIO()
         reset_counts()
         t0 = time.perf_counter()
@@ -2922,8 +2960,12 @@ def phase33(torch):
     # dcmip31 at 20x20x3: 3 levels keep the script within its time limit.
     e3 = DCMIP31_INI.format(dt=30, t_end=30, integrator="ros2", verbose=1, s=3, nel_h=20, nel_v=3, save=0,
                             out=WORK / "phase33_e3")
-    for tag, text, extra, nsteps in (("sw_case5", sw, ROS2_PRE_SW, 2), ("dcmip31_20x20x3", e3, ROS2_PRE_E3, 1)):
-        for row in _ros2_pre_pair(torch, tag, text + extra.format(pre="p-mg"), nsteps):
+    # The unpreconditioned dcmip31 solve stagnates (PERF.md §7 Q5); 2,000
+    # iterations of the 20,000 budget show it and keep the script inside its
+    # time limit.
+    for tag, text, extra, nsteps, budget in (("sw_case5", sw, ROS2_PRE_SW, 2, None),
+                                             ("dcmip31_20x20x3", e3, ROS2_PRE_E3, 1, ROS2_E3_BUDGET)):
+        for row in _ros2_pre_pair(torch, tag, text + extra.format(pre="p-mg"), nsteps, budget):
             ros2.append(row)
             emit({"phase": 33, "ros2": tag, **row})
     result["ros2"] = ros2
@@ -3828,6 +3870,229 @@ def phase36(torch):
                              f"actions): {bad}")
 
 
+# Phase 37: DCMIP 11 and 12, tracer advection under prescribed winds.
+# (nel_h, nel_v, s) of the kernel checks against the plain version; the
+# main path's width (DCMIP 2012 test 1-1's ~1 degree grid: 30x30 elements
+# of 3 points a panel, 60 levels) is checked on the Simulation's own state.
+ADVECTION_SHAPES = [(3, 2, 2), (4, 3, 3), (2, 2, 4), (2, 1, 5), (2, 2, 6), (7, 3, 3)]
+ADVECTION_MAIN = (30, 20, 3)
+# dt a case: the JAX package's wind overwrite writes w in m/s into the
+# contravariant vertical slot, whose unit is the reference element, so
+# |w| = 0.0148 (11) and 0.33 (12) a second there sets the explicit limit
+# (near 25 s and 1.2 s), not the horizontal winds: 300 s halved four times,
+# and nine times.
+ADVECTION_DT = {11: 18.75, 12: 0.5859375}
+# (tag, case, nel_h, nel_v, s, integrator, steps) of the paths through Simulation(ini).run().
+ADVECTION_RUNS = [("b_dcmip11_tvdrk3", 11) + ADVECTION_MAIN + ("tvdrk3", 10),
+                  ("c_dcmip12_tvdrk3", 12, 20, 10, 3, "tvdrk3", 10),
+                  ("c_dcmip12_euler1", 12, 20, 10, 3, "euler1", 10)]
+ADVECTION_CPU = (4, 3, 3, 10)  # (nel_h, nel_v, s, steps) of the card-against-CPU runs (d)
+ADVECTION_INI = """
+[General]
+equations = euler
+[System]
+precision = float64
+distribute = off
+[Test_case]
+case_number = {case}
+[Time_integration]
+dt = {dt}
+t_end = {t_end}
+time_integrator = {integrator}
+[Spatial_discretization]
+num_solpts = {s}
+num_elements_horizontal = {nel_h}
+num_elements_vertical = {nel_v}
+[Grid]
+grid_type = cubed_sphere
+ztop = 12000
+[Output_options]
+save_state_freq = 0
+output_dir = {out}
+"""
+# The counters of the five-variable 3D kernels, which an advection path never launches.
+FIVE_VARIABLE_COUNTERS = ("euler3d_operator", "euler3d_tangent", "euler3d_tangent_prep", "euler3d_pert",
+                          "euler3d_pert_stage", "euler3d_pert_tangent", "euler3d_tile", "euler3d_pert_tile",
+                          "euler3d_terrain", "euler3d_terrain_pert", "euler3d_terrain_tangent_prep",
+                          "euler3d_terrain_tangent_apply")
+
+
+def _advection_run(torch, tag, case, nel_h, nel_v, s, integrator, nsteps, device="cuda"):
+    """One DCMIP 11/12 path through ``Simulation(ini).run()`` on ``device``:
+    every integrator step and every wind overwrite inside
+    ``forbid_uncounted_syncs`` on the card (the NaN guard's read is the
+    step's counted sync), the state's rho and momenta kept on the card after
+    each overwrite; then the gates: launches (one advection launch a stage;
+    no plain call, no five-variable launch), each tracer's mass drift, rho
+    and rho*theta unchanged to rounding, the momenta rho * the numpy winds
+    at t + dt after every step. Returns (row, final state as numpy, sim)."""
+    import numpy as np
+
+    from wxfactory_tpu_torch.common.device import forbid_uncounted_syncs
+    from wxfactory_tpu_torch.kernels.check import mass_weights
+    from wxfactory_tpu_torch.simulation import Simulation
+    from wxfactory_tpu_torch.testcases import dcmip_T11_update_winds, dcmip_T12_update_winds
+
+    dt = ADVECTION_DT[case]
+    out_dir = WORK / f"advection_{tag}_{device}"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    ini = WORK / f"advection_{tag}_{device}.ini"
+    ini.write_text(ADVECTION_INI.format(case=case, dt=dt, t_end=dt * nsteps, integrator=integrator, s=s,
+                                        nel_h=nel_h, nel_v=nel_v, out=out_dir))
+    log = io.StringIO()
+    momenta = []
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        sim = Simulation(str(ini), device=device)
+        setup = time.perf_counter() - t0
+        plain_step, hook = sim.integrator.step, sim.post_step_hook
+
+        def step(q, step_dt):
+            with forbid_uncounted_syncs():
+                return plain_step(q, step_dt)
+
+        def overwrite(q, t):
+            with forbid_uncounted_syncs():
+                q = hook(q, t)
+                momenta.append((t, q[0:4].clone()))
+            return q
+
+        sim.integrator.step, sim.post_step_hook = step, overwrite
+        q = sim.run()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    text = log.getvalue()
+    done = re.search(r"Completed (\d+) steps in (\S+) s \((\S+) steps/s\)", text)
+    if done is None or int(done.group(1)) != nsteps:
+        sys.stderr.write(text[-3000:])
+        raise AssertionError(f"phase 37 {tag} on {device} did not complete {nsteps} steps")
+    state, q0 = q.cpu().numpy(), sim.initial_q.cpu().numpy()
+    wsg = mass_weights(sim.ops, sim.rhs.con).cpu().numpy()
+    drift = [float(((wsg * state[r]).sum() - (wsg * q0[r]).sum()) / (wsg * q0[r]).sum())
+             for r in range(5, state.shape[0])]
+    eps = np.finfo(np.float64).eps
+    unchanged = {name: float(np.abs(state[r] - q0[r]).max() / np.abs(q0[r]).max() / eps)
+                 for name, r in (("rho", 0), ("rho_theta", 4))}
+    winds = dcmip_T11_update_winds if case == 11 else dcmip_T12_update_winds
+    wind_err = 0.0
+    for t, rows in momenta:
+        rows = rows.cpu().numpy()
+        want = rows[0] * np.stack(winds(sim.geom, t))
+        scale = np.abs(want).reshape(3, -1).max(axis=1).reshape(3, *([1] * (want.ndim - 1)))
+        wind_err = max(wind_err, float((np.abs(rows[1:4] - want) / scale).max()))
+    mix = lambda a: [[float((a[r] / a[0]).min()), float((a[r] / a[0]).max())] for r in range(5, a.shape[0])]
+    row = {"tag": tag, "device": device, "case": case, "nel_h": nel_h, "nel_v": nel_v, "s": s,
+           "points": 6 * nel_h * nel_h * nel_v * s**3, "tracers": state.shape[0] - 5, "integrator": integrator,
+           "dt": dt, "steps": nsteps, "setup_s": setup, "run_s": float(done.group(2)),
+           "steps_per_s": float(done.group(3)), "wall_s": wall, "host_syncs": counts["host_syncs"],
+           "host_syncs_per_step": counts["host_syncs"] / nsteps, "tracer_mass_drift": drift,
+           "unchanged_ulps": unchanged, "wind_err": wind_err, "overwrites": len(momenta),
+           "finite": bool(np.isfinite(state).all()), "mixing_ratio_initial": mix(q0), "mixing_ratio_final": mix(state)}
+    gates = {"finite": row["finite"], "tracer_mass": max(abs(d) for d in drift) <= 1e-12,
+             "unchanged": max(unchanged.values()) <= 32.0, "winds": wind_err <= 1e-13,
+             "overwrites": len(momenta) == nsteps}
+    if device == "cuda":
+        per_step = 3 if integrator == "tvdrk3" else 1
+        launches = {k: counts[k] for k in ("euler3d_advection", "euler3d_plain_calls") + FIVE_VARIABLE_COUNTERS}
+        row["launches"] = launches
+        gates["launches"] = launches == dict({k: 0 for k in launches}, euler3d_advection=per_step * nsteps)
+    row["gates"] = gates
+    if not all(gates.values()):
+        raise AssertionError(f"phase 37 {tag} on {device}: gates {gates}, row {row}")
+    return row, state, sim
+
+
+def _advection_timing(torch, smi, sim, state):
+    """The card's time a call at the main path's width of the advection
+    kernel (RHS, and stage + x + traces: the TVD-RK3 chain's call) and of
+    its plain version, f64 on the run's state and f32 on the same cast,
+    beside the bound, with the kernel checked against its plain version on
+    those inputs (``compare_advection``) and its resources."""
+    from wxfactory_tpu_torch.kernels.check import (advection_kernel_resources, compare_advection,
+                                                   euler3d_advection_work)
+    from wxfactory_tpu_torch.ops import euler3d_operator as e3op
+
+    nel_h, nel_v, s = ADVECTION_MAIN
+    dt = ADVECTION_DT[11]
+    con64 = sim.rhs.con
+    y64, x64 = torch.as_tensor(state, device="cuda"), sim.initial_q
+    rows, checks = [], []
+    for dtype in (torch.float64, torch.float32):
+        con = con64 if dtype == torch.float64 else e3op.build_constants(sim.ops, sim.metric, nel_h, nel_v,
+                                                                        dtype=dtype, device="cuda")
+        y, x = y64.to(dtype).contiguous(), x64.to(dtype).contiguous()
+        checks += compare_advection(con, con64, sim.topology, sim.ops, x, y)
+        halo = e3op.halo_from_traces(e3op.edge_traces(y, con), sim.topology)
+        stage = dict(x=x, a=1.0 / 3.0, b=2.0 / 3.0, cdt=(2.0 / 3.0) * dt, emit_traces=True)
+        name = str(dtype).replace("torch.", "")
+        row = {"dtype": name, "nel_h": nel_h, "nel_v": nel_v, "s": s, "tracers": y.shape[0] - 5, "gpu": smi,
+               "resources": advection_kernel_resources(dtype, s, y.shape[0] - 5)}
+        for mode, kw, work in (("rhs", {}, euler3d_advection_work(con, 4)),
+                               ("stage_x_traces", stage,
+                                euler3d_advection_work(con, 4, stage=True, use_x=True, traces=True))):
+            t = _pair_ms(torch, lambda: e3op.euler3d_advection(y, halo, con, **kw),
+                         lambda: e3op.euler3d_advection_plain(y, halo, con, **kw))
+            b = _bound(work, name)
+            row.update({f"{mode}_kernel_ms": t["kernel_ms"], f"{mode}_plain_ms": t["plain_ms"],
+                        f"{mode}_kernel_event_ms": t["kernel_event_ms"], f"{mode}_bound_ms": b["bound_ms"],
+                        f"{mode}_bound_by": b["bound_by"], f"{mode}_bytes": b["bytes"], f"{mode}_ops": b["ops"]})
+        rows.append(row)
+    return rows, checks
+
+
+def phase37(torch, smi):
+    """DCMIP 11 and 12 on the card: (a) the advection kernel against its
+    plain version (RHS with rows 0-4 exactly 0, stage, stage + x, stage + x +
+    traces; 1 and 4 tracers; f64 and f32; each tracer's mass) at
+    ADVECTION_SHAPES and at the main path's width; (b) DCMIP 11 through
+    Simulation(ini).run() at 30x30x20, s = 3, TVD-RK3, 10 steps; (c) DCMIP
+    12 with TVD-RK3 and Euler1 at 20x20x10; (d) both cases at 4x3x3 on the
+    card and on the CPU within 1e-12 of scale; the kernel's time beside its
+    plain version's and its bound."""
+    import numpy as np
+
+    from wxfactory_tpu_torch.kernels.check import compare_euler3d_advection
+
+    t0 = time.perf_counter()
+    rows = []
+    for shape in ADVECTION_SHAPES:
+        for ntracer in (1, 4):
+            for dtype in (torch.float64, torch.float32):
+                rows += compare_euler3d_advection(*shape, ntracer, dtype, device="cuda")
+    small_s = time.perf_counter() - t0
+    runs, states = [], {}
+    for run in ADVECTION_RUNS:
+        row, states[run[0]], sim = _advection_run(torch, *run)
+        runs.append(row)
+        if run[0].startswith("b_"):
+            timing, checks = _advection_timing(torch, smi, sim, states[run[0]])
+            rows += checks
+            launches = row["launches"]["euler3d_advection"]
+        del sim
+    emit_comparison(37, rows, ("nel_h", "nel_v", "s", "ntracer"))
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"phase 37: the advection kernel disagrees with its plain version: {bad[:4]}")
+    nel_h, nel_v, s, nsteps = ADVECTION_CPU
+    cpu = []
+    for case in (11, 12):
+        tag = f"d_dcmip{case}_tvdrk3"
+        got = _advection_run(torch, tag, case, nel_h, nel_v, s, "tvdrk3", nsteps)[1]
+        crow, want, _ = _advection_run(torch, tag, case, nel_h, nel_v, s, "tvdrk3", nsteps, device="cpu")
+        scale = np.abs(want).reshape(want.shape[0], -1).max(axis=1).reshape(-1, *([1] * (want.ndim - 1)))
+        cpu.append({"case": case, "nel_h": nel_h, "nel_v": nel_v, "s": s, "steps": nsteps,
+                    "err": float((np.abs(got - want) / scale).max()), "tol": 1e-12})
+    emit({"phase": 37, "runs": runs, "timing": timing, "cpu": cpu, "checks_s": small_s,
+          "main_max_abs_err": max(r["max_abs_err"] for r in rows if (r["nel_h"], r["nel_v"], r["s"]) == ADVECTION_MAIN
+                                  and r["dtype"] == "float64")})
+    if not all(c["err"] <= c["tol"] for c in cpu):
+        raise AssertionError(f"phase 37: the card and the CPU differ: {cpu}")
+    main_err = max(r["max_abs_err"] for r in rows
+                   if (r["nel_h"], r["nel_v"], r["s"]) == ADVECTION_MAIN and r["dtype"] == "float64")
+    return {"launches": launches, "max_abs_err": main_err, "timing": timing[0]}
+
+
 def main() -> int:
     try:
         import torch
@@ -3888,6 +4153,7 @@ def main() -> int:
     terrain = timed(34, phase34, torch, smi)
     pert_topo = timed(35, phase35, torch, smi)
     timed(36, phase36, torch)
+    advection = timed(37, phase37, torch, smi)
     sw_entry = lambda name, mode, replaces, source="wxfactory_tpu_torch/csrc/sw_operator.cu", row=swt["sw_pert"]: {
         "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": sw_counts[name],
         "max_abs_err": sw_errs[name], "ms": row[f"{mode}_kernel_ms"], "plain_ms": row[f"{mode}_plain_ms"],
@@ -4023,6 +4289,18 @@ def main() -> int:
                     "bound_ms": ptrow["stage_x_bound_ms"], "bound_by": ptrow["stage_x_bound_by"], "library_ms": None,
                     "ms_without_topography": ptrow["stage_x_flat_ms"], "rhs_ms": ptrow["rhs_kernel_ms"],
                     "rhs_bound_ms": ptrow["rhs_bound_ms"]})
+    # The tracer advection of DCMIP 11/12, timed at the main path's width in
+    # float64 on the stage + x + traces call the TVD-RK3 chain makes (its RHS
+    # beside it).
+    at = advection["timing"]
+    kernels.append({"name": "euler3d_advection", "route": "cuda",
+                    "source": "wxfactory_tpu_torch/csrc/euler3d_advection.cu",
+                    "replaces": "XLA `_euler3d_rhs_core(advection_only=True)`, "
+                                "wxfactory_tpu/models/euler_cubesphere.py:90-291 (no Pallas kernel)",
+                    "launches": advection["launches"], "max_abs_err": advection["max_abs_err"],
+                    "ms": at["stage_x_traces_kernel_ms"], "plain_ms": at["stage_x_traces_plain_ms"],
+                    "bound_ms": at["stage_x_traces_bound_ms"], "bound_by": at["stage_x_traces_bound_by"],
+                    "library_ms": None, "rhs_ms": at["rhs_kernel_ms"], "rhs_bound_ms": at["rhs_bound_ms"]})
     unmeasured = [k["name"] for k in kernels if not (k["ms"] > 0 and k["plain_ms"] > 0 and k["launches"] > 0)]
     if unmeasured:
         raise AssertionError(f"kernels without a time, a plain time or a launch on the main path: {unmeasured}")

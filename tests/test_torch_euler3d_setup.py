@@ -100,12 +100,20 @@ def test_halo_state_3d_matches_jax(rotation, covariant):
 
 
 def test_unported_cases_raise():
+    """DCMIP 11 and 12 set up with their tracer rows; what the port does not
+    run of them yet, the advection operator's Jacobian action, raises naming
+    its ROADMAP item."""
+    from wxfactory_tpu_torch.models import Euler3DAdvectionRHS
     from wxfactory_tpu_torch.testcases import initial_state_3d
 
     g = make_cubed_sphere_3d(3, 2, 2, 10000.0)
+    ops = make_dfr_operators(2, three_d=True)
+    rhs = Euler3DAdvectionRHS(g, ops, make_metric_3d(g, ops, CubedSphereTopology(g)), device="cpu")
     for case in (11, 12):
+        q = torch.as_tensor(initial_state_3d(g, case)[0])
+        assert q.shape[0] == (9 if case == 11 else 6)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            initial_state_3d(g, case)
+            rhs.jtv_prep(q)
 
 
 def test_christoffel_system_is_the_reference_loop_bit_for_bit():

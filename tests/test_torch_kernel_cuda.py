@@ -3,8 +3,8 @@ shared-memory use, the SW halo, edge-trace, whole-run and tangent (J.v) kernels,
 pair with bottom topography, the SW perturbation form with bottom topography, the SW tangent pair at s = 1 and the multigrid levels that launch it, 3D Euler
 operator, its tangent
 prep and apply kernels and the perturbation form of both, with its stage mode, their terrain instantiations
-(DCMIP 20, 21, 22: every panel's metric, the Rayleigh sponge), and the tile kernels of both
-models with the tile steps' launch counts) against their plain torch versions, on the card. Needs a CUDA device and nvcc, and skips without them. On a GPU
+(DCMIP 20, 21, 22: every panel's metric, the Rayleigh sponge), the tracer-advection kernel of DCMIP 11 and 12, and
+the tile kernels of both models with the tile steps' launch counts) against their plain torch versions, on the card. Needs a CUDA device and nvcc, and skips without them. On a GPU
 machine run it without tests/conftest.py (which configures JAX):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernel_cuda.py
@@ -18,7 +18,9 @@ import torch
 from wxfactory_tpu_torch.kernels.check import (
     E3_TILE_SHAPES,
     SW_TILE_SHAPES,
+    advection_inputs,
     case6_inputs,
+    compare_euler3d_advection,
     compare_euler3d_tile,
     compare_sw_tile,
     euler3d_setup,
@@ -439,3 +441,27 @@ def test_euler3d_terrain_counters_count_terrain_launches_only(cuda):
     after = (e3op.launches, e3op.terrain_launches, e3op.terrain_tangent_prep_launches,
              e3op.terrain_tangent_apply_launches, e3op.tangent_launches, e3op.tangent_prep_launches)
     assert [a - b for a, b in zip(after, before)] == [0, 1, 1, 1, 0, 0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("ntracer", [1, 4])
+@pytest.mark.parametrize("nel_h,nel_v,s", [(3, 2, 2), (4, 3, 3), (2, 2, 4), (2, 1, 5), (2, 2, 6)])
+def test_euler3d_advection_kernel_matches_plain(cuda, nel_h, nel_v, s, ntracer, dtype):
+    """RHS (rows 0-4 exactly 0), stage, stage + x and stage + x + traces,
+    each tracer's mass against the plain version's and the RHS's own mass
+    integral zero to round-off (kernels/check.py)."""
+    rows = compare_euler3d_advection(nel_h, nel_v, s, ntracer, dtype, device="cuda")
+    assert all(r["ok"] for r in rows), rows
+
+
+def test_euler3d_advection_counter_counts_kernel_launches_only(cuda):
+    con, topology, _, x, y = advection_inputs(3, 2, 2, 4, torch.float64, "cuda")
+    halo = e3op.halo_from_traces(e3op.edge_traces(y, con), topology)
+    before, plain = e3op.advection_launches, e3op.plain_calls
+    e3op.euler3d_advection_plain(y, halo, con)
+    assert e3op.advection_launches == before and e3op.plain_calls == plain + 1
+    e3op.euler3d_advection(y, halo, con, x=x, a=0.5, b=0.5, cdt=1.0, emit_traces=True)
+    torch.cuda.synchronize()
+    assert e3op.advection_launches == before + 1 and e3op.plain_calls == plain + 1
+    with pytest.raises(ValueError, match="1 or 4"):
+        e3op.euler3d_advection(torch.cat([y, y[5:6]]).contiguous(), torch.cat([halo, halo[5:6]]).contiguous(), con)

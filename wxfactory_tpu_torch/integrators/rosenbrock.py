@@ -74,6 +74,10 @@ class Ros2(Integrator):
         self.tol = tolerance
         self.gmres_restart = gmres_restart
         self.linear_solver = linear_solver
+        # FGMRES iterations a step may take without a preconditioner (the
+        # JAX package's budget); a run that only needs to show stagnation
+        # may lower it.
+        self.max_iterations = 20000
 
     def _use_jit_solver(self) -> bool:
         return self.linear_solver in ("fgmres_jit", "fgmres_jit_1s") or (
@@ -91,7 +95,8 @@ class Ros2(Integrator):
         qv = q.reshape(-1)
         b = A(qv) + self.rhs(q).reshape(-1) * dt
         x, info = fgmres_jit(A, b, x0=qv, tol=self.tol, restart=self.gmres_restart,
-                             max_outer=max(1, 20000 // self.gmres_restart), preconditioner=self.preconditioner,
+                             max_outer=max(1, self.max_iterations // self.gmres_restart),
+                             preconditioner=self.preconditioner,
                              one_sync=self.linear_solver == "fgmres_jit_1s", A32=A32, basis_dtype=basis_dtype)
         return x.reshape(q.shape), info
 
@@ -141,7 +146,7 @@ class Ros2(Integrator):
         A = make_rat_matvec(self.rhs, q, dt)
         q_flat = q.reshape(-1)
         b = A(q_flat) + self.rhs(q).reshape(-1) * dt
-        maxiter = (400 if self.preconditioner is not None else 20000) // self.gmres_restart
+        maxiter = (400 if self.preconditioner is not None else self.max_iterations) // self.gmres_restart
         solve = gcrot if self.linear_solver == "gcrot" else fgmres
         t0 = time()
         q_new, norm_r, norm_b, num_iter, flag, residuals = solve(

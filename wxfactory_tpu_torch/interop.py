@@ -18,7 +18,7 @@ package's ``plan``/``tile_plan`` chose.
 import numpy as np
 import torch
 
-from .models.euler_cubesphere import Euler3DRHS, RayleighDamping
+from .models.euler_cubesphere import Euler3DAdvectionRHS, Euler3DRHS, RayleighDamping
 from .models.shallow_water import ShallowWaterRHS, Topography
 from .ops import euler3d_operator
 from .ops.sw_operator import SWConstants, SWPertBase, SWTopography, build_constants, build_topography
@@ -83,13 +83,21 @@ def euler3d_constants(ops, metric, nel_h: int, nel_v: int, device="cpu", dtype=t
 
 
 def euler3d_rhs(geom, ops, metric, device="cpu", dtype=torch.float64, base_state=None,
-                perturbation_base=None, damping=None) -> Euler3DRHS:
+                perturbation_base=None, damping=None, advection_only: bool = False):
     """The port's 3D Euler RHS on a geometry, operators and metric built by
     either package, terrain included (``base_state``: the well-balanced
     offset's state; ``perturbation_base``: the base state q0 of the
     perturbation form, a numpy array as the JAX factory takes it;
     ``damping``: the Rayleigh sponge of DCMIP 21/22, a ``RayleighDamping``;
-    ``rayleigh_damping`` reads the JAX package's)."""
+    ``rayleigh_damping`` reads the JAX package's). With ``advection_only``
+    (DCMIP 11/12, as the JAX factory's flag) the tracer-advection RHS
+    ``Euler3DAdvectionRHS``: ``base_state`` and ``damping`` are ignored there
+    as the JAX factory ignores them (the momentum rows are zeroed), and
+    ``perturbation_base`` is refused, as it refuses it."""
+    if advection_only:
+        if perturbation_base is not None:
+            raise ValueError("perturbation_base supports the plain 5-variable system")
+        return Euler3DAdvectionRHS(geom, ops, metric, dtype=dtype, device=device)
     return Euler3DRHS(geom, ops, metric, dtype=dtype, device=device, base_state=base_state,
                       perturbation_base=perturbation_base, damping=damping)
 

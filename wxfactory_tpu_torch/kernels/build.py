@@ -127,6 +127,20 @@ SIGNATURES = {
         "euler3d_terrain_resources": (_I, [_I, _I, _I, _P]),
         "euler3d_operator_error_string": (ctypes.c_char_p, [_I]),
     },
+    # The tracer advection of DCMIP 11/12 (5 + nt rows), a source and library of its own.
+    "euler3d_advection": {
+        "euler3d_advection_launch": (
+            _I,
+            [_I, _I, _I, _I, _I]  # is_f64, s, nt, nel_h, nel_v
+            # q, halo, ops1d, fields, itf_x, itf_y, itf_z, x, out, traces
+            + [_P] * 10
+            + [_D, _D, _D, _I]  # a, b, cdt, stage
+            + [_P],  # stream
+        ),
+        # is_f64, s, nt, kernel (0 interface pass, 1 volume pass), int[5] out
+        "euler3d_advection_resources": (_I, [_I, _I, _I, _I, _P]),
+        "euler3d_advection_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 
 # A library built from another library's source with extra nvcc flags: name

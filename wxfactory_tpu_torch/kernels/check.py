@@ -298,9 +298,9 @@ def _sponge_ops(con) -> int:
     return 0 if con.sponge is None else 12 * (con.sponge.numel() // 4)
 
 
-# The model top of each DCMIP case (m): DCMIP 20 and 21/22's specifications;
-# 10 km for the others.
-DCMIP_ZTOP = {20: 12000.0, 21: 30000.0, 22: 30000.0}
+# The model top of each DCMIP case (m): DCMIP 11/12, 20 and 21/22's
+# specifications; 10 km for the others.
+DCMIP_ZTOP = {11: 12000.0, 12: 12000.0, 20: 12000.0, 21: 30000.0, 22: 30000.0}
 
 
 @functools.lru_cache(maxsize=None)
@@ -2041,3 +2041,210 @@ class PlainPairEuler3D(Euler3DRHS):
         _, qa, traces, _, coef = prep
         halo_v = self.halo(e3op.edge_traces_tangent(qa, v, self.con, traces))
         return e3op.euler3d_tangent_apply_plain(v, halo_v, coef, self.con)
+
+
+# ---------------------------------------------------------------------------
+# Tracer advection under prescribed winds (DCMIP 11 and 12)
+#
+# ``compare_euler3d_advection``: the advection kernel against its plain
+# version on DCMIP 11 (4 tracers) or 12 (1) with seeded noise (1e-3
+# relative on every row, and 0.1 rho N(0,1) added to each tracer, so no
+# tracer RHS is a near-cancelled residual and DCMIP 12's zero layers carry
+# a tracer), in RHS mode and in stage mode with and without x and with the
+# emitted traces. Rows 0-4 of the RHS must be exactly 0. Every row's error
+# is scaled by the larger of its output max and |cdt| (1 in RHS mode) times
+# the tracer's flux-divergence scale (``advection_term_scale``; rows 0-4:
+# their output max). float64: within 1e-12; float32: against the plain
+# float64 output on the same (float32-rounded) inputs, within 1e-5 or twice
+# the plain float32 output's distance from it. Each tracer's mass: the
+# kernel's change (the RHS, or out - a*x - b*y) against the plain
+# version's, as ``mass_err`` holds rho (``advection_mass_err``), and the
+# kernel RHS's own integral over its absolute integral (zero to
+# round-off: both elements of an interface read one flux).
+
+ADVECTION_DT = 300.0
+ADVECTION_CASES = {4: 11, 1: 12}
+
+
+def advection_inputs(nel_h: int, nel_v: int, s: int, ntracer: int, dtype, device, seed: int = 0):
+    """(con, topology, ops, x, y): constants and two noisy DCMIP 11 (4
+    tracers) or 12 (1 tracer) states (x is the stage's a-term)."""
+    geom, ops, metric, topology, q = euler3d_setup(nel_h, nel_v, s, ADVECTION_CASES[ntracer])
+    rng = np.random.default_rng(seed)
+
+    def noisy():
+        out = q * (1.0 + 1e-3 * rng.standard_normal(q.shape))
+        out[5:] += 0.1 * q[0] * rng.standard_normal(q[5:].shape)
+        return out
+
+    x, y = noisy(), noisy()
+    con = euler3d_constants(nel_h, nel_v, s, ADVECTION_CASES[ntracer], dtype, device)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return con, topology, ops, t(x), t(y)
+
+
+def advection_term_scale(q: torch.Tensor, con) -> torch.Tensor:
+    """Per-row scale of the advection RHS: for each tracer row the max of
+    its interior flux divergence ``inv_sqrtG * div(sqrt(g) u q_k)``; 0 for
+    rows 0-4 (their RHS is 0)."""
+    sqrtg, invsg = con.fields[0], con.fields[1]
+    flux = torch.cat([sqrtg * (q[1 + d] / q[0]) * q[5:] for d in range(3)], dim=-1)
+    scale = torch.zeros(q.shape[0], dtype=torch.float64, device=q.device)
+    scale[5:] = per_variable_max(invsg * (flux @ con.dd)).double()
+    return scale
+
+
+def advection_mass(out, row: int, wsg, x=None, y=None, a: float = 0.0, b: float = 1.0, stage: bool = False):
+    """(integral, absolute integral) of row ``row``'s change (the RHS, or
+    out - a*x - b*y in stage mode) weighted by ``wsg``, in float64."""
+    c = out[row].double()
+    if stage:
+        c = c - b * y[row].double() - (a * x[row].double() if x is not None and a != 0.0 else 0.0)
+    c = wsg * c
+    return float(c.sum()), float(c.abs().sum())
+
+
+def compare_euler3d_advection(nel_h: int, nel_v: int, s: int, ntracer: int, dtype, device="cuda", seed: int = 0):
+    """The advection kernel (``ops.euler3d_advection``) against its plain
+    version in every mode on ``advection_inputs`` (``compare_advection``)."""
+    con, topology, ops, x, y = advection_inputs(nel_h, nel_v, s, ntracer, dtype, device, seed)
+    con64 = con if dtype == torch.float64 else euler3d_constants(nel_h, nel_v, s, ADVECTION_CASES[ntracer],
+                                                                 torch.float64, device)
+    return compare_advection(con, con64, topology, ops, x, y)
+
+
+def compare_advection(con, con64, topology, ops, x, y):
+    """The advection kernel against its plain version on the states ``x``
+    (the stage's a-term) and ``y`` of ``con``'s dtype and device (``con64``:
+    the float64 constants of the float32 truth); one dict per mode with the
+    scaled error ``err`` (worst row), its tolerance ``tol``, each row's
+    error ``row_err``, each tracer's mass error against the plain version
+    and own relative mass (RHS mode), and ``ok``."""
+    nel_h, nel_v, s, ntracer, dtype, device = con.nel_h, con.nel_v, con.s, y.shape[0] - 5, con.dtype, con.device
+    halo = e3op.halo_from_traces(e3op.edge_traces(y, con), topology)
+    modes = {
+        "rhs": dict(),
+        "stage": dict(a=0.0, b=1.0, cdt=ADVECTION_DT),
+        "stage_x": dict(x=x, a=0.75, b=0.25, cdt=0.25 * ADVECTION_DT),
+        "stage_x_traces": dict(x=x, a=1.0 / 3.0, b=2.0 / 3.0, cdt=(2.0 / 3.0) * ADVECTION_DT, emit_traces=True),
+    }
+    f64 = dtype == torch.float64
+    tol = E3_TOLERANCE[dtype]
+    term = advection_term_scale(y.double(), con64)
+    wsg = mass_weights(ops, con)
+    if not f64:  # the float64 truth on the float32-rounded inputs
+        y64, x64, halo64 = y.double(), x.double(), halo.double()
+    results = []
+    for mode, kw in modes.items():
+        got = e3op.euler3d_advection(y, halo, con, **kw)
+        want = e3op.euler3d_advection_plain(y, halo, con, **kw)
+        if device.type != "cpu":
+            torch.cuda.synchronize()
+        got_tr = want_tr = truth_tr = None
+        if kw.get("emit_traces"):
+            (got, got_tr), (want, want_tr) = got, want
+        cdt = abs(kw.get("cdt", 1.0))
+        scale = torch.maximum(per_variable_max(want).double(), cdt * term)
+        scale = torch.where(scale > 0, scale, torch.ones_like(scale))  # rows 0-4 of the RHS: exactly 0
+        err = lambda a, b: (per_variable_max((a.double() - b.double())) / scale)
+        row = {"nel_h": nel_h, "nel_v": nel_v, "s": s, "ntracer": ntracer, "dtype": str(dtype).replace("torch.", ""),
+               "mode": mode, "max_abs_err": float((got - want).abs().max()), "scale": "max(output_max, cdt*term)"}
+        row_err = err(got, want)
+        if f64:
+            row["row_err"] = [float(e) for e in row_err]
+            row["err"] = float(row_err.max())
+            row["tol"] = tol
+            ok = row["err"] <= tol
+        else:
+            kw64 = dict(kw, x=x64) if "x" in kw else kw
+            truth = e3op.euler3d_advection_plain(y64, halo64, con64, **kw64)
+            if kw.get("emit_traces"):
+                truth, truth_tr = truth
+            kernel_err, plain_err = err(got, truth), err(want, truth)
+            limit = torch.clamp(2.0 * plain_err, min=tol)
+            row.update(row_err=[float(e) for e in kernel_err], plain_row_err=[float(e) for e in plain_err],
+                       err=float((kernel_err / limit).max()) * tol, tol=tol, kernel_vs_plain=float(row_err.max()))
+            ok = bool((kernel_err <= limit).all())
+        if got_tr is not None:
+            tr_scale = per_variable_max(want_tr).double()
+            if f64:
+                row["traces_err"] = float((per_variable_max(got_tr.double() - want_tr.double()) / tr_scale).max())
+                ok = ok and row["traces_err"] <= tol
+            else:
+                kt = per_variable_max(got_tr.double() - truth_tr) / tr_scale
+                pt = per_variable_max(want_tr.double() - truth_tr) / tr_scale
+                row["traces_err"] = float(kt.max())
+                ok = ok and bool((kt <= torch.clamp(2.0 * pt, min=tol)).all())
+        if mode == "rhs":
+            row["dynamical_rows_zero"] = bool((got[:5] == 0).all())
+            ok = ok and row["dynamical_rows_zero"]
+        masses = []
+        stage = "cdt" in kw
+        for r in range(5, y.shape[0]):
+            g_int, g_abs = advection_mass(got, r, wsg, kw.get("x"), y, kw.get("a", 0.0), kw.get("b", 1.0), stage)
+            w_int, w_abs = advection_mass(want, r, wsg, kw.get("x"), y, kw.get("a", 0.0), kw.get("b", 1.0), stage)
+            rounding = 4.0 * torch.finfo(dtype).eps * float((wsg * want[r].double()).abs().sum())
+            m = {"err": abs(g_int - w_int) / w_abs, "tol": tol + rounding / w_abs, "own": abs(g_int) / g_abs}
+            masses.append(m)
+            ok = ok and m["err"] <= m["tol"]
+            if not stage:  # the RHS's own integral: zero to round-off
+                m["own_tol"] = 1e-12 if f64 else 1e-5
+                ok = ok and m["own"] <= m["own_tol"]
+        row["tracer_mass"] = masses
+        row["ok"] = bool(ok and torch.isfinite(got).all().item())
+        results.append(row)
+    return results
+
+
+def euler3d_advection_work(con, ntracer: int, stage: bool = False, use_x: bool = False, traces: bool = False):
+    """(bytes, operations) of one call of the advection operator, each input
+    read once and each output written once, counting what the function
+    depends on: in RHS mode rho, the three momenta and the tracers of q
+    (rho*theta is not read), in stage mode every row of q (and of x); the
+    out rows; rho, the two horizontal momenta and the tracers of the halo;
+    sqrt(g) and 1/sqrt(g) (one panel) and the interface sqrt(g); the
+    emitted traces. Operations (an add, multiply, divide, log or exp is
+    one, an fma two), each interface computed once: a node's three
+    velocities, sqrt(g)-weighted fluxes, divergence (3 s fmas a tracer) and
+    corrections (6 products and their sum); an interior interface point's
+    two traces (rho through s logs, s fmas and an exp; the normal momentum
+    and each tracer s fmas), its speeds and each tracer's flux (the ground
+    and the lid need none); the stage combination; the traces."""
+    nh, nk, s = con.nel_h, con.nel_v, con.s
+    s2, s3 = s * s, s**3
+    nv = 5 + ntracer
+    n_elem, item = con.npanel * nk * nh * nh, torch.finfo(con.dtype).bits // 8
+    node_words = n_elem * s3
+    words = node_words * ((nv if stage else 4 + ntracer) + nv + (nv if use_x else 0))
+    words += 2 * (con.fields.numel() // con.fields.shape[0])  # sqrt(g), 1/sqrt(g)
+    words += sum(f.numel() // f.shape[0] for f in (con.itf_x, con.itf_y, con.itf_z))  # interface sqrt(g)
+    edge = 4 * con.npanel * nk * nh * s2
+    words += (3 + ntracer) * edge + (nv * edge if traces else 0)
+    points = con.npanel * (2 * nk * nh * (nh + 1) + (nk - 1) * nh * nh) * s2  # interfaces with a flux
+    ops = node_words * (9 + ntracer * (3 + 6 * s + 13))
+    ops += points * (2 * ((3 * s + 1) + 2 * s + 2 * s * ntracer) + 8 + 7 * ntracer)
+    ops += node_words * nv * ((2 if stage else 0) + (2 if use_x else 0))
+    if traces:
+        ops += edge * (nv * 2 * s + 2 * (s + 1))
+    return words * item, ops
+
+
+def advection_kernel_resources(dtype, s: int, ntracer: int) -> dict:
+    """{"interface", "volume": {registers, local_bytes, smem_bytes,
+    blocks_per_sm, threads}}: what the runtime reports of the advection
+    kernel's two passes at one dtype, s and tracer count (on the card;
+    builds the library)."""
+    import ctypes
+
+    from .build import load_library
+
+    lib = load_library("euler3d_advection")
+    out = {}
+    for kernel, name in enumerate(("interface", "volume")):
+        info = (ctypes.c_int * 5)()
+        rc = lib.euler3d_advection_resources(1 if dtype == torch.float64 else 0, s, ntracer, kernel,
+                                             ctypes.cast(info, ctypes.c_void_p))
+        if rc != 0:
+            raise RuntimeError(f"euler3d_advection_resources failed: CUDA error {rc}")
+        out[name] = dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm", "threads"), info))
+    return out

@@ -39,9 +39,13 @@ instantiations; ``damping`` (DCMIP 21/22, ``RayleighDamping``) adds the
 Rayleigh sponge the JAX factory takes as ``extra_forcing`` (there through
 XLA only, not through its kernel) to the momentum forcing, in the RHS and
 in the Jacobian action; the perturbation form refuses it, as the JAX one
-does. The JAX factory's ``advection_only`` (DCMIP 11/12) runs through XLA
-there; the port's ``initial_state_3d`` refuses those cases (ROADMAP queue
-1, item 9).
+does. The JAX factory's ``advection_only`` (DCMIP 11/12, which it runs
+through XLA) is ``Euler3DAdvectionRHS``: the tracer-advection operator
+under prescribed winds on a state of 5 + nt rows, one launch of its own
+kernel (``ops.euler3d_advection``) an RHS call or RK stage, with the same
+fused stage API; no well-balanced offset (the JAX factory ignores
+``base_state`` there) and no Jacobian action yet (ROADMAP queue 1, item
+18).
 """
 
 from dataclasses import dataclass
@@ -57,6 +61,7 @@ from ..ops.euler3d_operator import (
     edge_traces,
     edge_traces_delta,
     edge_traces_tangent,
+    euler3d_advection,
     euler3d_operator,
     euler3d_tangent_apply,
     euler3d_tangent_pert_plain,
@@ -227,3 +232,62 @@ class Euler3DRHS:
             return qp
         return self.pert.q0 + qp
 
+
+ITEM_18 = ("ROADMAP queue 1, item 18: the Jacobian action of the tracer-advection operator of DCMIP 11/12 (what the "
+           "exponential, Rosenbrock and implicit integrators and the preconditioners need there; the JAX package "
+           "takes jax.jvp of its XLA RHS) is not ported")
+
+
+class Euler3DAdvectionRHS:
+    """The RHS of DCMIP 11/12 (the JAX factory's ``advection_only``) at one
+    discretization, dtype and device (the card unless the caller asks for
+    the CPU): tracer transport under the winds the state's momenta carry,
+    rows 0-4 of the RHS exactly 0, on states of 5 + nt rows (the kernel
+    takes nt = 1 or 4; the CPU's plain version any). The fused stage API
+    of ``Euler3DRHS`` (``traces``, ``halo``, ``stage``, identity ``pack`` /
+    ``unpack``, ``__call__``): one advection launch an RHS call or stage.
+    The geometry must be flat (one panel's metric)."""
+
+    def __init__(self, geom, ops, metric, dtype=torch.float64, device="cuda", topology=None):
+        if has_topography(geom):
+            raise ValueError("the advection operator of DCMIP 11/12 takes a geometry without topography")
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        self.topology = topology if topology is not None else CubedSphereTopology(geom)
+        self.con = build_constants(ops, metric, geom.nel_h, geom.nel_v, dtype=dtype, device=self.device)
+        # The halo exchange's device tables, made here rather than inside a step.
+        self.topology.gather_index_3d(geom.nel_v, self.con.device)
+        self.topology.conv_coefficients(self.con.device, dtype)
+
+    def traces(self, q: torch.Tensor) -> torch.Tensor:
+        """Panel-edge traces of every row of a state: the chain's bootstrap."""
+        return edge_traces(q, self.con)
+
+    def halo(self, traces: torch.Tensor) -> torch.Tensor:
+        return halo_from_traces(traces, self.topology)
+
+    def __call__(self, q: torch.Tensor) -> torch.Tensor:
+        return euler3d_advection(q, self.halo(self.traces(q)), self.con)
+
+    def stage(self, x, y, a: float, b: float, cdt: float, traces: Optional[torch.Tensor] = None):
+        """One fused RK stage ``a*x + b*y + cdt*RHS(y)`` (``x`` unused when
+        ``a == 0``); ``traces`` are y's panel-edge traces (bootstrapped when
+        None). Returns (output, its traces), from one advection launch."""
+        if traces is None:
+            traces = self.traces(y)
+        return euler3d_advection(y, self.halo(traces), self.con, x=x, a=a, b=b, cdt=cdt, emit_traces=True)
+
+    def jtv_prep(self, q: torch.Tensor):
+        raise NotImplementedError(ITEM_18)
+
+    def jtv_apply(self, prep, v: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError(ITEM_18)
+
+    def jtv(self, q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError(ITEM_18)
+
+    def pack(self, q: torch.Tensor) -> torch.Tensor:
+        return q
+
+    def unpack(self, qp: torch.Tensor) -> torch.Tensor:
+        return qp

@@ -124,6 +124,9 @@ terrain_launches = 0
 terrain_pert_launches = 0
 terrain_tangent_prep_launches = 0
 terrain_tangent_apply_launches = 0
+# Launches of the tracer-advection kernel (``euler3d_advection``; its plain
+# version counts in ``plain_calls``).
+advection_launches = 0
 
 # Names of the single-panel interior fields, in the order of ``fields``
 # (the kernel relies on it): sqrt(g), 1/sqrt(g), 1/(dz/deta), the six
@@ -286,18 +289,20 @@ def expand_panels(con: E3Constants) -> E3Constants:
 
 
 def _log_rows(q: torch.Tensor) -> torch.Tensor:
-    """rho and rho*theta (rows 0 and 4) in log space, the momenta as they are."""
-    return torch.cat([torch.log(q[0:1]), q[1:4], torch.log(q[4:5])])
+    """rho and rho*theta (rows 0 and 4) in log space, the momenta and any
+    tracer rows (5 and on) as they are."""
+    return torch.cat([torch.log(q[0:1]), q[1:4], torch.log(q[4:5]), q[5:]])
 
 
 def _exp_rows(t: torch.Tensor) -> torch.Tensor:
-    return torch.cat([torch.exp(t[0:1]), t[1:4], torch.exp(t[4:5])])
+    return torch.cat([torch.exp(t[0:1]), t[1:4], torch.exp(t[4:5]), t[5:]])
 
 
 def edge_traces(q: torch.Tensor, con: E3Constants) -> torch.Tensor:
-    """Panel-edge face traces of a state, (5, 4, 6, nk, nh, s^2) in
-    (S, N, W, E) order — only the edge elements are extrapolated, rho and
-    rho*theta in log space."""
+    """Panel-edge face traces of a state of nv rows (5, or 5 plus the
+    tracers of DCMIP 11/12), (nv, 4, 6, nk, nh, s^2) in (S, N, W, E) order —
+    only the edge elements are extrapolated, rho and rho*theta in log
+    space, every other row linearly."""
     ss, ee = con.s**2, con.ee
     south = _exp_rows(_log_rows(q[:, :, :, 0]) @ ee[:, 2 * ss : 3 * ss])
     north = _exp_rows(_log_rows(q[:, :, :, -1]) @ ee[:, 3 * ss : 4 * ss])
@@ -326,7 +331,7 @@ def edge_traces_tangent(q: torch.Tensor, v: torch.Tensor, con: E3Constants,
 
 
 def halo_from_traces(traces: torch.Tensor, topology) -> torch.Tensor:
-    """Outgoing traces -> halos (5, 4, 6, nk, nh, s^2): for each (side,
+    """Outgoing traces -> halos (nv, 4, 6, nk, nh, s^2): for each (side,
     panel), the neighbour panel's facing trace in local edge ordering,
     rho*u1 and rho*u2 rotated into the local contravariant basis (the port
     of ``pallas_euler3d.halo_from_slabs``)."""
@@ -1080,6 +1085,133 @@ def euler3d_tile_operator(q, halo, con: E3Constants, x=None, a: float = 0.0, b: 
     else:
         pert_tile_launches += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# Tracer advection under prescribed winds (DCMIP 11 and 12)
+
+# The tracer counts the kernel is instantiated for: DCMIP 12 (1) and 11 (4).
+ADVECTION_TRACERS = (1, 4)
+
+
+def _advection_shapes(q, con: E3Constants):
+    """(state shape, traces shape) of a state of q's row count."""
+    nv = q.shape[0]
+    return (nv,) + con.state_shape[1:], (nv,) + con.traces_shape[1:]
+
+
+def euler3d_advection_plain(q, halo, con: E3Constants, x=None, a: float = 0.0, b: float = 1.0,
+                            cdt: Optional[float] = None, emit_traces: bool = False):
+    """Plain torch version of the tracer-advection operator; same arguments
+    and results as ``euler3d_advection``, for any number of tracer rows
+    (written from the JAX package's ``_euler3d_rhs_core(...,
+    advection_only=True)``, models/euler_cubesphere.py:90-291, term for
+    term: the tracers' sqrt(g)-weighted fluxes and their divergence, the
+    Rusanov flux with the eigenvalue max(|vL|, |vR|) at each interface, the
+    boundary corrections; rows 0-4 of the RHS exactly 0). Counted in
+    ``plain_calls``."""
+    global plain_calls
+    plain_calls += 1
+    sqrtg, invsg = con.fields[0], con.fields[1]
+    rho = q[0]
+    tracers = q[5:]
+
+    # 1. Log-space extrapolation of rho (and rho*theta) to the six faces.
+    itf = _exp_rows(_log_rows(q) @ con.ee)
+
+    # 2. Pointwise fluxes sqrt(g) u_d q_k and their divergence.
+    bundles = [sqrtg * (q[1 + d] / rho) * tracers for d in range(3)]
+    interior = torch.cat(bundles, dim=-1) @ con.dd
+
+    # 3. Interface fluxes; the ground and the lid mirror the state, w odd.
+    lr = _lr_states(itf, halo)
+    bund = []
+    for d, dim in _FAMILIES:
+        qL, qR = lr[d]
+        vL, vR = _normal_speeds(qL, qR, d)
+        sg = _itf_metric(con, d)[0]
+        eig = torch.maximum(vL.abs(), vR.abs())
+        f = 0.5 * (sg * vL * qL[5:] + sg * vR * qR[5:] - eig * sg * (qR[5:] - qL[5:]))
+        bund.append(_faces(f, dim))
+
+    # 4. Boundary corrections.
+    out = torch.zeros_like(q)
+    out[5:] = -invsg * (interior + torch.cat(bund, dim=-1) @ con.cc)
+    out = _stage(out, q, x, a, b, cdt)
+    if emit_traces:
+        return out, edge_traces(out, con)
+    return out
+
+
+def euler3d_advection(q, halo, con: E3Constants, x=None, a: float = 0.0, b: float = 1.0,
+                      cdt: Optional[float] = None, emit_traces: bool = False):
+    """The tracer-advection operator of DCMIP 11/12 on ``q`` (5 + nt rows:
+    rho, the momenta of the prescribed winds, rho*theta and the tracers
+    rho*q_k; (5 + nt, 6, nk, ny, nx, s^3)) with neighbour halos ``halo``
+    (5 + nt, 4, 6, nk, nh, s^2).
+
+    RHS mode (``cdt is None``): returns RHS(q), rows 0-4 exactly 0. Stage
+    mode: returns ``a*x + b*q + cdt*RHS(q)`` over every row (``x`` is read
+    only when ``a != 0``); with ``emit_traces`` (stage mode only) also the
+    output's panel-edge traces of every row.
+
+    A CPU tensor runs ``euler3d_advection_plain`` (any number of tracers);
+    a CUDA tensor makes one launch of the advection kernel, its interface
+    pass and volume pass (csrc/euler3d_advection.cu, built at first use),
+    on the current stream, without synchronising, counted in
+    ``advection_launches``, or raises. The kernel takes 1 or 4 tracers
+    (DCMIP 12, 11) and the flat metric (one panel's)."""
+    global advection_launches
+    _check_npanel(con, 6, "euler3d_advection")
+    if con.panel_metric:
+        raise ValueError("euler3d_advection takes one panel's metric (DCMIP 11 and 12 have no topography)")
+    if q.shape[0] < 6:
+        raise ValueError(f"euler3d_advection needs at least one tracer row, not {q.shape[0]} rows")
+    if emit_traces and cdt is None:
+        raise ValueError("euler3d_advection emits traces in stage mode only")
+    state, traces = _advection_shapes(q, con)
+    tensors = {"q": (q, state), "halo": (halo, traces)}
+    if cdt is not None and a != 0.0:
+        if x is None:
+            raise ValueError("stage with a != 0 needs x")
+        tensors["x"] = (x, state)
+    _check_tensors(con, tensors)
+    if q.device.type == "cpu":
+        return euler3d_advection_plain(q, halo, con, x=x, a=a, b=b, cdt=cdt, emit_traces=emit_traces)
+    out = _launch_advection(q, halo, con, x, a, b, cdt, emit_traces)
+    advection_launches += 1
+    return out
+
+
+def _launch_advection(q, halo, con: E3Constants, x, a: float, b: float, cdt: Optional[float], emit_traces: bool):
+    """One launch of the advection kernel (C entry ``euler3d_advection_launch``)
+    on the current stream."""
+    nt = q.shape[0] - 5
+    if nt not in ADVECTION_TRACERS:
+        raise ValueError(f"the advection kernel takes {' or '.join(map(str, ADVECTION_TRACERS))} tracers "
+                         f"(DCMIP 12, 11), not {nt}")
+    if q.device.type != "cuda":
+        raise ValueError(f"euler3d_advection runs on cpu or cuda tensors, not {q.device}")
+    _check_kernel_shape(con, "euler3d_advection")
+
+    from ..kernels.build import load_library
+
+    lib = load_library("euler3d_advection")
+    use_x = cdt is not None and a != 0.0
+    out = torch.empty_like(q)
+    traces = torch.empty(_advection_shapes(q, con)[1], dtype=q.dtype, device=q.device) if emit_traces else None
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.euler3d_advection_launch(
+            1 if q.dtype == torch.float64 else 0, con.s, nt, con.nel_h, con.nel_v,
+            _ptr(q), _ptr(halo), _ptr(con.ops1d), _ptr(con.fields), _ptr(con.itf_x), _ptr(con.itf_y),
+            _ptr(con.itf_z), _ptr(x if use_x else None), _ptr(out), _ptr(traces), float(a), float(b),
+            float(cdt if cdt is not None else 0.0), 1 if cdt is not None else 0, ctypes.c_void_p(stream),
+        )
+    if rc != 0:
+        name = lib.euler3d_advection_error_string(rc).decode()
+        raise RuntimeError(f"euler3d_advection_launch kernel launch failed: CUDA error {rc} ({name})")
+    return (out, traces) if emit_traces else out
 
 
 # ---------------------------------------------------------------------------

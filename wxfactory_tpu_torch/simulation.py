@@ -2,9 +2,9 @@
 
 Counterpart of ``wxfactory_tpu/simulation.py`` for the cubed sphere:
 shallow water (every case of the JAX package: 0, 1, 2, 5, 6, 8, 9 and 10,
-cases 5 and 10 with their bottom topography) and 3D Euler (DCMIP cases 20,
-21, 22, 31 and 77; 20-22 over terrain, 21 and 22 under their Rayleigh
-sponge) with every integrator of the JAX package's ``Simulation``
+cases 5 and 10 with their bottom topography) and 3D Euler (every DCMIP case
+of it: 11, 12, 20, 21, 22, 31 and 77; 20-22 over terrain, 21 and 22 under
+their Rayleigh sponge) with every integrator of the JAX package's ``Simulation``
 (``_create_integrator``, its simulation.py:414-472): the explicit ones
 (euler1, tvdrk3), the exponential ones (epi2..6, epi_stiff3..6 and
 srerk3..6, with pmex, kiops, the low-synchronization solvers, exode or the
@@ -17,13 +17,24 @@ need a partitioned RHS and raise the JAX package's ``ValueError``. With
 device solvers' Krylov loop. The step loop has the end-time clamp, the
 post-step exponential modal filter (``expfilter_apply``; ``ops/filters.py``),
 the NaN/Inf guard, ``device_step_chunk`` (equal steps run back to back with
-the guard and outputs at the chunk's end; never with a filter), the outputs
+the guard and outputs at the chunk's end; never with a filter or a
+post-step hook), the outputs
 (NetCDF fields, checkpoints, blockstats for shallow water only as in the JAX
 package, the solver-stats database with sampled RHS stage times, the
 runtime file; ``output/manager.py``). The device comes from the caller;
 nothing moves to another device. The Cartesian grid (ROADMAP queue 1, item
-15), DCMIP 11 and 12 (item 9) and the distributions the port has not ported
-(item 14) raise ``NotImplementedError`` naming their item.
+15) and the distributions the port has not ported (item 14) raise
+``NotImplementedError`` naming their item.
+
+DCMIP 11 and 12 (tracer transport under prescribed winds) run as the JAX
+package runs them (its simulation.py:100-127): the advection-only RHS
+(``Euler3DAdvectionRHS``, its own kernel on the card) and a post-step hook
+that overwrites the momenta with rho * the winds at t + dt
+(``testcases.PrescribedWinds``, evaluated on the state's device), after the
+filter and before the NaN guard. The explicit integrators (euler1, tvdrk3)
+step them; the others and a preconditioner need the advection operator's
+Jacobian action and raise naming ROADMAP item 18, a run over several ranks
+naming item 14.
 
 ``[System] distribute`` follows the JAX package's rules
 (``wxfactory_tpu/simulation.py:274-380``) over the processes of a run
@@ -50,16 +61,19 @@ from .config import Configuration, load_configuration
 from .geometry import make_cubed_sphere_2d, make_cubed_sphere_3d, make_metric_2d, make_metric_3d
 from .integrators import (BackwardEuler, Bdf2, CrankNicolson, Epi, EpiStiff, Euler1, Ros2, RosExp2, SdirkLstable,
                           Srerk, Tvdrk3)
-from .models import Euler3DRHS, make_rhs_shallow_water
+from .models import Euler3DAdvectionRHS, Euler3DRHS, make_rhs_shallow_water
+from .models.euler_cubesphere import ITEM_18
 from .ops.dfr import make_dfr_operators
 from .ops.filters import make_apply_filters
 from .output import OutputManager
 from .parallel import CubedSphereTopology, ShardMapTvdrk3, TileMesh
 from .parallel.mesh import tile_n_for_world
-from .testcases import dcmip_planet_params, initial_state, initial_state_3d
+from .testcases import PrescribedWinds, dcmip_planet_params, initial_state, initial_state_3d
 
 # The 3D cases with the Rayleigh sponge (extra_forcing in the JAX package).
 SPONGE_CASES = (21, 22)
+# The 3D cases of tracer transport under prescribed winds (advection_only there).
+ADVECTION_CASES = (11, 12)
 
 _ITEM_14 = ("ROADMAP queue 1, item 14: the port runs multi-rank only as the tile-parallel TVD-RK3 step; the GSPMD "
             "analogue (EPI/Ros2 across ranks) is not ported")
@@ -90,6 +104,10 @@ def plan_distribution(config, world: int):
         )
     if world == 1:
         return None
+    if c.equations == "euler" and c.case_number in ADVECTION_CASES:
+        raise NotImplementedError(
+            f"DCMIP {c.case_number} over {world} ranks (its advection-only RHS and prescribed winds; the JAX "
+            f"package's tile step takes neither): {_ITEM_14}")
     if knob == "off" or not tile_ok:
         raise NotImplementedError(
             f"distribute={knob!r} with {world} ranks and {c.time_integrator} would run every rank redundantly: "
@@ -116,6 +134,9 @@ class Simulation:
         self.dtype = torch.float32 if c.precision == "float32" else torch.float64
         self.topo = None
         self.damping = None
+        # (q, t) -> q after every step (DCMIP 11/12's wind overwrite), or None.
+        self.post_step_hook = None
+        self.advection = c.equations == "euler" and c.case_number in ADVECTION_CASES
         if c.equations == "euler":
             self.ops = make_dfr_operators(c.num_solpts, three_d=True)
             scale, rotating = dcmip_planet_params(c.case_number)
@@ -129,12 +150,19 @@ class Simulation:
             # topography; the metric is built once, on the final geometry.
             q0, self.geom, self.metric, self.damping = initial_state_3d(
                 self.geom, c.case_number, lambda g: make_metric_3d(g, self.ops, self.topology))
-            self.rhs = None if self.mesh is not None else Euler3DRHS(
-                self.geom, self.ops, self.metric, dtype=self.dtype, device=self.device, topology=self.topology,
-                # float32 cannot resolve the hydrostatic balance: the
-                # well-balanced offset around the initial state absorbs it.
-                base_state=(q0 if self.dtype == torch.float32 else None), damping=self.damping,
-            )
+            if self.advection:
+                # The JAX factory ignores base_state on this path: a float32
+                # run is the absolute operator in float32.
+                self.rhs = Euler3DAdvectionRHS(self.geom, self.ops, self.metric, dtype=self.dtype,
+                                               device=self.device, topology=self.topology)
+                self.post_step_hook = PrescribedWinds(self.geom, c.case_number, device=self.device).overwrite
+            else:
+                self.rhs = None if self.mesh is not None else Euler3DRHS(
+                    self.geom, self.ops, self.metric, dtype=self.dtype, device=self.device, topology=self.topology,
+                    # float32 cannot resolve the hydrostatic balance: the
+                    # well-balanced offset around the initial state absorbs it.
+                    base_state=(q0 if self.dtype == torch.float32 else None), damping=self.damping,
+                )
         else:
             self.ops = make_dfr_operators(c.num_solpts)
             self.geom = make_cubed_sphere_2d(c.num_elements_horizontal, c.num_solpts, c.lambda0, c.phi0, c.alpha0)
@@ -242,6 +270,10 @@ class Simulation:
         name = c.time_integrator.lower()
         if self.mesh is not None:
             return ShardMapTvdrk3(self._tile_step_maker(), verbose=c.verbose_solver)
+        if self.advection and (name not in ("euler1", "tvdrk3") or c.preconditioner != "none"):
+            raise NotImplementedError(
+                f"{c.time_integrator} (preconditioner {c.preconditioner!r}) on DCMIP {c.case_number}: {ITEM_18}; "
+                "the explicit euler1 and tvdrk3 without a preconditioner run these cases")
         pre = dict(verbose=c.verbose_solver, preconditioner=self._create_preconditioner())
         if name == "euler1":
             return Euler1(self.rhs, **pre)
@@ -317,14 +349,17 @@ class Simulation:
             raise RuntimeError(f"NaN/Inf detected in state after step {step_id}")
 
     def step(self, q, step_id: int, t: float):
-        """One step: dt clamp near t_end, integrator, NaN guard, outputs,
-        solver statistics and RHS timing samples. Returns (q_new, new_time)."""
+        """One step: dt clamp near t_end, integrator, filter, post-step
+        hook (at t + dt), NaN guard, outputs, solver statistics and RHS
+        timing samples. Returns (q_new, new_time)."""
         c = self.config
         dt = min(c.dt, c.t_end - t) if c.t_end > t else c.dt
         t0 = time.time()
         q = self.integrator.step(q, dt)
         if self.apply_filters is not None:
             q = self.apply_filters(q, dt)
+        if self.post_step_hook is not None:
+            q = self.post_step_hook(q, t + dt)
         self._check_finite(q, step_id)
         # The NaN guard waits for the card: the solve time is the step's own.
         solve_time = time.time() - t0
@@ -354,11 +389,13 @@ class Simulation:
         """How many equal-dt steps may run as one chunk from ``step_id``:
         bounded by ``device_step_chunk``, the next step that owes a field
         write, a checkpoint, blockstats or an RHS timing sample, and the
-        last full-dt step before the t_end clamp; 1 when chunking is off
-        (the JAX package's simulation.py:512-534)."""
+        last full-dt step before the t_end clamp; 1 when chunking is off,
+        with a filter or with a post-step hook (the JAX package's
+        simulation.py:512-534)."""
         c = self.config
         chunk = getattr(c, "device_step_chunk", 1)
-        if chunk <= 1 or self.apply_filters is not None or not hasattr(self.integrator, "steps_device"):
+        if (chunk <= 1 or self.apply_filters is not None or self.post_step_hook is not None
+                or not hasattr(self.integrator, "steps_device")):
             return 1
         full_dt_steps = int(math.floor((c.t_end - t) / c.dt + 1e-10))
         n = min(chunk, max(full_dt_steps, 1))

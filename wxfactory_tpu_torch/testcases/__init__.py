@@ -1,17 +1,21 @@
 """Initial states of the cases the port runs: every shallow-water case of
 the JAX package (Williamson 0, 1, 2, 5, 6, Galewsky 8, Matsuno 9, unsteady
 zonal 10; ``initial_state`` returns the state and, for 5 and 10, the bottom
-topography) and DCMIP 20, 21, 22, 31 and 77 (3D Euler,
-``initial_state_3d``; 20-22 with their terrain, 21 and 22 with their
-Rayleigh sponge). DCMIP 11 and 12 raise ``NotImplementedError`` naming
-their ROADMAP item."""
+topography) and every DCMIP case of it, 11, 12, 20, 21, 22, 31 and 77 (3D
+Euler, ``initial_state_3d``; 11 and 12 with their tracer rows and
+prescribed winds, ``PrescribedWinds`` evaluating the winds on the state's
+device; 20-22 with their terrain, 21 and 22 with their Rayleigh sponge)."""
 
 from .dcmip import (
     acoustic_wave,
+    dcmip_advection_deformation,
+    dcmip_advection_hadley,
     dcmip_gravity_wave,
     dcmip_planet_params,
     dcmip_schar_waves,
     dcmip_steady_state_mountain,
+    dcmip_T11_update_winds,
+    dcmip_T12_update_winds,
     initial_state_3d,
     make_schar_damping,
 )
@@ -31,14 +35,20 @@ from .shallow_water import (
     williamson_case5,
     williamson_case6,
 )
+from .winds import PrescribedWinds
 
 __all__ = [
+    "PrescribedWinds",
     "Topography",
     "acoustic_wave",
     "case_galewsky",
     "case_matsuno",
     "case_unsteady_zonal",
     "circular_vortex",
+    "dcmip_T11_update_winds",
+    "dcmip_T12_update_winds",
+    "dcmip_advection_deformation",
+    "dcmip_advection_hadley",
     "dcmip_gravity_wave",
     "dcmip_planet_params",
     "dcmip_schar_waves",

@@ -2,11 +2,16 @@
 numpy, float64).
 
 Counterpart of ``wxfactory_tpu/testcases/dcmip.py`` (reference
-init/dcmip.py) for the cases the port runs, same code: 20 (steady state at
-rest over a mountain range), 21 and 22 (Schar mountain waves without and
-with shear, under a Rayleigh sponge), 31 (non-hydrostatic gravity wave on a
-reduced planet) and 77 (acoustic wave). Each builds the global state
-``Q[5, 6, nk, ny, nx, s^3]`` (rho, rho*u1, rho*u2, rho*w, rho*theta). The
+init/dcmip.py), same code: 11 and 12 (tracer transport under prescribed
+time-dependent winds: the deformational flow of 4 tracers and the
+Hadley-like circulation of 1, with the wind functions the step loop
+overwrites the momenta from; ``testcases/winds.py`` evaluates them on the
+card), 20 (steady state at rest over a mountain range), 21 and 22 (Schar
+mountain waves without and with shear, under a Rayleigh sponge), 31
+(non-hydrostatic gravity wave on a reduced planet) and 77 (acoustic wave).
+Each builds the global state ``Q[5, 6, nk, ny, nx, s^3]`` (rho, rho*u1,
+rho*u2, rho*w, rho*theta), 11 and 12 with their tracer rows rho*q_k after
+those (9 and 6 rows). The
 reduced-planet configuration is the geometry's
 (``make_cubed_sphere_3d(planet_scaling_factor=..., planet_is_rotating=...)``,
 ``dcmip_planet_params``); the terrain cases return the geometry with their
@@ -39,6 +44,142 @@ def dcmip_planet_params(case_number: int) -> Tuple[float, bool]:
 
 def _assemble(rho, u1, u2, w, theta):
     return np.stack([rho, rho * u1, rho * u2, rho * w, rho * theta])
+
+
+def dcmip_T11_update_winds(geom, time: float = 0.0):
+    """Time-dependent deformational-flow winds of DCMIP case 11
+    (reference init/dcmip.py:31-98). Returns (u1, u2, w)."""
+    tau = 12.0 * 86400.0
+    u0 = 2.0 * math.pi * geom.earth_radius / tau
+    k0 = 10.0 * geom.earth_radius / tau
+    omega0 = 23000.0 * math.pi / tau
+    T0 = 300.0
+    H = RD * T0 / GRAVITY
+
+    p = P0 * np.exp(-geom.height / H)
+    ptop = P0 * math.exp(-12000.0 / H)
+    lonp = geom.lon - 2.0 * math.pi * time / tau
+    bs = 0.2
+    s = (
+        1.0
+        + math.exp((ptop - P0) / (bs * ptop))
+        - np.exp((p - P0) / (bs * ptop))
+        - np.exp((ptop - p) / (bs * ptop))
+    )
+
+    ud = (
+        (omega0 * geom.earth_radius)
+        / (bs * ptop)
+        * np.cos(lonp)
+        * np.cos(geom.lat) ** 2
+        * math.cos(2.0 * math.pi * time / tau)
+        * (-np.exp((p - P0) / (bs * ptop)) + np.exp((ptop - p) / (bs * ptop)))
+    )
+    u = (
+        k0 * np.sin(lonp) ** 2 * np.sin(2.0 * geom.lat) * math.cos(math.pi * time / tau)
+        + u0 * np.cos(geom.lat)
+        + ud
+    )
+    v = k0 * np.sin(2.0 * lonp) * np.cos(geom.lat) * math.cos(math.pi * time / tau)
+    w = (
+        -(RD * T0 / (GRAVITY * p))
+        * omega0
+        * np.sin(lonp)
+        * np.cos(geom.lat)
+        * math.cos(2.0 * math.pi * time / tau)
+        * s
+    )
+    u1, u2 = geom.wind2contra_2d(u, v)
+    return u1, u2, w
+
+
+def dcmip_T12_update_winds(geom, time: float = 0.0):
+    """Time-dependent Hadley-cell winds of DCMIP case 12
+    (reference init/dcmip.py:107-167)."""
+    tau = 86400.0
+    u0 = 40.0
+    w0 = 0.15
+    T0 = 300.0
+    H = RD * T0 / GRAVITY
+    K = 5.0
+
+    p = P0 * np.exp(-geom.height / H)
+    rho = p / (RD * T0)
+    rho0 = P0 / (RD * T0)
+
+    u = u0 * np.cos(geom.lat)
+    v = (
+        -(rho0 / rho)
+        * (geom.earth_radius * w0 * math.pi)
+        / (K * geom.ztop)
+        * np.cos(geom.lat)
+        * np.sin(K * geom.lat)
+        * np.cos(math.pi * geom.height / geom.ztop)
+        * math.cos(math.pi * time / tau)
+    )
+    w = (
+        (rho0 / rho)
+        * (w0 / K)
+        * (-2.0 * np.sin(K * geom.lat) * np.sin(geom.lat) + K * np.cos(geom.lat) * np.cos(K * geom.lat))
+        * np.sin(math.pi * geom.height / geom.ztop)
+        * math.cos(math.pi * time / tau)
+    )
+    u1, u2 = geom.wind2contra_2d(u, v)
+    return u1, u2, w
+
+
+def dcmip_advection_deformation(geom) -> np.ndarray:
+    """DCMIP case 11: 3D deformational advection of 4 tracers
+    (reference init/dcmip.py:169-274). Q has 9 variables."""
+    T0 = 300.0
+    H = RD * T0 / GRAVITY
+    RR = 0.5
+    ZZ = 1000.0
+    z0 = 5000.0
+    lambda0 = 5.0 * math.pi / 6.0
+    lambda1 = 7.0 * math.pi / 6.0
+
+    p = P0 * np.exp(-geom.height / H)
+    u1, u2, w = dcmip_T11_update_winds(geom, 0.0)
+    rho = p / (RD * T0)
+    theta = T0 * (P0 / p) ** (RD / CPD)
+
+    lat, lon, z = geom.lat, geom.lon, geom.height
+    r1 = np.arccos(np.clip(np.cos(lat) * np.cos(lon - lambda0), -1, 1))
+    r2 = np.arccos(np.clip(np.cos(lat) * np.cos(lon - lambda1), -1, 1))
+    d1 = np.minimum(1.0, (r1 / RR) ** 2 + ((z - z0) / ZZ) ** 2)
+    d2 = np.minimum(1.0, (r2 / RR) ** 2 + ((z - z0) / ZZ) ** 2)
+
+    q1 = 0.5 * (1.0 + np.cos(math.pi * d1)) + 0.5 * (1.0 + np.cos(math.pi * d2))
+    q2 = 0.9 - 0.8 * q1**2
+    q3 = np.where((d1 <= RR) | (d2 <= RR), 1.0, 0.1)
+    q3 = np.where((z > z0) & (np.abs(lat) < 0.125), 0.1, q3)
+    q4 = 1.0 - 0.3 * (q1 + q2 + q3)
+
+    base = _assemble(rho, u1, u2, w, theta)
+    tracers = np.stack([rho * q1, rho * q2, rho * q3, rho * q4])
+    return np.concatenate([base, tracers])
+
+
+def dcmip_advection_hadley(geom) -> np.ndarray:
+    """DCMIP case 12: Hadley-like tracer transport
+    (reference init/dcmip.py:275-337). Q has 6 variables."""
+    T0 = 300.0
+    H = RD * T0 / GRAVITY
+    z1, z2 = 2000.0, 5000.0
+    z0 = 0.5 * (z1 + z2)
+
+    p = P0 * np.exp(-geom.height / H)
+    u1, u2, w = dcmip_T12_update_winds(geom, 0.0)
+    rho = p / (RD * T0)
+    theta = T0 * (P0 / p) ** (RD / CPD)
+
+    z = geom.height
+    q1 = np.where(
+        (z > z1) & (z < z2), 0.5 * (1.0 + np.cos(2.0 * math.pi * (z - z0) / (z2 - z1))), 0.0
+    )
+    base = _assemble(rho, u1, u2, w, theta)
+    return np.concatenate([base, (rho * q1)[None]])
 
 
 def dcmip_gravity_wave(geom) -> np.ndarray:
@@ -224,16 +365,18 @@ def acoustic_wave(geom) -> np.ndarray:
 
 
 def initial_state_3d(geom, case_number: int, metric_builder: Optional[Callable] = None):
-    """Initial 3D Euler state of a DCMIP case the port runs (20, 21, 22, 31,
-    77): ``(Q, geom, metric, damping)``. ``geom`` is the geometry the case
-    runs on (20, 21 and 22 apply their topography to the one given),
-    ``metric`` ``metric_builder(geom)`` on it (None without a builder; 21
-    and 22 need one, for their 3D wind conversion), ``damping`` the
-    Rayleigh sponge of 21 and 22 (``RayleighDamping``, else None).
-
-    Cases 11 and 12 (advection-only transport with prescribed winds and
-    tracers) raise, naming their ROADMAP item."""
-    if case_number == 20:
+    """Initial 3D Euler state of a DCMIP case (11, 12, 20, 21, 22, 31, 77):
+    ``(Q, geom, metric, damping)``. ``geom`` is the geometry the case runs
+    on (20, 21 and 22 apply their topography to the one given), ``metric``
+    ``metric_builder(geom)`` on it (None without a builder; 21 and 22 need
+    one, for their 3D wind conversion), ``damping`` the Rayleigh sponge of
+    21 and 22 (``RayleighDamping``, else None). Q of 11 and 12 carries
+    their 4 and 1 tracer rows after the 5 dynamical ones."""
+    if case_number == 11:
+        q = dcmip_advection_deformation(geom)
+    elif case_number == 12:
+        q = dcmip_advection_hadley(geom)
+    elif case_number == 20:
         q, geom = dcmip_steady_state_mountain(geom)
     elif case_number in (21, 22):
         if metric_builder is None:
@@ -246,12 +389,7 @@ def initial_state_3d(geom, case_number: int, metric_builder: Optional[Callable] 
     elif case_number == 77:
         q = acoustic_wave(geom)
     else:
-        reasons = {
-            11: "advection-only transport with prescribed winds and tracers (ROADMAP queue 1, item 9)",
-            12: "advection-only transport with prescribed winds and tracers (ROADMAP queue 1, item 9)",
-        }
         raise NotImplementedError(
-            f"3D Euler case {case_number} is not ported yet: "
-            + reasons.get(case_number, "unknown case (the port runs DCMIP 20, 21, 22, 31 and 77)")
-        )
+            f"3D Euler case {case_number} is not ported yet: unknown case (the port runs DCMIP 11, 12, 20, 21, 22, "
+            "31 and 77)")
     return q, geom, (None if metric_builder is None else metric_builder(geom)), None
