@@ -3,7 +3,8 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It builds the
 CUDA kernels from csrc/ (one nvcc per source, sm_90a, all started together)
-and drives the port's two main paths, shallow water and 3D Euler:
+and drives the port's main paths, shallow water, 3D Euler and the 2D
+Cartesian Euler model:
 
 0. environment: card name and power limit, torch/CUDA/nvcc/sympy versions,
    kernel build time and the compiler's register/spill report;
@@ -376,7 +377,37 @@ and drives the port's two main paths, shallow water and 3D Euler:
     1e-12 of scale; the card's time a call at 30x30x20 of the kernel (RHS;
     stage + x + traces) and its plain version, f64 and f32, beside the
     bound, with the kernel's registers, spills, shared memory and blocks an
-    SM.
+    SM;
+38. the 2D Cartesian Euler model (csrc/euler_cartesian.cu: the DFR operator,
+    its tangent over a dual number, the FV operator, its tangent): (1) each
+    kernel against its plain version at (nel_x, nel_z, s) = (4,3,2),
+    (3,2,3), (4,3,4), (2,2,5), (2,1,6), (10,15,4) (cases 2 and 4) and FV
+    grids (9,7), (40,60), (20,30) with every flux, f64 and f32: RHS (the DFR
+    kernel also stage and stage + x), the tangent at a perturbed state and
+    at rest (every AUSM interface and FV speed at its tie), f64 within 1e-13
+    of each row's term scale (tangents 1e-12 of their max), f32 within 1e-5
+    or twice the plain f32 distance from the f64 truth, every RHS's rho and
+    rho*theta mass zero to 1e-14; the same at the main width on path (a)'s
+    own state; each kernel on the card against its plain version on the CPU
+    at 4 x 3, s = 4; (2) through Simulation(ini).run(), every step inside
+    forbid_uncounted_syncs: (a) the cold density current (case 4, Straka et
+    al. 1993's symmetric half, 25.6 x 6.4 km) at 256 x 64, s = 4 (262,144
+    points), TVD-RK3, f64, dt = 0.02 s, 20 steps: three DFR launches a step
+    and no other; (b) the same with EPI2 + KIOPS, dt = 1 s, 3 steps: one
+    tangent launch a Jacobian action; (c) the Gaussian bubble (case 2) at 10
+    x 15, s = 4, Ros2 + FGMRES, dt = 1 s, 2 steps, without a preconditioner,
+    with p-mg (3 levels) and with fv-mg (3 levels: the FV tangent on its
+    coarse levels), every level A.v one tangent launch; each with no plain
+    call and no launch of the FV RHS kernel (no path calls the FV RHS), a
+    finite state, the rho and rho*theta integrals conserved (1e-12; the
+    Krylov paths 1e-9), steps/s, host syncs a step and the Krylov counts;
+    (d) case 2 at 5 x 7, s = 4 on the card and on the CPU: TVD-RK3 10 steps
+    within 1e-12 of scale, EPI2 2 steps within 1e-10 with the same Krylov
+    counts; the card's time a call of each kernel at the main paths' widths
+    (the FV kernels at fv-mg's first FV level, 40 x 60 cells) beside its
+    plain version and bound, f64 and f32, and the kernels' resources. The FV
+    RHS kernel, which no path launches, is held and timed but left out of
+    the kernels line.
 
 Each phase prints one JSON line; then the kernels line, the card's
 ``nvidia-smi`` name and power limit, and last the result line. Any failure
@@ -399,7 +430,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SHAPES = [(10, 3), (64, 3), (4, 2), (4, 8), (64, 7)]
 SW_PERT_SHAPES = SHAPES + [(8, 4), (32, 4), (64, 4)]
-KERNEL_SOURCES = ["sw_operator", "euler3d_operator", "sw_run", "euler3d_terrain", "euler3d_advection"]
+KERNEL_SOURCES = ["sw_operator", "euler3d_operator", "sw_run", "euler3d_terrain", "euler3d_advection",
+                  "euler_cartesian"]
 # (nel_h, nel_v, s, case); at (7, 3, 3) a panel's 147 elements leave the
 # operator's volume pass (9 elements a block at s=3) a partial last block.
 E3_SHAPES = [(3, 2, 2, 31), (12, 3, 2, 31), (4, 2, 3, 31), (20, 20, 3, 31), (4, 4, 4, 31), (3, 2, 5, 31),
@@ -512,7 +544,14 @@ def ptxas_summary(log: str):
         f32_pert = m and re.search(r"sw_operator_f32_pert(_topo)?_kernelILi(\d+)E", m.group(1))
         adv = m and re.search(r"(euler3d_advection_interface|euler3d_advection_volume)_kernelI([df])Li(\d+)ELi(\d+)E",
                               m.group(1))
-        if adv:
+        cart = m and re.search(r"(euler_cartesian_operator|euler_cartesian_tangent|euler_cartesian_fv_tangent|"
+                               r"euler_cartesian_fv)_kernelI([df])Li(\d+)E", m.group(1))
+        if cart:
+            fv = "fv" in cart.group(1)
+            what = f"flux={('ausm', 'rusanov', 'upwind')[int(cart.group(3))]}" if fv else f"s={cart.group(3)}"
+            current = {"kernel": f"{cart.group(1)} {'f64' if cart.group(2) == 'd' else 'f32'} {what}"}
+            rows.append(current)
+        elif adv:
             current = {"kernel": f"{adv.group(1)} {'f64' if adv.group(2) == 'd' else 'f32'} s={adv.group(3)} "
                                  f"nt={adv.group(4)}"}
             rows.append(current)
@@ -609,6 +648,7 @@ def reset_counts():
     syncs to 0."""
     from wxfactory_tpu_torch.common import device
     from wxfactory_tpu_torch.ops import euler3d_operator as e3op
+    from wxfactory_tpu_torch.ops import euler_cartesian_operator as ecop
     from wxfactory_tpu_torch.ops import sw_operator as swop
     from wxfactory_tpu_torch.solvers import matvec
 
@@ -623,12 +663,15 @@ def reset_counts():
     e3op.terrain_launches = e3op.terrain_pert_launches = 0
     e3op.terrain_tangent_prep_launches = e3op.terrain_tangent_apply_launches = 0
     e3op.advection_launches = 0
+    ecop.launches = ecop.tangent_launches = ecop.fv_launches = ecop.fv_tangent_launches = 0
+    ecop.plain_calls = ecop.plain_tangent_calls = 0
     matvec.jacobian_actions = matvec.linearisations = device.host_syncs = 0
 
 
 def read_counts():
     from wxfactory_tpu_torch.common import device
     from wxfactory_tpu_torch.ops import euler3d_operator as e3op
+    from wxfactory_tpu_torch.ops import euler_cartesian_operator as ecop
     from wxfactory_tpu_torch.ops import sw_operator as swop
     from wxfactory_tpu_torch.solvers import matvec
 
@@ -652,6 +695,10 @@ def read_counts():
             "euler3d_terrain_tangent_prep": e3op.terrain_tangent_prep_launches,
             "euler3d_terrain_tangent_apply": e3op.terrain_tangent_apply_launches,
             "euler3d_advection": e3op.advection_launches,
+            "euler_cartesian": ecop.launches, "euler_cartesian_tangent": ecop.tangent_launches,
+            "euler_cartesian_fv": ecop.fv_launches, "euler_cartesian_fv_tangent": ecop.fv_tangent_launches,
+            "euler_cartesian_plain_calls": ecop.plain_calls,
+            "euler_cartesian_plain_tangent_calls": ecop.plain_tangent_calls,
             "jacobian_actions": matvec.jacobian_actions, "linearisations": matvec.linearisations,
             "host_syncs": device.host_syncs}
 
@@ -4093,6 +4140,327 @@ def phase37(torch, smi):
     return {"launches": launches, "max_abs_err": main_err, "timing": timing[0]}
 
 
+# Phase 38: the 2D Cartesian Euler model (DFR and FV kernels and their
+# tangents). (nel_x, nel_z, s, case) of the kernel checks against the plain
+# versions; the main width is checked on the Simulation's own state.
+CARTESIAN_SHAPES = [(4, 3, 2, 2), (3, 2, 3, 4), (4, 3, 4, 2), (2, 2, 5, 4), (2, 1, 6, 2), (10, 15, 4, 2)]
+# (ncell_x, ncell_z) of the FV checks: a small grid and the fv-mg levels of path (c).
+CARTESIAN_FV_GRIDS = [(9, 7), (40, 60), (20, 30)]
+# The cold density current (Straka et al. 1993) on the symmetric half [0,
+# 25.6 km] x [0, 6.4 km] at 100 m elements, s = 4: 262,144 points.
+CARTESIAN_MAIN = (256, 64, 4)
+# (tag, case, nel_x, nel_z, s, integrator, dt, steps, preconditioner, mg levels)
+CARTESIAN_RUNS = [("a_case4_tvdrk3", 4) + CARTESIAN_MAIN + ("tvdrk3", 0.02, 20, "none", 3),
+                  ("b_case4_epi2", 4) + CARTESIAN_MAIN + ("epi2", 1.0, 3, "none", 3),
+                  ("c_case2_ros2", 2, 10, 15, 4, "ros2", 1.0, 2, "none", 3),
+                  ("c_case2_ros2_pmg", 2, 10, 15, 4, "ros2", 1.0, 2, "p-mg", 3),
+                  ("c_case2_ros2_fvmg", 2, 10, 15, 4, "ros2", 1.0, 2, "fv-mg", 3)]
+# The card against the CPU (the plain versions): (tag, integrator, dt, steps) on case 2 at 5 x 7, s = 4.
+CARTESIAN_CPU = [("d_case2_tvdrk3", "tvdrk3", 0.02, 10), ("d_case2_epi2", "epi2", 1.0, 2)]
+# (ncell_x, ncell_z) at which the FV kernels are timed: fv-mg's first FV
+# level on path (c) (10 x 15 elements of s = 4).
+CARTESIAN_FV_TIMED = (40, 60)
+CARTESIAN_INI = """
+[General]
+equations = euler
+[System]
+precision = float64
+distribute = off
+[Grid]
+grid_type = cartesian2d
+x0 = 0
+x1 = {x1}
+z0 = 0
+z1 = {z1}
+[Test_case]
+case_number = {case}
+bubble_theta = {theta}
+[Time_integration]
+dt = {dt}
+t_end = {t_end}
+time_integrator = {integrator}
+exponential_solver = kiops
+tolerance = 1e-7
+verbose_solver = 1
+[Preconditioning]
+preconditioner = {pre}
+num_mg_levels = {levels}
+pseudo_cfl = 3.0
+[Spatial_discretization]
+num_solpts = {s}
+num_elements_horizontal = {nel_x}
+num_elements_vertical = {nel_z}
+[Output_options]
+save_state_freq = 0
+output_dir = {out}
+"""
+CARTESIAN_COUNTERS = ("euler_cartesian", "euler_cartesian_tangent", "euler_cartesian_fv",
+                      "euler_cartesian_fv_tangent", "euler_cartesian_plain_calls",
+                      "euler_cartesian_plain_tangent_calls")
+KRYLOV_ITS = re.compile(r"(kiops converged|convergence|stagnation) at iteration (\d+)")
+
+
+def _cartesian_mass(q, ops):
+    """The Gauss-Legendre weighted integrals of rho and rho*theta, float64."""
+    import numpy as np
+
+    w = np.outer(ops.weights, ops.weights).reshape(-1)
+    return [float((w * q[r]).sum()) for r in (0, 3)]
+
+
+def _cartesian_run(torch, tag, case, nel_x, nel_z, s, integrator, dt, nsteps, pre, levels, device="cuda"):
+    """One Cartesian path through ``Simulation(ini).run()`` on ``device``:
+    every integrator step inside ``forbid_uncounted_syncs`` on the card; the
+    gates: only the Cartesian kernels launch (the DFR operator on every RHS
+    and stage, its tangent once a Jacobian action of the integrator, the
+    multigrid levels' A.v on their DFR or FV tangent), no plain call, a
+    finite state, the rho and rho*theta integrals conserved. Returns (row,
+    final state as numpy, sim)."""
+    import numpy as np
+
+    from wxfactory_tpu_torch.common.device import forbid_uncounted_syncs
+    from wxfactory_tpu_torch.kernels.check import CARTESIAN_DOMAINS, CARTESIAN_THETA
+    from wxfactory_tpu_torch.simulation import Simulation
+
+    (_, x1), (_, z1) = CARTESIAN_DOMAINS[case]
+    out_dir = WORK / f"cartesian_{tag}_{device}"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    ini = WORK / f"cartesian_{tag}_{device}.ini"
+    ini.write_text(CARTESIAN_INI.format(x1=x1, z1=z1, case=case, theta=CARTESIAN_THETA[case], dt=dt,
+                                        t_end=dt * nsteps, integrator=integrator, pre=pre, levels=levels, s=s,
+                                        nel_x=nel_x, nel_z=nel_z, out=out_dir))
+    log = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        sim = Simulation(str(ini), device=device)
+        setup = time.perf_counter() - t0
+        plain_step = sim.integrator.step
+
+        def step(q, step_dt):
+            with forbid_uncounted_syncs():
+                return plain_step(q, step_dt)
+
+        sim.integrator.step = step
+        q = sim.run()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    text = log.getvalue()
+    done = re.search(r"Completed (\d+) steps in (\S+) s \((\S+) steps/s\)", text)
+    if done is None or int(done.group(1)) != nsteps:
+        sys.stderr.write(text[-3000:])
+        raise AssertionError(f"phase 38 {tag} on {device} did not complete {nsteps} steps")
+    state, q0 = q.cpu().numpy(), sim.initial_q.cpu().numpy()
+    m, m0 = _cartesian_mass(state, sim.ops), _cartesian_mass(q0, sim.ops)
+    drift = [(a - b) / b for a, b in zip(m, m0)]
+    its = [(k, int(n)) for k, n in KRYLOV_ITS.findall(text)]
+    row = {"tag": tag, "device": device, "case": case, "nel_x": nel_x, "nel_z": nel_z, "s": s,
+           "points": nel_x * nel_z * s * s, "integrator": integrator, "preconditioner": pre, "dt": dt,
+           "steps": nsteps, "setup_s": setup, "run_s": float(done.group(2)), "steps_per_s": float(done.group(3)),
+           "wall_s": wall, "host_syncs": counts["host_syncs"], "host_syncs_per_step": counts["host_syncs"] / nsteps,
+           "krylov": its, "jacobian_actions": counts["jacobian_actions"], "mass_drift": drift,
+           "finite": bool(np.isfinite(state).all()), "max_w": float(np.abs(state[2] / state[0]).max()),
+           "min_theta": float((state[3] / state[0]).min())}
+    # TVD-RK3 conserves the integrals to round-off; the Krylov paths to
+    # their solves' rounding (each J.v conserves them too).
+    drift_tol = 1e-12 if integrator == "tvdrk3" else 1e-9
+    gates = {"finite": row["finite"], "mass": max(abs(d) for d in drift) <= drift_tol}
+    if device == "cuda":
+        mg = sim.integrator.preconditioner
+        applies = sum(lv.applies for lv in mg.levels) if mg is not None else 0
+        fv_applies = sum(lv.applies for lv in mg.levels if lv.num_solpts == 1) if mg is not None else 0
+        launches = {k: counts[k] for k in CARTESIAN_COUNTERS + ("sw_operator", "euler3d_operator",
+                                                               "euler3d_tangent", "euler3d_advection")}
+        row["launches"] = launches
+        row["mg_applies"] = applies
+        tangents = launches["euler_cartesian_tangent"] + launches["euler_cartesian_fv_tangent"]
+        gates["launches"] = (
+            launches["euler_cartesian"] > 0
+            and (launches["euler_cartesian"] == 3 * nsteps if integrator == "tvdrk3" else True)
+            and tangents == counts["jacobian_actions"] + applies
+            and launches["euler_cartesian_fv_tangent"] == fv_applies
+            and (tangents > 0 if integrator != "tvdrk3" else tangents == 0)
+            and all(launches[k] == 0 for k in ("euler_cartesian_fv", "euler_cartesian_plain_calls",
+                                               "euler_cartesian_plain_tangent_calls", "sw_operator",
+                                               "euler3d_operator", "euler3d_tangent", "euler3d_advection")))
+    row["gates"] = gates
+    if not all(gates.values()):
+        raise AssertionError(f"phase 38 {tag} on {device}: gates {gates}, row {row}")
+    return row, state, sim
+
+
+def _cartesian_card_cpu(torch):
+    """At 4 x 3 elements, s = 4 (case 4): each kernel on the card against its
+    plain version on the CPU on the same inputs, f64 within 1e-13 of each
+    row's scale (the tangents 1e-12 of their max)."""
+    from wxfactory_tpu_torch.kernels.check import (euler_cartesian_fv_inputs, euler_cartesian_inputs,
+                                                   euler_cartesian_term_scale, per_variable_max)
+    from wxfactory_tpu_torch.ops import euler_cartesian_operator as ecop
+
+    ops, _, con_c, x, y, v, q0 = euler_cartesian_inputs(4, 3, 4, torch.float64, "cpu", case=4)
+    _, _, con_g, *_ = euler_cartesian_inputs(4, 3, 4, torch.float64, "cuda", case=4)
+    g = lambda t: t.cuda()
+    scale = lambda want: torch.maximum(per_variable_max(want), euler_cartesian_term_scale(y, con_c))
+    err = lambda got, want, sc: float((per_variable_max(got.cpu() - want) / sc).max())
+    out = {}
+    want = ecop.euler_cartesian_plain(y, con_c)
+    out["rhs"] = err(ecop.euler_cartesian(g(y), con_g), want, scale(want))
+    want = ecop.euler_cartesian_plain(y, con_c, x=x, a=0.75, b=0.25, cdt=0.005)
+    out["stage_x"] = err(ecop.euler_cartesian(g(y), con_g, x=g(x), a=0.75, b=0.25, cdt=0.005), want,
+                         torch.maximum(per_variable_max(want), 0.005 * euler_cartesian_term_scale(y, con_c)))
+    for name, q in (("tangent", y), ("tangent_rest", q0)):
+        want = ecop.euler_cartesian_tangent_plain(q, v, con_c)
+        out[name] = err(ecop.euler_cartesian_tangent(g(q), g(v), con_g), want, per_variable_max(want))
+    con64c, _, yf, vf, q0f = euler_cartesian_fv_inputs(16, 12, "ausm", torch.float64, "cpu", case=4)
+    _, con_fg, *_ = euler_cartesian_fv_inputs(16, 12, "ausm", torch.float64, "cuda", case=4)
+    want = ecop.euler_cartesian_fv_plain(yf, con64c)
+    out["fv_rhs"] = err(ecop.euler_cartesian_fv(g(yf), con_fg), want, per_variable_max(want))
+    want = ecop.euler_cartesian_fv_tangent_plain(yf, vf, con64c)
+    out["fv_tangent"] = err(ecop.euler_cartesian_fv_tangent(g(yf), g(vf), con_fg), want, per_variable_max(want))
+    ok = all(e <= (1e-12 if "tangent" in k else 1e-13) for k, e in out.items())
+    return {"nel_x": 4, "nel_z": 3, "s": 4, "fv_cells": [16, 12], "err": out, "ok": ok}
+
+
+def _cartesian_timing(torch, smi, sim, state):
+    """The card's time a call, f64 and f32, of the DFR kernel (RHS, and the
+    stage with x, the TVD-RK3 chain's call) and its tangent at the main
+    path's width on the run's state (f32 on the same cast), and of the FV
+    kernel's RHS and its tangent at CARTESIAN_FV_TIMED cells (fv-mg's first
+    FV level on path (c)), each beside its plain version and its bound,
+    with the kernels' resources; and the DFR kernels held against their
+    plain versions on the main path's inputs (``compare_cartesian``)."""
+    import numpy as np
+
+    from wxfactory_tpu_torch.geometry import make_cartesian_2d
+    from wxfactory_tpu_torch.kernels.check import (cartesian_direction, compare_cartesian, euler_cartesian_fv_work,
+                                                   euler_cartesian_kernel_resources, euler_cartesian_work,
+                                                   perturbed_cartesian)
+    from wxfactory_tpu_torch.ops import euler_cartesian_operator as ecop
+    from wxfactory_tpu_torch.testcases import initialize_cartesian2d
+
+    nel_x, nel_z, s = CARTESIAN_MAIN
+    dt = 0.02
+    rng = np.random.default_rng(0)
+    v64 = torch.as_tensor(cartesian_direction(state, rng), device="cuda")
+    y64, x64 = torch.as_tensor(state, device="cuda"), sim.initial_q
+    ncx, ncz = CARTESIAN_FV_TIMED
+    fgeom = make_cartesian_2d((0.0, 1000.0), (0.0, 1500.0), ncx, ncz, 1)
+    fq = perturbed_cartesian(initialize_cartesian2d(fgeom, 2)[..., 0], rng)
+    fy64 = torch.as_tensor(fq, device="cuda")
+    fv64 = torch.as_tensor(cartesian_direction(fq, rng), device="cuda")
+    rows, checks = [], []
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        con = ecop.build_constants(sim.geom, sim.ops, dtype=dtype, device="cuda")
+        y, x, v = (t.to(dtype).contiguous() for t in (y64, x64, v64))
+        checks += compare_cartesian(con, sim.rhs.con, sim.ops, x, y, v, x)
+        fcon = ecop.build_fv_constants(fgeom, "ausm", dtype=dtype, device="cuda")
+        fy, fv = (t.to(dtype).contiguous() for t in (fy64, fv64))
+        stage = dict(x=x, a=1.0 / 3.0, b=2.0 / 3.0, cdt=(2.0 / 3.0) * dt)
+        row = {"dtype": name, "nel_x": nel_x, "nel_z": nel_z, "s": s, "fv_cells": [ncx, ncz], "gpu": smi,
+               "resources": euler_cartesian_kernel_resources(dtype, s)}
+        for mode, kernel, plain, work in (
+                ("rhs", lambda: ecop.euler_cartesian(y, con), lambda: ecop.euler_cartesian_plain(y, con),
+                 euler_cartesian_work(con)),
+                ("stage_x", lambda: ecop.euler_cartesian(y, con, **stage),
+                 lambda: ecop.euler_cartesian_plain(y, con, **stage),
+                 euler_cartesian_work(con, stage=True, use_x=True)),
+                ("tangent", lambda: ecop.euler_cartesian_tangent(y, v, con),
+                 lambda: ecop.euler_cartesian_tangent_plain(y, v, con), euler_cartesian_work(con, tangent=True)),
+                ("fv_rhs", lambda: ecop.euler_cartesian_fv(fy, fcon), lambda: ecop.euler_cartesian_fv_plain(fy, fcon),
+                 euler_cartesian_fv_work(fcon)),
+                ("fv_tangent", lambda: ecop.euler_cartesian_fv_tangent(fy, fv, fcon),
+                 lambda: ecop.euler_cartesian_fv_tangent_plain(fy, fv, fcon),
+                 euler_cartesian_fv_work(fcon, tangent=True))):
+            t = _pair_ms(torch, kernel, plain)
+            b = _bound(work, name)
+            row.update({f"{mode}_kernel_ms": t["kernel_ms"], f"{mode}_plain_ms": t["plain_ms"],
+                        f"{mode}_kernel_event_ms": t["kernel_event_ms"], f"{mode}_bound_ms": b["bound_ms"],
+                        f"{mode}_bound_by": b["bound_by"], f"{mode}_bytes": b["bytes"], f"{mode}_ops": b["ops"]})
+        rows.append(row)
+    return rows, checks
+
+
+def phase38(torch, smi):
+    """The 2D Cartesian Euler model on the card: (1) the four kernels against
+    their plain versions at CARTESIAN_SHAPES (cases 2 and 4) and
+    CARTESIAN_FV_GRIDS (every flux), f64 and f32, the tangents also at rest
+    (the ties), every RHS holding mass, and on the main path's own state;
+    each kernel on the card against its plain version on the CPU at 4 x 3;
+    (2) the paths through Simulation(ini).run(): (a) case 4 at 256 x 64, s
+    = 4, TVD-RK3, dt = 0.02 s, 20 steps (three DFR launches a step); (b) the
+    same with EPI2 + KIOPS, dt = 1 s, 3 steps (one tangent launch a J.v);
+    (c) case 2 at 10 x 15, s = 4, Ros2 + FGMRES, dt = 1 s, 2 steps, without
+    a preconditioner, with p-mg (3 levels) and with fv-mg (3 levels: the
+    FV tangent on its coarse levels), none launching the FV RHS kernel; (d)
+    case 2 at 5 x 7 on the card and on the CPU within 1e-12 (TVD-RK3) and
+    1e-10 (EPI2, the same Krylov counts); the kernels' times beside their
+    plain versions and bounds."""
+    import numpy as np
+
+    from wxfactory_tpu_torch.kernels.check import compare_euler_cartesian, compare_euler_cartesian_fv
+
+    t0 = time.perf_counter()
+    rows = []
+    for nx, nz, s, case in CARTESIAN_SHAPES:
+        for dtype in (torch.float64, torch.float32):
+            rows += compare_euler_cartesian(nx, nz, s, dtype, device="cuda", case=case)
+    fv_rows = []
+    for ncx, ncz in CARTESIAN_FV_GRIDS:
+        for flux in ("ausm", "rusanov", "upwind"):
+            for dtype in (torch.float64, torch.float32):
+                fv_rows += compare_euler_cartesian_fv(ncx, ncz, flux, dtype, device="cuda")
+    card_cpu = _cartesian_card_cpu(torch)
+    checks_s = time.perf_counter() - t0
+    runs, states, sims = [], {}, {}
+    for run in CARTESIAN_RUNS:
+        row, states[run[0]], sim = _cartesian_run(torch, *run)
+        runs.append(row)
+        if run[0].startswith("a_"):
+            timing, main_checks = _cartesian_timing(torch, smi, sim, states[run[0]])
+            rows += main_checks
+        del sim
+    cpu = []
+    for tag, integrator, dt, nsteps in CARTESIAN_CPU:
+        grow, got, _ = _cartesian_run(torch, tag, 2, 5, 7, 4, integrator, dt, nsteps, "none", 3)
+        crow, want, _ = _cartesian_run(torch, tag, 2, 5, 7, 4, integrator, dt, nsteps, "none", 3, device="cpu")
+        scale = np.abs(want).reshape(4, -1).max(axis=1)
+        scale[1:3] = np.maximum(scale[1:3], np.abs(want[0]).max())  # the momenta in units of rho_max m/s
+        tol = 1e-12 if integrator == "tvdrk3" else 1e-10
+        cpu.append({"tag": tag, "integrator": integrator, "steps": nsteps, "tol": tol,
+                    "err": float((np.abs(got - want) / scale.reshape(4, 1, 1, 1)).max()),
+                    "krylov_card": grow["krylov"], "krylov_cpu": crow["krylov"]})
+    emit_comparison(38, rows, ("nel_x", "nel_z", "s"))
+    emit_comparison(38, fv_rows, ("ncell_x", "ncell_z", "flux"), tag="_fv")
+    bad = [r for r in rows + fv_rows if not r["ok"]]
+    if bad or not card_cpu["ok"]:
+        raise AssertionError(f"phase 38: a Cartesian kernel disagrees with its plain version: {bad[:4]} "
+                             f"card/cpu {card_cpu}")
+    fv_err = lambda mode: max(r["max_abs_err"] for r in fv_rows if (r["ncell_x"], r["ncell_z"]) == CARTESIAN_FV_TIMED
+                              and r["dtype"] == "float64" and r["mode"] in mode)
+    # The FV RHS kernel: held and timed, launched by no path (the multigrid
+    # levels take only J.v), so it stays out of the kernels line.
+    unlaunched = {"euler_cartesian_fv": {
+        "launches": sum(r["launches"]["euler_cartesian_fv"] for r in runs), "max_abs_err": fv_err(("rhs",)),
+        **{k: timing[0][f"fv_rhs_{k}"] for k in ("kernel_ms", "plain_ms", "bound_ms", "bound_by")}}}
+    emit({"phase": 38, "runs": runs, "timing": timing, "cpu": cpu, "card_cpu": card_cpu, "checks_s": checks_s,
+          "unlaunched": unlaunched})
+    if not all(c["err"] <= c["tol"] and c["krylov_card"] == c["krylov_cpu"] for c in cpu):
+        raise AssertionError(f"phase 38: the card and the CPU differ: {cpu}")
+    by_tag = {r["tag"]: r for r in runs}
+    main = lambda mode: max(r["max_abs_err"] for r in rows if (r["nel_x"], r["nel_z"], r["s"]) == CARTESIAN_MAIN[:3]
+                            and r["dtype"] == "float64" and r["mode"] in mode)
+    tangent_launches = sum(by_tag[t]["launches"]["euler_cartesian_tangent"] for t in by_tag if t[0] in "bc")
+    return {"launches": {"euler_cartesian": by_tag["a_case4_tvdrk3"]["launches"]["euler_cartesian"],
+                         "euler_cartesian_tangent": tangent_launches,
+                         "euler_cartesian_fv_tangent": by_tag["c_case2_ros2_fvmg"]["launches"]
+                         ["euler_cartesian_fv_tangent"]},
+            "max_abs_err": {"euler_cartesian": main(("rhs", "stage", "stage_x")),
+                            "euler_cartesian_tangent": main(("tangent", "tangent_rest")),
+                            "euler_cartesian_fv_tangent": fv_err(("tangent", "tangent_rest"))},
+            "timing": timing[0]}
+
+
 def main() -> int:
     try:
         import torch
@@ -4154,6 +4522,7 @@ def main() -> int:
     pert_topo = timed(35, phase35, torch, smi)
     timed(36, phase36, torch)
     advection = timed(37, phase37, torch, smi)
+    cartesian = timed(38, phase38, torch, smi)
     sw_entry = lambda name, mode, replaces, source="wxfactory_tpu_torch/csrc/sw_operator.cu", row=swt["sw_pert"]: {
         "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": sw_counts[name],
         "max_abs_err": sw_errs[name], "ms": row[f"{mode}_kernel_ms"], "plain_ms": row[f"{mode}_plain_ms"],
@@ -4301,6 +4670,26 @@ def main() -> int:
                     "ms": at["stage_x_traces_kernel_ms"], "plain_ms": at["stage_x_traces_plain_ms"],
                     "bound_ms": at["stage_x_traces_bound_ms"], "bound_by": at["stage_x_traces_bound_by"],
                     "library_ms": None, "rhs_ms": at["rhs_kernel_ms"], "rhs_bound_ms": at["rhs_bound_ms"]})
+    # The 2D Cartesian kernels, timed at the main paths' widths in float64:
+    # the DFR stage with x (the TVD-RK3 chain's call; its RHS beside it) and
+    # its tangent at 256 x 64, s = 4; the FV tangent at the fv-mg level of
+    # path (c), 40 x 60 cells. The FV RHS kernel, which no path launches, is
+    # in phase 38's line, not here.
+    ct = cartesian["timing"]
+    for name, mode, replaces in (
+            ("euler_cartesian", "stage_x", "XLA `make_rhs_euler_cartesian`, wxfactory_tpu/models/euler_cartesian.py:"
+                                           "115-186 (no Pallas kernel)"),
+            ("euler_cartesian_tangent", "tangent", "jax.jvp of wxfactory_tpu/models/euler_cartesian.py:115-186 (no "
+                                                   "Pallas kernel)"),
+            ("euler_cartesian_fv_tangent", "fv_tangent", "jax.jvp of wxfactory_tpu/models/euler_cartesian_fv.py:"
+                                                         "64-92 (no Pallas kernel)")):
+        kernels.append({"name": name, "route": "cuda", "source": "wxfactory_tpu_torch/csrc/euler_cartesian.cu",
+                        "replaces": replaces, "launches": cartesian["launches"][name],
+                        "max_abs_err": cartesian["max_abs_err"][name], "ms": ct[f"{mode}_kernel_ms"],
+                        "plain_ms": ct[f"{mode}_plain_ms"], "bound_ms": ct[f"{mode}_bound_ms"],
+                        "bound_by": ct[f"{mode}_bound_by"], "library_ms": None,
+                        **({"rhs_ms": ct["rhs_kernel_ms"], "rhs_bound_ms": ct["rhs_bound_ms"]}
+                           if name == "euler_cartesian" else {})})
     unmeasured = [k["name"] for k in kernels if not (k["ms"] > 0 and k["plain_ms"] > 0 and k["launches"] > 0)]
     if unmeasured:
         raise AssertionError(f"kernels without a time, a plain time or a launch on the main path: {unmeasured}")

@@ -3,7 +3,8 @@ shared-memory use, the SW halo, edge-trace, whole-run and tangent (J.v) kernels,
 pair with bottom topography, the SW perturbation form with bottom topography, the SW tangent pair at s = 1 and the multigrid levels that launch it, 3D Euler
 operator, its tangent
 prep and apply kernels and the perturbation form of both, with its stage mode, their terrain instantiations
-(DCMIP 20, 21, 22: every panel's metric, the Rayleigh sponge), the tracer-advection kernel of DCMIP 11 and 12, and
+(DCMIP 20, 21, 22: every panel's metric, the Rayleigh sponge), the tracer-advection kernel of DCMIP 11 and 12, the
+2D Cartesian Euler kernels (the DFR operator and its tangent, the FV operator and its tangent), and
 the tile kernels of both models with the tile steps' launch counts) against their plain torch versions, on the card. Needs a CUDA device and nvcc, and skips without them. On a GPU
 machine run it without tests/conftest.py (which configures JAX):
 
@@ -21,6 +22,9 @@ from wxfactory_tpu_torch.kernels.check import (
     advection_inputs,
     case6_inputs,
     compare_euler3d_advection,
+    compare_euler_cartesian,
+    compare_euler_cartesian_fv,
+    euler_cartesian_inputs,
     compare_euler3d_tile,
     compare_sw_tile,
     euler3d_setup,
@@ -52,6 +56,7 @@ from wxfactory_tpu_torch.kernels.check import (
     tangent_halos,
 )
 from wxfactory_tpu_torch.ops import euler3d_operator as e3op
+from wxfactory_tpu_torch.ops import euler_cartesian_operator as ecop
 from wxfactory_tpu_torch.ops import sw_operator as swop
 
 pytestmark = pytest.mark.cuda
@@ -465,3 +470,38 @@ def test_euler3d_advection_counter_counts_kernel_launches_only(cuda):
     assert e3op.advection_launches == before + 1 and e3op.plain_calls == plain + 1
     with pytest.raises(ValueError, match="1 or 4"):
         e3op.euler3d_advection(torch.cat([y, y[5:6]]).contiguous(), torch.cat([halo, halo[5:6]]).contiguous(), con)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("nel_x,nel_z,s,case", [(4, 3, 2, 2), (3, 2, 3, 4), (4, 3, 4, 2), (2, 2, 5, 4), (2, 1, 6, 2)])
+def test_euler_cartesian_kernels_match_plain(cuda, nel_x, nel_z, s, case, dtype):
+    """The DFR kernel (RHS, stage, stage + x; the RHS's rho and rho*theta
+    mass zero to round-off) and its tangent kernel (at a perturbed state and
+    at rest, where every AUSM interface sits at its tie) against their plain
+    versions (kernels/check.py)."""
+    rows = compare_euler_cartesian(nel_x, nel_z, s, dtype, device="cuda", case=case)
+    assert all(r["ok"] for r in rows), rows
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("flux", ["ausm", "rusanov", "upwind"])
+def test_euler_cartesian_fv_kernels_match_plain(cuda, flux, dtype):
+    """The FV kernel (RHS) and its tangent kernel (at a perturbed state and
+    at rest: every speed at its tie) against their plain versions."""
+    rows = compare_euler_cartesian_fv(9, 7, flux, dtype, device="cuda")
+    assert all(r["ok"] for r in rows), rows
+
+
+def test_euler_cartesian_counters_count_kernel_launches_only(cuda):
+    ops, _, con, x, y, v, q0 = euler_cartesian_inputs(4, 3, 3, torch.float64, "cuda")
+    counts = lambda: (ecop.launches, ecop.tangent_launches, ecop.plain_calls, ecop.plain_tangent_calls)
+    before = counts()
+    ecop.euler_cartesian_plain(y, con)
+    ecop.euler_cartesian_tangent_plain(y, v, con)
+    ecop.euler_cartesian(y, con, x=x, a=0.5, b=0.5, cdt=1.0)
+    ecop.euler_cartesian_tangent(y, v, con)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == [1, 1, 1, 1]
+    with pytest.raises(ValueError, match="s = 2..6"):
+        _, _, con7, _, y7, _, _ = euler_cartesian_inputs(2, 2, 7, torch.float64, "cuda")
+        ecop.euler_cartesian(y7, con7)

@@ -1,7 +1,7 @@
 """Hand the JAX package's host data to the port.
 
 The JAX package builds its setup objects (``DFROperators``, ``Metric2D``,
-``Metric3D``, ``CubedSphere2D``, ``CubedSphere3D``, initial states) in float64 numpy with the same code the
+``Metric3D``, ``CubedSphere2D``, ``CubedSphere3D``, ``Cartesian2D``, initial states) in float64 numpy with the same code the
 port carries, so the port's setup functions accept them as they are. These helpers
 turn them into the port's tensors and constant structs on a given device,
 so a test can drive both packages from identical inputs. Nothing here
@@ -18,6 +18,7 @@ package's ``plan``/``tile_plan`` chose.
 import numpy as np
 import torch
 
+from .models.euler_cartesian import EulerCartesianRHS
 from .models.euler_cubesphere import Euler3DAdvectionRHS, Euler3DRHS, RayleighDamping
 from .models.shallow_water import ShallowWaterRHS, Topography
 from .ops import euler3d_operator
@@ -100,6 +101,15 @@ def euler3d_rhs(geom, ops, metric, device="cpu", dtype=torch.float64, base_state
         return Euler3DAdvectionRHS(geom, ops, metric, dtype=dtype, device=device)
     return Euler3DRHS(geom, ops, metric, dtype=dtype, device=device, base_state=base_state,
                       perturbation_base=perturbation_base, damping=damping)
+
+
+def euler_cartesian_rhs(geom, ops, device="cpu", dtype=torch.float64) -> EulerCartesianRHS:
+    """The port's 2D Cartesian DFR RHS on a ``Cartesian2D`` and
+    ``DFROperators`` built by either package (the JAX factory's
+    ``make_rhs_euler_cartesian(geom, ops, dtype)``). The JAX package's
+    state (4, nel_z, nel_x, s^2) is the port's layout: ``to_tensor`` carries
+    it over with no relayout."""
+    return EulerCartesianRHS(geom, ops, dtype=dtype, device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -141,6 +141,20 @@ SIGNATURES = {
         "euler3d_advection_resources": (_I, [_I, _I, _I, _I, _P]),
         "euler3d_advection_error_string": (ctypes.c_char_p, [_I]),
     },
+    # The 2D Cartesian Euler operators (DFR and finite volume) and their Jacobian actions.
+    "euler_cartesian": {
+        # is_f64, s, nel_x, nel_z, then q, ops1d, x, out; a, b, cdt, stage; stream
+        "euler_cartesian_launch": (_I, [_I, _I, _I, _I] + [_P] * 4 + [_D, _D, _D, _I] + [_P]),
+        # is_f64, s, nel_x, nel_z, then q, v, ops1d, out; stream
+        "euler_cartesian_tangent_launch": (_I, [_I, _I, _I, _I] + [_P] * 4 + [_P]),
+        # is_f64, flux (0 ausm, 1 rusanov, 2 upwind), ncell_x, ncell_z, then q, out; dx, dz; stream
+        "euler_cartesian_fv_launch": (_I, [_I, _I, _I, _I] + [_P] * 2 + [_D, _D] + [_P]),
+        # is_f64, flux, ncell_x, ncell_z, then q, v, out; dx, dz; stream
+        "euler_cartesian_fv_tangent_launch": (_I, [_I, _I, _I, _I] + [_P] * 3 + [_D, _D] + [_P]),
+        # is_f64, s (the flux for kernels 2 and 3), kernel (0 operator, 1 tangent, 2 FV, 3 FV tangent), int[5] out
+        "euler_cartesian_resources": (_I, [_I, _I, _I, _P]),
+        "euler_cartesian_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 
 # A library built from another library's source with extra nvcc flags: name

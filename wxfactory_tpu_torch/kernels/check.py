@@ -2248,3 +2248,316 @@ def advection_kernel_resources(dtype, s: int, ntracer: int) -> dict:
             raise RuntimeError(f"euler3d_advection_resources failed: CUDA error {rc}")
         out[name] = dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm", "threads"), info))
     return out
+
+
+# ---------------------------------------------------------------------------
+# The 2D Cartesian Euler operators (DFR and FV) and their Jacobian actions.
+#
+# Inputs (``euler_cartesian_inputs``): a case's initial state with seeded
+# noise, 1e-3 relative on every variable plus winds of 2 m/s (u) and 1 m/s
+# (w) N(0,1) so no AUSM interface sits at its tie, and a direction of 1e-3
+# of each variable's max N(0,1); the unperturbed initial state (at rest:
+# every AUSM interface at m = 0, every rusanov and upwind speed at 0) is the
+# tie mode of the tangents. Tolerances: float64 1e-13 of each row's scale
+# (RHS and stage: the larger of the plain output's max and |cdt| (1 in RHS
+# mode) times the row's term scale, ``euler_cartesian_term_scale``: rho*w's
+# RHS is the pressure gradient less gravity), 1e-12 of each row's max of
+# the plain J.v for the tangents; float32 1e-5 of the same scales, or twice
+# the plain float32 version's distance from the float64 truth on the same
+# float32-rounded inputs. Every RHS also holds mass: the Gauss-Legendre
+# weighted integrals of its rho and rho*theta rows are zero to 1e-14 (f64;
+# 1e-5 f32) of the integral of their absolute values.
+
+EC_TOLERANCE = {torch.float64: 1e-13, torch.float32: 1e-5}
+EC_TANGENT_TOLERANCE = {torch.float64: 1e-12, torch.float32: 1e-5}
+EC_MASS_TOLERANCE = {torch.float64: 1e-14, torch.float32: 1e-5}
+EC_DT = 0.02
+# The domain of each Cartesian case: the reference's bubble labs (1-3) and
+# the symmetric half of Straka et al. (1993)'s density current (4).
+CARTESIAN_DOMAINS = {1: ((0.0, 1000.0), (0.0, 1000.0)), 2: ((0.0, 1000.0), (0.0, 1500.0)),
+                     3: ((0.0, 1000.0), (0.0, 1000.0)), 4: ((0.0, 25600.0), (0.0, 6400.0))}
+CARTESIAN_THETA = {1: 303.15, 2: 303.15, 3: 303.15, 4: 300.0}
+
+
+def euler_cartesian_setup(nel_x: int, nel_z: int, s: int, case: int = 2):
+    """(geometry, DFR operators, initial state) of a Cartesian case."""
+    from ..geometry import make_cartesian_2d
+    from ..testcases import initialize_cartesian2d
+
+    (x0, x1), (z0, z1) = CARTESIAN_DOMAINS[case]
+    geom = make_cartesian_2d((x0, x1), (z0, z1), nel_x, nel_z, s)
+    return geom, make_dfr_operators(s), initialize_cartesian2d(geom, case, CARTESIAN_THETA[case])
+
+
+def perturbed_cartesian(q0: np.ndarray, rng) -> np.ndarray:
+    """``q0`` with 1e-3 relative noise and seeded winds (u 2 m/s, w 1 m/s N(0,1))."""
+    y = q0 * (1.0 + 1e-3 * rng.standard_normal(q0.shape))
+    y[1] = y[1] + 2.0 * rng.standard_normal(y[1].shape) * y[0]
+    y[2] = y[2] + 1.0 * rng.standard_normal(y[2].shape) * y[0]
+    return y
+
+
+def cartesian_direction(y: np.ndarray, rng) -> np.ndarray:
+    """A direction of 1e-3 of each variable's max times N(0,1)."""
+    scale = np.abs(y).reshape(y.shape[0], -1).max(axis=1).reshape((-1,) + (1,) * (y.ndim - 1))
+    return 1e-3 * scale * rng.standard_normal(y.shape)
+
+
+def euler_cartesian_inputs(nel_x: int, nel_z: int, s: int, dtype, device, case: int = 2, seed: int = 0):
+    """(ops, float64 constants, constants, x, y, v, q0) on ``device``: the
+    stage's a-term x, the perturbed state y, the direction v and the
+    initial state q0 (at rest), in ``dtype``."""
+    from ..ops import euler_cartesian_operator as ecop
+
+    geom, ops, q0 = euler_cartesian_setup(nel_x, nel_z, s, case)
+    rng = np.random.default_rng(seed)
+    y = perturbed_cartesian(q0, rng)
+    x = q0 * (1.0 + 1e-3 * rng.standard_normal(q0.shape))
+    v = cartesian_direction(y, rng)
+    con = ecop.build_constants(geom, ops, dtype=dtype, device=device)
+    con64 = con if dtype == torch.float64 else ecop.build_constants(geom, ops, device=device)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return ops, con64, con, t(x), t(y), t(v), t(q0)
+
+
+def euler_cartesian_term_scale(q: torch.Tensor, con) -> torch.Tensor:
+    """Per row, the larger of the max of the x and z flux divergence terms
+    (rho*w: and of the gravity term), float64."""
+    from ..ops import euler_cartesian_operator as ecop
+
+    q = q.double()
+    ss = con.s * con.s
+    dd = con.dd.double()
+    fx, fz = ecop.pointwise_fluxes(q)
+    term = torch.maximum(per_variable_max(fx @ dd[:ss]), per_variable_max(fz @ dd[ss:]))
+    term[2] = torch.maximum(term[2], (q[0] * GRAVITY).abs().max())
+    return term
+
+
+def cartesian_mass(out: torch.Tensor, ops) -> list:
+    """Per row rho (0) and rho*theta (3) of a DFR RHS (4, ..., s^2) with its
+    operators, or of an FV one (``ops`` None: equal cells): the
+    Gauss-Legendre weighted integral over the integral of the absolute
+    values, float64."""
+    w = torch.ones((), dtype=torch.float64, device=out.device)
+    if ops is not None:
+        w = torch.as_tensor(np.outer(ops.weights, ops.weights).reshape(-1), dtype=torch.float64, device=out.device)
+    rows = []
+    for r in (0, 3):
+        a = out[r].double()
+        total = float((w * a.abs()).sum())
+        rows.append(abs(float((w * a).sum())) / total if total > 0 else 0.0)
+    return rows
+
+
+def _f32_hold(got, want, truth, scale, tol):
+    """(scaled error, ok) of a float32 kernel output against the float64
+    truth: within ``tol`` of ``scale`` or twice the plain float32 output's
+    distance, per row."""
+    err = lambda a: per_variable_max(a.double() - truth) / scale
+    kernel_err, plain_err = err(got), err(want)
+    limit = torch.clamp(2.0 * plain_err, min=tol)
+    return float((kernel_err / limit).max()) * tol, bool((kernel_err <= limit).all())
+
+
+def compare_cartesian(con, con64, ops, x, y, v, q0):
+    """The DFR kernel and its tangent against their plain versions on
+    states of ``con``'s dtype and device (``con64``: the float64 constants
+    of the float32 truth): RHS, stage, stage + x, J.v at y and J.v at q0 (at
+    rest: the ties). One dict per mode with the scaled error ``err`` (worst
+    row), ``tol``, ``max_abs_err``, the RHS's mass (``mass``: rho, rho*theta)
+    and ``ok``."""
+    from ..ops import euler_cartesian_operator as ecop
+
+    dtype, device = con.dtype, con.device
+    f64 = dtype == torch.float64
+    term = euler_cartesian_term_scale(y, con64)
+    modes = {"rhs": dict(), "stage": dict(a=0.0, b=1.0, cdt=EC_DT), "stage_x": dict(x=x, a=0.75, b=0.25, cdt=0.25 * EC_DT)}
+    results = []
+    base = {"nel_x": con.nel_x, "nel_z": con.nel_z, "s": con.s, "dtype": str(dtype).replace("torch.", "")}
+    for mode, kw in modes.items():
+        got = ecop.euler_cartesian(y, con, **kw)
+        want = ecop.euler_cartesian_plain(y, con, **kw)
+        if device.type != "cpu":
+            torch.cuda.synchronize()
+        scale = torch.maximum(per_variable_max(want).double(), abs(kw.get("cdt", 1.0)) * term)
+        tol = EC_TOLERANCE[dtype]
+        row = dict(base, mode=mode, max_abs_err=float((got - want).abs().max()), tol=tol)
+        if f64:
+            row["err"] = _scaled(got.double() - want.double(), scale)
+            ok = row["err"] <= tol
+        else:
+            kw64 = dict(kw, x=x.double()) if "x" in kw else kw
+            truth = ecop.euler_cartesian_plain(y.double(), con64, **kw64)
+            row["err"], ok = _f32_hold(got, want, truth, scale, tol)
+            row["kernel_vs_plain"] = _scaled(got.double() - want.double(), scale)
+        if mode == "rhs":
+            row["mass"] = cartesian_mass(got, ops)
+            ok = ok and max(row["mass"]) <= EC_MASS_TOLERANCE[dtype]
+        row["ok"] = bool(ok and torch.isfinite(got).all().item())
+        results.append(row)
+    for mode, q in (("tangent", y), ("tangent_rest", q0)):
+        got = ecop.euler_cartesian_tangent(q, v, con)
+        want = ecop.euler_cartesian_tangent_plain(q, v, con)
+        if device.type != "cpu":
+            torch.cuda.synchronize()
+        tol = EC_TANGENT_TOLERANCE[dtype]
+        row = dict(base, mode=mode, max_abs_err=float((got - want).abs().max()), tol=tol)
+        if f64:
+            row["err"] = _scaled(got - want, per_variable_max(want))
+            ok = row["err"] <= tol
+        else:
+            truth = ecop.euler_cartesian_tangent_plain(q.double(), v.double(), con64)
+            row["err"], ok = _f32_hold(got, want, truth, per_variable_max(truth), tol)
+        row["ok"] = bool(ok and torch.isfinite(got).all().item())
+        results.append(row)
+    return results
+
+
+def compare_euler_cartesian(nel_x: int, nel_z: int, s: int, dtype, device="cuda", case: int = 2, seed: int = 0):
+    """``compare_cartesian`` on ``euler_cartesian_inputs``."""
+    ops, con64, con, x, y, v, q0 = euler_cartesian_inputs(nel_x, nel_z, s, dtype, device, case, seed)
+    rows = compare_cartesian(con, con64, ops, x, y, v, q0)
+    for r in rows:
+        r["case"] = case
+    return rows
+
+
+def euler_cartesian_fv_inputs(ncell_x: int, ncell_z: int, flux: str, dtype, device, case: int = 2, seed: int = 0):
+    """(float64 constants, constants, y, v, q0) of the FV operator on a
+    case's s = 1 grid, as ``euler_cartesian_inputs``."""
+    from ..ops import euler_cartesian_operator as ecop
+
+    geom, _, q0 = euler_cartesian_setup(ncell_x, ncell_z, 1, case)
+    q0 = q0[..., 0]
+    rng = np.random.default_rng(seed)
+    y = perturbed_cartesian(q0, rng)
+    v = cartesian_direction(y, rng)
+    con = ecop.build_fv_constants(geom, flux, dtype=dtype, device=device)
+    con64 = con if dtype == torch.float64 else ecop.build_fv_constants(geom, flux, device=device)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return con64, con, t(y), t(v), t(q0)
+
+
+def compare_cartesian_fv(con, con64, y, v, q0):
+    """The FV kernel and its tangent against their plain versions: RHS and
+    J.v at y and at q0 (at rest), one dict per mode as ``compare_cartesian``
+    (the RHS's scale: the larger of the output's max and the row's term
+    scale, the max of |F_x|/dx and |F_z|/dz of its pointwise fluxes, and for
+    rho*w of gravity)."""
+    from ..ops import euler_cartesian_operator as ecop
+
+    dtype, device = con.dtype, con.device
+    f64 = dtype == torch.float64
+    base = {"ncell_x": con.ncell_x, "ncell_z": con.ncell_z, "flux": con.flux,
+            "dtype": str(dtype).replace("torch.", "")}
+    results = []
+    got = ecop.euler_cartesian_fv(y, con)
+    want = ecop.euler_cartesian_fv_plain(y, con)
+    if device.type != "cpu":
+        torch.cuda.synchronize()
+    y64 = y.double()
+    fx, fz = ecop.pointwise_fluxes(y64)
+    term = torch.maximum(per_variable_max(fx) / con.dx, per_variable_max(fz) / con.dz)
+    term[2] = torch.maximum(term[2], (y64[0] * GRAVITY).abs().max())
+    term = torch.maximum(per_variable_max(want).double(), term)
+    tol = EC_TOLERANCE[dtype]
+    row = dict(base, mode="rhs", max_abs_err=float((got - want).abs().max()), tol=tol)
+    if f64:
+        row["err"] = _scaled(got.double() - want.double(), term)
+        ok = row["err"] <= tol
+    else:
+        truth = ecop.euler_cartesian_fv_plain(y64, con64)
+        row["err"], ok = _f32_hold(got, want, truth, term, tol)
+    row["mass"] = cartesian_mass(got, None)
+    ok = ok and max(row["mass"]) <= EC_MASS_TOLERANCE[dtype]
+    row["ok"] = bool(ok and torch.isfinite(got).all().item())
+    results.append(row)
+    for mode, q in (("tangent", y), ("tangent_rest", q0)):
+        got = ecop.euler_cartesian_fv_tangent(q, v, con)
+        want = ecop.euler_cartesian_fv_tangent_plain(q, v, con)
+        if device.type != "cpu":
+            torch.cuda.synchronize()
+        tol = EC_TANGENT_TOLERANCE[dtype]
+        row = dict(base, mode=mode, max_abs_err=float((got - want).abs().max()), tol=tol)
+        if f64:
+            row["err"] = _scaled(got - want, per_variable_max(want))
+            ok = row["err"] <= tol
+        else:
+            truth = ecop.euler_cartesian_fv_tangent_plain(q.double(), v.double(), con64)
+            row["err"], ok = _f32_hold(got, want, truth, per_variable_max(truth), tol)
+        row["ok"] = bool(ok and torch.isfinite(got).all().item())
+        results.append(row)
+    return results
+
+
+def compare_euler_cartesian_fv(ncell_x: int, ncell_z: int, flux: str, dtype, device="cuda", case: int = 2,
+                               seed: int = 0):
+    """``compare_cartesian_fv`` on ``euler_cartesian_fv_inputs``."""
+    con64, con, y, v, q0 = euler_cartesian_fv_inputs(ncell_x, ncell_z, flux, dtype, device, case, seed)
+    return compare_cartesian_fv(con, con64, y, v, q0)
+
+
+def euler_cartesian_work(con, stage: bool = False, use_x: bool = False, tangent: bool = False):
+    """(bytes, operations) of one call of the DFR operator (``tangent``: of
+    its Jacobian action), each input read once and each output written
+    once: q (and v, and x) and the output, 4 rows of every node; the 1D
+    factors are negligible. Operations (an add, multiply, divide, log, exp
+    or sqrt is one, an fma two), each interface computed once: a node's
+    pointwise fluxes (16), divergence (2 s fmas a row and direction) and
+    corrections (4 fmas a row), gravity (2); an interior interface point's
+    two traces (s fmas a row and side) and AUSM flux (45); a wall point's
+    trace and pressure; the stage combination. The tangent's operations are
+    counted as three times the RHS's (a dual product is a product and an
+    fma on the tangent)."""
+    s, nx, nz = con.s, con.nel_x, con.nel_z
+    nodes = nx * nz * s * s
+    item = torch.finfo(con.dtype).bits // 8
+    words = nodes * 4 * (2 + (1 if use_x else 0) + (1 if tangent else 0))
+    interior = (nz * (nx - 1) + (nz - 1) * nx) * s
+    walls = 2 * (nx + nz) * s
+    ops = nodes * (16 + 4 * 2 * 2 * s + 4 * 4 * 2 + 2)
+    ops += interior * (2 * 4 * 2 * s + 45) + walls * (4 * 2 * s + 5)
+    if stage:
+        ops += nodes * 4 * (3 + (2 if use_x else 0))
+    if tangent:
+        ops *= 3
+    return words * item, ops
+
+
+def euler_cartesian_fv_work(con, tangent: bool = False):
+    """(bytes, operations) of one call of the FV operator (``tangent``: its
+    Jacobian action): q (and v) read once and the output written once, 4
+    rows a cell; operations: a cell's pressure (5), each interior
+    interface's flux once (45), a wall's none beyond the pressure, a cell's
+    flux differences (4 rows, 5 each) and gravity (2); three times the RHS's
+    for the tangent."""
+    nx, nz = con.ncell_x, con.ncell_z
+    cells = nx * nz
+    item = torch.finfo(con.dtype).bits // 8
+    words = cells * 4 * (2 + (1 if tangent else 0))
+    ops = cells * (5 + 4 * 5 + 2) + (nz * (nx - 1) + (nz - 1) * nx) * 45
+    return words * item, ops * (3 if tangent else 1)
+
+
+def euler_cartesian_kernel_resources(dtype, s: int, flux: str = "ausm") -> dict:
+    """{"operator", "tangent", "fv", "fv_tangent": {registers, local_bytes,
+    smem_bytes, blocks_per_sm, threads}}: what the runtime reports of the
+    four Cartesian kernels at one dtype, s and FV flux (on the card; builds
+    the library)."""
+    import ctypes
+
+    from ..ops.euler_cartesian_operator import FV_FLUXES
+    from .build import load_library
+
+    lib = load_library("euler_cartesian")
+    out = {}
+    for kernel, name in enumerate(("operator", "tangent", "fv", "fv_tangent")):
+        info = (ctypes.c_int * 5)()
+        rc = lib.euler_cartesian_resources(1 if dtype == torch.float64 else 0,
+                                           s if kernel < 2 else FV_FLUXES.index(flux), kernel,
+                                           ctypes.cast(info, ctypes.c_void_p))
+        if rc != 0:
+            raise RuntimeError(f"euler_cartesian_resources failed: CUDA error {rc}")
+        out[name] = dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm", "threads"), info))
+    return out

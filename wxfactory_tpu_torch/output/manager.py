@@ -11,7 +11,10 @@ print nothing for 3D Euler), the SQLite solver statistics of
 ``store_solver_stats`` (``output/solver_stats.py``, with the sampled RHS
 stage times of ``rhs_timing_freq``) and, with ``store_total_time``, the
 line ``runtime_<integrator>.txt`` gains at ``finalize``. FST output is not
-ported (ROADMAP queue 1, item 15).
+ported (ROADMAP queue 1, item 15). On the Cartesian plane, as in the JAX
+package, only checkpoints are written (the state as it is: ``panel_major``
+False), with the solver statistics and the runtime file; no field file and
+no blockstats.
 
 Each step that owes a field write, a checkpoint or blockstats reads the
 state from the card once. In a run over several ranks (``mesh``: the tile
@@ -56,7 +59,9 @@ class OutputManager:
         if config.store_solver_stats and self.primary:
             self.solver_stats = SolverStatsOutput(config)
         self.writer = None
-        if self.primary and config.output_freq > 0 and config.output_format == "netcdf":
+        self.panel_major = config.grid_type == "cubed_sphere"
+        if (self.primary and config.output_freq > 0 and config.output_format == "netcdf"
+                and config.grid_type == "cubed_sphere"):
             from .netcdf import make_writer
 
             path = os.path.join(self.output_dir, f"{config.base_output_file}.nc")
@@ -84,7 +89,8 @@ class OutputManager:
     def load_state_from_file(self, step_id: int, expected_shape) -> np.ndarray:
         from ..parallel.distributed import load_state_distributed, primary_print
 
-        state, _ = load_state_distributed(self.state_file_name(step_id))
+        path = self.state_file_name(step_id)
+        state = load_state_distributed(path)[0] if self.panel_major else load_state(path, panel_major=False)[0]
         if tuple(state.shape) != tuple(expected_shape):
             raise ValueError(
                 f"Saved state for step {step_id} has shape {state.shape}, expected {expected_shape}"
@@ -120,7 +126,7 @@ class OutputManager:
         if write:
             self._write_fields(host, sim_time)
         if save:
-            save_state(host, c, self.state_file_name(step_id))
+            save_state(host, c, self.state_file_name(step_id), panel_major=self.panel_major)
         if stats:
             self.__blockstats__(host, step_id)
 

@@ -3,9 +3,11 @@ rational system (I - dt/2 J) on the cubed sphere.
 
 Counterpart of ``wxfactory_tpu/precondition/multigrid.py`` (reference
 precondition/multigrid.py + smoother.py + common/interpolation.py): a
-V-cycle over polynomial orders p -> p-1 -> ... (p-mg; shallow water and 3D
-Euler) or from DG(s) to pure finite volume with 2x agglomeration (fv-mg;
-shallow water), each level with its own geometry, operators and RHS,
+V-cycle over polynomial orders p -> p-1 -> ... (p-mg; shallow water, 3D
+Euler and the 2D Cartesian Euler model, whose order-1 level is its finite
+volume RHS) or from DG(s) to pure finite volume with 2x agglomeration
+(fv-mg; shallow water and the Cartesian model), each level with its own
+geometry, operators and RHS,
 modal-projection or cell-mean transfers, and pseudo-time smoothers (erk1,
 erk3/ark3, the Chebyshev "exp" and the exponential "kiops").
 
@@ -15,7 +17,8 @@ Two differences from the JAX version:
   linearisation: ``jtv_prep`` once at the level's state in ``prepare``,
   ``jtv_apply`` a call (``solvers.matvec.jacobian``), on the card the SW or
   3D tangent kernel pair at the level's s (the SW pair also at s = 1, the
-  fv-mg levels) where the JAX version takes ``jax.jvp`` of the level RHS;
+  fv-mg levels), the Cartesian DFR or FV tangent kernel, where the JAX
+  version takes ``jax.jvp`` of the level RHS;
 * vectors stay on the state's device throughout (the JAX ``__call__``
   round-trips through numpy); the transfers are small dense products
   there.
@@ -23,7 +26,7 @@ Two differences from the JAX version:
 Coarse levels are built without topography, and the 3D levels on the
 default planet, as the JAX package builds them (an approximate inverse is
 all a flexible preconditioner needs; ROADMAP.md section 3). The Cartesian
-level families wait for the Cartesian models (ROADMAP queue 1, item 15).
+FV levels take the ausm flux, as the JAX package's do.
 """
 
 from typing import Callable, List, Optional
@@ -34,9 +37,6 @@ import torch
 from ..ops.dfr import make_dfr_operators, remesh_operator
 from ..ops.quadrature import gauss_legendre
 from ..solvers import matvec as _matvec
-
-_ITEM_15 = "ROADMAP queue 1, item 15: the Cartesian models"
-
 
 def _remesh_nd(src_pts, dst_pts, dim: int) -> np.ndarray:
     """Tensor-product modal transfer acting on the trailing s^dim axis."""
@@ -89,15 +89,85 @@ def dg_fv_transfer(num_solpts: int, n_cells: int):
     return R, np.linalg.pinv(R)
 
 
-def cartesian_euler_levels(geom):
-    """The 2D Cartesian Euler family: not ported (the Cartesian models are
-    item 15)."""
-    raise NotImplementedError(f"multigrid on the 2D Cartesian Euler model waits for {_ITEM_15}")
+def cartesian_euler_levels(geom, device="cuda") -> tuple:
+    """(factory, transfer_dim, min_order) for the 2D Cartesian Euler model;
+    order 1 runs the finite-volume RHS (the reference's FV-MG bottom) on
+    the levels' (4, nel_z, nel_x, 1) states."""
+    from ..geometry.cartesian import make_cartesian_2d
+    from ..models import EulerCartesianFVRHS, EulerCartesianRHS
+
+    def make(p: int):
+        g = make_cartesian_2d(geom.domain_x, geom.domain_z, geom.num_elements_x, geom.num_elements_z, max(p, 1))
+        if p >= 2:
+            return EulerCartesianRHS(g, make_dfr_operators(p), device=device)
+        return EulerCartesianFVRHS(g, "ausm", device=device)
+
+    return make, 2, 1
 
 
-def cartesian_fv_mg_levels(geom, num_solpts: int, max_levels: int = 8):
-    """The 2D Cartesian FV-agglomeration family: not ported (item 15)."""
-    raise NotImplementedError(f"fv-mg on the 2D Cartesian Euler model waits for {_ITEM_15}")
+def cartesian_fv_mg_levels(geom, num_solpts: int, max_levels: int = 8, device="cuda"):
+    """FV-agglomeration multigrid family for the 2D Cartesian Euler system
+    (reference precondition/multigrid.py:38-165, discretization 'fv'):
+
+    * level 0: the DG(p) operator on the element grid;
+    * level 1: an FV operator on the (nel*p) sub-cell grid, reached through
+      the per-element DG->FV cell-mean transfer (``dg_fv_interpolators``);
+    * level k >= 2: FV with 2x element agglomeration per level (cell means
+      down, constant injection up) while the cell counts stay even and at
+      least 4.
+
+    Returns (levels, restricts, prolongs) for Multigrid(level_spec=...)."""
+    from ..geometry.cartesian import make_cartesian_2d
+    from ..models import EulerCartesianFVRHS, EulerCartesianRHS
+
+    s = num_solpts
+    nelx, nelz = geom.num_elements_x, geom.num_elements_z
+
+    def fv_rhs(ncx, ncz):
+        return EulerCartesianFVRHS(make_cartesian_2d(geom.domain_x, geom.domain_z, ncx, ncz, 1), "ausm",
+                                   device=device)
+
+    levels: List[MultigridLevel] = []
+    restricts = []
+    prolongs = []
+    if s >= 2:
+        levels.append(MultigridLevel(EulerCartesianRHS(geom, make_dfr_operators(s), device=device), s))
+        m1, m1inv = dg_fv_interpolators(s)
+        t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64, device=device)
+        dg2fv = t(np.kron(m1, m1).T)  # trailing (z, x) point order
+        fv2dg = t(np.kron(m1inv, m1inv).T)
+
+        def to_cells(a, dg2fv=dg2fv):
+            # (nv, nelz, nelx, s^2) -> (nv, nelz*s, nelx*s, 1)
+            c = (a @ dg2fv.to(a.dtype)).reshape(a.shape[:-1] + (s, s))
+            c = torch.movedim(c, -2, -3)  # (nv, nelz, s, nelx, s)
+            return c.reshape(a.shape[0], nelz * s, nelx * s, 1)
+
+        def to_nodes(a, fv2dg=fv2dg):
+            c = a.reshape(a.shape[0], nelz, s, nelx, s)
+            c = torch.movedim(c, 2, 3).reshape(a.shape[0], nelz, nelx, s * s)
+            return c @ fv2dg.to(a.dtype)
+
+        restricts.append(to_cells)
+        prolongs.append(to_nodes)
+
+    ncx, ncz = nelx * s, nelz * s
+    levels.append(MultigridLevel(fv_rhs(ncx, ncz), 1, tau_scale=4.0 * max(ncx, ncz)))
+    while len(levels) < max_levels and ncx % 2 == 0 and ncz % 2 == 0 and min(ncx, ncz) >= 4:
+        ncx //= 2
+        ncz //= 2
+        levels.append(MultigridLevel(fv_rhs(ncx, ncz), 1, tau_scale=4.0 * max(ncx, ncz)))
+
+        def agg(a):
+            nv, nz, nx, _ = a.shape
+            return a.reshape(nv, nz // 2, 2, nx // 2, 2, 1).mean(dim=(2, 4))
+
+        def inj(a):
+            return torch.repeat_interleave(torch.repeat_interleave(a, 2, dim=1), 2, dim=2)
+
+        restricts.append(agg)
+        prolongs.append(inj)
+    return levels, restricts, prolongs
 
 
 def cubed_sphere_sw_levels(geom, device="cuda") -> tuple:
@@ -295,13 +365,21 @@ class Multigrid:
     def for_geometry(cls, geom, kind: str = "p-mg", device="cuda", **kwargs):
         """Pick the level family from the geometry type. ``kind``: "p-mg"
         (order coarsening) or "fv-mg" (DG->FV + 2x element agglomeration,
-        cubed-sphere shallow water; 3D Euler takes p-mg for either, as in
-        the JAX package). The levels' RHS run on ``device`` (the card unless
-        the caller asks for the CPU)."""
+        the Cartesian Euler model and cubed-sphere shallow water; 3D Euler
+        takes p-mg for either, as in the JAX package). The levels' RHS run
+        on ``device`` (the card unless the caller asks for the CPU)."""
+        from ..geometry.cartesian import Cartesian2D
         from ..geometry.cubed_sphere import CubedSphere2D
         from ..geometry.cubed_sphere_3d import CubedSphere3D
 
-        if isinstance(geom, CubedSphere2D):
+        if isinstance(geom, Cartesian2D):
+            if kind == "fv-mg":
+                nlev = kwargs.get("num_levels", 2)
+                spec = cartesian_fv_mg_levels(geom, geom.num_solpts, max_levels=max(nlev, 2), device=device)
+            else:
+                spec = cartesian_euler_levels(geom, device=device)
+            nel = max(geom.num_elements_x, geom.num_elements_z)
+        elif isinstance(geom, CubedSphere2D):
             if kind == "fv-mg":
                 nlev = kwargs.get("num_levels", 2)
                 spec = cubed_sphere_sw_fv_mg_levels(geom, geom.num_solpts, max_levels=max(nlev, 2), device=device)
@@ -311,9 +389,6 @@ class Multigrid:
         elif isinstance(geom, CubedSphere3D):
             spec = cubed_sphere_euler3d_levels(geom, device=device)
             nel = max(geom.nel_h, geom.nel_v)
-        elif type(geom).__name__ == "Cartesian2D":
-            return (cartesian_fv_mg_levels(geom, geom.num_solpts) if kind == "fv-mg" else
-                    cartesian_euler_levels(geom))
         else:
             raise ValueError(f"No multigrid level family for geometry {type(geom).__name__}")
         return cls(spec, geom.num_solpts, num_elements_pseudo=nel, device=device, **kwargs)

@@ -118,9 +118,11 @@ def kernel_class(name: str) -> str:
     """The class of a device event by its name: the operator's kernels (the
     tangent prep and apply apart), the basis products (cuBLAS GEMM/GEMV/dot
     kernels) or the rest."""
-    if "euler3d_tangent_apply_kernel" in name or "euler3d_tangent_prep_kernel" in name:
+    if any(k in name for k in ("euler3d_tangent_apply_kernel", "euler3d_tangent_prep_kernel",
+                               "euler_cartesian_tangent_kernel", "euler_cartesian_fv_tangent_kernel")):
         return "tangent_kernel"
-    if any(k in name for k in ("euler3d_interface_kernel", "euler3d_volume_kernel", "sw_operator_kernel")):
+    if any(k in name for k in ("euler3d_interface_kernel", "euler3d_volume_kernel", "sw_operator_kernel",
+                               "euler_cartesian_operator_kernel", "euler_cartesian_fv_kernel")):
         return "rhs_kernel"
     low = name.lower()
     if any(k in low for k in ("gemm", "gemv", "dot_kernel", "splitkreduce", "cublas", "cutlass", "xmma")):

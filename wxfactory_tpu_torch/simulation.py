@@ -1,6 +1,6 @@
 """Simulation: configuration -> geometry -> state -> integrator -> run.
 
-Counterpart of ``wxfactory_tpu/simulation.py`` for the cubed sphere:
+Counterpart of ``wxfactory_tpu/simulation.py``: on the cubed sphere
 shallow water (every case of the JAX package: 0, 1, 2, 5, 6, 8, 9 and 10,
 cases 5 and 10 with their bottom topography) and 3D Euler (every DCMIP case
 of it: 11, 12, 20, 21, 22, 31 and 77; 20-22 over terrain, 21 and 22 under
@@ -22,9 +22,21 @@ post-step hook), the outputs
 (NetCDF fields, checkpoints, blockstats for shallow water only as in the JAX
 package, the solver-stats database with sampled RHS stage times, the
 runtime file; ``output/manager.py``). The device comes from the caller;
-nothing moves to another device. The Cartesian grid (ROADMAP queue 1, item
-15) and the distributions the port has not ported (item 14) raise
-``NotImplementedError`` naming their item.
+nothing moves to another device. The distributions the port has not
+ported (ROADMAP queue 1, item 14) raise ``NotImplementedError`` naming it.
+
+On the Cartesian plane (``grid_type = cartesian2d``; the JAX package's
+simulation.py:128-136) the run is the 2D Euler model of cases 1-4 (pill,
+Gaussian bubble, colliding bubbles, cold density current;
+``testcases.initialize_cartesian2d`` with ``bubble_theta`` and
+``bubble_rad``) on ``EulerCartesianRHS`` (one launch of its DFR kernel an
+RHS call or RK stage, one of its tangent kernel a J.v), with every
+integrator and preconditioner above (p-mg and fv-mg with the Cartesian
+level families), the exponential filter without a metric and the Rayleigh
+sponge (``apply_sponge``), checkpoints in the JAX package's layout for this
+grid and no field file or blockstats, as in the JAX package; no float32
+companion (the JAX package builds none for this grid) and one process
+only (the reference's ``allowed_pe_counts = 1``).
 
 DCMIP 11 and 12 (tracer transport under prescribed winds) run as the JAX
 package runs them (its simulation.py:100-127): the advection-only RHS
@@ -58,17 +70,17 @@ from .common import device as _device
 from .common.device import resolve_device
 from .parallel import distributed as _dist
 from .config import Configuration, load_configuration
-from .geometry import make_cubed_sphere_2d, make_cubed_sphere_3d, make_metric_2d, make_metric_3d
+from .geometry import make_cartesian_2d, make_cubed_sphere_2d, make_cubed_sphere_3d, make_metric_2d, make_metric_3d
 from .integrators import (BackwardEuler, Bdf2, CrankNicolson, Epi, EpiStiff, Euler1, Ros2, RosExp2, SdirkLstable,
                           Srerk, Tvdrk3)
-from .models import Euler3DAdvectionRHS, Euler3DRHS, make_rhs_shallow_water
+from .models import Euler3DAdvectionRHS, Euler3DRHS, EulerCartesianRHS, make_rhs_shallow_water
 from .models.euler_cubesphere import ITEM_18
 from .ops.dfr import make_dfr_operators
 from .ops.filters import make_apply_filters
 from .output import OutputManager
 from .parallel import CubedSphereTopology, ShardMapTvdrk3, TileMesh
 from .parallel.mesh import tile_n_for_world
-from .testcases import PrescribedWinds, dcmip_planet_params, initial_state, initial_state_3d
+from .testcases import PrescribedWinds, dcmip_planet_params, initial_state, initial_state_3d, initialize_cartesian2d
 
 # The 3D cases with the Rayleigh sponge (extra_forcing in the JAX package).
 SPONGE_CASES = (21, 22)
@@ -86,6 +98,10 @@ def plan_distribution(config, world: int):
     not ported, or where ``shard_map`` cannot apply."""
     c = config
     knob = getattr(c, "distribute", "auto")
+    if c.grid_type == "cartesian2d" and world > 1:
+        raise NotImplementedError(
+            f"the Cartesian plane over {world} ranks: the reference runs it on one process (allowed_pe_counts = "
+            f"1); {_ITEM_14}")
     if knob == "gspmd":
         raise NotImplementedError(f"distribute='gspmd': {_ITEM_14}")
     n = tile_n_for_world(world)
@@ -123,11 +139,6 @@ class Simulation:
         self.config = c = config
         self.device = resolve_device(device)
 
-        if c.grid_type != "cubed_sphere":
-            raise NotImplementedError(
-                f"grid {c.grid_type!r} is not ported yet (the port runs the cubed sphere; the "
-                "Cartesian 2D models are ROADMAP queue 1, item 15)"
-            )
         n = plan_distribution(c, _dist.world_size())
         self.mesh = None if n is None else TileMesh(n, _dist.rank(), _dist.world_size())
 
@@ -136,8 +147,17 @@ class Simulation:
         self.damping = None
         # (q, t) -> q after every step (DCMIP 11/12's wind overwrite), or None.
         self.post_step_hook = None
-        self.advection = c.equations == "euler" and c.case_number in ADVECTION_CASES
-        if c.equations == "euler":
+        self.cartesian = c.grid_type == "cartesian2d"
+        self.advection = not self.cartesian and c.equations == "euler" and c.case_number in ADVECTION_CASES
+        if self.cartesian:
+            self.ops = make_dfr_operators(c.num_solpts)
+            self.geom = make_cartesian_2d((c.x0, c.x1), (c.z0, c.z1), c.num_elements_horizontal,
+                                          c.num_elements_vertical, c.num_solpts)
+            self.metric = None
+            self.topology = None
+            q0 = initialize_cartesian2d(self.geom, c.case_number, c.bubble_theta, c.bubble_rad)
+            self.rhs = EulerCartesianRHS(self.geom, self.ops, dtype=self.dtype, device=self.device)
+        elif c.equations == "euler":
             self.ops = make_dfr_operators(c.num_solpts, three_d=True)
             scale, rotating = dcmip_planet_params(c.case_number)
             self.geom = make_cubed_sphere_3d(
@@ -193,7 +213,7 @@ class Simulation:
         # topography), as the JAX package takes jax.jvp of its companion's
         # XLA form there.
         self.rhs32 = None
-        if getattr(c, "mixed_precision_krylov", False) and self.dtype == torch.float64:
+        if getattr(c, "mixed_precision_krylov", False) and self.dtype == torch.float64 and not self.cartesian:
             if c.equations == "euler" and c.case_number >= 13 and self.damping is None:
                 self.rhs32 = Euler3DRHS(
                     self.geom, self.ops, self.metric, dtype=torch.float32, device=self.device,
@@ -207,7 +227,7 @@ class Simulation:
 
         self.initial_q = torch.as_tensor(q0, dtype=self.dtype, device=self.device)
         self.integrator = self._create_integrator()
-        self.apply_filters = make_apply_filters(c, self.metric, device=self.device, dtype=self.dtype)
+        self.apply_filters = make_apply_filters(c, self.metric, device=self.device, dtype=self.dtype, geom=self.geom)
         self._rhs_probes = None  # built at the first rhs_timing sample
 
         if getattr(c, "mixed_precision_krylov", False):
@@ -233,8 +253,8 @@ class Simulation:
 
     def _create_preconditioner(self):
         """lu/ilu: ``Factorization`` (practical for small problems); p-mg and
-        fv-mg: ``Multigrid.for_geometry`` on the cubed sphere (the JAX
-        package's simulation.py:383-410); ``fv`` raises its ValueError."""
+        fv-mg: ``Multigrid.for_geometry`` (the JAX package's
+        simulation.py:383-410); ``fv`` raises its ValueError."""
         c = self.config
         if c.preconditioner == "none":
             return None

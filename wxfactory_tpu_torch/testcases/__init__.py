@@ -1,4 +1,5 @@
-"""Initial states of the cases the port runs: every shallow-water case of
+"""Initial states of the cases the port runs: the 2D Cartesian cases 1-4
+(``initialize_cartesian2d``), every shallow-water case of
 the JAX package (Williamson 0, 1, 2, 5, 6, Galewsky 8, Matsuno 9, unsteady
 zonal 10; ``initial_state`` returns the state and, for 5 and 10, the bottom
 topography) and every DCMIP case of it, 11, 12, 20, 21, 22, 31 and 77 (3D
@@ -6,6 +7,7 @@ Euler, ``initial_state_3d``; 11 and 12 with their tracer rows and
 prescribed winds, ``PrescribedWinds`` evaluating the winds on the state's
 device; 20-22 with their terrain, 21 and 22 with their Rayleigh sponge)."""
 
+from .cartesian import initialize_cartesian2d
 from .dcmip import (
     acoustic_wave,
     dcmip_advection_deformation,
@@ -58,6 +60,7 @@ __all__ = [
     "height_case2",
     "height_vortex",
     "initial_state",
+    "initialize_cartesian2d",
     "initial_state_3d",
     "make_schar_damping",
     "solid_body_rotation",
