@@ -407,7 +407,29 @@ Cartesian Euler model:
     (the FV kernels at fv-mg's first FV level, 40 x 60 cells) beside its
     plain version and bound, f64 and f32, and the kernels' resources. The FV
     RHS kernel, which no path launches, is held and timed but left out of
-    the kernels line.
+    the kernels line;
+39. the Jacobian action of the DCMIP 11/12 advection
+    (csrc/euler3d_advection_tangent.cu: a prep once a linearisation point,
+    a linear apply once a J.v): (a) prep + apply against the plain pair at
+    phase 37's shapes and at the main width on path (b)'s state, 1 and 4
+    tracers, f64 and f32, in a random direction with every row set and on a
+    state with zero normal speed on both sides of some interfaces (f64
+    within 1e-12 of each row's scale, f32 within 1e-5 or twice the plain
+    f32 pair's distance from the f64 one), each kernel against its plain
+    version, J.(0, dT) against the advection RHS kernel, each tracer's mass;
+    (b) DCMIP 11 at 30x30x20, s = 3 through Simulation(ini).run(), EPI2 +
+    KIOPS, dt = 18.75 s, 3 steps: only the advection RHS kernel and the
+    pair launch (one apply a J.v, one prep a linearisation), no plain call,
+    a finite state, the momenta rho * the winds, each tracer's mass drift
+    below 1e-12; steps/s, Krylov iterations and host syncs a step and the
+    device busy share; (c) the same with kiops_jit on (b)'s Simulation; (d)
+    DCMIP 12 at 20x20x10 with Ros2 + FGMRES and Crank-Nicolson, 2 steps,
+    and Ros2 + lu at 3x3x2, s = 2 (one FGMRES iteration a step); (e) EPI2
+    on 11 and Ros2 and Crank-Nicolson on 12 at 4x3x3 on the card and on the
+    CPU, the same iteration counts, within 1e-12 (EPI2) and 1e-10; (f) the
+    card's time a call of the prep and the apply at 30x30x20, 4 tracers,
+    f64 and f32, beside the plain versions, the function's bound, each
+    kernel's own floor and its resources.
 
 Each phase prints one JSON line; then the kernels line, the card's
 ``nvidia-smi`` name and power limit, and last the result line. Any failure
@@ -431,7 +453,7 @@ ROOT = Path(__file__).resolve().parent
 SHAPES = [(10, 3), (64, 3), (4, 2), (4, 8), (64, 7)]
 SW_PERT_SHAPES = SHAPES + [(8, 4), (32, 4), (64, 4)]
 KERNEL_SOURCES = ["sw_operator", "euler3d_operator", "sw_run", "euler3d_terrain", "euler3d_advection",
-                  "euler_cartesian"]
+                  "euler_cartesian", "euler3d_advection_tangent"]
 # (nel_h, nel_v, s, case); at (7, 3, 3) a panel's 147 elements leave the
 # operator's volume pass (9 elements a block at s=3) a partial last block.
 E3_SHAPES = [(3, 2, 2, 31), (12, 3, 2, 31), (4, 2, 3, 31), (20, 20, 3, 31), (4, 4, 4, 31), (3, 2, 5, 31),
@@ -544,12 +566,18 @@ def ptxas_summary(log: str):
         f32_pert = m and re.search(r"sw_operator_f32_pert(_topo)?_kernelILi(\d+)E", m.group(1))
         adv = m and re.search(r"(euler3d_advection_interface|euler3d_advection_volume)_kernelI([df])Li(\d+)ELi(\d+)E",
                               m.group(1))
+        adv_t = m and re.search(r"(euler3d_advection_tangent_(?:prep_node|prep_interface|interface|volume))_kernelI"
+                                r"([df])Li(\d+)E(?:Li(\d+)E)?", m.group(1))
         cart = m and re.search(r"(euler_cartesian_operator|euler_cartesian_tangent|euler_cartesian_fv_tangent|"
                                r"euler_cartesian_fv)_kernelI([df])Li(\d+)E", m.group(1))
         if cart:
             fv = "fv" in cart.group(1)
             what = f"flux={('ausm', 'rusanov', 'upwind')[int(cart.group(3))]}" if fv else f"s={cart.group(3)}"
             current = {"kernel": f"{cart.group(1)} {'f64' if cart.group(2) == 'd' else 'f32'} {what}"}
+            rows.append(current)
+        elif adv_t:
+            what = f"nt={adv_t.group(3)}" if adv_t.group(4) is None else f"s={adv_t.group(3)} nt={adv_t.group(4)}"
+            current = {"kernel": f"{adv_t.group(1)} {'f64' if adv_t.group(2) == 'd' else 'f32'} {what}"}
             rows.append(current)
         elif adv:
             current = {"kernel": f"{adv.group(1)} {'f64' if adv.group(2) == 'd' else 'f32'} s={adv.group(3)} "
@@ -662,7 +690,7 @@ def reset_counts():
     swop.tile_launches = swop.pert_tile_launches = e3op.tile_launches = e3op.pert_tile_launches = 0
     e3op.terrain_launches = e3op.terrain_pert_launches = 0
     e3op.terrain_tangent_prep_launches = e3op.terrain_tangent_apply_launches = 0
-    e3op.advection_launches = 0
+    e3op.advection_launches = e3op.advection_tangent_prep_launches = e3op.advection_tangent_apply_launches = 0
     ecop.launches = ecop.tangent_launches = ecop.fv_launches = ecop.fv_tangent_launches = 0
     ecop.plain_calls = ecop.plain_tangent_calls = 0
     matvec.jacobian_actions = matvec.linearisations = device.host_syncs = 0
@@ -695,6 +723,8 @@ def read_counts():
             "euler3d_terrain_tangent_prep": e3op.terrain_tangent_prep_launches,
             "euler3d_terrain_tangent_apply": e3op.terrain_tangent_apply_launches,
             "euler3d_advection": e3op.advection_launches,
+            "euler3d_advection_tangent_prep": e3op.advection_tangent_prep_launches,
+            "euler3d_advection_tangent_apply": e3op.advection_tangent_apply_launches,
             "euler_cartesian": ecop.launches, "euler_cartesian_tangent": ecop.tangent_launches,
             "euler_cartesian_fv": ecop.fv_launches, "euler_cartesian_fv_tangent": ecop.fv_tangent_launches,
             "euler_cartesian_plain_calls": ecop.plain_calls,
@@ -4461,6 +4491,240 @@ def phase38(torch, smi):
             "timing": timing[0]}
 
 
+# Phase 39: the Jacobian action of the DCMIP 11/12 advection and the
+# implicit, exponential and Rosenbrock integrators on those cases.
+ADVECTION_TANGENT_INI = """
+[General]
+equations = euler
+[System]
+precision = float64
+distribute = off
+[Test_case]
+case_number = {case}
+[Time_integration]
+dt = {dt}
+t_end = {t_end}
+time_integrator = {integrator}
+exponential_solver = {solver}
+linear_solver = fgmres
+tolerance = 1e-7
+[Preconditioning]
+preconditioner = {pre}
+[Spatial_discretization]
+num_solpts = {s}
+num_elements_horizontal = {nel_h}
+num_elements_vertical = {nel_v}
+[Grid]
+grid_type = cubed_sphere
+ztop = 12000
+[Output_options]
+save_state_freq = 0
+output_dir = {out}
+"""
+# (tag, case, nel_h, nel_v, s, integrator, exponential solver, preconditioner, steps) of paths (b) and (d).
+ADVECTION_TANGENT_MAIN = ("b_dcmip11_epi2_kiops", 11) + ADVECTION_MAIN + ("epi2", "kiops", "none", 3)
+ADVECTION_TANGENT_RUNS = [("d_dcmip12_ros2", 12, 20, 10, 3, "ros2", "kiops", "none", 2),
+                          ("d_dcmip12_crank_nicolson", 12, 20, 10, 3, "crank_nicolson", "kiops", "none", 2),
+                          ("d_dcmip12_ros2_lu", 12, 3, 2, 2, "ros2", "kiops", "lu", 1)]
+# (tag, case, integrator, tolerance) of the card-against-CPU runs (e) at ADVECTION_CPU's shape, 2 steps.
+ADVECTION_TANGENT_CPU = [("e_dcmip11_epi2", 11, "epi2", 1e-12), ("e_dcmip12_ros2", 12, "ros2", 1e-10),
+                         ("e_dcmip12_crank_nicolson", 12, "crank_nicolson", 1e-10)]
+
+
+def _advection_tangent_run(torch, run, device="cuda", sim=None):
+    """One DCMIP 11/12 path of phase 39 through ``Simulation(ini).run()`` on
+    ``device`` (``sim``: a Simulation to run again, its integrator already
+    set): every integrator step inside ``forbid_uncounted_syncs`` on the
+    card without a preconditioner (lu's dense Jacobian comes to the host),
+    the iterations a step; on the card the launch gates (one tangent apply
+    a Jacobian action, or a probed column of lu's Jacobian, one prep a
+    linearisation, advection RHS launches, no plain call, no five-variable
+    launch); a finite state, the momenta rho * the winds at t_end, each
+    tracer's mass drift. Returns (row, final state as numpy, sim)."""
+    import numpy as np
+
+    from wxfactory_tpu_torch.common.device import forbid_uncounted_syncs
+    from wxfactory_tpu_torch.kernels.check import mass_weights
+    from wxfactory_tpu_torch.simulation import Simulation
+    from wxfactory_tpu_torch.testcases import dcmip_T11_update_winds, dcmip_T12_update_winds
+
+    tag, case, nel_h, nel_v, s, integrator, solver, pre, nsteps = run
+    dt = ADVECTION_DT[case]
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        if sim is None:
+            out_dir = WORK / f"advection_tangent_{tag}_{device}"
+            out_dir.mkdir(parents=True, exist_ok=True)
+            ini = WORK / f"advection_tangent_{tag}_{device}.ini"
+            ini.write_text(ADVECTION_TANGENT_INI.format(case=case, dt=dt, t_end=dt * nsteps, integrator=integrator,
+                                                        solver=solver, pre=pre, s=s, nel_h=nel_h, nel_v=nel_v,
+                                                        out=out_dir))
+            sim = Simulation(str(ini), device=device)
+        setup = time.perf_counter() - t0
+        integ, per_step = sim.integrator, []
+        plain_step = integ.step
+
+        def step(q, step_dt):
+            if device == "cuda" and pre == "none":
+                with forbid_uncounted_syncs():
+                    q = plain_step(q, step_dt)
+            else:
+                q = plain_step(q, step_dt)
+            per_step.append(int(integ.solver_info.total_num_it))
+            return q
+
+        integ.step = step
+        reset_counts()
+        q = sim.run()
+        integ.step = plain_step
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    text = log.getvalue()
+    done = re.search(r"Completed (\d+) steps in (\S+) s \((\S+) steps/s\)", text)
+    if done is None or int(done.group(1)) != nsteps:
+        sys.stderr.write(text[-3000:])
+        raise AssertionError(f"phase 39 {tag} on {device} did not complete {nsteps} steps")
+    state, q0 = q.cpu().numpy(), sim.initial_q.cpu().numpy()
+    wsg = mass_weights(sim.ops, sim.rhs.con).cpu().numpy()
+    drift = [float(((wsg * state[r]).sum() - (wsg * q0[r]).sum()) / (wsg * q0[r]).sum())
+             for r in range(5, state.shape[0])]
+    winds = np.stack((dcmip_T11_update_winds if case == 11 else dcmip_T12_update_winds)(sim.geom, dt * nsteps))
+    want = state[0] * winds
+    scale = np.abs(want).reshape(3, -1).max(axis=1).reshape(3, *([1] * (want.ndim - 1)))
+    wind_err = float((np.abs(state[1:4] - want) / scale).max())
+    row = {"tag": tag, "device": device, "case": case, "nel_h": nel_h, "nel_v": nel_v, "s": s,
+           "points": 6 * nel_h * nel_h * nel_v * s**3, "tracers": state.shape[0] - 5, "integrator": integrator,
+           "exponential_solver": solver if integrator.startswith("epi") else None, "preconditioner": pre, "dt": dt,
+           "steps": nsteps, "setup_s": setup, "run_s": float(done.group(2)), "steps_per_s": float(done.group(3)),
+           "wall_s": wall, "iterations_per_step": per_step, "host_syncs": counts["host_syncs"],
+           "host_syncs_per_step": counts["host_syncs"] / nsteps, "jacobian_actions": counts["jacobian_actions"],
+           "linearisations": counts["linearisations"], "tracer_mass_drift": drift, "wind_err": wind_err,
+           "finite": bool(np.isfinite(state).all())}
+    gates = {"finite": row["finite"], "tracer_mass": max(abs(d) for d in drift) <= 1e-12, "winds": wind_err <= 1e-13}
+    if device == "cuda":
+        keys = ("euler3d_advection", "euler3d_advection_tangent_prep", "euler3d_advection_tangent_apply",
+                "euler3d_plain_calls", "plain_tangent_calls") + FIVE_VARIABLE_COUNTERS
+        launches = {k: counts[k] for k in keys}
+        # lu probes its dense Jacobian one tangent apply a column, outside the matvec closures.
+        probes = int(q0.size) * nsteps if pre == "lu" else 0  # one factorisation a step
+        want_launches = dict({k: 0 for k in keys}, euler3d_advection=launches["euler3d_advection"],
+                             euler3d_advection_tangent_prep=counts["linearisations"],
+                             euler3d_advection_tangent_apply=counts["jacobian_actions"] + probes)
+        row["launches"] = launches
+        gates["launches"] = (launches == want_launches and launches["euler3d_advection"] > 0
+                             and counts["jacobian_actions"] > 0)
+    if pre == "lu":
+        gates["one_iteration_a_step"] = per_step == [1] * nsteps
+    row["gates"] = gates
+    if not all(gates.values()):
+        raise AssertionError(f"phase 39 {tag} on {device}: gates {gates}, row {row}")
+    return row, state, sim
+
+
+def _advection_tangent_timing(torch, smi, sim, state):
+    """The card's time a call of the prep and of the apply at the main
+    path's width, 4 tracers, f64 on path (b)'s final state and f32 on its
+    cast, in a direction with every row set, beside their plain versions,
+    the function's bound, each kernel's own floor and its resources; with
+    the kernels checked against the plain pair on those inputs
+    (``compare_advection_tangent``)."""
+    from wxfactory_tpu_torch.kernels.check import (advection_direction, advection_tangent_kernel_resources,
+                                                   compare_advection_tangent, euler3d_advection_tangent_apply_work,
+                                                   euler3d_advection_tangent_prep_work,
+                                                   euler3d_advection_tangent_work, tangent_halos)
+    from wxfactory_tpu_torch.ops import euler3d_operator as e3op
+
+    nel_h, nel_v, s = ADVECTION_MAIN
+    con64 = sim.rhs.con
+    q64 = torch.as_tensor(state, device="cuda")
+    v64 = advection_direction(q64)
+    rows, checks = [], []
+    for dtype in (torch.float64, torch.float32):
+        con = con64 if dtype == torch.float64 else e3op.build_constants(sim.ops, sim.metric, nel_h, nel_v,
+                                                                        dtype=dtype, device="cuda")
+        q, v = q64.to(dtype).contiguous(), v64.to(dtype).contiguous()
+        checks += compare_advection_tangent(con, con64, sim.topology, sim.ops, q, v)
+        nt = q.shape[0] - 5
+        halo_q, halo_v = tangent_halos(q, v, con, sim.topology)
+        coef = e3op.euler3d_advection_tangent_prep(q, halo_q, con)
+        name = str(dtype).replace("torch.", "")
+        row = {"dtype": name, "nel_h": nel_h, "nel_v": nel_v, "s": s, "tracers": nt, "gpu": smi,
+               "resources": advection_tangent_kernel_resources(dtype, s, nt)}
+        pairs = {"prep": (lambda: e3op.euler3d_advection_tangent_prep(q, halo_q, con),
+                          lambda: e3op.euler3d_advection_tangent_prep_plain(q, halo_q, con)),
+                 "apply": (lambda: e3op.euler3d_advection_tangent_apply(v, halo_v, coef, con),
+                           lambda: e3op.euler3d_advection_tangent_apply_plain(v, halo_v, coef, con))}
+        for kernel, (fn, plain) in pairs.items():
+            t = _pair_ms(torch, fn, plain)
+            row.update({f"{kernel}_kernel_ms": t["kernel_ms"], f"{kernel}_plain_ms": t["plain_ms"],
+                        f"{kernel}_kernel_event_ms": t["kernel_event_ms"]})
+        for what, work in (("function", euler3d_advection_tangent_work(con, nt)),
+                           ("prep_own", euler3d_advection_tangent_prep_work(con, nt)),
+                           ("apply_own", euler3d_advection_tangent_apply_work(con, nt))):
+            b = _bound(work, name)
+            row.update({f"{what}_bound_ms": b["bound_ms"], f"{what}_bound_by": b["bound_by"],
+                        f"{what}_bytes": b["bytes"], f"{what}_ops": b["ops"]})
+        rows.append(row)
+    return rows, checks
+
+
+def phase39(torch, smi):
+    """The Jacobian action of the DCMIP 11/12 tracer advection on the card
+    (the module docstring's item 39): (a) the kernels against the plain
+    pair, (b) DCMIP 11 EPI2 + KIOPS at the main width, (c) the same with
+    kiops_jit, (d) DCMIP 12 Ros2, Crank-Nicolson and Ros2 + lu, (e) card
+    against CPU, (f) the kernels' times."""
+    import numpy as np
+
+    from wxfactory_tpu_torch.kernels.check import compare_euler3d_advection_tangent
+    from wxfactory_tpu_torch.profile import profile_simulation
+
+    t0 = time.perf_counter()
+    rows = []
+    for shape in ADVECTION_SHAPES:
+        for ntracer in (1, 4):
+            for dtype in (torch.float64, torch.float32):
+                rows += compare_euler3d_advection_tangent(*shape, ntracer, dtype, device="cuda")
+    checks_s = time.perf_counter() - t0
+    main, state, sim = _advection_tangent_run(torch, ADVECTION_TANGENT_MAIN)
+    with contextlib.redirect_stdout(io.StringIO()):
+        prof = profile_simulation(sim, steps=2, warmup=0)
+    main.update(device_busy_share=prof["device_busy_share"], profiled_step_ms=prof["profiled_step_ms"],
+                profile_kernels_us_per_step=prof["kernels_us_per_step"][:6])
+    timing, main_checks = _advection_tangent_timing(torch, smi, sim, state)
+    rows += main_checks
+    # (c) kiops_jit on (b)'s Simulation (its geometry and metric).
+    sim.config.exponential_solver = "kiops_jit"
+    sim.integrator = sim._create_integrator()
+    jit_run = ("c_dcmip11_epi2_kiops_jit",) + ADVECTION_TANGENT_MAIN[1:6] + ("kiops_jit",) + ADVECTION_TANGENT_MAIN[7:]
+    jit_row = _advection_tangent_run(torch, jit_run, sim=sim)[0]
+    del sim
+    runs = [main, jit_row] + [_advection_tangent_run(torch, run)[0] for run in ADVECTION_TANGENT_RUNS]
+    nel_h, nel_v, s, _ = ADVECTION_CPU
+    cpu = []
+    for tag, case, integrator, tol in ADVECTION_TANGENT_CPU:
+        run = (tag, case, nel_h, nel_v, s, integrator, "kiops", "none", 2)
+        grow, got, _ = _advection_tangent_run(torch, run)
+        crow, want, _ = _advection_tangent_run(torch, run, device="cpu")
+        scale = np.abs(want).reshape(want.shape[0], -1).max(axis=1).reshape(-1, *([1] * (want.ndim - 1)))
+        cpu.append({"tag": tag, "err": float((np.abs(got - want) / scale).max()), "tol": tol,
+                    "iterations_card": grow["iterations_per_step"], "iterations_cpu": crow["iterations_per_step"]})
+    emit_comparison(39, rows, ("nel_h", "nel_v", "s", "ntracer"))
+    emit({"phase": 39, "runs": runs, "timing": timing, "cpu": cpu, "checks_s": checks_s})
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"phase 39: the advection tangent kernels disagree with their plain versions: {bad[:4]}")
+    if not all(c["err"] <= c["tol"] and c["iterations_card"] == c["iterations_cpu"] for c in cpu):
+        raise AssertionError(f"phase 39: the card and the CPU differ: {cpu}")
+    main_rows = [r for r in rows if (r["nel_h"], r["nel_v"], r["s"]) == ADVECTION_MAIN and r["dtype"] == "float64"]
+    return {"launches": {"prep": main["launches"]["euler3d_advection_tangent_prep"],
+                         "apply": main["launches"]["euler3d_advection_tangent_apply"]},
+            "max_abs_err": {"prep": max(r["prep_max_abs_err"] for r in main_rows),
+                            "apply": max(r["max_abs_err"] for r in main_rows)},
+            "timing": timing[0]}
+
+
 def main() -> int:
     try:
         import torch
@@ -4523,6 +4787,7 @@ def main() -> int:
     timed(36, phase36, torch)
     advection = timed(37, phase37, torch, smi)
     cartesian = timed(38, phase38, torch, smi)
+    advection_tangent = timed(39, phase39, torch, smi)
     sw_entry = lambda name, mode, replaces, source="wxfactory_tpu_torch/csrc/sw_operator.cu", row=swt["sw_pert"]: {
         "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": sw_counts[name],
         "max_abs_err": sw_errs[name], "ms": row[f"{mode}_kernel_ms"], "plain_ms": row[f"{mode}_plain_ms"],
@@ -4690,6 +4955,23 @@ def main() -> int:
                         "bound_by": ct[f"{mode}_bound_by"], "library_ms": None,
                         **({"rhs_ms": ct["rhs_kernel_ms"], "rhs_bound_ms": ct["rhs_bound_ms"]}
                            if name == "euler_cartesian" else {})})
+    # The Jacobian action of the DCMIP 11/12 advection, timed at the main
+    # path's width in float64 with 4 tracers; launches from path (b).
+    tt = advection_tangent["timing"]
+    for kernel in ("prep", "apply"):
+        # The apply is held to the function's bound (J.v from q and v), the
+        # prep to its own; the apply's own floor beside it.
+        bound = ({"bound_ms": tt["prep_own_bound_ms"], "bound_by": tt["prep_own_bound_by"]} if kernel == "prep" else
+                 {"bound_ms": tt["function_bound_ms"], "bound_by": tt["function_bound_by"],
+                  "apply_floor_ms": tt["apply_own_bound_ms"]})
+        kernels.append({"name": f"euler3d_advection_tangent_{kernel}", "route": "cuda",
+                        "source": "wxfactory_tpu_torch/csrc/euler3d_advection_tangent.cu",
+                        "replaces": "jax.jvp of XLA `_euler3d_rhs_core(advection_only=True)`, "
+                                    "wxfactory_tpu/models/euler_cubesphere.py:90-291 (no Pallas kernel"
+                                    + ("; its linearisation)" if kernel == "prep" else ")"),
+                        "launches": advection_tangent["launches"][kernel],
+                        "max_abs_err": advection_tangent["max_abs_err"][kernel], "ms": tt[f"{kernel}_kernel_ms"],
+                        "plain_ms": tt[f"{kernel}_plain_ms"], **bound, "library_ms": None})
     unmeasured = [k["name"] for k in kernels if not (k["ms"] > 0 and k["plain_ms"] > 0 and k["launches"] > 0)]
     if unmeasured:
         raise AssertionError(f"kernels without a time, a plain time or a launch on the main path: {unmeasured}")

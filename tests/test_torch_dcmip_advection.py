@@ -22,9 +22,11 @@ against the JAX package, on the CPU:
   rho * the winds at t_end, the tracers' mass conserved; a restart from
   the port's checkpoint equal to the uninterrupted run; the NetCDF file's
   variables those of the JAX run (neither writes tracers);
-* the refusals, each naming its ROADMAP item: EPI2 and Ros2 on 11/12
-  (item 18), 11/12 over 6 ranks (item 14; ``shard_map`` the JAX package's
-  ValueError), a tracer count the kernel does not take (2);
+* the refusals, each naming its ROADMAP item: 11/12 over 6 ranks (item
+  14; ``shard_map`` the JAX package's ValueError), a tracer count the
+  kernel does not take (2); the implicit, exponential and Rosenbrock
+  integrators run these cases (tests/test_torch_dcmip_advection_tangent.py,
+  which also holds the multigrid's refusal, item 19);
 * the five-row halo glue bit for bit what it was before tracer rows."""
 
 import numpy as np
@@ -264,12 +266,6 @@ def test_netcdf_matches_jax(tmp_path_factory):
     for name, w in want.items():
         tol = 1e-9 if name in ("U", "V", "W") else 1e-12  # the winds as tests/test_torch_output.py holds them
         assert got[name].shape == w.shape and np.abs(got[name] - w).max() <= tol * max(np.abs(w).max(), 1e-300), name
-
-
-@pytest.mark.parametrize("integrator,case", [("epi2", 11), ("ros2", 12), ("crank_nicolson", 11)])
-def test_implicit_and_exponential_integrators_refuse(tmp_path, integrator, case):
-    with pytest.raises(NotImplementedError, match="item 18"):
-        Simulation(Configuration(_ini(tmp_path, case, integrator)), device="cpu")
 
 
 @pytest.mark.parametrize("case", [11, 12])

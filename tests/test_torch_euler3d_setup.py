@@ -99,21 +99,31 @@ def test_halo_state_3d_matches_jax(rotation, covariant):
         _close(scalars[side].numpy(), np.asarray(j_scalars[side]), 1e-14)
 
 
-def test_unported_cases_raise():
-    """DCMIP 11 and 12 set up with their tracer rows; what the port does not
-    run of them yet, the advection operator's Jacobian action, raises naming
-    its ROADMAP item."""
+def test_unported_cases_raise(tmp_path):
+    """DCMIP 11 and 12 set up with their tracer rows, and their advection
+    operator's Jacobian action runs (rows 0-4 exactly 0); what the port does
+    not run of them yet, the multigrid levels, raises naming its ROADMAP
+    item."""
+    from wxfactory_tpu_torch.config import Configuration
     from wxfactory_tpu_torch.models import Euler3DAdvectionRHS
+    from wxfactory_tpu_torch.simulation import Simulation
     from wxfactory_tpu_torch.testcases import initial_state_3d
 
     g = make_cubed_sphere_3d(3, 2, 2, 10000.0)
     ops = make_dfr_operators(2, three_d=True)
     rhs = Euler3DAdvectionRHS(g, ops, make_metric_3d(g, ops, CubedSphereTopology(g)), device="cpu")
+    ini = ("[General]\nequations = euler\n[System]\ndistribute = off\n[Test_case]\ncase_number = {case}\n"
+           "[Time_integration]\ndt = 1\nt_end = 1\ntime_integrator = ros2\n[Preconditioning]\n"
+           "preconditioner = p-mg\n[Spatial_discretization]\nnum_solpts = 2\nnum_elements_horizontal = 3\n"
+           "num_elements_vertical = 2\n[Grid]\ngrid_type = cubed_sphere\nztop = 12000\n"
+           "[Output_options]\noutput_dir = {out}\n")
     for case in (11, 12):
         q = torch.as_tensor(initial_state_3d(g, case)[0])
         assert q.shape[0] == (9 if case == 11 else 6)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            rhs.jtv_prep(q)
+        jv = rhs.jtv(q, q)
+        assert jv.shape == q.shape and bool((jv[:5] == 0).all()) and bool(torch.isfinite(jv).all())
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 19"):
+            Simulation(Configuration(ini.format(case=case, out=tmp_path)), device="cpu")
 
 
 def test_christoffel_system_is_the_reference_loop_bit_for_bit():

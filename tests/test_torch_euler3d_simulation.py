@@ -4,9 +4,10 @@ Simulation classes on the CPU; the final states agree to 1e-12 of each
 variable's max, mass (sum of sqrt(g) w^3 rho, tests/test_euler3d.py:78-93)
 drifts by less than 1e-12, and the JAX package's load_state reads the
 port's checkpoint. Case 77 (rotating planet) takes the same path; what the
-port does not run yet of the advection-only cases 11 and 12 (their
-exponential integrators) raises. The terrain cases 20-22:
-tests/test_torch_dcmip_terrain.py; 11 and 12: tests/test_torch_dcmip_advection.py."""
+port does not run yet of the advection-only cases 11 and 12 (the
+multigrid preconditioners, ROADMAP item 19) raises. The terrain cases
+20-22: tests/test_torch_dcmip_terrain.py; 11 and 12:
+tests/test_torch_dcmip_advection.py and _advection_tangent.py."""
 
 import numpy as np
 import pytest
@@ -84,6 +85,7 @@ def test_float32_run_uses_the_balanced_offset(tmp_path):
 @pytest.mark.parametrize("case", [11, 12])
 def test_unported_3d_cases_raise(tmp_path, case):
     cfg = Configuration(INI.format(case=case, dt=2.0, t_end=20.0, save=0, out=tmp_path).replace(
-        "time_integrator = tvdrk3", "time_integrator = epi2"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        "time_integrator = tvdrk3", "time_integrator = ros2").replace(
+        "[Spatial_discretization]", "[Preconditioning]\npreconditioner = p-mg\n[Spatial_discretization]"))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 19"):
         Simulation(cfg, device="cpu")

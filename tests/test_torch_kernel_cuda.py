@@ -3,7 +3,7 @@ shared-memory use, the SW halo, edge-trace, whole-run and tangent (J.v) kernels,
 pair with bottom topography, the SW perturbation form with bottom topography, the SW tangent pair at s = 1 and the multigrid levels that launch it, 3D Euler
 operator, its tangent
 prep and apply kernels and the perturbation form of both, with its stage mode, their terrain instantiations
-(DCMIP 20, 21, 22: every panel's metric, the Rayleigh sponge), the tracer-advection kernel of DCMIP 11 and 12, the
+(DCMIP 20, 21, 22: every panel's metric, the Rayleigh sponge), the tracer-advection kernel of DCMIP 11 and 12 and its tangent prep and apply kernels, the
 2D Cartesian Euler kernels (the DFR operator and its tangent, the FV operator and its tangent), and
 the tile kernels of both models with the tile steps' launch counts) against their plain torch versions, on the card. Needs a CUDA device and nvcc, and skips without them. On a GPU
 machine run it without tests/conftest.py (which configures JAX):
@@ -19,9 +19,11 @@ import torch
 from wxfactory_tpu_torch.kernels.check import (
     E3_TILE_SHAPES,
     SW_TILE_SHAPES,
+    advection_direction,
     advection_inputs,
     case6_inputs,
     compare_euler3d_advection,
+    compare_euler3d_advection_tangent,
     compare_euler_cartesian,
     compare_euler_cartesian_fv,
     euler_cartesian_inputs,
@@ -470,6 +472,36 @@ def test_euler3d_advection_counter_counts_kernel_launches_only(cuda):
     assert e3op.advection_launches == before + 1 and e3op.plain_calls == plain + 1
     with pytest.raises(ValueError, match="1 or 4"):
         e3op.euler3d_advection(torch.cat([y, y[5:6]]).contiguous(), torch.cat([halo, halo[5:6]]).contiguous(), con)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("ntracer", [1, 4])
+@pytest.mark.parametrize("nel_h,nel_v,s", [(3, 2, 2), (4, 3, 3), (2, 2, 4), (2, 1, 5), (2, 2, 6)])
+def test_euler3d_advection_tangent_kernels_match_plain(cuda, nel_h, nel_v, s, ntracer, dtype):
+    """The advection tangent's prep + apply against the plain pair (random
+    direction with every row set; zero normal speed on both sides of some
+    interfaces), each kernel against its plain version, J.(0, dT) against
+    the RHS kernel, each tracer's mass (kernels/check.py)."""
+    rows = compare_euler3d_advection_tangent(nel_h, nel_v, s, ntracer, dtype, device="cuda")
+    assert all(r["ok"] for r in rows), rows
+
+
+def test_euler3d_advection_tangent_counters_count_kernel_launches_only(cuda):
+    con, topology, _, _, y = advection_inputs(3, 2, 2, 4, torch.float64, "cuda")
+    v = advection_direction(y)
+    halo_q, halo_v = tangent_halos(y, v, con, topology)
+    counts = lambda: (e3op.advection_tangent_prep_launches, e3op.advection_tangent_apply_launches, e3op.plain_calls,
+                      e3op.plain_tangent_calls)
+    before = counts()
+    e3op.euler3d_advection_tangent_plain(y, v, halo_q, halo_v, con)
+    coef = e3op.euler3d_advection_tangent_prep(y, halo_q, con)
+    e3op.euler3d_advection_tangent_apply(v, halo_v, coef, con)
+    e3op.euler3d_advection_tangent_apply(v, halo_v, coef, con)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == [1, 2, 1, 1]
+    with pytest.raises(ValueError, match="1 or 4"):
+        e3op.euler3d_advection_tangent_prep(torch.cat([y, y[5:6]]).contiguous(),
+                                            torch.cat([halo_q, halo_q[5:6]]).contiguous(), con)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])

@@ -141,6 +141,17 @@ SIGNATURES = {
         "euler3d_advection_resources": (_I, [_I, _I, _I, _I, _P]),
         "euler3d_advection_error_string": (ctypes.c_char_p, [_I]),
     },
+    # The Jacobian action of the tracer advection (a prep and an apply), a source and library of its own.
+    "euler3d_advection_tangent": {
+        # is_f64, s, nt, nel_h, nel_v, then q, halo_q, ops1d, coef; stream
+        "euler3d_advection_tangent_prep_launch": (_I, [_I] * 5 + [_P] * 4 + [_P]),
+        # is_f64, s, nt, nel_h, nel_v, then v, halo_v, ops1d, fields, itf_x, itf_y, itf_z, coef, rows, out; stream
+        "euler3d_advection_tangent_apply_launch": (_I, [_I] * 5 + [_P] * 10 + [_P]),
+        # is_f64, s, nt, kernel (0 prep node pass, 1 prep interface pass, 2 apply interface pass,
+        # 3 apply volume pass), int[5] out
+        "euler3d_advection_tangent_resources": (_I, [_I, _I, _I, _I, _P]),
+        "euler3d_advection_tangent_error_string": (ctypes.c_char_p, [_I]),
+    },
     # The 2D Cartesian Euler operators (DFR and finite volume) and their Jacobian actions.
     "euler_cartesian": {
         # is_f64, s, nel_x, nel_z, then q, ops1d, x, out; a, b, cdt, stage; stream

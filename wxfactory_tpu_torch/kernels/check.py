@@ -2251,6 +2251,292 @@ def advection_kernel_resources(dtype, s: int, ntracer: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The Jacobian action of the tracer advection (DCMIP 11 and 12)
+#
+# ``compare_euler3d_advection_tangent``: the prep and apply kernels against
+# their plain versions on ``advection_inputs``' state y in a direction v of
+# 1e-3 of each row's max times N(0,1) (rows 0-4 too), in two modes:
+# ``tangent`` (y as it is) and ``tangent_ties`` (the momenta of every
+# element of the first half of the columns of each panel zeroed, so that the
+# interfaces between them have zero normal speed on both sides: the tie of
+# max(|vL|, |vR|) at 0). J.v's rows are scaled by the larger of their max
+# and the tracer's J.v term scale (``advection_tangent_term_scale``); rows
+# 0-4 must be exactly 0. float64: J.v within 1e-12 of the plain pair's; the
+# prep's buffer within 1e-12 of each row's max (c_L and c_R, the tie
+# weights, apart: the share of entries that differ, reported); the
+# apply on the kernel's buffer within 1e-12 of its plain version's. float32:
+# against the plain float64 pair on the same (float32-rounded) inputs,
+# within 1e-5 or twice the plain float32 pair's distance from it (J.v, and
+# the prep's buffer row by row). Each tracer's mass integral of the
+# kernels' J.v against the plain pair's (as ``compare_advection`` holds the
+# RHS's), and of their J.(0, 0, 0, 0, 0, dT), the kind of direction the
+# path's Krylov loop applies, over its absolute integral: zero to 1e-12
+# (float64; 1e-5 float32). J.v itself carries tracer mass in a direction
+# that moves the momenta: at a panel-edge point whose normal speed is
+# exactly 0 on both sides, jax.jvp's d|x| = +dx (the rule the port keeps)
+# gives the two panels, whose normals point opposite ways there, two
+# flux derivatives. In the ``tangent`` mode also J.(0, dT) against the
+# advection kernel's RHS at (rho, m, rho*theta, dT) (the operator is linear
+# in the tracers at fixed rho and m), within the operator tolerance of that
+# RHS's row scale.
+
+ADVECTION_TANGENT_MODES = ("tangent", "tangent_ties")
+
+
+def advection_direction(q: torch.Tensor, seed: int = 7) -> torch.Tensor:
+    """A direction of 1e-3 of each row's max of ``q`` times N(0,1) (numpy,
+    seeded), every row set."""
+    rng = np.random.default_rng(seed)
+    scale = per_variable_max(q).double().cpu().numpy().reshape(-1, *([1] * (q.dim() - 1)))
+    return torch.as_tensor(1e-3 * scale * rng.standard_normal(tuple(q.shape)), dtype=q.dtype, device=q.device)
+
+
+def zero_momenta_columns(q: torch.Tensor) -> torch.Tensor:
+    """q with the momenta of the first half of the element columns (ex; at
+    least one) of every panel and level set to 0."""
+    out = q.clone()
+    out[1:4, :, :, :, : max(1, q.shape[4] // 2)] = 0.0
+    return out
+
+
+def _ratio(x: float, scale: float) -> float:
+    """x / scale, with 0 / 0 = 0 (a zero field carries no mass)."""
+    return abs(x) / scale if scale > 0 else (0.0 if x == 0 else float("inf"))
+
+
+def advection_tangent_term_scale(q: torch.Tensor, v: torch.Tensor, con) -> torch.Tensor:
+    """Per-row scale of J(q).v: for each tracer row the max of its interior
+    flux-derivative divergence ``inv_sqrtG * div(sqrt(g) (u_d dT_k + (T_k /
+    rho)(dm_d - u_d d rho)))``; 0 for rows 0-4."""
+    q, v = q.double(), v.double()
+    sqrtg, invsg = con.fields[0].double(), con.fields[1].double()
+    rho = q[0]
+    flux = []
+    for d in range(3):
+        u = q[1 + d] / rho
+        flux.append(sqrtg * (u * v[5:] + (q[5:] / rho) * (v[1 + d] - u * v[0])))
+    scale = torch.zeros(q.shape[0], dtype=torch.float64, device=q.device)
+    scale[5:] = per_variable_max(invsg * (torch.cat(flux, dim=-1) @ con.dd.double()))
+    return scale
+
+
+def _advection_prep_rows(coef, con) -> dict:
+    """{name: row} of an advection tangent buffer: the node rows and each
+    family's interface rows (face_z holds none with one level)."""
+    node, faces = e3op.advection_tangent_parts(coef, con)
+    nt = coef.ntracer
+    names = list(e3op.ADVECTION_TANGENT_NODE_ROWS) + [f"phi{n}" for n in range(nt)]
+    rows = {name: node[r] for r, name in enumerate(names)}
+    face_names = list(e3op.ADVECTION_TANGENT_FACE_ROWS) + [f"T{n}_{side}" for side in "LR" for n in range(nt)]
+    for fam, face in zip("xyz", faces):
+        if face.numel():
+            rows.update({f"{fam}.{name}": face[r] for r, name in enumerate(face_names)})
+    return rows
+
+
+ADVECTION_TIE_ROWS = ("c_L", "c_R")
+
+
+def compare_euler3d_advection_tangent(nel_h: int, nel_v: int, s: int, ntracer: int, dtype, device="cuda",
+                                      seed: int = 0):
+    """The advection tangent's prep and apply kernels against their plain
+    versions on ``advection_inputs`` (``compare_advection_tangent``)."""
+    con, topology, ops, _, y = advection_inputs(nel_h, nel_v, s, ntracer, dtype, device, seed)
+    con64 = con if dtype == torch.float64 else euler3d_constants(nel_h, nel_v, s, ADVECTION_CASES[ntracer],
+                                                                 torch.float64, device)
+    return compare_advection_tangent(con, con64, topology, ops, y, advection_direction(y))
+
+
+def compare_advection_tangent(con, con64, topology, ops, q, v):
+    """The advection tangent's kernels against their plain versions at the
+    state ``q`` in the direction ``v`` (``con``'s dtype and device;
+    ``con64`` the float64 constants of the float32 truth), in the modes of
+    ``ADVECTION_TANGENT_MODES``; one dict a mode with the scaled error
+    ``err`` (worst row), its tolerance ``tol`` and ``ok`` (tolerances
+    above)."""
+    dtype, device = con.dtype, con.device
+    f64 = dtype == torch.float64
+    tol = E3_TOLERANCE[dtype]
+    own_tol = 1e-12 if f64 else 1e-5
+    wsg = mass_weights(ops, con)
+    results = []
+    for mode in ADVECTION_TANGENT_MODES:
+        y = q if mode == "tangent" else zero_momenta_columns(q)
+        halo_q, halo_v = tangent_halos(y, v, con, topology)
+        coef = e3op.euler3d_advection_tangent_prep(y, halo_q, con)
+        got = e3op.euler3d_advection_tangent_apply(v, halo_v, coef, con)
+        want_coef = e3op.euler3d_advection_tangent_prep_plain(y, halo_q, con)
+        want = e3op.euler3d_advection_tangent_apply_plain(v, halo_v, want_coef, con)
+        apply_plain = e3op.euler3d_advection_tangent_apply_plain(v, halo_v, coef, con)
+        if device.type != "cpu":
+            torch.cuda.synchronize()
+        term = advection_tangent_term_scale(y, v, con64)
+        scale = torch.maximum(per_variable_max(want).double(), term)
+        scale = torch.where(scale > 0, scale, torch.ones_like(scale))  # rows 0-4: exactly 0
+        err = lambda a, b: per_variable_max(a.double() - b.double()) / scale
+        got_rows, want_rows = _advection_prep_rows(coef, con), _advection_prep_rows(want_coef, con)
+        row_err = lambda g, w: float((g.double() - w.double()).abs().max() / w.double().abs().max().clamp_min(1e-300))
+        tie_rows = [k for k in got_rows if k.split(".")[-1] in ADVECTION_TIE_ROWS]
+        flips = sum(int((got_rows[k] != want_rows[k]).sum()) for k in tie_rows)
+        ties = sum(want_rows[k].numel() for k in tie_rows)
+        values = {k: r for k, r in got_rows.items() if k not in tie_rows}
+        row = {"nel_h": con.nel_h, "nel_v": con.nel_v, "s": con.s, "ntracer": q.shape[0] - 5,
+               "dtype": str(dtype).replace("torch.", ""), "mode": mode, "max_abs_err": float((got - want).abs().max()),
+               "scale": "max(output_max, term)", "dynamical_rows_zero": bool((got[:5] == 0).all()),
+               "tie_flips": flips / ties, "apply_err": float((err(got, apply_plain)).max()),
+               "prep_max_abs_err": max(float((values[k] - want_rows[k]).abs().max()) for k in values)}
+        ok = row["dynamical_rows_zero"] and row["apply_err"] <= (tol if f64 else E3_TANGENT_TOLERANCE[dtype])
+        if f64:
+            row["row_err"] = [float(e) for e in err(got, want)]
+            row["err"] = max(row["row_err"])
+            row["prep_err"] = max(row_err(values[k], want_rows[k]) for k in values)
+            ok = ok and row["err"] <= tol and row["prep_err"] <= tol
+        else:
+            y64, v64 = y.double(), v.double()
+            h64 = tangent_halos(y64, v64, con64, topology)
+            truth_coef = e3op.euler3d_advection_tangent_prep_plain(y64, h64[0], con64)
+            truth = e3op.euler3d_advection_tangent_apply_plain(v64, h64[1], truth_coef, con64)
+            kernel_err, plain_err = err(got, truth), err(want, truth)
+            limit = torch.clamp(2.0 * plain_err, min=tol)
+            truth_rows = _advection_prep_rows(truth_coef, con64)
+            prep = {k: [row_err(values[k], truth_rows[k]), row_err(want_rows[k], truth_rows[k])] for k in values}
+            row.update(row_err=[float(e) for e in kernel_err], plain_row_err=[float(e) for e in plain_err],
+                       err=float((kernel_err / limit).max()) * tol, kernel_vs_plain=float(err(got, want).max()),
+                       prep_err=max(k for k, _ in prep.values()),
+                       prep_rows_over=[k for k, (kern, plain) in prep.items() if not kern <= max(tol, 2.0 * plain)])
+            ok = ok and bool((kernel_err <= limit).all()) and not row["prep_rows_over"]
+        row["tol"] = tol
+        # Each tracer's mass of J.v against the plain pair's, and the mass of
+        # J.(0, dT), the path's kind of direction, against zero.
+        v_t = torch.cat([torch.zeros_like(v[:5]), v[5:]]).contiguous()
+        jv_t = e3op.euler3d_advection_tangent_apply(v_t, tangent_halos(y, v_t, con, topology)[1], coef, con)
+        masses = []
+        for r in range(5, q.shape[0]):
+            g_int, _ = advection_mass(got, r, wsg)
+            w_int, w_abs = advection_mass(want, r, wsg)
+            t_int, t_abs = advection_mass(jv_t, r, wsg)
+            m = {"err": _ratio(g_int - w_int, w_abs), "tol": tol + (4.0 * torch.finfo(dtype).eps if w_abs > 0 else 0.0),
+                 "own_dT": _ratio(t_int, t_abs), "own_tol": own_tol}
+            masses.append(m)
+            ok = ok and m["err"] <= m["tol"] and m["own_dT"] <= own_tol
+        row["tracer_mass"] = masses
+        if mode == "tangent":  # J.(0, dT) against the RHS kernel at (rho, m, rho*theta, dT)
+            q_t = torch.cat([y[:5], v[5:]]).contiguous()
+            rhs = e3op.euler3d_advection(q_t, e3op.halo_from_traces(e3op.edge_traces(q_t, con), topology), con)
+            rhs_scale = torch.maximum(per_variable_max(rhs).double(), advection_term_scale(q_t.double(), con64))
+            rhs_scale = torch.where(rhs_scale > 0, rhs_scale, torch.ones_like(rhs_scale))
+            row["rhs_linearity_err"] = float((per_variable_max(jv_t.double() - rhs.double()) / rhs_scale).max())
+            ok = ok and row["rhs_linearity_err"] <= tol
+        row["ok"] = bool(ok and torch.isfinite(got).all().item())
+        results.append(row)
+    return results
+
+
+def _advection_tangent_counts(con, ntracer: int):
+    """(node words, edge words, interface points with a flux, all interface
+    points) of one shape."""
+    nh, nk, s = con.nel_h, con.nel_v, con.s
+    s2 = s * s
+    nodes = 6 * nk * nh * nh * s**3
+    edge = 4 * 6 * nk * nh * s2
+    points = e3op.advection_interface_points(con)
+    return nodes, edge, points - 2 * 6 * nh * nh * s2, points
+
+
+def _advection_metric_words(con) -> int:
+    """sqrt(g) and 1/sqrt(g) (one panel) and the interface sqrt(g)."""
+    return 2 * (con.fields.numel() // con.fields.shape[0]) + sum(
+        f.numel() // f.shape[0] for f in (con.itf_x, con.itf_y, con.itf_z))
+
+
+def euler3d_advection_tangent_work(con, ntracer: int):
+    """(bytes, operations) of the Jacobian action J(q).v of the advection
+    operator as one function of q, v and their halos (the bound of the
+    pair; each kernel's own floor is ``euler3d_advection_tangent_prep_work``
+    and ``_apply_work``), counted as ``euler3d_advection_work`` counts: rho,
+    the momenta and the tracers of q and of v read once, rho, the two
+    horizontal momenta and the tracers of each halo, the metric it needs,
+    J.v written once (every row). Operations (an add, multiply, divide, log
+    or exp one, an fma two): a node's velocities and mixing ratios, the
+    three d(m_d) - u_d d rho, each tracer's three flux derivatives (4
+    each), divergence (6 s) and corrections (13); an interior interface
+    point's primal traces of both sides (rho 3 s + 1, the normal momentum 2
+    s, each tracer 2 s) and direction traces (d rho 3 s + 1, 2 s, 2 s a
+    tracer), its speeds and their derivatives (the eigenvalue's tie rule
+    included: 17) and each tracer's flux derivative (15); the ground and
+    the lid need none."""
+    nodes, edge, flux_points, _ = _advection_tangent_counts(con, ntracer)
+    item = torch.finfo(con.dtype).bits // 8
+    words = nodes * (2 * (4 + ntracer) + 5 + ntracer) + 2 * (3 + ntracer) * edge + _advection_metric_words(con)
+    s = con.s
+    ops = nodes * (3 + ntracer + 6 + ntracer * (12 + 6 * s + 13))
+    ops += flux_points * (2 * ((3 * s + 1) + 2 * s + 2 * s * ntracer) * 2 + 17 + 15 * ntracer)
+    return words * item, ops
+
+
+def euler3d_advection_tangent_prep_work(con, ntracer: int):
+    """(bytes, operations) of one prep, counted as ``euler3d_advection_work``
+    counts: rho, the momenta and the tracers of q and rho, the two
+    horizontal momenta and the tracers of its halo read once, the
+    coefficient buffer (``ops.euler3d_operator.advection_tangent_layout``,
+    which holds no entry at the ground and the lid) written once.
+    Operations: a node's 4 + nt divisions; each interface point off the
+    ground and the lid: its two primal traces (rho 3 s + 1, the normal
+    momentum 2 s, each tracer 2 s), its two speeds, their magnitudes, the
+    eigenvalue and the tie weights (9)."""
+    nodes, edge, flux_points, _ = _advection_tangent_counts(con, ntracer)
+    item = torch.finfo(con.dtype).bits // 8
+    words = nodes * (4 + ntracer) + (3 + ntracer) * edge + e3op.advection_tangent_layout(con, ntracer)["size"]
+    s = con.s
+    ops = nodes * (4 + ntracer) + flux_points * (2 * ((3 * s + 1) + 2 * s + 2 * s * ntracer) + 9)
+    return words * item, ops
+
+
+def euler3d_advection_tangent_apply_work(con, ntracer: int):
+    """(bytes, operations) of one apply, counted as
+    ``euler3d_advection_work`` counts: rho, the momenta and the tracers of
+    v and the halo rows of v the apply reads, the coefficient buffer and
+    the metric read once, J.v written once. The apply's own floor, beside
+    the function's (``euler3d_advection_tangent_work``): the buffer is its
+    price for doing no transcendental and no division at the nodes.
+    Operations: a node's three d(m_d) - u_d d rho (6), each tracer's three
+    flux derivatives (4 each), divergence (6 s) and corrections (13); an
+    interior interface point's two direction traces (d rho 3 s + 1, the
+    normal momentum 2 s, each tracer 2 s), the speeds' derivatives (9: two
+    of them divisions), the sqrt(g) products (6) and each tracer's flux
+    derivative (15)."""
+    nodes, edge, flux_points, _ = _advection_tangent_counts(con, ntracer)
+    item = torch.finfo(con.dtype).bits // 8
+    words = nodes * (4 + ntracer + 5 + ntracer) + (3 + ntracer) * edge + _advection_metric_words(con)
+    words += e3op.advection_tangent_layout(con, ntracer)["size"]
+    s = con.s
+    ops = nodes * (6 + ntracer * (12 + 6 * s + 13))
+    ops += flux_points * (2 * ((3 * s + 1) + 2 * s + 2 * s * ntracer) + 15 + 15 * ntracer)
+    return words * item, ops
+
+
+def advection_tangent_kernel_resources(dtype, s: int, ntracer: int) -> dict:
+    """{"prep_node", "prep_interface", "apply_interface", "apply_volume":
+    {registers, local_bytes, smem_bytes, blocks_per_sm, threads}}: what the
+    runtime reports of the advection tangent's four kernels at one dtype, s
+    and tracer count (on the card; builds the library)."""
+    import ctypes
+
+    from .build import load_library
+
+    lib = load_library("euler3d_advection_tangent")
+    out = {}
+    for kernel, name in enumerate(("prep_node", "prep_interface", "apply_interface", "apply_volume")):
+        info = (ctypes.c_int * 5)()
+        rc = lib.euler3d_advection_tangent_resources(1 if dtype == torch.float64 else 0, s, ntracer, kernel,
+                                                     ctypes.cast(info, ctypes.c_void_p))
+        if rc != 0:
+            raise RuntimeError(f"euler3d_advection_tangent_resources failed: CUDA error {rc}")
+        out[name] = dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm", "threads"), info))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The 2D Cartesian Euler operators (DFR and FV) and their Jacobian actions.
 #
 # Inputs (``euler_cartesian_inputs``): a case's initial state with seeded

@@ -43,9 +43,12 @@ does. The JAX factory's ``advection_only`` (DCMIP 11/12, which it runs
 through XLA) is ``Euler3DAdvectionRHS``: the tracer-advection operator
 under prescribed winds on a state of 5 + nt rows, one launch of its own
 kernel (``ops.euler3d_advection``) an RHS call or RK stage, with the same
-fused stage API; no well-balanced offset (the JAX factory ignores
-``base_state`` there) and no Jacobian action yet (ROADMAP queue 1, item
-18).
+fused stage API, and its Jacobian action in two stages as the five-variable
+RHS's: ``jtv_prep(q)`` (q's traces and halo, then one launch of the
+advection tangent's prep kernel) and ``jtv_apply(prep, v)`` (the
+direction's traces and halo, then one launch of its linear apply kernel),
+the kernels' plain versions on the CPU; no well-balanced offset (the JAX
+factory ignores ``base_state`` there).
 """
 
 from dataclasses import dataclass
@@ -62,6 +65,8 @@ from ..ops.euler3d_operator import (
     edge_traces_delta,
     edge_traces_tangent,
     euler3d_advection,
+    euler3d_advection_tangent_apply,
+    euler3d_advection_tangent_prep,
     euler3d_operator,
     euler3d_tangent_apply,
     euler3d_tangent_pert_plain,
@@ -233,11 +238,6 @@ class Euler3DRHS:
         return self.pert.q0 + qp
 
 
-ITEM_18 = ("ROADMAP queue 1, item 18: the Jacobian action of the tracer-advection operator of DCMIP 11/12 (what the "
-           "exponential, Rosenbrock and implicit integrators and the preconditioners need there; the JAX package "
-           "takes jax.jvp of its XLA RHS) is not ported")
-
-
 class Euler3DAdvectionRHS:
     """The RHS of DCMIP 11/12 (the JAX factory's ``advection_only``) at one
     discretization, dtype and device (the card unless the caller asks for
@@ -246,7 +246,12 @@ class Euler3DAdvectionRHS:
     takes nt = 1 or 4; the CPU's plain version any). The fused stage API
     of ``Euler3DRHS`` (``traces``, ``halo``, ``stage``, identity ``pack`` /
     ``unpack``, ``__call__``): one advection launch an RHS call or stage.
-    The geometry must be flat (one panel's metric)."""
+    The Jacobian action J(q).v (what the exponential, Rosenbrock and
+    implicit integrators and the lu/ilu preconditioners take; the JAX
+    package takes jax.jvp of its XLA RHS) through ``jtv_prep``/``jtv_apply``:
+    one launch of the advection tangent's prep kernel a linearisation point
+    and one of its apply kernel a J.v on the card, their plain versions on
+    the CPU. The geometry must be flat (one panel's metric)."""
 
     def __init__(self, geom, ops, metric, dtype=torch.float64, device="cuda", topology=None):
         if has_topography(geom):
@@ -278,13 +283,21 @@ class Euler3DAdvectionRHS:
         return euler3d_advection(y, self.halo(traces), self.con, x=x, a=a, b=b, cdt=cdt, emit_traces=True)
 
     def jtv_prep(self, q: torch.Tensor):
-        raise NotImplementedError(ITEM_18)
+        """What every Jacobian action at ``q`` shares: (q, its panel-edge
+        traces for the direction's glue, the linearisation's coefficients
+        from one prep launch)."""
+        traces = self.traces(q)
+        return q, traces, euler3d_advection_tangent_prep(q, self.halo(traces), self.con)
 
     def jtv_apply(self, prep, v: torch.Tensor) -> torch.Tensor:
-        raise NotImplementedError(ITEM_18)
+        """J(q).v for the ``prep`` of q: the direction's traces and halo, then
+        one apply launch; rows 0-4 exactly 0."""
+        q, traces, coef = prep
+        halo_v = self.halo(edge_traces_tangent(q, v, self.con, traces))
+        return euler3d_advection_tangent_apply(v, halo_v, coef, self.con)
 
     def jtv(self, q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-        raise NotImplementedError(ITEM_18)
+        return self.jtv_apply(self.jtv_prep(q), v)
 
     def pack(self, q: torch.Tensor) -> torch.Tensor:
         return q

@@ -125,8 +125,12 @@ terrain_pert_launches = 0
 terrain_tangent_prep_launches = 0
 terrain_tangent_apply_launches = 0
 # Launches of the tracer-advection kernel (``euler3d_advection``; its plain
-# version counts in ``plain_calls``).
+# version counts in ``plain_calls``) and of its Jacobian action's prep and
+# apply kernels (their plain versions count in ``plain_calls`` and
+# ``plain_tangent_calls``).
 advection_launches = 0
+advection_tangent_prep_launches = 0
+advection_tangent_apply_launches = 0
 
 # Names of the single-panel interior fields, in the order of ``fields``
 # (the kernel relies on it): sqrt(g), 1/sqrt(g), 1/(dz/deta), the six
@@ -313,21 +317,22 @@ def edge_traces(q: torch.Tensor, con: E3Constants) -> torch.Tensor:
 
 def edge_traces_tangent(q: torch.Tensor, v: torch.Tensor, con: E3Constants,
                         traces: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Panel-edge traces of the direction ``v`` at the state ``q``: the
-    derivative of ``edge_traces`` (the momenta extrapolated linearly, rho
+    """Panel-edge traces of the direction ``v`` at the state ``q`` (5 rows,
+    or 5 plus the tracers of DCMIP 11/12): the derivative of
+    ``edge_traces`` (the momenta and the tracers extrapolated linearly, rho
     and rho*theta as ``tr_q * (E.(v/q))``; ``traces``: q's own edge traces,
     computed when None). The counterpart of ``_tangent_pools``
     (pallas_euler3d.py:1950-1970)."""
     if traces is None:
         traces = edge_traces(q, con)
     ss, ee = con.s**2, con.ee
-    lt = lambda sl: torch.cat([v[0:1][sl] / q[0:1][sl], v[1:4][sl], v[4:5][sl] / q[4:5][sl]])
+    lt = lambda sl: torch.cat([v[0:1][sl] / q[0:1][sl], v[1:4][sl], v[4:5][sl] / q[4:5][sl], v[5:][sl]])
     south = lt(np.s_[:, :, :, 0]) @ ee[:, 2 * ss : 3 * ss]
     north = lt(np.s_[:, :, :, -1]) @ ee[:, 3 * ss : 4 * ss]
     west = lt(np.s_[:, :, :, :, 0]) @ ee[:, :ss]
     east = lt(np.s_[:, :, :, :, -1]) @ ee[:, ss : 2 * ss]
     raw = torch.stack([south, north, west, east], dim=1)
-    return torch.cat([traces[0:1] * raw[0:1], raw[1:4], traces[4:5] * raw[4:5]])
+    return torch.cat([traces[0:1] * raw[0:1], raw[1:4], traces[4:5] * raw[4:5], raw[5:]])
 
 
 def halo_from_traces(traces: torch.Tensor, topology) -> torch.Tensor:
@@ -1094,6 +1099,16 @@ def euler3d_tile_operator(q, halo, con: E3Constants, x=None, a: float = 0.0, b: 
 ADVECTION_TRACERS = (1, 4)
 
 
+def _check_advection_kernel(con: E3Constants, nt: int, name: str):
+    """What the advection kernels take: 1 or 4 tracers, the flat metric."""
+    _check_npanel(con, 6, name)
+    if con.panel_metric:
+        raise ValueError(f"{name} takes one panel's metric (DCMIP 11 and 12 have no topography)")
+    if nt not in ADVECTION_TRACERS:
+        raise ValueError(f"the advection kernels take {' or '.join(map(str, ADVECTION_TRACERS))} tracers "
+                         f"(DCMIP 12, 11), not {nt}")
+
+
 def _advection_shapes(q, con: E3Constants):
     """(state shape, traces shape) of a state of q's row count."""
     nv = q.shape[0]
@@ -1162,9 +1177,6 @@ def euler3d_advection(q, halo, con: E3Constants, x=None, a: float = 0.0, b: floa
     ``advection_launches``, or raises. The kernel takes 1 or 4 tracers
     (DCMIP 12, 11) and the flat metric (one panel's)."""
     global advection_launches
-    _check_npanel(con, 6, "euler3d_advection")
-    if con.panel_metric:
-        raise ValueError("euler3d_advection takes one panel's metric (DCMIP 11 and 12 have no topography)")
     if q.shape[0] < 6:
         raise ValueError(f"euler3d_advection needs at least one tracer row, not {q.shape[0]} rows")
     if emit_traces and cdt is None:
@@ -1187,9 +1199,7 @@ def _launch_advection(q, halo, con: E3Constants, x, a: float, b: float, cdt: Opt
     """One launch of the advection kernel (C entry ``euler3d_advection_launch``)
     on the current stream."""
     nt = q.shape[0] - 5
-    if nt not in ADVECTION_TRACERS:
-        raise ValueError(f"the advection kernel takes {' or '.join(map(str, ADVECTION_TRACERS))} tracers "
-                         f"(DCMIP 12, 11), not {nt}")
+    _check_advection_kernel(con, nt, "euler3d_advection")
     if q.device.type != "cuda":
         raise ValueError(f"euler3d_advection runs on cpu or cuda tensors, not {q.device}")
     _check_kernel_shape(con, "euler3d_advection")
@@ -1212,6 +1222,230 @@ def _launch_advection(q, halo, con: E3Constants, x, a: float, b: float, cdt: Opt
         name = lib.euler3d_advection_error_string(rc).decode()
         raise RuntimeError(f"euler3d_advection_launch kernel launch failed: CUDA error {rc} ({name})")
     return (out, traces) if emit_traces else out
+
+
+# The Jacobian action of the advection operator, J(q).v for v = (d rho, d m,
+# d rho*theta, d T): rows 0-4 exactly 0, d rho*theta enters nothing, and each
+# tracer row is -(1/sqrt(g)) (sum_d D_d(d F_d) + the boundary corrections of
+# the flux derivative), with at the nodes d(sqrt(g) u_d T_k) = sqrt(g) (u_d
+# dT_k + (T_k / rho) (dm_d - u_d d rho)), at each interface the derivative of
+# the Rusanov flux from the direction's traces (d rho_L = rho_L E.(d rho /
+# rho), dm_L = E.dm, dT_L = E.dT, dv_L = (dm_L - v_L d rho_L) / rho_L) and
+# d max(|vL|, |vR|) by jax.jvp's rules (d|x| = +dx at x = 0 and -0, the mean
+# of the two sides' derivatives at a tie), and exactly 0 at the ground and
+# the lid. A prep once per linearisation point q writes what the apply
+# needs into one buffer (``advection_tangent_layout``):
+#
+#   node    (4 + nt, 6, nk, nh, nh, s^3)   rows ADVECTION_TANGENT_NODE_ROWS:
+#           1/rho, u_1, u_2, u_3 and T_k / rho, in the state's layout
+#   face_x  (7 + 2 nt, 6, nk, nh, nh+1, s^2)  one entry per interface point,
+#   face_y  (7 + 2 nt, 6, nk, nh+1, nh, s^2)  rows ADVECTION_TANGENT_FACE_ROWS
+#   face_z  (7 + 2 nt, 6, nk-1, nh, nh, s^2)  and the tracers' traces T_L, T_R
+#
+# c_L and c_R are d max(|vL|, |vR|) / d v_L and / d v_R (the tie weight times
+# the sign). face_z holds the levels between elements only: the ground's and
+# the lid's flux derivative is 0 whatever v is. The apply is linear in v.
+ADVECTION_TANGENT_NODE_ROWS = ("inv_rho", "u1", "u2", "u3")
+ADVECTION_TANGENT_FACE_ROWS = ("rho_L", "rho_R", "v_L", "v_R", "eig", "c_L", "c_R")
+
+
+@dataclass(frozen=True)
+class AdvectionTangentCoefficients:
+    """The linearisation of the advection operator at one state
+    (``euler3d_advection_tangent_prep``): the flat buffer in the layout of
+    ``advection_tangent_layout`` for ``ntracer`` tracers."""
+
+    values: torch.Tensor
+    ntracer: int
+
+
+def advection_tangent_layout(con: E3Constants, ntracer: int) -> dict:
+    """Shapes and offsets (in elements) of the parts of the advection
+    tangent's coefficient buffer, and its ``size``."""
+    nh, nk, s = con.nel_h, con.nel_v, con.s
+    kn, kf = len(ADVECTION_TANGENT_NODE_ROWS) + ntracer, len(ADVECTION_TANGENT_FACE_ROWS) + 2 * ntracer
+    shapes = {
+        "node": (kn, 6, nk, nh, nh, s**3),
+        "face_x": (kf, 6, nk, nh, nh + 1, s * s),
+        "face_y": (kf, 6, nk, nh + 1, nh, s * s),
+        "face_z": (kf, 6, nk - 1, nh, nh, s * s),
+    }
+    layout, offset = {}, 0
+    for name, shape in shapes.items():
+        layout[name] = (offset, shape)
+        offset += int(np.prod(shape))
+    layout["size"] = offset
+    return layout
+
+
+def advection_interface_points(con: E3Constants) -> int:
+    """The interface points of the sphere, the ground and the lid included:
+    the x, y and z families of the advection kernels' flux rows."""
+    nh, nk = con.nel_h, con.nel_v
+    return 6 * (2 * nk * nh * (nh + 1) + (nk + 1) * nh * nh) * con.s**2
+
+
+def advection_tangent_parts(coef: AdvectionTangentCoefficients, con: E3Constants):
+    """(node, [face_x, face_y, face_z]) views of a coefficient buffer."""
+    layout = advection_tangent_layout(con, coef.ntracer)
+    view = lambda name: coef.values.narrow(0, layout[name][0], int(np.prod(layout[name][1]))).view(layout[name][1])
+    return view("node"), [view("face_x"), view("face_y"), view("face_z")]
+
+
+def euler3d_advection_tangent_prep_plain(q, halo_q, con: E3Constants) -> AdvectionTangentCoefficients:
+    """Plain torch version of the advection tangent's prep kernel: the
+    coefficient buffer of the linearisation at q (``halo_q`` q's halo), on
+    the halo glue of the RHS (q's traces extrapolated as
+    ``euler3d_advection_plain`` extrapolates them). Counted in
+    ``plain_calls``."""
+    global plain_calls
+    plain_calls += 1
+    rho = q[0]
+    node = torch.stack([1.0 / rho, q[1] / rho, q[2] / rho, q[3] / rho] + [t / rho for t in q[5:]])
+    lr = _lr_states(_exp_rows(_log_rows(q) @ con.ee), halo_q)
+    faces = []
+    for d, _ in _FAMILIES:
+        qL, qR = lr[d]
+        vL, vR = _normal_speeds(qL, qR, d)
+        aL, aR = vL.abs(), vR.abs()
+        weight_l = torch.where(aL > aR, 1.0, torch.where(aL < aR, 0.0, 0.5)).to(aL.dtype)
+        sign = lambda x: torch.where(x >= 0, 1.0, -1.0).to(x.dtype)
+        face = torch.cat([torch.stack([qL[0], qR[0], vL, vR, torch.maximum(aL, aR), weight_l * sign(vL),
+                                       (1.0 - weight_l) * sign(vR)]), qL[5:], qR[5:]])
+        faces.append(face[:, :, 1:-1] if d == 2 else face)  # no z entry at the ground and the lid
+    values = torch.cat([node.reshape(-1)] + [f.reshape(-1) for f in faces])
+    return AdvectionTangentCoefficients(values, q.shape[0] - 5)
+
+
+def euler3d_advection_tangent_apply_plain(v, halo_v, coef: AdvectionTangentCoefficients, con: E3Constants):
+    """Plain torch version of the advection tangent's apply kernel: J.v from
+    the coefficient buffer ``coef``, the direction ``v`` (5 + nt rows) and
+    its halo ``halo_v`` (``edge_traces_tangent`` and ``halo_from_traces``),
+    linear in v; rows 0-4 exactly 0, the ground's and the lid's flux
+    derivative exactly 0. Counted in ``plain_tangent_calls``."""
+    global plain_tangent_calls
+    plain_tangent_calls += 1
+    nt = coef.ntracer
+    sqrtg, invsg = con.fields[0], con.fields[1]
+    node, faces = advection_tangent_parts(coef, con)
+    irho, u = node[0], node[1:4]
+    phi = node[4:]
+    # The ground's and the lid's z entries, whose flux derivative is zeroed
+    # below, as ones.
+    lid = faces[2].shape[:2] + (1,) + faces[2].shape[3:]
+    ones = torch.ones(lid, dtype=faces[2].dtype, device=faces[2].device)
+    faces[2] = torch.cat([ones, faces[2], ones], dim=2)
+
+    # Direction traces (rows d rho, dm_1..3, dT_k): the own side's from the
+    # nodes (rho through its primal own-face trace times E.(d rho / rho)),
+    # the far side's from the halo; the ground and the lid are zeroed below.
+    raw = torch.cat([(v[0] * irho)[None], v[1:4], v[5:]]) @ con.ee
+    own_rho = torch.cat([torch.cat(_own_faces(f[0], f[1], dim), dim=-1) for f, (_, dim) in zip(faces, _FAMILIES)],
+                        dim=-1)
+    tlr = _lr_states(torch.cat([own_rho[None] * raw[0:1], raw[1:]]), torch.cat([halo_v[0:4], halo_v[5:]]))
+
+    bund = []
+    for (d, dim), f in zip(_FAMILIES, faces):
+        tL, tR = tlr[d]
+        rL, rR, vL, vR, eig, cL, cR = f[:7]
+        TL, TR = f[7 : 7 + nt], f[7 + nt :]
+        sg = _itf_metric(con, d)[0]
+        dvL, dvR = (tL[1 + d] - vL * tL[0]) / rL, (tR[1 + d] - vR * tR[0]) / rR
+        deig = cL * dvL + cR * dvR
+        sl, sr, es, sdl, sdr, sde = sg * vL, sg * vR, sg * eig, sg * dvL, sg * dvR, sg * deig
+        flux = 0.5 * ((sdl * TL + sl * tL[4:]) + (sdr * TR + sr * tR[4:]) - (sde * (TR - TL) + es * (tR[4:] - tL[4:])))
+        if d == 2:  # the ground and the lid: the mirror's flux is exactly 0
+            flux[:, :, 0] = 0.0
+            flux[:, :, -1] = 0.0
+        bund.append(_faces(flux, dim))
+
+    w = [v[1 + d] - u[d] * v[0] for d in range(3)]
+    interior = torch.cat([sqrtg * (u[d] * v[5:] + phi * w[d]) for d in range(3)], dim=-1) @ con.dd
+    out = torch.zeros_like(v)
+    out[5:] = -invsg * (interior + torch.cat(bund, dim=-1) @ con.cc)
+    return out
+
+
+def euler3d_advection_tangent_plain(q, v, halo_q, halo_v, con: E3Constants):
+    """J(q).v of the advection operator in one call: the plain prep at q,
+    then the plain apply in the direction v (``halo_q`` and ``halo_v`` their
+    neighbour halos)."""
+    return euler3d_advection_tangent_apply_plain(v, halo_v, euler3d_advection_tangent_prep_plain(q, halo_q, con), con)
+
+
+def _launch_advection_tangent(entry: str, con: E3Constants, nt: int, *args):
+    """One launch of an advection tangent kernel through the C entry
+    ``entry`` with the leading (is_f64, s, nt, nel_h, nel_v) and the stream
+    added; raises on a refused launch."""
+    _check_kernel_shape(con, entry)
+
+    from ..kernels.build import load_library
+
+    lib = load_library("euler3d_advection_tangent")
+    with torch.cuda.device(con.device):
+        stream = torch.cuda.current_stream(con.device).cuda_stream
+        rc = getattr(lib, entry)(1 if con.dtype == torch.float64 else 0, con.s, nt, con.nel_h, con.nel_v,
+                                 *[_ptr(a) for a in args], ctypes.c_void_p(stream))
+    if rc != 0:
+        name = lib.euler3d_advection_tangent_error_string(rc).decode()
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc} ({name})")
+
+
+def euler3d_advection_tangent_prep(q, halo_q, con: E3Constants) -> AdvectionTangentCoefficients:
+    """The linearisation of the advection operator at ``q`` (5 + nt rows;
+    ``halo_q`` its neighbour halos), once per linearisation point: the
+    coefficient buffer the apply reads.
+
+    A CPU tensor runs ``euler3d_advection_tangent_prep_plain`` (any number of
+    tracers); a CUDA tensor makes one launch of the prep kernel, its node
+    and interface passes (csrc/euler3d_advection_tangent.cu, built at first
+    use), on the current stream, without synchronising, counted in
+    ``advection_tangent_prep_launches``, or raises. The kernel takes 1 or 4
+    tracers and the flat metric."""
+    global advection_tangent_prep_launches
+    nt = q.shape[0] - 5
+    if nt < 1:
+        raise ValueError(f"the advection tangent needs at least one tracer row, not {q.shape[0]} rows")
+    state, traces = _advection_shapes(q, con)
+    _check_tensors(con, {"q": (q, state), "halo_q": (halo_q, traces)})
+    _check_device(q, "euler3d_advection_tangent_prep")
+    if q.device.type == "cpu":
+        return euler3d_advection_tangent_prep_plain(q, halo_q, con)
+    _check_advection_kernel(con, nt, "euler3d_advection_tangent_prep")
+    values = torch.empty(advection_tangent_layout(con, nt)["size"], dtype=q.dtype, device=q.device)
+    _launch_advection_tangent("euler3d_advection_tangent_prep_launch", con, nt, q, halo_q, con.ops1d, values)
+    advection_tangent_prep_launches += 1
+    return AdvectionTangentCoefficients(values, nt)
+
+
+def euler3d_advection_tangent_apply(v, halo_v, coef: AdvectionTangentCoefficients, con: E3Constants):
+    """J.v of the advection operator from the linearisation ``coef``
+    (``euler3d_advection_tangent_prep``) in the direction ``v`` (5 + nt
+    rows) with its neighbour halos ``halo_v``, once per Jacobian action;
+    rows 0-4 exactly 0.
+
+    A CPU tensor runs ``euler3d_advection_tangent_apply_plain``; a CUDA
+    tensor makes one launch of the apply kernel, its interface and volume
+    passes (csrc/euler3d_advection_tangent.cu), on the current stream,
+    without synchronising, counted in ``advection_tangent_apply_launches``,
+    or raises."""
+    global advection_tangent_apply_launches
+    nt = coef.ntracer
+    if v.shape[0] != 5 + nt:
+        raise ValueError(f"the direction has {v.shape[0]} rows; the linearisation holds {5 + nt}")
+    state, traces = _advection_shapes(v, con)
+    _check_tensors(con, {"v": (v, state), "halo_v": (halo_v, traces),
+                         "coefficients": (coef.values, (advection_tangent_layout(con, nt)["size"],))})
+    _check_device(v, "euler3d_advection_tangent_apply")
+    if v.device.type == "cpu":
+        return euler3d_advection_tangent_apply_plain(v, halo_v, coef, con)
+    _check_advection_kernel(con, nt, "euler3d_advection_tangent_apply")
+    rows = torch.empty(nt * advection_interface_points(con), dtype=v.dtype, device=v.device)  # between the passes
+    out = torch.empty_like(v)
+    _launch_advection_tangent("euler3d_advection_tangent_apply_launch", con, nt, v, halo_v, con.ops1d, con.fields,
+                              con.itf_x, con.itf_y, con.itf_z, coef.values, rows, out)
+    advection_tangent_apply_launches += 1
+    return out
 
 
 # ---------------------------------------------------------------------------

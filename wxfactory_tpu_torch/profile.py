@@ -119,10 +119,12 @@ def kernel_class(name: str) -> str:
     tangent prep and apply apart), the basis products (cuBLAS GEMM/GEMV/dot
     kernels) or the rest."""
     if any(k in name for k in ("euler3d_tangent_apply_kernel", "euler3d_tangent_prep_kernel",
-                               "euler_cartesian_tangent_kernel", "euler_cartesian_fv_tangent_kernel")):
+                               "euler_cartesian_tangent_kernel", "euler_cartesian_fv_tangent_kernel",
+                               "euler3d_advection_tangent_")):
         return "tangent_kernel"
     if any(k in name for k in ("euler3d_interface_kernel", "euler3d_volume_kernel", "sw_operator_kernel",
-                               "euler_cartesian_operator_kernel", "euler_cartesian_fv_kernel")):
+                               "euler_cartesian_operator_kernel", "euler_cartesian_fv_kernel",
+                               "euler3d_advection_interface_kernel", "euler3d_advection_volume_kernel")):
         return "rhs_kernel"
     low = name.lower()
     if any(k in low for k in ("gemm", "gemv", "dot_kernel", "splitkreduce", "cublas", "cutlass", "xmma")):

@@ -23,7 +23,8 @@ post-step hook), the outputs
 package, the solver-stats database with sampled RHS stage times, the
 runtime file; ``output/manager.py``). The device comes from the caller;
 nothing moves to another device. The distributions the port has not
-ported (ROADMAP queue 1, item 14) raise ``NotImplementedError`` naming it.
+ported (ROADMAP queue 1, item 14) and the multigrid levels of DCMIP 11/12
+(item 19) raise ``NotImplementedError`` naming their item.
 
 On the Cartesian plane (``grid_type = cartesian2d``; the JAX package's
 simulation.py:128-136) the run is the 2D Euler model of cases 1-4 (pill,
@@ -43,10 +44,12 @@ package runs them (its simulation.py:100-127): the advection-only RHS
 (``Euler3DAdvectionRHS``, its own kernel on the card) and a post-step hook
 that overwrites the momenta with rho * the winds at t + dt
 (``testcases.PrescribedWinds``, evaluated on the state's device), after the
-filter and before the NaN guard. The explicit integrators (euler1, tvdrk3)
-step them; the others and a preconditioner need the advection operator's
-Jacobian action and raise naming ROADMAP item 18, a run over several ranks
-naming item 14.
+filter and before the NaN guard. Every integrator above steps them (the
+implicit, exponential and Rosenbrock ones through the advection operator's
+Jacobian action, its own prep and apply kernels on the card), with lu or ilu;
+p-mg and fv-mg raise naming ROADMAP item 19 (the JAX package's levels there
+are the five-variable operator over all 5 + nt rows), a run over several
+ranks naming item 14.
 
 ``[System] distribute`` follows the JAX package's rules
 (``wxfactory_tpu/simulation.py:274-380``) over the processes of a run
@@ -74,7 +77,6 @@ from .geometry import make_cartesian_2d, make_cubed_sphere_2d, make_cubed_sphere
 from .integrators import (BackwardEuler, Bdf2, CrankNicolson, Epi, EpiStiff, Euler1, Ros2, RosExp2, SdirkLstable,
                           Srerk, Tvdrk3)
 from .models import Euler3DAdvectionRHS, Euler3DRHS, EulerCartesianRHS, make_rhs_shallow_water
-from .models.euler_cubesphere import ITEM_18
 from .ops.dfr import make_dfr_operators
 from .ops.filters import make_apply_filters
 from .output import OutputManager
@@ -87,6 +89,8 @@ SPONGE_CASES = (21, 22)
 # The 3D cases of tracer transport under prescribed winds (advection_only there).
 ADVECTION_CASES = (11, 12)
 
+_ITEM_19 = ("ROADMAP queue 1, item 19: the multigrid levels of DCMIP 11/12 (the five-variable operator and its "
+            "tangent over all 5 + nt rows, as the JAX package builds them) are not ported")
 _ITEM_14 = ("ROADMAP queue 1, item 14: the port runs multi-rank only as the tile-parallel TVD-RK3 step; the GSPMD "
             "analogue (EPI/Ros2 across ranks) is not ported")
 
@@ -290,10 +294,9 @@ class Simulation:
         name = c.time_integrator.lower()
         if self.mesh is not None:
             return ShardMapTvdrk3(self._tile_step_maker(), verbose=c.verbose_solver)
-        if self.advection and (name not in ("euler1", "tvdrk3") or c.preconditioner != "none"):
-            raise NotImplementedError(
-                f"{c.time_integrator} (preconditioner {c.preconditioner!r}) on DCMIP {c.case_number}: {ITEM_18}; "
-                "the explicit euler1 and tvdrk3 without a preconditioner run these cases")
+        if self.advection and c.preconditioner in ("p-mg", "fv-mg"):
+            raise NotImplementedError(f"{c.preconditioner} on DCMIP {c.case_number}: {_ITEM_19}; none, lu and ilu "
+                                      "run these cases")
         pre = dict(verbose=c.verbose_solver, preconditioner=self._create_preconditioner())
         if name == "euler1":
             return Euler1(self.rhs, **pre)
